@@ -24,13 +24,32 @@ final line):
    tokens each, 2 of them sampled); the launch counts show every decode step
    went through all four kernels.
 
+Phase 3 also holds the train path's kernels against their plain versions at
+its full-width shapes (attention (8, 32, 2048, 128) bf16 causal and not,
+cross-entropy 16384 x 32000 f32, AdamW over llama3-8b-bench's 4-layer bucket
+of 1.1347 G bf16 parameters with f32 moments), before any model is built:
+the plain attention backward materialises several 4.3 GB f32 score tensors.
+Then:
+
+6. train, card vs CPU — three float32 tiny-gqa train steps (4 layers,
+   B=2, T=64) on the card and on the CPU from the same weights: the same
+   losses and parameters;
+7. train, full width — llama3-8b-bench (D=4096, 32/8 heads, F=14336, vocab
+   32000, bf16) with depth cut to 4 layers, B=8, T=2048, AdamW(lr=1e-4):
+   a warm-up step and 5 timed steps on one batch through the port's
+   ``pretrain`` entry point; every step launches sdpa_fwd 4, sdpa_bwd 4,
+   ce_fwd 1, fused_adamw 1, rms_norm 1 and rms_norm_residual 8 times, and
+   the losses are finite and falling.
+
 The last line of standard output is the JSON result the checker reads; the
-line before it holds the kernels table.
+line before it holds the kernels table, and the line before that the card.
 """
 
 from __future__ import annotations
 
+import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -51,6 +70,28 @@ SPIN_CYCLES_PER_MS = 1.98e6
 NORM_RTOL = 2.0 ** -6
 GEMM_TOL = 2e-2
 ATTN_TOL = 2e-2
+# train kernels: lse 1e-3 absolute (f32 sums over hd=128 products and 2048
+#   exponentials in another order, values ~10); attention gradients
+#   2e-2 * max|ref| per gradient (P and dS round to bf16 before their
+#   products, and gradients span a wide range); cross-entropy 1e-5 relative
+#   (f32 sums of 32000 exponentials in another order); AdamW 4 ULP of each
+#   stored dtype, the bound the JAX suite pins (the kernel repeats the plain
+#   op order, each operation rounded on its own, so 0 is expected).
+LSE_TOL = 1e-3
+GRAD_REL_TOL = 2e-2
+CE_RTOL = 1e-5
+ADAMW_ULP = 4
+# phase 6, card vs CPU in float32: losses 1e-5 relative (sums in another
+#   order); parameters after 3 AdamW steps at lr 1e-3 within 0.2 lr: an
+#   element whose gradient is within f32 noise of zero takes a noise-decided
+#   Adam step of up to lr (tests/test_torch_port_training.py)
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_LR = 1e-3
+TRAIN_PARAM_ATOL = 0.2 * TRAIN_LR
+
+ATTN_SHAPE = (8, 32, 2048, 128)
+CE_SHAPE = (16384, 32000)
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 8, 2048, 5
 
 D, F_DIM, S_DECODE, M_PREFILL = 4096, 14336, 8, 512
 KV, G, HD, PS = 8, 4, 128, 16
@@ -69,7 +110,7 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, iters: int = 30, warmup: int = 3) -> float:
+def time_ms(torch, fn, iters: int = 30, warmup: int = 2) -> float:
     """Mean device time of one call, from CUDA events around ``iters`` calls.
 
     A call of a small kernel takes the host longer to issue than the card
@@ -212,6 +253,176 @@ def check_kernels(torch, cudaex, tnn):
     return rows
 
 
+def ulp_distance(torch, a, b) -> int:
+    """Largest distance between two tensors of one float dtype in units in
+    the last place of that dtype."""
+    bits = torch.int32 if a.dtype == torch.float32 else torch.int16
+    sign = 1 << (31 if a.dtype == torch.float32 else 15)
+
+    def line(x):
+        i = x.contiguous().view(bits).long()
+        return torch.where(i < 0, -(i & (sign - 1)), i)
+
+    return int((line(a) - line(b)).abs().max())
+
+
+def train_row(torch, cudaex, name, shape_tag, err, kernel_fn, plain_fn, lib_fn, bytes_moved,
+              ops, peak, iters=10, plain_iters=3):
+    b_ms, b_by = bound(bytes_moved, ops, peak)
+    lib_ms, lib_note = None, None
+    if lib_fn is not None:
+        try:
+            lib_ms = time_ms(torch, lib_fn, iters)
+        except (RuntimeError, TypeError) as e:   # a library call that refuses these inputs
+            lib_note = f"{type(e).__name__}: {str(e)[:160]}"
+    row = {"name": name, "route": "cuda", "source": cudaex.KERNELS[name].source,
+           "replaces": cudaex.KERNELS[name].replaces, "shape": shape_tag,
+           "max_abs_err": err, "ms": time_ms(torch, kernel_fn, iters),
+           "plain_ms": time_ms(torch, plain_fn, plain_iters, warmup=1), "bound_ms": b_ms,
+           "bound_by": b_by, "library_ms": lib_ms}
+    if lib_note:
+        row["library_note"] = lib_note
+    log(f"  {name:24s} {shape_tag:14s} err {err:.3e}  kernel {row['ms']:.4f} ms  "
+        f"plain {row['plain_ms']:.4f} ms  bound {b_ms:.4f} ms ({b_by})  library "
+        f"{lib_ms if lib_ms is None else round(lib_ms, 4)}{' ' + lib_note if lib_note else ''}")
+    return row
+
+
+def check_train_kernels(torch, cudaex, tnn, toptim_ops, tllama):
+    """The train path's four kernels against their plain versions at its
+    full-width shapes, each timed beside its plain version, its bound and
+    one library call that computes the same function."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    bf16 = torch.bfloat16
+    rows = {}
+
+    # attention forward and backward, causal (the train path) and not
+    B, H, T, hd = ATTN_SHAPE
+    q, k, v, g = (torch.randn(ATTN_SHAPE, generator=gen, device=dev).to(bf16)
+                  for _ in range(4))
+    bh_t = B * H * T
+    for causal in (True, False):
+        tag = f"{B}x{H}x{T}x{hd}{' causal' if causal else ''}"
+        frac = 0.5 if causal else 1.0
+        out, lse = cudaex.sdpa_fwd(q, k, v, causal)
+        want_out, want_lse = tnn.sdpa_fwd_plain(q, k, v, causal)
+        torch.cuda.synchronize()
+        err = float((out.float() - want_out.float()).abs().max())
+        lse_err = float((lse - want_lse).abs().max())
+        if not (torch.allclose(out.float(), want_out.float(), atol=ATTN_TOL, rtol=ATTN_TOL)
+                and lse_err <= LSE_TOL):
+            raise AssertionError(f"sdpa_fwd {tag}: out err {err}, lse err {lse_err}")
+        rows.setdefault("sdpa_fwd", []).append(train_row(
+            torch, cudaex, "sdpa_fwd", tag, err, lambda: cudaex.sdpa_fwd(q, k, v, causal),
+            lambda: tnn.sdpa_fwd_plain(q, k, v, causal),
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal),
+            4 * bh_t * hd * 2 + bh_t * 4, 4.0 * bh_t * T * hd * frac, BF16_FLOPS))
+        # the backward from the plain forward's (out, lse), so it is held alone
+        got = cudaex.sdpa_bwd(g, q, k, v, want_out, want_lse, causal)
+        want = tnn.sdpa_bwd_plain(g, q, k, v, want_out, want_lse, causal)
+        torch.cuda.synchronize()
+        errs = []
+        for name_, a, b in zip(("dq", "dk", "dv"), got, want):
+            e = float((a.float() - b.float()).abs().max())
+            lim = GRAD_REL_TOL * float(b.float().abs().max())
+            if e > lim:
+                raise AssertionError(f"sdpa_bwd {tag}: {name_} err {e} > {lim}")
+            errs.append(e)
+        del got, want
+        lib = None
+        try:
+            fa = torch.ops.aten._scaled_dot_product_flash_attention(q, k, v, 0.0, causal)
+
+            def lib():
+                return torch.ops.aten._scaled_dot_product_flash_attention_backward(
+                    g, q, k, v, fa[0], fa[1], fa[2], fa[3], fa[4], fa[5], 0.0, causal,
+                    fa[6], fa[7])
+        except (RuntimeError, TypeError) as e:
+            log(f"  aten flash attention unavailable: {str(e).splitlines()[0][:200]}")
+        rows.setdefault("sdpa_bwd", []).append(train_row(
+            torch, cudaex, "sdpa_bwd", tag, max(errs),
+            lambda: cudaex.sdpa_bwd(g, q, k, v, want_out, want_lse, causal),
+            lambda: tnn.sdpa_bwd_plain(g, q, k, v, want_out, want_lse, causal), lib,
+            8 * bh_t * hd * 2 + bh_t * 4, 10.0 * bh_t * T * hd * frac, BF16_FLOPS))
+        del out, lse, want_out, want_lse, lib
+        gc.collect()
+        torch.cuda.empty_cache()
+    del q, k, v, g
+
+    # cross-entropy over the loss's f32 logits, with some ignored rows
+    N, V = CE_SHAPE
+    logits = torch.randn(CE_SHAPE, generator=gen, device=dev) * 2.0
+    target = torch.randint(0, V, (N,), generator=gen, device=dev)
+    target[::97] = -100
+    nll, lse = cudaex.ce_fwd(logits, target)
+    want_nll, want_lse = tnn.ce_fwd_plain(logits, target)
+    torch.cuda.synchronize()
+    err = float(max((nll - want_nll).abs().max(), (lse - want_lse).abs().max()))
+    for a, b in ((nll, want_nll), (lse, want_lse)):
+        if not torch.allclose(a, b, rtol=CE_RTOL, atol=CE_RTOL * float(b.abs().max())):
+            raise AssertionError(f"ce_fwd: err {err}")
+    if float(nll[::97].abs().max()) != 0.0:
+        raise AssertionError("ce_fwd: an ignored row has a non-zero nll")
+    rows["ce_fwd"] = [train_row(
+        torch, cudaex, "ce_fwd", f"{N}x{V} f32", err, lambda: cudaex.ce_fwd(logits, target),
+        lambda: tnn.ce_fwd_plain(logits, target),
+        lambda: F.cross_entropy(logits, target, reduction="none"),
+        N * V * 4 + N * 8 + 2 * N * 4, 4.0 * N * V, F32_FLOPS)]
+    log("    (library: F.cross_entropy(reduction='none') gives nll without lse)")
+    del logits, target, nll, lse, want_nll, want_lse
+
+    # AdamW over the 4-layer llama3-8b-bench bucket: one launch, in place
+    cfg = tllama.CONFIGS["llama3-8b-bench"]
+    ps = tllama.init_params(cfg, seed=2, device=dev, n_layers=TRAIN_LAYERS)
+    from thunder_tpu_torch.optim import tree_leaves
+    ps = tree_leaves(ps)
+    n = sum(p.numel() for p in ps)
+    gs = [torch.randn(p.shape, generator=gen, device=dev).mul_(1e-3).to(bf16) for p in ps]
+    ms = [torch.randn(p.shape, generator=gen, device=dev).mul_(1e-3) for p in ps]
+    vs = [torch.rand(p.shape, generator=gen, device=dev).mul_(1e-6) for p in ps]
+    step = 10
+    bc = torch.tensor([1 - 0.9 ** step, 1 - 0.999 ** step], dtype=torch.float32, device=dev)
+    hyper = dict(lr=1e-4, beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.01)
+    want = [toptim_ops.adamw_step_plain(p, g_, m, v_, bc[0], bc[1], **hyper)
+            for p, g_, m, v_ in zip(ps, gs, ms, vs)]
+    tables: dict = {}
+    cudaex.fused_adamw(ps, gs, ms, vs, bc, tables=tables, **hyper)
+    torch.cuda.synchronize()
+    ulp = max(ulp_distance(torch, a, b) for got, w in zip(zip(ps, ms, vs), want)
+              for a, b in zip(got, w))
+    err = max(float((a.float() - b.float()).abs().max()) for got, w in zip(zip(ps, ms, vs), want)
+              for a, b in zip(got, w))
+    del want
+    if ulp > ADAMW_ULP:
+        raise AssertionError(f"fused_adamw: {ulp} ULP from adamw_step_plain")
+    log(f"  fused_adamw: {len(ps)} tensors, {n} parameters, max {ulp} ULP from the plain version")
+
+    def plain_adamw():
+        for p, g_, m, v_ in zip(ps, gs, ms, vs):
+            toptim_ops.adamw_step_plain(p, g_, m, v_, bc[0], bc[1], **hyper)
+
+    lib = None
+    if hasattr(torch, "_fused_adamw_"):
+        lp, lm, lv = ([t.clone() for t in ts] for ts in (ps, ms, vs))
+        steps_t = [torch.full((), float(step), device=dev) for _ in ps]
+
+        def lib():
+            torch._fused_adamw_(lp, gs, lm, lv, [], steps_t, lr=hyper["lr"], beta1=0.9,
+                                beta2=0.999, weight_decay=0.01, eps=1e-8, amsgrad=False,
+                                maximize=False)
+    rows["fused_adamw"] = [train_row(
+        torch, cudaex, "fused_adamw", f"{n} bf16", err,
+        lambda: cudaex.fused_adamw(ps, gs, ms, vs, bc, tables=tables, **hyper), plain_adamw,
+        lib, n * 22, 12.0 * n, F32_FLOPS, iters=10, plain_iters=2)]
+    del ps, gs, ms, vs, lib
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 4: tiny-gqa float32 on the card vs the CPU
 # ---------------------------------------------------------------------------
@@ -267,7 +478,7 @@ def full_width(np, torch, tllama, ServingEngine, SamplingParams, cudaex):
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t) * 1e3)
         after = cudaex.launch_counts()
-        step_counts.append({k: after[k] - before[k] for k in after})
+        step_counts.append({k: after[k] - before[k] for k in after if after[k] != before[k]})
         step_rows.append(sum(r is not None and r.state == "decode" for r in eng.slots))
         return out
 
@@ -299,7 +510,7 @@ def full_width(np, torch, tllama, ServingEngine, SamplingParams, cudaex):
     for i, c in enumerate(step_counts):
         if c != expect:
             raise AssertionError(f"decode step {i} launched {c}, expected {expect}")
-    if any(counts[k] == 0 for k in counts):
+    if any(counts[k] == 0 for k in expect):
         raise AssertionError(f"a kernel of the path never launched: {counts}")
     decode_tokens = sum(step_rows)
     return {
@@ -318,6 +529,60 @@ def full_width(np, torch, tllama, ServingEngine, SamplingParams, cudaex):
     }
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the train step, tiny-gqa float32 on the card vs the CPU
+# ---------------------------------------------------------------------------
+
+def train_card_vs_cpu(np, torch, tllama, pretrain):
+    from thunder_tpu_torch.optim import tree_leaves, tree_map
+
+    cfg = tllama.CONFIGS["tiny-gqa"]
+    cpu = tllama.init_params(cfg, seed=0, device="cpu")
+    card = tree_map(lambda t: t.cuda(), cpu)
+    kw = dict(batch=2, seq=64, steps=3, lr=TRAIN_LR, seed=0)
+    a = pretrain.run("tiny-gqa", device="cuda", params=card, **kw)
+    b = pretrain.run("tiny-gqa", device="cpu", params=cpu, **kw)
+    if not np.allclose(a["losses"], b["losses"], rtol=TRAIN_LOSS_RTOL, atol=0):
+        raise AssertionError(f"card losses {a['losses']} != CPU losses {b['losses']}")
+    perr = max(float((x.detach().cpu() - y.detach()).abs().max())
+               for x, y in zip(tree_leaves(card), tree_leaves(cpu)))
+    if perr > TRAIN_PARAM_ATOL:
+        raise AssertionError(f"card and CPU parameters differ by {perr} after 3 steps")
+    L = cfg.n_layers
+    expect = {"sdpa_fwd": L, "sdpa_bwd": L, "ce_fwd": 1, "fused_adamw": 1, "rms_norm": 1,
+              "rms_norm_residual": 2 * L}
+    for i, st in enumerate(a["per_step"]):
+        if st["launches"] != expect:
+            raise AssertionError(f"tiny-gqa train step {i} launched {st['launches']}")
+    return {"layers": L, "losses_card": a["losses"], "losses_cpu": b["losses"],
+            "max_param_diff": perr, "launches_per_step": expect}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the train step at full width, depth cut to 4 layers
+# ---------------------------------------------------------------------------
+
+def train_full_width(torch, cudaex, pretrain):
+    cudaex.reset_launch_counts()
+    out = pretrain.run("llama3-8b-bench", layers=TRAIN_LAYERS, batch=TRAIN_BATCH,
+                       seq=TRAIN_SEQ, steps=TRAIN_STEPS, lr=1e-4, seed=0, device="cuda")
+    counts = cudaex.launch_counts()
+    L = TRAIN_LAYERS
+    expect = {"sdpa_fwd": L, "sdpa_bwd": L, "ce_fwd": 1, "fused_adamw": 1, "rms_norm": 1,
+              "rms_norm_residual": 2 * L}
+    for i, st in enumerate(out["per_step"]):
+        if st["launches"] != expect:
+            raise AssertionError(f"train step {i} launched {st['launches']}, expected {expect}")
+    losses = out["losses"]
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train losses not finite and falling: {losses}")
+    if any(counts[k] == 0 for k in expect):
+        raise AssertionError(f"a kernel of the train path never launched: {counts}")
+    out["launches"] = counts
+    out["launches_per_step"] = expect
+    return out
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -329,9 +594,11 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     try:
+        from thunder_tpu_torch.benchmarks import pretrain
         from thunder_tpu_torch.executors import cudaex
         from thunder_tpu_torch.models import llama as tllama
         from thunder_tpu_torch.ops import nn as tnn
+        from thunder_tpu_torch.ops import optim as toptim_ops
         from thunder_tpu_torch.serving import SamplingParams, ServingEngine
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})", file=sys.stderr)
@@ -348,22 +615,37 @@ def main() -> int:
 
     log("kernels vs plain versions (bf16, full width):")
     rows = check_kernels(torch, cudaex, tnn)
+    train_rows = check_train_kernels(torch, cudaex, tnn, toptim_ops, tllama)
     log(f"card vs CPU (tiny-gqa, float32): {json.dumps(card_vs_cpu(np, torch, tllama, ServingEngine))}")
 
     fw = full_width(np, torch, tllama, ServingEngine, SamplingParams, cudaex)
     fw["card"] = card
     log("full width: " + json.dumps(fw))
+    gc.collect()                      # the engine and its 16 GB of weights
+    torch.cuda.empty_cache()
 
+    tc = train_card_vs_cpu(np, torch, tllama, pretrain)
+    log(f"train card vs CPU (tiny-gqa, float32): {json.dumps(tc)}")
+    tw = train_full_width(torch, cudaex, pretrain)
+    log(f"train full width: step {tw['step_ms']:.1f} ms, {tw['tokens_per_s']:.0f} tokens/s, "
+        f"{100 * tw['share_of_989_tflops']:.1f}% of 989 TFLOP/s, peak "
+        f"{tw['peak_memory_gb']:.2f} GB, AdamW {tw['optimizer_ms']:.3f} ms, losses "
+        f"{[round(x, 4) for x in tw['losses']]} ({tw['card']})")
+
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")
     kernels = []
     for name, rs in rows.items():
-        r = dict(rs[0])                       # the decode shape
-        r["launches"] = fw["launches"][name]
-        kernels.append({k: r[k] for k in ("name", "route", "source", "replaces", "launches",
-                                          "max_abs_err", "ms", "plain_ms", "bound_ms",
-                                          "bound_by", "library_ms")})
-    prefill_rows = [dict(rs[1], card=card) for rs in rows.values() if len(rs) > 1]
-    log("prefill-shape kernels: " + json.dumps(prefill_rows))
+        r = dict(rs[0], launches=fw["launches"][name])     # the decode shape
+        kernels.append({k: r[k] for k in keys})
+    for name, rs in train_rows.items():
+        r = dict(rs[0], launches=tw["launches"][name])     # the train path's shape
+        kernels.append({k: r[k] for k in keys})
+    other_rows = [dict(r, card=card) for rs in (*rows.values(), *train_rows.values())
+                  for r in rs[1:]]
+    log("other-shape kernels: " + json.dumps(other_rows))
     log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

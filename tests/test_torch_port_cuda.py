@@ -11,6 +11,14 @@ Tolerances: float32 1e-5 for the norms and paged attention and 1e-4 for
 norms (the kernel's f32 statistics round differently in the last f32 bits,
 which can move a bf16 rounding by one step) and 2e-2 for ``linear_act`` and
 paged attention (bf16 inputs, f32 sums in another order).
+
+Training kernels: attention forward 1e-5 (f32) and 2e-2 (bf16: P is rounded
+to bf16 before the PV product), lse 1e-4; attention gradients 1e-4 (f32) and
+2e-2 (bf16: P and dS are rounded to bf16 before their products) times the
+gradient's max abs, since gradients span a wide range; cross-entropy 1e-5
+relative; AdamW 4 ULP of each stored dtype (the kernel repeats the plain
+version's op order with every operation rounded on its own, so it is
+expected to agree bit for bit).
 """
 
 import math
@@ -131,4 +139,125 @@ def test_cuda_engine_tokens_match_cpu(cuda_device):
         eng.assert_quiescent()
         outs[device] = [r.output().tolist() for r in reqs]
     assert outs["cuda"] == outs["cpu"]
-    assert all(n > 0 for n in cudaex.launch_counts().values())
+    counts = cudaex.launch_counts()
+    assert all(counts[k] > 0 for k in ("rms_norm", "rms_norm_residual", "linear_act",
+                                       "paged_decode_attention")), counts
+
+
+# ---------------------------------------------------------------------------
+# training kernels
+# ---------------------------------------------------------------------------
+
+ATTN_SHAPES = [(64, 64, True), (100, 100, True), (64, 130, False), (130, 64, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,S,causal", ATTN_SHAPES,
+                         ids=[f"T{t}-S{s}-{'causal' if c else 'full'}" for t, s, c in ATTN_SHAPES])
+@pytest.mark.parametrize("dtype,hd", [(torch.float32, 16), (torch.bfloat16, 16),
+                                      (torch.bfloat16, 64), (torch.bfloat16, 128)])
+def test_cuda_sdpa_matches_plain(cuda_device, dtype, hd, T, S, causal):
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=cuda_device).to(dtype)
+
+    q, k, v, g = rnd(2, 3, T, hd), rnd(2, 3, S, hd), rnd(2, 3, S, hd), rnd(2, 3, T, hd)
+    out, lse = cudaex.sdpa_fwd(q, k, v, causal)
+    torch.cuda.synchronize()
+    want_out, want_lse = tnn.sdpa_fwd_plain(q, k, v, causal)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), want_out.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-4)
+    # the backward from the plain forward's (out, lse), so it is checked alone
+    got = cudaex.sdpa_bwd(g, q, k, v, want_out, want_lse, causal)
+    torch.cuda.synchronize()
+    want = tnn.sdpa_bwd_plain(g, q, k, v, want_out, want_lse, causal)
+    rel = 1e-4 if dtype == torch.float32 else 2e-2
+    for a, b in zip(got, want):
+        scale = float(b.float().abs().max())
+        torch.testing.assert_close(a.float(), b.float(), atol=rel * scale, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("V", [32000, 1001])
+def test_cuda_ce_fwd_matches_plain(cuda_device, dtype, V):
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    logits = (torch.randn(37, V, generator=gen, device=cuda_device) * 4).to(dtype)
+    target = torch.randint(0, V, (37,), generator=gen, device=cuda_device)
+    target[[0, 5, 36]] = -100
+    nll, lse = cudaex.ce_fwd(logits, target)
+    torch.cuda.synchronize()
+    want_nll, want_lse = tnn.ce_fwd_plain(logits, target)
+    torch.testing.assert_close(nll, want_nll, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-5)
+    assert float(nll[5]) == 0.0
+
+
+def _ulp_distance(a: torch.Tensor, b: torch.Tensor) -> int:
+    bits = torch.int32 if a.dtype == torch.float32 else torch.int16
+    sign = 1 << (31 if a.dtype == torch.float32 else 15)
+
+    def line(x):
+        i = x.contiguous().view(bits).long()
+        return torch.where(i < 0, -(i & (sign - 1)), i)
+
+    return int((line(a) - line(b)).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p_dtype,m_dtype", [(torch.float32, torch.float32),
+                                             (torch.bfloat16, torch.float32),
+                                             (torch.bfloat16, torch.bfloat16)])
+def test_cuda_fused_adamw_matches_plain(cuda_device, p_dtype, m_dtype):
+    """Three steps with fixed gradients over a bucket of ragged sizes (a
+    tensor's tail of fewer than 4 elements, several chunks): at each step
+    the kernel, from the same state, matches adamw_step_plain."""
+    from thunder_tpu_torch.ops import optim as toptim_ops
+
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    shapes = [(64, 64), (37,), (4097,), (3, 5000), (1,)]
+    ps = [torch.randn(s, generator=gen, device=cuda_device).to(p_dtype) for s in shapes]
+    gs = [torch.randn(s, generator=gen, device=cuda_device).to(p_dtype) for s in shapes]
+    ms = [torch.zeros(s, device=cuda_device, dtype=m_dtype) for s in shapes]
+    vs = [torch.zeros(s, device=cuda_device, dtype=torch.float32) for s in shapes]
+    hyper = dict(lr=1e-2, beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.01)
+    tables: dict = {}
+    for step in range(1, 4):
+        bc = torch.tensor([1 - 0.9 ** step, 1 - 0.999 ** step], dtype=torch.float32,
+                          device=cuda_device)
+        want = [toptim_ops.adamw_step_plain(p, g, m, v, bc[0], bc[1], **hyper)
+                for p, g, m, v in zip(ps, gs, ms, vs)]
+        cudaex.fused_adamw(ps, gs, ms, vs, bc, tables=tables, **hyper)
+        torch.cuda.synchronize()
+        for got, w in zip(zip(ps, ms, vs), want):
+            for a, b in zip(got, w):
+                assert _ulp_distance(a, b) <= 4
+        ps = [w[0] for w in want]   # the next step starts from the plain result
+        ms = [w[1].clone() for w in want]
+        vs = [w[2].clone() for w in want]
+    assert len(tables) >= 1
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_matches_cpu(cuda_device):
+    """Three float32 tiny-gqa train steps on the card (every kernel of the
+    train path) and on the CPU from the same weights: losses to 1e-5
+    relative, parameters to 0.2 lr (see tests/test_torch_port_training.py)."""
+    from thunder_tpu_torch.benchmarks import pretrain
+    from thunder_tpu_torch.models import llama
+    from thunder_tpu_torch.optim import tree_leaves, tree_map
+
+    cfg = llama.CONFIGS["tiny-gqa"]
+    cpu = llama.init_params(cfg, seed=0, device="cpu", n_layers=2)
+    card = tree_map(lambda t: t.cuda(), cpu)
+    cudaex.reset_launch_counts()
+    a = pretrain.run("tiny-gqa", batch=2, seq=64, steps=3, lr=1e-3, device="cuda", params=card)
+    b = pretrain.run("tiny-gqa", batch=2, seq=64, steps=3, lr=1e-3, device="cpu", params=cpu)
+    np.testing.assert_allclose(a["losses"], b["losses"], rtol=1e-5)
+    for x, y in zip(tree_leaves(card), tree_leaves(cpu)):
+        np.testing.assert_allclose(x.detach().cpu().numpy(), y.detach().numpy(), atol=2e-4)
+    for step in a["per_step"]:
+        assert step["launches"] == {"sdpa_fwd": 2, "sdpa_bwd": 2, "ce_fwd": 1,
+                                    "fused_adamw": 1, "rms_norm": 1, "rms_norm_residual": 4}

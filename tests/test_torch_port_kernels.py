@@ -237,6 +237,12 @@ def test_wrappers_refuse_cpu_tensors(name):
         "paged_decode_attention": lambda: cudaex.paged_decode_attention(
             x.reshape(2, 1, 1, 16), torch.zeros(1, 2, 4, 16), torch.zeros(1, 2, 4, 16),
             torch.zeros(2, 1, dtype=torch.int32), torch.ones(2, dtype=torch.int32)),
+        "sdpa_fwd": lambda: cudaex.sdpa_fwd(x, x, x, True),
+        "sdpa_bwd": lambda: cudaex.sdpa_bwd(x, x, x, x, x, torch.zeros(2, 1), True),
+        "ce_fwd": lambda: cudaex.ce_fwd(x[:, 0], torch.zeros(2, dtype=torch.int64)),
+        "fused_adamw": lambda: cudaex.fused_adamw(
+            [x], [x], [x], [x], torch.ones(2), lr=1e-3, beta1=0.9, beta2=0.999, eps=1e-8,
+            weight_decay=0.0),
     }
     before = cudaex.launch_counts()[name]
     with pytest.raises(ValueError, match="CUDA tensors"):
@@ -256,3 +262,8 @@ def test_public_functions_refuse_other_devices():
         tnn.rms_norm(x)
     with pytest.raises(ValueError, match="not supported"):
         tnn.linear_act(x, torch.zeros(4, 8, device="meta"))
+    q = torch.zeros(1, 2, 8, 16, device="meta")
+    with pytest.raises(ValueError, match="not supported"):
+        tnn.sdpa_fwd(q, q, q, True)
+    with pytest.raises(ValueError, match="not supported"):
+        tnn.ce_fwd(x, torch.zeros(2, dtype=torch.int64, device="meta"))

@@ -1,9 +1,11 @@
 // Helpers shared by the Hopper kernels of thunder_tpu_torch: float <-> storage
-// conversions, rounding through the storage type, and block/warp sums.
+// conversions, rounding through the storage type, block/warp sums, and the
+// warp-level bf16 tensor-core product the attention kernels are built from.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 // dtype codes passed from the Python wrappers (executors/cudaex.py)
 #define TT_F32 0
@@ -48,6 +50,73 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   }
   __syncthreads();
   return red[0];
+}
+
+// ---------------------------------------------------------------------------
+// mma.sync m16n8k16, bf16 in, f32 accumulate: D (16x8) += A (16x16) * B (16x8).
+// Fragment layout (PTX ISA), with g = lane / 4 and t = lane % 4; each A/B
+// register holds two bf16, the lower column (or k) in the low half:
+//   A: a[0] = (row g, k 2t..2t+1)   a[1] = (row g+8, k 2t..2t+1)
+//      a[2] = (row g, k 2t+8..+9)   a[3] = (row g+8, k 2t+8..+9)
+//   B: b0 = (k 2t..2t+1, col g)     b1 = (k 2t+8..+9, col g)
+//   D: d[0], d[1] = (row g, col 2t, 2t+1)   d[2], d[3] = (row g+8, col 2t, 2t+1)
+// So the D fragments of two neighbouring 8-column tiles, packed to bf16, are
+// the A fragment of a 16-deep product over those 16 columns.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats rounded to bf16 and packed (lo in the low half)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// two bf16 values from separate addresses, packed (lo in the low half)
+__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+}
+
+// two neighbouring bf16 values (4-byte aligned) as one register
+__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// A fragment of rows [r, r+16) and k [k0, k0+16) of a row-major bf16 tile in
+// shared memory with row stride ld
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const __nv_bfloat16* tile, int ld,
+                                       int r, int k0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const __nv_bfloat16* p = tile + (r + g) * ld + k0 + 2 * t;
+  a[0] = ld_pair(p);
+  a[1] = ld_pair(p + 8 * ld);
+  a[2] = ld_pair(p + 8);
+  a[3] = ld_pair(p + 8 * ld + 8);
+}
+
+// Copy rows [row0, row0 + rows) of a row-major (n_rows, HD) bf16 matrix into
+// shared memory with row stride ld, in 16-byte chunks (neighbouring threads on
+// neighbouring addresses); rows at or past n_rows are zero.
+template <int HD>
+__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, int ld,
+                                           const __nv_bfloat16* __restrict__ src, int row0,
+                                           int rows, int n_rows) {
+  constexpr int CH = HD / 8;
+  for (int c = threadIdx.x; c < rows * CH; c += blockDim.x) {
+    const int r = c / CH, col = (c % CH) * 8;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < n_rows)
+      v = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(row0 + r) * HD + col);
+    *reinterpret_cast<uint4*>(dst + r * ld + col) = v;
+  }
 }
 
 }  // namespace tt

@@ -1,7 +1,8 @@
-"""Hand-written Hopper kernels of the serving path: build, binding, wrappers.
+"""Hand-written Hopper kernels of the port: build, binding, wrappers.
 
-The counterpart of ``thunder_tpu/executors/pallasex.py`` for the four
-kernels the per-op serving decode step runs. Each kernel is CUDA C++ for
+The counterpart of ``thunder_tpu/executors/pallasex.py`` for the kernels the
+per-op serving decode step and the single-device train step run. Each
+kernel is CUDA C++ for
 ``sm_90a`` in ``thunder_tpu_torch/csrc/``; its source note names the Pallas
 function it replaces, its bound on an H100, and what its design does about
 that bound.
@@ -82,6 +83,18 @@ KERNELS = {k.name: k for k in (
            "thunder_tpu_torch/csrc/paged_decode_attention.cu",
            "thunder_tpu/executors/pallasex.py:1316", "tt_paged_decode_attention",
            (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P)),
+    Kernel("sdpa_fwd", "thunder_tpu_torch/csrc/sdpa_fwd.cu",
+           "thunder_tpu/executors/pallasex.py:214", "tt_sdpa_fwd",
+           (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P)),
+    Kernel("sdpa_bwd", "thunder_tpu_torch/csrc/sdpa_bwd.cu",
+           "thunder_tpu/executors/pallasex.py:537", "tt_sdpa_bwd",
+           (_P,) * 10 + (_I, _I, _I, _I, _F, _I, _I, _I, _P)),
+    Kernel("ce_fwd", "thunder_tpu_torch/csrc/ce_fwd.cu",
+           "thunder_tpu/executors/pallasex.py:686", "tt_ce_fwd",
+           (_P, _P, _P, _P, _L, _I, _L, _I, _I, _P)),
+    Kernel("fused_adamw", "thunder_tpu_torch/csrc/fused_adamw.cu",
+           "thunder_tpu/executors/pallasex.py:1944", "tt_fused_adamw",
+           (_P, _I, _L, _P) + (_F,) * 7 + (_I, _I, _I, _I, _P)),
 )}
 
 _build_lock = threading.Lock()
@@ -303,3 +316,136 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
             B, H, KV, P, ps, hd, block_tables.shape[1], scale,
             _DTYPE_CODES[q.dtype], q.device.index, _stream(q))
     return out
+
+
+def _attn_dims(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """(batch*heads, T, S, hd) of q (..., T, hd) against k, v (..., S, hd)."""
+    if q.ndim < 3 or k.shape != v.shape or q.shape[:-2] != k.shape[:-2] \
+            or q.shape[-1] != k.shape[-1]:
+        raise ValueError(f"{name}: q {tuple(q.shape)} and k/v {tuple(k.shape)} / "
+                         f"{tuple(v.shape)} must be (..., T, hd) and (..., S, hd) with the "
+                         f"same leading dims")
+    T, hd = q.shape[-2], q.shape[-1]
+    if hd % 16 or not 16 <= hd <= 128:
+        raise ValueError(f"{name}: head dim {hd} must be a multiple of 16 up to 128")
+    for t in (q, k, v):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: operands must be 16-byte aligned")
+    return q.numel() // (T * hd), T, k.shape[-2], hd
+
+
+def sdpa_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, is_causal: bool = False,
+             scale: float | None = None):
+    """Flash-attention forward: ``(out, lse)``; ``out`` in ``q.dtype``, ``lse``
+    (..., T) float32. Causal masking is top-left aligned (row >= col)."""
+    name = "sdpa_fwd"
+    _check(name, q, k, v, dtype=_float_dtype(name, q))
+    BH, T, S, hd = _attn_dims(name, q, k, v)
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(hd)
+    out = torch.empty_like(q)
+    lse = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
+    _launch(name, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            BH, T, S, hd, scale, int(bool(is_causal)), _DTYPE_CODES[q.dtype], q.device.index,
+            _stream(q))
+    return out, lse
+
+
+def sdpa_bwd(g: torch.Tensor, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             out: torch.Tensor, lse: torch.Tensor, is_causal: bool = False,
+             scale: float | None = None):
+    """Flash-attention backward: ``(dq, dk, dv)`` from the output gradient
+    ``g`` and the forward's ``(out, lse)``. One call launches three CUDA
+    kernels (delta, dK/dV, dQ) and counts as one launch."""
+    name = "sdpa_bwd"
+    _check(name, g, q, k, v, out, dtype=_float_dtype(name, q))
+    _check(name, lse, dtype=torch.float32)
+    BH, T, S, hd = _attn_dims(name, q, k, v)
+    if g.shape != q.shape or out.shape != q.shape or lse.shape != q.shape[:-1]:
+        raise ValueError(f"{name}: g {tuple(g.shape)}, out {tuple(out.shape)} and lse "
+                         f"{tuple(lse.shape)} do not match q {tuple(q.shape)}")
+    if lse.device != q.device or g.data_ptr() % 16 or out.data_ptr() % 16:
+        raise ValueError(f"{name}: lse on {lse.device}, q on {q.device}; g and out must be "
+                         f"16-byte aligned")
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(hd)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty_like(lse)
+    _launch(name, g.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+            BH, T, S, hd, scale, int(bool(is_causal)), _DTYPE_CODES[q.dtype], q.device.index,
+            _stream(q))
+    return dq, dk, dv
+
+
+def ce_fwd(logits: torch.Tensor, target: torch.Tensor, ignore_index: int = -100):
+    """Per-row ``(nll, lse)`` float32 of ``logits`` (N, V) against ``target``
+    (N,) int64; rows whose target is ``ignore_index`` get nll 0."""
+    name = "ce_fwd"
+    _check(name, logits, dtype=_float_dtype(name, logits))
+    _check(name, target, dtype=torch.int64)
+    if logits.ndim != 2 or tuple(target.shape) != (logits.shape[0],):
+        raise ValueError(f"{name}: logits {tuple(logits.shape)} must be (N, V) and target "
+                         f"{tuple(target.shape)} (N,)")
+    if target.device != logits.device:
+        raise ValueError(f"{name}: target on {target.device}, logits on {logits.device}")
+    N, V = logits.shape
+    nll = torch.empty(N, dtype=torch.float32, device=logits.device)
+    lse = torch.empty(N, dtype=torch.float32, device=logits.device)
+    _launch(name, logits.data_ptr(), target.data_ptr(), nll.data_ptr(), lse.data_ptr(), N, V,
+            int(ignore_index), _DTYPE_CODES[logits.dtype], logits.device.index,
+            _stream(logits))
+    return nll, lse
+
+
+ADAMW_CHUNK = 4096   # elements per block: CHUNK in csrc/fused_adamw.cu
+_ADAMW_TABLES_KEPT = 8
+
+
+def fused_adamw(params, grads, ms, vs, bc: torch.Tensor, *, lr: float, beta1: float,
+                beta2: float, eps: float, weight_decay: float,
+                tables: dict | None = None) -> None:
+    """AdamW over one bucket in ONE launch, updating ``params``, ``ms`` and
+    ``vs`` in place. ``bc`` is the float32 device tensor ``[1 - beta1**step,
+    1 - beta2**step]``. Params and grads share one dtype; m and v may each be
+    float32 or bfloat16.
+
+    The kernel reads a device table of the tensors' pointers and sizes.
+    ``tables``, a dict the caller owns, keeps built tables keyed on those
+    pointers and sizes, so a step whose tensors sit where the last one's did
+    copies nothing to the card."""
+    name = "fused_adamw"
+    params, grads, ms, vs = list(params), list(grads), list(ms), list(vs)
+    if not params or not len(params) == len(grads) == len(ms) == len(vs):
+        raise ValueError(f"{name}: bucket lengths {len(params)}, {len(grads)}, {len(ms)}, "
+                         f"{len(vs)} must be equal and non-zero")
+    _check(name, *params, *grads, dtype=_float_dtype(name, params[0]))
+    _check(name, *ms, dtype=_float_dtype(name, ms[0]))
+    _check(name, *vs, dtype=_float_dtype(name, vs[0]))
+    _check(name, bc, dtype=torch.float32)
+    dev = params[0].device
+    if any(t.device != dev for t in (ms[0], vs[0], bc)) or tuple(bc.shape) != (2,):
+        raise ValueError(f"{name}: every tensor on {dev}, bc of shape (2,)")
+    for quad in zip(params, grads, ms, vs):
+        if any(t.shape != quad[0].shape for t in quad):
+            raise ValueError(f"{name}: p/g/m/v shapes {[tuple(t.shape) for t in quad]} differ")
+        if any(t.data_ptr() % 16 for t in quad):
+            raise ValueError(f"{name}: tensors must be 16-byte aligned")
+    rows = [(p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(), p.numel())
+            for p, g, m, v in zip(params, grads, ms, vs) if p.numel()]
+    key = tuple(rows)
+    entry = tables.get(key) if tables is not None else None
+    if entry is None:
+        table, first = [], 0
+        for r in rows:
+            table.append(r + (first,))
+            first += -(-r[4] // ADAMW_CHUNK)
+        host = torch.tensor(table or [(0,) * 6], dtype=torch.int64).pin_memory()
+        entry = (host.to(dev, non_blocking=True), first)
+        if tables is not None:
+            if len(tables) >= _ADAMW_TABLES_KEPT:
+                tables.clear()
+            tables[key] = entry
+    table, n_chunks = entry
+    _launch(name, table.data_ptr(), len(rows), n_chunks, bc.data_ptr(), float(lr),
+            float(beta1), float(beta2), float(1.0 - beta1), float(1.0 - beta2), float(eps),
+            float(weight_decay), _DTYPE_CODES[params[0].dtype], _DTYPE_CODES[ms[0].dtype],
+            _DTYPE_CODES[vs[0].dtype], dev.index, _stream(params[0]))

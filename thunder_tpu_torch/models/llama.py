@@ -1,12 +1,13 @@
-"""Llama-family transformer pieces the serving slice runs, in PyTorch.
+"""Llama-family transformer in PyTorch: the pieces the serving slice runs
+and the training forward and loss.
 
 The counterpart of ``thunder_tpu/models/llama.py``: the same configs
 (``CONFIGS``, with torch dtypes), the same parameter tree and scale
 (:func:`init_params`, drawn from an explicit ``torch.Generator``, so its
 numbers differ from the JAX package's for the same seed), the rope tables,
-and the attention/MLP projections. :func:`params_from_jax` carries a JAX
-``init_params`` tree across as numpy, so both packages can run the same
-weights.
+the attention/MLP projections, and ``forward_hidden``/``forward``/``loss_fn``
+for training. :func:`params_from_jax` carries a JAX ``init_params`` tree
+across as numpy, so both packages can run the same weights.
 """
 
 from __future__ import annotations
@@ -55,6 +56,12 @@ CONFIGS = {
     "llama3-8b": LlamaConfig(name="llama3-8b", vocab_size=128256, dim=4096, n_layers=32,
                              n_heads=32, n_kv_heads=8, intermediate_size=14336,
                              max_seq_len=8192, rope_theta=500000.0, dtype=torch.bfloat16),
+    # the reference's training bench variant: llama3-8b's per-layer geometry
+    # (GQA 32/8 heads, MLP 14336) with the vocab capped at 32k and seq at 2048
+    "llama3-8b-bench": LlamaConfig(name="llama3-8b-bench", vocab_size=32000, dim=4096,
+                                   n_layers=32, n_heads=32, n_kv_heads=8,
+                                   intermediate_size=14336, max_seq_len=2048,
+                                   rope_theta=500000.0, dtype=torch.bfloat16),
 }
 
 _LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate", "w_up", "w_down")
@@ -167,3 +174,79 @@ def _mlp(x: torch.Tensor, layer: dict) -> torch.Tensor:
     run as one ``linear_act``, as the reference's epilogue fusion builds it."""
     gate = tnn.linear_act(x, layer["w_gate"], act="silu")
     return F.linear(gate * F.linear(x, layer["w_up"]), layer["w_down"])
+
+
+def _mlp_train(x: torch.Tensor, layer: dict) -> torch.Tensor:
+    """The train step's SwiGLU MLP, without the residual add: the reference's
+    training trace leaves ``silu(linear(x, w_gate))`` unfused (its epilogue
+    pass claims no ``linear_act`` there), so the gate is a projection and
+    ``y * sigmoid(y)``, differentiated by autograd."""
+    y = F.linear(x, layer["w_gate"])
+    return F.linear(y * torch.sigmoid(y) * F.linear(x, layer["w_up"]), layer["w_down"])
+
+
+def _block(h: torch.Tensor, x: torch.Tensor, layer: dict, next_norm: torch.Tensor,
+           cfg: LlamaConfig, cos, sin):
+    """One decoder layer: GQA attention, then the SwiGLU MLP, on the
+    residual stream ``h`` and its normed ``x``. The residual adds fold into
+    the norms that follow them (the layer's ``mlp_norm``, then
+    ``next_norm``: the next layer's ``attn_norm`` or ``norm_f``), as the
+    reference's per-op training trace claims them. Returns ``(h,
+    next_norm(h))``."""
+    B, T = h.shape[0], h.shape[1]
+    n_rep = cfg.n_heads // cfg.kv_heads
+    hd = cfg.head_dim
+    q, k, v = _project_qkv(x, layer, cfg, cos, sin)
+    if n_rep > 1:   # GQA: repeat kv heads, so attention sees (B, n_heads, T, hd)
+        k = k.unsqueeze(2).expand(B, cfg.kv_heads, n_rep, T, hd).reshape(B, cfg.n_heads, T, hd)
+        v = v.unsqueeze(2).expand(B, cfg.kv_heads, n_rep, T, hd).reshape(B, cfg.n_heads, T, hd)
+    attn = tnn.scaled_dot_product_attention(q, k, v, is_causal=True)
+    attn = attn.transpose(1, 2).reshape(B, T, cfg.n_heads * hd)
+    h, x = tnn.rms_norm_residual(h, F.linear(attn, layer["wo"]), layer["mlp_norm"],
+                                 eps=cfg.norm_eps)
+    return tnn.rms_norm_residual(h, _mlp_train(x, layer), next_norm, eps=cfg.norm_eps)
+
+
+def forward_hidden(params: dict, tokens: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+    """tokens (B, T) integer -> final normed hidden states (B, T, D)."""
+    T = tokens.shape[1]
+    h = F.embedding(tokens.long(), params["tok_embedding"])
+    layers = params["layers"]
+    if not layers:
+        return tnn.rms_norm(h, params["norm_f"], eps=cfg.norm_eps)
+    cos, sin = _rope_cos_sin(cfg, T, h.dtype, device=h.device)
+    x = tnn.rms_norm(h, layers[0]["attn_norm"], eps=cfg.norm_eps)
+    for i, layer in enumerate(layers):
+        nxt = layers[i + 1]["attn_norm"] if i + 1 < len(layers) else params["norm_f"]
+        h, x = _block(h, x, layer, nxt, cfg, cos, sin)
+    return x
+
+
+def forward(params: dict, tokens: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+    """tokens (B, T) -> logits (B, T, vocab)."""
+    return F.linear(forward_hidden(params, tokens, cfg), params["lm_head"])
+
+
+def loss_fn(params: dict, tokens: torch.Tensor, targets: torch.Tensor,
+            cfg: LlamaConfig) -> torch.Tensor:
+    """Mean next-token cross-entropy; the logits are materialised and taken
+    to float32, as the reference's unfused loss does."""
+    logits = forward(params, tokens, cfg)
+    B, T, V = logits.shape
+    return tnn.cross_entropy(logits.reshape(B * T, V).float(), targets.reshape(B * T))
+
+
+def num_params(cfg: LlamaConfig, n_layers: int | None = None) -> int:
+    n_layers = n_layers if n_layers is not None else cfg.n_layers
+    kv_dim = cfg.kv_heads * cfg.head_dim
+    per_layer = (2 * cfg.dim + 2 * cfg.dim * cfg.dim + 2 * kv_dim * cfg.dim
+                 + 3 * cfg.dim * cfg.intermediate_size)
+    return 2 * cfg.vocab_size * cfg.dim + cfg.dim + n_layers * per_layer
+
+
+def flops_per_token(cfg: LlamaConfig, seq_len: int, n_layers: int | None = None) -> float:
+    """Model FLOPs per token for forward + backward (6N + attention), the
+    reference's count."""
+    n = num_params(cfg, n_layers) - 2 * cfg.vocab_size * cfg.dim
+    attn = 2 * 2 * (n_layers or cfg.n_layers) * cfg.dim * seq_len
+    return 6 * (n + cfg.vocab_size * cfg.dim) + 3 * attn

@@ -1,19 +1,29 @@
-"""Neural-network functions of the serving slice, each with its plain
-PyTorch version.
+"""Neural-network functions of the port, each with its plain PyTorch
+version.
 
 The counterparts of ``thunder_tpu/ops/nn.py`` ``rms_norm`` (:61),
-``rms_norm_residual`` (:73), ``linear_act`` (:101),
-``paged_decode_attention`` (:367) and ``decode_row_write`` (:447). Each
-public function sends a CUDA tensor to its hand-written kernel
-(:mod:`thunder_tpu_torch.executors.cudaex`) and a CPU tensor to its plain
-version; any other device raises. ``paged_decode_attention`` with T > 1
-(chunked prefill) is outside the decode kernel's contract and always takes
-the plain gather/mask/softmax decomposition, as the JAX package's checker
-leaves it to XLA.
+``rms_norm_residual`` (:73), ``linear_act`` (:101), ``sdpa_fwd`` (:296),
+``ce_fwd`` (:320), ``sdpa_bwd`` (:336), ``paged_decode_attention`` (:367)
+and ``decode_row_write`` (:447). Each public function sends a CUDA tensor to
+its hand-written kernel (:mod:`thunder_tpu_torch.executors.cudaex`) and a
+CPU tensor to its plain version; any other device raises.
+``paged_decode_attention`` with T > 1 (chunked prefill) is outside the
+decode kernel's contract and always takes the plain gather/mask/softmax
+decomposition, as the JAX package's checker leaves it to XLA.
 
 The ``*_plain`` functions repeat the reference's arithmetic op for op
 (statistics in float32, the same roundings), so the CPU path matches the
 JAX package and the card's kernels are held against them.
+
+Gradients (the train step): ``scaled_dot_product_attention`` and
+``cross_entropy`` are ``torch.autograd.Function``s, the counterparts of the
+reference's flash VJP rules ``_sdpa_vjp`` (:642) and ``_cross_entropy_vjp``
+(:763): attention saves ``(q, k, v, out, lse)`` and its backward is the
+``sdpa_bwd`` kernel; cross-entropy's forward is ``ce_fwd`` and its backward
+``(softmax - onehot) * row_scale`` in plain ops, as the reference computes
+it. ``rms_norm`` and ``rms_norm_residual`` take their kernel forward and
+``_rms_norm_vjp``'s (:658) plain backward when a gradient is needed; the
+reference has no backward kernel for them either.
 """
 
 from __future__ import annotations
@@ -101,26 +111,158 @@ def paged_decode_attention_plain(q, k_pages, v_pages, block_tables, lengths,
     return attn.reshape(B, H, T, hd).to(q.dtype)
 
 
+def _causal(scores: torch.Tensor) -> torch.Tensor:
+    """Scores with the top-left aligned causal mask (``tril_mask(L, S, 0)``:
+    row >= col) applied as -inf."""
+    L, S = scores.shape[-2], scores.shape[-1]
+    keep = (torch.arange(L, device=scores.device)[:, None]
+            >= torch.arange(S, device=scores.device)[None, :])
+    return scores.masked_fill(~keep, float("-inf"))
+
+
+def sdpa_fwd_plain(q, k, v, is_causal: bool = False, scale: float | None = None):
+    """Attention forward with the row logsumexp: ``(out, lse)``, in float32
+    and ``out`` rounded once to ``q.dtype``."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if is_causal:
+        scores = _causal(scores)
+    m = torch.amax(scores, -1, keepdim=True)
+    e = torch.exp(scores - m)
+    l = torch.sum(e, -1, keepdim=True)
+    out = torch.matmul(e / l, v.float())
+    lse = m.squeeze(-1) + torch.log(l.squeeze(-1))
+    return out.to(q.dtype), lse
+
+
+def sdpa_bwd_plain(g, q, k, v, out, lse, is_causal: bool = False,
+                   scale: float | None = None):
+    """``(dq, dk, dv)`` from the probabilities recomputed out of ``(q, k,
+    lse)``, with ``delta = rowsum(g * out)``; float32, each gradient rounded
+    once to its input's dtype."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    gf, qf, kf, vf, of = (t.float() for t in (g, q, k, v, out))
+    scores = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    if is_causal:
+        scores = _causal(scores)
+    p = torch.exp(scores - lse.unsqueeze(-1))
+    del scores
+    dv = torch.matmul(p.transpose(-1, -2), gf)
+    dp = torch.matmul(gf, vf.transpose(-1, -2))
+    delta = torch.sum(gf * of, -1, keepdim=True)
+    ds = p * (dp - delta) * scale
+    del p, dp
+    dq = torch.matmul(ds, kf)
+    dk = torch.matmul(ds.transpose(-1, -2), qf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def ce_fwd_plain(logits, target, ignore_index: int = -100):
+    """Per-row ``(nll, lse)`` in float32; rows whose target is
+    ``ignore_index`` get nll 0 and their lse all the same."""
+    lf = logits.float()
+    m = torch.amax(lf, -1, keepdim=True)
+    lse = m.squeeze(-1) + torch.log(torch.sum(torch.exp(lf - m), -1))
+    tgt = target.long()
+    ignored = tgt == ignore_index
+    safe = torch.where(ignored, torch.zeros_like(tgt), tgt)
+    picked = torch.gather(lf, 1, safe.unsqueeze(-1)).squeeze(-1)
+    nll = torch.where(ignored, torch.zeros_like(lse), lse - picked)
+    return nll, lse
+
+
+def rms_norm_bwd_plain(g, a, weight=None, eps: float = 1e-5):
+    """``(da, dweight)`` of ``rms_norm(a, weight, eps)`` for the output
+    gradient ``g``: the row statistics recomputed in float32 (the input's
+    own type when wider), ``da = r * (g*w - xhat * mean(g*w * xhat))``."""
+    wide = torch.float32 if a.dtype in _HALF else a.dtype
+    x, g32 = a.to(wide), g.to(wide)
+    r = torch.rsqrt(torch.mean(x * x, -1, keepdim=True) + eps)
+    xhat = x * r
+    gxhat = g32 * weight.to(wide) if weight is not None else g32
+    proj = torch.mean(gxhat * xhat, -1, keepdim=True)
+    da = (r * (gxhat - xhat * proj)).to(a.dtype)
+    if weight is None:
+        return da, None
+    dw = (g32 * xhat).reshape(-1, a.shape[-1]).sum(0)
+    return da, dw.to(weight.dtype)
+
+
 # ---------------------------------------------------------------------------
 # public functions: kernel on CUDA, plain version on the CPU
 # ---------------------------------------------------------------------------
 
-def rms_norm(a: torch.Tensor, weight: torch.Tensor | None = None,
-             eps: float = 1e-5) -> torch.Tensor:
-    """RMS norm over the last dim; statistics in float32, the normalised
-    row rounded to ``a.dtype`` before the weight multiply."""
+def _needs_grad(*tensors) -> bool:
+    # the norms skip the autograd.Function when no gradient is wanted: the
+    # serving decode step calls them 65 times per step under no autograd
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                           for t in tensors)
+
+
+def _rms_norm(a, weight, eps):
     if _on_cuda(a, "rms_norm"):
         return cudaex.rms_norm(a, weight, eps)
     return rms_norm_plain(a, weight, eps)
 
 
-def rms_norm_residual(residual: torch.Tensor, a: torch.Tensor,
-                      weight: torch.Tensor | None = None, eps: float = 1e-5):
-    """Fused ``h = residual + a``, ``rms_norm(h, weight)``; returns
-    ``(h, normed)``."""
+def _rms_norm_residual(residual, a, weight, eps):
     if _on_cuda(a, "rms_norm_residual"):
         return cudaex.rms_norm_residual(residual, a, weight, eps)
     return rms_norm_residual_plain(residual, a, weight, eps)
+
+
+class _RmsNorm(torch.autograd.Function):
+    """Kernel forward; ``_rms_norm_vjp``'s plain backward from ``(a, weight)``."""
+
+    @staticmethod
+    def forward(ctx, a, weight, eps):
+        ctx.save_for_backward(a, weight)
+        ctx.eps = eps
+        return _rms_norm(a, weight, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, weight = ctx.saved_tensors
+        da, dw = rms_norm_bwd_plain(g, a, weight, ctx.eps)
+        return da, dw, None
+
+
+class _RmsNormResidual(torch.autograd.Function):
+    """Kernel forward of ``(h, rms_norm(h))`` with ``h = residual + a``; the
+    backward sends ``g_h + d rms_norm(h)`` to both addends."""
+
+    @staticmethod
+    def forward(ctx, residual, a, weight, eps):
+        h, out = _rms_norm_residual(residual, a, weight, eps)
+        ctx.save_for_backward(h, weight)
+        ctx.eps = eps
+        return h, out
+
+    @staticmethod
+    def backward(ctx, g_h, g_out):
+        h, weight = ctx.saved_tensors
+        dh, dw = rms_norm_bwd_plain(g_out, h, weight, ctx.eps)
+        dh = g_h + dh
+        return dh, dh, dw, None
+
+
+def rms_norm(a: torch.Tensor, weight: torch.Tensor | None = None,
+             eps: float = 1e-5) -> torch.Tensor:
+    """RMS norm over the last dim; statistics in float32, the normalised
+    row rounded to ``a.dtype`` before the weight multiply. Differentiable
+    in ``a`` and ``weight``."""
+    if _needs_grad(a, weight):
+        return _RmsNorm.apply(a, weight, eps)
+    return _rms_norm(a, weight, eps)
+
+
+def rms_norm_residual(residual: torch.Tensor, a: torch.Tensor,
+                      weight: torch.Tensor | None = None, eps: float = 1e-5):
+    """Fused ``h = residual + a``, ``rms_norm(h, weight)``; returns
+    ``(h, normed)``. Differentiable in all three tensors."""
+    if _needs_grad(residual, a, weight):
+        return _RmsNormResidual.apply(residual, a, weight, eps)
+    return _rms_norm_residual(residual, a, weight, eps)
 
 
 def linear_act(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None,
@@ -152,6 +294,94 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths,
         return cudaex.paged_decode_attention(q, k_pages, v_pages, block_tables, lengths,
                                              scale)
     return paged_decode_attention_plain(q, k_pages, v_pages, block_tables, lengths, scale)
+
+
+def sdpa_fwd(q, k, v, is_causal: bool = False, scale: float | None = None):
+    """Flash-attention forward: ``(out, lse)`` for q (..., T, hd) against
+    k, v (..., S, hd) with the same leading dims; ``lse`` (..., T) float32.
+    Causal masking is top-left aligned (row >= col)."""
+    if _on_cuda(q, "sdpa_fwd"):
+        return cudaex.sdpa_fwd(q, k, v, is_causal, scale)
+    return sdpa_fwd_plain(q, k, v, is_causal, scale)
+
+
+def sdpa_bwd(g, q, k, v, out, lse, is_causal: bool = False, scale: float | None = None):
+    """Flash-attention backward: ``(dq, dk, dv)``."""
+    if _on_cuda(q, "sdpa_bwd"):
+        return cudaex.sdpa_bwd(g, q, k, v, out, lse, is_causal, scale)
+    return sdpa_bwd_plain(g, q, k, v, out, lse, is_causal, scale)
+
+
+def ce_fwd(logits, target, ignore_index: int = -100):
+    """Per-row ``(nll, lse)`` float32 of ``logits`` (N, C) against integer
+    ``target`` (N,)."""
+    if _on_cuda(logits, "ce_fwd"):
+        return cudaex.ce_fwd(logits, target.long(), ignore_index)
+    return ce_fwd_plain(logits, target, ignore_index)
+
+
+class _ScaledDotProductAttention(torch.autograd.Function):
+    """The flash VJP: saves ``(q, k, v, out, lse)``; the backward recomputes
+    the probabilities in ``sdpa_bwd`` instead of saving them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, is_causal, scale):
+        out, lse = sdpa_fwd(q, k, v, is_causal, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.is_causal, ctx.scale = is_causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = sdpa_bwd(g.contiguous(), q, k, v, out, lse, ctx.is_causal, ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def scaled_dot_product_attention(q, k, v, is_causal: bool = False,
+                                 scale: float | None = None) -> torch.Tensor:
+    """``softmax(q k^T * scale [causal]) v`` for q (..., T, hd) and k, v
+    (..., S, hd) with the same leading dims (grouped-query callers expand
+    k/v to the query heads first), differentiable in q, k and v."""
+    return _ScaledDotProductAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(),
+                                            is_causal, scale)
+
+
+class _CrossEntropy(torch.autograd.Function):
+    """Mean cross-entropy over the rows whose target is not ignored."""
+
+    @staticmethod
+    def forward(ctx, logits, target, ignore_index):
+        nll, lse = ce_fwd(logits, target, ignore_index)
+        validf = (target != ignore_index).float()
+        count = torch.clamp(torch.sum(validf), min=1.0)
+        ctx.save_for_backward(logits, target, lse, validf, count)
+        ctx.ignore_index = ignore_index
+        return torch.sum(nll) / count
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, target, lse, validf, count = ctx.saved_tensors
+        # softmax rows minus the one-hot target; subtracting 1 at the target
+        # column is exactly (p - onehot) without the (N, C) one-hot tensor
+        d = (logits.float() - lse.unsqueeze(-1)).exp_()
+        tgt = target.long()
+        safe = torch.where(tgt == ctx.ignore_index, torch.zeros_like(tgt), tgt)
+        rows = torch.arange(d.shape[0], device=d.device)
+        d[rows, safe] -= 1.0
+        d.mul_((validf / count * g).unsqueeze(-1))
+        return d.to(logits.dtype), None, None
+
+
+def cross_entropy(logits: torch.Tensor, target: torch.Tensor,
+                  ignore_index: int = -100) -> torch.Tensor:
+    """Mean negative log-likelihood of ``logits`` (N, C) at integer
+    ``target`` (N,), over the rows whose target is not ``ignore_index``;
+    differentiable in ``logits``."""
+    if logits.ndim != 2 or target.shape != logits.shape[:1]:
+        raise ValueError(f"cross_entropy: logits {tuple(logits.shape)} must be (N, C) and "
+                         f"target {tuple(target.shape)} (N,)")
+    return _CrossEntropy.apply(logits.contiguous(), target, ignore_index)
 
 
 def decode_row_write(pool: torch.Tensor, rows: torch.Tensor,
