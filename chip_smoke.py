@@ -25,11 +25,13 @@ final line):
    went through all four kernels.
 
 Phase 3 also holds the train path's kernels against their plain versions at
-its full-width shapes (attention (8, 32, 2048, 128) bf16 causal and not,
-cross-entropy 16384 x 32000 f32, AdamW over llama3-8b-bench's 4-layer bucket
-of 1.1347 G bf16 parameters with f32 moments), before any model is built:
-the plain attention backward materialises several 4.3 GB f32 score tensors.
-Then:
+its full-width shapes (the norms on (8, 2048, 4096) bf16 activations,
+attention (8, 32, 2048, 128) bf16 causal and not, cross-entropy
+16384 x 32000 f32, AdamW over llama3-8b-bench's 4-layer bucket of 1.1347 G
+bf16 parameters with f32 moments), before any model is built: the plain
+attention backward materialises several 4.3 GB f32 score tensors. It also
+shows that the attention checks fail a fault planted in the last 64 causal
+rows or keys. Then:
 
 6. train, card vs CPU — three float32 tiny-gqa train steps (4 layers,
    B=2, T=64) on the card and on the CPU from the same weights: the same
@@ -42,7 +44,9 @@ Then:
    the losses are finite and falling.
 
 The last line of standard output is the JSON result the checker reads; the
-line before it holds the kernels table, and the line before that the card.
+line before it holds the kernels table (one row per kernel and main path,
+with that path's shape and launch count), and the line before that the
+card.
 """
 
 from __future__ import annotations
@@ -70,10 +74,14 @@ SPIN_CYCLES_PER_MS = 1.98e6
 NORM_RTOL = 2.0 ** -6
 GEMM_TOL = 2e-2
 ATTN_TOL = 2e-2
-# train kernels: lse 1e-3 absolute (f32 sums over hd=128 products and 2048
-#   exponentials in another order, values ~10); attention gradients
-#   2e-2 * max|ref| per gradient (P and dS round to bf16 before their
-#   products, and gradients span a wide range); cross-entropy 1e-5 relative
+# train kernels: attention output and gradients row by row, 2e-2 of each
+#   row's own largest reference value or of a hundredth of the tensor's,
+#   whichever is larger (row_rel_err: P and dS round to bf16
+#   before their products; late causal rows and keys hold values tens of
+#   times smaller than the tensor's largest, so a bound relative to the
+#   whole tensor would pass a fault there, and the check must fail the
+#   planted ones); lse 1e-3 absolute (f32 sums over hd=128 products and
+#   2048 exponentials in another order, values ~10); cross-entropy 1e-5 relative
 #   (f32 sums of 32000 exponentials in another order); AdamW 4 ULP of each
 #   stored dtype, the bound the JAX suite pins (the kernel repeats the plain
 #   op order, each operation rounded on its own, so 0 is expected).
@@ -146,7 +154,73 @@ def bound(bytes_moved: float, ops: float, peak_ops: float):
 # phase 3: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
+def require(ok: bool, msg: str) -> None:
+    if not ok:
+        raise AssertionError(msg)
+
+
+def timed_row(torch, cudaex, name, shape_tag, err, kernel_fn, plain_fn, lib_fn, bytes_moved,
+              ops, peak, iters=30, plain_iters=30):
+    """A kernel's row of the table, once it has been held against its plain
+    version (``err``: the largest absolute difference): its time, its plain
+    version's, its bound from this run's inputs and, where one PyTorch call
+    computes the same function, that call's time."""
+    b_ms, b_by = bound(bytes_moved, ops, peak)
+    lib_ms, lib_note = None, None
+    if lib_fn is not None:
+        try:
+            lib_ms = time_ms(torch, lib_fn, iters)
+        except (RuntimeError, TypeError) as e:   # a library call that refuses these inputs
+            lib_note = f"{type(e).__name__}: {str(e)[:160]}"
+    row = {"name": name, "route": "cuda", "source": cudaex.KERNELS[name].source,
+           "replaces": cudaex.KERNELS[name].replaces, "shape": shape_tag,
+           "max_abs_err": err, "ms": time_ms(torch, kernel_fn, iters),
+           "plain_ms": time_ms(torch, plain_fn, plain_iters, warmup=1), "bound_ms": b_ms,
+           "bound_by": b_by, "library_ms": lib_ms}
+    if lib_note:
+        row["library_note"] = lib_note
+    log(f"  {name:24s} {shape_tag:14s} err {err:.3e}  kernel {row['ms']:.4f} ms  "
+        f"plain {row['plain_ms']:.4f} ms  bound {b_ms:.4f} ms ({b_by})  library "
+        f"{lib_ms if lib_ms is None else round(lib_ms, 4)}{' ' + lib_note if lib_note else ''}")
+    return row
+
+
+def norm_rows(torch, cudaex, tnn, gen, shape):
+    """rms_norm and rms_norm_residual on bf16 ``shape`` (rows of its last
+    dim) against their plain versions; their rows of the table."""
+    import torch.nn.functional as F
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    x, r = (torch.randn(*shape, generator=gen, device=dev).to(bf16) for _ in range(2))
+    d = shape[-1]
+    w = (torch.rand(d, generator=gen, device=dev) + 0.5).to(bf16)
+    n, tag = x.numel(), "x".join(map(str, shape))
+    iters = 30 if n <= M_PREFILL * D else 10
+    got, want = cudaex.rms_norm(x, w, EPS), tnn.rms_norm_plain(x, w, EPS)
+    diff = (got.float() - want.float()).abs()
+    require(bool((diff <= want.float().abs() * NORM_RTOL + 1e-6).all()),
+            f"rms_norm {tag}: kernel disagrees with its plain version ({float(diff.max())})")
+    rows = [timed_row(torch, cudaex, "rms_norm", tag, float(diff.max()),
+                      lambda: cudaex.rms_norm(x, w, EPS), lambda: tnn.rms_norm_plain(x, w, EPS),
+                      lambda: F.rms_norm(x, (d,), w, EPS), 2 * n * 2 + d * 2, 4 * n,
+                      F32_FLOPS, iters, iters)]
+    (gh, gy), (wh, wy) = (cudaex.rms_norm_residual(r, x, w, EPS),
+                          tnn.rms_norm_residual_plain(r, x, w, EPS))
+    dh, dy = (gh.float() - wh.float()).abs(), (gy.float() - wy.float()).abs()
+    err = float(max(dh.max(), dy.max()))
+    require(bool(torch.equal(gh, wh)) and bool((dy <= wy.float().abs() * NORM_RTOL
+                                                 + 1e-6).all()),
+            f"rms_norm_residual {tag}: kernel disagrees with its plain version ({err})")
+    rows.append(timed_row(torch, cudaex, "rms_norm_residual", tag, err,
+                          lambda: cudaex.rms_norm_residual(r, x, w, EPS),
+                          lambda: tnn.rms_norm_residual_plain(r, x, w, EPS), None,
+                          4 * n * 2 + d * 2, 5 * n, F32_FLOPS, iters, iters))
+    return rows
+
+
 def check_kernels(torch, cudaex, tnn):
+    """The serving path's four kernels at its shapes: {name: [rows]}, the
+    decode shape's row first."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
@@ -158,58 +232,24 @@ def check_kernels(torch, cudaex, tnn):
 
     rows = {}
 
-    def record(name, shape_tag, got, want, ok, err, kernel_fn, plain_fn, lib_fn,
-               bytes_moved, ops, peak):
-        torch.cuda.synchronize()
-        if not ok:
-            raise AssertionError(f"{name} {shape_tag}: kernel disagrees with its plain "
-                                 f"version (max abs err {err})")
-        b_ms, b_by = bound(bytes_moved, ops, peak)
-        row = {"name": name, "route": "cuda", "source": cudaex.KERNELS[name].source,
-               "replaces": cudaex.KERNELS[name].replaces, "shape": shape_tag,
-               "max_abs_err": err, "ms": time_ms(torch, kernel_fn),
-               "plain_ms": time_ms(torch, plain_fn), "bound_ms": b_ms, "bound_by": b_by,
-               "library_ms": None if lib_fn is None else time_ms(torch, lib_fn)}
-        rows.setdefault(name, []).append(row)
-        log(f"  {name:24s} {shape_tag:10s} err {err:.3e}  kernel {row['ms']:.4f} ms  "
-            f"plain {row['plain_ms']:.4f} ms  bound {b_ms:.4f} ms ({b_by})  library "
-            f"{row['library_ms'] if row['library_ms'] is None else round(row['library_ms'], 4)}")
+    def add(row):
+        rows.setdefault(row["name"], []).append(row)
 
-    for tag, n in (("decode", S_DECODE), ("prefill", M_PREFILL)):
-        x, r = randn(n, D), randn(n, D)
-        w = (torch.rand(D, generator=gen, device=dev) + 0.5).to(bf16)
-        # rms_norm
-        got, want = cudaex.rms_norm(x, w, EPS), tnn.rms_norm_plain(x, w, EPS)
-        torch.cuda.synchronize()
-        diff = (got.float() - want.float()).abs()
-        ok = bool((diff <= want.float().abs() * NORM_RTOL + 1e-6).all())
-        record("rms_norm", f"{n}x{D}", got, want, ok, float(diff.max()),
-               lambda: cudaex.rms_norm(x, w, EPS), lambda: tnn.rms_norm_plain(x, w, EPS),
-               lambda: F.rms_norm(x, (D,), w, EPS), 2 * n * D * 2 + D * 2, 4 * n * D,
-               F32_FLOPS)
-        # rms_norm_residual
-        (gh, gy), (wh, wy) = (cudaex.rms_norm_residual(r, x, w, EPS),
-                              tnn.rms_norm_residual_plain(r, x, w, EPS))
-        torch.cuda.synchronize()
-        dh, dy = (gh.float() - wh.float()).abs(), (gy.float() - wy.float()).abs()
-        ok = bool(torch.equal(gh, wh)) and bool((dy <= wy.float().abs() * NORM_RTOL
-                                                  + 1e-6).all())
-        record("rms_norm_residual", f"{n}x{D}", gy, wy, ok, float(max(dh.max(), dy.max())),
-               lambda: cudaex.rms_norm_residual(r, x, w, EPS),
-               lambda: tnn.rms_norm_residual_plain(r, x, w, EPS), None,
-               4 * n * D * 2 + D * 2, 5 * n * D, F32_FLOPS)
+    for n in (S_DECODE, M_PREFILL):
+        for row in norm_rows(torch, cudaex, tnn, gen, (n, D)):
+            add(row)
         # linear_act (the gate projection: silu)
-        wg = randn(F_DIM, D, scale=D ** -0.5)
+        x, wg = randn(n, D), randn(F_DIM, D, scale=D ** -0.5)
         got, want = cudaex.linear_act(x, wg, None, "silu"), tnn.linear_act_plain(x, wg,
                                                                                  None, "silu")
-        torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
-        ok = bool(torch.allclose(got.float(), want.float(), atol=GEMM_TOL, rtol=GEMM_TOL))
-        record("linear_act", f"{n}x{D}x{F_DIM}", got, want, ok, err,
-               lambda: cudaex.linear_act(x, wg, None, "silu"),
-               lambda: tnn.linear_act_plain(x, wg, None, "silu"),
-               lambda: F.linear(x, wg), (n * D + F_DIM * D + n * F_DIM) * 2,
-               2.0 * n * F_DIM * D, BF16_FLOPS)
+        require(bool(torch.allclose(got.float(), want.float(), atol=GEMM_TOL, rtol=GEMM_TOL)),
+                f"linear_act {n}x{D}x{F_DIM}: kernel disagrees with its plain version ({err})")
+        add(timed_row(torch, cudaex, "linear_act", f"{n}x{D}x{F_DIM}", err,
+                      lambda: cudaex.linear_act(x, wg, None, "silu"),
+                      lambda: tnn.linear_act_plain(x, wg, None, "silu"),
+                      lambda: F.linear(x, wg), (n * D + F_DIM * D + n * F_DIM) * 2,
+                      2.0 * n * F_DIM * D, BF16_FLOPS))
         del wg
 
     # paged decode attention: 8 requests, ragged lengths 1..2048, over pools
@@ -232,9 +272,9 @@ def check_kernels(torch, cudaex, tnn):
     kp, vp = pools[0]
     got = cudaex.paged_decode_attention(q, kp, vp, bt, ln)
     want = tnn.paged_decode_attention_plain(q, kp, vp, bt, ln)
-    torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
-    ok = bool(torch.allclose(got.float(), want.float(), atol=ATTN_TOL, rtol=ATTN_TOL))
+    require(bool(torch.allclose(got.float(), want.float(), atol=ATTN_TOL, rtol=ATTN_TOL)),
+            f"paged_decode_attention: kernel disagrees with its plain version ({err})")
     turn = [0]
 
     def paged_rotating():
@@ -244,62 +284,62 @@ def check_kernels(torch, cudaex, tnn):
 
     ctx = sum(LENGTHS)
     pages_read = sum(-(-n // PS) for n in LENGTHS)
-    record("paged_decode_attention", f"B{B}:1..2048", got, want, ok, err, paged_rotating,
-           lambda: tnn.paged_decode_attention_plain(q, kp, vp, bt, ln), None,
-           2 * B * H * HD * 2 + ctx * KV * HD * 2 * 2 + pages_read * KV * 4 + B * 4,
-           4.0 * ctx * H * HD, BF16_FLOPS)
+    add(timed_row(torch, cudaex, "paged_decode_attention", f"B{B}:1..2048", err,
+                  paged_rotating, lambda: tnn.paged_decode_attention_plain(q, kp, vp, bt, ln),
+                  None, 2 * B * H * HD * 2 + ctx * KV * HD * 2 * 2 + pages_read * KV * 4 + B * 4,
+                  4.0 * ctx * H * HD, BF16_FLOPS))
     del pools
     torch.cuda.empty_cache()
     return rows
 
 
-def ulp_distance(torch, a, b) -> int:
-    """Largest distance between two tensors of one float dtype in units in
-    the last place of that dtype."""
-    bits = torch.int32 if a.dtype == torch.float32 else torch.int16
-    sign = 1 << (31 if a.dtype == torch.float32 else 15)
+def planted_faults(torch, out, want_out, grads, want_grads) -> dict:
+    """The attention checks' power, on the causal case: the kernel's own
+    results with a fault planted in the last 64 rows or keys (an output 10%
+    off, a dK or dV tile zeroed, as a causal loop that starts or stops one
+    tile wrong would leave them) must fail the row check. For each, whether
+    a check relative to the whole tensor's largest value would have passed
+    it."""
+    from thunder_tpu_torch.testing import row_rel_err
 
-    def line(x):
-        i = x.contiguous().view(bits).long()
-        return torch.where(i < 0, -(i & (sign - 1)), i)
+    def whole(tol, bad, ref):
+        return float((bad.float() - ref.float()).abs().max()) <= tol * float(ref.float().abs().max())
 
-    return int((line(a) - line(b)).abs().max())
-
-
-def train_row(torch, cudaex, name, shape_tag, err, kernel_fn, plain_fn, lib_fn, bytes_moved,
-              ops, peak, iters=10, plain_iters=3):
-    b_ms, b_by = bound(bytes_moved, ops, peak)
-    lib_ms, lib_note = None, None
-    if lib_fn is not None:
-        try:
-            lib_ms = time_ms(torch, lib_fn, iters)
-        except (RuntimeError, TypeError) as e:   # a library call that refuses these inputs
-            lib_note = f"{type(e).__name__}: {str(e)[:160]}"
-    row = {"name": name, "route": "cuda", "source": cudaex.KERNELS[name].source,
-           "replaces": cudaex.KERNELS[name].replaces, "shape": shape_tag,
-           "max_abs_err": err, "ms": time_ms(torch, kernel_fn, iters),
-           "plain_ms": time_ms(torch, plain_fn, plain_iters, warmup=1), "bound_ms": b_ms,
-           "bound_by": b_by, "library_ms": lib_ms}
-    if lib_note:
-        row["library_note"] = lib_note
-    log(f"  {name:24s} {shape_tag:14s} err {err:.3e}  kernel {row['ms']:.4f} ms  "
-        f"plain {row['plain_ms']:.4f} ms  bound {b_ms:.4f} ms ({b_by})  library "
-        f"{lib_ms if lib_ms is None else round(lib_ms, 4)}{' ' + lib_note if lib_note else ''}")
-    return row
+    found = {}
+    for name, got, ref, factor, tol in (("out x0.9", out, want_out, 0.9, ATTN_TOL),
+                                        ("dk x0", grads[1], want_grads[1], 0.0, GRAD_REL_TOL),
+                                        ("dv x0", grads[2], want_grads[2], 0.0, GRAD_REL_TOL)):
+        bad = got.clone()
+        bad[..., -64:, :] *= factor
+        err = row_rel_err(bad, ref)
+        require(err > tol, f"the row check passes a planted fault ({name}: {err})")
+        found[name] = {"row_rel_err": err, "whole_tensor_check_passes": whole(tol, bad, ref)}
+        del bad
+    return found
 
 
 def check_train_kernels(torch, cudaex, tnn, toptim_ops, tllama):
-    """The train path's four kernels against their plain versions at its
+    """The train path's kernels against their plain versions at its
     full-width shapes, each timed beside its plain version, its bound and
-    one library call that computes the same function."""
+    one library call that computes the same function: {name: [rows]}, the
+    train path's own shape first."""
     import torch.nn.functional as F
+
+    from thunder_tpu_torch.optim import tree_leaves
+    from thunder_tpu_torch.testing import row_rel_err, ulp_distance
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     bf16 = torch.bfloat16
     rows = {}
 
-    # attention forward and backward, causal (the train path) and not
+    # the norms at the train path's (B, T, D) activations
+    for row in norm_rows(torch, cudaex, tnn, gen, (TRAIN_BATCH, TRAIN_SEQ, D)):
+        rows[row["name"]] = [row]
+    torch.cuda.empty_cache()
+
+    # attention forward and backward, causal (the train path) and not, each
+    # output and gradient held row by row (row_rel_err)
     B, H, T, hd = ATTN_SHAPE
     q, k, v, g = (torch.randn(ATTN_SHAPE, generator=gen, device=dev).to(bf16)
                   for _ in range(4))
@@ -309,28 +349,29 @@ def check_train_kernels(torch, cudaex, tnn, toptim_ops, tllama):
         frac = 0.5 if causal else 1.0
         out, lse = cudaex.sdpa_fwd(q, k, v, causal)
         want_out, want_lse = tnn.sdpa_fwd_plain(q, k, v, causal)
-        torch.cuda.synchronize()
         err = float((out.float() - want_out.float()).abs().max())
+        out_rel = row_rel_err(out, want_out)
         lse_err = float((lse - want_lse).abs().max())
-        if not (torch.allclose(out.float(), want_out.float(), atol=ATTN_TOL, rtol=ATTN_TOL)
-                and lse_err <= LSE_TOL):
-            raise AssertionError(f"sdpa_fwd {tag}: out err {err}, lse err {lse_err}")
-        rows.setdefault("sdpa_fwd", []).append(train_row(
+        require(out_rel <= ATTN_TOL and lse_err <= LSE_TOL,
+                f"sdpa_fwd {tag}: out err {out_rel} of its rows' largest values (abs {err}), "
+                f"lse err {lse_err}")
+        rows.setdefault("sdpa_fwd", []).append(timed_row(
             torch, cudaex, "sdpa_fwd", tag, err, lambda: cudaex.sdpa_fwd(q, k, v, causal),
             lambda: tnn.sdpa_fwd_plain(q, k, v, causal),
             lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal),
-            4 * bh_t * hd * 2 + bh_t * 4, 4.0 * bh_t * T * hd * frac, BF16_FLOPS))
+            4 * bh_t * hd * 2 + bh_t * 4, 4.0 * bh_t * T * hd * frac, BF16_FLOPS, 10, 3))
         # the backward from the plain forward's (out, lse), so it is held alone
         got = cudaex.sdpa_bwd(g, q, k, v, want_out, want_lse, causal)
         want = tnn.sdpa_bwd_plain(g, q, k, v, want_out, want_lse, causal)
-        torch.cuda.synchronize()
-        errs = []
-        for name_, a, b in zip(("dq", "dk", "dv"), got, want):
-            e = float((a.float() - b.float()).abs().max())
-            lim = GRAD_REL_TOL * float(b.float().abs().max())
-            if e > lim:
-                raise AssertionError(f"sdpa_bwd {tag}: {name_} err {e} > {lim}")
-            errs.append(e)
+        errs = [float((a.float() - b.float()).abs().max()) for a, b in zip(got, want)]
+        rels = [row_rel_err(a, b) for a, b in zip(got, want)]
+        require(max(rels) <= GRAD_REL_TOL,
+                f"sdpa_bwd {tag}: dq/dk/dv err {rels} of their rows' largest values")
+        log(f"  attention {tag}: out {out_rel:.3e}, dq/dk/dv "
+            f"{', '.join(f'{r:.3e}' for r in rels)} of their rows' largest values")
+        if causal:
+            log("  planted faults: " + json.dumps(planted_faults(torch, out, want_out, got,
+                                                                 want)))
         del got, want
         lib = None
         try:
@@ -342,11 +383,11 @@ def check_train_kernels(torch, cudaex, tnn, toptim_ops, tllama):
                     fa[6], fa[7])
         except (RuntimeError, TypeError) as e:
             log(f"  aten flash attention unavailable: {str(e).splitlines()[0][:200]}")
-        rows.setdefault("sdpa_bwd", []).append(train_row(
+        rows.setdefault("sdpa_bwd", []).append(timed_row(
             torch, cudaex, "sdpa_bwd", tag, max(errs),
             lambda: cudaex.sdpa_bwd(g, q, k, v, want_out, want_lse, causal),
             lambda: tnn.sdpa_bwd_plain(g, q, k, v, want_out, want_lse, causal), lib,
-            8 * bh_t * hd * 2 + bh_t * 4, 10.0 * bh_t * T * hd * frac, BF16_FLOPS))
+            8 * bh_t * hd * 2 + bh_t * 4, 10.0 * bh_t * T * hd * frac, BF16_FLOPS, 10, 3))
         del out, lse, want_out, want_lse, lib
         gc.collect()
         torch.cuda.empty_cache()
@@ -359,26 +400,22 @@ def check_train_kernels(torch, cudaex, tnn, toptim_ops, tllama):
     target[::97] = -100
     nll, lse = cudaex.ce_fwd(logits, target)
     want_nll, want_lse = tnn.ce_fwd_plain(logits, target)
-    torch.cuda.synchronize()
     err = float(max((nll - want_nll).abs().max(), (lse - want_lse).abs().max()))
     for a, b in ((nll, want_nll), (lse, want_lse)):
-        if not torch.allclose(a, b, rtol=CE_RTOL, atol=CE_RTOL * float(b.abs().max())):
-            raise AssertionError(f"ce_fwd: err {err}")
-    if float(nll[::97].abs().max()) != 0.0:
-        raise AssertionError("ce_fwd: an ignored row has a non-zero nll")
-    rows["ce_fwd"] = [train_row(
+        require(torch.allclose(a, b, rtol=CE_RTOL, atol=CE_RTOL * float(b.abs().max())),
+                f"ce_fwd: err {err}")
+    require(float(nll[::97].abs().max()) == 0.0, "ce_fwd: an ignored row has a non-zero nll")
+    rows["ce_fwd"] = [timed_row(
         torch, cudaex, "ce_fwd", f"{N}x{V} f32", err, lambda: cudaex.ce_fwd(logits, target),
         lambda: tnn.ce_fwd_plain(logits, target),
         lambda: F.cross_entropy(logits, target, reduction="none"),
-        N * V * 4 + N * 8 + 2 * N * 4, 4.0 * N * V, F32_FLOPS)]
+        N * V * 4 + N * 8 + 2 * N * 4, 4.0 * N * V, F32_FLOPS, 10, 3)]
     log("    (library: F.cross_entropy(reduction='none') gives nll without lse)")
     del logits, target, nll, lse, want_nll, want_lse
 
     # AdamW over the 4-layer llama3-8b-bench bucket: one launch, in place
     cfg = tllama.CONFIGS["llama3-8b-bench"]
-    ps = tllama.init_params(cfg, seed=2, device=dev, n_layers=TRAIN_LAYERS)
-    from thunder_tpu_torch.optim import tree_leaves
-    ps = tree_leaves(ps)
+    ps = tree_leaves(tllama.init_params(cfg, seed=2, device=dev, n_layers=TRAIN_LAYERS))
     n = sum(p.numel() for p in ps)
     gs = [torch.randn(p.shape, generator=gen, device=dev).mul_(1e-3).to(bf16) for p in ps]
     ms = [torch.randn(p.shape, generator=gen, device=dev).mul_(1e-3) for p in ps]
@@ -388,16 +425,14 @@ def check_train_kernels(torch, cudaex, tnn, toptim_ops, tllama):
     hyper = dict(lr=1e-4, beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.01)
     want = [toptim_ops.adamw_step_plain(p, g_, m, v_, bc[0], bc[1], **hyper)
             for p, g_, m, v_ in zip(ps, gs, ms, vs)]
-    tables: dict = {}
-    cudaex.fused_adamw(ps, gs, ms, vs, bc, tables=tables, **hyper)
+    cudaex.fused_adamw(ps, gs, ms, vs, bc, **hyper)
     torch.cuda.synchronize()
-    ulp = max(ulp_distance(torch, a, b) for got, w in zip(zip(ps, ms, vs), want)
+    ulp = max(ulp_distance(a, b) for got, w in zip(zip(ps, ms, vs), want)
               for a, b in zip(got, w))
     err = max(float((a.float() - b.float()).abs().max()) for got, w in zip(zip(ps, ms, vs), want)
               for a, b in zip(got, w))
     del want
-    if ulp > ADAMW_ULP:
-        raise AssertionError(f"fused_adamw: {ulp} ULP from adamw_step_plain")
+    require(ulp <= ADAMW_ULP, f"fused_adamw: {ulp} ULP from adamw_step_plain")
     log(f"  fused_adamw: {len(ps)} tensors, {n} parameters, max {ulp} ULP from the plain version")
 
     def plain_adamw():
@@ -413,10 +448,10 @@ def check_train_kernels(torch, cudaex, tnn, toptim_ops, tllama):
             torch._fused_adamw_(lp, gs, lm, lv, [], steps_t, lr=hyper["lr"], beta1=0.9,
                                 beta2=0.999, weight_decay=0.01, eps=1e-8, amsgrad=False,
                                 maximize=False)
-    rows["fused_adamw"] = [train_row(
+    rows["fused_adamw"] = [timed_row(
         torch, cudaex, "fused_adamw", f"{n} bf16", err,
-        lambda: cudaex.fused_adamw(ps, gs, ms, vs, bc, tables=tables, **hyper), plain_adamw,
-        lib, n * 22, 12.0 * n, F32_FLOPS, iters=10, plain_iters=2)]
+        lambda: cudaex.fused_adamw(ps, gs, ms, vs, bc, **hyper), plain_adamw,
+        lib, n * 22, 12.0 * n, F32_FLOPS, 10, 2)]
     del ps, gs, ms, vs, lib
     gc.collect()
     torch.cuda.empty_cache()
@@ -632,15 +667,15 @@ def main() -> int:
         f"{tw['peak_memory_gb']:.2f} GB, AdamW {tw['optimizer_ms']:.3f} ms, losses "
         f"{[round(x, 4) for x in tw['losses']]} ({tw['card']})")
 
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms")
+    # one row per kernel and main path: the path's own shape and its own
+    # launch count (rms_norm and rms_norm_residual run on both paths)
+    keys = ("name", "path", "shape", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
-    for name, rs in rows.items():
-        r = dict(rs[0], launches=fw["launches"][name])     # the decode shape
-        kernels.append({k: r[k] for k in keys})
-    for name, rs in train_rows.items():
-        r = dict(rs[0], launches=tw["launches"][name])     # the train path's shape
-        kernels.append({k: r[k] for k in keys})
+    for path, path_rows, run in (("serve", rows, fw), ("train", train_rows, tw)):
+        for name, rs in path_rows.items():
+            r = dict(rs[0], path=path, launches=run["launches"][name])
+            kernels.append({k: r[k] for k in keys})
     other_rows = [dict(r, card=card) for rs in (*rows.values(), *train_rows.values())
                   for r in rs[1:]]
     log("other-shape kernels: " + json.dumps(other_rows))

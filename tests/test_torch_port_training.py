@@ -43,6 +43,7 @@ from thunder_tpu_torch.models import llama as tllama
 from thunder_tpu_torch.ops import nn as tnn
 from thunder_tpu_torch.ops import optim as toptim_ops
 from thunder_tpu_torch.optim import AdamW, tree_leaves
+from thunder_tpu_torch.testing import row_rel_err, ulp_distance
 
 N_LAYERS = 2
 LR = 1e-3
@@ -69,22 +70,6 @@ def _t(a):
 def _close(a, b, tol):
     np.testing.assert_allclose(np.asarray(a, np.float32), np.asarray(b, np.float32),
                                atol=tol, rtol=tol)
-
-
-def _assert_ulp_close(a: torch.Tensor, b: torch.Tensor, max_ulp: int):
-    """Elementwise distance in units in the last place of the tensors' own
-    dtype (float32 or bfloat16): sign-magnitude bits mapped to a line on
-    which neighbouring floats differ by 1."""
-    assert a.dtype == b.dtype, (a.dtype, b.dtype)
-    bits = torch.int32 if a.dtype == torch.float32 else torch.int16
-    sign = 1 << (31 if a.dtype == torch.float32 else 15)
-
-    def line(x):
-        i = x.contiguous().view(bits).long()
-        return torch.where(i < 0, -(i & (sign - 1)), i)
-
-    d = int((line(a) - line(b)).abs().max())
-    assert d <= max_ulp, f"max ULP distance {d} > {max_ulp}"
 
 
 # ---------------------------------------------------------------------------
@@ -238,7 +223,7 @@ def test_fused_adamw_matches_pallas(dtype, interpret):
         toptim_ops.fused_adamw(tp, tg, tm, tv, torch.tensor([bc1, bc2], dtype=torch.float32),
                                **hyper)
         for mine, want in zip(tp + tm + tv, conv(ps) + conv(ms) + conv(vs)):
-            _assert_ulp_close(mine, want, 4)
+            assert ulp_distance(mine, want) <= 4
 
 
 def test_adamw_state_round_trip_and_defaults():
@@ -414,3 +399,44 @@ def test_flops_and_params_match_reference():
         assert tllama.num_params(tcfg, 4) == jllama.num_params(jcfg, 4)
         assert tllama.flops_per_token(tcfg, 2048, 4) == jllama.flops_per_token(jcfg, 2048, 4)
     assert tllama.num_params(tllama.CONFIGS["llama3-8b-bench"], 4) == 1_134_596_096
+
+
+# ---------------------------------------------------------------------------
+# the comparison helpers the card's checks use
+# ---------------------------------------------------------------------------
+
+def test_ulp_distance_counts_neighbouring_floats():
+    for dtype in (torch.float32, torch.bfloat16):
+        a = torch.tensor([1.0, -2.5, 0.0, 3e-3], dtype=dtype)
+        up = torch.nextafter(a, torch.full_like(a, float("inf")))
+        assert ulp_distance(a, a) == 0
+        assert ulp_distance(a, up) == 1
+        assert ulp_distance(up, torch.nextafter(up, torch.full_like(a, float("inf")))) == 1
+    # across zero: +tiny and -tiny are two steps apart
+    z = torch.tensor([0.0])
+    assert ulp_distance(torch.nextafter(z, torch.tensor([1.0])),
+                        torch.nextafter(z, torch.tensor([-1.0]))) == 2
+    with pytest.raises(ValueError):
+        ulp_distance(torch.zeros(1), torch.zeros(1, dtype=torch.bfloat16))
+
+
+def test_row_check_sees_a_fault_in_late_keys():
+    """The per-row check the card holds the attention kernels to, at the
+    train path's T=2048 and hd=128 (one head): on causal gradients of the
+    plain backward, a dK or a dV whose last 64-key tile is zeroed and an
+    output whose last 64 rows are 10% off each fail it at 2e-2, though each
+    stays within 2e-2 of its tensor's largest value (a check relative to
+    the whole tensor passes them); the exact values pass it."""
+    q, k, v, g = (_t(a) for a in _attn_inputs(7, 2048, 2048, H=1, hd=128))
+    out, lse = tnn.sdpa_fwd_plain(q, k, v, True)
+    dq, dk, dv = tnn.sdpa_bwd_plain(g, q, k, v, out, lse, True)
+    faults = []
+    for ref in (dk, dv, out):
+        bad = ref.clone()
+        bad[..., -64:, :] *= 0.9 if ref is out else 0.0
+        faults.append((bad, ref))
+    for bad, ref in faults:
+        assert float((bad - ref).abs().max()) <= 2e-2 * float(ref.abs().max())
+        assert row_rel_err(bad, ref) > 2e-2
+    for t in (dq, dk, dv, out):
+        assert row_rel_err(t, t) == 0.0

@@ -74,11 +74,18 @@ def loss_and_grads(params: dict, tokens: torch.Tensor, targets: torch.Tensor,
 
 
 def train_step(params: dict, opt: AdamW, opt_state: dict, tokens: torch.Tensor,
-               targets: torch.Tensor, cfg: llama.LlamaConfig) -> torch.Tensor:
+               targets: torch.Tensor, cfg: llama.LlamaConfig,
+               opt_events: tuple | None = None) -> torch.Tensor:
     """One step: the loss and its gradients, then AdamW in place. Returns
-    the loss (a device tensor: reading it is the caller's sync)."""
+    the loss (a device tensor: reading it is the caller's sync).
+    ``opt_events``, a pair of CUDA events, are recorded around the
+    optimizer's update."""
     loss, grads = loss_and_grads(params, tokens, targets, cfg)
+    if opt_events:
+        opt_events[0].record()
     opt.update(params, grads, opt_state)
+    if opt_events:
+        opt_events[1].record()
     return loss
 
 
@@ -122,15 +129,10 @@ def run(model: str = "tiny", layers: int | None = None, batch: int = 4, seq: int
     per_step, opt_ms = [], []
     for _ in range(steps):
         before = cudaex.launch_counts()
+        # the optimizer's device time, from events around it
+        ev = tuple(torch.cuda.Event(enable_timing=True) for _ in range(2)) if on_card else None
         t = time.perf_counter()
-        loss, grads = loss_and_grads(params, tokens, targets, cfg)
-        if on_card:   # the optimizer's device time, from events around it
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            ev[0].record()
-        opt.update(params, grads, state)
-        del grads
-        if on_card:
-            ev[1].record()
+        loss = train_step(params, opt, state, tokens, targets, cfg, ev)
         sync()
         ms = (time.perf_counter() - t) * 1e3
         after = cudaex.launch_counts()

@@ -397,21 +397,18 @@ def ce_fwd(logits: torch.Tensor, target: torch.Tensor, ignore_index: int = -100)
 
 
 ADAMW_CHUNK = 4096   # elements per block: CHUNK in csrc/fused_adamw.cu
-_ADAMW_TABLES_KEPT = 8
 
 
 def fused_adamw(params, grads, ms, vs, bc: torch.Tensor, *, lr: float, beta1: float,
-                beta2: float, eps: float, weight_decay: float,
-                tables: dict | None = None) -> None:
+                beta2: float, eps: float, weight_decay: float) -> None:
     """AdamW over one bucket in ONE launch, updating ``params``, ``ms`` and
     ``vs`` in place. ``bc`` is the float32 device tensor ``[1 - beta1**step,
     1 - beta2**step]``. Params and grads share one dtype; m and v may each be
     float32 or bfloat16.
 
-    The kernel reads a device table of the tensors' pointers and sizes.
-    ``tables``, a dict the caller owns, keeps built tables keyed on those
-    pointers and sizes, so a step whose tensors sit where the last one's did
-    copies nothing to the card."""
+    The kernel reads a device table of the tensors' pointers, sizes and
+    first chunks, built on the host and copied to the card (non-blocking,
+    from pinned memory) on every call."""
     name = "fused_adamw"
     params, grads, ms, vs = list(params), list(grads), list(ms), list(vs)
     if not params or not len(params) == len(grads) == len(ms) == len(vs):
@@ -429,22 +426,14 @@ def fused_adamw(params, grads, ms, vs, bc: torch.Tensor, *, lr: float, beta1: fl
             raise ValueError(f"{name}: p/g/m/v shapes {[tuple(t.shape) for t in quad]} differ")
         if any(t.data_ptr() % 16 for t in quad):
             raise ValueError(f"{name}: tensors must be 16-byte aligned")
-    rows = [(p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(), p.numel())
-            for p, g, m, v in zip(params, grads, ms, vs) if p.numel()]
-    key = tuple(rows)
-    entry = tables.get(key) if tables is not None else None
-    if entry is None:
-        table, first = [], 0
-        for r in rows:
-            table.append(r + (first,))
-            first += -(-r[4] // ADAMW_CHUNK)
-        host = torch.tensor(table or [(0,) * 6], dtype=torch.int64).pin_memory()
-        entry = (host.to(dev, non_blocking=True), first)
-        if tables is not None:
-            if len(tables) >= _ADAMW_TABLES_KEPT:
-                tables.clear()
-            tables[key] = entry
-    table, n_chunks = entry
+    rows, n_chunks = [], 0
+    for p, g, m, v in zip(params, grads, ms, vs):
+        if p.numel():
+            rows.append((p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(), p.numel(),
+                         n_chunks))
+            n_chunks += -(-p.numel() // ADAMW_CHUNK)
+    host = torch.tensor(rows or [(0,) * 6], dtype=torch.int64).pin_memory()
+    table = host.to(dev, non_blocking=True)
     _launch(name, table.data_ptr(), len(rows), n_chunks, bc.data_ptr(), float(lr),
             float(beta1), float(beta2), float(1.0 - beta1), float(1.0 - beta2), float(eps),
             float(weight_decay), _DTYPE_CODES[params[0].dtype], _DTYPE_CODES[ms[0].dtype],

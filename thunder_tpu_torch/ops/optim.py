@@ -36,17 +36,15 @@ def adamw_step_plain(p, g, m, v, bc1, bc2, *, lr: float, beta1: float, beta2: fl
 
 
 def fused_adamw(params, grads, ms, vs, bc: torch.Tensor, *, lr: float, beta1: float,
-                beta2: float, eps: float, weight_decay: float,
-                tables: dict | None = None) -> None:
+                beta2: float, eps: float, weight_decay: float) -> None:
     """AdamW over one dtype bucket, in place on ``params``, ``ms`` and
     ``vs``. ``bc`` is the float32 tensor ``[1 - beta1**step, 1 - beta2**step]``
-    on the parameters' device. On CUDA this is ONE kernel launch (``tables``
-    is the caller's cache of the kernel's pointer tables); on the CPU each
-    parameter takes :func:`adamw_step_plain`."""
+    on the parameters' device. On CUDA this is ONE kernel launch; on the CPU
+    each parameter takes :func:`adamw_step_plain`."""
     params = list(params)
     if _on_cuda(params[0], "fused_adamw"):
         cudaex.fused_adamw(params, grads, ms, vs, bc, lr=lr, beta1=beta1, beta2=beta2,
-                           eps=eps, weight_decay=weight_decay, tables=tables)
+                           eps=eps, weight_decay=weight_decay)
         return
     for p, g, m, v in zip(params, grads, ms, vs, strict=True):
         p_new, m_new, v_new = adamw_step_plain(p, g, m, v, bc[0], bc[1], lr=lr, beta1=beta1,

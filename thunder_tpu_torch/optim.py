@@ -58,7 +58,6 @@ class AdamW:
         self.weight_decay = weight_decay
         self.state_dtype = state_dtype
         self.v_dtype = v_dtype if v_dtype is not None else torch.float32
-        self._tables: dict = {}   # the kernel's pointer tables, keyed on pointers and sizes
 
     def init(self, params) -> dict:
         device = tree_leaves(params)[0].device
@@ -95,5 +94,5 @@ class AdamW:
             ps, gs, ms, vs = zip(*bucket)
             optim_ops.fused_adamw(ps, gs, ms, vs, bc, lr=self.lr, beta1=self.beta1,
                                   beta2=self.beta2, eps=self.eps,
-                                  weight_decay=self.weight_decay, tables=self._tables)
+                                  weight_decay=self.weight_decay)
         return params, state
