@@ -43,6 +43,18 @@ rows or keys. Then:
    ce_fwd 1, fused_adamw 1, rms_norm 1 and rms_norm_residual 8 times, and
    the losses are finite and falling.
 
+The planned rung (``pretrain --block-fusion``, the reference's default step
+at that shape): phase 3 also holds the MLP sub-block pair, ``mlp_subblock``
+and ``mlp_subblock_bwd``, against their plain versions at the train shape
+(N=16384, D=4096, F=14336 bf16, silu), row by row, shows that a dropped last
+ff tile of ``out`` and zeroed last 64 rows of ``dw_gate`` fail that check,
+and times each beside the per-op chain it replaces. Then:
+
+8. planned train, card vs CPU — phase 6 at the planned rung;
+9. planned train, full width — phase 7 at the planned rung: every step
+   launches mlp_subblock 4, mlp_subblock_bwd 4, rms_norm 5, sdpa_fwd 4,
+   sdpa_bwd 4, ce_fwd 1 and fused_adamw 1 times, rms_norm_residual never.
+
 The last line of standard output is the JSON result the checker reads; the
 line before it holds the kernels table (one row per kernel and main path,
 with that path's shape and launch count), and the line before that the
@@ -96,6 +108,16 @@ ADAMW_ULP = 4
 TRAIN_LOSS_RTOL = 1e-5
 TRAIN_LR = 1e-3
 TRAIN_PARAM_ATOL = 0.2 * TRAIN_LR
+
+# the MLP sub-block pair, row by row: out and dh per token, each weight
+#   gradient per output row, 2e-2 of the row's largest reference value (or a
+#   hundredth of the tensor's): act(gate), up, their product, dgpre and dup
+#   round to bf16 before the next product, where a one-step difference in an
+#   f32 sum moves them. The activations r and x are drawn at scale 0.25 so
+#   that the MLP's term, not the residual, sets a row's largest value: a
+#   dropped 128-wide ff tile must fail the check.
+SUBBLOCK_TOL = 2e-2
+FAULT_FF_TILE = 128
 
 ATTN_SHAPE = (8, 32, 2048, 128)
 CE_SHAPE = (16384, 32000)
@@ -458,6 +480,94 @@ def check_train_kernels(torch, cudaex, tnn, toptim_ops, tllama):
     return rows
 
 
+def check_planned_kernels(torch, cudaex, tnn, tllama):
+    """The MLP sub-block pair at the planned train path's shape, each output
+    and gradient held row by row, with two planted faults that must fail;
+    each timed beside its plain version, its bound and the per-op chain it
+    replaces (``rms_norm_residual`` + ``F.linear`` + plain SwiGLU, forward
+    and its autograd backward). {name: [row]}."""
+    from thunder_tpu_torch.testing import row_rel_err
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    bf16 = torch.bfloat16
+    N, Dm, Fm = TRAIN_BATCH * TRAIN_SEQ, D, F_DIM
+    tag = f"{N}x{Dm}x{Fm} silu"
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale).to(bf16)
+
+    g, r, x = rnd(N, Dm), rnd(N, Dm, scale=0.25), rnd(N, Dm, scale=0.25)
+    wn = (1.0 + 0.1 * torch.randn(Dm, generator=gen, device=dev)).to(bf16)
+    wg, wu, wd = rnd(Fm, Dm, scale=Dm ** -0.5), rnd(Fm, Dm, scale=Dm ** -0.5), \
+        rnd(Dm, Fm, scale=Fm ** -0.5)
+    w = (r, x, wn, wg, wu, wd)
+
+    out = cudaex.mlp_subblock(*w)
+    want = tnn.mlp_subblock_plain(*w)
+    out_rel = row_rel_err(out, want)
+    fwd_err = float((out.float() - want.float()).abs().max())
+    require(out_rel <= SUBBLOCK_TOL,
+            f"mlp_subblock {tag}: out err {out_rel} of its rows' largest values")
+    wd_cut = wd.clone()
+    wd_cut[:, -FAULT_FF_TILE:] = 0
+    cut_rel = row_rel_err(cudaex.mlp_subblock(r, x, wn, wg, wu, wd_cut), want)
+    require(cut_rel > SUBBLOCK_TOL, f"the row check passes a dropped ff tile ({cut_rel})")
+    del out, want, wd_cut
+
+    got = cudaex.mlp_subblock_bwd(g, *w)
+    want = tnn.mlp_subblock_bwd_plain(g, *w)
+    names = ("dh", "dw_norm", "dw_gate", "dw_up", "dw_down")
+    rels = {n: row_rel_err(a, b) for n, a, b in zip(names, got, want)}
+    bwd_err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
+    require(max(rels.values()) <= SUBBLOCK_TOL,
+            f"mlp_subblock_bwd {tag}: errors {rels} of their rows' largest values")
+    bad = got[2].clone()
+    bad[-64:] = 0
+    zero_rel = row_rel_err(bad, want[2])
+    require(zero_rel > SUBBLOCK_TOL, f"the row check passes zeroed dw_gate rows ({zero_rel})")
+    log(f"  mlp sub-block {tag}: out {out_rel:.3e}, "
+        + ", ".join(f"{n} {v:.3e}" for n, v in rels.items())
+        + f" of their rows' largest values; planted faults: last {FAULT_FF_TILE} ff columns "
+        f"dropped from out {cut_rel:.3e}, last 64 dw_gate rows zeroed {zero_rel:.3e}")
+    del got, want, bad
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the per-op chain: the same function at the per-op rung, on cuBLAS products
+    layer = {"w_gate": wg, "w_up": wu, "w_down": wd}
+
+    def chain_fwd():
+        with torch.no_grad():
+            h, n = tnn.rms_norm_residual(r, x, wn, EPS)
+            return h + tllama._mlp_train(n, layer)
+
+    leaves = [t.detach().requires_grad_(True) for t in w]
+    h, n = tnn.rms_norm_residual(*leaves[:3], EPS)
+    chain_out = h + tllama._mlp_train(n, dict(zip(("w_gate", "w_up", "w_down"), leaves[3:])))
+
+    def chain_bwd():
+        return torch.autograd.grad(chain_out, leaves, g, retain_graph=True)
+
+    act_bytes, w_bytes = N * Dm * 2, Fm * Dm * 2
+    nd_f = float(N) * Dm * Fm
+    fwd = timed_row(torch, cudaex, "mlp_subblock", tag, fwd_err,
+                    lambda: cudaex.mlp_subblock(*w), lambda: tnn.mlp_subblock_plain(*w), None,
+                    3 * act_bytes + 3 * w_bytes + Dm * 2, 6.0 * nd_f, BF16_FLOPS, 5, 2)
+    fwd["per_op_chain_ms"] = time_ms(torch, chain_fwd, 5)
+    bwd = timed_row(torch, cudaex, "mlp_subblock_bwd", tag, bwd_err,
+                    lambda: cudaex.mlp_subblock_bwd(g, *w),
+                    lambda: tnn.mlp_subblock_bwd_plain(g, *w), None,
+                    4 * act_bytes + 6 * w_bytes + 2 * Dm * 2, 16.0 * nd_f, BF16_FLOPS, 3, 1)
+    bwd["per_op_chain_ms"] = time_ms(torch, chain_bwd, 3)
+    log(f"    per-op chain: forward {fwd['per_op_chain_ms']:.3f} ms, backward "
+        f"{bwd['per_op_chain_ms']:.3f} ms")
+    del chain_out, leaves, h, n
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"mlp_subblock": [fwd], "mlp_subblock_bwd": [bwd]}
+
+
 # ---------------------------------------------------------------------------
 # phase 4: tiny-gqa float32 on the card vs the CPU
 # ---------------------------------------------------------------------------
@@ -568,13 +678,22 @@ def full_width(np, torch, tllama, ServingEngine, SamplingParams, cudaex):
 # phase 6: the train step, tiny-gqa float32 on the card vs the CPU
 # ---------------------------------------------------------------------------
 
-def train_card_vs_cpu(np, torch, tllama, pretrain):
+def train_launches(L: int, block_fusion: bool) -> dict:
+    """Kernel launches of one train step at L layers, by rung."""
+    if block_fusion:
+        return {"sdpa_fwd": L, "sdpa_bwd": L, "ce_fwd": 1, "fused_adamw": 1, "rms_norm": L + 1,
+                "mlp_subblock": L, "mlp_subblock_bwd": L}
+    return {"sdpa_fwd": L, "sdpa_bwd": L, "ce_fwd": 1, "fused_adamw": 1, "rms_norm": 1,
+            "rms_norm_residual": 2 * L}
+
+
+def train_card_vs_cpu(np, torch, tllama, pretrain, block_fusion: bool = False):
     from thunder_tpu_torch.optim import tree_leaves, tree_map
 
     cfg = tllama.CONFIGS["tiny-gqa"]
     cpu = tllama.init_params(cfg, seed=0, device="cpu")
     card = tree_map(lambda t: t.cuda(), cpu)
-    kw = dict(batch=2, seq=64, steps=3, lr=TRAIN_LR, seed=0)
+    kw = dict(batch=2, seq=64, steps=3, lr=TRAIN_LR, seed=0, block_fusion=block_fusion)
     a = pretrain.run("tiny-gqa", device="cuda", params=card, **kw)
     b = pretrain.run("tiny-gqa", device="cpu", params=cpu, **kw)
     if not np.allclose(a["losses"], b["losses"], rtol=TRAIN_LOSS_RTOL, atol=0):
@@ -584,8 +703,7 @@ def train_card_vs_cpu(np, torch, tllama, pretrain):
     if perr > TRAIN_PARAM_ATOL:
         raise AssertionError(f"card and CPU parameters differ by {perr} after 3 steps")
     L = cfg.n_layers
-    expect = {"sdpa_fwd": L, "sdpa_bwd": L, "ce_fwd": 1, "fused_adamw": 1, "rms_norm": 1,
-              "rms_norm_residual": 2 * L}
+    expect = train_launches(L, block_fusion)
     for i, st in enumerate(a["per_step"]):
         if st["launches"] != expect:
             raise AssertionError(f"tiny-gqa train step {i} launched {st['launches']}")
@@ -597,14 +715,13 @@ def train_card_vs_cpu(np, torch, tllama, pretrain):
 # phase 7: the train step at full width, depth cut to 4 layers
 # ---------------------------------------------------------------------------
 
-def train_full_width(torch, cudaex, pretrain):
+def train_full_width(torch, cudaex, pretrain, block_fusion: bool = False):
     cudaex.reset_launch_counts()
     out = pretrain.run("llama3-8b-bench", layers=TRAIN_LAYERS, batch=TRAIN_BATCH,
-                       seq=TRAIN_SEQ, steps=TRAIN_STEPS, lr=1e-4, seed=0, device="cuda")
+                       seq=TRAIN_SEQ, steps=TRAIN_STEPS, lr=1e-4, seed=0, device="cuda",
+                       block_fusion=block_fusion)
     counts = cudaex.launch_counts()
-    L = TRAIN_LAYERS
-    expect = {"sdpa_fwd": L, "sdpa_bwd": L, "ce_fwd": 1, "fused_adamw": 1, "rms_norm": 1,
-              "rms_norm_residual": 2 * L}
+    expect = train_launches(TRAIN_LAYERS, block_fusion)
     for i, st in enumerate(out["per_step"]):
         if st["launches"] != expect:
             raise AssertionError(f"train step {i} launched {st['launches']}, expected {expect}")
@@ -616,6 +733,14 @@ def train_full_width(torch, cudaex, pretrain):
     out["launches"] = counts
     out["launches_per_step"] = expect
     return out
+
+
+def log_train(what: str, t: dict) -> None:
+    log(f"{what}: step {t['step_ms']:.1f} ms, {t['tokens_per_s']:.0f} tokens/s, "
+        f"{100 * t['share_of_989_tflops']:.1f}% of 989 TFLOP/s, peak "
+        f"{t['peak_memory_gb']:.2f} GB, AdamW {t['optimizer_ms']:.3f} ms, losses "
+        f"{[round(x, 4) for x in t['losses']]}, launches per step "
+        f"{json.dumps(t['launches_per_step'])} ({t['card']})")
 
 
 def main() -> int:
@@ -651,6 +776,7 @@ def main() -> int:
     log("kernels vs plain versions (bf16, full width):")
     rows = check_kernels(torch, cudaex, tnn)
     train_rows = check_train_kernels(torch, cudaex, tnn, toptim_ops, tllama)
+    planned_rows = check_planned_kernels(torch, cudaex, tnn, tllama)
     log(f"card vs CPU (tiny-gqa, float32): {json.dumps(card_vs_cpu(np, torch, tllama, ServingEngine))}")
 
     fw = full_width(np, torch, tllama, ServingEngine, SamplingParams, cudaex)
@@ -662,20 +788,29 @@ def main() -> int:
     tc = train_card_vs_cpu(np, torch, tllama, pretrain)
     log(f"train card vs CPU (tiny-gqa, float32): {json.dumps(tc)}")
     tw = train_full_width(torch, cudaex, pretrain)
-    log(f"train full width: step {tw['step_ms']:.1f} ms, {tw['tokens_per_s']:.0f} tokens/s, "
-        f"{100 * tw['share_of_989_tflops']:.1f}% of 989 TFLOP/s, peak "
-        f"{tw['peak_memory_gb']:.2f} GB, AdamW {tw['optimizer_ms']:.3f} ms, losses "
-        f"{[round(x, 4) for x in tw['losses']]} ({tw['card']})")
+    log_train("train full width", tw)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    tcp = train_card_vs_cpu(np, torch, tllama, pretrain, block_fusion=True)
+    log(f"planned train card vs CPU (tiny-gqa, float32): {json.dumps(tcp)}")
+    tp = train_full_width(torch, cudaex, pretrain, block_fusion=True)
+    log_train("planned train full width", tp)
 
     # one row per kernel and main path: the path's own shape and its own
-    # launch count (rms_norm and rms_norm_residual run on both paths)
+    # launch count (rms_norm and rms_norm_residual run on several paths;
+    # the planned path's rows for kernels it shares with the per-op train
+    # path carry the train path's timings)
     keys = ("name", "path", "shape", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
-    for path, path_rows, run in (("serve", rows, fw), ("train", train_rows, tw)):
+    planned = {name: train_rows.get(name) or planned_rows[name]
+               for name in tp["launches_per_step"]}
+    for path, path_rows, run in (("serve", rows, fw), ("train", train_rows, tw),
+                                 ("train-planned", planned, tp)):
         for name, rs in path_rows.items():
             r = dict(rs[0], path=path, launches=run["launches"][name])
-            kernels.append({k: r[k] for k in keys})
+            kernels.append({k: r[k] for k in keys + ("per_op_chain_ms",) if k in r})
     other_rows = [dict(r, card=card) for rs in (*rows.values(), *train_rows.values())
                   for r in rs[1:]]
     log("other-shape kernels: " + json.dumps(other_rows))

@@ -230,6 +230,7 @@ def test_kernel_table_names_the_pallas_functions():
 def test_wrappers_refuse_cpu_tensors(name):
     """A wrapper launches its kernel or raises: it never computes on the CPU."""
     x = torch.zeros(2, 1, 16)
+    w = torch.zeros(8, 16)
     calls = {
         "rms_norm": lambda: cudaex.rms_norm(x, None, EPS),
         "rms_norm_residual": lambda: cudaex.rms_norm_residual(x, x, None, EPS),
@@ -243,6 +244,9 @@ def test_wrappers_refuse_cpu_tensors(name):
         "fused_adamw": lambda: cudaex.fused_adamw(
             [x], [x], [x], [x], torch.ones(2), lr=1e-3, beta1=0.9, beta2=0.999, eps=1e-8,
             weight_decay=0.0),
+        "mlp_subblock": lambda: cudaex.mlp_subblock(x, x, x[0, 0], w, w, w.t().contiguous()),
+        "mlp_subblock_bwd": lambda: cudaex.mlp_subblock_bwd(x, x, x, x[0, 0], w, w,
+                                                            w.t().contiguous()),
     }
     before = cudaex.launch_counts()[name]
     with pytest.raises(ValueError, match="CUDA tensors"):

@@ -7,7 +7,17 @@ synthetic tokens from a seed (``targets = roll(tokens, -1)``, as
 ``bench.py:146-148``). Weights are random, from ``--seed``.
 
     python3 -m thunder_tpu_torch.benchmarks.pretrain --model llama3-8b-bench \\
-        --layers 4 --batch 8 --seq 2048 --steps 5 [--profile 3]
+        --layers 4 --batch 8 --seq 2048 --steps 5 [--profile 3] [--block-fusion]
+
+Two rungs of the reference's step. The default is its per-op rung
+(``tt.jit(train_step, block_fusion=False)``). ``--block-fusion`` is its
+planned rung: one ``mlp_subblock`` kernel per layer, forward and backward.
+The reference's ``tt.jit(train_step)`` leaves ``block_fusion`` unset and its
+cost model decides; at llama3-8b-bench's train shape (B=8, T=2048:
+``cost_model.subblock_cost(16384, 4096, 14336, 2)``) the sub-block is
+VMEM-feasible (15.7 of 16 MB) and saves an estimated 2672.6 us per layer,
+so the planner plans it, and ``--block-fusion`` reproduces the reference's
+default step there. The port has no cost model, so the choice is explicit.
 
 Prints one JSON line: step time, tokens/s, peak device memory, the share of
 the H100's 989 TFLOP/s dense bf16 peak reached (NVIDIA data sheet, SXM
@@ -21,6 +31,7 @@ time per kernel family and the device's idle share. Needs a CUDA card;
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import subprocess
 import time
@@ -35,7 +46,11 @@ from thunder_tpu_torch.optim import AdamW, tree_leaves, tree_map
 
 H100_BF16_FLOPS = 989e12
 
+# kernel-name substrings of each family, first match wins: the port's own
+# kernels come ahead of the cuBLAS row
 FAMILIES = (
+    ("mlp_subblock_bwd", ("mlp_bwd_",)),
+    ("mlp_subblock", ("mlp_fwd_",)),
     ("sdpa_bwd", ("sdpa_dkv_", "sdpa_dq_", "delta_kernel")),
     ("sdpa_fwd", ("sdpa_fwd_",)),
     ("ce_fwd", ("ce_fwd_kernel",)),
@@ -62,25 +77,25 @@ def synthetic_batch(vocab_size: int, batch: int, seq: int, seed: int):
 
 
 def loss_and_grads(params: dict, tokens: torch.Tensor, targets: torch.Tensor,
-                   cfg: llama.LlamaConfig):
+                   cfg: llama.LlamaConfig, block_fusion: bool = False):
     """``(loss, grads)``: the loss and its gradient tree, the counterpart of
-    ``tt.value_and_grad(llama.loss_fn)``."""
+    ``tt.value_and_grad(llama.loss_fn)``; ``block_fusion`` picks the rung."""
     leaves = tree_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
-    loss = llama.loss_fn(params, tokens, targets, cfg)
+    loss = llama.loss_fn(params, tokens, targets, cfg, block_fusion=block_fusion)
     grads = iter(torch.autograd.grad(loss, leaves))
     return loss.detach(), tree_map(lambda _: next(grads), params)
 
 
 def train_step(params: dict, opt: AdamW, opt_state: dict, tokens: torch.Tensor,
                targets: torch.Tensor, cfg: llama.LlamaConfig,
-               opt_events: tuple | None = None) -> torch.Tensor:
+               opt_events: tuple | None = None, block_fusion: bool = False) -> torch.Tensor:
     """One step: the loss and its gradients, then AdamW in place. Returns
     the loss (a device tensor: reading it is the caller's sync).
     ``opt_events``, a pair of CUDA events, are recorded around the
-    optimizer's update."""
-    loss, grads = loss_and_grads(params, tokens, targets, cfg)
+    optimizer's update; ``block_fusion`` picks the rung."""
+    loss, grads = loss_and_grads(params, tokens, targets, cfg, block_fusion)
     if opt_events:
         opt_events[0].record()
     opt.update(params, grads, opt_state)
@@ -99,7 +114,7 @@ def _family(name: str) -> str:
 
 def run(model: str = "tiny", layers: int | None = None, batch: int = 4, seq: int = 256,
         steps: int = 10, lr: float = 1e-4, seed: int = 0, device=None, profile: int = 0,
-        params: dict | None = None) -> dict:
+        params: dict | None = None, block_fusion: bool = False) -> dict:
     """Build the model (or take ``params``), take one warm-up step and
     ``steps`` timed steps on one synthetic batch, and report. Each step's
     loss, host-clock time and kernel launches are in ``per_step``."""
@@ -122,7 +137,9 @@ def run(model: str = "tiny", layers: int | None = None, batch: int = 4, seq: int
             torch.cuda.synchronize()
 
     t0 = time.perf_counter()
-    losses = [float(train_step(params, opt, state, tokens, targets, cfg))]   # warm-up
+    step = functools.partial(train_step, params, opt, state, tokens, targets, cfg,
+                             block_fusion=block_fusion)
+    losses = [float(step())]   # warm-up
     warmup_s = time.perf_counter() - t0
     if on_card:
         torch.cuda.reset_peak_memory_stats()
@@ -132,7 +149,7 @@ def run(model: str = "tiny", layers: int | None = None, batch: int = 4, seq: int
         # the optimizer's device time, from events around it
         ev = tuple(torch.cuda.Event(enable_timing=True) for _ in range(2)) if on_card else None
         t = time.perf_counter()
-        loss = train_step(params, opt, state, tokens, targets, cfg, ev)
+        loss = step(opt_events=ev)
         sync()
         ms = (time.perf_counter() - t) * 1e3
         after = cudaex.launch_counts()
@@ -147,7 +164,8 @@ def run(model: str = "tiny", layers: int | None = None, batch: int = 4, seq: int
     fpt = llama.flops_per_token(cfg, seq, n_layers)
     result = {
         "model": cfg.name, "layers": n_layers, "batch": batch, "seq": seq, "steps": steps,
-        "lr": lr, "seed": seed, "device": str(dev), "dtype": str(cfg.dtype).replace("torch.", ""),
+        "lr": lr, "seed": seed, "block_fusion": block_fusion, "device": str(dev),
+        "dtype": str(cfg.dtype).replace("torch.", ""),
         "params": llama.num_params(cfg, n_layers), "warmup_s": warmup_s,
         "step_ms": step_ms, "tokens_per_s": tokens_per_step / (step_ms / 1e3),
         "losses": losses, "per_step": per_step,
@@ -161,19 +179,19 @@ def run(model: str = "tiny", layers: int | None = None, batch: int = 4, seq: int
             "optimizer_ms": sum(opt_ms) / len(opt_ms),
         })
     if profile and on_card:
-        result.update(_profile(params, opt, state, tokens, targets, cfg, profile))
+        result.update(_profile(step, profile))
     return result
 
 
-def _profile(params, opt, state, tokens, targets, cfg, steps: int) -> dict:
+def _profile(step, steps: int) -> dict:
     """Device time per kernel family and the device's idle share over
-    ``steps`` traced steps."""
+    ``steps`` traced calls of ``step``."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            train_step(params, opt, state, tokens, targets, cfg)
+            step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_family: dict[str, float] = {}
@@ -204,9 +222,12 @@ def main() -> None:
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--profile", type=int, default=0,
                     help="trace this many more steps with torch.profiler")
+    ap.add_argument("--block-fusion", action="store_true",
+                    help="the planned rung: one mlp_subblock kernel pair per layer")
     args = ap.parse_args()
     print(json.dumps(run(args.model, args.layers, args.batch, args.seq, args.steps, args.lr,
-                         args.seed, args.device, args.profile)))
+                         args.seed, args.device, args.profile,
+                         block_fusion=args.block_fusion)))
 
 
 if __name__ == "__main__":

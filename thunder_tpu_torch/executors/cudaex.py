@@ -1,7 +1,8 @@
 """Hand-written Hopper kernels of the port: build, binding, wrappers.
 
 The counterpart of ``thunder_tpu/executors/pallasex.py`` for the kernels the
-per-op serving decode step and the single-device train step run. Each
+per-op serving decode step and the single-device train step, at both its
+per-op and its planned rung, run. Each
 kernel is CUDA C++ for
 ``sm_90a`` in ``thunder_tpu_torch/csrc/``; its source note names the Pallas
 function it replaces, its bound on an H100, and what its design does about
@@ -95,6 +96,12 @@ KERNELS = {k.name: k for k in (
     Kernel("fused_adamw", "thunder_tpu_torch/csrc/fused_adamw.cu",
            "thunder_tpu/executors/pallasex.py:1944", "tt_fused_adamw",
            (_P, _I, _L, _P) + (_F,) * 7 + (_I, _I, _I, _I, _P)),
+    Kernel("mlp_subblock", "thunder_tpu_torch/csrc/mlp_subblock.cu",
+           "thunder_tpu/executors/pallasex.py:1039", "tt_mlp_subblock",
+           (_P,) * 10 + (_I, _I, _I, _I, _F, _I, _I, _P)),
+    Kernel("mlp_subblock_bwd", "thunder_tpu_torch/csrc/mlp_subblock_bwd.cu",
+           "thunder_tpu/executors/pallasex.py:1161", "tt_mlp_subblock_bwd",
+           (_P,) * 19 + (_I, _I, _I, _I, _F, _I, _I, _P)),
 )}
 
 _build_lock = threading.Lock()
@@ -438,3 +445,81 @@ def fused_adamw(params, grads, ms, vs, bc: torch.Tensor, *, lr: float, beta1: fl
             float(beta1), float(beta2), float(1.0 - beta1), float(1.0 - beta2), float(eps),
             float(weight_decay), _DTYPE_CODES[params[0].dtype], _DTYPE_CODES[ms[0].dtype],
             _DTYPE_CODES[vs[0].dtype], dev.index, _stream(params[0]))
+
+
+MLP_DH_ROWS = 64   # rows per block of the backward's dh pass: DH_ROWS in csrc/mlp_subblock_bwd.cu
+
+
+def _subblock_dims(name: str, residual, x, w_norm, w_gate, w_up, w_down, act: str):
+    """(N, D, F) of the MLP sub-block's operands; raises on what the kernels
+    do not take."""
+    if act not in ACTIVATIONS:
+        raise ValueError(f"{name}: unknown activation {act!r}; known: {sorted(ACTIVATIONS)}")
+    _check(name, residual, x, w_norm, w_gate, w_up, w_down, dtype=_float_dtype(name, x))
+    D = x.shape[-1]
+    F = w_gate.shape[0] if w_gate.ndim == 2 else -1
+    if (residual.shape != x.shape or tuple(w_norm.shape) != (D,)
+            or tuple(w_gate.shape) != (F, D) or tuple(w_up.shape) != (F, D)
+            or tuple(w_down.shape) != (D, F)):
+        raise ValueError(f"{name}: residual {tuple(residual.shape)}, x {tuple(x.shape)}, w_norm "
+                         f"{tuple(w_norm.shape)}, w_gate {tuple(w_gate.shape)}, w_up "
+                         f"{tuple(w_up.shape)}, w_down {tuple(w_down.shape)}: want (..., D), "
+                         f"(..., D), (D,), (F, D), (F, D), (D, F)")
+    N = x.numel() // max(D, 1)
+    # the tile loads move 16-byte chunks along D and F
+    if N == 0 or D % 8 or F % 8:
+        raise ValueError(f"{name}: {N} rows, D={D}, F={F}: rows must be non-zero and D, F "
+                         f"multiples of 8")
+    if any(t.data_ptr() % 16 for t in (residual, x, w_norm, w_gate, w_up, w_down)):
+        raise ValueError(f"{name}: operands must be 16-byte aligned")
+    return N, D, F
+
+
+def mlp_subblock(residual: torch.Tensor, x: torch.Tensor, w_norm: torch.Tensor,
+                 w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
+                 act: str = "silu", eps: float = 1e-5) -> torch.Tensor:
+    """The MLP sub-block ``h + (act(n @ w_gate.T) * (n @ w_up.T)) @ w_down.T``
+    with ``h = residual + x`` and ``n = rms_norm(h, w_norm)``; ``residual``
+    and ``x`` are ``(..., D)``, the weights in the torch ``(out, in)``
+    layout. One call launches three CUDA kernels (rows, gate/up, down) and
+    counts as one launch; h, n and the SwiGLU product are scratch."""
+    name = "mlp_subblock"
+    N, D, F = _subblock_dims(name, residual, x, w_norm, w_gate, w_up, w_down, act)
+    h, n = torch.empty_like(x), torch.empty_like(x)
+    y = torch.empty((N, F), dtype=x.dtype, device=x.device)
+    out = torch.empty_like(x)
+    _launch(name, residual.data_ptr(), x.data_ptr(), w_norm.data_ptr(), w_gate.data_ptr(),
+            w_up.data_ptr(), w_down.data_ptr(), h.data_ptr(), n.data_ptr(), y.data_ptr(),
+            out.data_ptr(), N, D, F, ACTIVATIONS[act], float(eps), _DTYPE_CODES[x.dtype],
+            x.device.index, _stream(x))
+    return out
+
+
+def mlp_subblock_bwd(g: torch.Tensor, residual: torch.Tensor, x: torch.Tensor,
+                     w_norm: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+                     w_down: torch.Tensor, act: str = "silu", eps: float = 1e-5):
+    """``(dh, dw_norm, dw_gate, dw_up, dw_down)`` of :func:`mlp_subblock` for
+    the output gradient ``g``, from the saved inputs; ``dh`` is the gradient
+    of both ``residual`` and ``x``. One call launches six CUDA kernels and
+    counts as one launch; the recomputed interiors are scratch."""
+    name = "mlp_subblock_bwd"
+    N, D, F = _subblock_dims(name, residual, x, w_norm, w_gate, w_up, w_down, act)
+    _check(name, g, x, dtype=x.dtype)
+    if g.shape != x.shape or g.data_ptr() % 16:
+        raise ValueError(f"{name}: g {tuple(g.shape)} must match x {tuple(x.shape)} and be "
+                         f"16-byte aligned")
+    dev, dt = x.device, x.dtype
+    dh = torch.empty_like(x)
+    dwn, dwg, dwu, dwd = (torch.empty_like(w) for w in (w_norm, w_gate, w_up, w_down))
+    n = torch.empty((N, D), dtype=dt, device=dev)
+    rr = torch.empty(N, dtype=torch.float32, device=dev)
+    dgpre, dup, y = (torch.empty((N, F), dtype=dt, device=dev) for _ in range(3))
+    dn = torch.empty((N, D), dtype=torch.float32, device=dev)
+    parts = torch.empty((-(-N // MLP_DH_ROWS), D), dtype=torch.float32, device=dev)
+    _launch(name, g.data_ptr(), residual.data_ptr(), x.data_ptr(), w_norm.data_ptr(),
+            w_gate.data_ptr(), w_up.data_ptr(), w_down.data_ptr(), dh.data_ptr(),
+            dwn.data_ptr(), dwg.data_ptr(), dwu.data_ptr(), dwd.data_ptr(), n.data_ptr(),
+            rr.data_ptr(), dgpre.data_ptr(), dup.data_ptr(), y.data_ptr(), dn.data_ptr(),
+            parts.data_ptr(), N, D, F, ACTIVATIONS[act], float(eps), _DTYPE_CODES[dt],
+            dev.index, _stream(x))
+    return dh, dwn, dwg, dwu, dwd

@@ -6,7 +6,8 @@ The counterpart of ``thunder_tpu/models/llama.py``: the same configs
 (:func:`init_params`, drawn from an explicit ``torch.Generator``, so its
 numbers differ from the JAX package's for the same seed), the rope tables,
 the attention/MLP projections, and ``forward_hidden``/``forward``/``loss_fn``
-for training. :func:`params_from_jax` carries a JAX ``init_params`` tree
+for training at the reference's per-op rung or, with ``block_fusion=True``,
+its planned rung. :func:`params_from_jax` carries a JAX ``init_params`` tree
 across as numpy, so both packages can run the same weights.
 """
 
@@ -185,15 +186,10 @@ def _mlp_train(x: torch.Tensor, layer: dict) -> torch.Tensor:
     return F.linear(y * torch.sigmoid(y) * F.linear(x, layer["w_up"]), layer["w_down"])
 
 
-def _block(h: torch.Tensor, x: torch.Tensor, layer: dict, next_norm: torch.Tensor,
-           cfg: LlamaConfig, cos, sin):
-    """One decoder layer: GQA attention, then the SwiGLU MLP, on the
-    residual stream ``h`` and its normed ``x``. The residual adds fold into
-    the norms that follow them (the layer's ``mlp_norm``, then
-    ``next_norm``: the next layer's ``attn_norm`` or ``norm_f``), as the
-    reference's per-op training trace claims them. Returns ``(h,
-    next_norm(h))``."""
-    B, T = h.shape[0], h.shape[1]
+def _attention_out(x: torch.Tensor, layer: dict, cfg: LlamaConfig, cos, sin) -> torch.Tensor:
+    """The attention sub-block's output projection ``linear(attn, wo)`` (B,
+    T, D) of a normed hidden state ``x``, before its residual add."""
+    B, T = x.shape[0], x.shape[1]
     n_rep = cfg.n_heads // cfg.kv_heads
     hd = cfg.head_dim
     q, k, v = _project_qkv(x, layer, cfg, cos, sin)
@@ -202,19 +198,52 @@ def _block(h: torch.Tensor, x: torch.Tensor, layer: dict, next_norm: torch.Tenso
         v = v.unsqueeze(2).expand(B, cfg.kv_heads, n_rep, T, hd).reshape(B, cfg.n_heads, T, hd)
     attn = tnn.scaled_dot_product_attention(q, k, v, is_causal=True)
     attn = attn.transpose(1, 2).reshape(B, T, cfg.n_heads * hd)
-    h, x = tnn.rms_norm_residual(h, F.linear(attn, layer["wo"]), layer["mlp_norm"],
+    return F.linear(attn, layer["wo"])
+
+
+def _block(h: torch.Tensor, x: torch.Tensor, layer: dict, next_norm: torch.Tensor,
+           cfg: LlamaConfig, cos, sin):
+    """One decoder layer at the per-op rung: GQA attention, then the SwiGLU
+    MLP, on the residual stream ``h`` and its normed ``x``. The residual
+    adds fold into the norms that follow them (the layer's ``mlp_norm``,
+    then ``next_norm``: the next layer's ``attn_norm`` or ``norm_f``), as the
+    reference's per-op training trace claims them. Returns ``(h,
+    next_norm(h))``."""
+    h, x = tnn.rms_norm_residual(h, _attention_out(x, layer, cfg, cos, sin), layer["mlp_norm"],
                                  eps=cfg.norm_eps)
     return tnn.rms_norm_residual(h, _mlp_train(x, layer), next_norm, eps=cfg.norm_eps)
 
 
-def forward_hidden(params: dict, tokens: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
-    """tokens (B, T) integer -> final normed hidden states (B, T, D)."""
+def _planned_block(h: torch.Tensor, layer: dict, cfg: LlamaConfig, cos, sin) -> torch.Tensor:
+    """One decoder layer at the planned rung, as the reference's planned
+    training trace claims it: ``rms_norm`` for attention, then ONE
+    ``mlp_subblock`` that takes the attention-out residual add, ``mlp_norm``,
+    the SwiGLU MLP and the second residual add. Returns the new ``h``."""
+    x = tnn.rms_norm(h, layer["attn_norm"], eps=cfg.norm_eps)
+    return tnn.mlp_subblock(h, _attention_out(x, layer, cfg, cos, sin), layer["mlp_norm"],
+                            layer["w_gate"], layer["w_up"], layer["w_down"], act="silu",
+                            eps=cfg.norm_eps)
+
+
+def forward_hidden(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, *,
+                   block_fusion: bool = False) -> torch.Tensor:
+    """tokens (B, T) integer -> final normed hidden states (B, T, D).
+
+    ``block_fusion=False`` is the reference's per-op rung (residual adds
+    folded into ``rms_norm_residual``); ``True`` its planned rung, which the
+    reference's cost model picks at llama3-8b-bench's train shape: one
+    ``mlp_subblock`` per layer and a plain ``rms_norm`` for every other
+    norm."""
     T = tokens.shape[1]
     h = F.embedding(tokens.long(), params["tok_embedding"])
     layers = params["layers"]
     if not layers:
         return tnn.rms_norm(h, params["norm_f"], eps=cfg.norm_eps)
     cos, sin = _rope_cos_sin(cfg, T, h.dtype, device=h.device)
+    if block_fusion:
+        for layer in layers:
+            h = _planned_block(h, layer, cfg, cos, sin)
+        return tnn.rms_norm(h, params["norm_f"], eps=cfg.norm_eps)
     x = tnn.rms_norm(h, layers[0]["attn_norm"], eps=cfg.norm_eps)
     for i, layer in enumerate(layers):
         nxt = layers[i + 1]["attn_norm"] if i + 1 < len(layers) else params["norm_f"]
@@ -222,16 +251,18 @@ def forward_hidden(params: dict, tokens: torch.Tensor, cfg: LlamaConfig) -> torc
     return x
 
 
-def forward(params: dict, tokens: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+def forward(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, *,
+            block_fusion: bool = False) -> torch.Tensor:
     """tokens (B, T) -> logits (B, T, vocab)."""
-    return F.linear(forward_hidden(params, tokens, cfg), params["lm_head"])
+    return F.linear(forward_hidden(params, tokens, cfg, block_fusion=block_fusion),
+                    params["lm_head"])
 
 
 def loss_fn(params: dict, tokens: torch.Tensor, targets: torch.Tensor,
-            cfg: LlamaConfig) -> torch.Tensor:
+            cfg: LlamaConfig, *, block_fusion: bool = False) -> torch.Tensor:
     """Mean next-token cross-entropy; the logits are materialised and taken
     to float32, as the reference's unfused loss does."""
-    logits = forward(params, tokens, cfg)
+    logits = forward(params, tokens, cfg, block_fusion=block_fusion)
     B, T, V = logits.shape
     return tnn.cross_entropy(logits.reshape(B * T, V).float(), targets.reshape(B * T))
 

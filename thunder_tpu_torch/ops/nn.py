@@ -2,9 +2,10 @@
 version.
 
 The counterparts of ``thunder_tpu/ops/nn.py`` ``rms_norm`` (:61),
-``rms_norm_residual`` (:73), ``linear_act`` (:101), ``sdpa_fwd`` (:296),
-``ce_fwd`` (:320), ``sdpa_bwd`` (:336), ``paged_decode_attention`` (:367)
-and ``decode_row_write`` (:447). Each public function sends a CUDA tensor to
+``rms_norm_residual`` (:73), ``linear_act`` (:101), ``mlp_subblock``
+(:116), ``mlp_subblock_bwd`` (:149), ``sdpa_fwd`` (:296), ``ce_fwd``
+(:320), ``sdpa_bwd`` (:336), ``paged_decode_attention`` (:367) and
+``decode_row_write`` (:447). Each public function sends a CUDA tensor to
 its hand-written kernel (:mod:`thunder_tpu_torch.executors.cudaex`) and a
 CPU tensor to its plain version; any other device raises.
 ``paged_decode_attention`` with T > 1 (chunked prefill) is outside the
@@ -23,7 +24,9 @@ reference's flash VJP rules ``_sdpa_vjp`` (:642) and ``_cross_entropy_vjp``
 ``(softmax - onehot) * row_scale`` in plain ops, as the reference computes
 it. ``rms_norm`` and ``rms_norm_residual`` take their kernel forward and
 ``_rms_norm_vjp``'s (:658) plain backward when a gradient is needed; the
-reference has no backward kernel for them either.
+reference has no backward kernel for them either. ``mlp_subblock`` is the
+counterpart of ``_mlp_subblock_vjp`` (:696): it saves its six inputs and its
+backward is the ``mlp_subblock_bwd`` kernel.
 """
 
 from __future__ import annotations
@@ -73,15 +76,93 @@ _ACTS = {
 }
 
 
+def _check_act(name: str, act: str) -> None:
+    if act not in _ACTS:
+        raise ValueError(f"{name}: unknown activation {act!r}; known: {sorted(_ACTS)}")
+
+
 def linear_act_plain(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None,
                      act: str = "relu") -> torch.Tensor:
     """``act(a @ w.T + bias)``, the product and activation in float32 and one
     rounding to ``a.dtype`` (the kernel's contract; in float32 it is exactly
     the reference's ``act(linear(a, w, bias))``)."""
-    if act not in _ACTS:
-        raise ValueError(f"linear_act: unknown activation {act!r}; known: {sorted(_ACTS)}")
+    _check_act("linear_act", act)
     y = F.linear(a.float(), w.float(), None if bias is None else bias.float())
     return _ACTS[act](y).to(a.dtype)
+
+
+def _act_grad_plain(act: str, a: torch.Tensor) -> torch.Tensor:
+    """d act(a) / da in float32, the closed forms of pallasex's
+    ``_act_grad_f32`` (:981)."""
+    if act == "relu":
+        return (a > 0).to(a.dtype)
+    if act == "silu":
+        sig = torch.sigmoid(a)
+        return sig * (1.0 + a * (1.0 - sig))
+    if act == "gelu":
+        cdf = 0.5 * (1.0 + torch.erf(a / math.sqrt(2.0)))
+        pdf = torch.exp(-0.5 * a * a) / math.sqrt(2.0 * math.pi)
+        return cdf + a * pdf
+    c = math.sqrt(2.0 / math.pi)   # gelu_tanh
+    t = torch.tanh(c * (a + 0.044715 * a * a * a))
+    du = c * (1.0 + 3.0 * 0.044715 * a * a)
+    return 0.5 * (1.0 + t) + 0.5 * a * (1.0 - t * t) * du
+
+
+def mlp_subblock_plain(residual, x, w_norm, w_gate, w_up, w_down, act: str = "silu",
+                       eps: float = 1e-5) -> torch.Tensor:
+    """``h + (act(n @ w_gate.T) * (n @ w_up.T)) @ w_down.T`` with ``h =
+    residual + x`` and ``n = rms_norm(h, w_norm)``, rounded where
+    ``_mlp_subblock_kernel`` (pallasex.py:999) rounds: h in the input dtype,
+    ``act(gate)`` and ``up`` each rounded from float32 and multiplied in the
+    input dtype, the down projection summed in float32 and rounded once
+    before the residual add. In float32 it is the reference's
+    ``nn.mlp_subblock`` decomposition."""
+    _check_act("mlp_subblock", act)
+    dt = x.dtype
+    h = residual + x
+    n = rms_norm_plain(h, w_norm, eps).float()
+    ga = _ACTS[act](F.linear(n, w_gate.float())).to(dt)
+    u = F.linear(n, w_up.float()).to(dt)
+    return h + F.linear((ga * u).float(), w_down.float()).to(dt)
+
+
+def mlp_subblock_bwd_plain(g, residual, x, w_norm, w_gate, w_up, w_down, act: str = "silu",
+                           eps: float = 1e-5):
+    """``(dh, dw_norm, dw_gate, dw_up, dw_down)`` of :func:`mlp_subblock_plain`
+    for the output gradient ``g``, from the inputs alone, rounded where the
+    backward pair rounds (pallasex.py:1080-1115, :1134-1151): ``gpre``, ``u``
+    and ``dy = g @ w_down`` stay float32, ``dup``, ``dgpre`` and ``y`` round
+    to the input dtype, ``dn`` and the weight gradients sum in float32, each
+    result rounds once to its input's dtype. ``dh`` is the gradient of both
+    ``residual`` and ``x``. In float32 it is the reference's
+    ``nn.mlp_subblock_bwd`` decomposition."""
+    _check_act("mlp_subblock_bwd", act)
+    dt, shape = x.dtype, x.shape
+    D = shape[-1]
+    h32 = (residual + x).float().reshape(-1, D)
+    rr = torch.rsqrt(torch.mean(h32 * h32, -1, keepdim=True) + eps)
+    xhat = h32 * rr
+    n = (xhat.to(dt) * w_norm).float()
+    wg, wu, wd = w_gate.float(), w_up.float(), w_down.float()
+    gpre, u = F.linear(n, wg), F.linear(n, wu)
+    g32 = g.float().reshape(-1, D)
+    dy = torch.matmul(g32, wd)
+    ga = _ACTS[act](gpre)
+    dup = (dy * ga).to(dt)
+    dgpre = (dy * u * _act_grad_plain(act, gpre)).to(dt)
+    y = ga.to(dt) * u.to(dt)
+    del gpre, u, dy, ga
+    dn = torch.matmul(dgpre.float(), wg) + torch.matmul(dup.float(), wu)
+    dw_norm = torch.sum(dn * xhat, 0).to(w_norm.dtype)
+    gxhat = dn * w_norm.float()
+    proj = torch.mean(gxhat * xhat, -1, keepdim=True)
+    dh = (g32 + rr * (gxhat - xhat * proj)).to(dt).reshape(shape)
+    del dn, gxhat
+    dw_gate = torch.matmul(dgpre.float().t(), n).to(w_gate.dtype)
+    dw_up = torch.matmul(dup.float().t(), n).to(w_up.dtype)
+    dw_down = torch.matmul(g32.t(), y.float()).to(w_down.dtype)
+    return dh, dw_norm, dw_gate, dw_up, dw_down
 
 
 def paged_decode_attention_plain(q, k_pages, v_pages, block_tables, lengths,
@@ -382,6 +463,59 @@ def cross_entropy(logits: torch.Tensor, target: torch.Tensor,
         raise ValueError(f"cross_entropy: logits {tuple(logits.shape)} must be (N, C) and "
                          f"target {tuple(target.shape)} (N,)")
     return _CrossEntropy.apply(logits.contiguous(), target, ignore_index)
+
+
+def mlp_subblock_bwd(g, residual, x, w_norm, w_gate, w_up, w_down, act: str = "silu",
+                     eps: float = 1e-5):
+    """``(dh, dw_norm, dw_gate, dw_up, dw_down)`` of :func:`mlp_subblock` for
+    the output gradient ``g``, from the saved inputs (the interiors are
+    recomputed); ``dh`` is the gradient of both ``residual`` and ``x``."""
+    if _on_cuda(x, "mlp_subblock_bwd"):
+        return cudaex.mlp_subblock_bwd(g, residual, x, w_norm, w_gate, w_up, w_down, act, eps)
+    return mlp_subblock_bwd_plain(g, residual, x, w_norm, w_gate, w_up, w_down, act, eps)
+
+
+def _mlp_subblock(residual, x, w_norm, w_gate, w_up, w_down, act, eps):
+    if _on_cuda(x, "mlp_subblock"):
+        return cudaex.mlp_subblock(residual, x, w_norm, w_gate, w_up, w_down, act, eps)
+    return mlp_subblock_plain(residual, x, w_norm, w_gate, w_up, w_down, act, eps)
+
+
+class _MlpSubblock(torch.autograd.Function):
+    """The counterpart of ``_mlp_subblock_vjp`` (reference ``ops/nn.py:696``):
+    saves only the inputs; the backward is ``mlp_subblock_bwd``, which
+    recomputes the interiors, and sends ``dh`` to both ``residual`` and
+    ``x``."""
+
+    @staticmethod
+    def forward(ctx, residual, x, w_norm, w_gate, w_up, w_down, act, eps):
+        ctx.save_for_backward(residual, x, w_norm, w_gate, w_up, w_down)
+        ctx.act, ctx.eps = act, eps
+        return _mlp_subblock(residual, x, w_norm, w_gate, w_up, w_down, act, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        dh, dwn, dwg, dwu, dwd = mlp_subblock_bwd(g.contiguous(), *ctx.saved_tensors,
+                                                  act=ctx.act, eps=ctx.eps)
+        return dh, dh, dwn, dwg, dwu, dwd, None, None
+
+
+def mlp_subblock(residual: torch.Tensor, x: torch.Tensor, w_norm: torch.Tensor,
+                 w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
+                 act: str = "silu", eps: float = 1e-5) -> torch.Tensor:
+    """The whole transformer MLP sub-block, the block planner's unit::
+
+        h   = residual + x
+        n   = rms_norm(h, w_norm)
+        out = h + (act(n @ w_gate.T) * (n @ w_up.T)) @ w_down.T
+
+    ``residual``, ``x`` (..., D); ``w_gate``, ``w_up`` (F, D); ``w_down``
+    (D, F); ``act`` one of relu | silu | gelu | gelu_tanh. Differentiable in
+    all six tensors; the gradient saves only the inputs."""
+    residual, x = residual.contiguous(), x.contiguous()
+    if _needs_grad(residual, x, w_norm, w_gate, w_up, w_down):
+        return _MlpSubblock.apply(residual, x, w_norm, w_gate, w_up, w_down, act, eps)
+    return _mlp_subblock(residual, x, w_norm, w_gate, w_up, w_down, act, eps)
 
 
 def decode_row_write(pool: torch.Tensor, rows: torch.Tensor,
