@@ -55,6 +55,27 @@ and times each beside the per-op chain it replaces. Then:
    launches mlp_subblock 4, mlp_subblock_bwd 4, rms_norm 5, sdpa_fwd 4,
    sdpa_bwd 4, ce_fwd 1 and fused_adamw 1 times, rms_norm_residual never.
 
+The serving planned rung (``ServingEngine(block_fusion=True)``, the
+reference engine's default binding): phase 3 also holds ``decode_layer`` and
+``attn_subblock`` (one cooperative launch each) against their plain versions
+at the serving shape (8 slots, D=4096, 32/8 heads, hd=128, 16-token pages,
+lengths 1..2048, F=14336, bf16 silu, one replay slot), out and the fresh k/v
+rows row by row; shows that three planted faults fail that check (the
+longest request's last page left out, the last 128 rows of w_gate zeroed,
+the replay row read from the pool instead of its fresh row); times each
+beside its plain version, its bound and the per-op chain it replaces; and
+holds ``mlp_subblock`` at the 512-row prefill chunk and at 8 rows. Then:
+
+10. planned serving, card vs CPU — phase 4 at the planned rung (every decode
+    step launches decode_layer 4 and rms_norm 1), and one tiny-gqa decode
+    step at the sub-block rung (``attn_subblock`` then ``mlp_subblock`` per
+    layer, the reference's ``nn.decode_layer`` decomposition) whose logits
+    and pools equal the CPU's, the same composition and ``decode_layer_plain``;
+11. planned serving, full width — phase 5 at the planned rung: every decode
+    step launches decode_layer 32 and rms_norm 1, every prefill chunk
+    rms_norm 32 and mlp_subblock 31; decode tok/s, TTFT and peak memory
+    beside phase 5's.
+
 The last line of standard output is the JSON result the checker reads; the
 line before it holds the kernels table (one row per kernel and main path,
 with that path's shape and launch count), and the line before that the
@@ -118,6 +139,15 @@ TRAIN_PARAM_ATOL = 0.2 * TRAIN_LR
 #   dropped 128-wide ff tile must fail the check.
 SUBBLOCK_TOL = 2e-2
 FAULT_FF_TILE = 128
+# the decode layer and its attention half, row by row: out and the fresh k/v
+#   rows, 2e-2 of each row's largest reference value (or a hundredth of the
+#   tensor's): the normed rows, the probabilities, act(gate) and up round to
+#   bf16 before the next product, where a one-step difference in an f32 sum
+#   (the attention split across blocks, the products' order) moves them
+DECODE_TOL = 2e-2
+# phase 10's sub-block decode step, float32 card vs CPU: logits and pools
+#   1e-5 absolute (sums in another order; logits of order 1)
+SUBBLOCK_STEP_TOL = 1e-5
 
 ATTN_SHAPE = (8, 32, 2048, 128)
 CE_SHAPE = (16384, 32000)
@@ -126,6 +156,7 @@ TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 8, 2048, 5
 D, F_DIM, S_DECODE, M_PREFILL = 4096, 14336, 8, 512
 KV, G, HD, PS = 8, 4, 128, 16
 LENGTHS = [1, 17, 300, 512, 1000, 1500, 2047, 2048]
+REPLAY = 1   # the decode slot that replays its last prompt token
 EPS = 1e-5
 
 
@@ -569,19 +600,268 @@ def check_planned_kernels(torch, cudaex, tnn, tllama):
 
 
 # ---------------------------------------------------------------------------
+# phase 3, the serving planned rung: the whole decode layer, its attention
+# half, and the MLP sub-block at serving shapes
+# ---------------------------------------------------------------------------
+
+def decode_inputs(torch, tnn, dev, dims, seed=4):
+    """One planned decode step's layer operands at ``dims`` = (S, D, H, KV,
+    hd, ps, F) in bf16, over pools that hold every request's pages (LENGTHS,
+    pages drawn at random). Slot REPLAY is a replay row: its write goes to
+    the scratch position 0, and its pool row at len - 1 is a random row, not
+    its fresh row. h is drawn at scale 0.25 so the attention and MLP terms,
+    not the residual, set a row's largest value. The longest request's last
+    page holds keys aligned with its query heads (scores about 4 above the
+    rest, as recent tokens often are), so that page carries a visible share
+    of the attention. Returns (args, mlp)."""
+    S, Dm, H, KVh, hd, ps, Fm = dims
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale).to(bf16)
+
+    npg = 2048 // ps
+    P = S * npg + 1
+    perm = torch.randperm(P - 1, generator=gen, device=dev).add_(1).to(torch.int32)
+    bt = torch.zeros(S, npg, dtype=torch.int32, device=dev)
+    used = 0
+    for b, n in enumerate(LENGTHS):
+        k = -(-n // ps)
+        bt[b, :k] = perm[used:used + k]
+        used += k
+    ln = torch.tensor(LENGTHS, dtype=torch.int32, device=dev)
+    last = ln.long() - 1
+    wp = bt.long().gather(1, (last // ps)[:, None])[:, 0] * ps + last % ps
+    wp[REPLAY] = 0
+    ang = torch.rand(S, 1, 1, hd // 2, generator=gen, device=dev) * 6.3
+    h = rnd(S, 1, Dm, scale=0.25)
+    wn = (1 + 0.1 * torch.randn(Dm, generator=gen, device=dev)).to(bf16)
+    wq, wk, wv = (rnd(n * hd, Dm, scale=Dm ** -0.5) for n in (H, KVh, KVh))
+    wo = rnd(Dm, H * hd, scale=(H * hd) ** -0.5)
+    cos, sin = torch.cos(ang).to(bf16), torch.sin(ang).to(bf16)
+    kp, vp = rnd(KVh, P, ps, hd), rnd(KVh, P, ps, hd)
+    q, _, _ = tnn.decode_qkv_plain(h, wn, wq, wk, wv, cos, sin, EPS)
+    b, G = len(LENGTHS) - 1, H // KVh
+    for kvh in range(KVh):
+        qm = q[b, kvh * G:(kvh + 1) * G].float().mean(0)
+        key = qm * (4.0 * math.sqrt(hd) / float(qm.norm()) ** 2)
+        pos = torch.arange(LENGTHS[b] - ps, LENGTHS[b], device=dev)
+        kp[kvh, bt[b, pos // ps].long(), pos % ps] = key.to(bf16)
+    args = (h, wn, wq, wk, wv, wo, cos, sin, kp, vp, bt, ln, wp)
+    mlp = ((1 + 0.1 * torch.randn(Dm, generator=gen, device=dev)).to(bf16),
+           rnd(Fm, Dm, scale=Dm ** -0.5), rnd(Fm, Dm, scale=Dm ** -0.5),
+           rnd(Dm, Fm, scale=Fm ** -0.5))
+    return args, mlp
+
+
+def decode_faults(torch, tnn, args, mlp):
+    """The plain versions with a fault planted, each as (name, applies to
+    the layer only, plain (out, k_rows, v_rows)): the longest request's last
+    page left out (its length cut back to a page boundary); the last 128
+    rows of w_gate zeroed; the replay row's attention reading its pool row at
+    len - 1 and not its fresh row."""
+    import torch.nn.functional as F
+
+    h, wn, wq, wk, wv, wo, cos, sin, kp, vp, bt, ln, wp = args
+    ps = kp.shape[2]
+    cut = ln.clone()
+    cut[-1] = (int(cut[-1]) - 1) // ps * ps
+    wg_cut = mlp[1].clone()
+    wg_cut[-FAULT_FF_TILE:] = 0
+
+    def stale_replay(layer):
+        q, k, v = tnn.decode_qkv_plain(h, wn, wq, wk, wv, cos, sin, EPS)
+        k_rows, v_rows = k.transpose(0, 1).contiguous(), v.transpose(0, 1).contiguous()
+        pos = int(ln[REPLAY]) - 1
+        page = int(bt[REPLAY, pos // ps])
+        k_att, v_att = k_rows.clone(), v_rows.clone()
+        k_att[:, REPLAY], v_att[:, REPLAY] = kp[:, page, pos % ps], vp[:, page, pos % ps]
+        attn = tnn.decode_attention_plain(q, k_att, v_att, kp, vp, bt, ln)
+        proj = F.linear(attn.float(), wo.float())
+        S, Dm = h.shape[0], h.shape[-1]
+        out = (proj.to(h.dtype) if not layer else
+               tnn.decode_mlp_plain(h.reshape(S, Dm).float() + proj, h.dtype, *mlp, "silu", EPS))
+        return out.reshape(h.shape), k_rows, v_rows
+
+    return (
+        ("last page left out", False,
+         lambda layer: (tnn.decode_layer_plain(*args[:11], cut, wp, *mlp) if layer
+                        else tnn.attn_subblock_plain(*args[:11], cut, wp))),
+        (f"last {FAULT_FF_TILE} w_gate rows zeroed", True,
+         lambda layer: tnn.decode_layer_plain(*args, mlp[0], wg_cut, *mlp[2:])),
+        ("replay row read from the pool", False, stale_replay),
+    )
+
+
+def hold_decode_kernels(torch, tnn, layer_fn, sub_fn, args, mlp):
+    """``layer_fn`` and ``sub_fn`` (the kernels, or any stand-ins of their
+    signature) against the plain versions, row by row: out and the fresh
+    k/v rows; then each planted fault must fail the same check. Returns
+    {name: {"err": row_rel_err, "max_abs_err": ..., "faults": {...}}}."""
+    from thunder_tpu_torch.testing import row_rel_err
+
+    found = {}
+    for name, layer in (("decode_layer", True), ("attn_subblock", False)):
+        got = layer_fn(*args, *mlp) if layer else sub_fn(*args)
+        want = (tnn.decode_layer_plain(*args, *mlp) if layer else tnn.attn_subblock_plain(*args))
+        errs = {part: row_rel_err(a, b) for part, a, b in zip(("out", "k_rows", "v_rows"), got,
+                                                              want)}
+        require(max(errs.values()) <= DECODE_TOL,
+                f"{name}: errors {errs} of their rows' largest values")
+        faults = {}
+        for fault, layer_only, plain in decode_faults(torch, tnn, args, mlp):
+            if layer_only and not layer:
+                continue
+            err = row_rel_err(got[0], plain(layer)[0])
+            require(err > DECODE_TOL, f"{name}: the row check passes a planted fault ({fault}: "
+                                      f"{err})")
+            faults[fault] = err
+        found[name] = {"errs": errs, "max_abs_err": max(float((a.float() - b.float()).abs().max())
+                                                        for a, b in zip(got, want)),
+                       "faults": faults}
+        del got, want
+    return found
+
+
+def check_serving_planned_kernels(torch, cudaex, tnn, tllama):
+    """The serving planned rung's kernels at the serving shapes: the decode
+    layer and its attention half held row by row with planted faults, then
+    each timed beside its plain version, its bound and the per-op chain it
+    replaces; the MLP sub-block at the prefill chunk and at 8 rows, row by
+    row, timed beside its plain version and the per-op chain. {name: [rows]},
+    ``mlp_subblock`` at the prefill chunk first."""
+    import torch.nn.functional as F
+
+    from thunder_tpu_torch.testing import row_rel_err
+
+    dev = torch.device("cuda")
+    cfg = tllama.CONFIGS["llama3-8b"]
+    dims = (S_DECODE, D, KV * G, KV, HD, PS, F_DIM)
+    args, mlp = decode_inputs(torch, tnn, dev, dims)
+    found = hold_decode_kernels(torch, tnn, cudaex.decode_layer, cudaex.attn_subblock, args, mlp)
+    for name, f in found.items():
+        log(f"  {name}: " + ", ".join(f"{k} {v:.3e}" for k, v in f["errs"].items())
+            + " of their rows' largest values; planted faults "
+            + ", ".join(f"{k} {v:.3e}" for k, v in f["faults"].items()))
+
+    h, wn, wq, wk, wv, wo, cos, sin, kp, vp, bt, ln, wp = args
+    layer = {"attn_norm": wn, "wq": wq, "wk": wk, "wv": wv, "wo": wo, "mlp_norm": mlp[0],
+             "w_gate": mlp[1], "w_up": mlp[2], "w_down": mlp[3]}
+    S, H = S_DECODE, KV * G
+    prev = torch.zeros_like(h)
+
+    def attn_chain():   # the per-op rung's attention half of one layer
+        x = tnn.rms_norm(h, wn, EPS)
+        q, k, v = tllama._project_qkv(x, layer, cfg, cos, sin)
+        tnn.decode_row_write(kp, k, wp)
+        tnn.decode_row_write(vp, v, wp)
+        attn = tnn.paged_decode_attention(q.contiguous(), kp, vp, bt, ln)
+        return F.linear(attn.transpose(1, 2).reshape(S, 1, H * HD), wo)
+
+    def layer_chain():  # one layer of the per-op rung's decode step
+        hh, x = tnn.rms_norm_residual(prev, h, wn, EPS)
+        q, k, v = tllama._project_qkv(x, layer, cfg, cos, sin)
+        tnn.decode_row_write(kp, k, wp)
+        tnn.decode_row_write(vp, v, wp)
+        attn = tnn.paged_decode_attention(q.contiguous(), kp, vp, bt, ln)
+        hh, x = tnn.rms_norm_residual(hh, F.linear(attn.transpose(1, 2).reshape(S, 1, H * HD), wo),
+                                      mlp[0], EPS)
+        return tnn.rms_norm_residual(hh, tllama._mlp(x, layer), wn, EPS)
+
+    ctx = sum(LENGTHS)
+    kv_bytes = ctx * KV * HD * 2 * 2 + sum(-(-n // PS) for n in LENGTHS) * 4 + 2 * S * 4
+    attn_w = (2 * H * HD * D + 2 * KV * HD * D) * 2
+    mlp_w = 3 * F_DIM * D * 2
+    act_bytes = 2 * S * D * 2 + 2 * KV * S * HD * 2 + S * HD * 2 * 2 + D * 2
+    attn_ops = 2.0 * S * attn_w / 2 + 4.0 * ctx * H * HD
+    rows = {}
+    for name, fn, plain, chain, w_bytes, ops in (
+            ("attn_subblock", lambda: cudaex.attn_subblock(*args),
+             lambda: tnn.attn_subblock_plain(*args), attn_chain, attn_w, attn_ops),
+            ("decode_layer", lambda: cudaex.decode_layer(*args, *mlp),
+             lambda: tnn.decode_layer_plain(*args, *mlp), layer_chain, attn_w + mlp_w + D * 2,
+             attn_ops + 2.0 * S * mlp_w / 2)):
+        row = timed_row(torch, cudaex, name, f"S{S}:1..2048", found[name]["max_abs_err"], fn,
+                        plain, None, w_bytes + kv_bytes + act_bytes, ops, BF16_FLOPS, 20, 3)
+        row["row_rel_err"] = found[name]["errs"]
+        row["planted_faults"] = found[name]["faults"]
+        row["per_op_chain_ms"] = time_ms(torch, chain, 20)
+        log(f"    per-op chain {row['per_op_chain_ms']:.4f} ms")
+        rows[name] = [row]
+    del args, mlp, layer, kp, vp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the MLP sub-block at the planned prefill chunk (512 rows) and at 8 rows
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
+
+    wn = (1.0 + 0.1 * torch.randn(D, generator=gen, device=dev)).to(torch.bfloat16)
+    wg, wu, wd = rnd(F_DIM, D, scale=D ** -0.5), rnd(F_DIM, D, scale=D ** -0.5), \
+        rnd(D, F_DIM, scale=F_DIM ** -0.5)
+    layer = {"w_gate": wg, "w_up": wu, "w_down": wd}
+    for n in (M_PREFILL, S_DECODE):
+        r, x = rnd(1, n, D, scale=0.25), rnd(1, n, D, scale=0.25)
+        w = (r, x, wn, wg, wu, wd)
+        got, want = cudaex.mlp_subblock(*w), tnn.mlp_subblock_plain(*w)
+        err = row_rel_err(got, want)
+        require(err <= SUBBLOCK_TOL, f"mlp_subblock {n} rows: out err {err} of its rows' largest "
+                                     f"values")
+
+        def chain():    # the per-op rung: residual add + mlp_norm, linear_act, up, down, add
+            hh, xx = tnn.rms_norm_residual(r, x, wn, EPS)
+            return hh + tllama._mlp(xx, layer)
+
+        row = timed_row(torch, cudaex, "mlp_subblock", f"{n}x{D}x{F_DIM} silu",
+                        float((got.float() - want.float()).abs().max()),
+                        lambda: cudaex.mlp_subblock(*w), lambda: tnn.mlp_subblock_plain(*w), None,
+                        3 * n * D * 2 + 3 * F_DIM * D * 2 + D * 2, 6.0 * n * D * F_DIM,
+                        BF16_FLOPS, 20, 3)
+        row["row_rel_err"] = err
+        row["per_op_chain_ms"] = time_ms(torch, chain, 20)
+        log(f"    row check {err:.3e}; per-op chain {row['per_op_chain_ms']:.4f} ms")
+        rows.setdefault("mlp_subblock", []).append(row)
+        del got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phase 4: tiny-gqa float32 on the card vs the CPU
 # ---------------------------------------------------------------------------
 
-def card_vs_cpu(np, torch, tllama, ServingEngine):
+def counting(eng, cudaex, attr: str, counts: list) -> None:
+    """Wrap ``eng.runner.<attr>`` so each call appends the kernel launches it
+    made to ``counts``."""
+    fn = getattr(eng.runner, attr)
+
+    def counted(*args, **kwargs):
+        before = cudaex.launch_counts()
+        out = fn(*args, **kwargs)
+        after = cudaex.launch_counts()
+        counts.append({k: after[k] - before[k] for k in after if after[k] != before[k]})
+        return out
+
+    setattr(eng.runner, attr, counted)
+
+
+def card_vs_cpu(np, torch, tllama, ServingEngine, cudaex=None, block_fusion: bool = False):
     cfg = tllama.CONFIGS["tiny-gqa"]
     params = tllama.init_params(cfg, seed=0, device="cpu")
     rng = np.random.RandomState(0)
     prompts = [rng.randint(1, cfg.vocab_size, size=n).astype(np.int32)
                for n in (1, 7, 16, 33, 24)]
-    kw = dict(max_slots=3, page_size=8, num_pages=9, max_context=64, prefill_chunk=16)
-    outs = {}
+    kw = dict(max_slots=3, page_size=8, num_pages=9, max_context=64, prefill_chunk=16,
+              block_fusion=block_fusion)
+    outs, steps = {}, []
     for device in ("cuda", "cpu"):
         eng = ServingEngine(params, cfg, device=device, **kw)
+        if device == "cuda" and cudaex is not None:
+            counting(eng, cudaex, "decode", steps)
         reqs = [eng.submit(p, 8) for p in prompts]
         eng.drain()
         eng.assert_quiescent()
@@ -591,21 +871,78 @@ def card_vs_cpu(np, torch, tllama, ServingEngine):
         raise AssertionError(f"card tokens {outs['cuda'][0]} != CPU tokens {outs['cpu'][0]}")
     if outs["cuda"][1] == 0:
         raise AssertionError("the small pool did not preempt: the phase lost its case")
-    return {"requests": len(prompts), "tokens": outs["cuda"][0],
-            "preemptions": outs["cuda"][1]}
+    out = {"requests": len(prompts), "tokens": outs["cuda"][0], "preemptions": outs["cuda"][1]}
+    if block_fusion:
+        expect = {"decode_layer": cfg.n_layers, "rms_norm": 1}
+        bad = [c for c in steps if c != expect]
+        if bad or not steps:
+            raise AssertionError(f"planned decode steps launched {bad[:3]}, expected {expect}")
+        out["launches_per_decode_step"] = expect
+    return out
+
+
+def subblock_step(np, torch, tllama, tnn, cudaex):
+    """One float32 tiny-gqa decode step at the sub-block rung (the
+    reference's ``nn.decode_layer`` decomposition: ``attn_subblock``, then
+    ``mlp_subblock``, per layer) on the card, against the same composition
+    on the CPU and against the CPU's ``decode_layer_plain``: logits and
+    pools (but the scratch page) within SUBBLOCK_STEP_TOL. Ragged lengths, a
+    page-boundary crossing, a replay slot and an idle slot."""
+    from thunder_tpu_torch.optim import tree_map
+    from thunder_tpu_torch.serving import PageGeometry
+    from thunder_tpu_torch.serving.runner import PagedLlamaRunner
+
+    cfg = tllama.CONFIGS["tiny-gqa"]
+    L, S, npg, ps, P = cfg.n_layers, 4, 3, 8, 13
+    params = tllama.init_params(cfg, seed=1, device="cpu")
+    rng = np.random.RandomState(2)
+    pools = [{k: torch.from_numpy((rng.rand(cfg.kv_heads, P, ps, cfg.head_dim) - 0.5)
+                                  .astype(np.float32)) for k in ("k", "v")} for _ in range(L)]
+    t = torch.from_numpy
+    inputs = (t(rng.randint(1, cfg.vocab_size, size=(S, 1))),
+              t(np.asarray([[1, 2, 0], [3, 0, 0], [4, 5, 6], [0, 0, 0]], np.int32)),
+              t(np.asarray([9, 6, 20, 1], np.int32)), t(np.asarray([16, 29, 0, 0])))
+    sampling = (torch.zeros(S), torch.zeros(S, dtype=torch.int64), torch.ones(S),
+                torch.zeros(S, 2, dtype=torch.int64))
+    geom = PageGeometry(n_layers=L, kv_heads=cfg.kv_heads, head_dim=cfg.head_dim, page_size=ps,
+                        num_pages=P, pages_per_request=npg)
+
+    def step(device, layer_fn):
+        run = PagedLlamaRunner(cfg, geom, block_fusion=True)
+        run.decode_layer = layer_fn
+        ps_ = tree_map(lambda x: x.to(device), params)
+        pl_ = [{k: v.clone().to(device) for k, v in kv.items()} for kv in pools]
+        _, logits = run.decode(ps_, *(x.to(device) for x in inputs), pl_,
+                               *(x.to(device) for x in sampling))
+        return logits.cpu(), [{k: v.cpu() for k, v in kv.items()} for kv in pl_]
+
+    cudaex.reset_launch_counts()
+    card = step("cuda", tnn.decode_layer_subblocks)
+    counts = {k: v for k, v in cudaex.launch_counts().items() if v}
+    expect = {"attn_subblock": L, "mlp_subblock": L, "rms_norm": 1}
+    require(counts == expect, f"sub-block decode step launched {counts}, expected {expect}")
+    errs = {}
+    for name, ref in (("cpu subblocks", step("cpu", tnn.decode_layer_subblocks)),
+                      ("cpu decode_layer_plain", step("cpu", tnn.decode_layer))):
+        # the pools on every page but the scratch page 0, where the replay and
+        # idle slots' duplicate writes land in either order on the card
+        err = max([float((card[0] - ref[0]).abs().max())] +
+                  [float((a[k][:, 1:] - b[k][:, 1:]).abs().max())
+                   for a, b in zip(card[1], ref[1]) for k in ("k", "v")])
+        require(err <= SUBBLOCK_STEP_TOL, f"sub-block step on the card vs {name}: {err}")
+        errs[name] = err
+    return {"layers": L, "max_abs_err": errs, "launches": counts}
 
 
 # ---------------------------------------------------------------------------
 # phase 5: llama3-8b at full width and depth
 # ---------------------------------------------------------------------------
 
-def full_width(np, torch, tllama, ServingEngine, SamplingParams, cudaex):
+def full_width(np, torch, tllama, ServingEngine, SamplingParams, cudaex, params,
+               block_fusion: bool = False):
     cfg = tllama.CONFIGS["llama3-8b"]
-    t0 = time.perf_counter()
-    params = tllama.init_params(cfg, seed=0, device="cuda")
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    eng = ServingEngine(params, cfg, max_slots=8, page_size=16, max_context=2048)
+    eng = ServingEngine(params, cfg, max_slots=8, page_size=16, max_context=2048,
+                        block_fusion=block_fusion)
     L = cfg.n_layers
 
     # warm-up request (cuBLAS handles, allocator), not part of the measured run
@@ -613,7 +950,7 @@ def full_width(np, torch, tllama, ServingEngine, SamplingParams, cudaex):
     eng.drain()
     eng.completed.clear()
 
-    step_counts, step_ms, step_rows = [], [], []
+    step_counts, step_ms, step_rows, chunk_counts = [], [], [], []
     decode = eng.runner.decode
 
     def counted_decode(*args, **kwargs):
@@ -628,6 +965,8 @@ def full_width(np, torch, tllama, ServingEngine, SamplingParams, cudaex):
         return out
 
     eng.runner.decode = counted_decode
+    if block_fusion:
+        counting(eng, cudaex, "prefill", chunk_counts)
     rng = np.random.RandomState(1)
     lengths = [17, 64, 150, 301, 480, 640, 800, 1000]
     sampled = SamplingParams(temperature=0.8, top_k=50, top_p=0.9, seed=1234)
@@ -650,20 +989,21 @@ def full_width(np, torch, tllama, ServingEngine, SamplingParams, cudaex):
         if out.min() < 0 or out.max() >= cfg.vocab_size:
             raise AssertionError(f"request {r.request_id} produced out-of-vocab tokens")
     eng.assert_quiescent()
-    expect = {"paged_decode_attention": L, "linear_act": L, "rms_norm_residual": 2 * L,
-              "rms_norm": 1}
+    expect = ({"decode_layer": L, "rms_norm": 1} if block_fusion else
+              {"paged_decode_attention": L, "linear_act": L, "rms_norm_residual": 2 * L,
+               "rms_norm": 1})
     for i, c in enumerate(step_counts):
         if c != expect:
             raise AssertionError(f"decode step {i} launched {c}, expected {expect}")
     if any(counts[k] == 0 for k in expect):
         raise AssertionError(f"a kernel of the path never launched: {counts}")
     decode_tokens = sum(step_rows)
-    return {
+    out = {
         "model": cfg.name, "layers": L, "dtype": "bfloat16", "max_slots": 8,
-        "page_size": 16, "max_context": 2048, "kv_pool_gb": sum(
+        "page_size": 16, "max_context": 2048, "block_fusion": block_fusion, "kv_pool_gb": sum(
             t.numel() * t.element_size() for kv in eng.cache.pools for t in kv.values()) / 1e9,
         "prompt_lengths": lengths, "new_tokens": 32, "sampled_requests": 2,
-        "param_init_s": init_s, "wall_s": wall_s,
+        "wall_s": wall_s,
         "decode_steps": len(step_counts), "decode_tokens": decode_tokens,
         "decode_tok_per_s": decode_tokens / (sum(step_ms) / 1e3),
         "decode_step_ms_mean": sum(step_ms) / len(step_ms),
@@ -672,6 +1012,16 @@ def full_width(np, torch, tllama, ServingEngine, SamplingParams, cudaex):
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "launches_per_decode_step": expect, "launches": counts,
     }
+    if block_fusion:
+        chunk = {"rms_norm": L, "mlp_subblock": L - 1}
+        bad = [c for c in chunk_counts if c != chunk]
+        if bad or not chunk_counts:
+            raise AssertionError(f"prefill chunks launched {bad[:3]}, expected {chunk}")
+        out["launches_per_prefill_chunk"] = chunk
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -777,13 +1127,24 @@ def main() -> int:
     rows = check_kernels(torch, cudaex, tnn)
     train_rows = check_train_kernels(torch, cudaex, tnn, toptim_ops, tllama)
     planned_rows = check_planned_kernels(torch, cudaex, tnn, tllama)
+    log("serving planned rung kernels vs plain versions (bf16, full width):")
+    sp_rows = check_serving_planned_kernels(torch, cudaex, tnn, tllama)
     log(f"card vs CPU (tiny-gqa, float32): {json.dumps(card_vs_cpu(np, torch, tllama, ServingEngine))}")
 
-    fw = full_width(np, torch, tllama, ServingEngine, SamplingParams, cudaex)
-    fw["card"] = card
+    def serve(block_fusion):
+        t0 = time.perf_counter()
+        params = tllama.init_params(tllama.CONFIGS["llama3-8b"], seed=0, device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        out = full_width(np, torch, tllama, ServingEngine, SamplingParams, cudaex, params,
+                         block_fusion)
+        del params
+        gc.collect()                  # the 16 GB of weights
+        torch.cuda.empty_cache()
+        return dict(out, param_init_s=init_s, card=card)
+
+    fw = serve(False)
     log("full width: " + json.dumps(fw))
-    gc.collect()                      # the engine and its 16 GB of weights
-    torch.cuda.empty_cache()
 
     tc = train_card_vs_cpu(np, torch, tllama, pretrain)
     log(f"train card vs CPU (tiny-gqa, float32): {json.dumps(tc)}")
@@ -796,6 +1157,18 @@ def main() -> int:
     log(f"planned train card vs CPU (tiny-gqa, float32): {json.dumps(tcp)}")
     tp = train_full_width(torch, cudaex, pretrain, block_fusion=True)
     log_train("planned train full width", tp)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    pc = card_vs_cpu(np, torch, tllama, ServingEngine, cudaex, block_fusion=True)
+    log(f"planned serving card vs CPU (tiny-gqa, float32): {json.dumps(pc)}")
+    sb = subblock_step(np, torch, tllama, tnn, cudaex)
+    log(f"sub-block decode step card vs CPU (tiny-gqa, float32): {json.dumps(sb)}")
+    fp = serve(True)
+    log("planned full width: " + json.dumps(fp))
+    log("serving, per-op vs planned rung: " + json.dumps({
+        k: [fw[k], fp[k]] for k in ("decode_tok_per_s", "decode_step_ms_mean", "ttft_ms_mean",
+                                    "peak_memory_gb", "wall_s")}))
 
     # one row per kernel and main path: the path's own shape and its own
     # launch count (rms_norm and rms_norm_residual run on several paths;
@@ -806,13 +1179,21 @@ def main() -> int:
     kernels = []
     planned = {name: train_rows.get(name) or planned_rows[name]
                for name in tp["launches_per_step"]}
+    # the serving planned path: rms_norm at the decode shape (the same kernel
+    # at both rungs: no chain), mlp_subblock at the prefill chunk
+    serve_planned = {"decode_layer": sp_rows["decode_layer"],
+                     "rms_norm": [dict(rows["rms_norm"][0], per_op_chain_ms=None)],
+                     "mlp_subblock": sp_rows["mlp_subblock"]}
     for path, path_rows, run in (("serve", rows, fw), ("train", train_rows, tw),
-                                 ("train-planned", planned, tp)):
+                                 ("train-planned", planned, tp),
+                                 ("serve-planned", serve_planned, fp),
+                                 ("serve-subblock", {"attn_subblock": sp_rows["attn_subblock"]},
+                                  sb)):
         for name, rs in path_rows.items():
             r = dict(rs[0], path=path, launches=run["launches"][name])
             kernels.append({k: r[k] for k in keys + ("per_op_chain_ms",) if k in r})
-    other_rows = [dict(r, card=card) for rs in (*rows.values(), *train_rows.values())
-                  for r in rs[1:]]
+    other_rows = [dict(r, card=card) for rs in (*rows.values(), *train_rows.values(),
+                                                sp_rows["mlp_subblock"]) for r in rs[1:]]
     log("other-shape kernels: " + json.dumps(other_rows))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)

@@ -28,6 +28,12 @@ over its last dim: out and dh per token, each weight gradient per output
 row), 1e-4 in float32 (FMA products summed in another order) and 2e-2 in
 bf16 (act(gate), up, the SwiGLU product, dgpre and dup round to bf16 before
 the next product, where a one-step difference in the f32 sum moves them).
+
+Decode layer and attention sub-block (one cooperative launch each): out and
+the fresh k/v rows row by row, 1e-4 in float32 (products and the attention
+split across blocks summed in another order) and 2e-2 in bf16 (the normed
+rows, the probabilities, act(gate) and up round to bf16 before the next
+product).
 """
 
 import math
@@ -331,3 +337,90 @@ def test_cuda_planned_train_step_matches_cpu(cuda_device):
     for step in a["per_step"]:
         assert step["launches"] == {"sdpa_fwd": 2, "sdpa_bwd": 2, "ce_fwd": 1, "fused_adamw": 1,
                                     "rms_norm": 3, "mlp_subblock": 2, "mlp_subblock_bwd": 2}
+
+
+# ---------------------------------------------------------------------------
+# the serving planned rung: the whole decode layer and its attention half
+# ---------------------------------------------------------------------------
+
+# (S, D, H, KV, hd, ps, npg, F, lengths, replay slot): tiny-gqa's layer, and
+# 8 slots at hd = 128 whose longer contexts split into several key chunks
+DECODE_SHAPES = {
+    "tiny-gqa": (4, 64, 4, 2, 16, 8, 3, 176, [9, 6, 20, 1], 2),
+    "8-slot-hd128": (8, 1024, 8, 2, 128, 16, 40, 2816, [1, 17, 100, 255, 256, 400, 639, 640], 3),
+}
+
+
+def _decode_args(device, dtype, shape, seed):
+    """The decode step's operands on the card: random pools, each slot's
+    pages drawn at random, slot ``replay`` writing to the scratch position
+    (its pool row at len - 1 is a random row, not its fresh row)."""
+    S, D, H, KV, hd, ps, npg, F, lengths, replay = DECODE_SHAPES[shape]
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(*shp, scale=1.0):
+        return (torch.randn(*shp, generator=gen, device=device) * scale).to(dtype)
+
+    P = S * npg + 1
+    bt = (torch.randperm(P - 1, generator=gen, device=device) + 1)
+    bt = bt.reshape(S, npg).to(torch.int32)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=device)
+    last = (ln.long() - 1)
+    wp = bt.long().gather(1, (last // ps)[:, None])[:, 0] * ps + last % ps
+    wp[replay] = 0
+    ang = torch.rand(S, 1, 1, hd // 2, generator=gen, device=device) * 6.3
+    args = (rnd(S, 1, D), (1 + 0.1 * torch.randn(D, generator=gen, device=device)).to(dtype),
+            rnd(H * hd, D, scale=D ** -0.5), rnd(KV * hd, D, scale=D ** -0.5),
+            rnd(KV * hd, D, scale=D ** -0.5), rnd(D, H * hd, scale=(H * hd) ** -0.5),
+            torch.cos(ang).to(dtype), torch.sin(ang).to(dtype), rnd(KV, P, ps, hd),
+            rnd(KV, P, ps, hd), bt, ln, wp)
+    mlp = ((1 + 0.1 * torch.randn(D, generator=gen, device=device)).to(dtype),
+           rnd(F, D, scale=D ** -0.5), rnd(F, D, scale=D ** -0.5), rnd(D, F, scale=F ** -0.5))
+    return args, mlp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(DECODE_SHAPES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layer", [True, False], ids=["decode_layer", "attn_subblock"])
+def test_cuda_decode_kernels_match_plain(cuda_device, layer, dtype, shape):
+    args, mlp = _decode_args(cuda_device, dtype, shape, seed=7)
+    if layer:
+        got = cudaex.decode_layer(*args, *mlp, act="silu")
+        want = tnn.decode_layer_plain(*args, *mlp, act="silu")
+    else:
+        got = cudaex.attn_subblock(*args)
+        want = tnn.attn_subblock_plain(*args)
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for name, a, b in zip(("out", "k_rows", "v_rows"), got, want):
+        assert a.dtype == dtype and a.shape == b.shape, name
+        assert row_rel_err(a, b) <= tol, (name, row_rel_err(a, b))
+
+
+@pytest.mark.cuda
+def test_cuda_planned_engine_tokens_match_cpu(cuda_device):
+    """The float32 tiny-gqa engine at the planned rung on the card (one
+    decode_layer launch per layer per step) gives the CPU engine's greedy
+    tokens, preemptions included."""
+    from thunder_tpu_torch.models import llama
+    from thunder_tpu_torch.serving import ServingEngine
+
+    cfg = llama.CONFIGS["tiny-gqa"]
+    params = llama.init_params(cfg, seed=0, device="cpu", n_layers=2)
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(1, cfg.vocab_size, size=n).astype(np.int32)
+               for n in (1, 7, 16, 33, 24)]
+    outs = {}
+    cudaex.reset_launch_counts()
+    for device in ("cuda", "cpu"):
+        eng = ServingEngine(params, cfg, device=device, max_slots=3, page_size=8,
+                            num_pages=9, max_context=64, prefill_chunk=16, block_fusion=True)
+        reqs = [eng.submit(p, 8) for p in prompts]
+        eng.drain()
+        eng.assert_quiescent()
+        outs[device] = [r.output().tolist() for r in reqs]
+    assert outs["cuda"] == outs["cpu"]
+    counts = cudaex.launch_counts()
+    assert counts["decode_layer"] > 0 and counts["mlp_subblock"] > 0, counts
+    assert counts["paged_decode_attention"] == counts["linear_act"] == 0, counts

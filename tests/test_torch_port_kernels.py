@@ -231,6 +231,10 @@ def test_wrappers_refuse_cpu_tensors(name):
     """A wrapper launches its kernel or raises: it never computes on the CPU."""
     x = torch.zeros(2, 1, 16)
     w = torch.zeros(8, 16)
+    sq, pool = torch.zeros(16, 16), torch.zeros(1, 3, 4, 16)
+    decode = (x, x[0, 0], sq, sq, sq, sq, torch.zeros(2, 1, 1, 8), torch.zeros(2, 1, 1, 8), pool,
+              pool, torch.zeros(2, 1, dtype=torch.int32), torch.ones(2, dtype=torch.int32),
+              torch.zeros(2, dtype=torch.int64))
     calls = {
         "rms_norm": lambda: cudaex.rms_norm(x, None, EPS),
         "rms_norm_residual": lambda: cudaex.rms_norm_residual(x, x, None, EPS),
@@ -247,6 +251,8 @@ def test_wrappers_refuse_cpu_tensors(name):
         "mlp_subblock": lambda: cudaex.mlp_subblock(x, x, x[0, 0], w, w, w.t().contiguous()),
         "mlp_subblock_bwd": lambda: cudaex.mlp_subblock_bwd(x, x, x, x[0, 0], w, w,
                                                             w.t().contiguous()),
+        "decode_layer": lambda: cudaex.decode_layer(*decode, x[0, 0], w, w, w.t().contiguous()),
+        "attn_subblock": lambda: cudaex.attn_subblock(*decode),
     }
     before = cudaex.launch_counts()[name]
     with pytest.raises(ValueError, match="CUDA tensors"):

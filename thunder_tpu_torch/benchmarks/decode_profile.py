@@ -5,8 +5,10 @@ a seed), fills all 8 slots with the smoke mix of prompts (17..1000 tokens),
 runs until every request decodes, then traces ``--steps`` engine steps with
 ``torch.profiler`` and prints device time by kernel family, the device's
 busy and idle share of the window, and the host-clock step time.
+``--block-fusion`` serves at the planned rung (one ``decode_layer`` launch
+per layer per step) instead of the per-op rung.
 
-    python3 -m thunder_tpu_torch.benchmarks.decode_profile [--steps 10]
+    python3 -m thunder_tpu_torch.benchmarks.decode_profile [--steps 10] [--block-fusion]
 
 Needs a CUDA card; prints the result as one JSON line.
 """
@@ -22,6 +24,8 @@ import numpy as np
 import torch
 
 FAMILIES = (
+    ("decode_layer", ("decode_layer_kernel",)),
+    ("mlp_subblock", ("mlp_fwd_",)),
     ("paged_decode_attention", ("paged_decode_kernel",)),
     ("linear_act", ("linear_act_",)),
     ("rms_norm_residual", ("rms_norm_residual_kernel",)),
@@ -43,6 +47,8 @@ def family(name: str) -> str:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--block-fusion", action="store_true",
+                    help="the planned rung: one decode_layer launch per layer per step")
     args = ap.parse_args()
     from thunder_tpu_torch.executors import cudaex
     from thunder_tpu_torch.models import llama
@@ -54,7 +60,8 @@ def main() -> None:
     cudaex.build()
     cfg = llama.CONFIGS["llama3-8b"]
     params = llama.init_params(cfg, seed=0, device="cuda")
-    eng = ServingEngine(params, cfg, max_slots=8, page_size=16, max_context=2048)
+    eng = ServingEngine(params, cfg, max_slots=8, page_size=16, max_context=2048,
+                        block_fusion=args.block_fusion)
     rng = np.random.RandomState(1)
     for n in (17, 64, 150, 301, 480, 640, 800, 1000):
         eng.submit(rng.randint(0, cfg.vocab_size, size=n).astype(np.int32), 2 * args.steps + 8)
@@ -81,7 +88,8 @@ def main() -> None:
         by_family[fam] = by_family.get(fam, 0.0) + us
     busy_ms = sum(by_family.values()) / 1e3
     result = {
-        "card": card, "model": cfg.name, "slots": 8, "steps": args.steps,
+        "card": card, "model": cfg.name, "block_fusion": args.block_fusion, "slots": 8,
+        "steps": args.steps,
         "step_ms": wall_ms / args.steps,
         "decode_tok_per_s": 8 * args.steps / (wall_ms / 1e3),
         "device_busy_ms_per_step": busy_ms / args.steps,

@@ -1,0 +1,71 @@
+// The whole T == 1 decode layer, one cooperative launch per layer per
+// decoded token: the kernel of decode_layer.cuh with its MLP phases.
+//
+// Replaces: thunder_tpu/executors/pallasex.py pallas_decode_layer (:1751),
+// which runs _decode_call (:1623). Bound on an H100: bytes, 466.6 MB per
+// layer at S = 8, D = 4096, H = 32, KV = 8, hd = 128, F = 14336, bf16 with
+// 7425 context tokens: 0.139 ms at 3.35 TB/s (decode_layer.cuh).
+#include "decode_layer.cuh"
+
+namespace {
+
+template <typename T>
+int run(const void* h, const void* wn1, const void* wq, const void* wk, const void* wv,
+        const void* wo, const void* cos, const void* sin, const void* kp, const void* vp,
+        const void* bt, const void* ln, const void* wn2, const void* wg, const void* wu,
+        const void* wd, void* out, void* k_rows, void* v_rows, void* q_ws, void* part,
+        void* attn_ws, void* hacc, void* y_ws, int S, int D, int H, int KV, int hd, int P,
+        int ps, int npg, int F, int chunk_pages, int nch, int act, float eps, float scale,
+        int device, cudaStream_t stream) {
+  tt::decode::Args<T> a{};
+  a.h = static_cast<const T*>(h);
+  a.wn1 = static_cast<const T*>(wn1);
+  a.wq = static_cast<const T*>(wq);
+  a.wk = static_cast<const T*>(wk);
+  a.wv = static_cast<const T*>(wv);
+  a.wo = static_cast<const T*>(wo);
+  a.cos = static_cast<const T*>(cos);
+  a.sin = static_cast<const T*>(sin);
+  a.kp = static_cast<const T*>(kp);
+  a.vp = static_cast<const T*>(vp);
+  a.bt = static_cast<const int*>(bt);
+  a.ln = static_cast<const int*>(ln);
+  a.wn2 = static_cast<const T*>(wn2);
+  a.wg = static_cast<const T*>(wg);
+  a.wu = static_cast<const T*>(wu);
+  a.wd = static_cast<const T*>(wd);
+  a.out = static_cast<T*>(out);
+  a.k_rows = static_cast<T*>(k_rows);
+  a.v_rows = static_cast<T*>(v_rows);
+  a.q_ws = static_cast<T*>(q_ws);
+  a.part = static_cast<float*>(part);
+  a.attn_ws = static_cast<T*>(attn_ws);
+  a.hacc = static_cast<float*>(hacc);
+  a.y_ws = static_cast<T*>(y_ws);
+  a.S = S; a.D = D; a.H = H; a.KV = KV; a.hd = hd; a.P = P; a.ps = ps; a.npg = npg; a.F = F;
+  a.chunk_pages = chunk_pages; a.nch = nch; a.act = act; a.eps = eps; a.scale = scale;
+  return tt::decode::launch<T, true>(a, device, stream);
+}
+
+}  // namespace
+
+extern "C" int tt_decode_layer(const void* h, const void* wn1, const void* wq, const void* wk,
+                               const void* wv, const void* wo, const void* cos, const void* sin,
+                               const void* kp, const void* vp, const void* bt, const void* ln,
+                               const void* wn2, const void* wg, const void* wu, const void* wd,
+                               void* out, void* k_rows, void* v_rows, void* q_ws, void* part,
+                               void* attn_ws, void* hacc, void* y_ws, int S, int D, int H,
+                               int KV, int hd, int P, int ps, int npg, int F, int chunk_pages,
+                               int nch, int act, float eps, float scale, int dtype, int device,
+                               void* stream) {
+  cudaSetDevice(device);
+  auto s = static_cast<cudaStream_t>(stream);
+  return dtype == TT_BF16
+             ? run<__nv_bfloat16>(h, wn1, wq, wk, wv, wo, cos, sin, kp, vp, bt, ln, wn2, wg, wu,
+                                  wd, out, k_rows, v_rows, q_ws, part, attn_ws, hacc, y_ws, S, D,
+                                  H, KV, hd, P, ps, npg, F, chunk_pages, nch, act, eps, scale,
+                                  device, s)
+             : run<float>(h, wn1, wq, wk, wv, wo, cos, sin, kp, vp, bt, ln, wn2, wg, wu, wd, out,
+                          k_rows, v_rows, q_ws, part, attn_ws, hacc, y_ws, S, D, H, KV, hd, P,
+                          ps, npg, F, chunk_pages, nch, act, eps, scale, device, s);
+}

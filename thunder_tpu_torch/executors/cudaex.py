@@ -1,12 +1,13 @@
 """Hand-written Hopper kernels of the port: build, binding, wrappers.
 
-The counterpart of ``thunder_tpu/executors/pallasex.py`` for the kernels the
-per-op serving decode step and the single-device train step, at both its
-per-op and its planned rung, run. Each
-kernel is CUDA C++ for
-``sm_90a`` in ``thunder_tpu_torch/csrc/``; its source note names the Pallas
-function it replaces, its bound on an H100, and what its design does about
-that bound.
+The counterpart of ``thunder_tpu/executors/pallasex.py``: one hand-written
+kernel for every Pallas kernel there, the ones the serving steps and the
+single-device train step run at both their per-op and planned rungs. The
+serving planned rung's ``decode_layer`` and ``attn_subblock`` are one
+cooperative kernel (``csrc/decode_layer.cuh``) built as two libraries, with
+and without the MLP phases. Each kernel is CUDA C++ for ``sm_90a`` in
+``thunder_tpu_torch/csrc/``; its source note names the Pallas function it
+replaces, its bound on an H100, and what its design does about that bound.
 
 Build: at first use, :func:`build` runs one ``nvcc`` per ``csrc/*.cu``
 source, all started together, into ``thunder_tpu_torch/_build/``. Each
@@ -102,6 +103,12 @@ KERNELS = {k.name: k for k in (
     Kernel("mlp_subblock_bwd", "thunder_tpu_torch/csrc/mlp_subblock_bwd.cu",
            "thunder_tpu/executors/pallasex.py:1161", "tt_mlp_subblock_bwd",
            (_P,) * 19 + (_I, _I, _I, _I, _F, _I, _I, _P)),
+    Kernel("decode_layer", "thunder_tpu_torch/csrc/decode_layer.cu",
+           "thunder_tpu/executors/pallasex.py:1751", "tt_decode_layer",
+           (_P,) * 24 + (_I,) * 12 + (_F, _F, _I, _I, _P)),
+    Kernel("attn_subblock", "thunder_tpu_torch/csrc/attn_subblock.cu",
+           "thunder_tpu/executors/pallasex.py:1743", "tt_attn_subblock",
+           (_P,) * 18 + (_I,) * 10 + (_F, _F, _I, _I, _P)),
 )}
 
 _build_lock = threading.Lock()
@@ -523,3 +530,141 @@ def mlp_subblock_bwd(g: torch.Tensor, residual: torch.Tensor, x: torch.Tensor,
             parts.data_ptr(), N, D, F, ACTIVATIONS[act], float(eps), _DTYPE_CODES[dt],
             dev.index, _stream(x))
     return dh, dwn, dwg, dwu, dwd
+
+
+# geometry of csrc/decode_layer.cuh: KEYS (attention keys per chunk, about),
+# ACT_BYTES (staged activation rows) and the block's shared-memory ceiling
+DECODE_KEYS = 128
+DECODE_ACT_BYTES = 64 * 1024
+_SMEM_MAX = 232448
+
+
+def _align16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def _decode_dims(name, h, w_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages, block_tables,
+                 lengths, write_pos):
+    """(S, D, H, KV, hd, P, ps, npg) of the decode kernel's operands; raises
+    where ``_attn_subblock_checker`` (pallasex.py:1761) refuses and where the
+    kernel does not take the shapes."""
+    dt = _float_dtype(name, h)
+    if h.ndim != 3 or h.shape[1] != 1:
+        raise ValueError(f"{name}: h {tuple(h.shape)} must be (S, 1, D): one row per slot, "
+                         f"decode only")
+    if k_pages.ndim != 4 or v_pages.shape != k_pages.shape:
+        raise ValueError(f"{name}: pools {tuple(k_pages.shape)} / {tuple(v_pages.shape)} must "
+                         f"be one (KV, P, ps, hd) shape")
+    S, D = h.shape[0], h.shape[2]
+    KV, P, ps, hd = k_pages.shape
+    if hd % 16 or not 16 <= hd <= 128:
+        raise ValueError(f"{name}: head dim {hd} must be a multiple of 16 up to 128")
+    if wq.ndim != 2 or wq.shape[1] != D or wq.shape[0] % hd:
+        raise ValueError(f"{name}: wq {tuple(wq.shape)} must be (H * {hd}, {D})")
+    H = wq.shape[0] // hd
+    if H % KV:
+        raise ValueError(f"{name}: {H} heads over {KV} kv heads")
+    want = {"w_norm": (D,), "wk": (KV * hd, D), "wv": (KV * hd, D), "wo": (D, H * hd),
+            "cos": (S, 1, 1, hd // 2), "sin": (S, 1, 1, hd // 2)}
+    for arg, t in zip(want, (w_norm, wk, wv, wo, cos, sin)):
+        if tuple(t.shape) != want[arg]:
+            raise ValueError(f"{name}: {arg} {tuple(t.shape)} where {want[arg]} is required")
+    if D % 8:
+        raise ValueError(f"{name}: D={D} must be a multiple of 8")
+    floats = (h, w_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages)
+    if any(t.dtype != dt for t in floats):
+        raise ValueError(f"{name}: dtypes {[str(t.dtype) for t in floats]} must all be {dt}")
+    if (block_tables.ndim != 2 or block_tables.shape[0] != S or tuple(lengths.shape) != (S,)
+            or tuple(write_pos.shape) != (S,)):
+        raise ValueError(f"{name}: block_tables {tuple(block_tables.shape)}, lengths "
+                         f"{tuple(lengths.shape)}, write_pos {tuple(write_pos.shape)} for {S} "
+                         f"slots")
+    _check(name, *floats, dtype=dt)
+    _check(name, block_tables, lengths, dtype=torch.int32)
+    if write_pos.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"{name}: write_pos dtype {write_pos.dtype} is not an integer type")
+    if any(t.device != h.device for t in (block_tables, lengths, write_pos)):
+        raise ValueError(f"{name}: block tables, lengths and write_pos must be on {h.device}")
+    if any(t.data_ptr() % 16 for t in (h, w_norm, wq, wk, wv, wo, k_pages, v_pages)):
+        raise ValueError(f"{name}: operands must be 16-byte aligned")
+    G, keys = H // KV, max(1, DECODE_KEYS // ps) * ps
+    attn = _align16(G * hd * 4) + _align16(G * keys * 4) + 2 * _align16(keys * 8)
+    if max(DECODE_ACT_BYTES, attn) + _align16(S * 4) > _SMEM_MAX:
+        raise ValueError(f"{name}: {G} grouped heads of {hd} over {keys}-key chunks need more "
+                         f"shared memory than a block has")
+    return S, D, H, KV, hd, P, ps, block_tables.shape[1]
+
+
+def _decode_call(name, h, w_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages, block_tables,
+                 lengths, write_pos, mlp, act, eps, scale):
+    S, D, H, KV, hd, P, ps, npg = _decode_dims(name, h, w_norm, wq, wk, wv, wo, cos, sin,
+                                               k_pages, v_pages, block_tables, lengths,
+                                               write_pos)
+    dev, dt = h.device, h.dtype
+    chunk_pages = max(1, DECODE_KEYS // ps)
+    nch = -(-npg // chunk_pages)
+    out = torch.empty_like(h)
+    k_rows, v_rows = (torch.empty((KV, S, hd), dtype=dt, device=dev) for _ in range(2))
+    q_ws = torch.empty((S, H, hd), dtype=dt, device=dev)
+    part = torch.empty((S, KV, nch, H // KV, 2 + hd), dtype=torch.float32, device=dev)
+    attn_ws = torch.empty((S, H * hd), dtype=dt, device=dev)
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(hd)
+    ins = [t.data_ptr() for t in (h, w_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages,
+                                  block_tables, lengths)]
+    tail = (float(eps), scale, _DTYPE_CODES[dt], dev.index, _stream(h))
+    if mlp is None:
+        _launch(name, *ins, out.data_ptr(), k_rows.data_ptr(), v_rows.data_ptr(),
+                q_ws.data_ptr(), part.data_ptr(), attn_ws.data_ptr(), S, D, H, KV, hd, P, ps,
+                npg, chunk_pages, nch, *tail)
+        return out, k_rows, v_rows
+    F = mlp[1].shape[0]
+    hacc = torch.empty((S, D), dtype=torch.float32, device=dev)
+    y_ws = torch.empty((S, F), dtype=dt, device=dev)
+    _launch(name, *ins, *(t.data_ptr() for t in mlp), out.data_ptr(), k_rows.data_ptr(),
+            v_rows.data_ptr(), q_ws.data_ptr(), part.data_ptr(), attn_ws.data_ptr(),
+            hacc.data_ptr(), y_ws.data_ptr(), S, D, H, KV, hd, P, ps, npg, F, chunk_pages, nch,
+            ACTIVATIONS[act], *tail)
+    return out, k_rows, v_rows
+
+
+def attn_subblock(h, w_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages, block_tables, lengths,
+                  write_pos, eps: float = 1e-5, scale: float | None = None):
+    """The decode attention sub-block in ONE cooperative launch: ``(out,
+    k_rows, v_rows)`` with ``out`` (S, 1, D) the out-projection before the
+    residual add and this step's k/v rows (KV, S, hd). The pools are only
+    read, position ``lengths - 1`` taken from the fresh rows; ``write_pos``
+    is checked, and the caller stores the rows there. q, the attention
+    chunks' partials and the merged heads are scratch."""
+    return _decode_call("attn_subblock", h, w_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages,
+                        block_tables, lengths, write_pos, None, "silu", eps, scale)
+
+
+def decode_layer(h, attn_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages, block_tables,
+                 lengths, write_pos, mlp_norm, w_gate, w_up, w_down, act: str = "silu",
+                 eps: float = 1e-5, scale: float | None = None):
+    """The whole T == 1 decode layer in ONE cooperative launch: ``(out,
+    k_rows, v_rows)``, as :func:`attn_subblock` plus the residual add and the
+    MLP sub-block on the float32 residual; ``w_gate``, ``w_up`` (F, D),
+    ``w_down`` (D, F). Raises where ``_decode_layer_checker``
+    (pallasex.py:1817) refuses, where the kernel does not take the shapes,
+    and where the card refuses the launch."""
+    name = "decode_layer"
+    if act not in ACTIVATIONS:
+        raise ValueError(f"{name}: unknown activation {act!r}; known: {sorted(ACTIVATIONS)}")
+    D = h.shape[-1]
+    F = w_gate.shape[0] if w_gate.ndim == 2 else -1
+    if (tuple(mlp_norm.shape) != (D,) or tuple(w_gate.shape) != (F, D)
+            or tuple(w_up.shape) != (F, D) or tuple(w_down.shape) != (D, F)):
+        raise ValueError(f"{name}: mlp_norm {tuple(mlp_norm.shape)}, w_gate "
+                         f"{tuple(w_gate.shape)}, w_up {tuple(w_up.shape)}, w_down "
+                         f"{tuple(w_down.shape)}: want (D,), (F, D), (F, D), (D, F)")
+    if F % 8:
+        raise ValueError(f"{name}: F={F} must be a multiple of 8")
+    if any(t.dtype != h.dtype for t in (mlp_norm, w_gate, w_up, w_down)):
+        raise ValueError(f"{name}: the MLP weights' dtype must be h's, {h.dtype}")
+    _check(name, h, mlp_norm, w_gate, w_up, w_down, dtype=_float_dtype(name, h))
+    if any(t.data_ptr() % 16 for t in (mlp_norm, w_gate, w_up, w_down)):
+        raise ValueError(f"{name}: operands must be 16-byte aligned")
+    return _decode_call(name, h, attn_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages,
+                        block_tables, lengths, write_pos, (mlp_norm, w_gate, w_up, w_down), act,
+                        eps, scale)

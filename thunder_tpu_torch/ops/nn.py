@@ -4,8 +4,9 @@ version.
 The counterparts of ``thunder_tpu/ops/nn.py`` ``rms_norm`` (:61),
 ``rms_norm_residual`` (:73), ``linear_act`` (:101), ``mlp_subblock``
 (:116), ``mlp_subblock_bwd`` (:149), ``sdpa_fwd`` (:296), ``ce_fwd``
-(:320), ``sdpa_bwd`` (:336), ``paged_decode_attention`` (:367) and
-``decode_row_write`` (:447). Each public function sends a CUDA tensor to
+(:320), ``sdpa_bwd`` (:336), ``paged_decode_attention`` (:367),
+``decode_row_write`` (:447), ``attn_subblock`` (:469) and ``decode_layer``
+(:530). Each public function sends a CUDA tensor to
 its hand-written kernel (:mod:`thunder_tpu_torch.executors.cudaex`) and a
 CPU tensor to its plain version; any other device raises.
 ``paged_decode_attention`` with T > 1 (chunked prefill) is outside the
@@ -27,6 +28,15 @@ it. ``rms_norm`` and ``rms_norm_residual`` take their kernel forward and
 reference has no backward kernel for them either. ``mlp_subblock`` is the
 counterpart of ``_mlp_subblock_vjp`` (:696): it saves its six inputs and its
 backward is the ``mlp_subblock_bwd`` kernel.
+
+Serving decode (no autograd): ``decode_layer`` and ``attn_subblock`` run the
+whole T == 1 layer, or its attention half, as one kernel launch and then
+store the step's k/v rows into the pools in place. Their plain versions
+follow the TPU kernel (pallasex ``_decode_call``), not the reference's
+decomposition: the residual stream stays float32 inside the layer, and the
+row at ``lengths - 1`` is attended from the freshly computed k/v rows, never
+from the pools (a replay slot writes to the scratch page). In float32 that
+is the decomposition; in bfloat16 the roundings differ.
 """
 
 from __future__ import annotations
@@ -530,3 +540,177 @@ def decode_row_write(pool: torch.Tensor, rows: torch.Tensor,
     KV, P, ps, hd = pool.shape
     pool.view(KV, P * ps, hd).index_copy_(1, flat_positions.long(),
                                           rows.squeeze(2).transpose(0, 1))
+
+
+# ---------------------------------------------------------------------------
+# the whole T == 1 decode layer and its attention half (pallasex._decode_call)
+# ---------------------------------------------------------------------------
+
+def decode_qkv_plain(h, w_norm, wq, wk, wv, cos, sin, eps: float = 1e-5):
+    """Phase QKV of ``_decode_call`` (pallasex.py:1432): ``x = rms_norm(h)``,
+    each head's projection rounded to h's dtype, then the half rotation with
+    every multiply and add rounded (v is not roped). Returns q (S, H, hd) and
+    k, v (S, KV, hd)."""
+    S, D = h.shape[0], h.shape[-1]
+    hd2 = cos.shape[-1]
+    dt = h.dtype
+    x = rms_norm_plain(h.reshape(S, D), w_norm, eps).float()
+    c, s = cos.reshape(S, 1, hd2), sin.reshape(S, 1, hd2)
+
+    def heads(w):
+        return F.linear(x, w.float()).to(dt).reshape(S, -1, 2 * hd2)
+
+    def rope(t):
+        t1, t2 = t[..., :hd2], t[..., hd2:]
+        return torch.cat([t1 * c - t2 * s, t2 * c + t1 * s], -1)
+
+    return rope(heads(wq)), rope(heads(wk)), heads(wv)
+
+
+def decode_attention_plain(q, k_rows, v_rows, k_pages, v_pages, block_tables, lengths,
+                           scale: float | None = None) -> torch.Tensor:
+    """Phase ATTN of ``_decode_call`` (pallasex.py:1480): slot ``b`` attends
+    keys ``j < lengths[b]`` of its pages, with position ``lengths[b] - 1``
+    taken from the fresh rows ``k_rows``/``v_rows`` (KV, S, hd), never from
+    the pools; scores in float32, the probabilities rounded to q's dtype
+    before the PV product, ``(acc / l)`` rounded once. q (S, H, hd); returns
+    the merged heads (S, H * hd)."""
+    S, H, hd = q.shape
+    KV, P, ps, _ = k_pages.shape
+    G = H // KV
+    L = block_tables.shape[1] * ps
+    dt = q.dtype
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    idx = block_tables.reshape(-1).long()
+    k = k_pages.index_select(1, idx).reshape(KV, S, L, hd)
+    v = v_pages.index_select(1, idx).reshape(KV, S, L, hd)
+    slot, fresh = torch.arange(S, device=q.device), lengths.long() - 1
+    k[:, slot, fresh] = k_rows
+    v[:, slot, fresh] = v_rows
+    qg = q.reshape(S, KV, G, hd).transpose(0, 1).float()             # (KV, S, G, hd)
+    scores = torch.matmul(qg, k.float().transpose(-1, -2)) * scale    # (KV, S, G, L)
+    valid = torch.arange(L, device=q.device)[None, :] < lengths.long()[:, None]
+    scores = scores.masked_fill(~valid[None, :, None, :], float("-inf"))
+    p = torch.exp(scores - scores.amax(-1, keepdim=True))
+    acc = torch.matmul(p.to(dt).float(), v.float())
+    attn = (acc / p.sum(-1, keepdim=True)).to(dt)
+    return attn.transpose(0, 1).reshape(S, H * hd)
+
+
+def decode_mlp_plain(hacc, dt, mlp_norm, w_gate, w_up, w_down, act: str = "silu",
+                     eps: float = 1e-5) -> torch.Tensor:
+    """Phase MLP of ``_decode_call`` (pallasex.py:1543) on the float32
+    residual accumulator ``hacc`` (S, D), which is never rounded: the second
+    norm from it, ``act(gate)`` and ``up`` each rounded to ``dt`` before
+    their product, the down product summed in float32 and ``hacc + down``
+    rounded once."""
+    x2 = (hacc * torch.rsqrt(torch.mean(hacc * hacc, -1, keepdim=True) + eps)).to(dt)
+    x2 = (x2 * mlp_norm).float()
+    ga = _ACTS[act](F.linear(x2, w_gate.float())).to(dt)
+    u = F.linear(x2, w_up.float()).to(dt)
+    return (hacc + F.linear((ga * u).float(), w_down.float())).to(dt)
+
+
+def _decode_plain(h, w_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages, block_tables,
+                  lengths, mlp, act, eps, scale):
+    q, k, v = decode_qkv_plain(h, w_norm, wq, wk, wv, cos, sin, eps)
+    k_rows, v_rows = k.transpose(0, 1).contiguous(), v.transpose(0, 1).contiguous()
+    attn = decode_attention_plain(q, k_rows, v_rows, k_pages, v_pages, block_tables, lengths,
+                                  scale)
+    proj = F.linear(attn.float(), wo.float())
+    if mlp is None:
+        out = proj.to(h.dtype)
+    else:
+        S, D = h.shape[0], h.shape[-1]
+        out = decode_mlp_plain(h.reshape(S, D).float() + proj, h.dtype, *mlp, act, eps)
+    return out.reshape(h.shape), k_rows, v_rows
+
+
+def attn_subblock_plain(h, w_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages, block_tables,
+                        lengths, write_pos, eps: float = 1e-5, scale: float | None = None):
+    """The attention sub-block of one decode step, rounded where
+    ``_attn_subblock_kernel`` (pallasex.py:1600) rounds: ``(out, k_rows,
+    v_rows)`` with ``out = merge_heads(attn) @ wo.T`` (S, 1, D) before the
+    residual add, summed in float32 and rounded once, and this step's roped
+    k and v rows (KV, S, hd). ``write_pos`` is where the caller stores the
+    rows; the pools are only read. In float32 it is the reference's
+    ``nn.attn_subblock`` decomposition (ops/nn.py:469); in bfloat16 it is
+    not (rope, the probabilities and the projection round elsewhere)."""
+    return _decode_plain(h, w_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages, block_tables,
+                         lengths, None, "silu", eps, scale)
+
+
+def decode_layer_plain(h, attn_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages, block_tables,
+                       lengths, write_pos, mlp_norm, w_gate, w_up, w_down, act: str = "silu",
+                       eps: float = 1e-5, scale: float | None = None):
+    """The whole decode layer, rounded where ``_decode_layer_kernel``
+    (pallasex.py:1574) rounds: ``(out, k_rows, v_rows)``. The residual stream
+    stays in a float32 accumulator ``hacc = h + attn @ wo.T`` that is never
+    rounded; the second norm reads it and only ``out = hacc + mlp`` rounds.
+    In float32 it is the reference's ``nn.decode_layer`` decomposition
+    (ops/nn.py:530); in bfloat16 it is not (the decomposition rounds the
+    projection and ``h + proj`` first)."""
+    _check_act("decode_layer", act)
+    return _decode_plain(h, attn_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages,
+                         block_tables, lengths, (mlp_norm, w_gate, w_up, w_down), act, eps,
+                         scale)
+
+
+def _store_fresh_rows(k_pages, v_pages, k_rows, v_rows, write_pos) -> None:
+    decode_row_write(k_pages, k_rows.transpose(0, 1).unsqueeze(2), write_pos)
+    decode_row_write(v_pages, v_rows.transpose(0, 1).unsqueeze(2), write_pos)
+
+
+def attn_subblock(h, w_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages, block_tables, lengths,
+                  write_pos, eps: float = 1e-5, scale: float | None = None) -> torch.Tensor:
+    """The serving attention sub-block of one T == 1 decode step::
+
+        x     = rms_norm(h, w_norm)
+        q,k,v = rope(split_heads(x @ wq/wk/wv.T))       # v un-roped
+        attn  = paged attention of q over the pools and this step's k/v rows
+        out   = merge_heads(attn) @ wo.T                # residual add outside
+
+    h (S, 1, D); cos/sin (S, 1, 1, hd/2); pools (KV, P, ps, hd);
+    block_tables (S, npg), lengths (S,) including this token, write_pos (S,)
+    flat pool positions. Returns ``out`` (S, 1, D) and stores this step's
+    k/v rows into the pools in place at ``write_pos`` (replace semantics:
+    idle slots all hit position 0). Decode only; no autograd."""
+    args = (h, w_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages, block_tables, lengths,
+            write_pos)
+    if _on_cuda(h, "attn_subblock"):
+        out, k_rows, v_rows = cudaex.attn_subblock(*args, eps=eps, scale=scale)
+    else:
+        out, k_rows, v_rows = attn_subblock_plain(*args, eps=eps, scale=scale)
+    _store_fresh_rows(k_pages, v_pages, k_rows, v_rows, write_pos)
+    return out
+
+
+def decode_layer(h, attn_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages, block_tables,
+                 lengths, write_pos, mlp_norm, w_gate, w_up, w_down, act: str = "silu",
+                 eps: float = 1e-5, scale: float | None = None) -> torch.Tensor:
+    """One whole transformer decode layer (T == 1): :func:`attn_subblock`,
+    the residual add, and the SwiGLU MLP sub-block with its residual add.
+    Returns ``out`` (S, 1, D) and stores this step's k/v rows into the pools
+    in place, as :func:`attn_subblock` does. On CUDA it is one launch."""
+    args = (h, attn_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages, block_tables, lengths,
+            write_pos, mlp_norm, w_gate, w_up, w_down)
+    if _on_cuda(h, "decode_layer"):
+        out, k_rows, v_rows = cudaex.decode_layer(*args, act=act, eps=eps, scale=scale)
+    else:
+        out, k_rows, v_rows = decode_layer_plain(*args, act=act, eps=eps, scale=scale)
+    _store_fresh_rows(k_pages, v_pages, k_rows, v_rows, write_pos)
+    return out
+
+
+def decode_layer_subblocks(h, attn_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages,
+                           block_tables, lengths, write_pos, mlp_norm, w_gate, w_up, w_down,
+                           act: str = "silu", eps: float = 1e-5,
+                           scale: float | None = None) -> torch.Tensor:
+    """:func:`decode_layer` as the reference decomposes it (ops/nn.py:530):
+    :func:`attn_subblock`, then :func:`mlp_subblock` on ``h + proj`` — two
+    launches on CUDA, the middle rung of the reference's quarantine
+    fallback. The same function as :func:`decode_layer`, rounded elsewhere
+    in bfloat16."""
+    proj = attn_subblock(h, attn_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages,
+                         block_tables, lengths, write_pos, eps=eps, scale=scale)
+    return mlp_subblock(h, proj, mlp_norm, w_gate, w_up, w_down, act=act, eps=eps)

@@ -3,8 +3,10 @@ dispatches; the counterpart of ``thunder_tpu/serving/runner.py``.
 
 The reference traces and compiles ``_decode_fn`` (:175) and ``_prefill_fn``
 (:224); PyTorch runs eagerly, so here they are plain methods that follow
-those functions op for op, at the reference's per-op rung (its engine with
-``block_fusion=False``, after its epilogue fusion pass):
+those functions op for op, at one of the reference's two rungs.
+
+The per-op rung (``block_fusion=False``, the reference's engine with
+``block_fusion=False`` after its epilogue fusion pass):
 
 - layer 0's ``attn_norm`` is ``rms_norm``; every later norm is
   ``rms_norm_residual`` with the residual add folded in (the post-attention
@@ -14,6 +16,17 @@ those functions op for op, at the reference's per-op rung (its engine with
   the plain gather/mask/softmax decomposition;
 - the other projections and ``lm_head`` are ``F.linear``, as the reference
   leaves them to XLA.
+
+The planned rung (``block_fusion=True``, what the reference's engine binds
+after ``block_fusion_pass`` plans and chains the decode sub-blocks):
+
+- decode: each layer is ONE ``decode_layer`` (norm, QKV, rope, this step's
+  K/V rows, paged attention, the out-projection onto the residual, the MLP
+  sub-block), then ``rms_norm(norm_f)``;
+- prefill: each layer's ``attn_norm`` is ``rms_norm``; QKV, the page writes
+  and the plain chunk attention as at the per-op rung; then ONE
+  ``mlp_subblock(h, linear(attn, wo), ...)`` takes the residual add,
+  ``mlp_norm``, the MLP and the second residual add.
 
 - ``decode``: ONE batched step over every slot — ``(S, 1)`` tokens, each
   slot's K/V row written into the pools, ragged paged attention, and
@@ -37,11 +50,18 @@ from thunder_tpu_torch.serving.sampling import sample_tokens
 
 
 class PagedLlamaRunner:
-    """The eager paged step functions for one engine."""
+    """The eager paged step functions for one engine, at the per-op rung or,
+    with ``block_fusion=True``, the planned rung. ``decode_layer`` is the
+    planned decode step's layer function (``tnn.decode_layer``, one launch
+    per layer); any function of its signature may stand in, such as
+    ``tnn.decode_layer_subblocks``, the sub-block rung."""
 
-    def __init__(self, cfg, geometry):
+    decode_layer = staticmethod(tnn.decode_layer)
+
+    def __init__(self, cfg, geometry, block_fusion: bool = False):
         self.cfg = cfg
         self.geom = geometry
+        self.block_fusion = bool(block_fusion)
 
     def _layers(self, params, h, cos, sin, pools, write_kv, block_tables, lengths,
                 final_norm: bool):
@@ -66,6 +86,26 @@ class PagedLlamaRunner:
             h, x = tnn.rms_norm_residual(h, _mlp(x, layer), nxt, eps=cfg.norm_eps)
         return x
 
+    def _planned_prefill_layers(self, params, h, cos, sin, pools, write_kv, block_tables,
+                                lengths) -> None:
+        """The decoder stack of a prefill chunk at the planned rung; the last
+        layer stops after its K/V writes."""
+        cfg = self.cfg
+        layers = params["layers"]
+        B, T = h.shape[0], h.shape[1]
+        for i, (layer, kv) in enumerate(zip(layers, pools)):
+            x = tnn.rms_norm(h, layer["attn_norm"], eps=cfg.norm_eps)
+            q, k, v = _project_qkv(x, layer, cfg, cos, sin)
+            write_kv(kv, k, v)
+            if i == len(layers) - 1:
+                return
+            attn = tnn.paged_decode_attention(q.contiguous(), kv["k"], kv["v"],
+                                              block_tables, lengths)
+            attn = attn.transpose(1, 2).reshape(B, T, cfg.n_heads * cfg.head_dim)
+            h = tnn.mlp_subblock(h, F.linear(attn, layer["wo"]), layer["mlp_norm"],
+                                 layer["w_gate"], layer["w_up"], layer["w_down"], act="silu",
+                                 eps=cfg.norm_eps)
+
     def decode(self, params, tokens, block_tables, lengths, write_pos, pools,
                temps, top_ks, top_ps, rng):
         """One continuous-batching decode step for every slot.
@@ -83,12 +123,21 @@ class PagedLlamaRunner:
         cos = cos.reshape(S, 1, 1, -1)
         sin = sin.reshape(S, 1, 1, -1)
 
-        def write_kv(kv, k, v):
-            tnn.decode_row_write(kv["k"], k, write_pos)
-            tnn.decode_row_write(kv["v"], v, write_pos)
+        if self.block_fusion:
+            for layer, kv in zip(params["layers"], pools):
+                h = self.decode_layer(h, layer["attn_norm"], layer["wq"], layer["wk"],
+                                      layer["wv"], layer["wo"], cos, sin, kv["k"], kv["v"],
+                                      block_tables, lengths, write_pos, layer["mlp_norm"],
+                                      layer["w_gate"], layer["w_up"], layer["w_down"],
+                                      act="silu", eps=cfg.norm_eps)
+            x = tnn.rms_norm(h, params["norm_f"], eps=cfg.norm_eps)
+        else:
+            def write_kv(kv, k, v):
+                tnn.decode_row_write(kv["k"], k, write_pos)
+                tnn.decode_row_write(kv["v"], v, write_pos)
 
-        x = self._layers(params, h, cos, sin, pools, write_kv, block_tables, lengths,
-                         final_norm=True)
+            x = self._layers(params, h, cos, sin, pools, write_kv, block_tables, lengths,
+                             final_norm=True)
         logits = F.linear(x, params["lm_head"]).squeeze(1)               # (S,V)
         return sample_tokens(logits, temps, top_ks, top_ps, rng), logits
 
@@ -110,5 +159,9 @@ class PagedLlamaRunner:
                 KV, hd = rows.shape[1], rows.shape[3]
                 pool.index_copy_(1, page_ids, rows[0].reshape(KV, C // ps, ps, hd))
 
-        self._layers(params, h, cos, sin, pools, write_kv, block_tables, lengths,
-                     final_norm=False)
+        if self.block_fusion:
+            self._planned_prefill_layers(params, h, cos, sin, pools, write_kv, block_tables,
+                                         lengths)
+        else:
+            self._layers(params, h, cos, sin, pools, write_kv, block_tables, lengths,
+                         final_norm=False)

@@ -120,13 +120,17 @@ class ServingEngine:
     which runs every kernel's plain version. ``params`` are moved there;
     the engine runs every layer they hold.
     ``max_slots`` is the decode batch width; ``num_pages`` sizes the shared
-    pool (default: full residency for every slot).
+    pool (default: full residency for every slot). ``block_fusion`` picks
+    the runner's rung: False (the default) the per-op rung, True the planned
+    rung, one ``decode_layer`` launch per layer per decode step and one
+    ``mlp_subblock`` per layer per prefill chunk. The port has no cost model
+    to choose between them.
     """
 
     def __init__(self, params, cfg, *, device=None, max_slots: int = 8,
                  page_size: int = 16, num_pages: int | None = None,
                  max_context: int | None = None, prefill_chunk: int | None = None,
-                 max_queue: int | None = None):
+                 max_queue: int | None = None, block_fusion: bool = False):
         self.device = resolve_device(device)
         self.params = _to_device(params, self.device)
         self.cfg = cfg
@@ -156,7 +160,7 @@ class ServingEngine:
             page_size=page_size, num_pages=int(num_pages),
             pages_per_request=pages_per_req)
         self.cache = PagedKVCache(self.geom, cfg.dtype, self.device)
-        self.runner = PagedLlamaRunner(cfg, self.geom)
+        self.runner = PagedLlamaRunner(cfg, self.geom, block_fusion=block_fusion)
         self.max_slots = int(max_slots)
         self.max_queue = max_queue
         self.slots: list[Request | None] = [None] * self.max_slots
