@@ -22,7 +22,16 @@ final line):
 5. full width — llama3-8b at full width and depth (32 layers, bf16, random
    weights from a seed) serves 8 requests (prompts 17..1000 tokens, 32 new
    tokens each, 2 of them sampled); the launch counts show every decode step
-   went through all four kernels.
+   went through all four kernels, linear_act's 32 launches each on its
+   weight-streaming design.
+
+``sdpa_fwd`` and ``linear_act`` have more than one design, chosen by the
+wrapper from shape and dtype (``cudaex.sdpa_fwd_design``,
+``cudaex.linear_act_path``): every row of theirs names the design that ran,
+and phase 3 shows that the linear_act check fails two planted faults at the
+decode and the prefill shape (the kernel on a weight with its last 16 rows,
+or its last 64 K columns, zeroed, against the plain version of the intact
+weight).
 
 Phase 3 also holds the train path's kernels against their plain versions at
 its full-width shapes (the norms on (8, 2048, 4096) bf16 activations,
@@ -40,8 +49,9 @@ rows or keys. Then:
    32000, bf16) with depth cut to 4 layers, B=8, T=2048, AdamW(lr=1e-4):
    a warm-up step and 5 timed steps on one batch through the port's
    ``pretrain`` entry point; every step launches sdpa_fwd 4, sdpa_bwd 4,
-   ce_fwd 1, fused_adamw 1, rms_norm 1 and rms_norm_residual 8 times, and
-   the losses are finite and falling.
+   ce_fwd 1, fused_adamw 1, rms_norm 1 and rms_norm_residual 8 times, every
+   sdpa_fwd launch takes the TMA + wgmma design, and the losses are finite
+   and falling.
 
 The planned rung (``pretrain --block-fusion``, the reference's default step
 at that shape): phase 3 also holds the MLP sub-block pair, ``mlp_subblock``
@@ -238,6 +248,50 @@ def timed_row(torch, cudaex, name, shape_tag, err, kernel_fn, plain_fn, lib_fn, 
     return row
 
 
+def design_delta(before: dict, after: dict) -> dict:
+    """Launches by design between two ``cudaex.design_counts()`` readings."""
+    out = {}
+    for name, ds in after.items():
+        d = {k: n - before.get(name, {}).get(k, 0) for k, n in ds.items()}
+        d = {k: n for k, n in d.items() if n}
+        if d:
+            out[name] = d
+    return out
+
+
+def ran(cudaex, name, fn):
+    """``fn()`` and the design of ``name`` that its one launch took."""
+    before = cudaex.design_counts()
+    out = fn()
+    used = design_delta(before, cudaex.design_counts()).get(name, {})
+    require(list(used.values()) == [1], f"{name}: one call launched {used} by design")
+    return out, next(iter(used))
+
+
+def gemm_close(torch, got, want) -> bool:
+    return bool(torch.allclose(got.float(), want.float(), atol=GEMM_TOL, rtol=GEMM_TOL))
+
+
+def linear_act_faults(torch, cudaex, x, w, want) -> dict:
+    """The linear_act check's power: the kernel on inputs with the last 16
+    weight rows zeroed (a dropped 16-row weight tile) and with the last 64 K
+    columns of the weight zeroed (a dropped K slab), each held against the
+    plain version of the intact inputs, must fail the check. Returns each
+    fault's largest absolute error."""
+    found = {}
+    for fault, cut in (("last 16 weight rows zeroed", (slice(-16, None), slice(None))),
+                       ("last 64 K columns zeroed", (slice(None), slice(-64, None)))):
+        bad_w = w.clone()
+        bad_w[cut] = 0
+        got = cudaex.linear_act(x, bad_w, None, "silu")
+        found[fault] = float((got.float() - want.float()).abs().max())
+        require(not gemm_close(torch, got, want),
+                f"linear_act {tuple(x.shape)}: the check passes a planted fault ({fault}: "
+                f"{found[fault]})")
+        del bad_w, got
+    return found
+
+
 def norm_rows(torch, cudaex, tnn, gen, shape):
     """rms_norm and rms_norm_residual on bf16 ``shape`` (rows of its last
     dim) against their plain versions; their rows of the table."""
@@ -291,19 +345,24 @@ def check_kernels(torch, cudaex, tnn):
     for n in (S_DECODE, M_PREFILL):
         for row in norm_rows(torch, cudaex, tnn, gen, (n, D)):
             add(row)
-        # linear_act (the gate projection: silu)
+        # linear_act (the gate projection: silu), then the planted faults
         x, wg = randn(n, D), randn(F_DIM, D, scale=D ** -0.5)
-        got, want = cudaex.linear_act(x, wg, None, "silu"), tnn.linear_act_plain(x, wg,
-                                                                                 None, "silu")
+        got, design = ran(cudaex, "linear_act", lambda: cudaex.linear_act(x, wg, None, "silu"))
+        want = tnn.linear_act_plain(x, wg, None, "silu")
         err = float((got.float() - want.float()).abs().max())
-        require(bool(torch.allclose(got.float(), want.float(), atol=GEMM_TOL, rtol=GEMM_TOL)),
+        require(gemm_close(torch, got, want),
                 f"linear_act {n}x{D}x{F_DIM}: kernel disagrees with its plain version ({err})")
-        add(timed_row(torch, cudaex, "linear_act", f"{n}x{D}x{F_DIM}", err,
-                      lambda: cudaex.linear_act(x, wg, None, "silu"),
-                      lambda: tnn.linear_act_plain(x, wg, None, "silu"),
-                      lambda: F.linear(x, wg), (n * D + F_DIM * D + n * F_DIM) * 2,
-                      2.0 * n * F_DIM * D, BF16_FLOPS))
-        del wg
+        faults = linear_act_faults(torch, cudaex, x, wg, want)
+        row = timed_row(torch, cudaex, "linear_act", f"{n}x{D}x{F_DIM}", err,
+                        lambda: cudaex.linear_act(x, wg, None, "silu"),
+                        lambda: tnn.linear_act_plain(x, wg, None, "silu"),
+                        lambda: F.linear(x, wg), (n * D + F_DIM * D + n * F_DIM) * 2,
+                        2.0 * n * F_DIM * D, BF16_FLOPS)
+        row["design"], row["planted_faults"] = design, faults
+        log(f"    design {design}; planted faults (max abs err, the check must fail): "
+            + json.dumps(faults))
+        add(row)
+        del wg, got, want
 
     # paged decode attention: 8 requests, ragged lengths 1..2048, over pools
     # holding every request's pages; timing rotates over 4 pool copies so
@@ -400,7 +459,7 @@ def check_train_kernels(torch, cudaex, tnn, toptim_ops, tllama):
     for causal in (True, False):
         tag = f"{B}x{H}x{T}x{hd}{' causal' if causal else ''}"
         frac = 0.5 if causal else 1.0
-        out, lse = cudaex.sdpa_fwd(q, k, v, causal)
+        (out, lse), design = ran(cudaex, "sdpa_fwd", lambda: cudaex.sdpa_fwd(q, k, v, causal))
         want_out, want_lse = tnn.sdpa_fwd_plain(q, k, v, causal)
         err = float((out.float() - want_out.float()).abs().max())
         out_rel = row_rel_err(out, want_out)
@@ -408,11 +467,14 @@ def check_train_kernels(torch, cudaex, tnn, toptim_ops, tllama):
         require(out_rel <= ATTN_TOL and lse_err <= LSE_TOL,
                 f"sdpa_fwd {tag}: out err {out_rel} of its rows' largest values (abs {err}), "
                 f"lse err {lse_err}")
-        rows.setdefault("sdpa_fwd", []).append(timed_row(
+        row = timed_row(
             torch, cudaex, "sdpa_fwd", tag, err, lambda: cudaex.sdpa_fwd(q, k, v, causal),
             lambda: tnn.sdpa_fwd_plain(q, k, v, causal),
             lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal),
-            4 * bh_t * hd * 2 + bh_t * 4, 4.0 * bh_t * T * hd * frac, BF16_FLOPS, 10, 3))
+            4 * bh_t * hd * 2 + bh_t * 4, 4.0 * bh_t * T * hd * frac, BF16_FLOPS, 10, 3)
+        row["design"] = design
+        log(f"    design {design}")
+        rows.setdefault("sdpa_fwd", []).append(row)
         # the backward from the plain forward's (out, lse), so it is held alone
         got = cudaex.sdpa_bwd(g, q, k, v, want_out, want_lse, causal)
         want = tnn.sdpa_bwd_plain(g, q, k, v, want_out, want_lse, causal)
@@ -950,17 +1012,18 @@ def full_width(np, torch, tllama, ServingEngine, SamplingParams, cudaex, params,
     eng.drain()
     eng.completed.clear()
 
-    step_counts, step_ms, step_rows, chunk_counts = [], [], [], []
+    step_counts, step_designs, step_ms, step_rows, chunk_counts = [], [], [], [], []
     decode = eng.runner.decode
 
     def counted_decode(*args, **kwargs):
-        before = cudaex.launch_counts()
+        before, designs = cudaex.launch_counts(), cudaex.design_counts()
         t = time.perf_counter()
         out = decode(*args, **kwargs)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t) * 1e3)
         after = cudaex.launch_counts()
         step_counts.append({k: after[k] - before[k] for k in after if after[k] != before[k]})
+        step_designs.append(design_delta(designs, cudaex.design_counts()))
         step_rows.append(sum(r is not None and r.state == "decode" for r in eng.slots))
         return out
 
@@ -992,9 +1055,11 @@ def full_width(np, torch, tllama, ServingEngine, SamplingParams, cudaex, params,
     expect = ({"decode_layer": L, "rms_norm": 1} if block_fusion else
               {"paged_decode_attention": L, "linear_act": L, "rms_norm_residual": 2 * L,
                "rms_norm": 1})
-    for i, c in enumerate(step_counts):
-        if c != expect:
-            raise AssertionError(f"decode step {i} launched {c}, expected {expect}")
+    expect_designs = {} if block_fusion else {"linear_act": {"stream": L}}
+    for i, (c, d) in enumerate(zip(step_counts, step_designs)):
+        if c != expect or d != expect_designs:
+            raise AssertionError(f"decode step {i} launched {c} by design {d}, expected "
+                                 f"{expect} by design {expect_designs}")
     if any(counts[k] == 0 for k in expect):
         raise AssertionError(f"a kernel of the path never launched: {counts}")
     decode_tokens = sum(step_rows)
@@ -1011,6 +1076,7 @@ def full_width(np, torch, tllama, ServingEngine, SamplingParams, cudaex, params,
         "prefill_chunks": sum(r.prefill_chunks for r in reqs),
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "launches_per_decode_step": expect, "launches": counts,
+        "designs_per_decode_step": expect_designs, "designs": cudaex.design_counts(),
     }
     if block_fusion:
         chunk = {"rms_norm": L, "mlp_subblock": L - 1}
@@ -1080,8 +1146,13 @@ def train_full_width(torch, cudaex, pretrain, block_fusion: bool = False):
         raise AssertionError(f"train losses not finite and falling: {losses}")
     if any(counts[k] == 0 for k in expect):
         raise AssertionError(f"a kernel of the train path never launched: {counts}")
+    designs = cudaex.design_counts()
+    if designs.get("sdpa_fwd") != {"wgmma": counts["sdpa_fwd"]}:
+        raise AssertionError(f"sdpa_fwd launches by design {designs.get('sdpa_fwd')}: every "
+                             f"one of the train path's {counts['sdpa_fwd']} must take wgmma")
     out["launches"] = counts
     out["launches_per_step"] = expect
+    out["designs"] = designs
     return out
 
 
@@ -1090,7 +1161,8 @@ def log_train(what: str, t: dict) -> None:
         f"{100 * t['share_of_989_tflops']:.1f}% of 989 TFLOP/s, peak "
         f"{t['peak_memory_gb']:.2f} GB, AdamW {t['optimizer_ms']:.3f} ms, losses "
         f"{[round(x, 4) for x in t['losses']]}, launches per step "
-        f"{json.dumps(t['launches_per_step'])} ({t['card']})")
+        f"{json.dumps(t['launches_per_step'])}, launches by design over the run "
+        f"{json.dumps(t['designs'])} ({t['card']})")
 
 
 def main() -> int:
@@ -1174,8 +1246,8 @@ def main() -> int:
     # launch count (rms_norm and rms_norm_residual run on several paths;
     # the planned path's rows for kernels it shares with the per-op train
     # path carry the train path's timings)
-    keys = ("name", "path", "shape", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    keys = ("name", "path", "shape", "design", "route", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
     planned = {name: train_rows.get(name) or planned_rows[name]
                for name in tp["launches_per_step"]}

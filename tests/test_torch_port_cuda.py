@@ -12,6 +12,13 @@ norms (the kernel's f32 statistics round differently in the last f32 bits,
 which can move a bf16 rounding by one step) and 2e-2 for ``linear_act`` and
 paged attention (bf16 inputs, f32 sums in another order).
 
+``sdpa_fwd`` and ``linear_act`` hold several designs, chosen by the wrapper
+from dtype and shape (``cudaex.sdpa_fwd_design``, ``cudaex.linear_act_path``):
+their tests cover each design at ragged sizes (T and S across the 64- and
+128-row tiles, T != S, six batch*heads; M across the decode kernel's 8- and
+16-row limits, N and K ragged against its tiles) and check that the launch
+took the design the rule names.
+
 Training kernels: attention output and gradients row by row, each row's
 error relative to that row's own largest reference value (``row_rel_err``:
 causal rows and keys late in the sequence hold small values that an error
@@ -102,18 +109,28 @@ def test_cuda_norm_kernels_match_plain(cuda_device, dtype, rows):
         assert bool((err <= tol).all()), float(err.max())
 
 
+# rows on both sides of the decode kernel's limits (8 and 16 activation rows)
+# and of the tile kernel's 128-row tiles; N ragged against 16- and 128-row
+# tiles; K ragged against 64-column slabs
+LINEAR_ROWS = [(torch.bfloat16, m) for m in (1, 8, 13, 16, 17, 512, 515)] + [(torch.float32, 33)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("act", ["relu", "silu", "gelu", "gelu_tanh"])
-@pytest.mark.parametrize("dtype,M", [(torch.bfloat16, 8), (torch.bfloat16, 100),
-                                     (torch.float32, 33)])
-def test_cuda_linear_act_matches_plain(cuda_device, act, dtype, M):
+@pytest.mark.parametrize("with_bias", [True, False], ids=["bias", "nobias"])
+@pytest.mark.parametrize("N,K", [(200, 520), (200, 4096), (14336, 520), (14336, 4096)],
+                         ids=lambda v: str(v))
+@pytest.mark.parametrize("dtype,M", LINEAR_ROWS,
+                         ids=[f"{str(d)[6:]}-M{m}" for d, m in LINEAR_ROWS])
+def test_cuda_linear_act_matches_plain(cuda_device, act, dtype, M, N, K, with_bias):
     g = torch.Generator(device=cuda_device).manual_seed(1)
-    K, N = 512, 200
     a = torch.randn(M, K, generator=g, device=cuda_device).to(dtype)
     w = (torch.randn(N, K, generator=g, device=cuda_device) / math.sqrt(K)).to(dtype)
-    b = torch.randn(N, generator=g, device=cuda_device).to(dtype)
+    b = torch.randn(N, generator=g, device=cuda_device).to(dtype) if with_bias else None
+    cudaex.reset_launch_counts()
     got = cudaex.linear_act(a, w, b, act)
     torch.cuda.synchronize()
+    assert cudaex.design_counts()["linear_act"] == {cudaex.linear_act_path(dtype, M): 1}
     want = tnn.linear_act_plain(a, w, b, act)
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
@@ -164,7 +181,11 @@ def test_cuda_engine_tokens_match_cpu(cuda_device):
 # training kernels
 # ---------------------------------------------------------------------------
 
-ATTN_SHAPES = [(64, 64, True), (100, 100, True), (64, 130, False), (130, 64, True)]
+# T and S on both sides of the 64- and 128-row tiles, T != S, causal and
+# not; batch*heads 6, so a tile that read past its head's rows would read
+# the next head's
+ATTN_SHAPES = [(64, 64, True), (100, 100, True), (64, 130, False), (130, 64, True)] + [
+    (t, s, c) for t in (100, 128, 130, 2049) for s in (100, 128, 130, 2049) for c in (True, False)]
 
 
 @pytest.mark.cuda
@@ -179,8 +200,10 @@ def test_cuda_sdpa_matches_plain(cuda_device, dtype, hd, T, S, causal):
         return torch.randn(*shape, generator=gen, device=cuda_device).to(dtype)
 
     q, k, v, g = rnd(2, 3, T, hd), rnd(2, 3, S, hd), rnd(2, 3, S, hd), rnd(2, 3, T, hd)
+    cudaex.reset_launch_counts()
     out, lse = cudaex.sdpa_fwd(q, k, v, causal)
     torch.cuda.synchronize()
+    assert cudaex.design_counts()["sdpa_fwd"] == {cudaex.sdpa_fwd_design(dtype, hd): 1}
     want_out, want_lse = tnn.sdpa_fwd_plain(q, k, v, causal)
     tol = 1e-5 if dtype == torch.float32 else 2e-2
     assert row_rel_err(out, want_out) <= tol

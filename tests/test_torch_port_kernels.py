@@ -260,6 +260,52 @@ def test_wrappers_refuse_cpu_tensors(name):
     assert cudaex.launch_counts()[name] == before
 
 
+SDPA_DESIGNS = [(torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 64, "wgmma"),
+                (torch.bfloat16, 16, "mma"), (torch.bfloat16, 96, "mma"),
+                (torch.bfloat16, 112, "mma"), (torch.float32, 128, "fma"),
+                (torch.float32, 64, "fma")]
+
+
+@pytest.mark.parametrize("dtype,hd,design", SDPA_DESIGNS,
+                         ids=[f"{str(d)[6:]}-hd{h}" for d, h, _ in SDPA_DESIGNS])
+def test_sdpa_fwd_design_by_dtype_and_head_dim(dtype, hd, design):
+    """The wrapper's fixed rule: bf16 at hd 64 and 128 takes the TMA + wgmma
+    kernel, bf16 at other head dims the mma.sync kernel, float32 the FMA
+    kernel; the C entry reads the design by its index."""
+    assert cudaex.sdpa_fwd_design(dtype, hd) == design
+    repo = Path(cudaex.__file__).resolve().parents[2]
+    note = (repo / cudaex.KERNELS["sdpa_fwd"].source).read_text()
+    assert f"{cudaex.SDPA_FWD_DESIGNS.index(design)} {design}" in note
+
+
+LINEAR_PATHS = [(torch.bfloat16, 1, "stream"), (torch.bfloat16, 8, "stream"),
+                (torch.bfloat16, 13, "stream"), (torch.bfloat16, 16, "stream"),
+                (torch.bfloat16, 17, "tile"), (torch.bfloat16, 512, "tile"),
+                (torch.bfloat16, 515, "tile"), (torch.float32, 1, "tile"),
+                (torch.float32, 8, "tile"), (torch.float32, 512, "tile")]
+
+
+@pytest.mark.parametrize("dtype,M,path", LINEAR_PATHS,
+                         ids=[f"{str(d)[6:]}-M{m}" for d, m, _ in LINEAR_PATHS])
+def test_linear_act_path_by_rows(dtype, M, path):
+    """The wrapper's fixed rule: bf16 decode rows (M <= 16) take the
+    weight-streaming kernel, everything else gemm.cuh's tile mainloop; the C
+    entry reads the path by its index."""
+    assert cudaex.linear_act_path(dtype, M) == path
+    repo = Path(cudaex.__file__).resolve().parents[2]
+    note = (repo / cudaex.KERNELS["linear_act"].source).read_text()
+    assert f"{cudaex.LINEAR_ACT_PATHS.index(path)} {path}" in note
+
+
+def test_design_counts_start_empty_and_reset():
+    cudaex.reset_launch_counts()
+    assert cudaex.design_counts() == {}
+    cudaex.KERNELS["sdpa_fwd"].designs["wgmma"] = 3
+    assert cudaex.design_counts() == {"sdpa_fwd": {"wgmma": 3}}
+    cudaex.reset_launch_counts()
+    assert cudaex.design_counts() == {}
+
+
 def test_build_refuses_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA device"):

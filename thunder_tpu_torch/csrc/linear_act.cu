@@ -4,8 +4,8 @@
 //
 // Replaces: thunder_tpu/executors/pallasex.py pallas_linear_act (:896), whose
 // body is _linear_act_kernel (:875). The activations are those of _ACT_IMPLS
-// (:867): relu, silu, gelu (erf) and gelu_tanh, applied to the f32
-// accumulator before the single rounding to the output type.
+// (:867), here mlp::act_fn: relu, silu, gelu (erf) and gelu_tanh, applied to
+// the f32 sum (bias added) before the single rounding to the output type.
 //
 // Bound on an H100: at the decode shape (M = 8 rows, N = 14336, K = 4096,
 // bf16) bytes: the weight alone is 117 MB and each weight byte meets only
@@ -14,161 +14,264 @@
 // 512-row prefill chunk it does ~480 operations per byte and is bound by the
 // tensor cores (~61 us at 989 TFLOP/s).
 //
-// Design (first version, right before fast): for bf16, 128-thread blocks
-// compute a BM x 64 output tile with warp-level tensor-core products
-// (nvcuda::wmma 16x16x16, bf16 in, f32 accumulate). Each K step stages a
-// BM x 64 slab of A and a 64 x 64 slab of W in shared memory with 16-byte
-// loads, neighbouring threads on neighbouring addresses. BM is 16 when
-// M <= 16 (decode: the tile does not waste tensor-core work on rows that do
-// not exist, and 224 column blocks stream the weight) and 64 otherwise. The
-// epilogue goes through shared memory so bias, activation and the bounds
-// checks are done on plain floats. There is no cp.async/TMA pipelining yet,
-// so loads and products of one K step do not overlap: that, and wgmma, is the
-// later work. float32 inputs take a plain shared-memory FMA kernel with a
-// 16 x 16 tile.
-#include <mma.h>
-
-#include "common.cuh"
+// Two paths, chosen by the wrapper (cudaex.linear_act_path) from the dtype
+// and M alone and passed in as `path`:
+//
+// stream (bf16, M <= 16: decode). The weight must stream at the card's
+//   memory rate, which takes ~30 KB of loads in flight per SM at all times
+//   (3.35 TB/s x ~1.2 us of latency / 132 SMs). A and B are swapped: 16
+//   weight rows are the A operand of mma.sync m16n8k16 and the activation
+//   rows its B operand, so n = 8 is exactly the decode batch (rows 9-16
+//   take a second n-tile) and no tensor-core work is padding. A block of two
+//   warps owns 16 weight rows, N / 16 blocks in all (896 at N = 14336, all
+//   resident at once: ~7 per SM, no tail wave); its warps split K and each
+//   runs its own 4-deep ring of cp.async.cg 16-byte copies (L1 bypassed) of
+//   64-column slabs of its weight rows and of the activations, which stay in
+//   L2. That keeps 3 x 2 KB of weight in flight per warp, ~80 KB per SM. The
+//   stage tiles are XOR-swizzled by 16-byte chunk, so the ldmatrix reads are
+//   conflict-free without padding. The two warps' sums meet in shared memory
+//   for the epilogue.
+//
+// tile (every other case: prefill chunks, ragged last chunks, float32). The
+//   port's one tile-GEMM mainloop, gemm.cuh (as mlp_subblock.cu uses it): a
+//   128 x 128 block tile, A and W both read K-major, a 3-deep cp.async ring
+//   of 64-deep slabs, ldmatrix fragments and mma.sync m16n8k16 in bf16
+//   (float32: FMA products on a 2-deep ring of 32-deep slabs), tiles visited
+//   16 tile rows at a time so that blocks in flight share operands in L2.
+//
+// What is left for later: gemm.cuh's wgmma/TMA mainloop (ROADMAP B.5), which
+// this path takes over with no change here; a TMA bulk-copy weight stream.
+#include "mlp_subblock.cuh"
 
 namespace {
 
-enum { ACT_RELU = 0, ACT_SILU = 1, ACT_GELU = 2, ACT_GELU_TANH = 3 };
+using namespace tt;
+using gemm::KMAJ;
+using mlp::act_fn;
 
-__device__ __forceinline__ float act_fn(float y, int act) {
-  switch (act) {
-    case ACT_RELU:
-      return fmaxf(y, 0.f);
-    case ACT_SILU:
-      return y * (1.f / (1.f + expf(-y)));
-    case ACT_GELU:
-      return 0.5f * y * (1.f + erff(y * 0.70710678118654752f));
-    default:
-      return 0.5f * y * (1.f + tanhf(0.79788456080286536f * (y + 0.044715f * y * y * y)));
-  }
+// ---------------------------------------------------------------------------
+// stream: M <= 16, bf16
+// ---------------------------------------------------------------------------
+
+constexpr int SW_ROWS = 16;                 // weight rows per block (one m16 A tile)
+constexpr int SW_BK = 64;                   // columns per slab: one 128-byte line of a row
+constexpr int SW_STAGES = 4;                // ring depth per warp
+constexpr int SW_WARPS = 2;                 // warps of a block, splitting K
+constexpr int SW_THREADS = 32 * SW_WARPS;
+
+// element offset of 16-byte chunk `ch` of row `r` in a [rows][64] slab tile;
+// the chunk index is XORed with the row's low bits, so the 8 rows one
+// ldmatrix phase reads fall in distinct banks
+__device__ __forceinline__ int swz(int r, int ch) { return r * SW_BK + ((ch ^ (r & 7)) << 3); }
+
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[4], const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(s));
 }
 
-constexpr int BN = 64;
-constexpr int BK = 64;
-constexpr int LDS = BK + 8;   // bf16 row stride in shared memory (multiple of 8)
-constexpr int LDC = BN + 4;   // f32 row stride of the epilogue tile (multiple of 4)
+template <int NT>
+constexpr int stream_smem() {   // the warps' rings, then their partial sums
+  return SW_WARPS * SW_STAGES * (SW_ROWS + 8 * NT) * SW_BK * 2 + SW_WARPS * SW_ROWS * 8 * NT * 4;
+}
 
-template <int BM>
-__global__ void __launch_bounds__(128)
-linear_act_wmma(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __restrict__ W,
-                const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ C, int M,
-                int N, int K, int act) {
-  using namespace nvcuda;
-  __shared__ __align__(128) __nv_bfloat16 As[BM * LDS];
-  __shared__ __align__(128) __nv_bfloat16 Bs[BN * LDS];
-  __shared__ __align__(128) float Cs[BM * LDC];
+// NT n-tiles of 8 activation rows: 1 for M <= 8, 2 for M <= 16
+template <int NT>
+__global__ void __launch_bounds__(SW_THREADS)
+linear_act_stream(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __restrict__ W,
+                  const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ C, int M,
+                  int N, int K, int act) {
+  constexpr int XR = 8 * NT;                      // activation rows of a slab
+  constexpr int STAGE = (SW_ROWS + XR) * SW_BK;   // elements: weight rows, then activations
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem_raw) + warp * SW_STAGES * STAGE;
+  float* red = reinterpret_cast<float*>(smem_raw + SW_WARPS * SW_STAGES * STAGE * 2);
 
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int warp = threadIdx.x >> 5;   // 4 warps, each owns 16 output columns
+  const int n0 = blockIdx.x * SW_ROWS;
+  const int slabs = (K + SW_BK - 1) / SW_BK;
+  const int s0 = warp * slabs / SW_WARPS;   // this warp's slabs: [s0, s0 + mine)
+  const int mine = (warp + 1) * slabs / SW_WARPS - s0;
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[BM / 16];
+  const auto load = [&](int b, int slab) {
+    __nv_bfloat16* st = ring + b * STAGE;
+    const int k0 = slab * SW_BK;
 #pragma unroll
-  for (int i = 0; i < BM / 16; ++i) wmma::fill_fragment(acc[i], 0.f);
+    for (int c = lane; c < (SW_ROWS + XR) * 8; c += 32) {
+      const int r = c >> 3, ch = c & 7, k = k0 + ch * 8;
+      const bool wrow = r < SW_ROWS;
+      const int gr = wrow ? n0 + r : r - SW_ROWS;
+      const bool ok = gr < (wrow ? N : M) && k < K;
+      const __nv_bfloat16* src = ok ? (wrow ? W : A) + static_cast<long long>(gr) * K + k : W;
+      gemm::cp_async16(st + swz(r, ch), src, ok);
+    }
+  };
 
-  constexpr int CHUNKS = BK / 8;   // 16-byte chunks per staged row
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int c = threadIdx.x; c < BM * CHUNKS; c += blockDim.x) {
-      const int r = c / CHUNKS, kc = (c % CHUNKS) * 8;
-      const int gm = m0 + r, gk = k0 + kc;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (gm < M && gk < K)
-        v = *reinterpret_cast<const uint4*>(A + static_cast<size_t>(gm) * K + gk);
-      *reinterpret_cast<uint4*>(&As[r * LDS + kc]) = v;
-    }
-    for (int c = threadIdx.x; c < BN * CHUNKS; c += blockDim.x) {
-      const int r = c / CHUNKS, kc = (c % CHUNKS) * 8;
-      const int gn = n0 + r, gk = k0 + kc;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (gn < N && gk < K)
-        v = *reinterpret_cast<const uint4*>(W + static_cast<size_t>(gn) * K + gk);
-      *reinterpret_cast<uint4*>(&Bs[r * LDS + kc]) = v;
-    }
-    __syncthreads();
+  // acc[nt][e]: weight row g + 8 (e >> 1), activation row 8 nt + 2 t + (e & 1)
+  float acc[NT][4];
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      // W tile stored (n, k) row-major == the (k, n) operand in column-major
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> bf;
-      wmma::load_matrix_sync(bf, &Bs[(warp * 16) * LDS + kk], LDS);
+  for (int nt = 0; nt < NT; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+  const auto compute = [&](int b) {
+    const __nv_bfloat16* st = ring + b * STAGE;
 #pragma unroll
-      for (int i = 0; i < BM / 16; ++i) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> af;
-        wmma::load_matrix_sync(af, &As[(i * 16) * LDS + kk], LDS);
-        wmma::mma_sync(acc[i], af, bf, acc[i]);
-      }
+    for (int kk = 0; kk < SW_BK / 16; ++kk) {
+      uint32_t a[4], x[4];
+      // A: weight rows 0-15 x k 16kk..+15 (gemm::frag_a's four matrices)
+      gemm::ldsm_x4(a, st + swz(lane & 15, 2 * kk + (lane >> 4)));
+      // B: activation rows 0-7 (and 8-15) x the same k (gemm::frag_b's)
+      const int xr = SW_ROWS + (NT == 2 ? (lane >> 4) * 8 : 0) + (lane & 7);
+      const int xc = 2 * kk + ((lane >> 3) & 1);
+      if constexpr (NT == 1)
+        ldsm_x2(x, st + swz(xr, xc));
+      else
+        gemm::ldsm_x4(x, st + swz(xr, xc));
+      mma_bf16(acc[0], a, x[0], x[1]);
+      if constexpr (NT == 2) mma_bf16(acc[1], a, x[2], x[3]);
     }
-    __syncthreads();
+  };
+
+  // the warp's own ring: SW_STAGES - 1 slabs in flight while one is multiplied
+#pragma unroll
+  for (int s = 0; s < SW_STAGES - 1; ++s) {
+    if (s < mine) load(s, s0 + s);
+    gemm::cp_async_commit();
   }
+  for (int kt = 0; kt < mine; ++kt) {
+    gemm::cp_async_wait<SW_STAGES - 2>();
+    __syncwarp();   // slab kt has landed for every lane; every lane is done with kt - 1
+    const int nxt = kt + SW_STAGES - 1;
+    if (nxt < mine) load(nxt % SW_STAGES, s0 + nxt);
+    gemm::cp_async_commit();
+    compute(kt % SW_STAGES);
+  }
+  gemm::cp_async_wait<0>();
+
+  const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int i = 0; i < BM / 16; ++i)
-    wmma::store_matrix_sync(&Cs[(i * 16) * LDC + warp * 16], acc[i], LDC, wmma::mem_row_major);
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      red[(warp * SW_ROWS + g + 8 * (e >> 1)) * XR + 8 * nt + 2 * t + (e & 1)] = acc[nt][e];
   __syncthreads();
-  for (int e = threadIdx.x; e < BM * BN; e += blockDim.x) {
-    const int r = e / BN, c = e % BN;
-    const int gm = m0 + r, gn = n0 + c;
-    if (gm < M && gn < N) {
-      float y = Cs[r * LDC + c];
-      if (bias != nullptr) y += __bfloat162float(bias[gn]);
-      C[static_cast<size_t>(gm) * N + gn] = __float2bfloat16_rn(act_fn(y, act));
-    }
+  for (int i = threadIdx.x; i < XR * SW_ROWS; i += SW_THREADS) {
+    const int m = i / SW_ROWS, r = i % SW_ROWS, n = n0 + r;
+    if (m >= M || n >= N) continue;
+    float y = 0.f;
+#pragma unroll
+    for (int w = 0; w < SW_WARPS; ++w) y += red[(w * SW_ROWS + r) * XR + m];
+    if (bias != nullptr) y += __bfloat162float(bias[n]);
+    C[static_cast<long long>(m) * N + n] = __float2bfloat16_rn(act_fn(y, act));
   }
 }
 
-constexpr int TS = 16;
+template <int NT>
+cudaError_t launch_stream(const void* a, const void* w, const void* bias, void* out, int M, int N,
+                          int K, int act, cudaStream_t s) {
+  // shared memory rather than L1: ~8 blocks of the ring per SM
+  const cudaError_t err = cudaFuncSetAttribute(
+      linear_act_stream<NT>, cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  linear_act_stream<NT><<<(N + SW_ROWS - 1) / SW_ROWS, SW_THREADS, stream_smem<NT>(), s>>>(
+      static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(w),
+      static_cast<const __nv_bfloat16*>(bias), static_cast<__nv_bfloat16*>(out), M, N, K, act);
+  return cudaSuccess;
+}
+
+// ---------------------------------------------------------------------------
+// tile: gemm.cuh's mainloop with the bias + activation epilogue
+// ---------------------------------------------------------------------------
+
+constexpr int TL_BM = 128, TL_BN = 128;
 
 template <typename T>
-__global__ void __launch_bounds__(TS * TS)
-linear_act_fma(const T* __restrict__ A, const T* __restrict__ W, const T* __restrict__ bias,
-               T* __restrict__ C, int M, int N, int K, int act) {
-  __shared__ float As[TS][TS + 1];
-  __shared__ float Ws[TS][TS + 1];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int m = blockIdx.y * TS + ty, n = blockIdx.x * TS + tx;
-  const int wn = blockIdx.x * TS + ty;   // weight row this thread stages
-  float acc = 0.f;
-  for (int k0 = 0; k0 < K; k0 += TS) {
-    const int k = k0 + tx;
-    As[ty][tx] = (m < M && k < K) ? tt::to_f(A[static_cast<size_t>(m) * K + k]) : 0.f;
-    Ws[ty][tx] = (wn < N && k < K) ? tt::to_f(W[static_cast<size_t>(wn) * K + k]) : 0.f;
-    __syncthreads();
+constexpr int tile_smem() {
+  return mlp::Cfg<T>::STAGES * (gemm::Tile<T, KMAJ, TL_BM, mlp::Cfg<T>::BK>::SIZE +
+                                gemm::Tile<T, KMAJ, TL_BN, mlp::Cfg<T>::BK>::SIZE) *
+         static_cast<int>(sizeof(T));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(mlp::THREADS)
+linear_act_tile(const T* __restrict__ A, const T* __restrict__ W, const T* __restrict__ bias,
+                T* __restrict__ C, int M, int N, int K, int act) {
+  constexpr int MT = 4, NT = 4, S = mlp::Cfg<T>::STAGES, BK = mlp::Cfg<T>::BK;
+  using TA = gemm::Tile<T, KMAJ, TL_BM, BK>;
+  using TB = gemm::Tile<T, KMAJ, TL_BN, BK>;
+  constexpr int STAGE = TA::SIZE + TB::SIZE;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+
+  int tm, tn;
+  gemm::tile_of<mlp::GROUP>(blockIdx.x, mlp::tiles(M, TL_BM), mlp::tiles(N, TL_BN), tm, tn);
+  const int m0 = tm * TL_BM, n0 = tn * TL_BN;
+  const int warp = threadIdx.x >> 5, wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
+
+  float acc[MT][NT][4];
+  gemm::zero(acc);
+  gemm::pipeline<S>(
+      mlp::tiles(K, BK),
+      [&](int b, int s) {
+        T* st = smem + b * STAGE;
+        gemm::load_tile<T, KMAJ, TL_BM, BK>(st, A, K, m0, M, s * BK, K);
+        gemm::load_tile<T, KMAJ, TL_BN, BK>(st + TA::SIZE, W, K, n0, N, s * BK, K);
+      },
+      [&](int b) {
+        const T* st = smem + b * STAGE;
+        gemm::mma_slab<KMAJ, KMAJ, TL_BM, TL_BN, BK>(acc, st, st + TA::SIZE, wm, wn);
+      });
+
+  // element (mt, nt, e) is C[row][col], row = .. + g + 8 (e >> 1), col = .. + 2 t + (e & 1)
+  const int l = threadIdx.x & 31, g = l >> 2, t = l & 3;
 #pragma unroll
-    for (int kk = 0; kk < TS; ++kk) acc += As[ty][kk] * Ws[tx][kk];
-    __syncthreads();
-  }
-  if (m < M && n < N) {
-    if (bias != nullptr) acc += tt::to_f(bias[n]);
-    C[static_cast<size_t>(m) * N + n] = tt::from_f<T>(act_fn(acc, act));
-  }
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = m0 + wm + mt * 16 + g + 8 * (e >> 1);
+      if (row >= M) continue;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int col = n0 + wn + nt * 8 + 2 * t + (e & 1);
+        if (col >= N) continue;
+        float y = acc[mt][nt][e];
+        if (bias != nullptr) y += to_f(bias[col]);
+        C[static_cast<long long>(row) * N + col] = from_f<T>(act_fn(y, act));
+      }
+    }
+}
+
+template <typename T>
+cudaError_t launch_tile(const void* a, const void* w, const void* bias, void* out, int M, int N,
+                        int K, int act, cudaStream_t s) {
+  const cudaError_t err = mlp::allow_smem(linear_act_tile<T>, tile_smem<T>());
+  if (err != cudaSuccess) return err;
+  linear_act_tile<T><<<mlp::tiles(M, TL_BM) * mlp::tiles(N, TL_BN), mlp::THREADS, tile_smem<T>(),
+                       s>>>(static_cast<const T*>(a), static_cast<const T*>(w),
+                            static_cast<const T*>(bias), static_cast<T*>(out), M, N, K, act);
+  return cudaSuccess;
 }
 
 }  // namespace
 
+// path: 0 tile, 1 stream (bf16, M <= 16), as cudaex.linear_act_path chooses;
+// a path the inputs do not fit is refused.
 extern "C" int tt_linear_act(const void* a, const void* w, const void* bias, void* out, int M,
-                             int N, int K, int act, int dtype, int device, void* stream) {
+                             int N, int K, int act, int dtype, int path, int device,
+                             void* stream) {
   cudaSetDevice(device);
+  if (path == 1 && (dtype != TT_BF16 || M > 16)) return static_cast<int>(cudaErrorInvalidValue);
   if (M > 0 && N > 0) {
     auto s = static_cast<cudaStream_t>(stream);
-    if (dtype == TT_BF16) {
-      const auto* A = static_cast<const __nv_bfloat16*>(a);
-      const auto* Wp = static_cast<const __nv_bfloat16*>(w);
-      const auto* B = static_cast<const __nv_bfloat16*>(bias);
-      auto* Cp = static_cast<__nv_bfloat16*>(out);
-      if (M <= 16) {
-        dim3 grid((N + BN - 1) / BN, (M + 15) / 16);
-        linear_act_wmma<16><<<grid, 128, 0, s>>>(A, Wp, B, Cp, M, N, K, act);
-      } else {
-        dim3 grid((N + BN - 1) / BN, (M + 63) / 64);
-        linear_act_wmma<64><<<grid, 128, 0, s>>>(A, Wp, B, Cp, M, N, K, act);
-      }
-    } else {
-      dim3 grid((N + TS - 1) / TS, (M + TS - 1) / TS);
-      linear_act_fma<float><<<grid, dim3(TS, TS), 0, s>>>(
-          static_cast<const float*>(a), static_cast<const float*>(w),
-          static_cast<const float*>(bias), static_cast<float*>(out), M, N, K, act);
-    }
+    cudaError_t err;
+    if (path == 1)
+      err = M <= 8 ? launch_stream<1>(a, w, bias, out, M, N, K, act, s)
+                   : launch_stream<2>(a, w, bias, out, M, N, K, act, s);
+    else if (dtype == TT_BF16)
+      err = launch_tile<__nv_bfloat16>(a, w, bias, out, M, N, K, act, s);
+    else
+      err = launch_tile<float>(a, w, bias, out, M, N, K, act, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -25,6 +25,13 @@ Outputs are allocated with ``torch.empty``; the kernel runs on
 adds one to its kernel's ``launches`` count where it launches, and nowhere
 else. A wrapper takes CUDA tensors only: the routing of CPU tensors to the
 plain versions lives in :mod:`thunder_tpu_torch.ops.nn`.
+
+Designs: ``sdpa_fwd`` and ``linear_act`` each hold more than one kernel
+design, and the wrapper picks one by a fixed rule of shape and dtype
+(:func:`sdpa_fwd_design`, :func:`linear_act_path`), passes it to the C
+entry, which refuses a design the inputs do not fit, and counts the launch
+under it as well (:func:`design_counts`). A launch never falls back to
+another design.
 """
 
 from __future__ import annotations
@@ -68,6 +75,7 @@ class Kernel:
     symbol: str            # exported C entry point
     argtypes: tuple
     launches: int = 0
+    designs: dict = field(default_factory=dict)   # launches by design, where it has several
     fn: object = field(default=None, repr=False)
 
 
@@ -80,14 +88,14 @@ KERNELS = {k.name: k for k in (
            (_P, _P, _P, _P, _P, _L, _I, _F, _I, _I, _P)),
     Kernel("linear_act", "thunder_tpu_torch/csrc/linear_act.cu",
            "thunder_tpu/executors/pallasex.py:896", "tt_linear_act",
-           (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
+           (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),
     Kernel("paged_decode_attention",
            "thunder_tpu_torch/csrc/paged_decode_attention.cu",
            "thunder_tpu/executors/pallasex.py:1316", "tt_paged_decode_attention",
            (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P)),
     Kernel("sdpa_fwd", "thunder_tpu_torch/csrc/sdpa_fwd.cu",
            "thunder_tpu/executors/pallasex.py:214", "tt_sdpa_fwd",
-           (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P)),
+           (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P)),
     Kernel("sdpa_bwd", "thunder_tpu_torch/csrc/sdpa_bwd.cu",
            "thunder_tpu/executors/pallasex.py:537", "tt_sdpa_bwd",
            (_P,) * 10 + (_I, _I, _I, _I, _F, _I, _I, _I, _P)),
@@ -117,10 +125,44 @@ _build_lock = threading.Lock()
 def reset_launch_counts() -> None:
     for k in KERNELS.values():
         k.launches = 0
+        k.designs.clear()
 
 
 def launch_counts() -> dict[str, int]:
     return {name: k.launches for name, k in KERNELS.items()}
+
+
+def design_counts() -> dict[str, dict[str, int]]:
+    """Launches by design of the kernels that have several:
+    ``{"sdpa_fwd": {"wgmma": 4}, ...}``."""
+    return {name: dict(k.designs) for name, k in KERNELS.items() if k.designs}
+
+
+# sdpa_fwd's designs, by the code the C entry takes (csrc/sdpa_fwd.cu)
+SDPA_FWD_DESIGNS = ("fma", "mma", "wgmma")
+# head dims of the TMA + wgmma design: llama3-8b's 128, and 64
+SDPA_WGMMA_HEAD_DIMS = (64, 128)
+
+
+def sdpa_fwd_design(dtype: torch.dtype, hd: int) -> str:
+    """The ``sdpa_fwd`` design that inputs of ``dtype`` and head dim ``hd``
+    take: ``"wgmma"`` for bf16 at hd 64 or 128, ``"mma"`` (mma.sync) for
+    bf16 at other head dims, ``"fma"`` for float32."""
+    if dtype == torch.float32:
+        return "fma"
+    return "wgmma" if hd in SDPA_WGMMA_HEAD_DIMS else "mma"
+
+
+# linear_act's paths, by the code the C entry takes (csrc/linear_act.cu)
+LINEAR_ACT_PATHS = ("tile", "stream")
+LINEAR_ACT_STREAM_MAX_ROWS = 16   # two n-tiles of 8 activation rows
+
+
+def linear_act_path(dtype: torch.dtype, M: int) -> str:
+    """The ``linear_act`` path that ``M`` rows of ``dtype`` take:
+    ``"stream"`` (the weight-streaming decode kernel) for bf16 at
+    M <= 16, ``"tile"`` (gemm.cuh's mainloop) otherwise."""
+    return "stream" if dtype == torch.bfloat16 and M <= LINEAR_ACT_STREAM_MAX_ROWS else "tile"
 
 
 def _nvcc() -> str:
@@ -187,7 +229,7 @@ def build() -> dict[str, float]:
         return seconds
 
 
-def _launch(name: str, *args) -> None:
+def _launch(name: str, *args, design: str | None = None) -> None:
     k = KERNELS[name]
     if k.fn is None:
         build()
@@ -195,6 +237,8 @@ def _launch(name: str, *args) -> None:
     if rc != 0:
         raise RuntimeError(f"{k.name}: kernel launch failed with CUDA error {rc}")
     k.launches += 1
+    if design is not None:
+        k.designs[design] = k.designs.get(design, 0) + 1
 
 
 def _check(name: str, *tensors, dtype: torch.dtype) -> None:
@@ -272,17 +316,18 @@ def linear_act(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = Non
     N, K = w.shape
     if bias is not None and tuple(bias.shape) != (N,):
         raise ValueError(f"linear_act: bias {tuple(bias.shape)} for {N} outputs")
-    if a.dtype == torch.bfloat16:
-        # the tensor-core path stages 16-byte chunks along K
-        if K % 8:
-            raise ValueError(f"linear_act: bf16 K={K} must be a multiple of 8")
-        if a.data_ptr() % 16 or w.data_ptr() % 16:
-            raise ValueError("linear_act: bf16 operands must be 16-byte aligned")
+    # both paths copy rows in 16-byte chunks along K
+    if K % (16 // a.element_size()):
+        raise ValueError(f"linear_act: K={K} must be a multiple of {16 // a.element_size()} "
+                         f"for {a.dtype}")
+    if a.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError("linear_act: operands must be 16-byte aligned")
     M = a.numel() // max(K, 1)
+    path = linear_act_path(a.dtype, M)
     out = torch.empty(a.shape[:-1] + (N,), dtype=a.dtype, device=a.device)
     _launch(name, a.data_ptr(), w.data_ptr(), None if bias is None else bias.data_ptr(),
             out.data_ptr(), M, N, K, ACTIVATIONS[act], _DTYPE_CODES[a.dtype],
-            a.device.index, _stream(a))
+            LINEAR_ACT_PATHS.index(path), a.device.index, _stream(a), design=path)
     return out
 
 
@@ -355,12 +400,15 @@ def sdpa_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, is_causal: bool 
     name = "sdpa_fwd"
     _check(name, q, k, v, dtype=_float_dtype(name, q))
     BH, T, S, hd = _attn_dims(name, q, k, v)
+    if S == 0:
+        raise ValueError(f"{name}: no keys (S = 0)")
+    design = sdpa_fwd_design(q.dtype, hd)
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(hd)
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
     _launch(name, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            BH, T, S, hd, scale, int(bool(is_causal)), _DTYPE_CODES[q.dtype], q.device.index,
-            _stream(q))
+            BH, T, S, hd, scale, int(bool(is_causal)), _DTYPE_CODES[q.dtype],
+            SDPA_FWD_DESIGNS.index(design), q.device.index, _stream(q), design=design)
     return out, lse
 
 
