@@ -86,6 +86,34 @@ holds ``mlp_subblock`` at the 512-row prefill chunk and at 8 rows. Then:
     rms_norm 32 and mlp_subblock 31; decode tok/s, TTFT and peak memory
     beside phase 5's.
 
+The headline train bench (``benchmarks/bench.py``, the port of the
+repo-root ``bench.py``'s step: fused chunked-vocab loss, bf16 first moments,
+slab-persistent AdamW): phase 3 also holds the slab-persistent AdamW kernel,
+``fused_adamw_slab``, at the bench bucket (llama2-7b-bench at 8 layers: one
+bf16 bucket of 1,881,214,976 parameters, bf16 m slab, f32 v slab) and on a
+bucket of odd sizes whose slab runs are misaligned (the kernel's scalar
+path): bit-identical to the per-step ``fused_adamw`` kernel on copies of the
+same values, within 4 ULP of its plain version, the pad tail still zero;
+times it beside its plain version and its bound; and holds the MLP sub-block
+pair at llama2-7b-bench's F = 11008 as at llama3-8b-bench's. Then:
+
+12. bench, card vs CPU — three float32 tiny-gqa steps of the bench's step
+    (4 layers, B=2, T=64, remat, slab state with bf16 m) on the card and on
+    the CPU from the same weights: the same losses, parameters and slabs;
+13. bench, full width — llama2-7b-bench (D=4096, 32 heads, F=11008, vocab
+    32000, bf16) at 8 layers, B=8, T=2048, a warm-up step and 3 timed steps
+    through the bench entry point, (a) ``--remat --slab-state``: every step
+    launches rms_norm 25, rms_norm_residual 8, sdpa_fwd 16 (all wgmma),
+    sdpa_bwd 8 and fused_adamw_slab 1 times; (b) ``--slab-state
+    --block-fusion``, the reference's default step at this shape: rms_norm 9,
+    mlp_subblock 8, mlp_subblock_bwd 8, sdpa_fwd 8, sdpa_bwd 8,
+    fused_adamw_slab 1; losses finite and falling; step time, tokens/s, the
+    share of the bf16 peak, peak memory and the fused loss's logits route.
+
+No phase can fall back to a plain version on the card: a CUDA call whose
+inputs a kernel does not take raises in the kernel's wrapper, with the
+reason ``cudaex.refusal`` gives, and fails its phase.
+
 The last line of standard output is the JSON result the checker reads; the
 line before it holds the kernels table (one row per kernel and main path,
 with that path's shape and launch count), and the line before that the
@@ -162,6 +190,17 @@ SUBBLOCK_STEP_TOL = 1e-5
 ATTN_SHAPE = (8, 32, 2048, 128)
 CE_SHAPE = (16384, 32000)
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 8, 2048, 5
+# the headline train bench (phase 13): llama2-7b-bench at 8 layers, B=8,
+# T=2048, a warm-up step and 3 timed steps; its MLP width
+BENCH_LAYERS, BENCH_STEPS, BENCH_F = 8, 3, 11008
+# phase 12's slabs, card vs CPU: the training test's m 1e-6 and v 1e-9
+#   absolute, and for the bf16 m slab two bf16 rounding steps of the larger
+#   of the two values besides (2**-6 of it). The gradients differ by f32
+#   summation order and, after the first step, by the parameters' own
+#   noise-decided differences (phase 6's 0.2 lr), so a stored m can land one
+#   rounding step off in one step and carry it, decayed by beta1 = 0.9, into
+#   the next, where its own rounding can add a step
+SLAB_M_RTOL, SLAB_M_ATOL, SLAB_V_ATOL = 2.0 ** -6, 1e-6, 1e-9
 
 D, F_DIM, S_DECODE, M_PREFILL = 4096, 14336, 8, 512
 KV, G, HD, PS = 8, 4, 128, 16
@@ -573,10 +612,120 @@ def check_train_kernels(torch, cudaex, tnn, toptim_ops, tllama):
     return rows
 
 
-def check_planned_kernels(torch, cudaex, tnn, tllama):
-    """The MLP sub-block pair at the planned train path's shape, each output
-    and gradient held row by row, with two planted faults that must fail;
-    each timed beside its plain version, its bound and the per-op chain it
+def slab_bucket(torch, tllama, toptim, gen, cfg_name, layers):
+    """The bench bucket of ``cfg_name`` at ``layers`` layers in the
+    optimizer's slab layout: its bf16 parameters (random, from the model's
+    init), bf16 gradients, a bf16 m slab and an f32 v slab whose runs hold
+    random moments (as after a few steps) and whose pad tail is zero, and
+    the members' sizes in layout order."""
+    from thunder_tpu_torch.optim import tree_leaves
+
+    dev = torch.device("cuda")
+    params = tllama.init_params(tllama.CONFIGS[cfg_name], seed=2, device=dev, n_layers=layers)
+    (key, members), = toptim.AdamW._slab_layout(params)
+    leaves = tree_leaves(params)
+    ps = [leaves[i] for i, _, _ in members]
+    sizes = [sz for _, _, sz in members]
+    return ps, *slab_state(torch, gen, ps, sizes), sizes
+
+
+def slab_state(torch, gen, ps, sizes):
+    """Gradients for ``ps`` and (m, v) slabs of their sizes, pad tail zero."""
+    from thunder_tpu_torch.ops.optim import SLAB_LANE, slab_geometry
+
+    dev, total = ps[0].device, sum(sizes)
+    gs = [torch.randn(p.shape, generator=gen, device=dev).mul_(1e-3).to(p.dtype) for p in ps]
+    rows, _ = slab_geometry(total)
+    m = torch.zeros(rows, SLAB_LANE, dtype=torch.bfloat16, device=dev)
+    v = torch.zeros(rows, SLAB_LANE, dtype=torch.float32, device=dev)
+    m.view(-1)[:total] = torch.randn(total, generator=gen, device=dev).mul_(1e-3).to(m.dtype)
+    v.view(-1)[:total] = torch.rand(total, generator=gen, device=dev).mul_(1e-6)
+    return gs, m, v
+
+
+def hold_slab_kernel(torch, cudaex, toptim_ops, ps, gs, m, v, sizes, bc, hyper) -> dict:
+    """One launch of the slab kernel against the per-step kernel and the
+    plain version, each on copies of the same values: the per-step kernel
+    must agree bit for bit (0 ULP), the plain version within ADAMW_ULP, and
+    the pad tail must stay zero. Returns the ULP and largest absolute
+    differences."""
+    from thunder_tpu_torch.testing import ulp_distance
+
+    offs = [0]
+    for n in sizes:
+        offs.append(offs[-1] + n)
+    runs = list(zip(offs, offs[1:]))
+    step_p = [p.clone() for p in ps]
+    step_m = [m.view(-1)[a:b].view(p.shape).clone() for (a, b), p in zip(runs, ps)]
+    step_v = [v.view(-1)[a:b].view(p.shape).clone() for (a, b), p in zip(runs, ps)]
+    plain_p, plain_m, plain_v = [p.clone() for p in ps], m.clone(), v.clone()
+    cudaex.fused_adamw_slab(ps, gs, m, v, bc, sizes=sizes, **hyper)
+    cudaex.fused_adamw(step_p, gs, step_m, step_v, bc, **hyper)
+    toptim_ops.fused_adamw_slab_plain(plain_p, gs, plain_m, plain_v, bc, sizes=sizes, **hyper)
+    torch.cuda.synchronize()
+    per_step_ulp, plain_ulp, err = 0, 0, 0.0
+    for i, (a, b) in enumerate(runs):
+        for got, per, plain in ((ps[i], step_p[i], plain_p[i]),
+                                (m.view(-1)[a:b], step_m[i].view(-1), plain_m.view(-1)[a:b]),
+                                (v.view(-1)[a:b], step_v[i].view(-1), plain_v.view(-1)[a:b])):
+            got = got.reshape(-1)
+            per_step_ulp = max(per_step_ulp, ulp_distance(got, per.reshape(-1)))
+            plain_ulp = max(plain_ulp, ulp_distance(got, plain.reshape(-1)))
+            err = max(err, float((got.float() - plain.reshape(-1).float()).abs().max()))
+    tail = max(float(s.view(-1)[offs[-1]:].float().abs().max()) if s.numel() > offs[-1] else 0.0
+               for s in (m, v))
+    del step_p, step_m, step_v, plain_p, plain_m, plain_v
+    require(per_step_ulp == 0, f"fused_adamw_slab: {per_step_ulp} ULP from the per-step kernel")
+    require(plain_ulp <= ADAMW_ULP, f"fused_adamw_slab: {plain_ulp} ULP from its plain version")
+    require(tail == 0.0, f"fused_adamw_slab: the pad tail holds {tail}")
+    return {"per_step_ulp": per_step_ulp, "plain_ulp": plain_ulp, "max_abs_err": err}
+
+
+def check_slab_kernel(torch, cudaex, toptim_ops, toptim, tllama):
+    """The slab-persistent AdamW kernel at the bench bucket (llama2-7b-bench
+    at BENCH_LAYERS layers: one bf16 bucket, bf16 m slab, f32 v slab) and on
+    a bucket of odd sizes whose slab runs are misaligned (the kernel's
+    scalar path), each held by :func:`hold_slab_kernel`; the bench bucket
+    then timed beside its plain version and its bound. {name: [row]}."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    step = 10
+    bc = torch.tensor([1 - 0.9 ** step, 1 - 0.999 ** step], dtype=torch.float32, device=dev)
+    hyper = dict(lr=1e-4, beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.01)
+
+    odd = [7, 13, 4099, 65537, 1 << 20]
+    ops = [torch.randn(n, generator=gen, device=dev).to(torch.bfloat16) for n in odd]
+    held = hold_slab_kernel(torch, cudaex, toptim_ops, ops, *slab_state(torch, gen, ops, odd),
+                            odd, bc, hyper)
+    log(f"  fused_adamw_slab, odd sizes {odd} (misaligned slab runs): " + json.dumps(held))
+    del ops
+
+    ps, gs, m, v, sizes = slab_bucket(torch, tllama, toptim, gen, "llama2-7b-bench",
+                                      BENCH_LAYERS)
+    n = sum(sizes)
+    held = hold_slab_kernel(torch, cudaex, toptim_ops, ps, gs, m, v, sizes, bc, hyper)
+    log(f"  fused_adamw_slab: {len(ps)} tensors, {n} parameters: " + json.dumps(held))
+    gc.collect()
+    torch.cuda.empty_cache()
+    row = timed_row(torch, cudaex, "fused_adamw_slab", f"{n} bf16", held["max_abs_err"],
+                    lambda: cudaex.fused_adamw_slab(ps, gs, m, v, bc, sizes=sizes, **hyper),
+                    lambda: toptim_ops.fused_adamw_slab_plain(ps, gs, m, v, bc, sizes=sizes,
+                                                              **hyper),
+                    None, n * 18, 12.0 * n, F32_FLOPS, 10, 2)
+    row["library_note"] = ("no PyTorch call updates moments held in persistent slabs; "
+                           "torch._fused_adamw_ also refuses bf16 params with f32 moments")
+    row.update(per_step_ulp=held["per_step_ulp"], plain_ulp=held["plain_ulp"])
+    del ps, gs, m, v
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"fused_adamw_slab": [row]}
+
+
+def check_planned_kernels(torch, cudaex, tnn, tllama, Fm=F_DIM):
+    """The MLP sub-block pair at a planned train path's shape (F = ``Fm``:
+    llama3-8b-bench's 14336, llama2-7b-bench's 11008), each output and
+    gradient held row by row, with two planted faults that must fail; each
+    timed beside its plain version, its bound and the per-op chain it
     replaces (``rms_norm_residual`` + ``F.linear`` + plain SwiGLU, forward
     and its autograd backward). {name: [row]}."""
     from thunder_tpu_torch.testing import row_rel_err
@@ -584,7 +733,7 @@ def check_planned_kernels(torch, cudaex, tnn, tllama):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(3)
     bf16 = torch.bfloat16
-    N, Dm, Fm = TRAIN_BATCH * TRAIN_SEQ, D, F_DIM
+    N, Dm = TRAIN_BATCH * TRAIN_SEQ, D
     tag = f"{N}x{Dm}x{Fm} silu"
 
     def rnd(*shape, scale=1.0):
@@ -1156,6 +1305,95 @@ def train_full_width(torch, cudaex, pretrain, block_fusion: bool = False):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 12 and 13: the headline train bench (benchmarks/bench.py)
+# ---------------------------------------------------------------------------
+
+def bench_launches(L: int, remat: bool, block_fusion: bool) -> dict:
+    """Kernel launches of one bench step (fused loss, slab state) at L
+    layers: the reference's claims (tests/test_torch_port_bench.py)."""
+    if remat:   # forward: 2 rms_norm + sdpa_fwd per layer; recompute: rms_norm,
+        #         sdpa_fwd, rms_norm_residual per layer; rms_norm(norm_f)
+        return {"rms_norm": 3 * L + 1, "rms_norm_residual": L, "sdpa_fwd": 2 * L,
+                "sdpa_bwd": L, "fused_adamw_slab": 1}
+    if block_fusion:
+        return {"rms_norm": L + 1, "mlp_subblock": L, "mlp_subblock_bwd": L, "sdpa_fwd": L,
+                "sdpa_bwd": L, "fused_adamw_slab": 1}
+    return {"rms_norm": 1, "rms_norm_residual": 2 * L, "sdpa_fwd": L, "sdpa_bwd": L,
+            "fused_adamw_slab": 1}
+
+
+def bench_card_vs_cpu(np, torch, tllama, bench):
+    """Three float32 tiny-gqa steps of the bench's step (4 layers, B=2,
+    T=64, fused loss, remat, slab state with bf16 m) on the card and on the
+    CPU from the same weights: losses and parameters to phase 6's
+    tolerances, the slabs to the training test's (the bf16 m slab within two
+    bf16 rounding steps besides), every step's launches the reference's
+    claims."""
+    from thunder_tpu_torch.optim import tree_leaves, tree_map
+    from thunder_tpu_torch.testing import ulp_distance
+
+    cfg = tllama.CONFIGS["tiny-gqa"]
+    cpu = tllama.init_params(cfg, seed=0, device="cpu")
+    card = tree_map(lambda t: t.cuda(), cpu)
+    kw = dict(layers=cfg.n_layers, batch=2, seq=64, steps=3, remat=True, slab_state=True)
+    opt = bench.make_opt("bf16", slab_state=True)
+    st_card, st_cpu = opt.init(card), opt.init(cpu)
+    a = bench.run("tiny-gqa", device="cuda", params=card, state=st_card, **kw)
+    b = bench.run("tiny-gqa", device="cpu", params=cpu, state=st_cpu, **kw)
+    require(bool(np.allclose(a["losses"], b["losses"], rtol=TRAIN_LOSS_RTOL, atol=0)),
+            f"bench card losses {a['losses']} != CPU losses {b['losses']}")
+    perr = max(float((x.detach().cpu() - y.detach()).abs().max())
+               for x, y in zip(tree_leaves(card), tree_leaves(cpu)))
+    require(perr <= 0.2 * bench.LR, f"bench card and CPU parameters differ by {perr}")
+    slab_err = {}
+    for which, rtol, atol in (("m", SLAB_M_RTOL, SLAB_M_ATOL), ("v", 0.0, SLAB_V_ATOL)):
+        for key, got in st_card[which].items():
+            got, want = got.cpu().float(), st_cpu[which][key].float()
+            diff = (got - want).abs()
+            slab_err[f"{which}:{key}"] = float(diff.max())
+            slab_err[f"{which}:{key} ulp"] = ulp_distance(st_card[which][key].cpu(),
+                                                          st_cpu[which][key])
+            require(bool((diff <= rtol * torch.maximum(got.abs(), want.abs()) + atol).all()),
+                    f"bench {which} slab {key}: card and CPU differ by {float(diff.max())}")
+    require(float(st_card["step"]) == float(st_cpu["step"]) == 4.0, "bench step counts differ")
+    expect = bench_launches(cfg.n_layers, remat=True, block_fusion=False)
+    for i, st in enumerate(a["per_step"]):
+        require(st["launches"] == expect,
+                f"tiny-gqa bench step {i} launched {st['launches']}, expected {expect}")
+    return {"layers": cfg.n_layers, "losses_card": a["losses"], "losses_cpu": b["losses"],
+            "max_param_diff": perr, "max_slab_diff": slab_err, "launches_per_step": expect,
+            "logits_route": a["logits_route"]}
+
+
+def bench_full_width(torch, cudaex, bench, remat: bool, block_fusion: bool):
+    """llama2-7b-bench at BENCH_LAYERS layers, B=8, T=2048 through the
+    bench entry point with slab state: a warm-up step and BENCH_STEPS timed
+    steps, every one launching the reference's claims, every sdpa_fwd on
+    the wgmma design, the losses finite and falling."""
+    cudaex.reset_launch_counts()
+    out = bench.run("llama2-7b-bench", layers=BENCH_LAYERS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                    steps=BENCH_STEPS, slab_state=True, remat=remat, block_fusion=block_fusion,
+                    device="cuda")
+    counts = cudaex.launch_counts()
+    expect = bench_launches(BENCH_LAYERS, remat, block_fusion)
+    for i, st in enumerate(out["per_step"]):
+        require(st["launches"] == expect, f"bench step {i} launched {st['launches']}, expected "
+                                          f"{expect}")
+    losses = out["losses"]
+    require(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+            f"bench losses not finite and falling: {losses}")
+    require(all(counts[k] for k in expect), f"a kernel of the bench path never launched: {counts}")
+    designs = cudaex.design_counts()
+    require(designs.get("sdpa_fwd") == {"wgmma": counts["sdpa_fwd"]},
+            f"sdpa_fwd launches by design {designs.get('sdpa_fwd')}: every one of the bench "
+            f"path's {counts['sdpa_fwd']} must take wgmma")
+    out.update(launches=counts, launches_per_step=expect, designs=designs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def log_train(what: str, t: dict) -> None:
     log(f"{what}: step {t['step_ms']:.1f} ms, {t['tokens_per_s']:.0f} tokens/s, "
         f"{100 * t['share_of_989_tflops']:.1f}% of 989 TFLOP/s, peak "
@@ -1176,7 +1414,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     try:
-        from thunder_tpu_torch.benchmarks import pretrain
+        from thunder_tpu_torch import optim as toptim
+        from thunder_tpu_torch.benchmarks import bench, pretrain
         from thunder_tpu_torch.executors import cudaex
         from thunder_tpu_torch.models import llama as tllama
         from thunder_tpu_torch.ops import nn as tnn
@@ -1198,6 +1437,9 @@ def main() -> int:
     log("kernels vs plain versions (bf16, full width):")
     rows = check_kernels(torch, cudaex, tnn)
     train_rows = check_train_kernels(torch, cudaex, tnn, toptim_ops, tllama)
+    log("the headline train bench's kernels vs plain versions (full width):")
+    slab_rows = check_slab_kernel(torch, cudaex, toptim_ops, toptim, tllama)
+    bench_planned_rows = check_planned_kernels(torch, cudaex, tnn, tllama, Fm=BENCH_F)
     planned_rows = check_planned_kernels(torch, cudaex, tnn, tllama)
     log("serving planned rung kernels vs plain versions (bf16, full width):")
     sp_rows = check_serving_planned_kernels(torch, cudaex, tnn, tllama)
@@ -1242,6 +1484,16 @@ def main() -> int:
         k: [fw[k], fp[k]] for k in ("decode_tok_per_s", "decode_step_ms_mean", "ttft_ms_mean",
                                     "peak_memory_gb", "wall_s")}))
 
+    bc = bench_card_vs_cpu(np, torch, tllama, bench)
+    log(f"bench card vs CPU (tiny-gqa, float32): {json.dumps(bc)}")
+    ba = bench_full_width(torch, cudaex, bench, remat=True, block_fusion=False)
+    log_train("bench full width (remat, slab state)", ba)
+    bb = bench_full_width(torch, cudaex, bench, remat=False, block_fusion=True)
+    log_train("bench full width (slab state, planned)", bb)
+    log("bench, remat vs planned: " + json.dumps({
+        k: [ba[k], bb[k]] for k in ("step_ms", "tokens_per_s", "share_of_989_tflops",
+                                    "peak_memory_gb", "optimizer_ms", "logits_route")}))
+
     # one row per kernel and main path: the path's own shape and its own
     # launch count (rms_norm and rms_norm_residual run on several paths;
     # the planned path's rows for kernels it shares with the per-op train
@@ -1256,8 +1508,14 @@ def main() -> int:
     serve_planned = {"decode_layer": sp_rows["decode_layer"],
                      "rms_norm": [dict(rows["rms_norm"][0], per_op_chain_ms=None)],
                      "mlp_subblock": sp_rows["mlp_subblock"]}
+    bench_rows = {name: slab_rows.get(name) or train_rows[name]
+                  for name in ba["launches_per_step"]}
+    bench_planned = {name: slab_rows.get(name) or train_rows.get(name)
+                     or bench_planned_rows[name] for name in bb["launches_per_step"]}
     for path, path_rows, run in (("serve", rows, fw), ("train", train_rows, tw),
                                  ("train-planned", planned, tp),
+                                 ("train-bench", bench_rows, ba),
+                                 ("train-bench-planned", bench_planned, bb),
                                  ("serve-planned", serve_planned, fp),
                                  ("serve-subblock", {"attn_subblock": sp_rows["attn_subblock"]},
                                   sb)):

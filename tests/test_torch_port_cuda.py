@@ -447,3 +447,201 @@ def test_cuda_planned_engine_tokens_match_cpu(cuda_device):
     counts = cudaex.launch_counts()
     assert counts["decode_layer"] > 0 and counts["mlp_subblock"] > 0, counts
     assert counts["paged_decode_attention"] == counts["linear_act"] == 0, counts
+
+
+# ---------------------------------------------------------------------------
+# the headline train bench: the slab-persistent AdamW kernel, the refusals
+# of inputs a kernel does not take, the chunked-vocab loss, the bench step
+# ---------------------------------------------------------------------------
+
+# ragged and odd sizes: after the 7- and 13-element members every slab run
+# starts off the 4-element alignment, so the kernel's scalar path runs
+SLAB_SIZES = [(64, 64), (7,), (13,), (4099,), (65537,), (1,), (3, 5000)]
+
+
+def _slab_bucket(device, p_dtype, m_dtype, v_dtype, shapes, seed=5):
+    from thunder_tpu_torch.ops import optim as toptim_ops
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    ps = [(torch.randn(s, generator=gen, device=device).sign() * 0.5
+           + torch.randn(s, generator=gen, device=device)).to(p_dtype) for s in shapes]
+    gs = [torch.randn(s, generator=gen, device=device).to(p_dtype) for s in shapes]
+    sizes = [p.numel() for p in ps]
+    rows, _ = toptim_ops.slab_geometry(sum(sizes))
+    m = torch.zeros(rows, 128, dtype=m_dtype, device=device)
+    v = torch.zeros(rows, 128, dtype=v_dtype, device=device)
+    return ps, gs, m, v, sizes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p_dtype,m_dtype,v_dtype", [
+    (torch.float32, torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16, torch.bfloat16)])
+def test_cuda_fused_adamw_slab_matches_plain_and_per_step(cuda_device, p_dtype, m_dtype, v_dtype):
+    """Three steps with fixed gradients: the slab kernel, the slab plain
+    version and the per-step kernel on copies of the same values. The slab
+    kernel is bit-identical to the per-step kernel, within 4 ULP of the
+    plain version (0 expected), and leaves the pad tail zero."""
+    from thunder_tpu_torch.ops import optim as toptim_ops
+
+    ps, gs, m, v, sizes = _slab_bucket(cuda_device, p_dtype, m_dtype, v_dtype, SLAB_SIZES)
+    offs = np.cumsum([0] + sizes)
+    runs = list(zip(offs, offs[1:]))
+    hyper = dict(lr=1e-2, beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.01)
+    plain = ([p.clone() for p in ps], m.clone(), v.clone())
+    step_p = [p.clone() for p in ps]
+    step_m = [torch.zeros(p.shape, dtype=m_dtype, device=cuda_device) for p in ps]
+    step_v = [torch.zeros(p.shape, dtype=v_dtype, device=cuda_device) for p in ps]
+    for step in range(1, 4):
+        bc = torch.tensor([1 - 0.9 ** step, 1 - 0.999 ** step], dtype=torch.float32,
+                          device=cuda_device)
+        cudaex.fused_adamw_slab(ps, gs, m, v, bc, sizes=sizes, **hyper)
+        toptim_ops.fused_adamw_slab_plain(*plain[:1], gs, *plain[1:], bc, sizes=sizes, **hyper)
+        cudaex.fused_adamw(step_p, gs, step_m, step_v, bc, **hyper)
+        torch.cuda.synchronize()
+        for a, b, c in zip(ps, plain[0], step_p):
+            assert torch.equal(a, c) and ulp_distance(a, b) <= 4
+        for slab, plain_slab, per in ((m, plain[1], step_m), (v, plain[2], step_v)):
+            flat = slab.reshape(-1)
+            assert ulp_distance(slab, plain_slab) <= 4
+            assert all(torch.equal(flat[a:b], t.reshape(-1)) for (a, b), t in zip(runs, per))
+            assert float(flat[offs[-1]:].float().abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_cuda_fused_adamw_slab_past_2_31_elements(cuda_device):
+    """One bf16 bucket of 2^31 + 4,103 elements (bf16 m slab, f32 v slab,
+    about 22 GB in all): the runs that start past 2^31 elements of the slab
+    (a misaligned 7-element one, then 4,096) and the first chunk of the
+    bucket match the plain version on copies of their values, and the pad
+    tail stays zero."""
+    from thunder_tpu_torch.ops import optim as toptim_ops
+
+    big = 1 << 30
+    ps, gs, m, v, sizes = _slab_bucket(cuda_device, torch.bfloat16, torch.bfloat16,
+                                       torch.float32, [(big,), (big,), (7,), (4096,)])
+    assert sum(sizes) > 2 ** 31
+    hyper = dict(lr=1e-2, beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.01)
+    bc = torch.tensor([0.1, 0.001], dtype=torch.float32, device=cuda_device)
+    offs = np.cumsum([0] + sizes)
+    checked = [(2, 0, 7), (3, 0, 4096), (0, 0, 4096)]   # (member, first, last) elements
+    before = [(ps[i][a:b].clone(), gs[i][a:b].clone(),
+               m.view(-1)[offs[i] + a:offs[i] + b].clone(),
+               v.view(-1)[offs[i] + a:offs[i] + b].clone()) for i, a, b in checked]
+    cudaex.fused_adamw_slab(ps, gs, m, v, bc, sizes=sizes, **hyper)
+    torch.cuda.synchronize()
+    for (i, a, b), (p0, g0, m0, v0) in zip(checked, before):
+        toptim_ops.fused_adamw_slab_plain([p0], [g0], m0, v0, bc, sizes=[b - a], **hyper)
+        assert torch.equal(ps[i][a:b], p0)
+        assert torch.equal(m.view(-1)[offs[i] + a:offs[i] + b], m0)
+        assert torch.equal(v.view(-1)[offs[i] + a:offs[i] + b], v0)
+    for slab in (m, v):
+        assert float(slab.view(-1)[offs[-1]:].float().abs().max()) == 0.0
+
+
+def _refused_cases(device):
+    """ROADMAP C.1's shapes: (op, routed call, the refusal's text)."""
+    gen = torch.Generator(device=device).manual_seed(9)
+
+    def rnd(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device=device).to(dtype)
+
+    x16, w16 = rnd(8, 256, dtype=torch.float16), rnd(256, dtype=torch.float16)
+    xs = rnd(256, 8).t()                                          # strided (8, 256)
+    xb, wf = rnd(8, 256, dtype=torch.bfloat16), rnd(256)          # mixed weight dtype
+    q8 = [rnd(2, 8, 64, 8, dtype=torch.bfloat16) for _ in range(3)]    # tiny-tp's head dim
+    q192 = [rnd(2, 2, 64, 192, dtype=torch.bfloat16) for _ in range(3)]
+    a518, w518 = rnd(8, 518, dtype=torch.bfloat16), rnd(64, 518, dtype=torch.bfloat16)
+
+    def attn(q):   # the forward, through the autograd function
+        return tnn.scaled_dot_product_attention(*q, is_causal=True)
+
+    return [
+        ("float16", lambda: tnn.rms_norm(x16, w16), "not supported"),
+        ("strided", lambda: tnn.rms_norm(xs, wf), "not contiguous"),
+        ("mixed weight dtype", lambda: tnn.rms_norm(xb, wf), "where torch.bfloat16"),
+        ("hd 8", lambda: attn(q8), "head dim 8"),
+        ("hd 192", lambda: attn(q192), "head dim 192"),
+        ("K 518 bf16", lambda: tnn.linear_act(a518, w518, None, "silu"), "K=518"),
+    ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(6), ids=["float16", "strided", "mixed-weight-dtype",
+                                                "hd8", "hd192", "K518-bf16"])
+def test_cuda_refused_inputs_raise(cuda_device, case):
+    """A CUDA call whose inputs the kernel does not take raises the reason
+    ``cudaex.refusal`` gives, before any launch: no plain version runs on
+    the card."""
+    name, routed, reason = _refused_cases(cuda_device)[case]
+    cudaex.reset_launch_counts()
+    with pytest.raises(ValueError, match=reason):
+        routed()
+    assert sum(cudaex.launch_counts().values()) == 0, cudaex.launch_counts()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_fused_linear_cross_entropy_matches_cpu(cuda_device, dtype):
+    """Loss, lse and both gradients on the card against the CPU route from
+    the same values: float32 1e-5; bf16 loss and lse 1e-5 relative (the
+    products are exact in float32 on both routes, summed in another order)
+    and gradients about one bf16 ulp (d(logits) rounds to bf16 before the
+    products, where a one-step difference in an f32 sum can move it)."""
+    gen = torch.Generator().manual_seed(11)
+    N, D, V = 512, 256, 1000
+    h = torch.randn(N, D, generator=gen).to(dtype)
+    w = (torch.randn(V, D, generator=gen) / D ** 0.5).to(dtype)
+    target = torch.randint(0, V, (N,), generator=gen)
+    target[::37] = -100
+    out = {}
+    for device in ("cuda", "cpu"):
+        ht, wt = (t.to(device).requires_grad_(True) for t in (h, w))
+        loss, lse = tnn.fused_linear_cross_entropy(ht, wt, target.to(device), chunk=384)
+        (loss + 0.1 * lse.sum()).backward()
+        out[device] = [t.detach().cpu() for t in (loss, lse, ht.grad, wt.grad)]
+    print("logits route on the card:", tnn.flce_logits_route(h.to(cuda_device)))
+    for a, b in zip(out["cuda"][:2], out["cpu"][:2]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=0)
+    for a, b in zip(out["cuda"][2:], out["cpu"][2:]):
+        assert a.dtype == dtype
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+        else:
+            assert bool(((a.float() - b.float()).abs() <= _bf16_tol(b)).all())
+
+
+@pytest.mark.cuda
+def test_cuda_bench_step_matches_cpu(cuda_device):
+    """Three float32 tiny-gqa steps of the bench's step (fused loss, remat,
+    slab state with bf16 m) on the card and on the CPU from the same
+    weights: losses to 1e-5 relative, parameters to 0.2 lr, the f32 v slab
+    to 1e-9 and the bf16 m slab within two bf16 rounding steps (2**-6 of
+    the larger value, + 1e-6), as chip_smoke.py's phase 12, and every
+    step's launches those of the reference's claims at 2 layers."""
+    from thunder_tpu_torch.benchmarks import bench
+    from thunder_tpu_torch.models import llama
+    from thunder_tpu_torch.optim import tree_leaves, tree_map
+
+    cfg = llama.CONFIGS["tiny-gqa"]
+    cpu = llama.init_params(cfg, seed=0, device="cpu", n_layers=2)
+    card = tree_map(lambda t: t.cuda(), cpu)
+    kw = dict(layers=2, batch=2, seq=64, steps=3, remat=True, slab_state=True)
+    opt = bench.make_opt("bf16", slab_state=True)
+    st_card, st_cpu = opt.init(card), opt.init(cpu)
+    a = bench.run("tiny-gqa", device="cuda", params=card, state=st_card, **kw)
+    b = bench.run("tiny-gqa", device="cpu", params=cpu, state=st_cpu, **kw)
+    np.testing.assert_allclose(a["losses"], b["losses"], rtol=1e-5)
+    for x, y in zip(tree_leaves(card), tree_leaves(cpu)):
+        np.testing.assert_allclose(x.detach().cpu().numpy(), y.detach().numpy(),
+                                   atol=0.2 * bench.LR)
+    for which, rtol, atol in (("m", 2.0 ** -6, 1e-6), ("v", 0.0, 1e-9)):
+        assert set(st_card[which]) == set(st_cpu[which])
+        for key, got in st_card[which].items():
+            got, want = got.cpu().float(), st_cpu[which][key].float()
+            bound = rtol * torch.maximum(got.abs(), want.abs()) + atol
+            assert bool(((got - want).abs() <= bound).all()), (which, key)
+    assert float(st_card["step"]) == float(st_cpu["step"]) == 4.0
+    for step in a["per_step"]:
+        assert step["launches"] == {"rms_norm": 7, "rms_norm_residual": 2, "sdpa_fwd": 4,
+                                    "sdpa_bwd": 2, "fused_adamw_slab": 1}

@@ -248,6 +248,9 @@ def test_wrappers_refuse_cpu_tensors(name):
         "fused_adamw": lambda: cudaex.fused_adamw(
             [x], [x], [x], [x], torch.ones(2), lr=1e-3, beta1=0.9, beta2=0.999, eps=1e-8,
             weight_decay=0.0),
+        "fused_adamw_slab": lambda: cudaex.fused_adamw_slab(
+            [x], [x], torch.zeros(8, 128), torch.zeros(8, 128), torch.ones(2), sizes=[32],
+            lr=1e-3, beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.0),
         "mlp_subblock": lambda: cudaex.mlp_subblock(x, x, x[0, 0], w, w, w.t().contiguous()),
         "mlp_subblock_bwd": lambda: cudaex.mlp_subblock_bwd(x, x, x, x[0, 0], w, w,
                                                             w.t().contiguous()),

@@ -50,6 +50,7 @@ H100_BF16_FLOPS = 989e12
 # kernels come ahead of the cuBLAS row
 FAMILIES = (
     ("mlp_subblock_bwd", ("mlp_bwd_",)),
+    ("fused_adamw_slab", ("fused_adamw_slab_kernel",)),
     ("mlp_subblock", ("mlp_fwd_",)),
     ("sdpa_bwd", ("sdpa_dkv_", "sdpa_dq_", "delta_kernel")),
     ("sdpa_fwd", ("sdpa_fwd_",)),
@@ -76,32 +77,41 @@ def synthetic_batch(vocab_size: int, batch: int, seq: int, seed: int):
     return tokens, np.roll(tokens, -1, 1)
 
 
+LOSSES = {"naive": llama.loss_fn, "fused": llama.fused_loss_fn}
+
+
 def loss_and_grads(params: dict, tokens: torch.Tensor, targets: torch.Tensor,
-                   cfg: llama.LlamaConfig, block_fusion: bool = False):
+                   cfg: llama.LlamaConfig, block_fusion: bool = False, loss: str = "naive",
+                   remat: bool = False):
     """``(loss, grads)``: the loss and its gradient tree, the counterpart of
-    ``tt.value_and_grad(llama.loss_fn)``; ``block_fusion`` picks the rung."""
+    ``tt.value_and_grad(llama.loss_fn)``; ``block_fusion`` picks the rung,
+    ``loss`` the loss function (``LOSSES``: ``naive`` is ``loss_fn``,
+    ``fused`` the chunked-vocab ``fused_loss_fn``), ``remat`` checkpoints
+    every layer."""
     leaves = tree_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
-    loss = llama.loss_fn(params, tokens, targets, cfg, block_fusion=block_fusion)
-    grads = iter(torch.autograd.grad(loss, leaves))
-    return loss.detach(), tree_map(lambda _: next(grads), params)
+    value = LOSSES[loss](params, tokens, targets, cfg, block_fusion=block_fusion, remat=remat)
+    grads = iter(torch.autograd.grad(value, leaves))
+    return value.detach(), tree_map(lambda _: next(grads), params)
 
 
 def train_step(params: dict, opt: AdamW, opt_state: dict, tokens: torch.Tensor,
                targets: torch.Tensor, cfg: llama.LlamaConfig,
-               opt_events: tuple | None = None, block_fusion: bool = False) -> torch.Tensor:
+               opt_events: tuple | None = None, block_fusion: bool = False,
+               loss: str = "naive", remat: bool = False) -> torch.Tensor:
     """One step: the loss and its gradients, then AdamW in place. Returns
     the loss (a device tensor: reading it is the caller's sync).
     ``opt_events``, a pair of CUDA events, are recorded around the
-    optimizer's update; ``block_fusion`` picks the rung."""
-    loss, grads = loss_and_grads(params, tokens, targets, cfg, block_fusion)
+    optimizer's update; ``block_fusion``, ``loss`` and ``remat`` are
+    :func:`loss_and_grads`'s."""
+    value, grads = loss_and_grads(params, tokens, targets, cfg, block_fusion, loss, remat)
     if opt_events:
         opt_events[0].record()
     opt.update(params, grads, opt_state)
     if opt_events:
         opt_events[1].record()
-    return loss
+    return value
 
 
 def _family(name: str) -> str:
@@ -114,10 +124,14 @@ def _family(name: str) -> str:
 
 def run(model: str = "tiny", layers: int | None = None, batch: int = 4, seq: int = 256,
         steps: int = 10, lr: float = 1e-4, seed: int = 0, device=None, profile: int = 0,
-        params: dict | None = None, block_fusion: bool = False) -> dict:
+        params: dict | None = None, block_fusion: bool = False, loss: str = "naive",
+        remat: bool = False, opt: AdamW | None = None, state: dict | None = None) -> dict:
     """Build the model (or take ``params``), take one warm-up step and
     ``steps`` timed steps on one synthetic batch, and report. Each step's
-    loss, host-clock time and kernel launches are in ``per_step``."""
+    loss, host-clock time and kernel launches are in ``per_step``.
+    ``opt`` defaults to ``AdamW(lr=lr)`` and ``state``, the optimizer state
+    the steps update in place, to ``opt.init(params)``; ``loss`` and
+    ``remat`` are :func:`loss_and_grads`'s."""
     dev = resolve_device(device)
     cfg = llama.CONFIGS[model]
     n_layers = layers if layers is not None else cfg.n_layers
@@ -127,8 +141,8 @@ def run(model: str = "tiny", layers: int | None = None, batch: int = 4, seq: int
     if params is None:
         params = llama.init_params(cfg, seed=seed, device=dev, n_layers=n_layers)
     n_layers = len(params["layers"])
-    opt = AdamW(lr=lr)
-    state = opt.init(params)
+    opt = opt if opt is not None else AdamW(lr=lr)
+    state = state if state is not None else opt.init(params)
     tok_np, tgt_np = synthetic_batch(cfg.vocab_size, batch, seq, seed)
     tokens, targets = torch.from_numpy(tok_np).to(dev), torch.from_numpy(tgt_np).to(dev)
 
@@ -138,7 +152,7 @@ def run(model: str = "tiny", layers: int | None = None, batch: int = 4, seq: int
 
     t0 = time.perf_counter()
     step = functools.partial(train_step, params, opt, state, tokens, targets, cfg,
-                             block_fusion=block_fusion)
+                             block_fusion=block_fusion, loss=loss, remat=remat)
     losses = [float(step())]   # warm-up
     warmup_s = time.perf_counter() - t0
     if on_card:
@@ -149,13 +163,13 @@ def run(model: str = "tiny", layers: int | None = None, batch: int = 4, seq: int
         # the optimizer's device time, from events around it
         ev = tuple(torch.cuda.Event(enable_timing=True) for _ in range(2)) if on_card else None
         t = time.perf_counter()
-        loss = step(opt_events=ev)
+        value = step(opt_events=ev)
         sync()
         ms = (time.perf_counter() - t) * 1e3
         after = cudaex.launch_counts()
         if on_card:
             opt_ms.append(ev[0].elapsed_time(ev[1]))
-        losses.append(float(loss))
+        losses.append(float(value))
         per_step.append({"loss": losses[-1], "ms": ms,
                          "launches": {k: after[k] - before[k] for k in after
                                       if after[k] != before[k]}})
@@ -164,8 +178,10 @@ def run(model: str = "tiny", layers: int | None = None, batch: int = 4, seq: int
     fpt = llama.flops_per_token(cfg, seq, n_layers)
     result = {
         "model": cfg.name, "layers": n_layers, "batch": batch, "seq": seq, "steps": steps,
-        "lr": lr, "seed": seed, "block_fusion": block_fusion, "device": str(dev),
-        "dtype": str(cfg.dtype).replace("torch.", ""),
+        "lr": lr, "seed": seed, "block_fusion": block_fusion, "loss": loss, "remat": remat,
+        "slab_persistent": opt.slab_persistent,
+        "opt_state": [str(d).replace("torch.", "") for d in (opt.state_dtype, opt.v_dtype)],
+        "device": str(dev), "dtype": str(cfg.dtype).replace("torch.", ""),
         "params": llama.num_params(cfg, n_layers), "warmup_s": warmup_s,
         "step_ms": step_ms, "tokens_per_s": tokens_per_step / (step_ms / 1e3),
         "losses": losses, "per_step": per_step,

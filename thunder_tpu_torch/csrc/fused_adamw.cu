@@ -7,7 +7,9 @@
 //   p' = p - u * lr
 //
 // Replaces: thunder_tpu/executors/pallasex.py pallas_fused_adamw (:1944), the
-// per-step multi-tensor claim, and the kernel call behind it, _adamw_slab_call
+// per-step multi-tensor claim; thunder_tpu/executors/pallasex.py
+// pallas_fused_adamw_slab (:1966), the slab-persistent claim (the
+// tt_fused_adamw_slab entry); and the kernel call behind both, _adamw_slab_call
 // (:1917), whose body is _fused_adamw_kernel (:1872). The arithmetic is f32 in
 // that kernel's (and optim.adamw_step's) exact op order, every operation
 // rounded on its own (__fmul_rn and friends: no contraction into FMAs, the
@@ -15,20 +17,29 @@
 // rounded to its own dtype. bc1 = 1 - beta1^step and bc2 are read from device
 // memory, so the step counter never visits the host.
 //
-// Bound on an H100: bytes. At the train path (llama3-8b-bench, 4 layers, one
-// bf16 bucket of 1.1347 G parameters with f32 m and v) each element reads
-// p, g (2 B each), m, v (4 B each) and writes p, m, v: 22 B, 24.96 GB in all,
-// 7.45 ms at 3.35 TB/s; ~12 operations per element.
+// Bound on an H100: bytes. Each element reads p, g, m, v and writes p, m, v.
+// The per-step train path (llama3-8b-bench, 4 layers, one bf16 bucket of
+// 1.1347 G parameters with f32 m and v): 22 B per element, 24.96 GB, 7.45 ms
+// at 3.35 TB/s. The slab path at bench width (llama2-7b-bench, 8 layers, one
+// bf16 bucket of 1.8812 G parameters, bf16 m slab, f32 v slab): 18 B per
+// element, 33.86 GB, 10.11 ms. ~12 operations per element.
 //
 // Design: the TPU version packs every stream of the bucket into one
 // (rows, 128) slab and unpacks it again (pallasex.py:1897-1914), two extra
-// passes over every stream on this card. Here the wrapper hands the kernel a
-// device table with one row per tensor -- the four pointers, the length, and
-// the index of its first chunk -- as PyTorch's own multi-tensor apply does.
-// Each block takes one 4096-element chunk, finds its tensor by a binary
-// search over the table, and walks the chunk with each thread on 4
+// passes over every stream on this card; its slab-persistent form still packs
+// p and g and unpacks p every step. Here the wrapper hands the kernel a device
+// table with one row per tensor -- the four pointers, the length, and the
+// index of its first chunk -- as PyTorch's own multi-tensor apply does. The
+// slab entry's rows point m and v into the persistent slabs at the tensor's
+// element offset (64-bit, in the optimizer's slab layout), so no stream is
+// ever packed and the slabs' zero pad tail is never launched over. Both
+// entries run one body, so their results are bit-identical on the same
+// values. Each block takes one 4096-element chunk, finds its tensor by a
+// binary search over the table, and walks the chunk with each thread on 4
 // consecutive elements per step: 16-byte loads for f32 streams, 8-byte loads
-// for bf16 ones. A tensor's tail of fewer than 4 elements takes scalar loads.
+// for bf16 ones. A tensor's tail of fewer than 4 elements, and every element
+// of a row whose base pointers are not aligned for those loads (a slab run
+// after a bucket member whose size is not a multiple of 4), take scalar loads.
 #include <math.h>
 
 #include "common.cuh"
@@ -80,10 +91,24 @@ __device__ __forceinline__ void adamw(float& p, float g, float& m, float& v, flo
   p = __fsub_rn(p, __fmul_rn(upd, h.lr));
 }
 
+template <typename T> __device__ __forceinline__ bool vec_aligned(const T* p) {
+  return reinterpret_cast<uintptr_t>(p) % (VEC * sizeof(T)) == 0;
+}
+
+// element j with scalar loads and stores
 template <typename P, typename M, typename V>
-__global__ void __launch_bounds__(THREADS)
-fused_adamw_kernel(const long long* __restrict__ table, int n_tensors,
-                   const float* __restrict__ bc, Hyper h) {
+__device__ __forceinline__ void adamw_at(P* p, const P* g, M* m, V* v, long long j, float bc1,
+                                         float bc2, const Hyper& h) {
+  float pj = tt::to_f(p[j]), mj = tt::to_f(m[j]), vj = tt::to_f(v[j]);
+  adamw(pj, tt::to_f(g[j]), mj, vj, bc1, bc2, h);
+  p[j] = tt::from_f<P>(pj);
+  m[j] = tt::from_f<M>(mj);
+  v[j] = tt::from_f<V>(vj);
+}
+
+template <typename P, typename M, typename V>
+__device__ __forceinline__ void adamw_chunk(const long long* __restrict__ table, int n_tensors,
+                                            const float* __restrict__ bc, const Hyper& h) {
   // the tensor whose chunks hold this block: the last row with first chunk <= blockIdx.x
   const long long c = blockIdx.x;
   int lo = 0, hi = n_tensors - 1;
@@ -101,6 +126,14 @@ fused_adamw_kernel(const long long* __restrict__ table, int n_tensors,
   const long long end = min(begin + CHUNK, n);
   const float bc1 = bc[0], bc2 = bc[1];
 
+  // a row whose base pointers do not take the vector loads (a slab run after
+  // a bucket member whose size is not a multiple of 4): one element per
+  // thread and step, kept out of the vector loop below
+  if (!(vec_aligned(p) && vec_aligned(g) && vec_aligned(m) && vec_aligned(v))) {
+    for (long long j = begin + threadIdx.x; j < end; j += THREADS)
+      adamw_at(p, g, m, v, j, bc1, bc2, h);
+    return;
+  }
   for (long long i = begin + static_cast<long long>(threadIdx.x) * VEC; i < end;
        i += THREADS * VEC) {
     float pf[4], gf[4], mf[4], vf[4];
@@ -115,53 +148,91 @@ fused_adamw_kernel(const long long* __restrict__ table, int n_tensors,
       Io<M>::store4(m + i, mf);
       Io<V>::store4(v + i, vf);
     } else {
-      for (long long j = i; j < end; ++j) {
-        float pj = tt::to_f(p[j]), mj = tt::to_f(m[j]), vj = tt::to_f(v[j]);
-        adamw(pj, tt::to_f(g[j]), mj, vj, bc1, bc2, h);
-        p[j] = tt::from_f<P>(pj);
-        m[j] = tt::from_f<M>(mj);
-        v[j] = tt::from_f<V>(vj);
-      }
+      for (long long j = i; j < end; ++j) adamw_at(p, g, m, v, j, bc1, bc2, h);
     }
   }
 }
 
-template <typename P, typename M>
-void launch_v(int v_dtype, unsigned blocks, const long long* table, int n, const float* bc,
-              const Hyper& h, cudaStream_t s) {
-  if (v_dtype == TT_BF16)
-    fused_adamw_kernel<P, M, __nv_bfloat16><<<blocks, THREADS, 0, s>>>(table, n, bc, h);
+// the per-step entry's kernel and the slab entry's: one body, two names, so a
+// profile tells their launches apart
+template <typename P, typename M, typename V>
+__global__ void __launch_bounds__(THREADS)
+fused_adamw_kernel(const long long* __restrict__ table, int n_tensors,
+                   const float* __restrict__ bc, Hyper h) {
+  adamw_chunk<P, M, V>(table, n_tensors, bc, h);
+}
+
+template <typename P, typename M, typename V>
+__global__ void __launch_bounds__(THREADS)
+fused_adamw_slab_kernel(const long long* __restrict__ table, int n_tensors,
+                        const float* __restrict__ bc, Hyper h) {
+  adamw_chunk<P, M, V>(table, n_tensors, bc, h);
+}
+
+template <typename P, typename M, typename V>
+void launch(bool slab, unsigned blocks, const long long* table, int n, const float* bc,
+            const Hyper& h, cudaStream_t s) {
+  if (slab)
+    fused_adamw_slab_kernel<P, M, V><<<blocks, THREADS, 0, s>>>(table, n, bc, h);
   else
-    fused_adamw_kernel<P, M, float><<<blocks, THREADS, 0, s>>>(table, n, bc, h);
+    fused_adamw_kernel<P, M, V><<<blocks, THREADS, 0, s>>>(table, n, bc, h);
+}
+
+template <typename P, typename M>
+void launch_v(int v_dtype, bool slab, unsigned blocks, const long long* table, int n,
+              const float* bc, const Hyper& h, cudaStream_t s) {
+  if (v_dtype == TT_BF16)
+    launch<P, M, __nv_bfloat16>(slab, blocks, table, n, bc, h, s);
+  else
+    launch<P, M, float>(slab, blocks, table, n, bc, h, s);
 }
 
 template <typename P>
-void launch_m(int m_dtype, int v_dtype, unsigned blocks, const long long* table, int n,
-              const float* bc, const Hyper& h, cudaStream_t s) {
+void launch_m(int m_dtype, int v_dtype, bool slab, unsigned blocks, const long long* table,
+              int n, const float* bc, const Hyper& h, cudaStream_t s) {
   if (m_dtype == TT_BF16)
-    launch_v<P, __nv_bfloat16>(v_dtype, blocks, table, n, bc, h, s);
+    launch_v<P, __nv_bfloat16>(v_dtype, slab, blocks, table, n, bc, h, s);
   else
-    launch_v<P, float>(v_dtype, blocks, table, n, bc, h, s);
+    launch_v<P, float>(v_dtype, slab, blocks, table, n, bc, h, s);
+}
+
+int run(bool slab, const void* table, int n_tensors, long long n_chunks, const void* bc,
+        const Hyper& h, int p_dtype, int m_dtype, int v_dtype, int device, void* stream) {
+  cudaSetDevice(device);
+  if (n_tensors > 0 && n_chunks > 0) {
+    auto s = static_cast<cudaStream_t>(stream);
+    const auto* t = static_cast<const long long*>(table);
+    const auto* b = static_cast<const float*>(bc);
+    const unsigned blocks = static_cast<unsigned>(n_chunks);
+    if (p_dtype == TT_BF16)
+      launch_m<__nv_bfloat16>(m_dtype, v_dtype, slab, blocks, t, n_tensors, b, h, s);
+    else
+      launch_m<float>(m_dtype, v_dtype, slab, blocks, t, n_tensors, b, h, s);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// The table's rows: (p, g, m, v, numel, first chunk), m and v pointing at
+// each tensor's own moments (tt_fused_adamw) or into the persistent slabs at
+// the tensor's element offset (tt_fused_adamw_slab).
 extern "C" int tt_fused_adamw(const void* table, int n_tensors, long long n_chunks,
                               const void* bc, float lr, float beta1, float beta2,
                               float one_m_beta1, float one_m_beta2, float eps,
                               float weight_decay, int p_dtype, int m_dtype, int v_dtype,
                               int device, void* stream) {
-  cudaSetDevice(device);
-  if (n_tensors > 0 && n_chunks > 0) {
-    auto s = static_cast<cudaStream_t>(stream);
-    const Hyper h{lr, beta1, beta2, one_m_beta1, one_m_beta2, eps, weight_decay};
-    const auto* t = static_cast<const long long*>(table);
-    const auto* b = static_cast<const float*>(bc);
-    const unsigned blocks = static_cast<unsigned>(n_chunks);
-    if (p_dtype == TT_BF16)
-      launch_m<__nv_bfloat16>(m_dtype, v_dtype, blocks, t, n_tensors, b, h, s);
-    else
-      launch_m<float>(m_dtype, v_dtype, blocks, t, n_tensors, b, h, s);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const Hyper h{lr, beta1, beta2, one_m_beta1, one_m_beta2, eps, weight_decay};
+  return run(false, table, n_tensors, n_chunks, bc, h, p_dtype, m_dtype, v_dtype, device,
+             stream);
+}
+
+extern "C" int tt_fused_adamw_slab(const void* table, int n_tensors, long long n_chunks,
+                                   const void* bc, float lr, float beta1, float beta2,
+                                   float one_m_beta1, float one_m_beta2, float eps,
+                                   float weight_decay, int p_dtype, int m_dtype, int v_dtype,
+                                   int device, void* stream) {
+  const Hyper h{lr, beta1, beta2, one_m_beta1, one_m_beta2, eps, weight_decay};
+  return run(true, table, n_tensors, n_chunks, bc, h, p_dtype, m_dtype, v_dtype, device,
+             stream);
 }

@@ -2,29 +2,36 @@
 
 The counterpart of ``thunder_tpu/executors/pallasex.py``: one hand-written
 kernel for every Pallas kernel there, the ones the serving steps and the
-single-device train step run at both their per-op and planned rungs. The
+single-device train steps run at both their per-op and planned rungs. The
 serving planned rung's ``decode_layer`` and ``attn_subblock`` are one
 cooperative kernel (``csrc/decode_layer.cuh``) built as two libraries, with
-and without the MLP phases. Each kernel is CUDA C++ for ``sm_90a`` in
-``thunder_tpu_torch/csrc/``; its source note names the Pallas function it
-replaces, its bound on an H100, and what its design does about that bound.
+and without the MLP phases; ``fused_adamw`` and ``fused_adamw_slab`` are two
+entries of one library (``csrc/fused_adamw.cu``). Each kernel is CUDA C++ for
+``sm_90a`` in ``thunder_tpu_torch/csrc/``; its source note names the Pallas
+function it replaces, its bound on an H100, and what its design does about
+that bound.
 
 Build: at first use, :func:`build` runs one ``nvcc`` per ``csrc/*.cu``
 source, all started together, into ``thunder_tpu_torch/_build/``. Each
 shared library is named by a hash of every ``csrc`` file and the flags, so a
 changed source rebuilds and an unchanged one loads from disk. Each library
-exports a plain C entry point, bound here with ``ctypes``: pointers and the
+exports plain C entry points, bound here with ``ctypes``: pointers and the
 stream travel as ``c_void_p``, and the entry returns ``cudaGetLastError()``,
 which the wrapper turns into an exception.
 
-Wrappers: each checks device, dtype, shape and contiguity and raises on
-what its kernel does not take (the counterpart of pallasex's ``_*_checker``
-functions, except that a refusal here is an error, never a fallback).
-Outputs are allocated with ``torch.empty``; the kernel runs on
-``torch.cuda.current_stream()`` and does not synchronise. Every wrapper
-adds one to its kernel's ``launches`` count where it launches, and nowhere
-else. A wrapper takes CUDA tensors only: the routing of CPU tensors to the
-plain versions lives in :mod:`thunder_tpu_torch.ops.nn`.
+Refusals: each wrapper checks dtype, shape, contiguity and alignment and
+raises on what its kernel does not take, with the reason, before any
+launch. :func:`refusal` gives that reason (None where the kernel takes the
+arguments) for any kernel by name, called with its wrapper's arguments: the
+counterpart of pallasex's ``_*_checker`` functions, except that on the card
+a refusal is an error, never a fallback to the plain version. A build or
+launch failure raises too.
+
+Wrappers: outputs are allocated with ``torch.empty``; the kernel runs on
+``torch.cuda.current_stream()`` and does not synchronise. Every wrapper adds
+one to its kernel's ``launches`` count where it launches, and nowhere else.
+A wrapper takes CUDA tensors only: the routing of CPU tensors to the plain
+versions lives in :mod:`thunder_tpu_torch.ops`.
 
 Designs: ``sdpa_fwd`` and ``linear_act`` each hold more than one kernel
 design, and the wrapper picks one by a fixed rule of shape and dtype
@@ -79,6 +86,8 @@ class Kernel:
     fn: object = field(default=None, repr=False)
 
 
+_ADAMW_ARGS = (_P, _I, _L, _P) + (_F,) * 7 + (_I, _I, _I, _I, _P)
+
 KERNELS = {k.name: k for k in (
     Kernel("rms_norm", "thunder_tpu_torch/csrc/rms_norm.cu",
            "thunder_tpu/executors/pallasex.py:738", "tt_rms_norm",
@@ -103,8 +112,9 @@ KERNELS = {k.name: k for k in (
            "thunder_tpu/executors/pallasex.py:686", "tt_ce_fwd",
            (_P, _P, _P, _P, _L, _I, _L, _I, _I, _P)),
     Kernel("fused_adamw", "thunder_tpu_torch/csrc/fused_adamw.cu",
-           "thunder_tpu/executors/pallasex.py:1944", "tt_fused_adamw",
-           (_P, _I, _L, _P) + (_F,) * 7 + (_I, _I, _I, _I, _P)),
+           "thunder_tpu/executors/pallasex.py:1944", "tt_fused_adamw", _ADAMW_ARGS),
+    Kernel("fused_adamw_slab", "thunder_tpu_torch/csrc/fused_adamw.cu",
+           "thunder_tpu/executors/pallasex.py:1966", "tt_fused_adamw_slab", _ADAMW_ARGS),
     Kernel("mlp_subblock", "thunder_tpu_torch/csrc/mlp_subblock.cu",
            "thunder_tpu/executors/pallasex.py:1039", "tt_mlp_subblock",
            (_P,) * 10 + (_I, _I, _I, _I, _F, _I, _I, _P)),
@@ -123,6 +133,7 @@ _build_lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
+    """Set every kernel's launch and design counts to 0."""
     for k in KERNELS.values():
         k.launches = 0
         k.designs.clear()
@@ -195,33 +206,33 @@ def build() -> dict[str, float]:
                            "none is available")
     with _build_lock:
         if all(k.fn is not None for k in KERNELS.values()):
-            return {k.name: 0.0 for k in KERNELS.values()}
+            return {Path(k.source).stem: 0.0 for k in KERNELS.values()}
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         key = _source_key()
-        libs = {k.name: BUILD_DIR / f"{Path(k.source).stem}-{key}.so"
+        # one library per source: entries of one .cu file share it
+        libs = {Path(k.source).stem: BUILD_DIR / f"{Path(k.source).stem}-{key}.so"
                 for k in KERNELS.values()}
-        todo = [k for k in KERNELS.values() if not libs[k.name].exists()]
+        todo = [stem for stem, lib in libs.items() if not lib.exists()]
         procs, t0 = {}, time.perf_counter()
         nvcc = _nvcc() if todo else ""
-        for k in todo:
-            tmp = libs[k.name].with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-                   str(CSRC / Path(k.source).name)]
-            procs[k.name] = (tmp, subprocess.Popen(
+        for stem in todo:
+            tmp = libs[stem].with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(CSRC / f"{stem}.cu")]
+            procs[stem] = (tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        seconds = {k.name: 0.0 for k in KERNELS.values()}
+        seconds = {stem: 0.0 for stem in libs}
         errors = []
-        for name, (tmp, p) in procs.items():
+        for stem, (tmp, p) in procs.items():
             log, _ = p.communicate()
-            seconds[name] = time.perf_counter() - t0
+            seconds[stem] = time.perf_counter() - t0
             if p.returncode != 0:
-                errors.append(f"{name}: nvcc exited {p.returncode}\n{log}")
+                errors.append(f"{stem}: nvcc exited {p.returncode}\n{log}")
             else:
-                os.replace(tmp, libs[name])
+                os.replace(tmp, libs[stem])
         if errors:
             raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
         for k in KERNELS.values():
-            lib = ctypes.CDLL(str(libs[k.name]))
+            lib = ctypes.CDLL(str(libs[Path(k.source).stem]))
             fn = getattr(lib, k.symbol)
             fn.argtypes = list(k.argtypes)
             fn.restype = ctypes.c_int
@@ -241,39 +252,69 @@ def _launch(name: str, *args, design: str | None = None) -> None:
         k.designs[design] = k.designs.get(design, 0) + 1
 
 
-def _check(name: str, *tensors, dtype: torch.dtype) -> None:
-    """Every tensor given (None entries skipped) on one CUDA device,
-    contiguous, of ``dtype``."""
+# ---------------------------------------------------------------------------
+# what each kernel takes: a refusal function per wrapper returns why the
+# kernel does not take its arguments (None when it does), and the wrapper
+# raises the reason
+# ---------------------------------------------------------------------------
+
+def _tensors_refusal(name: str, *tensors, dtype: torch.dtype) -> str | None:
+    """Why the tensors given (None entries skipped) are not all on one
+    device, contiguous, of ``dtype``."""
     tensors = [t for t in tensors if t is not None]
     dev = tensors[0].device
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: the kernel takes CUDA tensors, got {dev}")
     for t in tensors:
         if t.device != dev:
-            raise ValueError(f"{name}: tensors on {dev} and {t.device}")
+            return f"{name}: tensors on {dev} and {t.device}"
         if not t.is_contiguous():
-            raise ValueError(f"{name}: tensor of shape {tuple(t.shape)} is not contiguous")
+            return f"{name}: tensor of shape {tuple(t.shape)} is not contiguous"
         if t.dtype != dtype:
-            raise ValueError(f"{name}: dtype {t.dtype} where {dtype} is required")
+            return f"{name}: dtype {t.dtype} where {dtype} is required"
+    return None
 
 
-def _float_dtype(name: str, t: torch.Tensor) -> torch.dtype:
-    if t.dtype not in _DTYPE_CODES:
-        raise ValueError(f"{name}: dtype {t.dtype} not supported (float32 or bfloat16)")
-    return t.dtype
+def _floats_refusal(name: str, x: torch.Tensor, *others) -> str | None:
+    """Why ``x`` is not float32 or bfloat16, or ``x`` and ``others`` do not
+    share its dtype, device and contiguity."""
+    if x.dtype not in _DTYPE_CODES:
+        return f"{name}: dtype {x.dtype} not supported (float32 or bfloat16)"
+    return _tensors_refusal(name, x, *others, dtype=x.dtype)
+
+
+def _unaligned(*tensors) -> bool:
+    return any(t.data_ptr() % 16 for t in tensors if t is not None)
+
+
+def _refuse(reason: str | None) -> None:
+    if reason:
+        raise ValueError(reason)
+
+
+def _require_cuda(name: str, t: torch.Tensor) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: the kernel takes CUDA tensors, got {t.device}")
 
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _rms_refusal(name: str, x, weight, *others) -> str | None:
+    if x.ndim == 0:
+        return f"{name}: a scalar has no rows"
+    reason = _floats_refusal(name, x, weight, *others)
+    D = x.shape[-1]
+    if not reason and weight is not None and tuple(weight.shape) != (D,):
+        reason = f"{name}: weight {tuple(weight.shape)} for rows of {D}"
+    return reason
+
+
 def rms_norm(x: torch.Tensor, weight: torch.Tensor | None, eps: float) -> torch.Tensor:
     """``rms_norm`` over the last dim of a contiguous ``(..., D)`` tensor."""
     name = "rms_norm"
-    _check(name, x, weight, dtype=_float_dtype(name, x))
+    _refuse(_rms_refusal(name, x, weight))
+    _require_cuda(name, x)
     D = x.shape[-1]
-    if weight is not None and tuple(weight.shape) != (D,):
-        raise ValueError(f"rms_norm: weight {tuple(weight.shape)} for rows of {D}")
     out = torch.empty_like(x)
     _launch(name, x.data_ptr(), None if weight is None else weight.data_ptr(),
             out.data_ptr(), x.numel() // max(D, 1), D, float(eps),
@@ -281,17 +322,20 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor | None, eps: float) -> torch.
     return out
 
 
+def _rms_residual_refusal(residual, x, weight) -> str | None:
+    name = "rms_norm_residual"
+    if residual.shape != x.shape:
+        return f"{name}: residual {tuple(residual.shape)} != input {tuple(x.shape)}"
+    return _rms_refusal(name, x, weight, residual)
+
+
 def rms_norm_residual(residual: torch.Tensor, x: torch.Tensor,
                       weight: torch.Tensor | None, eps: float):
     """``h = residual + x``; returns ``(h, rms_norm(h, weight))``."""
     name = "rms_norm_residual"
-    _check(name, residual, x, weight, dtype=_float_dtype(name, residual))
-    if residual.shape != x.shape:
-        raise ValueError(f"rms_norm_residual: residual {tuple(residual.shape)} "
-                         f"!= input {tuple(x.shape)}")
+    _refuse(_rms_residual_refusal(residual, x, weight))
+    _require_cuda(name, x)
     D = x.shape[-1]
-    if weight is not None and tuple(weight.shape) != (D,):
-        raise ValueError(f"rms_norm_residual: weight {tuple(weight.shape)} for rows of {D}")
     h = torch.empty_like(x)
     out = torch.empty_like(x)
     _launch(name, residual.data_ptr(), x.data_ptr(),
@@ -301,27 +345,34 @@ def rms_norm_residual(residual: torch.Tensor, x: torch.Tensor,
     return h, out
 
 
+def _linear_act_refusal(a, w, bias, act) -> str | None:
+    name = "linear_act"
+    if act not in ACTIVATIONS:
+        return f"linear_act: unknown activation {act!r}; known: {sorted(ACTIVATIONS)}"
+    reason = _floats_refusal(name, a, w, bias)
+    if reason:
+        return reason
+    if a.ndim == 0 or w.ndim != 2 or a.shape[-1] != w.shape[1]:
+        return f"linear_act: a {tuple(a.shape)} and w {tuple(w.shape)} do not share K"
+    N, K = w.shape
+    if bias is not None and tuple(bias.shape) != (N,):
+        return f"linear_act: bias {tuple(bias.shape)} for {N} outputs"
+    # both paths copy rows in 16-byte chunks along K
+    if K % (16 // a.element_size()):
+        return f"linear_act: K={K} must be a multiple of {16 // a.element_size()} for {a.dtype}"
+    if _unaligned(a, w):
+        return "linear_act: operands must be 16-byte aligned"
+    return None
+
+
 def linear_act(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None,
                act: str = "relu") -> torch.Tensor:
     """``act(a @ w.T + bias)`` with f32 accumulation; ``a`` is ``(..., K)``,
     ``w`` is ``(N, K)``; the result is ``(..., N)`` in ``a.dtype``."""
     name = "linear_act"
-    if act not in ACTIVATIONS:
-        raise ValueError(f"linear_act: unknown activation {act!r}; known: "
-                         f"{sorted(ACTIVATIONS)}")
-    _check(name, a, w, bias, dtype=_float_dtype(name, a))
-    if w.ndim != 2 or a.shape[-1] != w.shape[1]:
-        raise ValueError(f"linear_act: a {tuple(a.shape)} and w {tuple(w.shape)} "
-                         f"do not share K")
+    _refuse(_linear_act_refusal(a, w, bias, act))
+    _require_cuda(name, a)
     N, K = w.shape
-    if bias is not None and tuple(bias.shape) != (N,):
-        raise ValueError(f"linear_act: bias {tuple(bias.shape)} for {N} outputs")
-    # both paths copy rows in 16-byte chunks along K
-    if K % (16 // a.element_size()):
-        raise ValueError(f"linear_act: K={K} must be a multiple of {16 // a.element_size()} "
-                         f"for {a.dtype}")
-    if a.data_ptr() % 16 or w.data_ptr() % 16:
-        raise ValueError("linear_act: operands must be 16-byte aligned")
     M = a.numel() // max(K, 1)
     path = linear_act_path(a.dtype, M)
     out = torch.empty(a.shape[:-1] + (N,), dtype=a.dtype, device=a.device)
@@ -336,6 +387,33 @@ def linear_act(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = Non
 _PAGED_MAX_ROW_VALUES = 8 * 256
 
 
+def _paged_refusal(q, k_pages, v_pages, block_tables, lengths) -> str | None:
+    name = "paged_decode_attention"
+    reason = (_floats_refusal(name, q, k_pages, v_pages)
+              or _tensors_refusal(name, block_tables, lengths, dtype=torch.int32))
+    if reason:
+        return reason
+    if block_tables.device != q.device:
+        return f"{name}: block tables on {block_tables.device}, q on {q.device}"
+    if q.ndim != 4 or k_pages.ndim != 4 or v_pages.shape != k_pages.shape:
+        return (f"paged_decode_attention: q {tuple(q.shape)} must be (B, H, 1, hd) and pools "
+                f"(KV, P, ps, hd), got {tuple(k_pages.shape)} / {tuple(v_pages.shape)}")
+    B, H, T, hd = q.shape
+    KV, P, ps, hd2 = k_pages.shape
+    if T != 1:
+        return f"paged_decode_attention kernel is decode-only (T == 1); got T={T}"
+    if hd2 != hd or H % KV:
+        return (f"paged_decode_attention: head_dim {hd} vs pools {hd2}, {H} heads over {KV} "
+                f"kv heads")
+    if block_tables.ndim != 2 or block_tables.shape[0] != B or tuple(lengths.shape) != (B,):
+        return (f"paged_decode_attention: block_tables {tuple(block_tables.shape)} / lengths "
+                f"{tuple(lengths.shape)} do not match batch {B}")
+    if (H // KV) * hd > _PAGED_MAX_ROW_VALUES:
+        return (f"paged_decode_attention: {H // KV} grouped rows of {hd} exceed the kernel's "
+                f"{_PAGED_MAX_ROW_VALUES} accumulators")
+    return None
+
+
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
                            block_tables: torch.Tensor, lengths: torch.Tensor,
                            scale: float | None = None) -> torch.Tensor:
@@ -345,29 +423,10 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
     tables are trusted: every entry must be a valid page index (the
     allocator keeps unused entries at the reserved page 0)."""
     name = "paged_decode_attention"
-    _check(name, q, k_pages, v_pages, dtype=_float_dtype(name, q))
-    _check(name, block_tables, lengths, dtype=torch.int32)
-    if block_tables.device != q.device:
-        raise ValueError(f"{name}: block tables on {block_tables.device}, q on {q.device}")
-    if q.ndim != 4 or k_pages.ndim != 4 or v_pages.shape != k_pages.shape:
-        raise ValueError(f"paged_decode_attention: q {tuple(q.shape)} must be "
-                         f"(B, H, 1, hd) and pools (KV, P, ps, hd), got "
-                         f"{tuple(k_pages.shape)} / {tuple(v_pages.shape)}")
-    B, H, T, hd = q.shape
-    KV, P, ps, hd2 = k_pages.shape
-    if T != 1:
-        raise ValueError(f"paged_decode_attention kernel is decode-only (T == 1); "
-                         f"got T={T}")
-    if hd2 != hd or H % KV:
-        raise ValueError(f"paged_decode_attention: head_dim {hd} vs pools {hd2}, "
-                         f"{H} heads over {KV} kv heads")
-    if block_tables.ndim != 2 or block_tables.shape[0] != B or tuple(lengths.shape) != (B,):
-        raise ValueError(f"paged_decode_attention: block_tables "
-                         f"{tuple(block_tables.shape)} / lengths {tuple(lengths.shape)} "
-                         f"do not match batch {B}")
-    if (H // KV) * hd > _PAGED_MAX_ROW_VALUES:
-        raise ValueError(f"paged_decode_attention: {H // KV} grouped rows of {hd} "
-                         f"exceed the kernel's {_PAGED_MAX_ROW_VALUES} accumulators")
+    _refuse(_paged_refusal(q, k_pages, v_pages, block_tables, lengths))
+    _require_cuda(name, q)
+    B, H, _, hd = q.shape
+    KV, P, ps, _ = k_pages.shape
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(hd)
     out = torch.empty_like(q)
     _launch(name, q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
@@ -377,20 +436,30 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
     return out
 
 
-def _attn_dims(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
-    """(batch*heads, T, S, hd) of q (..., T, hd) against k, v (..., S, hd)."""
+def _attn_refusal(name: str, q, k, v, *others) -> str | None:
+    """Why q (..., T, hd) and k, v (..., S, hd) (and ``others`` of q's
+    dtype) are not what the attention kernels take."""
+    reason = _floats_refusal(name, q, k, v, *others)
+    if reason:
+        return reason
     if q.ndim < 3 or k.shape != v.shape or q.shape[:-2] != k.shape[:-2] \
             or q.shape[-1] != k.shape[-1]:
-        raise ValueError(f"{name}: q {tuple(q.shape)} and k/v {tuple(k.shape)} / "
-                         f"{tuple(v.shape)} must be (..., T, hd) and (..., S, hd) with the "
-                         f"same leading dims")
-    T, hd = q.shape[-2], q.shape[-1]
+        return (f"{name}: q {tuple(q.shape)} and k/v {tuple(k.shape)} / {tuple(v.shape)} must be "
+                f"(..., T, hd) and (..., S, hd) with the same leading dims")
+    hd = q.shape[-1]
     if hd % 16 or not 16 <= hd <= 128:
-        raise ValueError(f"{name}: head dim {hd} must be a multiple of 16 up to 128")
-    for t in (q, k, v):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: operands must be 16-byte aligned")
-    return q.numel() // (T * hd), T, k.shape[-2], hd
+        return f"{name}: head dim {hd} must be a multiple of 16 up to 128"
+    if _unaligned(q, k, v, *others):
+        return f"{name}: operands must be 16-byte aligned"
+    if k.shape[-2] == 0:
+        return f"{name}: no keys (S = 0)"
+    return None
+
+
+def _attn_dims(q: torch.Tensor, k: torch.Tensor):
+    """(batch*heads, T, S, hd) of q (..., T, hd) against k (..., S, hd)."""
+    T, hd = q.shape[-2], q.shape[-1]
+    return q.numel() // max(T * hd, 1), T, k.shape[-2], hd
 
 
 def sdpa_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, is_causal: bool = False,
@@ -398,10 +467,9 @@ def sdpa_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, is_causal: bool 
     """Flash-attention forward: ``(out, lse)``; ``out`` in ``q.dtype``, ``lse``
     (..., T) float32. Causal masking is top-left aligned (row >= col)."""
     name = "sdpa_fwd"
-    _check(name, q, k, v, dtype=_float_dtype(name, q))
-    BH, T, S, hd = _attn_dims(name, q, k, v)
-    if S == 0:
-        raise ValueError(f"{name}: no keys (S = 0)")
+    _refuse(_attn_refusal(name, q, k, v))
+    _require_cuda(name, q)
+    BH, T, S, hd = _attn_dims(q, k)
     design = sdpa_fwd_design(q.dtype, hd)
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(hd)
     out = torch.empty_like(q)
@@ -412,6 +480,20 @@ def sdpa_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, is_causal: bool 
     return out, lse
 
 
+def _sdpa_bwd_refusal(g, q, k, v, out, lse) -> str | None:
+    name = "sdpa_bwd"
+    reason = (_attn_refusal(name, q, k, v, g, out)
+              or _tensors_refusal(name, lse, dtype=torch.float32))
+    if reason:
+        return reason
+    if g.shape != q.shape or out.shape != q.shape or lse.shape != q.shape[:-1]:
+        return (f"{name}: g {tuple(g.shape)}, out {tuple(out.shape)} and lse "
+                f"{tuple(lse.shape)} do not match q {tuple(q.shape)}")
+    if lse.device != q.device:
+        return f"{name}: lse on {lse.device}, q on {q.device}"
+    return None
+
+
 def sdpa_bwd(g: torch.Tensor, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              out: torch.Tensor, lse: torch.Tensor, is_causal: bool = False,
              scale: float | None = None):
@@ -419,15 +501,9 @@ def sdpa_bwd(g: torch.Tensor, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``g`` and the forward's ``(out, lse)``. One call launches three CUDA
     kernels (delta, dK/dV, dQ) and counts as one launch."""
     name = "sdpa_bwd"
-    _check(name, g, q, k, v, out, dtype=_float_dtype(name, q))
-    _check(name, lse, dtype=torch.float32)
-    BH, T, S, hd = _attn_dims(name, q, k, v)
-    if g.shape != q.shape or out.shape != q.shape or lse.shape != q.shape[:-1]:
-        raise ValueError(f"{name}: g {tuple(g.shape)}, out {tuple(out.shape)} and lse "
-                         f"{tuple(lse.shape)} do not match q {tuple(q.shape)}")
-    if lse.device != q.device or g.data_ptr() % 16 or out.data_ptr() % 16:
-        raise ValueError(f"{name}: lse on {lse.device}, q on {q.device}; g and out must be "
-                         f"16-byte aligned")
+    _refuse(_sdpa_bwd_refusal(g, q, k, v, out, lse))
+    _require_cuda(name, q)
+    BH, T, S, hd = _attn_dims(q, k)
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(hd)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty_like(lse)
@@ -438,17 +514,26 @@ def sdpa_bwd(g: torch.Tensor, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk, dv
 
 
+def _ce_refusal(logits, target) -> str | None:
+    name = "ce_fwd"
+    reason = (_floats_refusal(name, logits)
+              or _tensors_refusal(name, target, dtype=torch.int64))
+    if reason:
+        return reason
+    if logits.ndim != 2 or tuple(target.shape) != (logits.shape[0],):
+        return (f"{name}: logits {tuple(logits.shape)} must be (N, V) and target "
+                f"{tuple(target.shape)} (N,)")
+    if target.device != logits.device:
+        return f"{name}: target on {target.device}, logits on {logits.device}"
+    return None
+
+
 def ce_fwd(logits: torch.Tensor, target: torch.Tensor, ignore_index: int = -100):
     """Per-row ``(nll, lse)`` float32 of ``logits`` (N, V) against ``target``
     (N,) int64; rows whose target is ``ignore_index`` get nll 0."""
     name = "ce_fwd"
-    _check(name, logits, dtype=_float_dtype(name, logits))
-    _check(name, target, dtype=torch.int64)
-    if logits.ndim != 2 or tuple(target.shape) != (logits.shape[0],):
-        raise ValueError(f"{name}: logits {tuple(logits.shape)} must be (N, V) and target "
-                         f"{tuple(target.shape)} (N,)")
-    if target.device != logits.device:
-        raise ValueError(f"{name}: target on {target.device}, logits on {logits.device}")
+    _refuse(_ce_refusal(logits, target))
+    _require_cuda(name, logits)
     N, V = logits.shape
     nll = torch.empty(N, dtype=torch.float32, device=logits.device)
     lse = torch.empty(N, dtype=torch.float32, device=logits.device)
@@ -460,6 +545,64 @@ def ce_fwd(logits: torch.Tensor, target: torch.Tensor, ignore_index: int = -100)
 
 ADAMW_CHUNK = 4096   # elements per block: CHUNK in csrc/fused_adamw.cu
 
+# the slab layout of the reference (thunder_tpu/ops/optim.py:32-33): the
+# last dim of every slab and its rows' padding block
+SLAB_LANE = 128
+SLAB_ROW_BLOCK = 512
+
+
+def slab_geometry(total_elems: int) -> tuple[int, int]:
+    """``(rows_padded, row_block)`` of the ``(rows, 128)`` slab holding
+    ``total_elems`` flattened elements (zero-padded tail)."""
+    rows = max(-(-total_elems // SLAB_LANE), 1)
+    bn = min(SLAB_ROW_BLOCK, -(-rows // 8) * 8)
+    rows_pad = -(-rows // bn) * bn
+    return rows_pad, bn
+
+
+def _adamw_group_refusal(name, params, grads, bc, *groups) -> str | None:
+    """Why params and grads (one float dtype), each further group (one float
+    dtype of its own) and ``bc`` (float32, shape (2,)) are not contiguous
+    tensors on one device that the kernel takes."""
+    reason = _floats_refusal(name, params[0], *params, *grads)
+    for group in groups:
+        reason = reason or _floats_refusal(name, group[0], *group)
+    reason = reason or _tensors_refusal(name, bc, dtype=torch.float32)
+    if reason:
+        return reason
+    dev = params[0].device
+    if any(g[0].device != dev for g in groups) or bc.device != dev or tuple(bc.shape) != (2,):
+        return f"{name}: every tensor on {dev}, bc of shape (2,)"
+    return None
+
+
+def _adamw_refusal(params, grads, ms, vs, bc) -> str | None:
+    name = "fused_adamw"
+    if not params or not len(params) == len(grads) == len(ms) == len(vs):
+        return (f"{name}: bucket lengths {len(params)}, {len(grads)}, {len(ms)}, {len(vs)} must "
+                f"be equal and non-zero")
+    reason = _adamw_group_refusal(name, params, grads, bc, ms, vs)
+    if reason:
+        return reason
+    for quad in zip(params, grads, ms, vs):
+        if any(t.shape != quad[0].shape for t in quad):
+            return f"{name}: p/g/m/v shapes {[tuple(t.shape) for t in quad]} differ"
+        if _unaligned(*quad):
+            return f"{name}: tensors must be 16-byte aligned"
+    return None
+
+
+def _adamw_launch(name, rows, n_chunks, dev, bc, p_dtype, m_dtype, v_dtype, lr, beta1, beta2,
+                  eps, weight_decay) -> None:
+    """Copy the table of ``rows`` (p, g, m, v pointers, length, first
+    chunk) to the card (non-blocking, from pinned memory) and launch."""
+    host = torch.tensor(rows or [(0,) * 6], dtype=torch.int64).pin_memory()
+    table = host.to(dev, non_blocking=True)
+    _launch(name, table.data_ptr(), len(rows), n_chunks, bc.data_ptr(), float(lr),
+            float(beta1), float(beta2), float(1.0 - beta1), float(1.0 - beta2), float(eps),
+            float(weight_decay), _DTYPE_CODES[p_dtype], _DTYPE_CODES[m_dtype],
+            _DTYPE_CODES[v_dtype], dev.index, torch.cuda.current_stream(dev).cuda_stream)
+
 
 def fused_adamw(params, grads, ms, vs, bc: torch.Tensor, *, lr: float, beta1: float,
                 beta2: float, eps: float, weight_decay: float) -> None:
@@ -469,65 +612,105 @@ def fused_adamw(params, grads, ms, vs, bc: torch.Tensor, *, lr: float, beta1: fl
     float32 or bfloat16.
 
     The kernel reads a device table of the tensors' pointers, sizes and
-    first chunks, built on the host and copied to the card (non-blocking,
-    from pinned memory) on every call."""
+    first chunks, built on the host and copied to the card on every call."""
     name = "fused_adamw"
     params, grads, ms, vs = list(params), list(grads), list(ms), list(vs)
-    if not params or not len(params) == len(grads) == len(ms) == len(vs):
-        raise ValueError(f"{name}: bucket lengths {len(params)}, {len(grads)}, {len(ms)}, "
-                         f"{len(vs)} must be equal and non-zero")
-    _check(name, *params, *grads, dtype=_float_dtype(name, params[0]))
-    _check(name, *ms, dtype=_float_dtype(name, ms[0]))
-    _check(name, *vs, dtype=_float_dtype(name, vs[0]))
-    _check(name, bc, dtype=torch.float32)
-    dev = params[0].device
-    if any(t.device != dev for t in (ms[0], vs[0], bc)) or tuple(bc.shape) != (2,):
-        raise ValueError(f"{name}: every tensor on {dev}, bc of shape (2,)")
-    for quad in zip(params, grads, ms, vs):
-        if any(t.shape != quad[0].shape for t in quad):
-            raise ValueError(f"{name}: p/g/m/v shapes {[tuple(t.shape) for t in quad]} differ")
-        if any(t.data_ptr() % 16 for t in quad):
-            raise ValueError(f"{name}: tensors must be 16-byte aligned")
+    _refuse(_adamw_refusal(params, grads, ms, vs, bc))
+    _require_cuda(name, params[0])
     rows, n_chunks = [], 0
     for p, g, m, v in zip(params, grads, ms, vs):
         if p.numel():
             rows.append((p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(), p.numel(),
                          n_chunks))
             n_chunks += -(-p.numel() // ADAMW_CHUNK)
-    host = torch.tensor(rows or [(0,) * 6], dtype=torch.int64).pin_memory()
-    table = host.to(dev, non_blocking=True)
-    _launch(name, table.data_ptr(), len(rows), n_chunks, bc.data_ptr(), float(lr),
-            float(beta1), float(beta2), float(1.0 - beta1), float(1.0 - beta2), float(eps),
-            float(weight_decay), _DTYPE_CODES[params[0].dtype], _DTYPE_CODES[ms[0].dtype],
-            _DTYPE_CODES[vs[0].dtype], dev.index, _stream(params[0]))
+    _adamw_launch(name, rows, n_chunks, params[0].device, bc, params[0].dtype, ms[0].dtype,
+                  vs[0].dtype, lr, beta1, beta2, eps, weight_decay)
+
+
+def _adamw_slab_refusal(params, grads, m_slab, v_slab, bc, sizes) -> str | None:
+    """The port of ``_fused_adamw_slab_checker`` (pallasex.py:2009)."""
+    name = "fused_adamw_slab"
+    if not params or not len(params) == len(grads) == len(sizes):
+        return (f"{name}: bucket lengths {len(params)}, {len(grads)}, {len(sizes)} sizes must "
+                f"be equal and non-zero")
+    reason = _adamw_group_refusal(name, params, grads, bc, [m_slab], [v_slab])
+    if reason:
+        return reason
+    for p, g, n in zip(params, grads, sizes):
+        if g.shape != p.shape or p.numel() != n:
+            return (f"{name}: p {tuple(p.shape)}, g {tuple(g.shape)} and size {n} do not "
+                    f"describe one tensor")
+    rows_pad, _ = slab_geometry(sum(sizes))
+    if tuple(m_slab.shape) != (rows_pad, SLAB_LANE) or v_slab.shape != m_slab.shape:
+        return (f"{name}: slabs {tuple(m_slab.shape)} / {tuple(v_slab.shape)} do not match the "
+                f"bucket geometry ({rows_pad}, {SLAB_LANE}) for {sum(sizes)} elements")
+    return None
+
+
+def fused_adamw_slab(params, grads, m_slab: torch.Tensor, v_slab: torch.Tensor,
+                     bc: torch.Tensor, *, sizes, lr: float, beta1: float, beta2: float,
+                     eps: float, weight_decay: float) -> None:
+    """AdamW over one bucket whose moments live in persistent ``(rows, 128)``
+    slabs, in ONE launch, in place on ``params`` and the slabs. Parameter
+    ``i`` owns elements ``[sum(sizes[:i]), sum(sizes[:i+1]))`` of each
+    flattened slab; the zero pad tail past ``sum(sizes)`` is never touched.
+
+    The same kernel body as :func:`fused_adamw`, whose table rows point into
+    the slabs at each parameter's element offset (64-bit), so p and g are
+    never packed and m and v never unpacked. A row whose m/v run is not
+    aligned for vector loads takes scalar loads."""
+    name = "fused_adamw_slab"
+    params, grads, sizes = list(params), list(grads), [int(s) for s in sizes]
+    _refuse(_adamw_slab_refusal(params, grads, m_slab, v_slab, bc, sizes))
+    _require_cuda(name, params[0])
+    m0, v0 = m_slab.data_ptr(), v_slab.data_ptr()
+    ms, vs = m_slab.element_size(), v_slab.element_size()
+    rows, n_chunks, off = [], 0, 0
+    for p, g, n in zip(params, grads, sizes):
+        if n:
+            rows.append((p.data_ptr(), g.data_ptr(), m0 + off * ms, v0 + off * vs, n, n_chunks))
+            n_chunks += -(-n // ADAMW_CHUNK)
+        off += n
+    _adamw_launch(name, rows, n_chunks, params[0].device, bc, params[0].dtype, m_slab.dtype,
+                  v_slab.dtype, lr, beta1, beta2, eps, weight_decay)
 
 
 MLP_DH_ROWS = 64   # rows per block of the backward's dh pass: DH_ROWS in csrc/mlp_subblock_bwd.cu
 
 
-def _subblock_dims(name: str, residual, x, w_norm, w_gate, w_up, w_down, act: str):
-    """(N, D, F) of the MLP sub-block's operands; raises on what the kernels
-    do not take."""
+def _subblock_refusal(name: str, residual, x, w_norm, w_gate, w_up, w_down, act: str,
+                      *others) -> str | None:
+    """Why the MLP sub-block's operands (and ``others`` of x's shape and
+    dtype) are not what the kernels take."""
     if act not in ACTIVATIONS:
-        raise ValueError(f"{name}: unknown activation {act!r}; known: {sorted(ACTIVATIONS)}")
-    _check(name, residual, x, w_norm, w_gate, w_up, w_down, dtype=_float_dtype(name, x))
+        return f"{name}: unknown activation {act!r}; known: {sorted(ACTIVATIONS)}"
+    if x.ndim == 0:
+        return f"{name}: a scalar has no rows"
+    reason = _floats_refusal(name, x, residual, w_norm, w_gate, w_up, w_down, *others)
+    if reason:
+        return reason
     D = x.shape[-1]
     F = w_gate.shape[0] if w_gate.ndim == 2 else -1
     if (residual.shape != x.shape or tuple(w_norm.shape) != (D,)
             or tuple(w_gate.shape) != (F, D) or tuple(w_up.shape) != (F, D)
-            or tuple(w_down.shape) != (D, F)):
-        raise ValueError(f"{name}: residual {tuple(residual.shape)}, x {tuple(x.shape)}, w_norm "
-                         f"{tuple(w_norm.shape)}, w_gate {tuple(w_gate.shape)}, w_up "
-                         f"{tuple(w_up.shape)}, w_down {tuple(w_down.shape)}: want (..., D), "
-                         f"(..., D), (D,), (F, D), (F, D), (D, F)")
+            or tuple(w_down.shape) != (D, F) or any(t.shape != x.shape for t in others)):
+        return (f"{name}: residual {tuple(residual.shape)}, x {tuple(x.shape)}, w_norm "
+                f"{tuple(w_norm.shape)}, w_gate {tuple(w_gate.shape)}, w_up "
+                f"{tuple(w_up.shape)}, w_down {tuple(w_down.shape)}: want (..., D), "
+                f"(..., D), (D,), (F, D), (F, D), (D, F)")
     N = x.numel() // max(D, 1)
     # the tile loads move 16-byte chunks along D and F
     if N == 0 or D % 8 or F % 8:
-        raise ValueError(f"{name}: {N} rows, D={D}, F={F}: rows must be non-zero and D, F "
-                         f"multiples of 8")
-    if any(t.data_ptr() % 16 for t in (residual, x, w_norm, w_gate, w_up, w_down)):
-        raise ValueError(f"{name}: operands must be 16-byte aligned")
-    return N, D, F
+        return (f"{name}: {N} rows, D={D}, F={F}: rows must be non-zero and D, F multiples "
+                f"of 8")
+    if _unaligned(residual, x, w_norm, w_gate, w_up, w_down, *others):
+        return f"{name}: operands must be 16-byte aligned"
+    return None
+
+
+def _subblock_dims(x, w_gate):
+    D = x.shape[-1]
+    return x.numel() // max(D, 1), D, w_gate.shape[0]
 
 
 def mlp_subblock(residual: torch.Tensor, x: torch.Tensor, w_norm: torch.Tensor,
@@ -539,7 +722,9 @@ def mlp_subblock(residual: torch.Tensor, x: torch.Tensor, w_norm: torch.Tensor,
     layout. One call launches three CUDA kernels (rows, gate/up, down) and
     counts as one launch; h, n and the SwiGLU product are scratch."""
     name = "mlp_subblock"
-    N, D, F = _subblock_dims(name, residual, x, w_norm, w_gate, w_up, w_down, act)
+    _refuse(_subblock_refusal(name, residual, x, w_norm, w_gate, w_up, w_down, act))
+    _require_cuda(name, x)
+    N, D, F = _subblock_dims(x, w_gate)
     h, n = torch.empty_like(x), torch.empty_like(x)
     y = torch.empty((N, F), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
@@ -558,11 +743,9 @@ def mlp_subblock_bwd(g: torch.Tensor, residual: torch.Tensor, x: torch.Tensor,
     of both ``residual`` and ``x``. One call launches six CUDA kernels and
     counts as one launch; the recomputed interiors are scratch."""
     name = "mlp_subblock_bwd"
-    N, D, F = _subblock_dims(name, residual, x, w_norm, w_gate, w_up, w_down, act)
-    _check(name, g, x, dtype=x.dtype)
-    if g.shape != x.shape or g.data_ptr() % 16:
-        raise ValueError(f"{name}: g {tuple(g.shape)} must match x {tuple(x.shape)} and be "
-                         f"16-byte aligned")
+    _refuse(_subblock_refusal(name, residual, x, w_norm, w_gate, w_up, w_down, act, g))
+    _require_cuda(name, x)
+    N, D, F = _subblock_dims(x, w_gate)
     dev, dt = x.device, x.dtype
     dh = torch.empty_like(x)
     dwn, dwg, dwu, dwd = (torch.empty_like(w) for w in (w_norm, w_gate, w_up, w_down))
@@ -591,63 +774,66 @@ def _align16(n: int) -> int:
     return (n + 15) // 16 * 16
 
 
-def _decode_dims(name, h, w_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages, block_tables,
-                 lengths, write_pos):
-    """(S, D, H, KV, hd, P, ps, npg) of the decode kernel's operands; raises
-    where ``_attn_subblock_checker`` (pallasex.py:1761) refuses and where the
+def _decode_refusal(name, h, w_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages, block_tables,
+                    lengths, write_pos) -> str | None:
+    """Why the decode kernel does not take these operands: where
+    ``_attn_subblock_checker`` (pallasex.py:1761) refuses, and where the
     kernel does not take the shapes."""
-    dt = _float_dtype(name, h)
+    if h.dtype not in _DTYPE_CODES:
+        return f"{name}: dtype {h.dtype} not supported (float32 or bfloat16)"
+    dt = h.dtype
     if h.ndim != 3 or h.shape[1] != 1:
-        raise ValueError(f"{name}: h {tuple(h.shape)} must be (S, 1, D): one row per slot, "
-                         f"decode only")
+        return f"{name}: h {tuple(h.shape)} must be (S, 1, D): one row per slot, decode only"
     if k_pages.ndim != 4 or v_pages.shape != k_pages.shape:
-        raise ValueError(f"{name}: pools {tuple(k_pages.shape)} / {tuple(v_pages.shape)} must "
-                         f"be one (KV, P, ps, hd) shape")
+        return (f"{name}: pools {tuple(k_pages.shape)} / {tuple(v_pages.shape)} must be one "
+                f"(KV, P, ps, hd) shape")
     S, D = h.shape[0], h.shape[2]
     KV, P, ps, hd = k_pages.shape
     if hd % 16 or not 16 <= hd <= 128:
-        raise ValueError(f"{name}: head dim {hd} must be a multiple of 16 up to 128")
+        return f"{name}: head dim {hd} must be a multiple of 16 up to 128"
     if wq.ndim != 2 or wq.shape[1] != D or wq.shape[0] % hd:
-        raise ValueError(f"{name}: wq {tuple(wq.shape)} must be (H * {hd}, {D})")
+        return f"{name}: wq {tuple(wq.shape)} must be (H * {hd}, {D})"
     H = wq.shape[0] // hd
     if H % KV:
-        raise ValueError(f"{name}: {H} heads over {KV} kv heads")
+        return f"{name}: {H} heads over {KV} kv heads"
     want = {"w_norm": (D,), "wk": (KV * hd, D), "wv": (KV * hd, D), "wo": (D, H * hd),
             "cos": (S, 1, 1, hd // 2), "sin": (S, 1, 1, hd // 2)}
     for arg, t in zip(want, (w_norm, wk, wv, wo, cos, sin)):
         if tuple(t.shape) != want[arg]:
-            raise ValueError(f"{name}: {arg} {tuple(t.shape)} where {want[arg]} is required")
+            return f"{name}: {arg} {tuple(t.shape)} where {want[arg]} is required"
     if D % 8:
-        raise ValueError(f"{name}: D={D} must be a multiple of 8")
+        return f"{name}: D={D} must be a multiple of 8"
     floats = (h, w_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages)
     if any(t.dtype != dt for t in floats):
-        raise ValueError(f"{name}: dtypes {[str(t.dtype) for t in floats]} must all be {dt}")
+        return f"{name}: dtypes {[str(t.dtype) for t in floats]} must all be {dt}"
     if (block_tables.ndim != 2 or block_tables.shape[0] != S or tuple(lengths.shape) != (S,)
             or tuple(write_pos.shape) != (S,)):
-        raise ValueError(f"{name}: block_tables {tuple(block_tables.shape)}, lengths "
-                         f"{tuple(lengths.shape)}, write_pos {tuple(write_pos.shape)} for {S} "
-                         f"slots")
-    _check(name, *floats, dtype=dt)
-    _check(name, block_tables, lengths, dtype=torch.int32)
+        return (f"{name}: block_tables {tuple(block_tables.shape)}, lengths "
+                f"{tuple(lengths.shape)}, write_pos {tuple(write_pos.shape)} for {S} slots")
+    reason = (_tensors_refusal(name, *floats, dtype=dt)
+              or _tensors_refusal(name, block_tables, lengths, dtype=torch.int32))
+    if reason:
+        return reason
     if write_pos.dtype not in (torch.int32, torch.int64):
-        raise ValueError(f"{name}: write_pos dtype {write_pos.dtype} is not an integer type")
+        return f"{name}: write_pos dtype {write_pos.dtype} is not an integer type"
     if any(t.device != h.device for t in (block_tables, lengths, write_pos)):
-        raise ValueError(f"{name}: block tables, lengths and write_pos must be on {h.device}")
-    if any(t.data_ptr() % 16 for t in (h, w_norm, wq, wk, wv, wo, k_pages, v_pages)):
-        raise ValueError(f"{name}: operands must be 16-byte aligned")
+        return f"{name}: block tables, lengths and write_pos must be on {h.device}"
+    if _unaligned(h, w_norm, wq, wk, wv, wo, k_pages, v_pages):
+        return f"{name}: operands must be 16-byte aligned"
     G, keys = H // KV, max(1, DECODE_KEYS // ps) * ps
     attn = _align16(G * hd * 4) + _align16(G * keys * 4) + 2 * _align16(keys * 8)
     if max(DECODE_ACT_BYTES, attn) + _align16(S * 4) > _SMEM_MAX:
-        raise ValueError(f"{name}: {G} grouped heads of {hd} over {keys}-key chunks need more "
-                         f"shared memory than a block has")
-    return S, D, H, KV, hd, P, ps, block_tables.shape[1]
+        return (f"{name}: {G} grouped heads of {hd} over {keys}-key chunks need more shared "
+                f"memory than a block has")
+    return None
 
 
 def _decode_call(name, h, w_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages, block_tables,
                  lengths, write_pos, mlp, act, eps, scale):
-    S, D, H, KV, hd, P, ps, npg = _decode_dims(name, h, w_norm, wq, wk, wv, wo, cos, sin,
-                                               k_pages, v_pages, block_tables, lengths,
-                                               write_pos)
+    _require_cuda(name, h)
+    S, D = h.shape[0], h.shape[2]
+    KV, P, ps, hd = k_pages.shape
+    H, npg = wq.shape[0] // hd, block_tables.shape[1]
     dev, dt = h.device, h.dtype
     chunk_pages = max(1, DECODE_KEYS // ps)
     nch = -(-npg // chunk_pages)
@@ -683,8 +869,36 @@ def attn_subblock(h, w_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages, block_t
     read, position ``lengths - 1`` taken from the fresh rows; ``write_pos``
     is checked, and the caller stores the rows there. q, the attention
     chunks' partials and the merged heads are scratch."""
-    return _decode_call("attn_subblock", h, w_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages,
-                        block_tables, lengths, write_pos, None, "silu", eps, scale)
+    args = (h, w_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages, block_tables, lengths,
+            write_pos)
+    _refuse(_decode_refusal("attn_subblock", *args))
+    return _decode_call("attn_subblock", *args, None, "silu", eps, scale)
+
+
+def _decode_layer_refusal(h, attn_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages,
+                          block_tables, lengths, write_pos, mlp_norm, w_gate, w_up, w_down,
+                          act) -> str | None:
+    name = "decode_layer"
+    if act not in ACTIVATIONS:
+        return f"{name}: unknown activation {act!r}; known: {sorted(ACTIVATIONS)}"
+    D = h.shape[-1]
+    F = w_gate.shape[0] if w_gate.ndim == 2 else -1
+    if (tuple(mlp_norm.shape) != (D,) or tuple(w_gate.shape) != (F, D)
+            or tuple(w_up.shape) != (F, D) or tuple(w_down.shape) != (D, F)):
+        return (f"{name}: mlp_norm {tuple(mlp_norm.shape)}, w_gate {tuple(w_gate.shape)}, w_up "
+                f"{tuple(w_up.shape)}, w_down {tuple(w_down.shape)}: want (D,), (F, D), (F, D), "
+                f"(D, F)")
+    if F % 8:
+        return f"{name}: F={F} must be a multiple of 8"
+    if any(t.dtype != h.dtype for t in (mlp_norm, w_gate, w_up, w_down)):
+        return f"{name}: the MLP weights' dtype must be h's, {h.dtype}"
+    reason = _floats_refusal(name, h, mlp_norm, w_gate, w_up, w_down)
+    if reason:
+        return reason
+    if _unaligned(mlp_norm, w_gate, w_up, w_down):
+        return f"{name}: operands must be 16-byte aligned"
+    return _decode_refusal(name, h, attn_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages,
+                           block_tables, lengths, write_pos)
 
 
 def decode_layer(h, attn_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages, block_tables,
@@ -696,23 +910,50 @@ def decode_layer(h, attn_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages, block
     ``w_down`` (D, F). Raises where ``_decode_layer_checker``
     (pallasex.py:1817) refuses, where the kernel does not take the shapes,
     and where the card refuses the launch."""
-    name = "decode_layer"
-    if act not in ACTIVATIONS:
-        raise ValueError(f"{name}: unknown activation {act!r}; known: {sorted(ACTIVATIONS)}")
-    D = h.shape[-1]
-    F = w_gate.shape[0] if w_gate.ndim == 2 else -1
-    if (tuple(mlp_norm.shape) != (D,) or tuple(w_gate.shape) != (F, D)
-            or tuple(w_up.shape) != (F, D) or tuple(w_down.shape) != (D, F)):
-        raise ValueError(f"{name}: mlp_norm {tuple(mlp_norm.shape)}, w_gate "
-                         f"{tuple(w_gate.shape)}, w_up {tuple(w_up.shape)}, w_down "
-                         f"{tuple(w_down.shape)}: want (D,), (F, D), (F, D), (D, F)")
-    if F % 8:
-        raise ValueError(f"{name}: F={F} must be a multiple of 8")
-    if any(t.dtype != h.dtype for t in (mlp_norm, w_gate, w_up, w_down)):
-        raise ValueError(f"{name}: the MLP weights' dtype must be h's, {h.dtype}")
-    _check(name, h, mlp_norm, w_gate, w_up, w_down, dtype=_float_dtype(name, h))
-    if any(t.data_ptr() % 16 for t in (mlp_norm, w_gate, w_up, w_down)):
-        raise ValueError(f"{name}: operands must be 16-byte aligned")
-    return _decode_call(name, h, attn_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages,
-                        block_tables, lengths, write_pos, (mlp_norm, w_gate, w_up, w_down), act,
-                        eps, scale)
+    _refuse(_decode_layer_refusal(h, attn_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages,
+                                  block_tables, lengths, write_pos, mlp_norm, w_gate, w_up,
+                                  w_down, act))
+    return _decode_call("decode_layer", h, attn_norm, wq, wk, wv, wo, cos, sin, k_pages,
+                        v_pages, block_tables, lengths, write_pos,
+                        (mlp_norm, w_gate, w_up, w_down), act, eps, scale)
+
+
+# each kernel's refusal, called with its wrapper's arguments
+_REFUSALS = {
+    "rms_norm": lambda x, weight=None, eps=1e-5: _rms_refusal("rms_norm", x, weight),
+    "rms_norm_residual": lambda residual, x, weight=None, eps=1e-5:
+        _rms_residual_refusal(residual, x, weight),
+    "linear_act": lambda a, w, bias=None, act="relu": _linear_act_refusal(a, w, bias, act),
+    "paged_decode_attention": lambda q, k_pages, v_pages, block_tables, lengths, scale=None:
+        _paged_refusal(q, k_pages, v_pages, block_tables, lengths),
+    "sdpa_fwd": lambda q, k, v, is_causal=False, scale=None: _attn_refusal("sdpa_fwd", q, k, v),
+    "sdpa_bwd": lambda g, q, k, v, out, lse, is_causal=False, scale=None:
+        _sdpa_bwd_refusal(g, q, k, v, out, lse),
+    "ce_fwd": lambda logits, target, ignore_index=-100: _ce_refusal(logits, target),
+    "fused_adamw": lambda params, grads, ms, vs, bc, **hyper:
+        _adamw_refusal(list(params), list(grads), list(ms), list(vs), bc),
+    "fused_adamw_slab": lambda params, grads, m_slab, v_slab, bc, *, sizes, **hyper:
+        _adamw_slab_refusal(list(params), list(grads), m_slab, v_slab, bc,
+                            [int(n) for n in sizes]),
+    "mlp_subblock": lambda residual, x, w_norm, w_gate, w_up, w_down, act="silu", eps=1e-5:
+        _subblock_refusal("mlp_subblock", residual, x, w_norm, w_gate, w_up, w_down, act),
+    "mlp_subblock_bwd": lambda g, residual, x, w_norm, w_gate, w_up, w_down, act="silu",
+        eps=1e-5: _subblock_refusal("mlp_subblock_bwd", residual, x, w_norm, w_gate, w_up,
+                                    w_down, act, g),
+    "attn_subblock": lambda h, w_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages, block_tables,
+        lengths, write_pos, eps=1e-5, scale=None: _decode_refusal(
+            "attn_subblock", h, w_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages, block_tables,
+            lengths, write_pos),
+    "decode_layer": lambda h, attn_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages,
+        block_tables, lengths, write_pos, mlp_norm, w_gate, w_up, w_down, act="silu", eps=1e-5,
+        scale=None: _decode_layer_refusal(
+            h, attn_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages, block_tables, lengths,
+            write_pos, mlp_norm, w_gate, w_up, w_down, act),
+}
+
+
+def refusal(name: str, *args, **kwargs) -> str | None:
+    """Why kernel ``name`` does not take its wrapper's arguments ``args``
+    and ``kwargs`` (None where it does): the reason the wrapper raises. The
+    device is not judged: a wrapper also raises on CPU tensors."""
+    return _REFUSALS[name](*args, **kwargs)

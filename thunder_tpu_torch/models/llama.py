@@ -7,7 +7,9 @@ The counterpart of ``thunder_tpu/models/llama.py``: the same configs
 numbers differ from the JAX package's for the same seed), the rope tables,
 the attention/MLP projections, and ``forward_hidden``/``forward``/``loss_fn``
 for training at the reference's per-op rung or, with ``block_fusion=True``,
-its planned rung. :func:`params_from_jax` carries a JAX ``init_params`` tree
+its planned rung, or with ``remat=True`` one checkpointed region per layer;
+``fused_loss_fn`` is the chunked-vocab loss of the reference's headline
+train bench. :func:`params_from_jax` carries a JAX ``init_params`` tree
 across as numpy, so both packages can run the same weights.
 """
 
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from thunder_tpu_torch.core.rematerialization import checkpoint, recomputing
 from thunder_tpu_torch.ops import nn as tnn
 
 
@@ -54,6 +57,11 @@ CONFIGS = {
     "llama2-7b": LlamaConfig(name="llama2-7b", vocab_size=32000, dim=4096, n_layers=32,
                              n_heads=32, intermediate_size=11008, max_seq_len=4096,
                              dtype=torch.bfloat16),
+    # the reference's headline train bench (bench.py): llama2-7b's layer
+    # geometry with seq capped at 2048
+    "llama2-7b-bench": LlamaConfig(name="llama2-7b-bench", vocab_size=32000, dim=4096,
+                                   n_layers=32, n_heads=32, intermediate_size=11008,
+                                   max_seq_len=2048, dtype=torch.bfloat16),
     "llama3-8b": LlamaConfig(name="llama3-8b", vocab_size=128256, dim=4096, n_layers=32,
                              n_heads=32, n_kv_heads=8, intermediate_size=14336,
                              max_seq_len=8192, rope_theta=500000.0, dtype=torch.bfloat16),
@@ -225,21 +233,48 @@ def _planned_block(h: torch.Tensor, layer: dict, cfg: LlamaConfig, cos, sin) -> 
                             eps=cfg.norm_eps)
 
 
+def _remat_block(h: torch.Tensor, layer: dict, cfg: LlamaConfig, cos, sin) -> torch.Tensor:
+    """One decoder layer as a checkpointed region, with the kernel calls of
+    the reference's checkpointed ``_block`` (llama.py:173): the forward runs
+    ``rms_norm`` for attention, the residual add and ``rms_norm`` for the
+    MLP; the backward's recompute of the same region takes the add into
+    ``rms_norm_residual``, as the reference's epilogue pass fuses it in the
+    recomputed trace only. The two compute the same values. The residual
+    adds cannot fold into the next layer's norm across the region's edge.
+    Returns the new ``h``."""
+    x = tnn.rms_norm(h, layer["attn_norm"], eps=cfg.norm_eps)
+    attn = _attention_out(x, layer, cfg, cos, sin)
+    if recomputing():
+        h, x = tnn.rms_norm_residual(h, attn, layer["mlp_norm"], eps=cfg.norm_eps)
+    else:
+        h = h + attn
+        x = tnn.rms_norm(h, layer["mlp_norm"], eps=cfg.norm_eps)
+    return h + _mlp_train(x, layer)
+
+
 def forward_hidden(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, *,
-                   block_fusion: bool = False) -> torch.Tensor:
+                   block_fusion: bool = False, remat: bool = False) -> torch.Tensor:
     """tokens (B, T) integer -> final normed hidden states (B, T, D).
 
     ``block_fusion=False`` is the reference's per-op rung (residual adds
     folded into ``rms_norm_residual``); ``True`` its planned rung, which the
     reference's cost model picks at llama3-8b-bench's train shape: one
     ``mlp_subblock`` per layer and a plain ``rms_norm`` for every other
-    norm."""
+    norm. ``remat=True`` makes every layer one checkpointed region
+    (:func:`_remat_block`): the backward recomputes it from its input. The
+    reference plans no sub-block inside a checkpointed region, so
+    ``block_fusion`` has no effect there."""
     T = tokens.shape[1]
     h = F.embedding(tokens.long(), params["tok_embedding"])
     layers = params["layers"]
     if not layers:
         return tnn.rms_norm(h, params["norm_f"], eps=cfg.norm_eps)
     cos, sin = _rope_cos_sin(cfg, T, h.dtype, device=h.device)
+    if remat:
+        block = checkpoint(lambda x, layer: _remat_block(x, layer, cfg, cos, sin))
+        for layer in layers:
+            h = block(h, layer)
+        return tnn.rms_norm(h, params["norm_f"], eps=cfg.norm_eps)
     if block_fusion:
         for layer in layers:
             h = _planned_block(h, layer, cfg, cos, sin)
@@ -252,19 +287,34 @@ def forward_hidden(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, *,
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, *,
-            block_fusion: bool = False) -> torch.Tensor:
+            block_fusion: bool = False, remat: bool = False) -> torch.Tensor:
     """tokens (B, T) -> logits (B, T, vocab)."""
-    return F.linear(forward_hidden(params, tokens, cfg, block_fusion=block_fusion),
+    return F.linear(forward_hidden(params, tokens, cfg, block_fusion=block_fusion, remat=remat),
                     params["lm_head"])
 
 
 def loss_fn(params: dict, tokens: torch.Tensor, targets: torch.Tensor,
-            cfg: LlamaConfig, *, block_fusion: bool = False) -> torch.Tensor:
+            cfg: LlamaConfig, *, block_fusion: bool = False, remat: bool = False) -> torch.Tensor:
     """Mean next-token cross-entropy; the logits are materialised and taken
     to float32, as the reference's unfused loss does."""
-    logits = forward(params, tokens, cfg, block_fusion=block_fusion)
+    logits = forward(params, tokens, cfg, block_fusion=block_fusion, remat=remat)
     B, T, V = logits.shape
     return tnn.cross_entropy(logits.reshape(B * T, V).float(), targets.reshape(B * T))
+
+
+def fused_loss_fn(params: dict, tokens: torch.Tensor, targets: torch.Tensor,
+                  cfg: LlamaConfig, chunk: int | None = 8192, remat: bool = False,
+                  block_fusion: bool = False) -> torch.Tensor:
+    """Chunked-vocab loss (llama.py:240): the lm_head projection fused into
+    the cross-entropy (``ops.nn.fused_linear_cross_entropy``), so the
+    ``(B*T, vocab)`` logits are never materialised. ``chunk`` is the
+    reference's default, 8192 vocab columns (None takes the op's own
+    default)."""
+    h = forward_hidden(params, tokens, cfg, block_fusion=block_fusion, remat=remat)
+    B, T, D = h.shape
+    loss, _ = tnn.fused_linear_cross_entropy(h.reshape(B * T, D), params["lm_head"],
+                                             targets.reshape(B * T), chunk=chunk)
+    return loss
 
 
 def num_params(cfg: LlamaConfig, n_layers: int | None = None) -> int:

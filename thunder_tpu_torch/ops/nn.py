@@ -7,8 +7,9 @@ The counterparts of ``thunder_tpu/ops/nn.py`` ``rms_norm`` (:61),
 (:320), ``sdpa_bwd`` (:336), ``paged_decode_attention`` (:367),
 ``decode_row_write`` (:447), ``attn_subblock`` (:469) and ``decode_layer``
 (:530). Each public function sends a CUDA tensor to
-its hand-written kernel (:mod:`thunder_tpu_torch.executors.cudaex`) and a
-CPU tensor to its plain version; any other device raises.
+its hand-written kernel (:mod:`thunder_tpu_torch.executors.cudaex`), which
+raises on what the kernel does not take (``cudaex.refusal`` gives the
+reason), and runs its plain version on the CPU; any other device raises.
 ``paged_decode_attention`` with T > 1 (chunked prefill) is outside the
 decode kernel's contract and always takes the plain gather/mask/softmax
 decomposition, as the JAX package's checker leaves it to XLA.
@@ -28,6 +29,10 @@ it. ``rms_norm`` and ``rms_norm_residual`` take their kernel forward and
 reference has no backward kernel for them either. ``mlp_subblock`` is the
 counterpart of ``_mlp_subblock_vjp`` (:696): it saves its six inputs and its
 backward is the ``mlp_subblock_bwd`` kernel.
+
+``fused_linear_cross_entropy`` (:1049, with its VJP :1111) has no kernel in
+the reference either: it is an autograd Function over vocab chunks whose
+products keep the model dtype's operands and sum into float32 logits.
 
 Serving decode (no autograd): ``decode_layer`` and ``attn_subblock`` run the
 whole T == 1 layer, or its attention half, as one kernel launch and then
@@ -307,6 +312,10 @@ class _RmsNorm(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, a, weight, eps):
+        # the same tuple, in the same order, as _RmsNormResidual saves: a
+        # checkpointed layer (models/llama._remat_block) runs this in its
+        # forward and _RmsNormResidual in its recompute, and the backward
+        # of this node reads what the recompute saved, by position
         ctx.save_for_backward(a, weight)
         ctx.eps = eps
         return _rms_norm(a, weight, eps)
@@ -325,6 +334,7 @@ class _RmsNormResidual(torch.autograd.Function):
     @staticmethod
     def forward(ctx, residual, a, weight, eps):
         h, out = _rms_norm_residual(residual, a, weight, eps)
+        # (normed input, weight), as _RmsNorm saves: see there
         ctx.save_for_backward(h, weight)
         ctx.eps = eps
         return h, out
@@ -473,6 +483,127 @@ def cross_entropy(logits: torch.Tensor, target: torch.Tensor,
         raise ValueError(f"cross_entropy: logits {tuple(logits.shape)} must be (N, C) and "
                          f"target {tuple(target.shape)} (N,)")
     return _CrossEntropy.apply(logits.contiguous(), target, ignore_index)
+
+
+# ---------------------------------------------------------------------------
+# the chunked-vocab loss: lm_head fused into the cross-entropy
+# ---------------------------------------------------------------------------
+
+def _default_ce_chunk(V: int) -> int:
+    """The reference's vocab chunk (ops/nn.py:1040): 16384 columns up to a
+    65536 vocab, 8192 above. Forward and backward must agree, since the
+    backward recomputes each chunk against the forward's lse."""
+    return 16384 if V <= 65536 else 8192
+
+
+def _mm_out_dtype_available(a: torch.Tensor) -> bool:
+    return (a.device.type == "cuda" and a.dtype in _HALF
+            and "dtype" in torch.ops.aten.mm.overloads())
+
+
+def flce_logits_route(h: torch.Tensor) -> str:
+    """How :func:`fused_linear_cross_entropy` forms float32 products from
+    ``h``'s dtype on ``h``'s device: ``"mm.out_dtype"`` (one bf16 GEMM with
+    float32 accumulation and output, CUDA), ``"f32 upcast"`` (the operands
+    taken to float32: a bf16 x bf16 product is exact in float32, so only the
+    summation order differs), or ``"f32"`` for float32 operands."""
+    if h.dtype == torch.float32:
+        return "f32"
+    return "mm.out_dtype" if _mm_out_dtype_available(h) else "f32 upcast"
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as float32 from operands in the model dtype, never rounded
+    to it: the reference's ``dot_general(preferred_element_type=float32)``."""
+    if a.dtype == b.dtype == torch.float32:
+        return torch.mm(a, b)
+    if a.dtype == b.dtype and _mm_out_dtype_available(a):
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.mm(a.float(), b.float())
+
+
+class _FusedLinearCrossEntropy(torch.autograd.Function):
+    """``(mean nll, lse)`` of ``h @ w.T`` one vocab chunk at a time; the
+    ``(N, V)`` logits never exist. The counterpart of the reference's op and
+    its VJP (ops/nn.py:1049, :1111), op for op."""
+
+    @staticmethod
+    def forward(ctx, h, w, target, chunk, ignore_index):
+        N, V = h.shape[0], w.shape[0]
+        tgt = target.long()
+        m = torch.full((N,), float("-inf"), dtype=torch.float32, device=h.device)
+        s = torch.zeros(N, dtype=torch.float32, device=h.device)
+        picked = torch.zeros(N, dtype=torch.float32, device=h.device)
+        for c0 in range(0, V, chunk):
+            cw = min(chunk, V - c0)
+            lg = _mm_f32(h, w[c0:c0 + cw].t())
+            m_new = torch.maximum(m, lg.amax(-1))
+            alpha = torch.exp(m - m_new)
+            s = s * alpha + torch.exp(lg - m_new.unsqueeze(1)).sum(-1)
+            m = m_new
+            idx = tgt - c0
+            valid = (idx >= 0) & (idx < cw)
+            pc = lg.gather(1, idx.clamp(0, cw - 1).unsqueeze(1)).squeeze(1)
+            picked = picked + torch.where(valid, pc, torch.zeros_like(pc))
+            del lg
+        lse = m + torch.log(s)
+        ok = tgt != ignore_index
+        nll = torch.where(ok, lse - picked, torch.zeros_like(lse))
+        count = torch.clamp(ok.float().sum(), min=1.0)
+        ctx.save_for_backward(h, w, target, lse)
+        ctx.chunk, ctx.ignore_index = chunk, ignore_index
+        return nll.sum() / count, lse
+
+    @staticmethod
+    def backward(ctx, gl, glse):
+        h, w, target, lse = ctx.saved_tensors
+        N, D = h.shape
+        V, chunk = w.shape[0], ctx.chunk
+        tgt = target.long()
+        okf = (tgt != ctx.ignore_index).float()
+        count = torch.clamp(okf.sum(), min=1.0)
+        # the nll term's row scale d(mean nll)/d(logit row); ignored rows 0.
+        # The lse output's gradient adds to the softmax coefficient only: the
+        # one-hot term belongs to the nll alone
+        srow = okf * (gl.float() / count) if gl is not None else torch.zeros_like(okf)
+        coef = srow if glse is None else srow + glse.float()
+        hf = h.float()
+        dh = torch.zeros((N, D), dtype=torch.float32, device=h.device)
+        dw = torch.empty((V, D), dtype=torch.float32, device=h.device)
+        for c0 in range(0, V, chunk):
+            cw = min(chunk, V - c0)
+            wc = w[c0:c0 + cw]
+            p = torch.exp(_mm_f32(h, wc.t()) - lse.unsqueeze(1))
+            # d(logits) rounded to the model dtype before both products
+            psc = (p * coef.unsqueeze(1)).to(w.dtype)
+            del p
+            dh += _mm_f32(psc, wc)
+            dw_c = _mm_f32(psc.t(), h)
+            idx = tgt - c0
+            valid = (idx >= 0) & (idx < cw)
+            safe = idx.clamp(0, cw - 1)
+            vrow = srow * valid.float()
+            dh -= wc[safe].float() * vrow.unsqueeze(1)
+            dw_c.index_add_(0, safe, hf * (-vrow).unsqueeze(1))
+            dw[c0:c0 + cw] = dw_c
+            del psc, dw_c
+        return dh.to(h.dtype), dw.to(w.dtype), None, None, None
+
+
+def fused_linear_cross_entropy(h: torch.Tensor, w: torch.Tensor, target: torch.Tensor, *,
+                               chunk: int | None = None, ignore_index: int = -100):
+    """Mean softmax cross-entropy of ``h @ w.T`` over the rows whose target
+    is not ``ignore_index``, and each row's lse, computed one vocab chunk at
+    a time (the ``(N, V)`` logits are never materialised; the backward
+    recomputes each chunk). ``h`` (N, D), ``w`` (V, D), ``target`` (N,)
+    integer. Products take the operands in the model dtype and sum into
+    float32 logits (:func:`flce_logits_route`). Differentiable in ``h`` and
+    ``w``; returns ``(loss, lse)``."""
+    if h.ndim != 2 or w.ndim != 2 or h.shape[1] != w.shape[1] or target.shape != h.shape[:1]:
+        raise ValueError(f"fused_linear_cross_entropy: h {tuple(h.shape)}, w {tuple(w.shape)}, "
+                         f"target {tuple(target.shape)}: want (N, D), (V, D), (N,)")
+    chunk = chunk if chunk is not None else _default_ce_chunk(w.shape[0])
+    return _FusedLinearCrossEntropy.apply(h, w, target, chunk, ignore_index)
 
 
 def mlp_subblock_bwd(g, residual, x, w_norm, w_gate, w_up, w_down, act: str = "silu",
