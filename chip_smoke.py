@@ -33,6 +33,16 @@ decode and the prefill shape (the kernel on a weight with its last 16 rows,
 or its last 64 K columns, zeroed, against the plain version of the intact
 weight).
 
+Phase 3 also runs ROADMAP C.1's inputs on the card (float16, a strided
+input, a mixed weight dtype, head dims 8 and 192 through the attention
+autograd function, ``linear_act`` at K = 518 on both paths,
+``attn_subblock`` at tiny-tp's head dim 8): each launches its kernel and
+matches the plain version. ``mlp_subblock``, ``mlp_subblock_bwd`` and
+``linear_act``'s prefill tile run on ``gemm.cuh``'s TMA + ``wgmma``
+mainloop in bf16: their rows name the design, and phases 5, 9, 11 and 13
+require every bf16 launch of the three to have taken it (``stream`` for
+``linear_act``'s decode rows).
+
 Phase 3 also holds the train path's kernels against their plain versions at
 its full-width shapes (the norms on (8, 2048, 4096) bf16 activations,
 attention (8, 32, 2048, 128) bf16 causal and not, cross-entropy
@@ -364,6 +374,101 @@ def norm_rows(torch, cudaex, tnn, gen, shape):
     return rows
 
 
+# the kernels on gemm.cuh's mainloops: every bf16 launch takes the TMA + wgmma
+# design (linear_act's decode rows take its weight stream)
+GEMM_KERNELS = ("mlp_subblock", "mlp_subblock_bwd", "linear_act")
+
+
+def require_wgmma(what: str, designs: dict) -> None:
+    for name in GEMM_KERNELS:
+        off = {d: n for d, n in designs.get(name, {}).items() if d not in ("wgmma", "stream")}
+        require(not off, f"{what}: {name} launched {off} off the wgmma mainloop")
+
+
+def check_c1_inputs(torch, cudaex, tnn) -> dict:
+    """ROADMAP C.1's inputs, which the reference computes through its
+    decomposition, on the card: each routed call launches its kernel and
+    matches the plain version on the same inputs (float16 and the mixed
+    weight dtype within the norms' NORM_RTOL, the strided float32 input
+    1e-5, attention forward and gradients and the decode sub-block row by
+    row at GRAD_REL_TOL, linear_act GEMM_TOL). {case: {kernel, launches,
+    err}}."""
+    from thunder_tpu_torch.testing import row_rel_err
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(9)
+
+    def rnd(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    x16, w16 = rnd(8, D, dtype=torch.float16), rnd(D, dtype=torch.float16)
+    xs, wf, xb = rnd(D, 8).t(), rnd(D), rnd(8, D, dtype=torch.bfloat16)
+    a518, w518 = rnd(8, 518, dtype=torch.bfloat16), rnd(64, 518, dtype=torch.bfloat16)
+    a518t = rnd(M_PREFILL, 518, dtype=torch.bfloat16)
+    # tiny-tp's decode shape: D 64, 8 heads of 8 over 8 kv heads, F 192
+    dec, _ = decode_inputs(torch, tnn, dev, (len(LENGTHS), 64, 8, 8, 8, PS, 192))
+
+    def attn(hd):   # forward and backward through the autograd function, and plain
+        q, k, v, g = (rnd(2, 8, 256, hd, dtype=torch.bfloat16) for _ in range(4))
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = tnn.scaled_dot_product_attention(*leaves, is_causal=True)
+        out.backward(g)
+        # the plain backward from the (out, lse) the forward kernel saved
+        o, lse = tnn.sdpa_fwd(q, k, v, True)
+        return ([out.detach()] + [t.grad for t in leaves],
+                [tnn.sdpa_fwd_plain(q, k, v, True)[0], *tnn.sdpa_bwd_plain(g, q, k, v, o, lse,
+                                                                         True)])
+
+    def pair(fn, plain, *args):
+        return lambda: ([fn(*args)], [plain(*args)])
+
+    cases = {
+        "float16": ("rms_norm", pair(tnn.rms_norm, tnn.rms_norm_plain, x16, w16), "norm"),
+        "strided": ("rms_norm", pair(tnn.rms_norm, tnn.rms_norm_plain, xs, wf), 1e-5),
+        "mixed weight dtype": ("rms_norm", pair(tnn.rms_norm, tnn.rms_norm_plain, xb, wf),
+                               "norm"),
+        "hd 8": ("sdpa_bwd", lambda: attn(8), "rows"),
+        "hd 192": ("sdpa_bwd", lambda: attn(192), "rows"),
+        "K 518 bf16": ("linear_act", pair(tnn.linear_act, tnn.linear_act_plain, a518, w518,
+                                          None, "silu"), GEMM_TOL),
+        "K 518 bf16, tile path": ("linear_act", pair(tnn.linear_act, tnn.linear_act_plain,
+                                                     a518t, w518, None, "silu"), GEMM_TOL),
+        "attn_subblock hd 8": ("attn_subblock", lambda: (list(cudaex.attn_subblock(*dec)),
+                                                         list(tnn.attn_subblock_plain(*dec))),
+                               "rows"),
+    }
+    found = {}
+    for case, (kernel, run, tol) in cases.items():
+        cudaex.reset_launch_counts()
+        got, want = run()
+        torch.cuda.synchronize()
+        launches = cudaex.launch_counts()[kernel]
+        require(launches > 0, f"C.1 {case}: {kernel} never launched ({cudaex.launch_counts()})")
+        err = 0.0
+        for a, b in zip(got, want):
+            require(a.dtype == b.dtype and a.shape == b.shape,
+                    f"C.1 {case}: {a.dtype} {tuple(a.shape)} vs {b.dtype} {tuple(b.shape)}")
+            if tol == "rows":
+                e = row_rel_err(a, b)
+                ok = e <= GRAD_REL_TOL
+            else:
+                e = float((a.float() - b.float()).abs().max())
+                bound = NORM_RTOL if tol == "norm" else tol
+                ok = bool(torch.allclose(a.float(), b.float(), atol=bound, rtol=bound))
+            require(ok, f"C.1 {case}: {kernel} disagrees with its plain version ({e})")
+            err = max(err, e)
+        found[case] = {"kernel": kernel, "launches": launches, "err": err}
+    # the tile path's K pad: the same call at K = 518 (A and W padded to 520
+    # in the wrapper) and at K = 520 (no copy)
+    a520, w520 = rnd(M_PREFILL, 520, dtype=torch.bfloat16), rnd(64, 520, dtype=torch.bfloat16)
+    found["K 518 bf16, tile path"]["ms"] = time_ms(
+        torch, lambda: tnn.linear_act(a518t, w518, None, "silu"), 20)
+    found["K 518 bf16, tile path"]["ms_at_K_520"] = time_ms(
+        torch, lambda: tnn.linear_act(a520, w520, None, "silu"), 20)
+    log("  C.1 inputs on the card (kernel, launches, largest error): " + json.dumps(found))
+    return found
+
+
 def check_kernels(torch, cudaex, tnn):
     """The serving path's four kernels at its shapes: {name: [rows]}, the
     decode shape's row first."""
@@ -387,6 +492,8 @@ def check_kernels(torch, cudaex, tnn):
         # linear_act (the gate projection: silu), then the planted faults
         x, wg = randn(n, D), randn(F_DIM, D, scale=D ** -0.5)
         got, design = ran(cudaex, "linear_act", lambda: cudaex.linear_act(x, wg, None, "silu"))
+        require(design == ("stream" if n <= 16 else "wgmma"),
+                f"linear_act {n} rows: bf16 launch took {design}")
         want = tnn.linear_act_plain(x, wg, None, "silu")
         err = float((got.float() - want.float()).abs().max())
         require(gemm_close(torch, got, want),
@@ -745,7 +852,8 @@ def check_planned_kernels(torch, cudaex, tnn, tllama, Fm=F_DIM):
         rnd(Dm, Fm, scale=Fm ** -0.5)
     w = (r, x, wn, wg, wu, wd)
 
-    out = cudaex.mlp_subblock(*w)
+    out, fwd_design = ran(cudaex, "mlp_subblock", lambda: cudaex.mlp_subblock(*w))
+    require(fwd_design == "wgmma", f"mlp_subblock {tag}: bf16 launch took {fwd_design}")
     want = tnn.mlp_subblock_plain(*w)
     out_rel = row_rel_err(out, want)
     fwd_err = float((out.float() - want.float()).abs().max())
@@ -757,7 +865,8 @@ def check_planned_kernels(torch, cudaex, tnn, tllama, Fm=F_DIM):
     require(cut_rel > SUBBLOCK_TOL, f"the row check passes a dropped ff tile ({cut_rel})")
     del out, want, wd_cut
 
-    got = cudaex.mlp_subblock_bwd(g, *w)
+    got, bwd_design = ran(cudaex, "mlp_subblock_bwd", lambda: cudaex.mlp_subblock_bwd(g, *w))
+    require(bwd_design == "wgmma", f"mlp_subblock_bwd {tag}: bf16 launch took {bwd_design}")
     want = tnn.mlp_subblock_bwd_plain(g, *w)
     names = ("dh", "dw_norm", "dw_gate", "dw_up", "dw_down")
     rels = {n: row_rel_err(a, b) for n, a, b in zip(names, got, want)}
@@ -768,7 +877,7 @@ def check_planned_kernels(torch, cudaex, tnn, tllama, Fm=F_DIM):
     bad[-64:] = 0
     zero_rel = row_rel_err(bad, want[2])
     require(zero_rel > SUBBLOCK_TOL, f"the row check passes zeroed dw_gate rows ({zero_rel})")
-    log(f"  mlp sub-block {tag}: out {out_rel:.3e}, "
+    log(f"  mlp sub-block {tag} (design {fwd_design} / {bwd_design}): out {out_rel:.3e}, "
         + ", ".join(f"{n} {v:.3e}" for n, v in rels.items())
         + f" of their rows' largest values; planted faults: last {FAULT_FF_TILE} ff columns "
         f"dropped from out {cut_rel:.3e}, last 64 dw_gate rows zeroed {zero_rel:.3e}")
@@ -796,12 +905,12 @@ def check_planned_kernels(torch, cudaex, tnn, tllama, Fm=F_DIM):
     fwd = timed_row(torch, cudaex, "mlp_subblock", tag, fwd_err,
                     lambda: cudaex.mlp_subblock(*w), lambda: tnn.mlp_subblock_plain(*w), None,
                     3 * act_bytes + 3 * w_bytes + Dm * 2, 6.0 * nd_f, BF16_FLOPS, 5, 2)
-    fwd["per_op_chain_ms"] = time_ms(torch, chain_fwd, 5)
+    fwd["design"], fwd["per_op_chain_ms"] = fwd_design, time_ms(torch, chain_fwd, 5)
     bwd = timed_row(torch, cudaex, "mlp_subblock_bwd", tag, bwd_err,
                     lambda: cudaex.mlp_subblock_bwd(g, *w),
                     lambda: tnn.mlp_subblock_bwd_plain(g, *w), None,
                     4 * act_bytes + 6 * w_bytes + 2 * Dm * 2, 16.0 * nd_f, BF16_FLOPS, 3, 1)
-    bwd["per_op_chain_ms"] = time_ms(torch, chain_bwd, 3)
+    bwd["design"], bwd["per_op_chain_ms"] = bwd_design, time_ms(torch, chain_bwd, 3)
     log(f"    per-op chain: forward {fwd['per_op_chain_ms']:.3f} ms, backward "
         f"{bwd['per_op_chain_ms']:.3f} ms")
     del chain_out, leaves, h, n
@@ -1017,7 +1126,9 @@ def check_serving_planned_kernels(torch, cudaex, tnn, tllama):
     for n in (M_PREFILL, S_DECODE):
         r, x = rnd(1, n, D, scale=0.25), rnd(1, n, D, scale=0.25)
         w = (r, x, wn, wg, wu, wd)
-        got, want = cudaex.mlp_subblock(*w), tnn.mlp_subblock_plain(*w)
+        got, design = ran(cudaex, "mlp_subblock", lambda: cudaex.mlp_subblock(*w))
+        require(design == "wgmma", f"mlp_subblock {n} rows: bf16 launch took {design}")
+        want = tnn.mlp_subblock_plain(*w)
         err = row_rel_err(got, want)
         require(err <= SUBBLOCK_TOL, f"mlp_subblock {n} rows: out err {err} of its rows' largest "
                                      f"values")
@@ -1031,9 +1142,10 @@ def check_serving_planned_kernels(torch, cudaex, tnn, tllama):
                         lambda: cudaex.mlp_subblock(*w), lambda: tnn.mlp_subblock_plain(*w), None,
                         3 * n * D * 2 + 3 * F_DIM * D * 2 + D * 2, 6.0 * n * D * F_DIM,
                         BF16_FLOPS, 20, 3)
-        row["row_rel_err"] = err
+        row["row_rel_err"], row["design"] = err, design
         row["per_op_chain_ms"] = time_ms(torch, chain, 20)
-        log(f"    row check {err:.3e}; per-op chain {row['per_op_chain_ms']:.4f} ms")
+        log(f"    design {design}; row check {err:.3e}; per-op chain "
+            f"{row['per_op_chain_ms']:.4f} ms")
         rows.setdefault("mlp_subblock", []).append(row)
         del got, want
     gc.collect()
@@ -1436,6 +1548,7 @@ def main() -> int:
 
     log("kernels vs plain versions (bf16, full width):")
     rows = check_kernels(torch, cudaex, tnn)
+    c1 = check_c1_inputs(torch, cudaex, tnn)
     train_rows = check_train_kernels(torch, cudaex, tnn, toptim_ops, tllama)
     log("the headline train bench's kernels vs plain versions (full width):")
     slab_rows = check_slab_kernel(torch, cudaex, toptim_ops, toptim, tllama)
@@ -1459,6 +1572,7 @@ def main() -> int:
 
     fw = serve(False)
     log("full width: " + json.dumps(fw))
+    require_wgmma("phase 5", fw["designs"])
 
     tc = train_card_vs_cpu(np, torch, tllama, pretrain)
     log(f"train card vs CPU (tiny-gqa, float32): {json.dumps(tc)}")
@@ -1471,6 +1585,7 @@ def main() -> int:
     log(f"planned train card vs CPU (tiny-gqa, float32): {json.dumps(tcp)}")
     tp = train_full_width(torch, cudaex, pretrain, block_fusion=True)
     log_train("planned train full width", tp)
+    require_wgmma("phase 9", tp["designs"])
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1480,6 +1595,7 @@ def main() -> int:
     log(f"sub-block decode step card vs CPU (tiny-gqa, float32): {json.dumps(sb)}")
     fp = serve(True)
     log("planned full width: " + json.dumps(fp))
+    require_wgmma("phase 11", fp["designs"])
     log("serving, per-op vs planned rung: " + json.dumps({
         k: [fw[k], fp[k]] for k in ("decode_tok_per_s", "decode_step_ms_mean", "ttft_ms_mean",
                                     "peak_memory_gb", "wall_s")}))
@@ -1490,6 +1606,8 @@ def main() -> int:
     log_train("bench full width (remat, slab state)", ba)
     bb = bench_full_width(torch, cudaex, bench, remat=False, block_fusion=True)
     log_train("bench full width (slab state, planned)", bb)
+    for run in (ba, bb):
+        require_wgmma("phase 13", run["designs"])
     log("bench, remat vs planned: " + json.dumps({
         k: [ba[k], bb[k]] for k in ("step_ms", "tokens_per_s", "share_of_989_tflops",
                                     "peak_memory_gb", "optimizer_ms", "logits_route")}))
@@ -1525,6 +1643,7 @@ def main() -> int:
     other_rows = [dict(r, card=card) for rs in (*rows.values(), *train_rows.values(),
                                                 sp_rows["mlp_subblock"]) for r in rs[1:]]
     log("other-shape kernels: " + json.dumps(other_rows))
+    log("C.1 inputs: " + json.dumps(c1))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -498,42 +498,49 @@ def _case(name, args, kw=None):
 # each case: (kernel, port args, reference args, kwargs), the reference
 # checker's verdict in interpret mode and on a TPU, and the port's (the
 # kernel takes the arguments: ``cudaex.refusal`` is None).
-# Where the reference refuses, so does the port; the port refuses besides what
-# its CUDA kernels do not take (float16, a head dim that is not a multiple of
-# 16 or above 128, K not a multiple of 16 bytes), which the reference's TPU
-# verdicts refuse too where their own tiling does
+# The port's kernels take what the reference computes, through its Pallas
+# kernel or through its decomposition, wherever a kernel can repeat the
+# decomposition's rounding points: float16, a weight dtype unlike the
+# activation's in the norms, mixed dtypes that promote (linear_act, the
+# norms' residual add), the head dims 8 and 192, K = 518, p and g of two
+# dtypes. They refuse float64 (JAX without x64 makes none), an unknown
+# activation, shapes that are not the op's, and a mixed-dtype fused
+# sub-block (its decomposition rounds where no kernel here does)
 def _cases():
     x, w = _pair((8, 128)), _pair((128,))
     cases = [
         (_case("rms_norm", [x, w]), (True, True, True)),
-        (_case("rms_norm", [_pair((8, 128), "bf16"), _pair((128,))]), (False, False, False)),
-        (_case("rms_norm", [_pair((8, 128), "f16"), _pair((128,), "f16")]), (True, True, False)),
+        (_case("rms_norm", [_pair((8, 128), "bf16"), _pair((128,))]), (False, False, True)),
+        (_case("rms_norm", [_pair((8, 128), "f16"), _pair((128,), "f16")]), (True, True, True)),
+        # JAX without x64 makes the reference's arrays float32; the port refuses float64
+        (_case("rms_norm", [_pair((8, 128), "f64"), _pair((128,), "f64")]),
+         (True, True, False)),
         (_case("rms_norm_residual", [x, x, w]), (True, True, True)),
-        (_case("rms_norm_residual", [_pair((8, 128), "bf16"), x, w]), (False, False, False)),
+        (_case("rms_norm_residual", [_pair((8, 128), "bf16"), x, w]), (False, False, True)),
         (_case("linear_act", [_pair((8, 4096), "bf16"), _pair((256, 4096), "bf16")],
                {"act": "silu"}), (True, True, True)),
         (_case("linear_act", [_pair((8, 518), "bf16"), _pair((256, 518), "bf16")],
-               {"act": "silu"}), (True, False, False)),
+               {"act": "silu"}), (True, False, True)),
         (_case("linear_act", [_pair((8, 512), "bf16"), _pair((256, 512))], {"act": "silu"}),
-         (False, False, False)),
+         (False, False, True)),
         (_case("linear_act", [_pair((8, 512)), _pair((256, 512))], {"act": "tanh"}),
          (False, False, False)),
         (_case("sdpa_fwd", [_pair((1, 2, 128, 128), "bf16")] * 3), (True, True, True)),
-        (_case("sdpa_fwd", [_pair((1, 8, 128, 8), "bf16")] * 3), (True, False, False)),
-        (_case("sdpa_fwd", [_pair((1, 2, 128, 192), "bf16")] * 3), (True, False, False)),
+        (_case("sdpa_fwd", [_pair((1, 8, 128, 8), "bf16")] * 3), (True, False, True)),
+        (_case("sdpa_fwd", [_pair((1, 2, 128, 192), "bf16")] * 3), (True, False, True)),
         (_case("ce_fwd", [_pair((16, 256)), _pair((16,), "i64")]), (True, True, True)),
         (_case("ce_fwd", [_pair((16,)), _pair((16,), "i64")]), (False, False, False)),
         (_case("fused_adamw", list(_adamw_case()) + [_pair((2,))]), (True, True, True)),
-        # the kernel reads p and g as one dtype; the reference's takes them apart
+        # the grads' dtype is a type of the kernel's own, as the reference's
         (_case("fused_adamw", list(_adamw_case("f32", "bf16")) + [_pair((2,))]),
-         (True, True, False)),
+         (True, True, True)),
         (_case("fused_adamw", list(_adamw_case("f64", "f64")) + [_pair((2,))]),
          (False, False, False)),
         (_case("mlp_subblock", _mlp_case()), (True, True, True)),
         (_case("mlp_subblock", _mlp_case("f32")), (False, False, False)),
         (_case("attn_subblock", _decode_case()), (True, False, True)),
         (_case("attn_subblock", _decode_case(wq_dt="bf16")), (False, False, False)),
-        (_case("attn_subblock", _decode_case(hd=8)), (True, False, False)),
+        (_case("attn_subblock", _decode_case(hd=8)), (True, False, True)),
     ]
     for sizes, shape, ok in (([32, 3], (8, 128), True), ([32, 3], (16, 128), False)):
         ps, gs = [_pair((4, 8)), _pair((3,))], [_pair((4, 8)), _pair((3,))]
@@ -573,25 +580,28 @@ def test_refusals_follow_the_reference_checkers(monkeypatch):
 
 
 def test_refusals_name_what_the_kernels_do_not_take():
-    """The port-only bounds: float16, a strided input, a mixed weight dtype,
-    head dims 8 and 192, K = 518 in bf16, each refused with the reason the
-    wrapper raises."""
+    """ROADMAP C.1's inputs (float16, a strided input, a mixed weight dtype,
+    head dims 8 and 192, K = 518 in bf16, attn_subblock at head dim 8) are
+    taken: ``cudaex.refusal`` is None for each. What stays refused is named
+    with its reason, and the wrapper raises it: float64, which the reference
+    never makes, and a strided KV pool, which the kernels read in place."""
     x = torch.zeros(8, 128)
     assert cudaex.refusal("rms_norm", x, torch.ones(128)) is None
-    assert "not supported" in cudaex.refusal("rms_norm", x.half(), torch.ones(128).half())
-    assert "not contiguous" in cudaex.refusal("rms_norm", torch.zeros(128, 8).t(),
-                                              torch.ones(128))
-    assert "dtype torch.bfloat16 where torch.float32" in cudaex.refusal(
-        "rms_norm", x, torch.ones(128, dtype=torch.bfloat16))
+    assert cudaex.refusal("rms_norm", x.half(), torch.ones(128).half()) is None
+    assert cudaex.refusal("rms_norm", torch.zeros(128, 8).t(), torch.ones(128)) is None
+    assert cudaex.refusal("rms_norm", x.bfloat16(), torch.ones(128)) is None
     for hd in (8, 192):
-        q = torch.zeros(1, 2, 64, hd)
-        assert "head dim" in cudaex.refusal("sdpa_fwd", q, q, q)
+        q = torch.zeros(1, 2, 64, hd, dtype=torch.bfloat16)
+        assert cudaex.refusal("sdpa_fwd", q, q, q) is None
     a, w = torch.zeros(8, 518, dtype=torch.bfloat16), torch.zeros(64, 518, dtype=torch.bfloat16)
-    assert "K=518" in cudaex.refusal("linear_act", a, w, None, "silu")
-    with pytest.raises(ValueError, match="K=518"):
-        cudaex.linear_act(a, w, None, "silu")
+    assert cudaex.refusal("linear_act", a, w, None, "silu") is None
+    args = [pair[0] for pair in _decode_case(hd=8)]
+    assert cudaex.refusal("attn_subblock", *args) is None
+    assert "not supported" in cudaex.refusal("rms_norm", x.double(), None)
     with pytest.raises(ValueError, match="not supported"):
-        cudaex.rms_norm(x.half(), None, 1e-5)
+        cudaex.rms_norm(x.double(), None, 1e-5)
+    args[8] = args[8].transpose(2, 3).contiguous().transpose(2, 3)   # a strided k pool
+    assert "not contiguous" in cudaex.refusal("attn_subblock", *args)
 
 
 def test_routers_raise_where_the_kernel_refuses(monkeypatch):
@@ -606,13 +616,13 @@ def test_routers_raise_where_the_kernel_refuses(monkeypatch):
     monkeypatch.setattr(cudaex, "_launch", lambda name, *a, **kw: launched.append(name))
     monkeypatch.setattr(tnn, "rms_norm_plain", lambda *a: pytest.fail("plain version ran"))
     x = torch.randn(4, 32)
-    tnn.rms_norm(x, torch.ones(32))
-    assert launched == ["rms_norm"]
-    for bad in ((x.half(), torch.ones(32).half()), (torch.randn(32, 4).t(), torch.ones(32)),
-                (x.bfloat16(), torch.ones(32))):
-        with pytest.raises(ValueError, match="^rms_norm: "):
-            tnn.rms_norm(*bad)
-    assert launched == ["rms_norm"]
+    for ok in ((x, torch.ones(32)), (x.half(), torch.ones(32).half()),
+               (torch.randn(32, 4).t(), torch.ones(32)), (x.bfloat16(), torch.ones(32))):
+        tnn.rms_norm(*ok)
+    assert launched == ["rms_norm"] * 4
+    with pytest.raises(ValueError, match="^rms_norm: "):
+        tnn.rms_norm(x.double(), torch.ones(32).double())
+    assert launched == ["rms_norm"] * 4
 
 
 def test_remat_layer_gradients_match_the_unchecked_layer():

@@ -10,7 +10,17 @@ Tolerances: float32 1e-5 for the norms and paged attention and 1e-4 for
 ``linear_act`` (other summation orders); bf16 about one bf16 ulp for the
 norms (the kernel's f32 statistics round differently in the last f32 bits,
 which can move a bf16 rounding by one step) and 2e-2 for ``linear_act`` and
-paged attention (bf16 inputs, f32 sums in another order).
+paged attention (bf16 inputs, f32 sums in another order). float16 is held
+to bf16's bounds (its rounding step is 8x finer, so they hold with room).
+
+gemm.cuh's two mainloops (the TMA + wgmma one for bf16 and fp16, the
+cp.async + FMA one for float32) are held through the six kernels that run
+on them, at ragged M, N and K, so that each operand layout pair of the
+wgmma descriptors (A and B K-major; B MN-major; both MN-major) is covered,
+and each launch is checked to have taken the design ``cudaex.gemm_design``
+names. ROADMAP C.1's inputs (float16, a strided input, a mixed weight
+dtype, head dims 8 and 192, K = 518, attn_subblock at head dim 8) each
+launch a kernel and match the plain version; float64 still raises.
 
 ``sdpa_fwd`` and ``linear_act`` hold several designs, chosen by the wrapper
 from dtype and shape (``cudaex.sdpa_fwd_design``, ``cudaex.linear_act_path``):
@@ -93,7 +103,7 @@ def _bf16_tol(ref):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("rows", [8, 512])
 def test_cuda_norm_kernels_match_plain(cuda_device, dtype, rows):
     g = torch.Generator(device=cuda_device).manual_seed(0)
@@ -105,14 +115,15 @@ def test_cuda_norm_kernels_match_plain(cuda_device, dtype, rows):
                            tnn.rms_norm_residual_plain(r, x, w, EPS))):
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs()
-        tol = _bf16_tol(want) if dtype == torch.bfloat16 else 1e-5
+        tol = _bf16_tol(want) if dtype != torch.float32 else 1e-5
         assert bool((err <= tol).all()), float(err.max())
 
 
 # rows on both sides of the decode kernel's limits (8 and 16 activation rows)
 # and of the tile kernel's 128-row tiles; N ragged against 16- and 128-row
 # tiles; K ragged against 64-column slabs
-LINEAR_ROWS = [(torch.bfloat16, m) for m in (1, 8, 13, 16, 17, 512, 515)] + [(torch.float32, 33)]
+LINEAR_ROWS = ([(torch.bfloat16, m) for m in (1, 8, 13, 16, 17, 512, 515)]
+               + [(torch.float16, 8), (torch.float16, 515), (torch.float32, 33)])
 
 
 @pytest.mark.cuda
@@ -130,14 +141,14 @@ def test_cuda_linear_act_matches_plain(cuda_device, act, dtype, M, N, K, with_bi
     cudaex.reset_launch_counts()
     got = cudaex.linear_act(a, w, b, act)
     torch.cuda.synchronize()
-    assert cudaex.design_counts()["linear_act"] == {cudaex.linear_act_path(dtype, M): 1}
+    assert cudaex.design_counts()["linear_act"] == {cudaex.linear_act_design(dtype, M): 1}
     want = tnn.linear_act_plain(a, w, b, act)
-    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    tol = 2e-2 if dtype != torch.float32 else 1e-4
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_cuda_paged_decode_matches_plain(cuda_device, dtype):
     q, kp, vp, bt, ln = _paged_inputs(4, B=4, H=8, KV=2, hd=128, ps=16, P=12, npg=4,
                                       lengths=[1, 16, 17, 40])
@@ -146,7 +157,7 @@ def test_cuda_paged_decode_matches_plain(cuda_device, dtype):
     got = cudaex.paged_decode_attention(*args)
     torch.cuda.synchronize()
     want = tnn.paged_decode_attention_plain(*args)
-    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    tol = 2e-2 if dtype != torch.float32 else 1e-5
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
@@ -192,7 +203,10 @@ ATTN_SHAPES = [(64, 64, True), (100, 100, True), (64, 130, False), (130, 64, Tru
 @pytest.mark.parametrize("T,S,causal", ATTN_SHAPES,
                          ids=[f"T{t}-S{s}-{'causal' if c else 'full'}" for t, s, c in ATTN_SHAPES])
 @pytest.mark.parametrize("dtype,hd", [(torch.float32, 16), (torch.bfloat16, 16),
-                                      (torch.bfloat16, 64), (torch.bfloat16, 128)])
+                                      (torch.bfloat16, 64), (torch.bfloat16, 128),
+                                      (torch.float16, 64), (torch.float16, 128),
+                                      (torch.float16, 48), (torch.bfloat16, 192),
+                                      (torch.bfloat16, 256), (torch.float32, 192)])
 def test_cuda_sdpa_matches_plain(cuda_device, dtype, hd, T, S, causal):
     gen = torch.Generator(device=cuda_device).manual_seed(2)
 
@@ -218,7 +232,7 @@ def test_cuda_sdpa_matches_plain(cuda_device, dtype, hd, T, S, causal):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("V", [32000, 1001])
 def test_cuda_ce_fwd_matches_plain(cuda_device, dtype, V):
     gen = torch.Generator(device=cuda_device).manual_seed(3)
@@ -234,19 +248,22 @@ def test_cuda_ce_fwd_matches_plain(cuda_device, dtype, V):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("p_dtype,m_dtype", [(torch.float32, torch.float32),
-                                             (torch.bfloat16, torch.float32),
-                                             (torch.bfloat16, torch.bfloat16)])
-def test_cuda_fused_adamw_matches_plain(cuda_device, p_dtype, m_dtype):
+@pytest.mark.parametrize("p_dtype,m_dtype,g_dtype", [
+    (torch.float32, torch.float32, None), (torch.bfloat16, torch.float32, None),
+    (torch.bfloat16, torch.bfloat16, None), (torch.float16, torch.float32, None),
+    (torch.float32, torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32, torch.float32)])
+def test_cuda_fused_adamw_matches_plain(cuda_device, p_dtype, m_dtype, g_dtype):
     """Three steps with fixed gradients over a bucket of ragged sizes (a
     tensor's tail of fewer than 4 elements, several chunks): at each step
-    the kernel, from the same state, matches adamw_step_plain."""
+    the kernel, from the same state, matches adamw_step_plain; the grads in
+    the params' dtype or (g_dtype) in one of their own."""
     from thunder_tpu_torch.ops import optim as toptim_ops
 
     gen = torch.Generator(device=cuda_device).manual_seed(4)
     shapes = [(64, 64), (37,), (4097,), (3, 5000), (1,)]
     ps = [torch.randn(s, generator=gen, device=cuda_device).to(p_dtype) for s in shapes]
-    gs = [torch.randn(s, generator=gen, device=cuda_device).to(p_dtype) for s in shapes]
+    gs = [torch.randn(s, generator=gen, device=cuda_device).to(g_dtype or p_dtype)
+          for s in shapes]
     ms = [torch.zeros(s, device=cuda_device, dtype=m_dtype) for s in shapes]
     vs = [torch.zeros(s, device=cuda_device, dtype=torch.float32) for s in shapes]
     hyper = dict(lr=1e-2, beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.01)
@@ -371,6 +388,7 @@ def test_cuda_planned_train_step_matches_cpu(cuda_device):
 DECODE_SHAPES = {
     "tiny-gqa": (4, 64, 4, 2, 16, 8, 3, 176, [9, 6, 20, 1], 2),
     "8-slot-hd128": (8, 1024, 8, 2, 128, 16, 40, 2816, [1, 17, 100, 255, 256, 400, 639, 640], 3),
+    "tiny-tp-hd8": (4, 64, 8, 8, 8, 8, 3, 192, [9, 6, 20, 1], 2),
 }
 
 
@@ -404,7 +422,7 @@ def _decode_args(device, dtype, shape, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", list(DECODE_SHAPES))
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("layer", [True, False], ids=["decode_layer", "attn_subblock"])
 def test_cuda_decode_kernels_match_plain(cuda_device, layer, dtype, shape):
     args, mlp = _decode_args(cuda_device, dtype, shape, seed=7)
@@ -539,44 +557,142 @@ def test_cuda_fused_adamw_slab_past_2_31_elements(cuda_device):
         assert float(slab.view(-1)[offs[-1]:].float().abs().max()) == 0.0
 
 
-def _refused_cases(device):
-    """ROADMAP C.1's shapes: (op, routed call, the refusal's text)."""
+# gemm.cuh's mainloops through the six kernels on them: M (the sub-block's
+# rows, linear_act's rows) on both sides of the 128-row tile and the decode
+# path's 16, and 16900 (enough row tiles that the forward's down projection
+# takes its 256-wide tiles); D = 200 and F = 344 off the 64-deep slabs and
+# the 128- and 256-wide tiles, so every product has a ragged M, N and K.
+# Layout pairs: gate/up, down, recompute's gate and up and linear_act's tile
+# are K-major x K-major; dy and dn are K-major x MN-major; the weight
+# gradients MN-major x MN-major.
+GEMM_ROWS = [1, 8, 100, 512, 515, 16900]
+GEMM_KERNELS = ["mlp_subblock", "mlp_subblock_bwd", "linear_act"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", GEMM_ROWS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32],
+                         ids=["bf16", "fp16", "f32"])
+@pytest.mark.parametrize("kernel", GEMM_KERNELS)
+def test_cuda_gemm_mainloops_match_plain(cuda_device, kernel, dtype, M):
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    D, F = 200, 344
+    g, r, x, wn, wg, wu, wd = _subblock_inputs(gen, cuda_device, dtype, M, D, F)
+    cudaex.reset_launch_counts()
+    if kernel == "mlp_subblock":
+        got = [cudaex.mlp_subblock(r, x, wn, wg, wu, wd, "silu")]
+        want = [tnn.mlp_subblock_plain(r, x, wn, wg, wu, wd, "silu")]
+        design = cudaex.gemm_design(dtype)
+    elif kernel == "mlp_subblock_bwd":
+        got = cudaex.mlp_subblock_bwd(g, r, x, wn, wg, wu, wd, "silu")
+        want = tnn.mlp_subblock_bwd_plain(g, r, x, wn, wg, wu, wd, "silu")
+        design = cudaex.gemm_design(dtype)
+    else:
+        b = torch.randn(F, generator=gen, device=cuda_device).to(dtype)
+        got = [cudaex.linear_act(x, wg, b, "gelu")]
+        want = [tnn.linear_act_plain(x, wg, b, "gelu")]
+        design = cudaex.linear_act_design(dtype, M)
+    torch.cuda.synchronize()
+    assert cudaex.design_counts()[kernel] == {design: 1}
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for a, w in zip(got, want):
+        assert a.dtype == w.dtype and a.shape == w.shape
+        assert row_rel_err(a, w) <= tol, row_rel_err(a, w)
+
+
+def _c1_cases(device):
+    """ROADMAP C.1's inputs, which the reference computes through its
+    decomposition: (routed call on the card, the plain version on the same
+    inputs, the kernel the call must launch, the comparison's bound)."""
     gen = torch.Generator(device=device).manual_seed(9)
 
     def rnd(*shape, dtype=torch.float32):
         return torch.randn(*shape, generator=gen, device=device).to(dtype)
 
     x16, w16 = rnd(8, 256, dtype=torch.float16), rnd(256, dtype=torch.float16)
-    xs = rnd(256, 8).t()                                          # strided (8, 256)
-    xb, wf = rnd(8, 256, dtype=torch.bfloat16), rnd(256)          # mixed weight dtype
-    q8 = [rnd(2, 8, 64, 8, dtype=torch.bfloat16) for _ in range(3)]    # tiny-tp's head dim
-    q192 = [rnd(2, 2, 64, 192, dtype=torch.bfloat16) for _ in range(3)]
+    xs, wf = rnd(256, 8).t(), rnd(256)                            # strided (8, 256)
+    xb = rnd(8, 256, dtype=torch.bfloat16)                        # with wf: mixed weight dtype
+    q8 = [rnd(2, 8, 64, 8, dtype=torch.bfloat16) for _ in range(4)]     # tiny-tp's head dim
+    q192 = [rnd(2, 2, 64, 192, dtype=torch.bfloat16) for _ in range(4)]
     a518, w518 = rnd(8, 518, dtype=torch.bfloat16), rnd(64, 518, dtype=torch.bfloat16)
+    a518t = rnd(100, 518, dtype=torch.bfloat16)                   # the tile path, K padded
+    dec, _ = _decode_args(device, torch.bfloat16, "tiny-tp-hd8", seed=9)
 
-    def attn(q):   # the forward, through the autograd function
-        return tnn.scaled_dot_product_attention(*q, is_causal=True)
+    def attn(qkvg):   # forward and backward through the autograd function
+        q, k, v = (t.clone().requires_grad_(True) for t in qkvg[:3])
+        out = tnn.scaled_dot_product_attention(q, k, v, is_causal=True)
+        out.backward(qkvg[3])
+        return [out.detach(), q.grad, k.grad, v.grad]
 
-    return [
-        ("float16", lambda: tnn.rms_norm(x16, w16), "not supported"),
-        ("strided", lambda: tnn.rms_norm(xs, wf), "not contiguous"),
-        ("mixed weight dtype", lambda: tnn.rms_norm(xb, wf), "where torch.bfloat16"),
-        ("hd 8", lambda: attn(q8), "head dim 8"),
-        ("hd 192", lambda: attn(q192), "head dim 192"),
-        ("K 518 bf16", lambda: tnn.linear_act(a518, w518, None, "silu"), "K=518"),
-    ]
+    def attn_plain(qkvg):
+        # the backward from the (out, lse) the forward kernel saved, so that
+        # each kernel is held against its own plain version on its own inputs
+        q, k, v, g = qkvg
+        out, lse = tnn.sdpa_fwd(q, k, v, True)
+        return [tnn.sdpa_fwd_plain(q, k, v, True)[0],
+                *tnn.sdpa_bwd_plain(g, q, k, v, out, lse, True)]
+
+    return {
+        "float16": (lambda: [tnn.rms_norm(x16, w16)], lambda: [tnn.rms_norm_plain(x16, w16)],
+                    "rms_norm", "ulp"),
+        "strided": (lambda: [tnn.rms_norm(xs, wf)], lambda: [tnn.rms_norm_plain(xs, wf)],
+                    "rms_norm", 1e-5),
+        "mixed-weight-dtype": (lambda: [tnn.rms_norm(xb, wf)],
+                               lambda: [tnn.rms_norm_plain(xb, wf)], "rms_norm", "ulp"),
+        "hd8": (lambda: attn(q8), lambda: attn_plain(q8), "sdpa_bwd", 2e-2),
+        "hd192": (lambda: attn(q192), lambda: attn_plain(q192), "sdpa_bwd", 2e-2),
+        "K518-bf16": (lambda: [tnn.linear_act(a518, w518, None, "silu")],
+                      lambda: [tnn.linear_act_plain(a518, w518, None, "silu")], "linear_act",
+                      2e-2),
+        "K518-bf16-tile": (lambda: [tnn.linear_act(a518t, w518, None, "silu")],
+                           lambda: [tnn.linear_act_plain(a518t, w518, None, "silu")],
+                           "linear_act", 2e-2),
+        "attn_subblock-hd8": (lambda: list(cudaex.attn_subblock(*dec)),
+                              lambda: list(tnn.attn_subblock_plain(*dec)), "attn_subblock",
+                              2e-2),
+    }
+
+
+C1_CASES = ["float16", "strided", "mixed-weight-dtype", "hd8", "hd192", "K518-bf16",
+            "K518-bf16-tile", "attn_subblock-hd8"]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", range(6), ids=["float16", "strided", "mixed-weight-dtype",
-                                                "hd8", "hd192", "K518-bf16"])
-def test_cuda_refused_inputs_raise(cuda_device, case):
-    """A CUDA call whose inputs the kernel does not take raises the reason
-    ``cudaex.refusal`` gives, before any launch: no plain version runs on
-    the card."""
-    name, routed, reason = _refused_cases(cuda_device)[case]
+@pytest.mark.parametrize("case", C1_CASES)
+def test_cuda_c1_inputs_launch_and_match(cuda_device, case):
+    """Each of ROADMAP C.1's inputs launches its hand-written kernel on the
+    card and matches the plain version on the same inputs: the norms within
+    one rounding step of their output dtype where they round (``ulp``), 1e-5
+    in float32; attention (forward and gradients, through the autograd
+    function, head dims padded to 16's multiples) and linear_act row by row
+    at 2e-2 (bf16 inputs); the decode sub-block at 2e-2 row by row."""
+    routed, plain, kernel, tol = _c1_cases(cuda_device)[case]
     cudaex.reset_launch_counts()
-    with pytest.raises(ValueError, match=reason):
-        routed()
+    got = routed()
+    torch.cuda.synchronize()
+    assert cudaex.launch_counts()[kernel] > 0, cudaex.launch_counts()
+    want = plain()
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, (a.dtype, b.dtype, a.shape, b.shape)
+        if tol == "ulp":
+            assert bool(((a.float() - b.float()).abs() <= _bf16_tol(b)).all())
+        elif isinstance(tol, float) and tol < 1e-3:
+            torch.testing.assert_close(a, b, atol=tol, rtol=tol)
+        else:
+            assert row_rel_err(a, b) <= tol, row_rel_err(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["float64"])
+def test_cuda_refused_inputs_raise(cuda_device, case):
+    """What stays refused raises the reason ``cudaex.refusal`` gives, before
+    any launch: float64, which the reference (JAX without x64) never makes.
+    No plain version runs on the card."""
+    x = torch.randn(8, 256, device=cuda_device, dtype=torch.float64)
+    assert "not supported" in cudaex.refusal("rms_norm", x, None)
+    cudaex.reset_launch_counts()
+    with pytest.raises(ValueError, match="not supported"):
+        tnn.rms_norm(x, None)
     assert sum(cudaex.launch_counts().values()) == 0, cudaex.launch_counts()
 
 

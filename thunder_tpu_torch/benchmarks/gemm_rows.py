@@ -1,0 +1,145 @@
+"""Device time of the kernels on gemm.cuh's mainloops, at the shapes of
+PERF.md's kernel table: ``mlp_subblock`` (row 7) and ``mlp_subblock_bwd``
+(row 8) at llama3-8b-bench's train shape (16384 rows, D=4096, F=14336) and
+llama2-7b-bench's (F=11008), ``mlp_subblock`` at the serving prefill chunk
+(512 rows) and at 8 rows, and ``linear_act`` at the 512-row prefill chunk
+(row 6b: 512 x 4096 -> 14336, silu).
+
+    PYTHONPATH=. python3 thunder_tpu_torch/benchmarks/gemm_rows.py [--rows 7,8,6b] [--iters 10]
+        [--profile]
+
+Each kernel is timed with CUDA events around ``--iters`` back-to-back calls
+after a warm-up, on bf16 inputs made from a seed, and its launches are
+counted by design (``cudaex.design_counts``). ``--profile`` also traces one
+call of each with ``torch.profiler`` and prints the device time of each
+CUDA kernel it launched (the sub-block's row pass, products and epilogue
+passes apart). It uses only the wrappers that
+every version of the port has, so the same script times another checkout's
+kernels when that checkout's root comes first on ``PYTHONPATH``: that is how
+two versions are compared in one call on one card. Needs a CUDA card;
+prints the card and one JSON line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import subprocess
+import time
+
+import torch
+
+# (row, kernel, rows N, D, F): the table's shapes
+SHAPES = (
+    ("7", "mlp_subblock", 16384, 4096, 14336),
+    ("7", "mlp_subblock", 512, 4096, 14336),
+    ("7", "mlp_subblock", 16384, 4096, 11008),
+    ("7", "mlp_subblock", 8, 4096, 14336),
+    ("8", "mlp_subblock_bwd", 16384, 4096, 14336),
+    ("8", "mlp_subblock_bwd", 16384, 4096, 11008),
+    ("6b", "linear_act", 512, 4096, 14336),
+)
+
+
+# spin-kernel cycles per millisecond: the H100's 1.98 GHz top clock
+SPIN_CYCLES_PER_MS = 1.98e6
+
+
+def time_ms(fn, iters: int) -> float:
+    """Mean device time of one call: CUDA events around ``iters`` calls
+    queued behind a spin kernel that outlasts the host's issuing them, so
+    the events time the card's work back to back (a 0.1 ms kernel takes
+    the host about as long to issue)."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    issue_ms = (time.perf_counter() - t) * 1e3
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int((2.0 * issue_ms + 5.0) * SPIN_CYCLES_PER_MS))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def profile(fn) -> dict[str, float]:
+    """Device ms of each CUDA kernel one call of ``fn`` launches."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as trace
+
+    with trace(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        ms = getattr(ev, "device_time_total", getattr(ev, "cuda_time_total", 0.0)) / 1e3
+        key = ev.key.replace("(anonymous namespace)::", "").replace("void ", "")
+        key = re.split(r"[<(]", key)[0][:60]
+        if ms > 0:
+            out[key] = out.get(key, 0.0) + ms
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--rows", default="7,8,6b", help="table rows to time, comma separated")
+    ap.add_argument("--iters", type=int, default=10)
+    ap.add_argument("--profile", action="store_true",
+                    help="device time of each CUDA kernel of one call, from torch.profiler")
+    args = ap.parse_args()
+    from thunder_tpu_torch.executors import cudaex
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True, timeout=60).stdout.strip().splitlines()[0]
+    cudaex.build()
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale).to(bf16)
+
+    wanted = set(args.rows.split(","))
+    results = []
+    for row, name, N, D, F in SHAPES:
+        if row not in wanted:
+            continue
+        if name == "linear_act":
+            a, w = rnd(N, D), rnd(F, D, scale=D ** -0.5)
+            fn = lambda: cudaex.linear_act(a, w, None, "silu")   # noqa: E731
+            flops = 2.0 * N * D * F
+        else:
+            g, r, x = rnd(N, D), rnd(N, D, scale=0.25), rnd(N, D, scale=0.25)
+            wn = (1.0 + 0.1 * torch.randn(D, generator=gen, device=dev)).to(bf16)
+            ws = (rnd(F, D, scale=D ** -0.5), rnd(F, D, scale=D ** -0.5),
+                  rnd(D, F, scale=F ** -0.5))
+            if name == "mlp_subblock":
+                fn = lambda: cudaex.mlp_subblock(r, x, wn, *ws)   # noqa: E731
+                flops = 6.0 * N * D * F
+            else:
+                fn = lambda: cudaex.mlp_subblock_bwd(g, r, x, wn, *ws)   # noqa: E731
+                flops = 16.0 * N * D * F
+        cudaex.reset_launch_counts()
+        ms = time_ms(fn, args.iters)
+        res = {"row": row, "name": name, "shape": f"{N}x{D}x{F}", "ms": ms,
+               "tflops": flops / ms / 1e9, "designs": cudaex.design_counts()}
+        print(f"row {row:3s} {name:17s} {N}x{D}x{F}: {ms:.4f} ms, "
+              f"{flops / ms / 1e9:.1f} TFLOP/s, {cudaex.design_counts()}", flush=True)
+        if args.profile:
+            res["kernels_ms"] = profile(fn)
+            print("    " + ", ".join(f"{k} {v:.4f}" for k, v in res["kernels_ms"].items()))
+        results.append(res)
+        del fn
+        torch.cuda.empty_cache()
+    print(card)
+    print(json.dumps({"card": card, "rows": results}))
+
+
+if __name__ == "__main__":
+    main()

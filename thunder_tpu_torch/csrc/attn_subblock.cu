@@ -51,11 +51,12 @@ extern "C" int tt_attn_subblock(const void* h, const void* wn1, const void* wq, 
                                 int dtype, int device, void* stream) {
   cudaSetDevice(device);
   auto s = static_cast<cudaStream_t>(stream);
-  return dtype == TT_BF16
-             ? run<__nv_bfloat16>(h, wn1, wq, wk, wv, wo, cos, sin, kp, vp, bt, ln, out, k_rows,
-                                  v_rows, q_ws, part, attn_ws, S, D, H, KV, hd, P, ps, npg,
-                                  chunk_pages, nch, eps, scale, device, s)
-             : run<float>(h, wn1, wq, wk, wv, wo, cos, sin, kp, vp, bt, ln, out, k_rows, v_rows,
-                          q_ws, part, attn_ws, S, D, H, KV, hd, P, ps, npg, chunk_pages, nch, eps,
-                          scale, device, s);
+  int rc = 0;
+  const cudaError_t err = tt::with_dtype(dtype, [&](auto tag) {
+    rc = run<decltype(tag)>(h, wn1, wq, wk, wv, wo, cos, sin, kp, vp, bt, ln, out, k_rows, v_rows,
+                            q_ws, part, attn_ws, S, D, H, KV, hd, P, ps, npg, chunk_pages, nch,
+                            eps, scale, device, s);
+    return cudaSuccess;
+  });
+  return err != cudaSuccess ? static_cast<int>(err) : rc;
 }

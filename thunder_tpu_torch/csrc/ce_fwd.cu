@@ -43,13 +43,15 @@ template <> struct Vec4<float> {
     x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
   }
 };
-template <> struct Vec4<__nv_bfloat16> {
+template <typename T> struct Vec4_16 {   // bf16 or fp16
   using type = uint2;
   __device__ static void unpack(const uint2& v, float (&x)[4]) {
-    const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&v);
-    for (int i = 0; i < 4; ++i) x[i] = __bfloat162float(h[i]);
+    const T* h = reinterpret_cast<const T*>(&v);
+    for (int i = 0; i < 4; ++i) x[i] = tt::to_f(h[i]);
   }
 };
+template <> struct Vec4<__nv_bfloat16> : Vec4_16<__nv_bfloat16> {};
+template <> struct Vec4<__half> : Vec4_16<__half> {};
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
@@ -115,12 +117,13 @@ extern "C" int tt_ce_fwd(const void* logits, const void* target, void* nll, void
     const unsigned blocks = static_cast<unsigned>(N);
     // 4 values per load: every row starts on a 4-value boundary when V % 4 == 0
     const int vec = reinterpret_cast<uintptr_t>(logits) % 16 == 0 && V % 4 == 0;
-    if (dtype == TT_BF16)
-      ce_fwd_kernel<__nv_bfloat16><<<blocks, THREADS, 0, s>>>(
-          static_cast<const __nv_bfloat16*>(logits), tg, n, l, V, ignore_index, vec);
-    else
-      ce_fwd_kernel<float><<<blocks, THREADS, 0, s>>>(static_cast<const float*>(logits), tg, n,
-                                                      l, V, ignore_index, vec);
+    const cudaError_t err = tt::with_dtype(dtype, [&](auto tag) {
+      using T = decltype(tag);
+      ce_fwd_kernel<T><<<blocks, THREADS, 0, s>>>(static_cast<const T*>(logits), tg, n, l, V,
+                                                   ignore_index, vec);
+      return cudaSuccess;
+    });
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());
 }

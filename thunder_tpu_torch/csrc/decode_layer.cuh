@@ -273,15 +273,24 @@ __device__ void attention_phase(const Args<T>& a, unsigned char* smem) {
       const int j = t % nk, g0 = (t / nk) * 4;
       const T* kr = kr_s[j];
       float d[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int e0 = 0; e0 < hd; e0 += V) {
-        const uint4 kv = *reinterpret_cast<const uint4*>(kr + e0);
-        const T* ke = reinterpret_cast<const T*>(&kv);
+      if (hd % V == 0) {   // rows of whole 16-byte vectors
+        for (int e0 = 0; e0 < hd; e0 += V) {
+          const uint4 kv = *reinterpret_cast<const uint4*>(kr + e0);
+          const T* ke = reinterpret_cast<const T*>(&kv);
 #pragma unroll
-        for (int e = 0; e < V; ++e) {
-          const float k = to_f(ke[e]);
+          for (int e = 0; e < V; ++e) {
+            const float k = to_f(ke[e]);
+#pragma unroll
+            for (int g = 0; g < 4; ++g)
+              if (g0 + g < G) d[g] = fmaf(q_s[(g0 + g) * hd + e0 + e], k, d[g]);
+          }
+        }
+      } else {             // any other even head dim: the rows are not 16-byte aligned
+        for (int e = 0; e < hd; ++e) {
+          const float k = to_f(kr[e]);
 #pragma unroll
           for (int g = 0; g < 4; ++g)
-            if (g0 + g < G) d[g] = fmaf(q_s[(g0 + g) * hd + e0 + e], k, d[g]);
+            if (g0 + g < G) d[g] = fmaf(q_s[(g0 + g) * hd + e], k, d[g]);
         }
       }
 #pragma unroll

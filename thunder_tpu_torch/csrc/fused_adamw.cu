@@ -61,20 +61,22 @@ template <> struct Io<float> {
     *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
   }
 };
-template <> struct Io<__nv_bfloat16> {
-  __device__ static void load4(const __nv_bfloat16* p, float (&x)[4]) {
+template <typename T> struct Io16 {   // bf16 or fp16
+  __device__ static void load4(const T* p, float (&x)[4]) {
     const uint2 v = *reinterpret_cast<const uint2*>(p);
-    const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&v);
+    const T* h = reinterpret_cast<const T*>(&v);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) x[i] = __bfloat162float(h[i]);
+    for (int i = 0; i < 4; ++i) x[i] = tt::to_f(h[i]);
   }
-  __device__ static void store4(__nv_bfloat16* p, const float (&x)[4]) {
+  __device__ static void store4(T* p, const float (&x)[4]) {
     uint2 v;
-    v.x = tt::pack_bf16(x[0], x[1]);
-    v.y = tt::pack_bf16(x[2], x[3]);
+    v.x = tt::pack2<T>(x[0], x[1]);
+    v.y = tt::pack2<T>(x[2], x[3]);
     *reinterpret_cast<uint2*>(p) = v;
   }
 };
+template <> struct Io<__nv_bfloat16> : Io16<__nv_bfloat16> {};
+template <> struct Io<__half> : Io16<__half> {};
 
 struct Hyper {
   float lr, beta1, beta2, one_m_beta1, one_m_beta2, eps, weight_decay;
@@ -96,8 +98,8 @@ template <typename T> __device__ __forceinline__ bool vec_aligned(const T* p) {
 }
 
 // element j with scalar loads and stores
-template <typename P, typename M, typename V>
-__device__ __forceinline__ void adamw_at(P* p, const P* g, M* m, V* v, long long j, float bc1,
+template <typename P, typename G, typename M, typename V>
+__device__ __forceinline__ void adamw_at(P* p, const G* g, M* m, V* v, long long j, float bc1,
                                          float bc2, const Hyper& h) {
   float pj = tt::to_f(p[j]), mj = tt::to_f(m[j]), vj = tt::to_f(v[j]);
   adamw(pj, tt::to_f(g[j]), mj, vj, bc1, bc2, h);
@@ -106,7 +108,7 @@ __device__ __forceinline__ void adamw_at(P* p, const P* g, M* m, V* v, long long
   v[j] = tt::from_f<V>(vj);
 }
 
-template <typename P, typename M, typename V>
+template <typename P, typename G, typename M, typename V>
 __device__ __forceinline__ void adamw_chunk(const long long* __restrict__ table, int n_tensors,
                                             const float* __restrict__ bc, const Hyper& h) {
   // the tensor whose chunks hold this block: the last row with first chunk <= blockIdx.x
@@ -118,7 +120,7 @@ __device__ __forceinline__ void adamw_chunk(const long long* __restrict__ table,
   }
   const long long* row = table + lo * ROW;
   P* p = reinterpret_cast<P*>(row[0]);
-  const P* g = reinterpret_cast<const P*>(row[1]);
+  const G* g = reinterpret_cast<const G*>(row[1]);
   M* m = reinterpret_cast<M*>(row[2]);
   V* v = reinterpret_cast<V*>(row[3]);
   const long long n = row[4];
@@ -139,7 +141,7 @@ __device__ __forceinline__ void adamw_chunk(const long long* __restrict__ table,
     float pf[4], gf[4], mf[4], vf[4];
     if (i + VEC <= end) {
       Io<P>::load4(p + i, pf);
-      Io<P>::load4(g + i, gf);
+      Io<G>::load4(g + i, gf);
       Io<M>::load4(m + i, mf);
       Io<V>::load4(v + i, vf);
 #pragma unroll
@@ -155,60 +157,49 @@ __device__ __forceinline__ void adamw_chunk(const long long* __restrict__ table,
 
 // the per-step entry's kernel and the slab entry's: one body, two names, so a
 // profile tells their launches apart
-template <typename P, typename M, typename V>
+template <typename P, typename G, typename M, typename V>
 __global__ void __launch_bounds__(THREADS)
 fused_adamw_kernel(const long long* __restrict__ table, int n_tensors,
                    const float* __restrict__ bc, Hyper h) {
-  adamw_chunk<P, M, V>(table, n_tensors, bc, h);
+  adamw_chunk<P, G, M, V>(table, n_tensors, bc, h);
 }
 
-template <typename P, typename M, typename V>
+template <typename P, typename G, typename M, typename V>
 __global__ void __launch_bounds__(THREADS)
 fused_adamw_slab_kernel(const long long* __restrict__ table, int n_tensors,
                         const float* __restrict__ bc, Hyper h) {
-  adamw_chunk<P, M, V>(table, n_tensors, bc, h);
+  adamw_chunk<P, G, M, V>(table, n_tensors, bc, h);
 }
 
-template <typename P, typename M, typename V>
-void launch(bool slab, unsigned blocks, const long long* table, int n, const float* bc,
-            const Hyper& h, cudaStream_t s) {
-  if (slab)
-    fused_adamw_slab_kernel<P, M, V><<<blocks, THREADS, 0, s>>>(table, n, bc, h);
-  else
-    fused_adamw_kernel<P, M, V><<<blocks, THREADS, 0, s>>>(table, n, bc, h);
-}
-
-template <typename P, typename M>
-void launch_v(int v_dtype, bool slab, unsigned blocks, const long long* table, int n,
-              const float* bc, const Hyper& h, cudaStream_t s) {
-  if (v_dtype == TT_BF16)
-    launch<P, M, __nv_bfloat16>(slab, blocks, table, n, bc, h, s);
-  else
-    launch<P, M, float>(slab, blocks, table, n, bc, h, s);
-}
-
-template <typename P>
-void launch_m(int m_dtype, int v_dtype, bool slab, unsigned blocks, const long long* table,
-              int n, const float* bc, const Hyper& h, cudaStream_t s) {
-  if (m_dtype == TT_BF16)
-    launch_v<P, __nv_bfloat16>(v_dtype, slab, blocks, table, n, bc, h, s);
-  else
-    launch_v<P, float>(v_dtype, slab, blocks, table, n, bc, h, s);
-}
-
+// p, g, m and v each float32, bf16 or fp16: the grad's dtype is a type of its
+// own (the reference's update reads g in its own dtype and computes in f32)
 int run(bool slab, const void* table, int n_tensors, long long n_chunks, const void* bc,
-        const Hyper& h, int p_dtype, int m_dtype, int v_dtype, int device, void* stream) {
+        const Hyper& h, int p_dtype, int g_dtype, int m_dtype, int v_dtype, int device,
+        void* stream) {
   cudaSetDevice(device);
-  if (n_tensors > 0 && n_chunks > 0) {
-    auto s = static_cast<cudaStream_t>(stream);
-    const auto* t = static_cast<const long long*>(table);
-    const auto* b = static_cast<const float*>(bc);
-    const unsigned blocks = static_cast<unsigned>(n_chunks);
-    if (p_dtype == TT_BF16)
-      launch_m<__nv_bfloat16>(m_dtype, v_dtype, slab, blocks, t, n_tensors, b, h, s);
-    else
-      launch_m<float>(m_dtype, v_dtype, slab, blocks, t, n_tensors, b, h, s);
-  }
+  if (n_tensors <= 0 || n_chunks <= 0) return static_cast<int>(cudaGetLastError());
+  auto s = static_cast<cudaStream_t>(stream);
+  const auto* t = static_cast<const long long*>(table);
+  const auto* b = static_cast<const float*>(bc);
+  const unsigned blocks = static_cast<unsigned>(n_chunks);
+  const cudaError_t err = tt::with_dtype(p_dtype, [&](auto pt) {
+    return tt::with_dtype(g_dtype, [&](auto gt) {
+      return tt::with_dtype(m_dtype, [&](auto mt) {
+        return tt::with_dtype(v_dtype, [&](auto vt) {
+          using P = decltype(pt);
+          using G = decltype(gt);
+          using M = decltype(mt);
+          using V = decltype(vt);
+          if (slab)
+            fused_adamw_slab_kernel<P, G, M, V><<<blocks, THREADS, 0, s>>>(t, n_tensors, b, h);
+          else
+            fused_adamw_kernel<P, G, M, V><<<blocks, THREADS, 0, s>>>(t, n_tensors, b, h);
+          return cudaSuccess;
+        });
+      });
+    });
+  });
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -220,19 +211,19 @@ int run(bool slab, const void* table, int n_tensors, long long n_chunks, const v
 extern "C" int tt_fused_adamw(const void* table, int n_tensors, long long n_chunks,
                               const void* bc, float lr, float beta1, float beta2,
                               float one_m_beta1, float one_m_beta2, float eps,
-                              float weight_decay, int p_dtype, int m_dtype, int v_dtype,
-                              int device, void* stream) {
+                              float weight_decay, int p_dtype, int g_dtype, int m_dtype,
+                              int v_dtype, int device, void* stream) {
   const Hyper h{lr, beta1, beta2, one_m_beta1, one_m_beta2, eps, weight_decay};
-  return run(false, table, n_tensors, n_chunks, bc, h, p_dtype, m_dtype, v_dtype, device,
-             stream);
+  return run(false, table, n_tensors, n_chunks, bc, h, p_dtype, g_dtype, m_dtype, v_dtype,
+             device, stream);
 }
 
 extern "C" int tt_fused_adamw_slab(const void* table, int n_tensors, long long n_chunks,
                                    const void* bc, float lr, float beta1, float beta2,
                                    float one_m_beta1, float one_m_beta2, float eps,
-                                   float weight_decay, int p_dtype, int m_dtype, int v_dtype,
-                                   int device, void* stream) {
+                                   float weight_decay, int p_dtype, int g_dtype, int m_dtype,
+                                   int v_dtype, int device, void* stream) {
   const Hyper h{lr, beta1, beta2, one_m_beta1, one_m_beta2, eps, weight_decay};
-  return run(true, table, n_tensors, n_chunks, bc, h, p_dtype, m_dtype, v_dtype, device,
-             stream);
+  return run(true, table, n_tensors, n_chunks, bc, h, p_dtype, g_dtype, m_dtype, v_dtype,
+             device, stream);
 }

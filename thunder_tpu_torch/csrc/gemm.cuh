@@ -1,7 +1,6 @@
-// The tile-GEMM mainloop shared by the MLP sub-block kernels
-// (mlp_subblock.cu, mlp_subblock_bwd.cu): one block computes a BM x BN tile
-// of C = A B, A (M x K) and B (K x N), looping over K in BK-deep slabs that
-// a STAGES-deep cp.async ring brings into shared memory.
+// The tile-GEMM mainloops shared by the MLP sub-block kernels
+// (mlp_subblock.cu, mlp_subblock_bwd.cu) and linear_act's tile path: C = A B
+// tile by tile, A (M x K) and B (K x N), looping over K in BK-deep slabs.
 //
 // Each operand is read as stored or transposed, so that every product of the
 // sub-block and its gradient reads its tensors where they lie:
@@ -9,26 +8,43 @@
 //           row-major (the torch weight layout, "x @ w.T");
 //   MNMAJ - contiguous along M (for A) or N (for B): A stored (K, M)
 //           ("dgpre.T @ n"), B stored (K, N) ("dgpre @ w_gate").
-// A KMAJ tile sits in shared memory as [mn][k], an MNMAJ tile as [k][mn], each
-// row padded by 16 bytes so that the eight row addresses of an ldmatrix fall
-// in distinct banks.
 //
-// bf16: each warp owns a (16 MT) x (8 NT) sub-tile and multiplies with
-// mma.sync m16n8k16 (bf16 in, f32 accumulate); its fragments come from
-// ldmatrix (KMAJ A, KMAJ B) or ldmatrix.trans (MNMAJ A, MNMAJ B). float32:
-// the same thread-to-element map with scalar FMAs, so the epilogues are
-// shared. Accumulator element (mt, nt, e) of a thread is C[row][col] with
+// 16-bit types (bf16, fp16): the warp-specialised TMA + wgmma mainloop of
+// namespace wg below. A block of three warpgroups (384 threads) is
+// persistent, about one per SM, and walks its output tiles in tile_of's
+// grouped order, so the blocks in flight share operands in L2. Warpgroup 0 is
+// the producer: it gives up registers (setmaxnreg 40) and one thread issues
+// 2-D TMA loads of each slab's operand tiles (128-byte swizzle, 64-deep
+// slabs) into a STAGES-deep ring with a full and an empty mbarrier per
+// stage. Warpgroups 1 and 2 (setmaxnreg 232) each own 64 rows of the 128-row
+// tile and run wgmma m64nNk16 with both operands read from shared memory and
+// f32 accumulators in registers; a slab's stage is released once the wgmma
+// group after it has been issued and the one reading it has completed. The
+// layouts map onto the descriptor's transpose bits (KMAJ = K-major, MNMAJ =
+// MN-major, which 16-bit wgmma takes for A and B alike), so no operand is
+// copied transposed. TMA fills reads past M, N or K with zeros, so a ragged
+// edge needs no branch in the mainloop; its global row strides must be
+// multiples of 16 bytes (the wrappers require D and F to be multiples of 8,
+// and pad linear_act's K to one). The barrier waits trap after ~2^31 cycles,
+// so a broken ring protocol ends the launch with an error, not a hang.
+//
+// float32: one block of 8 warps (256 threads) per BM x BN tile, a STAGES-deep
+// cp.async ring of BK-deep slabs (a tile's rows or columns past the matrix
+// zero-filled by the cp.async itself, source size 0), and scalar FMAs on the
+// m16n8 thread-to-element map below; wgmma in tf32 would change float32's
+// numerics. A KMAJ tile sits in shared memory as [mn][k], an MNMAJ tile as
+// [k][mn], each row padded by 16 bytes.
+//
+// The epilogues of both mainloops see one accumulator layout: element
+// (mt, nt, e) of a thread is C[row][col] with
 //   row = wm + 16 mt + g + 8 (e >> 1),  col = wn + 8 nt + 2 t + (e & 1),
-// g = lane / 4, t = lane % 4 (the m16n8k16 D layout, common.cuh).
-//
-// Edges: a tile's rows or columns past the matrix are zero-filled by the
-// cp.async itself (source size 0), so a ragged M, N or K needs no branch in
-// the mainloop. Loads move 16-byte chunks along the contiguous dimension,
-// which must therefore be a multiple of 16 bytes' worth of elements (the
-// wrappers require D and F to be multiples of 8); the other dimension is free.
+// g = lane / 4, t = lane % 4 (the m16n8k16 D layout, common.cuh). A wgmma
+// consumer's m64nN accumulator is that layout with MT = 1, NT = N / 8,
+// wm = 64 c + 16 (warp in the warpgroup), wn = 0, so for_each_pair serves
+// both.
 #pragma once
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace tt {
 namespace gemm {
@@ -81,66 +97,17 @@ __device__ __forceinline__ void load_tile(T* s, const T* __restrict__ g, long lo
   }
 }
 
+// four 8x8 16-bit matrices from shared memory, one register each (ldmatrix)
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(s));
 }
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
 
-// A fragment (rows [m, m+16), k [k, k+16)) of a staged A tile.
-template <int L, int LD>
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const __nv_bfloat16* s, int m, int k) {
-  const int l = threadIdx.x & 31;
-  // matrices (m 0-7, k 0-7), (m 8-15, k 0-7), (m 0-7, k 8-15), (m 8-15, k 8-15)
-  if (L == KMAJ)   // stored [m][k]
-    ldsm_x4(a, s + (m + (l & 15)) * LD + k + (l >> 4) * 8);
-  else             // stored [k][m]: the same four matrices, each transposed on load
-    ldsm_x4_t(a, s + (k + (l >> 4) * 8 + (l & 7)) * LD + m + ((l >> 3) & 1) * 8);
-}
-
-// B fragments of two neighbouring 8-column tiles (columns [n, n+16), k [k,
-// k+16)): b[0], b[1] for the first, b[2], b[3] for the second.
-template <int L, int LD>
-__device__ __forceinline__ void frag_b(uint32_t (&b)[4], const __nv_bfloat16* s, int n, int k) {
-  const int l = threadIdx.x & 31;
-  // matrices (n 0-7, k 0-7), (n 0-7, k 8-15), (n 8-15, k 0-7), (n 8-15, k 8-15)
-  if (L == KMAJ)   // stored [n][k]
-    ldsm_x4(b, s + (n + (l >> 4) * 8 + (l & 7)) * LD + k + ((l >> 3) & 1) * 8);
-  else             // stored [k][n]: the same four matrices, each transposed on load
-    ldsm_x4_t(b, s + (k + ((l >> 3) & 1) * 8 + (l & 7)) * LD + n + (l >> 4) * 8);
-}
-
-// One staged BK slab of the warp's products: acc += A_tile B_tile over the
-// warp's (16 MT) x (8 NT) sub-tile at (wm, wn) of the block tile.
-template <int LA, int LB, int BMr, int BNr, int BK, int MT, int NT>
-__device__ __forceinline__ void mma_slab(float (&acc)[MT][NT][4], const __nv_bfloat16* As,
-                                         const __nv_bfloat16* Bs, int wm, int wn) {
-  static_assert(NT % 2 == 0, "B fragments come two 8-column tiles at a time");
-  constexpr int LDA = Tile<__nv_bfloat16, LA, BMr, BK>::LD;
-  constexpr int LDB = Tile<__nv_bfloat16, LB, BNr, BK>::LD;
-#pragma unroll
-  for (int kk = 0; kk < BK; kk += 16) {
-    uint32_t a[MT][4], b[NT / 2][4];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) frag_a<LA, LDA>(a[mt], As, wm + mt * 16, kk);
-#pragma unroll
-    for (int np = 0; np < NT / 2; ++np) frag_b<LB, LDB>(b[np], Bs, wn + np * 16, kk);
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-        mma_bf16(acc[mt][nt], a[mt], b[nt / 2][(nt & 1) * 2], b[nt / 2][(nt & 1) * 2 + 1]);
-  }
-}
-
-// float32: the same slab with scalar FMAs on the same thread-to-element map.
+// One staged BK slab of a warp's products on the float32 mainloop: acc +=
+// A_tile B_tile over the warp's (16 MT) x (8 NT) sub-tile at (wm, wn) of the
+// block tile, scalar FMAs on the m16n8 thread-to-element map.
 template <int LA, int LB, int BMr, int BNr, int BK, int MT, int NT>
 __device__ __forceinline__ void mma_slab(float (&acc)[MT][NT][4], const float* As,
                                          const float* Bs, int wm, int wn) {
@@ -244,9 +211,189 @@ __device__ __forceinline__ void for_each_pair(int row0, int col0, int M, int N, 
 __device__ __forceinline__ void store_pair(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
-__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
+template <typename T>
+__device__ __forceinline__ void store_pair(T* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = pack2<T>(a, b);
 }
+
+// ---------------------------------------------------------------------------
+// The 16-bit mainloop: warp-specialised, persistent TMA + wgmma (see the top)
+// ---------------------------------------------------------------------------
+namespace wg {
+
+constexpr int BM = 128;        // block tile rows: 64 per consumer warpgroup
+constexpr int BK = 64;         // slab depth: one 128-byte swizzled row of 16-bit values
+constexpr int BOX = 64;        // 16-bit values in one 128-byte TMA box row
+constexpr int THREADS = 384;   // producer warpgroup + two consumer warpgroups
+constexpr int BOX_BYTES = BOX * BK * 2;   // an MNMAJ box: BK rows of 128 bytes
+
+// bytes of one operand's slab in shared memory, either layout: ROWS (M or N)
+// x BK 16-bit values; a multiple of 1024, so every slab keeps the swizzle's
+// alignment
+template <int ROWS>
+__host__ __device__ constexpr int slab_bytes() {
+  return ROWS * BK * 2;
+}
+
+// Producer: the TMA loads of one operand's slab, rows [mn0, mn0 + ROWS) and k
+// [k0, k0 + BK), into `dst`, completing on `bar`. KMAJ: one box of ROWS rows
+// of 128 bytes; MNMAJ: ROWS / 64 boxes of BK rows of 128 bytes (op_map
+// encodes the matching boxes).
+template <int L, int ROWS>
+__device__ __forceinline__ void load_slab(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                          int mn0, int k0) {
+  static_assert(L == KMAJ || ROWS % BOX == 0, "an MNMAJ slab is whole 64-column boxes");
+  if (L == KMAJ) {
+    hopper::tma_load_2d(dst, map, bar, k0, mn0);
+  } else {
+#pragma unroll
+    for (int b = 0; b < ROWS / BOX; ++b)
+      hopper::tma_load_2d(dst + b * BOX_BYTES, map, bar, mn0 + b * BOX, k0);
+  }
+}
+
+// Descriptors of the kk-th 16-deep step of a slab (hopper.cuh's layouts):
+// consumer c's 64 rows of an A slab, and a whole B slab.
+template <int L>
+__device__ __forceinline__ uint64_t desc_a(uint32_t slab, int c, int kk) {
+  return L == KMAJ ? hopper::desc_sw128(slab + c * 64 * 128 + kk * 32, 16, 1024)
+                   : hopper::desc_sw128(slab + c * BOX_BYTES + kk * 16 * 128, BOX_BYTES, 1024);
+}
+template <int L>
+__device__ __forceinline__ uint64_t desc_b(uint32_t slab, int kk) {
+  return L == KMAJ ? hopper::desc_sw128(slab + kk * 32, 16, 1024)
+                   : hopper::desc_sw128(slab + kk * 16 * 128, BOX_BYTES, 1024);
+}
+
+// An accumulator of a consumer warpgroup, 64 x N in the m16n8 layout above
+// (MT = 1), and the flat register array wgmma writes
+template <int N>
+using Acc = float[1][N / 8][4];
+template <int N>
+__device__ __forceinline__ float (&flat(Acc<N>& acc))[N / 2] {
+  return *reinterpret_cast<float(*)[N / 2]>(&acc);
+}
+template <int N>
+__device__ __forceinline__ void fence(Acc<N>& acc) {
+  hopper::fence_regs(flat<N>(acc));
+}
+
+// consumer c's thread's first row (wm) in tile row tm: its warp's 16 of the
+// warpgroup's 64 rows
+__device__ __forceinline__ int row0(int tm, int c) {
+  return tm * BM + 64 * c + 16 * ((threadIdx.x >> 5) & 3);
+}
+
+// acc += A_slab B_slab over one BK slab, consumer c's 64 rows
+template <typename T, int LA, int LB, int N>
+__device__ __forceinline__ void mma(Acc<N>& acc, uint32_t a_slab, uint32_t b_slab, int c) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+    hopper::wgmma_ss<T, LA, LB>(flat<N>(acc), desc_a<LA>(a_slab, c, kk), desc_b<LB>(b_slab, kk),
+                                1);
+}
+
+// The ring: STAGES stages of STAGE_BYTES, then a full and an empty barrier
+// per stage; BYTES is the dynamic shared memory a kernel asks for (+ 1024 for
+// aligning the ring to the swizzle's period).
+template <int STAGES, int STAGE_BYTES>
+struct Ring {
+  static_assert(STAGE_BYTES % 1024 == 0, "stages keep the 1024-byte swizzle alignment");
+  static constexpr int BYTES = STAGES * STAGE_BYTES + 16 * STAGES + 1024;
+  uint32_t base;
+  __device__ __forceinline__ uint32_t stage(int s) const { return base + s * STAGE_BYTES; }
+  __device__ __forceinline__ uint32_t full(int s) const {
+    return base + STAGES * STAGE_BYTES + 8 * s;
+  }
+  __device__ __forceinline__ uint32_t empty(int s) const {
+    return base + STAGES * STAGE_BYTES + 8 * (STAGES + s);
+  }
+};
+
+// The persistent block: tiles blockIdx.x, blockIdx.x + gridDim.x, ... of
+// n_tiles, each n_slabs deep.
+//   load(tile, slab, stage, full)  the producer thread's TMA loads of one
+//                                  slab (exactly STAGE_BYTES in all);
+//   zero()                         consumer: clear the tile's accumulators;
+//   mma(stage, c)                  consumer c: the slab's wgmma (not waited);
+//   epilogue(tile, c)              consumer c: its 64 rows, after every wgmma
+//                                  of the tile has completed (fence first).
+// The stage and phase of slab `it` (counted across tiles) are it % STAGES and
+// (it / STAGES) & 1 on both sides.
+template <int STAGES, int STAGE_BYTES, class Load, class Zero, class Mma, class Epi>
+__device__ __forceinline__ void persistent(unsigned char* smem, int n_tiles, int n_slabs,
+                                           Load&& load, Zero&& zero, Mma&& mma_fn,
+                                           Epi&& epilogue) {
+  const Ring<STAGES, STAGE_BYTES> ring{(hopper::smem_u32(smem) + 1023u) & ~1023u};
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(ring.full(s), 1);
+      hopper::mbar_init(ring.empty(s), 2 * 128);   // every consumer thread releases a stage
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    hopper::setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        for (int s = 0; s < n_slabs; ++s, ++it) {
+          const int st = it % STAGES;
+          if (it >= STAGES) hopper::mbar_wait(ring.empty(st), ((it / STAGES) - 1) & 1);
+          hopper::mbar_expect_tx(ring.full(st), STAGE_BYTES);
+          load(tile, s, ring.stage(st), ring.full(st));
+        }
+      }
+    }
+  } else {
+    hopper::setmaxnreg_inc<232>();
+    const int c = threadIdx.x / 128 - 1;
+    int it = 0;
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      zero();
+      for (int s = 0; s < n_slabs; ++s, ++it) {
+        const int st = it % STAGES;
+        hopper::mbar_wait(ring.full(st), (it / STAGES) & 1);
+        hopper::wgmma_fence();
+        mma_fn(ring.stage(st), c);
+        hopper::wgmma_commit();
+        // the previous slab's products have completed: release its stage
+        hopper::wgmma_wait<1>();
+        if (s > 0) hopper::mbar_arrive(ring.empty((it - 1) % STAGES));
+      }
+      hopper::wgmma_wait<0>();
+      hopper::mbar_arrive(ring.empty((it - 1) % STAGES));
+      epilogue(tile, c);
+    }
+  }
+}
+
+// the current device's SM count
+inline int sm_count() {
+  int dev = 0, sms = 132;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms;
+}
+
+// The persistent grid: one block per SM, or one per tile where there are fewer
+inline int grid_for(int n_tiles) {
+  const int sms = sm_count();
+  return n_tiles < sms ? n_tiles : sms;
+}
+
+// The TMA map of an operand as load_slab reads it: KMAJ stored (mn, k) with
+// row stride ld, boxes of 64 k x ROWS; MNMAJ stored (k, mn), boxes of 64 mn x
+// BK.
+template <typename T, int L, int ROWS>
+bool op_map(CUtensorMap* map, const void* p, long long mn, long long k, long long ld) {
+  return L == KMAJ ? hopper::map_2d<T>(map, p, k, mn, ld, BOX, ROWS)
+                   : hopper::map_2d<T>(map, p, mn, k, ld, BOX, BK);
+}
+
+}  // namespace wg
 
 }  // namespace gemm
 }  // namespace tt

@@ -155,11 +155,13 @@ extern "C" int tt_paged_decode_attention(const void* q, const void* kp, const vo
     auto s = static_cast<cudaStream_t>(stream);
     const auto* bt = static_cast<const int*>(block_tables);
     const auto* ln = static_cast<const int*>(lengths);
-    int rc = (dtype == TT_BF16)
-                 ? launch<__nv_bfloat16>(q, kp, vp, bt, ln, out, B, H, KV, P, ps, hd, npg,
-                                         scale, smem, s)
-                 : launch<float>(q, kp, vp, bt, ln, out, B, H, KV, P, ps, hd, npg, scale, smem,
+    int rc = 0;
+    const cudaError_t err = tt::with_dtype(dtype, [&](auto tag) {
+      rc = launch<decltype(tag)>(q, kp, vp, bt, ln, out, B, H, KV, P, ps, hd, npg, scale, smem,
                                  s);
+      return cudaSuccess;
+    });
+    if (err != cudaSuccess) return static_cast<int>(err);
     if (rc != 0) return rc;
   }
   return static_cast<int>(cudaGetLastError());

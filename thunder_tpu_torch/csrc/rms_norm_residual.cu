@@ -15,14 +15,17 @@
 // values it wrote, so no barrier is needed for them) and writes y. The
 // residual stream makes one trip through device memory instead of the two an
 // unfused add + norm would cost.
+// Types: residual and x in T (a residual and x of two dtypes are promoted to
+// one by the wrapper, as the reference's add promotes them), the weight in W,
+// the output as rms_norm.cu's: T where W == T, float32 where they differ.
 #include "common.cuh"
 
 namespace {
 
-template <typename T>
+template <typename T, typename W, typename O>
 __global__ void __launch_bounds__(256)
 rms_norm_residual_kernel(const T* __restrict__ r, const T* __restrict__ x,
-                         const T* __restrict__ w, T* __restrict__ h, T* __restrict__ out,
+                         const W* __restrict__ w, T* __restrict__ h, O* __restrict__ out,
                          int D, float eps) {
   __shared__ float red[32];
   const size_t off = static_cast<size_t>(blockIdx.x) * D;
@@ -37,30 +40,29 @@ rms_norm_residual_kernel(const T* __restrict__ r, const T* __restrict__ x,
   for (int i = threadIdx.x; i < D; i += blockDim.x) {
     float y = tt::round_as<T>(tt::to_f(h[off + i]) * inv);
     if (w != nullptr) y *= tt::to_f(w[i]);
-    out[off + i] = tt::from_f<T>(y);
+    out[off + i] = tt::from_f<O>(y);
   }
-}
-
-template <typename T>
-void launch(const void* r, const void* x, const void* w, void* h, void* out,
-            long long n_rows, int D, float eps, cudaStream_t stream) {
-  rms_norm_residual_kernel<T><<<static_cast<unsigned>(n_rows), 256, 0, stream>>>(
-      static_cast<const T*>(r), static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<T*>(h), static_cast<T*>(out), D, eps);
 }
 
 }  // namespace
 
 extern "C" int tt_rms_norm_residual(const void* r, const void* x, const void* w, void* h,
                                     void* out, long long n_rows, int D, float eps, int dtype,
-                                    int device, void* stream) {
+                                    int w_dtype, int device, void* stream) {
   cudaSetDevice(device);
-  if (n_rows > 0) {
-    auto s = static_cast<cudaStream_t>(stream);
-    if (dtype == TT_BF16)
-      launch<__nv_bfloat16>(r, x, w, h, out, n_rows, D, eps, s);
-    else
-      launch<float>(r, x, w, h, out, n_rows, D, eps, s);
-  }
+  if (n_rows <= 0) return static_cast<int>(cudaGetLastError());
+  auto s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = tt::with_dtype(dtype, [&](auto xt) {
+    return tt::with_dtype(w_dtype, [&](auto wt) {
+      using T = decltype(xt);
+      using W = decltype(wt);
+      using O = typename std::conditional<std::is_same<T, W>::value, T, float>::type;
+      rms_norm_residual_kernel<T, W, O><<<static_cast<unsigned>(n_rows), 256, 0, s>>>(
+          static_cast<const T*>(r), static_cast<const T*>(x), static_cast<const W*>(w),
+          static_cast<T*>(h), static_cast<O*>(out), D, eps);
+      return cudaSuccess;
+    });
+  });
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -30,11 +30,14 @@
 //      rows and keeps their dK/dV accumulators in registers;
 //   3. dQ: one block per (batch*head, 64-row q tile) loops over 64-row kv
 //      tiles up to the diagonal, the dQ accumulator in registers.
-// All products are mma.sync m16n8k16 (bf16 in, f32 accumulate) on operands
+// All products are mma.sync m16n8k16 (bf16 or fp16 in, f32 accumulate; head
+// dims multiples of 16 up to 256, a head dim off the multiples zero-padded
+// by the wrapper, cudaex.sdpa_bwd) on operands
 // staged in shared memory with 16-byte loads; the S/P/dS fragments become the
 // next product's A operand in registers. S and dP are computed twice (once
 // per kernel), as in the TPU's split. No load pipelining and no wgmma yet.
-// float32 inputs take plain FMA kernels, one thread per row.
+// float32 inputs take plain FMA kernels, one thread per row (head dims up to
+// 256).
 #include <math.h>
 
 #include "common.cuh"
@@ -60,20 +63,20 @@ delta_kernel(const T* __restrict__ g, const T* __restrict__ o, float* __restrict
   if (lane == 0) delta[r] = acc;
 }
 
-template <int HD>
+template <typename E, int HD>
 __global__ void __launch_bounds__(THREADS)
-sdpa_dkv_mma(const __nv_bfloat16* __restrict__ dO, const __nv_bfloat16* __restrict__ q,
-             const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
+sdpa_dkv_mma(const E* __restrict__ dO, const E* __restrict__ q,
+             const E* __restrict__ k, const E* __restrict__ v,
              const float* __restrict__ lse, const float* __restrict__ delta,
-             __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int T, int S,
+             E* __restrict__ dk, E* __restrict__ dv, int T, int S,
              float scale, int causal) {
   constexpr int LD = HD + 8;
   constexpr int NT = HD / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Vs = Ks + BKV * LD;
-  __nv_bfloat16* Qs = Vs + BKV * LD;
-  __nv_bfloat16* Gs = Qs + BQD * LD;
+  E* Ks = reinterpret_cast<E*>(smem_raw);
+  E* Vs = Ks + BKV * LD;
+  E* Qs = Vs + BKV * LD;
+  E* Gs = Qs + BQD * LD;
   float* lse_s = reinterpret_cast<float*>(Gs + BQD * LD);
   float* delta_s = lse_s + BQD;
 
@@ -81,8 +84,8 @@ sdpa_dkv_mma(const __nv_bfloat16* __restrict__ dO, const __nv_bfloat16* __restri
   const int kt = static_cast<int>(blockIdx.x % n_kt);   // causal: low tiles carry the most rows
   const size_t bh = blockIdx.x / n_kt;
   const int kv0 = kt * BKV;
-  const __nv_bfloat16* qb = q + bh * T * HD;
-  const __nv_bfloat16* gb = dO + bh * T * HD;
+  const E* qb = q + bh * T * HD;
+  const E* gb = dO + bh * T * HD;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int wr = warp * 16;
@@ -122,10 +125,10 @@ sdpa_dkv_mma(const __nv_bfloat16* __restrict__ dO, const __nv_bfloat16* __restri
       tt::load_a(av, Vs, LD, wr, kk);
 #pragma unroll
       for (int j = 0; j < BQD / 8; ++j) {
-        const __nv_bfloat16* qp = Qs + (j * 8 + g) * LD + kk + 2 * t;
-        const __nv_bfloat16* gp = Gs + (j * 8 + g) * LD + kk + 2 * t;
-        tt::mma_bf16(st[j], ak, tt::ld_pair(qp), tt::ld_pair(qp + 8));
-        tt::mma_bf16(dpt[j], av, tt::ld_pair(gp), tt::ld_pair(gp + 8));
+        const E* qp = Qs + (j * 8 + g) * LD + kk + 2 * t;
+        const E* gp = Gs + (j * 8 + g) * LD + kk + 2 * t;
+        tt::mma16<E>(st[j], ak, tt::ld_pair(qp), tt::ld_pair(qp + 8));
+        tt::mma16<E>(dpt[j], av, tt::ld_pair(gp), tt::ld_pair(gp + 8));
       }
     }
 
@@ -147,23 +150,23 @@ sdpa_dkv_mma(const __nv_bfloat16* __restrict__ dO, const __nv_bfloat16* __restri
 #pragma unroll
     for (int kk = 0; kk < BQD / 16; ++kk) {
       uint32_t ap[4], as[4];
-      ap[0] = tt::pack_bf16(st[2 * kk][0], st[2 * kk][1]);
-      ap[1] = tt::pack_bf16(st[2 * kk][2], st[2 * kk][3]);
-      ap[2] = tt::pack_bf16(st[2 * kk + 1][0], st[2 * kk + 1][1]);
-      ap[3] = tt::pack_bf16(st[2 * kk + 1][2], st[2 * kk + 1][3]);
-      as[0] = tt::pack_bf16(dpt[2 * kk][0], dpt[2 * kk][1]);
-      as[1] = tt::pack_bf16(dpt[2 * kk][2], dpt[2 * kk][3]);
-      as[2] = tt::pack_bf16(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]);
-      as[3] = tt::pack_bf16(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3]);
+      ap[0] = tt::pack2<E>(st[2 * kk][0], st[2 * kk][1]);
+      ap[1] = tt::pack2<E>(st[2 * kk][2], st[2 * kk][3]);
+      ap[2] = tt::pack2<E>(st[2 * kk + 1][0], st[2 * kk + 1][1]);
+      ap[3] = tt::pack2<E>(st[2 * kk + 1][2], st[2 * kk + 1][3]);
+      as[0] = tt::pack2<E>(dpt[2 * kk][0], dpt[2 * kk][1]);
+      as[1] = tt::pack2<E>(dpt[2 * kk][2], dpt[2 * kk][3]);
+      as[2] = tt::pack2<E>(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]);
+      as[3] = tt::pack2<E>(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3]);
       const int r = (kk * 16 + 2 * t) * LD + g;
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
-        const __nv_bfloat16* gc = Gs + r + n * 8;
-        const __nv_bfloat16* qc = Qs + r + n * 8;
-        tt::mma_bf16(dv_acc[n], ap, tt::pack_bf16(gc[0], gc[LD]),
-                     tt::pack_bf16(gc[8 * LD], gc[9 * LD]));
-        tt::mma_bf16(dk_acc[n], as, tt::pack_bf16(qc[0], qc[LD]),
-                     tt::pack_bf16(qc[8 * LD], qc[9 * LD]));
+        const E* gc = Gs + r + n * 8;
+        const E* qc = Qs + r + n * 8;
+        tt::mma16<E>(dv_acc[n], ap, tt::pack2<E>(gc[0], gc[LD]),
+                     tt::pack2<E>(gc[8 * LD], gc[9 * LD]));
+        tt::mma16<E>(dk_acc[n], as, tt::pack2<E>(qc[0], qc[LD]),
+                     tt::pack2<E>(qc[8 * LD], qc[9 * LD]));
       }
     }
   }
@@ -175,33 +178,33 @@ sdpa_dkv_mma(const __nv_bfloat16* __restrict__ dO, const __nv_bfloat16* __restri
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
       *reinterpret_cast<uint32_t*>(dk + off + n * 8 + 2 * t) =
-          tt::pack_bf16(dk_acc[n][2 * r], dk_acc[n][2 * r + 1]);
+          tt::pack2<E>(dk_acc[n][2 * r], dk_acc[n][2 * r + 1]);
       *reinterpret_cast<uint32_t*>(dv + off + n * 8 + 2 * t) =
-          tt::pack_bf16(dv_acc[n][2 * r], dv_acc[n][2 * r + 1]);
+          tt::pack2<E>(dv_acc[n][2 * r], dv_acc[n][2 * r + 1]);
     }
   }
 }
 
-template <int HD>
+template <typename E, int HD>
 __global__ void __launch_bounds__(THREADS)
-sdpa_dq_mma(const __nv_bfloat16* __restrict__ dO, const __nv_bfloat16* __restrict__ q,
-            const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
+sdpa_dq_mma(const E* __restrict__ dO, const E* __restrict__ q,
+            const E* __restrict__ k, const E* __restrict__ v,
             const float* __restrict__ lse, const float* __restrict__ delta,
-            __nv_bfloat16* __restrict__ dq, int T, int S, float scale, int causal) {
+            E* __restrict__ dq, int T, int S, float scale, int causal) {
   constexpr int LD = HD + 8;
   constexpr int NT = HD / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Gs = Qs + BQ * LD;
-  __nv_bfloat16* Ks = Gs + BQ * LD;
-  __nv_bfloat16* Vs = Ks + BKV * LD;
+  E* Qs = reinterpret_cast<E*>(smem_raw);
+  E* Gs = Qs + BQ * LD;
+  E* Ks = Gs + BQ * LD;
+  E* Vs = Ks + BKV * LD;
 
   const int n_qt = (T + BQ - 1) / BQ;
   const int qt = n_qt - 1 - static_cast<int>(blockIdx.x % n_qt);   // heaviest first
   const size_t bh = blockIdx.x / n_qt;
   const int q0 = qt * BQ;
-  const __nv_bfloat16* kb = k + bh * S * HD;
-  const __nv_bfloat16* vb = v + bh * S * HD;
+  const E* kb = k + bh * S * HD;
+  const E* vb = v + bh * S * HD;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int wr = warp * 16;
@@ -240,10 +243,10 @@ sdpa_dq_mma(const __nv_bfloat16* __restrict__ dO, const __nv_bfloat16* __restric
       tt::load_a(ag, Gs, LD, wr, kk);
 #pragma unroll
       for (int j = 0; j < BKV / 8; ++j) {
-        const __nv_bfloat16* kp = Ks + (j * 8 + g) * LD + kk + 2 * t;
-        const __nv_bfloat16* vp = Vs + (j * 8 + g) * LD + kk + 2 * t;
-        tt::mma_bf16(s[j], aq, tt::ld_pair(kp), tt::ld_pair(kp + 8));
-        tt::mma_bf16(dp[j], ag, tt::ld_pair(vp), tt::ld_pair(vp + 8));
+        const E* kp = Ks + (j * 8 + g) * LD + kk + 2 * t;
+        const E* vp = Vs + (j * 8 + g) * LD + kk + 2 * t;
+        tt::mma16<E>(s[j], aq, tt::ld_pair(kp), tt::ld_pair(kp + 8));
+        tt::mma16<E>(dp[j], ag, tt::ld_pair(vp), tt::ld_pair(vp + 8));
       }
     }
 
@@ -263,16 +266,16 @@ sdpa_dq_mma(const __nv_bfloat16* __restrict__ dO, const __nv_bfloat16* __restric
 #pragma unroll
     for (int kk = 0; kk < BKV / 16; ++kk) {
       uint32_t a[4];
-      a[0] = tt::pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = tt::pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = tt::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = tt::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const __nv_bfloat16* kp = Ks + (kk * 16 + 2 * t) * LD + g;
+      a[0] = tt::pack2<E>(s[2 * kk][0], s[2 * kk][1]);
+      a[1] = tt::pack2<E>(s[2 * kk][2], s[2 * kk][3]);
+      a[2] = tt::pack2<E>(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      a[3] = tt::pack2<E>(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      const E* kp = Ks + (kk * 16 + 2 * t) * LD + g;
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
-        const __nv_bfloat16* c = kp + n * 8;
-        tt::mma_bf16(acc[n], a, tt::pack_bf16(c[0], c[LD]),
-                     tt::pack_bf16(c[8 * LD], c[9 * LD]));
+        const E* c = kp + n * 8;
+        tt::mma16<E>(acc[n], a, tt::pack2<E>(c[0], c[LD]),
+                     tt::pack2<E>(c[8 * LD], c[9 * LD]));
       }
     }
   }
@@ -280,11 +283,11 @@ sdpa_dq_mma(const __nv_bfloat16* __restrict__ dO, const __nv_bfloat16* __restric
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (row[r] >= T) continue;
-    __nv_bfloat16* o = dq + (bh * T + row[r]) * HD;
+    E* o = dq + (bh * T + row[r]) * HD;
 #pragma unroll
     for (int n = 0; n < NT; ++n)
       *reinterpret_cast<uint32_t*>(o + n * 8 + 2 * t) =
-          tt::pack_bf16(acc[n][2 * r], acc[n][2 * r + 1]);
+          tt::pack2<E>(acc[n][2 * r], acc[n][2 * r + 1]);
   }
 }
 
@@ -303,7 +306,7 @@ sdpa_dq_f32(const float* __restrict__ dO, const float* __restrict__ q,
   const float* kb = k + bh * S * hd;
   const float* vb = v + bh * S * hd;
   const float lr = lse[bh * T + r], dr = delta[bh * T + r];
-  float acc[128];
+  float acc[256];
   for (int d = 0; d < hd; ++d) acc[d] = 0.f;
   const int end = causal ? min(S, r + 1) : S;
   for (int c = 0; c < end; ++c) {
@@ -333,7 +336,7 @@ sdpa_dkv_f32(const float* __restrict__ dO, const float* __restrict__ q,
   if (c >= S) return;
   const float* kc = k + (bh * S + c) * hd;
   const float* vc = v + (bh * S + c) * hd;
-  float ak[128], av[128];
+  float ak[256], av[256];
   for (int d = 0; d < hd; ++d) ak[d] = av[d] = 0.f;
   for (int r = causal ? c : 0; r < T; ++r) {
     const float* qr = q + (bh * T + r) * hd;
@@ -356,30 +359,50 @@ sdpa_dkv_f32(const float* __restrict__ dO, const float* __restrict__ q,
   }
 }
 
-template <int HD>
+template <typename E, int HD>
 cudaError_t launch_mma(const void* g, const void* q, const void* k, const void* v,
                        const float* lse, const float* delta, void* dq, void* dk, void* dv, int BH,
                        int T, int S, float scale, int causal, cudaStream_t s) {
-  using bf = __nv_bfloat16;
-  constexpr int LDB = (HD + 8) * static_cast<int>(sizeof(bf));
+  constexpr int LDB = (HD + 8) * static_cast<int>(sizeof(E));
   const int smem_kv = 2 * BKV * LDB + 2 * BQD * LDB + 2 * BQD * static_cast<int>(sizeof(float));
   const int smem_q = 2 * BQ * LDB + 2 * BKV * LDB;
-  cudaError_t err = cudaFuncSetAttribute(sdpa_dkv_mma<HD>,
+  cudaError_t err = cudaFuncSetAttribute(sdpa_dkv_mma<E, HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(sdpa_dq_mma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(sdpa_dq_mma<E, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem_q);
   if (err != cudaSuccess) return err;
   const unsigned kv_blocks = static_cast<unsigned>(BH) * ((S + BKV - 1) / BKV);
-  sdpa_dkv_mma<HD><<<kv_blocks, THREADS, smem_kv, s>>>(
-      static_cast<const bf*>(g), static_cast<const bf*>(q), static_cast<const bf*>(k),
-      static_cast<const bf*>(v), lse, delta, static_cast<bf*>(dk), static_cast<bf*>(dv), T, S,
+  sdpa_dkv_mma<E, HD><<<kv_blocks, THREADS, smem_kv, s>>>(
+      static_cast<const E*>(g), static_cast<const E*>(q), static_cast<const E*>(k),
+      static_cast<const E*>(v), lse, delta, static_cast<E*>(dk), static_cast<E*>(dv), T, S,
       scale, causal);
   const unsigned q_blocks = static_cast<unsigned>(BH) * ((T + BQ - 1) / BQ);
-  sdpa_dq_mma<HD><<<q_blocks, THREADS, smem_q, s>>>(
-      static_cast<const bf*>(g), static_cast<const bf*>(q), static_cast<const bf*>(k),
-      static_cast<const bf*>(v), lse, delta, static_cast<bf*>(dq), T, S, scale, causal);
+  sdpa_dq_mma<E, HD><<<q_blocks, THREADS, smem_q, s>>>(
+      static_cast<const E*>(g), static_cast<const E*>(q), static_cast<const E*>(k),
+      static_cast<const E*>(v), lse, delta, static_cast<E*>(dq), T, S, scale, causal);
   return cudaSuccess;
+}
+
+// delta, then the dK/dV and dQ kernels in E (bf16 or fp16) at head dim hd, a
+// multiple of 16 up to 256
+template <typename E>
+cudaError_t launch16(const void* g, const void* q, const void* k, const void* v, const void* out,
+                     const float* lse, float* delta, void* dq, void* dk, void* dv, int BH, int T,
+                     int S, int hd, float scale, int causal, cudaStream_t s) {
+  const long long rows = static_cast<long long>(BH) * T;
+  delta_kernel<E><<<static_cast<unsigned>((rows + 7) / 8), 256, 0, s>>>(
+      static_cast<const E*>(g), static_cast<const E*>(out), delta, rows, hd);
+  switch (hd) {
+#define TT_SDPA_BWD_CASE(H) \
+  case H: return launch_mma<E, H>(g, q, k, v, lse, delta, dq, dk, dv, BH, T, S, scale, causal, s);
+    TT_SDPA_BWD_CASE(16) TT_SDPA_BWD_CASE(32) TT_SDPA_BWD_CASE(48) TT_SDPA_BWD_CASE(64)
+    TT_SDPA_BWD_CASE(80) TT_SDPA_BWD_CASE(96) TT_SDPA_BWD_CASE(112) TT_SDPA_BWD_CASE(128)
+    TT_SDPA_BWD_CASE(144) TT_SDPA_BWD_CASE(160) TT_SDPA_BWD_CASE(176) TT_SDPA_BWD_CASE(192)
+    TT_SDPA_BWD_CASE(208) TT_SDPA_BWD_CASE(224) TT_SDPA_BWD_CASE(240) TT_SDPA_BWD_CASE(256)
+#undef TT_SDPA_BWD_CASE
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -389,6 +412,7 @@ extern "C" int tt_sdpa_bwd(const void* g, const void* q, const void* k, const vo
                            void* delta, int BH, int T, int S, int hd, float scale, int causal,
                            int dtype, int device, void* stream) {
   cudaSetDevice(device);
+  if (hd <= 0 || hd > 256) return static_cast<int>(cudaErrorInvalidValue);
   if (BH <= 0 || T <= 0 || S <= 0) return static_cast<int>(cudaGetLastError());
   auto s = static_cast<cudaStream_t>(stream);
   const long long rows = static_cast<long long>(BH) * T;
@@ -396,26 +420,12 @@ extern "C" int tt_sdpa_bwd(const void* g, const void* q, const void* k, const vo
   const float* L = static_cast<const float*>(lse);
   float* Dl = static_cast<float*>(delta);
   cudaError_t err = cudaSuccess;
-  if (dtype == TT_BF16) {
-    delta_kernel<__nv_bfloat16><<<delta_blocks, 256, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(g), static_cast<const __nv_bfloat16*>(out), Dl, rows,
-        hd);
-    switch (hd) {
-#define TT_SDPA_BWD_CASE(H)                                                               \
-  case H:                                                                                 \
-    err = launch_mma<H>(g, q, k, v, L, Dl, dq, dk, dv, BH, T, S, scale, causal, s); \
-    break;
-      TT_SDPA_BWD_CASE(16)
-      TT_SDPA_BWD_CASE(32)
-      TT_SDPA_BWD_CASE(48)
-      TT_SDPA_BWD_CASE(64)
-      TT_SDPA_BWD_CASE(80)
-      TT_SDPA_BWD_CASE(96)
-      TT_SDPA_BWD_CASE(112)
-      TT_SDPA_BWD_CASE(128)
-#undef TT_SDPA_BWD_CASE
-      default: return static_cast<int>(cudaErrorInvalidValue);
-    }
+  if (dtype == TT_BF16 || dtype == TT_F16) {
+    err = dtype == TT_BF16
+              ? launch16<__nv_bfloat16>(g, q, k, v, out, L, Dl, dq, dk, dv, BH, T, S, hd, scale,
+                                        causal, s)
+              : launch16<__half>(g, q, k, v, out, L, Dl, dq, dk, dv, BH, T, S, hd, scale, causal,
+                                 s);
     if (err != cudaSuccess) return static_cast<int>(err);
   } else {
     const float* G = static_cast<const float*>(g);

@@ -21,7 +21,8 @@
 // Three designs, chosen by the wrapper (cudaex.sdpa_fwd_design) from the
 // dtype and the head dim alone and passed in as `design`:
 //
-// wgmma (bf16, hd 64 and 128: llama3-8b's and the TPU checker's head dims).
+// wgmma (bf16 or fp16, hd 64 and 128: llama3-8b's and the TPU checker's head
+//   dims; the instructions' .bf16 or .f16 form).
 //   A block of three warpgroups owns a 128-row q tile of one batch*head and
 //   walks 128-row kv tiles. Warpgroup 0 is the producer: it gives up
 //   registers (setmaxnreg 40) and one thread issues TMA loads, Q once and K
@@ -30,7 +31,7 @@
 //   232) each own 64 q rows: S = Q K^T as wgmma m64n128k16 with both operands
 //   read from 128-byte-swizzled shared memory (K-major); the online softmax
 //   on the f32 accumulator in registers, in base 2 with scale*log2(e) folded
-//   into one multiply; P rounded to bf16 in registers, where the accumulator
+//   into one multiply; P rounded to the input type in registers, where the accumulator
 //   layout of two neighbouring 8-column groups is the A fragment of the next
 //   wgmma; O += P V as wgmma m64n{hd}k16 with A from registers and V read
 //   MN-major from shared memory as stored (the transpose bit). The TMA maps
@@ -44,16 +45,17 @@
 //   later: overlapping one tile's softmax with the next tile's QK^T inside a
 //   warpgroup (FA3's ping-pong), a persistent grid, fp8.
 //
-// mma (bf16, other head dims, the first version): one block of 4 warps owns a
+// mma (bf16 or fp16, other head dims: multiples of 16 up to 256, the first
+//   version; a head dim off the multiples of 16 is zero-padded by the wrapper,
+//   cudaex.sdpa_fwd): one block of 4 warps owns a
 //   64-row q tile and loops over 64-row kv tiles staged in shared memory with
 //   16-byte loads; QK^T and PV on mma.sync m16n8k16 with the softmax state in
 //   the fragments. Loads and products do not overlap.
 //
-// fma (float32): a plain FMA kernel, one thread per q row.
-#include <cuda.h>
+// fma (float32, head dims up to 256): a plain FMA kernel, one thread per q row.
 #include <math.h>
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -61,31 +63,31 @@ constexpr int BQ = 64;    // q rows per block (16 per warp)
 constexpr int BKV = 64;   // kv rows per tile
 constexpr int THREADS = 128;
 
-template <int HD>
+template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS)
-sdpa_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-             const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-             float* __restrict__ lse, int T, int S, float scale, int causal) {
-  constexpr int LD = HD + 8;   // bf16 row stride in shared memory (conflict-free fragments)
+sdpa_fwd_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+             T* __restrict__ out, float* __restrict__ lse, int Tq, int S, float scale,
+             int causal) {
+  constexpr int LD = HD + 8;   // 16-bit row stride in shared memory (conflict-free fragments)
   constexpr int NT = HD / 8;   // 8-column tiles of the accumulator
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = Qs + BQ * LD;
-  __nv_bfloat16* Vs = Ks + BKV * LD;
+  T* Qs = reinterpret_cast<T*>(smem_raw);
+  T* Ks = Qs + BQ * LD;
+  T* Vs = Ks + BKV * LD;
 
-  const int n_qt = (T + BQ - 1) / BQ;
+  const int n_qt = (Tq + BQ - 1) / BQ;
   const int qt = n_qt - 1 - static_cast<int>(blockIdx.x % n_qt);   // heaviest first
   const size_t bh = blockIdx.x / n_qt;
   const int q0 = qt * BQ;
-  const __nv_bfloat16* qb = q + bh * T * HD;
-  const __nv_bfloat16* kb = k + bh * S * HD;
-  const __nv_bfloat16* vb = v + bh * S * HD;
+  const T* qb = q + bh * Tq * HD;
+  const T* kb = k + bh * S * HD;
+  const T* vb = v + bh * S * HD;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int wr = warp * 16;                  // the warp's first row in the tile
   const int row[2] = {q0 + wr + g, q0 + wr + g + 8};
 
-  tt::stage_rows<HD>(Qs, LD, qb, q0, BQ, T);
+  tt::stage_rows<HD>(Qs, LD, qb, q0, BQ, Tq);
 
   float acc[NT][4];
 #pragma unroll
@@ -109,8 +111,8 @@ sdpa_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
       tt::load_a(a, Qs, LD, wr, kk);
 #pragma unroll
       for (int j = 0; j < BKV / 8; ++j) {
-        const __nv_bfloat16* kp = Ks + (j * 8 + g) * LD + kk + 2 * t;
-        tt::mma_bf16(s[j], a, tt::ld_pair(kp), tt::ld_pair(kp + 8));
+        const T* kp = Ks + (j * 8 + g) * LD + kk + 2 * t;
+        tt::mma16<T>(s[j], a, tt::ld_pair(kp), tt::ld_pair(kp + 8));
       }
     }
 
@@ -159,34 +161,33 @@ sdpa_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
       acc[n][3] *= alpha[1];
     }
 
-    // acc += P V, P rounded to bf16; V is (kv, d) row-major, read down a column
+    // acc += P V, P rounded to T; V is (kv, d) row-major, read down a column
 #pragma unroll
     for (int kk = 0; kk < BKV / 16; ++kk) {
       uint32_t a[4];
-      a[0] = tt::pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = tt::pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = tt::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = tt::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const __nv_bfloat16* vp = Vs + (kk * 16 + 2 * t) * LD + g;
+      a[0] = tt::pack2<T>(s[2 * kk][0], s[2 * kk][1]);
+      a[1] = tt::pack2<T>(s[2 * kk][2], s[2 * kk][3]);
+      a[2] = tt::pack2<T>(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      a[3] = tt::pack2<T>(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      const T* vp = Vs + (kk * 16 + 2 * t) * LD + g;
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
-        const __nv_bfloat16* c = vp + n * 8;
-        tt::mma_bf16(acc[n], a, tt::pack_bf16(c[0], c[LD]),
-                     tt::pack_bf16(c[8 * LD], c[9 * LD]));
+        const T* c = vp + n * 8;
+        tt::mma16<T>(acc[n], a, tt::pack2<T>(c[0], c[LD]), tt::pack2<T>(c[8 * LD], c[9 * LD]));
       }
     }
   }
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    if (row[r] >= T) continue;
+    if (row[r] >= Tq) continue;
     const float lsafe = l[r] == 0.f ? 1.f : l[r];
-    __nv_bfloat16* orow = out + (bh * T + row[r]) * HD;
+    T* orow = out + (bh * Tq + row[r]) * HD;
 #pragma unroll
     for (int n = 0; n < NT; ++n)
       *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * t) =
-          tt::pack_bf16(acc[n][2 * r] / lsafe, acc[n][2 * r + 1] / lsafe);
-    if (t == 0) lse[bh * T + row[r]] = m[r] + logf(lsafe);
+          tt::pack2<T>(acc[n][2 * r] / lsafe, acc[n][2 * r + 1] / lsafe);
+    if (t == 0) lse[bh * Tq + row[r]] = m[r] + logf(lsafe);
   }
 }
 
@@ -202,7 +203,7 @@ sdpa_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   const float* qr = q + (bh * T + r) * hd;
   const float* kb = k + bh * S * hd;
   const float* vb = v + bh * S * hd;
-  float acc[128];
+  float acc[256];
   for (int d = 0; d < hd; ++d) acc[d] = 0.f;
   float m = -INFINITY, l = 0.f;
   const int end = causal ? min(S, r + 1) : S;
@@ -223,152 +224,16 @@ sdpa_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// The wgmma design: Hopper primitives (PTX), then the kernel.
+// The wgmma design, on the Hopper primitives of hopper.cuh.
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Wait for the phase of `parity` to complete. A wait that lasts past ~2^31
-// cycles (about a second) cannot be a tile in flight: it traps, so a broken
-// barrier protocol ends the launch with an error instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  const long long t0 = clock64();
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (clock64() - t0 > (1ll << 31)) __trap();
-  }
-}
-
-// TMA: the box at (c0, c1, c2) of a 3-D map into shared memory, completing on `bar`
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Ties every register of an accumulator to this point, so the compiler
-// neither reads one before the wgmma that writes it has been waited on nor
-// moves a write past the wgmma that reads it.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// Shared-memory matrix descriptor of a 128-byte-swizzled operand (layout
-// type 1). K-major (Q, K): rows of 128 bytes, 8-row groups SBO = 1024 bytes
-// apart, LBO unused; a 16-deep k step inside the 64-column box moves the
-// start by 32 bytes. MN-major (V): LBO is the distance between 64-column
-// boxes, SBO = 1024 bytes between groups of 8 k rows.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
-                                             int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
-        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
-        "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
-        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
-        "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
+using namespace tt::hopper;
 
 constexpr int WG_BQ = 128;          // q rows per block, 64 per consumer warpgroup
 constexpr int WG_BKV = 128;         // kv rows per tile
 constexpr int WG_STAGES = 2;        // K/V ring depth
 constexpr int WG_THREADS = 384;     // producer warpgroup + two consumer warpgroups
-constexpr int BOX_COLS = 64;        // bf16 columns of one 128-byte-swizzled TMA box
+constexpr int BOX_COLS = 64;        // 16-bit columns of one 128-byte-swizzled TMA box
 constexpr int BOX_BYTES = 128 * 128;  // one box: 128 rows of 128 bytes
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.69314718055994531f;
@@ -384,18 +249,10 @@ struct WgLayout {
   static constexpr int BYTES = BAR + 8 * (1 + 3 * WG_STAGES) + 1024;   // + alignment slack
 };
 
-template <int HD>
-__device__ __forceinline__ void wgmma_pv(float (&o)[HD / 2], const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (HD == 128)
-    wgmma_rs_n128(o, a, db);
-  else
-    wgmma_rs_n64(o, a, db);
-}
-
-template <int HD>
+template <typename TE, int HD>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 sdpa_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-               const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out,
+               const __grid_constant__ CUtensorMap tv, TE* __restrict__ out,
                float* __restrict__ lse, int BH, int T, int S, float scale_log2, int causal) {
   static_assert(HD == 64 || HD == 128, "the wgmma design takes head dims 64 and 128");
   using L = WgLayout<HD>;
@@ -422,13 +279,13 @@ sdpa_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
       mbar_init(v_full(s), 1);
       mbar_init(empty(s), 2 * 128);   // every consumer thread releases the stage
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
   if (threadIdx.x < 128) {
     // producer: one thread keeps the ring full
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    setmaxnreg_dec<40>();
     if (threadIdx.x == 0) {
       mbar_expect_tx(q_full, L::TILE);
       for (int b = 0; b < BOXES; ++b)
@@ -448,7 +305,7 @@ sdpa_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
     }
   } else {
     // consumers: warpgroup c owns q rows [q0 + 64 c, q0 + 64 c + 64)
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    setmaxnreg_inc<232>();
     const int c = threadIdx.x / 128 - 1;
     const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
     const int row0 = q0 + 64 * c + 16 * warp + g;   // the thread's rows: row0, row0 + 8
@@ -475,8 +332,8 @@ sdpa_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk) {
         const uint32_t off = (kk / 4) * BOX_BYTES + (kk % 4) * 32;
-        wgmma_ss_n128(sc, desc_sw128(q_rows + off, 16, 1024), desc_sw128(k_tile + off, 16, 1024),
-                      kk > 0);
+        wgmma_ss<TE, 0, 0>(sc, desc_sw128(q_rows + off, 16, 1024),
+                           desc_sw128(k_tile + off, 16, 1024), kk > 0);
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -515,14 +372,14 @@ sdpa_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
       }
 #pragma unroll
       for (int i = 0; i < HD / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
-      // P rounded to bf16: two neighbouring 8-column groups of the
+      // P rounded to TE: two neighbouring 8-column groups of the
       // accumulator are one A fragment of the PV product
       uint32_t pa[WG_BKV / 16][4];
 #pragma unroll
       for (int kk = 0; kk < WG_BKV / 16; ++kk)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          pa[kk][e] = tt::pack_bf16(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1]);
+          pa[kk][e] = tt::pack2<TE>(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1]);
 
       // O += P V, V MN-major as stored
       mbar_wait(v_full(s), ph);
@@ -530,7 +387,7 @@ sdpa_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < WG_BKV / 16; ++kk)
-        wgmma_pv<HD>(o, pa[kk], desc_sw128(v_tile + kk * 16 * 128, BOX_BYTES, 1024));
+        wgmma_rs<TE, 1>(o, pa[kk], desc_sw128(v_tile + kk * 16 * 128, BOX_BYTES, 1024));
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(o);
@@ -544,43 +401,20 @@ sdpa_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
       const int row = row0 + 8 * r;
       if (row >= T) continue;
       const float lsafe = l[r] == 0.f ? 1.f : l[r];
-      __nv_bfloat16* orow = out + (static_cast<size_t>(bh) * T + row) * HD;
+      TE* orow = out + (static_cast<size_t>(bh) * T + row) * HD;
 #pragma unroll
       for (int n = 0; n < HD / 8; ++n)
         *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * t) =
-            tt::pack_bf16(o[4 * n + 2 * r] / lsafe, o[4 * n + 2 * r + 1] / lsafe);
+            tt::pack2<TE>(o[4 * n + 2 * r] / lsafe, o[4 * n + 2 * r + 1] / lsafe);
       if (t == 0) lse[static_cast<size_t>(bh) * T + row] = m[r] * kLn2 + logf(lsafe);
     }
   }
 }
 
-// cuTensorMapEncodeTiled, looked up through the runtime's entry-point query (no -lcuda)
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
-// A 3-D map over a (BH, rows, hd) bf16 tensor, (hd, rows, BH) innermost
+// A 3-D map over a (BH, rows, hd) 16-bit tensor, (hd, rows, BH) innermost
 // first, in 64-column x 128-row boxes with the 128-byte swizzle; rows past
 // the end of a head read as zeros.
+template <typename TE>
 bool head_map(CUtensorMap* map, EncodeTiledFn fn, const void* base, int BH, int rows, int hd) {
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(rows),
                               static_cast<cuuint64_t>(BH)};
@@ -588,73 +422,84 @@ bool head_map(CUtensorMap* map, EncodeTiledFn fn, const void* base, int BH, int 
                                  static_cast<cuuint64_t>(rows) * hd * 2};
   const cuuint32_t box[3] = {BOX_COLS, 128, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box,
+  return fn(map, map_dtype<TE>(), 3, const_cast<void*>(base), dims, strides, box,
             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int HD>
+template <typename TE, int HD>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out, void* lse,
                          int BH, int T, int S, float scale, int causal, cudaStream_t s) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   CUtensorMap tq, tk, tv;
-  if (!head_map(&tq, fn, q, BH, T, HD) || !head_map(&tk, fn, k, BH, S, HD) ||
-      !head_map(&tv, fn, v, BH, S, HD))
+  if (!head_map<TE>(&tq, fn, q, BH, T, HD) || !head_map<TE>(&tk, fn, k, BH, S, HD) ||
+      !head_map<TE>(&tv, fn, v, BH, S, HD))
     return cudaErrorInvalidValue;
   constexpr int smem = WgLayout<HD>::BYTES;
   const cudaError_t err = cudaFuncSetAttribute(
-      sdpa_fwd_wgmma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      sdpa_fwd_wgmma<TE, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const unsigned blocks = static_cast<unsigned>(BH) * ((T + WG_BQ - 1) / WG_BQ);
-  sdpa_fwd_wgmma<HD><<<blocks, WG_THREADS, smem, s>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), BH, T, S,
+  sdpa_fwd_wgmma<TE, HD><<<blocks, WG_THREADS, smem, s>>>(
+      tq, tk, tv, static_cast<TE*>(out), static_cast<float*>(lse), BH, T, S,
       scale * kLog2e, causal);
   return cudaSuccess;
 }
 
-template <int HD>
+template <typename TE, int HD>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out, void* lse, int BH,
                        int T, int S, float scale, int causal, cudaStream_t s) {
-  const int smem = (BQ + 2 * BKV) * (HD + 8) * static_cast<int>(sizeof(__nv_bfloat16));
-  cudaError_t err = cudaFuncSetAttribute(sdpa_fwd_mma<HD>,
+  const int smem = (BQ + 2 * BKV) * (HD + 8) * static_cast<int>(sizeof(TE));
+  cudaError_t err = cudaFuncSetAttribute(sdpa_fwd_mma<TE, HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const unsigned blocks = static_cast<unsigned>(BH) * ((T + BQ - 1) / BQ);
-  sdpa_fwd_mma<HD><<<blocks, THREADS, smem, s>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      static_cast<float*>(lse), T, S, scale, causal);
+  sdpa_fwd_mma<TE, HD><<<blocks, THREADS, smem, s>>>(
+      static_cast<const TE*>(q), static_cast<const TE*>(k), static_cast<const TE*>(v),
+      static_cast<TE*>(out), static_cast<float*>(lse), T, S, scale, causal);
   return cudaSuccess;
+}
+
+// the 16-bit designs at head dim hd (a multiple of 16 up to 256)
+template <typename TE>
+cudaError_t launch16(int design, const void* q, const void* k, const void* v, void* out,
+                     void* lse, int BH, int T, int S, int hd, float scale, int causal,
+                     cudaStream_t s) {
+  if (design == 2)
+    return hd == 128 ? launch_wgmma<TE, 128>(q, k, v, out, lse, BH, T, S, scale, causal, s)
+                     : launch_wgmma<TE, 64>(q, k, v, out, lse, BH, T, S, scale, causal, s);
+  switch (hd) {
+#define TT_MMA_HD(H) \
+  case H: return launch_mma<TE, H>(q, k, v, out, lse, BH, T, S, scale, causal, s);
+    TT_MMA_HD(16) TT_MMA_HD(32) TT_MMA_HD(48) TT_MMA_HD(80) TT_MMA_HD(96) TT_MMA_HD(112)
+    TT_MMA_HD(144) TT_MMA_HD(160) TT_MMA_HD(176) TT_MMA_HD(192) TT_MMA_HD(208)
+    TT_MMA_HD(224) TT_MMA_HD(240) TT_MMA_HD(256)
+#undef TT_MMA_HD
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// design: 0 fma (float32), 1 mma (bf16), 2 wgmma (bf16, hd 64 or 128), as
-// cudaex.sdpa_fwd_design chooses; a design the inputs do not fit is refused.
+// design: 0 fma (float32), 1 mma (bf16 or fp16), 2 wgmma (bf16 or fp16, hd 64
+// or 128), as cudaex.sdpa_fwd_design chooses; a design the inputs do not fit
+// is refused. Head dims: multiples of 16 up to 256 (16-bit), up to 256 (f32).
 extern "C" int tt_sdpa_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
                            int BH, int T, int S, int hd, float scale, int causal, int dtype,
                            int design, int device, void* stream) {
   cudaSetDevice(device);
   if ((design == 0) != (dtype == TT_F32) ||
-      (design != 0 && (design == 2) != (hd == 64 || hd == 128)))
+      (design != 0 && ((design == 2) != (hd == 64 || hd == 128) || hd % 16)) || hd > 256 ||
+      hd <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (BH > 0 && T > 0) {
     auto s = static_cast<cudaStream_t>(stream);
     cudaError_t err = cudaSuccess;
-    if (design == 2) {
-      err = hd == 128 ? launch_wgmma<128>(q, k, v, out, lse, BH, T, S, scale, causal, s)
-                      : launch_wgmma<64>(q, k, v, out, lse, BH, T, S, scale, causal, s);
-    } else if (design == 1) {
-      switch (hd) {
-        case 16: err = launch_mma<16>(q, k, v, out, lse, BH, T, S, scale, causal, s); break;
-        case 32: err = launch_mma<32>(q, k, v, out, lse, BH, T, S, scale, causal, s); break;
-        case 48: err = launch_mma<48>(q, k, v, out, lse, BH, T, S, scale, causal, s); break;
-        case 80: err = launch_mma<80>(q, k, v, out, lse, BH, T, S, scale, causal, s); break;
-        case 96: err = launch_mma<96>(q, k, v, out, lse, BH, T, S, scale, causal, s); break;
-        case 112: err = launch_mma<112>(q, k, v, out, lse, BH, T, S, scale, causal, s); break;
-        default: return static_cast<int>(cudaErrorInvalidValue);
-      }
+    if (dtype == TT_BF16) {
+      err = launch16<__nv_bfloat16>(design, q, k, v, out, lse, BH, T, S, hd, scale, causal, s);
+    } else if (dtype == TT_F16) {
+      err = launch16<__half>(design, q, k, v, out, lse, BH, T, S, hd, scale, causal, s);
     } else {
       const unsigned blocks = static_cast<unsigned>(BH) * ((T + 63) / 64);
       sdpa_fwd_f32<<<blocks, 64, 0, s>>>(static_cast<const float*>(q),

@@ -19,13 +19,26 @@ exports plain C entry points, bound here with ``ctypes``: pointers and the
 stream travel as ``c_void_p``, and the entry returns ``cudaGetLastError()``,
 which the wrapper turns into an exception.
 
-Refusals: each wrapper checks dtype, shape, contiguity and alignment and
-raises on what its kernel does not take, with the reason, before any
-launch. :func:`refusal` gives that reason (None where the kernel takes the
-arguments) for any kernel by name, called with its wrapper's arguments: the
-counterpart of pallasex's ``_*_checker`` functions, except that on the card
-a refusal is an error, never a fallback to the plain version. A build or
-launch failure raises too.
+Inputs: the kernels take float32, bfloat16 and float16. A wrapper makes a
+read-only operand dense (:func:`_dense`: contiguous and 16-byte aligned, a
+copy only where it is neither), promotes operands of mixed dtypes to the
+dtype the reference's decomposition computes in (:func:`promote`; the
+norms take a weight dtype of its own instead, which keeps the
+decomposition's rounding of the normed row), zero-pads a 16-bit attention
+head dim off the multiples of 16 (:func:`sdpa_head_dim`) and
+``linear_act``'s K on the tile path (:func:`tile_k`), and slices the
+results back. A tensor a kernel works on in place (parameters, moments, KV
+pools) is never copied: it must be contiguous and aligned.
+
+Refusals: each wrapper checks what remains (float64, which the reference
+never makes; shapes that are not the op's; the in-place rule; a
+mixed-dtype fused sub-block, whose decomposition rounds where no kernel
+here does) and raises the reason before any launch. :func:`refusal` gives
+that reason (None where the kernel takes the arguments) for any kernel by
+name, called with its wrapper's arguments: the counterpart of pallasex's
+``_*_checker`` functions, except that on the card a refusal is an error,
+never a fallback to the plain version. A build or launch failure raises
+too.
 
 Wrappers: outputs are allocated with ``torch.empty``; the kernel runs on
 ``torch.cuda.current_stream()`` and does not synchronise. Every wrapper adds
@@ -37,8 +50,11 @@ Designs: ``sdpa_fwd`` and ``linear_act`` each hold more than one kernel
 design, and the wrapper picks one by a fixed rule of shape and dtype
 (:func:`sdpa_fwd_design`, :func:`linear_act_path`), passes it to the C
 entry, which refuses a design the inputs do not fit, and counts the launch
-under it as well (:func:`design_counts`). A launch never falls back to
-another design.
+under it as well (:func:`design_counts`). ``mlp_subblock``,
+``mlp_subblock_bwd`` and ``linear_act``'s tile path run on gemm.cuh's
+mainloops, chosen by dtype alone (:func:`gemm_design`: the TMA + wgmma one
+for 16-bit types, the FMA one for float32), and count their launches by
+it. A launch never falls back to another design.
 """
 
 from __future__ import annotations
@@ -67,7 +83,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_SIXTEEN_BIT = (torch.bfloat16, torch.float16)
 ACTIVATIONS = {"relu": 0, "silu": 1, "gelu": 2, "gelu_tanh": 3}
 
 
@@ -86,15 +103,15 @@ class Kernel:
     fn: object = field(default=None, repr=False)
 
 
-_ADAMW_ARGS = (_P, _I, _L, _P) + (_F,) * 7 + (_I, _I, _I, _I, _P)
+_ADAMW_ARGS = (_P, _I, _L, _P) + (_F,) * 7 + (_I, _I, _I, _I, _I, _P)
 
 KERNELS = {k.name: k for k in (
     Kernel("rms_norm", "thunder_tpu_torch/csrc/rms_norm.cu",
            "thunder_tpu/executors/pallasex.py:738", "tt_rms_norm",
-           (_P, _P, _P, _L, _I, _F, _I, _I, _P)),
+           (_P, _P, _P, _L, _I, _F, _I, _I, _I, _P)),
     Kernel("rms_norm_residual", "thunder_tpu_torch/csrc/rms_norm_residual.cu",
            "thunder_tpu/executors/pallasex.py:811", "tt_rms_norm_residual",
-           (_P, _P, _P, _P, _P, _L, _I, _F, _I, _I, _P)),
+           (_P, _P, _P, _P, _P, _L, _I, _F, _I, _I, _I, _P)),
     Kernel("linear_act", "thunder_tpu_torch/csrc/linear_act.cu",
            "thunder_tpu/executors/pallasex.py:896", "tt_linear_act",
            (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),
@@ -120,7 +137,7 @@ KERNELS = {k.name: k for k in (
            (_P,) * 10 + (_I, _I, _I, _I, _F, _I, _I, _P)),
     Kernel("mlp_subblock_bwd", "thunder_tpu_torch/csrc/mlp_subblock_bwd.cu",
            "thunder_tpu/executors/pallasex.py:1161", "tt_mlp_subblock_bwd",
-           (_P,) * 19 + (_I, _I, _I, _I, _F, _I, _I, _P)),
+           (_P,) * 20 + (_I, _I, _I, _I, _F, _I, _I, _P)),
     Kernel("decode_layer", "thunder_tpu_torch/csrc/decode_layer.cu",
            "thunder_tpu/executors/pallasex.py:1751", "tt_decode_layer",
            (_P,) * 24 + (_I,) * 12 + (_F, _F, _I, _I, _P)),
@@ -155,13 +172,23 @@ SDPA_FWD_DESIGNS = ("fma", "mma", "wgmma")
 SDPA_WGMMA_HEAD_DIMS = (64, 128)
 
 
+def sdpa_head_dim(dtype: torch.dtype, hd: int) -> int:
+    """The head dim the attention kernels run at for inputs of ``dtype`` and
+    head dim ``hd``: the 16-bit kernels' tensor-core products take multiples
+    of 16, so a 16-bit head dim off them is zero-padded to the next one
+    (zero columns add nothing to q k^T, and the padded columns of the output
+    and the gradients are sliced off); float32 runs at ``hd``."""
+    return -(-hd // 16) * 16 if dtype in _SIXTEEN_BIT else hd
+
+
 def sdpa_fwd_design(dtype: torch.dtype, hd: int) -> str:
     """The ``sdpa_fwd`` design that inputs of ``dtype`` and head dim ``hd``
-    take: ``"wgmma"`` for bf16 at hd 64 or 128, ``"mma"`` (mma.sync) for
-    bf16 at other head dims, ``"fma"`` for float32."""
+    take: ``"wgmma"`` for bf16 or fp16 at hd 64 or 128, ``"mma"`` (mma.sync)
+    for bf16 or fp16 at other head dims (padded to a multiple of 16),
+    ``"fma"`` for float32."""
     if dtype == torch.float32:
         return "fma"
-    return "wgmma" if hd in SDPA_WGMMA_HEAD_DIMS else "mma"
+    return "wgmma" if sdpa_head_dim(dtype, hd) in SDPA_WGMMA_HEAD_DIMS else "mma"
 
 
 # linear_act's paths, by the code the C entry takes (csrc/linear_act.cu)
@@ -171,9 +198,69 @@ LINEAR_ACT_STREAM_MAX_ROWS = 16   # two n-tiles of 8 activation rows
 
 def linear_act_path(dtype: torch.dtype, M: int) -> str:
     """The ``linear_act`` path that ``M`` rows of ``dtype`` take:
-    ``"stream"`` (the weight-streaming decode kernel) for bf16 at
-    M <= 16, ``"tile"`` (gemm.cuh's mainloop) otherwise."""
-    return "stream" if dtype == torch.bfloat16 and M <= LINEAR_ACT_STREAM_MAX_ROWS else "tile"
+    ``"stream"`` (the weight-streaming decode kernel) for bf16 or fp16 at
+    M <= 16, ``"tile"`` (gemm.cuh's mainloops) otherwise."""
+    return "stream" if dtype in _SIXTEEN_BIT and M <= LINEAR_ACT_STREAM_MAX_ROWS else "tile"
+
+
+def gemm_design(dtype: torch.dtype) -> str:
+    """The mainloop of ``mlp_subblock``, ``mlp_subblock_bwd`` and
+    ``linear_act``'s tile path for ``dtype`` (gemm.cuh): ``"wgmma"`` (TMA +
+    wgmma) for bf16 and fp16, ``"fma"`` (cp.async + FMA) for float32, where
+    wgmma in tf32 would change the numerics."""
+    return "wgmma" if dtype in _SIXTEEN_BIT else "fma"
+
+
+def linear_act_design(dtype: torch.dtype, M: int) -> str:
+    """The design a ``linear_act`` launch is counted under: ``"stream"``, or
+    the tile path's mainloop (:func:`gemm_design`)."""
+    path = linear_act_path(dtype, M)
+    return path if path == "stream" else gemm_design(dtype)
+
+
+def tile_k(dtype: torch.dtype, K: int) -> int:
+    """The depth the tile path runs at: ``K`` rounded up to 16 bytes' worth
+    of elements (TMA and the 16-byte copies need rows on that alignment); A
+    and W are zero-padded along K to it where it differs."""
+    per16 = 128 // torch.finfo(dtype).bits
+    return -(-K // per16) * per16
+
+
+def pad_last(t: torch.Tensor, n: int) -> torch.Tensor:
+    """``t`` zero-padded along its last dim to ``n`` (``t`` itself where it
+    is that wide already)."""
+    if t.shape[-1] == n:
+        return t
+    out = t.new_zeros(t.shape[:-1] + (n,))
+    out[..., :t.shape[-1]] = t
+    return out
+
+
+def promoted_dtype(*tensors) -> torch.dtype:
+    """The common dtype of the tensors (None entries skipped), the dtype the
+    reference's decomposition computes a mixed-dtype op in
+    (``torch.promote_types``, as JAX promotes)."""
+    dts = [t.dtype for t in tensors if t is not None]
+    dt = dts[0]
+    for d in dts[1:]:
+        dt = torch.promote_types(dt, d)
+    return dt
+
+
+def promote(*tensors):
+    """The tensors (None entries kept) cast to :func:`promoted_dtype`."""
+    dt = promoted_dtype(*tensors)
+    return tuple(t if t is None or t.dtype == dt else t.to(dt) for t in tensors)
+
+
+def _dense(t):
+    """A read-only operand as the kernels read it: contiguous and 16-byte
+    aligned (a copy only where ``t`` is neither). A tensor a kernel writes
+    in place is never copied: its wrapper refuses it instead."""
+    if t is None:
+        return None
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
 
 
 def _nvcc() -> str:
@@ -258,27 +345,40 @@ def _launch(name: str, *args, design: str | None = None) -> None:
 # raises the reason
 # ---------------------------------------------------------------------------
 
-def _tensors_refusal(name: str, *tensors, dtype: torch.dtype) -> str | None:
+def _tensors_refusal(name: str, *tensors, dtype: torch.dtype,
+                     in_place: bool = False) -> str | None:
     """Why the tensors given (None entries skipped) are not all on one
-    device, contiguous, of ``dtype``."""
+    device, of ``dtype``, and (``in_place``: tensors the kernel writes in
+    place, which a copy would lose the update of) contiguous and 16-byte
+    aligned. Read-only operands need neither: their wrapper passes them
+    through :func:`_dense`."""
     tensors = [t for t in tensors if t is not None]
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev:
             return f"{name}: tensors on {dev} and {t.device}"
-        if not t.is_contiguous():
-            return f"{name}: tensor of shape {tuple(t.shape)} is not contiguous"
         if t.dtype != dtype:
             return f"{name}: dtype {t.dtype} where {dtype} is required"
+        if in_place and not t.is_contiguous():
+            return (f"{name}: tensor of shape {tuple(t.shape)} is not contiguous (the kernel "
+                    f"works on it in place: a copy would lose its update or copy a whole pool)")
+    if in_place and _unaligned(*tensors):
+        return f"{name}: tensors the kernel writes in place must be 16-byte aligned"
     return None
 
 
-def _floats_refusal(name: str, x: torch.Tensor, *others) -> str | None:
-    """Why ``x`` is not float32 or bfloat16, or ``x`` and ``others`` do not
-    share its dtype, device and contiguity."""
-    if x.dtype not in _DTYPE_CODES:
-        return f"{name}: dtype {x.dtype} not supported (float32 or bfloat16)"
-    return _tensors_refusal(name, x, *others, dtype=x.dtype)
+def _dtype_refusal(name: str, t: torch.Tensor) -> str | None:
+    if t.dtype not in _DTYPE_CODES:
+        return (f"{name}: dtype {t.dtype} not supported (float32, bfloat16 or float16; the "
+                f"reference makes no other floating arrays)")
+    return None
+
+
+def _floats_refusal(name: str, x: torch.Tensor, *others, in_place: bool = False) -> str | None:
+    """Why ``x`` is not float32, bfloat16 or float16, or ``x`` and ``others``
+    do not share its dtype and device (and, ``in_place``, contiguity)."""
+    return _dtype_refusal(name, x) or _tensors_refusal(name, x, *others, dtype=x.dtype,
+                                                       in_place=in_place)
 
 
 def _unaligned(*tensors) -> bool:
@@ -300,25 +400,41 @@ def _stream(t: torch.Tensor) -> int:
 
 
 def _rms_refusal(name: str, x, weight, *others) -> str | None:
+    """x (and ``others`` of its dtype) against a weight of any float dtype:
+    the kernels take the weight's dtype as a type of their own."""
     if x.ndim == 0:
         return f"{name}: a scalar has no rows"
-    reason = _floats_refusal(name, x, weight, *others)
+    reason = _floats_refusal(name, x, *others)
+    if not reason and weight is not None:
+        reason = _dtype_refusal(name, weight)
+        if not reason and weight.device != x.device:
+            reason = f"{name}: weight on {weight.device}, x on {x.device}"
     D = x.shape[-1]
     if not reason and weight is not None and tuple(weight.shape) != (D,):
         reason = f"{name}: weight {tuple(weight.shape)} for rows of {D}"
     return reason
 
 
+def _norm_out_dtype(x: torch.Tensor, weight) -> torch.dtype:
+    """The norms' output dtype: x's, or the promoted dtype where the weight's
+    differs (the reference multiplies the x-dtype row by the weight)."""
+    return x.dtype if weight is None else torch.promote_types(x.dtype, weight.dtype)
+
+
 def rms_norm(x: torch.Tensor, weight: torch.Tensor | None, eps: float) -> torch.Tensor:
-    """``rms_norm`` over the last dim of a contiguous ``(..., D)`` tensor."""
+    """``rms_norm`` over the last dim of a ``(..., D)`` tensor; the weight
+    may be of another float dtype, and the output is then float32 (the
+    promoted dtype), the normalised row still rounded to x's dtype first."""
     name = "rms_norm"
     _refuse(_rms_refusal(name, x, weight))
     _require_cuda(name, x)
+    x, weight = _dense(x), _dense(weight)
     D = x.shape[-1]
-    out = torch.empty_like(x)
+    out = torch.empty(x.shape, dtype=_norm_out_dtype(x, weight), device=x.device)
     _launch(name, x.data_ptr(), None if weight is None else weight.data_ptr(),
-            out.data_ptr(), x.numel() // max(D, 1), D, float(eps),
-            _DTYPE_CODES[x.dtype], x.device.index, _stream(x))
+            out.data_ptr(), x.numel() // max(D, 1), D, float(eps), _DTYPE_CODES[x.dtype],
+            _DTYPE_CODES[(weight if weight is not None else x).dtype], x.device.index,
+            _stream(x))
     return out
 
 
@@ -326,22 +442,32 @@ def _rms_residual_refusal(residual, x, weight) -> str | None:
     name = "rms_norm_residual"
     if residual.shape != x.shape:
         return f"{name}: residual {tuple(residual.shape)} != input {tuple(x.shape)}"
-    return _rms_refusal(name, x, weight, residual)
+    reason = _dtype_refusal(name, residual) or _dtype_refusal(name, x)
+    if reason:
+        return reason
+    if residual.device != x.device:
+        return f"{name}: residual on {residual.device}, x on {x.device}"
+    return _rms_refusal(name, x, weight)
 
 
 def rms_norm_residual(residual: torch.Tensor, x: torch.Tensor,
                       weight: torch.Tensor | None, eps: float):
-    """``h = residual + x``; returns ``(h, rms_norm(h, weight))``."""
+    """``h = residual + x``; returns ``(h, rms_norm(h, weight))``. A residual
+    and x of two dtypes are promoted to one first, as the reference's add
+    promotes them."""
     name = "rms_norm_residual"
     _refuse(_rms_residual_refusal(residual, x, weight))
     _require_cuda(name, x)
+    residual, x = (_dense(t) for t in promote(residual, x))
+    weight = _dense(weight)
     D = x.shape[-1]
     h = torch.empty_like(x)
-    out = torch.empty_like(x)
+    out = torch.empty(x.shape, dtype=_norm_out_dtype(x, weight), device=x.device)
     _launch(name, residual.data_ptr(), x.data_ptr(),
             None if weight is None else weight.data_ptr(), h.data_ptr(),
-            out.data_ptr(), x.numel() // max(D, 1), D, float(eps),
-            _DTYPE_CODES[x.dtype], x.device.index, _stream(x))
+            out.data_ptr(), x.numel() // max(D, 1), D, float(eps), _DTYPE_CODES[x.dtype],
+            _DTYPE_CODES[(weight if weight is not None else x).dtype], x.device.index,
+            _stream(x))
     return h, out
 
 
@@ -349,36 +475,43 @@ def _linear_act_refusal(a, w, bias, act) -> str | None:
     name = "linear_act"
     if act not in ACTIVATIONS:
         return f"linear_act: unknown activation {act!r}; known: {sorted(ACTIVATIONS)}"
-    reason = _floats_refusal(name, a, w, bias)
+    reason = (_dtype_refusal(name, a) or _dtype_refusal(name, w)
+              or (bias is not None and _dtype_refusal(name, bias)) or None)
     if reason:
         return reason
+    if any(t is not None and t.device != a.device for t in (w, bias)):
+        return f"{name}: tensors on {a.device} and {w.device}"
     if a.ndim == 0 or w.ndim != 2 or a.shape[-1] != w.shape[1]:
         return f"linear_act: a {tuple(a.shape)} and w {tuple(w.shape)} do not share K"
     N, K = w.shape
     if bias is not None and tuple(bias.shape) != (N,):
         return f"linear_act: bias {tuple(bias.shape)} for {N} outputs"
-    # both paths copy rows in 16-byte chunks along K
-    if K % (16 // a.element_size()):
-        return f"linear_act: K={K} must be a multiple of {16 // a.element_size()} for {a.dtype}"
-    if _unaligned(a, w):
-        return "linear_act: operands must be 16-byte aligned"
     return None
 
 
 def linear_act(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None,
                act: str = "relu") -> torch.Tensor:
     """``act(a @ w.T + bias)`` with f32 accumulation; ``a`` is ``(..., K)``,
-    ``w`` is ``(N, K)``; the result is ``(..., N)`` in ``a.dtype``."""
+    ``w`` is ``(N, K)``; the result is ``(..., N)`` in the operands' dtype,
+    the promoted one where they differ (the reference's linear promotes).
+    Any K: the tile path runs at :func:`tile_k`, A and W zero-padded along K
+    where it differs (a copy paid only at such K); the stream path reads
+    the rows as they are."""
     name = "linear_act"
     _refuse(_linear_act_refusal(a, w, bias, act))
     _require_cuda(name, a)
+    a, w, bias = (_dense(t) for t in promote(a, w, bias))
     N, K = w.shape
     M = a.numel() // max(K, 1)
     path = linear_act_path(a.dtype, M)
     out = torch.empty(a.shape[:-1] + (N,), dtype=a.dtype, device=a.device)
+    if path == "tile" and tile_k(a.dtype, K) != K:
+        K = tile_k(a.dtype, K)
+        a, w = pad_last(a, K), pad_last(w, K)
     _launch(name, a.data_ptr(), w.data_ptr(), None if bias is None else bias.data_ptr(),
             out.data_ptr(), M, N, K, ACTIVATIONS[act], _DTYPE_CODES[a.dtype],
-            LINEAR_ACT_PATHS.index(path), a.device.index, _stream(a), design=path)
+            LINEAR_ACT_PATHS.index(path), a.device.index, _stream(a),
+            design=linear_act_design(a.dtype, M))
     return out
 
 
@@ -389,7 +522,8 @@ _PAGED_MAX_ROW_VALUES = 8 * 256
 
 def _paged_refusal(q, k_pages, v_pages, block_tables, lengths) -> str | None:
     name = "paged_decode_attention"
-    reason = (_floats_refusal(name, q, k_pages, v_pages)
+    reason = (_floats_refusal(name, q) or _floats_refusal(name, k_pages, v_pages, in_place=True)
+              or (q.dtype != k_pages.dtype and f"{name}: q {q.dtype}, pools {k_pages.dtype}")
               or _tensors_refusal(name, block_tables, lengths, dtype=torch.int32))
     if reason:
         return reason
@@ -425,6 +559,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
     name = "paged_decode_attention"
     _refuse(_paged_refusal(q, k_pages, v_pages, block_tables, lengths))
     _require_cuda(name, q)
+    q, block_tables, lengths = _dense(q), _dense(block_tables), _dense(lengths)
     B, H, _, hd = q.shape
     KV, P, ps, _ = k_pages.shape
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(hd)
@@ -434,6 +569,10 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
             B, H, KV, P, ps, hd, block_tables.shape[1], scale,
             _DTYPE_CODES[q.dtype], q.device.index, _stream(q))
     return out
+
+
+# the largest head dim of the attention kernels (after the 16-bit padding)
+ATTN_MAX_HEAD_DIM = 256
 
 
 def _attn_refusal(name: str, q, k, v, *others) -> str | None:
@@ -447,10 +586,8 @@ def _attn_refusal(name: str, q, k, v, *others) -> str | None:
         return (f"{name}: q {tuple(q.shape)} and k/v {tuple(k.shape)} / {tuple(v.shape)} must be "
                 f"(..., T, hd) and (..., S, hd) with the same leading dims")
     hd = q.shape[-1]
-    if hd % 16 or not 16 <= hd <= 128:
-        return f"{name}: head dim {hd} must be a multiple of 16 up to 128"
-    if _unaligned(q, k, v, *others):
-        return f"{name}: operands must be 16-byte aligned"
+    if not 0 < sdpa_head_dim(q.dtype, hd) <= ATTN_MAX_HEAD_DIM:
+        return f"{name}: head dim {hd} above the kernels' {ATTN_MAX_HEAD_DIM}"
     if k.shape[-2] == 0:
         return f"{name}: no keys (S = 0)"
     return None
@@ -462,22 +599,30 @@ def _attn_dims(q: torch.Tensor, k: torch.Tensor):
     return q.numel() // max(T * hd, 1), T, k.shape[-2], hd
 
 
+def _unpad(t: torch.Tensor, hd: int) -> torch.Tensor:
+    return t if t.shape[-1] == hd else t[..., :hd].contiguous()
+
+
 def sdpa_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, is_causal: bool = False,
              scale: float | None = None):
     """Flash-attention forward: ``(out, lse)``; ``out`` in ``q.dtype``, ``lse``
-    (..., T) float32. Causal masking is top-left aligned (row >= col)."""
+    (..., T) float32. Causal masking is top-left aligned (row >= col). A
+    16-bit head dim off the multiples of 16 runs zero-padded
+    (:func:`sdpa_head_dim`) at the true head dim's scale."""
     name = "sdpa_fwd"
     _refuse(_attn_refusal(name, q, k, v))
     _require_cuda(name, q)
     BH, T, S, hd = _attn_dims(q, k)
-    design = sdpa_fwd_design(q.dtype, hd)
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(hd)
+    hdp = sdpa_head_dim(q.dtype, hd)
+    q, k, v = (_dense(pad_last(t, hdp)) for t in (q, k, v))
+    design = sdpa_fwd_design(q.dtype, hdp)
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
     _launch(name, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            BH, T, S, hd, scale, int(bool(is_causal)), _DTYPE_CODES[q.dtype],
+            BH, T, S, hdp, scale, int(bool(is_causal)), _DTYPE_CODES[q.dtype],
             SDPA_FWD_DESIGNS.index(design), q.device.index, _stream(q), design=design)
-    return out, lse
+    return _unpad(out, hd), lse
 
 
 def _sdpa_bwd_refusal(g, q, k, v, out, lse) -> str | None:
@@ -499,19 +644,23 @@ def sdpa_bwd(g: torch.Tensor, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              scale: float | None = None):
     """Flash-attention backward: ``(dq, dk, dv)`` from the output gradient
     ``g`` and the forward's ``(out, lse)``. One call launches three CUDA
-    kernels (delta, dK/dV, dQ) and counts as one launch."""
+    kernels (delta, dK/dV, dQ) and counts as one launch. A 16-bit head dim
+    off the multiples of 16 runs zero-padded, as :func:`sdpa_fwd` does."""
     name = "sdpa_bwd"
     _refuse(_sdpa_bwd_refusal(g, q, k, v, out, lse))
     _require_cuda(name, q)
     BH, T, S, hd = _attn_dims(q, k)
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(hd)
+    hdp = sdpa_head_dim(q.dtype, hd)
+    g, q, k, v, out = (_dense(pad_last(t, hdp)) for t in (g, q, k, v, out))
+    lse = _dense(lse)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty_like(lse)
     _launch(name, g.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
-            BH, T, S, hd, scale, int(bool(is_causal)), _DTYPE_CODES[q.dtype], q.device.index,
+            BH, T, S, hdp, scale, int(bool(is_causal)), _DTYPE_CODES[q.dtype], q.device.index,
             _stream(q))
-    return dq, dk, dv
+    return _unpad(dq, hd), _unpad(dk, hd), _unpad(dv, hd)
 
 
 def _ce_refusal(logits, target) -> str | None:
@@ -534,6 +683,7 @@ def ce_fwd(logits: torch.Tensor, target: torch.Tensor, ignore_index: int = -100)
     name = "ce_fwd"
     _refuse(_ce_refusal(logits, target))
     _require_cuda(name, logits)
+    logits, target = _dense(logits), _dense(target)
     N, V = logits.shape
     nll = torch.empty(N, dtype=torch.float32, device=logits.device)
     lse = torch.empty(N, dtype=torch.float32, device=logits.device)
@@ -561,17 +711,20 @@ def slab_geometry(total_elems: int) -> tuple[int, int]:
 
 
 def _adamw_group_refusal(name, params, grads, bc, *groups) -> str | None:
-    """Why params and grads (one float dtype), each further group (one float
-    dtype of its own) and ``bc`` (float32, shape (2,)) are not contiguous
+    """Why params (one float dtype, updated in place), grads (one float
+    dtype of their own, only read), each further group (moments: one float
+    dtype each, updated in place) and ``bc`` (float32, shape (2,)) are not
     tensors on one device that the kernel takes."""
-    reason = _floats_refusal(name, params[0], *params, *grads)
+    reason = (_floats_refusal(name, params[0], *params, in_place=True)
+              or _floats_refusal(name, grads[0], *grads))
     for group in groups:
-        reason = reason or _floats_refusal(name, group[0], *group)
+        reason = reason or _floats_refusal(name, group[0], *group, in_place=True)
     reason = reason or _tensors_refusal(name, bc, dtype=torch.float32)
     if reason:
         return reason
     dev = params[0].device
-    if any(g[0].device != dev for g in groups) or bc.device != dev or tuple(bc.shape) != (2,):
+    if (any(g[0].device != dev for g in (grads, *groups)) or bc.device != dev
+            or tuple(bc.shape) != (2,)):
         return f"{name}: every tensor on {dev}, bc of shape (2,)"
     return None
 
@@ -587,21 +740,20 @@ def _adamw_refusal(params, grads, ms, vs, bc) -> str | None:
     for quad in zip(params, grads, ms, vs):
         if any(t.shape != quad[0].shape for t in quad):
             return f"{name}: p/g/m/v shapes {[tuple(t.shape) for t in quad]} differ"
-        if _unaligned(*quad):
-            return f"{name}: tensors must be 16-byte aligned"
     return None
 
 
-def _adamw_launch(name, rows, n_chunks, dev, bc, p_dtype, m_dtype, v_dtype, lr, beta1, beta2,
-                  eps, weight_decay) -> None:
+def _adamw_launch(name, rows, n_chunks, dev, bc, p_dtype, g_dtype, m_dtype, v_dtype, lr, beta1,
+                  beta2, eps, weight_decay) -> None:
     """Copy the table of ``rows`` (p, g, m, v pointers, length, first
     chunk) to the card (non-blocking, from pinned memory) and launch."""
     host = torch.tensor(rows or [(0,) * 6], dtype=torch.int64).pin_memory()
     table = host.to(dev, non_blocking=True)
     _launch(name, table.data_ptr(), len(rows), n_chunks, bc.data_ptr(), float(lr),
             float(beta1), float(beta2), float(1.0 - beta1), float(1.0 - beta2), float(eps),
-            float(weight_decay), _DTYPE_CODES[p_dtype], _DTYPE_CODES[m_dtype],
-            _DTYPE_CODES[v_dtype], dev.index, torch.cuda.current_stream(dev).cuda_stream)
+            float(weight_decay), _DTYPE_CODES[p_dtype], _DTYPE_CODES[g_dtype],
+            _DTYPE_CODES[m_dtype], _DTYPE_CODES[v_dtype], dev.index,
+            torch.cuda.current_stream(dev).cuda_stream)
 
 
 def fused_adamw(params, grads, ms, vs, bc: torch.Tensor, *, lr: float, beta1: float,
@@ -609,7 +761,8 @@ def fused_adamw(params, grads, ms, vs, bc: torch.Tensor, *, lr: float, beta1: fl
     """AdamW over one bucket in ONE launch, updating ``params``, ``ms`` and
     ``vs`` in place. ``bc`` is the float32 device tensor ``[1 - beta1**step,
     1 - beta2**step]``. Params and grads share one dtype; m and v may each be
-    float32 or bfloat16.
+    float32, bfloat16 or float16, and so may the grads, apart from the
+    params' dtype.
 
     The kernel reads a device table of the tensors' pointers, sizes and
     first chunks, built on the host and copied to the card on every call."""
@@ -617,14 +770,15 @@ def fused_adamw(params, grads, ms, vs, bc: torch.Tensor, *, lr: float, beta1: fl
     params, grads, ms, vs = list(params), list(grads), list(ms), list(vs)
     _refuse(_adamw_refusal(params, grads, ms, vs, bc))
     _require_cuda(name, params[0])
+    grads = [_dense(g) for g in grads]
     rows, n_chunks = [], 0
     for p, g, m, v in zip(params, grads, ms, vs):
         if p.numel():
             rows.append((p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(), p.numel(),
                          n_chunks))
             n_chunks += -(-p.numel() // ADAMW_CHUNK)
-    _adamw_launch(name, rows, n_chunks, params[0].device, bc, params[0].dtype, ms[0].dtype,
-                  vs[0].dtype, lr, beta1, beta2, eps, weight_decay)
+    _adamw_launch(name, rows, n_chunks, params[0].device, bc, params[0].dtype, grads[0].dtype,
+                  ms[0].dtype, vs[0].dtype, lr, beta1, beta2, eps, weight_decay)
 
 
 def _adamw_slab_refusal(params, grads, m_slab, v_slab, bc, sizes) -> str | None:
@@ -663,6 +817,7 @@ def fused_adamw_slab(params, grads, m_slab: torch.Tensor, v_slab: torch.Tensor,
     params, grads, sizes = list(params), list(grads), [int(s) for s in sizes]
     _refuse(_adamw_slab_refusal(params, grads, m_slab, v_slab, bc, sizes))
     _require_cuda(name, params[0])
+    grads = [_dense(g) for g in grads]
     m0, v0 = m_slab.data_ptr(), v_slab.data_ptr()
     ms, vs = m_slab.element_size(), v_slab.element_size()
     rows, n_chunks, off = [], 0, 0
@@ -671,8 +826,8 @@ def fused_adamw_slab(params, grads, m_slab: torch.Tensor, v_slab: torch.Tensor,
             rows.append((p.data_ptr(), g.data_ptr(), m0 + off * ms, v0 + off * vs, n, n_chunks))
             n_chunks += -(-n // ADAMW_CHUNK)
         off += n
-    _adamw_launch(name, rows, n_chunks, params[0].device, bc, params[0].dtype, m_slab.dtype,
-                  v_slab.dtype, lr, beta1, beta2, eps, weight_decay)
+    _adamw_launch(name, rows, n_chunks, params[0].device, bc, params[0].dtype, grads[0].dtype,
+                  m_slab.dtype, v_slab.dtype, lr, beta1, beta2, eps, weight_decay)
 
 
 MLP_DH_ROWS = 64   # rows per block of the backward's dh pass: DH_ROWS in csrc/mlp_subblock_bwd.cu
@@ -699,12 +854,10 @@ def _subblock_refusal(name: str, residual, x, w_norm, w_gate, w_up, w_down, act:
                 f"{tuple(w_up.shape)}, w_down {tuple(w_down.shape)}: want (..., D), "
                 f"(..., D), (D,), (F, D), (F, D), (D, F)")
     N = x.numel() // max(D, 1)
-    # the tile loads move 16-byte chunks along D and F
+    # the tile loads (TMA, cp.async) need rows of whole 16-byte chunks along D and F
     if N == 0 or D % 8 or F % 8:
         return (f"{name}: {N} rows, D={D}, F={F}: rows must be non-zero and D, F multiples "
                 f"of 8")
-    if _unaligned(residual, x, w_norm, w_gate, w_up, w_down, *others):
-        return f"{name}: operands must be 16-byte aligned"
     return None
 
 
@@ -724,6 +877,8 @@ def mlp_subblock(residual: torch.Tensor, x: torch.Tensor, w_norm: torch.Tensor,
     name = "mlp_subblock"
     _refuse(_subblock_refusal(name, residual, x, w_norm, w_gate, w_up, w_down, act))
     _require_cuda(name, x)
+    residual, x, w_norm, w_gate, w_up, w_down = (
+        _dense(t) for t in (residual, x, w_norm, w_gate, w_up, w_down))
     N, D, F = _subblock_dims(x, w_gate)
     h, n = torch.empty_like(x), torch.empty_like(x)
     y = torch.empty((N, F), dtype=x.dtype, device=x.device)
@@ -731,7 +886,7 @@ def mlp_subblock(residual: torch.Tensor, x: torch.Tensor, w_norm: torch.Tensor,
     _launch(name, residual.data_ptr(), x.data_ptr(), w_norm.data_ptr(), w_gate.data_ptr(),
             w_up.data_ptr(), w_down.data_ptr(), h.data_ptr(), n.data_ptr(), y.data_ptr(),
             out.data_ptr(), N, D, F, ACTIVATIONS[act], float(eps), _DTYPE_CODES[x.dtype],
-            x.device.index, _stream(x))
+            x.device.index, _stream(x), design=gemm_design(x.dtype))
     return out
 
 
@@ -740,11 +895,14 @@ def mlp_subblock_bwd(g: torch.Tensor, residual: torch.Tensor, x: torch.Tensor,
                      w_down: torch.Tensor, act: str = "silu", eps: float = 1e-5):
     """``(dh, dw_norm, dw_gate, dw_up, dw_down)`` of :func:`mlp_subblock` for
     the output gradient ``g``, from the saved inputs; ``dh`` is the gradient
-    of both ``residual`` and ``x``. One call launches six CUDA kernels and
-    counts as one launch; the recomputed interiors are scratch."""
+    of both ``residual`` and ``x``. One call launches six CUDA kernels
+    (seven for 16-bit types) and counts as one launch; the recomputed
+    interiors are scratch."""
     name = "mlp_subblock_bwd"
     _refuse(_subblock_refusal(name, residual, x, w_norm, w_gate, w_up, w_down, act, g))
     _require_cuda(name, x)
+    g, residual, x, w_norm, w_gate, w_up, w_down = (
+        _dense(t) for t in (g, residual, x, w_norm, w_gate, w_up, w_down))
     N, D, F = _subblock_dims(x, w_gate)
     dev, dt = x.device, x.dtype
     dh = torch.empty_like(x)
@@ -752,14 +910,18 @@ def mlp_subblock_bwd(g: torch.Tensor, residual: torch.Tensor, x: torch.Tensor,
     n = torch.empty((N, D), dtype=dt, device=dev)
     rr = torch.empty(N, dtype=torch.float32, device=dev)
     dgpre, dup, y = (torch.empty((N, F), dtype=dt, device=dev) for _ in range(3))
+    # the wgmma design's dy = g w_down, f32 between its two recompute launches
+    dy = (torch.empty((N, F), dtype=torch.float32, device=dev)
+          if gemm_design(dt) == "wgmma" else None)
     dn = torch.empty((N, D), dtype=torch.float32, device=dev)
     parts = torch.empty((-(-N // MLP_DH_ROWS), D), dtype=torch.float32, device=dev)
     _launch(name, g.data_ptr(), residual.data_ptr(), x.data_ptr(), w_norm.data_ptr(),
             w_gate.data_ptr(), w_up.data_ptr(), w_down.data_ptr(), dh.data_ptr(),
             dwn.data_ptr(), dwg.data_ptr(), dwu.data_ptr(), dwd.data_ptr(), n.data_ptr(),
-            rr.data_ptr(), dgpre.data_ptr(), dup.data_ptr(), y.data_ptr(), dn.data_ptr(),
+            rr.data_ptr(), dgpre.data_ptr(), dup.data_ptr(), y.data_ptr(),
+            None if dy is None else dy.data_ptr(), dn.data_ptr(),
             parts.data_ptr(), N, D, F, ACTIVATIONS[act], float(eps), _DTYPE_CODES[dt],
-            dev.index, _stream(x))
+            dev.index, _stream(x), design=gemm_design(dt))
     return dh, dwn, dwg, dwu, dwd
 
 
@@ -779,8 +941,9 @@ def _decode_refusal(name, h, w_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages,
     """Why the decode kernel does not take these operands: where
     ``_attn_subblock_checker`` (pallasex.py:1761) refuses, and where the
     kernel does not take the shapes."""
-    if h.dtype not in _DTYPE_CODES:
-        return f"{name}: dtype {h.dtype} not supported (float32 or bfloat16)"
+    reason = _dtype_refusal(name, h)
+    if reason:
+        return reason
     dt = h.dtype
     if h.ndim != 3 or h.shape[1] != 1:
         return f"{name}: h {tuple(h.shape)} must be (S, 1, D): one row per slot, decode only"
@@ -789,13 +952,18 @@ def _decode_refusal(name, h, w_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages,
                 f"(KV, P, ps, hd) shape")
     S, D = h.shape[0], h.shape[2]
     KV, P, ps, hd = k_pages.shape
-    if hd % 16 or not 16 <= hd <= 128:
-        return f"{name}: head dim {hd} must be a multiple of 16 up to 128"
+    # the pools are read in place, so the head dim is taken as it is: any
+    # even one (the rope pairs columns j and j + hd/2)
+    if hd % 2 or not 2 <= hd <= ATTN_MAX_HEAD_DIM:
+        return f"{name}: head dim {hd} must be even, up to {ATTN_MAX_HEAD_DIM}"
     if wq.ndim != 2 or wq.shape[1] != D or wq.shape[0] % hd:
         return f"{name}: wq {tuple(wq.shape)} must be (H * {hd}, {D})"
     H = wq.shape[0] // hd
     if H % KV:
         return f"{name}: {H} heads over {KV} kv heads"
+    if (H * hd) % 8:
+        return (f"{name}: {H} heads of {hd}: the out-projection's rows (H * hd) must be a "
+                f"multiple of 8 for its 16-byte loads")
     want = {"w_norm": (D,), "wk": (KV * hd, D), "wv": (KV * hd, D), "wo": (D, H * hd),
             "cos": (S, 1, 1, hd // 2), "sin": (S, 1, 1, hd // 2)}
     for arg, t in zip(want, (w_norm, wk, wv, wo, cos, sin)):
@@ -810,16 +978,17 @@ def _decode_refusal(name, h, w_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages,
             or tuple(write_pos.shape) != (S,)):
         return (f"{name}: block_tables {tuple(block_tables.shape)}, lengths "
                 f"{tuple(lengths.shape)}, write_pos {tuple(write_pos.shape)} for {S} slots")
-    reason = (_tensors_refusal(name, *floats, dtype=dt)
+    reason = (_tensors_refusal(name, *floats[:-2], dtype=dt)
+              or _tensors_refusal(name, k_pages, v_pages, dtype=dt, in_place=True)
               or _tensors_refusal(name, block_tables, lengths, dtype=torch.int32))
     if reason:
         return reason
+    if k_pages.device != h.device:
+        return f"{name}: pools on {k_pages.device}, h on {h.device}"
     if write_pos.dtype not in (torch.int32, torch.int64):
         return f"{name}: write_pos dtype {write_pos.dtype} is not an integer type"
     if any(t.device != h.device for t in (block_tables, lengths, write_pos)):
         return f"{name}: block tables, lengths and write_pos must be on {h.device}"
-    if _unaligned(h, w_norm, wq, wk, wv, wo, k_pages, v_pages):
-        return f"{name}: operands must be 16-byte aligned"
     G, keys = H // KV, max(1, DECODE_KEYS // ps) * ps
     attn = _align16(G * hd * 4) + _align16(G * keys * 4) + 2 * _align16(keys * 8)
     if max(DECODE_ACT_BYTES, attn) + _align16(S * 4) > _SMEM_MAX:
@@ -831,6 +1000,10 @@ def _decode_refusal(name, h, w_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages,
 def _decode_call(name, h, w_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages, block_tables,
                  lengths, write_pos, mlp, act, eps, scale):
     _require_cuda(name, h)
+    h, w_norm, wq, wk, wv, wo, cos, sin, block_tables, lengths = (
+        _dense(t) for t in (h, w_norm, wq, wk, wv, wo, cos, sin, block_tables, lengths))
+    if mlp is not None:
+        mlp = tuple(_dense(t) for t in mlp)
     S, D = h.shape[0], h.shape[2]
     KV, P, ps, hd = k_pages.shape
     H, npg = wq.shape[0] // hd, block_tables.shape[1]
@@ -895,8 +1068,6 @@ def _decode_layer_refusal(h, attn_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pag
     reason = _floats_refusal(name, h, mlp_norm, w_gate, w_up, w_down)
     if reason:
         return reason
-    if _unaligned(mlp_norm, w_gate, w_up, w_down):
-        return f"{name}: operands must be 16-byte aligned"
     return _decode_refusal(name, h, attn_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages,
                            block_tables, lengths, write_pos)
 

@@ -10,6 +10,12 @@ The counterparts of ``thunder_tpu/ops/nn.py`` ``rms_norm`` (:61),
 its hand-written kernel (:mod:`thunder_tpu_torch.executors.cudaex`), which
 raises on what the kernel does not take (``cudaex.refusal`` gives the
 reason), and runs its plain version on the CPU; any other device raises.
+The wrappers take what the reference computes through its decomposition
+where a kernel can repeat its rounding points: float16, strided or
+unaligned read-only operands (made dense), mixed dtypes (promoted as the
+reference promotes, or a weight dtype of its own in the norms), attention
+head dims off the multiples of 16 (zero-padded, ``cudaex.sdpa_head_dim``),
+and any ``linear_act`` K (zero-padded on the tile path, ``cudaex.tile_k``).
 ``paged_decode_attention`` with T > 1 (chunked prefill) is outside the
 decode kernel's contract and always takes the plain gather/mask/softmax
 decomposition, as the JAX package's checker leaves it to XLA.
@@ -99,11 +105,13 @@ def _check_act(name: str, act: str) -> None:
 def linear_act_plain(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None,
                      act: str = "relu") -> torch.Tensor:
     """``act(a @ w.T + bias)``, the product and activation in float32 and one
-    rounding to ``a.dtype`` (the kernel's contract; in float32 it is exactly
-    the reference's ``act(linear(a, w, bias))``)."""
+    rounding to the operands' dtype, the promoted one where they differ (the
+    kernel's contract; in float32 it is exactly the reference's
+    ``act(linear(a, w, bias))``, whose linear promotes mixed dtypes)."""
     _check_act("linear_act", act)
+    out_dtype = cudaex.promoted_dtype(a, w, bias)
     y = F.linear(a.float(), w.float(), None if bias is None else bias.float())
-    return _ACTS[act](y).to(a.dtype)
+    return _ACTS[act](y).to(out_dtype)
 
 
 def _act_grad_plain(act: str, a: torch.Tensor) -> torch.Tensor:

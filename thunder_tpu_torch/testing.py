@@ -8,12 +8,12 @@ import torch
 
 def ulp_distance(a: torch.Tensor, b: torch.Tensor) -> int:
     """Largest elementwise distance between two tensors of one float dtype
-    (float32 or bfloat16) in units in the last place of that dtype:
+    (float32, bfloat16 or float16) in units in the last place of that dtype:
     sign-magnitude bits mapped to a line on which neighbouring floats differ
     by 1."""
-    if a.dtype != b.dtype or a.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"ulp_distance: dtypes {a.dtype} and {b.dtype} (one of float32 "
-                         f"or bfloat16)")
+    if a.dtype != b.dtype or a.dtype not in (torch.float32, torch.bfloat16, torch.float16):
+        raise ValueError(f"ulp_distance: dtypes {a.dtype} and {b.dtype} (one of float32, "
+                         f"bfloat16 or float16)")
     bits = torch.int32 if a.dtype == torch.float32 else torch.int16
     sign = 1 << (31 if a.dtype == torch.float32 else 15)
 
