@@ -23,11 +23,14 @@ final line):
    weights from a seed) serves 8 requests (prompts 17..1000 tokens, 32 new
    tokens each, 2 of them sampled); the launch counts show every decode step
    went through all four kernels, linear_act's 32 launches each on its
-   weight-streaming design.
+   weight-streaming design and rms_norm's on its vector design.
 
-``sdpa_fwd`` and ``linear_act`` have more than one design, chosen by the
-wrapper from shape and dtype (``cudaex.sdpa_fwd_design``,
-``cudaex.linear_act_path``): every row of theirs names the design that ran,
+``sdpa_fwd``, ``sdpa_bwd``, ``rms_norm`` and ``linear_act`` have more than
+one design, chosen by the wrapper from shape and dtype
+(``cudaex.sdpa_fwd_design``, ``cudaex.sdpa_bwd_design``,
+``cudaex.rms_norm_design``, ``cudaex.linear_act_path``): every row of
+theirs names the design that ran (``sdpa_bwd``'s also its design's
+7-product floor beside the 5-product bound),
 and phase 3 shows that the linear_act check fails two planted faults at the
 decode and the prefill shape (the kernel on a weight with its last 16 rows,
 or its last 64 K columns, zeroed, against the plain version of the intact
@@ -50,7 +53,8 @@ attention (8, 32, 2048, 128) bf16 causal and not, cross-entropy
 bf16 parameters with f32 moments), before any model is built: the plain
 attention backward materialises several 4.3 GB f32 score tensors. It also
 shows that the attention checks fail a fault planted in the last 64 causal
-rows or keys. Then:
+rows or keys, and that two ``sdpa_bwd`` calls at the causal train shape give
+bit-identical gradients. Then:
 
 6. train, card vs CPU — three float32 tiny-gqa train steps (4 layers,
    B=2, T=64) on the card and on the CPU from the same weights: the same
@@ -60,8 +64,8 @@ rows or keys. Then:
    a warm-up step and 5 timed steps on one batch through the port's
    ``pretrain`` entry point; every step launches sdpa_fwd 4, sdpa_bwd 4,
    ce_fwd 1, fused_adamw 1, rms_norm 1 and rms_norm_residual 8 times, every
-   sdpa_fwd launch takes the TMA + wgmma design, and the losses are finite
-   and falling.
+   sdpa_fwd and sdpa_bwd launch takes the TMA + wgmma design, and the losses
+   are finite and falling.
 
 The planned rung (``pretrain --block-fusion``, the reference's default step
 at that shape): phase 3 also holds the MLP sub-block pair, ``mlp_subblock``
@@ -113,8 +117,8 @@ pair at llama2-7b-bench's F = 11008 as at llama3-8b-bench's. Then:
 13. bench, full width — llama2-7b-bench (D=4096, 32 heads, F=11008, vocab
     32000, bf16) at 8 layers, B=8, T=2048, a warm-up step and 3 timed steps
     through the bench entry point, (a) ``--remat --slab-state``: every step
-    launches rms_norm 25, rms_norm_residual 8, sdpa_fwd 16 (all wgmma),
-    sdpa_bwd 8 and fused_adamw_slab 1 times; (b) ``--slab-state
+    launches rms_norm 25, rms_norm_residual 8, sdpa_fwd 16, sdpa_bwd 8 (the
+    attention all wgmma) and fused_adamw_slab 1 times; (b) ``--slab-state
     --block-fusion``, the reference's default step at this shape: rms_norm 9,
     mlp_subblock 8, mlp_subblock_bwd 8, sdpa_fwd 8, sdpa_bwd 8,
     fused_adamw_slab 1; losses finite and falling; step time, tokens/s, the
@@ -352,7 +356,9 @@ def norm_rows(torch, cudaex, tnn, gen, shape):
     w = (torch.rand(d, generator=gen, device=dev) + 0.5).to(bf16)
     n, tag = x.numel(), "x".join(map(str, shape))
     iters = 30 if n <= M_PREFILL * D else 10
-    got, want = cudaex.rms_norm(x, w, EPS), tnn.rms_norm_plain(x, w, EPS)
+    got, design = ran(cudaex, "rms_norm", lambda: cudaex.rms_norm(x, w, EPS))
+    require(design == "vector", f"rms_norm {tag}: bf16 rows of {d} took {design}")
+    want = tnn.rms_norm_plain(x, w, EPS)
     diff = (got.float() - want.float()).abs()
     require(bool((diff <= want.float().abs() * NORM_RTOL + 1e-6).all()),
             f"rms_norm {tag}: kernel disagrees with its plain version ({float(diff.max())})")
@@ -360,6 +366,8 @@ def norm_rows(torch, cudaex, tnn, gen, shape):
                       lambda: cudaex.rms_norm(x, w, EPS), lambda: tnn.rms_norm_plain(x, w, EPS),
                       lambda: F.rms_norm(x, (d,), w, EPS), 2 * n * 2 + d * 2, 4 * n,
                       F32_FLOPS, iters, iters)]
+    rows[0]["design"] = design
+    log(f"    design {design}")
     (gh, gy), (wh, wy) = (cudaex.rms_norm_residual(r, x, w, EPS),
                           tnn.rms_norm_residual_plain(r, x, w, EPS))
     dh, dy = (gh.float() - wh.float()).abs(), (gy.float() - wy.float()).abs()
@@ -383,6 +391,15 @@ def require_wgmma(what: str, designs: dict) -> None:
     for name in GEMM_KERNELS:
         off = {d: n for d, n in designs.get(name, {}).items() if d not in ("wgmma", "stream")}
         require(not off, f"{what}: {name} launched {off} off the wgmma mainloop")
+
+
+def require_attention_wgmma(what: str, designs: dict, counts: dict) -> None:
+    """Every sdpa_fwd and sdpa_bwd launch of a train path (bf16, hd 128)
+    took the TMA + wgmma design."""
+    for name in ("sdpa_fwd", "sdpa_bwd"):
+        require(designs.get(name) == {"wgmma": counts[name]},
+                f"{name} launches by design {designs.get(name)}: every one of {what}'s "
+                f"{counts[name]} must take wgmma")
 
 
 def check_c1_inputs(torch, cudaex, tnn) -> dict:
@@ -622,7 +639,9 @@ def check_train_kernels(torch, cudaex, tnn, toptim_ops, tllama):
         log(f"    design {design}")
         rows.setdefault("sdpa_fwd", []).append(row)
         # the backward from the plain forward's (out, lse), so it is held alone
-        got = cudaex.sdpa_bwd(g, q, k, v, want_out, want_lse, causal)
+        got, bwd_design = ran(cudaex, "sdpa_bwd",
+                              lambda: cudaex.sdpa_bwd(g, q, k, v, want_out, want_lse, causal))
+        require(bwd_design == "wgmma", f"sdpa_bwd {tag}: bf16 hd {hd} took {bwd_design}")
         want = tnn.sdpa_bwd_plain(g, q, k, v, want_out, want_lse, causal)
         errs = [float((a.float() - b.float()).abs().max()) for a, b in zip(got, want)]
         rels = [row_rel_err(a, b) for a, b in zip(got, want)]
@@ -633,6 +652,11 @@ def check_train_kernels(torch, cudaex, tnn, toptim_ops, tllama):
         if causal:
             log("  planted faults: " + json.dumps(planted_faults(torch, out, want_out, got,
                                                                  want)))
+            again = cudaex.sdpa_bwd(g, q, k, v, want_out, want_lse, causal)
+            require(all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
+                    f"sdpa_bwd {tag}: two calls on the same inputs differ")
+            log("  sdpa_bwd deterministic: two calls give bit-identical dq, dk, dv")
+            del again
         del got, want
         lib = None
         try:
@@ -644,11 +668,16 @@ def check_train_kernels(torch, cudaex, tnn, toptim_ops, tllama):
                     fa[6], fa[7])
         except (RuntimeError, TypeError) as e:
             log(f"  aten flash attention unavailable: {str(e).splitlines()[0][:200]}")
-        rows.setdefault("sdpa_bwd", []).append(timed_row(
+        row = timed_row(
             torch, cudaex, "sdpa_bwd", tag, max(errs),
             lambda: cudaex.sdpa_bwd(g, q, k, v, want_out, want_lse, causal),
             lambda: tnn.sdpa_bwd_plain(g, q, k, v, want_out, want_lse, causal), lib,
-            8 * bh_t * hd * 2 + bh_t * 4, 10.0 * bh_t * T * hd * frac, BF16_FLOPS, 10, 3))
+            8 * bh_t * hd * 2 + bh_t * 4, 10.0 * bh_t * T * hd * frac, BF16_FLOPS, 10, 3)
+        # the design recomputes S and dP in its dQ pass: 7 products, not 5
+        row["design"] = bwd_design
+        log(f"    design {bwd_design}, its 7-product floor "
+            f"{14.0 * bh_t * T * hd * frac / BF16_FLOPS * 1e3:.4f} ms")
+        rows.setdefault("sdpa_bwd", []).append(row)
         del out, lse, want_out, want_lse, lib
         gc.collect()
         torch.cuda.empty_cache()
@@ -1316,7 +1345,10 @@ def full_width(np, torch, tllama, ServingEngine, SamplingParams, cudaex, params,
     expect = ({"decode_layer": L, "rms_norm": 1} if block_fusion else
               {"paged_decode_attention": L, "linear_act": L, "rms_norm_residual": 2 * L,
                "rms_norm": 1})
-    expect_designs = {} if block_fusion else {"linear_act": {"stream": L}}
+    # rms_norm(norm_f) on bf16 rows of 4096 reads each row once (vector)
+    expect_designs = {"rms_norm": {"vector": 1}}
+    if not block_fusion:
+        expect_designs["linear_act"] = {"stream": L}
     for i, (c, d) in enumerate(zip(step_counts, step_designs)):
         if c != expect or d != expect_designs:
             raise AssertionError(f"decode step {i} launched {c} by design {d}, expected "
@@ -1408,9 +1440,7 @@ def train_full_width(torch, cudaex, pretrain, block_fusion: bool = False):
     if any(counts[k] == 0 for k in expect):
         raise AssertionError(f"a kernel of the train path never launched: {counts}")
     designs = cudaex.design_counts()
-    if designs.get("sdpa_fwd") != {"wgmma": counts["sdpa_fwd"]}:
-        raise AssertionError(f"sdpa_fwd launches by design {designs.get('sdpa_fwd')}: every "
-                             f"one of the train path's {counts['sdpa_fwd']} must take wgmma")
+    require_attention_wgmma("the train path", designs, counts)
     out["launches"] = counts
     out["launches_per_step"] = expect
     out["designs"] = designs
@@ -1497,9 +1527,7 @@ def bench_full_width(torch, cudaex, bench, remat: bool, block_fusion: bool):
             f"bench losses not finite and falling: {losses}")
     require(all(counts[k] for k in expect), f"a kernel of the bench path never launched: {counts}")
     designs = cudaex.design_counts()
-    require(designs.get("sdpa_fwd") == {"wgmma": counts["sdpa_fwd"]},
-            f"sdpa_fwd launches by design {designs.get('sdpa_fwd')}: every one of the bench "
-            f"path's {counts['sdpa_fwd']} must take wgmma")
+    require_attention_wgmma("the bench path", designs, counts)
     out.update(launches=counts, launches_per_step=expect, designs=designs)
     gc.collect()
     torch.cuda.empty_cache()

@@ -281,6 +281,45 @@ def test_sdpa_fwd_design_by_dtype_and_head_dim(dtype, hd, design):
     assert f"{cudaex.SDPA_FWD_DESIGNS.index(design)} {design}" in note
 
 
+SDPA_BWD_DESIGNS = [(dt, hd, "wgmma" if hd in (64, 128) else "mma")
+                    for dt in (torch.bfloat16, torch.float16) for hd in (64, 128, 8, 48, 192)] + [
+    (torch.float32, 128, "fma"), (torch.float32, 64, "fma"), (torch.float32, 8, "fma")]
+
+
+@pytest.mark.parametrize("dtype,hd,design", SDPA_BWD_DESIGNS,
+                         ids=[f"{str(d)[6:]}-hd{h}" for d, h, _ in SDPA_BWD_DESIGNS])
+def test_sdpa_bwd_design_by_dtype_and_head_dim(dtype, hd, design):
+    """The backward's fixed rule, the forward's: bf16 and fp16 at hd 64 and
+    128 take the TMA + wgmma dK/dV and dQ kernels, other 16-bit head dims
+    (hd 8 padded to 16, 48, 192) the mma.sync kernels, float32 the FMA
+    kernels; the C entry reads the design by its index."""
+    assert cudaex.sdpa_bwd_design(dtype, cudaex.sdpa_head_dim(dtype, hd)) == design
+    repo = Path(cudaex.__file__).resolve().parents[2]
+    note = (repo / cudaex.KERNELS["sdpa_bwd"].source).read_text()
+    assert f"{cudaex.SDPA_BWD_DESIGNS.index(design)} {design}" in note
+
+
+RMS_DESIGNS = [(dt, D, "vector") for dt in (torch.bfloat16, torch.float16, torch.float32)
+               for D in (4096, 64, 8192)] + [
+    (torch.bfloat16, 4100, "scalar"), (torch.float16, 4100, "scalar"),
+    (torch.float32, 4100, "vector"), (torch.float32, 4102, "scalar"),
+    (torch.bfloat16, 32768, "vector"), (torch.bfloat16, 32776, "scalar"),
+    (torch.float32, 16384, "vector"), (torch.float32, 16388, "scalar")]
+
+
+@pytest.mark.parametrize("dtype,D,design", RMS_DESIGNS,
+                         ids=[f"{str(d)[6:]}-D{n}" for d, n, _ in RMS_DESIGNS])
+def test_rms_norm_design_by_dtype_and_width(dtype, D, design):
+    """rms_norm's fixed rule: rows whose starts lie on 16 bytes (D a multiple
+    of 8 16-bit or 4 float32 values) and that fit the registers (at most
+    4096 16-byte accesses) take the one-read vector kernel, the rest the
+    scalar two-sweep kernel; the C entry reads the design by its index."""
+    assert cudaex.rms_norm_design(dtype, D) == design
+    repo = Path(cudaex.__file__).resolve().parents[2]
+    note = (repo / cudaex.KERNELS["rms_norm"].source).read_text()
+    assert f"{cudaex.RMS_NORM_DESIGNS.index(design)} {design}" in note
+
+
 LINEAR_PATHS = [(torch.bfloat16, 1, "stream"), (torch.bfloat16, 8, "stream"),
                 (torch.bfloat16, 13, "stream"), (torch.bfloat16, 16, "stream"),
                 (torch.bfloat16, 17, "tile"), (torch.bfloat16, 512, "tile"),
@@ -305,6 +344,19 @@ def test_design_counts_start_empty_and_reset():
     assert cudaex.design_counts() == {}
     cudaex.KERNELS["sdpa_fwd"].designs["wgmma"] = 3
     assert cudaex.design_counts() == {"sdpa_fwd": {"wgmma": 3}}
+    cudaex.reset_launch_counts()
+    assert cudaex.design_counts() == {}
+
+
+@pytest.mark.parametrize("name,design", [("sdpa_bwd", "wgmma"), ("sdpa_bwd", "mma"),
+                                         ("rms_norm", "vector")])
+def test_design_counts_by_kernel(name, design):
+    """Each kernel with several designs reports its launches by design, and
+    a reset clears them with the launch counts."""
+    cudaex.reset_launch_counts()
+    cudaex.KERNELS[name].designs[design] = 2
+    cudaex.KERNELS["sdpa_fwd"].designs["wgmma"] = 1
+    assert cudaex.design_counts() == {name: {design: 2}, "sdpa_fwd": {"wgmma": 1}}
     cudaex.reset_launch_counts()
     assert cudaex.design_counts() == {}
 

@@ -1,12 +1,15 @@
-"""Device time of the kernels on gemm.cuh's mainloops, at the shapes of
-PERF.md's kernel table: ``mlp_subblock`` (row 7) and ``mlp_subblock_bwd``
-(row 8) at llama3-8b-bench's train shape (16384 rows, D=4096, F=14336) and
-llama2-7b-bench's (F=11008), ``mlp_subblock`` at the serving prefill chunk
-(512 rows) and at 8 rows, and ``linear_act`` at the 512-row prefill chunk
-(row 6b: 512 x 4096 -> 14336, silu).
+"""Device time of the redesigned kernels at the shapes of PERF.md's kernel
+table: those on gemm.cuh's mainloops, ``mlp_subblock`` (row 7) and
+``mlp_subblock_bwd`` (row 8) at llama3-8b-bench's train shape (16384 rows,
+D=4096, F=14336) and llama2-7b-bench's (F=11008), ``mlp_subblock`` at the
+serving prefill chunk (512 rows) and at 8 rows, and ``linear_act`` at the
+512-row prefill chunk (row 6b: 512 x 4096 -> 14336, silu); ``sdpa_bwd``
+(row 2) at the train path's (8, 32, 2048, 128) causal and full, beside
+aten's flash-attention backward; ``rms_norm`` (row 4) at 8 x 4096 and
+(8, 2048, 4096), beside ``F.rms_norm``.
 
-    PYTHONPATH=. python3 thunder_tpu_torch/benchmarks/gemm_rows.py [--rows 7,8,6b] [--iters 10]
-        [--profile]
+    PYTHONPATH=. python3 thunder_tpu_torch/benchmarks/gemm_rows.py [--rows 7,8,6b,2,4]
+        [--iters 10] [--profile]
 
 Each kernel is timed with CUDA events around ``--iters`` back-to-back calls
 after a warm-up, on bf16 inputs made from a seed, and its launches are
@@ -39,7 +42,12 @@ SHAPES = (
     ("8", "mlp_subblock_bwd", 16384, 4096, 14336),
     ("8", "mlp_subblock_bwd", 16384, 4096, 11008),
     ("6b", "linear_act", 512, 4096, 14336),
+    ("2", "sdpa_bwd causal", 8, 32, 2048),
+    ("2", "sdpa_bwd", 8, 32, 2048),
+    ("4", "rms_norm", 1, 8, 4096),
+    ("4", "rms_norm", 8, 2048, 4096),
 )
+ATTN_HD = 128
 
 
 # spin-kernel cycles per millisecond: the H100's 1.98 GHz top clock
@@ -88,7 +96,7 @@ def profile(fn) -> dict[str, float]:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--rows", default="7,8,6b", help="table rows to time, comma separated")
+    ap.add_argument("--rows", default="7,8,6b,2,4", help="table rows to time, comma separated")
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--profile", action="store_true",
                     help="device time of each CUDA kernel of one call, from torch.profiler")
@@ -110,7 +118,23 @@ def main() -> None:
     for row, name, N, D, F in SHAPES:
         if row not in wanted:
             continue
-        if name == "linear_act":
+        lib = None
+        if row == "2":   # (B, H, T) at hd 128, bf16; the 5-product count of the row's bound
+            causal = name.endswith("causal")
+            q, k, v, g = (rnd(N, D, F, ATTN_HD) for _ in range(4))
+            out, lse = cudaex.sdpa_fwd(q, k, v, causal)
+            fn = lambda: cudaex.sdpa_bwd(g, q, k, v, out, lse, causal)   # noqa: E731
+            flops = 10.0 * N * D * F * F * ATTN_HD * (0.5 if causal else 1.0)
+            fa = torch.ops.aten._scaled_dot_product_flash_attention(q, k, v, 0.0, causal)
+            lib = lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(  # noqa
+                g, q, k, v, fa[0], fa[1], fa[2], fa[3], fa[4], fa[5], 0.0, causal, fa[6],
+                fa[7])
+        elif row == "4":   # (N, D, F) rows of F
+            x, w = rnd(N, D, F), (torch.rand(F, generator=gen, device=dev) + 0.5).to(bf16)
+            fn = lambda: cudaex.rms_norm(x, w, 1e-5)   # noqa: E731
+            lib = lambda: torch.nn.functional.rms_norm(x, (F,), w, 1e-5)   # noqa: E731
+            flops = 4.0 * N * D * F
+        elif name == "linear_act":
             a, w = rnd(N, D), rnd(F, D, scale=D ** -0.5)
             fn = lambda: cudaex.linear_act(a, w, None, "silu")   # noqa: E731
             flops = 2.0 * N * D * F
@@ -129,13 +153,16 @@ def main() -> None:
         ms = time_ms(fn, args.iters)
         res = {"row": row, "name": name, "shape": f"{N}x{D}x{F}", "ms": ms,
                "tflops": flops / ms / 1e9, "designs": cudaex.design_counts()}
+        if lib is not None:
+            res["library_ms"] = time_ms(lib, args.iters)
         print(f"row {row:3s} {name:17s} {N}x{D}x{F}: {ms:.4f} ms, "
-              f"{flops / ms / 1e9:.1f} TFLOP/s, {cudaex.design_counts()}", flush=True)
+              f"{flops / ms / 1e9:.1f} TFLOP/s, {cudaex.design_counts()}"
+              + (f", library {res['library_ms']:.4f} ms" if lib is not None else ""), flush=True)
         if args.profile:
             res["kernels_ms"] = profile(fn)
             print("    " + ", ".join(f"{k} {v:.4f}" for k, v in res["kernels_ms"].items()))
         results.append(res)
-        del fn
+        del fn, lib
         torch.cuda.empty_cache()
     print(card)
     print(json.dumps({"card": card, "rows": results}))

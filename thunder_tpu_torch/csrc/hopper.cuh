@@ -1,6 +1,7 @@
 // Hopper (sm_90a) primitives shared by the port's TMA + wgmma kernels
-// (sdpa_fwd.cu's wgmma design and gemm.cuh's warp-specialised mainloop):
-// mbarriers, 2-D and 3-D TMA tile loads, the wgmma fence/commit/wait, the
+// (sdpa_fwd.cu's and sdpa_bwd.cu's wgmma designs and gemm.cuh's
+// warp-specialised mainloop): mbarriers, 2-D and 3-D TMA tile loads, 1-D
+// bulk copies, the wgmma fence/commit/wait, the
 // shared-memory matrix descriptor of a 128-byte-swizzled tile, wgmma in
 // both operand forms for bf16 and fp16, setmaxnreg, and the host-side
 // lookup of cuTensorMapEncodeTiled.
@@ -83,6 +84,16 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// a 1-D bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) from global into shared memory, completing on `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, int bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
 }
 
@@ -319,6 +330,24 @@ bool map_2d(CUtensorMap* map, const void* base, long long inner, long long outer
                              static_cast<cuuint32_t>(box_outer)};
   const cuuint32_t elem[2] = {1, 1};
   return fn(map, map_dtype<T>(), 2, const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 3-D map over a (BH, rows, hd) 16-bit tensor, (hd, rows, BH) innermost
+// first, in boxes of 64 columns x box_rows rows with the 128-byte swizzle;
+// rows past the end of a head read as zeros, never as the next head's.
+template <typename T>
+bool map_heads(CUtensorMap* map, const void* base, int BH, int rows, int hd, int box_rows) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(BH)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(hd) * 2,
+                                 static_cast<cuuint64_t>(rows) * hd * 2};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, map_dtype<T>(), 3, const_cast<void*>(base), dims, strides, box, elem,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

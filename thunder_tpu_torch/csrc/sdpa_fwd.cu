@@ -411,30 +411,13 @@ sdpa_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
   }
 }
 
-// A 3-D map over a (BH, rows, hd) 16-bit tensor, (hd, rows, BH) innermost
-// first, in 64-column x 128-row boxes with the 128-byte swizzle; rows past
-// the end of a head read as zeros.
-template <typename TE>
-bool head_map(CUtensorMap* map, EncodeTiledFn fn, const void* base, int BH, int rows, int hd) {
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(BH)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(hd) * 2,
-                                 static_cast<cuuint64_t>(rows) * hd * 2};
-  const cuuint32_t box[3] = {BOX_COLS, 128, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(map, map_dtype<TE>(), 3, const_cast<void*>(base), dims, strides, box,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <typename TE, int HD>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out, void* lse,
                          int BH, int T, int S, float scale, int causal, cudaStream_t s) {
-  const EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return cudaErrorNotSupported;
+  if (encode_tiled() == nullptr) return cudaErrorNotSupported;
   CUtensorMap tq, tk, tv;
-  if (!head_map<TE>(&tq, fn, q, BH, T, HD) || !head_map<TE>(&tk, fn, k, BH, S, HD) ||
-      !head_map<TE>(&tv, fn, v, BH, S, HD))
+  if (!map_heads<TE>(&tq, q, BH, T, HD, 128) || !map_heads<TE>(&tk, k, BH, S, HD, 128) ||
+      !map_heads<TE>(&tv, v, BH, S, HD, 128))
     return cudaErrorInvalidValue;
   constexpr int smem = WgLayout<HD>::BYTES;
   const cudaError_t err = cudaFuncSetAttribute(

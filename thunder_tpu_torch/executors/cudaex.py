@@ -46,9 +46,10 @@ one to its kernel's ``launches`` count where it launches, and nowhere else.
 A wrapper takes CUDA tensors only: the routing of CPU tensors to the plain
 versions lives in :mod:`thunder_tpu_torch.ops`.
 
-Designs: ``sdpa_fwd`` and ``linear_act`` each hold more than one kernel
-design, and the wrapper picks one by a fixed rule of shape and dtype
-(:func:`sdpa_fwd_design`, :func:`linear_act_path`), passes it to the C
+Designs: ``sdpa_fwd``, ``sdpa_bwd``, ``rms_norm`` and ``linear_act`` each
+hold more than one kernel design, and the wrapper picks one by a fixed rule
+of shape and dtype (:func:`sdpa_fwd_design`, :func:`sdpa_bwd_design`,
+:func:`rms_norm_design`, :func:`linear_act_path`), passes it to the C
 entry, which refuses a design the inputs do not fit, and counts the launch
 under it as well (:func:`design_counts`). ``mlp_subblock``,
 ``mlp_subblock_bwd`` and ``linear_act``'s tile path run on gemm.cuh's
@@ -108,7 +109,7 @@ _ADAMW_ARGS = (_P, _I, _L, _P) + (_F,) * 7 + (_I, _I, _I, _I, _I, _P)
 KERNELS = {k.name: k for k in (
     Kernel("rms_norm", "thunder_tpu_torch/csrc/rms_norm.cu",
            "thunder_tpu/executors/pallasex.py:738", "tt_rms_norm",
-           (_P, _P, _P, _L, _I, _F, _I, _I, _I, _P)),
+           (_P, _P, _P, _L, _I, _F, _I, _I, _I, _I, _P)),
     Kernel("rms_norm_residual", "thunder_tpu_torch/csrc/rms_norm_residual.cu",
            "thunder_tpu/executors/pallasex.py:811", "tt_rms_norm_residual",
            (_P, _P, _P, _P, _P, _L, _I, _F, _I, _I, _I, _P)),
@@ -124,7 +125,7 @@ KERNELS = {k.name: k for k in (
            (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P)),
     Kernel("sdpa_bwd", "thunder_tpu_torch/csrc/sdpa_bwd.cu",
            "thunder_tpu/executors/pallasex.py:537", "tt_sdpa_bwd",
-           (_P,) * 10 + (_I, _I, _I, _I, _F, _I, _I, _I, _P)),
+           (_P,) * 10 + (_I, _I, _I, _I, _F, _I, _I, _I, _I, _P)),
     Kernel("ce_fwd", "thunder_tpu_torch/csrc/ce_fwd.cu",
            "thunder_tpu/executors/pallasex.py:686", "tt_ce_fwd",
            (_P, _P, _P, _P, _L, _I, _L, _I, _I, _P)),
@@ -189,6 +190,31 @@ def sdpa_fwd_design(dtype: torch.dtype, hd: int) -> str:
     if dtype == torch.float32:
         return "fma"
     return "wgmma" if sdpa_head_dim(dtype, hd) in SDPA_WGMMA_HEAD_DIMS else "mma"
+
+
+# sdpa_bwd's designs and the rule that picks one are the forward's
+# (csrc/sdpa_bwd.cu takes the same codes): "wgmma" for bf16 or fp16 at hd 64
+# or 128, "mma" for the other 16-bit head dims, "fma" for float32
+SDPA_BWD_DESIGNS = SDPA_FWD_DESIGNS
+sdpa_bwd_design = sdpa_fwd_design
+# the rows sdpa_bwd's scratch pads T to (the wgmma design's lse and delta)
+SDPA_BWD_ROW_PAD = 128
+
+
+# rms_norm's designs, by the code the C entry takes (csrc/rms_norm.cu)
+RMS_NORM_DESIGNS = ("scalar", "vector")
+# the longest row the vector design holds in registers, in 16-byte accesses
+RMS_NORM_MAX_VECTORS = 4096
+
+
+def rms_norm_design(dtype: torch.dtype, D: int) -> str:
+    """The ``rms_norm`` design that rows of ``D`` values of ``dtype`` take:
+    ``"vector"`` (one read of the row into registers in 16-byte accesses)
+    where every row starts on 16 bytes (D a multiple of 16 bytes' worth of
+    values) and the row fits the registers (at most 4096 accesses, 8 per
+    thread); ``"scalar"`` (a block per row, two sweeps) otherwise."""
+    per16 = 128 // torch.finfo(dtype).bits
+    return "vector" if D % per16 == 0 and D // per16 <= RMS_NORM_MAX_VECTORS else "scalar"
 
 
 # linear_act's paths, by the code the C entry takes (csrc/linear_act.cu)
@@ -431,10 +457,11 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor | None, eps: float) -> torch.
     x, weight = _dense(x), _dense(weight)
     D = x.shape[-1]
     out = torch.empty(x.shape, dtype=_norm_out_dtype(x, weight), device=x.device)
+    design = rms_norm_design(x.dtype, D)
     _launch(name, x.data_ptr(), None if weight is None else weight.data_ptr(),
             out.data_ptr(), x.numel() // max(D, 1), D, float(eps), _DTYPE_CODES[x.dtype],
-            _DTYPE_CODES[(weight if weight is not None else x).dtype], x.device.index,
-            _stream(x))
+            _DTYPE_CODES[(weight if weight is not None else x).dtype],
+            RMS_NORM_DESIGNS.index(design), x.device.index, _stream(x), design=design)
     return out
 
 
@@ -644,8 +671,9 @@ def sdpa_bwd(g: torch.Tensor, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              scale: float | None = None):
     """Flash-attention backward: ``(dq, dk, dv)`` from the output gradient
     ``g`` and the forward's ``(out, lse)``. One call launches three CUDA
-    kernels (delta, dK/dV, dQ) and counts as one launch. A 16-bit head dim
-    off the multiples of 16 runs zero-padded, as :func:`sdpa_fwd` does."""
+    kernels (delta, dK/dV, dQ) and counts as one launch, under its design
+    (:func:`sdpa_bwd_design`). A 16-bit head dim off the multiples of 16
+    runs zero-padded, as :func:`sdpa_fwd` does."""
     name = "sdpa_bwd"
     _refuse(_sdpa_bwd_refusal(g, q, k, v, out, lse))
     _require_cuda(name, q)
@@ -654,12 +682,15 @@ def sdpa_bwd(g: torch.Tensor, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     hdp = sdpa_head_dim(q.dtype, hd)
     g, q, k, v, out = (_dense(pad_last(t, hdp)) for t in (g, q, k, v, out))
     lse = _dense(lse)
+    design = sdpa_bwd_design(q.dtype, hdp)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty_like(lse)
+    # delta (and the wgmma design's lse * log2 e) per row, rows padded to 128
+    delta = torch.empty(2 * BH * -(-T // SDPA_BWD_ROW_PAD) * SDPA_BWD_ROW_PAD,
+                        dtype=torch.float32, device=q.device)
     _launch(name, g.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
-            BH, T, S, hdp, scale, int(bool(is_causal)), _DTYPE_CODES[q.dtype], q.device.index,
-            _stream(q))
+            BH, T, S, hdp, scale, int(bool(is_causal)), _DTYPE_CODES[q.dtype],
+            SDPA_BWD_DESIGNS.index(design), q.device.index, _stream(q), design=design)
     return _unpad(dq, hd), _unpad(dk, hd), _unpad(dv, hd)
 
 
