@@ -23,18 +23,26 @@ final line):
    weights from a seed) serves 8 requests (prompts 17..1000 tokens, 32 new
    tokens each, 2 of them sampled); the launch counts show every decode step
    went through all four kernels, linear_act's 32 launches each on its
-   weight-streaming design and rms_norm's on its vector design.
+   weight-streaming design, paged_decode_attention's 32 on its split design
+   and rms_norm's on its vector design.
 
-``sdpa_fwd``, ``sdpa_bwd``, ``rms_norm`` and ``linear_act`` have more than
-one design, chosen by the wrapper from shape and dtype
-(``cudaex.sdpa_fwd_design``, ``cudaex.sdpa_bwd_design``,
-``cudaex.rms_norm_design``, ``cudaex.linear_act_path``): every row of
-theirs names the design that ran (``sdpa_bwd``'s also its design's
-7-product floor beside the 5-product bound),
+``sdpa_fwd``, ``sdpa_bwd``, ``rms_norm``, ``linear_act``, ``decode_layer``
+and ``attn_subblock`` have more than one design, chosen by the wrapper from
+shape and dtype (``cudaex.sdpa_fwd_design``, ``cudaex.sdpa_bwd_design``,
+``cudaex.rms_norm_design``, ``cudaex.linear_act_path``,
+``cudaex.decode_design``), and ``paged_decode_attention`` counts its one
+(``split``): every row of theirs names the design that ran (``sdpa_bwd``'s
+also its design's 7-product floor beside the 5-product bound),
 and phase 3 shows that the linear_act check fails two planted faults at the
 decode and the prefill shape (the kernel on a weight with its last 16 rows,
 or its last 64 K columns, zeroed, against the plain version of the intact
-weight).
+weight). The paged attention row is held element by element and row by row,
+checked against the split design's plain model (``testing.paged_split_model``)
+and bit-identical over two calls, and phase 3 shows that its check fails a
+planted fault: the model with the longest request's last chunk left out of
+the merge. Phases 5 and 11 require every decode step's bf16 launches of
+``paged_decode_attention`` to take ``split`` and of ``decode_layer`` to take
+``stream`` (the swap-AB ``mma.sync`` weight stream).
 
 Phase 3 also runs ROADMAP C.1's inputs on the card (float16, a strided
 input, a mixed weight dtype, head dims 8 and 192 through the attention
@@ -83,8 +91,9 @@ The serving planned rung (``ServingEngine(block_fusion=True)``, the
 reference engine's default binding): phase 3 also holds ``decode_layer`` and
 ``attn_subblock`` (one cooperative launch each) against their plain versions
 at the serving shape (8 slots, D=4096, 32/8 heads, hd=128, 16-token pages,
-lengths 1..2048, F=14336, bf16 silu, one replay slot), out and the fresh k/v
-rows row by row; shows that three planted faults fail that check (the
+lengths 1..2048, F=14336, bf16 silu, one replay slot), each launch on the
+``stream`` design, out and the fresh k/v rows row by row; shows that three
+planted faults fail that check (the
 longest request's last page left out, the last 128 rows of w_gate zeroed,
 the replay row read from the pool instead of its fresh row); times each
 beside its plain version, its bound and the per-op chain it replaces; and
@@ -96,7 +105,8 @@ holds ``mlp_subblock`` at the 512-row prefill chunk and at 8 rows. Then:
     layer, the reference's ``nn.decode_layer`` decomposition) whose logits
     and pools equal the CPU's, the same composition and ``decode_layer_plain``;
 11. planned serving, full width — phase 5 at the planned rung: every decode
-    step launches decode_layer 32 and rms_norm 1, every prefill chunk
+    step launches decode_layer 32 (each on its stream design) and rms_norm 1,
+    every prefill chunk
     rms_norm 32 and mlp_subblock 31; decode tok/s, TTFT and peak memory
     beside phase 5's.
 
@@ -155,7 +165,10 @@ SPIN_CYCLES_PER_MS = 1.98e6
 # norms — about one bf16 ulp of the result (2**-7 relative), doubled because
 #   the weight multiply rounds a second time after a possible one-ulp move;
 # linear_act (K=4096) and paged attention — 2e-2 absolute + relative: f32
-#   sums in another order, one bf16 rounding of the result.
+#   sums in another order, one bf16 rounding of the result; paged attention
+#   also row by row, 2e-2 of each (request, head) row's largest value (the
+#   longest requests' rows are small, and one dropped chunk of theirs must
+#   fail the check).
 NORM_RTOL = 2.0 ** -6
 GEMM_TOL = 2e-2
 ATTN_TOL = 2e-2
@@ -486,10 +499,44 @@ def check_c1_inputs(torch, cudaex, tnn) -> dict:
     return found
 
 
+def paged_close(torch, got, want) -> bool:
+    """The paged attention check: every element within ATTN_TOL absolute +
+    relative, and every (request, head) row within ATTN_TOL of its own
+    largest value (a long request's rows are small: an element-wise bound
+    alone is loose there)."""
+    from thunder_tpu_torch.testing import row_rel_err
+
+    return (bool(torch.allclose(got.float(), want.float(), atol=ATTN_TOL, rtol=ATTN_TOL))
+            and row_rel_err(got, want) <= ATTN_TOL)
+
+
+def paged_fault(torch, cudaex, tnn, got, q, kp, vp, bt, ln) -> dict:
+    """The paged check's power: the split design's plain model
+    (``testing.paged_split_model``) with the longest request's last chunk
+    left out of the merge must fail the check against the kernel's output,
+    while the intact model passes it. Returns the fault's row error."""
+    from thunder_tpu_torch.testing import paged_split_model, row_rel_err
+
+    B, H, _, hd = q.shape
+    keys, _, _ = cudaex.paged_geometry(B, H, kp.shape[0], hd, kp.shape[2], bt.shape[1], q.dtype)
+    longest = max(range(B), key=lambda b: LENGTHS[b])
+    last = (LENGTHS[longest] - 1) // keys
+    require(paged_close(torch, got, paged_split_model(q, kp, vp, bt, ln, keys)),
+            "paged_decode_attention: the kernel disagrees with the split design's model")
+    bad = paged_split_model(q, kp, vp, bt, ln, keys, drop={(longest, last)})
+    err = row_rel_err(got, bad)
+    require(not paged_close(torch, got, bad),
+            f"paged_decode_attention: the check passes a planted fault (the longest request's "
+            f"last chunk left out of the merge: {err})")
+    return {"last chunk of the longest request left out": err}
+
+
 def check_kernels(torch, cudaex, tnn):
     """The serving path's four kernels at its shapes: {name: [rows]}, the
     decode shape's row first."""
     import torch.nn.functional as F
+
+    from thunder_tpu_torch.testing import row_rel_err
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -545,11 +592,17 @@ def check_kernels(torch, cudaex, tnn):
         used += k
     ln = torch.tensor(LENGTHS, dtype=torch.int32, device=dev)
     kp, vp = pools[0]
-    got = cudaex.paged_decode_attention(q, kp, vp, bt, ln)
+    got, design = ran(cudaex, "paged_decode_attention",
+                      lambda: cudaex.paged_decode_attention(q, kp, vp, bt, ln))
+    require(design == "split", f"paged_decode_attention: bf16 launch took {design}")
     want = tnn.paged_decode_attention_plain(q, kp, vp, bt, ln)
     err = float((got.float() - want.float()).abs().max())
-    require(bool(torch.allclose(got.float(), want.float(), atol=ATTN_TOL, rtol=ATTN_TOL)),
-            f"paged_decode_attention: kernel disagrees with its plain version ({err})")
+    require(paged_close(torch, got, want),
+            f"paged_decode_attention: kernel disagrees with its plain version ({err}, rows "
+            f"{row_rel_err(got, want)})")
+    require(bool(torch.equal(got, cudaex.paged_decode_attention(q, kp, vp, bt, ln))),
+            "paged_decode_attention: two calls differ")
+    fault = paged_fault(torch, cudaex, tnn, got, q, kp, vp, bt, ln)
     turn = [0]
 
     def paged_rotating():
@@ -559,10 +612,14 @@ def check_kernels(torch, cudaex, tnn):
 
     ctx = sum(LENGTHS)
     pages_read = sum(-(-n // PS) for n in LENGTHS)
-    add(timed_row(torch, cudaex, "paged_decode_attention", f"B{B}:1..2048", err,
-                  paged_rotating, lambda: tnn.paged_decode_attention_plain(q, kp, vp, bt, ln),
-                  None, 2 * B * H * HD * 2 + ctx * KV * HD * 2 * 2 + pages_read * KV * 4 + B * 4,
-                  4.0 * ctx * H * HD, BF16_FLOPS))
+    row = timed_row(torch, cudaex, "paged_decode_attention", f"B{B}:1..2048", err,
+                    paged_rotating, lambda: tnn.paged_decode_attention_plain(q, kp, vp, bt, ln),
+                    None, 2 * B * H * HD * 2 + ctx * KV * HD * 2 * 2 + pages_read * KV * 4 + B * 4,
+                    4.0 * ctx * H * HD, BF16_FLOPS)
+    row["design"], row["row_rel_err"], row["planted_faults"] = design, row_rel_err(got, want), fault
+    log(f"    design {design}; row check {row['row_rel_err']:.3e}; bit-identical over two "
+        f"calls; planted fault (the check must fail): {json.dumps(fault)}")
+    add(row)
     del pools
     torch.cuda.empty_cache()
     return rows
@@ -1088,6 +1145,12 @@ def check_serving_planned_kernels(torch, cudaex, tnn, tllama):
     cfg = tllama.CONFIGS["llama3-8b"]
     dims = (S_DECODE, D, KV * G, KV, HD, PS, F_DIM)
     args, mlp = decode_inputs(torch, tnn, dev, dims)
+    designs = {}
+    for name, fn in (("decode_layer", lambda: cudaex.decode_layer(*args, *mlp)),
+                     ("attn_subblock", lambda: cudaex.attn_subblock(*args))):
+        _, designs[name] = ran(cudaex, name, fn)
+        require(designs[name] == "stream", f"{name}: a bf16 launch at 8 slots took "
+                                           f"{designs[name]}")
     found = hold_decode_kernels(torch, tnn, cudaex.decode_layer, cudaex.attn_subblock, args, mlp)
     for name, f in found.items():
         log(f"  {name}: " + ", ".join(f"{k} {v:.3e}" for k, v in f["errs"].items())
@@ -1135,8 +1198,9 @@ def check_serving_planned_kernels(torch, cudaex, tnn, tllama):
                         plain, None, w_bytes + kv_bytes + act_bytes, ops, BF16_FLOPS, 20, 3)
         row["row_rel_err"] = found[name]["errs"]
         row["planted_faults"] = found[name]["faults"]
+        row["design"] = designs[name]
         row["per_op_chain_ms"] = time_ms(torch, chain, 20)
-        log(f"    per-op chain {row['per_op_chain_ms']:.4f} ms")
+        log(f"    design {designs[name]}; per-op chain {row['per_op_chain_ms']:.4f} ms")
         rows[name] = [row]
     del args, mlp, layer, kp, vp
     gc.collect()
@@ -1345,10 +1409,14 @@ def full_width(np, torch, tllama, ServingEngine, SamplingParams, cudaex, params,
     expect = ({"decode_layer": L, "rms_norm": 1} if block_fusion else
               {"paged_decode_attention": L, "linear_act": L, "rms_norm_residual": 2 * L,
                "rms_norm": 1})
-    # rms_norm(norm_f) on bf16 rows of 4096 reads each row once (vector)
+    # rms_norm(norm_f) on bf16 rows of 4096 reads each row once (vector);
+    # every bf16 launch of the decode kernels takes its Hopper design
     expect_designs = {"rms_norm": {"vector": 1}}
-    if not block_fusion:
+    if block_fusion:
+        expect_designs["decode_layer"] = {"stream": L}
+    else:
         expect_designs["linear_act"] = {"stream": L}
+        expect_designs["paged_decode_attention"] = {"split": L}
     for i, (c, d) in enumerate(zip(step_counts, step_designs)):
         if c != expect or d != expect_designs:
             raise AssertionError(f"decode step {i} launched {c} by design {d}, expected "

@@ -53,7 +53,10 @@ Decode layer and attention sub-block (one cooperative launch each): out and
 the fresh k/v rows row by row, 1e-4 in float32 (products and the attention
 split across blocks summed in another order) and 2e-2 in bf16 (the normed
 rows, the probabilities, act(gate) and up round to bf16 before the next
-product).
+product), each launch on the design ``cudaex.decode_design`` names (the
+weight stream at up to 8 slots in 16-bit, FMAs otherwise). Paged attention's
+split design at lengths on both sides of its chunk and a length of 0 (zeros),
+bit-identical over two calls.
 """
 
 import math
@@ -201,6 +204,41 @@ def test_cuda_paged_decode_matches_plain(cuda_device, dtype):
     want = tnn.paged_decode_attention_plain(*args)
     tol = 2e-2 if dtype != torch.float32 else 1e-5
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+# the split-context design at lengths that straddle its chunk of C keys (1,
+# C - 1, C, C + 1, several chunks) and a length of 0; hd 6 and 5 take the
+# scalar staging (rows off the 16-byte multiples)
+PAGED_SPLIT = [(dt, G, hd) for dt in (torch.float32, torch.bfloat16, torch.float16)
+               for G in (1, 4, 8) for hd in (64, 128)] + [(torch.bfloat16, 4, 6),
+                                                          (torch.float32, 2, 5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,G,hd", PAGED_SPLIT,
+                         ids=[f"{str(d)[6:]}-G{g}-hd{h}" for d, g, h in PAGED_SPLIT])
+def test_cuda_paged_split_matches_plain(cuda_device, dtype, G, hd):
+    """Every launch takes the split design; the live rows match the plain
+    version, the empty request's rows are zeros, and two calls are
+    bit-identical (the chunks merge in chunk order)."""
+    KV, ps = 2, 16
+    keys = cudaex.paged_chunk_keys(G, hd, torch.finfo(dtype).bits // 8)
+    lengths = [1, keys - 1, keys, keys + 1, 3 * keys + 5, 0]
+    npg = -(-max(lengths) // ps)
+    q, kp, vp, bt, ln = _paged_inputs(11, B=len(lengths), H=G * KV, KV=KV, hd=hd, ps=ps,
+                                      P=len(lengths) * npg + 1, npg=npg, lengths=lengths)
+    args = [_t(a).to(cuda_device).to(dtype) for a in (q, kp, vp)]
+    args += [_t(bt).to(cuda_device), _t(ln).to(cuda_device)]
+    cudaex.reset_launch_counts()
+    got = cudaex.paged_decode_attention(*args)
+    again = cudaex.paged_decode_attention(*args)
+    torch.cuda.synchronize()
+    assert cudaex.design_counts()["paged_decode_attention"] == {"split": 2}
+    assert torch.equal(got, again)
+    want = tnn.paged_decode_attention_plain(*args)
+    tol = 2e-2 if dtype != torch.float32 else 1e-5
+    torch.testing.assert_close(got[:-1].float(), want[:-1].float(), atol=tol, rtol=tol)
+    assert bool((got[-1] == 0).all())
 
 
 @pytest.mark.cuda
@@ -454,6 +492,17 @@ DECODE_SHAPES = {
     "tiny-gqa": (4, 64, 4, 2, 16, 8, 3, 176, [9, 6, 20, 1], 2),
     "8-slot-hd128": (8, 1024, 8, 2, 128, 16, 40, 2816, [1, 17, 100, 255, 256, 400, 639, 640], 3),
     "tiny-tp-hd8": (4, 64, 8, 8, 8, 8, 3, 192, [9, 6, 20, 1], 2),
+    # the stream design's slot counts and a ragged K and N (D 520: a last
+    # slab of 8 columns, a last 16-row tile of 8 rows; F 1416 likewise)
+    "1-slot-hd64": (1, 512, 8, 2, 64, 16, 8, 1024, [100], 0),
+    "1-slot-hd128": (1, 1024, 8, 2, 128, 16, 20, 1536, [300], 0),
+    "3-slot-hd64": (3, 512, 8, 2, 64, 16, 20, 1024, [1, 129, 300], 1),
+    "3-slot-hd128": (3, 1024, 8, 2, 128, 16, 20, 1536, [1, 129, 300], 1),
+    "8-slot-hd64-ragged": (8, 520, 8, 4, 64, 16, 20, 1416,
+                           [1, 17, 100, 127, 128, 129, 250, 300], 2),
+    # past the stream design's 8 rows: the FMA design in every dtype
+    "9-slot-hd64": (9, 256, 4, 2, 64, 16, 6, 512, [1, 2, 3, 17, 33, 50, 64, 80, 96], 4),
+    "16-slot-hd64": (16, 256, 4, 2, 64, 16, 6, 512, list(range(1, 96, 6)), 5),
 }
 
 
@@ -490,7 +539,11 @@ def _decode_args(device, dtype, shape, seed):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("layer", [True, False], ids=["decode_layer", "attn_subblock"])
 def test_cuda_decode_kernels_match_plain(cuda_device, layer, dtype, shape):
+    """Each launch takes the design ``cudaex.decode_design`` names (the
+    weight stream for 16-bit at up to 8 slots, FMAs otherwise)."""
     args, mlp = _decode_args(cuda_device, dtype, shape, seed=7)
+    S, D, H, KV, hd = DECODE_SHAPES[shape][:5]
+    cudaex.reset_launch_counts()
     if layer:
         got = cudaex.decode_layer(*args, *mlp, act="silu")
         want = tnn.decode_layer_plain(*args, *mlp, act="silu")
@@ -498,6 +551,10 @@ def test_cuda_decode_kernels_match_plain(cuda_device, layer, dtype, shape):
         got = cudaex.attn_subblock(*args)
         want = tnn.attn_subblock_plain(*args)
     torch.cuda.synchronize()
+    design = cudaex.decode_design(dtype, S, D, H, KV, hd)
+    assert design == ("stream" if dtype != torch.float32 and S <= 8 else "fma")
+    name = "decode_layer" if layer else "attn_subblock"
+    assert cudaex.design_counts()[name] == {design: 1}
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     for name, a, b in zip(("out", "k_rows", "v_rows"), got, want):
         assert a.dtype == dtype and a.shape == b.shape, name

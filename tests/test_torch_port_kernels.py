@@ -171,6 +171,90 @@ def test_paged_decode_matches_pallas_and_decomposition(seed, interpret):
     _close(port, ref, 1e-5)
 
 
+# the split-context kernel's algorithm (csrc/paged_decode_attention.cu) at
+# the chunk geometry its wrapper computes: lengths that straddle a chunk (1,
+# C - 1, C, C + 1, several chunks) and a length of 0, which gets zeros
+SPLIT_CASES = [(dt, G, hd) for dt in (torch.float32, torch.bfloat16, torch.float16)
+               for G in (1, 4, 8) for hd in (64, 128)]
+
+
+@pytest.mark.parametrize("dtype,G,hd", SPLIT_CASES,
+                         ids=[f"{str(d)[6:]}-G{g}-hd{h}" for d, g, h in SPLIT_CASES])
+def test_paged_split_model_matches_plain(dtype, G, hd):
+    """The chunks' (m, l, acc) in float32 merged in chunk order equal the
+    plain version's one softmax over the whole context: float32 to 1e-5,
+    16-bit to one rounding step of the result (both round once, from f32
+    sums in another order)."""
+    from thunder_tpu_torch.testing import paged_split_model
+
+    KV, ps = 2, 16
+    keys, _, _ = cudaex.paged_geometry(1, G * KV, KV, hd, ps, 1, dtype)
+    lengths = [1, keys - 1, keys, keys + 1, 2 * keys + 3, 0]
+    npg = -(-max(lengths) // ps)
+    q, kp, vp, bt, ln = _paged_inputs(5, B=len(lengths), H=G * KV, KV=KV, hd=hd, ps=ps,
+                                      P=len(lengths) * npg + 1, npg=npg, lengths=lengths)
+    args = [_t(a).to(dtype) for a in (q, kp, vp)] + [_t(bt), _t(ln)]
+    B, H, _, _ = args[0].shape
+    k2, nch, ws = cudaex.paged_geometry(B, H, KV, hd, ps, npg, dtype)
+    assert k2 == keys and nch == -(-npg * ps // keys) and ws == (B, KV, nch, G, 2 + hd)
+    got = paged_split_model(*args, keys)
+    want = tnn.paged_decode_attention_plain(*args)
+    assert got.dtype == dtype and got.shape == want.shape
+    live = slice(0, len(lengths) - 1)
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    torch.testing.assert_close(got[live].float(), want[live].float(), atol=tol, rtol=tol)
+    assert bool((got[-1] == 0).all())
+
+
+def test_paged_split_model_fails_a_dropped_chunk():
+    """The chip smoke's planted fault: the longest request's last chunk left
+    out of the merge must move that request's rows well past the check."""
+    from thunder_tpu_torch.testing import paged_split_model, row_rel_err
+
+    keys = cudaex.paged_chunk_keys(4, 64, 2)
+    lengths = [3, 2 * keys + 40]
+    npg = -(-max(lengths) // 16)
+    q, kp, vp, bt, ln = _paged_inputs(6, B=2, H=8, KV=2, hd=64, ps=16, P=2 * npg + 1, npg=npg,
+                                      lengths=lengths)
+    args = [_t(a).to(torch.bfloat16) for a in (q, kp, vp)] + [_t(bt), _t(ln)]
+    want = tnn.paged_decode_attention_plain(*args)
+    assert row_rel_err(paged_split_model(*args, keys), want) <= 2e-2
+    bad = paged_split_model(*args, keys, drop={(1, 2)})
+    assert row_rel_err(bad, want) > 2e-2
+    torch.testing.assert_close(bad[0], want[0])
+
+
+@pytest.mark.parametrize("dtype,esize", [(torch.bfloat16, 2), (torch.float16, 2),
+                                         (torch.float32, 4)])
+def test_paged_geometry_sizes_the_chunks(dtype, esize):
+    """The chunk geometry: 128 keys at 16-bit and hd 128 and G 4 (the serving
+    shape: 16 chunks over 128 pages of 16), 64 at float32, every block within
+    72 KB of shared memory; the grid comes from the block table's width,
+    never from the lengths."""
+    keys, nch, ws = cudaex.paged_geometry(8, 32, 8, 128, 16, 128, dtype)
+    assert keys == (128 if esize == 2 else 64)
+    assert nch == 2048 // keys and ws == (8, 8, nch, 4, 130)
+    for G, hd in ((1, 128), (4, 64), (8, 128), (32, 128), (1, 3), (2048, 1)):
+        k = cudaex.paged_chunk_keys(G, hd, esize)
+        assert k >= 4 and k & (k - 1) == 0 and k <= cudaex.PAGED_MAX_KEYS
+        assert cudaex._paged_smem(G, hd, k, esize) <= cudaex.PAGED_CHUNK_SMEM
+        assert k == cudaex.PAGED_MAX_KEYS or cudaex._paged_smem(G, hd, 2 * k, esize) > \
+            cudaex.PAGED_CHUNK_SMEM
+
+
+def test_paged_refusal_has_no_accumulator_cap():
+    """The split design holds no per-thread accumulators: 32 grouped rows of
+    128 (beyond the parent kernel's G * hd <= 2048) are taken, and only a
+    4-key chunk that outgrows a block's shared memory is refused."""
+    q = torch.zeros(2, 32, 1, 128, dtype=torch.bfloat16)
+    kp = torch.zeros(1, 5, 16, 128, dtype=torch.bfloat16)
+    bt, ln = torch.zeros(2, 2, dtype=torch.int32), torch.tensor([3, 20], dtype=torch.int32)
+    assert cudaex.refusal("paged_decode_attention", q, kp, kp, bt, ln) is None
+    q = torch.zeros(1, 4096, 1, 16)
+    kp = torch.zeros(1, 2, 16, 16)
+    assert "shared memory" in cudaex.refusal("paged_decode_attention", q, kp, kp, bt[:1], ln[:1])
+
+
 def test_paged_prefill_rows_masked_per_row():
     """T > 1 (a prefill chunk): per-row ragged causal masking, plain path."""
     q, kp, vp, bt, ln = _paged_inputs(2, T=8, B=1, lengths=[19])
@@ -337,6 +421,32 @@ def test_linear_act_path_by_rows(dtype, M, path):
     repo = Path(cudaex.__file__).resolve().parents[2]
     note = (repo / cudaex.KERNELS["linear_act"].source).read_text()
     assert f"{cudaex.LINEAR_ACT_PATHS.index(path)} {path}" in note
+
+
+DECODE_DESIGNS = [(torch.bfloat16, 1, 4096, 32, 128, "stream"),
+                  (torch.bfloat16, 3, 4096, 32, 128, "stream"),
+                  (torch.bfloat16, 8, 4096, 32, 128, "stream"),
+                  (torch.float16, 8, 4096, 32, 128, "stream"),
+                  (torch.bfloat16, 4, 64, 8, 8, "stream"),
+                  (torch.bfloat16, 9, 4096, 32, 128, "fma"),
+                  (torch.bfloat16, 16, 4096, 32, 128, "fma"),
+                  (torch.bfloat16, 8, 8192, 64, 128, "fma"),
+                  (torch.float32, 8, 4096, 32, 128, "fma"),
+                  (torch.float32, 1, 64, 4, 16, "fma")]
+
+
+@pytest.mark.parametrize("dtype,S,D,H,hd,design", DECODE_DESIGNS,
+                         ids=[f"{str(d)[6:]}-S{s}-D{n}" for d, s, n, *_ in DECODE_DESIGNS])
+def test_decode_design_by_dtype_and_slots(dtype, S, D, H, hd, design):
+    """decode_layer's and attn_subblock's fixed rule: bf16 and fp16 at up to
+    8 slots, with D and H * hd within the 4096 staged columns, run their
+    products on the swap-AB mma.sync weight stream, everything else on f32
+    FMAs; the C entries read the design by its index."""
+    assert cudaex.decode_design(dtype, S, D, H, 8, hd) == design
+    repo = Path(cudaex.__file__).resolve().parents[2]
+    for name in ("decode_layer", "attn_subblock"):
+        note = (repo / cudaex.KERNELS[name].source).read_text()
+        assert f"{cudaex.DECODE_DESIGNS.index(design)} {design}" in note
 
 
 def test_design_counts_start_empty_and_reset():

@@ -2,13 +2,20 @@
 
 Builds the full-width, full-depth llama3-8b engine (random bf16 weights from
 a seed), fills all 8 slots with the smoke mix of prompts (17..1000 tokens),
-runs until every request decodes, then traces ``--steps`` engine steps with
-``torch.profiler`` and prints device time by kernel family, the device's
-busy and idle share of the window, and the host-clock step time.
+runs until every request decodes, times ``--steps`` engine steps on the host
+clock, then traces as many more with ``torch.profiler`` and prints device
+time by kernel family, the device's busy and idle share of the traced
+window (against its own host-clock time, which the tracing lengthens), and
+the untraced step time and tokens/s.
 ``--block-fusion`` serves at the planned rung (one ``decode_layer`` launch
-per layer per step) instead of the per-op rung.
+per layer per step) instead of the per-op rung. A kernel family counts every
+CUDA kernel of its launches: ``paged_decode_attention`` its chunk and combine
+kernels.
 
     python3 -m thunder_tpu_torch.benchmarks.decode_profile [--steps 10] [--block-fusion]
+
+Run by its path with another checkout's root first on ``PYTHONPATH``, it
+profiles that checkout's kernels (two versions compared in one call).
 
 Needs a CUDA card; prints the result as one JSON line.
 """
@@ -26,7 +33,10 @@ import torch
 FAMILIES = (
     ("decode_layer", ("decode_layer_kernel",)),
     ("mlp_subblock", ("mlp_fwd_",)),
-    ("paged_decode_attention", ("paged_decode_kernel",)),
+    # the split design's two kernels, and the first design's one, so that the
+    # script also reads a checkout from before the split
+    ("paged_decode_attention", ("paged_chunk_kernel", "paged_combine_kernel",
+                                "paged_decode_kernel")),
     ("linear_act", ("linear_act_",)),
     ("rms_norm_residual", ("rms_norm_residual_kernel",)),
     ("rms_norm", ("rms_norm_kernel",)),
@@ -64,12 +74,18 @@ def main() -> None:
                         block_fusion=args.block_fusion)
     rng = np.random.RandomState(1)
     for n in (17, 64, 150, 301, 480, 640, 800, 1000):
-        eng.submit(rng.randint(0, cfg.vocab_size, size=n).astype(np.int32), 2 * args.steps + 8)
+        eng.submit(rng.randint(0, cfg.vocab_size, size=n).astype(np.int32), 2 * args.steps + 40)
     while any(r is None or r.state != "decode" for r in eng.slots):
         eng.step()
     for _ in range(3):                                  # warm decode steps
         eng.step()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()                            # the same steps, not traced
+    for _ in range(args.steps):
+        eng.step()
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+    cudaex.reset_launch_counts()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -90,14 +106,15 @@ def main() -> None:
     result = {
         "card": card, "model": cfg.name, "block_fusion": args.block_fusion, "slots": 8,
         "steps": args.steps,
-        "step_ms": wall_ms / args.steps,
-        "decode_tok_per_s": 8 * args.steps / (wall_ms / 1e3),
+        "step_ms": plain_ms, "decode_tok_per_s": 8 / (plain_ms / 1e3),
+        "step_ms_traced": wall_ms / args.steps,
         "device_busy_ms_per_step": busy_ms / args.steps,
         "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
         "ms_per_step_by_family": {k: v / 1e3 / args.steps for k, v in
                                   sorted(by_family.items(), key=lambda kv: -kv[1])},
         "top_kernels_ms_per_step": {k[:80]: v / 1e3 / args.steps for k, v in
                                     sorted(kernels.items(), key=lambda kv: -kv[1])[:12]},
+        "launches": cudaex.launch_counts(), "designs": cudaex.design_counts(),
     }
     print(json.dumps(result))
 

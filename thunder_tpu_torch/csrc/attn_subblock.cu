@@ -15,7 +15,8 @@ int run(const void* h, const void* wn1, const void* wq, const void* wk, const vo
         const void* wo, const void* cos, const void* sin, const void* kp, const void* vp,
         const void* bt, const void* ln, void* out, void* k_rows, void* v_rows, void* q_ws,
         void* part, void* attn_ws, int S, int D, int H, int KV, int hd, int P, int ps, int npg,
-        int chunk_pages, int nch, float eps, float scale, int device, cudaStream_t stream) {
+        int keys, int nch, float eps, float scale, int design, int device,
+        cudaStream_t stream) {
   tt::decode::Args<T> a{};
   a.h = static_cast<const T*>(h);
   a.wn1 = static_cast<const T*>(wn1);
@@ -36,26 +37,28 @@ int run(const void* h, const void* wn1, const void* wq, const void* wk, const vo
   a.part = static_cast<float*>(part);
   a.attn_ws = static_cast<T*>(attn_ws);
   a.S = S; a.D = D; a.H = H; a.KV = KV; a.hd = hd; a.P = P; a.ps = ps; a.npg = npg;
-  a.chunk_pages = chunk_pages; a.nch = nch; a.eps = eps; a.scale = scale;
-  return tt::decode::launch<T, false>(a, device, stream);
+  a.keys = keys; a.nch = nch; a.eps = eps; a.scale = scale;
+  return tt::decode::launch<T, false>(a, design, device, stream);
 }
 
 }  // namespace
 
+// design: 0 fma, 1 stream, as cudaex.decode_design chooses; a design the
+// shapes do not fit is refused (decode_layer.cuh design_fits).
 extern "C" int tt_attn_subblock(const void* h, const void* wn1, const void* wq, const void* wk,
                                 const void* wv, const void* wo, const void* cos, const void* sin,
                                 const void* kp, const void* vp, const void* bt, const void* ln,
                                 void* out, void* k_rows, void* v_rows, void* q_ws, void* part,
                                 void* attn_ws, int S, int D, int H, int KV, int hd, int P, int ps,
-                                int npg, int chunk_pages, int nch, float eps, float scale,
-                                int dtype, int device, void* stream) {
+                                int npg, int keys, int nch, float eps, float scale,
+                                int design, int dtype, int device, void* stream) {
   cudaSetDevice(device);
   auto s = static_cast<cudaStream_t>(stream);
   int rc = 0;
   const cudaError_t err = tt::with_dtype(dtype, [&](auto tag) {
     rc = run<decltype(tag)>(h, wn1, wq, wk, wv, wo, cos, sin, kp, vp, bt, ln, out, k_rows, v_rows,
-                            q_ws, part, attn_ws, S, D, H, KV, hd, P, ps, npg, chunk_pages, nch,
-                            eps, scale, device, s);
+                            q_ws, part, attn_ws, S, D, H, KV, hd, P, ps, npg, keys, nch,
+                            eps, scale, design, device, s);
     return cudaSuccess;
   });
   return err != cudaSuccess ? static_cast<int>(err) : rc;

@@ -15,8 +15,8 @@ int run(const void* h, const void* wn1, const void* wq, const void* wk, const vo
         const void* bt, const void* ln, const void* wn2, const void* wg, const void* wu,
         const void* wd, void* out, void* k_rows, void* v_rows, void* q_ws, void* part,
         void* attn_ws, void* hacc, void* y_ws, int S, int D, int H, int KV, int hd, int P,
-        int ps, int npg, int F, int chunk_pages, int nch, int act, float eps, float scale,
-        int device, cudaStream_t stream) {
+        int ps, int npg, int F, int keys, int nch, int act, float eps, float scale,
+        int design, int device, cudaStream_t stream) {
   tt::decode::Args<T> a{};
   a.h = static_cast<const T*>(h);
   a.wn1 = static_cast<const T*>(wn1);
@@ -43,28 +43,30 @@ int run(const void* h, const void* wn1, const void* wq, const void* wk, const vo
   a.hacc = static_cast<float*>(hacc);
   a.y_ws = static_cast<T*>(y_ws);
   a.S = S; a.D = D; a.H = H; a.KV = KV; a.hd = hd; a.P = P; a.ps = ps; a.npg = npg; a.F = F;
-  a.chunk_pages = chunk_pages; a.nch = nch; a.act = act; a.eps = eps; a.scale = scale;
-  return tt::decode::launch<T, true>(a, device, stream);
+  a.keys = keys; a.nch = nch; a.act = act; a.eps = eps; a.scale = scale;
+  return tt::decode::launch<T, true>(a, design, device, stream);
 }
 
 }  // namespace
 
+// design: 0 fma, 1 stream, as cudaex.decode_design chooses; a design the
+// shapes do not fit is refused (decode_layer.cuh design_fits).
 extern "C" int tt_decode_layer(const void* h, const void* wn1, const void* wq, const void* wk,
                                const void* wv, const void* wo, const void* cos, const void* sin,
                                const void* kp, const void* vp, const void* bt, const void* ln,
                                const void* wn2, const void* wg, const void* wu, const void* wd,
                                void* out, void* k_rows, void* v_rows, void* q_ws, void* part,
                                void* attn_ws, void* hacc, void* y_ws, int S, int D, int H,
-                               int KV, int hd, int P, int ps, int npg, int F, int chunk_pages,
-                               int nch, int act, float eps, float scale, int dtype, int device,
-                               void* stream) {
+                               int KV, int hd, int P, int ps, int npg, int F, int keys,
+                               int nch, int act, float eps, float scale, int design,
+                               int dtype, int device, void* stream) {
   cudaSetDevice(device);
   auto s = static_cast<cudaStream_t>(stream);
   int rc = 0;
   const cudaError_t err = tt::with_dtype(dtype, [&](auto tag) {
     rc = run<decltype(tag)>(h, wn1, wq, wk, wv, wo, cos, sin, kp, vp, bt, ln, wn2, wg, wu, wd, out,
                             k_rows, v_rows, q_ws, part, attn_ws, hacc, y_ws, S, D, H, KV, hd, P,
-                            ps, npg, F, chunk_pages, nch, act, eps, scale, device, s);
+                            ps, npg, F, keys, nch, act, eps, scale, design, device, s);
     return cudaSuccess;
   });
   return err != cudaSuccess ? static_cast<int>(err) : rc;

@@ -32,7 +32,8 @@
 //   conflict-free without padding. The two warps' sums meet in shared memory
 //   for the epilogue. A K that is not a multiple of 8 leaves the rows off
 //   the 16-byte alignment: the slabs are then filled by scalar copies (zeros
-//   past K) in place of the 16-byte cp.async.
+//   past K) in place of the 16-byte cp.async. The slab tiles, fragments and
+//   ring are wstream.cuh's, which the decode layer's products share.
 //
 // tile (every other case: prefill chunks, ragged last chunks, float32).
 //   gemm.cuh's mainloops, as mlp_subblock.cu uses them, A and W both read
@@ -45,6 +46,7 @@
 //
 // What is left for later: a TMA bulk-copy weight stream.
 #include "mlp_subblock.cuh"
+#include "wstream.cuh"
 
 namespace {
 
@@ -58,22 +60,10 @@ namespace wg = tt::gemm::wg;
 // ---------------------------------------------------------------------------
 
 constexpr int SW_ROWS = 16;                 // weight rows per block (one m16 A tile)
-constexpr int SW_BK = 64;                   // columns per slab: one 128-byte line of a row
+constexpr int SW_BK = ws::BK;               // columns per slab: one 128-byte line of a row
 constexpr int SW_STAGES = 4;                // ring depth per warp
 constexpr int SW_WARPS = 2;                 // warps of a block, splitting K
 constexpr int SW_THREADS = 32 * SW_WARPS;
-
-// element offset of 16-byte chunk `ch` of row `r` in a [rows][64] slab tile;
-// the chunk index is XORed with the row's low bits, so the 8 rows one
-// ldmatrix phase reads fall in distinct banks
-__device__ __forceinline__ int swz(int r, int ch) { return r * SW_BK + ((ch ^ (r & 7)) << 3); }
-
-__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[4], const void* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(s));
-}
 
 template <int NT>
 constexpr int stream_smem() {   // the warps' rings, then their partial sums
@@ -99,24 +89,11 @@ linear_act_stream(const T* __restrict__ A, const T* __restrict__ W, const T* __r
 
   const bool vec = K % 8 == 0;   // rows on the 16-byte alignment
   const auto load = [&](int b, int slab) {
-    T* st = ring + b * STAGE;
-    const int k0 = slab * SW_BK;
-#pragma unroll
-    for (int c = lane; c < (SW_ROWS + XR) * 8; c += 32) {
-      const int r = c >> 3, ch = c & 7, k = k0 + ch * 8;
-      const bool wrow = r < SW_ROWS;
-      const int gr = wrow ? n0 + r : r - SW_ROWS;
-      const bool live = gr < (wrow ? N : M);
-      const T* row = (wrow ? W : A) + static_cast<long long>(gr) * K;
-      if (vec) {
-        const bool ok = live && k < K;
-        gemm::cp_async16(st + swz(r, ch), ok ? row + k : W, ok);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          st[swz(r, ch) + e] = live && k + e < K ? row[k + e] : from_f<T>(0.f);
-      }
-    }
+    ws::load_slab<T, SW_ROWS + XR>(ring + b * STAGE, (s0 + slab) * SW_BK, K, vec, W,
+                                   [&](int r) -> const T* {
+      if (r < SW_ROWS) return n0 + r < N ? W + static_cast<long long>(n0 + r) * K : nullptr;
+      return r - SW_ROWS < M ? A + static_cast<long long>(r - SW_ROWS) * K : nullptr;
+    });
   };
 
   // acc[nt][e]: weight row g + 8 (e >> 1), activation row 8 nt + 2 t + (e & 1)
@@ -127,38 +104,24 @@ linear_act_stream(const T* __restrict__ A, const T* __restrict__ W, const T* __r
     const T* st = ring + b * STAGE;
 #pragma unroll
     for (int kk = 0; kk < SW_BK / 16; ++kk) {
-      uint32_t a[4], x[4];
-      // A: weight rows 0-15 x k 16kk..+15, the matrices (rows 0-7, k 0-7),
-      // (rows 8-15, k 0-7), (rows 0-7, k 8-15), (rows 8-15, k 8-15)
-      gemm::ldsm_x4(a, st + swz(lane & 15, 2 * kk + (lane >> 4)));
-      // B: activation rows 0-7 (and 8-15) x the same k, (rows 0-7, k 0-7),
-      // (rows 0-7, k 8-15) (and the same for rows 8-15)
-      const int xr = SW_ROWS + (NT == 2 ? (lane >> 4) * 8 : 0) + (lane & 7);
-      const int xc = 2 * kk + ((lane >> 3) & 1);
-      if constexpr (NT == 1)
-        ldsm_x2(x, st + swz(xr, xc));
-      else
-        gemm::ldsm_x4(x, st + swz(xr, xc));
-      mma16<T>(acc[0], a, x[0], x[1]);
-      if constexpr (NT == 2) mma16<T>(acc[1], a, x[2], x[3]);
+      uint32_t a[4];
+      ws::frag_a(a, st, 0, kk);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        uint32_t x[2];
+        ws::frag_b(x, st, SW_ROWS + 8 * nt, kk);
+        mma16<T>(acc[nt], a, x[0], x[1]);
+      }
     }
   };
 
   // the warp's own ring: SW_STAGES - 1 slabs in flight while one is multiplied
-#pragma unroll
-  for (int s = 0; s < SW_STAGES - 1; ++s) {
-    if (s < mine) load(s, s0 + s);
-    gemm::cp_async_commit();
-  }
+  ws::ring_start<SW_STAGES>(mine, load);
   for (int kt = 0; kt < mine; ++kt) {
-    gemm::cp_async_wait<SW_STAGES - 2>();
-    __syncwarp();   // slab kt has landed for every lane; every lane is done with kt - 1
-    const int nxt = kt + SW_STAGES - 1;
-    if (nxt < mine) load(nxt % SW_STAGES, s0 + nxt);
-    gemm::cp_async_commit();
+    ws::ring_next<SW_STAGES>(kt, mine, load);
     compute(kt % SW_STAGES);
   }
-  gemm::cp_async_wait<0>();
+  ws::ring_drain();
 
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll

@@ -46,21 +46,26 @@ one to its kernel's ``launches`` count where it launches, and nowhere else.
 A wrapper takes CUDA tensors only: the routing of CPU tensors to the plain
 versions lives in :mod:`thunder_tpu_torch.ops`.
 
-Designs: ``sdpa_fwd``, ``sdpa_bwd``, ``rms_norm`` and ``linear_act`` each
-hold more than one kernel design, and the wrapper picks one by a fixed rule
-of shape and dtype (:func:`sdpa_fwd_design`, :func:`sdpa_bwd_design`,
-:func:`rms_norm_design`, :func:`linear_act_path`), passes it to the C
-entry, which refuses a design the inputs do not fit, and counts the launch
-under it as well (:func:`design_counts`). ``mlp_subblock``,
-``mlp_subblock_bwd`` and ``linear_act``'s tile path run on gemm.cuh's
-mainloops, chosen by dtype alone (:func:`gemm_design`: the TMA + wgmma one
-for 16-bit types, the FMA one for float32), and count their launches by
-it. A launch never falls back to another design.
+Designs: ``sdpa_fwd``, ``sdpa_bwd``, ``rms_norm``, ``linear_act``,
+``decode_layer`` and ``attn_subblock`` each hold more than one kernel
+design, and the wrapper picks one by a fixed rule of shape and dtype
+(:func:`sdpa_fwd_design`, :func:`sdpa_bwd_design`, :func:`rms_norm_design`,
+:func:`linear_act_path`, :func:`decode_design`), passes it to the C entry,
+which refuses a design the inputs do not fit, and counts the launch under
+it as well (:func:`design_counts`). ``mlp_subblock``, ``mlp_subblock_bwd``
+and ``linear_act``'s tile path run on gemm.cuh's mainloops, chosen by dtype
+alone (:func:`gemm_design`: the TMA + wgmma one for 16-bit types, the FMA
+one for float32), and count their launches by it; ``paged_decode_attention``
+counts its one design, ``split`` (the context split across blocks, sized by
+:func:`paged_geometry`). ``linear_act``'s decode path and the decode
+layer's 16-bit products share one weight stream (``csrc/wstream.cuh``). A
+launch never falls back to another design.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import math
 import os
@@ -119,7 +124,7 @@ KERNELS = {k.name: k for k in (
     Kernel("paged_decode_attention",
            "thunder_tpu_torch/csrc/paged_decode_attention.cu",
            "thunder_tpu/executors/pallasex.py:1316", "tt_paged_decode_attention",
-           (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P)),
+           (_P,) * 7 + (_I,) * 9 + (_F, _I, _I, _P)),
     Kernel("sdpa_fwd", "thunder_tpu_torch/csrc/sdpa_fwd.cu",
            "thunder_tpu/executors/pallasex.py:214", "tt_sdpa_fwd",
            (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P)),
@@ -141,10 +146,10 @@ KERNELS = {k.name: k for k in (
            (_P,) * 20 + (_I, _I, _I, _I, _F, _I, _I, _P)),
     Kernel("decode_layer", "thunder_tpu_torch/csrc/decode_layer.cu",
            "thunder_tpu/executors/pallasex.py:1751", "tt_decode_layer",
-           (_P,) * 24 + (_I,) * 12 + (_F, _F, _I, _I, _P)),
+           (_P,) * 24 + (_I,) * 12 + (_F, _F, _I, _I, _I, _P)),
     Kernel("attn_subblock", "thunder_tpu_torch/csrc/attn_subblock.cu",
            "thunder_tpu/executors/pallasex.py:1743", "tt_attn_subblock",
-           (_P,) * 18 + (_I,) * 10 + (_F, _F, _I, _I, _P)),
+           (_P,) * 18 + (_I,) * 10 + (_F, _F, _I, _I, _I, _P)),
 )}
 
 _build_lock = threading.Lock()
@@ -542,9 +547,59 @@ def linear_act(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = Non
     return out
 
 
-# accumulators each thread of the paged kernel holds (MAXR * THREADS in the
-# source): G * hd may not exceed it
-_PAGED_MAX_ROW_VALUES = 8 * 256
+# a block's shared-memory ceiling on an H100 (227 KB), in bytes
+_SMEM_MAX = 232448
+
+
+def _align16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+# geometry of csrc/paged_decode_attention.cu's split-context design: 256
+# threads a block, the PV sums split over at most 8 key parts, and the chunk
+# sized so that a block's shared memory stays within 72 KB (three blocks an
+# SM) where it can
+PAGED_THREADS = 256
+PAGED_CHUNK_SMEM = 72 * 1024
+PAGED_MAX_KEYS = 256
+
+
+def _paged_smem(G: int, hd: int, keys: int, esize: int, threads: int = PAGED_THREADS) -> int:
+    """Shared memory of one chunk block, in bytes (``chunk::smem_bytes`` in
+    csrc/attn_chunk.cuh): the K chunk (rows padded) or the PV partial sums,
+    whichever is larger, the V chunk, the float32 query rows and scores, the
+    chunk's block-table entries."""
+    pairs = (hd + 1) // 2
+    parts = max(1, min(8, threads // pairs))
+    per16 = 16 // esize
+    k_ld = hd + per16 if hd % per16 == 0 else hd + 1   # K rows padded (k_ld in the source)
+    k = _align16(keys * k_ld * esize)
+    return (max(k, _align16(parts * pairs * 32)) + _align16(keys * hd * esize)
+            + _align16(G * hd * 4) + _align16(G * keys * 4) + _align16((keys + 1) * 4))
+
+
+@functools.lru_cache(maxsize=None)
+def paged_chunk_keys(G: int, hd: int, esize: int) -> int:
+    """Keys per chunk of the split-context paged attention: the largest power
+    of two from 4 to 256 whose block fits in :data:`PAGED_CHUNK_SMEM`, else 4
+    (0 where even 4 keys exceed a block's shared memory)."""
+    keys = PAGED_MAX_KEYS
+    while keys > 4 and _paged_smem(G, hd, keys, esize) > PAGED_CHUNK_SMEM:
+        keys //= 2
+    return keys if _paged_smem(G, hd, keys, esize) <= _SMEM_MAX else 0
+
+
+def paged_geometry(B: int, H: int, KV: int, hd: int, ps: int, npg: int,
+                   dtype: torch.dtype) -> tuple[int, int, tuple]:
+    """``(keys, n_chunks, workspace_shape)`` of one split-context paged
+    attention call: keys per chunk (:func:`paged_chunk_keys`), the chunks
+    that cover the block table's ``npg * ps`` keys (the grid is sized from
+    them: ``lengths`` stay on the card), and the float32 workspace of every
+    chunk's (m, l, acc) rows, ``(B, KV, n_chunks, H // KV, 2 + hd)``."""
+    G = H // KV
+    keys = paged_chunk_keys(G, hd, torch.finfo(dtype).bits // 8)
+    n = -(-(npg * ps) // keys) if keys else 0
+    return keys, n, (B, KV, n, G, 2 + hd)
 
 
 def _paged_refusal(q, k_pages, v_pages, block_tables, lengths) -> str | None:
@@ -569,9 +624,12 @@ def _paged_refusal(q, k_pages, v_pages, block_tables, lengths) -> str | None:
     if block_tables.ndim != 2 or block_tables.shape[0] != B or tuple(lengths.shape) != (B,):
         return (f"paged_decode_attention: block_tables {tuple(block_tables.shape)} / lengths "
                 f"{tuple(lengths.shape)} do not match batch {B}")
-    if (H // KV) * hd > _PAGED_MAX_ROW_VALUES:
-        return (f"paged_decode_attention: {H // KV} grouped rows of {hd} exceed the kernel's "
-                f"{_PAGED_MAX_ROW_VALUES} accumulators")
+    # the split design holds no per-thread accumulators, so the parent's cap
+    # of G * hd <= 2048 is gone: only a 4-key chunk that outgrows a block's
+    # shared memory is refused
+    if not paged_chunk_keys(H // KV, hd, q.element_size()):
+        return (f"paged_decode_attention: {H // KV} grouped rows of {hd} do not fit a block's "
+                f"shared memory even at 4 keys a chunk")
     return None
 
 
@@ -582,19 +640,24 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
     (KV, P, ps, hd) through ``block_tables`` (B, npg) int32 up to
     ``lengths`` (B,) int32. Returns (B, H, 1, hd) in ``q.dtype``. The block
     tables are trusted: every entry must be a valid page index (the
-    allocator keeps unused entries at the reserved page 0)."""
+    allocator keeps unused entries at the reserved page 0). Two launches:
+    the chunks of every (request, kv head) context (:func:`paged_geometry`)
+    into a float32 workspace, then their merge in chunk order."""
     name = "paged_decode_attention"
     _refuse(_paged_refusal(q, k_pages, v_pages, block_tables, lengths))
     _require_cuda(name, q)
     q, block_tables, lengths = _dense(q), _dense(block_tables), _dense(lengths)
     B, H, _, hd = q.shape
     KV, P, ps, _ = k_pages.shape
+    npg = block_tables.shape[1]
+    keys, nch, ws_shape = paged_geometry(B, H, KV, hd, ps, npg, q.dtype)
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(hd)
     out = torch.empty_like(q)
+    part = torch.empty(ws_shape, dtype=torch.float32, device=q.device)
     _launch(name, q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            B, H, KV, P, ps, hd, block_tables.shape[1], scale,
-            _DTYPE_CODES[q.dtype], q.device.index, _stream(q))
+            block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), part.data_ptr(),
+            B, H, KV, P, ps, hd, npg, keys, nch, scale,
+            _DTYPE_CODES[q.dtype], q.device.index, _stream(q), design="split")
     return out
 
 
@@ -956,15 +1019,43 @@ def mlp_subblock_bwd(g: torch.Tensor, residual: torch.Tensor, x: torch.Tensor,
     return dh, dwn, dwg, dwu, dwd
 
 
-# geometry of csrc/decode_layer.cuh: KEYS (attention keys per chunk, about),
-# ACT_BYTES (staged activation rows) and the block's shared-memory ceiling
-DECODE_KEYS = 128
+# geometry of csrc/decode_layer.cuh: ACT_BYTES (the fma design's staged
+# activation rows) and the stream design's shared memory (8 staged rows of
+# ST_COLS 16-bit values plus 16 bytes each, 8 warps' 12 KB rings, their 8 KB
+# of partial sums); its attention phase splits the context as
+# paged_decode_attention does (paged_geometry)
 DECODE_ACT_BYTES = 64 * 1024
-_SMEM_MAX = 232448
+DECODE_DESIGNS = ("fma", "stream")   # by the code the C entries take
+DECODE_STREAM_MAX_ROWS = 8
+DECODE_STREAM_MAX_K = 4096           # ST_COLS
+DECODE_STREAM_BYTES = 8 * (DECODE_STREAM_MAX_K + 8) * 2 + 8 * 12 * 1024 + 8 * 32 * 8 * 4
+DECODE_STREAM_GROUPS = 2   # chunks the stream design's attention phase runs at once
 
 
-def _align16(n: int) -> int:
-    return (n + 15) // 16 * 16
+def _decode_smem(stream: bool, S: int, G: int, hd: int, esize: int) -> int | None:
+    """Shared memory of one decode-layer block, in bytes (``smem_bytes`` in
+    the source): the design's product buffers or the attention phase's
+    chunks (two at once in the stream design), whichever is larger, then S
+    row statistics; None where not even a 4-key chunk fits."""
+    keys = paged_chunk_keys(G, hd, esize)
+    if not keys:
+        return None
+    groups = DECODE_STREAM_GROUPS if stream else 1
+    main = DECODE_STREAM_BYTES if stream else DECODE_ACT_BYTES
+    attn = groups * _align16(_paged_smem(G, hd, keys, esize, PAGED_THREADS // groups))
+    return max(main, attn) + _align16(S * 4)
+
+
+def decode_design(dtype: torch.dtype, S: int, D: int, H: int, KV: int, hd: int) -> str:
+    """The design of ``decode_layer``'s and ``attn_subblock``'s products
+    for S slots of ``dtype``: ``"stream"`` (wstream.cuh's swap-AB
+    ``mma.sync`` weight stream) for bf16 or fp16 at S <= 8 with D and H * hd
+    within the 4096 staged columns and the block's shared memory within the
+    card's; ``"fma"`` (f32 FMAs against staged rows) otherwise."""
+    smem = _decode_smem(True, S, H // KV, hd, torch.finfo(dtype).bits // 8)
+    fits = smem is not None and smem <= _SMEM_MAX
+    return ("stream" if dtype in _SIXTEEN_BIT and S <= DECODE_STREAM_MAX_ROWS
+            and D <= DECODE_STREAM_MAX_K and H * hd <= DECODE_STREAM_MAX_K and fits else "fma")
 
 
 def _decode_refusal(name, h, w_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages, block_tables,
@@ -1020,11 +1111,10 @@ def _decode_refusal(name, h, w_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages,
         return f"{name}: write_pos dtype {write_pos.dtype} is not an integer type"
     if any(t.device != h.device for t in (block_tables, lengths, write_pos)):
         return f"{name}: block tables, lengths and write_pos must be on {h.device}"
-    G, keys = H // KV, max(1, DECODE_KEYS // ps) * ps
-    attn = _align16(G * hd * 4) + _align16(G * keys * 4) + 2 * _align16(keys * 8)
-    if max(DECODE_ACT_BYTES, attn) + _align16(S * 4) > _SMEM_MAX:
-        return (f"{name}: {G} grouped heads of {hd} over {keys}-key chunks need more shared "
-                f"memory than a block has")
+    smem = _decode_smem(False, S, H // KV, hd, h.element_size())
+    if smem is None or smem > _SMEM_MAX:
+        return (f"{name}: {H // KV} grouped heads of {hd} need more shared memory than a block "
+                f"has, even at 4 keys a chunk")
     return None
 
 
@@ -1039,29 +1129,30 @@ def _decode_call(name, h, w_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages, bl
     KV, P, ps, hd = k_pages.shape
     H, npg = wq.shape[0] // hd, block_tables.shape[1]
     dev, dt = h.device, h.dtype
-    chunk_pages = max(1, DECODE_KEYS // ps)
-    nch = -(-npg // chunk_pages)
+    keys, nch, ws_shape = paged_geometry(S, H, KV, hd, ps, npg, dt)
     out = torch.empty_like(h)
     k_rows, v_rows = (torch.empty((KV, S, hd), dtype=dt, device=dev) for _ in range(2))
     q_ws = torch.empty((S, H, hd), dtype=dt, device=dev)
-    part = torch.empty((S, KV, nch, H // KV, 2 + hd), dtype=torch.float32, device=dev)
+    part = torch.empty(ws_shape, dtype=torch.float32, device=dev)
     attn_ws = torch.empty((S, H * hd), dtype=dt, device=dev)
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(hd)
+    design = decode_design(dt, S, D, H, KV, hd)
     ins = [t.data_ptr() for t in (h, w_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages,
                                   block_tables, lengths)]
-    tail = (float(eps), scale, _DTYPE_CODES[dt], dev.index, _stream(h))
+    tail = (float(eps), scale, DECODE_DESIGNS.index(design), _DTYPE_CODES[dt], dev.index,
+            _stream(h))
     if mlp is None:
         _launch(name, *ins, out.data_ptr(), k_rows.data_ptr(), v_rows.data_ptr(),
                 q_ws.data_ptr(), part.data_ptr(), attn_ws.data_ptr(), S, D, H, KV, hd, P, ps,
-                npg, chunk_pages, nch, *tail)
+                npg, keys, nch, *tail, design=design)
         return out, k_rows, v_rows
     F = mlp[1].shape[0]
     hacc = torch.empty((S, D), dtype=torch.float32, device=dev)
     y_ws = torch.empty((S, F), dtype=dt, device=dev)
     _launch(name, *ins, *(t.data_ptr() for t in mlp), out.data_ptr(), k_rows.data_ptr(),
             v_rows.data_ptr(), q_ws.data_ptr(), part.data_ptr(), attn_ws.data_ptr(),
-            hacc.data_ptr(), y_ws.data_ptr(), S, D, H, KV, hd, P, ps, npg, F, chunk_pages, nch,
-            ACTIVATIONS[act], *tail)
+            hacc.data_ptr(), y_ws.data_ptr(), S, D, H, KV, hd, P, ps, npg, F, keys, nch,
+            ACTIVATIONS[act], *tail, design=design)
     return out, k_rows, v_rows
 
 
