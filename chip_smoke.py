@@ -134,6 +134,36 @@ pair at llama2-7b-bench's F = 11008 as at llama3-8b-bench's. Then:
     fused_adamw_slab 1; losses finite and falling; step time, tokens/s, the
     share of the bf16 peak, peak memory and the fused loss's logits route.
 
+Training from a token file, checkpoints and gradient clipping
+(``pretrain --data``, ``checkpoint``, ``optim.clip_grad_norm``):
+
+14. train from a token file, checkpoint and resume — llama3-8b-bench at 2
+    layers, B=8, T=2048, per-op rung, through ``pretrain.run`` from a file
+    of 4 M random uint16 tokens the phase writes (seeded) into a temporary
+    directory it removes at the end, after checking the disk's free space:
+    (a) 4 steps straight through with ``audit``; (b) 2 steps, an
+    asynchronous ``save_checkpoint`` of the parameters and AdamW state,
+    ``wait_for_checkpoints``, every tensor dropped, ``load_checkpoint``, and
+    2 more steps with ``start_step=2``. (b)'s losses, parameters and moments
+    equal (a)'s bit for bit; the stream took its native (C++) path; every
+    step launched the per-op rung's kernels, rms_norm_residual on its
+    vector design. Prints the save's blocking and total seconds, the load's
+    seconds, the checkpoint's bytes and the host ms per batch (its fetch,
+    clip, pinned copy). Then ``clip_grad_norm`` on one step's full-width
+    grads: its norm against a float64 sum of squares, its clipped grads
+    against ``torch.nn.utils.clip_grad_norm_`` on copies, and grads below
+    the threshold unchanged.
+
+``rms_norm_residual``, like ``rms_norm``, has two designs
+(``cudaex.rms_norm_residual_design``): phase 3 holds it at the decode and
+train shapes, names its design (``vector``: one read of r and x into
+registers, 16-byte accesses), times the per-op chain beside it (``torch.add``
+then ``F.rms_norm``; no one PyTorch call computes both outputs), and shows
+that its check fails a planted fault (the last row's sum of squares
+without its last 256 values, through ``testing.rms_residual_fault``);
+phases 5, 7, 13(a) and 14 require every bf16 launch of it to take
+``vector``.
+
 No phase can fall back to a plain version on the card: a CUDA call whose
 inputs a kernel does not take raises in the kernel's wrapper, with the
 reason ``cudaex.refusal`` gives, and fails its phase.
@@ -170,6 +200,10 @@ SPIN_CYCLES_PER_MS = 1.98e6
 #   longest requests' rows are small, and one dropped chunk of theirs must
 #   fail the check).
 NORM_RTOL = 2.0 ** -6
+# rms_norm_residual's planted fault: the last row's sum of squares without
+#   the squares of its last 256 values, what a block reduction that drops
+#   one warp's partial computes at D = 4096 bf16 (32 threads x 8 values)
+RESIDUAL_FAULT_VALUES = 256
 GEMM_TOL = 2e-2
 ATTN_TOL = 2e-2
 # train kernels: attention output and gradients row by row, 2e-2 of each
@@ -228,6 +262,18 @@ BENCH_LAYERS, BENCH_STEPS, BENCH_F = 8, 3, 11008
 #   rounding step off in one step and carry it, decayed by beta1 = 0.9, into
 #   the next, where its own rounding can add a step
 SLAB_M_RTOL, SLAB_M_ATOL, SLAB_V_ATOL = 2.0 ** -6, 1e-6, 1e-9
+# phase 14: llama3-8b-bench at 2 layers, B=8, T=2048, per-op rung, from a
+# token file of 4 M random uint16 tokens (2047 windows of 2049): (a) 4 steps
+# straight through, (b) 2 steps, a checkpoint and a resume for 2 more
+RESUME_LAYERS, RESUME_TOKENS, RESUME_DATA_SEED = 2, 1 << 22, 3
+# clip_grad_norm on one step's grads: its float32 norm against a float64 sum
+#   of squares, 1e-5 relative (float32 sums over 0.7 G squares in another
+#   order); its clipped grads against torch.nn.utils.clip_grad_norm_ on
+#   copies within 2**-6 relative: torch takes the norm of bf16 grads in bf16
+#   (one rounding, 2**-9), so its scale differs from ours by that and the
+#   bf16 product can land one rounding step (2**-8) apart
+CLIP_NORM_RTOL = 1e-5
+CLIP_RTOL = 2.0 ** -6
 
 D, F_DIM, S_DECODE, M_PREFILL = 4096, 14336, 8, 512
 KV, G, HD, PS = 8, 4, 128, 16
@@ -360,8 +406,12 @@ def linear_act_faults(torch, cudaex, x, w, want) -> dict:
 
 def norm_rows(torch, cudaex, tnn, gen, shape):
     """rms_norm and rms_norm_residual on bf16 ``shape`` (rows of its last
-    dim) against their plain versions; their rows of the table."""
+    dim) against their plain versions, each on its vector design, and a
+    fault planted in rms_norm_residual's output that the check must fail;
+    their rows of the table."""
     import torch.nn.functional as F
+
+    from thunder_tpu_torch.testing import rms_residual_fault
 
     dev, bf16 = torch.device("cuda"), torch.bfloat16
     x, r = (torch.randn(*shape, generator=gen, device=dev).to(bf16) for _ in range(2))
@@ -381,18 +431,48 @@ def norm_rows(torch, cudaex, tnn, gen, shape):
                       F32_FLOPS, iters, iters)]
     rows[0]["design"] = design
     log(f"    design {design}")
-    (gh, gy), (wh, wy) = (cudaex.rms_norm_residual(r, x, w, EPS),
-                          tnn.rms_norm_residual_plain(r, x, w, EPS))
+    (gh, gy), design = ran(cudaex, "rms_norm_residual",
+                           lambda: cudaex.rms_norm_residual(r, x, w, EPS))
+    require(design == "vector", f"rms_norm_residual {tag}: bf16 rows of {d} took {design}")
+    wh, wy = tnn.rms_norm_residual_plain(r, x, w, EPS)
     dh, dy = (gh.float() - wh.float()).abs(), (gy.float() - wy.float()).abs()
     err = float(max(dh.max(), dy.max()))
-    require(bool(torch.equal(gh, wh)) and bool((dy <= wy.float().abs() * NORM_RTOL
-                                                 + 1e-6).all()),
+    require(residual_close(torch, gh, gy, wh, wy),
             f"rms_norm_residual {tag}: kernel disagrees with its plain version ({err})")
-    rows.append(timed_row(torch, cudaex, "rms_norm_residual", tag, err,
-                          lambda: cudaex.rms_norm_residual(r, x, w, EPS),
-                          lambda: tnn.rms_norm_residual_plain(r, x, w, EPS), None,
-                          4 * n * 2 + d * 2, 5 * n, F32_FLOPS, iters, iters))
+    bad_y = rms_residual_fault(gh, w, EPS, RESIDUAL_FAULT_VALUES)
+    fault = float((bad_y.float() - wy.float()).abs().max())
+    require(not residual_close(torch, gh, bad_y, wh, wy),
+            f"rms_norm_residual {tag}: the check passes a planted fault (the last row's sum "
+            f"of squares without its last {RESIDUAL_FAULT_VALUES} values: {fault})")
+    del bad_y
+    row = timed_row(torch, cudaex, "rms_norm_residual", tag, err,
+                    lambda: cudaex.rms_norm_residual(r, x, w, EPS),
+                    lambda: tnn.rms_norm_residual_plain(r, x, w, EPS), None,
+                    4 * n * 2 + d * 2, 5 * n, F32_FLOPS, iters, iters)
+    # no one PyTorch call computes (h, rms_norm(h)): the per-op chain beside it
+    row["per_op_chain_ms"] = time_ms(torch, lambda: F.rms_norm(torch.add(r, x), (d,), w, EPS),
+                                     iters)
+    row["design"], row["planted_faults"] = design, {
+        f"last row's sum of squares without its last {RESIDUAL_FAULT_VALUES} values": fault}
+    log(f"    design {design}; per-op chain (torch.add, F.rms_norm) "
+        f"{row['per_op_chain_ms']:.4f} ms; planted fault (the check must fail): "
+        f"{json.dumps(row['planted_faults'])}")
+    rows.append(row)
     return rows
+
+
+def residual_close(torch, gh, gy, wh, wy) -> bool:
+    """rms_norm_residual's check: h bit for bit, y within NORM_RTOL."""
+    dy = (gy.float() - wy.float()).abs()
+    return bool(torch.equal(gh, wh)) and bool((dy <= wy.float().abs() * NORM_RTOL + 1e-6).all())
+
+
+def require_residual_vector(what: str, designs: dict, counts: dict) -> None:
+    """Every rms_norm_residual launch of a bf16 path took the vector design."""
+    n = counts.get("rms_norm_residual", 0)
+    require(designs.get("rms_norm_residual", {}) == ({"vector": n} if n else {}),
+            f"{what}: rms_norm_residual launched {n} times by design "
+            f"{designs.get('rms_norm_residual')}, expected every one vector")
 
 
 # the kernels on gemm.cuh's mainloops: every bf16 launch takes the TMA + wgmma
@@ -1409,14 +1489,16 @@ def full_width(np, torch, tllama, ServingEngine, SamplingParams, cudaex, params,
     expect = ({"decode_layer": L, "rms_norm": 1} if block_fusion else
               {"paged_decode_attention": L, "linear_act": L, "rms_norm_residual": 2 * L,
                "rms_norm": 1})
-    # rms_norm(norm_f) on bf16 rows of 4096 reads each row once (vector);
-    # every bf16 launch of the decode kernels takes its Hopper design
+    # rms_norm(norm_f) and the per-op rung's rms_norm_residual on bf16 rows
+    # of 4096 read each row once (vector); every bf16 launch of the decode
+    # kernels takes its Hopper design
     expect_designs = {"rms_norm": {"vector": 1}}
     if block_fusion:
         expect_designs["decode_layer"] = {"stream": L}
     else:
         expect_designs["linear_act"] = {"stream": L}
         expect_designs["paged_decode_attention"] = {"split": L}
+        expect_designs["rms_norm_residual"] = {"vector": 2 * L}
     for i, (c, d) in enumerate(zip(step_counts, step_designs)):
         if c != expect or d != expect_designs:
             raise AssertionError(f"decode step {i} launched {c} by design {d}, expected "
@@ -1509,6 +1591,7 @@ def train_full_width(torch, cudaex, pretrain, block_fusion: bool = False):
         raise AssertionError(f"a kernel of the train path never launched: {counts}")
     designs = cudaex.design_counts()
     require_attention_wgmma("the train path", designs, counts)
+    require_residual_vector("the train path", designs, counts)
     out["launches"] = counts
     out["launches_per_step"] = expect
     out["designs"] = designs
@@ -1596,6 +1679,7 @@ def bench_full_width(torch, cudaex, bench, remat: bool, block_fusion: bool):
     require(all(counts[k] for k in expect), f"a kernel of the bench path never launched: {counts}")
     designs = cudaex.design_counts()
     require_attention_wgmma("the bench path", designs, counts)
+    require_residual_vector("the bench path", designs, counts)
     out.update(launches=counts, launches_per_step=expect, designs=designs)
     gc.collect()
     torch.cuda.empty_cache()
@@ -1609,6 +1693,155 @@ def log_train(what: str, t: dict) -> None:
         f"{[round(x, 4) for x in t['losses']]}, launches per step "
         f"{json.dumps(t['launches_per_step'])}, launches by design over the run "
         f"{json.dumps(t['designs'])} ({t['card']})")
+
+
+# ---------------------------------------------------------------------------
+# phase 14: train from a token file, checkpoint and resume
+# ---------------------------------------------------------------------------
+
+def train_resume(np, torch, cudaex, pretrain, tllama) -> dict:
+    """llama3-8b-bench at RESUME_LAYERS layers through ``pretrain.run`` from
+    a token file the phase writes: (a) 4 steps straight through; (b) 2
+    steps, an asynchronous checkpoint of the parameters and AdamW state, a
+    drop of every tensor, a load, and 2 more steps from ``start_step=2``.
+    (b)'s losses, parameters and moments must equal (a)'s bit for bit; the
+    stream must take its native path and every step launch the per-op
+    rung's kernels, rms_norm_residual on its vector design. Then
+    ``clip_grad_norm`` on one step's full-width grads."""
+    import os
+    import shutil
+    import tempfile
+
+    from thunder_tpu_torch import checkpoint, data
+    from thunder_tpu_torch.optim import AdamW, clip_grad_norm, tree_leaves
+
+    cfg = tllama.CONFIGS["llama3-8b-bench"]
+    dev = torch.device("cuda")
+    out = {"model": cfg.name, "layers": RESUME_LAYERS, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "tokens_in_file": RESUME_TOKENS}
+    # the temporary directory or the checkout's build directory, whichever
+    # disk has more room for the ~7 GB checkpoint
+    roots = [tempfile.gettempdir(), str(data.BUILD_DIR)]
+    os.makedirs(roots[1], exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_resume_",
+                           dir=max(roots, key=lambda d: shutil.disk_usage(d).free))
+    try:
+        n_params = tllama.num_params(cfg, RESUME_LAYERS)
+        state_bytes = n_params * (2 + 4 + 4)   # bf16 params, f32 m and v
+        free = shutil.disk_usage(tmp).free
+        out.update(params=n_params, disk_free_gb=free / 1e9, tmpdir=tmp)
+        require(free > 1.5 * state_bytes, f"phase 14 needs {1.5 * state_bytes / 1e9:.1f} GB "
+                                          f"free under {tmp}, has {free / 1e9:.1f} GB")
+        tokens = os.path.join(tmp, "tokens.bin")
+        data.write_token_file(tokens, np.random.RandomState(RESUME_DATA_SEED).randint(
+            0, cfg.vocab_size, RESUME_TOKENS).astype(np.uint16))
+        kw = dict(layers=RESUME_LAYERS, batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=1e-4, seed=0,
+                  device="cuda", data=tokens, data_seed=RESUME_DATA_SEED, audit=True)
+
+        def fresh():
+            params = tllama.init_params(cfg, seed=0, device=dev, n_layers=RESUME_LAYERS)
+            opt = AdamW(lr=1e-4)
+            return params, opt, opt.init(params)
+
+        def checked(run, what):
+            require(run["stream_path"] == "native", f"{what}: the stream took {run['stream_path']}")
+            expect = train_launches(RESUME_LAYERS, False)
+            for i, st in enumerate(run["per_step"]):
+                require(st["launches"] == expect, f"{what} step {i} launched {st['launches']}")
+            return run
+
+        # (a) straight through: the warm-up step takes batch 0, timed steps 1..3
+        params, opt, state = fresh()
+        cudaex.reset_launch_counts()
+        a = checked(pretrain.run("llama3-8b-bench", steps=3, params=params, opt=opt,
+                                 state=state, **kw), "(a)")
+        counts, designs = cudaex.launch_counts(), cudaex.design_counts()
+        require(all(counts[k] for k in train_launches(RESUME_LAYERS, False)),
+                f"a kernel of the path never launched: {counts}")
+        require_residual_vector("phase 14", designs, counts)
+        want = [t.detach().cpu() for t in tree_leaves({"params": params, "opt": state})]
+        del params, opt, state
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) two steps, checkpoint, drop, load, two more from start_step=2
+        params, opt, state = fresh()
+        b1 = checked(pretrain.run("llama3-8b-bench", steps=1, params=params, opt=opt,
+                                  state=state, start_step=0, **kw), "(b) before the save")
+        ck = os.path.join(tmp, "ckpt")
+        t0 = time.perf_counter()
+        background = checkpoint.save_checkpoint(ck, {"params": params, "opt": state},
+                                                asynchronous=True)
+        save_blocking_s = time.perf_counter() - t0
+        checkpoint.wait_for_checkpoints()
+        save_total_s = time.perf_counter() - t0
+        require(background, "an asynchronous save committed before returning")
+        ck_bytes = sum(os.path.getsize(os.path.join(ck, f)) for f in os.listdir(ck))
+        del params, opt, state
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        loaded = checkpoint.load_checkpoint(ck, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        params, state = loaded["params"], loaded["opt"]
+        b2 = checked(pretrain.run("llama3-8b-bench", steps=1, params=params,
+                                  opt=AdamW(lr=1e-4), state=state, start_step=2, **kw),
+                     "(b) after the load")
+        got = tree_leaves({"params": params, "opt": state})
+        losses_b = b1["losses"] + b2["losses"]
+        require(losses_b == a["losses"], f"resumed losses {losses_b} != straight {a['losses']}")
+        require(len(got) == len(want) and all(bool(torch.equal(g.cpu(), w))
+                                              for g, w in zip(got, want)),
+                "resumed parameters or moments differ from the straight run's")
+        del want
+        batch_ms = [st["batch_ms"] for r in (a, b1, b2) for st in r["per_step"]]
+        out.update(launches=counts, losses=a["losses"], losses_resumed=losses_b,
+                   bit_identical=True,
+                   stream_path=a["stream_path"], step_ms=a["step_ms"],
+                   launches_per_step=train_launches(RESUME_LAYERS, False), designs=designs,
+                   save_blocking_s=save_blocking_s, save_total_s=save_total_s,
+                   load_s=load_s, checkpoint_bytes=ck_bytes,
+                   batch_ms_mean=sum(batch_ms) / len(batch_ms), batch_ms=batch_ms)
+
+        # clip_grad_norm on one step's full-width grads (batch 4 of the stream)
+        stream = data.ShardedTokenStream(tokens, TRAIN_BATCH, TRAIN_SEQ, seed=RESUME_DATA_SEED,
+                                         native=True)
+        tok, tgt = (torch.from_numpy(t.astype(np.int64)).to(dev) for t in stream.batch_at(4))
+        _, grads = pretrain.loss_and_grads(params, tok, tgt, cfg)
+        for p in tree_leaves(params):
+            p.requires_grad_(False)
+        del loaded, state
+        gleaves = tree_leaves(grads)
+        norm64 = math.sqrt(sum(float(g.double().square().sum()) for g in gleaves))
+        clipped, norm = clip_grad_norm(grads, 0.5 * norm64)
+        norm_err = abs(float(norm) - norm64) / norm64
+        require(norm_err <= CLIP_NORM_RTOL, f"clip_grad_norm: norm {float(norm)} against the "
+                                            f"float64 {norm64} ({norm_err:.2e} relative)")
+        copies = []
+        for g in gleaves:
+            p = torch.nn.Parameter(torch.empty_like(g))
+            p.grad = g.clone()
+            copies.append(p)
+        torch_norm = float(torch.nn.utils.clip_grad_norm_(copies, 0.5 * norm64))
+        clip_err = 0.0
+        for mine, ref in zip(tree_leaves(clipped), copies):
+            diff = (mine.float() - ref.grad.float()).abs()
+            clip_err = max(clip_err, float((diff / ref.grad.float().abs().clamp_min(1e-30)).max()))
+            require(bool((diff <= CLIP_RTOL * ref.grad.float().abs() + 1e-30).all()),
+                    f"clip_grad_norm: clipped grads differ from clip_grad_norm_'s ({clip_err})")
+        same, _ = clip_grad_norm(grads, 2.0 * norm64)   # below the threshold: unchanged
+        require(all(bool(torch.equal(x, y)) for x, y in zip(tree_leaves(same), gleaves)),
+                "clip_grad_norm below the threshold changed the grads")
+        out["clip_grad_norm"] = {"norm": float(norm), "norm_float64": norm64,
+                                 "norm_rel_err": norm_err, "torch_norm": torch_norm,
+                                 "max_rel_diff_vs_clip_grad_norm_": clip_err,
+                                 "max_norm": 0.5 * norm64}
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -1708,6 +1941,9 @@ def main() -> int:
         k: [ba[k], bb[k]] for k in ("step_ms", "tokens_per_s", "share_of_989_tflops",
                                     "peak_memory_gb", "optimizer_ms", "logits_route")}))
 
+    rs = train_resume(np, torch, cudaex, pretrain, tllama)
+    log(f"train from a token file, checkpoint and resume: {json.dumps(rs)}")
+
     # one row per kernel and main path: the path's own shape and its own
     # launch count (rms_norm and rms_norm_residual run on several paths;
     # the planned path's rows for kernels it shares with the per-op train
@@ -1732,7 +1968,9 @@ def main() -> int:
                                  ("train-bench-planned", bench_planned, bb),
                                  ("serve-planned", serve_planned, fp),
                                  ("serve-subblock", {"attn_subblock": sp_rows["attn_subblock"]},
-                                  sb)):
+                                  sb),
+                                 ("train-resume", {name: train_rows[name]
+                                                   for name in rs["launches_per_step"]}, rs)):
         for name, rs in path_rows.items():
             r = dict(rs[0], path=path, launches=run["launches"][name])
             kernels.append({k: r[k] for k in keys + ("per_op_chain_ms",) if k in r})

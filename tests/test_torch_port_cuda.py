@@ -22,10 +22,11 @@ names. ROADMAP C.1's inputs (float16, a strided input, a mixed weight
 dtype, head dims 8 and 192, K = 518, attn_subblock at head dim 8) each
 launch a kernel and match the plain version; float64 still raises.
 
-``sdpa_fwd``, ``sdpa_bwd``, ``rms_norm`` and ``linear_act`` hold several
-designs, chosen by the wrapper from dtype and shape
-(``cudaex.sdpa_fwd_design``, ``cudaex.sdpa_bwd_design``,
-``cudaex.rms_norm_design``, ``cudaex.linear_act_path``): their tests cover
+``sdpa_fwd``, ``sdpa_bwd``, ``rms_norm``, ``rms_norm_residual`` and
+``linear_act`` hold several designs, chosen by the wrapper from dtype and
+shape (``cudaex.sdpa_fwd_design``, ``cudaex.sdpa_bwd_design``,
+``cudaex.rms_norm_design``, ``cudaex.rms_norm_residual_design``,
+``cudaex.linear_act_path``): their tests cover
 each design at ragged sizes (T and S across the 64- and 128-row tiles, T !=
 S, six batch*heads; D on both sides of the norm's 16-byte rule; M across
 the decode kernel's 8- and 16-row limits, N and K ragged against its tiles)
@@ -57,6 +58,15 @@ product), each launch on the design ``cudaex.decode_design`` names (the
 weight stream at up to 8 slots in 16-bit, FMAs otherwise). Paged attention's
 split design at lengths on both sides of its chunk and a length of 0 (zeros),
 bit-identical over two calls.
+
+``rms_norm_residual`` at the decode and train shapes in bf16, fp16 and
+float32, with a weight of x's dtype, a float32 weight and none, and at D =
+4100 (the scalar design in 16-bit): h bit for bit, y within one (unweighted)
+or two (weighted) 16-bit rounding steps, 1e-5 in float32; its check fails a
+planted fault (``testing.rms_residual_fault``). The train path's pieces
+that run on the card machine: the C++ token loader's build and windows, a
+tiny-gqa run from a token file resumed from a checkpoint bit for bit, and
+``clip_grad_norm`` against ``torch.nn.utils.clip_grad_norm_``.
 """
 
 import math
@@ -144,7 +154,7 @@ def test_cuda_norm_kernels_match_plain(cuda_device, dtype, rows, D, offset):
     # A kernel sums the squares in another order than the plain version, so
     # a normalised value can round one step apart (held to one step below);
     # the weight, up to 1.5, and the second rounding can carry that to two
-    # steps of the weighted output. At 512 rows of 8192 in bf16 the scalar
+    # steps of the weighted output. At 512 rows of 8192 in bf16 the
     # rms_norm_residual kernel reaches two steps as well, so there the
     # weighted outputs are held to two steps; everywhere else to one.
     two_steps = dtype == torch.bfloat16 and D == 8192 and rows == 512
@@ -883,3 +893,165 @@ def test_cuda_bench_step_matches_cpu(cuda_device):
     for step in a["per_step"]:
         assert step["launches"] == {"rms_norm": 7, "rms_norm_residual": 2, "sdpa_fwd": 4,
                                     "sdpa_bwd": 2, "fused_adamw_slab": 1}
+
+
+# ---------------------------------------------------------------------------
+# rms_norm_residual's designs; the planted fault its check must fail
+# ---------------------------------------------------------------------------
+
+RESIDUAL_SHAPES = {"decode": (8, 4096), "train": (8, 2048, 4096), "off16": (8, 4100)}
+RESIDUAL_WEIGHTS = ("same", "float32", "none")
+
+
+def _residual_inputs(device, dtype, shape, weight, seed=5):
+    g = torch.Generator(device=device).manual_seed(seed)
+    r, x = (torch.randn(*shape, generator=g, device=device).to(dtype) for _ in range(2))
+    w = (torch.rand(shape[-1], generator=g, device=device) + 0.5)
+    w = None if weight == "none" else w.to(dtype if weight == "same" else torch.float32)
+    return r, x, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weight", RESIDUAL_WEIGHTS)
+@pytest.mark.parametrize("shape", list(RESIDUAL_SHAPES), ids=list(RESIDUAL_SHAPES))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+def test_cuda_rms_norm_residual_designs_match_plain(cuda_device, dtype, shape, weight):
+    """rms_norm_residual at the decode (8 x 4096) and train ((8, 2048, 4096))
+    shapes on its vector design, and at D = 4100 (16-bit rows off 16 bytes:
+    the scalar design; float32 rows of 4100 still take vector), with a
+    weight of x's dtype, a float32 weight (float32 output) and none. Each
+    launch takes the design ``cudaex.rms_norm_residual_design`` names. h is
+    the plain version's bit for bit; y within one rounding step unweighted
+    and two weighted in 16-bit (the sum of squares in another order can
+    move the normalised value one step, which the weight multiply and its
+    rounding can carry to two), 2**-7 relative with a float32 weight (one
+    step of the 16-bit normalised value) and 1e-5 in float32; and y is
+    exactly the kernel's own unweighted output times the weight."""
+    shp = RESIDUAL_SHAPES[shape]
+    r, x, w = _residual_inputs(cuda_device, dtype, shp, weight)
+    cudaex.reset_launch_counts()
+    got_h, got_y = cudaex.rms_norm_residual(r, x, w, EPS)
+    torch.cuda.synchronize()
+    design = cudaex.rms_norm_residual_design(dtype, shp[-1])
+    assert cudaex.design_counts()["rms_norm_residual"] == {design: 1}
+    assert design == ("scalar" if shape == "off16" and dtype != torch.float32 else "vector")
+    want_h, want_y = tnn.rms_norm_residual_plain(r, x, w, EPS)
+    assert got_y.dtype == want_y.dtype and got_y.shape == want_y.shape
+    assert torch.equal(got_h, want_h)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got_y, want_y, atol=1e-5, rtol=1e-5)
+    elif weight == "float32":
+        assert bool(((got_y - want_y).abs() <= want_y.abs() * 2.0 ** -7 + 1e-6).all())
+    else:
+        assert ulp_distance(got_y, want_y) <= (1 if weight == "none" else 2)
+    if w is not None:
+        _, normed = cudaex.rms_norm_residual(r, x, None, EPS)
+        assert torch.equal(got_y, (normed.float() * w.float()).to(got_y.dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["decode", "train"])
+def test_cuda_rms_norm_residual_check_fails_planted_fault(cuda_device, shape):
+    """chip_smoke.py's check of rms_norm_residual (h bit for bit, y within
+    2**-6 relative) passes the kernel and fails its output with a fault
+    planted: the last row's sum of squares without its last 256 values,
+    what a reduction that drops one warp's partial computes."""
+    from thunder_tpu_torch.testing import rms_residual_fault
+
+    r, x, w = _residual_inputs(cuda_device, torch.bfloat16, RESIDUAL_SHAPES[shape], "same")
+    got_h, got_y = cudaex.rms_norm_residual(r, x, w, EPS)
+    want_h, want_y = tnn.rms_norm_residual_plain(r, x, w, EPS)
+
+    def close(h, y):
+        dy = (y.float() - want_y.float()).abs()
+        return torch.equal(h, want_h) and bool((dy <= want_y.float().abs() * 2.0 ** -6
+                                                + 1e-6).all())
+
+    assert close(got_h, got_y)
+    assert not close(got_h, rms_residual_fault(got_h, w, EPS, 256))
+
+
+# ---------------------------------------------------------------------------
+# the train path's input pipeline, checkpoints and clipping on the card machine
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_cuda_machine_builds_the_native_loader(cuda_device, tmp_path):
+    """The C++ token loader builds on the card's machine (g++ into
+    ``_build/``) and streams the same windows as its plain Python version."""
+    from thunder_tpu_torch import data
+
+    path = str(tmp_path / "tokens.bin")
+    data.write_token_file(path, np.random.RandomState(0).randint(0, 32000, 20000))
+    native = data.ShardedTokenStream(path, batch=4, seq=63, seed=2, native=True)
+    plain = data.ShardedTokenStream(path, batch=4, seq=63, seed=2, native=False)
+    assert native.stream_path() == "native" and plain.stream_path() == "python"
+    for step in (0, 1, 2, 90, 3):
+        for a, b in zip(native.batch_at(step), plain.batch_at(step)):
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_pretrain_from_a_token_file_resumes_bit_identically(cuda_device, tmp_path):
+    """tiny-gqa at 2 layers on the card from a token file: 4 steps straight
+    through, and 2 steps, an asynchronous checkpoint, a load and 2 more
+    from ``start_step=2``, give the same losses and parameters bit for bit
+    (chip_smoke.py's phase 14 at a small size)."""
+    from thunder_tpu_torch import checkpoint, data
+    from thunder_tpu_torch.benchmarks import pretrain
+    from thunder_tpu_torch.models import llama
+    from thunder_tpu_torch.optim import AdamW, tree_leaves
+
+    cfg = llama.CONFIGS["tiny-gqa"]
+    path = str(tmp_path / "tokens.bin")
+    data.write_token_file(path, np.random.RandomState(1).randint(0, cfg.vocab_size, 40000))
+    kw = dict(layers=2, batch=2, seq=64, lr=1e-3, device="cuda", data=path, data_seed=4)
+
+    def fresh():
+        params = llama.init_params(cfg, seed=0, device="cuda", n_layers=2)
+        opt = AdamW(lr=1e-3)
+        return params, opt, opt.init(params)
+
+    params, opt, state = fresh()
+    a = pretrain.run("tiny-gqa", steps=3, params=params, opt=opt, state=state, **kw)
+    want = [t.detach().cpu() for t in tree_leaves(params)]
+    params, opt, state = fresh()
+    b1 = pretrain.run("tiny-gqa", steps=1, params=params, opt=opt, state=state, **kw)
+    ck = str(tmp_path / "ck")
+    assert checkpoint.save_checkpoint(ck, {"params": params, "opt": state}, asynchronous=True)
+    loaded = checkpoint.load_checkpoint(ck, device="cuda")
+    b2 = pretrain.run("tiny-gqa", steps=1, params=loaded["params"], opt=AdamW(lr=1e-3),
+                      state=loaded["opt"], start_step=2, **kw)
+    assert a["stream_path"] == b1["stream_path"] == b2["stream_path"] == "native"
+    assert b1["losses"] + b2["losses"] == a["losses"]
+    for got, w in zip(tree_leaves(loaded["params"]), want):
+        assert torch.equal(got.detach().cpu(), w)
+
+
+@pytest.mark.cuda
+def test_cuda_clip_grad_norm_matches_torch(cuda_device):
+    """clip_grad_norm on CUDA grads: over a tree of float32 and bf16 leaves
+    its norm against a float64 sum of squares (1e-6 relative); over a tree
+    of one dtype its clipped grads against ``torch.nn.utils.clip_grad_norm_``
+    on copies, float32 1e-6, bf16 2**-6 relative (torch takes a bf16 leaf's
+    norm in bf16, 2**-9, which can move the bf16 product one rounding
+    step). A tree mixing the two is not compared with torch: torch's total
+    norm then carries the bf16 group's rounded norm into the float32
+    leaves' scale as well."""
+    from thunder_tpu_torch.optim import clip_grad_norm
+
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    a = torch.randn(1000, 37, generator=g, device=cuda_device)
+    b = torch.randn(4096, generator=g, device=cuda_device).to(torch.bfloat16)
+    norm64 = math.sqrt(sum(float(t.double().square().sum()) for t in (a, b)))
+    _, norm = clip_grad_norm({"a": a, "b": [b]}, 0.25 * norm64)
+    assert abs(float(norm) - norm64) <= 1e-6 * norm64
+    for t, rtol in ((a, 1e-6), (b, 2.0 ** -6)):
+        n = math.sqrt(float(t.double().square().sum()))
+        clipped, norm = clip_grad_norm({"g": [t]}, 0.25 * n)
+        assert abs(float(norm) - n) <= 1e-6 * n
+        p = torch.nn.Parameter(torch.empty_like(t))
+        p.grad = t.clone()
+        torch.nn.utils.clip_grad_norm_([p], 0.25 * n)
+        mine, ref = clipped["g"][0].float(), p.grad.float()
+        assert bool(((mine - ref).abs() <= ref.abs() * rtol + 1e-12).all())

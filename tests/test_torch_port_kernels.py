@@ -23,6 +23,7 @@ from thunder_tpu.executors import pallasex as px
 from thunder_tpu.ops import nn as jnn
 from thunder_tpu_torch.executors import cudaex
 from thunder_tpu_torch.ops import nn as tnn
+from thunder_tpu_torch.testing import rms_residual_fault
 
 EPS = 1e-5
 
@@ -185,7 +186,7 @@ def test_paged_split_model_matches_plain(dtype, G, hd):
     plain version's one softmax over the whole context: float32 to 1e-5,
     16-bit to one rounding step of the result (both round once, from f32
     sums in another order)."""
-    from thunder_tpu_torch.testing import paged_split_model
+    from thunder_tpu_torch.testing import rms_residual_fault, paged_split_model
 
     KV, ps = 2, 16
     keys, _, _ = cudaex.paged_geometry(1, G * KV, KV, hd, ps, 1, dtype)
@@ -404,6 +405,35 @@ def test_rms_norm_design_by_dtype_and_width(dtype, D, design):
     assert f"{cudaex.RMS_NORM_DESIGNS.index(design)} {design}" in note
 
 
+@pytest.mark.parametrize("dtype,D,design", RMS_DESIGNS,
+                         ids=[f"{str(d)[6:]}-D{n}" for d, n, _ in RMS_DESIGNS])
+def test_rms_norm_residual_design_by_dtype_and_width(dtype, D, design):
+    """rms_norm_residual takes rms_norm's rule (both vector designs hold one
+    row of the same values in registers, csrc/rms_row.cuh); its C entry
+    reads the design by its index."""
+    assert cudaex.rms_norm_residual_design(dtype, D) == design
+    repo = Path(cudaex.__file__).resolve().parents[2]
+    note = (repo / cudaex.KERNELS["rms_norm_residual"].source).read_text()
+    assert f"{cudaex.RMS_NORM_DESIGNS.index(design)} {design}" in note
+
+
+@pytest.mark.parametrize("weighted", [True, False], ids=["weight", "no-weight"])
+def test_rms_residual_fault_model(weighted):
+    """testing.rms_residual_fault, the planted fault of chip_smoke.py's
+    rms_norm_residual check: with nothing left out it is the plain norm of
+    h; leaving out the last row's last 256 of 4096 values moves that row
+    past the check's 2**-6 and no other row."""
+    g = torch.Generator().manual_seed(0)
+    r, x = (torch.randn(3, 4096, generator=g).to(torch.bfloat16) for _ in range(2))
+    w = (torch.rand(4096, generator=g) + 0.5).to(torch.bfloat16) if weighted else None
+    h, y = tnn.rms_norm_residual_plain(r, x, w, EPS)
+    assert torch.equal(rms_residual_fault(h, w, EPS, 0), y)
+    bad = rms_residual_fault(h, w, EPS, 256)
+    assert torch.equal(bad[:-1], y[:-1])
+    rel = ((bad[-1].float() - y[-1].float()).abs() / y[-1].float().abs().clamp_min(1e-6))
+    assert float(rel.max()) > 2.0 ** -6
+
+
 LINEAR_PATHS = [(torch.bfloat16, 1, "stream"), (torch.bfloat16, 8, "stream"),
                 (torch.bfloat16, 13, "stream"), (torch.bfloat16, 16, "stream"),
                 (torch.bfloat16, 17, "tile"), (torch.bfloat16, 512, "tile"),
@@ -459,7 +489,8 @@ def test_design_counts_start_empty_and_reset():
 
 
 @pytest.mark.parametrize("name,design", [("sdpa_bwd", "wgmma"), ("sdpa_bwd", "mma"),
-                                         ("rms_norm", "vector")])
+                                         ("rms_norm", "vector"),
+                                         ("rms_norm_residual", "vector")])
 def test_design_counts_by_kernel(name, design):
     """Each kernel with several designs reports its launches by design, and
     a reset clears them with the launch counts."""

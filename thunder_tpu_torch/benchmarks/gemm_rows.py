@@ -7,7 +7,9 @@ decode rows (row 6: 8 x 4096 -> 14336, silu, the weight stream the decode
 layer shares) and the 512-row prefill chunk (row 6b); ``sdpa_bwd``
 (row 2) at the train path's (8, 32, 2048, 128) causal and full, beside
 aten's flash-attention backward; ``rms_norm`` (row 4) at 8 x 4096 and
-(8, 2048, 4096), beside ``F.rms_norm``; the decode kernels at the serving
+(8, 2048, 4096), beside ``F.rms_norm``; ``rms_norm_residual`` (row 5) at
+the same shapes, beside the per-op chain ``torch.add`` then ``F.rms_norm``
+(no one PyTorch call computes both its outputs); the decode kernels at the serving
 shape of ``chip_smoke.py``'s phase 3 (8 requests of 1..2048 tokens, 32/8
 heads, hd 128, 16-token pages, bf16): ``paged_decode_attention`` (row 9,
 rotating over four pool copies so each call finds its pages out of L2) and
@@ -15,7 +17,7 @@ rotating over four pool copies so each call finds its pages out of L2) and
 slot), ``attn_subblock`` also with every length 1, where its attention
 phase has almost nothing to read: the difference is that phase's time.
 
-    PYTHONPATH=. python3 thunder_tpu_torch/benchmarks/gemm_rows.py [--rows 7,8,6,6b,2,4,9,10]
+    PYTHONPATH=. python3 thunder_tpu_torch/benchmarks/gemm_rows.py [--rows 7,8,6,6b,2,4,5,9,10]
         [--iters 10] [--profile]
 
 Each kernel is timed with CUDA events around ``--iters`` back-to-back calls
@@ -54,6 +56,8 @@ SHAPES = (
     ("2", "sdpa_bwd", 8, 32, 2048),
     ("4", "rms_norm", 1, 8, 4096),
     ("4", "rms_norm", 8, 2048, 4096),
+    ("5", "rms_norm_residual", 1, 8, 4096),
+    ("5", "rms_norm_residual", 8, 2048, 4096),
     ("9", "paged_decode_attention", 8, 4096, 0),
     ("10", "decode_layer", 8, 4096, 14336),
     ("10", "attn_subblock", 8, 4096, 0),
@@ -143,7 +147,7 @@ def profile(fn) -> dict[str, float]:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--rows", default="7,8,6,6b,2,4,9,10",
+    ap.add_argument("--rows", default="7,8,6,6b,2,4,5,9,10",
                     help="table rows to time, comma separated")
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--profile", action="store_true",
@@ -182,6 +186,13 @@ def main() -> None:
             fn = lambda: cudaex.rms_norm(x, w, 1e-5)   # noqa: E731
             lib = lambda: torch.nn.functional.rms_norm(x, (F,), w, 1e-5)   # noqa: E731
             flops = 4.0 * N * D * F
+        elif row == "5":   # residual and x (N, D, F), rows of F; bytes as its bound
+            r, x = rnd(N, D, F), rnd(N, D, F)
+            w = (torch.rand(F, generator=gen, device=dev) + 0.5).to(bf16)
+            fn = lambda: cudaex.rms_norm_residual(r, x, w, 1e-5)   # noqa: E731
+            lib = lambda: torch.nn.functional.rms_norm(torch.add(r, x), (F,), w, 1e-5)  # noqa
+            flops = 5.0 * N * D * F
+            moved = 4 * N * D * F * 2 + F * 2
         elif row == "9":   # 8 requests over four rotating pool copies, bytes as its bound
             B, H, hd = len(LENGTHS), KV * G, ATTN_HD
             npg = 2048 // PS
@@ -229,15 +240,16 @@ def main() -> None:
         ms = time_ms(fn, args.iters)
         res = {"row": row, "name": name, "shape": f"{N}x{D}x{F}", "ms": ms,
                "tflops": flops / ms / 1e9, "designs": cudaex.design_counts()}
+        lib_key = "per_op_chain_ms" if row == "5" else "library_ms"
         if lib is not None:
-            res["library_ms"] = time_ms(lib, args.iters)
+            res[lib_key] = time_ms(lib, args.iters)
         if moved is not None:
             res["tb_per_s"] = moved / ms / 1e9
         print(f"row {row:3s} {name:17s} {N}x{D}x{F}: {ms:.4f} ms, "
               f"{flops / ms / 1e9:.1f} TFLOP/s, "
               + (f"{res['tb_per_s']:.2f} TB/s, " if moved is not None else "")
               + f"{cudaex.design_counts()}"
-              + (f", library {res['library_ms']:.4f} ms" if lib is not None else ""), flush=True)
+              + (f", {lib_key} {res[lib_key]:.4f} ms" if lib is not None else ""), flush=True)
         if args.profile:
             res["kernels_ms"] = profile(fn)
             print("    " + ", ".join(f"{k} {v:.4f}" for k, v in res["kernels_ms"].items()))

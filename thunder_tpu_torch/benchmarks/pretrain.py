@@ -4,10 +4,22 @@
 The counterpart of ``thunder_tpu/benchmarks/pretrain.py --mode single``:
 the same model configs, ``AdamW(lr)`` with the reference's defaults, and
 synthetic tokens from a seed (``targets = roll(tokens, -1)``, as
-``bench.py:146-148``). Weights are random, from ``--seed``.
+``bench.py:146-148``), one batch reused by every step. Weights are random,
+from ``--seed``.
 
     python3 -m thunder_tpu_torch.benchmarks.pretrain --model llama3-8b-bench \\
-        --layers 4 --batch 8 --seq 2048 --steps 5 [--profile 3] [--block-fusion]
+        --layers 4 --batch 8 --seq 2048 --steps 5 [--profile 3] [--block-fusion] \\
+        [--data tokens.bin [--data-seed S] [--start-step K] [--audit]]
+
+``--data`` streams the batches from a token file through
+:class:`thunder_tpu_torch.data.ShardedTokenStream` (epoch-exact shuffle,
+C++ prefetch; on the card its native loader is required), with the
+reference's step numbering: the warm-up step takes batch ``start_step``
+and timed step k batch ``start_step + 1 + k``, so a run resumed at
+``--start-step`` replays the batches a straight run took. Tokens are
+clipped to ``vocab_size - 1``, as the reference clips them, and reach the
+card from pinned host memory by an asynchronous copy. ``--audit`` prints
+each timed step's loss to stderr, as the reference's does.
 
 Two rungs of the reference's step. The default is its per-op rung
 (``tt.jit(train_step, block_fusion=False)``). ``--block-fusion`` is its
@@ -31,14 +43,15 @@ time per kernel family and the device's idle share. Needs a CUDA card;
 from __future__ import annotations
 
 import argparse
-import functools
 import json
 import subprocess
+import sys
 import time
 
 import numpy as np
 import torch
 
+from thunder_tpu_torch.data import ShardedTokenStream
 from thunder_tpu_torch.devices import resolve_device
 from thunder_tpu_torch.executors import cudaex
 from thunder_tpu_torch.models import llama
@@ -125,13 +138,19 @@ def _family(name: str) -> str:
 def run(model: str = "tiny", layers: int | None = None, batch: int = 4, seq: int = 256,
         steps: int = 10, lr: float = 1e-4, seed: int = 0, device=None, profile: int = 0,
         params: dict | None = None, block_fusion: bool = False, loss: str = "naive",
-        remat: bool = False, opt: AdamW | None = None, state: dict | None = None) -> dict:
+        remat: bool = False, opt: AdamW | None = None, state: dict | None = None,
+        data: str | None = None, data_seed: int = 0, start_step: int = 0,
+        audit: bool = False) -> dict:
     """Build the model (or take ``params``), take one warm-up step and
-    ``steps`` timed steps on one synthetic batch, and report. Each step's
-    loss, host-clock time and kernel launches are in ``per_step``.
-    ``opt`` defaults to ``AdamW(lr=lr)`` and ``state``, the optimizer state
-    the steps update in place, to ``opt.init(params)``; ``loss`` and
-    ``remat`` are :func:`loss_and_grads`'s."""
+    ``steps`` timed steps, and report. The batches are one synthetic batch
+    or, with ``data`` (a token file), the stream's batches ``start_step``,
+    ``start_step + 1``, ... (seeded by ``data_seed``); ``audit`` prints each
+    timed step's loss. Each step's batch index, loss, host-clock time
+    (the batch's fetch and copy included: ``batch_ms``) and kernel launches
+    are in ``per_step``. ``opt`` defaults to ``AdamW(lr=lr)`` and
+    ``state``, the optimizer state the steps update in place, to
+    ``opt.init(params)``; ``loss`` and ``remat`` are
+    :func:`loss_and_grads`'s."""
     dev = resolve_device(device)
     cfg = llama.CONFIGS[model]
     n_layers = layers if layers is not None else cfg.n_layers
@@ -143,16 +162,23 @@ def run(model: str = "tiny", layers: int | None = None, batch: int = 4, seq: int
     n_layers = len(params["layers"])
     opt = opt if opt is not None else AdamW(lr=lr)
     state = state if state is not None else opt.init(params)
-    tok_np, tgt_np = synthetic_batch(cfg.vocab_size, batch, seq, seed)
-    tokens, targets = torch.from_numpy(tok_np).to(dev), torch.from_numpy(tgt_np).to(dev)
+    batch_for, stream = _batches(cfg, batch, seq, seed, dev, data, data_seed)
+    next_batch = [start_step]
+    batch_ms: list[float] = []
+
+    def step(opt_events=None):
+        t = time.perf_counter()
+        tokens, targets = batch_for(next_batch[0])
+        next_batch[0] += 1
+        batch_ms.append((time.perf_counter() - t) * 1e3)
+        return train_step(params, opt, state, tokens, targets, cfg, opt_events, block_fusion,
+                          loss, remat)
 
     def sync():
         if on_card:
             torch.cuda.synchronize()
 
     t0 = time.perf_counter()
-    step = functools.partial(train_step, params, opt, state, tokens, targets, cfg,
-                             block_fusion=block_fusion, loss=loss, remat=remat)
     losses = [float(step())]   # warm-up
     warmup_s = time.perf_counter() - t0
     if on_card:
@@ -170,7 +196,10 @@ def run(model: str = "tiny", layers: int | None = None, batch: int = 4, seq: int
         if on_card:
             opt_ms.append(ev[0].elapsed_time(ev[1]))
         losses.append(float(value))
-        per_step.append({"loss": losses[-1], "ms": ms,
+        if audit:
+            print(f"step {next_batch[0] - 1} loss {losses[-1]:.6f}", file=sys.stderr)
+        per_step.append({"batch": next_batch[0] - 1, "loss": losses[-1], "ms": ms,
+                         "batch_ms": batch_ms[-1],
                          "launches": {k: after[k] - before[k] for k in after
                                       if after[k] != before[k]}})
     step_ms = sum(s["ms"] for s in per_step) / max(len(per_step), 1)
@@ -185,6 +214,8 @@ def run(model: str = "tiny", layers: int | None = None, batch: int = 4, seq: int
         "params": llama.num_params(cfg, n_layers), "warmup_s": warmup_s,
         "step_ms": step_ms, "tokens_per_s": tokens_per_step / (step_ms / 1e3),
         "losses": losses, "per_step": per_step,
+        "data": data, "data_seed": data_seed if data else None, "start_step": start_step,
+        "stream_path": stream.stream_path() if stream else None,
     }
     if on_card:
         result.update({
@@ -197,6 +228,32 @@ def run(model: str = "tiny", layers: int | None = None, batch: int = 4, seq: int
     if profile and on_card:
         result.update(_profile(step, profile))
     return result
+
+
+def _batches(cfg, batch: int, seq: int, seed: int, dev: torch.device, data: str | None,
+             data_seed: int):
+    """``(batch_for, stream)``: ``batch_for(step)`` gives the step's
+    (tokens, targets) int64 tensors on ``dev``. Without ``data`` it is one
+    synthetic batch for every step (``stream`` None); with it, the stream's
+    batch ``step``, clipped to the vocabulary, copied to the card from
+    pinned memory without a sync (on the card the native loader is
+    required)."""
+    if data is None:
+        tok, tgt = synthetic_batch(cfg.vocab_size, batch, seq, seed)
+        fixed = torch.from_numpy(tok).to(dev), torch.from_numpy(tgt).to(dev)
+        return (lambda step: fixed), None
+    on_card = dev.type == "cuda"
+    stream = ShardedTokenStream(data, batch=batch, seq=seq, seed=data_seed,
+                                native=True if on_card else None)
+
+    def batch_for(step):
+        pair = [torch.from_numpy(np.clip(a, 0, cfg.vocab_size - 1).astype(np.int64))
+                for a in stream.batch_at(step)]
+        if on_card:
+            pair = [t.pin_memory().to(dev, non_blocking=True) for t in pair]
+        return pair
+
+    return batch_for, stream
 
 
 def _profile(step, steps: int) -> dict:
@@ -240,10 +297,22 @@ def main() -> None:
                     help="trace this many more steps with torch.profiler")
     ap.add_argument("--block-fusion", action="store_true",
                     help="the planned rung: one mlp_subblock kernel pair per layer")
+    ap.add_argument("--data", default=None,
+                    help="token file (uint16) to stream the batches from (epoch-exact "
+                         "shuffle, prefetch, restart-deterministic); default: one synthetic "
+                         "batch")
+    ap.add_argument("--data-seed", type=int, default=0)
+    ap.add_argument("--start-step", type=int, default=0,
+                    help="resume the data position (the stream is a pure function of the "
+                         "step: a run resumed at step k replays exactly)")
+    ap.add_argument("--audit", action="store_true",
+                    help="print each step's loss to stderr")
     args = ap.parse_args()
     print(json.dumps(run(args.model, args.layers, args.batch, args.seq, args.steps, args.lr,
                          args.seed, args.device, args.profile,
-                         block_fusion=args.block_fusion)))
+                         block_fusion=args.block_fusion, data=args.data,
+                         data_seed=args.data_seed, start_step=args.start_step,
+                         audit=args.audit)))
 
 
 if __name__ == "__main__":

@@ -10,15 +10,28 @@
 // is a few operations per value. At the decode shape (8 rows of 4096 bf16)
 // the launch latency dominates.
 //
-// Design: one block per row. The first sweep computes and stores h and the
-// sum of squares; the second re-reads h (each thread reads back exactly the
-// values it wrote, so no barrier is needed for them) and writes y. The
-// residual stream makes one trip through device memory instead of the two an
-// unfused add + norm would cost.
+// Two designs, chosen by the wrapper (cudaex.rms_norm_residual_design, the
+// rule of rms_norm's) from the dtype and D alone and passed in as `design`:
+//
+// 1 vector (every row starts on 16 bytes, D a multiple of 16 bytes' worth of
+//   values, and the row fits the registers: at most 4096 16-byte accesses).
+//   rms_row.cuh's row routine, the one rms_norm's vector design runs: a
+//   thread loads V 16-byte vectors of r and of x, forms h in registers and
+//   stores it as 16-byte vectors, and the sum of squares and y come from
+//   those registers. Each row of r and x is read once and each of h and y
+//   written once; no sweep reads h back. The block is sized to the row;
+//   short rows share a block and reduce with warp shuffles.
+//
+// 0 scalar (the rest: D off the 16-byte multiples, or rows longer than the
+//   registers hold): one 256-thread block per row. The first sweep computes
+//   and stores h and the sum of squares; the second re-reads h (each thread
+//   reads back exactly the values it wrote, so no barrier is needed for
+//   them) and writes y.
+//
 // Types: residual and x in T (a residual and x of two dtypes are promoted to
 // one by the wrapper, as the reference's add promotes them), the weight in W,
 // the output as rms_norm.cu's: T where W == T, float32 where they differ.
-#include "common.cuh"
+#include "rms_row.cuh"
 
 namespace {
 
@@ -44,12 +57,27 @@ rms_norm_residual_kernel(const T* __restrict__ r, const T* __restrict__ x,
   }
 }
 
+// the vector design: rowvec::norm_row over h = r + x
+template <typename T, typename W, typename O, int V>
+__global__ void __launch_bounds__(rowvec::THREADS)
+rms_norm_residual_kernel_vector(const T* __restrict__ r, const T* __restrict__ x,
+                                const W* __restrict__ w, T* __restrict__ h,
+                                O* __restrict__ out, long long n_rows, int D, int tpr,
+                                int active, float eps) {
+  __shared__ double red[rowvec::THREADS / 32];
+  rowvec::norm_row<T, W, O, V, true>(r, x, w, h, out, n_rows, D, tpr, active, eps, red);
+}
+
 }  // namespace
 
+// dtype: residual's and x's; w_dtype: the weight's (x's where there is no
+// weight); design: 0 scalar, 1 vector, as cudaex.rms_norm_residual_design
+// chooses; a design the row does not fit is refused.
 extern "C" int tt_rms_norm_residual(const void* r, const void* x, const void* w, void* h,
                                     void* out, long long n_rows, int D, float eps, int dtype,
-                                    int w_dtype, int device, void* stream) {
+                                    int w_dtype, int design, int device, void* stream) {
   cudaSetDevice(device);
+  if (design != 0 && design != 1) return static_cast<int>(cudaErrorInvalidValue);
   if (n_rows <= 0) return static_cast<int>(cudaGetLastError());
   auto s = static_cast<cudaStream_t>(stream);
   const cudaError_t err = tt::with_dtype(dtype, [&](auto xt) {
@@ -57,9 +85,20 @@ extern "C" int tt_rms_norm_residual(const void* r, const void* x, const void* w,
       using T = decltype(xt);
       using W = decltype(wt);
       using O = typename std::conditional<std::is_same<T, W>::value, T, float>::type;
-      rms_norm_residual_kernel<T, W, O><<<static_cast<unsigned>(n_rows), 256, 0, s>>>(
-          static_cast<const T*>(r), static_cast<const T*>(x), static_cast<const W*>(w),
-          static_cast<T*>(h), static_cast<O*>(out), D, eps);
+      if (design == 0) {
+        rms_norm_residual_kernel<T, W, O><<<static_cast<unsigned>(n_rows), 256, 0, s>>>(
+            static_cast<const T*>(r), static_cast<const T*>(x), static_cast<const W*>(w),
+            static_cast<T*>(h), static_cast<O*>(out), D, eps);
+        return cudaSuccess;
+      }
+      const rowvec::Geometry g = rowvec::geometry(n_rows, D, sizeof(T));
+      if (!g.fits) return cudaErrorInvalidValue;
+      rowvec::with_vectors(g.V, [&](auto v) {
+        rms_norm_residual_kernel_vector<T, W, O, decltype(v)::value>
+            <<<g.blocks, g.tpr * g.per_block, 0, s>>>(
+                static_cast<const T*>(r), static_cast<const T*>(x), static_cast<const W*>(w),
+                static_cast<T*>(h), static_cast<O*>(out), n_rows, D, g.tpr, g.active, eps);
+      });
       return cudaSuccess;
     });
   });

@@ -46,10 +46,11 @@ one to its kernel's ``launches`` count where it launches, and nowhere else.
 A wrapper takes CUDA tensors only: the routing of CPU tensors to the plain
 versions lives in :mod:`thunder_tpu_torch.ops`.
 
-Designs: ``sdpa_fwd``, ``sdpa_bwd``, ``rms_norm``, ``linear_act``,
-``decode_layer`` and ``attn_subblock`` each hold more than one kernel
-design, and the wrapper picks one by a fixed rule of shape and dtype
-(:func:`sdpa_fwd_design`, :func:`sdpa_bwd_design`, :func:`rms_norm_design`,
+Designs: ``sdpa_fwd``, ``sdpa_bwd``, ``rms_norm``, ``rms_norm_residual``,
+``linear_act``, ``decode_layer`` and ``attn_subblock`` each hold more than
+one kernel design, and the wrapper picks one by a fixed rule of shape and
+dtype (:func:`sdpa_fwd_design`, :func:`sdpa_bwd_design`,
+:func:`rms_norm_design`, :func:`rms_norm_residual_design`,
 :func:`linear_act_path`, :func:`decode_design`), passes it to the C entry,
 which refuses a design the inputs do not fit, and counts the launch under
 it as well (:func:`design_counts`). ``mlp_subblock``, ``mlp_subblock_bwd``
@@ -117,7 +118,7 @@ KERNELS = {k.name: k for k in (
            (_P, _P, _P, _L, _I, _F, _I, _I, _I, _I, _P)),
     Kernel("rms_norm_residual", "thunder_tpu_torch/csrc/rms_norm_residual.cu",
            "thunder_tpu/executors/pallasex.py:811", "tt_rms_norm_residual",
-           (_P, _P, _P, _P, _P, _L, _I, _F, _I, _I, _I, _P)),
+           (_P, _P, _P, _P, _P, _L, _I, _F, _I, _I, _I, _I, _P)),
     Kernel("linear_act", "thunder_tpu_torch/csrc/linear_act.cu",
            "thunder_tpu/executors/pallasex.py:896", "tt_linear_act",
            (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),
@@ -220,6 +221,15 @@ def rms_norm_design(dtype: torch.dtype, D: int) -> str:
     thread); ``"scalar"`` (a block per row, two sweeps) otherwise."""
     per16 = 128 // torch.finfo(dtype).bits
     return "vector" if D % per16 == 0 and D // per16 <= RMS_NORM_MAX_VECTORS else "scalar"
+
+
+def rms_norm_residual_design(dtype: torch.dtype, D: int) -> str:
+    """The ``rms_norm_residual`` design that rows of ``D`` values of ``dtype``
+    take: ``rms_norm``'s rule (:func:`rms_norm_design`), since both designs
+    hold one row of the same values in registers (``csrc/rms_row.cuh``);
+    ``"vector"`` reads r and x once and writes h and y once, ``"scalar"``
+    sweeps the row twice."""
+    return rms_norm_design(dtype, D)
 
 
 # linear_act's paths, by the code the C entry takes (csrc/linear_act.cu)
@@ -495,11 +505,12 @@ def rms_norm_residual(residual: torch.Tensor, x: torch.Tensor,
     D = x.shape[-1]
     h = torch.empty_like(x)
     out = torch.empty(x.shape, dtype=_norm_out_dtype(x, weight), device=x.device)
+    design = rms_norm_residual_design(x.dtype, D)
     _launch(name, residual.data_ptr(), x.data_ptr(),
             None if weight is None else weight.data_ptr(), h.data_ptr(),
             out.data_ptr(), x.numel() // max(D, 1), D, float(eps), _DTYPE_CODES[x.dtype],
-            _DTYPE_CODES[(weight if weight is not None else x).dtype], x.device.index,
-            _stream(x))
+            _DTYPE_CODES[(weight if weight is not None else x).dtype],
+            RMS_NORM_DESIGNS.index(design), x.device.index, _stream(x), design=design)
     return h, out
 
 

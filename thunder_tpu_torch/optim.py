@@ -2,7 +2,7 @@
 ``thunder_tpu/optim.py`` ``AdamW`` (:140) in its per-step multi-tensor form
 and, with ``slab_persistent=True``, its slab-persistent form, with the
 state-layout helpers ``SLAB_LAYOUT_VERSION``, ``opt_state_layout_version``
-and ``adapt_opt_state`` (:101-128).
+and ``adapt_opt_state`` (:101-128), and ``clip_grad_norm`` (:37).
 
 Parameters, gradients and optimizer state are trees of dicts and lists with
 tensor leaves, the layout of :func:`thunder_tpu_torch.models.llama.init_params`.
@@ -51,6 +51,39 @@ def tree_unflatten(like, leaves):
     :func:`tree_leaves` order."""
     it = iter(leaves)
     return tree_map(lambda _: next(it), like)
+
+
+def clip_grad_norm(grads, max_norm: float, *, eps: float = 1e-6):
+    """Global-norm gradient clipping over a gradient tree, the reference's
+    ``clip_grad_norm`` (``torch.nn.utils.clip_grad_norm_`` semantics).
+
+    Returns ``(clipped, norm)``: ``norm`` is the L2 norm over every floating
+    tensor leaf, its sum of squares accumulated in float32 leaf by leaf in
+    :func:`tree_leaves` order (a 0-d float32 tensor on the grads' device);
+    every such grad is multiplied in float32 by ``min(1, max_norm / (norm +
+    eps))`` and cast back to its own dtype. Other leaves pass through. No
+    host sync.
+
+    The reference's ``params=`` argument, which sums the squares of sharded
+    leaves across their mesh axis, comes with the port's distributed
+    training (ROADMAP A.3); every leaf here is whole on one device."""
+    leaves = [g for g in tree_leaves(grads)
+              if isinstance(g, torch.Tensor) and g.is_floating_point()]
+    if not leaves:
+        raise ValueError("clip_grad_norm: the tree has no floating gradient")
+    total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    for g in leaves:
+        gf = g.float()
+        total = total + torch.sum(gf * gf)
+    norm = torch.sqrt(total)
+    scale = torch.clamp(float(max_norm) / (norm + eps), max=1.0)
+
+    def clip(g):
+        if isinstance(g, torch.Tensor) and g.is_floating_point():
+            return (g.float() * scale).to(g.dtype)
+        return g
+
+    return tree_map(clip, grads), norm
 
 
 def opt_state_layout_version(state) -> int:

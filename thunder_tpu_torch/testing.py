@@ -89,3 +89,22 @@ def paged_split_model(q, k_pages, v_pages, block_tables, lengths, keys: int,
             acc = acc + ac * w[..., None]
         out[b] = acc / l[..., None]
     return out.reshape(B, H, 1, hd).to(q.dtype)
+
+
+def rms_residual_fault(h: torch.Tensor, weight, eps: float, left_out: int) -> torch.Tensor:
+    """The ``rms_norm_residual`` output that a kernel with a planted fault
+    would give from the residual stream ``h`` (the kernel's own): the last
+    row's sum of squares leaves out the squares of its last ``left_out``
+    values (what a block reduction that drops one warp's partial sum
+    computes: 256 of 4096 bf16 values), every other row as the plain
+    version. The check that holds the kernel against its plain version must
+    fail it."""
+    rows = h.reshape(-1, h.shape[-1])
+    hf = rows.float()
+    ss = (hf * hf).sum(-1)
+    kept = hf[-1, :hf.shape[-1] - left_out]
+    ss[-1] = (kept * kept).sum()
+    y = (hf * torch.rsqrt(ss / h.shape[-1] + eps)[:, None]).to(h.dtype)
+    if weight is not None:
+        y = y * weight
+    return y.reshape(h.shape)
