@@ -164,9 +164,47 @@ without its last 256 values, through ``testing.rms_residual_fault``);
 phases 5, 7, 13(a) and 14 require every bf16 launch of it to take
 ``vector``.
 
+The numerics guard and the kernel quarantine (``runtime/``,
+``transforms/numerics_guard.py``): phase 3 also holds the AdamW health
+passes (``fused_adamw_health`` at the per-step train bucket,
+``fused_adamw_slab_health`` at the bench bucket) against their plain twins
+(the non-finite counts exactly, the sum of g*g 1e-6 relative, two calls
+bit-identical, nothing stored; then with a NaN grad and a grad whose
+square overflows v' planted, non-zero counts equal to the twin's) and
+times each beside its bound. Then:
+
+15. guard and quarantine — (a) llama3-8b-bench at 4 layers, per-op rung,
+    B=8, T=2048: three guarded steps (``pretrain.run(guard=...)``) give
+    params, moments and ``step`` bit-identical to three unguarded steps
+    from the same weights, each launching the health pass once; a fourth
+    step with ``numerics:grads`` poison leaves all of it bit-identical, with
+    nonfinite_steps == skipped_steps == 1; the health word's grad norm
+    within 1e-6 of the float64 norm of the grads; NaNs planted in the last
+    grad element and, on a bucket of odd sizes, in a scalar tail and the
+    last chunk, each counted once and each stopping the gated update; the
+    health pass timed against its bound and the guarded step against the
+    unguarded one. (b) the same on the slab path (the bench's
+    ``AdamW(slab_persistent=True)``) at 2 layers. (d) llama3-8b at full
+    width, 8 layers, planned rung, bf16: ``kernel:cuda.decode_layer``
+    injected on decode step 5 is contained by one rebind (the claim
+    quarantined, decode_layer launches frozen, ``attn_subblock`` and
+    ``mlp_subblock`` launching), the replayed step's logits equal a fresh
+    sub-block step's on its inputs and match the plain sub-block chain row
+    by row; then ``attn_subblock`` and ``mlp_subblock`` quarantined (the
+    runner rebinds to the per-op rung's kernels); every request of those
+    stages done. Then ``rms_norm_residual`` quarantined too: a leaf kernel
+    has no kernel rung below it, so the next request's prefill raises a
+    fatal ``KernelExecutionError`` naming it, with no plain version run.
+    (e) float32 tiny-gqa under the same faults, card against CPU: identical
+    tokens, the replayed step's logits within phase 10's bound; the
+    quarantined leaf raises on the card, while the CPU runs its plain
+    version, as it always does there. Phase 13 (a) also reports
+    ``sentinel_overhead_pct``.
+
 No phase can fall back to a plain version on the card: a CUDA call whose
 inputs a kernel does not take raises in the kernel's wrapper, with the
-reason ``cudaex.refusal`` gives, and fails its phase.
+reason ``cudaex.refusal`` gives, and fails its phase; a quarantined kernel
+with no kernel rung below it raises in its router.
 
 The last line of standard output is the JSON result the checker reads; the
 line before it holds the kernels table (one row per kernel and main path,
@@ -274,6 +312,25 @@ RESUME_LAYERS, RESUME_TOKENS, RESUME_DATA_SEED = 2, 1 << 22, 3
 #   bf16 product can land one rounding step (2**-8) apart
 CLIP_NORM_RTOL = 1e-5
 CLIP_RTOL = 2.0 ** -6
+# phase 15: the numerics guard and the kernel quarantine. (a) llama3-8b-bench
+# per-op at 4 layers (phase 7's cell), (b) the slab path at 2 layers: three
+# guarded steps (a warm-up and two timed) against three unguarded ones, bit
+# for bit; the health pass against its plain twin: the non-finite counts
+# exactly, the sum of g*g 1e-6 relative (float32 chunk sums folded in
+# float64, against float32 sums per tensor in another order: 3.4e-8 on the
+# card; one chunk of the ~277 k dropped from the sum moves it ~3.6e-6); the
+# word's grad norm against a float64 norm of the grads, 1e-6 relative (PR
+# 10's clip_grad_norm check stood at 4.1e-8 on such grads)
+GUARD_LAYERS, GUARD_SLAB_LAYERS, GUARD_STEPS = 4, 2, 3
+HEALTH_SUMSQ_RTOL = 1e-6
+HEALTH_NORM_RTOL = 1e-6
+HEALTH_LIBRARY_NOTE = "no one PyTorch call counts the non-finite values of the update's outputs"
+# (d) llama3-8b serving at the planned rung, depth cut to 8 layers, the
+# injected decode_layer fault on the engine's 5th decode step; the replayed
+# step's logits against the plain sub-block chain on the same inputs, row by
+# row, DECODE_TOL of each row's largest value (bf16 rounds at other points in
+# every layer's two sub-blocks)
+QUARANTINE_LAYERS, FAULT_DECODE_STEP = 8, 5
 
 D, F_DIM, S_DECODE, M_PREFILL = 4096, 14336, 8, 512
 KV, G, HD, PS = 8, 4, 128, 16
@@ -879,10 +936,59 @@ def check_train_kernels(torch, cudaex, tnn, toptim_ops, tllama):
         torch, cudaex, "fused_adamw", f"{n} bf16", err,
         lambda: cudaex.fused_adamw(ps, gs, ms, vs, bc, **hyper), plain_adamw,
         lib, n * 22, 12.0 * n, F32_FLOPS, 10, 2)]
+    # the health pass reads bf16 p and g, f32 m and v: 12 bytes an element
+    rows["fused_adamw_health"] = [health_row(torch, cudaex, toptim_ops, "fused_adamw_health",
+                                             (ps, gs, ms, vs), {}, bc, hyper, n, 12)]
     del ps, gs, ms, vs, lib
     gc.collect()
     torch.cuda.empty_cache()
     return rows
+
+
+def health_row(torch, cudaex, toptim_ops, name, args, kw, bc, hyper, n, bytes_per):
+    """The health pass ``name`` at a main path's bucket (``args``: the
+    update's tensors, ``kw`` its sizes) against its plain twin: the counts
+    exactly, the sum of g*g within HEALTH_SUMSQ_RTOL, two calls
+    bit-identical, nothing stored; then with a NaN planted in the last
+    grad and a grad of 1e30 (its square overflows v') in the first, the
+    counts again, non-zero and equal to the twin's, and both sums NaN;
+    then timed beside the plain twin and its bound (read-only: each input
+    read once, ``bytes_per`` an element)."""
+    kernel, plain = getattr(cudaex, name), getattr(toptim_ops, name + "_plain")
+    dev = bc.device
+    accs = [torch.zeros(3, dtype=torch.float64, device=dev) for _ in range(3)]
+    sample = args[0][-1].clone()
+    kernel(*args, bc, accs[0], **kw, **hyper)
+    kernel(*args, bc, accs[1], **kw, **hyper)
+    plain(*args, bc, accs[2], **kw, **hyper)
+    torch.cuda.synchronize()
+    got, want = accs[0].tolist(), accs[2].tolist()
+    require(torch.equal(accs[0], accs[1]), f"{name}: two calls differ: {got}, {accs[1].tolist()}")
+    require(got[0] == want[0] and got[2] == want[2]
+            and abs(got[1] - want[1]) <= HEALTH_SUMSQ_RTOL * want[1],
+            f"{name}: {got} against the plain twin's {want}")
+    require(torch.equal(args[0][-1], sample), f"{name}: the health pass stored a parameter")
+    err = max(abs(a - b) for a, b in zip(got, want))
+    first, last = args[1][0].view(-1), args[1][-1].view(-1)
+    kept = (first[0].clone(), last[-1].clone())
+    first[0], last[-1] = 1e30, float("nan")
+    planted = [torch.zeros(3, dtype=torch.float64, device=dev) for _ in range(2)]
+    kernel(*args, bc, planted[0], **kw, **hyper)
+    plain(*args, bc, planted[1], **kw, **hyper)
+    first[0], last[-1] = kept
+    pg, pw = planted[0].tolist(), planted[1].tolist()
+    require(pg[0] == pw[0] == 1 and pg[2] == pw[2] >= 2 and math.isnan(pg[1])
+            and math.isnan(pw[1]), f"{name}, planted NaN and 1e30 grads: {pg} against the "
+                                   f"plain twin's {pw}")
+    log(f"  {name}: {n} parameters, (non-finite g, sum g*g, non-finite state) {got}, plain "
+        f"{want}; planted {pg}, plain {pw}")
+    acc = accs[0]
+    row = timed_row(torch, cudaex, name, f"{n} bf16", err,
+                    lambda: kernel(*args, bc, acc, **kw, **hyper),
+                    lambda: plain(*args, bc, accs[2], **kw, **hyper),
+                    None, n * bytes_per, 20.0 * n, F32_FLOPS, 10, 2)
+    row["library_note"] = HEALTH_LIBRARY_NOTE
+    return row
 
 
 def slab_bucket(torch, tllama, toptim, gen, cfg_name, layers):
@@ -988,10 +1094,13 @@ def check_slab_kernel(torch, cudaex, toptim_ops, toptim, tllama):
     row["library_note"] = ("no PyTorch call updates moments held in persistent slabs; "
                            "torch._fused_adamw_ also refuses bf16 params with f32 moments")
     row.update(per_step_ulp=held["per_step_ulp"], plain_ulp=held["plain_ulp"])
+    # the health pass reads bf16 p, g and m, f32 v: 10 bytes an element
+    health = health_row(torch, cudaex, toptim_ops, "fused_adamw_slab_health", (ps, gs, m, v),
+                        {"sizes": sizes}, bc, hyper, n, 10)
     del ps, gs, m, v
     gc.collect()
     torch.cuda.empty_cache()
-    return {"fused_adamw_slab": [row]}
+    return {"fused_adamw_slab": [row], "fused_adamw_slab_health": [health]}
 
 
 def check_planned_kernels(torch, cudaex, tnn, tllama, Fm=F_DIM):
@@ -1632,8 +1741,8 @@ def bench_card_vs_cpu(np, torch, tllama, bench):
     kw = dict(layers=cfg.n_layers, batch=2, seq=64, steps=3, remat=True, slab_state=True)
     opt = bench.make_opt("bf16", slab_state=True)
     st_card, st_cpu = opt.init(card), opt.init(cpu)
-    a = bench.run("tiny-gqa", device="cuda", params=card, state=st_card, **kw)
-    b = bench.run("tiny-gqa", device="cpu", params=cpu, state=st_cpu, **kw)
+    a = bench.run("tiny-gqa", device="cuda", params=card, state=st_card, sentinel=False, **kw)
+    b = bench.run("tiny-gqa", device="cpu", params=cpu, state=st_cpu, sentinel=False, **kw)
     require(bool(np.allclose(a["losses"], b["losses"], rtol=TRAIN_LOSS_RTOL, atol=0)),
             f"bench card losses {a['losses']} != CPU losses {b['losses']}")
     perr = max(float((x.detach().cpu() - y.detach()).abs().max())
@@ -1667,7 +1776,7 @@ def bench_full_width(torch, cudaex, bench, remat: bool, block_fusion: bool):
     cudaex.reset_launch_counts()
     out = bench.run("llama2-7b-bench", layers=BENCH_LAYERS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                     steps=BENCH_STEPS, slab_state=True, remat=remat, block_fusion=block_fusion,
-                    device="cuda")
+                    device="cuda", sentinel=remat)
     counts = cudaex.launch_counts()
     expect = bench_launches(BENCH_LAYERS, remat, block_fusion)
     for i, st in enumerate(out["per_step"]):
@@ -1844,6 +1953,380 @@ def train_resume(np, torch, cudaex, pretrain, tllama) -> dict:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the numerics guard and the kernel quarantine
+# ---------------------------------------------------------------------------
+
+def same_tensors(torch, a, b) -> bool:
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def planted_health(torch, opt, params, grads, state, loss, where, what):
+    """Plant a NaN in ``grads`` at ``where`` (a tensor and a flat index),
+    build the health word and take the gated update: the word must count
+    exactly one non-finite grad, and params, moments and step must not
+    move. The grad is restored."""
+    from thunder_tpu_torch.optim import tree_leaves
+
+    t, i = where
+    before = [x.clone() for x in tree_leaves(params) + tree_leaves(state)]
+    keep = t.view(-1)[i].clone()
+    t.view(-1)[i] = float("nan")
+    word = opt.health(params, grads, state, loss)
+    opt.update(params, grads, state, health=word)
+    torch.cuda.synchronize()
+    t.view(-1)[i] = keep
+    h = word.tolist()
+    require(h[0] == 1.0 and h[1] == 0.0, f"{what}: health word {h}, one NaN planted")
+    require(same_tensors(torch, before, tree_leaves(params) + tree_leaves(state)),
+            f"{what}: the gated update moved the state")
+    return h
+
+
+def planted_tails(torch, cudaex, toptim_ops, slab: bool) -> dict:
+    """A bucket of odd sizes (7, 13, 4099, 2^16 + 1 bf16 elements, f32
+    moments): a NaN in the scalar tail of the 7-element member and one in
+    the last element of the bucket (its last chunk) are each counted once by
+    the health pass, and each stops the gated update."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    sizes = [7, 13, 4099, 65537]
+    ps = [torch.randn(n, generator=gen, device=dev).to(torch.bfloat16) for n in sizes]
+    gs = [torch.randn(n, generator=gen, device=dev).to(torch.bfloat16) for n in sizes]
+    hyper = dict(lr=1e-4, beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.01)
+    bc = torch.tensor([0.5, 0.02], dtype=torch.float32, device=dev)
+    if slab:
+        rows, _ = toptim_ops.slab_geometry(sum(sizes))
+        moments = [torch.zeros(rows, 128, dtype=torch.float32, device=dev) for _ in range(2)]
+        kw, health, update = {"sizes": sizes}, cudaex.fused_adamw_slab_health, cudaex.fused_adamw_slab
+    else:
+        moments = [[torch.zeros(n, dtype=torch.float32, device=dev) for n in sizes]
+                   for _ in range(2)]
+        kw, health, update = {}, cudaex.fused_adamw_health, cudaex.fused_adamw
+    out = {}
+    for where, (t, i) in (("scalar tail", (gs[0], 6)), ("last chunk", (gs[-1], 65536))):
+        t[i] = float("nan")
+        acc = torch.zeros(3, dtype=torch.float64, device=dev)
+        health(ps, gs, *moments, bc, acc, **kw, **hyper)
+        word = torch.stack([acc[0].float(), torch.zeros((), device=dev), acc[2].float(),
+                            torch.sqrt(acc[1]).float(), torch.ones((), device=dev)])
+        before = [x.clone() for x in ps] + [x.clone() for m in moments
+                                            for x in (m if isinstance(m, list) else [m])]
+        update(ps, gs, *moments, bc, **kw, **hyper, health=word)
+        torch.cuda.synchronize()
+        after = list(ps) + [x for m in moments for x in (m if isinstance(m, list) else [m])]
+        h = word.tolist()
+        require(h[0] == 1.0, f"{'slab' if slab else 'per-step'} {where}: health word {h}")
+        require(same_tensors(torch, before, after),
+                f"{'slab' if slab else 'per-step'} {where}: the gated update moved the state")
+        t[i] = 0.0
+        out[where] = h[:3]
+    return out
+
+
+def guarded_train(np, torch, cudaex, pretrain, bench, tllama, toptim_ops, slab: bool) -> dict:
+    """(a) llama3-8b-bench at GUARD_LAYERS layers, per-op rung, AdamW(lr=1e-4)
+    with f32 moments, or (b), with ``slab``, at GUARD_SLAB_LAYERS layers
+    with the bench's slab-persistent AdamW (bf16 m, f32 v): GUARD_STEPS
+    guarded steps bit-identical to as many unguarded ones from the same
+    weights (params, moments, step), every guarded step launching the
+    rung's kernels and the health pass once; a fourth, ``numerics:grads``-
+    poisoned step leaves the state bit-identical with nonfinite_steps ==
+    skipped_steps == 1; the health word's grad norm against a float64
+    norm; NaNs planted in the last grad element (the last chunk) and, on
+    an odd bucket, in a scalar tail, each caught and each stopping the
+    update; the health pass timed beside its bound, the guarded step
+    beside the unguarded one."""
+    from thunder_tpu_torch.optim import AdamW, tree_leaves, tree_map
+    from thunder_tpu_torch.runtime import FaultPlan, FaultSpec, faults
+    from thunder_tpu_torch.transforms import NumericsGuard
+
+    cfg = tllama.CONFIGS["llama3-8b-bench"]
+    layers = GUARD_SLAB_LAYERS if slab else GUARD_LAYERS
+    opt = bench.make_opt("bf16", slab_state=True) if slab else AdamW(lr=1e-4)
+    pa = tllama.init_params(cfg, seed=0, device="cuda", n_layers=layers)
+    pb = tree_map(lambda t: t.clone(), pa)
+    sa, sb = opt.init(pa), opt.init(pb)
+    kw = dict(layers=layers, batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=GUARD_STEPS - 1,
+              lr=opt.lr, seed=0, device="cuda", opt=opt)
+    plain = pretrain.run("llama3-8b-bench", params=pa, state=sa, **kw)
+    guard = NumericsGuard()
+    cudaex.reset_launch_counts()
+    guarded = pretrain.run("llama3-8b-bench", params=pb, state=sb, guard=guard, **kw)
+    counts = cudaex.launch_counts()
+    expect = train_launches(layers, False)
+    if slab:
+        expect["fused_adamw_slab"] = expect.pop("fused_adamw")
+    expect["fused_adamw_slab_health" if slab else "fused_adamw_health"] = 1
+    for i, st in enumerate(guarded["per_step"]):
+        require(st["launches"] == expect, f"guarded step {i} launched {st['launches']}, "
+                                          f"expected {expect}")
+    require(guarded["losses"] == plain["losses"],
+            f"guarded losses {guarded['losses']} != unguarded {plain['losses']}")
+
+    def state_of(p, st):
+        return tree_leaves(p) + tree_leaves(st)
+
+    require(same_tensors(torch, state_of(pa, sa), state_of(pb, sb)),
+            "guarded steps are not bit-identical to unguarded ones")
+    require(float(sb["step"]) == GUARD_STEPS, f"step counter {float(sb['step'])}")
+
+    tok, tgt = (torch.from_numpy(a).cuda() for a in
+                pretrain.synthetic_batch(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, 0))
+    with faults.active(FaultPlan([FaultSpec("numerics:grads",
+                                            at_steps={guard.sentinel.steps + 1})])):
+        poisoned = float(pretrain.train_step(pb, opt, sb, tok, tgt, cfg, guard=guard))
+    sent = guard.sentinel
+    require(sent.nonfinite_steps == sent.skipped_steps == 1,
+            f"poisoned step: nonfinite {sent.nonfinite_steps}, skipped {sent.skipped_steps}")
+    require(same_tensors(torch, state_of(pa, sa), state_of(pb, sb)),
+            "the poisoned step moved the state")
+    poisoned_word = list(guard.last_health)
+
+    loss, grads = pretrain.loss_and_grads(pb, tok, tgt, cfg)
+    word = opt.health(pb, grads, sb, loss).tolist()
+    norm64 = math.sqrt(sum(float(g.double().square().sum()) for g in tree_leaves(grads)))
+    norm_rel = abs(word[3] - norm64) / norm64
+    require(word[:3] == [0.0, 0.0, 0.0] and norm_rel <= HEALTH_NORM_RTOL,
+            f"health word {word} against the float64 grad norm {norm64}")
+    last = tree_leaves(grads)[-1]
+    planted = {"last grad element": planted_health(
+        torch, opt, pb, grads, sb, loss, (last, last.numel() - 1),
+        "planted NaN, last grad element")}
+    planted.update(planted_tails(torch, cudaex, toptim_ops, slab))
+
+    # the health pass alone at this bucket, on these grads
+    kind, args, bkw = opt._buckets(pb, grads, sb)[0]
+    bc = opt._bias_corrections(sb, commit=False)
+    acc = torch.zeros(3, dtype=torch.float64, device="cuda")
+    name = "fused_adamw_slab_health" if slab else "fused_adamw_health"
+    fn = getattr(cudaex, name)
+    n = sum(p.numel() for p in args[0])
+    health_ms = time_ms(torch, lambda: fn(*args, bc, acc, **bkw, **opt._hyper), iters=10)
+    health_bound, _ = bound(n * (10 if slab else 12), 20.0 * n, F32_FLOPS)
+    out = {"model": cfg.name, "layers": layers, "slab_state": slab, "parameters": n,
+           "steps": GUARD_STEPS, "losses": guarded["losses"], "bit_identical": True,
+           "poisoned_step_loss": poisoned, "poisoned_health_word": poisoned_word,
+           "sentinel": {"steps": sent.steps, "nonfinite": sent.nonfinite_steps,
+                        "skipped": sent.skipped_steps},
+           "health_word": word, "grad_norm_float64": norm64, "grad_norm_rel_err": norm_rel,
+           "planted": planted, "health_pass_ms": health_ms, "health_bound_ms": health_bound,
+           "step_ms_unguarded": plain["step_ms"], "step_ms_guarded": guarded["step_ms"],
+           "guard_overhead_pct": (guarded["step_ms"] - plain["step_ms"]) / plain["step_ms"] * 100,
+           "optimizer_ms_unguarded": plain["optimizer_ms"],
+           "optimizer_ms_guarded": guarded["optimizer_ms"],
+           "launches": counts, "launches_per_step": expect, "card": guarded["card"]}
+    del pa, pb, sa, sb, grads, args
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def record_decode(eng, cudaex, torch, log_steps: list) -> None:
+    """Wrap ``eng.runner.decode``: each call appends its launches, its
+    logits and whether it raised; the call after a raising one (the
+    replay) also keeps its arguments and a copy of the pools it started
+    from."""
+    decode = eng.runner.decode
+
+    def recorded(params, tokens, bt, lengths, write_pos, pools, *sampling):
+        replay = bool(log_steps) and log_steps[-1]["raised"]
+        entry = {"raised": True, "replay": replay}
+        if replay:
+            entry["inputs"] = (tokens.clone(), bt.clone(), lengths.clone(), write_pos.clone(),
+                               tuple(x.clone() for x in sampling))
+            entry["pools"] = [{k: v.clone() for k, v in kv.items()} for kv in pools]
+        log_steps.append(entry)
+        before = cudaex.launch_counts()
+        out = decode(params, tokens, bt, lengths, write_pos, pools, *sampling)
+        after = cudaex.launch_counts()
+        entry.update(raised=False, logits=out[1].detach().clone(), tokens=out[0].clone(),
+                     launches={k: after[k] - before[k] for k in after if after[k] != before[k]})
+        return out
+
+    eng.runner.decode = recorded
+
+
+def quarantine_stages(np, eng, prompts, plan, faults, quarantine):
+    """Serve ``prompts`` in stages, each drained: (1) under ``plan`` (the
+    decode_layer fault), (2) with attn_subblock and mlp_subblock
+    quarantined (the per-op kernel rung). Then (3) quarantine
+    rms_norm_residual too and submit the third set: a leaf kernel has no
+    kernel rung below it, so on the card the drain must raise the fatal
+    KernelExecutionError naming it; the CPU runs its plain version, as it
+    always does there, and the stage drains. Returns the requests of the
+    stages that drained and the rebinds before stage 3."""
+    from thunder_tpu_torch.runtime import retry
+
+    stages = []
+    with faults.active(plan):
+        stages.append([eng.submit(p, 12) for p in prompts[0]])
+        eng.drain()
+    for c in ("cuda.attn_subblock", "cuda.mlp_subblock"):
+        quarantine.get_quarantine().add(c, reason="phase 15", phase="runtime")
+    stages.append([eng.submit(p, 12) for p in prompts[1]])
+    eng.drain()
+    eng.assert_quiescent()
+    rebinds = eng.decode_rebinds
+    quarantine.get_quarantine().add("cuda.rms_norm_residual", reason="phase 15", phase="runtime")
+    reqs = [eng.submit(p, 12) for p in prompts[2]]
+    if eng.device.type == "cpu":
+        eng.drain()
+        return stages + [reqs], rebinds
+    try:
+        eng.drain()
+    except faults.KernelExecutionError as err:
+        require(err.claim_id == "cuda.rms_norm_residual" and err.phase == faults.QUARANTINED
+                and retry.classify(err) == retry.FATAL, f"stage 3 raised {err!r}")
+    else:
+        require(False, "a quarantined rms_norm_residual was routed on the card without raising")
+    return stages, rebinds
+
+
+def fault_plan(FaultPlan, FaultSpec, L: int):
+    """``kernel:cuda.decode_layer`` on the first layer of decode step
+    FAULT_DECODE_STEP (the guard counts its calls: L a decode step)."""
+    return FaultPlan([FaultSpec("kernel:cuda.decode_layer",
+                                every_n=(FAULT_DECODE_STEP - 1) * L + 1, max_fires=1)])
+
+
+def serve_quarantine(np, torch, tllama, ServingEngine, cudaex, tnn) -> dict:
+    """(d) llama3-8b at full width, QUARANTINE_LAYERS layers, planned rung,
+    bf16: the decode_layer fault on decode step FAULT_DECODE_STEP is
+    contained by one rebind onto attn_subblock + mlp_subblock (decode_layer
+    launches frozen), the replayed step's logits equal a fresh sub-block
+    step's on the same inputs and pools and match the plain sub-block chain
+    row by row; then the per-op kernel rung with the sub-blocks
+    quarantined, every request of both stages done; then rms_norm_residual
+    quarantined, whose router raises on the card (quarantine_stages)."""
+    from thunder_tpu_torch.runtime import FaultPlan, FaultSpec, faults, quarantine
+    from thunder_tpu_torch.serving.runner import PagedLlamaRunner
+    from thunder_tpu_torch.testing import row_rel_err
+
+    cfg = tllama.CONFIGS["llama3-8b"]
+    L = QUARANTINE_LAYERS
+    quarantine.reset()
+    params = tllama.init_params(cfg, seed=0, device="cuda", n_layers=L)
+    eng = ServingEngine(params, cfg, max_slots=8, page_size=16, max_context=2048,
+                        block_fusion=True)
+    steps: list = []
+    record_decode(eng, cudaex, torch, steps)
+    rng = np.random.RandomState(5)
+    prompts = [[rng.randint(0, cfg.vocab_size, size=n).astype(np.int32) for n in lens]
+               for lens in ((17, 150, 480, 1000), (64, 301), (33, 640))]
+    cudaex.reset_launch_counts()
+    t0 = time.perf_counter()
+    stages, rebinds = quarantine_stages(np, eng, prompts, fault_plan(FaultPlan, FaultSpec, L),
+                                        faults, quarantine)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = cudaex.launch_counts()
+    for reqs in stages:
+        for r in reqs:
+            require(r.done and len(r.output()) == 12, f"request {r.request_id} state {r.state}")
+    raised = [i for i, st in enumerate(steps) if st["raised"]]
+    require(len(raised) == 1, f"decode calls that raised: {raised}")
+    i = raised[0]
+    require(rebinds == 2, f"{rebinds} rebinds, expected 2 (one a stage)")
+    require(quarantine.is_quarantined("cuda.decode_layer"), "decode_layer not quarantined")
+    sub = {"attn_subblock": L, "mlp_subblock": L, "rms_norm": 1}
+    chain = {"rms_norm": 1, "paged_decode_attention": L, "rms_norm_residual": 2 * L,
+             "linear_act": L}
+    first = {"decode_layer": L, "rms_norm": 1}
+    require(all(st["launches"] == first for st in steps[:i]),
+            f"decode steps before the fault launched {[st['launches'] for st in steps[:i]]}")
+    require(i == FAULT_DECODE_STEP - 1, f"the fault hit decode call {i + 1}")
+    replay = steps[i + 1]
+    require(replay["replay"] and replay["launches"] == sub,
+            f"the replayed step launched {replay['launches']}, expected {sub}")
+    rest = steps[i + 2:]
+    kinds = [st["launches"] for st in rest]
+    require(all(k in (sub, chain) for k in kinds), f"later steps launched {kinds[:4]}")
+    require(sub in kinds and chain in kinds and kinds.index(sub) < kinds.index(chain),
+            "the rungs did not follow the quarantine")
+    require(counts["decode_layer"] == i * L, f"decode_layer launches {counts['decode_layer']} "
+                                             f"after the fault, expected {i * L}")
+
+    # the replayed step against a fresh sub-block step and the plain chain,
+    # on its own inputs and the pools it started from
+    tokens, bt, lengths, write_pos, sampling = replay["inputs"]
+
+    def rerun(layer_fn):
+        run = PagedLlamaRunner(cfg, eng.geom, block_fusion=True)
+        run.decode_layer = layer_fn
+        pools = [{k: v.clone() for k, v in kv.items()} for kv in replay["pools"]]
+        return run.decode(eng.params, tokens, bt, lengths, write_pos, pools, *sampling)
+
+    def plain_subblocks(h, attn_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages, bt_,
+                        lengths_, write_pos_, mlp_norm, w_gate, w_up, w_down, act="silu",
+                        eps=1e-5, scale=None):
+        out, k_rows, v_rows = tnn.attn_subblock_plain(
+            h, attn_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages, bt_, lengths_,
+            write_pos_, eps=eps, scale=scale)
+        tnn._store_fresh_rows(k_pages, v_pages, k_rows, v_rows, write_pos_)
+        return tnn.mlp_subblock_plain(h, out, mlp_norm, w_gate, w_up, w_down, act, eps)
+
+    quarantine.reset()   # the fresh sub-block step routes its own kernels
+    fresh = rerun(tnn.decode_layer_subblocks)
+    plain = rerun(plain_subblocks)
+    torch.cuda.synchronize()
+    require(torch.equal(fresh[1], replay["logits"]) and torch.equal(fresh[0], replay["tokens"]),
+            "the replayed step differs from a fresh sub-block step on its inputs")
+    plain_err = row_rel_err(replay["logits"].float(), plain[1].float())
+    require(plain_err <= DECODE_TOL, f"replayed logits vs the plain sub-block chain: {plain_err}")
+    out = {"model": cfg.name, "layers": L, "dtype": "bfloat16", "block_fusion": True,
+           "fault": f"kernel:cuda.decode_layer on decode step {FAULT_DECODE_STEP}",
+           "requests": [len(r) for r in stages], "decode_calls": len(steps),
+           "rebinds": rebinds, "launches_per_decode_step": {
+               "before the fault": {"decode_layer": L, "rms_norm": 1}, "sub-block rung": sub,
+               "per-op kernel rung": chain},
+           "leaf_quarantined": "rms_norm_residual: fatal KernelExecutionError on the card",
+           "replay_vs_plain_row_rel_err": plain_err, "launches": counts, "wall_s": wall_s}
+    del eng, params, steps, replay, fresh, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def quarantine_card_vs_cpu(np, torch, tllama, ServingEngine, cudaex) -> dict:
+    """(e) float32 tiny-gqa at the planned rung on the card and on the CPU,
+    under the same fault and quarantine stages as (d): identical tokens in
+    the stages both drain, and the replayed step's logits on the card
+    against the CPU's (its plain sub-block chain) within SUBBLOCK_STEP_TOL;
+    the quarantined leaf raises on the card and drains on the CPU."""
+    from thunder_tpu_torch.runtime import FaultPlan, FaultSpec, faults, quarantine
+
+    cfg = tllama.CONFIGS["tiny-gqa"]
+    params = tllama.init_params(cfg, seed=0, device="cpu")
+    rng = np.random.RandomState(6)
+    prompts = [[rng.randint(1, cfg.vocab_size, size=n).astype(np.int32) for n in lens]
+               for lens in ((1, 7, 16, 33), (24, 9), (40, 3))]
+    kw = dict(max_slots=3, page_size=8, num_pages=24, max_context=64, prefill_chunk=16,
+              block_fusion=True)
+    tokens, replays, drained = {}, {}, {}
+    for device in ("cuda", "cpu"):
+        quarantine.reset()
+        cudaex.reset_launch_counts()
+        eng = ServingEngine(params, cfg, device=device, **kw)
+        steps: list = []
+        record_decode(eng, cudaex, torch, steps)
+        stages, rebinds = quarantine_stages(np, eng, prompts,
+                                            fault_plan(FaultPlan, FaultSpec, cfg.n_layers),
+                                            faults, quarantine)
+        tokens[device] = [r.output().tolist() for reqs in stages[:2] for r in reqs]
+        replays[device] = next(st["logits"].cpu() for st in steps if st["replay"])
+        drained[device] = len(stages)
+        require(rebinds == 2, f"{device}: {rebinds} rebinds")
+    quarantine.reset()
+    require(tokens["cuda"] == tokens["cpu"], "card and CPU tokens differ under the faults")
+    err = float((replays["cuda"] - replays["cpu"]).abs().max())
+    require(err <= SUBBLOCK_STEP_TOL, f"replayed step logits, card vs CPU: {err}")
+    require(drained == {"cuda": 2, "cpu": 3}, f"stages drained {drained}")
+    return {"requests": sum(len(p) for p in prompts[:2]), "tokens_identical": True,
+            "replay_logits_max_abs_err": err,
+            "leaf_quarantined": "raised on the card, plain version on the CPU"}
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -1933,6 +2416,9 @@ def main() -> int:
     log(f"bench card vs CPU (tiny-gqa, float32): {json.dumps(bc)}")
     ba = bench_full_width(torch, cudaex, bench, remat=True, block_fusion=False)
     log_train("bench full width (remat, slab state)", ba)
+    log(f"bench sentinel_overhead_pct (remat, slab state): {ba['sentinel_overhead_pct']:.3f}% "
+        f"({ba['sentinel_step_ms']:.2f} ms guarded against {ba['step_ms']:.2f} ms; "
+        f"{ba['sentinel_counts']}) ({card})")
     bb = bench_full_width(torch, cudaex, bench, remat=False, block_fusion=True)
     log_train("bench full width (slab state, planned)", bb)
     for run in (ba, bb):
@@ -1943,6 +2429,21 @@ def main() -> int:
 
     rs = train_resume(np, torch, cudaex, pretrain, tllama)
     log(f"train from a token file, checkpoint and resume: {json.dumps(rs)}")
+
+    # phase 15: the numerics guard and the kernel quarantine
+    ga = guarded_train(np, torch, cudaex, pretrain, bench, tllama, toptim_ops, slab=False)
+    log(f"guarded train (a), per-op: {json.dumps(ga)}")
+    gb = guarded_train(np, torch, cudaex, pretrain, bench, tllama, toptim_ops, slab=True)
+    log(f"guarded train (b), slab state: {json.dumps(gb)}")
+    sq = serve_quarantine(np, torch, tllama, ServingEngine, cudaex, tnn)
+    log(f"serving under the quarantine (d): {json.dumps(sq)} ({card})")
+    qc = quarantine_card_vs_cpu(np, torch, tllama, ServingEngine, cudaex)
+    log(f"quarantine card vs CPU (e, tiny-gqa, float32): {json.dumps(qc)} ({card})")
+    for what, g in (("(a) per-op", ga), ("(b) slab", gb)):
+        log(f"phase 15 {what}: health pass {g['health_pass_ms']:.4f} ms against its "
+            f"{g['health_bound_ms']:.4f} ms bound; guarded step {g['step_ms_guarded']:.2f} ms "
+            f"against {g['step_ms_unguarded']:.2f} ms unguarded "
+            f"({g['guard_overhead_pct']:+.3f}%) ({card})")
 
     # one row per kernel and main path: the path's own shape and its own
     # launch count (rms_norm and rms_norm_residual run on several paths;
@@ -1970,7 +2471,15 @@ def main() -> int:
                                  ("serve-subblock", {"attn_subblock": sp_rows["attn_subblock"]},
                                   sb),
                                  ("train-resume", {name: train_rows[name]
-                                                   for name in rs["launches_per_step"]}, rs)):
+                                                   for name in rs["launches_per_step"]}, rs),
+                                 ("train-guarded", {name: train_rows[name]
+                                                    for name in ga["launches_per_step"]}, ga),
+                                 ("train-guarded-slab", {
+                                     name: slab_rows.get(name) or train_rows[name]
+                                     for name in gb["launches_per_step"]}, gb),
+                                 ("serve-quarantine", {
+                                     name: sp_rows.get(name) or rows[name]
+                                     for name, n in sq["launches"].items() if n}, sq)):
         for name, rs in path_rows.items():
             r = dict(rs[0], path=path, launches=run["launches"][name])
             kernels.append({k: r[k] for k in keys + ("per_op_chain_ms",) if k in r})

@@ -67,6 +67,15 @@ planted fault (``testing.rms_residual_fault``). The train path's pieces
 that run on the card machine: the C++ token loader's build and windows, a
 tiny-gqa run from a token file resumed from a checkpoint bit for bit, and
 ``clip_grad_norm`` against ``torch.nn.utils.clip_grad_norm_``.
+
+The numerics guard's pieces of ``csrc/fused_adamw.cu``, on both table
+layouts (per-step and slab) and every dtype mix the update takes, with a NaN
+planted in a scalar tail, in the last chunk, or an inf in a moment: the
+health pass against its plain twin (the non-finite counts exactly, the sum
+of g*g 1e-5 relative: float32 chunk sums folded in float64 against float32
+sums per tensor), two calls bit-identical, nothing stored; the gated update
+bit-identical to the ungated kernel when healthy and to the state before it
+when not, and within 4 ULP of its plain twin.
 """
 
 import math
@@ -1055,3 +1064,150 @@ def test_cuda_clip_grad_norm_matches_torch(cuda_device):
         torch.nn.utils.clip_grad_norm_([p], 0.25 * n)
         mine, ref = clipped["g"][0].float(), p.grad.float()
         assert bool(((mine - ref).abs() <= ref.abs() * rtol + 1e-12).all())
+
+
+# ---------------------------------------------------------------------------
+# the numerics guard's pieces in csrc/fused_adamw.cu: the health pass and
+# the gated update, on both table layouts
+# ---------------------------------------------------------------------------
+
+# (layout, p, g, m, v): every dtype mix the update takes, per-step and slab
+HEALTH_MIXES = [
+    ("step", torch.float32, torch.float32, torch.float32, torch.float32),
+    ("step", torch.bfloat16, torch.bfloat16, torch.float32, torch.float32),
+    ("step", torch.bfloat16, torch.bfloat16, torch.bfloat16, torch.float32),
+    ("step", torch.float16, torch.float16, torch.float32, torch.float32),
+    ("step", torch.float32, torch.bfloat16, torch.float32, torch.float32),
+    ("step", torch.bfloat16, torch.float32, torch.float32, torch.float32),
+    ("slab", torch.float32, torch.float32, torch.float32, torch.float32),
+    ("slab", torch.bfloat16, torch.bfloat16, torch.bfloat16, torch.float32),
+    ("slab", torch.bfloat16, torch.bfloat16, torch.float32, torch.float32),
+    ("slab", torch.bfloat16, torch.bfloat16, torch.bfloat16, torch.bfloat16),
+]
+# where a NaN (or an inf moment) is planted: nowhere; the last element of the
+# (37,) member, a tail of fewer than 4 elements (the scalar path); the last
+# element of the last member, in the bucket's last chunk; an inf in the first
+# member's m, so only the state counts it
+HEALTH_PLANTS = ["none", "tail", "last_chunk", "state"]
+
+
+def _health_bucket(device, layout, p_dtype, g_dtype, m_dtype, v_dtype, plant):
+    """A bucket of ragged sizes with random moments (as after some steps),
+    the plant applied: ``(args, kwargs)`` of the layout's update without
+    ``bc``/``acc``/hyper."""
+    shapes = SLAB_SIZES[:6] + [(37,), (3, 5000)]
+    gen = torch.Generator(device=device).manual_seed(8)
+    ps = [torch.randn(s, generator=gen, device=device).to(p_dtype) for s in shapes]
+    gs = [torch.randn(s, generator=gen, device=device).to(g_dtype) for s in shapes]
+    ms = [(0.1 * torch.randn(s, generator=gen, device=device)).to(m_dtype) for s in shapes]
+    vs = [(0.01 * torch.rand(s, generator=gen, device=device)).to(v_dtype) for s in shapes]
+    if plant == "tail":
+        gs[-2].view(-1)[-1] = float("nan")
+    elif plant == "last_chunk":
+        gs[-1].view(-1)[-1] = float("nan")
+    elif plant == "state":
+        ms[0].view(-1)[5] = float("inf")
+    if layout == "step":
+        return (ps, gs, ms, vs), {}
+    from thunder_tpu_torch.ops import optim as toptim_ops
+
+    sizes = [p.numel() for p in ps]
+    rows, _ = toptim_ops.slab_geometry(sum(sizes))
+    m = torch.zeros(rows, 128, dtype=m_dtype, device=device)
+    v = torch.zeros(rows, 128, dtype=v_dtype, device=device)
+    m.view(-1)[:sum(sizes)] = torch.cat([t.reshape(-1) for t in ms])
+    v.view(-1)[:sum(sizes)] = torch.cat([t.reshape(-1) for t in vs])
+    return (ps, gs, m, v), {"sizes": sizes}
+
+
+def _health_fns(layout):
+    from thunder_tpu_torch.ops import optim as toptim_ops
+
+    if layout == "step":
+        return (cudaex.fused_adamw_health, toptim_ops.fused_adamw_health_plain,
+                cudaex.fused_adamw, toptim_ops.fused_adamw_plain)
+    return (cudaex.fused_adamw_slab_health, toptim_ops.fused_adamw_slab_health_plain,
+            cudaex.fused_adamw_slab, toptim_ops.fused_adamw_slab_plain)
+
+
+HEALTH_HYPER = dict(lr=1e-2, beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.01)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plant", HEALTH_PLANTS)
+@pytest.mark.parametrize("mix", HEALTH_MIXES, ids=lambda m: "-".join(
+    [m[0]] + [str(t).removeprefix("torch.") for t in m[1:]]))
+def test_cuda_fused_adamw_health_matches_plain(cuda_device, mix, plant):
+    """The health pass against its plain twin: the counts of non-finite g
+    and of non-finite p', m', v' (as stored) exactly, the sum of g*g within
+    1e-5 relative (float32 chunk sums folded in float64, against float32
+    sums per tensor); two calls bit-identical; nothing stored. A planted NaN
+    in a scalar tail or in the last chunk is counted once, an inf moment
+    in the state only."""
+    layout = mix[0]
+    args, kw = _health_bucket(cuda_device, layout, *mix[1:], plant)
+    health, health_plain, _, _ = _health_fns(layout)
+    bc = torch.tensor([0.5, 0.02], dtype=torch.float32, device=cuda_device)
+    before = [t.clone() for t in (*args[0], *args[1])]
+    accs = []
+    for _ in range(2):
+        acc = torch.zeros(3, dtype=torch.float64, device=cuda_device)
+        health(*args, bc, acc, **kw, **HEALTH_HYPER)
+        accs.append(acc)
+    want = torch.zeros(3, dtype=torch.float64, device=cuda_device)
+    health_plain(*args, bc, want, **kw, **HEALTH_HYPER)
+    torch.cuda.synchronize()
+    assert torch.equal(accs[0].view(torch.int64), accs[1].view(torch.int64))   # NaN bits too
+    got, want = accs[0].tolist(), want.tolist()
+    assert got[0] == want[0] and got[2] == want[2], (got, want)
+    assert got[0] == (1.0 if plant in ("tail", "last_chunk") else 0.0)
+    if plant == "state":
+        assert got[2] >= 1.0
+    if plant in ("none", "state"):
+        assert abs(got[1] - want[1]) <= 1e-5 * want[1]
+    else:
+        assert math.isnan(got[1]) and math.isnan(want[1])
+    # nothing stored: the same bits (a planted NaN is not equal to itself)
+    assert all(ulp_distance(a, b) == 0 for a, b in zip(before, (*args[0], *args[1])))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plant", HEALTH_PLANTS)
+@pytest.mark.parametrize("mix", HEALTH_MIXES, ids=lambda m: "-".join(
+    [m[0]] + [str(t).removeprefix("torch.") for t in m[1:]]))
+def test_cuda_gated_update_matches_plain(cuda_device, mix, plant):
+    """The update gated on the word the health pass and the loss build:
+    healthy, it is the ungated kernel bit for bit; unhealthy, it leaves
+    p, m and v bit-identical; the plain twin (torch.where on the device
+    bool) agrees with it in both cases within the update's 4 ULP."""
+    from thunder_tpu_torch.ops import optim as toptim_ops
+
+    layout = mix[0]
+    args, kw = _health_bucket(cuda_device, layout, *mix[1:], plant)
+    health, _, update, update_plain = _health_fns(layout)
+    bc = torch.tensor([0.5, 0.02], dtype=torch.float32, device=cuda_device)
+    acc = torch.zeros(3, dtype=torch.float64, device=cuda_device)
+    health(*args, bc, acc, **kw, **HEALTH_HYPER)
+    word = torch.stack([acc[0].float(), torch.zeros((), device=cuda_device), acc[2].float(),
+                        torch.sqrt(acc[1]).float(), torch.ones((), device=cuda_device)])
+    ok = bool(toptim_ops.healthy(word))
+    assert ok == (plant == "none")
+
+    def copy():
+        return ([t.clone() for t in args[0]], args[1],
+                *([t.clone() for t in x] if isinstance(x, list) else x.clone()
+                  for x in args[2:]))
+
+    gated, ungated, plain, before = copy(), copy(), copy(), copy()
+    update(*gated, bc, **kw, **HEALTH_HYPER, health=word)
+    update(*ungated, bc, **kw, **HEALTH_HYPER)
+    update_plain(*plain, bc, **kw, **HEALTH_HYPER, health=word)
+    torch.cuda.synchronize()
+
+    def leaves(x):
+        return [t for part in (x[0], *x[2:]) for t in (part if isinstance(part, list) else [part])]
+
+    want = ungated if ok else before
+    for a, b, c in zip(leaves(gated), leaves(want), leaves(plain)):
+        assert torch.equal(a, b)
+        assert ulp_distance(a, c) <= 4

@@ -301,13 +301,22 @@ def test_decode_row_write_matches_reference():
 # ---------------------------------------------------------------------------
 
 def test_kernel_table_names_the_pallas_functions():
+    """Each kernel names the Pallas function it replaces, and its source
+    note names it too; the AdamW health passes, which replace the numerics
+    guard's XLA reductions (no Pallas function), name those."""
     repo = Path(cudaex.__file__).resolve().parents[2]
     src = (repo / "thunder_tpu/executors/pallasex.py").read_text().splitlines()
+    guard = (repo / "thunder_tpu/transforms/numerics_guard.py").read_text().splitlines()
     for k in cudaex.KERNELS.values():
         path, line = k.replaces.split(":")
+        note = " ".join((repo / k.source).read_text().split())
+        if k.name in ("fused_adamw_health", "fused_adamw_slab_health"):
+            assert path == "thunder_tpu/transforms/numerics_guard.py"
+            assert guard[int(line) - 1].strip().startswith("def count_nonfinite("), k.replaces
+            assert f"numerics_guard.py:317-320" in note and f"at :{line}-" in note
+            continue
         assert path == "thunder_tpu/executors/pallasex.py"
         assert src[int(line) - 1].startswith(f"def pallas_{k.name}("), k.replaces
-        note = " ".join((repo / k.source).read_text().split())
         assert f"pallasex.py pallas_{k.name} (:{line})" in note.replace("// ", "")
 
 
@@ -336,6 +345,13 @@ def test_wrappers_refuse_cpu_tensors(name):
         "fused_adamw_slab": lambda: cudaex.fused_adamw_slab(
             [x], [x], torch.zeros(8, 128), torch.zeros(8, 128), torch.ones(2), sizes=[32],
             lr=1e-3, beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.0),
+        "fused_adamw_health": lambda: cudaex.fused_adamw_health(
+            [x], [x], [x], [x], torch.ones(2), torch.zeros(3, dtype=torch.float64), lr=1e-3,
+            beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.0),
+        "fused_adamw_slab_health": lambda: cudaex.fused_adamw_slab_health(
+            [x], [x], torch.zeros(8, 128), torch.zeros(8, 128), torch.ones(2),
+            torch.zeros(3, dtype=torch.float64), sizes=[32], lr=1e-3, beta1=0.9, beta2=0.999,
+            eps=1e-8, weight_decay=0.0),
         "mlp_subblock": lambda: cudaex.mlp_subblock(x, x, x[0, 0], w, w, w.t().contiguous()),
         "mlp_subblock_bwd": lambda: cudaex.mlp_subblock_bwd(x, x, x, x[0, 0], w, w,
                                                             w.t().contiguous()),

@@ -4,8 +4,8 @@ It mirrors the JAX package's layout and names, so each module's counterpart
 is found at the same path under ``thunder_tpu/``. It imports neither JAX nor
 anything of ``thunder_tpu``. Ported: serving at the reference's per-op
 and planned rungs, the single-device train step at its per-op and planned
-rungs with its input pipeline, checkpoints and gradient clipping, and the
-reference's headline train bench:
+rungs with its input pipeline, checkpoints and gradient clipping, the
+reference's headline train bench, and the runtime-safety layer:
 
 - :mod:`thunder_tpu_torch.serving` — ``ServingEngine`` (continuous batching
   over a paged KV cache), on ``cuda`` unless ``device="cpu"`` is passed;
@@ -30,10 +30,17 @@ reference's headline train bench:
 - :mod:`thunder_tpu_torch.executors.cudaex` — the hand-written ``sm_90a``
   kernels (``rms_norm``, ``rms_norm_residual``, ``linear_act``,
   ``paged_decode_attention``, ``sdpa_fwd``, ``sdpa_bwd``, ``ce_fwd``,
-  ``fused_adamw``, ``fused_adamw_slab``, ``mlp_subblock``,
-  ``mlp_subblock_bwd``, ``decode_layer``, ``attn_subblock``), built from
-  ``csrc/`` at first use; ``refusal(name, ...)`` says why one does not take
-  its arguments.
+  ``fused_adamw``, ``fused_adamw_slab`` and their health passes,
+  ``mlp_subblock``, ``mlp_subblock_bwd``, ``decode_layer``,
+  ``attn_subblock``), built from ``csrc/`` at first use;
+  ``refusal(name, ...)`` says why one does not take its arguments;
+- :mod:`thunder_tpu_torch.observe` — the metric registry and the flight
+  ring;
+- :mod:`thunder_tpu_torch.runtime` — fault injection (``FaultPlan``), retry
+  policies and ``RestartBudget``, the kernel quarantine the routers of
+  ``ops/`` read, and the numerics sentinel;
+- :mod:`thunder_tpu_torch.transforms.numerics_guard` — ``NumericsGuard``,
+  the guarded train step (``pretrain.run(guard=...)``).
 """
 
 from thunder_tpu_torch.devices import resolve_device  # noqa: F401

@@ -28,6 +28,13 @@ per step and the card line; this entry adds the fused loss's
 logits route (``ops.nn.flce_logits_route``). ``--profile N`` traces N more
 steps.
 
+``sentinel_overhead_pct`` is the counterpart of ``bench.py:268-287``: the
+same step under the numerics guard (``transforms.numerics_guard``: the
+optimizer's health pass, the gated update and one health-word fetch per
+step), its escalation disarmed as the reference disarms it, from fresh
+weights of the same seed, timed against the unguarded step:
+``(guarded_ms - step_ms) / step_ms * 100``.
+
 Not ported: the pure ``jax.jit`` baseline arm and ``vs_baseline``,
 ``--breakdown``, ``--smoke`` and ``BENCH_FP8`` (FP8 waits for the port's FP8
 layer).
@@ -45,6 +52,7 @@ from thunder_tpu_torch.devices import resolve_device
 from thunder_tpu_torch.models import llama
 from thunder_tpu_torch.ops import nn as tnn
 from thunder_tpu_torch.optim import AdamW
+from thunder_tpu_torch.transforms.numerics_guard import NumericsGuard, disarmed_policy
 
 LR = 1e-4
 # (state_dtype, v_dtype) of each BENCH_OPT_STATE choice (bench.py:127-135)
@@ -64,15 +72,26 @@ def run(model: str = "llama2-7b-bench", layers: int = 2, batch: int = 8, seq: in
         steps: int = 10, loss: str = "fused", opt_state: str = "bf16",
         slab_state: bool = False, remat: bool = False, block_fusion: bool = False,
         device=None, seed: int = 0, profile: int = 0, params: dict | None = None,
-        state: dict | None = None) -> dict:
+        state: dict | None = None, sentinel: bool = True) -> dict:
     """One warm-up step and ``steps`` timed steps of the bench's train step
     through :func:`pretrain.run`; its report plus the bench's own choices.
     ``params`` and ``state`` (from ``make_opt(opt_state, slab_state).init``)
-    are built from ``seed`` unless given; the steps update them in place."""
-    out = pretrain.run(model, layers, batch, seq, steps, lr=LR, seed=seed, device=device,
-                       profile=profile, params=params, block_fusion=block_fusion, loss=loss,
-                       remat=remat, opt=make_opt(opt_state, slab_state), state=state)
+    are built from ``seed`` unless given; the steps update them in place.
+    ``sentinel`` then times the same steps under the numerics guard, from
+    weights built anew from ``seed``, and adds ``sentinel_step_ms`` and
+    ``sentinel_overhead_pct``."""
+    kw = dict(lr=LR, seed=seed, device=device, block_fusion=block_fusion, loss=loss,
+              remat=remat)
+    out = pretrain.run(model, layers, batch, seq, steps, profile=profile, params=params,
+                       opt=make_opt(opt_state, slab_state), state=state, **kw)
     out["opt_state_kind"] = opt_state
+    if sentinel:
+        guarded = pretrain.run(model, layers, batch, seq, steps,
+                               opt=make_opt(opt_state, slab_state),
+                               guard=NumericsGuard(policy=disarmed_policy()), **kw)
+        out["sentinel_step_ms"] = guarded["step_ms"]
+        out["sentinel_overhead_pct"] = (guarded["step_ms"] - out["step_ms"]) / out["step_ms"] * 100
+        out["sentinel_counts"] = guarded["sentinel"]
     if loss == "fused":
         probe = torch.empty(0, dtype=llama.CONFIGS[model].dtype, device=resolve_device(device))
         out["logits_route"] = tnn.flce_logits_route(probe)

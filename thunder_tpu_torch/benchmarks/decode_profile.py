@@ -13,6 +13,15 @@ CUDA kernel of its launches: ``paged_decode_attention`` its chunk and combine
 kernels.
 
     python3 -m thunder_tpu_torch.benchmarks.decode_profile [--steps 10] [--block-fusion]
+        [--guard-ab]
+
+``--guard-ab`` also times the untraced steps with every kernel router of
+``ops/`` taken out from behind its guard and the quarantine check
+(``ops.nn.routed``), in GUARD_AB_PAIRS pairs of turns (guarded first, then
+unguarded first): what the runtime-safety layer costs the host-bound decode
+step. Beside the step times it reports the routed calls a step makes and
+the host time one routed call adds (a no-op router behind ``routed``
+against the bare no-op, over GUARD_AB_CALLS calls).
 
 Run by its path with another checkout's root first on ``PYTHONPATH``, it
 profiles that checkout's kernels (two versions compared in one call).
@@ -26,6 +35,7 @@ import argparse
 import json
 import subprocess
 import time
+from contextlib import contextmanager
 
 import numpy as np
 import torch
@@ -54,11 +64,63 @@ def family(name: str) -> str:
     return "other elementwise/copy"
 
 
+@contextmanager
+def unguarded(runner):
+    """Every routed function of ``ops.nn`` and ``ops.optim``, and the
+    runner's bound decode layer, replaced by the router it wraps (no fault
+    hook, call count or quarantine check), for the scope."""
+    from thunder_tpu_torch.ops import nn, optim
+
+    saved = [(mod, name, fn) for mod in (nn, optim, runner) for name, fn in vars(mod).items()
+             if callable(fn) and hasattr(fn, "claim_id") and hasattr(fn, "__wrapped__")]
+    try:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn.__wrapped__)
+        yield len(saved)
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+GUARD_AB_PAIRS, GUARD_AB_CALLS = 5, 200_000
+
+
+def guard_cost_us() -> float:
+    """Host microseconds one call through ``ops.nn.routed`` adds, with no
+    fault plan installed and an empty quarantine: a no-op router behind it
+    against the bare no-op."""
+    from thunder_tpu_torch.ops import nn
+
+    def bare(*args, **kwargs):
+        return None
+
+    wrapped = nn.routed("rms_norm")(bare)
+    out = {}
+    for name, fn in (("bare", bare), ("routed", wrapped), ("bare", bare), ("routed", wrapped)):
+        t0 = time.perf_counter()
+        for _ in range(GUARD_AB_CALLS):
+            fn(1, 2, 3)
+        out.setdefault(name, []).append((time.perf_counter() - t0) / GUARD_AB_CALLS * 1e6)
+    return min(out["routed"]) - min(out["bare"])
+
+
+def timed_steps(eng, steps: int) -> float:
+    """Host-clock ms a step over ``steps`` engine steps, ending in a sync."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        eng.step()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / steps
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--block-fusion", action="store_true",
                     help="the planned rung: one decode_layer launch per layer per step")
+    ap.add_argument("--guard-ab", action="store_true",
+                    help="also time the steps with the routers out from behind their guard")
     args = ap.parse_args()
     from thunder_tpu_torch.executors import cudaex
     from thunder_tpu_torch.models import llama
@@ -74,17 +136,31 @@ def main() -> None:
                         block_fusion=args.block_fusion)
     rng = np.random.RandomState(1)
     for n in (17, 64, 150, 301, 480, 640, 800, 1000):
-        eng.submit(rng.randint(0, cfg.vocab_size, size=n).astype(np.int32), 2 * args.steps + 40)
+        eng.submit(rng.randint(0, cfg.vocab_size, size=n).astype(np.int32),
+                   (2 + (4 * GUARD_AB_PAIRS if args.guard_ab else 0)) * args.steps + 40)
     while any(r is None or r.state != "decode" for r in eng.slots):
         eng.step()
     for _ in range(3):                                  # warm decode steps
         eng.step()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()                            # the same steps, not traced
-    for _ in range(args.steps):
-        eng.step()
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+    plain_ms = timed_steps(eng, args.steps)             # the same steps, not traced
+    guard_ab = None
+    if args.guard_ab:
+        from thunder_tpu_torch.runtime import faults
+
+        guard_ab = {"guarded": [], "unguarded": []}
+        faults.reset_claim_calls()
+        for i in range(GUARD_AB_PAIRS):
+            for kind in (("guarded", "unguarded") if i % 2 == 0 else ("unguarded", "guarded")):
+                if kind == "guarded":
+                    guard_ab[kind].append(timed_steps(eng, args.steps))
+                else:
+                    with unguarded(eng.runner) as n:
+                        guard_ab[kind].append(timed_steps(eng, args.steps))
+                    guard_ab["routers"] = n
+        guard_ab["median_ms"] = {k: float(np.median(guard_ab[k])) for k in ("guarded", "unguarded")}
+        guard_ab["routed_calls_per_step"] = sum(faults.claim_calls().values()) / (
+            GUARD_AB_PAIRS * args.steps)
+        guard_ab["routed_call_us"] = guard_cost_us()
     cudaex.reset_launch_counts()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -116,6 +192,8 @@ def main() -> None:
                                     sorted(kernels.items(), key=lambda kv: -kv[1])[:12]},
         "launches": cudaex.launch_counts(), "designs": cudaex.design_counts(),
     }
+    if guard_ab is not None:
+        result["step_ms_guard_ab"] = guard_ab
     print(json.dumps(result))
 
 

@@ -38,6 +38,13 @@ step, and the card's name and power limit as nvidia-smi reports them.
 ``--profile N`` traces N more steps with torch.profiler and adds the device
 time per kernel family and the device's idle share. Needs a CUDA card;
 ``--device cpu`` runs the plain versions, for a small config.
+
+``--guard`` runs every step under the numerics guard
+(``transforms.numerics_guard.NumericsGuard``, the counterpart of the
+reference's ``NumericsGuardTransform``): the optimizer's health pass builds
+the step's health word on the device, the update is gated on it, and the
+word is fetched once per step for the sentinel; the report adds the
+sentinel's counts and the last grad norm.
 """
 
 from __future__ import annotations
@@ -56,12 +63,14 @@ from thunder_tpu_torch.devices import resolve_device
 from thunder_tpu_torch.executors import cudaex
 from thunder_tpu_torch.models import llama
 from thunder_tpu_torch.optim import AdamW, tree_leaves, tree_map
+from thunder_tpu_torch.transforms.numerics_guard import NumericsGuard
 
 H100_BF16_FLOPS = 989e12
 
 # kernel-name substrings of each family, first match wins: the port's own
 # kernels come ahead of the cuBLAS row
 FAMILIES = (
+    ("fused_adamw health pass", ("fused_adamw_health_kernel", "adamw_health_fold")),
     ("mlp_subblock_bwd", ("mlp_bwd_",)),
     ("fused_adamw_slab", ("fused_adamw_slab_kernel",)),
     ("mlp_subblock", ("mlp_fwd_",)),
@@ -112,12 +121,20 @@ def loss_and_grads(params: dict, tokens: torch.Tensor, targets: torch.Tensor,
 def train_step(params: dict, opt: AdamW, opt_state: dict, tokens: torch.Tensor,
                targets: torch.Tensor, cfg: llama.LlamaConfig,
                opt_events: tuple | None = None, block_fusion: bool = False,
-               loss: str = "naive", remat: bool = False) -> torch.Tensor:
+               loss: str = "naive", remat: bool = False,
+               guard: NumericsGuard | None = None) -> torch.Tensor:
     """One step: the loss and its gradients, then AdamW in place. Returns
     the loss (a device tensor: reading it is the caller's sync).
     ``opt_events``, a pair of CUDA events, are recorded around the
     optimizer's update; ``block_fusion``, ``loss`` and ``remat`` are
-    :func:`loss_and_grads`'s."""
+    :func:`loss_and_grads`'s. With ``guard`` the step runs under the
+    numerics guard: the update is gated on the step's health word, which
+    the guard fetches (one host sync) and hands to its sentinel."""
+    if guard is not None:
+        return guard.step(params, opt, opt_state,
+                          lambda: loss_and_grads(params, tokens, targets, cfg, block_fusion,
+                                                 loss, remat),
+                          opt_events=opt_events, inputs=(tokens, targets))
     value, grads = loss_and_grads(params, tokens, targets, cfg, block_fusion, loss, remat)
     if opt_events:
         opt_events[0].record()
@@ -140,7 +157,7 @@ def run(model: str = "tiny", layers: int | None = None, batch: int = 4, seq: int
         params: dict | None = None, block_fusion: bool = False, loss: str = "naive",
         remat: bool = False, opt: AdamW | None = None, state: dict | None = None,
         data: str | None = None, data_seed: int = 0, start_step: int = 0,
-        audit: bool = False) -> dict:
+        audit: bool = False, guard: NumericsGuard | bool | None = None) -> dict:
     """Build the model (or take ``params``), take one warm-up step and
     ``steps`` timed steps, and report. The batches are one synthetic batch
     or, with ``data`` (a token file), the stream's batches ``start_step``,
@@ -150,7 +167,9 @@ def run(model: str = "tiny", layers: int | None = None, batch: int = 4, seq: int
     are in ``per_step``. ``opt`` defaults to ``AdamW(lr=lr)`` and
     ``state``, the optimizer state the steps update in place, to
     ``opt.init(params)``; ``loss`` and ``remat`` are
-    :func:`loss_and_grads`'s."""
+    :func:`loss_and_grads`'s. ``guard`` (a :class:`NumericsGuard`, or True
+    for one with the default policy) runs every step under the numerics
+    guard."""
     dev = resolve_device(device)
     cfg = llama.CONFIGS[model]
     n_layers = layers if layers is not None else cfg.n_layers
@@ -162,6 +181,7 @@ def run(model: str = "tiny", layers: int | None = None, batch: int = 4, seq: int
     n_layers = len(params["layers"])
     opt = opt if opt is not None else AdamW(lr=lr)
     state = state if state is not None else opt.init(params)
+    guard = NumericsGuard() if guard is True else (guard or None)
     batch_for, stream = _batches(cfg, batch, seq, seed, dev, data, data_seed)
     next_batch = [start_step]
     batch_ms: list[float] = []
@@ -172,7 +192,7 @@ def run(model: str = "tiny", layers: int | None = None, batch: int = 4, seq: int
         next_batch[0] += 1
         batch_ms.append((time.perf_counter() - t) * 1e3)
         return train_step(params, opt, state, tokens, targets, cfg, opt_events, block_fusion,
-                          loss, remat)
+                          loss, remat, guard)
 
     def sync():
         if on_card:
@@ -216,7 +236,14 @@ def run(model: str = "tiny", layers: int | None = None, batch: int = 4, seq: int
         "losses": losses, "per_step": per_step,
         "data": data, "data_seed": data_seed if data else None, "start_step": start_step,
         "stream_path": stream.stream_path() if stream else None,
+        "guard": guard is not None,
     }
+    if guard is not None:
+        sent = guard.sentinel
+        result["sentinel"] = {"steps": sent.steps, "healthy_steps": sent.healthy_steps,
+                              "nonfinite_steps": sent.nonfinite_steps,
+                              "skipped_steps": sent.skipped_steps,
+                              "last_health_word": guard.last_health}
     if on_card:
         result.update({
             "card": card_line(),
@@ -307,12 +334,14 @@ def main() -> None:
                          "step: a run resumed at step k replays exactly)")
     ap.add_argument("--audit", action="store_true",
                     help="print each step's loss to stderr")
+    ap.add_argument("--guard", action="store_true",
+                    help="run every step under the numerics guard (health word, gated update)")
     args = ap.parse_args()
     print(json.dumps(run(args.model, args.layers, args.batch, args.seq, args.steps, args.lr,
                          args.seed, args.device, args.profile,
                          block_fusion=args.block_fusion, data=args.data,
                          data_seed=args.data_seed, start_step=args.start_step,
-                         audit=args.audit)))
+                         audit=args.audit, guard=args.guard)))
 
 
 if __name__ == "__main__":

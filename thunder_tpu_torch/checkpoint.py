@@ -23,9 +23,9 @@ the new directory in and then removes the old one.
 Semantics, as the reference's: one writer per path (a save of a path being
 written joins the writer first), joiners block until the write commits, a
 failed save raises in every joiner, and at most four asynchronous saves are
-in flight (the oldest are joined first). The reference's ``checkpoint_io``
-fault hook is not here: it belongs to the runtime's fault injection, which
-the port does not have yet.
+in flight (the oldest are joined first), and the ``checkpoint_io`` fault
+domain (``runtime.faults``) fires at the start of ``save_checkpoint``, as the
+reference's hook (:107) does.
 """
 
 from __future__ import annotations
@@ -39,6 +39,8 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from thunder_tpu_torch.runtime import faults as _faults
 
 LEAVES = "leaves.pt"
 TREE = "tree.json"
@@ -140,7 +142,12 @@ def save_checkpoint(path: str, state: Any, *, asynchronous: bool = False) -> boo
     it, and so do a later save or a load of the same path).
 
     Returns ``True`` when the write goes on in the background, ``False``
-    when the checkpoint is committed on return."""
+    when the checkpoint is committed on return.
+
+    The ``checkpoint_io`` fault domain (``runtime.faults``) fires here,
+    before anything is written: a fault models the write failing before
+    the checkpoint is committed."""
+    _faults.maybe_fail("checkpoint_io", site=path)
     path = os.path.abspath(path)
     while True:
         wait_for_checkpoints(path)   # one writer per path: join the last one

@@ -40,6 +40,36 @@
 // for bf16 ones. A tensor's tail of fewer than 4 elements, and every element
 // of a row whose base pointers are not aligned for those loads (a slab run
 // after a bucket member whose size is not a multiple of 4), take scalar loads.
+//
+// The numerics guard (thunder_tpu_torch/transforms/numerics_guard.py) needs a
+// step's health before the update writes anything: the update is in place,
+// so a non-finite step must be refused up front to leave p, m and v
+// bit-identical (the reference selects old state in-graph instead,
+// thunder_tpu/transforms/numerics_guard.py:317-320, and counts non-finite
+// values with XLA reductions at :240-316). So the library has two more
+// entries and one more argument:
+//
+// - tt_fused_adamw_health / tt_fused_adamw_slab_health: the health pass. The
+//   same table walk and the same adamw() body, with the results rounded to
+//   each stream's dtype exactly as the update stores them, but nothing is
+//   stored. Each block writes three floats of a per-chunk workspace: its
+//   count of non-finite g, its float32 sum of g*g, and its count of
+//   non-finite p', m', v' (as stored). A one-block fold then adds the chunks
+//   in a fixed order, in float64, into a 3-double accumulator the wrapper
+//   zeroes once per step (several dtype buckets add into it in bucket
+//   order). No float atomics anywhere, so a guarded step is bit-identical
+//   from call to call. A float32 sum of huge finite g*g can overflow to inf,
+//   as the reference's float32 sum does; the sentinel keeps inf out of its
+//   histogram.
+// - `health` on both update entries: the 5-float health word
+//   (runtime/sentinel.py IDX_*). Each block reads it and returns before any
+//   store when its non-finite total (grads + loss + state) is not 0.
+//   nullptr keeps the ungated update exactly.
+//
+// Health pass bound on an H100: bytes, read-only. Per-step path at 4 layers
+// of llama3-8b-bench: 12 B per element (bf16 p and g, f32 m and v), 13.62 GB,
+// 4.06 ms; the slab bench bucket (bf16 m slab): 10 B per element, 18.81 GB,
+// 5.62 ms.
 #include <math.h>
 
 #include "common.cuh"
@@ -93,24 +123,56 @@ __device__ __forceinline__ void adamw(float& p, float g, float& m, float& v, flo
   p = __fsub_rn(p, __fmul_rn(upd, h.lr));
 }
 
+// the health pass's tally of one element: g, and the update's results as the
+// update would store them
+struct Tally {
+  float nonfinite_g = 0.f, sumsq = 0.f, nonfinite_state = 0.f;
+};
+
+template <typename T> __device__ __forceinline__ float nonfinite_as(float x) {
+  return isfinite(tt::round_as<T>(x)) ? 0.f : 1.f;
+}
+
+template <typename P, typename M, typename V>
+__device__ __forceinline__ void tally(Tally& t, float g, float p, float m, float v) {
+  t.nonfinite_g += isfinite(g) ? 0.f : 1.f;
+  t.sumsq = __fadd_rn(t.sumsq, __fmul_rn(g, g));
+  t.nonfinite_state += nonfinite_as<P>(p) + nonfinite_as<M>(m) + nonfinite_as<V>(v);
+}
+
 template <typename T> __device__ __forceinline__ bool vec_aligned(const T* p) {
   return reinterpret_cast<uintptr_t>(p) % (VEC * sizeof(T)) == 0;
 }
 
-// element j with scalar loads and stores
-template <typename P, typename G, typename M, typename V>
+// element j with scalar loads and stores (HEALTH: tallied, not stored)
+template <bool HEALTH, typename P, typename G, typename M, typename V>
 __device__ __forceinline__ void adamw_at(P* p, const G* g, M* m, V* v, long long j, float bc1,
-                                         float bc2, const Hyper& h) {
+                                         float bc2, const Hyper& h, Tally& t) {
   float pj = tt::to_f(p[j]), mj = tt::to_f(m[j]), vj = tt::to_f(v[j]);
-  adamw(pj, tt::to_f(g[j]), mj, vj, bc1, bc2, h);
-  p[j] = tt::from_f<P>(pj);
-  m[j] = tt::from_f<M>(mj);
-  v[j] = tt::from_f<V>(vj);
+  const float gj = tt::to_f(g[j]);
+  adamw(pj, gj, mj, vj, bc1, bc2, h);
+  if constexpr (HEALTH) {
+    tally<P, M, V>(t, gj, pj, mj, vj);
+  } else {
+    p[j] = tt::from_f<P>(pj);
+    m[j] = tt::from_f<M>(mj);
+    v[j] = tt::from_f<V>(vj);
+  }
 }
 
-template <typename P, typename G, typename M, typename V>
+// one block's chunk of the bucket. The update (HEALTH false) stores p', m'
+// and v'; with a health word it first refuses a step whose non-finite total
+// is not 0. The health pass (HEALTH true) runs the same walk and arithmetic,
+// stores nothing, and writes the chunk's three tallies to ws[3 * chunk].
+template <bool HEALTH, typename P, typename G, typename M, typename V>
 __device__ __forceinline__ void adamw_chunk(const long long* __restrict__ table, int n_tensors,
-                                            const float* __restrict__ bc, const Hyper& h) {
+                                            const float* __restrict__ bc, const Hyper& h,
+                                            const float* __restrict__ health,
+                                            float* __restrict__ ws) {
+  if constexpr (!HEALTH) {
+    // a NaN total fails the comparison too
+    if (health != nullptr && !(health[0] + health[1] + health[2] == 0.f)) return;
+  }
   // the tensor whose chunks hold this block: the last row with first chunk <= blockIdx.x
   const long long c = blockIdx.x;
   int lo = 0, hi = n_tensors - 1;
@@ -127,30 +189,48 @@ __device__ __forceinline__ void adamw_chunk(const long long* __restrict__ table,
   const long long begin = (c - row[5]) * CHUNK;
   const long long end = min(begin + CHUNK, n);
   const float bc1 = bc[0], bc2 = bc[1];
+  Tally t;
 
-  // a row whose base pointers do not take the vector loads (a slab run after
-  // a bucket member whose size is not a multiple of 4): one element per
-  // thread and step, kept out of the vector loop below
   if (!(vec_aligned(p) && vec_aligned(g) && vec_aligned(m) && vec_aligned(v))) {
+    // a row whose base pointers do not take the vector loads (a slab run
+    // after a bucket member whose size is not a multiple of 4): one element
+    // per thread and step
     for (long long j = begin + threadIdx.x; j < end; j += THREADS)
-      adamw_at(p, g, m, v, j, bc1, bc2, h);
-    return;
-  }
-  for (long long i = begin + static_cast<long long>(threadIdx.x) * VEC; i < end;
-       i += THREADS * VEC) {
-    float pf[4], gf[4], mf[4], vf[4];
-    if (i + VEC <= end) {
-      Io<P>::load4(p + i, pf);
-      Io<G>::load4(g + i, gf);
-      Io<M>::load4(m + i, mf);
-      Io<V>::load4(v + i, vf);
+      adamw_at<HEALTH>(p, g, m, v, j, bc1, bc2, h, t);
+  } else {
+    for (long long i = begin + static_cast<long long>(threadIdx.x) * VEC; i < end;
+         i += THREADS * VEC) {
+      if (i + VEC <= end) {
+        float pf[4], gf[4], mf[4], vf[4];
+        Io<P>::load4(p + i, pf);
+        Io<G>::load4(g + i, gf);
+        Io<M>::load4(m + i, mf);
+        Io<V>::load4(v + i, vf);
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) adamw(pf[e], gf[e], mf[e], vf[e], bc1, bc2, h);
-      Io<P>::store4(p + i, pf);
-      Io<M>::store4(m + i, mf);
-      Io<V>::store4(v + i, vf);
-    } else {
-      for (long long j = i; j < end; ++j) adamw_at(p, g, m, v, j, bc1, bc2, h);
+        for (int e = 0; e < VEC; ++e) {
+          adamw(pf[e], gf[e], mf[e], vf[e], bc1, bc2, h);
+          if constexpr (HEALTH) tally<P, M, V>(t, gf[e], pf[e], mf[e], vf[e]);
+        }
+        if constexpr (!HEALTH) {
+          Io<P>::store4(p + i, pf);
+          Io<M>::store4(m + i, mf);
+          Io<V>::store4(v + i, vf);
+        }
+      } else {   // the tensor's tail of fewer than 4 elements
+        for (long long j = i; j < end; ++j) adamw_at<HEALTH>(p, g, m, v, j, bc1, bc2, h, t);
+      }
+    }
+  }
+  if constexpr (HEALTH) {
+    // fixed-order block sums (warp butterflies, then the warps in order)
+    __shared__ float red[3][32];
+    const float nf_g = tt::block_sum(t.nonfinite_g, red[0]);
+    const float sumsq = tt::block_sum(t.sumsq, red[1]);
+    const float nf_s = tt::block_sum(t.nonfinite_state, red[2]);
+    if (threadIdx.x == 0) {
+      ws[3 * c] = nf_g;
+      ws[3 * c + 1] = sumsq;
+      ws[3 * c + 2] = nf_s;
     }
   }
 }
@@ -160,22 +240,64 @@ __device__ __forceinline__ void adamw_chunk(const long long* __restrict__ table,
 template <typename P, typename G, typename M, typename V>
 __global__ void __launch_bounds__(THREADS)
 fused_adamw_kernel(const long long* __restrict__ table, int n_tensors,
-                   const float* __restrict__ bc, Hyper h) {
-  adamw_chunk<P, G, M, V>(table, n_tensors, bc, h);
+                   const float* __restrict__ bc, Hyper h, const float* __restrict__ health) {
+  adamw_chunk<false, P, G, M, V>(table, n_tensors, bc, h, health, nullptr);
 }
 
 template <typename P, typename G, typename M, typename V>
 __global__ void __launch_bounds__(THREADS)
 fused_adamw_slab_kernel(const long long* __restrict__ table, int n_tensors,
-                        const float* __restrict__ bc, Hyper h) {
-  adamw_chunk<P, G, M, V>(table, n_tensors, bc, h);
+                        const float* __restrict__ bc, Hyper h, const float* __restrict__ health) {
+  adamw_chunk<false, P, G, M, V>(table, n_tensors, bc, h, health, nullptr);
 }
 
+// the health pass of either table layout (the rows differ only in where m
+// and v point)
+template <typename P, typename G, typename M, typename V>
+__global__ void __launch_bounds__(THREADS)
+fused_adamw_health_kernel(const long long* __restrict__ table, int n_tensors,
+                          const float* __restrict__ bc, Hyper h, float* __restrict__ ws) {
+  adamw_chunk<true, P, G, M, V>(table, n_tensors, bc, h, nullptr, ws);
+}
+
+constexpr int FOLD_THREADS = 1024;
+
+// acc[k] += the sum over chunks of ws[3 * chunk + k], in float64 and in a
+// fixed order: each thread its strided chunks in turn, then a tree over the
+// threads
+__global__ void __launch_bounds__(FOLD_THREADS)
+adamw_health_fold_kernel(const float* __restrict__ ws, long long n_chunks,
+                         double* __restrict__ acc) {
+  __shared__ double red[3][FOLD_THREADS];
+  double s0 = 0.0, s1 = 0.0, s2 = 0.0;
+  for (long long c = threadIdx.x; c < n_chunks; c += FOLD_THREADS) {
+    s0 += ws[3 * c];
+    s1 += ws[3 * c + 1];
+    s2 += ws[3 * c + 2];
+  }
+  red[0][threadIdx.x] = s0;
+  red[1][threadIdx.x] = s1;
+  red[2][threadIdx.x] = s2;
+  __syncthreads();
+  for (int w = FOLD_THREADS / 2; w > 0; w >>= 1) {
+    if (threadIdx.x < w) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) red[k][threadIdx.x] += red[k][threadIdx.x + w];
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x < 3) acc[threadIdx.x] += red[threadIdx.x][0];
+}
+
+enum class Entry { update, slab_update, health };
+
 // p, g, m and v each float32, bf16 or fp16: the grad's dtype is a type of its
-// own (the reference's update reads g in its own dtype and computes in f32)
-int run(bool slab, const void* table, int n_tensors, long long n_chunks, const void* bc,
-        const Hyper& h, int p_dtype, int g_dtype, int m_dtype, int v_dtype, int device,
-        void* stream) {
+// own (the reference's update reads g in its own dtype and computes in f32).
+// `extra` is the health word (the updates; may be nullptr) or the chunk
+// workspace (the health pass, which then folds it into `acc`).
+int run(Entry entry, const void* table, int n_tensors, long long n_chunks, const void* bc,
+        const void* extra, void* acc, const Hyper& h, int p_dtype, int g_dtype, int m_dtype,
+        int v_dtype, int device, void* stream) {
   cudaSetDevice(device);
   if (n_tensors <= 0 || n_chunks <= 0) return static_cast<int>(cudaGetLastError());
   auto s = static_cast<cudaStream_t>(stream);
@@ -190,40 +312,75 @@ int run(bool slab, const void* table, int n_tensors, long long n_chunks, const v
           using G = decltype(gt);
           using M = decltype(mt);
           using V = decltype(vt);
-          if (slab)
-            fused_adamw_slab_kernel<P, G, M, V><<<blocks, THREADS, 0, s>>>(t, n_tensors, b, h);
+          const auto* health = static_cast<const float*>(extra);
+          if (entry == Entry::slab_update)
+            fused_adamw_slab_kernel<P, G, M, V><<<blocks, THREADS, 0, s>>>(t, n_tensors, b, h,
+                                                                             health);
+          else if (entry == Entry::update)
+            fused_adamw_kernel<P, G, M, V><<<blocks, THREADS, 0, s>>>(t, n_tensors, b, h, health);
           else
-            fused_adamw_kernel<P, G, M, V><<<blocks, THREADS, 0, s>>>(t, n_tensors, b, h);
+            fused_adamw_health_kernel<P, G, M, V><<<blocks, THREADS, 0, s>>>(
+                t, n_tensors, b, h, static_cast<float*>(const_cast<void*>(extra)));
           return cudaSuccess;
         });
       });
     });
   });
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (entry == Entry::health) {
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    adamw_health_fold_kernel<<<1, FOLD_THREADS, 0, s>>>(static_cast<const float*>(extra),
+                                                        n_chunks, static_cast<double*>(acc));
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // The table's rows: (p, g, m, v, numel, first chunk), m and v pointing at
-// each tensor's own moments (tt_fused_adamw) or into the persistent slabs at
-// the tensor's element offset (tt_fused_adamw_slab).
+// each tensor's own moments (tt_fused_adamw, tt_fused_adamw_health) or into
+// the persistent slabs at the tensor's element offset (the _slab entries).
+// `health`: the 5-float health word that gates the update, or nullptr.
 extern "C" int tt_fused_adamw(const void* table, int n_tensors, long long n_chunks,
-                              const void* bc, float lr, float beta1, float beta2,
-                              float one_m_beta1, float one_m_beta2, float eps,
+                              const void* bc, const void* health, float lr, float beta1,
+                              float beta2, float one_m_beta1, float one_m_beta2, float eps,
                               float weight_decay, int p_dtype, int g_dtype, int m_dtype,
                               int v_dtype, int device, void* stream) {
   const Hyper h{lr, beta1, beta2, one_m_beta1, one_m_beta2, eps, weight_decay};
-  return run(false, table, n_tensors, n_chunks, bc, h, p_dtype, g_dtype, m_dtype, v_dtype,
-             device, stream);
+  return run(Entry::update, table, n_tensors, n_chunks, bc, health, nullptr, h, p_dtype,
+             g_dtype, m_dtype, v_dtype, device, stream);
 }
 
 extern "C" int tt_fused_adamw_slab(const void* table, int n_tensors, long long n_chunks,
-                                   const void* bc, float lr, float beta1, float beta2,
-                                   float one_m_beta1, float one_m_beta2, float eps,
+                                   const void* bc, const void* health, float lr, float beta1,
+                                   float beta2, float one_m_beta1, float one_m_beta2, float eps,
                                    float weight_decay, int p_dtype, int g_dtype, int m_dtype,
                                    int v_dtype, int device, void* stream) {
   const Hyper h{lr, beta1, beta2, one_m_beta1, one_m_beta2, eps, weight_decay};
-  return run(true, table, n_tensors, n_chunks, bc, h, p_dtype, g_dtype, m_dtype, v_dtype,
-             device, stream);
+  return run(Entry::slab_update, table, n_tensors, n_chunks, bc, health, nullptr, h, p_dtype,
+             g_dtype, m_dtype, v_dtype, device, stream);
+}
+
+// The health pass: `ws` is float32 scratch of 3 * n_chunks, `acc` the three
+// float64 sums (non-finite g, sum of g*g, non-finite p'/m'/v') it adds into.
+extern "C" int tt_fused_adamw_health(const void* table, int n_tensors, long long n_chunks,
+                                     const void* bc, void* ws, void* acc, float lr, float beta1,
+                                     float beta2, float one_m_beta1, float one_m_beta2,
+                                     float eps, float weight_decay, int p_dtype, int g_dtype,
+                                     int m_dtype, int v_dtype, int device, void* stream) {
+  const Hyper h{lr, beta1, beta2, one_m_beta1, one_m_beta2, eps, weight_decay};
+  return run(Entry::health, table, n_tensors, n_chunks, bc, ws, acc, h, p_dtype, g_dtype,
+             m_dtype, v_dtype, device, stream);
+}
+
+extern "C" int tt_fused_adamw_slab_health(const void* table, int n_tensors, long long n_chunks,
+                                          const void* bc, void* ws, void* acc, float lr,
+                                          float beta1, float beta2, float one_m_beta1,
+                                          float one_m_beta2, float eps, float weight_decay,
+                                          int p_dtype, int g_dtype, int m_dtype, int v_dtype,
+                                          int device, void* stream) {
+  const Hyper h{lr, beta1, beta2, one_m_beta1, one_m_beta2, eps, weight_decay};
+  return run(Entry::health, table, n_tensors, n_chunks, bc, ws, acc, h, p_dtype, g_dtype,
+             m_dtype, v_dtype, device, stream);
 }

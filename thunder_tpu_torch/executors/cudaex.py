@@ -5,8 +5,10 @@ kernel for every Pallas kernel there, the ones the serving steps and the
 single-device train steps run at both their per-op and planned rungs. The
 serving planned rung's ``decode_layer`` and ``attn_subblock`` are one
 cooperative kernel (``csrc/decode_layer.cuh``) built as two libraries, with
-and without the MLP phases; ``fused_adamw`` and ``fused_adamw_slab`` are two
-entries of one library (``csrc/fused_adamw.cu``). Each kernel is CUDA C++ for
+and without the MLP phases; ``fused_adamw``, ``fused_adamw_slab`` and their
+health passes (``fused_adamw_health``, ``fused_adamw_slab_health``: the
+numerics guard's non-finite counts and grad norm, computed before the
+update it gates) are four entries of one library (``csrc/fused_adamw.cu``). Each kernel is CUDA C++ for
 ``sm_90a`` in ``thunder_tpu_torch/csrc/``; its source note names the Pallas
 function it replaces, its bound on an H100, and what its design does about
 that bound.
@@ -37,14 +39,18 @@ here does) and raises the reason before any launch. :func:`refusal` gives
 that reason (None where the kernel takes the arguments) for any kernel by
 name, called with its wrapper's arguments: the counterpart of pallasex's
 ``_*_checker`` functions, except that on the card a refusal is an error,
-never a fallback to the plain version. A build or launch failure raises
-too.
+never a fallback to the plain version. A build failure raises
+``runtime.faults.KernelBuildError`` (no single kernel is at fault: every
+kernel shares the one build) and a launch that returns a CUDA error
+``runtime.faults.KernelLaunchError``, the one failure the routers' kernel
+guard attributes to the kernel's claim.
 
 Wrappers: outputs are allocated with ``torch.empty``; the kernel runs on
 ``torch.cuda.current_stream()`` and does not synchronise. Every wrapper adds
 one to its kernel's ``launches`` count where it launches, and nowhere else.
 A wrapper takes CUDA tensors only: the routing of CPU tensors to the plain
-versions lives in :mod:`thunder_tpu_torch.ops`.
+versions lives in :mod:`thunder_tpu_torch.ops`, and so does the routing of a
+quarantined kernel (``runtime.quarantine``) to the kernel rung below it.
 
 Designs: ``sdpa_fwd``, ``sdpa_bwd``, ``rms_norm``, ``rms_norm_residual``,
 ``linear_act``, ``decode_layer`` and ``attn_subblock`` each hold more than
@@ -79,6 +85,8 @@ from pathlib import Path
 
 import torch
 
+from thunder_tpu_torch.runtime.faults import KernelBuildError, KernelLaunchError
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -110,7 +118,11 @@ class Kernel:
     fn: object = field(default=None, repr=False)
 
 
-_ADAMW_ARGS = (_P, _I, _L, _P) + (_F,) * 7 + (_I, _I, _I, _I, _I, _P)
+_ADAMW_ARGS = (_P, _I, _L, _P, _P) + (_F,) * 7 + (_I, _I, _I, _I, _I, _P)
+_ADAMW_HEALTH_ARGS = (_P, _I, _L, _P, _P, _P) + (_F,) * 7 + (_I, _I, _I, _I, _I, _P)
+# the health pass stands for the reference guard's XLA reductions over the
+# update's inputs and outputs (its non-finite counts and grad norm)
+_HEALTH_REPLACES = "thunder_tpu/transforms/numerics_guard.py:240"
 
 KERNELS = {k.name: k for k in (
     Kernel("rms_norm", "thunder_tpu_torch/csrc/rms_norm.cu",
@@ -139,6 +151,10 @@ KERNELS = {k.name: k for k in (
            "thunder_tpu/executors/pallasex.py:1944", "tt_fused_adamw", _ADAMW_ARGS),
     Kernel("fused_adamw_slab", "thunder_tpu_torch/csrc/fused_adamw.cu",
            "thunder_tpu/executors/pallasex.py:1966", "tt_fused_adamw_slab", _ADAMW_ARGS),
+    Kernel("fused_adamw_health", "thunder_tpu_torch/csrc/fused_adamw.cu", _HEALTH_REPLACES,
+           "tt_fused_adamw_health", _ADAMW_HEALTH_ARGS),
+    Kernel("fused_adamw_slab_health", "thunder_tpu_torch/csrc/fused_adamw.cu", _HEALTH_REPLACES,
+           "tt_fused_adamw_slab_health", _ADAMW_HEALTH_ARGS),
     Kernel("mlp_subblock", "thunder_tpu_torch/csrc/mlp_subblock.cu",
            "thunder_tpu/executors/pallasex.py:1039", "tt_mlp_subblock",
            (_P,) * 10 + (_I, _I, _I, _I, _F, _I, _I, _P)),
@@ -311,7 +327,7 @@ def _nvcc() -> str:
     for c in candidates:
         if c and os.path.isfile(c):
             return c
-    raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA kernels of "
+    raise KernelBuildError("nvcc not found (set CUDA_HOME): the CUDA kernels of "
                        "thunder_tpu_torch are built from csrc/ at first use")
 
 
@@ -330,7 +346,7 @@ def build() -> dict[str, float]:
     library found already built). Raises when there is no CUDA card, when
     ``nvcc`` is missing, or when a source does not compile."""
     if not torch.cuda.is_available():
-        raise RuntimeError("thunder_tpu_torch kernels need a CUDA device; "
+        raise KernelBuildError("thunder_tpu_torch kernels need a CUDA device; "
                            "none is available")
     with _build_lock:
         if all(k.fn is not None for k in KERNELS.values()):
@@ -358,10 +374,12 @@ def build() -> dict[str, float]:
             else:
                 os.replace(tmp, libs[stem])
         if errors:
-            raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
+            raise KernelBuildError("kernel build failed:\n" + "\n".join(errors))
         for k in KERNELS.values():
-            lib = ctypes.CDLL(str(libs[Path(k.source).stem]))
-            fn = getattr(lib, k.symbol)
+            try:
+                fn = getattr(ctypes.CDLL(str(libs[Path(k.source).stem])), k.symbol)
+            except (OSError, AttributeError) as e:
+                raise KernelBuildError(f"{k.name}: cannot bind {k.symbol}: {e}") from e
             fn.argtypes = list(k.argtypes)
             fn.restype = ctypes.c_int
             k.fn = fn
@@ -374,7 +392,7 @@ def _launch(name: str, *args, design: str | None = None) -> None:
         build()
     rc = k.fn(*args)
     if rc != 0:
-        raise RuntimeError(f"{k.name}: kernel launch failed with CUDA error {rc}")
+        raise KernelLaunchError(f"{k.name}: kernel launch failed with CUDA error {rc}")
     k.launches += 1
     if design is not None:
         k.designs[design] = k.designs.get(design, 0) + 1
@@ -848,42 +866,119 @@ def _adamw_refusal(params, grads, ms, vs, bc) -> str | None:
     return None
 
 
-def _adamw_launch(name, rows, n_chunks, dev, bc, p_dtype, g_dtype, m_dtype, v_dtype, lr, beta1,
-                  beta2, eps, weight_decay) -> None:
+def _adamw_launch(name, rows, n_chunks, dev, bc, extra, p_dtype, g_dtype, m_dtype, v_dtype,
+                  hyper) -> None:
     """Copy the table of ``rows`` (p, g, m, v pointers, length, first
-    chunk) to the card (non-blocking, from pinned memory) and launch."""
+    chunk) to the card (non-blocking, from pinned memory) and launch.
+    ``extra``: the health word's pointer or 0 (the updates), or the
+    workspace's and the accumulator's (the health passes)."""
     host = torch.tensor(rows or [(0,) * 6], dtype=torch.int64).pin_memory()
     table = host.to(dev, non_blocking=True)
-    _launch(name, table.data_ptr(), len(rows), n_chunks, bc.data_ptr(), float(lr),
-            float(beta1), float(beta2), float(1.0 - beta1), float(1.0 - beta2), float(eps),
-            float(weight_decay), _DTYPE_CODES[p_dtype], _DTYPE_CODES[g_dtype],
-            _DTYPE_CODES[m_dtype], _DTYPE_CODES[v_dtype], dev.index,
+    lr, beta1, beta2 = hyper["lr"], hyper["beta1"], hyper["beta2"]
+    _launch(name, table.data_ptr(), len(rows), n_chunks, bc.data_ptr(), *extra, float(lr),
+            float(beta1), float(beta2), float(1.0 - beta1), float(1.0 - beta2),
+            float(hyper["eps"]), float(hyper["weight_decay"]), _DTYPE_CODES[p_dtype],
+            _DTYPE_CODES[g_dtype], _DTYPE_CODES[m_dtype], _DTYPE_CODES[v_dtype], dev.index,
             torch.cuda.current_stream(dev).cuda_stream)
 
 
-def fused_adamw(params, grads, ms, vs, bc: torch.Tensor, *, lr: float, beta1: float,
-                beta2: float, eps: float, weight_decay: float) -> None:
-    """AdamW over one bucket in ONE launch, updating ``params``, ``ms`` and
-    ``vs`` in place. ``bc`` is the float32 device tensor ``[1 - beta1**step,
-    1 - beta2**step]``. Params and grads share one dtype; m and v may each be
-    float32, bfloat16 or float16, and so may the grads, apart from the
-    params' dtype.
-
-    The kernel reads a device table of the tensors' pointers, sizes and
-    first chunks, built on the host and copied to the card on every call."""
-    name = "fused_adamw"
-    params, grads, ms, vs = list(params), list(grads), list(ms), list(vs)
-    _refuse(_adamw_refusal(params, grads, ms, vs, bc))
-    _require_cuda(name, params[0])
-    grads = [_dense(g) for g in grads]
+def _adamw_rows(params, grads, ms, vs):
+    """The per-step table: each tensor's own moments."""
     rows, n_chunks = [], 0
     for p, g, m, v in zip(params, grads, ms, vs):
         if p.numel():
             rows.append((p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(), p.numel(),
                          n_chunks))
             n_chunks += -(-p.numel() // ADAMW_CHUNK)
-    _adamw_launch(name, rows, n_chunks, params[0].device, bc, params[0].dtype, grads[0].dtype,
-                  ms[0].dtype, vs[0].dtype, lr, beta1, beta2, eps, weight_decay)
+    return rows, n_chunks
+
+
+def _adamw_slab_rows(params, grads, m_slab, v_slab, sizes):
+    """The slab table: m and v point into the slabs at each parameter's
+    element offset (64-bit)."""
+    m0, v0 = m_slab.data_ptr(), v_slab.data_ptr()
+    me, ve = m_slab.element_size(), v_slab.element_size()
+    rows, n_chunks, off = [], 0, 0
+    for p, g, n in zip(params, grads, sizes):
+        if n:
+            rows.append((p.data_ptr(), g.data_ptr(), m0 + off * me, v0 + off * ve, n, n_chunks))
+            n_chunks += -(-n // ADAMW_CHUNK)
+        off += n
+    return rows, n_chunks
+
+
+HEALTH_SIZE = 5   # the health word (runtime/sentinel.py HEALTH_SIZE)
+
+
+def _health_refusal(name: str, health, like: torch.Tensor) -> str | None:
+    if health is None:
+        return None
+    if (health.dtype != torch.float32 or tuple(health.shape) != (HEALTH_SIZE,)
+            or health.device != like.device):
+        return (f"{name}: the health word must be float32 of shape ({HEALTH_SIZE},) on "
+                f"{like.device}, got {health.dtype} {tuple(health.shape)} on {health.device}")
+    return None
+
+
+def _acc_refusal(name: str, acc, like: torch.Tensor) -> str | None:
+    if acc.dtype != torch.float64 or tuple(acc.shape) != (3,) or acc.device != like.device:
+        return (f"{name}: the accumulator must be float64 of shape (3,) on {like.device}, got "
+                f"{acc.dtype} {tuple(acc.shape)} on {acc.device}")
+    return None
+
+
+def _health_args(n_chunks, acc):
+    """The health pass's workspace (3 float32 per chunk) and accumulator
+    pointers."""
+    ws = torch.empty(max(3 * n_chunks, 1), dtype=torch.float32, device=acc.device)
+    return ws, (ws.data_ptr(), acc.data_ptr())
+
+
+def fused_adamw(params, grads, ms, vs, bc: torch.Tensor, *, lr: float, beta1: float,
+                beta2: float, eps: float, weight_decay: float,
+                health: torch.Tensor | None = None) -> None:
+    """AdamW over one bucket in ONE launch, updating ``params``, ``ms`` and
+    ``vs`` in place. ``bc`` is the float32 device tensor ``[1 - beta1**step,
+    1 - beta2**step]``. Params and grads share one dtype; m and v may each be
+    float32, bfloat16 or float16, and so may the grads, apart from the
+    params' dtype. ``health``, the numerics guard's float32 health word,
+    gates the update: the kernel stores nothing unless its non-finite total
+    is 0.
+
+    The kernel reads a device table of the tensors' pointers, sizes and
+    first chunks, built on the host and copied to the card on every call."""
+    name = "fused_adamw"
+    params, grads, ms, vs = list(params), list(grads), list(ms), list(vs)
+    _refuse(_adamw_refusal(params, grads, ms, vs, bc)
+            or _health_refusal(name, health, params[0]))
+    _require_cuda(name, params[0])
+    grads = [_dense(g) for g in grads]
+    rows, n_chunks = _adamw_rows(params, grads, ms, vs)
+    _adamw_launch(name, rows, n_chunks, params[0].device, bc,
+                  (0 if health is None else health.data_ptr(),), params[0].dtype,
+                  grads[0].dtype, ms[0].dtype, vs[0].dtype, dict(
+                      lr=lr, beta1=beta1, beta2=beta2, eps=eps, weight_decay=weight_decay))
+
+
+def fused_adamw_health(params, grads, ms, vs, bc: torch.Tensor, acc: torch.Tensor, *,
+                       lr: float, beta1: float, beta2: float, eps: float,
+                       weight_decay: float) -> None:
+    """The health pass of :func:`fused_adamw` over the same bucket: the
+    update's arithmetic without a store, adding the bucket's count of
+    non-finite grads, its float32 sum of g*g, and its count of non-finite
+    p', m', v' (as the update would store them) into ``acc``, a float64
+    device tensor of shape (3,). One launch and a one-block fold; no float
+    atomics, so two calls give the same bits."""
+    name = "fused_adamw_health"
+    params, grads, ms, vs = list(params), list(grads), list(ms), list(vs)
+    _refuse(_adamw_refusal(params, grads, ms, vs, bc) or _acc_refusal(name, acc, params[0]))
+    _require_cuda(name, params[0])
+    grads = [_dense(g) for g in grads]
+    rows, n_chunks = _adamw_rows(params, grads, ms, vs)
+    ws, extra = _health_args(n_chunks, acc)
+    _adamw_launch(name, rows, n_chunks, params[0].device, bc, extra, params[0].dtype,
+                  grads[0].dtype, ms[0].dtype, vs[0].dtype, dict(
+                      lr=lr, beta1=beta1, beta2=beta2, eps=eps, weight_decay=weight_decay))
 
 
 def _adamw_slab_refusal(params, grads, m_slab, v_slab, bc, sizes) -> str | None:
@@ -908,11 +1003,13 @@ def _adamw_slab_refusal(params, grads, m_slab, v_slab, bc, sizes) -> str | None:
 
 def fused_adamw_slab(params, grads, m_slab: torch.Tensor, v_slab: torch.Tensor,
                      bc: torch.Tensor, *, sizes, lr: float, beta1: float, beta2: float,
-                     eps: float, weight_decay: float) -> None:
+                     eps: float, weight_decay: float,
+                     health: torch.Tensor | None = None) -> None:
     """AdamW over one bucket whose moments live in persistent ``(rows, 128)``
     slabs, in ONE launch, in place on ``params`` and the slabs. Parameter
     ``i`` owns elements ``[sum(sizes[:i]), sum(sizes[:i+1]))`` of each
     flattened slab; the zero pad tail past ``sum(sizes)`` is never touched.
+    ``health`` gates the update as in :func:`fused_adamw`.
 
     The same kernel body as :func:`fused_adamw`, whose table rows point into
     the slabs at each parameter's element offset (64-bit), so p and g are
@@ -920,19 +1017,34 @@ def fused_adamw_slab(params, grads, m_slab: torch.Tensor, v_slab: torch.Tensor,
     aligned for vector loads takes scalar loads."""
     name = "fused_adamw_slab"
     params, grads, sizes = list(params), list(grads), [int(s) for s in sizes]
-    _refuse(_adamw_slab_refusal(params, grads, m_slab, v_slab, bc, sizes))
+    _refuse(_adamw_slab_refusal(params, grads, m_slab, v_slab, bc, sizes)
+            or _health_refusal(name, health, params[0]))
     _require_cuda(name, params[0])
     grads = [_dense(g) for g in grads]
-    m0, v0 = m_slab.data_ptr(), v_slab.data_ptr()
-    ms, vs = m_slab.element_size(), v_slab.element_size()
-    rows, n_chunks, off = [], 0, 0
-    for p, g, n in zip(params, grads, sizes):
-        if n:
-            rows.append((p.data_ptr(), g.data_ptr(), m0 + off * ms, v0 + off * vs, n, n_chunks))
-            n_chunks += -(-n // ADAMW_CHUNK)
-        off += n
-    _adamw_launch(name, rows, n_chunks, params[0].device, bc, params[0].dtype, grads[0].dtype,
-                  m_slab.dtype, v_slab.dtype, lr, beta1, beta2, eps, weight_decay)
+    rows, n_chunks = _adamw_slab_rows(params, grads, m_slab, v_slab, sizes)
+    _adamw_launch(name, rows, n_chunks, params[0].device, bc,
+                  (0 if health is None else health.data_ptr(),), params[0].dtype,
+                  grads[0].dtype, m_slab.dtype, v_slab.dtype, dict(
+                      lr=lr, beta1=beta1, beta2=beta2, eps=eps, weight_decay=weight_decay))
+
+
+def fused_adamw_slab_health(params, grads, m_slab: torch.Tensor, v_slab: torch.Tensor,
+                            bc: torch.Tensor, acc: torch.Tensor, *, sizes, lr: float,
+                            beta1: float, beta2: float, eps: float,
+                            weight_decay: float) -> None:
+    """The health pass of :func:`fused_adamw_slab` over the same bucket, as
+    :func:`fused_adamw_health` is of :func:`fused_adamw`."""
+    name = "fused_adamw_slab_health"
+    params, grads, sizes = list(params), list(grads), [int(s) for s in sizes]
+    _refuse(_adamw_slab_refusal(params, grads, m_slab, v_slab, bc, sizes)
+            or _acc_refusal(name, acc, params[0]))
+    _require_cuda(name, params[0])
+    grads = [_dense(g) for g in grads]
+    rows, n_chunks = _adamw_slab_rows(params, grads, m_slab, v_slab, sizes)
+    ws, extra = _health_args(n_chunks, acc)
+    _adamw_launch(name, rows, n_chunks, params[0].device, bc, extra, params[0].dtype,
+                  grads[0].dtype, m_slab.dtype, v_slab.dtype, dict(
+                      lr=lr, beta1=beta1, beta2=beta2, eps=eps, weight_decay=weight_decay))
 
 
 MLP_DH_ROWS = 64   # rows per block of the backward's dh pass: DH_ROWS in csrc/mlp_subblock_bwd.cu
@@ -1234,11 +1346,20 @@ _REFUSALS = {
     "sdpa_bwd": lambda g, q, k, v, out, lse, is_causal=False, scale=None:
         _sdpa_bwd_refusal(g, q, k, v, out, lse),
     "ce_fwd": lambda logits, target, ignore_index=-100: _ce_refusal(logits, target),
-    "fused_adamw": lambda params, grads, ms, vs, bc, **hyper:
-        _adamw_refusal(list(params), list(grads), list(ms), list(vs), bc),
-    "fused_adamw_slab": lambda params, grads, m_slab, v_slab, bc, *, sizes, **hyper:
-        _adamw_slab_refusal(list(params), list(grads), m_slab, v_slab, bc,
-                            [int(n) for n in sizes]),
+    "fused_adamw": lambda params, grads, ms, vs, bc, health=None, **hyper:
+        _adamw_refusal(list(params), list(grads), list(ms), list(vs), bc)
+        or _health_refusal("fused_adamw", health, list(params)[0]),
+    "fused_adamw_slab": lambda params, grads, m_slab, v_slab, bc, *, sizes, health=None,
+        **hyper: _adamw_slab_refusal(list(params), list(grads), m_slab, v_slab, bc,
+                                     [int(n) for n in sizes])
+        or _health_refusal("fused_adamw_slab", health, list(params)[0]),
+    "fused_adamw_health": lambda params, grads, ms, vs, bc, acc, **hyper:
+        _adamw_refusal(list(params), list(grads), list(ms), list(vs), bc)
+        or _acc_refusal("fused_adamw_health", acc, list(params)[0]),
+    "fused_adamw_slab_health": lambda params, grads, m_slab, v_slab, bc, acc, *, sizes,
+        **hyper: _adamw_slab_refusal(list(params), list(grads), m_slab, v_slab, bc,
+                                     [int(n) for n in sizes])
+        or _acc_refusal("fused_adamw_slab_health", acc, list(params)[0]),
     "mlp_subblock": lambda residual, x, w_norm, w_gate, w_up, w_down, act="silu", eps=1e-5:
         _subblock_refusal("mlp_subblock", residual, x, w_norm, w_gate, w_up, w_down, act),
     "mlp_subblock_bwd": lambda g, residual, x, w_norm, w_gate, w_up, w_down, act="silu",

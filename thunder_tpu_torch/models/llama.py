@@ -24,6 +24,7 @@ import torch.nn.functional as F
 
 from thunder_tpu_torch.core.rematerialization import checkpoint, recomputing
 from thunder_tpu_torch.ops import nn as tnn
+from thunder_tpu_torch.runtime import quarantine as _quarantine
 
 
 @dataclass(frozen=True)
@@ -263,7 +264,8 @@ def forward_hidden(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, *,
     norm. ``remat=True`` makes every layer one checkpointed region
     (:func:`_remat_block`): the backward recomputes it from its input. The
     reference plans no sub-block inside a checkpointed region, so
-    ``block_fusion`` has no effect there."""
+    ``block_fusion`` has no effect there. While the quarantine routes
+    ``mlp_subblock`` off, the planned rung runs as the per-op rung."""
     T = tokens.shape[1]
     h = F.embedding(tokens.long(), params["tok_embedding"])
     layers = params["layers"]
@@ -275,7 +277,7 @@ def forward_hidden(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, *,
         for layer in layers:
             h = block(h, layer)
         return tnn.rms_norm(h, params["norm_f"], eps=cfg.norm_eps)
-    if block_fusion:
+    if block_fusion and not _quarantine.is_routed_off("cuda.mlp_subblock"):
         for layer in layers:
             h = _planned_block(h, layer, cfg, cos, sin)
         return tnn.rms_norm(h, params["norm_f"], eps=cfg.norm_eps)

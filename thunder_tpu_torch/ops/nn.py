@@ -20,6 +20,18 @@ and any ``linear_act`` K (zero-padded on the tile path, ``cudaex.tile_k``).
 decode kernel's contract and always takes the plain gather/mask/softmax
 decomposition, as the JAX package's checker leaves it to XLA.
 
+Every router that reaches a kernel runs behind :func:`routed`: the kernel
+guard of ``runtime.faults`` (the ``kernel:cuda.<name>`` fault hook, the
+attribution of a failed launch to the claim, ``numerics:kernel:``
+poisoning) and the quarantine (``runtime.quarantine``). The rungs go from
+kernels to kernels: a quarantined ``decode_layer`` runs
+:func:`decode_layer_subblocks` (the ``attn_subblock`` and ``mlp_subblock``
+kernels), and the serving runner and the planned train step take their
+per-op kernel rung while a sub-block is quarantined. Any other quarantined
+kernel has no kernel rung below it: on the card its router raises a fatal
+``KernelExecutionError`` (the port runs no plain version there); on the
+CPU it runs its plain version, which is what its router runs there anyway.
+
 The ``*_plain`` functions repeat the reference's arithmetic op for op
 (statistics in float32, the same roundings), so the CPU path matches the
 JAX package and the card's kernels are held against them.
@@ -52,12 +64,15 @@ is the decomposition; in bfloat16 the roundings differ.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 
 from thunder_tpu_torch.executors import cudaex
+from thunder_tpu_torch.runtime import faults as _faults
+from thunder_tpu_torch.runtime import quarantine as _quarantine
 
 _HALF = (torch.float16, torch.bfloat16)
 
@@ -69,6 +84,43 @@ def _on_cuda(t: torch.Tensor, name: str) -> bool:
         raise ValueError(f"{name}: tensors on {t.device} are not supported "
                          f"(cuda runs the kernel, cpu the plain version)")
     return False
+
+
+# ---------------------------------------------------------------------------
+# routing: the kernel guard and the quarantine's rungs
+# ---------------------------------------------------------------------------
+
+def routed(name: str, fallback=None, tensor_of=lambda args: args[0]):
+    """Decorator for the router of kernel ``name`` (``cudaex.KERNELS``): the
+    router runs behind :func:`runtime.faults.kernel_guard` under the claim
+    id ``cuda.<name>`` (the port's ``pallas.<name>``: the
+    ``kernel:cuda.<name>`` fault hook, the attribution of a failed launch
+    to the claim, the per-claim call count). While the quarantine routes
+    the claim off (quarantined, or suppressed by a bisection probe),
+    ``fallback``, which takes the router's arguments and launches the
+    kernels of the rung below, runs instead; without one, a call whose
+    tensor ``tensor_of(args)`` lies on the card raises a fatal
+    ``KernelExecutionError``, and a CPU call runs the router unguarded (its
+    plain version)."""
+    claim = f"cuda.{name}"
+
+    def deco(router):
+        guarded = _faults.kernel_guard(claim, router)
+
+        @functools.wraps(router)
+        def route(*args, **kwargs):
+            if _quarantine.is_routed_off(claim):
+                if fallback is not None:
+                    return fallback(*args, **kwargs)
+                if tensor_of(args).device.type == "cuda":
+                    raise _faults.KernelExecutionError(claim, phase=_faults.QUARANTINED)
+                return router(*args, **kwargs)
+            return guarded(*args, **kwargs)
+
+        route.claim_id = claim
+        return route
+
+    return deco
 
 
 # ---------------------------------------------------------------------------
@@ -303,12 +355,14 @@ def _needs_grad(*tensors) -> bool:
                                            for t in tensors)
 
 
+@routed("rms_norm")
 def _rms_norm(a, weight, eps):
     if _on_cuda(a, "rms_norm"):
         return cudaex.rms_norm(a, weight, eps)
     return rms_norm_plain(a, weight, eps)
 
 
+@routed("rms_norm_residual", tensor_of=lambda args: args[1])
 def _rms_norm_residual(residual, a, weight, eps):
     if _on_cuda(a, "rms_norm_residual"):
         return cudaex.rms_norm_residual(residual, a, weight, eps)
@@ -374,6 +428,7 @@ def rms_norm_residual(residual: torch.Tensor, a: torch.Tensor,
     return _rms_norm_residual(residual, a, weight, eps)
 
 
+@routed("linear_act")
 def linear_act(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None,
                act: str = "relu") -> torch.Tensor:
     """Fused ``act(a @ w.T + bias)``; ``act`` is one of relu | silu | gelu |
@@ -399,12 +454,19 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths,
     if q.shape[1] % k_pages.shape[0]:
         raise ValueError(f"paged_decode_attention: n_heads {q.shape[1]} not divisible "
                          f"by kv_heads {k_pages.shape[0]}")
-    if _on_cuda(q, "paged_decode_attention") and q.shape[2] == 1:
-        return cudaex.paged_decode_attention(q, k_pages, v_pages, block_tables, lengths,
-                                             scale)
+    if q.shape[2] == 1:
+        return _paged_decode(q, k_pages, v_pages, block_tables, lengths, scale)
     return paged_decode_attention_plain(q, k_pages, v_pages, block_tables, lengths, scale)
 
 
+@routed("paged_decode_attention")
+def _paged_decode(q, k_pages, v_pages, block_tables, lengths, scale):
+    if _on_cuda(q, "paged_decode_attention"):
+        return cudaex.paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, scale)
+    return paged_decode_attention_plain(q, k_pages, v_pages, block_tables, lengths, scale)
+
+
+@routed("sdpa_fwd")
 def sdpa_fwd(q, k, v, is_causal: bool = False, scale: float | None = None):
     """Flash-attention forward: ``(out, lse)`` for q (..., T, hd) against
     k, v (..., S, hd) with the same leading dims; ``lse`` (..., T) float32.
@@ -414,6 +476,7 @@ def sdpa_fwd(q, k, v, is_causal: bool = False, scale: float | None = None):
     return sdpa_fwd_plain(q, k, v, is_causal, scale)
 
 
+@routed("sdpa_bwd", tensor_of=lambda args: args[1])
 def sdpa_bwd(g, q, k, v, out, lse, is_causal: bool = False, scale: float | None = None):
     """Flash-attention backward: ``(dq, dk, dv)``."""
     if _on_cuda(q, "sdpa_bwd"):
@@ -421,6 +484,7 @@ def sdpa_bwd(g, q, k, v, out, lse, is_causal: bool = False, scale: float | None 
     return sdpa_bwd_plain(g, q, k, v, out, lse, is_causal, scale)
 
 
+@routed("ce_fwd")
 def ce_fwd(logits, target, ignore_index: int = -100):
     """Per-row ``(nll, lse)`` float32 of ``logits`` (N, C) against integer
     ``target`` (N,)."""
@@ -614,6 +678,7 @@ def fused_linear_cross_entropy(h: torch.Tensor, w: torch.Tensor, target: torch.T
     return _FusedLinearCrossEntropy.apply(h, w, target, chunk, ignore_index)
 
 
+@routed("mlp_subblock_bwd", tensor_of=lambda args: args[2])
 def mlp_subblock_bwd(g, residual, x, w_norm, w_gate, w_up, w_down, act: str = "silu",
                      eps: float = 1e-5):
     """``(dh, dw_norm, dw_gate, dw_up, dw_down)`` of :func:`mlp_subblock` for
@@ -649,6 +714,7 @@ class _MlpSubblock(torch.autograd.Function):
         return dh, dh, dwn, dwg, dwu, dwd, None, None
 
 
+@routed("mlp_subblock")
 def mlp_subblock(residual: torch.Tensor, x: torch.Tensor, w_norm: torch.Tensor,
                  w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
                  act: str = "silu", eps: float = 1e-5) -> torch.Tensor:
@@ -800,6 +866,7 @@ def _store_fresh_rows(k_pages, v_pages, k_rows, v_rows, write_pos) -> None:
     decode_row_write(v_pages, v_rows.transpose(0, 1).unsqueeze(2), write_pos)
 
 
+@routed("attn_subblock")
 def attn_subblock(h, w_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages, block_tables, lengths,
                   write_pos, eps: float = 1e-5, scale: float | None = None) -> torch.Tensor:
     """The serving attention sub-block of one T == 1 decode step::
@@ -824,6 +891,21 @@ def attn_subblock(h, w_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages, block_t
     return out
 
 
+def decode_layer_subblocks(h, attn_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages,
+                           block_tables, lengths, write_pos, mlp_norm, w_gate, w_up, w_down,
+                           act: str = "silu", eps: float = 1e-5,
+                           scale: float | None = None) -> torch.Tensor:
+    """:func:`decode_layer` as the reference decomposes it (ops/nn.py:530):
+    :func:`attn_subblock`, then :func:`mlp_subblock` on ``h + proj`` — two
+    launches on CUDA, the rung below :func:`decode_layer` while the
+    quarantine routes it off. The same function as :func:`decode_layer`,
+    rounded elsewhere in bfloat16."""
+    proj = attn_subblock(h, attn_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages,
+                         block_tables, lengths, write_pos, eps=eps, scale=scale)
+    return mlp_subblock(h, proj, mlp_norm, w_gate, w_up, w_down, act=act, eps=eps)
+
+
+@routed("decode_layer", decode_layer_subblocks)
 def decode_layer(h, attn_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages, block_tables,
                  lengths, write_pos, mlp_norm, w_gate, w_up, w_down, act: str = "silu",
                  eps: float = 1e-5, scale: float | None = None) -> torch.Tensor:
@@ -839,17 +921,3 @@ def decode_layer(h, attn_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages, block
         out, k_rows, v_rows = decode_layer_plain(*args, act=act, eps=eps, scale=scale)
     _store_fresh_rows(k_pages, v_pages, k_rows, v_rows, write_pos)
     return out
-
-
-def decode_layer_subblocks(h, attn_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages,
-                           block_tables, lengths, write_pos, mlp_norm, w_gate, w_up, w_down,
-                           act: str = "silu", eps: float = 1e-5,
-                           scale: float | None = None) -> torch.Tensor:
-    """:func:`decode_layer` as the reference decomposes it (ops/nn.py:530):
-    :func:`attn_subblock`, then :func:`mlp_subblock` on ``h + proj`` — two
-    launches on CUDA, the middle rung of the reference's quarantine
-    fallback. The same function as :func:`decode_layer`, rounded elsewhere
-    in bfloat16."""
-    proj = attn_subblock(h, attn_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages,
-                         block_tables, lengths, write_pos, eps=eps, scale=scale)
-    return mlp_subblock(h, proj, mlp_norm, w_gate, w_up, w_down, act=act, eps=eps)

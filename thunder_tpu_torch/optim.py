@@ -116,7 +116,10 @@ class AdamW:
     step counter, all on the parameters' device. ``update(params, grads,
     state)`` advances the counter and computes the bias corrections
     ``1 - beta**step`` on the device (no host sync), then runs ONE
-    ``fused_adamw`` per parameter dtype bucket, in place.
+    ``fused_adamw`` per parameter dtype bucket, in place. ``health(params,
+    grads, state, loss)`` gives the numerics guard's health word of that
+    step without taking it, and ``update(..., health=word)`` takes the step
+    only where the word is healthy (the counter advances by the verdict).
 
     ``slab_persistent=True`` keeps m and v in one ``(rows, 128)`` slab per
     parameter dtype bucket between steps (the reference's layout,
@@ -231,18 +234,40 @@ class AdamW:
         return {"m": tree_map(conv(self.state_dtype), tree["m"]),
                 "v": tree_map(conv(self.v_dtype), tree["v"]), "step": step}
 
-    def _bias_corrections(self, state) -> torch.Tensor:
-        step = state["step"]
-        step.add_(1.0)
-        return torch.stack([1.0 - torch.pow(torch.full_like(step, b), step)
+    def _bias_corrections(self, state, commit: bool = True) -> torch.Tensor:
+        """``[1 - beta1**(step + 1), 1 - beta2**(step + 1)]`` on the device;
+        ``commit`` writes ``step + 1`` into the counter (a gated update
+        leaves it to the verdict)."""
+        nxt = state["step"] + 1.0
+        if commit:
+            state["step"].copy_(nxt)
+        return torch.stack([1.0 - torch.pow(torch.full_like(nxt, b), nxt)
                             for b in (self.beta1, self.beta2)])
 
-    @torch.no_grad()
-    def update(self, params, grads, state):
-        """One step, in place: returns ``(params, state)``, the same objects."""
+    def _buckets(self, params, grads, state):
+        """``(kind, args, kwargs)`` for each dtype bucket: ``"step"`` with
+        ``(params, grads, ms, vs)``, or ``"slab"`` with ``(params, grads,
+        m_slab, v_slab)`` and the bucket's ``sizes``."""
         if self.slab_persistent:
-            return self._update_slab(params, grads, state)
-        bc = self._bias_corrections(state)
+            if not (isinstance(state, dict) and "layout_version" in state):   # no host sync
+                raise ValueError("slab-persistent AdamW got a per-parameter state; convert it "
+                                 "with optim.adapt_opt_state(state, params=params, opt=opt) "
+                                 "first")
+            pleaves, gleaves = tree_leaves(params), tree_leaves(grads)
+            if len(gleaves) != len(pleaves) or any(g is None for g in gleaves):
+                raise ValueError("slab AdamW: every parameter needs a gradient")
+            out = []
+            for key, members in self._slab_layout(params):
+                idx = [i for i, _, _ in members]
+                gs = [gleaves[i] for i in idx]
+                if len({g.dtype for g in gs}) != 1:
+                    raise ValueError(f"slab AdamW: mixed grad dtypes in the {key} bucket")
+                if key not in state["m"] or key not in state["v"]:
+                    raise ValueError(f"slab AdamW: the state has no slab for the {key} bucket "
+                                     f"(parameters changed since init?)")
+                out.append(("slab", ([pleaves[i] for i in idx], gs, state["m"][key],
+                                     state["v"][key]), {"sizes": [sz for _, _, sz in members]}))
+            return out
         buckets: dict[torch.dtype, list] = {}
         quads = zip(tree_leaves(params), tree_leaves(grads), tree_leaves(state["m"]),
                     tree_leaves(state["v"]), strict=True)
@@ -250,28 +275,43 @@ class AdamW:
             if quad[1] is None:
                 raise ValueError("AdamW.update: a parameter has no gradient")
             buckets.setdefault(quad[0].dtype, []).append(quad)
-        for bucket in buckets.values():
-            ps, gs, ms, vs = zip(*bucket)
-            optim_ops.fused_adamw(ps, gs, ms, vs, bc, **self._hyper)
-        return params, state
+        return [("step", tuple(zip(*bucket)), {}) for bucket in buckets.values()]
 
-    def _update_slab(self, params, grads, state):
-        if not (isinstance(state, dict) and "layout_version" in state):   # no host sync
-            raise ValueError("slab-persistent AdamW got a per-parameter state; convert it with "
-                             "optim.adapt_opt_state(state, params=params, opt=opt) first")
-        pleaves, gleaves = tree_leaves(params), tree_leaves(grads)
-        if len(gleaves) != len(pleaves) or any(g is None for g in gleaves):
-            raise ValueError("slab AdamW: every parameter needs a gradient")
-        bc = self._bias_corrections(state)
-        for key, members in self._slab_layout(params):
-            idx = [i for i, _, _ in members]
-            gs = [gleaves[i] for i in idx]
-            if len({g.dtype for g in gs}) != 1:
-                raise ValueError(f"slab AdamW: mixed grad dtypes in the {key} bucket")
-            if key not in state["m"] or key not in state["v"]:
-                raise ValueError(f"slab AdamW: the state has no slab for the {key} bucket "
-                                 f"(parameters changed since init?)")
-            optim_ops.fused_adamw_slab([pleaves[i] for i in idx], gs, state["m"][key],
-                                       state["v"][key], bc,
-                                       sizes=[sz for _, _, sz in members], **self._hyper)
+    @torch.no_grad()
+    def health(self, params, grads, state, loss: torch.Tensor) -> torch.Tensor:
+        """The numerics guard's health word of the step ``update`` would take
+        (float32 of ``runtime.sentinel.HEALTH_SIZE`` on the device: the
+        non-finite grads, the non-finite loss, the non-finite new state as
+        it would be stored, the global grad norm, the loss), from every
+        bucket's health pass before any update runs. Writes nothing but the
+        word; no host sync."""
+        buckets = self._buckets(params, grads, state)
+        bc = self._bias_corrections(state, commit=False)
+        acc = torch.zeros(3, dtype=torch.float64, device=bc.device)
+        for kind, args, kw in buckets:
+            if kind == "slab":
+                optim_ops.fused_adamw_slab_health(*args, bc, acc, **kw, **self._hyper)
+            else:
+                optim_ops.fused_adamw_health(*args, bc, acc, **self._hyper)
+        lossf = loss.detach().float().reshape(())
+        return torch.stack([acc[0].float(), (~torch.isfinite(lossf)).float(), acc[2].float(),
+                            torch.sqrt(acc[1]).float(), lossf])
+
+    @torch.no_grad()
+    def update(self, params, grads, state, health: torch.Tensor | None = None):
+        """One step, in place: returns ``(params, state)``, the same objects.
+
+        ``health`` (from :meth:`health`, same arguments) gates the step on
+        the device: an unhealthy word leaves params, moments and the step
+        counter bit-identical, a healthy one takes exactly the ungated
+        step."""
+        buckets = self._buckets(params, grads, state)
+        bc = self._bias_corrections(state, commit=health is None)
+        for kind, args, kw in buckets:
+            if kind == "slab":
+                optim_ops.fused_adamw_slab(*args, bc, **kw, **self._hyper, health=health)
+            else:
+                optim_ops.fused_adamw(*args, bc, **self._hyper, health=health)
+        if health is not None:
+            state["step"].add_(optim_ops.healthy(health).float())
         return params, state

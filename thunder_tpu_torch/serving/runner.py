@@ -46,6 +46,7 @@ import torch.nn.functional as F
 
 from thunder_tpu_torch.models.llama import _mlp, _project_qkv, _rope_cos_sin, _rope_tables
 from thunder_tpu_torch.ops import nn as tnn
+from thunder_tpu_torch.runtime import quarantine as _quarantine
 from thunder_tpu_torch.serving.sampling import sample_tokens
 
 
@@ -54,7 +55,12 @@ class PagedLlamaRunner:
     with ``block_fusion=True``, the planned rung. ``decode_layer`` is the
     planned decode step's layer function (``tnn.decode_layer``, one launch
     per layer); any function of its signature may stand in, such as
-    ``tnn.decode_layer_subblocks``, the sub-block rung."""
+    ``tnn.decode_layer_subblocks``, the sub-block rung, which
+    :meth:`bind_decode` binds while the quarantine routes the whole-layer
+    kernel off. None runs the decode step at the per-op rung, which
+    :meth:`bind_decode` binds while a sub-block kernel is routed off too;
+    a planned prefill chunk takes the per-op rung while ``mlp_subblock`` is
+    routed off."""
 
     decode_layer = staticmethod(tnn.decode_layer)
 
@@ -62,6 +68,26 @@ class PagedLlamaRunner:
         self.cfg = cfg
         self.geom = geometry
         self.block_fusion = bool(block_fusion)
+
+    def bind_decode(self) -> int:
+        """Bind the planned decode step's layer function to the quarantine's
+        current rung — ``tnn.decode_layer``; while ``cuda.decode_layer`` is
+        routed off, ``tnn.decode_layer_subblocks`` (the reference's re-bound
+        decode program, ``thunder_tpu/serving/runner.py:260``); while a
+        sub-block is routed off too, None: the per-op rung's kernels
+        (:meth:`_layers`) — and return how many whole-layer kernels one
+        decode step runs (the ``serving.decode_layer_fusions`` gauge)."""
+        if not self.block_fusion:
+            return 0
+        off = _quarantine.is_routed_off
+        if not off("cuda.decode_layer"):
+            self.decode_layer = tnn.decode_layer
+            return self.geom.n_layers
+        if off("cuda.attn_subblock") or off("cuda.mlp_subblock"):
+            self.decode_layer = None
+        else:
+            self.decode_layer = tnn.decode_layer_subblocks
+        return 0
 
     def _layers(self, params, h, cos, sin, pools, write_kv, block_tables, lengths,
                 final_norm: bool):
@@ -123,7 +149,7 @@ class PagedLlamaRunner:
         cos = cos.reshape(S, 1, 1, -1)
         sin = sin.reshape(S, 1, 1, -1)
 
-        if self.block_fusion:
+        if self.block_fusion and self.decode_layer is not None:
             for layer, kv in zip(params["layers"], pools):
                 h = self.decode_layer(h, layer["attn_norm"], layer["wq"], layer["wk"],
                                       layer["wv"], layer["wo"], cos, sin, kv["k"], kv["v"],
@@ -159,7 +185,7 @@ class PagedLlamaRunner:
                 KV, hd = rows.shape[1], rows.shape[3]
                 pool.index_copy_(1, page_ids, rows[0].reshape(KV, C // ps, ps, hd))
 
-        if self.block_fusion:
+        if self.block_fusion and not _quarantine.is_routed_off("cuda.mlp_subblock"):
             self._planned_prefill_layers(params, h, cos, sin, pools, write_kv, block_tables,
                                          lengths)
         else:

@@ -24,9 +24,20 @@
 - **Stall detection**: ``drain()`` raises :class:`~errors.EngineStallError`
   naming the stuck requests when a step makes no progress.
 
+- **Kernel quarantine** (the counterpart of ``scheduler.py:1063-1089``): a
+  routed kernel that fails in a decode step or a prefill chunk
+  (``runtime.faults.KernelExecutionError``, degradable) is quarantined,
+  which moves the quarantine epoch; the engine re-binds the decode layer
+  to the next kernel rung down (``runner.bind_decode``) and replays the
+  step. It emits ``serving.decode_rebinds``, the ``serving_decode_rebind``
+  event, ``serving.quarantine_epoch`` and ``serving.decode_layer_fusions``
+  through ``observe.labeled(engine=...)``. A fatal error propagates
+  (``runtime.retry.classify``): a sticky CUDA error, and a quarantined
+  kernel with no kernel rung below it called on the card.
+
 Left out of this port so far, each kept in the reference: best-of-N forks,
-the prefix cache, tensor-parallel meshes, the supervisor, fault injection,
-retry and quarantine, and the observability emissions.
+the prefix cache, tensor-parallel meshes, the supervisor, the ``serving:*``
+fault domains and retry policies, and the other observability emissions.
 """
 
 from __future__ import annotations
@@ -41,6 +52,10 @@ import torch
 
 from thunder_tpu_torch.data import LengthBucketer
 from thunder_tpu_torch.devices import resolve_device
+from thunder_tpu_torch.observe import registry as _observe
+from thunder_tpu_torch.runtime import quarantine as _quarantine
+from thunder_tpu_torch.runtime import retry as _retry
+from thunder_tpu_torch.runtime.faults import KernelExecutionError
 from thunder_tpu_torch.serving.errors import (
     AdmissionRejected,
     DeadlineExceeded,
@@ -56,6 +71,7 @@ QUEUED, PREFILL, DECODE, DONE, SHED = "queued", "prefill", "decode", "done", "sh
 # process-unique request ids (they seed the sampling stream of a request
 # whose SamplingParams carry no seed)
 _REQUEST_IDS = itertools.count()
+_ENGINE_IDS = itertools.count()
 
 
 @dataclass(eq=False)  # identity semantics: requests live in slot lists
@@ -124,13 +140,18 @@ class ServingEngine:
     the runner's rung: False (the default) the per-op rung, True the planned
     rung, one ``decode_layer`` launch per layer per decode step and one
     ``mlp_subblock`` per layer per prefill chunk. The port has no cost model
-    to choose between them.
+    to choose between them. The engine's metrics carry the label
+    ``engine=e<n>``, ``n`` counting the process's engines.
     """
 
     def __init__(self, params, cfg, *, device=None, max_slots: int = 8,
                  page_size: int = 16, num_pages: int | None = None,
                  max_context: int | None = None, prefill_chunk: int | None = None,
                  max_queue: int | None = None, block_fusion: bool = False):
+        self.engine_id = f"e{next(_ENGINE_IDS)}"
+        self.obs = _observe.labeled(engine=self.engine_id)
+        self.decode_rebinds = 0        # quarantine-forced re-binds of the decode layer
+        self._bound_epoch = None       # the quarantine epoch the decode layer is bound at
         self.device = resolve_device(device)
         self.params = _to_device(params, self.device)
         self.cfg = cfg
@@ -371,9 +392,11 @@ class ServingEngine:
         page_ids = np.asarray(req.pages[first_page:first_page + C // g.page_size], np.int64)
         bt = np.zeros((1, g.pages_per_request), np.int32)
         bt[0, :len(req.pages)] = req.pages
-        self.runner.prefill(self.params, self._tensor(chunk), self._tensor(bt),
-                            self._tensor(np.asarray([pos0 + C], np.int32)),
-                            self._tensor(page_ids), self.cache.pools)
+        args = (self.params, self._tensor(chunk), self._tensor(bt),
+                self._tensor(np.asarray([pos0 + C], np.int32)), self._tensor(page_ids),
+                self.cache.pools)
+        # a replayed chunk rewrites the same K/V rows into the same pages
+        self._contained(lambda: self.runner.prefill(*args))
         req.prefill_chunks += 1
         req.prefilled += real
         if req.prefilled == len(wp):                # prompt fully resident
@@ -465,11 +488,23 @@ class ServingEngine:
             self._np_topp[i] = sp.top_p
             self._np_rng[i, 0] = r.stream_seed
             self._np_rng[i, 1] = len(r.generated)   # counter: tokens sampled so far
-        toks, _logits = self.runner.decode(
-            self.params, self._tensor(tokens), self._tensor(bt), self._tensor(lengths),
-            self._tensor(write_pos), self.cache.pools, self._tensor(self._np_temp),
-            self._tensor(self._np_topk), self._tensor(self._np_topp),
-            self._tensor(self._np_rng))
+        args = (self.params, self._tensor(tokens), self._tensor(bt), self._tensor(lengths),
+                self._tensor(write_pos), self.cache.pools, self._tensor(self._np_temp),
+                self._tensor(self._np_topk), self._tensor(self._np_topp),
+                self._tensor(self._np_rng))
+
+        def dispatch():
+            # a quarantine moved the epoch (here or anywhere in the process):
+            # re-bind the decode layer to the rung it now routes to
+            if self._bound_epoch != _quarantine.epoch():
+                self._bind_decode()
+            return self.runner.decode(*args)
+
+        # replaying the step is safe for a fault that fires before a launch:
+        # layer i's K/V row for this position depends only on the step's
+        # inputs (the tokens, and the pools' rows before this position, which
+        # no layer writes), so a replay rewrites the same values
+        toks, _logits = self._contained(dispatch)
         toks = toks.cpu().numpy()
         for i, r in active:
             if r._replay:
@@ -478,6 +513,41 @@ class ServingEngine:
                 r.length += 1
             self._on_token(r, int(toks[i]))
         return True
+
+    def _bind_decode(self) -> None:
+        ep = _quarantine.epoch()
+        if self._bound_epoch is not None:
+            # the epoch MOVED under a live binding: a kernel was quarantined
+            # and the decode step falls back a rung (the whole-layer kernel
+            # to its sub-blocks, or below); a silent fallback would only show
+            # as a throughput regression
+            self.decode_rebinds += 1
+            self.obs.inc("serving.decode_rebinds")
+            self.obs.event("serving_decode_rebind", old_epoch=self._bound_epoch, epoch=ep,
+                           quarantined=sorted(_quarantine.get_quarantine().ids()))
+        self.obs.set_gauge("serving.quarantine_epoch", ep)
+        fusions = self.runner.bind_decode()
+        self.obs.set_gauge("serving.decode_layer_fusions", fusions)
+        self.obs.event("serving_decode_bind", decode_layer_fusions=fusions)
+        self._bound_epoch = ep
+
+    def _contained(self, dispatch):
+        """Run a step's dispatch. A routed kernel that fails with a
+        degradable error is quarantined and the dispatch replayed on the
+        next rung down; a claim that fails twice, or a fatal error (a sticky
+        CUDA error leaves the context unusable), propagates."""
+        seen: set[str] = set()
+        while True:
+            try:
+                return dispatch()
+            except KernelExecutionError as err:
+                if _retry.classify(err) != _retry.DEGRADABLE or err.claim_id in seen:
+                    raise
+                seen.add(err.claim_id)
+                _quarantine.get_quarantine().add(err.claim_id, reason=repr(err.__cause__ or err),
+                                                 phase=err.phase)
+                self.obs.inc("runtime.fallbacks")
+                self.obs.event("kernel_fallback", claim=err.claim_id, phase=err.phase)
 
     def _on_token(self, req: Request, tok: int) -> None:
         req.generated.append(tok)
