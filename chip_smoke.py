@@ -201,6 +201,43 @@ times each beside its bound. Then:
     version, as it always does there. Phase 13 (a) also reports
     ``sentinel_overhead_pct``.
 
+The serving fleet (``serving/prefix_cache.py``, best-of-N forks,
+``serving/supervisor.py``, ``models/llama.generate``/``generate_fused``):
+
+16. fleet — llama3-8b at full width and depth (32 layers, bf16, the seed of
+    phase 5's weights, 8 slots, 16-token pages). (a) At each rung, 8
+    requests of one 1024-token system prompt and their own 17..200-token
+    tails, 16 greedy tokens, cold then warm (fresh tails) on one
+    ``prefix_cache=True`` engine, beside a ``prefix_cache=False`` engine
+    serving the same 16 prompts: identical tokens; cold requests hit nothing
+    and prefill every chunk, warm ones hit exactly the 64 system pages and
+    prefill one chunk; ``prefix_hit_rate`` and ``cached_pages`` at the
+    values the lengths give; the cached system pages equal, bit for bit, the
+    pages the other engine's first request wrote; every decode step and
+    prefill chunk launched its rung's kernels on the designs the rules name
+    (``split``, ``stream``, ``vector``, ``wgmma``); cold, warm and solo
+    TTFT. (b) ``submit(best_of=4)`` at temperature 0.8, seed pinned: each
+    branch equals an independent request on ``sampling.fork(i)``, each
+    copied tail page equals the primary's at the fork; peak pages against
+    the independent requests'. (c) planned rung under ``EngineSupervisor``,
+    a ``serving:engine`` fault on the 5th decode step: one restart, every
+    request done at full length, the tokens before the fault equal to a
+    fault-free run's, the pool quiescent. (d) first its prefill's kernels
+    at the prefill's own shapes (8 x 1000 rows: rms_norm, rms_norm_residual
+    and linear_act, whose wgmma tile path ends in a ragged 64-row M tile)
+    against their plain versions, timed; then ``generate`` and
+    ``generate_fused`` (the decode step captured once in a CUDA graph) on 8
+    prompts of 1000 tokens, 32 greedy tokens: identical tokens, the capture
+    launching what one eager step launches (the counters run on the host,
+    so a replay adds none: the path's launches in the kernels table add the
+    captured step once a replay, beside the host counters' ``host_launches``),
+    the first-step logits within GENERATE_LOGITS_TOL of the engine's
+    replay-step logits row by row, one bucketed 700-token call; prefill ms,
+    decode tok/s of both, and the device ms of one graph replay from CUDA
+    events (``benchmarks/generate.py``). (e) (a)-(d) on tiny-gqa float32 on the
+    card and on the CPU: every token identical, across the forks and the
+    restart.
+
 No phase can fall back to a plain version on the card: a CUDA call whose
 inputs a kernel does not take raises in the kernel's wrapper, with the
 reason ``cudaex.refusal`` gives, and fails its phase; a quarantined kernel
@@ -331,6 +368,39 @@ HEALTH_LIBRARY_NOTE = "no one PyTorch call counts the non-finite values of the u
 # row, DECODE_TOL of each row's largest value (bf16 rounds at other points in
 # every layer's two sub-blocks)
 QUARANTINE_LAYERS, FAULT_DECODE_STEP = 8, 5
+# phase 16: the serving fleet on llama3-8b at full width and depth. (a) 8
+# requests share a 1024-token system prompt (a multiple of the 512-token
+# chunk, so a warm request's tail chunk has the shape of a cold one's), each
+# with its own tail of 17..200 tokens and 16 greedy tokens, cold then warm
+# (fresh tails); (b) best-of-4 over a 700-token prompt (not page-aligned:
+# each clone copies the tail page) at temperature 0.8, seed pinned; (c) a
+# serving:engine fault on the 5th decode step, planned rung; (d) generate
+# and generate_fused on 8 prompts of 1000 tokens, 32 greedy tokens, a
+# 2048-long contiguous cache (2.15 GB), and one call of 700 tokens with
+# prefill_buckets=(512, 1024).
+# (d)'s first-step logits of generate against the engine's replay-step
+#   logits for the same prompts, row by row (row_rel_err), at most 0.05 of
+#   each row's largest value: the two bf16 paths round at other points in
+#   all 32 layers (the engine's chunked paged prefill and its T = 1 replay
+#   against one contiguous prefill; phase 15 measured 0.0132 between two
+#   bf16 paths over 8 layers)
+FLEET_SLOTS, FLEET_CONTEXT = 8, 2048
+FLEET_SIZES = {"seed": 16, "system": 1024, "tails": (17, 40, 64, 90, 120, 150, 180, 200),
+               "new": 16, "best_of": 4, "best_of_prompt": 700,
+               "restart_prompts": (64, 300, 700, 1000), "gen_batch": 8, "gen_prompt": 1000,
+               "gen_new": 32, "gen_max_len": 2048, "bucket_prompt": 700,
+               "buckets": (512, 1024), "page_size": 16}
+# (e) the same on tiny-gqa float32, card against CPU
+TINY_FLEET_SIZES = {"seed": 17, "system": 32, "tails": (5, 9, 17, 30), "new": 6,
+                    "best_of": 4, "best_of_prompt": 37, "restart_prompts": (7, 20, 41),
+                    "gen_batch": 3, "gen_prompt": 20, "gen_new": 8, "gen_max_len": 64,
+                    "bucket_prompt": 13, "buckets": (16, 32), "page_size": 8}
+BEST_OF_TEMPERATURE, BEST_OF_SEED = 0.8, 1234
+RESTART_FAULT_STEP = 5
+GENERATE_LOGITS_TOL = 0.05
+GEN_REPEATS = 2
+FLEET_PATHS = ("serve-prefix", "serve-prefix-planned", "serve-best-of", "serve-restart-planned",
+               "generate")
 
 D, F_DIM, S_DECODE, M_PREFILL = 4096, 14336, 8, 512
 KV, G, HD, PS = 8, 4, 128, 16
@@ -444,9 +514,11 @@ def gemm_close(torch, got, want) -> bool:
 def linear_act_faults(torch, cudaex, x, w, want) -> dict:
     """The linear_act check's power: the kernel on inputs with the last 16
     weight rows zeroed (a dropped 16-row weight tile) and with the last 64 K
-    columns of the weight zeroed (a dropped K slab), each held against the
-    plain version of the intact inputs, must fail the check. Returns each
-    fault's largest absolute error."""
+    columns of the weight zeroed (a dropped K slab) and, where the rows end
+    in a ragged 128-row M tile of the tile path, with that tile's rows of x
+    zeroed (a dropped last tile), each held against the plain version of the
+    intact inputs, must fail the check. Returns each fault's largest
+    absolute error."""
     found = {}
     for fault, cut in (("last 16 weight rows zeroed", (slice(-16, None), slice(None))),
                        ("last 64 K columns zeroed", (slice(None), slice(-64, None)))):
@@ -458,7 +530,51 @@ def linear_act_faults(torch, cudaex, x, w, want) -> dict:
                 f"linear_act {tuple(x.shape)}: the check passes a planted fault ({fault}: "
                 f"{found[fault]})")
         del bad_w, got
+    rows = x.numel() // x.shape[-1]
+    tail = rows % 128
+    if rows > 128 and tail:
+        # a ragged last 128-row M tile: its rows of x zeroed (a dropped tile)
+        fault = f"last M tile's {tail} rows of x zeroed"
+        bad_x = x.clone()
+        bad_x.view(-1, x.shape[-1])[-tail:] = 0
+        got = cudaex.linear_act(bad_x, w, None, "silu")
+        found[fault] = float((got.float() - want.float()).abs().max())
+        require(not gemm_close(torch, got, want),
+                f"linear_act {tuple(x.shape)}: the check passes a planted fault ({fault}: "
+                f"{found[fault]})")
+        del bad_x, got
     return found
+
+
+def linear_act_row(torch, cudaex, tnn, gen, lead, iters=30):
+    """linear_act as the MLP's gate projection with its silu: bf16 x of
+    shape ``(*lead, D)`` against an (F_DIM, D) weight, held against its
+    plain version, with the planted faults that must fail the check, timed;
+    its row of the table."""
+    import torch.nn.functional as F
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    n = math.prod(lead)
+    x = torch.randn(*lead, D, generator=gen, device=dev).to(bf16)
+    wg = (torch.randn(F_DIM, D, generator=gen, device=dev) * D ** -0.5).to(bf16)
+    tag = "x".join(map(str, (*lead, D, F_DIM)))
+    got, design = ran(cudaex, "linear_act", lambda: cudaex.linear_act(x, wg, None, "silu"))
+    require(design == ("stream" if n <= 16 else "wgmma"),
+            f"linear_act {n} rows: bf16 launch took {design}")
+    want = tnn.linear_act_plain(x, wg, None, "silu")
+    err = float((got.float() - want.float()).abs().max())
+    require(gemm_close(torch, got, want),
+            f"linear_act {tag}: kernel disagrees with its plain version ({err})")
+    faults = linear_act_faults(torch, cudaex, x, wg, want)
+    row = timed_row(torch, cudaex, "linear_act", tag, err,
+                    lambda: cudaex.linear_act(x, wg, None, "silu"),
+                    lambda: tnn.linear_act_plain(x, wg, None, "silu"),
+                    lambda: F.linear(x, wg), (n * D + F_DIM * D + n * F_DIM) * 2,
+                    2.0 * n * F_DIM * D, BF16_FLOPS, iters, iters)
+    row["design"], row["planted_faults"] = design, faults
+    log(f"    design {design}; planted faults (max abs err, the check must fail): "
+        + json.dumps(faults))
+    return row
 
 
 def norm_rows(torch, cudaex, tnn, gen, shape):
@@ -690,26 +806,7 @@ def check_kernels(torch, cudaex, tnn):
     for n in (S_DECODE, M_PREFILL):
         for row in norm_rows(torch, cudaex, tnn, gen, (n, D)):
             add(row)
-        # linear_act (the gate projection: silu), then the planted faults
-        x, wg = randn(n, D), randn(F_DIM, D, scale=D ** -0.5)
-        got, design = ran(cudaex, "linear_act", lambda: cudaex.linear_act(x, wg, None, "silu"))
-        require(design == ("stream" if n <= 16 else "wgmma"),
-                f"linear_act {n} rows: bf16 launch took {design}")
-        want = tnn.linear_act_plain(x, wg, None, "silu")
-        err = float((got.float() - want.float()).abs().max())
-        require(gemm_close(torch, got, want),
-                f"linear_act {n}x{D}x{F_DIM}: kernel disagrees with its plain version ({err})")
-        faults = linear_act_faults(torch, cudaex, x, wg, want)
-        row = timed_row(torch, cudaex, "linear_act", f"{n}x{D}x{F_DIM}", err,
-                        lambda: cudaex.linear_act(x, wg, None, "silu"),
-                        lambda: tnn.linear_act_plain(x, wg, None, "silu"),
-                        lambda: F.linear(x, wg), (n * D + F_DIM * D + n * F_DIM) * 2,
-                        2.0 * n * F_DIM * D, BF16_FLOPS)
-        row["design"], row["planted_faults"] = design, faults
-        log(f"    design {design}; planted faults (max abs err, the check must fail): "
-            + json.dumps(faults))
-        add(row)
-        del wg, got, want
+        add(linear_act_row(torch, cudaex, tnn, gen, (n,)))
 
     # paged decode attention: 8 requests, ragged lengths 1..2048, over pools
     # holding every request's pages; timing rotates over 4 pool copies so
@@ -2327,6 +2424,463 @@ def quarantine_card_vs_cpu(np, torch, tllama, ServingEngine, cudaex) -> dict:
             "leaf_quarantined": "raised on the card, plain version on the CPU"}
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the serving fleet — prefix cache, best-of-N forks, supervised
+# restart, generate and generate_fused
+# ---------------------------------------------------------------------------
+
+def fleet_calls(eng, cudaex, calls: list) -> None:
+    """Wrap ``eng.runner.decode`` and ``.prefill``: each call appends its
+    kind, its prefill chunk's rows, and the launches and designs it made."""
+    for attr in ("decode", "prefill"):
+        fn = getattr(eng.runner, attr)
+
+        def wrapped(*args, _fn=fn, _kind=attr):
+            before, designs = cudaex.launch_counts(), cudaex.design_counts()
+            out = _fn(*args)
+            after = cudaex.launch_counts()
+            calls.append((_kind, args[1].shape[1] if _kind == "prefill" else None,
+                          {k: after[k] - before[k] for k in after if after[k] != before[k]},
+                          design_delta(designs, cudaex.design_counts())))
+            return out
+
+        setattr(eng.runner, attr, wrapped)
+
+
+def fleet_expect(cudaex, cfg, L: int, block_fusion: bool, kind: str, C: int | None = None):
+    """The launches and designs one decode step (``kind == "decode"``, 8
+    slots) or one prefill chunk of C rows makes at a rung."""
+    dt, D = cfg.dtype, cfg.dim
+    rn, rr = cudaex.rms_norm_design(dt, D), cudaex.rms_norm_residual_design(dt, D)
+    if kind == "decode" and block_fusion:
+        dd = cudaex.decode_design(dt, FLEET_SLOTS, D, cfg.n_heads, cfg.kv_heads, cfg.head_dim)
+        return ({"decode_layer": L, "rms_norm": 1}, {"decode_layer": {dd: L}, "rms_norm": {rn: 1}})
+    if kind == "decode":
+        return ({"paged_decode_attention": L, "linear_act": L, "rms_norm_residual": 2 * L,
+                 "rms_norm": 1},
+                {"paged_decode_attention": {"split": L},
+                 "linear_act": {cudaex.linear_act_design(dt, FLEET_SLOTS): L},
+                 "rms_norm_residual": {rr: 2 * L}, "rms_norm": {rn: 1}})
+    if block_fusion:
+        return ({"rms_norm": L, "mlp_subblock": L - 1},
+                {"rms_norm": {rn: L}, "mlp_subblock": {cudaex.gemm_design(dt): L - 1}})
+    return ({"rms_norm": 1, "rms_norm_residual": 2 * (L - 1), "linear_act": L - 1},
+            {"rms_norm": {rn: 1}, "rms_norm_residual": {rr: 2 * (L - 1)},
+             "linear_act": {cudaex.linear_act_design(dt, C): L - 1}})
+
+
+def require_fleet_calls(what, cudaex, cfg, L, block_fusion, calls) -> dict:
+    """Every decode step and prefill chunk of ``calls`` launched every kernel
+    of its rung, on the designs the rules name. Returns the expected
+    launches per decode step."""
+    require(any(c[0] == "decode" for c in calls) and any(c[0] == "prefill" for c in calls),
+            f"{what}: no decode step or no prefill chunk ran")
+    for i, (kind, C, counts, designs) in enumerate(calls):
+        want, want_d = fleet_expect(cudaex, cfg, L, block_fusion, kind, C)
+        require(counts == want and designs == want_d,
+                f"{what}: {kind} call {i} (rows {C}) launched {counts} by design {designs}, "
+                f"expected {want} by design {want_d}")
+    return fleet_expect(cudaex, cfg, L, block_fusion, "decode")[0]
+
+
+def chunks_for(n: int, max_chunk: int) -> int:
+    return -(-n // max_chunk)
+
+
+def fleet_prefix(np, torch, ServingEngine, cudaex, params, cfg, kw, sizes, block_fusion,
+                 check_launches: bool) -> dict:
+    """(a) ``sizes["requests"]`` prompts of one shared system prompt and
+    distinct tails, cold then warm (fresh tails) on one prefix-cached
+    engine, beside a ``prefix_cache=False`` engine serving the same 16
+    prompts: identical tokens; cold requests hit nothing and prefill every
+    chunk, warm ones hit exactly the system prompt and prefill one chunk;
+    ``prefix_hit_rate`` and ``cached_pages`` at their expected values; the
+    system prompt's cached pages hold the bytes the other engine's first
+    request wrote, bit for bit. Then one request alone on each engine (a
+    fresh tail): the solo cold and warm TTFT."""
+    rng = np.random.RandomState(sizes["seed"])
+    V, S, new = cfg.vocab_size, sizes["system"], sizes["new"]
+    sysp = rng.randint(1, V, size=S).astype(np.int32)
+    cold_p, warm_p = ([np.concatenate([sysp, rng.randint(1, V, size=t).astype(np.int32)])
+                       for t in sizes["tails"]] for _ in range(2))
+    solo = np.concatenate([sysp, rng.randint(1, V, size=sizes["tails"][-1]).astype(np.int32)])
+    ps = kw["page_size"]
+    ref = ServingEngine(params, cfg, block_fusion=block_fusion, **kw)
+    snap = {}
+    finish = ref._finish
+
+    def first_finish(req):
+        if not snap:   # the system prompt's pages of the first request done
+            snap["pages"] = [{k: v[:, req.pages[:S // ps]].clone() for k, v in kv.items()}
+                             for kv in ref.cache.pools]
+        finish(req)
+
+    ref._finish = first_finish
+    ref_reqs = [ref.submit(p, new) for p in cold_p + warm_p]
+    ref.drain()
+    ref.assert_quiescent()
+    eng = ServingEngine(params, cfg, block_fusion=block_fusion, prefix_cache=True, **kw)
+    calls: list = []
+    if check_launches:
+        fleet_calls(eng, cudaex, calls)
+    cudaex.reset_launch_counts()
+    t0 = time.perf_counter()
+    cold = [eng.submit(p, new) for p in cold_p]
+    eng.drain()
+    warm = [eng.submit(p, new) for p in warm_p]
+    eng.drain()
+    if eng.device.type == "cuda":
+        torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = cudaex.launch_counts()
+    eng.assert_quiescent()
+    for r in cold + warm:
+        require(r.done and len(r.output()) == new, f"request {r.request_id} state {r.state}")
+    mc = eng.max_chunk
+    require([r.output().tolist() for r in cold + warm] ==
+            [r.output().tolist() for r in ref_reqs],
+            "prefix-cached tokens differ from the prefix_cache=False engine's")
+    require([r.prefix_hit_tokens for r in cold] == [0] * len(cold)
+            and [r.prefix_hit_tokens for r in warm] == [S] * len(warm),
+            f"prefix hits cold {[r.prefix_hit_tokens for r in cold]}, warm "
+            f"{[r.prefix_hit_tokens for r in warm]}")
+    require([r.prefill_chunks for r in cold] == [chunks_for(len(p), mc) for p in cold_p]
+            and [r.prefill_chunks for r in warm] == [chunks_for(len(p) - S, mc) for p in warm_p],
+            f"prefill chunks cold {[r.prefill_chunks for r in cold]}, warm "
+            f"{[r.prefill_chunks for r in warm]}")
+    hit_rate = len(warm) * S / sum(len(p) for p in cold_p + warm_p)
+    require(eng.prefix.hit_rate() == hit_rate,
+            f"prefix_hit_rate {eng.prefix.hit_rate()}, expected {hit_rate}")
+    # the first cold donor registers all its full pages; later cold donors
+    # meet the system prompt under other pages and register none; each warm
+    # donor registers the full pages past the system prompt it shares
+    first = next(r for r in eng.completed if r in cold)
+    donated = (len(first.prompt) + new - 1) // ps
+    donated += sum((len(r.prompt) + new - 1) // ps - S // ps for r in warm)
+    require(eng.cache.cached_pages == donated,
+            f"cached_pages {eng.cache.cached_pages}, expected {donated}")
+    # the system prompt's chain (a warm donor's own pages may follow it)
+    chain = eng.prefix.lookup(warm_p[0])[:S // ps]
+    require(len(chain) == S // ps, f"the trie holds {len(chain)} system pages")
+    same = all(torch.equal(kv[k][:, chain], want[k]) for kv, want in
+               zip(eng.cache.pools, snap["pages"]) for k in ("k", "v"))
+    require(same, "cached system-prompt pages differ from the bytes a cold engine wrote")
+    out = {"requests": len(cold) + len(warm), "system_tokens": S,
+           "tails": list(sizes["tails"]), "new_tokens": new,
+           "cold_chunks": sum(r.prefill_chunks for r in cold),
+           "warm_chunks": sum(r.prefill_chunks for r in warm),
+           "prefix_hit_rate": hit_rate, "cached_pages": donated,
+           "ttft_ms_cold_mean": 1e3 * sum(r.ttft_s for r in cold) / len(cold),
+           "ttft_ms_warm_mean": 1e3 * sum(r.ttft_s for r in warm) / len(warm),
+           "tokens": [r.output().tolist() for r in cold + warm], "wall_s": wall_s,
+           "launches": counts}
+    if check_launches:
+        out["launches_per_decode_step"] = require_fleet_calls(
+            "phase 16 (a)", cudaex, cfg, len(params["layers"]), block_fusion, calls)
+        out["decode_steps"] = sum(c[0] == "decode" for c in calls)
+        out["prefill_calls"] = sum(c[0] == "prefill" for c in calls)
+    # one request alone on each engine: cold (no cache) and warm (a hit)
+    solo_ttft = {}
+    for name, e in (("cold", ref), ("warm", eng)):
+        r = e.submit(solo, new)
+        e.drain()
+        solo_ttft[name] = r.ttft_s * 1e3
+        out.setdefault("solo_tokens", []).append(r.output().tolist())
+    require(out["solo_tokens"][0] == out["solo_tokens"][1], "solo tokens differ")
+    out["ttft_ms_solo_cold"], out["ttft_ms_solo_warm"] = solo_ttft["cold"], solo_ttft["warm"]
+    for e in (ref, eng):
+        e.cache.consume_pools()        # free the pools before the next run
+    return out
+
+
+def fleet_best_of(np, torch, ServingEngine, SamplingParams, cudaex, params, cfg, kw, sizes,
+                  check_launches: bool) -> dict:
+    """(b) ``submit(best_of=N)`` with temperature 0.8 and a pinned seed,
+    beside N independent requests with ``sampling.fork(i)``: every branch's
+    tokens identical, each copy-on-write tail page equal to the primary's
+    tail at the fork, bit for bit; peak pages of both engines."""
+    rng = np.random.RandomState(sizes["seed"] + 1)
+    p = rng.randint(1, cfg.vocab_size, size=sizes["best_of_prompt"]).astype(np.int32)
+    N, new = sizes["best_of"], sizes["new"]
+    sp = SamplingParams(temperature=BEST_OF_TEMPERATURE, seed=BEST_OF_SEED)
+    eng = ServingEngine(params, cfg, **kw)
+    copies = []
+    copy_page = eng.cache.copy_page
+
+    def checked_copy(src, dst):
+        copy_page(src, dst)
+        copies.append(all(torch.equal(kv[k][:, dst], kv[k][:, src])
+                          for kv in eng.cache.pools for k in ("k", "v")))
+
+    eng.cache.copy_page = checked_copy
+    calls: list = []
+    if check_launches:
+        fleet_calls(eng, cudaex, calls)
+    cudaex.reset_launch_counts()
+    prim = eng.submit(p, new, sampling=sp, best_of=N)
+    eng.drain()
+    counts = cudaex.launch_counts()
+    eng.assert_quiescent()
+    indep = ServingEngine(params, cfg, **kw)
+    reqs = [indep.submit(p, new, sampling=sp.fork(i) if i else sp) for i in range(N)]
+    indep.drain()
+    indep.assert_quiescent()
+    got = [r.output().tolist() for r in prim.fork_group]
+    require(all(r.done for r in prim.fork_group) and got == [r.output().tolist() for r in reqs],
+            "best-of branches differ from independent requests on the forked seeds")
+    tail_copy = len(p) % kw["page_size"] != 0
+    require(copies == [True] * ((N - 1) if tail_copy else 0) and
+            eng.cache.cow_copies == len(copies), f"tail copies {copies}")
+    require(len({tuple(t) for t in got}) > 1, "the branches did not diverge")
+    out = {"prompt": len(p), "best_of": N, "new_tokens": new,
+           "temperature": BEST_OF_TEMPERATURE, "cow_copies": eng.cache.cow_copies,
+           "peak_pages_best_of": eng.cache.peak_pages_used,
+           "peak_pages_independent": indep.cache.peak_pages_used,
+           "pages_allocated_best_of": eng.cache.pages_allocated,
+           "pages_allocated_independent": indep.cache.pages_allocated,
+           "tokens": got, "launches": counts}
+    if check_launches:
+        out["launches_per_decode_step"] = require_fleet_calls(
+            "phase 16 (b)", cudaex, cfg, len(params["layers"]), False, calls)
+    for e in (eng, indep):
+        e.cache.consume_pools()
+    return out
+
+
+def fleet_restart(np, torch, ServingEngine, cudaex, params, cfg, kw, sizes, block_fusion,
+                  check_launches: bool) -> dict:
+    """(c) a ``serving:engine`` fault on decode step RESTART_FAULT_STEP under
+    the supervisor: one restart, every request done at full length, the
+    tokens generated before the fault identical to a fault-free run's, the
+    rebuilt pool quiescent."""
+    from thunder_tpu_torch.runtime import FaultPlan, FaultSpec, faults
+    from thunder_tpu_torch.serving import EngineSupervisor
+
+    rng = np.random.RandomState(sizes["seed"] + 2)
+    prompts = [rng.randint(1, cfg.vocab_size, size=n).astype(np.int32)
+               for n in sizes["restart_prompts"]]
+    new = sizes["new"]
+    clean = ServingEngine(params, cfg, block_fusion=block_fusion, **kw)
+    want = [clean.submit(p, new) for p in prompts]
+    clean.drain()
+    clean.cache.consume_pools()
+    eng = ServingEngine(params, cfg, block_fusion=block_fusion, **kw)
+    calls: list = []
+    if check_launches:
+        fleet_calls(eng, cudaex, calls)
+    at_fault = {}
+    rebuild = eng.rebuild_after_fault
+
+    def recorded(*args):
+        at_fault.update({r.request_id: len(r.generated) for r in eng.slots if r is not None})
+        return rebuild(*args)
+
+    eng.rebuild_after_fault = recorded
+    sup = EngineSupervisor(eng)
+    cudaex.reset_launch_counts()
+    reqs = [sup.submit(p, new) for p in prompts]
+    with faults.active(FaultPlan([FaultSpec("serving:engine", every_n=RESTART_FAULT_STEP,
+                                            max_fires=1)])):
+        sup.drain()
+    counts = cudaex.launch_counts()
+    eng.assert_quiescent()
+    require(sup.restarts == 1, f"{sup.restarts} restarts")
+    require(all(r.done and len(r.output()) == new for r in reqs), "a request did not complete")
+    require(all(r.restarts == 1 for r in reqs) and at_fault, f"restarts {[r.restarts for r in reqs]}")
+    prefix_ok = [r.output()[:at_fault.get(r.request_id, 0)].tolist()
+                 == w.output()[:at_fault.get(r.request_id, 0)].tolist()
+                 for r, w in zip(reqs, want)]
+    require(all(prefix_ok), f"tokens before the fault differ: {prefix_ok}")
+    out = {"requests": len(reqs), "new_tokens": new, "block_fusion": block_fusion,
+           "fault": f"serving:engine on decode step {RESTART_FAULT_STEP}", "restarts": 1,
+           "generated_at_fault": [at_fault.get(r.request_id, 0) for r in reqs],
+           "tokens": [r.output().tolist() for r in reqs],
+           "tokens_equal_fault_free": [r.output().tolist() == w.output().tolist()
+                                       for r, w in zip(reqs, want)],
+           "launches": counts}
+    if check_launches:
+        out["launches_per_decode_step"] = require_fleet_calls(
+            "phase 16 (c)", cudaex, cfg, len(params["layers"]), block_fusion, calls)
+    eng.cache.consume_pools()
+    return out
+
+
+def check_generate_kernels(torch, cudaex, tnn) -> dict:
+    """(d)'s kernels at the shapes ``generate``'s prefill gives them: its
+    B x Tp rows (FLEET_SIZES: 8 x 1000 = 8000, which ends linear_act's
+    wgmma tile path in a ragged 64-row M tile) — rms_norm and
+    rms_norm_residual on (B, Tp, D), linear_act (the gate with its silu) on
+    (B, Tp, D) — each held against its plain version with its planted
+    faults, and timed. Its decode steps run the 8-row shapes of phase 3's
+    rows. {name: [row]}."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(16)
+    lead = (FLEET_SIZES["gen_batch"], FLEET_SIZES["gen_prompt"])
+    rows = {row["name"]: [row] for row in norm_rows(torch, cudaex, tnn, gen, (*lead, D))}
+    rows["linear_act"] = [linear_act_row(torch, cudaex, tnn, gen, lead, iters=10)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def fleet_generate(np, torch, ServingEngine, cudaex, tllama, params, cfg, sizes,
+                   measure: bool) -> dict:
+    """(d) ``generate`` and ``generate_fused`` on B prompts of one length:
+    identical tokens; the captured step launched what one eager step
+    launched; the first-step logits against the engine's replay-step logits
+    for the same prompts, row by row, within GENERATE_LOGITS_TOL; one
+    bucketed call (``prefill_buckets``). ``measure``: the prefill ms and
+    both functions' decode tokens/s (``benchmarks/generate.py``)."""
+    from thunder_tpu_torch.benchmarks import generate as bench_generate
+    from thunder_tpu_torch.testing import row_rel_err
+
+    dev = params["tok_embedding"].device
+    B, T, new, max_len = sizes["gen_batch"], sizes["gen_prompt"], sizes["gen_new"], sizes["gen_max_len"]
+    rng = np.random.RandomState(sizes["seed"] + 3)
+    prompt = rng.randint(1, cfg.vocab_size, size=(B, T))
+    cudaex.reset_launch_counts()
+    eager = tllama.generate(params, cfg, prompt, new, max_len=max_len, device=dev)
+    stats: dict = {}
+    fused = tllama.generate_fused(params, cfg, prompt, new, max_len=max_len, device=dev,
+                                  stats=stats)
+    counts = cudaex.launch_counts()
+    require(torch.equal(eager, fused), "generate_fused tokens differ from generate's")
+    require(0 <= int(eager.min()) and int(eager.max()) < cfg.vocab_size, "out-of-vocab tokens")
+    out = {"batch": B, "prompt": T, "new_tokens": new, "max_len": max_len,
+           "tokens": eager.cpu().tolist(), "launches": counts}
+    if dev.type == "cuda":
+        require(stats["graph"] and stats["replays"] == new - 2, f"graph stats {stats}")
+        require(stats["captured_launches"] == stats["eager_launches"],
+                f"captured step launched {stats['captured_launches']}, one eager step "
+                f"{stats['eager_launches']}")
+        out["launches_per_decode_step"] = stats["eager_launches"]
+        out["eager_step_host_ms"] = stats["eager_step_host_ms"]
+        out["replay_host_ms"] = stats["replay_host_ms"]
+        out["replay_ms"] = stats["replay_ms"]
+        # the counters run on the host: they counted the captured step
+        # once, at capture, where the card ran it once a replay
+        captured = stats["captured_launches"]
+        out["host_launches"] = counts
+        out["launches"] = {k: n + (stats["replays"] - 1) * captured.get(k, 0)
+                           for k, n in counts.items()}
+    # the first-step logits of generate against the engine's replay step
+    cache = tllama.init_kv_cache(cfg, B, max_len, n_layers=len(params["layers"]), device=dev)
+    first, _ = tllama.forward_step(params, torch.from_numpy(prompt).to(dev), cache, 0, cfg,
+                                   last_idx=T - 1)
+    del cache
+    eng = ServingEngine(params, cfg, device=dev, max_slots=B, page_size=sizes["page_size"],
+                        max_context=max_len)
+    replay = {}
+    decode = eng.runner.decode
+
+    def recorded(*args):
+        rows = [(i, r.request_id) for i, r in enumerate(eng.slots)
+                if r is not None and r.state == "decode" and r._replay]
+        toks, logits = decode(*args)
+        for i, rid in rows:
+            replay[rid] = logits[i].clone()
+        return toks, logits
+
+    eng.runner.decode = recorded
+    reqs = [eng.submit(p, 1) for p in prompt]
+    eng.drain()
+    eng.cache.consume_pools()
+    engine_logits = torch.stack([replay[r.request_id] for r in reqs])
+    err = row_rel_err(engine_logits.float(), first[:, 0].float())
+    require(err <= GENERATE_LOGITS_TOL, f"generate's first-step logits vs the engine's replay "
+                                        f"step: {err} > {GENERATE_LOGITS_TOL}")
+    out["first_step_logits_row_rel_err"] = err
+    out["first_token_equal_engine"] = [int(a) == int(r.output()[0])
+                                       for a, r in zip(eager[:, 0], reqs)]
+    # one bucketed call
+    bp = rng.randint(1, cfg.vocab_size, size=(B, sizes["bucket_prompt"]))
+    bucketed = tllama.generate(params, cfg, bp, new, prefill_buckets=sizes["buckets"],
+                               device=dev)
+    plain = tllama.generate(params, cfg, bp, new, device=dev)
+    require(tuple(bucketed.shape) == (B, new) and 0 <= int(bucketed.min())
+            and int(bucketed.max()) < cfg.vocab_size, "bucketed generate's tokens")
+    out["bucketed"] = {"prompt": sizes["bucket_prompt"], "buckets": list(sizes["buckets"]),
+                       "tokens": bucketed.cpu().tolist(),
+                       "rows_equal_unbucketed": [bool(torch.equal(a, b))
+                                                 for a, b in zip(bucketed, plain)]}
+    if measure:
+        out["timing"] = bench_generate.run(cfg.name, batch=B, prompt_len=T, decode=new,
+                                           max_len=max_len, repeats=GEN_REPEATS,
+                                           device=dev, params=params)
+        require(out["timing"]["tokens_identical"], "benchmark tokens differ")
+    return out
+
+
+def fleet_full_width(np, torch, tllama, ServingEngine, SamplingParams, cudaex) -> dict:
+    """Phase 16 (a)-(d) at llama3-8b full width and depth, bf16."""
+    from thunder_tpu_torch.runtime import quarantine
+
+    quarantine.reset()
+    cfg = tllama.CONFIGS["llama3-8b"]
+    params = tllama.init_params(cfg, seed=0, device="cuda")
+    kw = dict(max_slots=FLEET_SLOTS, page_size=PS, max_context=FLEET_CONTEXT)
+    sizes = FLEET_SIZES
+    out = {"model": cfg.name, "layers": cfg.n_layers, "dtype": "bfloat16"}
+    # warm-up request (cuBLAS handles, allocator), not part of the measured runs
+    warm = ServingEngine(params, cfg, **kw)
+    warm.submit(np.arange(1, 40, dtype=np.int32), 2)
+    warm.drain()
+    warm.cache.consume_pools()
+    for bf in (False, True):
+        t0 = time.perf_counter()
+        out["prefix_planned" if bf else "prefix"] = dict(
+            fleet_prefix(np, torch, ServingEngine, cudaex, params, cfg, kw, sizes, bf, True),
+            phase_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    out["best_of"] = dict(fleet_best_of(np, torch, ServingEngine, SamplingParams, cudaex,
+                                        params, cfg, kw, sizes, True),
+                          phase_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    out["restart"] = dict(fleet_restart(np, torch, ServingEngine, cudaex, params, cfg, kw,
+                                        sizes, True, True), phase_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    out["generate"] = dict(fleet_generate(np, torch, ServingEngine, cudaex, tllama, params,
+                                          cfg, sizes, True), phase_s=time.perf_counter() - t0)
+    for k in ("prefix", "prefix_planned", "best_of", "restart"):
+        out[k].pop("tokens", None)
+        out[k].pop("solo_tokens", None)
+    out["generate"].pop("tokens")
+    out["generate"]["bucketed"].pop("tokens")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def fleet_card_vs_cpu(np, torch, tllama, ServingEngine, SamplingParams, cudaex) -> dict:
+    """(e) (a)-(d) on tiny-gqa float32 on the card and on the CPU from the
+    same weights: every token identical, across the restart and the forks
+    too."""
+    cfg = tllama.CONFIGS["tiny-gqa"]
+    params = tllama.init_params(cfg, seed=0, device="cpu")
+    kw = dict(max_slots=4, page_size=8, max_context=128, prefill_chunk=16)
+    sizes = TINY_FLEET_SIZES
+    tokens = {}
+    for device in ("cuda", "cpu"):
+        ps = tllama.to_device(params, device)
+        kwd = dict(kw, device=device)
+        runs = {"prefix": fleet_prefix(np, torch, ServingEngine, cudaex, ps, cfg, kwd, sizes,
+                                       False, False),
+                "prefix_planned": fleet_prefix(np, torch, ServingEngine, cudaex, ps, cfg, kwd,
+                                               sizes, True, False),
+                "best_of": fleet_best_of(np, torch, ServingEngine, SamplingParams, cudaex, ps,
+                                         cfg, kwd, sizes, False),
+                "restart": fleet_restart(np, torch, ServingEngine, cudaex, ps, cfg, kwd, sizes,
+                                         True, False),
+                "generate": fleet_generate(np, torch, ServingEngine, cudaex, tllama, ps, cfg,
+                                           sizes, False)}
+        tokens[device] = {k: (v["tokens"], v.get("solo_tokens"),
+                              v.get("bucketed", {}).get("tokens")) for k, v in runs.items()}
+    bad = [k for k in tokens["cuda"] if tokens["cuda"][k] != tokens["cpu"][k]]
+    require(not bad, f"card and CPU tokens differ in {bad}")
+    return {"model": cfg.name, "dtype": "float32", "tokens_identical": sorted(tokens["cuda"])}
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -2445,10 +2999,39 @@ def main() -> int:
             f"against {g['step_ms_unguarded']:.2f} ms unguarded "
             f"({g['guard_overhead_pct']:+.3f}%) ({card})")
 
+    # phase 16: the serving fleet
+    log("generate's prefill kernels vs plain versions (bf16, full width):")
+    gen_rows = check_generate_kernels(torch, cudaex, tnn)
+    t16 = time.perf_counter()
+    fl = fleet_full_width(np, torch, tllama, ServingEngine, SamplingParams, cudaex)
+    fl["phase_s"] = time.perf_counter() - t16
+    log(f"serving fleet, llama3-8b full width (a)-(d): {json.dumps(fl)} ({card})")
+    t16 = time.perf_counter()
+    fc = fleet_card_vs_cpu(np, torch, tllama, ServingEngine, SamplingParams, cudaex)
+    fc["phase_s"] = time.perf_counter() - t16
+    log(f"serving fleet card vs CPU (e, tiny-gqa, float32): {json.dumps(fc)} ({card})")
+    gt = fl["generate"]["timing"]
+    log("phase 16: " + json.dumps({
+        "ttft_ms_cold_mean": [fl[k]["ttft_ms_cold_mean"] for k in ("prefix", "prefix_planned")],
+        "ttft_ms_warm_mean": [fl[k]["ttft_ms_warm_mean"] for k in ("prefix", "prefix_planned")],
+        "ttft_ms_solo_cold": [fl[k]["ttft_ms_solo_cold"] for k in ("prefix", "prefix_planned")],
+        "ttft_ms_solo_warm": [fl[k]["ttft_ms_solo_warm"] for k in ("prefix", "prefix_planned")],
+        "best_of_peak_pages": [fl["best_of"]["peak_pages_best_of"],
+                               fl["best_of"]["peak_pages_independent"]],
+        "generate_prefill_ms": gt["prefill_ms"],
+        "decode_tok_per_s": [gt["generate_decode_tok_per_s"],
+                             gt["generate_fused_decode_tok_per_s"]],
+        "generate_fused_replay_ms": gt["generate_fused_replay_ms"],
+        "generate_fused_replay_tok_per_s": gt["generate_fused_replay_tok_per_s"],
+        "host_ms_eager_step_vs_replay": [gt["eager_step_host_ms"], gt["replay_host_ms"]],
+        "first_step_logits_row_rel_err": fl["generate"]["first_step_logits_row_rel_err"],
+    }) + f" ({card})")
+
     # one row per kernel and main path: the path's own shape and its own
     # launch count (rms_norm and rms_norm_residual run on several paths;
     # the planned path's rows for kernels it shares with the per-op train
-    # path carry the train path's timings)
+    # path carry the train path's timings; generate's rows are its
+    # prefill's shapes, and its launches the card's)
     keys = ("name", "path", "shape", "design", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
@@ -2479,10 +3062,21 @@ def main() -> int:
                                      for name in gb["launches_per_step"]}, gb),
                                  ("serve-quarantine", {
                                      name: sp_rows.get(name) or rows[name]
-                                     for name, n in sq["launches"].items() if n}, sq)):
+                                     for name, n in sq["launches"].items() if n}, sq),
+                                 ("serve-prefix", rows, fl["prefix"]),
+                                 ("serve-prefix-planned", serve_planned, fl["prefix_planned"]),
+                                 ("serve-best-of", rows, fl["best_of"]),
+                                 ("serve-restart-planned", serve_planned, fl["restart"]),
+                                 ("generate", gen_rows, fl["generate"])):
         for name, rs in path_rows.items():
+            if path in FLEET_PATHS:
+                require(run["launches"].get(name, 0) > 0,
+                        f"{path}: {name} never launched on the main path")
             r = dict(rs[0], path=path, launches=run["launches"][name])
-            kernels.append({k: r[k] for k in keys + ("per_op_chain_ms",) if k in r})
+            if "host_launches" in run:   # generate: the graph's replays ran on the card
+                r["host_launches"] = run["host_launches"][name]
+            kernels.append({k: r[k] for k in keys + ("per_op_chain_ms", "host_launches")
+                            if k in r})
     other_rows = [dict(r, card=card) for rs in (*rows.values(), *train_rows.values(),
                                                 sp_rows["mlp_subblock"]) for r in rs[1:]]
     log("other-shape kernels: " + json.dumps(other_rows))

@@ -1211,3 +1211,91 @@ def test_cuda_gated_update_matches_plain(cuda_device, mix, plant):
     for a, b, c in zip(leaves(gated), leaves(want), leaves(plain)):
         assert torch.equal(a, b)
         assert ulp_distance(a, c) <= 4
+
+
+# ---------------------------------------------------------------------------
+# the serving fleet's pieces on the card: copy-on-write pages, the captured
+# decode loop
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_copy_page_and_fork_bit_for_bit(cuda_device, dtype):
+    """``copy_page`` and a fork's tail copy on the card: the new page holds
+    the source page's bytes in every layer and no other page moves; the same
+    calls on a CPU copy of the pools give the same pools, bit for bit. The
+    copy is ordered before a later write on the same stream."""
+    from thunder_tpu_torch.serving import PagedKVCache, PageGeometry
+
+    g = PageGeometry(n_layers=3, kv_heads=8, head_dim=128, page_size=16, num_pages=40,
+                     pages_per_request=8)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    card = PagedKVCache(g, dtype, "cuda")
+    for kv in card.pools:
+        for t in kv.values():
+            t.copy_(torch.randn(t.shape, generator=gen, device="cuda").to(dtype))
+    cpu = PagedKVCache(g, dtype, "cpu")
+    cpu.pools = [{k: v.cpu() for k, v in kv.items()} for kv in card.pools]
+    before = [{k: v.clone() for k, v in kv.items()} for kv in cpu.pools]
+    outs = []
+    for cache in (card, cpu):
+        pages = cache.alloc(3)
+        forked = cache.fork(pages, 37)            # 2 full pages shared, the tail copied
+        cache.copy_page(pages[0], 30)
+        outs.append((pages, forked, cache.cow_copies))
+        cache.pools[0]["k"][:, forked[2]] = 0     # a write after the copy
+    assert outs[0] == outs[1] and outs[0][2] == 1
+    pages, forked, _ = outs[0]
+    for a, b, kv0 in zip(card.pools, cpu.pools, before):
+        for k in ("k", "v"):
+            assert torch.equal(a[k].cpu(), b[k])
+            want = kv0[k].clone()
+            want[:, forked[2]] = kv0[k][:, pages[2]]
+            want[:, 30] = kv0[k][:, pages[0]]
+            if a is card.pools[0] and k == "k":
+                want[:, forked[2]] = 0
+            assert torch.equal(b[k], want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_cuda_bmm_f32_accumulates_16_bit_operands(cuda_device, dtype):
+    """The contiguous cache's scores on the card: one bmm of the 16-bit
+    operands with float32 output, equal to the float32 product of the same
+    values up to the order of the float32 sums."""
+    from thunder_tpu_torch.ops import nn as tnn
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    a = torch.randn(16, 32, 128, generator=g, device=cuda_device).to(dtype)
+    b = torch.randn(16, 128, 2048, generator=g, device=cuda_device).to(dtype)
+    got = tnn.bmm_f32(a, b)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, torch.bmm(a.float(), b.float()), atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg_name,dtype", [("tiny-gqa", torch.float32),
+                                            ("tiny-gqa", torch.bfloat16)])
+def test_cuda_generate_fused_matches_generate(cuda_device, cfg_name, dtype):
+    """The captured decode loop gives ``generate``'s greedy tokens bit for
+    bit, its capture launched what one eager step launched, a replay's
+    device time was read, and in float32 the tokens equal the CPU's."""
+    import dataclasses
+
+    from thunder_tpu_torch.models import llama as tllama
+
+    cfg = dataclasses.replace(tllama.CONFIGS[cfg_name], dtype=dtype)
+    params = tllama.init_params(cfg, seed=0, device="cuda", n_layers=2)
+    prompt = np.random.RandomState(1).randint(1, cfg.vocab_size, size=(3, 21))
+    stats = {}
+    fused = tllama.generate_fused(params, cfg, prompt, 12, max_len=64, stats=stats)
+    eager = tllama.generate(params, cfg, prompt, 12, max_len=64)
+    assert torch.equal(fused, eager)
+    assert stats["graph"] and stats["replays"] == 10
+    assert stats["captured_launches"] == stats["eager_launches"]
+    assert stats["eager_launches"] == {"rms_norm": 1, "rms_norm_residual": 4, "linear_act": 2}
+    assert stats["replay_ms"] > 0
+    if dtype == torch.float32:
+        cpu = tllama.generate(tllama.to_device(params, "cpu"),
+                              cfg, prompt, 12, max_len=64, device="cpu")
+        assert torch.equal(eager.cpu(), cpu)

@@ -440,9 +440,11 @@ def test_engine_refuses_missing_card(model, monkeypatch):
 
 def test_port_imports_no_jax():
     """Import the port and every module it contains in a fresh interpreter
-    (the serving slice's, the training slices', the train bench's and the
-    runtime-safety layer's — observe/, runtime/, transforms/ — named below
-    so that none can drop out of the walk unnoticed): neither jax nor
+    (the serving slice's, the training slices', the train bench's, the
+    runtime-safety layer's — observe/, runtime/, transforms/ — and the
+    serving fleet's — prefix_cache, supervisor, events, the generate
+    benchmark — named below so
+    that none can drop out of the walk unnoticed): neither jax nor
     thunder_tpu (or any thunder_tpu.* module) is loaded."""
     repo = Path(__file__).resolve().parents[1]
     code = (
@@ -457,11 +459,12 @@ def test_port_imports_no_jax():
         "        'benchmarks.pretrain', 'benchmarks.decode_profile', 'benchmarks.bench',\n"
         "        'core.rematerialization', 'observe.registry', 'observe.flight',\n"
         "        'runtime.faults', 'runtime.retry', 'runtime.quarantine', 'runtime.sentinel',\n"
-        "        'transforms.numerics_guard')]\n"
+        "        'transforms.numerics_guard', 'serving.prefix_cache', 'serving.supervisor',\n"
+        "        'serving.events', 'benchmarks.generate')]\n"
         "missing = [m for m in need if m not in sys.modules]\n"
         "n = sum(m.startswith('thunder_tpu_torch') for m in sys.modules)\n"
         "print(n, bad, missing)\n"
-        "sys.exit(1 if bad or missing or n < 31 else 0)\n")
+        "sys.exit(1 if bad or missing or n < 40 else 0)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=repo, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr

@@ -9,13 +9,17 @@ the attention/MLP projections, and ``forward_hidden``/``forward``/``loss_fn``
 for training at the reference's per-op rung or, with ``block_fusion=True``,
 its planned rung, or with ``remat=True`` one checkpointed region per layer;
 ``fused_loss_fn`` is the chunked-vocab loss of the reference's headline
-train bench. :func:`params_from_jax` carries a JAX ``init_params`` tree
-across as numpy, so both packages can run the same weights.
+train bench. The contiguous-cache inference path: :func:`init_kv_cache`,
+:func:`forward_step`, :func:`generate` and :func:`generate_fused` (the
+decode loop captured as one CUDA graph). :func:`params_from_jax` carries a
+JAX ``init_params`` tree across as numpy, so both packages can run the same
+weights.
 """
 
 from __future__ import annotations
 
 import math
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -317,6 +321,268 @@ def fused_loss_fn(params: dict, tokens: torch.Tensor, targets: torch.Tensor,
     loss, _ = tnn.fused_linear_cross_entropy(h.reshape(B * T, D), params["lm_head"],
                                              targets.reshape(B * T), chunk=chunk)
     return loss
+
+
+# ---------------------------------------------------------------------------
+# KV-cache inference over a contiguous cache (the reference's llama.py:340-575)
+# ---------------------------------------------------------------------------
+
+def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int | None = None,
+                  n_layers: int | None = None, device: str | torch.device = "cuda"):
+    """Per-layer K/V buffers ``(B, kv_heads, max_len, head_dim)`` on
+    ``device``, zeroed."""
+    max_len = max_len or cfg.max_seq_len
+    n = n_layers if n_layers is not None else cfg.n_layers
+    shape = (batch, cfg.kv_heads, max_len, cfg.head_dim)
+    return [{"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+             "v": torch.zeros(shape, dtype=cfg.dtype, device=device)} for _ in range(n)]
+
+
+def _cache_attention(q, ck, cv, valid, out_dtype) -> torch.Tensor:
+    """Grouped-query attention of ``q`` (B, H, T, hd) over the whole
+    contiguous cache (B, KV, max_len, hd), masked by ``valid`` (T,
+    max_len), without expanding the cache: the group folds into q's rows.
+    Scores and softmax in float32, the weights rounded to ``out_dtype``
+    before the product with V. Returns (B, T, H * hd)."""
+    B, H, T, hd = q.shape
+    KV, max_len = ck.shape[1], ck.shape[2]
+    n_rep = H // KV
+    qg = q.reshape(B * KV, n_rep * T, hd)
+    scores = tnn.bmm_f32(qg, ck.reshape(B * KV, max_len, hd).transpose(1, 2))
+    scores = (scores * (1.0 / math.sqrt(hd))).reshape(B, H, T, max_len)
+    scores = torch.where(valid, scores, float("-inf"))
+    w = torch.softmax(scores, -1).to(out_dtype).reshape(B * KV, n_rep * T, max_len)
+    attn = torch.bmm(w, cv.reshape(B * KV, max_len, hd)).reshape(B, H, T, hd)
+    return attn.transpose(1, 2).reshape(B, T, H * hd)
+
+
+def forward_step(params: dict, tokens: torch.Tensor, cache: list, pos, cfg: LlamaConfig,
+                 last_idx=None):
+    """Incremental forward: ``tokens`` (B, T) occupy positions [pos, pos +
+    T) of the contiguous ``cache`` (:func:`init_kv_cache`), which this
+    writes in place. ``pos`` is an int or a 0-d integer tensor on the
+    tokens' device (a captured decode step reads it there). Returns
+    ``(logits (B, T, vocab), cache)``, or (B, 1, vocab) when ``last_idx``
+    (an int or a 0-d tensor) picks one row before the lm_head.
+
+    The kernel calls are the per-op serving runner's, where the reference's
+    epilogue pass rewrites this function's trace: ``rms_norm`` for the first
+    layer's ``attn_norm``, ``rms_norm_residual`` with the residual add for
+    every later norm, and ``linear_act`` for the gate and its silu. The
+    attention over the cache is PyTorch products, as the reference leaves
+    it to XLA."""
+    B, T = tokens.shape
+    dev = tokens.device
+    max_len = cache[0]["k"].shape[2]
+    layers = params["layers"][:len(cache)]
+    h = F.embedding(tokens.long(), params["tok_embedding"])
+    positions = torch.arange(T, device=dev) + pos                     # (T,)
+    cos, sin = _rope_tables(cfg, positions, h.dtype)
+    # validity of cache column j for row i: j <= pos + i
+    valid = torch.arange(max_len, device=dev)[None, :] <= positions[:, None]
+    x = tnn.rms_norm(h, layers[0]["attn_norm"], eps=cfg.norm_eps)
+    for i, (layer, c) in enumerate(zip(layers, cache)):
+        q, k, v = _project_qkv(x, layer, cfg, cos, sin)
+        c["k"].index_copy_(2, positions, k)
+        c["v"].index_copy_(2, positions, v)
+        attn = _cache_attention(q, c["k"], c["v"], valid, h.dtype)
+        h, x = tnn.rms_norm_residual(h, F.linear(attn, layer["wo"]), layer["mlp_norm"],
+                                     eps=cfg.norm_eps)
+        nxt = layers[i + 1]["attn_norm"] if i + 1 < len(layers) else params["norm_f"]
+        h, x = tnn.rms_norm_residual(h, _mlp(x, layer), nxt, eps=cfg.norm_eps)
+    if last_idx is not None:
+        # logits only at row ``last_idx``: the lm_head runs on (B, 1, D)
+        idx = torch.as_tensor(last_idx, device=dev).reshape(1)
+        x = x.index_select(1, idx)
+    return F.linear(x, params["lm_head"]), cache
+
+
+def _gumbel_pick(logits_last: torch.Tensor, temperature: float,
+                 uniforms: torch.Tensor) -> torch.Tensor:
+    """The reference's sampled pick (``llama.py:502-506``) on given (0, 1)
+    float32 uniforms: ``argmax(logits / temperature + g)`` with Gumbel noise
+    ``g = -log(-log(u + 1e-10) + 1e-10)``."""
+    g = -torch.log(-torch.log(uniforms + 1e-10) + 1e-10)
+    return torch.argmax(logits_last / temperature + g, -1)
+
+
+def to_device(params, device):
+    """The parameter tree (dicts and lists of tensors) on ``device``; a
+    tensor already there is kept, not copied."""
+    if isinstance(params, dict):
+        return {k: to_device(v, device) for k, v in params.items()}
+    if isinstance(params, list):
+        return [to_device(v, device) for v in params]
+    return params.to(device)
+
+
+def _prompt_tensor(prompt, device) -> torch.Tensor:
+    if isinstance(prompt, torch.Tensor):
+        return prompt.to(device=device, dtype=torch.int64)
+    return torch.from_numpy(np.asarray(prompt, np.int64)).to(device)
+
+
+def generate(params: dict, cfg: LlamaConfig, prompt, max_new_tokens: int,
+             temperature: float = 0.0, generator: torch.Generator | None = None,
+             max_len: int | None = None, n_layers: int | None = None, prefill_buckets=None,
+             device=None) -> torch.Tensor:
+    """Autoregressive decoding over a contiguous KV cache: one prefill of
+    the ``(B, Tp)`` prompt, then one decode step per token. Greedy when
+    ``temperature == 0``; otherwise the reference's Gumbel pick on
+    uniforms drawn from ``generator`` (a ``torch.Generator`` on the device;
+    seed 0 when omitted) where the reference splits a threefry ``key``, so
+    sampled tokens follow their own stream (ROADMAP, "Known differences").
+    Runs on ``device`` ("cuda" when omitted; params are moved there).
+
+    ``prefill_buckets=(128, 512, ...)`` pads the prompt to a bucket of the
+    ladder (and, without ``max_len``, rounds the cache length to the
+    smallest bucket): the pad rows write K/V past ``Tp`` that the causal
+    mask hides and decode overwrites before any row attends it. Returns the
+    ``(B, max_new_tokens)`` int64 tokens on the device."""
+    from thunder_tpu_torch.data import LengthBucketer
+    from thunder_tpu_torch.devices import resolve_device
+
+    dev = resolve_device(device)
+    prompt = _prompt_tensor(prompt, dev)
+    B, Tp = prompt.shape
+    if max_new_tokens <= 0:
+        return torch.zeros((B, 0), dtype=torch.int64, device=dev)
+    params = to_device(params, dev)
+    prompt_in, Tpad = prompt, Tp
+    if prefill_buckets is not None:
+        bk = LengthBucketer(prefill_buckets)
+        Tpad = bk.bucket_for(Tp)
+        if Tpad != Tp:
+            prompt_in = F.pad(prompt, (0, Tpad - Tp))
+        if max_len is None:
+            align = bk.buckets[0]
+            max_len = min(cfg.max_seq_len, max(Tpad, -(-(Tp + max_new_tokens) // align) * align))
+    max_len = max_len or max(Tp + max_new_tokens, Tpad)
+    if Tpad > max_len:
+        raise ValueError(f"prefill bucket {Tpad} (for prompt length {Tp}) exceeds the KV "
+                         f"cache length (max_len={max_len}); use a tighter bucket ladder "
+                         f"or a larger max_len")
+    if Tp + max_new_tokens > max_len or max_len > cfg.max_seq_len:
+        raise ValueError(f"prompt ({Tp}) + max_new_tokens ({max_new_tokens}) exceeds the "
+                         f"context window (max_len={max_len}, cfg.max_seq_len="
+                         f"{cfg.max_seq_len})")
+    n = n_layers if n_layers is not None else len(params["layers"])
+    cache = init_kv_cache(cfg, B, max_len, n_layers=n, device=dev)
+    if generator is None and temperature != 0.0:
+        generator = torch.Generator(device=dev).manual_seed(0)
+
+    def pick(last):
+        if temperature == 0.0:
+            return torch.argmax(last, -1)
+        u = torch.rand(last.shape, generator=generator, device=dev, dtype=torch.float32)
+        return _gumbel_pick(last, temperature, u)
+
+    last, _ = forward_step(params, prompt_in, cache, 0, cfg, last_idx=Tp - 1)
+    tok = pick(last[:, 0])
+    out = [tok]
+    for i in range(1, max_new_tokens):
+        last, _ = forward_step(params, tok[:, None], cache, Tp + i - 1, cfg)
+        tok = pick(last[:, 0])
+        out.append(tok)
+    return torch.stack(out, 1)
+
+
+def generate_fused(params: dict, cfg: LlamaConfig, prompt, max_new_tokens: int,
+                   max_len: int | None = None, n_layers: int | None = None,
+                   device=None, stats: dict | None = None) -> torch.Tensor:
+    """Greedy decoding with the decode loop as one device program, the
+    counterpart of the reference's ``lax.scan`` over the compiled step: on
+    the card, after the prefill and one eager decode step (which warms
+    every kernel and library handle on the capture stream), the greedy
+    step is captured once in a ``torch.cuda.CUDAGraph`` with the token, the
+    position and the output column held on the device, and replayed once a
+    token — no host round trip per token. On the CPU it is the same loop,
+    uncaptured. The tokens equal :func:`generate`'s (greedy).
+
+    ``stats``, when given, receives on the card: ``graph`` (whether the
+    loop was captured), ``replays``, the kernel launches of the eager step
+    and of the capture (``eager_launches``, ``captured_launches``: the
+    counters run on the host, so they count the captured step once, at
+    capture, where the card runs it once a replay), the host ms to issue
+    the eager step and one replay (``eager_step_host_ms``,
+    ``replay_host_ms``), and the device ms of one replay (``replay_ms``:
+    CUDA events around the replay loop alone, which waits for them)."""
+    from thunder_tpu_torch.devices import resolve_device
+
+    dev = resolve_device(device)
+    prompt = _prompt_tensor(prompt, dev)
+    B, Tp = prompt.shape
+    max_len = max_len or (Tp + max_new_tokens)
+    if not Tp + max_new_tokens <= max_len <= cfg.max_seq_len:
+        raise ValueError(f"prompt ({Tp}) + max_new_tokens ({max_new_tokens}) exceeds "
+                         f"max_len={max_len} / cfg.max_seq_len={cfg.max_seq_len}")
+    params = to_device(params, dev)
+    n = n_layers if n_layers is not None else len(params["layers"])
+    cache = init_kv_cache(cfg, B, max_len, n_layers=n, device=dev)
+    last, _ = forward_step(params, prompt, cache, 0, cfg, last_idx=Tp - 1)
+    first = torch.argmax(last[:, 0], -1)
+    if max_new_tokens == 1:
+        return first[:, None]
+
+    # the decode state lives on the device: the last token, its position,
+    # and the output column the step writes
+    out = torch.empty((B, max_new_tokens), dtype=torch.int64, device=dev)
+    out[:, 0] = first
+    tok = first[:, None].clone()
+    pos = torch.full((), Tp, dtype=torch.int64, device=dev)
+    col = torch.ones(1, dtype=torch.int64, device=dev)
+
+    def body():
+        logits, _ = forward_step(params, tok, cache, pos, cfg)
+        nxt = torch.argmax(logits[:, -1], -1)
+        out.index_copy_(1, col, nxt[:, None])
+        tok.copy_(nxt[:, None])
+        pos.add_(1)
+        col.add_(1)
+
+    if dev.type != "cuda":
+        for _ in range(max_new_tokens - 1):
+            body()
+        if stats is not None:
+            stats.update(graph=False, replays=0)
+        return out
+
+    from thunder_tpu_torch.executors import cudaex
+
+    def launches(fn):
+        before = cudaex.launch_counts()
+        t = time.perf_counter()
+        fn()
+        host_ms = (time.perf_counter() - t) * 1e3
+        after = cudaex.launch_counts()
+        return {k: after[k] - before[k] for k in after if after[k] != before[k]}, host_ms
+
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(stream):
+        eager, eager_ms = launches(body)     # the eager step: token 2
+    torch.cuda.current_stream(dev).wait_stream(stream)
+    replays = max_new_tokens - 2
+    captured, replay_host_ms, replay_ms = {}, 0.0, 0.0
+    if replays:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            captured, _ = launches(body)     # counted once, at capture
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        t = time.perf_counter()
+        for _ in range(replays):
+            graph.replay()
+        replay_host_ms = (time.perf_counter() - t) * 1e3 / replays
+        end.record()
+        if stats is not None:
+            end.synchronize()
+            replay_ms = start.elapsed_time(end) / replays
+    if stats is not None:
+        stats.update(graph=bool(replays), replays=replays, eager_launches=eager,
+                     captured_launches=captured, eager_step_host_ms=eager_ms,
+                     replay_host_ms=replay_host_ms, replay_ms=replay_ms)
+    return out
 
 
 def num_params(cfg: LlamaConfig, n_layers: int | None = None) -> int:

@@ -568,9 +568,11 @@ def _default_ce_chunk(V: int) -> int:
     return 16384 if V <= 65536 else 8192
 
 
-def _mm_out_dtype_available(a: torch.Tensor) -> bool:
+def _mm_out_dtype_available(a: torch.Tensor, op=torch.ops.aten.mm) -> bool:
+    """Whether ``op`` (``aten.mm`` or ``aten.bmm``) can take ``a``'s 16-bit
+    operands to a float32 product on the card (its ``out_dtype`` overload)."""
     return (a.device.type == "cuda" and a.dtype in _HALF
-            and "dtype" in torch.ops.aten.mm.overloads())
+            and "dtype" in op.overloads())
 
 
 def flce_logits_route(h: torch.Tensor) -> str:
@@ -592,6 +594,22 @@ def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.dtype == b.dtype and _mm_out_dtype_available(a):
         return torch.mm(a, b, out_dtype=torch.float32)
     return torch.mm(a.float(), b.float())
+
+
+def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched ``a @ b`` as float32 from operands in the model dtype. On the
+    card a 16-bit product is one ``bmm(out_dtype=float32)``, accumulating in
+    float32 with no float32 copy of the operands (the contiguous cache is
+    never copied), and raises where torch lacks that overload; off the card
+    16-bit operands are taken to float32."""
+    if a.dtype == b.dtype == torch.float32:
+        return torch.bmm(a, b)
+    if a.device.type == "cuda":
+        if a.dtype != b.dtype or not _mm_out_dtype_available(a, torch.ops.aten.bmm):
+            raise RuntimeError(f"bmm_f32: no float32-output bmm for {a.dtype} x {b.dtype} on "
+                               f"the card (torch {torch.__version__} lacks bmm(out_dtype=))")
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
 
 
 class _FusedLinearCrossEntropy(torch.autograd.Function):

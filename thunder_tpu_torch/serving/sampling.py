@@ -57,11 +57,24 @@ class SamplingParams:
         if not 0.0 < self.top_p <= 1.0:
             raise ValueError(f"top_p must be in (0, 1], got {self.top_p}")
 
+    @property
+    def greedy(self) -> bool:
+        return self.temperature == 0.0
+
     def stream_seed(self, request_id: int) -> int:
         """The uint32 seed of this request's stream."""
         if self.seed is not None:
             return self.seed & _M32
         return (request_id * 0x9E3779B1 + 0x7F4A7C15) & _M32
+
+    def fork(self, branch: int) -> "SamplingParams":
+        """The params of best-of-N branch ``branch`` (1-based for clones):
+        the same filtering on the seed shifted by ``branch``, so each branch
+        draws its own stream and stays reproducible when the parent's seed
+        is pinned."""
+        seed = None if self.seed is None else (self.seed + branch) & _M32
+        return SamplingParams(temperature=self.temperature, top_k=self.top_k,
+                              top_p=self.top_p, seed=seed)
 
 
 GREEDY = SamplingParams()
