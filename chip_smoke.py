@@ -238,6 +238,38 @@ The serving fleet (``serving/prefix_cache.py``, best-of-N forks,
     card and on the CPU: every token identical, across the forks and the
     restart.
 
+The model zoo (``models/{mixtral,gpt,nanogpt,seq2seq,resnet}.py``,
+``optim.SGD``, ``benchmarks/zoo.py``): phase 3 also holds the kernels at the
+shapes phase 17 gives them (attention at Mixtral's hd 128, hd 64 at 16, 25,
+32 and Falcon's 71 heads, Gemma's hd 256, BART's non-causal float32
+cross-attention T 512 against S 1024 and its other two; ``ce_fwd`` on each
+model's float32 logits, 50257 and 50265 on its scalar loads, 256000, and
+1000 classes; the norms at (1, 2048, 4096) and Gemma's D = 2048 in bf16,
+BART's D = 768 in float32; ``fused_adamw`` over each path's own whole
+bucket, Mixtral's 3.16 G parameters at 2 layers among them, checked leaf by
+leaf), each on the design its rule names.
+
+17. zoo — (a) each tiny config (tiny-moe, the five tiny gpt configs,
+    gpt2-tiny, seq2seq tiny, resnet-tiny) in float32 on the card and on the
+    CPU from the same weights and batch: the loss, every gradient and the
+    parameters after one optimizer step (ZOO_GRAD_RTOL, phase 6's bounds),
+    tiny-moe's top-k experts identical in every layer, the card's step
+    launching the reference's claims. (b) Mixtral-8x7B at full width, 2 of
+    its 32 layers, B=1, T=2048, bf16, AdamW with float32 moments: 3 steps of
+    ``loss_fn``, then ``loss_fn`` without a gradient and one step of
+    ``fused_loss_fn(remat=True)`` on the same weights and batch (the two
+    losses within MIXTRAL_FUSED_LOSS_ATOL, which the router aux term must
+    exceed), then ``expert_utilization``.
+    (c) each other family at full width, a warm-up and ZOO_STEPS timed steps
+    on one batch: pythia-410m, phi-1.5 and gemma-2b at full depth (B=1,
+    T=2048), gpt2-medium at full depth (B=2, T=1024: its 1024 learned
+    positions), falcon-7b at 4 of 32 layers, nanogpt gpt2-xl (B=4, T=1024),
+    bart-base (source 1024, target 512, float32), resnet18 (B=64, 224 x 224,
+    float32, ``SGD(momentum=0.9)``). In (b) and (c) the losses are finite and
+    fall on the repeated batch, every step launches each kernel as often as
+    the reference's training trace claims it (``zoo.expected_launches``),
+    and the step ms, tokens/s (images/s) and peak memory are printed.
+
 No phase can fall back to a plain version on the card: a CUDA call whose
 inputs a kernel does not take raises in the kernel's wrapper, with the
 reason ``cudaex.refusal`` gives, and fails its phase; a quarantined kernel
@@ -889,10 +921,7 @@ def check_train_kernels(torch, cudaex, tnn, toptim_ops, tllama):
     full-width shapes, each timed beside its plain version, its bound and
     one library call that computes the same function: {name: [rows]}, the
     train path's own shape first."""
-    import torch.nn.functional as F
-
     from thunder_tpu_torch.optim import tree_leaves
-    from thunder_tpu_torch.testing import row_rel_err, ulp_distance
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -907,136 +936,28 @@ def check_train_kernels(torch, cudaex, tnn, toptim_ops, tllama):
     # attention forward and backward, causal (the train path) and not, each
     # output and gradient held row by row (row_rel_err)
     B, H, T, hd = ATTN_SHAPE
-    q, k, v, g = (torch.randn(ATTN_SHAPE, generator=gen, device=dev).to(bf16)
-                  for _ in range(4))
-    bh_t = B * H * T
-    for causal in (True, False):
-        tag = f"{B}x{H}x{T}x{hd}{' causal' if causal else ''}"
-        frac = 0.5 if causal else 1.0
-        (out, lse), design = ran(cudaex, "sdpa_fwd", lambda: cudaex.sdpa_fwd(q, k, v, causal))
-        want_out, want_lse = tnn.sdpa_fwd_plain(q, k, v, causal)
-        err = float((out.float() - want_out.float()).abs().max())
-        out_rel = row_rel_err(out, want_out)
-        lse_err = float((lse - want_lse).abs().max())
-        require(out_rel <= ATTN_TOL and lse_err <= LSE_TOL,
-                f"sdpa_fwd {tag}: out err {out_rel} of its rows' largest values (abs {err}), "
-                f"lse err {lse_err}")
-        row = timed_row(
-            torch, cudaex, "sdpa_fwd", tag, err, lambda: cudaex.sdpa_fwd(q, k, v, causal),
-            lambda: tnn.sdpa_fwd_plain(q, k, v, causal),
-            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal),
-            4 * bh_t * hd * 2 + bh_t * 4, 4.0 * bh_t * T * hd * frac, BF16_FLOPS, 10, 3)
-        row["design"] = design
-        log(f"    design {design}")
-        rows.setdefault("sdpa_fwd", []).append(row)
-        # the backward from the plain forward's (out, lse), so it is held alone
-        got, bwd_design = ran(cudaex, "sdpa_bwd",
-                              lambda: cudaex.sdpa_bwd(g, q, k, v, want_out, want_lse, causal))
-        require(bwd_design == "wgmma", f"sdpa_bwd {tag}: bf16 hd {hd} took {bwd_design}")
-        want = tnn.sdpa_bwd_plain(g, q, k, v, want_out, want_lse, causal)
-        errs = [float((a.float() - b.float()).abs().max()) for a, b in zip(got, want)]
-        rels = [row_rel_err(a, b) for a, b in zip(got, want)]
-        require(max(rels) <= GRAD_REL_TOL,
-                f"sdpa_bwd {tag}: dq/dk/dv err {rels} of their rows' largest values")
-        log(f"  attention {tag}: out {out_rel:.3e}, dq/dk/dv "
-            f"{', '.join(f'{r:.3e}' for r in rels)} of their rows' largest values")
-        if causal:
-            log("  planted faults: " + json.dumps(planted_faults(torch, out, want_out, got,
-                                                                 want)))
-            again = cudaex.sdpa_bwd(g, q, k, v, want_out, want_lse, causal)
-            require(all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
-                    f"sdpa_bwd {tag}: two calls on the same inputs differ")
-            log("  sdpa_bwd deterministic: two calls give bit-identical dq, dk, dv")
-            del again
-        del got, want
-        lib = None
-        try:
-            fa = torch.ops.aten._scaled_dot_product_flash_attention(q, k, v, 0.0, causal)
-
-            def lib():
-                return torch.ops.aten._scaled_dot_product_flash_attention_backward(
-                    g, q, k, v, fa[0], fa[1], fa[2], fa[3], fa[4], fa[5], 0.0, causal,
-                    fa[6], fa[7])
-        except (RuntimeError, TypeError) as e:
-            log(f"  aten flash attention unavailable: {str(e).splitlines()[0][:200]}")
-        row = timed_row(
-            torch, cudaex, "sdpa_bwd", tag, max(errs),
-            lambda: cudaex.sdpa_bwd(g, q, k, v, want_out, want_lse, causal),
-            lambda: tnn.sdpa_bwd_plain(g, q, k, v, want_out, want_lse, causal), lib,
-            8 * bh_t * hd * 2 + bh_t * 4, 10.0 * bh_t * T * hd * frac, BF16_FLOPS, 10, 3)
-        # the design recomputes S and dP in its dQ pass: 7 products, not 5
-        row["design"] = bwd_design
-        log(f"    design {bwd_design}, its 7-product floor "
-            f"{14.0 * bh_t * T * hd * frac / BF16_FLOPS * 1e3:.4f} ms")
-        rows.setdefault("sdpa_bwd", []).append(row)
-        del out, lse, want_out, want_lse, lib
-        gc.collect()
-        torch.cuda.empty_cache()
-    del q, k, v, g
+    for fwd, bwd in attention_rows(torch, cudaex, tnn, gen, bf16, B, H, T, T, hd,
+                                   (True, False), faults=True):
+        rows.setdefault("sdpa_fwd", []).append(fwd)
+        rows.setdefault("sdpa_bwd", []).append(bwd)
 
     # cross-entropy over the loss's f32 logits, with some ignored rows
-    N, V = CE_SHAPE
-    logits = torch.randn(CE_SHAPE, generator=gen, device=dev) * 2.0
-    target = torch.randint(0, V, (N,), generator=gen, device=dev)
-    target[::97] = -100
-    nll, lse = cudaex.ce_fwd(logits, target)
-    want_nll, want_lse = tnn.ce_fwd_plain(logits, target)
-    err = float(max((nll - want_nll).abs().max(), (lse - want_lse).abs().max()))
-    for a, b in ((nll, want_nll), (lse, want_lse)):
-        require(torch.allclose(a, b, rtol=CE_RTOL, atol=CE_RTOL * float(b.abs().max())),
-                f"ce_fwd: err {err}")
-    require(float(nll[::97].abs().max()) == 0.0, "ce_fwd: an ignored row has a non-zero nll")
-    rows["ce_fwd"] = [timed_row(
-        torch, cudaex, "ce_fwd", f"{N}x{V} f32", err, lambda: cudaex.ce_fwd(logits, target),
-        lambda: tnn.ce_fwd_plain(logits, target),
-        lambda: F.cross_entropy(logits, target, reduction="none"),
-        N * V * 4 + N * 8 + 2 * N * 4, 4.0 * N * V, F32_FLOPS, 10, 3)]
+    rows["ce_fwd"] = [ce_row(torch, cudaex, tnn, gen, *CE_SHAPE)]
     log("    (library: F.cross_entropy(reduction='none') gives nll without lse)")
-    del logits, target, nll, lse, want_nll, want_lse
 
-    # AdamW over the 4-layer llama3-8b-bench bucket: one launch, in place
+    # AdamW over the 4-layer llama3-8b-bench bucket: one launch, in place;
+    # then the health pass on it, which reads bf16 p and g, f32 m and v: 12
+    # bytes an element
+    def health(ps, gs, ms, vs, bc, hyper):
+        return health_row(torch, cudaex, toptim_ops, "fused_adamw_health", (ps, gs, ms, vs), {},
+                          bc, hyper, sum(p.numel() for p in ps), 12)
+
     cfg = tllama.CONFIGS["llama3-8b-bench"]
-    ps = tree_leaves(tllama.init_params(cfg, seed=2, device=dev, n_layers=TRAIN_LAYERS))
-    n = sum(p.numel() for p in ps)
-    gs = [torch.randn(p.shape, generator=gen, device=dev).mul_(1e-3).to(bf16) for p in ps]
-    ms = [torch.randn(p.shape, generator=gen, device=dev).mul_(1e-3) for p in ps]
-    vs = [torch.rand(p.shape, generator=gen, device=dev).mul_(1e-6) for p in ps]
-    step = 10
-    bc = torch.tensor([1 - 0.9 ** step, 1 - 0.999 ** step], dtype=torch.float32, device=dev)
-    hyper = dict(lr=1e-4, beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.01)
-    want = [toptim_ops.adamw_step_plain(p, g_, m, v_, bc[0], bc[1], **hyper)
-            for p, g_, m, v_ in zip(ps, gs, ms, vs)]
-    cudaex.fused_adamw(ps, gs, ms, vs, bc, **hyper)
-    torch.cuda.synchronize()
-    ulp = max(ulp_distance(a, b) for got, w in zip(zip(ps, ms, vs), want)
-              for a, b in zip(got, w))
-    err = max(float((a.float() - b.float()).abs().max()) for got, w in zip(zip(ps, ms, vs), want)
-              for a, b in zip(got, w))
-    del want
-    require(ulp <= ADAMW_ULP, f"fused_adamw: {ulp} ULP from adamw_step_plain")
-    log(f"  fused_adamw: {len(ps)} tensors, {n} parameters, max {ulp} ULP from the plain version")
-
-    def plain_adamw():
-        for p, g_, m, v_ in zip(ps, gs, ms, vs):
-            toptim_ops.adamw_step_plain(p, g_, m, v_, bc[0], bc[1], **hyper)
-
-    lib = None
-    if hasattr(torch, "_fused_adamw_"):
-        lp, lm, lv = ([t.clone() for t in ts] for ts in (ps, ms, vs))
-        steps_t = [torch.full((), float(step), device=dev) for _ in ps]
-
-        def lib():
-            torch._fused_adamw_(lp, gs, lm, lv, [], steps_t, lr=hyper["lr"], beta1=0.9,
-                                beta2=0.999, weight_decay=0.01, eps=1e-8, amsgrad=False,
-                                maximize=False)
-    rows["fused_adamw"] = [timed_row(
-        torch, cudaex, "fused_adamw", f"{n} bf16", err,
-        lambda: cudaex.fused_adamw(ps, gs, ms, vs, bc, **hyper), plain_adamw,
-        lib, n * 22, 12.0 * n, F32_FLOPS, 10, 2)]
-    # the health pass reads bf16 p and g, f32 m and v: 12 bytes an element
-    rows["fused_adamw_health"] = [health_row(torch, cudaex, toptim_ops, "fused_adamw_health",
-                                             (ps, gs, ms, vs), {}, bc, hyper, n, 12)]
-    del ps, gs, ms, vs, lib
+    adamw, health_r = adamw_bucket_row(
+        torch, cudaex, toptim_ops, gen,
+        tree_leaves(tllama.init_params(cfg, seed=2, device=dev, n_layers=TRAIN_LAYERS)), None,
+        then=health)
+    rows["fused_adamw"], rows["fused_adamw_health"] = [adamw], [health_r]
     gc.collect()
     torch.cuda.empty_cache()
     return rows
@@ -2881,6 +2802,517 @@ def fleet_card_vs_cpu(np, torch, tllama, ServingEngine, SamplingParams, cudaex) 
     return {"model": cfg.name, "dtype": "float32", "tokens_identical": sorted(tokens["cuda"])}
 
 
+# ---------------------------------------------------------------------------
+# phase 3, the model zoo's shapes; phase 17: the zoo trained at full width
+# ---------------------------------------------------------------------------
+
+# phase 17 (b) and (c): each family at the full width of its published
+# config; depth cut where the card's memory forces it (Mixtral to 2 of 32
+# layers, Falcon to 4 of 32), gpt2-medium at its 1024 learned positions
+ZOO_PATHS = {
+    "zoo-mixtral-8x7b": dict(model="mixtral/mixtral-8x7b", layers=2, batch=1, seq=2048),
+    "zoo-pythia-410m": dict(model="gpt/pythia-410m", batch=1, seq=2048),
+    "zoo-phi-1.5": dict(model="gpt/phi-1.5", batch=1, seq=2048),
+    "zoo-gemma-2b": dict(model="gpt/gemma-2b", batch=1, seq=2048),
+    "zoo-gpt2-medium": dict(model="gpt/gpt2-medium", batch=2, seq=1024),
+    "zoo-falcon-7b": dict(model="gpt/falcon-7b", layers=4, batch=1, seq=2048),
+    "zoo-gpt2-xl": dict(model="nanogpt/gpt2-xl", batch=4, seq=1024),
+    "zoo-bart-base": dict(model="seq2seq/bart-base", batch=1, seq=512, src_seq=1024),
+    "zoo-resnet18": dict(model="resnet/resnet18", batch=64, seq=0, image=224, lr=1e-2),
+}
+ZOO_LR = 1e-4
+ZOO_STEPS = 2          # timed steps after the warm-up step
+MIXTRAL_STEPS = 2      # (b): 3 steps of loss_fn in all, then one fused remat step
+# (b): the fused loss (lm_head in float32 chunks) against loss_fn (bf16
+#   logits taken to float32) on the same weights and batch: only the
+#   logits' bf16 rounding differs (2**-9 relative, ~0.004 on a logit of 2),
+#   which moves the mean loss by ~1e-4 (1.47e-4 on the H100). The bound
+#   stands ~10x under the router aux term both losses add (~0.01 a layer at
+#   a balanced router), so a fused loss that dropped or doubled it fails;
+#   the run requires that aux term to exceed the bound
+MIXTRAL_FUSED_LOSS_ATOL = 2e-3
+# (a): the tiny configs in float32, card against CPU: losses 1e-5 relative
+#   (phase 6's), gradients 1e-5 of each leaf's largest value (at least 1e-5
+#   absolute: float32 sums in another order on each side, cuBLAS and the
+#   FMA attention against the CPU's), parameters after one step phase 6's
+#   0.2 lr where the gradient stands above that tolerance (a noise-level
+#   gradient gives a noise-decided first Adam step of up to lr, so 2 lr
+#   there); tiny-moe's top-k experts identical in every layer
+ZOO_GRAD_RTOL = 1e-5
+ZOO_TINY = ("mixtral/tiny-moe", "gpt/tiny", "gpt/tiny-neox", "gpt/tiny-falcon", "gpt/tiny-gemma",
+            "gpt/tiny-phi", "nanogpt/gpt2-tiny", "seq2seq/tiny", "resnet/resnet-tiny")
+# float32 attention rows (bart-base): the card tests' bounds, output 1e-5 and
+#   gradients 1e-4 of each row's largest value, lse 1e-4
+F32_ATTN_TOL, F32_GRAD_TOL, F32_LSE_TOL = 1e-5, 1e-4, 1e-4
+
+
+def zoo_attention_shapes(cfg_of, path: str) -> list:
+    """``[(dtype, B, H, T, S, hd, causal)]`` of a zoo path's attention calls,
+    the row the table keeps first."""
+    spec = ZOO_PATHS[path]
+    fam, cfg = cfg_of(spec["model"])
+    B, T = spec["batch"], spec["seq"]
+    if fam == "resnet":
+        return []
+    if fam == "seq2seq":
+        S = spec["src_seq"]
+        H, hd = cfg.n_heads, cfg.head_dim
+        return [(cfg.dtype, B, H, T, S, hd, False), (cfg.dtype, B, H, S, S, hd, False),
+                (cfg.dtype, B, H, T, T, hd, True)]
+    if fam == "nanogpt":
+        return [(cfg.dtype, B, cfg.n_head, T, T, cfg.n_embd // cfg.n_head, True)]
+    return [(cfg.dtype, B, cfg.n_heads, T, T, cfg.head_dim, True)]
+
+
+def attention_rows(torch, cudaex, tnn, gen, dtype, B, H, T, S, hd, causals, faults=False):
+    """sdpa_fwd and sdpa_bwd at one shape against their plain versions, row
+    by row (row_rel_err), each on the design its rule names, for each flag
+    in ``causals`` on the same q, k, v and dO (drawn in that order);
+    ``[(fwd row, bwd row)]``. ``faults``: on the causal case, the planted
+    faults must fail the row check and two backward calls must agree bit
+    for bit."""
+    import torch.nn.functional as F
+
+    from thunder_tpu_torch.testing import row_rel_err
+
+    dev = torch.device("cuda")
+    f32 = dtype == torch.float32
+    q = torch.randn(B, H, T, hd, generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn(B, H, S, hd, generator=gen, device=dev).to(dtype) for _ in range(2))
+    g = torch.randn(B, H, T, hd, generator=gen, device=dev).to(dtype)
+    esize, peak = (4, F32_FLOPS) if f32 else (2, BF16_FLOPS)
+    out_tol, grad_tol, lse_tol = ((F32_ATTN_TOL, F32_GRAD_TOL, F32_LSE_TOL) if f32
+                                  else (ATTN_TOL, GRAD_REL_TOL, LSE_TOL))
+    bh = B * H
+    rows = []
+    for causal in causals:
+        tag = (f"{B}x{H}x{T}{f'x{S}' if S != T else ''}x{hd}{' causal' if causal else ''}"
+               f"{' f32' if f32 else ''}")
+        frac = 0.5 if causal and T == S else 1.0
+        (out, lse), design = ran(cudaex, "sdpa_fwd", lambda: cudaex.sdpa_fwd(q, k, v, causal))
+        require(design == cudaex.sdpa_fwd_design(dtype, hd), f"sdpa_fwd {tag}: took {design}")
+        want_out, want_lse = tnn.sdpa_fwd_plain(q, k, v, causal)
+        out_rel = row_rel_err(out, want_out)
+        lse_err = float((lse - want_lse).abs().max())
+        require(out_rel <= out_tol and lse_err <= lse_tol,
+                f"sdpa_fwd {tag}: out err {out_rel} of its rows' largest values, lse err {lse_err}")
+        fwd = timed_row(torch, cudaex, "sdpa_fwd", tag,
+                        float((out.float() - want_out.float()).abs().max()),
+                        lambda: cudaex.sdpa_fwd(q, k, v, causal),
+                        lambda: tnn.sdpa_fwd_plain(q, k, v, causal),
+                        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal),
+                        2 * bh * (T + S) * hd * esize + bh * T * 4,
+                        4.0 * bh * T * S * hd * frac, peak, 10, 3)
+        fwd["design"] = design
+        # the backward from the plain forward's (out, lse), so it is held alone
+        got, bwd_design = ran(cudaex, "sdpa_bwd",
+                              lambda: cudaex.sdpa_bwd(g, q, k, v, want_out, want_lse, causal))
+        require(bwd_design == cudaex.sdpa_bwd_design(dtype, hd),
+                f"sdpa_bwd {tag}: took {bwd_design}")
+        want = tnn.sdpa_bwd_plain(g, q, k, v, want_out, want_lse, causal)
+        rels = [row_rel_err(a, b) for a, b in zip(got, want)]
+        require(max(rels) <= grad_tol, f"sdpa_bwd {tag}: dq/dk/dv err {rels} of their rows' "
+                                       f"largest values")
+        err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
+        log(f"  attention {tag}: design {design}/{bwd_design}, out {out_rel:.3e}, "
+            f"lse {lse_err:.3e}, dq/dk/dv {', '.join(f'{r:.3e}' for r in rels)} of their rows' "
+            f"largest values")
+        if faults and causal:
+            log("  planted faults: " + json.dumps(planted_faults(torch, out, want_out, got,
+                                                                 want)))
+            again = cudaex.sdpa_bwd(g, q, k, v, want_out, want_lse, causal)
+            require(all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
+                    f"sdpa_bwd {tag}: two calls on the same inputs differ")
+            log("  sdpa_bwd deterministic: two calls give bit-identical dq, dk, dv")
+            del again
+        del got, want
+        lib, lib_note = None, None
+        if f32:
+            lib_note = "aten's flash backward takes 16-bit inputs only"
+        else:
+            try:
+                fa = torch.ops.aten._scaled_dot_product_flash_attention(q, k, v, 0.0, causal)
+
+                def lib():
+                    return torch.ops.aten._scaled_dot_product_flash_attention_backward(
+                        g, q, k, v, fa[0], fa[1], fa[2], fa[3], fa[4], fa[5], 0.0, causal,
+                        fa[6], fa[7])
+            except (RuntimeError, TypeError) as e:
+                lib_note = f"aten flash attention unavailable: {str(e).splitlines()[0][:160]}"
+        bwd = timed_row(torch, cudaex, "sdpa_bwd", tag, err,
+                        lambda: cudaex.sdpa_bwd(g, q, k, v, want_out, want_lse, causal),
+                        lambda: tnn.sdpa_bwd_plain(g, q, k, v, want_out, want_lse, causal), lib,
+                        4 * bh * (T + S) * hd * esize + bh * T * 4,
+                        10.0 * bh * T * S * hd * frac, peak, 10, 3)
+        bwd["design"] = bwd_design
+        if lib_note:
+            bwd["library_note"] = lib_note
+        if bwd_design == "wgmma":   # it recomputes S and dP in its dQ pass: 7 products, not 5
+            log(f"    its 7-product floor {14.0 * bh * T * S * hd * frac / peak * 1e3:.4f} ms")
+        rows.append((fwd, bwd))
+        del out, lse, want_out, want_lse, lib
+        gc.collect()
+        torch.cuda.empty_cache()
+    del q, k, v, g
+    return rows
+
+
+def ce_row(torch, cudaex, tnn, gen, N, V):
+    """ce_fwd on (N, V) float32 logits (the zoo's losses take the logits to
+    float32) against its plain version, some rows ignored; its row. Odd V
+    takes the kernel's scalar loads."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    logits = torch.randn(N, V, generator=gen, device=dev) * 2.0
+    target = torch.randint(0, V, (N,), generator=gen, device=dev)
+    target[::97] = -100
+    nll, lse = cudaex.ce_fwd(logits, target)
+    want_nll, want_lse = tnn.ce_fwd_plain(logits, target)
+    err = float(max((nll - want_nll).abs().max(), (lse - want_lse).abs().max()))
+    for a, b in ((nll, want_nll), (lse, want_lse)):
+        require(torch.allclose(a, b, rtol=CE_RTOL, atol=CE_RTOL * float(b.abs().max())),
+                f"ce_fwd {N}x{V}: err {err}")
+    require(float(nll[::97].abs().max()) == 0.0, f"ce_fwd {N}x{V}: an ignored row's nll")
+    row = timed_row(torch, cudaex, "ce_fwd", f"{N}x{V} f32{' scalar' if V % 4 else ''}", err,
+                    lambda: cudaex.ce_fwd(logits, target),
+                    lambda: tnn.ce_fwd_plain(logits, target),
+                    lambda: F.cross_entropy(logits, target, reduction="none"),
+                    N * V * 4 + N * 8 + 2 * N * 4, 4.0 * N * V, F32_FLOPS, 10, 3)
+    del logits, target, nll, lse, want_nll, want_lse
+    torch.cuda.empty_cache()
+    return row
+
+
+def f32_residual_row(torch, cudaex, tnn, gen, shape):
+    """rms_norm_residual on float32 rows (bart-base's) against its plain
+    version: h bit for bit, the normed rows 1e-5 relative; its row."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    r, x = (torch.randn(*shape, generator=gen, device=dev) for _ in range(2))
+    d = shape[-1]
+    w = torch.rand(d, generator=gen, device=dev) + 0.5
+    (gh, gy), design = ran(cudaex, "rms_norm_residual",
+                           lambda: cudaex.rms_norm_residual(r, x, w, EPS))
+    wh, wy = tnn.rms_norm_residual_plain(r, x, w, EPS)
+    err = float((gy - wy).abs().max())
+    require(bool(torch.equal(gh, wh)) and torch.allclose(gy, wy, rtol=1e-5, atol=1e-5),
+            f"rms_norm_residual {shape} f32: err {err}")
+    n = x.numel()
+    row = timed_row(torch, cudaex, "rms_norm_residual", "x".join(map(str, shape)) + " f32", err,
+                    lambda: cudaex.rms_norm_residual(r, x, w, EPS),
+                    lambda: tnn.rms_norm_residual_plain(r, x, w, EPS), None,
+                    4 * n * 4 + d * 4, 5 * n, F32_FLOPS, 30, 30)
+    row["per_op_chain_ms"] = time_ms(torch, lambda: F.rms_norm(torch.add(r, x), (d,), w, EPS), 30)
+    row["design"] = design
+    return row
+
+
+def adamw_bucket_row(torch, cudaex, toptim_ops, gen, leaves, tag, then=None):
+    """fused_adamw over one model's whole bucket in one launch (its
+    parameters, random gradients and moments, drawn in that order) against
+    adamw_step_plain leaf by leaf, within ADAMW_ULP; ``(its row, then(ps,
+    gs, ms, vs, bc, hyper) on the bucket after the step, or None)``. The
+    check replays the moments' draws from the generator's saved state, a
+    leaf at a time, rather than keep copies of the starting m and v
+    (Mixtral-8x7B's at 2 layers: 25 GB). Bytes: p read and written, g read
+    (the parameters' dtype), m and v read and written (float32)."""
+    from thunder_tpu_torch.testing import ulp_distance
+
+    dev = torch.device("cuda")
+    ps = [p.detach() for p in leaves]
+    dtype = ps[0].dtype
+    require(all(p.dtype == dtype for p in ps), f"fused_adamw {tag}: a bucket of one dtype")
+    n = sum(p.numel() for p in ps)
+    p0 = [p.clone() for p in ps]
+    gs = [torch.randn(p.shape, generator=gen, device=dev).mul_(1e-3).to(dtype) for p in ps]
+    m_state = gen.get_state()
+    ms = [torch.randn(p.shape, generator=gen, device=dev).mul_(1e-3) for p in ps]
+    v_state = gen.get_state()
+    vs = [torch.rand(p.shape, generator=gen, device=dev).mul_(1e-6) for p in ps]
+    step = 10
+    bc = torch.tensor([1 - 0.9 ** step, 1 - 0.999 ** step], dtype=torch.float32, device=dev)
+    hyper = dict(lr=1e-4, beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.01)
+    cudaex.fused_adamw(ps, gs, ms, vs, bc, **hyper)
+    torch.cuda.synchronize()
+    gm, gv = torch.Generator(device=dev), torch.Generator(device=dev)
+    gm.set_state(m_state)
+    gv.set_state(v_state)
+    ulp, err = 0, 0.0
+    for i, p in enumerate(ps):
+        m0 = torch.randn(p.shape, generator=gm, device=dev).mul_(1e-3)
+        v0 = torch.rand(p.shape, generator=gv, device=dev).mul_(1e-6)
+        want = toptim_ops.adamw_step_plain(p0[i], gs[i], m0, v0, bc[0], bc[1], **hyper)
+        p0[i] = None
+        for a, b in zip((p, ms[i], vs[i]), want):
+            for ca, cb in zip(a.view(-1).split(1 << 26), b.view(-1).split(1 << 26)):
+                ulp = max(ulp, ulp_distance(ca, cb))
+                err = max(err, float((ca.float() - cb.float()).abs().max()))
+        del m0, v0, want
+    del p0
+    require(ulp <= ADAMW_ULP, f"fused_adamw {tag}: {ulp} ULP from adamw_step_plain")
+    log(f"  fused_adamw {tag or 'bucket'}: {len(ps)} tensors, {n} parameters, max {ulp} ULP from the "
+        f"plain version")
+    esize = ps[0].element_size()
+
+    def plain():
+        for p, g_, m, v_ in zip(ps, gs, ms, vs):
+            toptim_ops.adamw_step_plain(p, g_, m, v_, bc[0], bc[1], **hyper)
+
+    lib = None
+    if dtype == torch.float32:   # torch._fused_adamw_ takes one dtype for p, g, m and v
+        lp, lm, lv = ([t.clone() for t in ts] for ts in (ps, ms, vs))
+        steps_t = [torch.full((), float(step), device=dev) for _ in ps]
+
+        def lib():
+            torch._fused_adamw_(lp, gs, lm, lv, [], steps_t, lr=hyper["lr"], beta1=0.9,
+                                beta2=0.999, weight_decay=0.01, eps=1e-8, amsgrad=False,
+                                maximize=False)
+    short = {torch.bfloat16: "bf16", torch.float32: "f32"}.get(dtype, str(dtype)[6:])
+    row = timed_row(torch, cudaex, "fused_adamw", f"{tag + ' bucket: ' if tag else ''}{n} {short}",
+                    err, lambda: cudaex.fused_adamw(ps, gs, ms, vs, bc, **hyper), plain, lib,
+                    n * (3 * esize + 16), 12.0 * n, F32_FLOPS, 10, 2)
+    if dtype != torch.float32:
+        row["library_note"] = "torch._fused_adamw_ takes one dtype for params, grads and moments"
+    extra = then(ps, gs, ms, vs, bc, hyper) if then is not None else None
+    del ps, gs, ms, vs, lib
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row, extra
+
+
+def check_zoo_kernels(torch, cudaex, tnn, toptim_ops, zoo) -> dict:
+    """Phase 3 at the model zoo's shapes (phase 17's paths): for each path,
+    each kernel it launches held against its plain version at that path's
+    own shape and timed; ``{path: {kernel: row}}``. ``fused_adamw`` is
+    held over each path's own bucket: its parameters at the path's depth."""
+    from thunder_tpu_torch.optim import tree_leaves
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(17)
+
+    def cfg_of(model):
+        mod, cfg = zoo.split_name(model)
+        return model.partition("/")[0], cfg
+
+    rows: dict = {path: {} for path in ZOO_PATHS}
+    attn_done: dict = {}
+    for path in ZOO_PATHS:
+        for i, shape in enumerate(zoo_attention_shapes(cfg_of, path)):
+            if shape not in attn_done:
+                attn_done[shape] = attention_rows(torch, cudaex, tnn, gen, *shape[:-1],
+                                                  (shape[-1],))[0]
+            if i == 0:
+                rows[path]["sdpa_fwd"], rows[path]["sdpa_bwd"] = attn_done[shape]
+    ce_done: dict = {}
+    for path, spec in ZOO_PATHS.items():
+        fam, cfg = cfg_of(spec["model"])
+        N = spec["batch"] * (spec["seq"] if fam != "resnet" else 1)
+        V = cfg.num_classes if fam == "resnet" else cfg.vocab_size
+        if path == "zoo-mixtral-8x7b" or (N, V) not in ce_done:
+            ce_done[(N, V)] = ce_row(torch, cudaex, tnn, gen, N, V)
+        rows[path]["ce_fwd"] = ce_done[(N, V)]
+    for path, shape in (("zoo-mixtral-8x7b", (1, 2048, 4096)), ("zoo-gemma-2b", (1, 2048, 2048))):
+        norm, residual = norm_rows(torch, cudaex, tnn, gen, shape)
+        rows[path].update(rms_norm=norm, rms_norm_residual=residual)
+    rows["zoo-bart-base"]["rms_norm_residual"] = f32_residual_row(torch, cudaex, tnn, gen,
+                                                                  (1, 1024, 768))
+    for path, spec in ZOO_PATHS.items():
+        if path != "zoo-resnet18":
+            leaves = tree_leaves(zoo.init_model(spec["model"], seed=3, device=dev,
+                                                layers=spec.get("layers"))[0])
+            rows[path]["fused_adamw"] = adamw_bucket_row(torch, cudaex, toptim_ops, gen, leaves,
+                                                         path[4:])[0]
+            del leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def zoo_step_launches(zoo, model, per_step, layers=None, loss="naive", remat=False, what=""):
+    """Every step of a zoo run launched its kernels as designed (the
+    reference's claims)."""
+    expect = zoo.expected_launches(model, layers, loss, remat)
+    for i, st in enumerate(per_step):
+        require(st["launches"] == expect,
+                f"{what} step {i} launched {st['launches']}, expected {expect}")
+    return expect
+
+
+def zoo_card_vs_cpu(np, torch, cudaex, zoo, tmix) -> dict:
+    """Phase 17 (a): each tiny config in float32 on the card and on the
+    CPU from the same weights and batch: loss, gradients and one
+    optimizer step; tiny-moe's top-k experts in every layer identical."""
+    from thunder_tpu_torch.optim import tree_leaves, tree_map
+
+    out = {}
+    topi: list = []
+    route = tmix.route
+
+    def recording(*a, **k):
+        res = route(*a, **k)
+        topi.append(res[2].cpu())
+        return res
+
+    for model in ZOO_TINY:
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            params, bn = zoo.init_model(model, seed=0, device="cpu")
+            params, bn = (tree_map(lambda t: t.to(dev), x) if x is not None else None
+                          for x in (params, bn))
+            batch = tuple(t.to(dev) for t in zoo.make_batch(model, 2, 32, seed=1, device="cpu",
+                                                            src_seq=48, image=16))
+            opt = zoo.optimizer_for(model, TRAIN_LR)
+            state = opt.init(params)
+            topi.clear()
+            tmix.route = recording
+            try:
+                cudaex.reset_launch_counts()
+                value, grads, _ = zoo.value_and_grad(
+                    lambda p: zoo.loss_of(model, p, batch, bn), params)
+                launches = {k: n for k, n in cudaex.launch_counts().items() if n}
+            finally:
+                tmix.route = route
+            opt.update(params, grads, state)
+            runs[dev] = dict(loss=float(value), grads=[g.detach().cpu() for g in
+                                                       tree_leaves(grads)],
+                             params=[p.detach().cpu() for p in tree_leaves(params)],
+                             topi=list(topi), launches=launches)
+        a, b = runs["cuda"], runs["cpu"]
+        require(abs(a["loss"] - b["loss"]) <= TRAIN_LOSS_RTOL * abs(b["loss"]),
+                f"{model}: card loss {a['loss']} != CPU loss {b['loss']}")
+        gerr = 0.0
+        for ga, gb, pa, pb in zip(a["grads"], b["grads"], a["params"], b["params"]):
+            tol = ZOO_GRAD_RTOL * max(1.0, float(gb.abs().max()))
+            diff = float((ga - gb).abs().max())
+            gerr = max(gerr, diff / tol)
+            require(diff <= tol, f"{model}: card and CPU gradients differ by {diff} (tol {tol})")
+            settled = gb.abs() > tol
+            pdiff = (pa - pb).abs()
+            settled_diff = float(pdiff[settled].max()) if bool(settled.any()) else 0.0
+            require(settled_diff <= TRAIN_PARAM_ATOL
+                    and float(pdiff.max()) <= 2.0 * TRAIN_LR * (1 + 1e-3),
+                    f"{model}: card and CPU parameters differ by {float(pdiff.max())} after "
+                    f"one step")
+        require(len(a["topi"]) == len(b["topi"]) and all(
+            bool(torch.equal(x, y)) for x, y in zip(a["topi"], b["topi"])),
+            f"{model}: the card's top-k experts differ from the CPU's")
+        expect = {k: n for k, n in zoo.expected_launches(model).items() if k != "fused_adamw"}
+        require(a["launches"] == expect, f"{model}: the card's step launched {a['launches']}, "
+                                         f"expected {expect}")
+        require(b["launches"] == {}, f"{model}: the CPU step launched kernels {b['launches']}")
+        out[model] = {"loss_card": a["loss"], "loss_cpu": b["loss"],
+                      "grad_err_of_tol": gerr, "top_k_layers": len(a["topi"]),
+                      "launches": a["launches"]}
+    return out
+
+
+def zoo_mixtral_full_width(torch, cudaex, zoo, tmix) -> dict:
+    """Phase 17 (b): Mixtral-8x7B at full width, 2 of its 32 layers, B=1,
+    T=2048, bf16, AdamW with float32 moments: expert_utilization on the
+    batch at the initial weights, 3 steps of loss_fn (a warm-up and 2
+    timed), then loss_fn's value without a gradient and a step of
+    fused_loss_fn(remat=True) on the same weights and batch (a second one
+    gives its steady time: the first carries first-call costs), then
+    expert_utilization again."""
+    spec = ZOO_PATHS["zoo-mixtral-8x7b"]
+    model, L = spec["model"], spec["layers"]
+    cfg = tmix.CONFIGS["mixtral-8x7b"]
+    opt = zoo.optimizer_for(model, ZOO_LR)
+    t0 = time.perf_counter()
+    params, _ = zoo.init_model(model, seed=0, device="cuda", layers=L)
+    tokens = zoo.make_batch(model, spec["batch"], spec["seq"], seed=0, device="cuda")[0]
+    util_init = tmix.expert_utilization(params, tokens, cfg)
+    cudaex.reset_launch_counts()
+    res = zoo.run(model, batch=spec["batch"], seq=spec["seq"], steps=MIXTRAL_STEPS,
+                  lr=ZOO_LR, seed=0, device="cuda", opt=opt, params=params)
+    del params, tokens
+    zoo_step_launches(zoo, model, res["per_step"], L, what="mixtral loss_fn")
+    params, state, batch = res.pop("params"), res.pop("opt_state"), res.pop("inputs")
+    res.pop("bn_state")
+    before = cudaex.launch_counts()
+    with torch.no_grad():
+        naive = float(tmix.loss_fn(params, *batch, cfg))
+    eval_launches = {k: n - before[k] for k, n in cudaex.launch_counts().items()
+                     if n != before[k]}
+    require(eval_launches == {"rms_norm": 1, "rms_norm_residual": 2 * L, "sdpa_fwd": L,
+                              "ce_fwd": 1}, f"mixtral loss_fn without a gradient launched "
+                                            f"{eval_launches}")
+    with torch.no_grad():
+        aux = float(tmix.forward(params, batch[0], cfg, skip_head=True)[1])
+    require(aux > MIXTRAL_FUSED_LOSS_ATOL,
+            f"mixtral's router aux term {aux} is within the fused-loss bound "
+            f"{MIXTRAL_FUSED_LOSS_ATOL}: the bound cannot tell a loss without it")
+    fused_steps = []
+    for _ in range(2):   # the second step's time is the steady one
+        before = cudaex.launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        value, _ = zoo.train_step(model, params, opt, state, batch, loss="fused", remat=True)
+        loss = float(value)
+        fused_steps.append({"loss": loss, "ms": (time.perf_counter() - t) * 1e3,
+                            "launches": {k: n - before[k] for k, n in
+                                         cudaex.launch_counts().items() if n != before[k]}})
+    fused, fused_ms = fused_steps[0]["loss"], fused_steps[1]["ms"]
+    fused_launches = fused_steps[0]["launches"]
+    zoo_step_launches(zoo, model, fused_steps, L, "fused", True,
+                      "mixtral fused_loss_fn(remat=True)")
+    launches = {k: n for k, n in cudaex.launch_counts().items() if n}
+    losses = res["losses"]
+    require(all(math.isfinite(x) for x in losses + [naive, fused]) and losses[-1] < losses[0],
+            f"mixtral losses not finite and falling: {losses}")
+    require(abs(fused - naive) <= MIXTRAL_FUSED_LOSS_ATOL,
+            f"mixtral fused_loss_fn(remat=True) {fused} against loss_fn {naive}: "
+            f"{abs(fused - naive)} > {MIXTRAL_FUSED_LOSS_ATOL}")
+    util = tmix.expert_utilization(params, batch[0], cfg)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del params, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    res.update(launches=launches, eval_launches=eval_launches, fused_launches=fused_launches,
+               loss_fn_no_grad=naive, router_aux_term=aux, fused_remat_loss=fused,
+               fused_minus_naive=fused - naive, fused_remat_step_ms=fused_ms,
+               fused_remat_first_step_ms=fused_steps[0]["ms"],
+               fused_remat_losses=[st["loss"] for st in fused_steps],
+               fused_remat_peak_memory_gb=peak, expert_utilization=util,
+               expert_utilization_at_init=util_init,
+               phase_s=time.perf_counter() - t0)
+    return res
+
+
+def zoo_full_width(torch, cudaex, zoo, path: str) -> dict:
+    """Phase 17 (c): one family at full width: a warm-up and ZOO_STEPS
+    timed steps on one batch; finite, falling losses; every step's
+    launches as designed."""
+    spec = ZOO_PATHS[path]
+    model = spec["model"]
+    cudaex.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = zoo.run(model, layers=spec.get("layers"), batch=spec["batch"], seq=spec["seq"],
+                  steps=ZOO_STEPS, lr=spec.get("lr", ZOO_LR), seed=0, device="cuda",
+                  src_seq=spec.get("src_seq"), image=spec.get("image", 224))
+    for k in ("params", "opt_state", "bn_state", "inputs"):
+        res.pop(k)
+    gc.collect()
+    torch.cuda.empty_cache()
+    zoo_step_launches(zoo, model, res["per_step"], spec.get("layers"), what=path)
+    losses = res["losses"]
+    require(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+            f"{path}: losses not finite and falling: {losses}")
+    res["launches"] = {k: n for k, n in cudaex.launch_counts().items() if n}
+    res["phase_s"] = time.perf_counter() - t0
+    return res
+
+
+def log_zoo(path: str, r: dict, card: str) -> None:
+    rate = ("images_per_s", r["images_per_s"]) if "images_per_s" in r else \
+        ("tokens_per_s", r["tokens_per_s"])
+    log(f"phase 17 {path}: {r['model']} layers {r['layers']} batch {r['batch']} seq {r['seq']} "
+        f"{r['dtype']}, {r['params_count']} parameters: step {r['step_ms']:.2f} ms, "
+        f"{rate[0]} {rate[1]:.1f}, peak {r['peak_memory_gb']:.2f} GB, losses "
+        f"{[round(x, 5) for x in r['losses']]}, launches {r['launches']} ({card})")
+
 def main() -> int:
     try:
         import numpy as np
@@ -2893,9 +3325,10 @@ def main() -> int:
         return 2
     try:
         from thunder_tpu_torch import optim as toptim
-        from thunder_tpu_torch.benchmarks import bench, pretrain
+        from thunder_tpu_torch.benchmarks import bench, pretrain, zoo
         from thunder_tpu_torch.executors import cudaex
         from thunder_tpu_torch.models import llama as tllama
+        from thunder_tpu_torch.models import mixtral as tmix
         from thunder_tpu_torch.ops import nn as tnn
         from thunder_tpu_torch.ops import optim as toptim_ops
         from thunder_tpu_torch.serving import SamplingParams, ServingEngine
@@ -2922,6 +3355,8 @@ def main() -> int:
     planned_rows = check_planned_kernels(torch, cudaex, tnn, tllama)
     log("serving planned rung kernels vs plain versions (bf16, full width):")
     sp_rows = check_serving_planned_kernels(torch, cudaex, tnn, tllama)
+    log("the model zoo's kernels vs plain versions (phase 17's shapes):")
+    zoo_rows = check_zoo_kernels(torch, cudaex, tnn, toptim_ops, zoo)
     log(f"card vs CPU (tiny-gqa, float32): {json.dumps(card_vs_cpu(np, torch, tllama, ServingEngine))}")
 
     def serve(block_fusion):
@@ -3027,6 +3462,27 @@ def main() -> int:
         "first_step_logits_row_rel_err": fl["generate"]["first_step_logits_row_rel_err"],
     }) + f" ({card})")
 
+    # phase 17: the model zoo
+    t17 = time.perf_counter()
+    zc = zoo_card_vs_cpu(np, torch, cudaex, zoo, tmix)
+    log(f"zoo card vs CPU (a, float32): {json.dumps(zc)} ({card})")
+    zoo_runs = {"zoo-mixtral-8x7b": zoo_mixtral_full_width(torch, cudaex, zoo, tmix)}
+    zm = zoo_runs["zoo-mixtral-8x7b"]
+    log_zoo("zoo-mixtral-8x7b", zm, card)
+    log("phase 17 (b) mixtral: " + json.dumps({
+        k: zm[k] for k in ("loss_fn_no_grad", "router_aux_term", "fused_remat_loss",
+                           "fused_minus_naive",
+                           "fused_remat_step_ms", "fused_remat_first_step_ms",
+                           "fused_remat_losses", "fused_remat_peak_memory_gb",
+                           "eval_launches", "fused_launches", "expert_utilization_at_init",
+                           "expert_utilization")})
+        + f" ({card})")
+    for path in ZOO_PATHS:
+        if path != "zoo-mixtral-8x7b":
+            zoo_runs[path] = zoo_full_width(torch, cudaex, zoo, path)
+            log_zoo(path, zoo_runs[path], card)
+    log(f"phase 17: {time.perf_counter() - t17:.1f} s")
+
     # one row per kernel and main path: the path's own shape and its own
     # launch count (rms_norm and rms_norm_residual run on several paths;
     # the planned path's rows for kernels it shares with the per-op train
@@ -3067,9 +3523,11 @@ def main() -> int:
                                  ("serve-prefix-planned", serve_planned, fl["prefix_planned"]),
                                  ("serve-best-of", rows, fl["best_of"]),
                                  ("serve-restart-planned", serve_planned, fl["restart"]),
-                                 ("generate", gen_rows, fl["generate"])):
+                                 ("generate", gen_rows, fl["generate"]),
+                                 *((p, {k: [r] for k, r in zoo_rows[p].items()}, zoo_runs[p])
+                                   for p in ZOO_PATHS)):
         for name, rs in path_rows.items():
-            if path in FLEET_PATHS:
+            if path in FLEET_PATHS or path in ZOO_PATHS:
                 require(run["launches"].get(name, 0) > 0,
                         f"{path}: {name} never launched on the main path")
             r = dict(rs[0], path=path, launches=run["launches"][name])
@@ -3080,6 +3538,10 @@ def main() -> int:
     other_rows = [dict(r, card=card) for rs in (*rows.values(), *train_rows.values(),
                                                 sp_rows["mlp_subblock"]) for r in rs[1:]]
     log("other-shape kernels: " + json.dumps(other_rows))
+    zoo_paths = {p: sorted(r) for p, r in zoo_rows.items()}
+    for p, names in zoo_paths.items():
+        ran_names = sorted(k for k, n in zoo_runs[p]["launches"].items() if n)
+        require(ran_names == names, f"{p}: launched {ran_names}, its rows {names}")
     log("C.1 inputs: " + json.dumps(c1))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)

@@ -1299,3 +1299,129 @@ def test_cuda_generate_fused_matches_generate(cuda_device, cfg_name, dtype):
         cpu = tllama.generate(tllama.to_device(params, "cpu"),
                               cfg, prompt, 12, max_len=64, device="cpu")
         assert torch.equal(eager.cpu(), cpu)
+
+
+# ---------------------------------------------------------------------------
+# the model zoo's shapes (chip_smoke.py phases 3 and 17)
+# ---------------------------------------------------------------------------
+
+# (dtype, B, H, T, S, hd, causal): falcon's 71 heads at hd 64, gemma's hd 256,
+# gpt2-xl's 25 heads, BART's non-causal cross-attention (T 512 against S
+# 1024) in float32 (its dtype) and in bf16
+ZOO_ATTN = [(torch.bfloat16, 1, 71, 512, 512, 64, True),
+            (torch.bfloat16, 1, 8, 1024, 1024, 256, True),
+            (torch.bfloat16, 2, 25, 256, 256, 64, True),
+            (torch.float32, 1, 12, 512, 1024, 64, False),
+            (torch.bfloat16, 1, 12, 512, 1024, 64, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,B,H,T,S,hd,causal", ZOO_ATTN,
+                         ids=[f"{str(d)[6:]}-{b}x{h}x{t}x{s}x{hd}{'-causal' if c else ''}"
+                              for d, b, h, t, s, hd, c in ZOO_ATTN])
+def test_cuda_sdpa_at_zoo_shapes_matches_plain(cuda_device, dtype, B, H, T, S, hd, causal):
+    """Attention forward and backward at the zoo's shapes, row by row, on
+    the design the rule names (the bounds of test_cuda_sdpa_matches_plain)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(13)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=cuda_device).to(dtype)
+
+    q, g, k, v = rnd(B, H, T, hd), rnd(B, H, T, hd), rnd(B, H, S, hd), rnd(B, H, S, hd)
+    cudaex.reset_launch_counts()
+    out, lse = cudaex.sdpa_fwd(q, k, v, causal)
+    dq, dk, dv = cudaex.sdpa_bwd(g, q, k, v, out, lse, causal)
+    torch.cuda.synchronize()
+    design = cudaex.sdpa_fwd_design(dtype, hd)
+    assert cudaex.design_counts()["sdpa_fwd"] == {design: 1}
+    assert cudaex.design_counts()["sdpa_bwd"] == {cudaex.sdpa_bwd_design(dtype, hd): 1}
+    want_out, want_lse = tnn.sdpa_fwd_plain(q, k, v, causal)
+    f32 = dtype == torch.float32
+    assert row_rel_err(out, want_out) <= (1e-5 if f32 else 2e-2)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-4)
+    got = cudaex.sdpa_bwd(g, q, k, v, want_out, want_lse, causal)
+    for a, b in zip(got, tnn.sdpa_bwd_plain(g, q, k, v, want_out, want_lse, causal)):
+        assert row_rel_err(a, b) <= (1e-4 if f32 else 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V", [50257, 50265, 256000, 1000])
+def test_cuda_ce_fwd_at_zoo_vocabularies_matches_plain(cuda_device, V):
+    """cross-entropy on the float32 logits of the zoo's vocabularies: GPT-2's
+    50257 and BART's 50265 take the kernel's scalar loads (V % 4 != 0),
+    Gemma's 256000 the widest rows, ResNet's 1000 classes."""
+    gen = torch.Generator(device=cuda_device).manual_seed(14)
+    logits = torch.randn(37, V, generator=gen, device=cuda_device) * 4
+    target = torch.randint(0, V, (37,), generator=gen, device=cuda_device)
+    target[[0, 36]] = -100
+    nll, lse = cudaex.ce_fwd(logits, target)
+    want_nll, want_lse = tnn.ce_fwd_plain(logits, target)
+    torch.testing.assert_close(nll, want_nll, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-5)
+    assert float(nll[0]) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 2048), (torch.float32, 768)])
+def test_cuda_norms_at_zoo_widths_match_plain(cuda_device, dtype, D):
+    """rms_norm and rms_norm_residual at Gemma's D = 2048 (bf16) and BART's
+    D = 768 (float32): h bit for bit, the normed rows within one bf16
+    rounding step (2**-6 relative) or 1e-5 in float32."""
+    gen = torch.Generator(device=cuda_device).manual_seed(15)
+    x, r = (torch.randn(3, 100, D, generator=gen, device=cuda_device).to(dtype)
+            for _ in range(2))
+    w = (torch.rand(D, generator=gen, device=cuda_device) + 0.5).to(dtype)
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -6
+    y = cudaex.rms_norm(x, w, EPS)
+    torch.testing.assert_close(y.float(), tnn.rms_norm_plain(x, w, EPS).float(), rtol=tol,
+                               atol=1e-5)
+    h, y = cudaex.rms_norm_residual(r, x, w, EPS)
+    wh, wy = tnn.rms_norm_residual_plain(r, x, w, EPS)
+    assert torch.equal(h, wh)
+    torch.testing.assert_close(y.float(), wy.float(), rtol=tol, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_expert_product_matches_cpu(cuda_device):
+    """The MoE's float32 expert product from bf16 weights on the card (a
+    float32 bmm on the weight's float32 copy, made and dropped inside the
+    forward and the backward) against the CPU's."""
+    from thunder_tpu_torch.models import mixtral
+
+    gen = torch.Generator().manual_seed(16)
+    a = torch.randn(4, 64, 256, generator=gen)
+    w = torch.randn(4, 512, 256, generator=gen).mul_(0.05).to(torch.bfloat16)
+    g = torch.randn(4, 64, 512, generator=gen)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        ad, wd = (t.detach().to(dev).requires_grad_(True) for t in (a, w))
+        out = mixtral._expert_product(ad, wd)
+        out.backward(g.to(dev))
+        outs[dev] = (out.detach().cpu(), ad.grad.cpu(), wd.grad.float().cpu())
+    for x, y in zip(outs["cuda"], outs["cpu"]):
+        torch.testing.assert_close(x, y, atol=1e-3, rtol=1e-4)
+
+
+ZOO_TINY = ["mixtral/tiny-moe", "gpt/tiny", "gpt/tiny-neox", "gpt/tiny-falcon",
+            "gpt/tiny-gemma", "gpt/tiny-phi", "nanogpt/gpt2-tiny", "seq2seq/tiny",
+            "resnet/resnet-tiny"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ZOO_TINY)
+def test_cuda_zoo_tiny_train_steps_match_cpu(cuda_device, model):
+    """Three float32 train steps of each tiny zoo config on the card and on
+    the CPU from the same weights and batch (``benchmarks.zoo.run``): the
+    losses to 1e-5 relative, every step launching the reference's claims."""
+    from thunder_tpu_torch.benchmarks import zoo
+    from thunder_tpu_torch.optim import tree_map
+
+    params, bn = zoo.init_model(model, seed=0, device="cpu")
+    card = tree_map(lambda t: t.cuda(), params)
+    card_bn = tree_map(lambda t: t.cuda(), bn) if bn is not None else None
+    kw = dict(batch=2, seq=32, steps=2, lr=1e-3, src_seq=48, image=16)
+    a = zoo.run(model, device="cuda", params=card, bn_state=card_bn, **kw)
+    b = zoo.run(model, device="cpu", params=params, bn_state=bn, **kw)
+    np.testing.assert_allclose(a["losses"], b["losses"], rtol=1e-5)
+    want = zoo.expected_launches(model)
+    assert all(s["launches"] == want for s in a["per_step"])

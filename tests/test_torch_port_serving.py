@@ -443,7 +443,8 @@ def test_port_imports_no_jax():
     (the serving slice's, the training slices', the train bench's, the
     runtime-safety layer's — observe/, runtime/, transforms/ — and the
     serving fleet's — prefix_cache, supervisor, events, the generate
-    benchmark — named below so
+    benchmark — and the model zoo's — mixtral, gpt, nanogpt, seq2seq,
+    resnet, the zoo benchmark and the float32 attention probe — named below so
     that none can drop out of the walk unnoticed): neither jax nor
     thunder_tpu (or any thunder_tpu.* module) is loaded."""
     repo = Path(__file__).resolve().parents[1]
@@ -460,7 +461,9 @@ def test_port_imports_no_jax():
         "        'core.rematerialization', 'observe.registry', 'observe.flight',\n"
         "        'runtime.faults', 'runtime.retry', 'runtime.quarantine', 'runtime.sentinel',\n"
         "        'transforms.numerics_guard', 'serving.prefix_cache', 'serving.supervisor',\n"
-        "        'serving.events', 'benchmarks.generate')]\n"
+        "        'serving.events', 'benchmarks.generate', 'models.mixtral', 'models.gpt',\n"
+        "        'models.nanogpt', 'models.seq2seq', 'models.resnet', 'benchmarks.zoo',\n"
+        "        'benchmarks.f32_attention')]\n"
         "missing = [m for m in need if m not in sys.modules]\n"
         "n = sum(m.startswith('thunder_tpu_torch') for m in sys.modules)\n"
         "print(n, bad, missing)\n"

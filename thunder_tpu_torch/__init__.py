@@ -5,7 +5,8 @@ is found at the same path under ``thunder_tpu/``. It imports neither JAX nor
 anything of ``thunder_tpu``. Ported: serving at the reference's per-op
 and planned rungs, the single-device train step at its per-op and planned
 rungs with its input pipeline, checkpoints and gradient clipping, the
-reference's headline train bench, and the runtime-safety layer:
+reference's headline train bench, the runtime-safety layer, the
+single-card serving fleet and the model zoo:
 
 - :mod:`thunder_tpu_torch.serving` — ``ServingEngine`` (continuous batching
   over a paged KV cache), on ``cuda`` unless ``device="cpu"`` is passed;
@@ -21,10 +22,16 @@ reference's headline train bench, and the runtime-safety layer:
   ``default_buckets``; ``pretrain.run(data=...)`` trains from it;
 - :mod:`thunder_tpu_torch.checkpoint` — ``save_checkpoint`` (sync or
   asynchronous), ``wait_for_checkpoints`` and ``load_checkpoint``;
-- :mod:`thunder_tpu_torch.optim` — ``AdamW`` and ``clip_grad_norm``;
+- :mod:`thunder_tpu_torch.optim` — ``AdamW``, ``SGD`` and ``clip_grad_norm``;
 - :mod:`thunder_tpu_torch.core.rematerialization` — ``checkpoint``;
 - :mod:`thunder_tpu_torch.models.llama` — configs, ``init_params``,
   ``params_from_jax``, the training forward and loss;
+- the model zoo — :mod:`thunder_tpu_torch.models.mixtral` (top-k routed
+  experts), :mod:`~thunder_tpu_torch.models.gpt` (the multi-family GPT),
+  :mod:`~thunder_tpu_torch.models.nanogpt`,
+  :mod:`~thunder_tpu_torch.models.seq2seq` and
+  :mod:`~thunder_tpu_torch.models.resnet`, trained by
+  :mod:`thunder_tpu_torch.benchmarks.zoo`;
 - :mod:`thunder_tpu_torch.ops.nn` and :mod:`thunder_tpu_torch.ops.optim` —
   the slices' functions, each with its plain version, and their gradients;
 - :mod:`thunder_tpu_torch.executors.cudaex` — the hand-written ``sm_90a``

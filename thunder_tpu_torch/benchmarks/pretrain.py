@@ -36,8 +36,9 @@ the H100's 989 TFLOP/s dense bf16 peak reached (NVIDIA data sheet, SXM
 part), the optimizer's device time per step, the kernels' launches per
 step, and the card's name and power limit as nvidia-smi reports them.
 ``--profile N`` traces N more steps with torch.profiler and adds the device
-time per kernel family and the device's idle share. Needs a CUDA card;
-``--device cpu`` runs the plain versions, for a small config.
+time per kernel family, the device's idle share and the longest kernels.
+Needs a CUDA card; ``--device cpu`` runs the plain versions, for a small
+config.
 
 ``--guard`` runs every step under the numerics guard
 (``transforms.numerics_guard.NumericsGuard``, the counterpart of the
@@ -66,9 +67,12 @@ from thunder_tpu_torch.optim import AdamW, tree_leaves, tree_map
 from thunder_tpu_torch.transforms.numerics_guard import NumericsGuard
 
 H100_BF16_FLOPS = 989e12
+PROFILE_TOP = 25   # the longest kernels a profile lists
 
 # kernel-name substrings of each family, first match wins: the port's own
-# kernels come ahead of the cuBLAS row
+# kernels come ahead of the cuBLAS rows (float32 products, cuBLAS's SIMT
+# sgemm without TF32, ahead of the rest), then cuDNN's convolutions, the
+# gathers and scatters (the MoE's routing among them) and the reductions
 FAMILIES = (
     ("fused_adamw health pass", ("fused_adamw_health_kernel", "adamw_health_fold")),
     ("mlp_subblock_bwd", ("mlp_bwd_",)),
@@ -80,7 +84,12 @@ FAMILIES = (
     ("fused_adamw", ("fused_adamw_kernel",)),
     ("rms_norm_residual", ("rms_norm_residual_kernel",)),
     ("rms_norm", ("rms_norm_kernel",)),
+    ("float32 products (sgemm)", ("sgemm", "f32f32_f32f32", "simt")),
     ("gemm (F.linear and its gradients)", ("gemm", "nvjet", "xmma", "cutlass", "splitk")),
+    ("convolutions (cuDNN)", ("conv", "wgrad", "dgrad", "implicit", "winograd", "fft")),
+    ("gathers, scatters and routing", ("index", "gather", "scatter", "topk", "sort",
+                                       "cumsum", "scan", "embedding")),
+    ("softmax, layer norm and reductions", ("softmax", "reduce", "norm")),
 )
 
 
@@ -253,7 +262,7 @@ def run(model: str = "tiny", layers: int | None = None, batch: int = 4, seq: int
             "optimizer_ms": sum(opt_ms) / len(opt_ms),
         })
     if profile and on_card:
-        result.update(_profile(step, profile))
+        result.update(profile_steps(step, profile))
     return result
 
 
@@ -283,9 +292,10 @@ def _batches(cfg, batch: int, seq: int, seed: int, dev: torch.device, data: str 
     return batch_for, stream
 
 
-def _profile(step, steps: int) -> dict:
-    """Device time per kernel family and the device's idle share over
-    ``steps`` traced calls of ``step``."""
+def profile_steps(step, steps: int) -> dict:
+    """Device time per kernel family, the device's idle share and the
+    ``PROFILE_TOP`` longest kernels over ``steps`` traced calls of
+    ``step``."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
@@ -295,11 +305,13 @@ def _profile(step, steps: int) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_family: dict[str, float] = {}
+    kernels = []
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
         fam = _family(ev.key)
         by_family[fam] = by_family.get(fam, 0.0) + ev.self_device_time_total
+        kernels.append((ev.self_device_time_total / 1e3 / steps, ev.count // steps, ev.key[:120]))
     busy_ms = sum(by_family.values()) / 1e3
     return {
         "profile_steps": steps, "profile_step_ms": wall_ms / steps,
@@ -307,6 +319,8 @@ def _profile(step, steps: int) -> dict:
         "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
         "ms_per_step_by_family": {k: v / 1e3 / steps for k, v in
                                   sorted(by_family.items(), key=lambda kv: -kv[1])},
+        "top_kernels": [{"ms_per_step": ms, "calls_per_step": n, "name": name}
+                        for ms, n, name in sorted(kernels, reverse=True)[:PROFILE_TOP]],
     }
 
 

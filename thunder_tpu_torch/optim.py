@@ -1,8 +1,9 @@
-"""AdamW for the port's train steps; the counterpart of
+"""AdamW and SGD for the port's train steps; the counterpart of
 ``thunder_tpu/optim.py`` ``AdamW`` (:140) in its per-step multi-tensor form
 and, with ``slab_persistent=True``, its slab-persistent form, with the
 state-layout helpers ``SLAB_LAYOUT_VERSION``, ``opt_state_layout_version``
-and ``adapt_opt_state`` (:101-128), and ``clip_grad_norm`` (:37).
+and ``adapt_opt_state`` (:101-128), ``SGD`` (:379) and ``clip_grad_norm``
+(:37).
 
 Parameters, gradients and optimizer state are trees of dicts and lists with
 tensor leaves, the layout of :func:`thunder_tpu_torch.models.llama.init_params`.
@@ -29,7 +30,10 @@ SLAB_LAYOUT_VERSION = 1
 
 def tree_leaves(tree) -> list:
     """Leaves of a dict/list tree in the JAX package's flattening order
-    (dict keys sorted, lists in order)."""
+    (dict keys sorted, lists in order; None is an empty subtree, as in a
+    JAX pytree)."""
+    if tree is None:
+        return []
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
     if isinstance(tree, (list, tuple)):
@@ -38,7 +42,10 @@ def tree_leaves(tree) -> list:
 
 
 def tree_map(fn, tree):
-    """``fn`` applied to every leaf, in :func:`tree_leaves` order."""
+    """``fn`` applied to every leaf, in :func:`tree_leaves` order; None
+    stays None."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k]) for k in sorted(tree)}
     if isinstance(tree, (list, tuple)):
@@ -314,4 +321,39 @@ class AdamW:
                 optim_ops.fused_adamw(*args, bc, **self._hyper, health=health)
         if health is not None:
             state["step"].add_(optim_ops.healthy(health).float())
+        return params, state
+
+
+class SGD:
+    """Stochastic gradient descent with optional momentum and (coupled)
+    weight decay, the reference's ``SGD``: every update in float32 from the
+    parameter and gradient taken to float32, the parameter stored back in
+    its own dtype, the momentum buffers float32. No kernel: the reference
+    has no Pallas kernel for it, so it runs as PyTorch elementwise ops.
+
+    ``init(params)`` gives ``{"mom": zeros}`` with momentum and ``{}``
+    without; ``update(params, grads, state)`` writes the new parameters
+    and momenta into the same tensors in place, as :class:`AdamW` does, and
+    returns ``(params, state)``."""
+
+    def __init__(self, lr: float = 1e-2, momentum: float = 0.0, weight_decay: float = 0.0):
+        self.lr = lr
+        self.momentum = momentum
+        self.weight_decay = weight_decay
+
+    def init(self, params) -> dict:
+        if self.momentum:
+            return {"mom": tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)}
+        return {}
+
+    @torch.no_grad()
+    def update(self, params, grads, state):
+        moms = tree_leaves(state["mom"]) if self.momentum else None
+        for i, (p, g) in enumerate(zip(tree_leaves(params), tree_leaves(grads), strict=True)):
+            pf, gf = p.float(), g.float()
+            if self.weight_decay:
+                gf = gf + pf * self.weight_decay
+            if moms is not None:
+                gf = moms[i].mul_(self.momentum).add_(gf)
+            p.copy_((pf - gf * self.lr).to(p.dtype))
         return params, state
