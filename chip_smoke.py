@@ -270,6 +270,27 @@ leaf), each on the design its rule names.
     the reference's training trace claims it (``zoo.expected_launches``),
     and the step ms, tokens/s (images/s) and peak memory are printed.
 
+18. jit — the trace compiler's grad-free slice (``thunder_tpu_torch.jit``)
+    at llama3-8b full width and depth (32 layers, bf16, the phase-5
+    weights' seed, B=1, T=2048): (a) ``jit(llama.forward)``, (b)
+    ``jit(llama.loss_fn)`` as an evaluation loss, (c) ``jit`` of one Llama
+    layer written in plain PyTorch (``F.rms_norm``, ``F.linear``,
+    ``F.silu``, ``F.scaled_dot_product_attention(is_causal=True)``, the
+    residual adds) at llama3-8b width, where the epilogue pass builds
+    ``rms_norm_residual`` and ``linear_act`` and the claim pass takes
+    ``rms_norm`` and attention. Each cached call launches exactly the
+    kernels its execution trace claims. (a)'s logits against the eager
+    ``forward`` (the same kernels and torch calls in the same order: bit
+    for bit), (b)'s loss against the eager ``loss_fn`` (bit for bit), (c)
+    against the same function run eagerly on PyTorch's library calls
+    (JIT_LAYER_TOL of each row's largest value). Printed: compile ms by
+    stage (trace, passes, codegen), the host time of a cached call, of a
+    ``bind()`` call and of the guard lookup alone, the forward's device ms
+    through ``jit`` and eagerly with the torch calls each makes, and the
+    phase's seconds. Phase 3's rows at the slice's shapes: the norms on
+    (1, 2048, 4096), attention (1, 32, 2048, 128) causal, ``linear_act``
+    (2048 x 4096) x (14336 x 4096), ``ce_fwd`` 2048 x 128256 float32.
+
 No phase can fall back to a plain version on the card: a CUDA call whose
 inputs a kernel does not take raises in the kernel's wrapper, with the
 reason ``cudaex.refusal`` gives, and fails its phase; a quarantined kernel
@@ -433,6 +454,14 @@ GENERATE_LOGITS_TOL = 0.05
 GEN_REPEATS = 2
 FLEET_PATHS = ("serve-prefix", "serve-prefix-planned", "serve-best-of", "serve-restart-planned",
                "generate")
+
+# phase 18: the trace compiler's slice at llama3-8b full width, B=1, T=2048
+# (c) against eager library calls, row by row (row_rel_err), at most 2e-2 of
+#   each row's largest value: the kernels round linear_act's silu, the norms
+#   and attention at other points than cuBLAS, cuDNN and aten (GEMM_TOL)
+JIT_B, JIT_T, JIT_TIMED = 1, 2048, 3
+JIT_LAYER_TOL = 2e-2
+JIT_PATHS = ("jit-forward", "jit-loss", "jit-layer")
 
 D, F_DIM, S_DECODE, M_PREFILL = 4096, 14336, 8, 512
 KV, G, HD, PS = 8, 4, 128, 16
@@ -2928,7 +2957,23 @@ def attention_rows(torch, cudaex, tnn, gen, dtype, B, H, T, S, hd, causals, faul
         del got, want
         lib, lib_note = None, None
         if f32:
-            lib_note = "aten's flash backward takes 16-bit inputs only"
+            # aten's flash backward takes 16-bit inputs only: PyTorch's
+            # float32 library backward is the memory-efficient attention's,
+            # run by .backward() of F.scaled_dot_product_attention under
+            # EFFICIENT_ATTENTION (the graph kept, so each call is the
+            # backward alone): the same (dq, dk, dv) from q, k, v and dO
+            try:
+                from torch.nn.attention import SDPBackend, sdpa_kernel
+
+                qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+                with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                    o_ea = F.scaled_dot_product_attention(qr, kr, vr, is_causal=causal)
+
+                def lib():
+                    return torch.autograd.grad(o_ea, (qr, kr, vr), g, retain_graph=True)
+            except (RuntimeError, TypeError, ImportError) as e:
+                lib_note = ("memory-efficient attention unavailable: "
+                            f"{str(e).splitlines()[0][:160]}")
         else:
             try:
                 fa = torch.ops.aten._scaled_dot_product_flash_attention(q, k, v, 0.0, causal)
@@ -3313,6 +3358,199 @@ def log_zoo(path: str, r: dict, card: str) -> None:
         f"{rate[0]} {rate[1]:.1f}, peak {r['peak_memory_gb']:.2f} GB, losses "
         f"{[round(x, 5) for x in r['losses']]}, launches {r['launches']} ({card})")
 
+# ---------------------------------------------------------------------------
+# phase 18: the trace compiler's grad-free slice at llama3-8b full width
+# ---------------------------------------------------------------------------
+
+def torch_calls(torch, fn):
+    """``fn()`` and the torch calls it makes at the Python level (a router
+    of ``ops/`` counts once: its kernel launch; attribute reads such as
+    ``.shape`` are not counted)."""
+    from torch.overrides import TorchFunctionMode
+
+    class Count(TorchFunctionMode):
+        n = 0
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if getattr(func, "__name__", "") != "__get__":
+                self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    counter = Count()
+    with counter:
+        out = fn()
+    return out, counter.n
+
+
+def device_ms(torch, fn, iters: int = JIT_TIMED) -> float:
+    """Mean device ms of ``fn()`` (a whole forward: no spin needed) from CUDA
+    events around ``iters`` calls after one warm call."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def host_ms(torch, fn, iters: int = JIT_TIMED) -> float:
+    """Mean host ms until ``fn()`` returns (before the card has finished its work)."""
+    total = 0.0
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        total += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return total * 1e3 / iters
+
+
+def jit_run(torch, cudaex, ptt, jf, args, eager_fn, what: str) -> dict:
+    """Compile ``jf`` for ``args``, then one cached call with the launch counts
+    reset just before it and read just after: they must equal the execution
+    trace's claims. Returns the compile stages, the cached call's output and
+    launches, the eager call's, and their times."""
+    from thunder_tpu_torch.testing import jit_launches
+
+    t0 = time.perf_counter()
+    jf.compile(*args)
+    compile_ms = (time.perf_counter() - t0) * 1e3
+    stages = dict(ptt.compile_stats(jf).last_pass_times)
+    out, launches, claims = jit_launches(jf, *args)
+    require(launches == claims, f"{what}: the jit launched {launches}, its trace claims {claims}")
+    require(ptt.cache_hits(jf) == 1 and ptt.cache_misses(jf) == 1,
+            f"{what}: hits {ptt.cache_hits(jf)}, misses {ptt.cache_misses(jf)}")
+    cudaex.reset_launch_counts()
+    with torch.no_grad():
+        eager = eager_fn()
+    torch.cuda.synchronize()
+    eager_launches = {k: n for k, n in cudaex.launch_counts().items() if n}
+    bound = jf.bind(*args)
+    t0 = time.perf_counter()
+    for _ in range(10):
+        jf.compile(*args)   # the guard key alone: a hit
+    guard_us = (time.perf_counter() - t0) * 1e5
+    with torch.no_grad():
+        _, jit_ops = torch_calls(torch, lambda: jf(*args))
+        _, eager_ops = torch_calls(torch, eager_fn)
+        timing = {
+            "jit_ms": device_ms(torch, lambda: jf(*args)),
+            "eager_ms": device_ms(torch, eager_fn),
+            "host_ms_cached_call": host_ms(torch, lambda: jf(*args)),
+            "host_ms_bind_call": host_ms(torch, lambda: bound(*args)),
+            "host_ms_eager_call": host_ms(torch, eager_fn),
+            "guard_us": guard_us,
+            "torch_calls_jit": jit_ops, "torch_calls_eager": eager_ops,
+        }
+    return {"out": out, "eager": eager, "launches": launches, "eager_launches": eager_launches,
+            "compile_ms": compile_ms, "compile_stages_ms": stages, "timing": timing,
+            "trace_bsyms": len(ptt.last_execution_trace(jf).bound_symbols)}
+
+
+def check_jit_kernels(torch, cudaex, tnn) -> dict:
+    """Phase 3 at the slice's shapes: the norms, attention, linear_act and
+    ce_fwd against their plain versions, timed; their rows."""
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    rms, res = norm_rows(torch, cudaex, tnn, gen, (JIT_B, JIT_T, D))
+    la = linear_act_row(torch, cudaex, tnn, gen, (JIT_B, JIT_T))
+    (fwd, _), = attention_rows(torch, cudaex, tnn, gen, torch.bfloat16, JIT_B, 32, JIT_T, JIT_T,
+                               HD, [True])
+    ce = ce_row(torch, cudaex, tnn, gen, JIT_B * JIT_T, 128256)
+    return {"rms_norm": [rms], "rms_norm_residual": [res], "linear_act": [la],
+            "sdpa_fwd": [fwd], "ce_fwd": [ce]}
+
+
+def jit_full_width(np, torch, tllama, cudaex) -> dict:
+    """Phase 18 (a), (b) and (c); every check held or the phase fails."""
+    import thunder_tpu_torch as ptt
+    from thunder_tpu_torch.testing import plain_llama_layer, row_rel_err
+
+    t0 = time.perf_counter()
+    cfg = tllama.CONFIGS["llama3-8b"]
+    params = tllama.init_params(cfg, seed=0, device="cuda")
+    rng = np.random.default_rng(18)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (JIT_B, JIT_T))).cuda()
+    targets = torch.from_numpy(rng.integers(0, cfg.vocab_size, (JIT_B, JIT_T))).cuda()
+    L = cfg.n_layers
+
+    # (a) the prefill's forward
+    fwd = ptt.jit(lambda p, t: tllama.forward(p, t, cfg))
+    a = jit_run(torch, cudaex, ptt, fwd, (params, tokens),
+                lambda: tllama.forward(params, tokens, cfg), "jit(forward)")
+    want = {"rms_norm": 1, "sdpa_fwd": L, "rms_norm_residual": 2 * L, "linear_act": L}
+    require(a["launches"] == want and a["eager_launches"] == want,
+            f"jit(forward) launched {a['launches']}, eager {a['eager_launches']}, want {want}")
+    logits, eager = a.pop("out"), a.pop("eager")
+    require(tuple(logits.shape) == (JIT_B, JIT_T, cfg.vocab_size)
+            and bool(torch.isfinite(logits).all()), "jit(forward): logits not finite")
+    a["logits_max_abs_diff"] = float((logits.float() - eager.float()).abs().max())
+    a["logits_bitwise_equal"] = bool(torch.equal(logits, eager))
+    require(a["logits_bitwise_equal"], f"jit(forward): logits differ from the eager forward's "
+                                       f"(max {a['logits_max_abs_diff']}) where both run the "
+                                       f"same calls in the same order")
+    del logits, eager
+    torch.cuda.empty_cache()
+
+    # (b) the evaluation loss
+    lossf = ptt.jit(lambda p, t, y: tllama.loss_fn(p, t, y, cfg))
+    b = jit_run(torch, cudaex, ptt, lossf, (params, tokens, targets),
+                lambda: tllama.loss_fn(params, tokens, targets, cfg), "jit(loss_fn)")
+    want_b = dict(want, ce_fwd=1)
+    require(b["launches"] == want_b and b["eager_launches"] == want_b,
+            f"jit(loss_fn) launched {b['launches']}, eager {b['eager_launches']}, want {want_b}")
+    loss, eager_loss = float(b.pop("out")), float(b.pop("eager"))
+    require(math.isfinite(loss) and abs(loss - math.log(cfg.vocab_size)) < 2.0,
+            f"jit(loss_fn): loss {loss} (random weights: about ln V = "
+            f"{math.log(cfg.vocab_size):.3f})")
+    b["loss"], b["eager_loss"] = loss, eager_loss
+    require(loss == eager_loss, f"jit(loss_fn): {loss} against the eager {eager_loss}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) a plain-PyTorch layer at llama3-8b width
+    gen = torch.Generator(device="cuda").manual_seed(181)
+    Dm, Fd, H, KVh = cfg.dim, cfg.intermediate_size, cfg.n_heads, cfg.kv_heads
+    kv_dim = KVh * cfg.head_dim
+
+    def dense(n_out, n_in):
+        return (torch.randn(n_out, n_in, generator=gen, device="cuda") * n_in ** -0.5).to(cfg.dtype)
+
+    def norm_w():
+        return (torch.rand(Dm, generator=gen, device="cuda") + 0.5).to(cfg.dtype)
+
+    x = torch.randn(JIT_B, JIT_T, Dm, generator=gen, device="cuda").to(cfg.dtype)
+    layer = (norm_w(), dense(Dm, Dm), dense(kv_dim, Dm), dense(kv_dim, Dm), dense(Dm, Dm),
+             norm_w(), dense(Fd, Dm), dense(Fd, Dm), dense(Dm, Fd))
+
+    def plain(x, *w):
+        return plain_llama_layer(x, *w, n_heads=H, n_kv=KVh)
+
+    lay = ptt.jit(plain)
+    c = jit_run(torch, cudaex, ptt, lay, (x, *layer), lambda: plain(x, *layer), "jit(layer)")
+    want_c = {"rms_norm": 1, "sdpa_fwd": 1, "rms_norm_residual": 1, "linear_act": 1}
+    require(c["launches"] == want_c and not c["eager_launches"],
+            f"jit(layer) launched {c['launches']} (want {want_c}); eager {c['eager_launches']}")
+    src = ptt.last_execution_trace(lay).python()
+    require("epilogue fusion: residual add absorbed into rms_norm" in src
+            and "epilogue fusion: silu epilogue fused into linear" in src,
+            "jit(layer): the epilogue pass built no rms_norm_residual or linear_act")
+    out, eager_out = c.pop("out"), c.pop("eager")
+    require(bool(torch.isfinite(out).all()), "jit(layer): output not finite")
+    c["row_rel_err"] = row_rel_err(out, eager_out)
+    c["max_abs_diff"] = float((out.float() - eager_out.float()).abs().max())
+    require(c["row_rel_err"] <= JIT_LAYER_TOL,
+            f"jit(layer): {c['row_rel_err']} of each row's largest value against eager "
+            f"PyTorch (bound {JIT_LAYER_TOL})")
+    del x, layer, out, eager_out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"forward": a, "loss": b, "layer": c, "phase_s": time.perf_counter() - t0}
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -3483,6 +3721,12 @@ def main() -> int:
             log_zoo(path, zoo_runs[path], card)
     log(f"phase 17: {time.perf_counter() - t17:.1f} s")
 
+    # phase 18: the trace compiler's grad-free slice
+    log("the trace compiler's kernels vs plain versions (phase 18's shapes):")
+    jit_rows = check_jit_kernels(torch, cudaex, tnn)
+    jt = jit_full_width(np, torch, tllama, cudaex)
+    log(f"phase 18 (jit, llama3-8b full width): {json.dumps(jt)} ({card})")
+
     # one row per kernel and main path: the path's own shape and its own
     # launch count (rms_norm and rms_norm_residual run on several paths;
     # the planned path's rows for kernels it shares with the per-op train
@@ -3525,9 +3769,11 @@ def main() -> int:
                                  ("serve-restart-planned", serve_planned, fl["restart"]),
                                  ("generate", gen_rows, fl["generate"]),
                                  *((p, {k: [r] for k, r in zoo_rows[p].items()}, zoo_runs[p])
-                                   for p in ZOO_PATHS)):
+                                   for p in ZOO_PATHS),
+                                 *((p, {k: jit_rows[k] for k in jt[run]["launches"]}, jt[run])
+                                   for p, run in zip(JIT_PATHS, ("forward", "loss", "layer")))):
         for name, rs in path_rows.items():
-            if path in FLEET_PATHS or path in ZOO_PATHS:
+            if path in FLEET_PATHS or path in ZOO_PATHS or path in JIT_PATHS:
                 require(run["launches"].get(name, 0) > 0,
                         f"{path}: {name} never launched on the main path")
             r = dict(rs[0], path=path, launches=run["launches"][name])

@@ -1425,3 +1425,111 @@ def test_cuda_zoo_tiny_train_steps_match_cpu(cuda_device, model):
     np.testing.assert_allclose(a["losses"], b["losses"], rtol=1e-5)
     want = zoo.expected_launches(model)
     assert all(s["launches"] == want for s in a["per_step"])
+
+
+# ---------------------------------------------------------------------------
+# the trace compiler's slice (thunder_tpu_torch.jit) on the card
+# ---------------------------------------------------------------------------
+
+def _jit_launches(jf, *args):
+    """A cached call of ``jf``: its output and launches, which must equal
+    the trace's claims."""
+    from thunder_tpu_torch.testing import jit_launches
+
+    jf.compile(*args)
+    out, launches, claims = jit_launches(jf, *args)
+    assert launches == claims
+    return out, launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("what", ["forward", "loss"])
+def test_cuda_jit_tiny_llama_matches_cpu(cuda_device, what):
+    """jit(llama.forward) and jit(llama.loss_fn), tiny-gqa float32, on the
+    card against the same jit on the CPU: logits 1e-4, the loss 1e-5
+    relative (the kernels sum in other orders than the CPU's decomposition);
+    the card's launches are the trace's claims."""
+    import thunder_tpu_torch as ptt
+    from thunder_tpu_torch.models import llama as tllama
+    from thunder_tpu_torch.optim import tree_map
+
+    cfg = tllama.CONFIGS["tiny-gqa"]
+    params = tllama.init_params(cfg, seed=0, device="cpu")
+    gen = torch.Generator().manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 32), generator=gen)
+    targets = torch.randint(0, cfg.vocab_size, (2, 32), generator=gen)
+    if what == "forward":
+        fn, args = (lambda p, t: tllama.forward(p, t, cfg)), (params, tokens)
+    else:
+        fn, args = (lambda p, t, y: tllama.loss_fn(p, t, y, cfg)), (params, tokens, targets)
+    cpu = ptt.jit(fn, device="cpu")(*args)
+    card_args = tuple(tree_map(lambda t: t.cuda(), a) for a in args)
+    out, launches = _jit_launches(ptt.jit(fn), *card_args)
+    L = cfg.n_layers
+    want = {"rms_norm": 1, "sdpa_fwd": L, "rms_norm_residual": 2 * L, "linear_act": L}
+    if what == "loss":
+        want["ce_fwd"] = 1
+        np.testing.assert_allclose(float(out), float(cpu), rtol=1e-5)
+    else:
+        torch.testing.assert_close(out.cpu(), cpu, atol=1e-4, rtol=1e-4)
+    assert launches == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_jit_plain_layer_finds_its_kernels(cuda_device, dtype):
+    """One Llama layer in plain PyTorch at a small width (D 256, 4 heads, 2
+    kv heads, F 512) through jit: the epilogue pass builds rms_norm_residual
+    and linear_act, the claim pass takes rms_norm and attention, each
+    launching once; the output against the same function run eagerly on
+    PyTorch's library calls, row by row: 1e-4 (float32) and 2e-2 (bf16) of
+    each row's largest value."""
+    import thunder_tpu_torch as ptt
+    from thunder_tpu_torch.testing import plain_llama_layer
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    Dm, Fd = 256, 512
+
+    def dense(n_out, n_in):
+        return (torch.randn(n_out, n_in, generator=gen, device="cuda") * n_in ** -0.5).to(dtype)
+
+    def norm_w():
+        return (torch.rand(Dm, generator=gen, device="cuda") + 0.5).to(dtype)
+
+    x = torch.randn(2, 64, Dm, generator=gen, device="cuda").to(dtype)
+    w = (norm_w(), dense(Dm, Dm), dense(128, Dm), dense(128, Dm), dense(Dm, Dm), norm_w(),
+         dense(Fd, Dm), dense(Fd, Dm), dense(Dm, Fd))
+
+    def layer(x, *w):
+        return plain_llama_layer(x, *w, n_heads=4, n_kv=2)
+
+    out, launches = _jit_launches(ptt.jit(layer), x, *w)
+    assert launches == {"rms_norm": 1, "sdpa_fwd": 1, "rms_norm_residual": 1, "linear_act": 1}
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert row_rel_err(out, layer(x, *w)) <= tol
+
+
+@pytest.mark.cuda
+def test_cuda_jit_quarantined_claim_raises(cuda_device):
+    """With cuda.rms_norm quarantined, a jit call on the card raises the
+    router's fatal KernelExecutionError instead of decomposing; the same
+    function on the CPU still runs."""
+    import torch.nn.functional as F
+
+    import thunder_tpu_torch as ptt
+    from thunder_tpu_torch.runtime import faults, quarantine
+
+    def f(x, w):
+        return F.rms_norm(x, (64,), w, eps=1e-5) * 2.0
+
+    x, w = torch.randn(8, 64), torch.rand(64) + 0.5
+    quarantine.reset()
+    try:
+        quarantine.get_quarantine().add("cuda.rms_norm", reason="test")
+        with pytest.raises(faults.KernelExecutionError) as err:
+            ptt.jit(f)(x.cuda(), w.cuda())
+        assert err.value.claim_id == "cuda.rms_norm" and err.value.phase == faults.QUARANTINED
+        torch.testing.assert_close(ptt.jit(f, device="cpu")(x, w),
+                                   F.rms_norm(x, (64,), w, eps=1e-5) * 2.0)
+    finally:
+        quarantine.reset()

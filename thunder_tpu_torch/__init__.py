@@ -47,7 +47,340 @@ single-card serving fleet and the model zoo:
   policies and ``RestartBudget``, the kernel quarantine the routers of
   ``ops/`` read, and the numerics sentinel;
 - :mod:`thunder_tpu_torch.transforms.numerics_guard` — ``NumericsGuard``,
-  the guarded train step (``pretrain.run(guard=...)``).
+  the guarded train step (``pretrain.run(guard=...)``);
+- the trace compiler's grad-free slice: :func:`jit` traces a PyTorch
+  function into printable, executable traces (:func:`last_traces`), runs
+  DCE, CSE and the epilogue pass, and hands ``rms_norm``,
+  ``rms_norm_residual``, ``linear_act``, attention and cross-entropy of
+  CUDA tensors to the kernels (:mod:`thunder_tpu_torch.executors.cudaex_claims`);
+  every other prim runs as one torch call.
 """
 
 from thunder_tpu_torch.devices import resolve_device  # noqa: F401
+
+
+# ---------------------------------------------------------------------------
+# the trace compiler's entry point, jit (the counterpart of thunder_tpu/__init__.py)
+# ---------------------------------------------------------------------------
+
+import time as _time  # noqa: E402
+from contextlib import contextmanager as _contextmanager  # noqa: E402
+from numbers import Number as _Number  # noqa: E402
+from typing import Callable as _Callable, Sequence as _Sequence  # noqa: E402
+
+import torch as _torch  # noqa: E402
+
+from thunder_tpu_torch.core import devices as _devices  # noqa: E402
+from thunder_tpu_torch.core import prims as _prims  # noqa: E402
+from thunder_tpu_torch.core.baseutils import check as _check  # noqa: E402
+from thunder_tpu_torch.core.proxies import (  # noqa: E402
+    NumberProxy as _NumberProxy,
+    StringProxy as _StringProxy,
+    TensorProxy as _TensorProxy,
+)
+from thunder_tpu_torch.core.pytree import tree_flatten as _tree_flatten  # noqa: E402
+from thunder_tpu_torch.core.pytree import tree_unflatten as _tree_unflatten  # noqa: E402
+from thunder_tpu_torch.core.trace import TraceCtx, tracectx as _tracectx  # noqa: E402
+from thunder_tpu_torch.core.transform_common import cse, dce  # noqa: E402
+from thunder_tpu_torch.observe import registry as _observe  # noqa: E402
+from thunder_tpu_torch.runtime import faults as _faults  # noqa: E402
+from thunder_tpu_torch.runtime import quarantine as _quarantine  # noqa: E402
+from thunder_tpu_torch.runtime import retry as _retry  # noqa: E402
+from thunder_tpu_torch.runtime.faults import KernelExecutionError  # noqa: E402
+
+
+class CompileStats:
+    """Cache counters, the last compile's traces, and its stage times."""
+
+    def __init__(self):
+        self.cache_hits = 0
+        self.cache_misses = 0
+        self.last_traces: list[TraceCtx] = []
+        self.last_prologue_traces: list[TraceCtx] = []
+        self.last_pass_times: dict[str, float] = {}
+
+    def summary(self) -> str:
+        lines = [f"cache: {self.cache_misses} miss(es), {self.cache_hits} hit(s)"]
+        for name, ms in self.last_pass_times.items():
+            lines.append(f"  {name}: {ms:.2f} ms")
+        return "\n".join(lines)
+
+    def __repr__(self):
+        return f"<CompileStats\n{self.summary()}\n>"
+
+
+class CacheEntry:
+    __slots__ = ("computation_fn", "tensor_indices", "traces", "prologue_trace", "prologue_fn")
+
+    def __init__(self, computation_fn, tensor_indices, traces, prologue_trace, prologue_fn):
+        self.computation_fn = computation_fn
+        self.tensor_indices = tensor_indices
+        self.traces = traces
+        self.prologue_trace = prologue_trace
+        self.prologue_fn = prologue_fn
+
+
+def _is_tensorlike(x) -> bool:
+    return hasattr(x, "shape") and hasattr(x, "dtype") and not isinstance(x, _TensorProxy)
+
+
+def _leaf_key(leaf):
+    if isinstance(leaf, _torch.Tensor):
+        return ("T", tuple(leaf.shape), leaf.dtype, leaf.device)
+    if isinstance(leaf, bool):
+        return ("B", leaf)
+    if isinstance(leaf, _Number):
+        return ("N", type(leaf).__name__, leaf)
+    if isinstance(leaf, str):
+        return ("S", leaf)
+    return ("O", type(leaf).__name__)
+
+
+class ThunderTPUFunction:
+    """The compiled-function wrapper :func:`jit` returns.
+
+    A call flattens its arguments, looks the entry up by the guard key
+    (the tree structure, each leaf's shape, dtype and device or its constant
+    value, the default device, the quarantine epoch and the active fault
+    plan), compiles on a miss and runs the entry's generated program under
+    ``torch.no_grad()``: this slice is grad-free (trace-level autograd is
+    ROADMAP A.7's next item). numpy arrays are taken to the default device
+    first; torch tensors run where they are."""
+
+    def __init__(self, fn: _Callable, *, transforms: _Sequence = (), device=None,
+                 fn_name: str | None = None):
+        from thunder_tpu_torch.executors import resolve_executors
+
+        if transforms:
+            raise NotImplementedError("jit(transforms=...) is not ported yet (ROADMAP A.7)")
+        self.fn = fn
+        self.executors = resolve_executors(None)
+        self.device = _devices.to_device(device) if device is not None else None
+        self.fn_name = fn_name or getattr(fn, "__name__", "fn")
+        self._cache: dict = {}
+        self._stats = CompileStats()
+        self.__name__ = f"thunder_tpu_torch.jit({self.fn_name})"
+
+    # -- call ---------------------------------------------------------------
+    def _default_device(self):
+        return self.device if self.device is not None else _devices.default_device()
+
+    def _flatten(self, args, kwargs):
+        flat, treedef = _tree_flatten((args, kwargs))
+        if any(not isinstance(x, _torch.Tensor) and _is_tensorlike(x) for x in flat):
+            dev = self._default_device()
+            flat = [_torch.as_tensor(x, device=dev)
+                    if not isinstance(x, _torch.Tensor) and _is_tensorlike(x) else x
+                    for x in flat]
+        return flat, treedef
+
+    def _entry_for(self, args, kwargs):
+        flat, treedef = self._flatten(args, kwargs)
+        plan = _faults.active_plan()
+        key = (treedef, _quarantine.epoch(), id(plan) if plan is not None else None,
+               self._default_device(), tuple(_leaf_key(x) for x in flat))
+        entry = self._cache.get(key)
+        if entry is None:
+            self._stats.cache_misses += 1
+            _observe.inc("cache.misses")
+            _observe.event("cache_miss", fn=self.fn_name)
+            entry = self._compile(flat, treedef)
+            self._cache[key] = entry
+        else:
+            self._stats.cache_hits += 1
+            _observe.inc("cache.hits")
+        return entry, flat
+
+    def compile(self, *args, **kwargs) -> CacheEntry:
+        """Compile for these inputs without running; a later call with the
+        same guard key hits the entry."""
+        entry, _ = self._entry_for(args, kwargs)
+        return entry
+
+    def __call__(self, *args, **kwargs):
+        entry, flat = self._entry_for(args, kwargs)
+        return self._run_contained(entry.computation_fn, [flat[i] for i in entry.tensor_indices])
+
+    def _run_contained(self, run_fn, inps):
+        """Run an entry's program. A claimed kernel that fails with a
+        degradable error is quarantined, and the call raises the fatal
+        ``KernelExecutionError`` a rerun would end in: on the card a
+        quarantined claim's router raises it, as the port runs no
+        decomposition there. A fatal error (a sticky CUDA error leaves the
+        context unusable; a claim already quarantined) quarantines nothing
+        and propagates."""
+        try:
+            with _torch.no_grad():
+                return run_fn(*inps)
+        except KernelExecutionError as err:
+            if _retry.classify(err) != _retry.DEGRADABLE:
+                raise
+            _quarantine.get_quarantine().add(err.claim_id, reason=repr(err.__cause__ or err),
+                                             phase=err.phase)
+            raise KernelExecutionError(err.claim_id, _faults.QUARANTINED) from err
+
+    def bind(self, *args, **kwargs):
+        """Compile for these inputs and return a callable bound to that one
+        cache entry, which skips the guard key: the serving fast path. The
+        caller owns revalidation: calling it with another tree structure,
+        shapes, dtypes or devices than the binding inputs is undefined."""
+        entry, _ = self._entry_for(args, kwargs)
+        tensor_indices, run_fn = entry.tensor_indices, entry.computation_fn
+
+        def bound(*a, **k):
+            fl, _ = self._flatten(a, k)
+            return self._run_contained(run_fn, [fl[i] for i in tensor_indices])
+
+        bound.entry = entry
+        return bound
+
+    # -- compilation --------------------------------------------------------
+    def _trace(self, flat, treedef) -> tuple[TraceCtx, list[int]]:
+        trc = TraceCtx("computation")
+        tensor_indices: list[int] = []
+        with _tracectx(trc), _devices.using_device(self._default_device()):
+            proxies = []
+            for i, leaf in enumerate(flat):
+                if isinstance(leaf, _torch.Tensor):
+                    proxies.append(_TensorProxy(shape=leaf.shape, dtype=leaf.dtype,
+                                                device=leaf.device))
+                    tensor_indices.append(i)
+                else:
+                    proxies.append(leaf)   # constant values: baked and guarded
+            pargs, pkwargs = _tree_unflatten(treedef, proxies)
+            result = self.fn(*pargs, **pkwargs)
+            _prims.python_return(result)
+        trc.args = [proxies[i] for i in tensor_indices]
+        trc.output = result
+        trc.set_provenance("Tracing (torch function dispatch)")
+        return trc, tensor_indices
+
+    def _build_prologue(self, flat) -> TraceCtx:
+        pro = TraceCtx("prologue")
+        with _tracectx(pro):
+            pro_proxies, returns = [], []
+            for i, leaf in enumerate(flat):
+                if isinstance(leaf, _torch.Tensor):
+                    p = _TensorProxy(f"arg{i}", shape=leaf.shape, dtype=leaf.dtype,
+                                     device=leaf.device)
+                    _prims.check_tensor_shape_and_metadata(
+                        p, tuple(p.shape), p.dtype, _devices.device_string(p.device))
+                    returns.append(p)
+                elif isinstance(leaf, _Number):
+                    p = _NumberProxy(leaf, f"arg{i}")
+                    _prims.check_number_type_and_value(p, leaf)
+                elif isinstance(leaf, str):
+                    p = _StringProxy(leaf, f"arg{i}")
+                    _prims.check_string_value(p, leaf)
+                else:
+                    p = _NumberProxy(0, f"arg{i}", python_type=type(leaf))
+                    _prims.check_literal_like(p, leaf)
+                pro_proxies.append(p)
+            _prims.python_return(tuple(returns))
+        pro.args = pro_proxies
+        pro.output = tuple(returns)
+        pro.set_provenance("Prologue (input guards)")
+        return pro
+
+    def _compile(self, flat, treedef) -> CacheEntry:
+        _faults.maybe_fail("compile", site=self.fn_name)
+        pass_times: dict[str, float] = {}
+        with _observe.span("compile", args={"fn": self.fn_name}):
+            entry = self._compile_instrumented(flat, treedef, pass_times)
+        self._stats.last_pass_times = pass_times
+        _observe.inc("compile.count")
+        return entry
+
+    def _compile_instrumented(self, flat, treedef, pass_times) -> CacheEntry:
+        from thunder_tpu_torch.executors.passes import del_last_used, transform_for_execution
+
+        @_contextmanager
+        def stage(name):
+            t0 = _time.perf_counter_ns()
+            with _observe.span(name):
+                yield
+            pass_times[name] = (_time.perf_counter_ns() - t0) / 1e6
+
+        with stage("trace"):
+            trc, tensor_indices = self._trace(flat, treedef)
+        traces = [trc]
+        with stage("prologue"):
+            prologue = self._build_prologue(flat)
+        with stage("dce+cse"):
+            trc = dce(trc)
+            traces.append(trc)
+            trc = dce(cse(trc))
+            trc.set_provenance("Common subexpression elimination")
+            traces.append(trc)
+        with stage("transform_for_execution"), _devices.using_device(self._default_device()):
+            exec_trc = transform_for_execution(trc, self.executors)
+        traces.append(exec_trc)
+        with stage("del_last_used"):
+            exec_trc = del_last_used(exec_trc)
+        traces.append(exec_trc)
+        with stage("codegen"):
+            computation_fn = exec_trc.python_callable()
+            prologue_fn = prologue.python_callable()
+        prologue_fn(*flat)   # the guards hold on the inputs they were built from
+        entry = CacheEntry(computation_fn, tensor_indices, traces, prologue, prologue_fn)
+        self._stats.last_traces = traces
+        self._stats.last_prologue_traces = [prologue]
+        return entry
+
+    # -- introspection ------------------------------------------------------
+    @property
+    def cache_hits(self):
+        return self._stats.cache_hits
+
+    @property
+    def cache_misses(self):
+        return self._stats.cache_misses
+
+
+def jit(fn: _Callable | None = None, **jit_kwargs) -> ThunderTPUFunction:
+    """Compile a PyTorch function: trace -> DCE/CSE -> the epilogue pass ->
+    the claim pass -> ``del`` insertion -> a generated Python program,
+    cached by the guard key. ``device=`` sets the default device (``cuda``
+    unless given) for what has none of its own. The executor stack is
+    ``cuda`` then the always-on ``torch`` executor. The function is traced
+    through the torch front end
+    (:mod:`thunder_tpu_torch.torch`): torch, ``torch.nn.functional`` and
+    tensor-method calls, and the routers of ``ops/``, record ops. An
+    ``nn.Module`` is not taken yet (ROADMAP A.7)."""
+    if fn is None:
+        return lambda f: jit(f, **jit_kwargs)
+    from thunder_tpu_torch.torch import jit as _torch_jit
+
+    return _torch_jit(fn, **jit_kwargs)
+
+
+def _as_tfn(x) -> ThunderTPUFunction:
+    _check(isinstance(x, ThunderTPUFunction), "expected a thunder_tpu_torch.jit-compiled function")
+    return x
+
+
+def last_traces(jfn) -> list[TraceCtx]:
+    """The last compile's computation traces, stage by stage: the traced
+    program, DCE, CSE, the execution trace (claims), and with ``del``s."""
+    return _as_tfn(jfn)._stats.last_traces
+
+
+def last_execution_trace(jfn) -> TraceCtx:
+    return _as_tfn(jfn)._stats.last_traces[-1]
+
+
+def last_prologue_traces(jfn) -> list[TraceCtx]:
+    return _as_tfn(jfn)._stats.last_prologue_traces
+
+
+def cache_hits(jfn) -> int:
+    return _as_tfn(jfn)._stats.cache_hits
+
+
+def cache_misses(jfn) -> int:
+    return _as_tfn(jfn)._stats.cache_misses
+
+
+def compile_stats(jfn) -> CompileStats:
+    return _as_tfn(jfn)._stats
+

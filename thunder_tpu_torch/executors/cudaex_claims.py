@@ -1,0 +1,190 @@
+"""The ``cuda`` executor: the claims that hand composites to the Hopper kernels.
+
+The counterpart of the registration block of
+``thunder_tpu/executors/pallasex.py`` (:2052-2162). For tensors on the card
+it claims ``nn.rms_norm``, ``nn.rms_norm_residual``, ``nn.linear_act``,
+``nn.sdpa_fwd``, ``nn.scaled_dot_product_attention`` (``sdpa_fwd``'s output
+alone), ``nn.ce_fwd`` and ``nn.cross_entropy`` (``ce_fwd``'s rows reduced as
+the composite reduces them), each under the claim id ``cuda.<kernel>`` of
+the kernel it launches, the id the routers of :mod:`thunder_tpu_torch.ops.nn`
+already use: each claimed symbol calls that router, so a launch runs behind
+its kernel guard and quarantine check and adds one to ``cudaex``'s launch
+count. ``nn.cross_entropy`` is the port's own claim: the reference's
+Pallas executor claims only ``nn.ce_fwd``, which its trace reaches through
+the cross-entropy VJP rule, so a grad-free reference trace decomposes the
+loss; the port's eager loss has always run ``ce_fwd``, and so does its
+traced one.
+
+Checkers: a claim needs its tensors on the card and the conditions the
+reference's checkers test in interpret mode (an attention call with a mask
+or dropout, a norm over another dim, a weight of another dtype decompose as
+there). The reference's TPU tiling rules and its cost-model gate
+(``_pallas_claim_profitable`` reads TPU roofline constants) have no
+counterpart: the cost model is a later slice. What a checker takes but the
+kernel does not (``cudaex.refusal``, evaluated on meta tensors of the
+proxies' shapes and dtypes) raises at compile time: nothing decomposes on
+the card in place of a kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from thunder_tpu_torch.core import dtypes
+from thunder_tpu_torch.core.proxies import TensorProxy
+from thunder_tpu_torch.executors import OperatorExecutor, cudaex, register_executor
+from thunder_tpu_torch.ops import get_op
+from thunder_tpu_torch.ops import nn as tnn
+
+ex = OperatorExecutor("cuda")
+register_executor(ex, default=True)
+
+_ACTS = ("relu", "silu", "gelu", "gelu_tanh")
+
+
+def _on_card(*ts) -> bool:
+    return all(t.device.type == "cuda" for t in ts if isinstance(t, TensorProxy))
+
+
+def _meta(x, dtype=None):
+    """A meta tensor of a proxy's shape and dtype (None stays None), for
+    ``cudaex.refusal``, which reads shapes, dtypes and strides only."""
+    if x is None:
+        return None
+    return torch.empty(x.shape, dtype=(dtype or x.dtype).torch, device="meta")
+
+
+# -- checkers (the interpret-mode conditions of pallasex's) --------------------
+
+def _rms_checker(a, weight=None, eps=1e-5, dim=-1):
+    if not _on_card(a, weight) or dim not in (-1, a.ndim - 1):
+        return False
+    return weight is None or (weight.ndim == 1 and weight.dtype == a.dtype)
+
+
+def _rms_res_checker(residual, a, weight=None, eps=1e-5):
+    if tuple(residual.shape) != tuple(a.shape) or residual.dtype != a.dtype:
+        return False
+    return a.dtype.bytes <= 4 and _on_card(residual) and _rms_checker(a, weight, eps)
+
+
+def _linear_act_checker(a, w, bias=None, act="relu"):
+    if act not in _ACTS or not _on_card(a, w, bias):
+        return False
+    if a.ndim < 2 or w.ndim != 2 or a.shape[-1] != w.shape[1]:
+        return False
+    if a.dtype != w.dtype or not a.dtype.is_float or a.dtype.bytes > 4:
+        return False
+    return bias is None or (bias.ndim == 1 and bias.shape[0] == w.shape[0]
+                            and bias.dtype == a.dtype)
+
+
+def _sdpa_checker(q, k, v, is_causal=False, scale=None):
+    return _on_card(q, k, v)
+
+
+def _sdpa_full_checker(q, k, v, attn_mask=None, dropout_p=0.0, is_causal=False, scale=None):
+    return attn_mask is None and not dropout_p and _sdpa_checker(q, k, v, is_causal, scale)
+
+
+def _ce_checker(logits, target, ignore_index=-100):
+    return logits.ndim == 2 and _on_card(logits, target)
+
+
+def _cross_entropy_checker(logits, target, weight=None, ignore_index=-100, reduction="mean",
+                           label_smoothing=0.0):
+    return (weight is None and not label_smoothing and reduction in ("mean", "sum", "none")
+            and logits.dtype.is_float and target.ndim == 1
+            and _ce_checker(logits, target, ignore_index))
+
+
+# -- refusals of the kernels, on meta tensors ---------------------------------
+
+def _rms_refusal(a, weight=None, eps=1e-5, dim=-1):
+    return cudaex.refusal("rms_norm", _meta(a), _meta(weight), eps)
+
+
+def _rms_res_refusal(residual, a, weight=None, eps=1e-5):
+    return cudaex.refusal("rms_norm_residual", _meta(residual), _meta(a), _meta(weight), eps)
+
+
+def _linear_act_refusal(a, w, bias=None, act="relu"):
+    return cudaex.refusal("linear_act", _meta(a), _meta(w), _meta(bias), act)
+
+
+def _sdpa_refusal(q, k, v, *args, **kwargs):
+    return cudaex.refusal("sdpa_fwd", _meta(q), _meta(k), _meta(v))
+
+
+def _ce_refusal(logits, target, *args, **kwargs):
+    return cudaex.refusal("ce_fwd", _meta(logits), _meta(target, dtypes.int64))
+
+
+# -- the claimed callables: the routers of ops/nn.py --------------------------
+
+def cuda_rms_norm(a, weight=None, eps=1e-5, dim=-1):
+    return tnn._rms_norm(a, weight, eps)
+
+
+def cuda_rms_norm_residual(residual, a, weight=None, eps=1e-5):
+    return tnn._rms_norm_residual(residual, a, weight, eps)
+
+
+def cuda_linear_act(a, w, bias=None, act="relu"):
+    return tnn.linear_act(a, w, bias, act)
+
+
+def cuda_sdpa_fwd(q, k, v, is_causal=False, scale=None):
+    return tnn.sdpa_fwd(q, k, v, is_causal, scale)
+
+
+def cuda_sdpa(q, k, v, attn_mask=None, dropout_p=0.0, is_causal=False, scale=None):
+    # the inference path needs no lse; the operands made dense as the eager
+    # scaled_dot_product_attention makes them
+    return tnn.sdpa_fwd(q.contiguous(), k.contiguous(), v.contiguous(), is_causal, scale)[0]
+
+
+def cuda_ce_fwd(logits, target, ignore_index=-100):
+    return tnn.ce_fwd(logits, target, ignore_index)
+
+
+def cuda_cross_entropy(logits, target, weight=None, ignore_index=-100, reduction="mean",
+                       label_smoothing=0.0):
+    """``ce_fwd``'s rows reduced as the composite reduces them: the mean over
+    the rows whose target is not ignored, as the eager ``cross_entropy``
+    computes it. The result takes the logits' dtype, the composite's."""
+    nll, _ = tnn.ce_fwd(logits, target, ignore_index)
+    if reduction == "none":
+        return nll.to(logits.dtype)
+    total = torch.sum(nll)
+    if reduction == "mean":
+        total = total / torch.clamp(torch.sum((target != ignore_index).float()), min=1.0)
+    return total.to(logits.dtype)
+
+
+def _register(name, op_id, fn, checker, refusal, claim=None):
+    sym = ex.register_operator(name, meta=get_op(op_id).meta, fn=fn,
+                               id=f"cuda.{claim}" if claim else None)
+    ex.register_implementation(op_id, sym, checker=checker, refusal=refusal)
+    return sym
+
+
+rms_norm_op = _register("rms_norm", "nn.rms_norm", cuda_rms_norm, _rms_checker, _rms_refusal)
+rms_norm_residual_op = _register("rms_norm_residual", "nn.rms_norm_residual",
+                                 cuda_rms_norm_residual, _rms_res_checker, _rms_res_refusal)
+linear_act_op = _register("linear_act", "nn.linear_act", cuda_linear_act, _linear_act_checker,
+                          _linear_act_refusal)
+sdpa_fwd_op = _register("sdpa_fwd", "nn.sdpa_fwd", cuda_sdpa_fwd, _sdpa_checker, _sdpa_refusal)
+sdpa_op = _register("sdpa", "nn.scaled_dot_product_attention", cuda_sdpa, _sdpa_full_checker,
+                    _sdpa_refusal, claim="sdpa_fwd")
+ce_fwd_op = _register("ce_fwd", "nn.ce_fwd", cuda_ce_fwd, _ce_checker, _ce_refusal)
+cross_entropy_op = _register("cross_entropy", "nn.cross_entropy", cuda_cross_entropy,
+                             _cross_entropy_checker, _ce_refusal, claim="ce_fwd")
+
+
+def kernel_of(sym) -> str | None:
+    """The ``cudaex`` kernel a claimed symbol launches (None for a symbol of
+    another executor)."""
+    if sym.executor is not ex:
+        return None
+    return sym.id.removeprefix("cuda.")

@@ -220,11 +220,15 @@ def _block(h: torch.Tensor, x: torch.Tensor, layer: dict, next_norm: torch.Tenso
     MLP, on the residual stream ``h`` and its normed ``x``. The residual
     adds fold into the norms that follow them (the layer's ``mlp_norm``,
     then ``next_norm``: the next layer's ``attn_norm`` or ``norm_f``), as the
-    reference's per-op training trace claims them. Returns ``(h,
-    next_norm(h))``."""
+    reference's per-op training trace claims them. The MLP's gate takes
+    ``linear_act`` when no gradient is needed, as the reference's grad-free
+    trace claims it (its epilogue pass fuses ``silu(linear)``), and the
+    unfused :func:`_mlp_train` otherwise. Returns ``(h, next_norm(h))``."""
     h, x = tnn.rms_norm_residual(h, _attention_out(x, layer, cfg, cos, sin), layer["mlp_norm"],
                                  eps=cfg.norm_eps)
-    return tnn.rms_norm_residual(h, _mlp_train(x, layer), next_norm, eps=cfg.norm_eps)
+    grad = tnn._needs_grad(x, layer["w_gate"], layer["w_up"], layer["w_down"])
+    mlp = _mlp_train if grad else _mlp
+    return tnn.rms_norm_residual(h, mlp(x, layer), next_norm, eps=cfg.norm_eps)
 
 
 def _planned_block(h: torch.Tensor, layer: dict, cfg: LlamaConfig, cos, sin) -> torch.Tensor:

@@ -1,0 +1,220 @@
+"""The nn composites of the port's traces.
+
+The counterparts of the composites of ``thunder_tpu/ops/nn.py``, each a
+Symbol with the reference's stable id and its decomposition into ops:
+:func:`embedding` (``nn.embedding``, :23), :func:`layer_norm` (:41),
+:func:`rms_norm` (:61), :func:`rms_norm_residual` (:73), :func:`linear_act`
+(:101), :func:`dropout` (:241), :func:`mse_loss` (:251),
+:func:`cross_entropy` (:263), :func:`sdpa_fwd` (:297), :func:`ce_fwd`
+(:321) and :func:`scaled_dot_product_attention` (:590).
+
+They live beside the eager routers of :mod:`thunder_tpu_torch.ops.nn`, which
+carry the same names: under ``jit`` a router called on traced tensors
+records the composite here, and :mod:`~thunder_tpu_torch.executors.cudaex_claims`
+hands the claimed composites of CUDA tensors back to those routers' kernels.
+Unclaimed (on the CPU, or refused by a checker such as an explicit
+attention mask), each decomposes exactly as the reference's does.
+"""
+
+from __future__ import annotations
+
+import math
+
+from thunder_tpu_torch import ops
+from thunder_tpu_torch.core import dtypes, prims
+from thunder_tpu_torch.core.baseutils import canonicalize_dim, check
+from thunder_tpu_torch.core.proxies import pyval
+from thunder_tpu_torch.ops import _tensor_like, opsymbol
+
+_HALF = (dtypes.float16, dtypes.bfloat16)
+
+
+@opsymbol(id="nn.embedding")
+def embedding(ids, weight, padding_idx=None):
+    check(weight.ndim == 2, lambda: f"embedding: weight must be (num_embeddings, dim), got "
+                                    f"{weight.ndim}-D {tuple(weight.shape)}")
+    return prims.take(weight, ids, 0)
+
+
+@opsymbol(id="nn.layer_norm")
+def layer_norm(a, normalized_shape, weight=None, bias=None, eps: float = 1e-5):
+    _tensor_like(a, "layer_norm")
+    nd = len(normalized_shape)
+    check(tuple(a.shape[-nd:]) == tuple(normalized_shape),
+          lambda: f"layer_norm: normalized_shape {normalized_shape} != trailing dims of {a.shape}")
+    dims = tuple(range(a.ndim - nd, a.ndim))
+    x = ops.convert_element_type(a, dtypes.float32) if a.dtype in _HALF else a
+    m = ops.mean(x, dims, keepdim=True)
+    centered = ops.sub(x, m)
+    v = ops.mean(ops.mul(centered, centered), dims, keepdim=True)
+    out = ops.mul(centered, ops.rsqrt(ops.add(v, eps)))
+    if weight is not None:
+        out = ops.mul(out, weight)
+    if bias is not None:
+        out = ops.add(out, bias)
+    return ops.convert_element_type(out, a.dtype)
+
+
+@opsymbol(id="nn.rms_norm")
+def rms_norm(a, weight=None, eps: float = 1e-5, dim: int = -1):
+    d = canonicalize_dim(a.ndim, dim)
+    x = ops.convert_element_type(a, dtypes.float32) if a.dtype in _HALF else a
+    ms = ops.mean(ops.mul(x, x), d, keepdim=True)
+    out = ops.mul(x, ops.rsqrt(ops.add(ms, eps)))
+    out = ops.convert_element_type(out, a.dtype)
+    if weight is not None:
+        out = ops.mul(out, weight)
+    return out
+
+
+@opsymbol(id="nn.rms_norm_residual")
+def rms_norm_residual(residual, a, weight=None, eps: float = 1e-5):
+    """Fused residual add and RMS norm: ``h = residual + a``, then
+    ``rms_norm(h, weight)``; returns ``(h, normed)``."""
+    _tensor_like(a, "rms_norm_residual")
+    check(tuple(residual.shape) == tuple(a.shape),
+          lambda: f"rms_norm_residual: residual shape {tuple(residual.shape)} "
+                  f"!= input shape {tuple(a.shape)}")
+    h = ops.add(residual, a)
+    return h, rms_norm(h, weight, eps=eps)
+
+
+_LINEAR_ACT_FNS = {
+    "relu": lambda y: ops.relu(y),
+    "silu": lambda y: ops.silu(y),
+    "gelu": lambda y: ops.gelu(y),
+    "gelu_tanh": lambda y: ops.gelu(y, approximate="tanh"),
+}
+
+
+@opsymbol(id="nn.linear_act")
+def linear_act(a, w, bias=None, act: str = "relu"):
+    """Fused ``act(a @ w.T + bias)``, the composite the epilogue pass builds
+    from ``nn.linear`` followed by an activation."""
+    check(act in _LINEAR_ACT_FNS,
+          lambda: f"linear_act: unknown activation {act!r}; known: {sorted(_LINEAR_ACT_FNS)}")
+    return _LINEAR_ACT_FNS[act](ops.linear(a, w, bias))
+
+
+@opsymbol(id="nn.dropout")
+def dropout(a, p: float = 0.5, training: bool = True):
+    p = float(pyval(p))
+    if not training or p == 0.0:
+        return a
+    raise NotImplementedError("dropout with p > 0 in training needs the traced RNG, which is "
+                              "not ported yet (ROADMAP A.7)")
+
+
+@opsymbol(id="nn.mse_loss")
+def mse_loss(input, target, reduction: str = "mean"):
+    d = ops.sub(input, target)
+    sq = ops.mul(d, d)
+    if reduction == "mean":
+        return ops.mean(sq)
+    if reduction == "sum":
+        return ops.sum(sq)
+    return sq
+
+
+@opsymbol(id="nn.cross_entropy")
+def cross_entropy(logits, target, weight=None, ignore_index: int = -100,
+                  reduction: str = "mean", label_smoothing: float = 0.0):
+    """logits (N, C) or (N, C, ...); target (N, ...) integer class ids."""
+    check(weight is None, "cross_entropy: class weights not yet supported")
+    C = logits.shape[1] if logits.ndim > 1 else logits.shape[0]
+    expect = (logits.shape[0],) + tuple(logits.shape[2:]) if logits.ndim > 1 else ()
+    check(tuple(target.shape) == expect,
+          lambda: f"cross_entropy: target shape {tuple(target.shape)} does not match "
+                  f"logits {tuple(logits.shape)}: expected {expect}")
+    if logits.ndim > 2:
+        perm = (0,) + tuple(range(2, logits.ndim)) + (1,)
+        logits = ops.reshape(ops.transpose(logits, perm), (-1, C))
+        target = ops.reshape(target, (-1,))
+    logp = ops.log_softmax(logits, -1)
+    tgt = ops.convert_element_type(target, dtypes.int64)
+    safe_tgt = ops.where(ops.eq(tgt, ignore_index), ops.zeros_like(tgt), tgt)
+    picked = ops.squeeze(prims.take_along_axis(logp, ops.unsqueeze(safe_tgt, -1), 1), (1,))
+    nll = ops.neg(picked)
+    if label_smoothing > 0.0:
+        smooth = ops.neg(ops.mean(logp, -1))
+        nll = ops.add(ops.mul(nll, 1.0 - label_smoothing), ops.mul(smooth, label_smoothing))
+    valid = ops.ne(tgt, ignore_index)
+    nll = ops.where(valid, nll, ops.zeros_like(nll))
+    if reduction == "none":
+        return nll
+    if reduction == "sum":
+        return ops.sum(nll)
+    count = ops.sum(ops.convert_element_type(valid, dtypes.float32))
+    return ops.true_divide(ops.sum(nll), ops.maximum(count, 1.0))
+
+
+def _causal_scores(scores, q, L, S):
+    causal = ops.tril_mask(L, S, 0, device=q.device)
+    return ops.where(ops.expand_to(causal, scores.shape), scores,
+                     ops.full_like(scores, -float("inf")))
+
+
+@opsymbol(id="nn.sdpa_fwd")
+def sdpa_fwd(q, k, v, is_causal: bool = False, scale: float | None = None):
+    """Attention forward that also returns the row logsumexp, the
+    flash-attention forward contract."""
+    E = q.shape[-1]
+    L, S = q.shape[-2], k.shape[-2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(E)
+    qf = ops.convert_element_type(q, dtypes.float32)
+    kf = ops.convert_element_type(k, dtypes.float32)
+    vf = ops.convert_element_type(v, dtypes.float32)
+    scores = ops.mul(ops.matmul(qf, kf.mT), scale)
+    if is_causal:
+        scores = _causal_scores(scores, q, L, S)
+    m = ops.amax(scores, -1, keepdim=True)
+    e = ops.exp(ops.sub(scores, m))
+    l = ops.sum(e, -1, keepdim=True)
+    out = ops.matmul(ops.true_divide(e, l), vf)
+    lse = ops.add(ops.squeeze(m, -1), ops.log(ops.squeeze(l, -1)))
+    return ops.convert_element_type(out, q.dtype), lse
+
+
+@opsymbol(id="nn.ce_fwd")
+def ce_fwd(logits, target, ignore_index: int = -100):
+    """Per-row negative log-likelihood and logsumexp (the fused
+    cross-entropy forward contract). logits (N, C); target (N,) integer."""
+    lf = ops.convert_element_type(logits, dtypes.float32)
+    m = ops.amax(lf, -1, keepdim=True)
+    lse = ops.add(ops.squeeze(m, -1), ops.log(ops.sum(ops.exp(ops.sub(lf, m)), -1)))
+    tgt = ops.convert_element_type(target, dtypes.int64)
+    safe_tgt = ops.where(ops.eq(tgt, ignore_index), ops.zeros_like(tgt), tgt)
+    picked = ops.squeeze(prims.take_along_axis(lf, ops.unsqueeze(safe_tgt, -1), 1), (1,))
+    nll = ops.sub(lse, picked)
+    valid = ops.ne(tgt, ignore_index)
+    nll = ops.where(valid, nll, ops.zeros_like(nll))
+    return nll, lse
+
+
+@opsymbol(id="nn.scaled_dot_product_attention")
+def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p: float = 0.0,
+                                 is_causal: bool = False, scale: float | None = None):
+    """q, k, v (..., L, E) / (..., S, E): ``softmax(q k^T * scale) v``. (The
+    reference's context-parallel ring branch is not ported yet.)"""
+    _tensor_like(q, "scaled_dot_product_attention")
+    E = q.shape[-1]
+    L, S = q.shape[-2], k.shape[-2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(E)
+    qf = ops.convert_element_type(q, dtypes.float32)
+    kf = ops.convert_element_type(k, dtypes.float32)
+    vf = ops.convert_element_type(v, dtypes.float32)
+    scores = ops.mul(ops.matmul(qf, kf.mT), scale)
+    if is_causal:
+        check(attn_mask is None, "cannot pass both is_causal and attn_mask")
+        scores = _causal_scores(scores, q, L, S)
+    if attn_mask is not None:
+        if attn_mask.dtype.is_bool:
+            scores = ops.where(ops.expand_to(attn_mask, scores.shape), scores,
+                               ops.full_like(scores, -float("inf")))
+        else:
+            scores = ops.add(scores, attn_mask)
+    probs = ops.softmax(scores, -1)
+    if dropout_p > 0.0:
+        probs = dropout(probs, dropout_p)
+    out = ops.matmul(probs, vf)
+    return ops.convert_element_type(out, q.dtype)

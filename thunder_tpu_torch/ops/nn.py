@@ -20,7 +20,10 @@ and any ``linear_act`` K (zero-padded on the tile path, ``cudaex.tile_k``).
 decode kernel's contract and always takes the plain gather/mask/softmax
 decomposition, as the JAX package's checker leaves it to XLA.
 
-Every router that reaches a kernel runs behind :func:`routed`: the kernel
+Every router carries :func:`traceable`'s ``__torch_function__`` entry, so
+under ``jit`` it records its composite (:mod:`thunder_tpu_torch.ops.composites`)
+instead of running. Every router that reaches a kernel runs behind
+:func:`routed`: the kernel
 guard of ``runtime.faults`` (the ``kernel:cuda.<name>`` fault hook, the
 attribution of a failed launch to the claim, ``numerics:kernel:``
 poisoning) and the quarantine (``runtime.quarantine``). The rungs go from
@@ -69,6 +72,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.overrides import handle_torch_function, has_torch_function
 
 from thunder_tpu_torch.executors import cudaex
 from thunder_tpu_torch.runtime import faults as _faults
@@ -89,6 +93,22 @@ def _on_cuda(t: torch.Tensor, name: str) -> bool:
 # ---------------------------------------------------------------------------
 # routing: the kernel guard and the quarantine's rungs
 # ---------------------------------------------------------------------------
+
+def traceable(fn):
+    """The ``__torch_function__`` entry of a router: a call whose arguments
+    carry ``__torch_function__`` (the traced tensors of ``jit``) is handed
+    to torch's override machinery, which records the router's composite
+    (``thunder_tpu_torch.torch``'s function map); a call on plain tensors
+    pays this one check."""
+
+    @functools.wraps(fn)
+    def entry(*args, **kwargs):
+        if has_torch_function(args):
+            return handle_torch_function(entry, args, *args, **kwargs)
+        return fn(*args, **kwargs)
+
+    return entry
+
 
 def routed(name: str, fallback=None, tensor_of=lambda args: args[0]):
     """Decorator for the router of kernel ``name`` (``cudaex.KERNELS``): the
@@ -118,7 +138,9 @@ def routed(name: str, fallback=None, tensor_of=lambda args: args[0]):
             return guarded(*args, **kwargs)
 
         route.claim_id = claim
-        return route
+        entry = traceable(route)
+        entry.__wrapped__ = router   # what benchmarks.decode_profile.unguarded swaps in
+        return entry
 
     return deco
 
@@ -409,6 +431,7 @@ class _RmsNormResidual(torch.autograd.Function):
         return dh, dh, dw, None
 
 
+@traceable
 def rms_norm(a: torch.Tensor, weight: torch.Tensor | None = None,
              eps: float = 1e-5) -> torch.Tensor:
     """RMS norm over the last dim; statistics in float32, the normalised
@@ -419,6 +442,7 @@ def rms_norm(a: torch.Tensor, weight: torch.Tensor | None = None,
     return _rms_norm(a, weight, eps)
 
 
+@traceable
 def rms_norm_residual(residual: torch.Tensor, a: torch.Tensor,
                       weight: torch.Tensor | None = None, eps: float = 1e-5):
     """Fused ``h = residual + a``, ``rms_norm(h, weight)``; returns
@@ -511,6 +535,7 @@ class _ScaledDotProductAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+@traceable
 def scaled_dot_product_attention(q, k, v, is_causal: bool = False,
                                  scale: float | None = None) -> torch.Tensor:
     """``softmax(q k^T * scale [causal]) v`` for q (..., T, hd) and k, v
@@ -546,6 +571,7 @@ class _CrossEntropy(torch.autograd.Function):
         return d.to(logits.dtype), None, None
 
 
+@traceable
 def cross_entropy(logits: torch.Tensor, target: torch.Tensor,
                   ignore_index: int = -100) -> torch.Tensor:
     """Mean negative log-likelihood of ``logits`` (N, C) at integer

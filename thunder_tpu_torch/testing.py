@@ -1,5 +1,7 @@
-"""Comparison helpers for holding a kernel against its plain version, shared
-by the port's tests and ``chip_smoke.py``."""
+"""Comparison helpers for holding a kernel against its plain version, the
+plain-PyTorch Llama layer the trace compiler is held on, and the count of a
+``jit`` call's launches against its trace's claims, shared by the port's
+tests and ``chip_smoke.py``."""
 
 from __future__ import annotations
 
@@ -108,3 +110,54 @@ def rms_residual_fault(h: torch.Tensor, weight, eps: float, left_out: int) -> to
     if weight is not None:
         y = y * weight
     return y.reshape(h.shape)
+
+
+def plain_llama_layer(x, attn_norm, wq, wk, wv, wo, mlp_norm, w_gate, w_up, w_down, *,
+                      n_heads: int, n_kv: int, eps: float = 1e-5):
+    """One Llama layer written in plain PyTorch (``F.rms_norm``,
+    ``F.linear``, ``F.silu``, ``F.scaled_dot_product_attention``, the
+    residual adds), none of the port's routers: under ``jit`` the compiler
+    has to find its kernels itself. x (B, T, D); grouped-query k and v are
+    expanded to the query heads."""
+    import torch.nn.functional as F
+
+    B, T, D = x.shape
+    hd, rep = D // n_heads, n_heads // n_kv
+    n = F.rms_norm(x, (D,), attn_norm, eps=eps)
+    q = F.linear(n, wq).view(B, T, n_heads, hd).transpose(1, 2)
+    k = F.linear(n, wk).view(B, T, n_kv, hd).transpose(1, 2)
+    v = F.linear(n, wv).view(B, T, n_kv, hd).transpose(1, 2)
+    k = k.unsqueeze(2).expand(B, n_kv, rep, T, hd).reshape(B, n_heads, T, hd)
+    v = v.unsqueeze(2).expand(B, n_kv, rep, T, hd).reshape(B, n_heads, T, hd)
+    a = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+    h = x + F.linear(a.transpose(1, 2).reshape(B, T, D), wo)
+    m = F.rms_norm(h, (D,), mlp_norm, eps=eps)
+    return h + F.linear(F.silu(F.linear(m, w_gate)) * F.linear(m, w_up), w_down)
+
+
+def claimed_kernels(trc) -> dict[str, int]:
+    """Launches per kernel that an execution trace's ``cuda`` claims make."""
+    from thunder_tpu_torch.executors.cudaex_claims import kernel_of
+
+    out: dict[str, int] = {}
+    for b in trc.bound_symbols:
+        k = kernel_of(b.sym)
+        if k is not None:
+            out[k] = out.get(k, 0) + 1
+    return out
+
+
+def jit_launches(jf, *args):
+    """One call of the ``jit`` function ``jf`` on ``args``, with the kernels'
+    launch counts set to 0 just before it and read just after (a compile
+    launches nothing). Returns its output, the launches per kernel and the
+    execution trace's claims (the caller holds the two equal)."""
+    import thunder_tpu_torch as ptt
+    from thunder_tpu_torch.executors import cudaex
+
+    torch.cuda.synchronize()
+    cudaex.reset_launch_counts()
+    out = jf(*args)
+    torch.cuda.synchronize()
+    launches = {k: n for k, n in cudaex.launch_counts().items() if n}
+    return out, launches, claimed_kernels(ptt.last_execution_trace(jf))

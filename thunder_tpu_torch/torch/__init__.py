@@ -1,0 +1,761 @@
+"""The torch front end: trace PyTorch functions into the port's IR.
+
+The counterpart of ``thunder_tpu/torch/__init__.py``'s function path. No
+bytecode interpreter: the ``__torch_function__`` protocol and a
+``TorchFunctionMode`` (:class:`_TraceMode`) send every ``torch.*``,
+``torch.nn.functional.*`` and tensor-method call that unmodified code makes
+on a :class:`TorchProxy` into the op layer, through the function map
+:data:`_torch_to_thunder_function_map`. Factories (``torch.arange``,
+``torch.zeros``, ...) trace too, so ``torch.arange(n, device=x.device)``
+records an ``iota`` on ``x``'s device rather than running. The routers of
+:mod:`thunder_tpu_torch.ops.nn` take the same path: each carries the
+standard ``has_torch_function``/``handle_torch_function`` entry, and the
+map sends it to its composite, so the port's models trace as they are
+written. In-place tensor methods (``add_``, ``copy_``, ``x[i] = v``) are
+functionalized while tracing: the wrapper rebinds its proxy to the
+out-of-place result, so traces are pure SSA.
+
+:func:`jit` is the function path of the reference's ``jit`` (:2110). The
+reference's ``nn.Module`` path (``ThunderModule``, ``functional_call``),
+its autograd bridge, the ``autograd.Function``/``checkpoint`` lookasides and
+the vmap shim are not ported yet (ROADMAP A.7); neither is most of the map.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable
+
+import torch
+import torch.nn.functional as F
+from torch.overrides import TorchFunctionMode
+
+from thunder_tpu_torch import ops
+from thunder_tpu_torch.core import dtypes
+from thunder_tpu_torch.core.baseutils import check
+from thunder_tpu_torch.core.devices import device_string
+from thunder_tpu_torch.core.proxies import Proxy, TensorProxy
+from thunder_tpu_torch.core.pytree import tree_map
+from thunder_tpu_torch.ops import composites as cnn
+from thunder_tpu_torch.ops import nn as tnn
+
+__all__ = ["TorchProxy", "jit", "register_torch_op", "_torch_to_thunder_function_map"]
+
+# ---------------------------------------------------------------------------
+# the function map + dispatch
+# ---------------------------------------------------------------------------
+
+_torch_to_thunder_function_map: dict[Any, Callable] = {}
+
+
+def register_torch_op(torch_fn, thunder_fn: Callable | None = None):
+    """Map a torch callable to an implementation over the op layer. Usable
+    as a decorator."""
+
+    def deco(fn):
+        _torch_to_thunder_function_map[torch_fn] = fn
+        return fn
+
+    return deco(thunder_fn) if thunder_fn is not None else deco
+
+
+def _unwrap(x):
+    if isinstance(x, TorchProxy):
+        return x._p
+    if isinstance(x, torch.dtype):
+        return dtypes.to_dtype(x)
+    if isinstance(x, torch.Size):
+        return tuple(x)
+    if isinstance(x, (tuple, list)):
+        return type(x)(_unwrap(i) for i in x)
+    if isinstance(x, dict):
+        return {k: _unwrap(v) for k, v in x.items()}
+    return x
+
+
+def _wrap(x):
+    if isinstance(x, TensorProxy):
+        return TorchProxy(x)
+    if isinstance(x, (tuple, list)):
+        return type(x)(_wrap(i) for i in x)
+    if isinstance(x, dict):
+        return {k: _wrap(v) for k, v in x.items()}
+    return x
+
+
+def _has_wrapper(args, kwargs) -> bool:
+    for a in list(args) + list((kwargs or {}).values()):
+        if isinstance(a, TorchProxy):
+            return True
+        if isinstance(a, (tuple, list)) and any(isinstance(i, TorchProxy) for i in a):
+            return True
+    return False
+
+
+def _dispatch(func, args, kwargs):
+    mapped = _torch_to_thunder_function_map.get(func)
+    if mapped is None:
+        name = getattr(func, "__name__", None) or str(func)
+        raise NotImplementedError(
+            f"torch operation {name!r} has no thunder_tpu_torch mapping; register one with "
+            f"thunder_tpu_torch.torch.register_torch_op")
+    return _wrap(mapped(*_unwrap(args), **_unwrap(kwargs or {})))
+
+
+class _TraceMode(TorchFunctionMode):
+    """Active while a torch function is traced: routes every torch call that
+    involves a :class:`TorchProxy`, and the factories, into the map; every
+    other call (real tensors only) runs as it is."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if _has_wrapper(args, kwargs) or func in _FACTORY_FUNCTIONS:
+            return _dispatch(func, args, kwargs)
+        return func(*args, **kwargs)
+
+
+# ---------------------------------------------------------------------------
+# TorchProxy: the tensor-like wrapper
+# ---------------------------------------------------------------------------
+
+class TorchProxy:
+    """Stand-in for a ``torch.Tensor`` while tracing. Holds a TensorProxy;
+    torch functions, methods and operators on it record trace operations.
+    In-place methods rebind ``_p`` (functionalization). ``device`` and
+    ``is_cuda`` report the proxy's real device."""
+
+    __slots__ = ("_p",)
+
+    def __init__(self, p: TensorProxy):
+        object.__setattr__(self, "_p", p)
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        return _dispatch(func, args, kwargs or {})
+
+    # -- metadata ----------------------------------------------------------
+    @property
+    def shape(self) -> torch.Size:
+        return torch.Size(self._p.shape)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self._p.dtype.torch
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device(device_string(self._p.device))
+
+    @property
+    def is_cuda(self) -> bool:
+        return self._p.device.type == "cuda"
+
+    @property
+    def ndim(self) -> int:
+        return self._p.ndim
+
+    @property
+    def requires_grad(self) -> bool:
+        return False
+
+    @property
+    def grad(self):
+        return None
+
+    @property
+    def T(self):
+        return _wrap(self._p.T)
+
+    @property
+    def mT(self):
+        return _wrap(self._p.mT)
+
+    def size(self, dim: int | None = None):
+        return self.shape if dim is None else int(self._p.shape[dim])
+
+    def dim(self) -> int:
+        return self._p.ndim
+
+    def numel(self) -> int:
+        return self._p.numel
+
+    def element_size(self) -> int:
+        return self._p.dtype.bytes
+
+    def is_floating_point(self) -> bool:
+        return self._p.dtype.is_float
+
+    def is_contiguous(self, *args, **kwargs) -> bool:
+        return True
+
+    def __len__(self) -> int:
+        check(self._p.ndim > 0, "len() of a 0-d tensor")
+        return int(self._p.shape[0])
+
+    def __repr__(self):
+        return f"TorchProxy({self._p!r})"
+
+    def __bool__(self):
+        raise RuntimeError("bool() on a traced tensor is data-dependent Python control flow, "
+                           "which a trace cannot hold; use torch.where")
+
+    def __hash__(self):
+        return id(self)
+
+    # -- operators ---------------------------------------------------------
+    def __add__(self, o):
+        return _wrap(ops.add(self._p, _unwrap(o)))
+
+    __radd__ = __add__
+
+    def __sub__(self, o):
+        return _wrap(ops.sub(self._p, _unwrap(o)))
+
+    def __rsub__(self, o):
+        return _wrap(ops.sub(_unwrap(o), self._p))
+
+    def __mul__(self, o):
+        return _wrap(ops.mul(self._p, _unwrap(o)))
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, o):
+        return _wrap(ops.true_divide(self._p, _unwrap(o)))
+
+    def __rtruediv__(self, o):
+        return _wrap(ops.true_divide(_unwrap(o), self._p))
+
+    def __floordiv__(self, o):
+        return _wrap(ops.floor_divide(self._p, _unwrap(o)))
+
+    def __mod__(self, o):
+        return _wrap(ops.remainder(self._p, _unwrap(o)))
+
+    def __pow__(self, o):
+        return _wrap(ops.pow(self._p, _unwrap(o)))
+
+    def __rpow__(self, o):
+        return _wrap(ops.pow(_unwrap(o), self._p))
+
+    def __matmul__(self, o):
+        return _wrap(ops.matmul(self._p, _unwrap(o)))
+
+    def __rmatmul__(self, o):
+        return _wrap(ops.matmul(_unwrap(o), self._p))
+
+    def __neg__(self):
+        return _wrap(ops.neg(self._p))
+
+    def __abs__(self):
+        return _wrap(ops.abs(self._p))
+
+    def __invert__(self):
+        return _wrap(ops.bitwise_not(self._p))
+
+    def __and__(self, o):
+        return _wrap(ops.bitwise_and(self._p, _unwrap(o)))
+
+    def __or__(self, o):
+        return _wrap(ops.bitwise_or(self._p, _unwrap(o)))
+
+    def __eq__(self, o):
+        return _wrap(ops.eq(self._p, _unwrap(o)))
+
+    def __ne__(self, o):
+        return _wrap(ops.ne(self._p, _unwrap(o)))
+
+    def __lt__(self, o):
+        return _wrap(ops.lt(self._p, _unwrap(o)))
+
+    def __le__(self, o):
+        return _wrap(ops.le(self._p, _unwrap(o)))
+
+    def __gt__(self, o):
+        return _wrap(ops.gt(self._p, _unwrap(o)))
+
+    def __ge__(self, o):
+        return _wrap(ops.ge(self._p, _unwrap(o)))
+
+    def __getitem__(self, idx):
+        return _wrap(ops.getitem(self._p, _unwrap(idx)))
+
+    def __setitem__(self, idx, val):
+        # functionalized in-place write: rebind the underlying proxy
+        object.__setattr__(self, "_p", ops.setitem(self._p, _unwrap(idx), _unwrap(val)))
+
+    # -- methods (the method table) ----------------------------------------
+    def __getattr__(self, name: str):
+        meth = _TENSOR_METHODS.get(name)
+        if meth is None:
+            raise AttributeError(f"TorchProxy has no method {name!r}; register it in "
+                                 f"thunder_tpu_torch.torch._TENSOR_METHODS")
+        proxy = self
+
+        def bound(*args, **kwargs):
+            out = meth(proxy._p, *_unwrap(args), **_unwrap(kwargs))
+            if name.endswith("_") and not name.endswith("__"):
+                # in-place: functionalize by rebinding the wrapper's proxy
+                object.__setattr__(proxy, "_p", out)
+                return proxy
+            return _wrap(out)
+
+        bound.__name__ = name
+        return bound
+
+
+# ---------------------------------------------------------------------------
+# adapters: torch signatures -> ops
+# ---------------------------------------------------------------------------
+
+def _normalize_shape(shape) -> tuple:
+    """f(2, 3) == f((2, 3)) == f(torch.Size([2, 3]))."""
+    if len(shape) == 1 and isinstance(shape[0], (tuple, list, torch.Size)):
+        return tuple(shape[0])
+    return tuple(shape)
+
+
+def _t_add(a, b, *, alpha=1, out=None):
+    check(out is None, "out= is not supported (functional traces)")
+    return ops.add(a, ops.mul(b, alpha) if alpha != 1 else b)
+
+
+def _t_sub(a, b, *, alpha=1, out=None):
+    check(out is None, "out= is not supported (functional traces)")
+    return ops.sub(a, ops.mul(b, alpha) if alpha != 1 else b)
+
+
+def _t_div(a, b, *, rounding_mode=None, out=None):
+    if rounding_mode is None:
+        return ops.true_divide(a, b)
+    if rounding_mode == "floor":
+        return ops.floor_divide(a, b)
+    check(rounding_mode == "trunc", lambda: f"unknown rounding_mode {rounding_mode!r}")
+    return ops.trunc(ops.true_divide(a, b))
+
+
+def _t_transpose(a, dim0: int, dim1: int):
+    perm = list(range(a.ndim))
+    perm[dim0], perm[dim1] = perm[dim1], perm[dim0]
+    return ops.transpose(a, perm)
+
+
+def _t_permute(a, *dims):
+    return ops.transpose(a, _normalize_shape(dims))
+
+
+def _t_reshape(a, *shape):
+    return ops.reshape(a, _normalize_shape(shape))
+
+
+def _t_expand(a, *shape):
+    return ops.expand(a, _normalize_shape(shape))
+
+
+def _t_mean(a, dim=None, keepdim=False, *, dtype=None, out=None):
+    return ops.mean(a, dim=dim, keepdim=keepdim, dtype=dtype)
+
+
+def _t_sum(a, dim=None, keepdim=False, *, dtype=None, out=None):
+    out_ = ops.sum(a, dim=dim, keepdim=keepdim)
+    return ops.convert_element_type(out_, dtype) if dtype is not None else out_
+
+
+def _t_var(a, dim=None, *, correction=None, unbiased=None, keepdim=False):
+    if correction is None:
+        correction = 1 if (unbiased is None or unbiased) else 0
+    return ops.var(a, dim=dim, correction=correction, keepdim=keepdim)
+
+
+def _t_std(a, dim=None, *, correction=None, unbiased=None, keepdim=False):
+    if correction is None:
+        correction = 1 if (unbiased is None or unbiased) else 0
+    return ops.std(a, dim=dim, correction=correction, keepdim=keepdim)
+
+
+def _t_max(a, b_or_dim=None, keepdim=False, *, dim=None, out=None):
+    if dim is not None:
+        b_or_dim = dim
+    if b_or_dim is None:
+        return ops.amax(a)
+    if not isinstance(b_or_dim, int):
+        return ops.maximum(a, b_or_dim)
+    return ops.max_with_indices(a, b_or_dim, keepdim=keepdim)
+
+
+def _t_min(a, b_or_dim=None, keepdim=False, *, dim=None, out=None):
+    if dim is not None:
+        b_or_dim = dim
+    if b_or_dim is None:
+        return ops.amin(a)
+    if not isinstance(b_or_dim, int):
+        return ops.minimum(a, b_or_dim)
+    return ops.amin(a, dim=b_or_dim, keepdim=keepdim), ops.argmin(a, dim=b_or_dim,
+                                                                   keepdim=keepdim)
+
+
+def _t_clamp(a, min=None, max=None, *, out=None):
+    return ops.clamp(a, min=min, max=max)
+
+
+def _same_device(a, device):
+    if device is not None and not isinstance(device, (dtypes.dtype, TensorProxy)):
+        d = torch.device(device)
+        check(d.type == a.device.type and (d.index is None or device_string(d)
+                                           == device_string(a.device)),
+              lambda: f"moving a traced tensor from {a.device} to {d} is not supported yet",
+              NotImplementedError)
+
+
+def _t_to(a, *args, **kwargs):
+    """Tensor.to(dtype) / .to(device) / .to(device, dtype) / .to(other); the
+    device must be the tensor's own."""
+    dtype = kwargs.get("dtype")
+    _same_device(a, kwargs.get("device"))
+    for x in args:
+        if isinstance(x, dtypes.dtype):
+            dtype = x
+        elif isinstance(x, TensorProxy):
+            dtype = x.dtype
+        else:
+            _same_device(a, x)
+    return ops.convert_element_type(a, dtype) if dtype is not None else a
+
+
+def _t_unbind(a, dim=0):
+    return tuple(ops.squeeze(s, dim) for s in ops.split(a, 1, dim=dim)) if a.shape[dim] else ()
+
+
+def _t_narrow(a, dim, start, length):
+    start = int(start) + (int(a.shape[dim]) if int(start) < 0 else 0)
+    idx = [slice(None)] * a.ndim
+    idx[dim] = slice(start, start + int(length))
+    return ops.getitem(a, tuple(idx))
+
+
+def _t_select(a, dim, index):
+    idx = [slice(None)] * a.ndim
+    idx[dim] = int(index)
+    return ops.getitem(a, tuple(idx))
+
+
+def _t_copy_(a, src):
+    # functionalized copy_: the result is the (broadcast, cast) source
+    if not isinstance(src, TensorProxy):
+        return ops.full_like(a, src)
+    out = src if tuple(src.shape) == tuple(a.shape) else ops.expand(src, tuple(a.shape))
+    return ops.convert_element_type(out, a.dtype)
+
+
+def _t_softmax(a, dim=None, *, dtype=None, _stacklevel=None):
+    check(dim is not None, "softmax requires dim")
+    return ops.softmax(a, dim=dim, dtype=dtype)
+
+
+def _t_log_softmax(a, dim=None, *, dtype=None, _stacklevel=None):
+    check(dim is not None, "log_softmax requires dim")
+    return ops.log_softmax(a, dim=dim, dtype=dtype)
+
+
+def _t_embedding(ids, weight, padding_idx=None, max_norm=None, norm_type=2.0,
+                 scale_grad_by_freq=False, sparse=False):
+    check(max_norm is None and not scale_grad_by_freq and not sparse,
+          "embedding: max_norm/scale_grad_by_freq/sparse unsupported")
+    return cnn.embedding(ids, weight, padding_idx=padding_idx)
+
+
+def _t_layer_norm(a, normalized_shape, weight=None, bias=None, eps=1e-5):
+    return cnn.layer_norm(a, tuple(normalized_shape), weight, bias, eps=eps)
+
+
+def _t_rms_norm(a, normalized_shape, weight=None, eps=None):
+    return cnn.rms_norm(a, weight, eps=1e-6 if eps is None else eps)
+
+
+def _t_cross_entropy(logits, target, weight=None, size_average=None, ignore_index=-100,
+                     reduce=None, reduction="mean", label_smoothing=0.0):
+    return cnn.cross_entropy(logits, target, weight=weight, ignore_index=ignore_index,
+                             reduction=reduction, label_smoothing=label_smoothing)
+
+
+def _t_sdpa(q, k, v, attn_mask=None, dropout_p=0.0, is_causal=False, scale=None,
+            enable_gqa=False):
+    check(not enable_gqa or q.shape[-3] == k.shape[-3],
+          "scaled_dot_product_attention(enable_gqa=True) with fewer kv heads is not "
+          "supported yet: expand k and v to the query heads", NotImplementedError)
+    return cnn.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask, dropout_p=dropout_p,
+                                            is_causal=is_causal, scale=scale)
+
+
+def _t_pad(a, pad, mode="constant", value=None):
+    check(mode == "constant", "only constant padding supported")
+    cfg = [(0, 0, 0)] * a.ndim
+    for i in range(len(pad) // 2):
+        cfg[a.ndim - 1 - i] = (int(pad[2 * i]), int(pad[2 * i + 1]), 0)
+    return ops.pad(a, tuple(cfg), value=0 if value is None else value)
+
+
+def _factory_dtype(dtype, default):
+    return dtypes.to_dtype(dtype) if dtype is not None else default
+
+
+def _t_arange(start, end=None, step=1, *, dtype=None, device=None, layout=None,
+              requires_grad=False, out=None, pin_memory=False):
+    return ops.arange(start, end, step, dtype=dtype, device=device)
+
+
+def _t_zeros(*shape, dtype=None, device=None, layout=None, requires_grad=False, out=None,
+             pin_memory=False):
+    return ops.full(_normalize_shape(shape), 0, dtype=_factory_dtype(dtype, dtypes.float32),
+                    device=device)
+
+
+def _t_ones(*shape, dtype=None, device=None, layout=None, requires_grad=False, out=None,
+            pin_memory=False):
+    return ops.full(_normalize_shape(shape), 1, dtype=_factory_dtype(dtype, dtypes.float32),
+                    device=device)
+
+
+def _t_full(shape, fill_value, *, dtype=None, device=None, layout=None, requires_grad=False,
+            out=None, pin_memory=False):
+    return ops.full(tuple(shape), fill_value, dtype=dtype, device=device)
+
+
+def _t_like(fill):
+    def like(a, *, dtype=None, device=None, **kw):
+        return ops.full_like(a, fill, dtype=dtype, device=device)
+
+    return like
+
+
+def _t_cat(tensors, dim=0, *, out=None):
+    return ops.cat(list(tensors), dim=dim)
+
+
+def _t_stack(tensors, dim=0, *, out=None):
+    return ops.stack(list(tensors), dim=dim)
+
+
+def _t_where(cond, a=None, b=None):
+    check(a is not None and b is not None, "only where(cond, a, b) supported")
+    return ops.where(cond, a, b)
+
+
+def _t_cumsum(a, dim, *, dtype=None, out=None):
+    out_ = ops.cumsum(a, dim)
+    return ops.convert_element_type(out_, dtype) if dtype is not None else out_
+
+
+def _t_flip(a, dims):
+    return ops.flip(a, dims if isinstance(dims, (tuple, list)) else (dims,))
+
+
+def _t_repeat_interleave(a, repeats, dim=None):
+    check(isinstance(repeats, int), "only int repeats supported")
+    if dim is None:
+        a, dim = ops.reshape(a, (a.numel,)), 0
+    a_moved = ops.movedim(a, dim, 0) if dim != 0 else a
+    out = ops.repeat_interleave_dim0(a_moved, repeats)
+    return ops.movedim(out, 0, dim) if dim != 0 else out
+
+
+def _simple(op):
+    def fn(a, *, out=None):
+        return op(a)
+
+    return fn
+
+
+def _binary(op):
+    def fn(a, b, *, out=None):
+        return op(a, b)
+
+    return fn
+
+
+# Factories trace unconditionally (the reference runs the deterministic ones
+# eagerly as trace constants): a factory on the card must record an op on
+# the card, not run one where the trace is built
+_FACTORY_FUNCTIONS = {torch.arange, torch.zeros, torch.ones, torch.full, torch.empty}
+
+for _tf, _fn in {
+    torch.add: _t_add, torch.sub: _t_sub, torch.subtract: _t_sub,
+    torch.mul: _binary(ops.mul), torch.multiply: _binary(ops.mul),
+    torch.div: _t_div, torch.divide: _t_div, torch.true_divide: _t_div,
+    torch.floor_divide: _binary(ops.floor_divide), torch.remainder: _binary(ops.remainder),
+    torch.fmod: _binary(ops.fmod), torch.pow: _binary(ops.pow),
+    torch.matmul: _binary(ops.matmul), torch.bmm: _binary(ops.matmul),
+    torch.mm: _binary(ops.matmul), torch.outer: _binary(ops.outer),
+    torch.maximum: _binary(ops.maximum), torch.minimum: _binary(ops.minimum),
+    torch.max: _t_max, torch.min: _t_min,
+    torch.amax: (lambda a, dim=None, keepdim=False, *, out=None:
+                 ops.amax(a, dim=dim, keepdim=keepdim)),
+    torch.amin: (lambda a, dim=None, keepdim=False, *, out=None:
+                 ops.amin(a, dim=dim, keepdim=keepdim)),
+    torch.argmax: (lambda a, dim=None, keepdim=False: ops.argmax(a, dim=dim, keepdim=keepdim)),
+    torch.argmin: (lambda a, dim=None, keepdim=False: ops.argmin(a, dim=dim, keepdim=keepdim)),
+    torch.mean: _t_mean, torch.sum: _t_sum, torch.var: _t_var, torch.std: _t_std,
+    torch.prod: (lambda a, dim=None, keepdim=False, *, dtype=None:
+                 ops.prod(a, dim=dim, keepdim=keepdim)),
+    torch.all: (lambda a, dim=None, keepdim=False: ops.all_(a, dim=dim, keepdim=keepdim)),
+    torch.any: (lambda a, dim=None, keepdim=False: ops.any_(a, dim=dim, keepdim=keepdim)),
+    torch.abs: _simple(ops.abs), torch.neg: _simple(ops.neg), torch.exp: _simple(ops.exp),
+    torch.log: _simple(ops.log), torch.log2: _simple(ops.log2), torch.log1p: _simple(ops.log1p),
+    torch.expm1: _simple(ops.expm1), torch.sqrt: _simple(ops.sqrt),
+    torch.rsqrt: _simple(ops.rsqrt), torch.sin: _simple(ops.sin), torch.cos: _simple(ops.cos),
+    torch.tan: _simple(ops.tan), torch.tanh: _simple(ops.tanh), torch.erf: _simple(ops.erf),
+    torch.sigmoid: _simple(ops.sigmoid), torch.floor: _simple(ops.floor),
+    torch.ceil: _simple(ops.ceil), torch.round: _simple(ops.round),
+    torch.trunc: _simple(ops.trunc), torch.sign: _simple(ops.sign),
+    torch.reciprocal: _simple(ops.reciprocal), torch.isnan: _simple(ops.isnan),
+    torch.isinf: _simple(ops.isinf), torch.isfinite: _simple(ops.isfinite),
+    torch.logical_not: _simple(ops.logical_not), torch.logical_and: _binary(ops.logical_and),
+    torch.logical_or: _binary(ops.logical_or),
+    torch.eq: _binary(ops.eq), torch.ne: _binary(ops.ne), torch.lt: _binary(ops.lt),
+    torch.le: _binary(ops.le), torch.gt: _binary(ops.gt), torch.ge: _binary(ops.ge),
+    torch.clamp: _t_clamp, torch.clip: _t_clamp,
+    torch.where: _t_where, torch.masked_fill: ops.masked_fill, torch.lerp: ops.lerp,
+    torch.reshape: _t_reshape, torch.permute: _t_permute, torch.transpose: _t_transpose,
+    torch.flatten: (lambda a, start_dim=0, end_dim=-1: ops.flatten(a, start_dim, end_dim)),
+    torch.squeeze: (lambda a, dim=None: ops.squeeze(a, dim)),
+    torch.unsqueeze: ops.unsqueeze, torch.movedim: ops.movedim,
+    torch.cat: _t_cat, torch.concat: _t_cat, torch.stack: _t_stack,
+    torch.split: (lambda a, split_size_or_sections, dim=0:
+                  ops.split(a, split_size_or_sections, dim=dim)),
+    torch.chunk: (lambda a, chunks, dim=0: ops.chunk(a, chunks, dim=dim)),
+    torch.unbind: _t_unbind, torch.narrow: _t_narrow, torch.select: _t_select,
+    torch.tril: (lambda a, diagonal=0, *, out=None: ops.tril(a, diagonal)),
+    torch.triu: (lambda a, diagonal=0, *, out=None: ops.triu(a, diagonal)),
+    torch.gather: (lambda a, dim, index, *, sparse_grad=False, out=None:
+                   ops.gather(a, dim, index)),
+    torch.index_select: (lambda a, dim, index: ops.take(a, index, dim=dim)),
+    torch.cumsum: _t_cumsum, torch.flip: _t_flip,
+    torch.repeat_interleave: _t_repeat_interleave,
+    torch.softmax: _t_softmax, torch.log_softmax: _t_log_softmax,
+    torch.relu: _simple(ops.relu),
+    torch.clamp_min: (lambda a, m: ops.clamp(a, min=m)),
+    torch.clamp_max: (lambda a, m: ops.clamp(a, max=m)),
+    torch.arange: _t_arange, torch.zeros: _t_zeros, torch.ones: _t_ones, torch.full: _t_full,
+    torch.empty: _t_zeros,
+    torch.zeros_like: _t_like(0), torch.ones_like: _t_like(1), torch.empty_like: _t_like(0),
+    torch.full_like: (lambda a, fill_value, *, dtype=None, device=None, **kw:
+                      ops.full_like(a, fill_value, dtype=dtype, device=device)),
+    # torch.nn.functional
+    F.linear: (lambda a, w, bias=None: ops.linear(a, w, bias)),
+    F.embedding: _t_embedding, F.layer_norm: _t_layer_norm, F.rms_norm: _t_rms_norm,
+    F.dropout: (lambda a, p=0.5, training=True, inplace=False: cnn.dropout(a, p, training)),
+    F.gelu: (lambda a, *, approximate="none": ops.gelu(a, approximate=approximate)),
+    F.relu: (lambda a, inplace=False: ops.relu(a)),
+    F.silu: (lambda a, inplace=False: ops.silu(a)),
+    F.leaky_relu: (lambda a, negative_slope=0.01, inplace=False:
+                   ops.leaky_relu(a, negative_slope)),
+    F.softplus: (lambda a, beta=1.0, threshold=20.0: ops.softplus(a, beta, threshold)),
+    F.sigmoid: _simple(ops.sigmoid), F.tanh: _simple(ops.tanh),
+    F.softmax: _t_softmax, F.log_softmax: _t_log_softmax,
+    F.scaled_dot_product_attention: _t_sdpa,
+    F.cross_entropy: _t_cross_entropy,
+    F.mse_loss: (lambda input, target, size_average=None, reduce=None, reduction="mean",
+                 weight=None: cnn.mse_loss(input, target, reduction=reduction)),
+    F.pad: _t_pad,
+    # the routers of ops/nn.py record their composites
+    tnn.rms_norm: (lambda a, weight=None, eps=1e-5: cnn.rms_norm(a, weight, eps=eps)),
+    tnn.rms_norm_residual: (lambda residual, a, weight=None, eps=1e-5:
+                            cnn.rms_norm_residual(residual, a, weight, eps=eps)),
+    tnn.linear_act: (lambda a, w, bias=None, act="relu": cnn.linear_act(a, w, bias, act=act)),
+    tnn.scaled_dot_product_attention: (lambda q, k, v, is_causal=False, scale=None:
+                                       cnn.scaled_dot_product_attention(
+                                           q, k, v, is_causal=is_causal, scale=scale)),
+    tnn.sdpa_fwd: (lambda q, k, v, is_causal=False, scale=None:
+                   cnn.sdpa_fwd(q, k, v, is_causal, scale)),
+    tnn.ce_fwd: (lambda logits, target, ignore_index=-100:
+                 cnn.ce_fwd(logits, target, ignore_index)),
+    tnn.cross_entropy: (lambda logits, target, ignore_index=-100:
+                        cnn.cross_entropy(logits, target, ignore_index=ignore_index)),
+}.items():
+    _torch_to_thunder_function_map[_tf] = _fn
+
+# tensor methods, reached through TorchProxy attributes and through the
+# method descriptors when a real tensor meets a proxy
+_TENSOR_METHODS: dict[str, Callable] = {
+    "view": _t_reshape, "reshape": _t_reshape,
+    "view_as": (lambda a, o: ops.reshape(a, tuple(o.shape))),
+    "permute": _t_permute, "transpose": _t_transpose, "t": (lambda a: a.T),
+    "flatten": (lambda a, start_dim=0, end_dim=-1: ops.flatten(a, start_dim, end_dim)),
+    "squeeze": (lambda a, dim=None: ops.squeeze(a, dim)), "unsqueeze": ops.unsqueeze,
+    "expand": _t_expand, "expand_as": (lambda a, o: ops.expand(a, tuple(o.shape))),
+    "contiguous": (lambda a, *args, **kwargs: a), "clone": (lambda a, **kw: a),
+    "detach": ops.detach, "to": _t_to, "type_as": (lambda a, o: ops.convert_element_type(a, o.dtype)),
+    "cuda": (lambda a, *args, **kwargs: _t_to(a, "cuda")),
+    "cpu": (lambda a, *args, **kwargs: _t_to(a, "cpu")),
+    "float": (lambda a: ops.convert_element_type(a, dtypes.float32)),
+    "double": (lambda a: ops.convert_element_type(a, dtypes.float64)),
+    "half": (lambda a: ops.convert_element_type(a, dtypes.float16)),
+    "bfloat16": (lambda a: ops.convert_element_type(a, dtypes.bfloat16)),
+    "long": (lambda a: ops.convert_element_type(a, dtypes.int64)),
+    "int": (lambda a: ops.convert_element_type(a, dtypes.int32)),
+    "bool": (lambda a: ops.convert_element_type(a, dtypes.bool8)),
+    "sum": _t_sum, "mean": _t_mean, "var": _t_var, "std": _t_std,
+    "max": _t_max, "min": _t_min,
+    "amax": (lambda a, dim=None, keepdim=False: ops.amax(a, dim=dim, keepdim=keepdim)),
+    "amin": (lambda a, dim=None, keepdim=False: ops.amin(a, dim=dim, keepdim=keepdim)),
+    "argmax": (lambda a, dim=None, keepdim=False: ops.argmax(a, dim=dim, keepdim=keepdim)),
+    "argmin": (lambda a, dim=None, keepdim=False: ops.argmin(a, dim=dim, keepdim=keepdim)),
+    "abs": _simple(ops.abs), "neg": _simple(ops.neg), "exp": _simple(ops.exp),
+    "log": _simple(ops.log), "sqrt": _simple(ops.sqrt), "rsqrt": _simple(ops.rsqrt),
+    "sin": _simple(ops.sin), "cos": _simple(ops.cos), "tanh": _simple(ops.tanh),
+    "sigmoid": _simple(ops.sigmoid), "relu": _simple(ops.relu),
+    "add": _t_add, "sub": _t_sub, "mul": _binary(ops.mul), "div": _t_div,
+    "pow": _binary(ops.pow), "matmul": _binary(ops.matmul),
+    "eq": _binary(ops.eq), "ne": _binary(ops.ne), "lt": _binary(ops.lt),
+    "gt": _binary(ops.gt), "clamp": _t_clamp, "masked_fill": ops.masked_fill,
+    "softmax": _t_softmax, "log_softmax": _t_log_softmax,
+    "split": (lambda a, split_size, dim=0: ops.split(a, split_size, dim=dim)),
+    "chunk": (lambda a, chunks, dim=0: ops.chunk(a, chunks, dim=dim)),
+    "unbind": _t_unbind, "narrow": _t_narrow, "select": _t_select,
+    "gather": (lambda a, dim, index: ops.gather(a, dim, index)),
+    "cumsum": _t_cumsum, "flip": _t_flip, "repeat_interleave": _t_repeat_interleave,
+    "new_zeros": (lambda a, *shape, dtype=None, **kw:
+                  ops.full(_normalize_shape(shape), 0, dtype=dtype or a.dtype, device=a.device)),
+    # in-place (functionalized by rebinding)
+    "add_": _t_add, "sub_": _t_sub, "mul_": _binary(ops.mul), "div_": _t_div,
+    "clamp_": _t_clamp, "masked_fill_": ops.masked_fill, "copy_": _t_copy_,
+    "zero_": (lambda a: ops.zeros_like(a)), "fill_": (lambda a, v: ops.full_like(a, v)),
+    "exp_": _simple(ops.exp), "neg_": _simple(ops.neg),
+}
+
+for _name, _impl in _TENSOR_METHODS.items():
+    _desc = getattr(torch.Tensor, _name, None)
+    if _desc is not None and _desc not in _torch_to_thunder_function_map:
+        _torch_to_thunder_function_map[_desc] = _impl
+for _dunder, _op in {"__add__": ops.add, "__sub__": ops.sub, "__mul__": ops.mul,
+                     "__truediv__": ops.true_divide, "__matmul__": ops.matmul,
+                     "__pow__": ops.pow}.items():
+    _torch_to_thunder_function_map[getattr(torch.Tensor, _dunder)] = _op
+    _torch_to_thunder_function_map[getattr(torch.Tensor, "__r" + _dunder[2:])] = \
+        (lambda op: lambda a, b: op(b, a))(_op)
+
+
+# ---------------------------------------------------------------------------
+# jit: the function path
+# ---------------------------------------------------------------------------
+
+def _unwrap_out(out):
+    return tree_map(lambda x: x._p if isinstance(x, TorchProxy) else x, out,
+                    is_leaf=lambda x: isinstance(x, (TorchProxy, Proxy)))
+
+
+def jit(fn, **jit_kwargs):
+    """Compile a torch-calling function: its tensor arguments are traced as
+    :class:`TorchProxy`\\ s under :class:`_TraceMode`. Returns the
+    :class:`thunder_tpu_torch.ThunderTPUFunction`."""
+    if isinstance(fn, torch.nn.Module):
+        raise NotImplementedError("jit of an nn.Module (ThunderModule) is not ported yet "
+                                  "(ROADMAP A.7); jit a function of its parameters instead")
+    from thunder_tpu_torch import ThunderTPUFunction
+
+    def traced(*args, **kwargs):
+        with _TraceMode():
+            out = fn(*_wrap(args), **_wrap(kwargs))
+        return _unwrap_out(out)
+
+    traced.__name__ = getattr(fn, "__name__", "fn")
+    jit_kwargs.setdefault("fn_name", traced.__name__)
+    return ThunderTPUFunction(traced, **jit_kwargs)
