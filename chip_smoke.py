@@ -291,6 +291,26 @@ leaf), each on the design its rule names.
     (1, 2048, 4096), attention (1, 32, 2048, 128) causal, ``linear_act``
     (2048 x 4096) x (14336 x 4096), ``ce_fwd`` 2048 x 128256 float32.
 
+19. jit-train — trace-level autograd (``value_and_grad``, the VJP rules,
+    trace-level ``checkpoint``): ``pretrain.jit_train_step`` (the
+    reference's ``tt.jit(train_step, donate_argnums=(0, 1))``) at phase 7's
+    cell (llama3-8b-bench, 4 of 32 layers, B=8, T=2048, seed 0,
+    AdamW(lr=1e-4), one batch reused), 5 steps: (a) plain, (b) with every
+    layer a checkpointed region. Every step launches exactly its trace's
+    claims (``jit_train_launches``: (a) phase 7's, ``sdpa_bwd`` and
+    ``fused_adamw`` through the jit's claims; (b) the reference's remat
+    trace's, each region's forward ``rms_norm`` twice and the lse-free
+    attention, its recompute ``rms_norm``, ``rms_norm_residual`` and
+    ``sdpa_fwd``), the losses are finite and fall, each within
+    JIT_TRAIN_LOSS_RTOL of phase 7's eager step from the same weights and
+    batch, the donated parameters and moments come back as the same
+    storage, and (b)'s peak memory is below (a)'s. Printed: the step ms
+    (median of steps 2-5) against phase 7's, the peak memory against
+    phase 7's, the host ms of a cached step and its torch calls, compile
+    seconds by stage, and the device ms by kernel family of (a) and of the
+    eager step (``pretrain.profile_steps``, 2 steps each). Its kernel rows
+    are phase 3's train rows (the cell's shapes).
+
 No phase can fall back to a plain version on the card: a CUDA call whose
 inputs a kernel does not take raises in the kernel's wrapper, with the
 reason ``cudaex.refusal`` gives, and fails its phase; a quarantined kernel
@@ -462,6 +482,16 @@ FLEET_PATHS = ("serve-prefix", "serve-prefix-planned", "serve-best-of", "serve-r
 JIT_B, JIT_T, JIT_TIMED = 1, 2048, 3
 JIT_LAYER_TOL = 2e-2
 JIT_PATHS = ("jit-forward", "jit-loss", "jit-layer")
+
+# phase 19: the compiled train step at phase 7's cell (llama3-8b-bench, 4
+# layers, B=8, T=2048, seed 0, AdamW(lr=1e-4)); each step's loss within 1%
+# of phase 7's eager step from the same weights and batch: the trace's
+# backward sums in other orders than autograd's, and index_add on bf16
+# (the embedding gradient) accumulates with atomics, so the bf16 steps
+# drift apart; bit equality is not expected
+JIT_TRAIN_LOSS_RTOL = 1e-2
+JIT_TRAIN_PROFILE = 2
+JIT_TRAIN_PATHS = ("jit-train", "jit-train-remat")
 
 D, F_DIM, S_DECODE, M_PREFILL = 4096, 14336, 8, 512
 KV, G, HD, PS = 8, 4, 128, 16
@@ -3551,6 +3581,110 @@ def jit_full_width(np, torch, tllama, cudaex) -> dict:
     return {"forward": a, "loss": b, "layer": c, "phase_s": time.perf_counter() - t0}
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the compiled train step (trace-level autograd) at phase 7's cell
+# ---------------------------------------------------------------------------
+
+def jit_train_launches(L: int, remat: bool) -> dict:
+    """Kernel launches of one compiled train step at L layers: phase 7's
+    per-op rows, or with remat the reference's checkpointed trace's (each
+    region's forward runs rms_norm twice and the lse-free attention, its
+    recompute rms_norm, rms_norm_residual and sdpa_fwd)."""
+    if remat:
+        return {"rms_norm": 3 * L + 1, "sdpa_fwd": 2 * L, "rms_norm_residual": L,
+                "sdpa_bwd": L, "ce_fwd": 1, "fused_adamw": 1}
+    return train_launches(L, False)
+
+
+def jit_train_run(np, torch, tllama, cudaex, pretrain, remat: bool, eager: dict) -> dict:
+    """Phase 19 (a) or, with ``remat``, (b): ``pretrain.jit_train_step`` from
+    phase 7's weights, batch and AdamW(lr=1e-4), TRAIN_STEPS steps. Every
+    step launches exactly the trace's claims (``jit_train_launches``), the
+    losses are finite and fall, each within JIT_TRAIN_LOSS_RTOL of phase 7's
+    eager step (``eager``'s losses, same weights and batch), and the donated
+    parameters and moments come back as the same storage."""
+    import thunder_tpu_torch as ptt
+    from thunder_tpu_torch.optim import AdamW, tree_leaves
+    from thunder_tpu_torch.testing import claimed_kernels
+
+    what = f"jit train step{' (remat)' if remat else ''}"
+    t_phase = time.perf_counter()
+    cfg = tllama.CONFIGS["llama3-8b-bench"]
+    params = tllama.init_params(cfg, seed=0, device="cuda", n_layers=TRAIN_LAYERS)
+    opt = AdamW(lr=1e-4)
+    state = opt.init(params)
+    tok, tgt = (torch.from_numpy(a).cuda()
+                for a in pretrain.synthetic_batch(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, 0))
+    jf = pretrain.jit_train_step(cfg, opt, remat=remat)
+    t0 = time.perf_counter()
+    jf.compile(params, state, tok, tgt)
+    compile_s = time.perf_counter() - t0
+    stages = dict(ptt.compile_stats(jf).last_pass_times)
+    trc = ptt.last_execution_trace(jf)
+    expect = jit_train_launches(TRAIN_LAYERS, remat)
+    claims = claimed_kernels(trc)
+    require(claims == expect, f"{what}: the trace claims {claims}, want {expect}")
+    ptrs = [t.data_ptr() for t in tree_leaves((params, state["m"], state["v"]))]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cudaex.reset_launch_counts()
+    losses, per_step = [], []
+    cur = (params, state)
+    for i in range(TRAIN_STEPS):
+        before = cudaex.launch_counts()
+        t = time.perf_counter()
+        loss, p, s = jf(*cur, tok, tgt)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        after = cudaex.launch_counts()
+        delta = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        require(delta == expect, f"{what}: step {i} launched {delta}, want {expect}")
+        require([t.data_ptr() for t in tree_leaves((p, s["m"], s["v"]))] == ptrs,
+                f"{what}: step {i}'s parameters and moments are not the donated inputs")
+        losses.append(float(loss))
+        per_step.append({"loss": losses[-1], "ms": ms, "launches": delta})
+        cur = (p, s)
+    counts = {k: n for k, n in cudaex.launch_counts().items() if n}
+    require(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+            f"{what}: losses not finite and falling: {losses}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, eager["losses"])]
+    require(max(rel) <= JIT_TRAIN_LOSS_RTOL,
+            f"{what}: losses {losses} against phase 7's eager {eager['losses']}")
+    out = {"layers": TRAIN_LAYERS, "remat": remat, "losses": losses, "per_step": per_step,
+           "step_ms_median": float(np.median([st["ms"] for st in per_step[1:]])),
+           "compile_s": compile_s, "compile_stages_ms": stages, "launches": counts,
+           "launches_per_step": expect, "trace_bsyms": len(trc.bound_symbols),
+           "eager_losses": eager["losses"], "loss_rel_diff_max": max(rel),
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    holder = [cur]
+
+    def step():
+        loss, p, s = jf(*holder[0], tok, tgt)
+        holder[0] = (p, s)
+        return loss
+
+    out["host_ms_cached_step"] = host_ms(torch, step)
+    out["torch_calls_per_step"] = torch_calls(torch, step)[1]
+    out.update(pretrain.profile_steps(step, JIT_TRAIN_PROFILE))
+    out["designs"] = cudaex.design_counts()
+    del params, state, cur, p, s, holder
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def jit_train_eager_profile(torch, pretrain) -> dict:
+    """Phase 7's eager step again, profiled beside phase 19's (device ms by
+    kernel family in the same run)."""
+    r = pretrain.run("llama3-8b-bench", layers=TRAIN_LAYERS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                     steps=1, lr=1e-4, seed=0, device="cuda", profile=JIT_TRAIN_PROFILE)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: r[k] for k in ("profile_step_ms", "device_busy_ms_per_step", "device_idle_share",
+                              "ms_per_step_by_family", "peak_memory_gb")}
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -3727,6 +3861,31 @@ def main() -> int:
     jt = jit_full_width(np, torch, tllama, cudaex)
     log(f"phase 18 (jit, llama3-8b full width): {json.dumps(jt)} ({card})")
 
+    # phase 19: the compiled train step, plain and checkpointed
+    jta = jit_train_run(np, torch, tllama, cudaex, pretrain, False, tw)
+    log(f"phase 19 (a) jit train step: {json.dumps(jta)} ({card})")
+    jtb = jit_train_run(np, torch, tllama, cudaex, pretrain, True, tw)
+    log(f"phase 19 (b) jit train step, remat: {json.dumps(jtb)} ({card})")
+    require(jtb["peak_memory_gb"] < jta["peak_memory_gb"],
+            f"phase 19: remat's peak {jtb['peak_memory_gb']:.2f} GB is not below "
+            f"{jta['peak_memory_gb']:.2f} GB")
+    je = jit_train_eager_profile(torch, pretrain)
+    log("phase 19: " + json.dumps({
+        "step_ms_median_jit_eager_remat": [jta["step_ms_median"],
+                                           float(np.median([st["ms"] for st in
+                                                            tw["per_step"][1:]])),
+                                           jtb["step_ms_median"]],
+        "peak_gb_jit_eager_remat": [jta["peak_memory_gb"], tw["peak_memory_gb"],
+                                    jtb["peak_memory_gb"]],
+        "host_ms_cached_step": [jta["host_ms_cached_step"], jtb["host_ms_cached_step"]],
+        "torch_calls_per_step": [jta["torch_calls_per_step"], jtb["torch_calls_per_step"]],
+        "compile_s": [jta["compile_s"], jtb["compile_s"]],
+        "device_ms_by_family_jit": jta["ms_per_step_by_family"],
+        "device_ms_by_family_eager": je["ms_per_step_by_family"],
+        "device_busy_ms_jit_eager": [jta["device_busy_ms_per_step"],
+                                     je["device_busy_ms_per_step"]],
+    }) + f" ({card})")
+
     # one row per kernel and main path: the path's own shape and its own
     # launch count (rms_norm and rms_norm_residual run on several paths;
     # the planned path's rows for kernels it shares with the per-op train
@@ -3771,9 +3930,11 @@ def main() -> int:
                                  *((p, {k: [r] for k, r in zoo_rows[p].items()}, zoo_runs[p])
                                    for p in ZOO_PATHS),
                                  *((p, {k: jit_rows[k] for k in jt[run]["launches"]}, jt[run])
-                                   for p, run in zip(JIT_PATHS, ("forward", "loss", "layer")))):
+                                   for p, run in zip(JIT_PATHS, ("forward", "loss", "layer"))),
+                                 *((p, {k: train_rows[k] for k in run["launches_per_step"]}, run)
+                                   for p, run in zip(JIT_TRAIN_PATHS, (jta, jtb)))):
         for name, rs in path_rows.items():
-            if path in FLEET_PATHS or path in ZOO_PATHS or path in JIT_PATHS:
+            if path in FLEET_PATHS or path in ZOO_PATHS or path in JIT_PATHS + JIT_TRAIN_PATHS:
                 require(run["launches"].get(name, 0) > 0,
                         f"{path}: {name} never launched on the main path")
             r = dict(rs[0], path=path, launches=run["launches"][name])

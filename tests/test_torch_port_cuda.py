@@ -1533,3 +1533,125 @@ def test_cuda_jit_quarantined_claim_raises(cuda_device):
                                    F.rms_norm(x, (64,), w, eps=1e-5) * 2.0)
     finally:
         quarantine.reset()
+
+
+# ---------------------------------------------------------------------------
+# trace-level autograd on the card: the sdpa_bwd and fused_adamw claims
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_jit_sdpa_bwd_claim_matches_eager(cuda_device, dtype):
+    """grad of causal attention under jit: the claims launch sdpa_fwd and
+    sdpa_bwd once each, and dq, dk, dv are bit for bit the eager autograd's
+    through the same kernels (``ops.nn.scaled_dot_product_attention``: the
+    same forward, cotangent and deterministic backward). Against an
+    independent witness, the plain backward fed the kernel forward's own
+    ``(out, lse)`` and the cotangent in the input dtype, row by row: 1e-4
+    (float32) and 2e-2 (bf16) of each row's largest value, the bounds the
+    kernel tests hold. Printed beside it, the error against the plain
+    backward fed the plain forward's ``(out, lse)``: in bf16 the two
+    forwards' ``out`` differ by bf16 rounding, and ``delta = rowsum(dO *
+    out)`` carries that into the rows where ``dP - delta`` cancels. In
+    float32 also against the same jit on the CPU, 1e-4 of a row."""
+    import torch.nn.functional as F
+
+    import thunder_tpu_torch as ptt
+
+    gen = torch.Generator().manual_seed(7)
+    q, k, v, g = (torch.randn(2, 4, 128, 64, generator=gen) for _ in range(4))
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+
+    def f(q, k, v, g):
+        return ptt.grad(lambda a, b, c: torch.sum(
+            F.scaled_dot_product_attention(a, b, c, is_causal=True).float() * g),
+            argnums=(0, 1, 2))(q, k, v)
+
+    card = [t.cuda() for t in (q, k, v, g)]
+    out, launches = _jit_launches(ptt.jit(f), *card)
+    assert launches == {"sdpa_fwd": 1, "sdpa_bwd": 1}
+    leaves = [t.clone().requires_grad_(True) for t in card[:3]]
+    loss = torch.sum(tnn.scaled_dot_product_attention(*leaves, is_causal=True).float() * card[3])
+    for a, b in zip(out, torch.autograd.grad(loss, leaves)):
+        assert a.dtype == dtype and torch.equal(a, b)
+    dout = card[3].to(dtype)
+    kernel_fed = tnn.sdpa_bwd_plain(dout, *card[:3], *tnn.sdpa_fwd(*card[:3], True, None), True)
+    plain_fed = tnn.sdpa_bwd_plain(dout, *card[:3], *tnn.sdpa_fwd_plain(*card[:3], True), True)
+    errs = [row_rel_err(a, b) for a, b in zip(out, kernel_fed)]
+    print(f"sdpa_bwd claim, {dtype}: dq/dk/dv against the plain backward fed the kernel "
+          f"forward's (out, lse) {errs}, fed the plain forward's "
+          f"{[row_rel_err(a, b) for a, b in zip(out, plain_fed)]} of their rows' largest values")
+    assert max(errs) <= (1e-4 if dtype == torch.float32 else 2e-2)
+    if dtype == torch.float32:
+        for a, b in zip(out, ptt.jit(f, device="cpu")(q, k, v, g)):
+            assert row_rel_err(a.cpu(), b) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("donate", [True, False], ids=["donated", "copied"])
+def test_cuda_jit_fused_adamw_claim_matches_cpu(cuda_device, donate):
+    """AdamW.update under jit on a bf16 and a float32 bucket: one
+    fused_adamw launch a bucket; donated inputs are written in place (the
+    outputs are the inputs), others are not written; params and moments
+    against the same jit on the CPU: 4 ULP of the stored dtype, the bound
+    the per-step kernel tests hold."""
+    import thunder_tpu_torch as ptt
+    from thunder_tpu_torch.optim import AdamW, tree_leaves, tree_map
+
+    gen = torch.Generator().manual_seed(8)
+    params = {"a": torch.randn(300, 17, generator=gen).bfloat16(),
+              "b": [torch.randn(33, generator=gen), torch.randn(5, 4, generator=gen).bfloat16()]}
+    grads = tree_map(lambda p: torch.randn(p.shape, generator=gen).to(p.dtype), params)
+    opt = AdamW(lr=1e-2)
+
+    def step(p, s, g):
+        return opt.update(p, g, s)
+
+    cpu_p = tree_map(torch.clone, params)
+    want_p, want_s = ptt.jit(step, device="cpu")(cpu_p, opt.init(cpu_p), grads)
+    card_p = tree_map(lambda t: t.cuda(), params)
+    card_s = opt.init(card_p)
+    before = [t.clone() for t in tree_leaves((card_p, card_s))]
+    jf = ptt.jit(step, donate_argnums=(0, 1) if donate else ())
+    (got_p, got_s), launches = _jit_launches(jf, card_p, card_s, tree_map(torch.Tensor.cuda,
+                                                                         grads))
+    assert launches == {"fused_adamw": 2}
+    written = [n is o for n, o in zip(tree_leaves((got_p, got_s["m"], got_s["v"])),
+                                      tree_leaves((card_p, card_s["m"], card_s["v"])))]
+    assert all(written) if donate else not any(written)
+    if not donate:
+        for a, b in zip(tree_leaves((card_p, card_s)), before):
+            assert torch.equal(a, b)
+    for a, b in zip(tree_leaves((got_p, got_s)), tree_leaves((want_p, want_s))):
+        assert ulp_distance(a.cpu(), b) <= 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
+def test_cuda_jit_train_step_matches_cpu(cuda_device, remat):
+    """pretrain.jit_train_step on tiny-gqa float32 (4 layers, B=2, T=64),
+    two steps on the card against the same on the CPU: every step launches
+    exactly the trace's claims (the reference's per-op rows), the losses
+    1e-5 relative."""
+    from thunder_tpu_torch.benchmarks import pretrain
+    from thunder_tpu_torch.models import llama as tllama
+    from thunder_tpu_torch.optim import AdamW, tree_map
+
+    cfg = tllama.CONFIGS["tiny-gqa"]
+    opt = AdamW(lr=1e-3)
+    tok, tgt = (torch.from_numpy(a) for a in pretrain.synthetic_batch(cfg.vocab_size, 2, 64, 0))
+    cpu_p = tllama.init_params(cfg, seed=0, device="cpu")
+    card_p = tree_map(torch.Tensor.cuda, cpu_p)
+    cpu_s, card_s = opt.init(cpu_p), opt.init(card_p)
+    cpu_step = pretrain.jit_train_step(cfg, opt, remat=remat)
+    card_step = pretrain.jit_train_step(cfg, opt, remat=remat)
+    L = cfg.n_layers
+    want = ({"rms_norm": 3 * L + 1, "sdpa_fwd": 2 * L, "rms_norm_residual": L} if remat else
+            {"rms_norm": 1, "sdpa_fwd": L, "rms_norm_residual": 2 * L})
+    want.update({"sdpa_bwd": L, "ce_fwd": 1, "fused_adamw": 1})
+    for _ in range(2):
+        cpu_loss, cpu_p, cpu_s = cpu_step(cpu_p, cpu_s, tok, tgt)
+        (loss, card_p, card_s), launches = _jit_launches(card_step, card_p, card_s, tok.cuda(),
+                                                         tgt.cuda())
+        assert launches == want
+        np.testing.assert_allclose(float(loss), float(cpu_loss), rtol=1e-5)

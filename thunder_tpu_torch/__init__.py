@@ -48,12 +48,21 @@ single-card serving fleet and the model zoo:
   ``ops/`` read, and the numerics sentinel;
 - :mod:`thunder_tpu_torch.transforms.numerics_guard` — ``NumericsGuard``,
   the guarded train step (``pretrain.run(guard=...)``);
-- the trace compiler's grad-free slice: :func:`jit` traces a PyTorch
-  function into printable, executable traces (:func:`last_traces`), runs
-  DCE, CSE and the epilogue pass, and hands ``rms_norm``,
-  ``rms_norm_residual``, ``linear_act``, attention and cross-entropy of
-  CUDA tensors to the kernels (:mod:`thunder_tpu_torch.executors.cudaex_claims`);
-  every other prim runs as one torch call.
+- the trace compiler: :func:`jit` traces a PyTorch function into
+  printable, executable traces (:func:`last_traces`), runs DCE, CSE and the
+  epilogue pass, and hands ``rms_norm``, ``rms_norm_residual``,
+  ``linear_act``, attention forward and backward, cross-entropy and the
+  multi-tensor AdamW of CUDA tensors to the kernels
+  (:mod:`thunder_tpu_torch.executors.cudaex_claims`); every other prim runs
+  as one torch call. :func:`value_and_grad` and :func:`grad` differentiate
+  inside a traced function (trace-level autograd,
+  :mod:`thunder_tpu_torch.core.transforms`), :func:`activation_checkpoint`
+  (``core.rematerialization.checkpoint``; the reference's
+  ``thunder_tpu.checkpoint``, renamed because :mod:`thunder_tpu_torch.checkpoint`
+  is the save/load module) makes a trace-level rematerialized region,
+  and ``jit(..., donate_argnums=)`` lets the optimizer write its donated
+  inputs in place, so a whole train step
+  (``benchmarks.pretrain.jit_train_step``) compiles into one trace.
 """
 
 from thunder_tpu_torch.devices import resolve_device  # noqa: F401
@@ -78,8 +87,11 @@ from thunder_tpu_torch.core.proxies import (  # noqa: E402
     StringProxy as _StringProxy,
     TensorProxy as _TensorProxy,
 )
+from thunder_tpu_torch.core.pytree import leaf_positions as _leaf_positions  # noqa: E402
 from thunder_tpu_torch.core.pytree import tree_flatten as _tree_flatten  # noqa: E402
 from thunder_tpu_torch.core.pytree import tree_unflatten as _tree_unflatten  # noqa: E402
+from thunder_tpu_torch.core.rematerialization import (  # noqa: E402, F401
+    checkpoint as activation_checkpoint)
 from thunder_tpu_torch.core.trace import TraceCtx, tracectx as _tracectx  # noqa: E402
 from thunder_tpu_torch.core.transform_common import cse, dce  # noqa: E402
 from thunder_tpu_torch.observe import registry as _observe  # noqa: E402
@@ -110,14 +122,18 @@ class CompileStats:
 
 
 class CacheEntry:
-    __slots__ = ("computation_fn", "tensor_indices", "traces", "prologue_trace", "prologue_fn")
+    # writes_donated: the program writes donated inputs in place
+    __slots__ = ("computation_fn", "tensor_indices", "traces", "prologue_trace", "prologue_fn",
+                 "writes_donated")
 
-    def __init__(self, computation_fn, tensor_indices, traces, prologue_trace, prologue_fn):
+    def __init__(self, computation_fn, tensor_indices, traces, prologue_trace, prologue_fn,
+                 writes_donated: bool = False):
         self.computation_fn = computation_fn
         self.tensor_indices = tensor_indices
         self.traces = traces
         self.prologue_trace = prologue_trace
         self.prologue_fn = prologue_fn
+        self.writes_donated = writes_donated
 
 
 def _is_tensorlike(x) -> bool:
@@ -143,12 +159,17 @@ class ThunderTPUFunction:
     (the tree structure, each leaf's shape, dtype and device or its constant
     value, the default device, the quarantine epoch and the active fault
     plan), compiles on a miss and runs the entry's generated program under
-    ``torch.no_grad()``: this slice is grad-free (trace-level autograd is
-    ROADMAP A.7's next item). numpy arrays are taken to the default device
-    first; torch tensors run where they are."""
+    ``torch.no_grad()``: a trace carries its own backward
+    (:func:`value_and_grad`), so torch's autograd records nothing. numpy
+    arrays are taken to the default device first; torch tensors run where
+    they are. The tensor leaves of the positional arguments in
+    ``donate_argnums`` are donated: the program may write them in place
+    (the claimed ``fused_adamw`` updates donated parameters and moments
+    where nothing later reads their old values), and after a call their
+    old values are gone."""
 
     def __init__(self, fn: _Callable, *, transforms: _Sequence = (), device=None,
-                 fn_name: str | None = None):
+                 fn_name: str | None = None, donate_argnums: int | _Sequence[int] = ()):
         from thunder_tpu_torch.executors import resolve_executors
 
         if transforms:
@@ -156,6 +177,8 @@ class ThunderTPUFunction:
         self.fn = fn
         self.executors = resolve_executors(None)
         self.device = _devices.to_device(device) if device is not None else None
+        self.donate_argnums = ((donate_argnums,) if isinstance(donate_argnums, int)
+                               else tuple(donate_argnums))
         self.fn_name = fn_name or getattr(fn, "__name__", "fn")
         self._cache: dict = {}
         self._stats = CompileStats()
@@ -184,7 +207,7 @@ class ThunderTPUFunction:
             self._stats.cache_misses += 1
             _observe.inc("cache.misses")
             _observe.event("cache_miss", fn=self.fn_name)
-            entry = self._compile(flat, treedef)
+            entry = self._compile(flat, treedef, set(_leaf_positions(args, self.donate_argnums)))
             self._cache[key] = entry
         else:
             self._stats.cache_hits += 1
@@ -199,25 +222,36 @@ class ThunderTPUFunction:
 
     def __call__(self, *args, **kwargs):
         entry, flat = self._entry_for(args, kwargs)
-        return self._run_contained(entry.computation_fn, [flat[i] for i in entry.tensor_indices])
+        return self._run_contained(entry, [flat[i] for i in entry.tensor_indices])
 
-    def _run_contained(self, run_fn, inps):
+    def _run_contained(self, entry, inps):
         """Run an entry's program. A claimed kernel that fails with a
         degradable error is quarantined, and the call raises the fatal
         ``KernelExecutionError`` a rerun would end in: on the card a
         quarantined claim's router raises it, as the port runs no
         decomposition there. A fatal error (a sticky CUDA error leaves the
         context unusable; a claim already quarantined) quarantines nothing
-        and propagates."""
+        and propagates. Where the program writes donated inputs in place,
+        the error says that their values are undefined."""
         try:
-            with _torch.no_grad():
-                return run_fn(*inps)
-        except KernelExecutionError as err:
-            if _retry.classify(err) != _retry.DEGRADABLE:
-                raise
-            _quarantine.get_quarantine().add(err.claim_id, reason=repr(err.__cause__ or err),
-                                             phase=err.phase)
-            raise KernelExecutionError(err.claim_id, _faults.QUARANTINED) from err
+            try:
+                with _torch.no_grad():
+                    return entry.computation_fn(*inps)
+            except KernelExecutionError as err:
+                if _retry.classify(err) != _retry.DEGRADABLE:
+                    raise
+                _quarantine.get_quarantine().add(err.claim_id,
+                                                 reason=repr(err.__cause__ or err),
+                                                 phase=err.phase)
+                raise KernelExecutionError(err.claim_id, _faults.QUARANTINED) from err
+        except Exception as err:
+            if entry.writes_donated:
+                err.add_note(
+                    f"{self.fn_name} writes its donated inputs (donate_argnums="
+                    f"{self.donate_argnums}) in place: after a failure their values are "
+                    f"undefined; restore them from a checkpoint, or jit without donation "
+                    f"to keep them")
+            raise
 
     def bind(self, *args, **kwargs):
         """Compile for these inputs and return a callable bound to that one
@@ -225,11 +259,11 @@ class ThunderTPUFunction:
         caller owns revalidation: calling it with another tree structure,
         shapes, dtypes or devices than the binding inputs is undefined."""
         entry, _ = self._entry_for(args, kwargs)
-        tensor_indices, run_fn = entry.tensor_indices, entry.computation_fn
+        tensor_indices = entry.tensor_indices
 
         def bound(*a, **k):
             fl, _ = self._flatten(a, k)
-            return self._run_contained(run_fn, [fl[i] for i in tensor_indices])
+            return self._run_contained(entry, [fl[i] for i in tensor_indices])
 
         bound.entry = entry
         return bound
@@ -282,17 +316,18 @@ class ThunderTPUFunction:
         pro.set_provenance("Prologue (input guards)")
         return pro
 
-    def _compile(self, flat, treedef) -> CacheEntry:
+    def _compile(self, flat, treedef, donated: set[int] = frozenset()) -> CacheEntry:
         _faults.maybe_fail("compile", site=self.fn_name)
         pass_times: dict[str, float] = {}
         with _observe.span("compile", args={"fn": self.fn_name}):
-            entry = self._compile_instrumented(flat, treedef, pass_times)
+            entry = self._compile_instrumented(flat, treedef, pass_times, donated)
         self._stats.last_pass_times = pass_times
         _observe.inc("compile.count")
         return entry
 
-    def _compile_instrumented(self, flat, treedef, pass_times) -> CacheEntry:
-        from thunder_tpu_torch.executors.passes import del_last_used, transform_for_execution
+    def _compile_instrumented(self, flat, treedef, pass_times, donated) -> CacheEntry:
+        from thunder_tpu_torch.executors.passes import (
+            del_last_used, donate_in_place, transform_for_execution)
 
         @_contextmanager
         def stage(name):
@@ -314,6 +349,8 @@ class ThunderTPUFunction:
             traces.append(trc)
         with stage("transform_for_execution"), _devices.using_device(self._default_device()):
             exec_trc = transform_for_execution(trc, self.executors)
+            donated_names = {p.name for i, p in zip(tensor_indices, trc.args) if i in donated}
+            exec_trc, writes_donated = donate_in_place(exec_trc, donated_names)
         traces.append(exec_trc)
         with stage("del_last_used"):
             exec_trc = del_last_used(exec_trc)
@@ -322,7 +359,8 @@ class ThunderTPUFunction:
             computation_fn = exec_trc.python_callable()
             prologue_fn = prologue.python_callable()
         prologue_fn(*flat)   # the guards hold on the inputs they were built from
-        entry = CacheEntry(computation_fn, tensor_indices, traces, prologue, prologue_fn)
+        entry = CacheEntry(computation_fn, tensor_indices, traces, prologue, prologue_fn,
+                           writes_donated)
         self._stats.last_traces = traces
         self._stats.last_prologue_traces = [prologue]
         return entry
@@ -341,7 +379,9 @@ def jit(fn: _Callable | None = None, **jit_kwargs) -> ThunderTPUFunction:
     """Compile a PyTorch function: trace -> DCE/CSE -> the epilogue pass ->
     the claim pass -> ``del`` insertion -> a generated Python program,
     cached by the guard key. ``device=`` sets the default device (``cuda``
-    unless given) for what has none of its own. The executor stack is
+    unless given) for what has none of its own. ``donate_argnums=`` (the
+    reference's option) donates the tensor leaves of those positional
+    arguments: the program may update them in place. The executor stack is
     ``cuda`` then the always-on ``torch`` executor. The function is traced
     through the torch front end
     (:mod:`thunder_tpu_torch.torch`): torch, ``torch.nn.functional`` and
@@ -352,6 +392,30 @@ def jit(fn: _Callable | None = None, **jit_kwargs) -> ThunderTPUFunction:
     from thunder_tpu_torch.torch import jit as _torch_jit
 
     return _torch_jit(fn, **jit_kwargs)
+
+
+def value_and_grad(fn: _Callable, argnums=0, has_aux: bool = False) -> _Callable:
+    """Trace-level VJP of the torch function ``fn``: called inside a
+    function that :func:`jit` traces, it returns ``(value, grads)`` (grads
+    shaped like ``args[argnums]``; ``((value, aux), grads)`` with
+    ``has_aux``) and records the forward and the backward into that trace.
+    Outside a trace it raises. The torch front end's adapters hand the
+    proxy-level transform (``core.transforms.inline_value_and_grad``) the
+    traced tensors and ``fn`` back its own."""
+    from thunder_tpu_torch.core.transforms import inline_value_and_grad
+    from thunder_tpu_torch.torch import on_proxies, on_torch
+
+    return on_torch(inline_value_and_grad(on_proxies(fn), argnums=argnums, has_aux=has_aux))
+
+
+def grad(fn: _Callable, argnums=0) -> _Callable:
+    """The gradients of :func:`value_and_grad` alone."""
+    vag = value_and_grad(fn, argnums=argnums)
+
+    def grad_fn(*args, **kwargs):
+        return vag(*args, **kwargs)[1]
+
+    return grad_fn
 
 
 def _as_tfn(x) -> ThunderTPUFunction:

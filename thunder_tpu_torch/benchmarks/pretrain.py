@@ -153,6 +153,24 @@ def train_step(params: dict, opt: AdamW, opt_state: dict, tokens: torch.Tensor,
     return value
 
 
+def jit_train_step(cfg: llama.LlamaConfig, opt: AdamW, *, remat: bool = False):
+    """The reference's compiled train step (``thunder_tpu/benchmarks/
+    pretrain.py:84-90``): ``train_step(params, opt_state, tokens, targets)
+    -> (loss, params, opt_state)`` is ``value_and_grad(loss_fn)`` followed
+    by ``opt.update``, compiled by ``jit`` with the parameters and the
+    optimizer state donated, so the claimed ``fused_adamw`` writes them in
+    place. ``remat`` checkpoints every layer (trace-level regions).
+    ``run`` stays on the eager :func:`train_step` (ROADMAP A.7.5)."""
+    import thunder_tpu_torch as ptt
+
+    def train_step(params, opt_state, tokens, targets):
+        loss, grads = ptt.value_and_grad(
+            lambda p: llama.loss_fn(p, tokens, targets, cfg, remat=remat))(params)
+        return loss, *opt.update(params, grads, opt_state)
+
+    return ptt.jit(train_step, donate_argnums=(0, 1))
+
+
 def _family(name: str) -> str:
     low = name.lower()
     for fam, keys in FAMILIES:

@@ -4,11 +4,14 @@ The counterpart of ``thunder_tpu/core/prims.py``: the prims this slice's
 ops reach, with the reference's names and metas. ``dot_general`` is the
 contraction prim ``matmul`` and ``linear`` decompose into; shape prims
 follow the reference's (``broadcast_in_dim``, ``slice_prim``,
-``transpose``). Metas only compute output metadata and enforce the strict
+``transpose``). ``comment``, ``opt_barrier``, ``index_add``,
+``scatter_add`` and ``dynamic_slice`` are the prims the VJP rules of
+:mod:`thunder_tpu_torch.core.transforms` emit. Metas only compute output metadata and enforce the strict
 contracts (same shapes for elementwise prims); broadcasting and promotion
 happen in the op layer. The torch implementation of every prim is in
 :mod:`thunder_tpu_torch.executors.eagertorch`. The reference's RNG,
-collective, convolution, sort and scatter prims are not ported yet.
+collective, convolution, sort and replace-scatter prims are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from thunder_tpu_torch.core.symbol import Symbol
 
 
 class PrimIDs(Enum):
-    PYTHON_RETURN = auto(); PYTHON_DEL = auto()
+    PYTHON_RETURN = auto(); PYTHON_DEL = auto(); COMMENT = auto(); OPT_BARRIER = auto()
     CHECK_TENSOR_SHAPE_AND_METADATA = auto(); CHECK_NUMBER_TYPE_AND_VALUE = auto()
     CHECK_STRING_VALUE = auto(); CHECK_LITERAL_LIKE = auto()
     CONVERT_ELEMENT_TYPE = auto(); DETACH = auto()
@@ -33,6 +36,7 @@ class PrimIDs(Enum):
     BROADCAST_IN_DIM = auto(); CAT = auto(); FLIP = auto(); RESHAPE = auto(); SLICE = auto()
     SQUEEZE = auto(); TRANSPOSE = auto(); PAD = auto()
     TAKE = auto(); TAKE_ALONG_AXIS = auto(); INDEX_PUT = auto(); DYNAMIC_UPDATE_SLICE = auto()
+    SCATTER_ADD = auto(); INDEX_ADD = auto(); DYNAMIC_SLICE = auto()
     ABS = auto(); ACOS = auto(); ASIN = auto(); ATAN = auto(); BITWISE_NOT = auto()
     CEIL = auto(); COS = auto(); COSH = auto(); ERF = auto(); ERFC = auto(); EXP = auto()
     EXP2 = auto(); EXPM1 = auto(); FLOOR = auto(); ISFINITE = auto(); ISINF = auto()
@@ -113,6 +117,20 @@ python_return = make_prim(PrimIDs.PYTHON_RETURN, "python_return", lambda v: None
                           tags=(OpTags.DONT_DCE,))
 python_del = make_prim(PrimIDs.PYTHON_DEL, "python_del", lambda *args: None,
                        tags=(OpTags.DONT_DCE,))
+comment = make_prim(PrimIDs.COMMENT, "comment", lambda s: None, tags=(OpTags.DONT_DCE,))
+
+
+def _opt_barrier_meta(*args):
+    """Identity over its operands, with outputs of their own: it pins a
+    checkpointed region's recompute to the cotangent, so CSE (which keys on
+    operand identity) cannot merge the recompute back into the forward's
+    saved values."""
+    for a in args:
+        check(isinstance(a, TensorProxy), "opt_barrier operands must be tensors")
+    return tuple(TensorProxy(shape=a.shape, dtype=a.dtype, device=a.device) for a in args)
+
+
+opt_barrier = make_prim(PrimIDs.OPT_BARRIER, "opt_barrier", _opt_barrier_meta)
 
 check_tensor_shape_and_metadata = make_prim(
     PrimIDs.CHECK_TENSOR_SHAPE_AND_METADATA, "check_tensor_shape_and_metadata",
@@ -247,10 +265,13 @@ transpose = make_prim(PrimIDs.TRANSPOSE, "transpose", _transpose_meta, tags=(OpT
 
 
 def _pad_meta(a: TensorProxy, padding_value, padding_config) -> TensorProxy:
+    # lax.pad semantics: ``interior`` elements between neighbours (the VJP
+    # of a strided slice); negative edge padding is not taken
     check(len(padding_config) == a.ndim, "pad: config length != rank")
-    check(all(interior == 0 for _, _, interior in padding_config),
-          "pad: interior padding is not supported", NotImplementedError)
-    shape = tuple(lo + hi + s for (lo, hi, _), s in zip(padding_config, a.shape))
+    check(all(lo >= 0 and hi >= 0 and interior >= 0 for lo, hi, interior in padding_config),
+          "pad: negative padding is not supported", NotImplementedError)
+    shape = tuple(lo + hi + s + max(s - 1, 0) * interior
+                  for (lo, hi, interior), s in zip(padding_config, a.shape))
     return TensorProxy(shape=shape, dtype=a.dtype, device=a.device)
 
 
@@ -280,6 +301,30 @@ index_put = make_prim(
 dynamic_update_slice = make_prim(
     PrimIDs.DYNAMIC_UPDATE_SLICE, "dynamic_update_slice",
     lambda a, update, start_indices: TensorProxy(shape=a.shape, dtype=a.dtype, device=a.device))
+dynamic_slice = make_prim(
+    PrimIDs.DYNAMIC_SLICE, "dynamic_slice",
+    lambda a, start_indices, slice_sizes: TensorProxy(
+        shape=tuple(int(s) for s in slice_sizes), dtype=a.dtype, device=a.device))
+# torch ``scatter_add`` semantics: a per-element index tensor along ``dim``
+scatter_add = make_prim(
+    PrimIDs.SCATTER_ADD, "scatter_add",
+    lambda a, indices, value, dim: TensorProxy(shape=a.shape, dtype=a.dtype, device=a.device))
+
+
+def _index_add_meta(a: TensorProxy, indices: TensorProxy, value: TensorProxy,
+                    dim: int) -> TensorProxy:
+    """Row-wise scatter-add: ``indices`` is rank-1 (n,), ``value`` has
+    ``a``'s shape with ``dim`` replaced by n, and each slice ``value[..., i,
+    ...]`` is added to ``a[..., indices[i], ...]`` (torch ``index_add``)."""
+    check(indices.ndim == 1, "index_add: indices must be rank-1")
+    check(0 <= dim < a.ndim, lambda: f"index_add: dim {dim} out of range for rank {a.ndim}")
+    expected = a.shape[:dim] + (indices.shape[0],) + a.shape[dim + 1:]
+    check(tuple(value.shape) == expected,
+          lambda: f"index_add: value shape {value.shape} != {expected}")
+    return TensorProxy(shape=a.shape, dtype=a.dtype, device=a.device)
+
+
+index_add = make_prim(PrimIDs.INDEX_ADD, "index_add", _index_add_meta)
 
 
 # ---------------------------------------------------------------------------

@@ -104,3 +104,15 @@ def tree_leaves(tree, is_leaf=None) -> list:
 def tree_map(fn: Callable, tree, is_leaf=None):
     leaves, td = tree_flatten(tree, is_leaf)
     return tree_unflatten(td, [fn(x) for x in leaves])
+
+
+def leaf_positions(args: tuple, which) -> list[int]:
+    """Flat positions, in ``tree_flatten((args, kwargs))`` order, of the
+    leaves of ``args[i]`` for each ``i`` in ``which``."""
+    out, off = [], 0
+    for i, a in enumerate(args):
+        n = len(tree_flatten(a)[0])
+        if i in which:
+            out.extend(range(off, off + n))
+        off += n
+    return out

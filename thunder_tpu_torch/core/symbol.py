@@ -18,6 +18,10 @@ from thunder_tpu_torch.core.pytree import tree_flatten, tree_map
 from thunder_tpu_torch.core.trace import get_tracectx
 
 
+# prims the generated program writes as statements, not calls
+_NO_CALL = ("python_return", "python_del", "comment")
+
+
 def _is_raw_tensor(x) -> bool:
     return not isinstance(x, Proxy) and hasattr(x, "shape") and hasattr(x, "dtype")
 
@@ -102,6 +106,8 @@ class Symbol:
                 trc.pop_scope()
             subsymbols = scope
         trc.add_bound_symbol(BoundSymbol(self, args, kwargs, result, subsymbols))
+        if trc.grad_names:
+            _propagate_requires_grad(trc.grad_names, args, kwargs, result)
         return result
 
     def bind(self, *args, output, subsymbols=(), **kwargs) -> "BoundSymbol":
@@ -191,6 +197,9 @@ class BoundSymbol:
         if self.sym.name == "python_del":
             lines.append(f"{pad}del {', '.join(prettyprint(a) for a in self.args)}")
             return lines
+        if self.sym.name == "comment":
+            lines.append(f"{pad}# {self.args[0]}")
+            return lines
         argstr = ", ".join([prettyprint(a) for a in self.args]
                            + [f"{k}={prettyprint(v)}" for k, v in self.kwargs.items()])
         outs = self.flat_proxy_outs()
@@ -200,7 +209,7 @@ class BoundSymbol:
         return lines
 
     def gather_ctx(self, ctx: dict[str, Any]) -> None:
-        if self.sym.name in ("python_return", "python_del"):
+        if self.sym.name in _NO_CALL:
             return
         impl = self._resolve_impl()
         check(impl is not None, lambda: f"no executable implementation for symbol {self.sym.name!r} "
@@ -234,6 +243,15 @@ class BoundSymbol:
         return "\n".join(self.python(indent=0))
 
 
+def _propagate_requires_grad(names: set, args, kwargs, result) -> None:
+    """Inside a ``value_and_grad`` region: a floating output of an op that
+    reads a value needing a gradient needs one too (``requires_grad``)."""
+    if any(isinstance(a, Proxy) and a.name in names for a in tree_flatten((args, kwargs))[0]):
+        for o in tree_flatten(result)[0]:
+            if isinstance(o, TensorProxy) and o.dtype.is_inexact:
+                names.add(o.name)
+
+
 def _hashable(x):
     if isinstance(x, list):
         return tuple(_hashable(i) for i in x)
@@ -257,7 +275,7 @@ def _subst(env: dict, x):
 def run_bsyms(bsyms, env: dict) -> None:
     """Interpret bound symbols over ``env`` (proxy name -> value)."""
     for b in bsyms:
-        if b.sym.name in ("python_return", "python_del"):
+        if b.sym.name in _NO_CALL:
             continue
         out = b._resolve_impl()(*_subst(env, b.args), **_subst(env, b.kwargs))
         outs, _ = tree_flatten(b.output)

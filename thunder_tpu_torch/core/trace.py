@@ -52,6 +52,10 @@ class TraceCtx:
         self._names: set[str] = set()
         self._counters: dict[str, int] = {}
         self.output: Any = None
+        # inside a value_and_grad region: the names of the values that need
+        # a gradient (the differentiated inputs and what is computed from
+        # them); None elsewhere
+        self.grad_names: set[str] | None = None
 
     # -- names -------------------------------------------------------------
     def make_name(self, prefix: str = "t") -> str:

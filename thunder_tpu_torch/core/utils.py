@@ -1,6 +1,7 @@
 """Trace dataflow analysis: producers/consumers, free variables.
 
-The counterpart of ``thunder_tpu/core/utils.py``: analyses recurse into
+The counterpart of ``thunder_tpu/core/utils.py`` (``produced_vars``,
+``consumed_vars``, ``free_vars``): analyses recurse into
 subsymbols (a composite consumes/produces everything its decomposition
 does) and are memoized per BoundSymbol, which is dataflow-immutable after
 construction.
@@ -48,3 +49,18 @@ def consumed_vars(bsym: BoundSymbol) -> frozenset[Variable]:
     result = frozenset(consumed)
     bsym._consumed_cache = result
     return result
+
+
+def free_vars(bsyms) -> list[Variable]:
+    """Proxies the bound symbols read but do not produce, in first-read
+    order."""
+    produced: set[Variable] = set()
+    out: list[Variable] = []
+    seen: set[Variable] = set()
+    for b in bsyms:
+        for v in consumed_vars(b):
+            if v not in produced and v not in seen:
+                seen.add(v)
+                out.append(v)
+        produced |= produced_vars(b)
+    return out

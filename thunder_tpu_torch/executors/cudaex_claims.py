@@ -7,7 +7,13 @@ it claims ``nn.rms_norm``, ``nn.rms_norm_residual``, ``nn.linear_act``,
 alone), ``nn.ce_fwd`` and ``nn.cross_entropy`` (``ce_fwd``'s rows reduced as
 the composite reduces them), each under the claim id ``cuda.<kernel>`` of
 the kernel it launches, the id the routers of :mod:`thunder_tpu_torch.ops.nn`
-already use: each claimed symbol calls that router, so a launch runs behind
+already use. A training trace adds ``nn.sdpa_bwd`` (the attention VJP's
+backward, ``sdpa_bwd``) and ``optim.fused_adamw`` (the traced AdamW's
+dtype bucket, ``fused_adamw``; pallasex.py:2066-2084). The kernel updates
+the parameters and moments in place: the claim writes the donated inputs
+themselves where the claim pass marks them (``passes.donate_in_place``,
+``jit(donate_argnums=)``) and dense copies of the others, and returns what it
+wrote. Each claimed symbol calls its kernel's router, so a launch runs behind
 its kernel guard and quarantine check and adds one to ``cudaex``'s launch
 count. ``nn.cross_entropy`` is the port's own claim: the reference's
 Pallas executor claims only ``nn.ce_fwd``, which its trace reaches through
@@ -35,6 +41,7 @@ from thunder_tpu_torch.core.proxies import TensorProxy
 from thunder_tpu_torch.executors import OperatorExecutor, cudaex, register_executor
 from thunder_tpu_torch.ops import get_op
 from thunder_tpu_torch.ops import nn as tnn
+from thunder_tpu_torch.ops import optim as optim_ops
 
 ex = OperatorExecutor("cuda")
 register_executor(ex, default=True)
@@ -87,6 +94,22 @@ def _sdpa_full_checker(q, k, v, attn_mask=None, dropout_p=0.0, is_causal=False, 
     return attn_mask is None and not dropout_p and _sdpa_checker(q, k, v, is_causal, scale)
 
 
+def _sdpa_bwd_checker(g, q, k, v, out, lse, is_causal=False, scale=None):
+    return _sdpa_checker(q, k, v, is_causal, scale) and _on_card(g, out, lse)
+
+
+def _fused_adamw_checker(params, grads, ms, vs, bc1, bc2, **hyper):
+    params, grads, ms, vs = tuple(params), tuple(grads), tuple(ms), tuple(vs)
+    if not params or any(len(g) != len(params) for g in (grads, ms, vs)):
+        return False
+    for group in (params, grads, ms, vs):
+        d0 = group[0].dtype
+        # one dtype a group (the optimizer buckets by dtype); float32 at most
+        if any(t.dtype != d0 for t in group) or not d0.is_float or d0.bytes > 4:
+            return False
+    return _on_card(*params, *grads, *ms, *vs, bc1, bc2)
+
+
 def _ce_checker(logits, target, ignore_index=-100):
     return logits.ndim == 2 and _on_card(logits, target)
 
@@ -120,6 +143,21 @@ def _ce_refusal(logits, target, *args, **kwargs):
     return cudaex.refusal("ce_fwd", _meta(logits), _meta(target, dtypes.int64))
 
 
+def _sdpa_bwd_refusal(g, q, k, v, out, lse, *args, **kwargs):
+    return cudaex.refusal("sdpa_bwd", *(_meta(t) for t in (g, q, k, v, out, lse)))
+
+
+def _fused_adamw_refusal(params, grads, ms, vs, bc1, bc2, *, state_dtype=None, v_dtype=None,
+                         **hyper):
+    if not optim_ops.moments_stored(ms, vs, state_dtype, v_dtype):
+        return (f"fused_adamw: the kernel updates the moments in place in their own dtypes "
+                f"({ms[0].dtype}, {vs[0].dtype}), not the optimizer's ({state_dtype}, "
+                f"{v_dtype})")
+    bc = torch.empty((2,), dtype=torch.float32, device="meta")
+    return cudaex.refusal("fused_adamw", *([_meta(t) for t in group]
+                                            for group in (params, grads, ms, vs)), bc)
+
+
 # -- the claimed callables: the routers of ops/nn.py --------------------------
 
 def cuda_rms_norm(a, weight=None, eps=1e-5, dim=-1):
@@ -142,6 +180,11 @@ def cuda_sdpa(q, k, v, attn_mask=None, dropout_p=0.0, is_causal=False, scale=Non
     # the inference path needs no lse; the operands made dense as the eager
     # scaled_dot_product_attention makes them
     return tnn.sdpa_fwd(q.contiguous(), k.contiguous(), v.contiguous(), is_causal, scale)[0]
+
+
+def cuda_sdpa_bwd(g, q, k, v, out, lse, is_causal=False, scale=None):
+    # the cotangent made dense, as the eager attention's backward makes it
+    return tnn.sdpa_bwd(g.contiguous(), q, k, v, out, lse, is_causal, scale)
 
 
 def cuda_ce_fwd(logits, target, ignore_index=-100):
@@ -180,6 +223,10 @@ sdpa_op = _register("sdpa", "nn.scaled_dot_product_attention", cuda_sdpa, _sdpa_
 ce_fwd_op = _register("ce_fwd", "nn.ce_fwd", cuda_ce_fwd, _ce_checker, _ce_refusal)
 cross_entropy_op = _register("cross_entropy", "nn.cross_entropy", cuda_cross_entropy,
                              _cross_entropy_checker, _ce_refusal, claim="ce_fwd")
+sdpa_bwd_op = _register("sdpa_bwd", "nn.sdpa_bwd", cuda_sdpa_bwd, _sdpa_bwd_checker,
+                        _sdpa_bwd_refusal)
+fused_adamw_op = _register("fused_adamw", "optim.fused_adamw", optim_ops.fused_adamw_into,
+                           _fused_adamw_checker, _fused_adamw_refusal)
 
 
 def kernel_of(sym) -> str | None:

@@ -7,6 +7,14 @@ anything. ``dot_general`` is ``torch.matmul`` (``a @ w.T`` for the
 ``linear`` contraction, the same ATen path ``F.linear`` takes without a
 bias) or ``torch.einsum`` for any other layout: a plain product outside any
 kernel of the port. The prologue's guard prims raise :class:`GuardFailure`.
+
+Four composites run as one implementation each rather than through their
+decomposition: ``nn.one_hot`` (built in its int32 output dtype, with no
+int64 intermediate), and, for tensors off the card, the plain versions of
+the kernels' composites ``nn.sdpa_bwd``, ``optim.adamw_step`` and
+``optim.fused_adamw``, the last through the card's claim's own callable
+(``ops.optim.fused_adamw_into``), which on the CPU runs the plain version
+into the donated inputs the claim pass marks.
 """
 
 from __future__ import annotations
@@ -78,6 +86,14 @@ def _check_literal(x, v):
     _guard(type(x) is type(v), f"input type changed: expected {type(v)}, got {type(x)}")
 
 
+# the prims whose implementation below may return its input itself or a view
+# of it (an in-place write of the input shows through such an output)
+MAY_ALIAS = frozenset({
+    PrimIDs.CONVERT_ELEMENT_TYPE, PrimIDs.DETACH, PrimIDs.BROADCAST_IN_DIM, PrimIDs.RESHAPE,
+    PrimIDs.SLICE, PrimIDs.SQUEEZE, PrimIDs.TRANSPOSE, PrimIDs.DYNAMIC_SLICE,
+    PrimIDs.OPT_BARRIER})
+
+
 # -- dtype, creation ----------------------------------------------------------
 
 @impl(PrimIDs.CONVERT_ELEMENT_TYPE)
@@ -146,6 +162,15 @@ def _transpose(a, permutation):
 
 @impl(PrimIDs.PAD)
 def _pad(a, padding_value, padding_config):
+    if any(interior for _, _, interior in padding_config):
+        # interior padding (the VJP of a strided slice): the input lands on
+        # every (interior + 1)-th element after the low edge
+        shape = [lo + hi + s + max(s - 1, 0) * i
+                 for (lo, hi, i), s in zip(padding_config, a.shape)]
+        out = torch.full(shape, padding_value, dtype=a.dtype, device=a.device)
+        out[tuple(slice(lo, lo + max(s - 1, 0) * (i + 1) + 1, i + 1)
+                  for (lo, _, i), s in zip(padding_config, a.shape))] = a
+        return out
     pads = []
     for lo, hi, _ in reversed(padding_config):
         pads += [lo, hi]
@@ -166,6 +191,28 @@ def _take_along_axis(a, indices, dim):
 @impl(PrimIDs.INDEX_PUT)
 def _index_put(a, indices, values, accumulate):
     return a.index_put(tuple(i.long() for i in indices), values, accumulate)
+
+
+@impl(PrimIDs.INDEX_ADD)
+def _index_add(a, indices, value, dim):
+    return torch.index_add(a, dim, indices.long(), value)
+
+
+@impl(PrimIDs.SCATTER_ADD)
+def _scatter_add(a, indices, value, dim):
+    return torch.scatter_add(a, dim, indices.long(), value)
+
+
+@impl(PrimIDs.DYNAMIC_SLICE)
+def _dynamic_slice(a, start_indices, slice_sizes):
+    return a[tuple(slice(s, s + n) for s, n in zip(start_indices, slice_sizes))]
+
+
+@impl(PrimIDs.OPT_BARRIER)
+def _opt_barrier(*args):
+    # identity: the barrier is a trace-level device (it keeps CSE from merging
+    # a recompute into the forward); the program runs its ops in order
+    return args
 
 
 @impl(PrimIDs.DYNAMIC_UPDATE_SLICE)
@@ -312,3 +359,66 @@ def _dot_general(a, b, *, contract_dims, batch_dims=((), ()), preferred_element_
 @impl(PrimIDs.ITEM)
 def _item(a):
     return a.item()
+
+
+# -- composites run whole ------------------------------------------------------
+
+def _off_card(*args, **kwargs) -> bool:
+    from thunder_tpu_torch.core.proxies import TensorProxy
+    from thunder_tpu_torch.core.pytree import tree_flatten
+
+    return all(t.device.type != "cuda" for t in tree_flatten((args, kwargs))[0]
+               if isinstance(t, TensorProxy))
+
+
+def _one_hot(ids, num_classes):
+    classes = torch.arange(num_classes, dtype=ids.dtype, device=ids.device)
+    return (ids.unsqueeze(-1) == classes).to(torch.int32)
+
+
+def _sdpa_bwd(g, q, k, v, out, lse, is_causal=False, scale=None):
+    from thunder_tpu_torch.ops.nn import sdpa_bwd_plain
+
+    return sdpa_bwd_plain(g, q, k, v, out, lse, is_causal, scale)
+
+
+def _stored(t, dtype):
+    return t.to(dtype.torch if dtype is not None else t.dtype)
+
+
+def _adamw_step(p, g, m, v, bc1, bc2, *, lr=1e-3, beta1=0.9, beta2=0.999, eps=1e-8,
+                weight_decay=0.0, state_dtype=None, v_dtype=None):
+    from thunder_tpu_torch.ops.optim import adamw_step_plain
+
+    # the moments taken to float32 first, so each is rounded once, to the
+    # dtype it is stored in
+    p_new, m_new, v_new = adamw_step_plain(p, g, m.float(), v.float(), bc1, bc2, lr=lr,
+                                           beta1=beta1, beta2=beta2, eps=eps,
+                                           weight_decay=weight_decay)
+    return p_new, _stored(m_new, state_dtype or dtypes.to_dtype(m.dtype)), \
+        _stored(v_new, v_dtype or dtypes.to_dtype(v.dtype))
+
+
+def _fused_adamw_checker(params, grads, ms, vs, bc1, bc2, *, state_dtype=None, v_dtype=None,
+                         **hyper):
+    # moments in other dtypes than the stored ones take the per-parameter
+    # decomposition, which converts them
+    from thunder_tpu_torch.ops.optim import moments_stored
+
+    return _off_card(params, grads, ms, vs) and moments_stored(ms, vs, state_dtype, v_dtype)
+
+
+def _register_composites() -> None:
+    from thunder_tpu_torch import ops
+    from thunder_tpu_torch.ops import optim
+
+    for name, op_id, fn, checker in (
+            ("one_hot", "nn.one_hot", _one_hot, None),
+            ("sdpa_bwd", "nn.sdpa_bwd", _sdpa_bwd, _off_card),
+            ("adamw_step", "optim.adamw_step", _adamw_step, _off_card),
+            ("fused_adamw", "optim.fused_adamw", optim.fused_adamw_into, _fused_adamw_checker)):
+        sym = ex.register_operator(name, meta=ops.get_op(op_id).meta, fn=fn)
+        ex.register_implementation(op_id, sym, checker=checker)
+
+
+_register_composites()

@@ -1,5 +1,5 @@
 """Trace -> executable-trace passes: the epilogue pass, executor claiming,
-``del`` insertion.
+``del`` insertion, and the in-place writes of donated inputs.
 
 The counterpart of ``thunder_tpu/executors/passes.py`` (``claim_bsym``
 :48, ``transform_for_execution`` :150, ``del_last_used`` :252). Each bound
@@ -29,7 +29,7 @@ from thunder_tpu_torch.core.transform_common import dce
 from thunder_tpu_torch.core.utils import consumed_vars
 from thunder_tpu_torch.observe import registry as _observe
 
-_PASSTHROUGH_IDS = (PrimIDs.PYTHON_RETURN, PrimIDs.PYTHON_DEL)
+_PASSTHROUGH_IDS = (PrimIDs.PYTHON_RETURN, PrimIDs.PYTHON_DEL, PrimIDs.COMMENT)
 
 
 def claim_bsym(bsym: BoundSymbol, executors) -> list[BoundSymbol]:
@@ -91,6 +91,73 @@ def transform_for_execution(trc: TraceCtx, executors) -> TraceCtx:
     new = dce(new)
     new.set_provenance("Transform for execution")
     return new
+
+
+# executor callables that may overwrite their inputs: callable -> ``targets``
+_in_place_writers: dict = {}
+
+
+def writes_in_place(fn, targets) -> None:
+    """Declare the executor callable ``fn`` a writer of its inputs.
+    ``targets(*args, **kwargs)``, on the bound symbol's arguments, lists the
+    groups it may overwrite, each a list of ``(input, dtype it is stored
+    in)``; ``fn`` takes ``donated=``, one tuple of flags a group, and writes
+    a copy of each input whose flag is false."""
+    _in_place_writers[fn] = targets
+
+
+def _aliases(bsyms, donated: set[str]) -> dict[str, set[str]]:
+    """Each name that may share storage with donated inputs, mapped to
+    them: the donated inputs themselves, and the outputs of the prims the
+    torch executor runs as a view or as the input itself (reshape, permute,
+    a same-dtype convert, ...) of such a name."""
+    from thunder_tpu_torch.executors.eagertorch import MAY_ALIAS
+
+    roots = {n: {n} for n in donated}
+    for b in bsyms:
+        if b.sym.executor is None and b.sym.id in MAY_ALIAS:
+            src = set().union(*(roots.get(p.name, ()) for p in b.flat_proxy_args()))
+            for o in b.flat_proxy_outs() if src else ():
+                roots.setdefault(o.name, set()).update(src)
+    return roots
+
+
+def donate_in_place(trc: TraceCtx, donated: set[str]) -> tuple[TraceCtx, bool]:
+    """Let each claimed writer (:func:`writes_in_place`) write the donated
+    inputs it updates (``jit(donate_argnums=)``): a tensor is written in
+    place only where it is a donated input of the trace, already in the
+    dtype it is stored in, passed to the writer once, and where neither it
+    nor a view of it is read by a bound symbol after the writer or
+    returned. The writer's ``donated`` argument says which; every other
+    target is copied first. Returns the trace and whether anything is
+    written in place."""
+    bsyms = list(trc.bound_symbols)
+    writers = [(i, _in_place_writers[b.sym.python_impl]) for i, b in enumerate(bsyms)
+               if b.sym.executor is not None and b.sym.python_impl in _in_place_writers]
+    if not writers:
+        return trc, False
+    roots = _aliases(bsyms, donated)
+    last_read: dict[str, int] = {}
+    for i, b in enumerate(bsyms):
+        for v in consumed_vars(b):
+            for r in roots.get(v.proxy.name, ()):
+                last_read[r] = i
+    returned = set().union(*(roots.get(o.name, ()) for o in tree_flatten(trc.output)[0]
+                             if isinstance(o, Proxy)))
+    writes = False
+    for i, targets in writers:
+        b = bsyms[i]
+        passed = [r for p in b.flat_proxy_args() for r in roots.get(p.name, ())]
+        marks = tuple(tuple(t.name in donated and last_read[t.name] <= i
+                            and t.name not in returned and passed.count(t.name) == 1
+                            and t.dtype == dt for t, dt in group)
+                      for group in targets(*b.args, **b.kwargs))
+        writes = writes or any(any(m) for m in marks)
+        bsyms[i] = b.from_bsym(kwargs={**b.kwargs, "donated": marks})
+    new = from_trace(trc)
+    new.bound_symbols = bsyms
+    new.provenance = trc.provenance
+    return new, writes
 
 
 def del_last_used(trc: TraceCtx) -> TraceCtx:

@@ -506,6 +506,37 @@ def index_put(a, indices, values, accumulate=False):
     return prims.index_put(a, tuple(indices), values, bool(accumulate))
 
 
+def linearize_indices(indices, sizes, bshape):
+    """Row-major linearization of jointly broadcast integer indices over
+    dims of the given ``sizes``: the linear index broadcast to ``bshape``,
+    or a Python int when every index is an int. Negatives are normalized;
+    the arithmetic runs in int32, refused for extents past 2**31. The
+    ``index_put`` VJP's gradient gather reads it."""
+    check(math.prod(sizes) < 2 ** 31,
+          lambda: f"indexed extent {math.prod(sizes)} overflows int32 linearization",
+          NotImplementedError)
+    strides, acc = [], 1
+    for s in reversed(sizes):
+        strides.append(acc)
+        acc *= s
+    strides.reverse()
+    linear = None
+    for t, s, st in zip(indices, sizes, strides):
+        if isinstance(t, TensorProxy):
+            t = convert_element_type(t, dtypes.int32)
+            t = broadcast_to(where(lt(t, 0), add(t, s), t), bshape)
+            term = mul(t, st) if st != 1 else t
+        else:
+            term = (int(t) % s) * st
+        if linear is None:
+            linear = term
+        elif isinstance(linear, int) and isinstance(term, int):
+            linear = linear + term
+        else:
+            linear = add(linear, term)
+    return linear
+
+
 def repeat_interleave_dim0(a, repeats: int):
     return reshape(expand_to(unsqueeze(a, 1), (a.shape[0], repeats) + a.shape[1:]),
                    (a.shape[0] * repeats,) + a.shape[1:])
@@ -853,8 +884,10 @@ from thunder_tpu_torch.ops.composites import (  # noqa: E402,F401
     layer_norm,
     linear_act,
     mse_loss,
+    one_hot,
     rms_norm,
     rms_norm_residual,
     scaled_dot_product_attention,
+    sdpa_bwd,
     sdpa_fwd,
 )

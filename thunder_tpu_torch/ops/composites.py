@@ -2,11 +2,21 @@
 
 The counterparts of the composites of ``thunder_tpu/ops/nn.py``, each a
 Symbol with the reference's stable id and its decomposition into ops:
-:func:`embedding` (``nn.embedding``, :23), :func:`layer_norm` (:41),
+:func:`embedding` (``nn.embedding``, :23), :func:`one_hot` (:31),
+:func:`layer_norm` (:41),
 :func:`rms_norm` (:61), :func:`rms_norm_residual` (:73), :func:`linear_act`
 (:101), :func:`dropout` (:241), :func:`mse_loss` (:251),
 :func:`cross_entropy` (:263), :func:`sdpa_fwd` (:297), :func:`ce_fwd`
-(:321) and :func:`scaled_dot_product_attention` (:590).
+(:321), :func:`sdpa_bwd` (:336) and :func:`scaled_dot_product_attention`
+(:590), with the reference's VJP rules of attention (``_sdpa_vjp``, :642),
+the RMS norm (``_rms_norm_vjp``, :658) and cross-entropy
+(``_cross_entropy_vjp``, :763): attention differentiates into
+``nn.sdpa_fwd`` and ``nn.sdpa_bwd``, cross-entropy into ``nn.ce_fwd`` and
+the one-hot pullback, and the norm stays one ``nn.rms_norm`` with a plain
+pullback. Each rule declines (``NotImplemented``) what the reference's
+declines, and that call is differentiated through its decomposition. The
+reference's rules of the MLP sub-block, the fp8 linear and the chunked
+loss wait for their items (ROADMAP A.7.3, A.5, A.7.5).
 
 They live beside the eager routers of :mod:`thunder_tpu_torch.ops.nn`, which
 carry the same names: under ``jit`` a router called on traced tensors
@@ -34,6 +44,15 @@ def embedding(ids, weight, padding_idx=None):
     check(weight.ndim == 2, lambda: f"embedding: weight must be (num_embeddings, dim), got "
                                     f"{weight.ndim}-D {tuple(weight.shape)}")
     return prims.take(weight, ids, 0)
+
+
+@opsymbol(id="nn.one_hot")
+def one_hot(ids, num_classes: int):
+    check(int(num_classes) > 0, lambda: f"one_hot: num_classes must be positive, got {num_classes}")
+    classes = prims.iota(num_classes, dtype=dtypes.int32, device=ids.device)
+    classes = ops.expand_to(classes, ids.shape + (num_classes,))
+    expanded = ops.expand_to(ops.unsqueeze(ids, -1), ids.shape + (num_classes,))
+    return ops.convert_element_type(ops.eq(expanded, classes), dtypes.int32)
 
 
 @opsymbol(id="nn.layer_norm")
@@ -191,6 +210,28 @@ def ce_fwd(logits, target, ignore_index: int = -100):
     return nll, lse
 
 
+@opsymbol(id="nn.sdpa_bwd")
+def sdpa_bwd(g, q, k, v, out, lse, is_causal: bool = False, scale: float | None = None):
+    """Flash-attention backward contract: the probabilities recomputed from
+    ``(q, k, lse)``, giving ``(dq, dk, dv)``."""
+    E = q.shape[-1]
+    L, S = q.shape[-2], k.shape[-2]
+    scale_v = scale if scale is not None else 1.0 / math.sqrt(E)
+    gf, qf, kf, vf, of = (ops.convert_element_type(t, dtypes.float32) for t in (g, q, k, v, out))
+    scores = ops.mul(ops.matmul(qf, kf.mT), scale_v)
+    if is_causal:
+        scores = _causal_scores(scores, q, L, S)
+    p = ops.exp(ops.sub(scores, ops.unsqueeze(lse, -1)))
+    dv = ops.matmul(p.mT, gf)
+    dp = ops.matmul(gf, vf.mT)
+    delta = ops.sum(ops.mul(gf, of), -1, keepdim=True)   # rowsum(dO * O)
+    ds = ops.mul(ops.mul(p, ops.sub(dp, delta)), scale_v)
+    dq = ops.matmul(ds, kf)
+    dk = ops.matmul(ds.mT, qf)
+    return (ops.convert_element_type(dq, q.dtype), ops.convert_element_type(dk, k.dtype),
+            ops.convert_element_type(dv, v.dtype))
+
+
 @opsymbol(id="nn.scaled_dot_product_attention")
 def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p: float = 0.0,
                                  is_causal: bool = False, scale: float | None = None):
@@ -218,3 +259,89 @@ def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p: float = 0.0
         probs = dropout(probs, dropout_p)
     out = ops.matmul(probs, vf)
     return ops.convert_element_type(out, q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# the flash-style VJP rules: attention saves (q, k, v, out, lse) and
+# recomputes its probabilities in the backward; the norm saves (a, weight)
+# and recomputes its row statistics
+# ---------------------------------------------------------------------------
+
+from thunder_tpu_torch.core.proxies import TensorProxy  # noqa: E402
+from thunder_tpu_torch.core.transforms import register_vjp  # noqa: E402
+
+
+@register_vjp("nn.scaled_dot_product_attention")
+def _sdpa_vjp(q, k, v, attn_mask=None, dropout_p: float = 0.0, is_causal: bool = False,
+              scale: float | None = None):
+    if attn_mask is not None or dropout_p > 0.0:
+        return NotImplemented   # differentiate the decomposition
+    out, lse = sdpa_fwd(q, k, v, is_causal, scale)
+
+    def pullback(g):
+        dq, dk, dv = sdpa_bwd(g, q, k, v, out, lse, is_causal, scale)
+        return [(q, dq), (k, dk), (v, dv)]
+
+    return out, pullback
+
+
+@register_vjp("nn.rms_norm")
+def _rms_norm_vjp(a, weight=None, eps: float = 1e-5, dim: int = -1):
+    """Keeps ``nn.rms_norm`` one composite in a training trace, where the
+    claim and the epilogue pass find it."""
+    if dim not in (-1, a.ndim - 1):
+        return NotImplemented
+    out = rms_norm(a, weight, eps=eps, dim=dim)
+
+    def pullback(g):
+        # widen half precision to float32; float32 and float64 keep theirs
+        wide = dtypes.float32 if a.dtype in _HALF else a.dtype
+        x = ops.convert_element_type(a, wide)
+        g32 = ops.convert_element_type(g, wide)
+        r = ops.rsqrt(ops.add(ops.mean(ops.mul(x, x), -1, keepdim=True), eps))
+        xhat = ops.mul(x, r)
+        gxhat = ops.mul(g32, ops.convert_element_type(weight, wide)) if weight is not None \
+            else g32
+        # d/dx of x * (mean(x^2) + eps)^(-1/2): r * (g^ - x^ * mean(g^ * x^))
+        proj = ops.mean(ops.mul(gxhat, xhat), -1, keepdim=True)
+        da = ops.mul(r, ops.sub(gxhat, ops.mul(xhat, proj)))
+        pairs = [(a, ops.convert_element_type(da, a.dtype))]
+        if isinstance(weight, TensorProxy):
+            lead = tuple(range(a.ndim - 1))
+            dw = ops.mul(g32, xhat) if not lead else ops.sum(ops.mul(g32, xhat), lead)
+            pairs.append((weight, ops.convert_element_type(dw, weight.dtype)))
+        return pairs
+
+    return out, pullback
+
+
+@register_vjp("nn.cross_entropy")
+def _cross_entropy_vjp(logits, target, weight=None, ignore_index: int = -100,
+                       reduction: str = "mean", label_smoothing: float = 0.0):
+    if weight is not None or label_smoothing > 0.0 or logits.ndim != 2:
+        return NotImplemented
+    if reduction not in ("mean", "sum", "none"):
+        return NotImplemented
+    nll, lse = ce_fwd(logits, target, ignore_index)
+    tgt = ops.convert_element_type(target, dtypes.int32)
+    validf = ops.convert_element_type(ops.ne(tgt, ignore_index), dtypes.float32)
+    count = ops.maximum(ops.sum(validf), 1.0)
+    if reduction == "mean":
+        loss = ops.true_divide(ops.sum(nll), count)
+    elif reduction == "sum":
+        loss = ops.sum(nll)
+    else:
+        loss = nll
+
+    def pullback(g):
+        C = logits.shape[-1]
+        lf = ops.convert_element_type(logits, dtypes.float32)
+        p = ops.exp(ops.sub(lf, ops.unsqueeze(lse, -1)))   # softmax rows
+        safe_tgt = ops.where(ops.eq(tgt, ignore_index), ops.zeros_like(tgt), tgt)
+        onehot = ops.convert_element_type(one_hot(safe_tgt, C), dtypes.float32)
+        row_scale = ops.mul(ops.true_divide(validf, count), g) if reduction == "mean" \
+            else ops.mul(validf, g)
+        dlogits = ops.mul(ops.sub(p, onehot), ops.unsqueeze(row_scale, -1))
+        return [(logits, ops.convert_element_type(dlogits, logits.dtype))]
+
+    return loss, pullback

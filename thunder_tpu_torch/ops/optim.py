@@ -10,13 +10,27 @@ the slab geometry (``SLAB_LANE``, ``SLAB_ROW_BLOCK``, ``slab_geometry``,
 :32-42). Each sends CUDA tensors to its hand-written kernel
 (:mod:`thunder_tpu_torch.executors.cudaex`), which raises on what it does
 not take, and CPU tensors to a loop of the plain version.
+
+Beside the routers sit the composites a traced ``AdamW.update`` records
+(``optim.AdamW`` under ``jit``): :data:`adamw_step` (``optim.adamw_step``,
+:45, one parameter's update as ops) and :data:`fused_adamw_composite`
+(``optim.fused_adamw``, :79, one ``adamw_step`` per member of a dtype
+bucket), which the ``cuda`` executor claims for the ``fused_adamw`` kernel
+and the torch executor runs as the plain version. Their moments are stored
+in the configured ``state_dtype``/``v_dtype``, as the reference stores them;
+:func:`fused_adamw_into` is what both executors' claims of the bucket run.
 """
 
 from __future__ import annotations
 
 import torch
 
+from thunder_tpu_torch import ops
+from thunder_tpu_torch.core import dtypes
+from thunder_tpu_torch.core.baseutils import check
 from thunder_tpu_torch.executors import cudaex
+from thunder_tpu_torch.executors.passes import writes_in_place
+from thunder_tpu_torch.ops import opsymbol
 from thunder_tpu_torch.ops.nn import _on_cuda, routed
 
 # the slab layout of the reference (thunder_tpu/ops/optim.py:30-44), which
@@ -196,3 +210,85 @@ def fused_adamw_slab_health(params, grads, m_slab: torch.Tensor, v_slab: torch.T
                                        **hyper)
         return
     fused_adamw_slab_health_plain(params, grads, m_slab, v_slab, bc, acc, sizes=sizes, **hyper)
+
+
+# ---------------------------------------------------------------------------
+# the traced optimizer's composites (thunder_tpu/ops/optim.py:45, :79)
+# ---------------------------------------------------------------------------
+
+@opsymbol(id="optim.adamw_step")
+def adamw_step(p, g, m, v, bc1, bc2, *, lr: float = 1e-3, beta1: float = 0.9,
+               beta2: float = 0.999, eps: float = 1e-8, weight_decay: float = 0.0,
+               state_dtype=None, v_dtype=None):
+    """One parameter's AdamW update ``(p, g, m, v, bc1, bc2) -> (p_new,
+    m_new, v_new)``: float32 arithmetic in :func:`adamw_step_plain`'s order,
+    m and v stored in ``state_dtype``/``v_dtype`` (None keeps their own)."""
+    gf, mf, vf = (ops.convert_element_type(t, dtypes.float32) for t in (g, m, v))
+    m_new = ops.add(ops.mul(mf, beta1), ops.mul(gf, 1.0 - beta1))
+    v_new = ops.add(ops.mul(vf, beta2), ops.mul(ops.mul(gf, gf), 1.0 - beta2))
+    m_hat = ops.true_divide(m_new, bc1)
+    v_hat = ops.true_divide(v_new, bc2)
+    upd = ops.true_divide(m_hat, ops.add(ops.sqrt(v_hat), eps))
+    pf = ops.convert_element_type(p, dtypes.float32)
+    if weight_decay:
+        upd = ops.add(upd, ops.mul(pf, weight_decay))
+    p_new = ops.sub(pf, ops.mul(upd, lr))
+    return (ops.convert_element_type(p_new, p.dtype),
+            ops.convert_element_type(m_new, state_dtype if state_dtype is not None else m.dtype),
+            ops.convert_element_type(v_new, v_dtype if v_dtype is not None else v.dtype))
+
+
+@opsymbol(name="fused_adamw", id="optim.fused_adamw")
+def fused_adamw_composite(params, grads, ms, vs, bc1, bc2, *, lr: float = 1e-3,
+                          beta1: float = 0.9, beta2: float = 0.999, eps: float = 1e-8,
+                          weight_decay: float = 0.0, state_dtype=None, v_dtype=None):
+    """Multi-tensor AdamW over one dtype bucket: ``adamw_step`` of every
+    ``(p, g, m, v)``, returned as ``(new_params, new_ms, new_vs)``."""
+    params, grads, ms, vs = tuple(params), tuple(grads), tuple(ms), tuple(vs)
+    check(len(params) > 0, "fused_adamw: empty bucket")
+    check(len(params) == len(grads) == len(ms) == len(vs),
+          lambda: f"fused_adamw: mismatched bucket lengths "
+                  f"{(len(params), len(grads), len(ms), len(vs))}")
+    triples = [adamw_step(p, g, m, v, bc1, bc2, lr=lr, beta1=beta1, beta2=beta2, eps=eps,
+                          weight_decay=weight_decay, state_dtype=state_dtype, v_dtype=v_dtype)
+               for p, g, m, v in zip(params, grads, ms, vs)]
+    return tuple(tuple(t[i] for t in triples) for i in range(3))
+
+
+def fused_adamw_into(params, grads, ms, vs, bc1, bc2, *, lr, beta1, beta2, eps,
+                     weight_decay, state_dtype=None, v_dtype=None, donated=None):
+    """A claimed ``optim.fused_adamw``, on either executor: one
+    :func:`fused_adamw` (the kernel on the card, the plain version on the
+    CPU) into the donated inputs the claim pass marks (``donated``, one
+    tuple of flags per group of :func:`_fused_adamw_targets`, from
+    ``passes.donate_in_place``) and dense
+    copies of the others, so an input that was not donated is never
+    written. Returns the updated ``(params, ms, vs)``. The moments must
+    already be in their stored dtypes (``state_dtype``/``v_dtype``): both
+    executors' checkers see to it."""
+    marks = donated or ((False,) * len(params),) * 3
+    ps, ms, vs = ([t if flag else torch.empty_like(t, memory_format=torch.contiguous_format)
+                   .copy_(t) for t, flag in zip(group, flags)]
+                  for group, flags in zip((params, ms, vs), marks))
+    fused_adamw(ps, grads, ms, vs, torch.stack([bc1, bc2]), lr=lr, beta1=beta1, beta2=beta2,
+                eps=eps, weight_decay=weight_decay)
+    return tuple(ps), tuple(ms), tuple(vs)
+
+
+def _fused_adamw_targets(params, grads, ms, vs, *args, state_dtype=None, v_dtype=None,
+                         **hyper):
+    """The groups :func:`fused_adamw_into` may write in place, each input
+    with the dtype it is stored in: the params keep theirs, the moments take
+    ``state_dtype``/``v_dtype``."""
+    return [[(p, p.dtype) for p in params],
+            *([(t, dtypes.to_dtype(dt) if dt is not None else t.dtype) for t in group]
+              for group, dt in ((ms, state_dtype), (vs, v_dtype)))]
+
+
+writes_in_place(fused_adamw_into, _fused_adamw_targets)
+
+
+def moments_stored(ms, vs, state_dtype=None, v_dtype=None) -> bool:
+    """Are the moments in the dtypes the optimizer stores them in?"""
+    return all(want is None or group[0].dtype == dtypes.to_dtype(want)
+               for group, want in ((ms, state_dtype), (vs, v_dtype)))

@@ -241,6 +241,11 @@ class AdamW:
         return {"m": tree_map(conv(self.state_dtype), tree["m"]),
                 "v": tree_map(conv(self.v_dtype), tree["v"]), "step": step}
 
+    def _corrections(self, step) -> list:
+        """``[1 - beta1**step, 1 - beta2**step]`` for the step count ``step``
+        (a 0-d float32 tensor), computed on its device."""
+        return [1.0 - torch.pow(torch.full_like(step, b), step) for b in (self.beta1, self.beta2)]
+
     def _bias_corrections(self, state, commit: bool = True) -> torch.Tensor:
         """``[1 - beta1**(step + 1), 1 - beta2**(step + 1)]`` on the device;
         ``commit`` writes ``step + 1`` into the counter (a gated update
@@ -248,8 +253,7 @@ class AdamW:
         nxt = state["step"] + 1.0
         if commit:
             state["step"].copy_(nxt)
-        return torch.stack([1.0 - torch.pow(torch.full_like(nxt, b), nxt)
-                            for b in (self.beta1, self.beta2)])
+        return torch.stack(self._corrections(nxt))
 
     def _buckets(self, params, grads, state):
         """``(kind, args, kwargs)`` for each dtype bucket: ``"step"`` with
@@ -304,6 +308,40 @@ class AdamW:
         return torch.stack([acc[0].float(), (~torch.isfinite(lossf)).float(), acc[2].float(),
                             torch.sqrt(acc[1]).float(), lossf])
 
+    def _update_traced(self, params, grads, state, health):
+        """The traced update: one ``optim.fused_adamw`` per dtype bucket (in
+        order of first appearance), new trees out. The reference leaves a
+        bucket of one parameter unfused; here every bucket is one."""
+        from thunder_tpu_torch.core import dtypes
+        from thunder_tpu_torch.ops.optim import fused_adamw_composite
+        from thunder_tpu_torch.torch import on_torch
+
+        if health is not None:
+            raise NotImplementedError("AdamW.update(health=) under jit: the numerics guard on "
+                                      "jit (jit(transforms=)) is not ported yet (ROADMAP A.7.6)")
+        if self.slab_persistent:
+            raise NotImplementedError("AdamW(slab_persistent=True) under jit: the slab update "
+                                      "comes with the bench on jit (ROADMAP A.7.5)")
+        nxt = state["step"] + 1.0
+        bc1, bc2 = self._corrections(nxt)
+        quads = list(zip(tree_leaves(params), tree_leaves(grads), tree_leaves(state["m"]),
+                         tree_leaves(state["v"]), strict=True))
+        buckets: dict = {}
+        for i, quad in enumerate(quads):
+            buckets.setdefault(quad[0].dtype, []).append(i)
+        new = [[None] * len(quads) for _ in range(3)]
+        step = on_torch(fused_adamw_composite)
+        for members in buckets.values():
+            outs = step(*([quads[i][k] for i in members] for k in range(4)), bc1, bc2,
+                        **self._hyper, state_dtype=dtypes.to_dtype(self.state_dtype),
+                        v_dtype=dtypes.to_dtype(self.v_dtype))
+            for k in range(3):
+                for i, t in zip(members, outs[k]):
+                    new[k][i] = t
+        return tree_unflatten(params, new[0]), {"m": tree_unflatten(state["m"], new[1]),
+                                                "v": tree_unflatten(state["v"], new[2]),
+                                                "step": nxt}
+
     @torch.no_grad()
     def update(self, params, grads, state, health: torch.Tensor | None = None):
         """One step, in place: returns ``(params, state)``, the same objects.
@@ -311,7 +349,11 @@ class AdamW:
         ``health`` (from :meth:`health`, same arguments) gates the step on
         the device: an unhealthy word leaves params, moments and the step
         counter bit-identical, a healthy one takes exactly the ungated
-        step."""
+        step. Under ``jit`` it records the step instead (see the class)."""
+        from thunder_tpu_torch.core.trace import get_tracectx
+
+        if get_tracectx() is not None:
+            return self._update_traced(params, grads, state, health)
         buckets = self._buckets(params, grads, state)
         bc = self._bias_corrections(state, commit=health is None)
         for kind, args, kw in buckets:

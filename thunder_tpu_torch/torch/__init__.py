@@ -19,6 +19,13 @@ out-of-place result, so traces are pure SSA.
 reference's ``nn.Module`` path (``ThunderModule``, ``functional_call``),
 its autograd bridge, the ``autograd.Function``/``checkpoint`` lookasides and
 the vmap shim are not ported yet (ROADMAP A.7); neither is most of the map.
+
+:func:`on_proxies` and :func:`on_torch` adapt torch-level functions to the
+proxy-level trace transforms and back (``thunder_tpu_torch.value_and_grad``,
+``checkpoint`` under ``jit``, a traced ``AdamW.update``); inside a
+``value_and_grad`` region ``requires_grad`` reports True for the
+differentiated inputs and everything computed from them, so code that
+branches on it (``ops.nn._needs_grad``) takes its training branch.
 """
 
 from __future__ import annotations
@@ -38,7 +45,8 @@ from thunder_tpu_torch.core.pytree import tree_map
 from thunder_tpu_torch.ops import composites as cnn
 from thunder_tpu_torch.ops import nn as tnn
 
-__all__ = ["TorchProxy", "jit", "register_torch_op", "_torch_to_thunder_function_map"]
+__all__ = ["TorchProxy", "jit", "register_torch_op", "_torch_to_thunder_function_map",
+           "on_proxies", "on_torch"]
 
 # ---------------------------------------------------------------------------
 # the function map + dispatch
@@ -155,7 +163,12 @@ class TorchProxy:
 
     @property
     def requires_grad(self) -> bool:
-        return False
+        # inside a value_and_grad region: the differentiated inputs and what
+        # is computed from them, as a torch tensor reports it under autograd
+        from thunder_tpu_torch.core.trace import get_tracectx
+
+        trc = get_tracectx()
+        return bool(trc is not None and trc.grad_names and self._p.name in trc.grad_names)
 
     @property
     def grad(self):
@@ -740,6 +753,27 @@ for _dunder, _op in {"__add__": ops.add, "__sub__": ops.sub, "__mul__": ops.mul,
 def _unwrap_out(out):
     return tree_map(lambda x: x._p if isinstance(x, TorchProxy) else x, out,
                     is_leaf=lambda x: isinstance(x, (TorchProxy, Proxy)))
+
+
+def on_proxies(fn):
+    """A torch-level function (it takes and returns :class:`TorchProxy`
+    trees) as a function of TensorProxies, for the trace transforms of
+    :mod:`thunder_tpu_torch.core`."""
+
+    def inner(*args, **kwargs):
+        return _unwrap_out(fn(*_wrap(args), **_wrap(kwargs)))
+
+    return inner
+
+
+def on_torch(transformed):
+    """A transform's TensorProxy-level function as a torch-level one: the
+    inverse adapter of :func:`on_proxies`."""
+
+    def outer(*args, **kwargs):
+        return _wrap(transformed(*_unwrap_out(args), **_unwrap_out(kwargs)))
+
+    return outer
 
 
 def jit(fn, **jit_kwargs):
