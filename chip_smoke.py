@@ -9,7 +9,9 @@ Phases, each of which must pass (any failure exits non-zero without the
 final line):
 
 1. card — the card's name and power limit, as nvidia-smi reports them;
-2. build — nvcc builds every kernel from thunder_tpu_torch/csrc/;
+2. build — nvcc builds every kernel from thunder_tpu_torch/csrc/ (a
+   source that fails stops only its own kernels, ``cudaex.build_failures``;
+   here every one must build);
 3. kernels — each hand-written kernel against its plain PyTorch version at
    the serving path's full-width shapes in bf16 (8 decode rows and a
    512-row prefill chunk, D=4096, F=14336; paged attention with 8 kv heads,
@@ -311,6 +313,34 @@ leaf), each on the design its rule names.
     eager step (``pretrain.profile_steps``, 2 steps each). Its kernel rows
     are phase 3's train rows (the cell's shapes).
 
+20. module — ``jit(nn.Module)`` and the torch-autograd bridge at phase 7's
+    cell: ``testing.PlainLlama`` (a plain-PyTorch Llama module:
+    ``nn.Embedding``, bias-free ``nn.Linear``, ``F.rms_norm``,
+    ``F.scaled_dot_product_attention``, ``F.cross_entropy``) from phase 7's
+    weights, ``tm = thunder_tpu_torch.jit(module)``. (a) 5 steps of ``loss =
+    tm(tokens, targets); loss.backward()``, then ``optim.AdamW(lr=1e-4)``
+    over the module's parameters and their ``.grad``, written in place:
+    each step's forward launches exactly MODULE_FWD (rms_norm 1, sdpa_fwd 4,
+    rms_norm_residual 8, ce_fwd 1) and its backward MODULE_BWD (sdpa_bwd 4),
+    both its traces' claims, the update ``fused_adamw`` 1; the first
+    backward's ``.grad`` of every leaf within MODULE_GRAD_TOL of each row's
+    largest value of the same module run eagerly by torch autograd; the
+    losses finite, falling, each within JIT_TRAIN_LOSS_RTOL of phase 7's;
+    one compiled pair. (b) the grad-free call launches MODULE_EVAL (with
+    ``linear_act`` 4 and the lse-free attention) and its loss is within
+    JIT_TRAIN_LOSS_RTOL of the bridge's on the same weights. (c) the
+    function path's bridge on phase 18 (c)'s layer with x and the weights
+    requiring grad: the forward launches rms_norm, sdpa_fwd and
+    rms_norm_residual once, the backward sdpa_bwd once, and the gradients
+    are within MODULE_GRAD_TOL of eager bf16 autograd's and of float32
+    autograd's on the same inputs. Printed: the step ms
+    against phase 7's and phase 19's, the peak memory of steps 2-5, the
+    host ms of a cached call of each half, compile seconds, device ms by
+    kernel family, and the count and bytes of the saved tensors beside what
+    ``rematerialize_forward_and_backward`` would save from the same traces.
+    Its kernel rows: phase 3's train rows, ``linear_act`` at (8 x 2048) x
+    (14336 x 4096) for (b), phase 18's rows for (c).
+
 No phase can fall back to a plain version on the card: a CUDA call whose
 inputs a kernel does not take raises in the kernel's wrapper, with the
 reason ``cudaex.refusal`` gives, and fails its phase; a quarantined kernel
@@ -492,6 +522,25 @@ JIT_PATHS = ("jit-forward", "jit-loss", "jit-layer")
 JIT_TRAIN_LOSS_RTOL = 1e-2
 JIT_TRAIN_PROFILE = 2
 JIT_TRAIN_PATHS = ("jit-train", "jit-train-remat")
+
+# phase 20: jit(nn.Module) through the torch-autograd bridge at phase 7's
+# cell (testing.PlainLlama from the same weights and batch, 5 steps of
+# loss.backward() and AdamW(lr=1e-4)); each loss within JIT_TRAIN_LOSS_RTOL
+# of phase 7's. The first backward's .grad of every leaf against the same
+# module run eagerly by torch autograd (flash attention, cuBLAS), row by
+# row, at most 5e-2 of each row's largest value: two bf16 computations of
+# one gradient round at different points (eager rounds a fused op's result
+# once; the trace's pullbacks are the reference's prims, each rounded to
+# bf16), and bf16 eager autograd is itself about 2e-2 of a row off float32
+# autograd of one layer, as the bridge and the reference are
+# (tests/test_torch_port_module.py::test_bf16_layer_gradients_against_float32,
+# on the CPU with no kernel); (c) prints all three distances.
+# (c) the function path's bridge: phase 18's layer with x and the weights
+# requiring grad; its gradients within the same bound of eager bf16
+# autograd's and of float32 autograd's on the same inputs
+MODULE_GRAD_TOL = 5e-2
+MODULE_HOST_ITERS = 5
+MODULE_PATHS = ("module-train", "module-eval", "fn-bridge")
 
 D, F_DIM, S_DECODE, M_PREFILL = 4096, 14336, 8, 512
 KV, G, HD, PS = 8, 4, 128, 16
@@ -3481,16 +3530,17 @@ def jit_run(torch, cudaex, ptt, jf, args, eager_fn, what: str) -> dict:
 
 
 def check_jit_kernels(torch, cudaex, tnn) -> dict:
-    """Phase 3 at the slice's shapes: the norms, attention, linear_act and
-    ce_fwd against their plain versions, timed; their rows."""
+    """Phase 3 at the slice's shapes: the norms, attention forward and
+    backward (phase 20's function bridge), linear_act and ce_fwd against
+    their plain versions, timed; their rows."""
     gen = torch.Generator(device="cuda").manual_seed(18)
     rms, res = norm_rows(torch, cudaex, tnn, gen, (JIT_B, JIT_T, D))
     la = linear_act_row(torch, cudaex, tnn, gen, (JIT_B, JIT_T))
-    (fwd, _), = attention_rows(torch, cudaex, tnn, gen, torch.bfloat16, JIT_B, 32, JIT_T, JIT_T,
-                               HD, [True])
+    (fwd, bwd), = attention_rows(torch, cudaex, tnn, gen, torch.bfloat16, JIT_B, 32, JIT_T,
+                                 JIT_T, HD, [True])
     ce = ce_row(torch, cudaex, tnn, gen, JIT_B * JIT_T, 128256)
     return {"rms_norm": [rms], "rms_norm_residual": [res], "linear_act": [la],
-            "sdpa_fwd": [fwd], "ce_fwd": [ce]}
+            "sdpa_fwd": [fwd], "sdpa_bwd": [bwd], "ce_fwd": [ce]}
 
 
 def jit_full_width(np, torch, tllama, cudaex) -> dict:
@@ -3685,6 +3735,248 @@ def jit_train_eager_profile(torch, pretrain) -> dict:
                               "ms_per_step_by_family", "peak_memory_gb")}
 
 
+# ---------------------------------------------------------------------------
+# phase 20: jit(nn.Module) and the torch-autograd bridge at phase 7's cell
+# ---------------------------------------------------------------------------
+
+MODULE_FWD = {"rms_norm": 1, "sdpa_fwd": TRAIN_LAYERS, "rms_norm_residual": 2 * TRAIN_LAYERS,
+              "ce_fwd": 1}
+MODULE_BWD = {"sdpa_bwd": TRAIN_LAYERS}
+MODULE_EVAL = dict(MODULE_FWD, linear_act=TRAIN_LAYERS)
+
+
+def counted(torch, cudaex, fn):
+    """``fn()`` with the launch counts set to 0 just before it and read just
+    after: its output and its launches."""
+    torch.cuda.synchronize()
+    cudaex.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: n for k, n in cudaex.launch_counts().items() if n}
+
+
+def check_module_kernels(torch, cudaex, tnn) -> dict:
+    """linear_act at the eval path's shape (the MLP gate of 8 x 2048 rows);
+    the path's other kernels are phase 3's train rows."""
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    return {"linear_act": [linear_act_row(torch, cudaex, tnn, gen, (TRAIN_BATCH, TRAIN_SEQ))]}
+
+
+def saved_report(ptt, step) -> dict:
+    """The count and bytes of what the bridge's forward saves for its
+    backward, and what the min-cut would save from the same split traces
+    (a trace-level figure: the bridge does not apply it)."""
+    def count(fwd):
+        saved = fwd.output[1]
+        return len(saved), sum(math.prod(p.shape) * p.dtype.bytes for p in saved)
+
+    fwd, bwd = step.split
+    t0 = time.perf_counter()
+    nf, _ = ptt.rematerialize_forward_and_backward(fwd, bwd)
+    remat_s = time.perf_counter() - t0
+    (n, b), (rn, rb) = count(fwd), count(nf)
+    return {"saved_tensors": n, "saved_gb": b / 1e9, "mincut_saved_tensors": rn,
+            "mincut_saved_gb": rb / 1e9, "mincut_s": remat_s}
+
+
+def module_train_run(np, torch, tllama, cudaex, pretrain, eager: dict) -> dict:
+    """Phase 20 (a) and (b): ``jit(PlainLlama)`` from phase 7's weights and
+    batch, trained TRAIN_STEPS steps by ``loss.backward()`` and
+    ``optim.AdamW(lr=1e-4)`` over the module's parameters and their
+    ``.grad`` (the update writes the parameters in place); then the
+    grad-free call. Every check held or the phase fails."""
+    import thunder_tpu_torch as ptt
+    from thunder_tpu_torch.optim import AdamW
+    from thunder_tpu_torch.testing import PlainLlama, claimed_kernels, row_rel_err
+
+    t_phase = time.perf_counter()
+    cfg = tllama.CONFIGS["llama3-8b-bench"]
+    module = PlainLlama.from_llama_params(
+        cfg, tllama.init_params(cfg, seed=0, device="cuda", n_layers=TRAIN_LAYERS))
+    gc.collect()
+    tok, tgt = (torch.from_numpy(a).cuda()
+                for a in pretrain.synthetic_batch(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, 0))
+    # the same module run eagerly by torch autograd: the first loss and grads
+    eager_loss = module(tok, tgt)
+    eager_loss.backward()
+    eager_loss = float(eager_loss.detach())
+    eager_grads = {k: p.grad for k, p in module.named_parameters()}
+    module.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+
+    tm = ptt.jit(module)
+    params = dict(module.named_parameters())
+    opt = AdamW(lr=1e-4)
+    state = opt.init(params)
+    losses, per_step, grad_err = [], [], {}
+    counts: dict[str, int] = {}
+    step = None
+    for i in range(TRAIN_STEPS):
+        if i == 1:   # the eager gradients are gone: the peak is the bridge's own
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        loss, fwd = counted(torch, cudaex, lambda: tm(tok, tgt))
+        fwd_ms = (time.perf_counter() - t) * 1e3
+        step = step or next(iter(tm._autograd_cache.values()))
+        _, bwd = counted(torch, cudaex, loss.backward)
+        if i == 0:
+            for k, p in module.named_parameters():
+                grad_err[k] = row_rel_err(p.grad, eager_grads[k])
+            del eager_grads
+            worst = max(grad_err, key=grad_err.get)
+            require(grad_err[worst] <= MODULE_GRAD_TOL,
+                    f"module-train: {worst}'s first .grad is {grad_err[worst]} of a row's largest "
+                    f"value off eager autograd's (bound {MODULE_GRAD_TOL})")
+        _, upd = counted(torch, cudaex, lambda: opt.update(
+            params, {k: p.grad for k, p in params.items()}, state))
+        module.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        require(fwd == MODULE_FWD == claimed_kernels(step.fwd_trace),
+                f"module-train: step {i}'s forward launched {fwd}, its trace claims "
+                f"{claimed_kernels(step.fwd_trace)}, want {MODULE_FWD}")
+        require(bwd == MODULE_BWD == claimed_kernels(step.bwd_trace),
+                f"module-train: step {i}'s backward launched {bwd}, its trace claims "
+                f"{claimed_kernels(step.bwd_trace)}, want {MODULE_BWD}")
+        require(upd == {"fused_adamw": 1}, f"module-train: step {i}'s update launched {upd}")
+        for part in (fwd, bwd, upd):
+            for k, n in part.items():
+                counts[k] = counts.get(k, 0) + n
+        losses.append(float(loss.detach()))
+        per_step.append({"loss": losses[-1], "ms": ms, "forward_call_ms": fwd_ms})
+        del loss
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    require(len(tm._autograd_cache) == 1,
+            f"module-train: {len(tm._autograd_cache)} compiled pairs, want 1")
+    require(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+            f"module-train: losses not finite and falling: {losses}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, eager["losses"])]
+    require(max(rel) <= JIT_TRAIN_LOSS_RTOL,
+            f"module-train: losses {losses} against phase 7's eager {eager['losses']}")
+    first_rel = abs(losses[0] - eager["losses"][0]) / abs(eager["losses"][0])
+    out = {"layers": TRAIN_LAYERS, "losses": losses, "per_step": per_step,
+           "step_ms_median": float(np.median([st["ms"] for st in per_step[1:]])),
+           "eager_losses": eager["losses"], "loss_rel_diff_max": max(rel),
+           "first_loss_rel_diff": first_rel, "module_eager_first_loss": eager_loss,
+           "grad_row_rel_err": grad_err, "grad_row_rel_err_max": max(grad_err.values()),
+           "launches": counts, "launches_per_step": dict(MODULE_FWD, **MODULE_BWD,
+                                                         fused_adamw=1),
+           "peak_memory_gb_steps_2_to_5": peak, "compile_s": step.compile_s,
+           "compile_stages_ms": step.pass_times,
+           "trace_bsyms": [len(step.fwd_trace.bound_symbols), len(step.bwd_trace.bound_symbols)]}
+
+    def train_step():
+        loss = tm(tok, tgt)
+        loss.backward()
+        opt.update(params, {k: p.grad for k, p in params.items()}, state)
+        module.zero_grad(set_to_none=True)
+        return loss
+
+    fwd_host = bwd_host = 0.0
+    for _ in range(MODULE_HOST_ITERS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = tm(tok, tgt)
+        fwd_host += time.perf_counter() - t
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss.backward()
+        bwd_host += time.perf_counter() - t
+        torch.cuda.synchronize()
+        module.zero_grad(set_to_none=True)
+    out["host_ms_cached_forward"] = fwd_host * 1e3 / MODULE_HOST_ITERS
+    out["host_ms_cached_backward"] = bwd_host * 1e3 / MODULE_HOST_ITERS
+    out["torch_calls_per_step"] = torch_calls(torch, train_step)[1]
+    out.update(pretrain.profile_steps(train_step, JIT_TRAIN_PROFILE))
+    out.update(saved_report(ptt, step))
+    out["designs"] = cudaex.design_counts()
+
+    # (b) the grad-free call on the same weights: its loss against the
+    # bridge's forward on them
+    with torch.no_grad():
+        tm(tok, tgt)   # compile
+        ev, launches = counted(torch, cudaex, lambda: tm(tok, tgt))
+        ev = float(ev)
+        eval_ms = device_ms(torch, lambda: tm(tok, tgt))
+    grad_loss = float(tm(tok, tgt).detach())
+    require(launches == MODULE_EVAL == claimed_kernels(ptt.last_execution_trace(tm)),
+            f"module-eval: launched {launches}, its trace claims "
+            f"{claimed_kernels(ptt.last_execution_trace(tm))}, want {MODULE_EVAL}")
+    eval_rel = abs(ev - grad_loss) / abs(grad_loss)
+    require(math.isfinite(ev) and eval_rel <= JIT_TRAIN_LOSS_RTOL,
+            f"module-eval: loss {ev} against the bridge's {grad_loss} on the same weights")
+    evr = {"loss": ev, "bridge_loss": grad_loss, "loss_rel_diff": eval_rel, "launches": launches,
+           "device_ms": eval_ms, "compile_ms": ptt.compile_stats(tm).last_pass_times}
+    del module, params, state, tm, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return {"train": out, "eval": evr}
+
+
+def fn_bridge_run(torch, cudaex, tllama) -> dict:
+    """Phase 20 (c): phase 18's plain-PyTorch layer at llama3-8b width with
+    x and the weights requiring grad: ``jit(layer)(...)`` then
+    ``.float().square().mean().backward()`` through the function path's
+    bridge, against eager torch autograd of the same function."""
+    import thunder_tpu_torch as ptt
+    from thunder_tpu_torch.testing import claimed_kernels, plain_llama_layer, row_rel_err
+
+    t0 = time.perf_counter()
+    cfg = tllama.CONFIGS["llama3-8b"]
+    gen = torch.Generator(device="cuda").manual_seed(181)
+    Dm, Fd, H, KVh = cfg.dim, cfg.intermediate_size, cfg.n_heads, cfg.kv_heads
+    kv_dim = KVh * cfg.head_dim
+
+    def dense(n_out, n_in):
+        return (torch.randn(n_out, n_in, generator=gen, device="cuda") * n_in ** -0.5).to(cfg.dtype)
+
+    def norm_w():
+        return (torch.rand(Dm, generator=gen, device="cuda") + 0.5).to(cfg.dtype)
+
+    x = torch.randn(JIT_B, JIT_T, Dm, generator=gen, device="cuda").to(cfg.dtype)
+    layer = (norm_w(), dense(Dm, Dm), dense(kv_dim, Dm), dense(kv_dim, Dm), dense(Dm, Dm),
+             norm_w(), dense(Fd, Dm), dense(Fd, Dm), dense(Dm, Fd))
+    leaves = [t.requires_grad_(True) for t in (x, *layer)]
+
+    def plain(x, *w):
+        return plain_llama_layer(x, *w, n_heads=H, n_kv=KVh)
+
+    jf = ptt.jit(plain)
+    jf(*leaves).float().square().mean().backward()   # compile and warm
+    for t in leaves:
+        t.grad = None
+    out, fwd = counted(torch, cudaex, lambda: jf(*leaves))
+    _, bwd = counted(torch, cudaex, out.float().square().mean().backward)
+    step = next(iter(jf._autograd_cache.values()))
+    want_f = {"rms_norm": 1, "sdpa_fwd": 1, "rms_norm_residual": 1}
+    require(fwd == want_f == claimed_kernels(step.fwd_trace),
+            f"fn-bridge: forward launched {fwd}, want {want_f}")
+    require(bwd == {"sdpa_bwd": 1} == claimed_kernels(step.bwd_trace),
+            f"fn-bridge: backward launched {bwd}")
+    got = [t.grad for t in leaves]
+    for t in leaves:
+        t.grad = None
+    plain(*leaves).float().square().mean().backward()
+    eager = [t.grad for t in leaves]
+    f32 = [t.detach().float().requires_grad_(True) for t in leaves]
+    plain(*f32).square().mean().backward()
+    errs = {"bridge_vs_eager": [row_rel_err(a, b) for a, b in zip(got, eager)],
+            "bridge_vs_f32": [row_rel_err(a, b.grad) for a, b in zip(got, f32)],
+            "eager_vs_f32": [row_rel_err(a, b.grad) for a, b in zip(eager, f32)]}
+    worst = max(max(errs["bridge_vs_eager"]), max(errs["bridge_vs_f32"]))
+    require(worst <= MODULE_GRAD_TOL,
+            f"fn-bridge: gradients {errs} of a row's largest value off eager bf16 and float32 "
+            f"autograd's (bound {MODULE_GRAD_TOL})")
+    launches = dict(fwd, **bwd)
+    del x, layer, leaves, got, eager, f32, out, jf
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "grad_row_rel_err": errs, "compile_s": step.compile_s,
+            "phase_s": time.perf_counter() - t0}
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -3716,6 +4008,8 @@ def main() -> int:
     t0 = time.perf_counter()
     compile_s = cudaex.build()
     log(f"build: {time.perf_counter() - t0:.1f} s ({', '.join(f'{k} {v:.1f} s' for k, v in compile_s.items())})")
+    failed = cudaex.build_failures()
+    require(not failed, "kernels that did not build: " + "\n".join(failed.values()))
 
     log("kernels vs plain versions (bf16, full width):")
     rows = check_kernels(torch, cudaex, tnn)
@@ -3886,6 +4180,34 @@ def main() -> int:
                                      je["device_busy_ms_per_step"]],
     }) + f" ({card})")
 
+    # phase 20: jit(nn.Module) and the torch-autograd bridge
+    log("phase 20's kernels vs plain versions (linear_act at the eval path's shape):")
+    module_rows = check_module_kernels(torch, cudaex, tnn)
+    mt = module_train_run(np, torch, tllama, cudaex, pretrain, tw)
+    log(f"phase 20 (a) module train: {json.dumps(mt['train'])} ({card})")
+    log(f"phase 20 (b) module eval: {json.dumps(mt['eval'])} ({card})")
+    fb = fn_bridge_run(torch, cudaex, tllama)
+    log(f"phase 20 (c) function bridge: {json.dumps(fb)} ({card})")
+    mtr = mt["train"]
+    log("phase 20: " + json.dumps({
+        "step_ms_median_module_eager_jit": [mtr["step_ms_median"],
+                                            float(np.median([st["ms"] for st in
+                                                             tw["per_step"][1:]])),
+                                            jta["step_ms_median"]],
+        "peak_gb_module_eager_jit": [mtr["peak_memory_gb_steps_2_to_5"], tw["peak_memory_gb"],
+                                     jta["peak_memory_gb"]],
+        "host_ms_cached_forward_backward": [mtr["host_ms_cached_forward"],
+                                            mtr["host_ms_cached_backward"]],
+        "compile_s": mtr["compile_s"], "device_ms_by_family": mtr["ms_per_step_by_family"],
+        "device_busy_ms": mtr["device_busy_ms_per_step"],
+        "device_idle_share": mtr["device_idle_share"],
+        "saved": [mtr["saved_tensors"], mtr["saved_gb"]],
+        "mincut_saved": [mtr["mincut_saved_tensors"], mtr["mincut_saved_gb"]],
+        "grad_row_rel_err_max": mtr["grad_row_rel_err_max"],
+        "loss_rel_diff_max": mtr["loss_rel_diff_max"],
+        "phase_s": mtr["phase_s"] + fb["phase_s"],
+    }) + f" ({card})")
+
     # one row per kernel and main path: the path's own shape and its own
     # launch count (rms_norm and rms_norm_residual run on several paths;
     # the planned path's rows for kernels it shares with the per-op train
@@ -3932,9 +4254,14 @@ def main() -> int:
                                  *((p, {k: jit_rows[k] for k in jt[run]["launches"]}, jt[run])
                                    for p, run in zip(JIT_PATHS, ("forward", "loss", "layer"))),
                                  *((p, {k: train_rows[k] for k in run["launches_per_step"]}, run)
-                                   for p, run in zip(JIT_TRAIN_PATHS, (jta, jtb)))):
+                                   for p, run in zip(JIT_TRAIN_PATHS, (jta, jtb))),
+                                 ("module-train", {k: train_rows[k]
+                                                   for k in mtr["launches_per_step"]}, mtr),
+                                 ("module-eval", {k: module_rows.get(k) or train_rows[k]
+                                                  for k in MODULE_EVAL}, mt["eval"]),
+                                 ("fn-bridge", {k: jit_rows[k] for k in fb["launches"]}, fb)):
         for name, rs in path_rows.items():
-            if path in FLEET_PATHS or path in ZOO_PATHS or path in JIT_PATHS + JIT_TRAIN_PATHS:
+            if path in (*FLEET_PATHS, *ZOO_PATHS, *JIT_PATHS, *JIT_TRAIN_PATHS, *MODULE_PATHS):
                 require(run["launches"].get(name, 0) > 0,
                         f"{path}: {name} never launched on the main path")
             r = dict(rs[0], path=path, launches=run["launches"][name])

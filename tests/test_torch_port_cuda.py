@@ -1655,3 +1655,162 @@ def test_cuda_jit_train_step_matches_cpu(cuda_device, remat):
                                                          tgt.cuda())
         assert launches == want
         np.testing.assert_allclose(float(loss), float(cpu_loss), rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# jit(nn.Module): the torch-autograd bridge on the card
+# ---------------------------------------------------------------------------
+
+def _bridge_launches(fn):
+    """``fn()`` with the launch counts set to 0 just before it and read just
+    after."""
+    torch.cuda.synchronize()
+    cudaex.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: n for k, n in cudaex.launch_counts().items() if n}
+
+
+@pytest.mark.cuda
+def test_cuda_module_bridge_launches_and_matches_cpu(cuda_device):
+    """``testing.PlainLlama`` on tiny-gqa (float32, 2 layers) through
+    ``jit(module)``: the bridge's forward launches exactly its trace's claims
+    (rms_norm 1, sdpa_fwd L, rms_norm_residual 2L, ce_fwd 1), its backward
+    sdpa_bwd L, the grad-free call rms_norm 1, sdpa_fwd L, rms_norm_residual
+    2L, linear_act L, ce_fwd 1; the loss within 1e-5 relative and every
+    gradient within 1e-4 of each leaf's largest magnitude of the same
+    module's bridge on the CPU (the kernels sum in other orders)."""
+    import copy
+
+    import thunder_tpu_torch as ptt
+    from thunder_tpu_torch.models import llama as tllama
+    from thunder_tpu_torch.testing import PlainLlama, claimed_kernels
+
+    cfg = tllama.CONFIGS["tiny-gqa"]
+    L = 2
+    cpu_mod = PlainLlama.from_llama_params(cfg, tllama.init_params(cfg, seed=0, device="cpu",
+                                                                     n_layers=L))
+    card_mod = copy.deepcopy(cpu_mod).cuda()
+    gen = torch.Generator().manual_seed(3)
+    tok = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen)
+    tgt = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen)
+    want = ptt.jit(cpu_mod, device="cpu")(tok, tgt)
+    want.backward()
+    tm = ptt.jit(card_mod)
+    tok_c, tgt_c = tok.cuda(), tgt.cuda()
+    tm(tok_c, tgt_c)   # compile
+    step = next(iter(tm._autograd_cache.values()))
+    loss, fwd = _bridge_launches(lambda: tm(tok_c, tgt_c))
+    card_mod.zero_grad()
+    _, bwd = _bridge_launches(loss.backward)
+    assert fwd == claimed_kernels(step.fwd_trace) == {
+        "rms_norm": 1, "sdpa_fwd": L, "rms_norm_residual": 2 * L, "ce_fwd": 1}
+    assert bwd == claimed_kernels(step.bwd_trace) == {"sdpa_bwd": L}
+    np.testing.assert_allclose(float(loss), float(want), rtol=1e-5)
+    for (name, p), (_, q) in zip(card_mod.named_parameters(), cpu_mod.named_parameters()):
+        scale = float(q.grad.abs().max())
+        assert float((p.grad.cpu() - q.grad).abs().max()) <= 1e-4 * scale, name
+    with torch.no_grad():
+        tm(tok_c, tgt_c)
+        ev, launches = _bridge_launches(lambda: tm(tok_c, tgt_c))
+    assert launches == {"rms_norm": 1, "sdpa_fwd": L, "rms_norm_residual": 2 * L,
+                        "linear_act": L, "ce_fwd": 1}
+    np.testing.assert_allclose(float(ev), float(want), rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_function_bridge_launches(cuda_device):
+    """``jit(plain_llama_layer)`` (bf16, D 256) with x and the weights
+    requiring grad: ``backward()`` of ``out.float().square().mean()`` runs the
+    compiled backward; the forward launches rms_norm 1, sdpa_fwd 1,
+    rms_norm_residual 1, the backward sdpa_bwd 1; the gradients within 5e-2
+    of each row's largest value of eager bf16 autograd's and of float32
+    autograd's on the same inputs (bf16 eager autograd is itself 2e-2 off
+    the float32 gradients of such a layer: chip_smoke.py's
+    MODULE_GRAD_TOL)."""
+    import thunder_tpu_torch as ptt
+    from thunder_tpu_torch.testing import plain_llama_layer
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    Dm, Fd = 256, 512
+
+    def dense(n_out, n_in):
+        return (torch.randn(n_out, n_in, generator=gen, device="cuda") * n_in ** -0.5).to(
+            torch.bfloat16)
+
+    def norm_w():
+        return (torch.rand(Dm, generator=gen, device="cuda") + 0.5).to(torch.bfloat16)
+
+    x = torch.randn(2, 64, Dm, generator=gen, device="cuda").to(torch.bfloat16)
+    w = (norm_w(), dense(Dm, Dm), dense(128, Dm), dense(128, Dm), dense(Dm, Dm), norm_w(),
+         dense(Fd, Dm), dense(Fd, Dm), dense(Dm, Fd))
+
+    def layer(x, *w):
+        return plain_llama_layer(x, *w, n_heads=4, n_kv=2)
+
+    leaves = [t.clone().requires_grad_(True) for t in (x, *w)]
+    eager = [t.clone().requires_grad_(True) for t in (x, *w)]
+    jf = ptt.jit(layer)
+    jf(*leaves)   # compile
+    out, fwd = _bridge_launches(lambda: jf(*leaves))
+    loss = out.float().square().mean()
+    _, bwd = _bridge_launches(loss.backward)
+    assert fwd == {"rms_norm": 1, "sdpa_fwd": 1, "rms_norm_residual": 1}
+    assert bwd == {"sdpa_bwd": 1}
+    layer(*eager).float().square().mean().backward()
+    f32 = [t.detach().float().requires_grad_(True) for t in (x, *w)]
+    layer(*f32).square().mean().backward()
+    for a, b, c in zip(leaves, eager, f32):
+        assert row_rel_err(a.grad, b.grad) <= 5e-2 and row_rel_err(a.grad, c.grad) <= 5e-2
+
+
+@pytest.mark.cuda
+def test_cuda_one_failed_source_stops_only_its_kernels(cuda_device, monkeypatch, tmp_path):
+    """ROADMAP C.4 with the real nvcc: a copy of csrc/ whose decode_layer.cu
+    does not compile, built into a temporary directory. Every other kernel
+    binds and launches (attn_subblock, the other library of
+    decode_layer.cuh, against its plain version); decode_layer's router
+    raises its own build error, attributed to its claim (degradable), and
+    once it is quarantined its router runs the sub-block rung's kernels on
+    the card, whose output is the sub-block rung's plain version's."""
+    import shutil
+
+    from thunder_tpu_torch.runtime import faults, quarantine, retry
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(cudaex.CSRC, csrc)
+    broken = csrc / "decode_layer.cu"
+    broken.write_text(broken.read_text() + "\nstatic_assert(false, \"planted build failure\");\n")
+    monkeypatch.setattr(cudaex, "CSRC", csrc)
+    monkeypatch.setattr(cudaex, "BUILD_DIR", tmp_path / "build")
+    for k in cudaex.KERNELS.values():
+        monkeypatch.setattr(k, "fn", None)
+        monkeypatch.setattr(k, "build_error", None)
+    quarantine.reset()
+    try:
+        cudaex.build()
+        failed = cudaex.build_failures()
+        assert set(failed) == {"decode_layer"} and "planted build failure" in failed["decode_layer"]
+        args, mlp = _decode_args(cuda_device, torch.bfloat16, list(DECODE_SHAPES)[0], seed=7)
+        cudaex.reset_launch_counts()
+        got = cudaex.attn_subblock(*args)
+        want = tnn.attn_subblock_plain(*args)
+        for a, b in zip(got, want):
+            assert row_rel_err(a, b) <= 2e-2
+        with pytest.raises(faults.KernelExecutionError) as ei:
+            tnn.decode_layer(*[a.clone() for a in args], *mlp, act="silu")
+        assert ei.value.claim_id == "cuda.decode_layer" and ei.value.phase == "build"
+        assert retry.classify(ei.value) == retry.DEGRADABLE
+        quarantine.get_quarantine().add("cuda.decode_layer", reason=repr(ei.value.__cause__))
+        cudaex.reset_launch_counts()
+        card = [a.clone() for a in args]
+        out = tnn.decode_layer(*card, *mlp, act="silu")
+        torch.cuda.synchronize()
+        counts = {k: n for k, n in cudaex.launch_counts().items() if n}
+        assert counts == {"attn_subblock": 1, "mlp_subblock": 1}, counts
+        plain = [a.clone() for a in args]
+        ref = tnn.decode_layer_subblocks(*[a.cpu() for a in plain], *[m.cpu() for m in mlp],
+                                         act="silu")
+        assert row_rel_err(out.cpu(), ref) <= 2e-2
+    finally:
+        quarantine.reset()

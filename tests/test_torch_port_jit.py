@@ -360,7 +360,7 @@ def test_transforms_and_modules_are_not_ported_yet():
     with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
         ptt.jit(f_scaled, transforms=[object()])
     with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
-        ptt.jit(torch.nn.Linear(2, 2))
+        ptt.jit(torch.nn.Linear(2, 2), seq_buckets=(8,))
 
 
 # ---------------------------------------------------------------------------

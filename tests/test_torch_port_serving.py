@@ -463,7 +463,7 @@ def test_port_imports_no_jax():
         "        'transforms.numerics_guard', 'serving.prefix_cache', 'serving.supervisor',\n"
         "        'serving.events', 'benchmarks.generate', 'models.mixtral', 'models.gpt',\n"
         "        'models.nanogpt', 'models.seq2seq', 'models.resnet', 'benchmarks.zoo',\n"
-        "        'benchmarks.f32_attention', 'core.transforms')]\n"
+        "        'benchmarks.f32_attention', 'core.transforms', 'torch.autograd_bridge')]\n"
         "missing = [m for m in need if m not in sys.modules]\n"
         "n = sum(m.startswith('thunder_tpu_torch') for m in sys.modules)\n"
         "print(n, bad, missing)\n"

@@ -48,8 +48,9 @@ single-card serving fleet and the model zoo:
   ``ops/`` read, and the numerics sentinel;
 - :mod:`thunder_tpu_torch.transforms.numerics_guard` — ``NumericsGuard``,
   the guarded train step (``pretrain.run(guard=...)``);
-- the trace compiler: :func:`jit` traces a PyTorch function into
-  printable, executable traces (:func:`last_traces`), runs DCE, CSE and the
+- the trace compiler: :func:`jit` traces a PyTorch function or an
+  ``nn.Module`` into printable, executable traces (:func:`last_traces`),
+  runs DCE, CSE and the
   epilogue pass, and hands ``rms_norm``, ``rms_norm_residual``,
   ``linear_act``, attention forward and backward, cross-entropy and the
   multi-tensor AdamW of CUDA tensors to the kernels
@@ -62,7 +63,13 @@ single-card serving fleet and the model zoo:
   is the save/load module) makes a trace-level rematerialized region,
   and ``jit(..., donate_argnums=)`` lets the optimizer write its donated
   inputs in place, so a whole train step
-  (``benchmarks.pretrain.jit_train_step``) compiles into one trace.
+  (``benchmarks.pretrain.jit_train_step``) compiles into one trace;
+  ``jit(module)`` (``ThunderModule``) and a ``jit`` function called on
+  tensors that require grad train through the torch-autograd bridge
+  (:func:`forward_and_backward_from_trace` splits the trace into a forward
+  and a backward program; ``loss.backward()`` runs the second), and
+  :func:`rematerialize_forward_and_backward` is the reference's min-cut
+  over such a pair.
 """
 
 from thunder_tpu_torch.devices import resolve_device  # noqa: F401
@@ -91,9 +98,10 @@ from thunder_tpu_torch.core.pytree import leaf_positions as _leaf_positions  # n
 from thunder_tpu_torch.core.pytree import tree_flatten as _tree_flatten  # noqa: E402
 from thunder_tpu_torch.core.pytree import tree_unflatten as _tree_unflatten  # noqa: E402
 from thunder_tpu_torch.core.rematerialization import (  # noqa: E402, F401
-    checkpoint as activation_checkpoint)
+    checkpoint as activation_checkpoint, rematerialize_forward_and_backward)
 from thunder_tpu_torch.core.trace import TraceCtx, tracectx as _tracectx  # noqa: E402
 from thunder_tpu_torch.core.transform_common import cse, dce  # noqa: E402
+from thunder_tpu_torch.core.transforms import forward_and_backward_from_trace  # noqa: E402, F401
 from thunder_tpu_torch.observe import registry as _observe  # noqa: E402
 from thunder_tpu_torch.runtime import faults as _faults  # noqa: E402
 from thunder_tpu_torch.runtime import quarantine as _quarantine  # noqa: E402
@@ -152,15 +160,82 @@ def _leaf_key(leaf):
     return ("O", type(leaf).__name__)
 
 
+@_contextmanager
+def _stage(pass_times: dict, name: str):
+    """Time one compile stage into ``pass_times`` (ms), under its span."""
+    t0 = _time.perf_counter_ns()
+    with _observe.span(name):
+        yield
+    pass_times[name] = pass_times.get(name, 0.0) + (_time.perf_counter_ns() - t0) / 1e6
+
+
+def execution_pipeline(trc: TraceCtx, executors, device, pass_times: dict,
+                       donated_names=frozenset()) -> tuple[list[TraceCtx], _Callable, bool]:
+    """The pipeline every generated program goes through: DCE, CSE, the
+    epilogue and claim passes (``transform_for_execution``), the in-place
+    writes of donated inputs, ``del`` insertion, and codegen. Each stage's
+    ms add into ``pass_times``. Returns the traces stage by stage (the
+    traced program, DCE, CSE, the execution trace, with ``del``s), the
+    generated callable, and whether it writes donated inputs in place."""
+    from thunder_tpu_torch.executors.passes import (
+        del_last_used, donate_in_place, transform_for_execution)
+
+    traces = [trc]
+    with _stage(pass_times, "dce+cse"):
+        trc = dce(trc)
+        traces.append(trc)
+        trc = dce(cse(trc))
+        trc.set_provenance("Common subexpression elimination")
+        traces.append(trc)
+    with _stage(pass_times, "transform_for_execution"), _devices.using_device(device):
+        exec_trc = transform_for_execution(trc, executors)
+        exec_trc, writes_donated = donate_in_place(exec_trc, set(donated_names))
+    traces.append(exec_trc)
+    with _stage(pass_times, "del_last_used"):
+        exec_trc = del_last_used(exec_trc)
+    traces.append(exec_trc)
+    with _stage(pass_times, "codegen"):
+        fn = exec_trc.python_callable()
+    return traces, fn, writes_donated
+
+
+def run_contained(fn: _Callable, inps, note: str | None = None):
+    """Run a generated program under ``torch.no_grad()`` (a trace carries
+    its own backward, so torch's autograd records nothing). A claimed kernel
+    that fails with a degradable error is quarantined, and the call raises
+    the fatal ``KernelExecutionError`` a rerun would end in: on the card a
+    quarantined claim's router raises it, as the port runs no decomposition
+    there. A fatal error (a sticky CUDA error leaves the context unusable; a
+    claim already quarantined) quarantines nothing and propagates. ``note``
+    is added to any error that escapes."""
+    try:
+        try:
+            with _torch.no_grad():
+                return fn(*inps)
+        except KernelExecutionError as err:
+            if _retry.classify(err) != _retry.DEGRADABLE:
+                raise
+            _quarantine.get_quarantine().add(err.claim_id, reason=repr(err.__cause__ or err),
+                                             phase=err.phase)
+            raise KernelExecutionError(err.claim_id, _faults.QUARANTINED) from err
+    except Exception as err:
+        if note:
+            err.add_note(note)
+        raise
+
+
 class ThunderTPUFunction:
-    """The compiled-function wrapper :func:`jit` returns.
+    """The compiled-function wrapper :func:`jit` builds on (the torch front
+    end's function wrapper and ``ThunderModule`` extend it).
 
     A call flattens its arguments, looks the entry up by the guard key
     (the tree structure, each leaf's shape, dtype and device or its constant
     value, the default device, the quarantine epoch and the active fault
     plan), compiles on a miss and runs the entry's generated program under
     ``torch.no_grad()``: a trace carries its own backward
-    (:func:`value_and_grad`), so torch's autograd records nothing. numpy
+    (:func:`value_and_grad`), so torch's autograd records nothing (a call
+    that torch's autograd must record goes through the torch-autograd
+    bridge instead, :mod:`thunder_tpu_torch.torch.autograd_bridge`). numpy
     arrays are taken to the default device first; torch tensors run where
     they are. The tensor leaves of the positional arguments in
     ``donate_argnums`` are donated: the program may write them in place
@@ -197,11 +272,13 @@ class ThunderTPUFunction:
                     for x in flat]
         return flat, treedef
 
-    def _entry_for(self, args, kwargs):
+    def _entry_for(self, args, kwargs, extra: tuple = ()):
+        """The cache entry of a call, compiled on a miss; ``extra`` joins the
+        guard key (the alias pattern of a call through the torch front end)."""
         flat, treedef = self._flatten(args, kwargs)
         plan = _faults.active_plan()
         key = (treedef, _quarantine.epoch(), id(plan) if plan is not None else None,
-               self._default_device(), tuple(_leaf_key(x) for x in flat))
+               self._default_device(), tuple(_leaf_key(x) for x in flat), extra)
         entry = self._cache.get(key)
         if entry is None:
             self._stats.cache_misses += 1
@@ -225,33 +302,16 @@ class ThunderTPUFunction:
         return self._run_contained(entry, [flat[i] for i in entry.tensor_indices])
 
     def _run_contained(self, entry, inps):
-        """Run an entry's program. A claimed kernel that fails with a
-        degradable error is quarantined, and the call raises the fatal
-        ``KernelExecutionError`` a rerun would end in: on the card a
-        quarantined claim's router raises it, as the port runs no
-        decomposition there. A fatal error (a sticky CUDA error leaves the
-        context unusable; a claim already quarantined) quarantines nothing
-        and propagates. Where the program writes donated inputs in place,
-        the error says that their values are undefined."""
-        try:
-            try:
-                with _torch.no_grad():
-                    return entry.computation_fn(*inps)
-            except KernelExecutionError as err:
-                if _retry.classify(err) != _retry.DEGRADABLE:
-                    raise
-                _quarantine.get_quarantine().add(err.claim_id,
-                                                 reason=repr(err.__cause__ or err),
-                                                 phase=err.phase)
-                raise KernelExecutionError(err.claim_id, _faults.QUARANTINED) from err
-        except Exception as err:
-            if entry.writes_donated:
-                err.add_note(
-                    f"{self.fn_name} writes its donated inputs (donate_argnums="
+        """Run an entry's program (:func:`run_contained`). Where the program
+        writes donated inputs in place, an error says that their values are
+        undefined."""
+        note = None
+        if entry.writes_donated:
+            note = (f"{self.fn_name} writes its donated inputs (donate_argnums="
                     f"{self.donate_argnums}) in place: after a failure their values are "
                     f"undefined; restore them from a checkpoint, or jit without donation "
                     f"to keep them")
-            raise
+        return run_contained(entry.computation_fn, inps, note=note)
 
     def bind(self, *args, **kwargs):
         """Compile for these inputs and return a callable bound to that one
@@ -326,37 +386,14 @@ class ThunderTPUFunction:
         return entry
 
     def _compile_instrumented(self, flat, treedef, pass_times, donated) -> CacheEntry:
-        from thunder_tpu_torch.executors.passes import (
-            del_last_used, donate_in_place, transform_for_execution)
-
-        @_contextmanager
-        def stage(name):
-            t0 = _time.perf_counter_ns()
-            with _observe.span(name):
-                yield
-            pass_times[name] = (_time.perf_counter_ns() - t0) / 1e6
-
-        with stage("trace"):
+        with _stage(pass_times, "trace"):
             trc, tensor_indices = self._trace(flat, treedef)
-        traces = [trc]
-        with stage("prologue"):
+        with _stage(pass_times, "prologue"):
             prologue = self._build_prologue(flat)
-        with stage("dce+cse"):
-            trc = dce(trc)
-            traces.append(trc)
-            trc = dce(cse(trc))
-            trc.set_provenance("Common subexpression elimination")
-            traces.append(trc)
-        with stage("transform_for_execution"), _devices.using_device(self._default_device()):
-            exec_trc = transform_for_execution(trc, self.executors)
-            donated_names = {p.name for i, p in zip(tensor_indices, trc.args) if i in donated}
-            exec_trc, writes_donated = donate_in_place(exec_trc, donated_names)
-        traces.append(exec_trc)
-        with stage("del_last_used"):
-            exec_trc = del_last_used(exec_trc)
-        traces.append(exec_trc)
-        with stage("codegen"):
-            computation_fn = exec_trc.python_callable()
+        donated_names = {p.name for i, p in zip(tensor_indices, trc.args) if i in donated}
+        traces, computation_fn, writes_donated = execution_pipeline(
+            trc, self.executors, self._default_device(), pass_times, donated_names)
+        with _stage(pass_times, "codegen"):
             prologue_fn = prologue.python_callable()
         prologue_fn(*flat)   # the guards hold on the inputs they were built from
         entry = CacheEntry(computation_fn, tensor_indices, traces, prologue, prologue_fn,
@@ -375,18 +412,27 @@ class ThunderTPUFunction:
         return self._stats.cache_misses
 
 
-def jit(fn: _Callable | None = None, **jit_kwargs) -> ThunderTPUFunction:
-    """Compile a PyTorch function: trace -> DCE/CSE -> the epilogue pass ->
-    the claim pass -> ``del`` insertion -> a generated Python program,
-    cached by the guard key. ``device=`` sets the default device (``cuda``
-    unless given) for what has none of its own. ``donate_argnums=`` (the
-    reference's option) donates the tensor leaves of those positional
-    arguments: the program may update them in place. The executor stack is
-    ``cuda`` then the always-on ``torch`` executor. The function is traced
-    through the torch front end
+def jit(fn=None, **jit_kwargs):
+    """Compile a PyTorch function or ``nn.Module``: trace -> DCE/CSE -> the
+    epilogue pass -> the claim pass -> ``del`` insertion -> a generated
+    Python program, cached by the guard key. ``device=`` sets the default
+    device (``cuda`` unless given) for what has none of its own.
+    ``donate_argnums=`` (the reference's option) donates the tensor leaves
+    of those positional arguments: the program may update them in place.
+    The executor stack is ``cuda`` then the always-on ``torch`` executor.
+    The function is traced through the torch front end
     (:mod:`thunder_tpu_torch.torch`): torch, ``torch.nn.functional`` and
-    tensor-method calls, and the routers of ``ops/``, record ops. An
-    ``nn.Module`` is not taken yet (ROADMAP A.7)."""
+    tensor-method calls, the routers of ``ops/``, a user's
+    ``torch.autograd.Function`` and ``torch.utils.checkpoint`` record ops.
+
+    A call with grad enabled and an input that requires grad runs through
+    the torch-autograd bridge: its outputs are tracked by torch's autograd,
+    and ``loss.backward()`` runs the compiled backward
+    (``torch_autograd=False`` opts out). An ``nn.Module`` gives a
+    ``ThunderModule``: called, it traces the module with its parameters
+    and buffers as inputs, read from the live module at every call, so an
+    unmodified training loop (``loss = tm(x); loss.backward();
+    opt.step()``) trains it through the claimed kernels."""
     if fn is None:
         return lambda f: jit(f, **jit_kwargs)
     from thunder_tpu_torch.torch import jit as _torch_jit
@@ -419,6 +465,7 @@ def grad(fn: _Callable, argnums=0) -> _Callable:
 
 
 def _as_tfn(x) -> ThunderTPUFunction:
+    x = getattr(x, "_jfn", x)   # a ThunderModule: its grad-free program's function
     _check(isinstance(x, ThunderTPUFunction), "expected a thunder_tpu_torch.jit-compiled function")
     return x
 

@@ -11,10 +11,13 @@ cross-entropy, a checkpointed region) keeps its claimable form.
 
 :func:`inline_value_and_grad` differentiates a function inside the trace
 being built, so a whole train step (forward, backward, optimizer) compiles
-into one trace. The reference's ``forward_and_backward_from_trace`` (the
-split forward/backward traces of ``jit(nn.Module)``, with the min-cut) and
-its forward mode and batching (``jvp_call``, ``vmap_call``) are not ported
-yet (ROADMAP A.7).
+into one trace. :func:`forward_and_backward_from_trace` splits a traced
+computation into an augmented forward and a backward program, the two
+halves the torch-autograd bridge runs (``torch/autograd_bridge.py``); the
+min-cut that shrinks what passes between them is
+``core.rematerialization.rematerialize_forward_and_backward``. The
+reference's forward mode and batching (``jvp_call``, ``vmap_call``) are not
+ported yet (ROADMAP A.7.7).
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ from thunder_tpu_torch.core.prims import PrimIDs
 from thunder_tpu_torch.core.proxies import Proxy, TensorProxy, Variable
 from thunder_tpu_torch.core.pytree import leaf_positions, tree_flatten, tree_map, tree_unflatten
 from thunder_tpu_torch.core.symbol import BoundSymbol
-from thunder_tpu_torch.core.trace import TraceCtx, get_tracectx, tracectx
+from thunder_tpu_torch.core.trace import TraceCtx, from_trace, get_tracectx, tracectx
 from thunder_tpu_torch.core.utils import free_vars
 
 _SKIP_IDS = (PrimIDs.PYTHON_RETURN, PrimIDs.COMMENT, PrimIDs.PYTHON_DEL)
@@ -314,6 +317,61 @@ def inline_value_and_grad(fn, argnums=0, has_aux: bool = False):
         return ((loss, aux), gout) if has_aux else (loss, gout)
 
     return transformed
+
+
+def forward_and_backward_from_trace(trc: TraceCtx, needs_grad: Sequence[bool] | None = None
+                                    ) -> tuple[TraceCtx, TraceCtx, list]:
+    """Split a computation trace into an augmented forward trace returning
+    ``(outputs, saved_for_backward)`` and a backward trace
+    ``(saved_for_backward..., cotangents...) -> grads``, one gradient (or
+    None) per input of ``trc``. There is one cotangent per float tensor
+    leaf of the outputs, in flatten order; a proxy that fills several output
+    slots accumulates their cotangents. ``needs_grad`` (one flag per input
+    of ``trc``) leaves out the gradients nobody takes: the backward returns
+    None for those inputs, computes none of their work, and the forward
+    saves only what the rest reads."""
+    from thunder_tpu_torch import ops
+    from thunder_tpu_torch.core.transform_common import dce
+
+    # the reference plans its block megakernels here, before the pullback
+    # replay (plan_blocks_for_autodiff); block fusion is ROADMAP A.7.3
+    fwd = from_trace(trc)
+    fwd.fn_name = "augmented_forward"
+    env: dict = {Variable(p): p for p in trc.args}
+    with tracectx(fwd):
+        records = augmented_forward(trc.bound_symbols, env)
+        out = _env_map(env, trc.output)
+    out_flat = [o for o in tree_flatten(out)[0] if _is_float_tensor(o)]
+
+    bwd = TraceCtx("backward")
+    bwd._names = set(fwd._names)
+    bwd._counters = dict(fwd._counters)
+    with tracectx(bwd):
+        cotangents = [TensorProxy(f"ct{i}", shape=o.shape, dtype=o.dtype, device=o.device)
+                      for i, o in enumerate(out_flat)]
+        grads: dict[Variable, Any] = {}
+        for o, ct in zip(out_flat, cotangents):
+            v = Variable(o)
+            grads[v] = ops.add(grads[v], ct) if v in grads else ct
+        backward_pass(records, grads)
+        wanted = needs_grad if needs_grad is not None else [True] * len(trc.args)
+        input_grads = tuple(grads.get(Variable(p)) if isinstance(p, TensorProxy) and want
+                            else None for p, want in zip(trc.args, wanted, strict=True))
+        prims.python_return(input_grads)
+    bwd.output = input_grads
+    if needs_grad is not None:
+        bwd = dce(bwd)
+
+    # saved for the backward: what it reads and does not make, cotangents aside
+    ct_names = {c.name for c in cotangents}
+    saved = [v.proxy for v in free_vars(bwd.bound_symbols) if v.proxy.name not in ct_names]
+    bwd.args = list(saved) + list(cotangents)
+    with tracectx(fwd):
+        prims.python_return((out, tuple(saved)))
+    fwd.output = (out, tuple(saved))
+    fwd.set_provenance("Augmented forward pass")
+    bwd.set_provenance("Backward pass")
+    return fwd, bwd, saved
 
 
 # ---------------------------------------------------------------------------

@@ -39,11 +39,17 @@ here does) and raises the reason before any launch. :func:`refusal` gives
 that reason (None where the kernel takes the arguments) for any kernel by
 name, called with its wrapper's arguments: the counterpart of pallasex's
 ``_*_checker`` functions, except that on the card a refusal is an error,
-never a fallback to the plain version. A build failure raises
-``runtime.faults.KernelBuildError`` (no single kernel is at fault: every
-kernel shares the one build) and a launch that returns a CUDA error
-``runtime.faults.KernelLaunchError``, the one failure the routers' kernel
-guard attributes to the kernel's claim.
+never a fallback to the plain version. A build that cannot start (no
+card, no ``nvcc``) or in which every source fails raises
+``runtime.faults.KernelBuildError`` for the whole set: no single kernel is
+at fault, and it is fatal. A source that fails while others build stops
+only its own kernels: :func:`build` binds every library that compiled and
+keeps the ``nvcc`` log of the failed source against its kernels
+(:func:`build_failures`), and such a kernel raises a ``KernelBuildError``
+naming it (``.kernel``) at its first launch, which the routers' kernel
+guard attributes to the kernel's claim, as it does a launch that returns a
+CUDA error (``runtime.faults.KernelLaunchError``): the quarantine then
+takes the kernel rung below it, where there is one.
 
 Wrappers: outputs are allocated with ``torch.empty``; the kernel runs on
 ``torch.cuda.current_stream()`` and does not synchronise. Every wrapper adds
@@ -116,6 +122,7 @@ class Kernel:
     launches: int = 0
     designs: dict = field(default_factory=dict)   # launches by design, where it has several
     fn: object = field(default=None, repr=False)
+    build_error: str | None = field(default=None, repr=False)   # its source's nvcc log
 
 
 _ADAMW_ARGS = (_P, _I, _L, _P, _P) + (_F,) * 7 + (_I, _I, _I, _I, _I, _P)
@@ -344,12 +351,14 @@ def build() -> dict[str, float]:
     """Compile (or load from ``_build/``) every kernel and bind its entry
     point. Returns the seconds each source took to compile (0.0 for a
     library found already built). Raises when there is no CUDA card, when
-    ``nvcc`` is missing, or when a source does not compile."""
+    ``nvcc`` is missing, or when no source compiles. A source that fails
+    while others compile raises nothing here: its kernels keep its log
+    (:func:`build_failures`) and raise at their first launch."""
     if not torch.cuda.is_available():
         raise KernelBuildError("thunder_tpu_torch kernels need a CUDA device; "
                            "none is available")
     with _build_lock:
-        if all(k.fn is not None for k in KERNELS.values()):
+        if all(k.fn is not None or k.build_error is not None for k in KERNELS.values()):
             return {Path(k.source).stem: 0.0 for k in KERNELS.values()}
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         key = _source_key()
@@ -365,31 +374,46 @@ def build() -> dict[str, float]:
             procs[stem] = (tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
         seconds = {stem: 0.0 for stem in libs}
-        errors = []
+        errors = {}
         for stem, (tmp, p) in procs.items():
             log, _ = p.communicate()
             seconds[stem] = time.perf_counter() - t0
             if p.returncode != 0:
-                errors.append(f"{stem}: nvcc exited {p.returncode}\n{log}")
+                errors[stem] = f"{stem}: nvcc exited {p.returncode}\n{log}"
             else:
                 os.replace(tmp, libs[stem])
-        if errors:
-            raise KernelBuildError("kernel build failed:\n" + "\n".join(errors))
+        if errors and len(errors) == len(libs):
+            # the toolchain fails on every source: no kernel is at fault
+            raise KernelBuildError("kernel build failed:\n" + "\n".join(errors.values()))
         for k in KERNELS.values():
+            stem = Path(k.source).stem
+            if stem in errors:
+                k.build_error = errors[stem]
+                continue
             try:
-                fn = getattr(ctypes.CDLL(str(libs[Path(k.source).stem])), k.symbol)
+                fn = getattr(ctypes.CDLL(str(libs[stem])), k.symbol)
             except (OSError, AttributeError) as e:
-                raise KernelBuildError(f"{k.name}: cannot bind {k.symbol}: {e}") from e
+                k.build_error = f"{k.name}: cannot bind {k.symbol}: {e}"
+                continue
             fn.argtypes = list(k.argtypes)
             fn.restype = ctypes.c_int
             k.fn = fn
         return seconds
 
 
+def build_failures() -> dict[str, str]:
+    """The kernels whose source did not build (or whose entry point did not
+    bind), each with its log; empty when every kernel is bound."""
+    return {name: k.build_error for name, k in KERNELS.items() if k.build_error is not None}
+
+
 def _launch(name: str, *args, design: str | None = None) -> None:
     k = KERNELS[name]
     if k.fn is None:
         build()
+        if k.fn is None:
+            raise KernelBuildError(f"{name}: its source {k.source} did not build, so this "
+                                   f"kernel cannot launch:\n{k.build_error}", kernel=name)
     rc = k.fn(*args)
     if rc != 0:
         raise KernelLaunchError(f"{k.name}: kernel launch failed with CUDA error {rc}")

@@ -77,8 +77,9 @@ class KernelExecutionError(RuntimeError):
     the caller can quarantine exactly that kernel and run the step again on
     the next rung down instead of taking the job down.
 
-    ``phase`` is ``"runtime"`` for every failure the port's guard
-    attributes (PyTorch runs eagerly: there is no compile phase), and
+    ``phase`` is ``"runtime"`` for a failed launch or an injected fault
+    (PyTorch runs eagerly: there is no compile phase), ``"build"`` for a
+    kernel whose own source did not build, and
     :data:`QUARANTINED` when a router was called on the card while the
     quarantine routes its kernel off and no kernel rung lies below it: the
     port never runs a plain version on the card, so that error is fatal
@@ -104,9 +105,16 @@ class KernelLaunchError(RuntimeError):
 
 
 class KernelBuildError(RuntimeError):
-    """The kernels could not be built or bound (no CUDA card, no ``nvcc``,
-    a source that does not compile). Every kernel shares the one build, so
-    no single claim is at fault: it propagates unattributed and is fatal."""
+    """A kernel could not be built or bound. With ``kernel`` None the whole
+    build failed (no CUDA card, no ``nvcc``, no source compiles): no single
+    claim is at fault, it propagates unattributed and is fatal. With
+    ``kernel`` set, that kernel's source failed while the others built:
+    :func:`kernel_guard` attributes it to the kernel's claim (phase
+    ``"build"``), so the quarantine takes the rung below it."""
+
+    def __init__(self, msg: str, kernel: str | None = None):
+        super().__init__(msg)
+        self.kernel = kernel
 
 
 class FaultSpec:
@@ -312,18 +320,21 @@ def kernel_guard(claim_id: str, fn: Callable) -> Callable:
 
     1. fault hook for the ``kernel:<claim_id>`` injection domain, and
        ``numerics:kernel:<claim_id>`` output poisoning;
-    2. failure attribution — a failed launch (:class:`KernelLaunchError`)
-       or an injected fault escaping the router is re-raised as
-       :class:`KernelExecutionError` carrying ``claim_id``, so the caller
-       can quarantine the kernel and take the next rung down;
+    2. failure attribution — a failed launch (:class:`KernelLaunchError`),
+       a kernel whose own source did not build (a :class:`KernelBuildError`
+       naming it; phase ``"build"``) or an injected fault escaping the
+       router is re-raised as :class:`KernelExecutionError` carrying
+       ``claim_id``, so the caller can quarantine the kernel and take the
+       next rung down;
     3. a per-claim call count (:func:`claim_calls`).
 
     Every other exception passes through unchanged and never enters the
     quarantine: a refusal (the ``ValueError`` a wrapper raises on inputs its
-    kernel does not take, ``cudaex.refusal``) is the caller's error; a build
-    failure (:class:`KernelBuildError`), an allocation failure or a shape
-    error is no fault of this kernel's code; an error a nested guard
-    already attributed keeps its claim.
+    kernel does not take, ``cudaex.refusal``) is the caller's error; a
+    failure of the whole build (a :class:`KernelBuildError` naming no
+    kernel), an allocation failure or a shape error is no fault of this
+    kernel's code; an error a nested guard already attributed keeps its
+    claim.
     """
     domain = f"kernel:{claim_id}"
     numerics_domain = f"numerics:{domain}"
@@ -344,6 +355,10 @@ def kernel_guard(claim_id: str, fn: Callable) -> Callable:
             return out
         except (KernelLaunchError, InjectedFault) as e:
             raise KernelExecutionError(claim_id, phase="runtime", cause=e) from e
+        except KernelBuildError as e:
+            if e.kernel is None:
+                raise
+            raise KernelExecutionError(claim_id, phase="build", cause=e) from e
 
     guarded.__wrapped__ = fn
     guarded.claim_id = claim_id

@@ -17,7 +17,9 @@ and take the next kernel rung down:
   raises a fatal ``KernelExecutionError`` (the port runs no plain version
   there); on the CPU it runs its plain version, as it always does there.
 
-A refusal (``cudaex.refusal``), a build failure or an allocation failure
+A kernel whose own source did not build (``cudaex.build_failures``) is
+quarantined like a failed launch, at its first launch. A refusal
+(``cudaex.refusal``), a failure of the whole build or an allocation failure
 never enters the quarantine.
 
 Persistence: :func:`configure` points the quarantine at a directory; the set

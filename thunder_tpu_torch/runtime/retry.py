@@ -9,12 +9,13 @@ plus the exception classifier that decides what a failure *means*:
   *sticky* CUDA error: an illegal address, a trap, a launch failure
   leaves the CUDA context unusable, so nothing in this process can run a
   kernel again — restarting the process is the supervisor's work; a
-  kernel build failure; a device allocation failure; and a quarantined
+  failure of the whole kernel build; a device allocation failure; and a quarantined
   kernel called on the card, where no plain version may stand in);
   re-raise immediately.
 - ``degradable`` — the failure names a component that can be disabled
   (:class:`~thunder_tpu_torch.runtime.faults.KernelExecutionError` carries a
-  claim id): quarantine it and run on the next rung down rather than
+  claim id; a ``KernelBuildError`` names the one kernel whose source did
+  not build): quarantine it and run on the next rung down rather than
   retrying the same kernel.
 
 :class:`RestartBudget` is the sliding-window restart counter the supervisor
@@ -74,7 +75,11 @@ def classify(exc: BaseException) -> str:
         return FATAL
     if is_sticky_cuda_error(exc):
         return FATAL
-    if isinstance(exc, (KernelBuildError, torch.cuda.OutOfMemoryError)):
+    if isinstance(exc, KernelBuildError):
+        # one kernel's source failed: degradable for its claim; the whole
+        # build failing (no card, no nvcc, no source compiles) is fatal
+        return FATAL if exc.kernel is None else DEGRADABLE
+    if isinstance(exc, torch.cuda.OutOfMemoryError):
         return FATAL
     if isinstance(exc, KernelExecutionError):
         return FATAL if exc.phase == QUARANTINED else DEGRADABLE

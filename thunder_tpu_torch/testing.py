@@ -1,5 +1,6 @@
 """Comparison helpers for holding a kernel against its plain version, the
-plain-PyTorch Llama layer the trace compiler is held on, and the count of a
+plain-PyTorch Llama layer and module the trace compiler is held on
+(:func:`plain_llama_layer`, :class:`PlainLlama`), and the count of a
 ``jit`` call's launches against its trace's claims, shared by the port's
 tests and ``chip_smoke.py``."""
 
@@ -113,12 +114,14 @@ def rms_residual_fault(h: torch.Tensor, weight, eps: float, left_out: int) -> to
 
 
 def plain_llama_layer(x, attn_norm, wq, wk, wv, wo, mlp_norm, w_gate, w_up, w_down, *,
-                      n_heads: int, n_kv: int, eps: float = 1e-5):
+                      n_heads: int, n_kv: int, eps: float = 1e-5, cos=None, sin=None):
     """One Llama layer written in plain PyTorch (``F.rms_norm``,
     ``F.linear``, ``F.silu``, ``F.scaled_dot_product_attention``, the
     residual adds), none of the port's routers: under ``jit`` the compiler
     has to find its kernels itself. x (B, T, D); grouped-query k and v are
-    expanded to the query heads."""
+    expanded to the query heads. ``cos``/``sin`` (T, hd/2), where given,
+    rotate q and k as the port's Llama does (``models.llama._apply_rope``,
+    the GPT-NeoX half rotation)."""
     import torch.nn.functional as F
 
     B, T, D = x.shape
@@ -127,12 +130,96 @@ def plain_llama_layer(x, attn_norm, wq, wk, wv, wo, mlp_norm, w_gate, w_up, w_do
     q = F.linear(n, wq).view(B, T, n_heads, hd).transpose(1, 2)
     k = F.linear(n, wk).view(B, T, n_kv, hd).transpose(1, 2)
     v = F.linear(n, wv).view(B, T, n_kv, hd).transpose(1, 2)
+    if cos is not None:
+        from thunder_tpu_torch.models.llama import _apply_rope
+
+        q, k = _apply_rope(q, cos, sin), _apply_rope(k, cos, sin)
     k = k.unsqueeze(2).expand(B, n_kv, rep, T, hd).reshape(B, n_heads, T, hd)
     v = v.unsqueeze(2).expand(B, n_kv, rep, T, hd).reshape(B, n_heads, T, hd)
     a = F.scaled_dot_product_attention(q, k, v, is_causal=True)
     h = x + F.linear(a.transpose(1, 2).reshape(B, T, D), wo)
     m = F.rms_norm(h, (D,), mlp_norm, eps=eps)
     return h + F.linear(F.silu(F.linear(m, w_gate)) * F.linear(m, w_up), w_down)
+
+
+class PlainLlamaLayer(torch.nn.Module):
+    """A Llama decoder layer as an ``nn.Module``: bias-free ``nn.Linear``
+    projections and ``nn.Parameter`` norm weights around
+    :func:`plain_llama_layer`."""
+
+    def __init__(self, cfg, device=None, dtype=None):
+        super().__init__()
+        D, Fd = cfg.dim, cfg.intermediate_size
+        kv_dim = cfg.kv_heads * cfg.head_dim
+        kw = {"device": device, "dtype": dtype, "bias": False}
+        self.n_heads, self.n_kv, self.eps = cfg.n_heads, cfg.kv_heads, cfg.norm_eps
+        self.attn_norm = torch.nn.Parameter(torch.ones(D, device=device, dtype=dtype))
+        self.wq, self.wk = torch.nn.Linear(D, D, **kw), torch.nn.Linear(D, kv_dim, **kw)
+        self.wv, self.wo = torch.nn.Linear(D, kv_dim, **kw), torch.nn.Linear(D, D, **kw)
+        self.mlp_norm = torch.nn.Parameter(torch.ones(D, device=device, dtype=dtype))
+        self.w_gate, self.w_up = torch.nn.Linear(D, Fd, **kw), torch.nn.Linear(D, Fd, **kw)
+        self.w_down = torch.nn.Linear(Fd, D, **kw)
+
+    def forward(self, x, cos, sin):
+        return plain_llama_layer(
+            x, self.attn_norm, self.wq.weight, self.wk.weight, self.wv.weight, self.wo.weight,
+            self.mlp_norm, self.w_gate.weight, self.w_up.weight, self.w_down.weight,
+            n_heads=self.n_heads, n_kv=self.n_kv, eps=self.eps, cos=cos, sin=sin)
+
+
+class PlainLlama(torch.nn.Module):
+    """A Llama language model written in plain PyTorch, the module a user
+    would hand to ``jit``: ``nn.Embedding``, :class:`PlainLlamaLayer`\\ s,
+    a final ``F.rms_norm`` and a bias-free ``nn.Linear`` head; the rope
+    tables in torch ops (``models.llama``'s); ``forward(tokens, targets)``
+    is the mean next-token ``F.cross_entropy`` of float32 logits,
+    ``models.llama.loss_fn``'s loss. None of the port's routers: under
+    ``jit`` the compiler finds the kernels itself. A test fixture (the
+    card-side stand-in for a Hugging Face model), not a model of the zoo."""
+
+    def __init__(self, cfg, n_layers: int | None = None, device=None):
+        super().__init__()
+        self.cfg = cfg
+        n_layers = cfg.n_layers if n_layers is None else n_layers
+        kw = {"device": device, "dtype": cfg.dtype}
+        self.tok_embedding = torch.nn.Embedding(cfg.vocab_size, cfg.dim, **kw)
+        self.layers = torch.nn.ModuleList(PlainLlamaLayer(cfg, **kw) for _ in range(n_layers))
+        self.norm_f = torch.nn.Parameter(torch.ones(cfg.dim, **kw))
+        self.lm_head = torch.nn.Linear(cfg.dim, cfg.vocab_size, bias=False, **kw)
+
+    @classmethod
+    def from_llama_params(cls, cfg, params: dict) -> "PlainLlama":
+        """The module holding copies of ``models.llama.init_params``'s tensors
+        (built on the meta device, then filled), on their device: it
+        computes ``llama.loss_fn(params, ...)``."""
+        m = cls(cfg, n_layers=len(params["layers"]), device="meta")
+
+        def put(mod, name, t):
+            setattr(mod, name, torch.nn.Parameter(t.detach().clone()))
+
+        put(m.tok_embedding, "weight", params["tok_embedding"])
+        put(m, "norm_f", params["norm_f"])
+        put(m.lm_head, "weight", params["lm_head"])
+        for layer, p in zip(m.layers, params["layers"]):
+            for k in ("attn_norm", "mlp_norm"):
+                put(layer, k, p[k])
+            for k in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
+                put(getattr(layer, k), "weight", p[k])
+        return m
+
+    def forward(self, tokens, targets):
+        import torch.nn.functional as F
+
+        from thunder_tpu_torch.models.llama import _rope_cos_sin
+
+        h = self.tok_embedding(tokens.long())
+        B, T, D = h.shape
+        cos, sin = _rope_cos_sin(self.cfg, T, h.dtype, device=tokens.device)
+        for layer in self.layers:
+            h = layer(h, cos, sin)
+        logits = self.lm_head(F.rms_norm(h, (D,), self.norm_f, eps=self.cfg.norm_eps))
+        return F.cross_entropy(logits.reshape(B * T, self.cfg.vocab_size).float(),
+                               targets.reshape(B * T))
 
 
 def claimed_kernels(trc) -> dict[str, int]:

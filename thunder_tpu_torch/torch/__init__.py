@@ -15,10 +15,22 @@ written. In-place tensor methods (``add_``, ``copy_``, ``x[i] = v``) are
 functionalized while tracing: the wrapper rebinds its proxy to the
 out-of-place result, so traces are pure SSA.
 
-:func:`jit` is the function path of the reference's ``jit`` (:2110). The
-reference's ``nn.Module`` path (``ThunderModule``, ``functional_call``),
-its autograd bridge, the ``autograd.Function``/``checkpoint`` lookasides and
-the vmap shim are not ported yet (ROADMAP A.7); neither is most of the map.
+:func:`jit` is the reference's ``jit`` (:2110): a function gives a
+:class:`ThunderTorchFunction`, an ``nn.Module`` a :class:`ThunderModule`
+(traced with its parameters and buffers as inputs through
+:func:`trace_torch_module`; :func:`functional_call` is the same trace
+inside a traced function). A call with grad enabled and an input that
+requires grad runs through the torch-autograd bridge
+(:mod:`thunder_tpu_torch.torch.autograd_bridge`), so ``loss.backward()``
+and a stock ``torch.optim`` train through the compiled programs. While a
+trace runs, a user's ``torch.autograd.Function`` records its ``forward`` as
+a composite whose VJP rule is the user's ``backward``, and
+``torch.utils.checkpoint.checkpoint`` records a trace-level checkpointed
+region (the lookasides, patched in by :class:`_TraceMode` and restored
+after). The alias audit (:func:`_alias_pattern`) keys the cache by the
+inputs' overlapping storage and raises :class:`AliasedInputMutationError`
+on an in-place write through an input that overlaps another. The vmap shim
+and most of the map are not ported yet (ROADMAP A.7.7).
 
 :func:`on_proxies` and :func:`on_torch` adapt torch-level functions to the
 proxy-level trace transforms and back (``thunder_tpu_torch.value_and_grad``,
@@ -30,23 +42,27 @@ branches on it (``ops.nn._needs_grad``) takes its training branch.
 
 from __future__ import annotations
 
+import itertools
+from contextlib import contextmanager
+from contextvars import ContextVar
 from typing import Any, Callable
 
 import torch
 import torch.nn.functional as F
 from torch.overrides import TorchFunctionMode
 
-from thunder_tpu_torch import ops
+from thunder_tpu_torch import ThunderTPUFunction, ops
 from thunder_tpu_torch.core import dtypes
 from thunder_tpu_torch.core.baseutils import check
 from thunder_tpu_torch.core.devices import device_string
 from thunder_tpu_torch.core.proxies import Proxy, TensorProxy
-from thunder_tpu_torch.core.pytree import tree_map
+from thunder_tpu_torch.core.pytree import tree_flatten, tree_map, tree_unflatten
 from thunder_tpu_torch.ops import composites as cnn
 from thunder_tpu_torch.ops import nn as tnn
 
 __all__ = ["TorchProxy", "jit", "register_torch_op", "_torch_to_thunder_function_map",
-           "on_proxies", "on_torch"]
+           "on_proxies", "on_torch", "ThunderModule", "ThunderTorchFunction", "functional_call",
+           "trace_torch_module", "AliasedInputMutationError"]
 
 # ---------------------------------------------------------------------------
 # the function map + dispatch
@@ -112,13 +128,30 @@ def _dispatch(func, args, kwargs):
 class _TraceMode(TorchFunctionMode):
     """Active while a torch function is traced: routes every torch call that
     involves a :class:`TorchProxy`, and the factories, into the map; every
-    other call (real tensors only) runs as it is."""
+    other call (real tensors only) runs as it is. While it is active,
+    ``torch.autograd.Function.apply`` and ``torch.utils.checkpoint.checkpoint``
+    are the lookasides (:func:`_patch_trace_lookasides`): process-wide
+    patches, so tracing is single-threaded, as ``torch.jit.trace`` is."""
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         if _has_wrapper(args, kwargs) or func in _FACTORY_FUNCTIONS:
             return _dispatch(func, args, kwargs)
         return func(*args, **kwargs)
+
+    def __enter__(self):
+        _patch_trace_lookasides()
+        try:
+            return super().__enter__()
+        except BaseException:
+            _unpatch_trace_lookasides()
+            raise
+
+    def __exit__(self, *exc):
+        try:
+            return super().__exit__(*exc)
+        finally:
+            _unpatch_trace_lookasides()
 
 
 # ---------------------------------------------------------------------------
@@ -131,10 +164,11 @@ class TorchProxy:
     In-place methods rebind ``_p`` (functionalization). ``device`` and
     ``is_cuda`` report the proxy's real device."""
 
-    __slots__ = ("_p",)
+    __slots__ = ("_p", "_orig_p")
 
     def __init__(self, p: TensorProxy):
         object.__setattr__(self, "_p", p)
+        object.__setattr__(self, "_orig_p", p)   # an in-place write rebinds _p alone
 
     @classmethod
     def __torch_function__(cls, func, types, args=(), kwargs=None):
@@ -747,7 +781,7 @@ for _dunder, _op in {"__add__": ops.add, "__sub__": ops.sub, "__mul__": ops.mul,
 
 
 # ---------------------------------------------------------------------------
-# jit: the function path
+# adapters between torch-level functions and the proxy-level transforms
 # ---------------------------------------------------------------------------
 
 def _unwrap_out(out):
@@ -776,20 +810,640 @@ def on_torch(transformed):
     return outer
 
 
+# ---------------------------------------------------------------------------
+# the torch.autograd.Function and torch.utils.checkpoint lookasides
+# ---------------------------------------------------------------------------
+
+class _TraceFunctionCtx:
+    """Stand-in for ``FunctionCtx`` while a user's ``torch.autograd.Function``
+    is traced: records what ``save_for_backward`` saves and the tensors set
+    as plain attributes (``ctx.x = x``); the same object is handed to the
+    user's ``backward`` with those swapped for the values the pullback
+    replays."""
+
+    def __init__(self, needs_input_grad=()):
+        object.__setattr__(self, "_tensor_attrs", {})
+        self._to_save = ()
+        self._materialize_grads = True
+        self.needs_input_grad = tuple(needs_input_grad)
+
+    def __setattr__(self, name, value):
+        object.__setattr__(self, name, value)
+        if not name.startswith("_") and name != "needs_input_grad":
+            if isinstance(value, TorchProxy):
+                self._tensor_attrs[name] = value
+            else:
+                self._tensor_attrs.pop(name, None)
+
+    def save_for_backward(self, *tensors):
+        self._to_save = tensors
+
+    def save_for_forward(self, *tensors):   # forward-mode saves: unused here
+        pass
+
+    @property
+    def saved_tensors(self):
+        return tuple(self._to_save)
+
+    def mark_non_differentiable(self, *tensors):
+        pass
+
+    def mark_dirty(self, *tensors):
+        pass
+
+    def set_materialize_grads(self, value: bool):
+        self._materialize_grads = bool(value)
+
+
+def _to_torch_value(v):
+    """A traced region's input as user torch code sees it: a TensorProxy
+    becomes its :class:`TorchProxy`."""
+    if isinstance(v, TensorProxy):
+        return TorchProxy(v)
+    if isinstance(v, (tuple, list)):
+        return type(v)(_to_torch_value(i) for i in v)
+    if isinstance(v, dict):
+        return {k: _to_torch_value(x) for k, x in v.items()}
+    return v
+
+
+_autograd_fn_ids = itertools.count()
+
+
+def _trace_autograd_function(cls, args, kwargs):
+    """``MyFn.apply(*args)`` while tracing: the user's ``forward`` becomes a
+    composite symbol (its traced ops as subsymbols, so executors claim into
+    it), and the user's ``backward`` is registered as that symbol's VJP rule:
+    the gradients follow the user's derivative, not autodiff of the
+    forward."""
+    from thunder_tpu_torch.core.symbol import Symbol
+    from thunder_tpu_torch.core.trace import get_tracectx
+    from thunder_tpu_torch.core.transforms import (
+        _trace_subfn, eval_trace, promote_free_vars, register_vjp)
+
+    trc = get_tracectx()
+    check(trc is not None, "autograd.Function tracing requires an active trace")
+    core_args = _unwrap(args)
+    core_kwargs = _unwrap(kwargs or {})
+
+    # ctx.needs_input_grad: a real tensor's requires_grad; a traced tensor's
+    # where the trace tracks gradients (a grad region, the bridge), else
+    # whether it is a float tensor
+    def _arg_needs_grad(orig, a):
+        if isinstance(orig, torch.Tensor):
+            return bool(orig.requires_grad)
+        if isinstance(orig, TorchProxy) and trc.grad_names is not None:
+            return orig.requires_grad
+        return isinstance(a, TensorProxy) and a.dtype.is_inexact
+
+    needs = tuple(_arg_needs_grad(orig, a) for orig, a in zip(args, core_args))
+    # new-style Functions define forward without ctx, plus a setup_context
+    base_setup = getattr(torch.autograd.Function, "setup_context", None)
+    new_style = base_setup is not None and getattr(cls, "setup_context", None) is not base_setup
+    holder: dict = {}
+
+    def _fwd(*a, **kw):
+        ctx = _TraceFunctionCtx(needs)
+        holder["ctx"] = ctx
+        wa = tuple(_to_torch_value(x) for x in a)
+        wkw = {k: _to_torch_value(v) for k, v in kw.items()}
+        with _TraceMode():
+            if new_style:
+                out = cls.forward(*wa, **wkw)
+                cls.setup_context(ctx, tuple(wa), out)
+            else:
+                out = cls.forward(ctx, *wa, **wkw)
+        holder["attr_names"] = list(ctx._tensor_attrs)
+        saved = (tuple(_unwrap(t) for t in ctx._to_save)
+                 + tuple(_unwrap(v) for v in ctx._tensor_attrs.values()))
+        return _unwrap(out), saved
+
+    inner, inner_inputs, _ = _trace_subfn(_fwd, core_args, core_kwargs)
+    frees = promote_free_vars(inner, inner_inputs)
+    sid = f"autograd_function_{cls.__name__}_{next(_autograd_fn_ids)}"
+
+    def meta(*ps):
+        out, _saved = eval_trace(inner, *ps)
+        return out
+
+    sym = Symbol(f"autograd_function_{cls.__name__}", meta, id=sid)
+
+    # each positional arg of apply's position among the proxy inputs (the
+    # user's backward returns one gradient per positional arg)
+    arg_to_proxy_idx: dict[int, int] = {}
+    pi = 0
+    for i, a in enumerate(core_args):
+        leaves = tree_flatten(a)[0]
+        if len(leaves) == 1 and isinstance(leaves[0], Proxy):
+            arg_to_proxy_idx[i] = pi
+        pi += sum(1 for leaf in leaves if isinstance(leaf, Proxy))
+
+    @register_vjp(sid)
+    def _fn_vjp(*rargs):
+        out, saved = eval_trace(inner, *rargs)
+
+        def pullback(g):
+            out_flat = [o for o in tree_flatten(out)[0] if isinstance(o, Proxy)]
+            gs = list(g) if isinstance(g, (tuple, list)) else [g]
+            ctx = holder["ctx"]
+            if ctx._materialize_grads:
+                gs = [ops.full(tuple(o.shape), 0.0, dtype=o.dtype, device=o.device)
+                      if gg is None else gg for gg, o in zip(gs, out_flat)]
+            attr_names = holder.get("attr_names", [])
+            n_save = len(saved) - len(attr_names)
+            ctx._to_save = tuple(_wrap(x) for x in saved[:n_save])
+            for name, val in zip(attr_names, saved[n_save:]):
+                object.__setattr__(ctx, name, _wrap(val))
+            with _TraceMode():
+                gin = cls.backward(ctx, *[_wrap(gg) for gg in gs])
+            gin = gin if isinstance(gin, tuple) else (gin,)
+            return [(rargs[arg_to_proxy_idx[i]], _unwrap(gg)) for i, gg in enumerate(gin)
+                    if gg is not None and i in arg_to_proxy_idx]
+
+        return out, pullback
+
+    proxy_args = [a for a in tree_flatten((core_args, core_kwargs))[0]
+                  if isinstance(a, Proxy)] + frees
+    return _wrap(sym(*proxy_args))
+
+
+# checkpoint()'s own keyword arguments: every other one goes to ``function``
+_CKPT_CONTROL_KWARGS = frozenset(("context_fn", "determinism_check", "debug", "early_stop",
+                                  "preserve_rng_state"))
+
+
+def _traced_checkpoint(function, *args, use_reentrant=None, **ckpt_kwargs):
+    """``torch.utils.checkpoint.checkpoint`` while tracing: on traced tensors
+    a trace-level checkpointed region (``core.rematerialization``), whose
+    backward recomputes the region instead of saving its intermediates; on
+    real tensors the original."""
+    if not _has_wrapper(args, ckpt_kwargs):
+        return _ORIG_CHECKPOINT(function, *args, use_reentrant=use_reentrant, **ckpt_kwargs)
+    from thunder_tpu_torch.core.rematerialization import checkpoint_region
+
+    fn_kwargs = {k: v for k, v in ckpt_kwargs.items() if k not in _CKPT_CONTROL_KWARGS}
+    core_args = _unwrap(args)
+    core_kw = {k: _unwrap(v) for k, v in fn_kwargs.items()}
+    kw_keys = list(core_kw)
+
+    # the function's keyword arguments become region inputs too, so a traced
+    # keyword (a mask) takes part in the region
+    def inner(*ps):
+        a, kvals = ps[:len(core_args)], ps[len(core_args):]
+        with _TraceMode():
+            return _unwrap(function(*(_to_torch_value(x) for x in a),
+                                    **{k: _to_torch_value(v) for k, v in zip(kw_keys, kvals)}))
+
+    return _wrap(checkpoint_region(inner)(*core_args, *core_kw.values()))
+
+
+# the patch state: a depth count makes nested _TraceMode entries idempotent
+_ORIG_FUNCTION_APPLY: tuple | None = None
+_ORIG_CHECKPOINT = None
+_CHECKPOINT_CELL = None   # the closure cell of checkpoint's _disable_dynamo wrapper
+_lookaside_patch_depth = 0
+
+
+def _patch_trace_lookasides():
+    global _ORIG_FUNCTION_APPLY, _ORIG_CHECKPOINT, _CHECKPOINT_CELL, _lookaside_patch_depth
+    if _lookaside_patch_depth == 0:
+        import torch.utils.checkpoint as tuc
+
+        for klass in torch.autograd.Function.__mro__:
+            if "apply" in klass.__dict__:
+                _ORIG_FUNCTION_APPLY = (klass, klass.__dict__["apply"])
+                break
+        orig_desc = _ORIG_FUNCTION_APPLY[1]
+
+        def _traced_apply(cls, *args, **kwargs):
+            if not _has_wrapper(args, kwargs):
+                return orig_desc.__get__(None, cls)(*args, **kwargs)
+            if cls is tuc.CheckpointFunction:
+                # the reentrant form: CheckpointFunction.apply(fn, preserve_rng_state, *args)
+                return _traced_checkpoint(args[0], *args[2:])
+            return _trace_autograd_function(cls, args, kwargs)
+
+        torch.autograd.Function.apply = classmethod(_traced_apply)
+        # torch.utils.checkpoint.checkpoint is a _disable_dynamo wrapper
+        # closing over the implementation in a ``fn`` cell: swapping the cell
+        # reroutes every early-bound reference to the wrapper too
+        # (``from torch.utils.checkpoint import checkpoint`` at import time)
+        wrapper = tuc.checkpoint
+        _CHECKPOINT_CELL = None
+        freevars = getattr(wrapper.__code__, "co_freevars", ())
+        if "fn" in freevars and wrapper.__closure__ is not None:
+            cell = wrapper.__closure__[freevars.index("fn")]
+            if callable(cell.cell_contents):
+                _CHECKPOINT_CELL = cell
+        if _CHECKPOINT_CELL is not None:
+            _ORIG_CHECKPOINT = _CHECKPOINT_CELL.cell_contents
+            _CHECKPOINT_CELL.cell_contents = _traced_checkpoint
+        else:   # no wrapper: patch the module attribute
+            _ORIG_CHECKPOINT = wrapper
+            tuc.checkpoint = _traced_checkpoint
+    _lookaside_patch_depth += 1
+
+
+def _unpatch_trace_lookasides():
+    global _lookaside_patch_depth
+    _lookaside_patch_depth -= 1
+    if _lookaside_patch_depth == 0:
+        import torch.utils.checkpoint as tuc
+
+        klass, desc = _ORIG_FUNCTION_APPLY
+        if klass is torch.autograd.Function:
+            torch.autograd.Function.apply = desc
+        else:   # it was inherited: remove the patch to restore inheritance
+            del torch.autograd.Function.apply
+        if _CHECKPOINT_CELL is not None:
+            _CHECKPOINT_CELL.cell_contents = _ORIG_CHECKPOINT
+        else:
+            tuc.checkpoint = _ORIG_CHECKPOINT
+
+
+# ---------------------------------------------------------------------------
+# the alias audit: inputs that share storage
+# ---------------------------------------------------------------------------
+
+class AliasedInputMutationError(RuntimeError):
+    """An in-place op wrote through an input whose storage overlaps another
+    input's. The functionalized trace treats the two as independent tensors,
+    so the write would not show through the other view, as it would in
+    eager torch: the reference refuses it too."""
+
+
+def _alias_spans(flat):
+    """Byte spans of the tensor leaves: ``(leaf index, storage pointer,
+    start byte, end byte)``. An empty tensor has none."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    spans = []
+    for i, t in enumerate(flat):
+        if (not isinstance(t, torch.Tensor) or isinstance(t, FakeTensor) or t.numel() == 0
+                or t.device.type == "meta"):
+            continue   # no storage to share
+        ptr = t.untyped_storage().data_ptr()
+        esz = t.element_size()
+        start = t.storage_offset() * esz
+        extent = 1 + sum((n - 1) * abs(st) for n, st in zip(t.shape, t.stride()))
+        spans.append((i, ptr, start, start + extent * esz))
+    return spans
+
+
+def _alias_pattern(flat):
+    """The call's alias pattern ``(shared_groups, overlap_indices)``: the
+    groups of leaf indices that share one storage, and the leaves whose
+    bytes intersect another leaf's (mutating one of those is the hole)."""
+    by_ptr: dict = {}
+    for rec in _alias_spans(flat):
+        by_ptr.setdefault(rec[1], []).append(rec)
+    groups = []
+    overlap: set = set()
+    for recs in by_ptr.values():
+        if len(recs) < 2:
+            continue
+        groups.append(tuple(sorted(r[0] for r in recs)))
+        for a in recs:
+            for b in recs:
+                if a[0] != b[0] and a[2] < b[3] and b[2] < a[3]:
+                    overlap.add(a[0])
+    return tuple(sorted(groups)), frozenset(overlap)
+
+
+def _alias_key(overlap) -> tuple:
+    """The overlap set as guard-key material (empty for none)."""
+    return ("alias", tuple(sorted(overlap))) if overlap else ()
+
+
+def _audit_aliased_mutation(wargs, wkw, overlap_indices) -> None:
+    """Raise where an input in ``overlap_indices`` (flat indices of
+    ``(args, kwargs)``) was written in place while the trace ran."""
+    if not overlap_indices:
+        return
+    wflat, _ = tree_flatten((wargs, wkw))
+    for i, w in enumerate(wflat):
+        if isinstance(w, TorchProxy) and i in overlap_indices and w._p is not w._orig_p:
+            raise AliasedInputMutationError(
+                f"input #{i} was mutated in-place but overlaps another input's storage "
+                f"(indices {sorted(overlap_indices)}); the compiled trace cannot propagate the "
+                f"write to the other view. Pass .clone()d tensors or make the op out-of-place.")
+
+
+# the overlap set of the call being traced (the audit's input)
+_INPUT_OVERLAP: ContextVar[frozenset] = ContextVar("input_overlap", default=frozenset())
+
+
+@contextmanager
+def _auditing(overlap):
+    tok = _INPUT_OVERLAP.set(overlap)
+    try:
+        yield
+    finally:
+        _INPUT_OVERLAP.reset(tok)
+
+
+# ---------------------------------------------------------------------------
+# tracing a module: its parameters and buffers as inputs
+# ---------------------------------------------------------------------------
+
+def _resolve(module: torch.nn.Module, qual: str):
+    parts = qual.split(".")
+    mod = module
+    for p in parts[:-1]:
+        mod = getattr(mod, p)
+    return mod, parts[-1]
+
+
+class _patched_module:
+    """Put :class:`TorchProxy` stand-ins in place of a module's parameters
+    and buffers for one trace, and the real ones back after."""
+
+    def __init__(self, module, wrapped_params: dict, wrapped_buffers: dict):
+        self.module = module
+        self.wp = wrapped_params
+        self.wb = wrapped_buffers
+        self.saved: list = []
+
+    def __enter__(self):
+        for qual, w in list(self.wp.items()) + list(self.wb.items()):
+            mod, leaf = _resolve(self.module, qual)
+            for d_name in ("_parameters", "_buffers"):
+                d = getattr(mod, d_name)
+                if leaf in d:
+                    self.saved.append((d, leaf, d[leaf]))
+                    d[leaf] = w
+                    break
+        return self
+
+    def __exit__(self, *exc):
+        for d, leaf, orig in reversed(self.saved):
+            d[leaf] = orig
+        return False
+
+
+def trace_torch_module(module: torch.nn.Module, params: dict, buffers: dict, args: tuple,
+                       kwargs: dict, arg_overlap=frozenset()):
+    """Run ``module.forward`` over proxies: ``params`` and ``buffers`` map
+    qualified names to TensorProxies, ``args``/``kwargs`` hold TensorProxy
+    leaves. Returns ``(output, mutated_buffers)``: a buffer the module writes
+    in place comes back as an output (the epilogue), for the caller to write
+    into the live module. ``arg_overlap``: the flat indices of ``(args,
+    kwargs)`` whose storage overlaps another input's; an in-place write
+    through one of them raises."""
+    wp = {k: TorchProxy(v) if isinstance(v, TensorProxy) else v for k, v in params.items()}
+    wb = {k: TorchProxy(v) if isinstance(v, TensorProxy) else v for k, v in buffers.items()}
+    with _patched_module(module, wp, wb), _TraceMode():
+        wa = _wrap(args)
+        wk = _wrap(kwargs or {})
+        out = module(*wa, **wk)
+        _audit_aliased_mutation(wa, wk, arg_overlap)
+    mutated = {k: w._p for k, w in wb.items()
+               if isinstance(w, TorchProxy) and w._p is not w._orig_p}
+    return _unwrap_out(out), mutated
+
+
+def _tied_names(module: torch.nn.Module) -> dict[str, str]:
+    """Each duplicate name of a shared parameter or buffer (GPT-2's
+    ``lm_head.weight`` is ``transformer.wte.weight``) mapped to its
+    canonical name, the one ``named_parameters()`` keeps."""
+    tied: dict[str, str] = {}
+    by_id: dict[int, str] = {}
+    for k, v in (list(module.named_parameters(remove_duplicate=False))
+                 + list(module.named_buffers(remove_duplicate=False))):
+        if id(v) in by_id:
+            tied[k] = by_id[id(v)]
+        else:
+            by_id[id(v)] = k
+    return tied
+
+
+def _route_tied(tied: dict, params: dict, buffers: dict) -> None:
+    """Point every duplicate site at its canonical entry, so both uses of a
+    tied weight trace to one input (and its gradient sums both)."""
+    for dup, canon in tied.items():
+        if dup not in params and dup not in buffers:
+            if canon in params:
+                params[dup] = params[canon]
+            elif canon in buffers:
+                buffers[dup] = buffers[canon]
+
+
+def functional_call(module: torch.nn.Module, params_and_buffers: dict, args: tuple = (),
+                    kwargs: dict | None = None, *, training: bool | None = None):
+    """Call ``module`` inside a traced function with ``params_and_buffers``
+    (traced tensors, by qualified name) in place of its own, the traceable
+    ``torch.func.functional_call``: under ``jit`` and
+    ``thunder_tpu_torch.grad`` the parameters are explicit, differentiable
+    inputs. Tied weights route to their canonical name. Returns
+    ``(output, mutated_buffers)``."""
+    buffer_names = {k for k, _ in module.named_buffers()}
+    pab = _unwrap(dict(params_and_buffers))
+    params = {k: v for k, v in pab.items() if k not in buffer_names}
+    buffers = {k: v for k, v in pab.items() if k in buffer_names}
+    _route_tied(_tied_names(module), params, buffers)
+    prev = module.training
+    if training is not None:
+        module.train(training)
+    try:
+        out, mutated = trace_torch_module(module, params, buffers, _unwrap(tuple(args)),
+                                          _unwrap(kwargs or {}))
+    finally:
+        module.train(prev)
+    return _wrap(out), _wrap(mutated)
+
+
+# ---------------------------------------------------------------------------
+# ThunderModule
+# ---------------------------------------------------------------------------
+
+def _module_device(module: torch.nn.Module):
+    """The device of a module's state (its first parameter or buffer), None
+    for a module without state."""
+    for t in itertools.chain(module.parameters(), module.buffers()):
+        return t.device
+    return None
+
+
+class ThunderModule:
+    """``jit`` of an ``nn.Module`` (the reference's ``ThunderModule``). The
+    port keeps no copy of the module's state: every call reads the live
+    module's parameters and buffers, so an optimizer stepping them in place
+    and ``load_state_dict`` on either object are seen by the next call. A
+    buffer the module writes in place is written back into the live module
+    after each call (the reference's epilogue).
+
+    A call with grad enabled and a parameter or input that requires grad
+    runs through the torch-autograd bridge: the output is tracked by torch's
+    autograd, and ``backward()`` accumulates into each parameter's
+    ``.grad``. Any other call runs the grad-free program of the module's
+    functional form. Either cache is keyed by the training flag, the
+    state's shapes, dtypes and devices, the inputs and their alias pattern.
+    ``torch_autograd=False`` takes the grad-free program always."""
+
+    def __init__(self, module: torch.nn.Module, **jit_kwargs):
+        check(jit_kwargs.get("seq_buckets") is None,
+              "jit(module, seq_buckets=...) is not ported yet (ROADMAP A.7.7)",
+              NotImplementedError)
+        jit_kwargs.pop("seq_buckets", None)
+        self._torch_module = module
+        self._tied = _tied_names(module)
+        self._training = module.training
+        self._grad_sync = True
+        self._torch_autograd = jit_kwargs.pop("torch_autograd", True)
+        self._autograd_cache: dict = {}
+        self._device = jit_kwargs.pop("device", None)
+        jit_kwargs.setdefault("fn_name", type(module).__name__)
+        self._jfn = ThunderTPUFunction(self._functional, **jit_kwargs)
+
+    def _functional(self, params, buffers, training, args, kwargs):
+        """The traced function: the module over its state as inputs."""
+        module = self._torch_module
+        params, buffers = dict(params), dict(buffers)
+        _route_tied(self._tied, params, buffers)
+        prev = module.training
+        module.train(training)
+        try:
+            return trace_torch_module(module, params, buffers, args, kwargs,
+                                      arg_overlap=_INPUT_OVERLAP.get())
+        finally:
+            module.train(prev)
+
+    def _state(self):
+        module = self._torch_module
+        return list(module.named_parameters()), list(module.named_buffers())
+
+    def _write_back(self, mutated: dict) -> None:
+        if mutated:
+            buffers = dict(self._torch_module.named_buffers())
+            with torch.no_grad():
+                for name, val in mutated.items():
+                    buffers[name].copy_(val)
+
+    def __call__(self, *args, **kwargs):
+        from thunder_tpu_torch.torch.autograd_bridge import call_with_torch_autograd
+
+        self._jfn.device = self._device if self._device is not None else _module_device(
+            self._torch_module)
+        flat, treedef = self._jfn._flatten(args, kwargs)   # numpy leaves onto the device
+        args, kwargs = tree_unflatten(treedef, flat)
+        params, buffers = self._state()
+        if self._torch_autograd and torch.is_grad_enabled() and (
+                any(t.requires_grad for _, t in params)
+                or any(isinstance(t, torch.Tensor) and t.requires_grad for t in flat)):
+            return call_with_torch_autograd(self, args, kwargs)
+        overlap = _alias_pattern(flat)[1]
+        with _auditing(overlap):
+            entry, jflat = self._jfn._entry_for((dict(params), dict(buffers), self._training,
+                                                 args, kwargs), {}, _alias_key(overlap))
+        out, mutated = self._jfn._run_contained(entry, [jflat[i] for i in entry.tensor_indices])
+        self._write_back(mutated)
+        return out
+
+    # -- mode and state -----------------------------------------------------
+    def train(self, mode: bool = True):
+        self._training = mode
+        return self
+
+    def eval(self):
+        return self.train(False)
+
+    @property
+    def training(self) -> bool:
+        return self._training
+
+    def named_parameters(self):
+        """The live module's parameters (tied duplicates once)."""
+        return self._torch_module.named_parameters()
+
+    def parameters_dict(self) -> dict:
+        return dict(self.named_parameters())
+
+    def update_parameters(self, new_params: dict) -> None:
+        """Write trained parameter values into the live module."""
+        live = self.parameters_dict()
+        with torch.no_grad():
+            for k, v in new_params.items():
+                live[k].copy_(v)
+
+    def state_dict(self) -> dict:
+        """Copies of the parameters (tied duplicates once) and buffers."""
+        params, buffers = self._state()
+        return {k: v.detach().clone() for k, v in params + buffers}
+
+    def load_state_dict(self, sd: dict, strict: bool = True) -> None:
+        params, buffers = self._state()
+        live = dict(params + buffers)
+        for k, v in sd.items():
+            if k not in live:
+                check(not strict, lambda: f"unexpected key {k!r} in state_dict")
+                continue
+            with torch.no_grad():
+                live[k].copy_(torch.as_tensor(v).to(live[k].dtype))
+        if strict:
+            missing = set(live) - set(sd)
+            check(not missing, lambda: f"missing keys in state_dict: {sorted(missing)}")
+
+    @contextmanager
+    def no_sync(self):
+        """Gradient accumulation without synchronization (the reference's
+        ``ThunderModule.no_sync``): through the bridge every ``backward()``
+        accumulates into ``.grad`` as torch does, so microbatches accumulate
+        there; this sets ``_grad_sync`` for the distributed transforms that
+        read it (ROADMAP A.2)."""
+        self._grad_sync = False
+        try:
+            yield
+        finally:
+            self._grad_sync = True
+
+
+# ---------------------------------------------------------------------------
+# jit
+# ---------------------------------------------------------------------------
+
+class ThunderTorchFunction(ThunderTPUFunction):
+    """``jit`` of a torch-calling function. The alias pattern of each call's
+    inputs joins the guard key and arms the audit of the trace; a call with
+    grad enabled and an input that requires grad runs through the
+    torch-autograd bridge (unless ``torch_autograd=False``): its outputs are
+    tracked by torch's autograd and ``backward()`` runs the compiled
+    backward."""
+
+    def __init__(self, traced, torch_fn, *, torch_autograd: bool = True, **jit_kwargs):
+        super().__init__(traced, **jit_kwargs)
+        self._torch_fn = torch_fn if torch_autograd else None
+        self._autograd_cache: dict = {}
+
+    def _entry_for(self, args, kwargs, extra: tuple = ()):
+        overlap = _alias_pattern(tree_flatten((args, kwargs))[0])[1]
+        with _auditing(overlap):
+            return super()._entry_for(args, kwargs, extra + _alias_key(overlap))
+
+    def __call__(self, *args, **kwargs):
+        if self._torch_fn is not None and torch.is_grad_enabled():
+            flat, treedef = self._flatten(args, kwargs)
+            if any(isinstance(t, torch.Tensor) and t.requires_grad for t in flat):
+                from thunder_tpu_torch.torch.autograd_bridge import (
+                    call_function_with_torch_autograd)
+
+                return call_function_with_torch_autograd(self, *tree_unflatten(treedef, flat))
+        return super().__call__(*args, **kwargs)
+
+
 def jit(fn, **jit_kwargs):
-    """Compile a torch-calling function: its tensor arguments are traced as
-    :class:`TorchProxy`\\ s under :class:`_TraceMode`. Returns the
-    :class:`thunder_tpu_torch.ThunderTPUFunction`."""
+    """Compile a torch-calling function (:class:`ThunderTorchFunction`: its
+    tensor arguments are traced as :class:`TorchProxy`\\ s under
+    :class:`_TraceMode`) or an ``nn.Module`` (:class:`ThunderModule`)."""
     if isinstance(fn, torch.nn.Module):
-        raise NotImplementedError("jit of an nn.Module (ThunderModule) is not ported yet "
-                                  "(ROADMAP A.7); jit a function of its parameters instead")
-    from thunder_tpu_torch import ThunderTPUFunction
+        return ThunderModule(fn, **jit_kwargs)
 
     def traced(*args, **kwargs):
         with _TraceMode():
-            out = fn(*_wrap(args), **_wrap(kwargs))
+            wargs, wkw = _wrap(args), _wrap(kwargs)
+            out = fn(*wargs, **wkw)
+            _audit_aliased_mutation(wargs, wkw, _INPUT_OVERLAP.get())
         return _unwrap_out(out)
 
     traced.__name__ = getattr(fn, "__name__", "fn")
     jit_kwargs.setdefault("fn_name", traced.__name__)
-    return ThunderTPUFunction(traced, **jit_kwargs)
+    return ThunderTorchFunction(traced, fn, **jit_kwargs)
