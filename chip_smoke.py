@@ -285,13 +285,22 @@ leaf), each on the design its rule names.
     ``forward`` (the same kernels and torch calls in the same order: bit
     for bit), (b)'s loss against the eager ``loss_fn`` (bit for bit), (c)
     against the same function run eagerly on PyTorch's library calls
-    (JIT_LAYER_TOL of each row's largest value). Printed: compile ms by
+    (JIT_LAYER_TOL of each row's largest value); (a), (b) and (c) compile
+    with ``block_fusion=False`` (the per-op rung, the eager calls). (a,
+    default) and (b, default) compile (a) and (b) at the defaults, where
+    the cost model's grad-free verdict plans every MLP sub-block: each
+    launches rms_norm 33, sdpa_fwd 32 and mlp_subblock 32 (and ce_fwd 1),
+    exactly its claims and the eager planned call's (``block_fusion=True``),
+    bit for bit with it, and is timed against its per-op compile in turn
+    (``default_rung``): where the two differ by more than PLANNED_JIT_GAP
+    the default must be the faster. Printed: compile ms by
     stage (trace, passes, codegen), the host time of a cached call, of a
     ``bind()`` call and of the guard lookup alone, the forward's device ms
     through ``jit`` and eagerly with the torch calls each makes, and the
     phase's seconds. Phase 3's rows at the slice's shapes: the norms on
     (1, 2048, 4096), attention (1, 32, 2048, 128) causal, ``linear_act``
-    (2048 x 4096) x (14336 x 4096), ``ce_fwd`` 2048 x 128256 float32.
+    (2048 x 4096) x (14336 x 4096), ``ce_fwd`` 2048 x 128256 float32, and
+    phase 3's ``mlp_subblock`` row at 2048 rows for the defaults.
 
 19. jit-train — trace-level autograd (``value_and_grad``, the VJP rules,
     trace-level ``checkpoint``): ``pretrain.jit_train_step`` (the
@@ -317,7 +326,7 @@ leaf), each on the design its rule names.
     cell: ``testing.PlainLlama`` (a plain-PyTorch Llama module:
     ``nn.Embedding``, bias-free ``nn.Linear``, ``F.rms_norm``,
     ``F.scaled_dot_product_attention``, ``F.cross_entropy``) from phase 7's
-    weights, ``tm = thunder_tpu_torch.jit(module)``. (a) 5 steps of ``loss =
+    weights, ``tm = thunder_tpu_torch.jit(module, block_fusion=False)``. (a) 5 steps of ``loss =
     tm(tokens, targets); loss.backward()``, then ``optim.AdamW(lr=1e-4)``
     over the module's parameters and their ``.grad``, written in place:
     each step's forward launches exactly MODULE_FWD (rms_norm 1, sdpa_fwd 4,
@@ -328,7 +337,11 @@ leaf), each on the design its rule names.
     losses finite, falling, each within JIT_TRAIN_LOSS_RTOL of phase 7's;
     one compiled pair. (b) the grad-free call launches MODULE_EVAL (with
     ``linear_act`` 4 and the lse-free attention) and its loss is within
-    JIT_TRAIN_LOSS_RTOL of the bridge's on the same weights. (c) the
+    JIT_TRAIN_LOSS_RTOL of the bridge's on the same weights; (b, default)
+    the grad-free call of ``jit(module)`` at the defaults launches
+    MODULE_EVAL_PLANNED (every MLP sub-block planned), exactly its claims,
+    its loss within PLANNED_JIT_LOSS_RTOL of (b)'s, timed against (b) as
+    phase 18's defaults are. (c) the
     function path's bridge on phase 18 (c)'s layer with x and the weights
     requiring grad: the forward launches rms_norm, sdpa_fwd and
     rms_norm_residual once, the backward sdpa_bwd once, and the gradients
@@ -340,6 +353,29 @@ leaf), each on the design its rule names.
     ``rematerialize_forward_and_backward`` would save from the same traces.
     Its kernel rows: phase 3's train rows, ``linear_act`` at (8 x 2048) x
     (14336 x 4096) for (b), phase 18's rows for (c).
+
+21. planner — block, horizontal and optimizer fusion under the card's cost
+    model (``core/fusion_passes.py``, ``core/cost_model.py``) at phase 7's
+    cell. (a) ``pretrain.jit_train_step(cfg, opt, block_fusion=True)``, 5
+    steps: each launches phase 9's eager planned step's kernels
+    (``mlp_subblock`` 4, ``mlp_subblock_bwd`` 4, ``sdpa_fwd`` 4, ``sdpa_bwd``
+    4, ``rms_norm`` 5, ``ce_fwd`` 1, ``fused_adamw`` 1), exactly its trace's
+    claims, and the losses are within PLANNED_JIT_LOSS_RTOL of phase 9's.
+    (b) phase 19 is the unset compile: its block, horizontal and optimizer
+    verdicts are printed with their cost numbers, and its block verdict
+    must pick the rung measured faster in this run ((a) or phase 19)
+    wherever the two differ by more than PLANNED_JIT_GAP. (c) with
+    ``cuda.mlp_subblock`` quarantined, (a)'s function recompiles once to
+    phase 19's claims and launches them for 2 steps. (d)
+    ``jit(testing.PlainLlama, block_fusion=True)`` trained 2 steps by
+    ``loss.backward()``: (a)'s launches, the first loss within
+    PLANNED_JIT_LOSS_RTOL of phase 20's. Printed: step ms (median of steps
+    2-5), elementwise ms, idle share and peak memory beside phase 9's and
+    19's, compile seconds and stages. (e) phase 19's compile, whose
+    horizontal pass merges the q/k/v products, against the same step with
+    ``horizontal_fusion=False``, taking steps in turn on one state
+    (HORIZONTAL_ROUNDS rounds of unset, off, off, unset), each launching
+    phase 19's kernels: both step ms printed. Its kernel rows are phase 9's.
 
 No phase can fall back to a plain version on the card: a CUDA call whose
 inputs a kernel does not take raises in the kernel's wrapper, with the
@@ -357,6 +393,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -541,6 +578,30 @@ JIT_TRAIN_PATHS = ("jit-train", "jit-train-remat")
 MODULE_GRAD_TOL = 5e-2
 MODULE_HOST_ITERS = 5
 MODULE_PATHS = ("module-train", "module-eval", "fn-bridge")
+# phases 18 (a, default), (b, default) and 20 (b, default): the default
+# compiles of the grad-free programs, planned by the cost model
+DEFAULT_PATHS = ("jit-forward-default", "jit-loss-default", "module-eval-default")
+# timed against the per-op rung in 3 rounds of (default, per-op, per-op,
+# default): one block of JIT_TIMED calls can read 9% off its neighbours
+DEFAULT_RUNG_ROUNDS = 3
+
+# phase 21: the planner at phase 7's cell. (a) the planned compiled step's
+# losses within 0.1% of phase 9's eager planned step (the same kernels at
+# the sub-blocks, attention and the norms; the trace's prim pullbacks of the
+# rope and the loss sum in other orders); (b) the unset compile's verdict
+# must pick the rung measured faster wherever the two differ by more than
+# 3% (step-to-step noise of a compiled step is under 1%, PERF.md §5);
+# (c) 2 quarantined steps; (d) 2 bridge steps, the first loss within 0.1%
+# of phase 20's (the same module, weights and batch)
+PLANNED_JIT_LOSS_RTOL = 1e-3
+PLANNED_JIT_GAP = 0.03
+PLANNED_QUARANTINE_STEPS = 2
+PLANNED_MODULE_STEPS = 2
+PLANNED_PATHS = ("jit-train-planned", "module-train-planned")
+# (e) phase 19's compile (horizontal_fusion unset) against the same step with
+# horizontal_fusion=False, steps in turn on one state: HORIZONTAL_ROUNDS
+# rounds of (unset, off, off, unset)
+HORIZONTAL_ROUNDS = 3
 
 D, F_DIM, S_DECODE, M_PREFILL = 4096, 14336, 8, 512
 KV, G, HD, PS = 8, 4, 128, 16
@@ -1531,7 +1592,7 @@ def check_serving_planned_kernels(torch, cudaex, tnn, tllama):
     wg, wu, wd = rnd(F_DIM, D, scale=D ** -0.5), rnd(F_DIM, D, scale=D ** -0.5), \
         rnd(D, F_DIM, scale=F_DIM ** -0.5)
     layer = {"w_gate": wg, "w_up": wu, "w_down": wd}
-    for n in (M_PREFILL, S_DECODE):
+    for n in (M_PREFILL, S_DECODE, JIT_B * JIT_T):
         r, x = rnd(1, n, D, scale=0.25), rnd(1, n, D, scale=0.25)
         w = (r, x, wn, wg, wu, wd)
         got, design = ran(cudaex, "mlp_subblock", lambda: cudaex.mlp_subblock(*w))
@@ -3529,6 +3590,26 @@ def jit_run(torch, cudaex, ptt, jf, args, eager_fn, what: str) -> dict:
             "trace_bsyms": len(ptt.last_execution_trace(jf).bound_symbols)}
 
 
+def default_rung(torch, what: str, default_fn, per_op_fn) -> dict:
+    """The default compile (the cost model's grad-free verdict plans the MLP
+    sub-blocks) timed against the per-op rung in turn (DEFAULT_RUNG_ROUNDS
+    rounds of default, per-op, per-op, default; device ms of JIT_TIMED calls
+    each), compared by their medians: where the two differ by more than
+    PLANNED_JIT_GAP the default must be the faster."""
+    d, o = [], []
+    for _ in range(DEFAULT_RUNG_ROUNDS):
+        d.append(device_ms(torch, default_fn))
+        o.extend([device_ms(torch, per_op_fn), device_ms(torch, per_op_fn)])
+        d.append(device_ms(torch, default_fn))
+    dm, om = statistics.median(d), statistics.median(o)
+    gap = (dm - om) / om
+    require(gap <= PLANNED_JIT_GAP,
+            f"{what}: the default compile (planned) took {dm:.3f} ms against the per-op "
+            f"rung's {om:.3f} ms: the grad-free verdict picked the slower rung")
+    return {"default_ms": dm, "per_op_ms": om, "default_slower_by": gap,
+            "default_ms_each": d, "per_op_ms_each": o}
+
+
 def check_jit_kernels(torch, cudaex, tnn) -> dict:
     """Phase 3 at the slice's shapes: the norms, attention forward and
     backward (phase 20's function bridge), linear_act and ce_fwd against
@@ -3556,8 +3637,9 @@ def jit_full_width(np, torch, tllama, cudaex) -> dict:
     targets = torch.from_numpy(rng.integers(0, cfg.vocab_size, (JIT_B, JIT_T))).cuda()
     L = cfg.n_layers
 
-    # (a) the prefill's forward
-    fwd = ptt.jit(lambda p, t: tllama.forward(p, t, cfg))
+    # (a) the prefill's forward at the per-op rung, held to the eager per-op
+    # calls; (a, default) below runs the default compile
+    fwd = ptt.jit(lambda p, t: tllama.forward(p, t, cfg), block_fusion=False)
     a = jit_run(torch, cudaex, ptt, fwd, (params, tokens),
                 lambda: tllama.forward(params, tokens, cfg), "jit(forward)")
     want = {"rms_norm": 1, "sdpa_fwd": L, "rms_norm_residual": 2 * L, "linear_act": L}
@@ -3574,8 +3656,33 @@ def jit_full_width(np, torch, tllama, cudaex) -> dict:
     del logits, eager
     torch.cuda.empty_cache()
 
+    # (a, default) the default compile: at these shapes the cost model's
+    # grad-free verdict plans every MLP sub-block; held bit for bit to the
+    # eager planned forward (the same kernels in the same order), and timed
+    # against (a) in turn
+    planned = {"rms_norm": L + 1, "sdpa_fwd": L, "mlp_subblock": L}
+    fwd_d = ptt.jit(lambda p, t: tllama.forward(p, t, cfg))
+    ad = jit_run(torch, cudaex, ptt, fwd_d, (params, tokens),
+                 lambda: tllama.forward(params, tokens, cfg, block_fusion=True),
+                 "jit(forward) default")
+    require(ad["launches"] == planned and ad["eager_launches"] == planned,
+            f"jit(forward) default launched {ad['launches']}, eager planned "
+            f"{ad['eager_launches']}, want {planned}")
+    ad["decisions"] = decision_summary(ptt, fwd_d)
+    logits, eager = ad.pop("out"), ad.pop("eager")
+    ad["logits_bitwise_equal"] = bool(torch.equal(logits, eager))
+    require(ad["logits_bitwise_equal"],
+            f"jit(forward) default: logits differ from the eager planned forward's (max "
+            f"{float((logits.float() - eager.float()).abs().max())})")
+    del logits, eager
+    with torch.no_grad():
+        ad["rungs"] = default_rung(torch, "jit(forward)", lambda: fwd_d(params, tokens),
+                                   lambda: fwd(params, tokens))
+    del fwd, fwd_d
+    torch.cuda.empty_cache()
+
     # (b) the evaluation loss
-    lossf = ptt.jit(lambda p, t, y: tllama.loss_fn(p, t, y, cfg))
+    lossf = ptt.jit(lambda p, t, y: tllama.loss_fn(p, t, y, cfg), block_fusion=False)
     b = jit_run(torch, cudaex, ptt, lossf, (params, tokens, targets),
                 lambda: tllama.loss_fn(params, tokens, targets, cfg), "jit(loss_fn)")
     want_b = dict(want, ce_fwd=1)
@@ -3587,7 +3694,24 @@ def jit_full_width(np, torch, tllama, cudaex) -> dict:
             f"{math.log(cfg.vocab_size):.3f})")
     b["loss"], b["eager_loss"] = loss, eager_loss
     require(loss == eager_loss, f"jit(loss_fn): {loss} against the eager {eager_loss}")
-    del params
+
+    # (b, default) the default compile of the loss, as (a, default)
+    lossf_d = ptt.jit(lambda p, t, y: tllama.loss_fn(p, t, y, cfg))
+    bd = jit_run(torch, cudaex, ptt, lossf_d, (params, tokens, targets),
+                 lambda: tllama.loss_fn(params, tokens, targets, cfg, block_fusion=True),
+                 "jit(loss_fn) default")
+    want_bd = dict(planned, ce_fwd=1)
+    require(bd["launches"] == want_bd and bd["eager_launches"] == want_bd,
+            f"jit(loss_fn) default launched {bd['launches']}, eager planned "
+            f"{bd['eager_launches']}, want {want_bd}")
+    bd["loss"], bd["eager_loss"] = float(bd.pop("out")), float(bd.pop("eager"))
+    require(bd["loss"] == bd["eager_loss"],
+            f"jit(loss_fn) default: {bd['loss']} against the eager planned {bd['eager_loss']}")
+    with torch.no_grad():
+        bd["rungs"] = default_rung(torch, "jit(loss_fn)",
+                                   lambda: lossf_d(params, tokens, targets),
+                                   lambda: lossf(params, tokens, targets))
+    del lossf, lossf_d, params
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3609,7 +3733,7 @@ def jit_full_width(np, torch, tllama, cudaex) -> dict:
     def plain(x, *w):
         return plain_llama_layer(x, *w, n_heads=H, n_kv=KVh)
 
-    lay = ptt.jit(plain)
+    lay = ptt.jit(plain, block_fusion=False)
     c = jit_run(torch, cudaex, ptt, lay, (x, *layer), lambda: plain(x, *layer), "jit(layer)")
     want_c = {"rms_norm": 1, "sdpa_fwd": 1, "rms_norm_residual": 1, "linear_act": 1}
     require(c["launches"] == want_c and not c["eager_launches"],
@@ -3628,7 +3752,8 @@ def jit_full_width(np, torch, tllama, cudaex) -> dict:
     del x, layer, out, eager_out
     gc.collect()
     torch.cuda.empty_cache()
-    return {"forward": a, "loss": b, "layer": c, "phase_s": time.perf_counter() - t0}
+    return {"forward": a, "forward_default": ad, "loss": b, "loss_default": bd, "layer": c,
+            "phase_s": time.perf_counter() - t0}
 
 
 # ---------------------------------------------------------------------------
@@ -3646,18 +3771,41 @@ def jit_train_launches(L: int, remat: bool) -> dict:
     return train_launches(L, False)
 
 
-def jit_train_run(np, torch, tllama, cudaex, pretrain, remat: bool, eager: dict) -> dict:
-    """Phase 19 (a) or, with ``remat``, (b): ``pretrain.jit_train_step`` from
-    phase 7's weights, batch and AdamW(lr=1e-4), TRAIN_STEPS steps. Every
-    step launches exactly the trace's claims (``jit_train_launches``), the
-    losses are finite and fall, each within JIT_TRAIN_LOSS_RTOL of phase 7's
-    eager step (``eager``'s losses, same weights and batch), and the donated
-    parameters and moments come back as the same storage."""
+def decision_summary(ptt, jf) -> list:
+    """The last compile's block, horizontal and optimizer verdicts, grouped
+    by kind, op, decision and cost numbers (proxy names left out): a count
+    and the reason of each group."""
+    groups: dict = {}
+    for d in ptt.compile_stats(jf).last_decisions:
+        if d["kind"] == "claim":
+            continue
+        cost = {k: v for k, v in (d["cost"] or {}).items() if k not in ("shared", "chain")}
+        key = (d["kind"], d["op"], d["decision"], json.dumps(cost, sort_keys=True, default=str))
+        g = groups.setdefault(key, {"kind": d["kind"], "op": d["op"], "decision": d["decision"],
+                                    "count": 0, "reason": d["reason"], "cost": cost})
+        g["count"] += 1
+    return list(groups.values())
+
+
+def jit_train_run(np, torch, tllama, cudaex, pretrain, remat: bool, eager: dict,
+                  block_fusion: bool | None = None, loss_rtol: float = JIT_TRAIN_LOSS_RTOL,
+                  then=None) -> dict:
+    """Phase 19 (a) or, with ``remat``, (b), and with ``block_fusion=True``
+    phase 21 (a): ``pretrain.jit_train_step`` from phase 7's weights, batch
+    and AdamW(lr=1e-4), TRAIN_STEPS steps. Every step launches exactly the
+    trace's claims (``jit_train_launches``; the planned rung's
+    ``train_launches(L, True)``), the losses are finite and fall, each
+    within ``loss_rtol`` of the eager step's (``eager``'s losses, same
+    weights and batch), and the donated parameters and moments come back
+    as the same storage. The compile's planner verdicts are reported
+    (``decision_summary``). ``then(jf, holder, tok, tgt)``, where given,
+    runs on the trained state before it is freed; its dict is ``then``."""
     import thunder_tpu_torch as ptt
     from thunder_tpu_torch.optim import AdamW, tree_leaves
     from thunder_tpu_torch.testing import claimed_kernels
 
-    what = f"jit train step{' (remat)' if remat else ''}"
+    what = (f"jit train step{' (remat)' if remat else ''}"
+            f"{' (planned)' if block_fusion else ''}")
     t_phase = time.perf_counter()
     cfg = tllama.CONFIGS["llama3-8b-bench"]
     params = tllama.init_params(cfg, seed=0, device="cuda", n_layers=TRAIN_LAYERS)
@@ -3665,13 +3813,16 @@ def jit_train_run(np, torch, tllama, cudaex, pretrain, remat: bool, eager: dict)
     state = opt.init(params)
     tok, tgt = (torch.from_numpy(a).cuda()
                 for a in pretrain.synthetic_batch(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, 0))
-    jf = pretrain.jit_train_step(cfg, opt, remat=remat)
+    options = {} if block_fusion is None else {"block_fusion": block_fusion}
+    jf = pretrain.jit_train_step(cfg, opt, remat=remat, **options)
     t0 = time.perf_counter()
     jf.compile(params, state, tok, tgt)
     compile_s = time.perf_counter() - t0
     stages = dict(ptt.compile_stats(jf).last_pass_times)
     trc = ptt.last_execution_trace(jf)
-    expect = jit_train_launches(TRAIN_LAYERS, remat)
+    expect = (train_launches(TRAIN_LAYERS, True) if block_fusion
+              else jit_train_launches(TRAIN_LAYERS, remat))
+    decisions = decision_summary(ptt, jf)
     claims = claimed_kernels(trc)
     require(claims == expect, f"{what}: the trace claims {claims}, want {expect}")
     ptrs = [t.data_ptr() for t in tree_leaves((params, state["m"], state["v"]))]
@@ -3698,14 +3849,16 @@ def jit_train_run(np, torch, tllama, cudaex, pretrain, remat: bool, eager: dict)
     require(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
             f"{what}: losses not finite and falling: {losses}")
     rel = [abs(a - b) / abs(b) for a, b in zip(losses, eager["losses"])]
-    require(max(rel) <= JIT_TRAIN_LOSS_RTOL,
-            f"{what}: losses {losses} against phase 7's eager {eager['losses']}")
-    out = {"layers": TRAIN_LAYERS, "remat": remat, "losses": losses, "per_step": per_step,
+    require(max(rel) <= loss_rtol,
+            f"{what}: losses {losses} against the eager step's {eager['losses']}")
+    out = {"layers": TRAIN_LAYERS, "remat": remat, "block_fusion": block_fusion,
+           "losses": losses, "per_step": per_step,
            "step_ms_median": float(np.median([st["ms"] for st in per_step[1:]])),
            "compile_s": compile_s, "compile_stages_ms": stages, "launches": counts,
            "launches_per_step": expect, "trace_bsyms": len(trc.bound_symbols),
            "eager_losses": eager["losses"], "loss_rel_diff_max": max(rel),
-           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "decisions": decisions}
     holder = [cur]
 
     def step():
@@ -3717,6 +3870,8 @@ def jit_train_run(np, torch, tllama, cudaex, pretrain, remat: bool, eager: dict)
     out["torch_calls_per_step"] = torch_calls(torch, step)[1]
     out.update(pretrain.profile_steps(step, JIT_TRAIN_PROFILE))
     out["designs"] = cudaex.design_counts()
+    if then is not None:
+        out["then"] = then(jf, holder, tok, tgt)
     del params, state, cur, p, s, holder
     gc.collect()
     torch.cuda.empty_cache()
@@ -3724,11 +3879,13 @@ def jit_train_run(np, torch, tllama, cudaex, pretrain, remat: bool, eager: dict)
     return out
 
 
-def jit_train_eager_profile(torch, pretrain) -> dict:
-    """Phase 7's eager step again, profiled beside phase 19's (device ms by
-    kernel family in the same run)."""
+def jit_train_eager_profile(torch, pretrain, block_fusion: bool = False) -> dict:
+    """Phase 7's (phase 9's, with ``block_fusion``) eager step again,
+    profiled beside phase 19's (21's): device ms by kernel family in the
+    same run."""
     r = pretrain.run("llama3-8b-bench", layers=TRAIN_LAYERS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
-                     steps=1, lr=1e-4, seed=0, device="cuda", profile=JIT_TRAIN_PROFILE)
+                     steps=1, lr=1e-4, seed=0, device="cuda", profile=JIT_TRAIN_PROFILE,
+                     block_fusion=block_fusion)
     gc.collect()
     torch.cuda.empty_cache()
     return {k: r[k] for k in ("profile_step_ms", "device_busy_ms_per_step", "device_idle_share",
@@ -3743,6 +3900,9 @@ MODULE_FWD = {"rms_norm": 1, "sdpa_fwd": TRAIN_LAYERS, "rms_norm_residual": 2 * 
               "ce_fwd": 1}
 MODULE_BWD = {"sdpa_bwd": TRAIN_LAYERS}
 MODULE_EVAL = dict(MODULE_FWD, linear_act=TRAIN_LAYERS)
+# the default compile's grad-free call: every MLP sub-block planned
+MODULE_EVAL_PLANNED = {"rms_norm": TRAIN_LAYERS + 1, "sdpa_fwd": TRAIN_LAYERS,
+                       "mlp_subblock": TRAIN_LAYERS, "ce_fwd": 1}
 
 
 def counted(torch, cudaex, fn):
@@ -3804,7 +3964,7 @@ def module_train_run(np, torch, tllama, cudaex, pretrain, eager: dict) -> dict:
     module.zero_grad(set_to_none=True)
     torch.cuda.empty_cache()
 
-    tm = ptt.jit(module)
+    tm = ptt.jit(module, block_fusion=False)   # the per-op rung; (b) runs the default too
     params = dict(module.named_parameters())
     opt = AdamW(lr=1e-4)
     state = opt.init(params)
@@ -3908,7 +4068,26 @@ def module_train_run(np, torch, tllama, cudaex, pretrain, eager: dict) -> dict:
             f"module-eval: loss {ev} against the bridge's {grad_loss} on the same weights")
     evr = {"loss": ev, "bridge_loss": grad_loss, "loss_rel_diff": eval_rel, "launches": launches,
            "device_ms": eval_ms, "compile_ms": ptt.compile_stats(tm).last_pass_times}
-    del module, params, state, tm, step
+
+    # (b, default) the default compile's grad-free call: the cost model's
+    # forward-only verdict plans every MLP sub-block at these shapes; its
+    # loss against the per-op call's on the same weights, and the two rungs
+    # timed in turn
+    tmd = ptt.jit(module)
+    with torch.no_grad():
+        tmd(tok, tgt)   # compile
+        evd, launches_d = counted(torch, cudaex, lambda: tmd(tok, tgt))
+        evd = float(evd)
+        rungs = default_rung(torch, "module-eval", lambda: tmd(tok, tgt), lambda: tm(tok, tgt))
+    require(launches_d == MODULE_EVAL_PLANNED == claimed_kernels(ptt.last_execution_trace(tmd)),
+            f"module-eval default: launched {launches_d}, its trace claims "
+            f"{claimed_kernels(ptt.last_execution_trace(tmd))}, want {MODULE_EVAL_PLANNED}")
+    rel_d = abs(evd - ev) / abs(ev)
+    require(math.isfinite(evd) and rel_d <= PLANNED_JIT_LOSS_RTOL,
+            f"module-eval default: loss {evd} against the per-op call's {ev}")
+    evr["default"] = {"loss": evd, "loss_rel_diff_per_op": rel_d, "launches": launches_d,
+                      "rungs": rungs, "decisions": decision_summary(ptt, tmd)}
+    del module, params, state, tm, tmd, step
     gc.collect()
     torch.cuda.empty_cache()
     out["phase_s"] = time.perf_counter() - t_phase
@@ -3975,6 +4154,201 @@ def fn_bridge_run(torch, cudaex, tllama) -> dict:
     torch.cuda.empty_cache()
     return {"launches": launches, "grad_row_rel_err": errs, "compile_s": step.compile_s,
             "phase_s": time.perf_counter() - t0}
+
+
+# ---------------------------------------------------------------------------
+# phase 21: the planner (block, horizontal and optimizer fusion under the
+# card's cost model) at phase 7's cell
+# ---------------------------------------------------------------------------
+
+def planned_quarantine(torch, cudaex):
+    """Phase 21 (c), run on (a)'s trained state: with ``cuda.mlp_subblock``
+    quarantined, (a)'s function recompiles (one more cache miss) to phase
+    19's claims, and PLANNED_QUARANTINE_STEPS steps launch exactly them;
+    the planner records each chain ``unclaimed`` (quarantined). The
+    quarantine is reset after."""
+    import thunder_tpu_torch as ptt
+    from thunder_tpu_torch.runtime import quarantine
+    from thunder_tpu_torch.testing import claimed_kernels
+
+    def then(jf, holder, tok, tgt):
+        misses = ptt.cache_misses(jf)
+        expect = jit_train_launches(TRAIN_LAYERS, False)
+        quarantine.get_quarantine().add("cuda.mlp_subblock", reason="phase 21 (c)",
+                                        phase="runtime")
+        try:
+            losses = []
+            for i in range(PLANNED_QUARANTINE_STEPS):
+                torch.cuda.synchronize()
+                before = cudaex.launch_counts()
+                loss, p, s = jf(*holder[0], tok, tgt)
+                torch.cuda.synchronize()
+                now = cudaex.launch_counts()
+                delta = {k: now[k] - before[k] for k in now if now[k] != before[k]}
+                require(delta == expect, f"quarantined planned step {i} launched {delta}, "
+                                         f"want phase 19's {expect}")
+                holder[0] = (p, s)
+                losses.append(float(loss))
+            require(ptt.cache_misses(jf) == misses + 1,
+                    f"quarantined planned step: {ptt.cache_misses(jf)} misses, want {misses + 1}")
+            claims = claimed_kernels(ptt.last_execution_trace(jf))
+            require(claims == expect, f"quarantined planned step claims {claims}")
+            unclaimed = [d for d in ptt.compile_stats(jf).last_decisions
+                         if d["kind"] == "block" and d["decision"] == "unclaimed"]
+            require(len(unclaimed) == TRAIN_LAYERS and "quarantined" in unclaimed[0]["reason"],
+                    f"quarantined planned step: block verdicts {unclaimed}")
+        finally:
+            quarantine.reset()
+        require(all(math.isfinite(x) for x in losses), f"quarantined steps' losses {losses}")
+        return {"cache_misses": ptt.cache_misses(jf), "losses": losses,
+                "launches_per_step": expect, "reason": unclaimed[0]["reason"]}
+
+    return then
+
+
+def module_planned_run(np, torch, tllama, cudaex, pretrain, phase20: dict) -> dict:
+    """Phase 21 (d): ``jit(testing.PlainLlama, block_fusion=True)`` from
+    phase 7's weights and batch, PLANNED_MODULE_STEPS steps of
+    ``loss.backward()`` and AdamW(lr=1e-4): its forward, backward and
+    update launch (a)'s kernels (``train_launches(L, True)``), each
+    program exactly its trace's claims, and the first loss is within
+    PLANNED_JIT_LOSS_RTOL of phase 20's."""
+    import thunder_tpu_torch as ptt
+    from thunder_tpu_torch.optim import AdamW
+    from thunder_tpu_torch.testing import PlainLlama, claimed_kernels
+
+    t_phase = time.perf_counter()
+    L = TRAIN_LAYERS
+    cfg = tllama.CONFIGS["llama3-8b-bench"]
+    module = PlainLlama.from_llama_params(
+        cfg, tllama.init_params(cfg, seed=0, device="cuda", n_layers=L))
+    gc.collect()
+    tok, tgt = (torch.from_numpy(a).cuda()
+                for a in pretrain.synthetic_batch(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, 0))
+    tm = ptt.jit(module, block_fusion=True)
+    params = dict(module.named_parameters())
+    opt = AdamW(lr=1e-4)
+    state = opt.init(params)
+    want_fwd = {"rms_norm": L + 1, "sdpa_fwd": L, "mlp_subblock": L, "ce_fwd": 1}
+    want_bwd = {"sdpa_bwd": L, "mlp_subblock_bwd": L}
+    losses, per_step, counts, step = [], [], {}, None
+    for i in range(PLANNED_MODULE_STEPS):
+        t = time.perf_counter()
+        loss, fwd = counted(torch, cudaex, lambda: tm(tok, tgt))
+        step = step or next(iter(tm._autograd_cache.values()))
+        _, bwd = counted(torch, cudaex, loss.backward)
+        _, upd = counted(torch, cudaex, lambda: opt.update(
+            params, {k: p.grad for k, p in params.items()}, state))
+        module.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        require(fwd == want_fwd == claimed_kernels(step.fwd_trace),
+                f"module-train-planned: step {i}'s forward launched {fwd}, its trace claims "
+                f"{claimed_kernels(step.fwd_trace)}, want {want_fwd}")
+        require(bwd == want_bwd == claimed_kernels(step.bwd_trace),
+                f"module-train-planned: step {i}'s backward launched {bwd}, its trace claims "
+                f"{claimed_kernels(step.bwd_trace)}, want {want_bwd}")
+        require(upd == {"fused_adamw": 1}, f"module-train-planned: step {i}'s update "
+                                           f"launched {upd}")
+        require(dict(fwd, **bwd, **upd) == train_launches(L, True),
+                f"module-train-planned: step {i} launched {dict(fwd, **bwd, **upd)}, want (a)'s")
+        for part in (fwd, bwd, upd):
+            for k, n in part.items():
+                counts[k] = counts.get(k, 0) + n
+        losses.append(float(loss.detach()))
+        per_step.append({"loss": losses[-1], "ms": ms})
+        del loss
+    first_rel = abs(losses[0] - phase20["losses"][0]) / abs(phase20["losses"][0])
+    require(all(math.isfinite(x) for x in losses) and first_rel <= PLANNED_JIT_LOSS_RTOL,
+            f"module-train-planned: losses {losses}, the first against phase 20's "
+            f"{phase20['losses'][0]}")
+    out = {"losses": losses, "per_step": per_step, "first_loss_rel_diff": first_rel,
+           "phase20_first_loss": phase20["losses"][0], "launches": counts,
+           "launches_per_step": train_launches(L, True), "compile_s": step.compile_s,
+           "decisions": decision_summary(ptt, tm)}
+    del module, params, state, tm, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def planner_verdict(jta: dict, jpa: dict) -> dict:
+    """Phase 21 (b): the unset compile's (phase 19's) block verdict against
+    the two rungs' measured step ms in this run; wherever they differ by
+    more than PLANNED_JIT_GAP the verdict must pick the faster."""
+    kinds = sorted({d["decision"] for d in jta["decisions"] if d["kind"] == "block"})
+    planned = kinds == ["planned"]
+    require(kinds in (["planned"], ["cost-rejected"]),
+            f"phase 19's block verdicts {kinds}: want one verdict for every layer")
+    per_op_ms, planned_ms = jta["step_ms_median"], jpa["step_ms_median"]
+    gap = abs(per_op_ms - planned_ms) / min(per_op_ms, planned_ms)
+    faster = "planned" if planned_ms < per_op_ms else "per-op"
+    if gap > PLANNED_JIT_GAP:
+        require(planned == (faster == "planned"),
+                f"phase 21 (b): the unset compile picked the {'planned' if planned else 'per-op'} "
+                f"rung, the card measured {faster} faster ({planned_ms:.2f} against "
+                f"{per_op_ms:.2f} ms)")
+    return {"verdict": "planned" if planned else "per-op", "faster": faster,
+            "gap": gap, "held": gap > PLANNED_JIT_GAP,
+            "step_ms_median_planned_per_op": [planned_ms, per_op_ms]}
+
+
+def horizontal_ab(np, torch, tllama, cudaex, pretrain) -> dict:
+    """Phase 21 (e): phase 19's compile, whose horizontal pass merges each
+    layer's q/k/v products at 16384 rows, against the same step compiled
+    with ``horizontal_fusion=False``, from phase 7's weights and batch, on
+    one state: the two take steps in turn (HORIZONTAL_ROUNDS rounds of
+    unset, off, off, unset), each launching phase 19's kernels. Step ms of
+    each, host clock around a synchronized step."""
+    import thunder_tpu_torch as ptt
+    from thunder_tpu_torch.optim import AdamW
+    from thunder_tpu_torch.testing import claimed_kernels
+
+    cfg = tllama.CONFIGS["llama3-8b-bench"]
+    params = tllama.init_params(cfg, seed=0, device="cuda", n_layers=TRAIN_LAYERS)
+    opt = AdamW(lr=1e-4)
+    state = opt.init(params)
+    tok, tgt = (torch.from_numpy(a).cuda()
+                for a in pretrain.synthetic_batch(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, 0))
+    expect = jit_train_launches(TRAIN_LAYERS, False)
+    jfs = {"unset": pretrain.jit_train_step(cfg, opt),
+           "off": pretrain.jit_train_step(cfg, opt, horizontal_fusion=False)}
+    merged = {}
+    for k, jf in jfs.items():
+        jf.compile(params, state, tok, tgt)
+        claims = claimed_kernels(ptt.last_execution_trace(jf))
+        require(claims == expect, f"phase 21 (e) {k}: the trace claims {claims}, want {expect}")
+        merged[k] = sum(1 for d in ptt.compile_stats(jf).last_decisions
+                        if d["kind"] == "fusion" and d["op"] == "horizontal_merge"
+                        and d["decision"] == "merged")
+    require(merged["off"] == 0, f"phase 21 (e): horizontal_fusion=False merged {merged['off']}")
+    cur = (params, state)
+    times = {"unset": [], "off": []}
+    losses = []
+    for i, k in enumerate(["unset", "off"] + ["unset", "off", "off", "unset"] * HORIZONTAL_ROUNDS):
+        torch.cuda.synchronize()
+        before = cudaex.launch_counts()
+        t = time.perf_counter()
+        loss, p, st = jfs[k](*cur, tok, tgt)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        now = cudaex.launch_counts()
+        delta = {n: now[n] - before[n] for n in now if now[n] != before[n]}
+        require(delta == expect, f"phase 21 (e) {k}: step {i} launched {delta}, want {expect}")
+        cur = (p, st)
+        losses.append(float(loss))
+        if i >= 2:   # the first step of each compiled program is a warm-up
+            times[k].append(ms)
+    require(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+            f"phase 21 (e): losses not finite and falling: {losses}")
+    del params, state, cur, p, st
+    gc.collect()
+    torch.cuda.empty_cache()
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    return {"merged_groups": merged, "step_ms_median_unset_off": [med["unset"], med["off"]],
+            "unset_slower_by": (med["unset"] - med["off"]) / med["off"],
+            "step_ms": times, "losses": losses}
 
 
 def main() -> int:
@@ -4208,6 +4582,43 @@ def main() -> int:
         "phase_s": mtr["phase_s"] + fb["phase_s"],
     }) + f" ({card})")
 
+    # phase 21: the planner at phase 7's cell
+    t21 = time.perf_counter()
+    jpa = jit_train_run(np, torch, tllama, cudaex, pretrain, False, tp, block_fusion=True,
+                        loss_rtol=PLANNED_JIT_LOSS_RTOL,
+                        then=planned_quarantine(torch, cudaex))
+    log(f"phase 21 (a) planned jit train step: {json.dumps(jpa)} ({card})")
+    jpe = jit_train_eager_profile(torch, pretrain, block_fusion=True)
+    pv = planner_verdict(jta, jpa)
+    log(f"phase 21 (b) the unset compile (phase 19): {json.dumps(jta['decisions'])}; "
+        f"verdict {json.dumps(pv)} ({card})")
+    log(f"phase 21 (c) quarantined cuda.mlp_subblock: {json.dumps(jpa['then'])} ({card})")
+    mpl = module_planned_run(np, torch, tllama, cudaex, pretrain, mtr)
+    log(f"phase 21 (d) jit(PlainLlama, block_fusion=True): {json.dumps(mpl)} ({card})")
+    hab = horizontal_ab(np, torch, tllama, cudaex, pretrain)
+    log(f"phase 21 (e) horizontal merge, unset against off: {json.dumps(hab)} ({card})")
+    elementwise = "other elementwise/copy"
+    log("phase 21: " + json.dumps({
+        "step_ms_median_planned_jit_eager_planned_per_op_jit": [
+            jpa["step_ms_median"], float(np.median([st["ms"] for st in tp["per_step"][1:]])),
+            jta["step_ms_median"]],
+        "elementwise_ms_planned_jit_eager_planned_per_op_jit": [
+            jpa["ms_per_step_by_family"].get(elementwise),
+            jpe["ms_per_step_by_family"].get(elementwise),
+            jta["ms_per_step_by_family"].get(elementwise)],
+        "idle_share_planned_jit_eager_planned_per_op_jit": [
+            jpa["device_idle_share"], jpe["device_idle_share"], jta["device_idle_share"]],
+        "peak_gb_planned_jit_eager_planned_per_op_jit": [
+            jpa["peak_memory_gb"], tp["peak_memory_gb"], jta["peak_memory_gb"]],
+        "compile_s_planned_per_op": [jpa["compile_s"], jta["compile_s"]],
+        "compile_stages_ms_planned": jpa["compile_stages_ms"],
+        "device_ms_by_family_planned_jit": jpa["ms_per_step_by_family"],
+        "device_ms_by_family_eager_planned": jpe["ms_per_step_by_family"],
+        "loss_rel_diff_max": jpa["loss_rel_diff_max"], "verdict": pv,
+        "horizontal_step_ms_unset_off": hab["step_ms_median_unset_off"],
+        "phase_s": time.perf_counter() - t21,
+    }) + f" ({card})")
+
     # one row per kernel and main path: the path's own shape and its own
     # launch count (rms_norm and rms_norm_residual run on several paths;
     # the planned path's rows for kernels it shares with the per-op train
@@ -4259,9 +4670,19 @@ def main() -> int:
                                                    for k in mtr["launches_per_step"]}, mtr),
                                  ("module-eval", {k: module_rows.get(k) or train_rows[k]
                                                   for k in MODULE_EVAL}, mt["eval"]),
-                                 ("fn-bridge", {k: jit_rows[k] for k in fb["launches"]}, fb)):
+                                 ("fn-bridge", {k: jit_rows[k] for k in fb["launches"]}, fb),
+                                 *((p, planned, run) for p, run in zip(PLANNED_PATHS,
+                                                                       (jpa, mpl))),
+                                 *((p, {k: jit_rows.get(k) or [sp_rows["mlp_subblock"][2]]
+                                        for k in run["launches"]}, run)
+                                   for p, run in zip(DEFAULT_PATHS[:2], (jt["forward_default"],
+                                                                         jt["loss_default"]))),
+                                 (DEFAULT_PATHS[2], {k: module_rows.get(k) or planned[k]
+                                                     for k in MODULE_EVAL_PLANNED},
+                                  mt["eval"]["default"])):
         for name, rs in path_rows.items():
-            if path in (*FLEET_PATHS, *ZOO_PATHS, *JIT_PATHS, *JIT_TRAIN_PATHS, *MODULE_PATHS):
+            if path in (*FLEET_PATHS, *ZOO_PATHS, *JIT_PATHS, *JIT_TRAIN_PATHS, *MODULE_PATHS,
+                        *PLANNED_PATHS, *DEFAULT_PATHS):
                 require(run["launches"].get(name, 0) > 0,
                         f"{path}: {name} never launched on the main path")
             r = dict(rs[0], path=path, launches=run["launches"][name])

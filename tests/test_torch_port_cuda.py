@@ -1590,17 +1590,19 @@ def test_cuda_jit_sdpa_bwd_claim_matches_eager(cuda_device, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("donate", [True, False], ids=["donated", "copied"])
 def test_cuda_jit_fused_adamw_claim_matches_cpu(cuda_device, donate):
-    """AdamW.update under jit on a bf16 and a float32 bucket: one
-    fused_adamw launch a bucket; donated inputs are written in place (the
-    outputs are the inputs), others are not written; params and moments
-    against the same jit on the CPU: 4 ULP of the stored dtype, the bound
-    the per-step kernel tests hold."""
+    """AdamW.update under jit on a bf16 and a float32 bucket of two
+    parameters each (the optimizer pass leaves a bucket of one as its
+    adamw_step): one fused_adamw launch a bucket; donated inputs are
+    written in place (the outputs are the inputs), others are not written;
+    params and moments against the same jit on the CPU: 4 ULP of the stored
+    dtype, the bound the per-step kernel tests hold."""
     import thunder_tpu_torch as ptt
     from thunder_tpu_torch.optim import AdamW, tree_leaves, tree_map
 
     gen = torch.Generator().manual_seed(8)
     params = {"a": torch.randn(300, 17, generator=gen).bfloat16(),
-              "b": [torch.randn(33, generator=gen), torch.randn(5, 4, generator=gen).bfloat16()]}
+              "b": [torch.randn(33, generator=gen), torch.randn(5, 4, generator=gen).bfloat16(),
+                    torch.randn(7, 3, generator=gen)]}
     grads = tree_map(lambda p: torch.randn(p.shape, generator=gen).to(p.dtype), params)
     opt = AdamW(lr=1e-2)
 
@@ -1655,6 +1657,58 @@ def test_cuda_jit_train_step_matches_cpu(cuda_device, remat):
                                                          tgt.cuda())
         assert launches == want
         np.testing.assert_allclose(float(loss), float(cpu_loss), rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,N,D,F", SUBBLOCK_SHAPES,
+                         ids=[f"{str(d)[6:]}-{n}x{dd}x{f}" for d, n, dd, f in SUBBLOCK_SHAPES])
+def test_cuda_jit_planner_sub_block_matches_eager_planned(cuda_device, dtype, N, D, F):
+    """The planner on the card: ``jit(..., block_fusion=True)`` of the MLP
+    sub-block chain in plain PyTorch (residual add, ``F.rms_norm``, the SwiGLU
+    products, the residual add) under ``value_and_grad`` claims one
+    ``mlp_subblock`` and one ``mlp_subblock_bwd``, and launches exactly
+    those; against the eager planned rung (``ops.nn.mlp_subblock``, whose
+    autograd runs the same two kernels) the output is bit for bit, and each
+    gradient within 1e-4 (float32) or 2e-2 (bf16) of each row's largest
+    value, the kernel tests' bounds (the two programs hand the backward
+    kernel the same cotangent, but the trace adds the residual's and x's
+    shares of ``dh`` as its own ops)."""
+    import torch.nn.functional as Fn
+
+    import thunder_tpu_torch as ptt
+
+    gen = torch.Generator(device=cuda_device).manual_seed(21)
+    g, r, x, wn, wg, wu, wd = _subblock_inputs(gen, cuda_device, dtype, N, D, F)
+    g = g.float()
+
+    def chain(r, x, wn, wg, wu, wd):
+        h = r + x
+        n = Fn.rms_norm(h, (D,), wn, EPS)
+        return h + Fn.linear(Fn.silu(Fn.linear(n, wg)) * Fn.linear(n, wu), wd)
+
+    def f(r, x, wn, wg, wu, wd, g):
+        def loss(*ws):
+            out = chain(*ws)
+            return torch.sum(out.float() * g), out
+
+        (_, out), grads = ptt.value_and_grad(loss, argnums=(0, 1, 2, 3, 4, 5),
+                                             has_aux=True)(r, x, wn, wg, wu, wd)
+        return out, grads
+
+    jf = ptt.jit(f, block_fusion=True)
+    (out, grads), launches = _jit_launches(jf, r, x, wn, wg, wu, wd, g)
+    assert launches == {"mlp_subblock": 1, "mlp_subblock_bwd": 1}
+    assert [d["decision"] for d in ptt.compile_stats(jf).last_decisions
+            if d["kind"] == "block"] == ["planned"]
+    leaves = [t.clone().requires_grad_(True) for t in (r, x, wn, wg, wu, wd)]
+    want = tnn.mlp_subblock(*leaves, act="silu", eps=EPS)
+    want_grads = torch.autograd.grad(torch.sum(want.float() * g), leaves)
+    assert torch.equal(out, want.detach())
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    errs = [row_rel_err(a, b) for a, b in zip(grads, want_grads)]
+    print(f"planner sub-block {dtype}: gradients {errs} of their rows' largest values, bit "
+          f"for bit {[torch.equal(a, b) for a, b in zip(grads, want_grads)]}")
+    assert max(errs) <= tol
 
 
 # ---------------------------------------------------------------------------

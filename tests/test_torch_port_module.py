@@ -534,9 +534,12 @@ def test_plain_llama_bridge_matches_reference(plain_llama):
 def test_plain_llama_claims_on_the_card(plain_llama):
     """Traced for ``FakeTensor`` stand-ins on ``cuda:0`` without running, at
     llama3-8b-bench width: the bridge's forward claims rms_norm 1, sdpa_fwd
-    L, rms_norm_residual 2L and ce_fwd 1, its backward sdpa_bwd L; the
-    grad-free program rms_norm 1, sdpa_fwd L (the lse-free ``sdpa``),
-    rms_norm_residual 2L, linear_act L and ce_fwd 1."""
+    L, rms_norm_residual 2L and ce_fwd 1, its backward sdpa_bwd L (the cost
+    model, forward and backward counted, keeps the per-op rung); the
+    grad-free program, whose forward-only verdict plans each MLP sub-block,
+    rms_norm 1 + L, sdpa_fwd L (the lse-free ``sdpa``), mlp_subblock L and
+    ce_fwd 1, and with ``block_fusion=False`` (phase 20's program)
+    rms_norm 1, sdpa_fwd L, rms_norm_residual 2L, linear_act L and ce_fwd 1."""
     mode = FakeTensorMode()
 
     def fake(shape, dtype):
@@ -557,9 +560,19 @@ def test_plain_llama_claims_on_the_card(plain_llama):
     assert claimed_kernels(step.fwd_trace) == {"rms_norm": 1, "sdpa_fwd": L,
                                                "rms_norm_residual": 2 * L, "ce_fwd": 1}
     assert claimed_kernels(step.bwd_trace) == {"sdpa_bwd": L}
+    assert [d["decision"] for d in ptt.compile_stats(tm).last_decisions
+            if d["kind"] == "block"] == ["cost-rejected"] * L
     with torch.no_grad():
         tm._jfn.compile(dict(m.named_parameters()), {}, False, (tok, tgt), {})
     assert claimed_kernels(ptt.last_execution_trace(tm)) == {
+        "rms_norm": 1 + L, "sdpa_fwd": L, "mlp_subblock": L, "ce_fwd": 1}
+    assert [d["decision"] for d in ptt.compile_stats(tm).last_decisions
+            if d["kind"] == "block"] == ["planned"] * L
+    per_op = ptt.jit(m, block_fusion=False)
+    per_op._jfn.device = torch.device("cuda:0")
+    with torch.no_grad():
+        per_op._jfn.compile(dict(m.named_parameters()), {}, False, (tok, tgt), {})
+    assert claimed_kernels(ptt.last_execution_trace(per_op)) == {
         "rms_norm": 1, "sdpa_fwd": L, "rms_norm_residual": 2 * L, "linear_act": L, "ce_fwd": 1}
 
 

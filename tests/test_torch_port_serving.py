@@ -444,8 +444,10 @@ def test_port_imports_no_jax():
     runtime-safety layer's — observe/, runtime/, transforms/ — and the
     serving fleet's — prefix_cache, supervisor, events, the generate
     benchmark — and the model zoo's — mixtral, gpt, nanogpt, seq2seq,
-    resnet, the zoo benchmark and the float32 attention probe — named below so
-    that none can drop out of the walk unnoticed): neither jax nor
+    resnet, the zoo benchmark and the float32 attention probe — and the
+    trace compiler's planner — compile_data, cost_model, fusion_passes,
+    decisions — named below so that none can drop out of the walk
+    unnoticed): neither jax nor
     thunder_tpu (or any thunder_tpu.* module) is loaded."""
     repo = Path(__file__).resolve().parents[1]
     code = (
@@ -463,7 +465,9 @@ def test_port_imports_no_jax():
         "        'transforms.numerics_guard', 'serving.prefix_cache', 'serving.supervisor',\n"
         "        'serving.events', 'benchmarks.generate', 'models.mixtral', 'models.gpt',\n"
         "        'models.nanogpt', 'models.seq2seq', 'models.resnet', 'benchmarks.zoo',\n"
-        "        'benchmarks.f32_attention', 'core.transforms', 'torch.autograd_bridge')]\n"
+        "        'benchmarks.f32_attention', 'core.transforms', 'torch.autograd_bridge',\n"
+        "        'core.compile_data', 'core.cost_model', 'core.fusion_passes',\n"
+        "        'observe.decisions')]\n"
         "missing = [m for m in need if m not in sys.modules]\n"
         "n = sum(m.startswith('thunder_tpu_torch') for m in sys.modules)\n"
         "print(n, bad, missing)\n"

@@ -50,10 +50,13 @@ single-card serving fleet and the model zoo:
   the guarded train step (``pretrain.run(guard=...)``);
 - the trace compiler: :func:`jit` traces a PyTorch function or an
   ``nn.Module`` into printable, executable traces (:func:`last_traces`),
-  runs DCE, CSE and the
-  epilogue pass, and hands ``rms_norm``, ``rms_norm_residual``,
-  ``linear_act``, attention forward and backward, cross-entropy and the
-  multi-tensor AdamW of CUDA tensors to the kernels
+  runs DCE, CSE and the block, horizontal, epilogue and optimizer passes
+  under an H100 cost model (:mod:`thunder_tpu_torch.core.cost_model`;
+  ``jit(f, block_fusion=..., ...)``, :func:`last_compile_options`, the
+  decision log), and hands ``rms_norm``, ``rms_norm_residual``,
+  ``linear_act``, the MLP sub-block forward and backward, attention forward
+  and backward, cross-entropy and the multi-tensor AdamW of CUDA tensors to
+  the kernels
   (:mod:`thunder_tpu_torch.executors.cudaex_claims`); every other prim runs
   as one torch call. :func:`value_and_grad` and :func:`grad` differentiate
   inside a traced function (trace-level autograd,
@@ -110,7 +113,9 @@ from thunder_tpu_torch.runtime.faults import KernelExecutionError  # noqa: E402
 
 
 class CompileStats:
-    """Cache counters, the last compile's traces, and its stage times."""
+    """Cache counters, the last compile's traces, its stage times, and its
+    decision log (``last_decisions``: every claim, rejection and fusion
+    verdict with its cost numbers, :mod:`thunder_tpu_torch.observe.decisions`)."""
 
     def __init__(self):
         self.cache_hits = 0
@@ -118,11 +123,15 @@ class CompileStats:
         self.last_traces: list[TraceCtx] = []
         self.last_prologue_traces: list[TraceCtx] = []
         self.last_pass_times: dict[str, float] = {}
+        self.last_decisions: list[dict] = []
 
     def summary(self) -> str:
         lines = [f"cache: {self.cache_misses} miss(es), {self.cache_hits} hit(s)"]
         for name, ms in self.last_pass_times.items():
             lines.append(f"  {name}: {ms:.2f} ms")
+        if self.last_decisions:
+            lines.append(f"decisions recorded: {len(self.last_decisions)} "
+                         f"(CompileStats.last_decisions)")
         return "\n".join(lines)
 
     def __repr__(self):
@@ -243,14 +252,17 @@ class ThunderTPUFunction:
     where nothing later reads their old values), and after a call their
     old values are gone."""
 
-    def __init__(self, fn: _Callable, *, transforms: _Sequence = (), device=None,
-                 fn_name: str | None = None, donate_argnums: int | _Sequence[int] = ()):
+    def __init__(self, fn: _Callable, *, executors=None, transforms: _Sequence = (),
+                 device=None, fn_name: str | None = None,
+                 donate_argnums: int | _Sequence[int] = (), **compile_options):
         from thunder_tpu_torch.executors import resolve_executors
 
         if transforms:
-            raise NotImplementedError("jit(transforms=...) is not ported yet (ROADMAP A.7)")
+            raise NotImplementedError("jit(transforms=...) is not ported yet (ROADMAP A.7.6)")
         self.fn = fn
-        self.executors = resolve_executors(None)
+        self.executors = resolve_executors(executors)
+        self.compile_options = dict(compile_options)
+        self._compile_ctx = None   # the last compile's CompileContext (the options report)
         self.device = _devices.to_device(device) if device is not None else None
         self.donate_argnums = ((donate_argnums,) if isinstance(donate_argnums, int)
                                else tuple(donate_argnums))
@@ -376,10 +388,25 @@ class ThunderTPUFunction:
         pro.set_provenance("Prologue (input guards)")
         return pro
 
+    @_contextmanager
+    def compiling(self):
+        """The context every compile of this function runs in: its compile
+        options and executor stack (read by the passes, and by the block
+        planner before autodiff), and a fresh decision log. Yields the log,
+        which becomes ``CompileStats.last_decisions`` when the compile
+        succeeds (a failed compile leaves the last one's)."""
+        from thunder_tpu_torch.core.compile_data import CompileContext, compile_context
+        from thunder_tpu_torch.observe import decisions as _decisions
+
+        self._compile_ctx = CompileContext(self.compile_options, executors=self.executors)
+        with compile_context(self._compile_ctx), _decisions.collect() as log:
+            yield log
+        self._stats.last_decisions = log
+
     def _compile(self, flat, treedef, donated: set[int] = frozenset()) -> CacheEntry:
         _faults.maybe_fail("compile", site=self.fn_name)
         pass_times: dict[str, float] = {}
-        with _observe.span("compile", args={"fn": self.fn_name}):
+        with self.compiling(), _observe.span("compile", args={"fn": self.fn_name}):
             entry = self._compile_instrumented(flat, treedef, pass_times, donated)
         self._stats.last_pass_times = pass_times
         _observe.inc("compile.count")
@@ -412,14 +439,25 @@ class ThunderTPUFunction:
         return self._stats.cache_misses
 
 
-def jit(fn=None, **jit_kwargs):
+def jit(fn=None, *, executors=None, **compile_options):
     """Compile a PyTorch function or ``nn.Module``: trace -> DCE/CSE -> the
-    epilogue pass -> the claim pass -> ``del`` insertion -> a generated
-    Python program, cached by the guard key. ``device=`` sets the default
-    device (``cuda`` unless given) for what has none of its own.
-    ``donate_argnums=`` (the reference's option) donates the tensor leaves
-    of those positional arguments: the program may update them in place.
-    The executor stack is ``cuda`` then the always-on ``torch`` executor.
+    fusion passes (block, horizontal, epilogue, optimizer) -> the claim
+    pass -> ``del`` insertion -> a generated Python program, cached by the
+    guard key. ``device=`` sets the default device (``cuda`` unless given)
+    for what has none of its own. ``donate_argnums=`` (the reference's
+    option) donates the tensor leaves of those positional arguments: the
+    program may update them in place. The executor stack is ``executors``
+    (names or executors; default ``cuda``) closed by the always-on
+    ``torch`` executor; a stack without ``cuda`` is refused for tensors on
+    the card. Any other keyword is a free-form compile option the passes
+    read by name (``block_fusion``, ``horizontal_fusion``,
+    ``fused_optimizer``, ``epilogue_fusion``: True forces, False disables,
+    unset asks the cost model,
+    :mod:`thunder_tpu_torch.core.cost_model`); :func:`last_compile_options`
+    reports which were read, and ``compile_stats(f).last_decisions`` every
+    verdict with its cost numbers. Inside a differentiated function the
+    block planner runs before autodiff, so a planned MLP sub-block trains
+    through ``mlp_subblock`` and ``mlp_subblock_bwd``.
     The function is traced through the torch front end
     (:mod:`thunder_tpu_torch.torch`): torch, ``torch.nn.functional`` and
     tensor-method calls, the routers of ``ops/``, a user's
@@ -434,10 +472,10 @@ def jit(fn=None, **jit_kwargs):
     unmodified training loop (``loss = tm(x); loss.backward();
     opt.step()``) trains it through the claimed kernels."""
     if fn is None:
-        return lambda f: jit(f, **jit_kwargs)
+        return lambda f: jit(f, executors=executors, **compile_options)
     from thunder_tpu_torch.torch import jit as _torch_jit
 
-    return _torch_jit(fn, **jit_kwargs)
+    return _torch_jit(fn, executors=executors, **compile_options)
 
 
 def value_and_grad(fn: _Callable, argnums=0, has_aux: bool = False) -> _Callable:
@@ -494,4 +532,24 @@ def cache_misses(jfn) -> int:
 
 def compile_stats(jfn) -> CompileStats:
     return _as_tfn(jfn)._stats
+
+
+def last_compile_options(jfn) -> str:
+    """Which compile options the last compile read (with their
+    descriptions) and which passed options nothing read."""
+    from thunder_tpu_torch.core.compile_data import used_and_unused_options
+
+    ctx = _as_tfn(jfn)._compile_ctx
+    if ctx is None:
+        return "no compilation has run yet"
+    queried, unused = used_and_unused_options(ctx)
+    lines = ["queried compile options:"]
+    for name, desc in sorted(queried.items()):
+        mark = "set" if name in ctx.options else "default"
+        lines.append(f"  {name} [{mark}]: {desc}")
+    if unused:
+        lines.append("passed but never queried (possibly misspelled):")
+        for name in sorted(unused):
+            lines.append(f"  {name}")
+    return "\n".join(lines)
 

@@ -10,11 +10,13 @@ default ``llama2-7b-bench``), ``--layers`` (BENCH_LAYERS, 2), ``--batch``
 f32 second; ``bf16_all`` both bf16), ``--slab-state`` (BENCH_SLAB_STATE=1:
 m and v live in persistent per-dtype slabs, one ``fused_adamw_slab`` launch
 per step), ``--remat`` (BENCH_REMAT=1: every layer a checkpointed region).
-``--block-fusion`` takes the reference's planned rung, which its cost model
-picks at this shape without remat (``cost_model.subblock_cost(16384, 4096,
-11008, 2)`` is VMEM-feasible and saves an estimated 2278.6 us per layer), so
-``--slab-state --block-fusion`` is the reference's default step there; under
-``--remat`` it has no effect, as in the reference. ``AdamW(lr=1e-4)`` with
+``--block-fusion`` takes the reference's planned rung, which the
+reference's TPU cost model picks at this shape without remat, so
+``--slab-state --block-fusion`` is the reference's default step there;
+under ``--remat`` it has no effect, as in the reference. Unset, the port's
+own cost model picks (``fusion_passes.mlp_block_verdict``: the per-op rung
+at this shape, where the card measured the kernel pair slower, PERF.md
+§6 rows 7-8); ``--no-block-fusion`` forces the per-op rung. ``AdamW(lr=1e-4)`` with
 those state dtypes, tokens from ``--seed`` as ``bench.py:146-148`` makes
 them, random weights from ``--seed``.
 
@@ -70,7 +72,7 @@ def make_opt(opt_state: str = "bf16", slab_state: bool = False) -> AdamW:
 
 def run(model: str = "llama2-7b-bench", layers: int = 2, batch: int = 8, seq: int = 2048,
         steps: int = 10, loss: str = "fused", opt_state: str = "bf16",
-        slab_state: bool = False, remat: bool = False, block_fusion: bool = False,
+        slab_state: bool = False, remat: bool = False, block_fusion: bool | None = None,
         device=None, seed: int = 0, profile: int = 0, params: dict | None = None,
         state: dict | None = None, sentinel: bool = True) -> dict:
     """One warm-up step and ``steps`` timed steps of the bench's train step
@@ -110,8 +112,9 @@ def main() -> None:
     ap.add_argument("--slab-state", action="store_true",
                     help="m and v in persistent per-dtype slabs (AdamW(slab_persistent=True))")
     ap.add_argument("--remat", action="store_true", help="checkpoint every layer")
-    ap.add_argument("--block-fusion", action="store_true",
-                    help="the planned rung: one mlp_subblock kernel pair per layer")
+    ap.add_argument("--block-fusion", action=argparse.BooleanOptionalAction, default=None,
+                    help="the planned rung (one mlp_subblock kernel pair per layer) or, with "
+                         "--no-block-fusion, the per-op rung; unset, the cost model picks")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", type=int, default=0,

@@ -21,15 +21,17 @@ clipped to ``vocab_size - 1``, as the reference clips them, and reach the
 card from pinned host memory by an asynchronous copy. ``--audit`` prints
 each timed step's loss to stderr, as the reference's does.
 
-Two rungs of the reference's step. The default is its per-op rung
-(``tt.jit(train_step, block_fusion=False)``). ``--block-fusion`` is its
-planned rung: one ``mlp_subblock`` kernel per layer, forward and backward.
-The reference's ``tt.jit(train_step)`` leaves ``block_fusion`` unset and its
-cost model decides; at llama3-8b-bench's train shape (B=8, T=2048:
-``cost_model.subblock_cost(16384, 4096, 14336, 2)``) the sub-block is
-VMEM-feasible (15.7 of 16 MB) and saves an estimated 2672.6 us per layer,
-so the planner plans it, and ``--block-fusion`` reproduces the reference's
-default step there. The port has no cost model, so the choice is explicit.
+Two rungs of the reference's step: its per-op rung
+(``tt.jit(train_step, block_fusion=False)``) and its planned rung
+(``--block-fusion``): one ``mlp_subblock`` kernel per layer, forward and
+backward. The reference's ``tt.jit(train_step)`` leaves ``block_fusion``
+unset and its cost model decides; so does the default here
+(``core.fusion_passes.mlp_block_verdict``, the compiled planner's own
+verdict: the port's cost model with the card's constants, forward and
+backward counted). At llama3-8b-bench's train shape (B=8, T=2048) it picks
+the per-op rung, which the card measured faster (PERF.md §5);
+``--no-block-fusion`` forces the per-op rung. The compiled step
+(:func:`jit_train_step`) asks the same model inside ``jit``.
 
 Prints one JSON line: step time, tokens/s, peak device memory, the share of
 the H100's 989 TFLOP/s dense bf16 peak reached (NVIDIA data sheet, SXM
@@ -59,6 +61,7 @@ import time
 import numpy as np
 import torch
 
+from thunder_tpu_torch.core import fusion_passes
 from thunder_tpu_torch.data import ShardedTokenStream
 from thunder_tpu_torch.devices import resolve_device
 from thunder_tpu_torch.executors import cudaex
@@ -153,14 +156,18 @@ def train_step(params: dict, opt: AdamW, opt_state: dict, tokens: torch.Tensor,
     return value
 
 
-def jit_train_step(cfg: llama.LlamaConfig, opt: AdamW, *, remat: bool = False):
+def jit_train_step(cfg: llama.LlamaConfig, opt: AdamW, *, remat: bool = False,
+                   **compile_options):
     """The reference's compiled train step (``thunder_tpu/benchmarks/
     pretrain.py:84-90``): ``train_step(params, opt_state, tokens, targets)
     -> (loss, params, opt_state)`` is ``value_and_grad(loss_fn)`` followed
     by ``opt.update``, compiled by ``jit`` with the parameters and the
     optimizer state donated, so the claimed ``fused_adamw`` writes them in
     place. ``remat`` checkpoints every layer (trace-level regions).
-    ``run`` stays on the eager :func:`train_step` (ROADMAP A.7.5)."""
+    ``compile_options`` go to ``jit``; ``block_fusion`` is left unset, as
+    the reference leaves it, so the planner's cost model decides (True
+    plans every MLP sub-block). ``run`` stays on the eager
+    :func:`train_step` (ROADMAP A.7.5)."""
     import thunder_tpu_torch as ptt
 
     def train_step(params, opt_state, tokens, targets):
@@ -168,7 +175,7 @@ def jit_train_step(cfg: llama.LlamaConfig, opt: AdamW, *, remat: bool = False):
             lambda p: llama.loss_fn(p, tokens, targets, cfg, remat=remat))(params)
         return loss, *opt.update(params, grads, opt_state)
 
-    return ptt.jit(train_step, donate_argnums=(0, 1))
+    return ptt.jit(train_step, donate_argnums=(0, 1), **compile_options)
 
 
 def _family(name: str) -> str:
@@ -181,7 +188,7 @@ def _family(name: str) -> str:
 
 def run(model: str = "tiny", layers: int | None = None, batch: int = 4, seq: int = 256,
         steps: int = 10, lr: float = 1e-4, seed: int = 0, device=None, profile: int = 0,
-        params: dict | None = None, block_fusion: bool = False, loss: str = "naive",
+        params: dict | None = None, block_fusion: bool | None = None, loss: str = "naive",
         remat: bool = False, opt: AdamW | None = None, state: dict | None = None,
         data: str | None = None, data_seed: int = 0, start_step: int = 0,
         audit: bool = False, guard: NumericsGuard | bool | None = None) -> dict:
@@ -194,11 +201,19 @@ def run(model: str = "tiny", layers: int | None = None, batch: int = 4, seq: int
     are in ``per_step``. ``opt`` defaults to ``AdamW(lr=lr)`` and
     ``state``, the optimizer state the steps update in place, to
     ``opt.init(params)``; ``loss`` and ``remat`` are
-    :func:`loss_and_grads`'s. ``guard`` (a :class:`NumericsGuard`, or True
-    for one with the default policy) runs every step under the numerics
-    guard."""
+    :func:`loss_and_grads`'s. ``block_fusion`` None asks the cost model
+    (``fusion_passes.mlp_block_verdict`` at this step's shapes, the verdict
+    the compiled step's planner takes; reported as ``block_fusion_verdict``).
+    ``guard`` (a :class:`NumericsGuard`, or True for one with the default
+    policy) runs every step under the numerics guard."""
     dev = resolve_device(device)
     cfg = llama.CONFIGS[model]
+    verdict = None
+    if block_fusion is None:
+        verdict = fusion_passes.mlp_block_verdict(batch * seq, cfg.dim, cfg.intermediate_size,
+                                                  cfg.dtype.itemsize, backward=True,
+                                                  checkpointed=remat)
+        block_fusion = verdict["planned"]
     n_layers = layers if layers is not None else cfg.n_layers
     on_card = dev.type == "cuda"
     if on_card:
@@ -254,7 +269,8 @@ def run(model: str = "tiny", layers: int | None = None, batch: int = 4, seq: int
     fpt = llama.flops_per_token(cfg, seq, n_layers)
     result = {
         "model": cfg.name, "layers": n_layers, "batch": batch, "seq": seq, "steps": steps,
-        "lr": lr, "seed": seed, "block_fusion": block_fusion, "loss": loss, "remat": remat,
+        "lr": lr, "seed": seed, "block_fusion": block_fusion,
+        "block_fusion_verdict": verdict, "loss": loss, "remat": remat,
         "slab_persistent": opt.slab_persistent,
         "opt_state": [str(d).replace("torch.", "") for d in (opt.state_dtype, opt.v_dtype)],
         "device": str(dev), "dtype": str(cfg.dtype).replace("torch.", ""),
@@ -354,8 +370,9 @@ def main() -> None:
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--profile", type=int, default=0,
                     help="trace this many more steps with torch.profiler")
-    ap.add_argument("--block-fusion", action="store_true",
-                    help="the planned rung: one mlp_subblock kernel pair per layer")
+    ap.add_argument("--block-fusion", action=argparse.BooleanOptionalAction, default=None,
+                    help="the planned rung (one mlp_subblock kernel pair per layer) or, with "
+                         "--no-block-fusion, the per-op rung; unset, the cost model picks")
     ap.add_argument("--data", default=None,
                     help="token file (uint16) to stream the batches from (epoch-exact "
                          "shuffle, prefetch, restart-deterministic); default: one synthetic "

@@ -1,53 +1,310 @@
-"""The epilogue fusion pass: pattern rewrites into claimable composites.
+"""The trace compiler's fusion passes: trace-to-trace rewrites into claimable
+composites, run at the top of ``transform_for_execution`` before the claim
+pass (block, horizontal, epilogue, optimizer), and the block planner's entry
+before autodiff.
 
-The counterpart of the epilogue half of ``thunder_tpu/core/fusion_passes.py``
-(``_some_executor_claims`` :305, ``_build_composite`` :328,
-``_rms_residual_pattern`` :353, ``_linear_act_pattern`` :412,
-``epilogue_fusion_pass`` :1447), run at the top of
-``transform_for_execution`` before the claim pass:
+The counterpart of ``thunder_tpu/core/fusion_passes.py``:
 
-- ``add(residual, x)`` followed by ``nn.rms_norm`` of the sum becomes
-  ``nn.rms_norm_residual``, which produces both the residual stream and the
-  normed value (the escaping-intermediate form of ``patterns.rewrite``);
-- ``nn.linear`` followed by relu, silu or gelu becomes ``nn.linear_act``.
+- **block fusion** (``block_fusion_pass`` :641, its MLP stage
+  ``_mlp_block_pass`` :710, and ``plan_blocks_for_autodiff`` :1429): a
+  transformer MLP sub-block chain ``add(residual, x) -> nn.rms_norm ->
+  {nn.linear -> act, nn.linear} -> mul -> nn.linear -> add`` becomes one
+  ``nn.mlp_subblock``, which the ``cuda`` executor hands to the
+  ``mlp_subblock`` kernel and whose VJP rule emits ``nn.mlp_subblock_bwd``.
+  The ``block_fusion`` option forces (True), disables (False) or leaves the
+  verdict to ``core.cost_model.subblock_cost`` (unset: forward only for a
+  grad-free trace, forward and backward before autodiff). The kernel's own
+  refusal (``cudaex.refusal`` on meta tensors) takes the place of the
+  reference's VMEM gate: a chain the kernel would not take is recorded
+  ``unclaimed`` with the refusal's text. A chain whose claim the quarantine
+  routes off is not planned, so a recompile takes the per-op rung: the port
+  runs no decomposition on the card in a kernel's place. The decode stages
+  (``_attn_block_pass``, ``_decode_chain_pass``) come with the serving
+  planner (ROADMAP A.7.5);
+- **horizontal fusion** (``horizontal_fusion_pass`` :191): sibling GEMMs
+  (``dot_general`` prims, or single-product ``nn.linear``) over one shared
+  operand merge into one GEMM over the concatenated other operands, then
+  slices (the ``horizontal_fusion`` option, else
+  ``cost_model.horizontal_merge_profitable``);
+- **epilogue fusion** (``epilogue_fusion_pass`` :1447): ``add(residual, x)``
+  then ``nn.rms_norm`` of the sum becomes ``nn.rms_norm_residual``;
+  ``nn.linear`` then relu, silu or gelu becomes ``nn.linear_act``; only
+  where an executor claims the fused composite;
+- **optimizer fusion** (``optimizer_fusion_pass`` :471): the traced AdamW's
+  per-parameter ``optim.adamw_step`` chains are bucketed by dtype into
+  ``optim.fused_adamw`` calls, one kernel launch a bucket (the
+  ``fused_optimizer`` option, else ``cost_model.fused_adamw_profitable``).
 
-A match is rewritten only where an executor in the stack claims the fused
-composite for those arguments, so a CPU trace keeps its ops as they are.
-The reference's horizontal, block and optimizer passes and its cost model
-are not ported yet (ROADMAP A.7).
+Every verdict goes to the decision log (``observe/decisions.py``) with the
+cost model's numbers.
 """
 
 from __future__ import annotations
 
+from thunder_tpu_torch.core import cost_model
+from thunder_tpu_torch.core.compile_data import get_compile_option
 from thunder_tpu_torch.core.patterns import Pattern, rewrite
 from thunder_tpu_torch.core.prims import PrimIDs
 from thunder_tpu_torch.core.proxies import Proxy, TensorProxy, Variable
 from thunder_tpu_torch.core.pytree import tree_flatten
 from thunder_tpu_torch.core.symbol import BoundSymbol
-from thunder_tpu_torch.core.trace import TraceCtx, tracectx
+from thunder_tpu_torch.core.trace import TraceCtx, from_trace, tracectx
+from thunder_tpu_torch.observe import decisions as _decisions
 from thunder_tpu_torch.observe import registry as _observe
+from thunder_tpu_torch.runtime import quarantine as _quarantine
 
+HORIZONTAL_MARKER = "horizontal fusion"
 EPILOGUE_MARKER = "epilogue fusion"
+OPTIMIZER_MARKER = "optimizer fusion"
+BLOCK_MARKER = "block fusion"
+
+# Every verdict the block planner can record, with its meaning (the
+# reference's names; its "vmem-infeasible" has no counterpart: the kernel's
+# refusal is recorded as "unclaimed"; "dist-annotated" comes with the
+# distributed proxies (ROADMAP A.2), the decode stages' "chained",
+# "chain-blocked" and "mesh-rung-capped" with them (A.7.5)).
+BLOCK_DECISION_KINDS = {
+    "planned": "chain rewritten into one claimed nn.mlp_subblock kernel",
+    "interior-escapes": "an interior value of the chain is consumed outside "
+                        "it (or is a trace output); fusing would hide a "
+                        "value someone still reads",
+    "cost-rejected": "the estimated per-op chain beats the kernel (the "
+                     "saved interior bytes lose to the launch and the "
+                     "kernel's fitted rate; before autodiff, with both "
+                     "backwards counted)",
+    "unclaimed": "no executor claims the fused composite (checker refused, "
+                 "the kernel refuses the shapes, or the claim is "
+                 "quarantined)",
+    "rebuild-mismatch": "the composite retrace produced different output "
+                        "metadata than the original chain (kept unfused)",
+}
 
 
-def _some_executor_claims(executors, op_id: str, args, kwargs) -> bool:
-    """Would an executor in the stack claim the fused composite?"""
+def _rebuild_trace(trc: TraceCtx, replacements: dict, dropped: set, provenance: str) -> TraceCtx:
+    new = from_trace(trc)
+    out: list[BoundSymbol] = []
+    for i, b in enumerate(trc.bound_symbols):
+        if i in replacements:
+            out.extend(replacements[i])
+        elif i not in dropped:
+            out.append(b)
+    new.bound_symbols = out
+    new.set_provenance(provenance)
+    return new
+
+
+# ---------------------------------------------------------------------------
+# horizontal GEMM merging
+# ---------------------------------------------------------------------------
+
+def _dot_general_facts(bsym: BoundSymbol):
+    """(a, b, contract_dims, preferred_element_type) of a mergeable GEMM:
+    the ``dot_general`` prim (training traces, whose linears autodiff
+    replayed as prims) or a bias-free ``nn.linear`` whose decomposition is
+    that one prim (grad-free traces); else None."""
+    if bsym.sym.id == "nn.linear":
+        if len(bsym.subsymbols) != 1:
+            return None
+        bsym = bsym.subsymbols[0]
+    if bsym.sym.id is not PrimIDs.DOT_GENERAL or len(bsym.args) < 2:
+        return None
+    a, b = bsym.args[0], bsym.args[1]
+    if not (isinstance(a, TensorProxy) and isinstance(b, TensorProxy)):
+        return None
+    contract = bsym.kwargs.get("contract_dims")
+    if contract is None and len(bsym.args) > 2:
+        contract = bsym.args[2]
+    batch = bsym.kwargs.get("batch_dims", ((), ()))
+    if contract is None or tuple(batch[0]) or tuple(batch[1]):
+        return None
+    pet = bsym.kwargs.get("preferred_element_type")
+    return a, b, (tuple(contract[0]), tuple(contract[1])), pet
+
+
+def _single_free_dim(t: TensorProxy, contracted: tuple[int, ...]) -> int | None:
+    free = [d for d in range(t.ndim) if d not in contracted]
+    return free[0] if len(free) == 1 else None
+
+
+def _merge_group(trc: TraceCtx, members: list, shared_pos: int,
+                 free_dim: int) -> list[BoundSymbol]:
+    """One sibling group's replacement: the varying operands concatenated
+    along their free dim, one ``dot_general``, and slices that bind the
+    members' own output proxies (their consumers are untouched)."""
+    from thunder_tpu_torch import ops
+    from thunder_tpu_torch.core import prims
+
+    varying_pos = 1 - shared_pos
+    _, _, facts0 = members[0]
+    shared = facts0[shared_pos]
+    contract, pet = facts0[2], facts0[3]
+    varying = [f[varying_pos] for _, _, f in members]
+    widths = [int(v.shape[free_dim]) for v in varying]
+
+    tmp = TraceCtx("horizontal_fusion")
+    tmp._names = trc._names   # one name registry: no collisions
+    tmp._counters = trc._counters
+    with tracectx(tmp):
+        w_cat = ops.cat(list(varying), free_dim)
+        operands = (shared, w_cat) if shared_pos == 0 else (w_cat, shared)
+        kwargs = dict(contract_dims=contract)
+        if pet is not None:
+            kwargs["preferred_element_type"] = pet
+        merged = prims.dot_general(*operands, **kwargs)
+        # the merged output is [a's free dims..., b's free dim]: the varying
+        # free dim is last when operand 1 varies, first when operand 0 does
+        slice_axis = merged.ndim - 1 if varying_pos == 1 else 0
+        offset = 0
+        parts = []
+        for w in widths:
+            parts.append(ops.narrow(merged, slice_axis, offset, w))
+            offset += w
+    swap = {}
+    for (_, m, _f), part in zip(members, parts):
+        old = m.flat_proxy_outs()[0]
+        if isinstance(part, Proxy) and part.name != old.name:
+            swap[Variable(part)] = old
+    out = [b.from_bsym_swap_proxies(swap) for b in tmp.bound_symbols]
+    for b in out:
+        if b.sym.id is PrimIDs.DOT_GENERAL:
+            b.header = (f"{HORIZONTAL_MARKER}: merged {len(members)} sibling "
+                        f"dot_generals (widths {'+'.join(map(str, widths))})")
+    return out
+
+
+def horizontal_fusion_pass(trc: TraceCtx) -> TraceCtx:
+    """Merge sibling GEMMs over a shared operand (the q/k/v pattern)."""
+    enabled = get_compile_option(
+        "horizontal_fusion",
+        "merge sibling dot_generals sharing an operand (q/k/v, the MLP's gate and up) into "
+        "one GEMM over the concatenated operands: True = always, False = never, unset = "
+        "cost-model decision", None)
+    if enabled is False:
+        return trc
+    bsyms = trc.bound_symbols
+
+    defined_at: dict[str, int] = {}
+    for p in trc.args:
+        if isinstance(p, Proxy):
+            defined_at[p.name] = -1
+    for i, b in enumerate(bsyms):
+        for o in b.flat_proxy_outs():
+            defined_at.setdefault(o.name, i)
+
+    # candidate groups: the same shared operand at the same position, the
+    # same contraction, varying operands with one free dim and one dtype
+    groups: dict[tuple, list] = {}
+    for i, b in enumerate(bsyms):
+        facts = _dot_general_facts(b)
+        if facts is None:
+            continue
+        contract, pet = facts[2], facts[3]
+        outs = b.flat_proxy_outs()
+        if len(outs) != 1:
+            continue
+        for shared_pos in (0, 1):
+            shared = facts[shared_pos]
+            varying = facts[1 - shared_pos]
+            free_dim = _single_free_dim(varying, contract[1 - shared_pos])
+            if free_dim is None:
+                continue
+            key = (shared.name, shared_pos, contract, str(pet), varying.dtype.name,
+                   varying.ndim, free_dim, outs[0].dtype.name)
+            groups.setdefault(key, []).append((i, b, facts))
+
+    merged_ids: set[int] = set()
+    replacements: dict[int, list[BoundSymbol]] = {}   # first member's index -> bsyms
+    dropped: set[int] = set()
+    n_merged = 0
+    for key, members in groups.items():
+        shared_pos, free_dim = key[1], key[6]
+        varying_pos = 1 - shared_pos
+        members = [m for m in members if id(m[1]) not in merged_ids]
+        if len(members) < 2:
+            continue
+        members.sort(key=lambda t: t[0])
+        first_idx = members[0][0]
+        # the merged op lands at the first member: every varying operand must
+        # be defined before it
+        members = [m for m in members
+                   if defined_at.get(m[2][varying_pos].name, m[0]) < first_idx]
+        if len(members) < 2:
+            continue
+        shared = members[0][2][shared_pos]
+        sc = key[2][shared_pos]
+        m_tokens = 1
+        for d in range(shared.ndim):
+            if d not in sc:
+                m_tokens *= int(shared.shape[d])
+        widths = [int(m[2][varying_pos].shape[free_dim]) for m in members]
+        group_cost = {"siblings": len(members), "m_tokens": m_tokens, "widths": widths,
+                      "shared": shared.name, "saved_reads": m_tokens * (len(members) - 1),
+                      "concat_write": sum(widths)}
+        if enabled is not True and not cost_model.horizontal_merge_profitable(m_tokens, widths):
+            _decisions.record("fusion", "horizontal_merge", None, "rejected",
+                              "cost model: concat write outweighs saved shared-operand "
+                              "reads (need m_tokens*(k-1) > sum(widths))", cost=group_cost)
+            continue
+        _decisions.record("fusion", "horizontal_merge", None, "merged",
+                          "forced by horizontal_fusion=True" if enabled is True
+                          else "cost model: saved reads beat the concat write",
+                          cost=group_cost)
+        _observe.inc("fusion.horizontal_merges")
+        replacements[first_idx] = _merge_group(trc, members, shared_pos, free_dim)
+        dropped.update(m[0] for m in members[1:])
+        merged_ids.update(id(m[1]) for m in members)
+        n_merged += 1
+
+    if not replacements:
+        return trc
+    return _rebuild_trace(trc, replacements, dropped,
+                          f"Horizontal fusion ({n_merged} sibling GEMM groups merged)")
+
+
+# ---------------------------------------------------------------------------
+# claim probes and composite rebuilds
+# ---------------------------------------------------------------------------
+
+def _claim_refusal(executors, op_id: str, args, kwargs, *,
+                   kernel: bool = False) -> str | None:
+    """Why no executor would claim the fused composite (None where one
+    would). Each executor's checker is asked. With
+    ``kernel`` (the block planner) a claim the quarantine routes off does
+    not count, and a kernel's refusal of the arguments is the answer: the
+    claim pass would raise it."""
+    reasons = []
     for ex in executors:
         impl = ex.implmap.get(op_id)
         if impl is None or impl.symbol is None:
             continue
         try:
-            if impl.checker is None or impl.checker(*args, **kwargs):
-                return True
+            if impl.checker is not None and not impl.checker(*args, **kwargs):
+                continue
+            if kernel and _quarantine.is_routed_off(impl.symbol.id):
+                reasons.append(f"{impl.symbol.id} is quarantined: "
+                               f"{_quarantine.quarantine_reason(impl.symbol.id)}")
+                continue
+            if kernel and impl.refusal is not None:
+                refused = impl.refusal(*args, **kwargs)
+                if refused is not None:
+                    reasons.append(refused)
+                    continue
+            return None
         except Exception:
             continue
-    return False
+    return "; ".join(reasons) or "no executor claims the fused composite (checker refused)"
+
+
+def _some_executor_claims(executors, op_id: str, args, kwargs) -> bool:
+    """Would an executor in the stack claim the fused composite?"""
+    return _claim_refusal(executors, op_id, args, kwargs) is None
 
 
 def _build_composite(trc: TraceCtx, op, args, kwargs, old_outs) -> list[BoundSymbol] | None:
     """Trace ``op(*args, **kwargs)`` into fresh bsyms and rebind its outputs
-    to ``old_outs`` (the proxies downstream consumers already reference)."""
-    tmp = TraceCtx("epilogue_fusion")
+    to ``old_outs`` (the proxies downstream consumers already reference);
+    None where the retrace's output metadata differs from the chain's."""
+    tmp = TraceCtx("fusion")
     tmp._names = trc._names
     tmp._counters = trc._counters
     with tracectx(tmp):
@@ -63,8 +320,13 @@ def _build_composite(trc: TraceCtx, op, args, kwargs, old_outs) -> list[BoundSym
     return [b.from_bsym_swap_proxies(swap) for b in tmp.bound_symbols]
 
 
+# ---------------------------------------------------------------------------
+# epilogue fusion
+# ---------------------------------------------------------------------------
+
 def _rms_residual_pattern(executors):
     def is_residual_add(b, env):
+        # a prim in training traces (autodiff's replay), a composite in grad-free ones
         if b.sym.id not in (PrimIDs.ADD, "ops.add") or len(b.args) != 2:
             return False
         r, x = b.args
@@ -95,13 +357,20 @@ def _rms_residual_pattern(executors):
         normed = rms_b.flat_proxy_outs()[0]
         weight = rms_b.args[1] if len(rms_b.args) > 1 else rms_b.kwargs.get("weight")
         eps = rms_b.kwargs.get("eps", rms_b.args[2] if len(rms_b.args) > 2 else 1e-5)
+        cost = {"pattern": "add+rms_norm",
+                "bytes_saved_roundtrip": cost_model.tensor_bytes(h) * 2}
         if not _some_executor_claims(executors, "nn.rms_norm_residual", (res, x, weight),
                                      {"eps": eps}):
+            _decisions.record("fusion", "nn.rms_norm_residual", None, "rejected",
+                              "no executor claims the fused composite "
+                              "(checker refused)", cost=cost)
             return None
         repl = _build_composite(trc, composites.rms_norm_residual, (res, x, weight),
                                 {"eps": eps}, [h, normed])
         if repl:
             repl[-1].header = f"{EPILOGUE_MARKER}: residual add absorbed into rms_norm"
+            _decisions.record("fusion", "nn.rms_norm_residual", None, "rewritten",
+                              "residual add absorbed into rms_norm", cost=cost)
             _observe.inc("fusion.epilogue_fusions")
         return repl
 
@@ -109,6 +378,16 @@ def _rms_residual_pattern(executors):
 
 
 _ACT_IDS = {"ops.relu": "relu", "ops.silu": "silu", "ops.gelu": "gelu"}
+
+
+def _chain_act(b: BoundSymbol) -> str | None:
+    """The activation a bound symbol applies (gelu's tanh form named
+    ``gelu_tanh``), or None."""
+    act = _ACT_IDS.get(b.sym.id)
+    if act == "gelu":
+        approx = b.kwargs.get("approximate", b.args[1] if len(b.args) > 1 else "none")
+        act = "gelu_tanh" if approx == "tanh" else "gelu"
+    return act
 
 
 def _linear_act_pattern(executors):
@@ -119,15 +398,12 @@ def _linear_act_pattern(executors):
         return True
 
     def is_act(b, env):
-        act = _ACT_IDS.get(b.sym.id)
+        act = _chain_act(b)
         if act is None:
             return False
         a = b.args[0] if b.args else None
         if not isinstance(a, Proxy) or a.name != env["lin_out"].name:
             return False
-        if act == "gelu":
-            approx = b.kwargs.get("approximate", b.args[1] if len(b.args) > 1 else "none")
-            act = "gelu_tanh" if approx == "tanh" else "gelu"
         env["act"] = act
         return True
 
@@ -139,13 +415,20 @@ def _linear_act_pattern(executors):
         lin_b, act_b = matched
         a, w = lin_b.args[0], lin_b.args[1]
         bias = lin_b.args[2] if len(lin_b.args) > 2 else lin_b.kwargs.get("bias")
+        out = act_b.flat_proxy_outs()[0]
         act = env["act"]
+        cost = {"pattern": f"linear+{act}",
+                "bytes_saved_roundtrip": cost_model.tensor_bytes(out) * 2}
         if not _some_executor_claims(executors, "nn.linear_act", (a, w, bias), {"act": act}):
+            _decisions.record("fusion", "nn.linear_act", None, "rejected",
+                              "no executor claims the fused composite "
+                              "(checker refused)", cost=cost)
             return None
-        repl = _build_composite(trc, composites.linear_act, (a, w, bias), {"act": act},
-                                [act_b.flat_proxy_outs()[0]])
+        repl = _build_composite(trc, composites.linear_act, (a, w, bias), {"act": act}, [out])
         if repl:
             repl[-1].header = f"{EPILOGUE_MARKER}: {act} epilogue fused into linear"
+            _decisions.record("fusion", "nn.linear_act", None, "rewritten",
+                              f"{act} epilogue fused into linear", cost=cost)
             _observe.inc("fusion.epilogue_fusions")
         return repl
 
@@ -154,6 +437,12 @@ def _linear_act_pattern(executors):
 
 def epilogue_fusion_pass(trc: TraceCtx, executors) -> TraceCtx:
     """Rewrite elementwise-epilogue chains into claimable fused composites."""
+    if not get_compile_option(
+            "epilogue_fusion",
+            "rewrite residual+rms_norm and linear+activation chains into fused composites "
+            "(nn.rms_norm_residual / nn.linear_act) where an executor in the stack claims "
+            "them", True):
+        return trc
     ids = {b.sym.id for b in trc.bound_symbols}
     if "nn.rms_norm" in ids:
         p, build = _rms_residual_pattern(executors)
@@ -162,3 +451,380 @@ def epilogue_fusion_pass(trc: TraceCtx, executors) -> TraceCtx:
         p, build = _linear_act_pattern(executors)
         trc = rewrite(trc, p, build)
     return trc
+
+
+# ---------------------------------------------------------------------------
+# optimizer fusion: the dtype-bucketed multi-tensor AdamW
+# ---------------------------------------------------------------------------
+
+def optimizer_fusion_pass(trc: TraceCtx, executors) -> TraceCtx:
+    """Bucket the per-parameter ``optim.adamw_step`` chains of the traced
+    ``AdamW.update`` by dtype into ``optim.fused_adamw`` calls, one kernel
+    launch a bucket. The bucket key is the four tensors' dtypes, the shared
+    bias corrections and the hyperparameters. A bucket of one stays its
+    chain; a bucket whose member output an interleaved op reads before the
+    fused call (placed at the last member) stays unfused; else
+    ``cost_model.fused_adamw_profitable`` decides (the ``fused_optimizer``
+    option forces or disables), and only where an executor claims the
+    fused composite."""
+    enabled = get_compile_option(
+        "fused_optimizer",
+        "bucket per-parameter optimizer update chains (optim.adamw_step) by dtype into "
+        "multi-tensor optim.fused_adamw calls, one kernel launch a bucket: True = always, "
+        "False = never, unset = cost-model decision", None)
+    if enabled is False:
+        return trc
+    bsyms = trc.bound_symbols
+    if not any(b.sym.id == "optim.adamw_step" for b in bsyms):
+        return trc
+    from thunder_tpu_torch.ops import optim as optim_ops
+
+    buckets: dict[tuple, list[tuple[int, BoundSymbol]]] = {}
+    for i, b in enumerate(bsyms):
+        if b.sym.id != "optim.adamw_step" or len(b.args) != 6:
+            continue
+        p, g, m, v, bc1, bc2 = b.args
+        if not all(isinstance(t, TensorProxy) for t in (p, g, m, v, bc1, bc2)):
+            continue
+        if len(b.flat_proxy_outs()) != 3:
+            continue
+        key = (p.dtype.name, g.dtype.name, m.dtype.name, v.dtype.name, bc1.name, bc2.name,
+               tuple(sorted((k, str(val)) for k, val in b.kwargs.items())))
+        buckets.setdefault(key, []).append((i, b))
+
+    replacements: dict[int, list[BoundSymbol]] = {}   # last member's index -> bsyms
+    dropped: set[int] = set()
+    n_fused = 0
+    for key, members in sorted(buckets.items(), key=lambda kv: kv[1][0][0]):
+        n = len(members)
+        total_bytes = sum(
+            cost_model.tensor_bytes(m_[1].args[1])              # g read
+            + 2 * (cost_model.tensor_bytes(m_[1].args[0])       # p read and written
+                   + cost_model.tensor_bytes(m_[1].args[2])     # m
+                   + cost_model.tensor_bytes(m_[1].args[3]))    # v
+            for m_ in members)
+        cost = dict(cost_model.fused_adamw_cost(n, total_bytes), dtypes=key[:4])
+        if n < 2:
+            _decisions.record("fusion", "optim.fused_adamw", None, "rejected",
+                              "singleton dtype bucket: nothing to amortize", cost=cost)
+            continue
+        member_idx = {m_[0] for m_ in members}
+        out_names = {o.name for _, b in members for o in b.flat_proxy_outs()}
+        first, last = members[0][0], members[-1][0]
+        interleaved = any(
+            j not in member_idx
+            and any(p_.name in out_names for p_ in bsyms[j].flat_proxy_args())
+            for j in range(first, last + 1))
+        if interleaved:
+            _decisions.record("fusion", "optim.fused_adamw", None, "rejected",
+                              "an interleaved bsym consumes a member's output before the "
+                              "bucketed call would produce it", cost=cost)
+            continue
+        if enabled is not True and not cost_model.fused_adamw_profitable(n, total_bytes):
+            _decisions.record("fusion", "optim.fused_adamw", None, "rejected",
+                              "cost model: bucketing estimate loses to the per-parameter "
+                              "chains", cost=cost)
+            continue
+        ps, gs, ms, vs = ([m_[1].args[j] for m_ in members] for j in range(4))
+        bc1, bc2 = members[0][1].args[4], members[0][1].args[5]
+        kwargs = dict(members[0][1].kwargs)
+        old_outs = [m_[1].flat_proxy_outs()[k] for k in range(3) for m_ in members]
+        if not _some_executor_claims(executors, "optim.fused_adamw", (ps, gs, ms, vs, bc1, bc2),
+                                     kwargs):
+            _decisions.record("fusion", "optim.fused_adamw", None, "rejected",
+                              "no executor claims the fused composite "
+                              "(checker refused)", cost=cost)
+            continue
+        repl = _build_composite(trc, optim_ops.fused_adamw_composite,
+                                (ps, gs, ms, vs, bc1, bc2), kwargs, old_outs)
+        if not repl:
+            _decisions.record("fusion", "optim.fused_adamw", None, "rejected",
+                              "rebuild metadata mismatch", cost=cost)
+            continue
+        repl[-1].header = (f"{OPTIMIZER_MARKER}: {n} adamw_step chains bucketed "
+                           f"({key[0]} params, {total_bytes >> 20} MiB moved)")
+        _decisions.record("fusion", "optim.fused_adamw", None, "bucketed",
+                          "forced by fused_optimizer=True" if enabled is True
+                          else "cost model: one launch a bucket beats the per-parameter "
+                               "chains", cost=cost)
+        _observe.inc("fusion.optimizer_buckets")
+        replacements[last] = repl
+        dropped.update(m_[0] for m_ in members[:-1])
+        n_fused += 1
+
+    if not replacements:
+        return trc
+    return _rebuild_trace(trc, replacements, dropped,
+                          f"Optimizer fusion ({n_fused} multi-tensor buckets)")
+
+
+# ---------------------------------------------------------------------------
+# block fusion: a transformer MLP sub-block chain -> one claimed kernel
+# ---------------------------------------------------------------------------
+
+_ADD_IDS = (PrimIDs.ADD, "ops.add")
+_MUL_IDS = (PrimIDs.MUL, "ops.mul")
+
+
+def _record_block(decision: str, reason: str, cost: dict | None,
+                  op: str = "nn.mlp_subblock") -> None:
+    assert decision in BLOCK_DECISION_KINDS, decision
+    _decisions.record("block", op, None, decision, reason, cost=cost)
+
+
+def _plain_linear(b: BoundSymbol):
+    """(input, weight) of a bias-free single-product ``nn.linear``, else
+    None: a kernel that absorbed a linear with more work would drop it."""
+    if b.sym.id != "nn.linear" or len(b.subsymbols) != 1:
+        return None
+    if b.subsymbols[0].sym.id is not PrimIDs.DOT_GENERAL:
+        return None
+    a, w = b.args[0], b.args[1]
+    if len(b.args) > 2 and b.args[2] is not None:
+        return None
+    if not (isinstance(a, TensorProxy) and isinstance(w, TensorProxy) and w.ndim == 2):
+        return None
+    return a, w
+
+
+def mlp_block_verdict(n_tokens: int, d_model: int, d_ff: int, dtype_bytes: int, *,
+                      backward: bool, checkpointed: bool = False) -> dict:
+    """The planner's cost verdict on one MLP sub-block chain of ``n_tokens``
+    rows: ``cost_model.subblock_cost`` (with both backwards where
+    ``backward``, the verdict taken before autodiff) and ``planned``. A
+    chain inside a checkpointed region is never planned: the pass sees no
+    chain there. The block pass and the eager entry points
+    (``benchmarks.pretrain.run``, ``benchmarks.bench.run``) read this one
+    verdict."""
+    cost = cost_model.subblock_cost(n_tokens, d_model, d_ff, dtype_bytes, backward=backward)
+    cost["planned"] = not checkpointed and cost_model.subblock_profitable(cost)
+    return cost
+
+
+def block_fusion_pass(trc: TraceCtx, executors, backward: bool = False) -> TraceCtx:
+    """The block planner, its MLP stage: each chain ``add(residual, x) ->
+    nn.rms_norm -> {nn.linear -> act, nn.linear} -> mul -> nn.linear ->
+    add`` becomes one ``nn.mlp_subblock``. It runs at two points: before
+    autodiff on the differentiated function's trace
+    (:func:`plan_blocks_for_autodiff`, ``backward=True``: the VJP rule then
+    commits ``nn.mlp_subblock_bwd``, whose claim the chain also needs), and
+    in ``transform_for_execution`` for grad-free traces. ``block_fusion=True``
+    forces planning past the cost gate, ``False`` disables the pass, unset
+    lets ``cost_model.subblock_cost`` decide. Every verdict is recorded
+    with one of :data:`BLOCK_DECISION_KINDS`."""
+    enabled = get_compile_option(
+        "block_fusion",
+        "plan transformer MLP sub-block chains into single claimed kernels "
+        "(nn.mlp_subblock, and its backward nn.mlp_subblock_bwd in a training trace): "
+        "True = always (skips the cost gate), False = never, unset = cost-model decision",
+        None)
+    if enabled is False or not executors:
+        return trc
+    return _mlp_block_pass(trc, executors, enabled, backward)
+
+
+def _mlp_block_pass(trc: TraceCtx, executors, enabled, backward: bool) -> TraceCtx:
+    bsyms = trc.bound_symbols
+    # the chain needs a composite rms_norm and composite linears (a trace
+    # after autodiff holds the linears as prims, already planned before it)
+    ids = {b.sym.id for b in bsyms}
+    if "nn.rms_norm" not in ids or "nn.linear" not in ids:
+        return trc
+
+    producer: dict[str, int] = {}
+    consumers: dict[str, list[int]] = {}
+    for i, b in enumerate(bsyms):
+        for p in b.flat_proxy_args():
+            consumers.setdefault(p.name, []).append(i)
+        for o in b.flat_proxy_outs():
+            producer.setdefault(o.name, i)
+    out_names = {o.name for o in tree_flatten(trc.output)[0] if isinstance(o, Proxy)}
+
+    def single_proxy_out(b):
+        outs = b.flat_proxy_outs()
+        return outs[0] if len(outs) == 1 else None
+
+    replacements: dict[int, list[BoundSymbol]] = {}   # the final add's index -> bsyms
+    dropped: set[int] = set()
+    used: set[int] = set()
+    n_planned = 0
+    for ri, rb in enumerate(bsyms):
+        if rb.sym.id != "nn.rms_norm" or ri in used:
+            continue
+        # -- the chain's structure ----------------------------------------
+        h = rb.args[0] if rb.args else None
+        if not isinstance(h, TensorProxy) or h.name not in producer:
+            continue
+        dim = rb.kwargs.get("dim", rb.args[3] if len(rb.args) > 3 else -1)
+        if dim not in (-1, h.ndim - 1):
+            continue
+        w_norm = rb.args[1] if len(rb.args) > 1 else rb.kwargs.get("weight")
+        if not isinstance(w_norm, TensorProxy):
+            continue
+        eps = rb.kwargs.get("eps", rb.args[2] if len(rb.args) > 2 else 1e-5)
+        ai = producer[h.name]
+        ab = bsyms[ai]
+        if ab.sym.id not in _ADD_IDS or len(ab.args) != 2:
+            continue
+        residual, xx = ab.args
+        if not (isinstance(residual, TensorProxy) and isinstance(xx, TensorProxy)):
+            continue
+        if tuple(residual.shape) != tuple(xx.shape) or residual.dtype != xx.dtype:
+            continue
+        n = single_proxy_out(rb)
+        if n is None:
+            continue
+        # the gate: a plain linear of n, an activation, a mul; the up path:
+        # another plain linear of n into the same mul
+        lin_consumers = []
+        for ci in consumers.get(n.name, ()):
+            if ci in used:
+                continue
+            facts = _plain_linear(bsyms[ci])
+            if facts is not None and facts[0].name == n.name:
+                lin_consumers.append(ci)
+        found = None
+        for gi in lin_consumers:
+            gout = single_proxy_out(bsyms[gi])
+            if gout is None:
+                continue
+            gcons = consumers.get(gout.name, ())
+            if len(gcons) != 1:
+                continue
+            actb = bsyms[gcons[0]]
+            act = _chain_act(actb)
+            if act is None or not actb.args \
+                    or getattr(actb.args[0], "name", None) != gout.name:
+                continue
+            aout = single_proxy_out(actb)
+            if aout is None:
+                continue
+            acons = consumers.get(aout.name, ())
+            if len(acons) != 1 or bsyms[acons[0]].sym.id not in _MUL_IDS:
+                continue
+            mi = acons[0]
+            mb = bsyms[mi]
+            if len(mb.args) != 2 or not all(isinstance(a, TensorProxy) for a in mb.args):
+                continue
+            other = mb.args[1] if mb.args[0].name == aout.name else mb.args[0]
+            ui = next((j for j in lin_consumers
+                       if j != gi and single_proxy_out(bsyms[j]) is not None
+                       and single_proxy_out(bsyms[j]).name == getattr(other, "name", None)),
+                      None)
+            if ui is None:
+                continue
+            mout = single_proxy_out(mb)
+            if mout is None:
+                continue
+            mcons = consumers.get(mout.name, ())
+            if len(mcons) != 1:
+                continue
+            dfacts = _plain_linear(bsyms[mcons[0]])
+            if dfacts is None or dfacts[0].name != mout.name:
+                continue
+            di = mcons[0]
+            dout = single_proxy_out(bsyms[di])
+            if dout is None:
+                continue
+            dcons = consumers.get(dout.name, ())
+            if len(dcons) != 1:
+                continue
+            fb = bsyms[dcons[0]]
+            if fb.sym.id not in _ADD_IDS or len(fb.args) != 2 \
+                    or not all(isinstance(a, TensorProxy) for a in fb.args):
+                continue
+            if {fb.args[0].name, fb.args[1].name} != {h.name, dout.name}:
+                continue
+            found = (gi, gcons[0], act, ui, mi, di, dcons[0])
+            break
+        if found is None:
+            continue
+        gi, acti, act, ui, mi, di, fi = found
+        chain = {ai, ri, gi, acti, ui, mi, di, fi}
+        if chain & used:
+            continue
+        fout = single_proxy_out(bsyms[fi])
+        if fout is None:
+            continue
+        w_gate = _plain_linear(bsyms[gi])[1]
+        w_up = _plain_linear(bsyms[ui])[1]
+        w_down = _plain_linear(bsyms[di])[1]
+        if tuple(w_up.shape) != tuple(w_gate.shape) \
+                or tuple(w_down.shape) != (w_gate.shape[1], w_gate.shape[0]):
+            continue
+        n_tokens = 1
+        for d in h.shape[:-1]:
+            n_tokens *= int(d)
+        cost = dict(mlp_block_verdict(n_tokens, int(w_gate.shape[1]), int(w_gate.shape[0]),
+                                      h.dtype.bytes, backward=backward),
+                    chain=h.name, act=act, ops=len(chain))
+        # -- the verdicts ---------------------------------------------------
+        # every interior value is read only inside the chain and is no
+        # output of the trace: the kernel does not produce it
+        escaped = None
+        for p, owners in ((h, {ri, fi}), (n, {gi, ui}),
+                          (single_proxy_out(bsyms[gi]), {acti}),
+                          (single_proxy_out(bsyms[acti]), {mi}),
+                          (single_proxy_out(bsyms[ui]), {mi}),
+                          (single_proxy_out(bsyms[mi]), {di}),
+                          (single_proxy_out(bsyms[di]), {fi})):
+            if p.name in out_names or set(consumers.get(p.name, ())) - owners:
+                escaped = p.name
+                break
+        if escaped is not None:
+            _record_block("interior-escapes", f"{escaped} is consumed outside the chain", cost)
+            continue
+        if enabled is not True and not cost["planned"]:
+            _record_block("cost-rejected",
+                          "the per-op chain's estimate beats the kernel's"
+                          + (" (forward and backward)" if backward else "")
+                          + " (need est_saved_us > 0)", cost)
+            continue
+        comp_args = (residual, xx, w_norm, w_gate, w_up, w_down)
+        comp_kwargs = {"act": act, "eps": eps}
+        refused = _claim_refusal(executors, "nn.mlp_subblock", comp_args, comp_kwargs,
+                                 kernel=True)
+        if refused is None and backward:
+            refused = _claim_refusal(executors, "nn.mlp_subblock_bwd", (xx,) + comp_args,
+                                     comp_kwargs, kernel=True)
+        if refused is not None:
+            _record_block("unclaimed", refused, cost)
+            continue
+        from thunder_tpu_torch.ops import composites
+
+        repl = _build_composite(trc, composites.mlp_subblock, comp_args, comp_kwargs, [fout])
+        if not repl:
+            _record_block("rebuild-mismatch", "composite retrace changed output metadata", cost)
+            continue
+        repl[-1].header = (f"{BLOCK_MARKER}: {len(chain)}-op MLP sub-block chain planned as "
+                           f"one kernel ({cost['saved_boundary_bytes'] >> 10} KiB of interior "
+                           f"traffic kept on chip)")
+        _record_block("planned",
+                      "forced by block_fusion=True" if enabled is True
+                      else "cost model: the kernel's estimate beats the per-op chain's", cost)
+        _observe.inc("fusion.block_fusions")
+        replacements[fi] = repl
+        dropped.update(chain - {fi})
+        used |= chain
+        n_planned += 1
+
+    if not replacements:
+        return trc
+    return _rebuild_trace(trc, replacements, dropped,
+                          f"Block fusion planner ({n_planned} sub-block kernels)")
+
+
+def plan_blocks_for_autodiff(trc: TraceCtx) -> TraceCtx:
+    """The planner before autodiff, on the differentiated function's trace
+    (``inline_value_and_grad``, ``forward_and_backward_from_trace``): the
+    planned composites then meet their VJP rule and stay claimable in both
+    directions. It reads the compiling function's executor stack from the
+    compile context; outside a compile it does nothing."""
+    from thunder_tpu_torch.core.compile_data import get_compile_data
+
+    ctx = get_compile_data()
+    executors = getattr(ctx, "executors", None) if ctx is not None else None
+    if not executors:
+        return trc
+    with _observe.span("block_fusion_pre_autodiff"):
+        return block_fusion_pass(trc, executors, backward=True)

@@ -27,6 +27,7 @@ from typing import Any, Callable, Sequence
 
 from thunder_tpu_torch.core import prims
 from thunder_tpu_torch.core.baseutils import check
+from thunder_tpu_torch.core.fusion_passes import plan_blocks_for_autodiff
 from thunder_tpu_torch.core.prims import PrimIDs
 from thunder_tpu_torch.core.proxies import Proxy, TensorProxy, Variable
 from thunder_tpu_torch.core.pytree import leaf_positions, tree_flatten, tree_map, tree_unflatten
@@ -282,8 +283,9 @@ def inline_value_and_grad(fn, argnums=0, has_aux: bool = False):
               "value_and_grad must run under tracing (wrap with thunder_tpu_torch.jit)")
         inner, inner_inputs, _ = _trace_subfn(fn, args, kwargs,
                                               leaf_positions(args, argnums_t))
-        # the reference plans its block megakernels here, before the pullback
-        # replay (plan_blocks_for_autodiff); block fusion is ROADMAP A.7.3
+        # the block planner before the pullback replay: a planned sub-block
+        # meets its VJP rule and stays claimable in both directions
+        inner = plan_blocks_for_autodiff(inner)
         env: dict = {}
         j = 0
         for leaf in tree_flatten((args, kwargs))[0]:
@@ -333,8 +335,7 @@ def forward_and_backward_from_trace(trc: TraceCtx, needs_grad: Sequence[bool] | 
     from thunder_tpu_torch import ops
     from thunder_tpu_torch.core.transform_common import dce
 
-    # the reference plans its block megakernels here, before the pullback
-    # replay (plan_blocks_for_autodiff); block fusion is ROADMAP A.7.3
+    trc = plan_blocks_for_autodiff(trc)
     fwd = from_trace(trc)
     fwd.fn_name = "augmented_forward"
     env: dict = {Variable(p): p for p in trc.args}

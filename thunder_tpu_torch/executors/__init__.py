@@ -10,7 +10,7 @@ hand-written kernels of :mod:`~thunder_tpu_torch.executors.cudaex`) first,
 then the always-on ``torch`` executor
 (:mod:`~thunder_tpu_torch.executors.eagertorch`), which runs every prim as
 one torch call. The reference's fusion executors (XLA regions) have no
-counterpart yet (ROADMAP A.7).
+counterpart yet (ROADMAP A.7.4).
 """
 
 from __future__ import annotations

@@ -9,7 +9,10 @@ the composite reduces them), each under the claim id ``cuda.<kernel>`` of
 the kernel it launches, the id the routers of :mod:`thunder_tpu_torch.ops.nn`
 already use. A training trace adds ``nn.sdpa_bwd`` (the attention VJP's
 backward, ``sdpa_bwd``) and ``optim.fused_adamw`` (the traced AdamW's
-dtype bucket, ``fused_adamw``; pallasex.py:2066-2084). The kernel updates
+dtype bucket, ``fused_adamw``; pallasex.py:2066-2084), and a planned one
+``nn.mlp_subblock`` and ``nn.mlp_subblock_bwd`` (the block planner's unit
+and its VJP rule's backward, the ``mlp_subblock`` and ``mlp_subblock_bwd``
+kernels; pallasex.py:2097-2105). The fused_adamw kernel updates
 the parameters and moments in place: the claim writes the donated inputs
 themselves where the claim pass marks them (``passes.donate_in_place``,
 ``jit(donate_argnums=)``) and dense copies of the others, and returns what it
@@ -24,12 +27,18 @@ traced one.
 Checkers: a claim needs its tensors on the card and the conditions the
 reference's checkers test in interpret mode (an attention call with a mask
 or dropout, a norm over another dim, a weight of another dtype decompose as
-there). The reference's TPU tiling rules and its cost-model gate
-(``_pallas_claim_profitable`` reads TPU roofline constants) have no
-counterpart: the cost model is a later slice. What a checker takes but the
-kernel does not (``cudaex.refusal``, evaluated on meta tensors of the
-proxies' shapes and dtypes) raises at compile time: nothing decomposes on
-the card in place of a kernel.
+there). The reference's TPU tiling rules have no counterpart. What a
+checker takes but the kernel does not (``cudaex.refusal``, evaluated on
+meta tensors of the proxies' shapes and dtypes) raises at compile time:
+nothing decomposes on the card in place of a kernel.
+
+The reference's cost-model gate of the memory-bound claims
+(``_pallas_claim_profitable``, pallasex.py:2031-2048, behind its
+``fusion_cost_model`` option) weighs a claim against leaving the op inside
+an XLA fusion region; it comes with the port's region executor (ROADMAP
+A.7.4). Until then every claim here is taken wherever its checker passes.
+The sub-block and optimizer claims have no gate, as in the reference:
+their passes already asked the cost model.
 """
 
 from __future__ import annotations
@@ -110,6 +119,31 @@ def _fused_adamw_checker(params, grads, ms, vs, bc1, bc2, **hyper):
     return _on_card(*params, *grads, *ms, *vs, bc1, bc2)
 
 
+def _mlp_subblock_checker(residual, x, w_norm, w_gate, w_up, w_down, act="silu", eps=1e-5):
+    if act not in _ACTS or w_norm is None or getattr(w_norm, "ndim", 0) != 1:
+        return False
+    if tuple(residual.shape) != tuple(x.shape) or residual.dtype != x.dtype:
+        return False
+    D = x.shape[-1]
+    if w_norm.shape[0] != D or not x.dtype.is_float or x.dtype.bytes > 4:
+        return False
+    if any(w.dtype != x.dtype for w in (w_norm, w_gate, w_up, w_down)):
+        return False
+    if w_gate.ndim != 2 or tuple(w_up.shape) != tuple(w_gate.shape):
+        return False
+    F = w_gate.shape[0]
+    if w_gate.shape[1] != D or tuple(w_down.shape) != (D, F):
+        return False
+    return _on_card(residual, x, w_norm, w_gate, w_up, w_down)
+
+
+def _mlp_subblock_bwd_checker(g, residual, x, w_norm, w_gate, w_up, w_down, act="silu",
+                              eps=1e-5):
+    if tuple(g.shape) != tuple(x.shape) or g.dtype != x.dtype or not _on_card(g):
+        return False
+    return _mlp_subblock_checker(residual, x, w_norm, w_gate, w_up, w_down, act, eps)
+
+
 def _ce_checker(logits, target, ignore_index=-100):
     return logits.ndim == 2 and _on_card(logits, target)
 
@@ -145,6 +179,18 @@ def _ce_refusal(logits, target, *args, **kwargs):
 
 def _sdpa_bwd_refusal(g, q, k, v, out, lse, *args, **kwargs):
     return cudaex.refusal("sdpa_bwd", *(_meta(t) for t in (g, q, k, v, out, lse)))
+
+
+def _mlp_subblock_refusal(residual, x, w_norm, w_gate, w_up, w_down, act="silu", eps=1e-5):
+    return cudaex.refusal("mlp_subblock", *(_meta(t) for t in (residual, x, w_norm, w_gate,
+                                                               w_up, w_down)), act, eps)
+
+
+def _mlp_subblock_bwd_refusal(g, residual, x, w_norm, w_gate, w_up, w_down, act="silu",
+                              eps=1e-5):
+    return cudaex.refusal("mlp_subblock_bwd", *(_meta(t) for t in (g, residual, x, w_norm,
+                                                                   w_gate, w_up, w_down)),
+                          act, eps)
 
 
 def _fused_adamw_refusal(params, grads, ms, vs, bc1, bc2, *, state_dtype=None, v_dtype=None,
@@ -187,6 +233,16 @@ def cuda_sdpa_bwd(g, q, k, v, out, lse, is_causal=False, scale=None):
     return tnn.sdpa_bwd(g.contiguous(), q, k, v, out, lse, is_causal, scale)
 
 
+def cuda_mlp_subblock(residual, x, w_norm, w_gate, w_up, w_down, act="silu", eps=1e-5):
+    return tnn.mlp_subblock(residual, x, w_norm, w_gate, w_up, w_down, act=act, eps=eps)
+
+
+def cuda_mlp_subblock_bwd(g, residual, x, w_norm, w_gate, w_up, w_down, act="silu", eps=1e-5):
+    # the cotangent made dense, as the eager sub-block's backward makes it
+    return tnn.mlp_subblock_bwd(g.contiguous(), residual, x, w_norm, w_gate, w_up, w_down,
+                                act=act, eps=eps)
+
+
 def cuda_ce_fwd(logits, target, ignore_index=-100):
     return tnn.ce_fwd(logits, target, ignore_index)
 
@@ -227,6 +283,11 @@ sdpa_bwd_op = _register("sdpa_bwd", "nn.sdpa_bwd", cuda_sdpa_bwd, _sdpa_bwd_chec
                         _sdpa_bwd_refusal)
 fused_adamw_op = _register("fused_adamw", "optim.fused_adamw", optim_ops.fused_adamw_into,
                            _fused_adamw_checker, _fused_adamw_refusal)
+mlp_subblock_op = _register("mlp_subblock", "nn.mlp_subblock", cuda_mlp_subblock,
+                            _mlp_subblock_checker, _mlp_subblock_refusal)
+mlp_subblock_bwd_op = _register("mlp_subblock_bwd", "nn.mlp_subblock_bwd",
+                                cuda_mlp_subblock_bwd, _mlp_subblock_bwd_checker,
+                                _mlp_subblock_bwd_refusal)
 
 
 def kernel_of(sym) -> str | None:

@@ -8,11 +8,12 @@ anything. ``dot_general`` is ``torch.matmul`` (``a @ w.T`` for the
 bias) or ``torch.einsum`` for any other layout: a plain product outside any
 kernel of the port. The prologue's guard prims raise :class:`GuardFailure`.
 
-Four composites run as one implementation each rather than through their
+Six composites run as one implementation each rather than through their
 decomposition: ``nn.one_hot`` (built in its int32 output dtype, with no
 int64 intermediate), and, for tensors off the card, the plain versions of
-the kernels' composites ``nn.sdpa_bwd``, ``optim.adamw_step`` and
-``optim.fused_adamw``, the last through the card's claim's own callable
+the kernels' composites ``nn.sdpa_bwd``, ``nn.mlp_subblock``,
+``nn.mlp_subblock_bwd``, ``optim.adamw_step`` and ``optim.fused_adamw``,
+the last through the card's claim's own callable
 (``ops.optim.fused_adamw_into``), which on the CPU runs the plain version
 into the donated inputs the claim pass marks.
 """
@@ -382,6 +383,18 @@ def _sdpa_bwd(g, q, k, v, out, lse, is_causal=False, scale=None):
     return sdpa_bwd_plain(g, q, k, v, out, lse, is_causal, scale)
 
 
+def _mlp_subblock(residual, x, w_norm, w_gate, w_up, w_down, *, act="silu", eps=1e-5):
+    from thunder_tpu_torch.ops.nn import mlp_subblock_plain
+
+    return mlp_subblock_plain(residual, x, w_norm, w_gate, w_up, w_down, act, eps)
+
+
+def _mlp_subblock_bwd(g, residual, x, w_norm, w_gate, w_up, w_down, *, act="silu", eps=1e-5):
+    from thunder_tpu_torch.ops.nn import mlp_subblock_bwd_plain
+
+    return mlp_subblock_bwd_plain(g, residual, x, w_norm, w_gate, w_up, w_down, act, eps)
+
+
 def _stored(t, dtype):
     return t.to(dtype.torch if dtype is not None else t.dtype)
 
@@ -415,6 +428,8 @@ def _register_composites() -> None:
     for name, op_id, fn, checker in (
             ("one_hot", "nn.one_hot", _one_hot, None),
             ("sdpa_bwd", "nn.sdpa_bwd", _sdpa_bwd, _off_card),
+            ("mlp_subblock", "nn.mlp_subblock", _mlp_subblock, _off_card),
+            ("mlp_subblock_bwd", "nn.mlp_subblock_bwd", _mlp_subblock_bwd, _off_card),
             ("adamw_step", "optim.adamw_step", _adamw_step, _off_card),
             ("fused_adamw", "optim.fused_adamw", optim.fused_adamw_into, _fused_adamw_checker)):
         sym = ex.register_operator(name, meta=ops.get_op(op_id).meta, fn=fn)

@@ -1,20 +1,24 @@
-"""Trace -> executable-trace passes: the epilogue pass, executor claiming,
+"""Trace -> executable-trace passes: the fusion passes, executor claiming,
 ``del`` insertion, and the in-place writes of donated inputs.
 
 The counterpart of ``thunder_tpu/executors/passes.py`` (``claim_bsym``
-:48, ``transform_for_execution`` :150, ``del_last_used`` :252). Each bound
-symbol is offered to the executors in priority order; an executor
-substitutes its own symbol, whose runtime callable the generated program
-calls; an unclaimed composite is decomposed and its subsymbols offered
-again; an unclaimed prim runs on the always-on torch executor.
+:48, ``transform_for_execution`` :150, ``del_last_used`` :252). The fusion
+passes of ``core/fusion_passes.py`` run first, in the reference's order
+(block, horizontal, epilogue, optimizer), then each bound symbol is offered
+to the executors in priority order; an executor substitutes its own symbol,
+whose runtime callable the generated program calls; an unclaimed composite
+is decomposed and its subsymbols offered again; an unclaimed prim runs on
+the always-on torch executor. Every verdict goes to the decision log
+(``observe/decisions.py``) while one is collected.
 
-Only the epilogue pass runs before the claim pass: the reference's block,
-horizontal and optimizer passes, its region annotations and its fusion
-executors are not ported yet (ROADMAP A.7). No fallback on the card: a
-claim the quarantine routes off is still claimed, and its router raises a
-fatal ``KernelExecutionError`` when it runs on the card; a claim whose
-kernel refuses the arguments (``cudaex.refusal``) raises that reason here,
-at compile time, instead of decomposing.
+Nothing falls back on the card: a claim the quarantine routes off is
+still claimed, and its router raises a fatal ``KernelExecutionError`` when
+it runs on the card; a claim whose kernel refuses the arguments
+(``cudaex.refusal``) raises that reason here, at compile time, instead of
+decomposing. The reference's region annotations and fusion executors, and
+with them its claims' cost-model gate (``ImplInfo.profitable``, which
+weighs a claim against leaving the op in a fusion region), are not ported
+yet (ROADMAP A.7.4).
 """
 
 from __future__ import annotations
@@ -27,7 +31,9 @@ from thunder_tpu_torch.core.symbol import BoundSymbol
 from thunder_tpu_torch.core.trace import TraceCtx, from_trace
 from thunder_tpu_torch.core.transform_common import dce
 from thunder_tpu_torch.core.utils import consumed_vars
+from thunder_tpu_torch.observe import decisions as _decisions
 from thunder_tpu_torch.observe import registry as _observe
+from thunder_tpu_torch.runtime import quarantine as _quarantine
 
 _PASSTHROUGH_IDS = (PrimIDs.PYTHON_RETURN, PrimIDs.PYTHON_DEL, PrimIDs.COMMENT)
 
@@ -35,15 +41,26 @@ _PASSTHROUGH_IDS = (PrimIDs.PYTHON_RETURN, PrimIDs.PYTHON_DEL, PrimIDs.COMMENT)
 def claim_bsym(bsym: BoundSymbol, executors) -> list[BoundSymbol]:
     if bsym.sym.id in _PASSTHROUGH_IDS or bsym.sym.executor is not None:
         return [bsym]
+    log = _decisions.active()   # one flag read a bound symbol while no log is kept
     for ex in executors:
         impl = ex.get_impl(bsym)
-        if impl is None or impl.symbol is None or not ex.can_execute(bsym):
+        if impl is None or impl.symbol is None:
+            continue
+        if not ex.can_execute(bsym):
+            if log:
+                _decisions.record("claim", bsym.sym.name, ex.name, "rejected",
+                                  "checker refused (device, shape or dtype)")
             continue
         reason = impl.refusal(*bsym.args, **bsym.kwargs) if impl.refusal is not None else None
         check(reason is None,
               lambda: f"{impl.symbol.id}: the kernel refuses the arguments of {bsym.sym.name} "
                       f"({reason}); the port runs no decomposition on the card in its place",
               ValueError)
+        if log:
+            qreason = _quarantine.quarantine_reason(impl.symbol.id)
+            _decisions.record("claim", bsym.sym.name, ex.name, "claimed",
+                              f"quarantined ({qreason}): its router raises on the card"
+                              if qreason is not None else "")
         claimed = impl.symbol.bind(*bsym.args, output=bsym.output, subsymbols=bsym.subsymbols,
                                    **bsym.kwargs)
         claimed.header = bsym.header
@@ -53,6 +70,9 @@ def claim_bsym(bsym: BoundSymbol, executors) -> list[BoundSymbol]:
     if bsym.sym.is_prim:
         check(get_eager_impl(bsym.sym) is not None or bsym.sym.python_impl is not None,
               lambda: f"no executor can run prim {bsym.sym.name}")
+        if log:
+            _decisions.record("claim", bsym.sym.name, "torch", "fallback",
+                              "unclaimed prim runs on the torch executor")
         return [bsym]
     if not bsym.subsymbols:
         # identity composite (eval-mode dropout returns its input)
@@ -61,6 +81,10 @@ def claim_bsym(bsym: BoundSymbol, executors) -> list[BoundSymbol]:
         if outs and all(p.name in arg_names for p in outs):
             return []
     check(bsym.subsymbols, lambda: f"unclaimed symbol {bsym.sym.name} has no decomposition")
+    if log:
+        _decisions.record("claim", bsym.sym.name, None, "decomposed",
+                          f"no executor claims the composite; re-offering its "
+                          f"{len(bsym.subsymbols)} subsymbols")
     out: list[BoundSymbol] = []
     for sub in bsym.subsymbols:
         out.extend(claim_bsym(sub, executors))
@@ -68,10 +92,12 @@ def claim_bsym(bsym: BoundSymbol, executors) -> list[BoundSymbol]:
 
 
 def transform_for_execution(trc: TraceCtx, executors) -> TraceCtx:
-    """The epilogue pass, the claim pass, then DCE. A trace whose inputs lie
-    on the card needs the ``cuda`` executor in its stack: without it every
-    composite would decompose there in place of its kernel."""
-    from thunder_tpu_torch.core.fusion_passes import epilogue_fusion_pass
+    """The fusion passes (block, horizontal, epilogue, optimizer), the claim
+    pass, then DCE. A trace whose inputs lie on the card needs the ``cuda``
+    executor in its stack: without it every composite would decompose there
+    in place of its kernel."""
+    from thunder_tpu_torch.core.fusion_passes import (
+        block_fusion_pass, epilogue_fusion_pass, horizontal_fusion_pass, optimizer_fusion_pass)
 
     on_card = [a.name for a in trc.args
                if isinstance(a, TensorProxy) and a.device.type == "cuda"]
@@ -80,8 +106,19 @@ def transform_for_execution(trc: TraceCtx, executors) -> TraceCtx:
                   f"{on_card} lie on the card: the port runs no decomposition there in place "
                   f"of a kernel", ValueError)
 
+    # before claiming: the block planner first, since it wants whole
+    # sub-block chains, which the horizontal merge (gate and up share the
+    # normed input) and the epilogue pass (add -> rms_norm) would carve up.
+    # A training trace was planned before autodiff (its chains are prims
+    # here, and the anchor scan returns at once); this serves grad-free traces
+    with _observe.span("block_fusion"):
+        trc = block_fusion_pass(trc, executors)
+    with _observe.span("horizontal_fusion"):
+        trc = horizontal_fusion_pass(trc)
     with _observe.span("epilogue_fusion"):
         trc = epilogue_fusion_pass(trc, executors)
+    with _observe.span("optimizer_fusion"):
+        trc = optimizer_fusion_pass(trc, executors)
     with _observe.span("claim"):
         ex_bsyms: list[BoundSymbol] = []
         for bsym in trc.bound_symbols:

@@ -194,9 +194,9 @@ def _mlp_train(x: torch.Tensor, layer: dict) -> torch.Tensor:
     """The train step's SwiGLU MLP, without the residual add: the reference's
     training trace leaves ``silu(linear(x, w_gate))`` unfused (its epilogue
     pass claims no ``linear_act`` there), so the gate is a projection and
-    ``y * sigmoid(y)``, differentiated by autograd."""
+    ``y * sigmoid(y)`` (``tnn.silu``), differentiated by autograd."""
     y = F.linear(x, layer["w_gate"])
-    return F.linear(y * torch.sigmoid(y) * F.linear(x, layer["w_up"]), layer["w_down"])
+    return F.linear(tnn.silu(y) * F.linear(x, layer["w_up"]), layer["w_down"])
 
 
 def _attention_out(x: torch.Tensor, layer: dict, cfg: LlamaConfig, cos, sin) -> torch.Tensor:

@@ -590,6 +590,21 @@ def setitem(a, idx, val):
     return prims.dynamic_update_slice(a, convert_element_type(v, a.dtype), tuple(starts))
 
 
+def narrow(a, dim, start, length):
+    """``length`` elements of ``a`` along ``dim`` from ``start`` (a
+    negative start counts from the end), as a slice."""
+    d = canonicalize_dim(a.ndim, dim)
+    start, length = int(pyval(start)), int(pyval(length))
+    if start < 0:
+        start += int(a.shape[d])
+    check(0 <= start and length >= 0 and start + length <= a.shape[d],
+          lambda: f"narrow: [{start}, {start + length}) out of bounds for dim {d} of size "
+                  f"{a.shape[d]}")
+    idx = [slice(None)] * a.ndim
+    idx[d] = slice(start, start + length)
+    return getitem(a, tuple(idx))
+
+
 def getitem(a, idx):
     """Basic indexing (ints, slices, None, Ellipsis) and one integer-tensor
     index; decomposes to slice/squeeze/take prims."""

@@ -5,18 +5,20 @@ Symbol with the reference's stable id and its decomposition into ops:
 :func:`embedding` (``nn.embedding``, :23), :func:`one_hot` (:31),
 :func:`layer_norm` (:41),
 :func:`rms_norm` (:61), :func:`rms_norm_residual` (:73), :func:`linear_act`
-(:101), :func:`dropout` (:241), :func:`mse_loss` (:251),
+(:101), :func:`mlp_subblock` (:115), :func:`mlp_subblock_bwd` (:148),
+:func:`dropout` (:241), :func:`mse_loss` (:251),
 :func:`cross_entropy` (:263), :func:`sdpa_fwd` (:297), :func:`ce_fwd`
 (:321), :func:`sdpa_bwd` (:336) and :func:`scaled_dot_product_attention`
 (:590), with the reference's VJP rules of attention (``_sdpa_vjp``, :642),
-the RMS norm (``_rms_norm_vjp``, :658) and cross-entropy
-(``_cross_entropy_vjp``, :763): attention differentiates into
-``nn.sdpa_fwd`` and ``nn.sdpa_bwd``, cross-entropy into ``nn.ce_fwd`` and
-the one-hot pullback, and the norm stays one ``nn.rms_norm`` with a plain
-pullback. Each rule declines (``NotImplemented``) what the reference's
-declines, and that call is differentiated through its decomposition. The
-reference's rules of the MLP sub-block, the fp8 linear and the chunked
-loss wait for their items (ROADMAP A.7.3, A.5, A.7.5).
+the RMS norm (``_rms_norm_vjp``, :658), the MLP sub-block
+(``_mlp_subblock_vjp``, :697) and cross-entropy (``_cross_entropy_vjp``,
+:763): attention differentiates into ``nn.sdpa_fwd`` and ``nn.sdpa_bwd``,
+the sub-block into ``nn.mlp_subblock`` and ``nn.mlp_subblock_bwd``,
+cross-entropy into ``nn.ce_fwd`` and the one-hot pullback, and the norm
+stays one ``nn.rms_norm`` with a plain pullback. Each rule declines
+(``NotImplemented``) what the reference's declines, and that call is
+differentiated through its decomposition. The reference's rules of the fp8
+linear and the chunked loss wait for their items (ROADMAP A.5, A.7.5).
 
 They live beside the eager routers of :mod:`thunder_tpu_torch.ops.nn`, which
 carry the same names: under ``jit`` a router called on traced tensors
@@ -113,6 +115,122 @@ def linear_act(a, w, bias=None, act: str = "relu"):
     check(act in _LINEAR_ACT_FNS,
           lambda: f"linear_act: unknown activation {act!r}; known: {sorted(_LINEAR_ACT_FNS)}")
     return _LINEAR_ACT_FNS[act](ops.linear(a, w, bias))
+
+
+_SUBBLOCK_ACTS = ("silu", "relu", "gelu", "gelu_tanh")
+
+
+@opsymbol(id="nn.mlp_subblock")
+def mlp_subblock(residual, x, w_norm, w_gate, w_up, w_down, *, act: str = "silu",
+                 eps: float = 1e-5):
+    """The whole transformer MLP sub-block as one composite, the block
+    planner's unit::
+
+        h   = residual + x
+        n   = rms_norm(h, w_norm)
+        out = h + (act(n @ w_gate.T) * (n @ w_up.T)) @ w_down.T
+
+    The decomposition is the unfused chain. The ``cuda`` executor claims it
+    as the ``mlp_subblock`` kernel; the torch executor runs it whole
+    through ``mlp_subblock_plain`` off the card. The VJP rule saves only
+    the inputs, and the backward is ``nn.mlp_subblock_bwd``."""
+    _tensor_like(x, "mlp_subblock")
+    check(tuple(residual.shape) == tuple(x.shape) and residual.dtype == x.dtype,
+          lambda: f"mlp_subblock: residual {tuple(residual.shape)}/{residual.dtype} "
+                  f"does not match x {tuple(x.shape)}/{x.dtype}")
+    check(act in _SUBBLOCK_ACTS,
+          lambda: f"mlp_subblock: unknown activation {act!r}; known: {_SUBBLOCK_ACTS}")
+    h = ops.add(residual, x)
+    n = rms_norm(h, w_norm, eps=eps)
+    gate = _LINEAR_ACT_FNS[act](ops.linear(n, w_gate))
+    up = ops.linear(n, w_up)
+    return ops.add(h, ops.linear(ops.mul(gate, up), w_down))
+
+
+def _act_grad(act: str, a):
+    """d act(a) / d a, in ``a``'s dtype."""
+    if act == "relu":
+        return ops.convert_element_type(ops.gt(a, 0.0), a.dtype)
+    if act == "silu":
+        sig = ops.sigmoid(a)
+        return ops.mul(sig, ops.add(1.0, ops.mul(a, ops.sub(1.0, sig))))
+    if act == "gelu":
+        # Phi(a) + a phi(a)
+        phi_cdf = ops.mul(ops.add(ops.erf(ops.mul(a, 1.0 / math.sqrt(2.0))), 1.0), 0.5)
+        pdf = ops.mul(ops.exp(ops.mul(ops.mul(a, a), -0.5)), 1.0 / math.sqrt(2.0 * math.pi))
+        return ops.add(phi_cdf, ops.mul(a, pdf))
+    check(act == "gelu_tanh", lambda: f"_act_grad: unknown activation {act!r}")
+    c = math.sqrt(2.0 / math.pi)
+    a2 = ops.mul(a, a)
+    u = ops.mul(ops.add(a, ops.mul(ops.mul(a2, a), 0.044715)), c)
+    t = ops.tanh(u)
+    sech2 = ops.sub(1.0, ops.mul(t, t))
+    du = ops.mul(ops.add(1.0, ops.mul(a2, 3.0 * 0.044715)), c)
+    return ops.add(ops.mul(ops.add(t, 1.0), 0.5),
+                   ops.mul(ops.mul(ops.mul(a, sech2), du), 0.5))
+
+
+@opsymbol(id="nn.mlp_subblock_bwd")
+def mlp_subblock_bwd(g, residual, x, w_norm, w_gate, w_up, w_down, *, act: str = "silu",
+                     eps: float = 1e-5):
+    """The backward of :func:`mlp_subblock` from its inputs alone (the
+    interiors recomputed): ``(dh, dw_norm, dw_gate, dw_up, dw_down)``, where
+    ``dh`` is the gradient of both ``residual`` and ``x``. The ``cuda``
+    executor claims it as the ``mlp_subblock_bwd`` kernel; the torch
+    executor runs it whole through ``mlp_subblock_bwd_plain`` off the card;
+    unclaimed, this decomposition is the chain rule over the unfused ops."""
+    check(act in _SUBBLOCK_ACTS, lambda: f"mlp_subblock_bwd: unknown activation {act!r}")
+    dt = x.dtype
+    wide = dtypes.float32 if dt in _HALF else dt
+    h = ops.add(residual, x)
+    h32 = ops.convert_element_type(h, wide)
+    ms = ops.mean(ops.mul(h32, h32), -1, keepdim=True)
+    r = ops.rsqrt(ops.add(ms, eps))
+    xhat = ops.mul(h32, r)   # the normalized rows, before the weight
+    n = ops.mul(ops.convert_element_type(xhat, dt), w_norm)
+    gpre = ops.linear(n, w_gate)
+    ga = _LINEAR_ACT_FNS[act](gpre)
+    up = ops.linear(n, w_up)
+    y = ops.mul(ga, up)
+
+    g32 = ops.convert_element_type(g, wide)
+    # out = h + y @ w_down.T
+    dy = ops.convert_element_type(
+        prims.dot_general(g, w_down, contract_dims=((g.ndim - 1,), (0,))), dt)
+    N = 1
+    for d in g.shape[:-1]:
+        N *= int(d)
+    g2 = ops.reshape(g, (N, g.shape[-1]))
+    y2 = ops.reshape(y, (N, y.shape[-1]))
+    dw_down = ops.convert_element_type(
+        prims.dot_general(g2, y2, contract_dims=((0,), (0,)), preferred_element_type=wide),
+        w_down.dtype)
+    dga = ops.mul(dy, up)
+    dup = ops.mul(dy, ga)
+    dgpre = ops.mul(dga, _act_grad(act, gpre))
+    # dn = dgpre @ w_gate + dup @ w_up
+    dn = ops.add(
+        prims.dot_general(dgpre, w_gate, contract_dims=((dgpre.ndim - 1,), (0,))),
+        prims.dot_general(dup, w_up, contract_dims=((dup.ndim - 1,), (0,))))
+    dgpre2 = ops.reshape(dgpre, (N, dgpre.shape[-1]))
+    dup2 = ops.reshape(dup, (N, dup.shape[-1]))
+    n2 = ops.reshape(n, (N, n.shape[-1]))
+    dw_gate = ops.convert_element_type(
+        prims.dot_general(dgpre2, n2, contract_dims=((0,), (0,)), preferred_element_type=wide),
+        w_gate.dtype)
+    dw_up = ops.convert_element_type(
+        prims.dot_general(dup2, n2, contract_dims=((0,), (0,)), preferred_element_type=wide),
+        w_up.dtype)
+    # the RMS norm's backward (the nn.rms_norm rule's formula)
+    dn32 = ops.convert_element_type(dn, wide)
+    lead = tuple(range(x.ndim - 1))
+    dwn = ops.mul(dn32, xhat) if not lead else ops.sum(ops.mul(dn32, xhat), lead)
+    dw_norm = ops.convert_element_type(dwn, w_norm.dtype)
+    gxhat = ops.mul(dn32, ops.convert_element_type(w_norm, wide))
+    proj = ops.mean(ops.mul(gxhat, xhat), -1, keepdim=True)
+    dh_norm = ops.mul(r, ops.sub(gxhat, ops.mul(xhat, proj)))
+    dh = ops.convert_element_type(ops.add(g32, dh_norm), dt)
+    return dh, dw_norm, dw_gate, dw_up, dw_down
 
 
 @opsymbol(id="nn.dropout")
@@ -310,6 +428,26 @@ def _rms_norm_vjp(a, weight=None, eps: float = 1e-5, dim: int = -1):
             lead = tuple(range(a.ndim - 1))
             dw = ops.mul(g32, xhat) if not lead else ops.sum(ops.mul(g32, xhat), lead)
             pairs.append((weight, ops.convert_element_type(dw, weight.dtype)))
+        return pairs
+
+    return out, pullback
+
+
+@register_vjp("nn.mlp_subblock")
+def _mlp_subblock_vjp(residual, x, w_norm, w_gate, w_up, w_down, *, act: str = "silu",
+                      eps: float = 1e-5):
+    """The planned sub-block stays one ``nn.mlp_subblock`` in the forward,
+    saving only its inputs, and its pullback is one ``nn.mlp_subblock_bwd``:
+    each direction one claimable kernel, and neither keeps the chain's
+    interior activations."""
+    out = mlp_subblock(residual, x, w_norm, w_gate, w_up, w_down, act=act, eps=eps)
+
+    def pullback(g):
+        dh, dwn, dwg, dwu, dwd = mlp_subblock_bwd(g, residual, x, w_norm, w_gate, w_up,
+                                                  w_down, act=act, eps=eps)
+        pairs = [(residual, dh), (x, dh), (w_gate, dwg), (w_up, dwu), (w_down, dwd)]
+        if isinstance(w_norm, TensorProxy):
+            pairs.append((w_norm, dwn))
         return pairs
 
     return out, pullback

@@ -452,6 +452,15 @@ def rms_norm_residual(residual: torch.Tensor, a: torch.Tensor,
     return _rms_norm_residual(residual, a, weight, eps)
 
 
+@traceable
+def silu(a: torch.Tensor) -> torch.Tensor:
+    """``a * sigmoid(a)``, the reference's ``ops.silu`` decomposition, as
+    the two ops that autograd differentiates (the train step's gate); under
+    ``jit`` it records ``ops.silu``, the activation the block planner and
+    the epilogue pass look for."""
+    return a * torch.sigmoid(a)
+
+
 @routed("linear_act")
 def linear_act(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None,
                act: str = "relu") -> torch.Tensor:

@@ -11,12 +11,13 @@ the slab geometry (``SLAB_LANE``, ``SLAB_ROW_BLOCK``, ``slab_geometry``,
 (:mod:`thunder_tpu_torch.executors.cudaex`), which raises on what it does
 not take, and CPU tensors to a loop of the plain version.
 
-Beside the routers sit the composites a traced ``AdamW.update`` records
+Beside the routers sit the composites of a traced ``AdamW.update``
 (``optim.AdamW`` under ``jit``): :data:`adamw_step` (``optim.adamw_step``,
-:45, one parameter's update as ops) and :data:`fused_adamw_composite`
-(``optim.fused_adamw``, :79, one ``adamw_step`` per member of a dtype
-bucket), which the ``cuda`` executor claims for the ``fused_adamw`` kernel
-and the torch executor runs as the plain version. Their moments are stored
+:45, one parameter's update as ops), which the update records once a
+parameter, and :data:`fused_adamw_composite` (``optim.fused_adamw``, :79,
+one ``adamw_step`` per member of a dtype bucket), which the optimizer
+fusion pass builds from them and the ``cuda`` executor claims for the
+``fused_adamw`` kernel; the torch executor runs both as the plain version. Their moments are stored
 in the configured ``state_dtype``/``v_dtype``, as the reference stores them;
 :func:`fused_adamw_into` is what both executors' claims of the bucket run.
 """

@@ -309,11 +309,14 @@ class AdamW:
                             torch.sqrt(acc[1]).float(), lossf])
 
     def _update_traced(self, params, grads, state, health):
-        """The traced update: one ``optim.fused_adamw`` per dtype bucket (in
-        order of first appearance), new trees out. The reference leaves a
-        bucket of one parameter unfused; here every bucket is one."""
+        """The traced update, as the reference's ``AdamW.update`` traces it
+        (``thunder_tpu/optim.py:277-305``): one ``optim.adamw_step`` a
+        parameter, new trees out. The optimizer fusion pass buckets the
+        steps by dtype into ``optim.fused_adamw`` calls, one kernel launch a
+        bucket (``core/fusion_passes.optimizer_fusion_pass``); a bucket of
+        one keeps its step."""
         from thunder_tpu_torch.core import dtypes
-        from thunder_tpu_torch.ops.optim import fused_adamw_composite
+        from thunder_tpu_torch.ops.optim import adamw_step
         from thunder_tpu_torch.torch import on_torch
 
         if health is not None:
@@ -326,18 +329,14 @@ class AdamW:
         bc1, bc2 = self._corrections(nxt)
         quads = list(zip(tree_leaves(params), tree_leaves(grads), tree_leaves(state["m"]),
                          tree_leaves(state["v"]), strict=True))
-        buckets: dict = {}
-        for i, quad in enumerate(quads):
-            buckets.setdefault(quad[0].dtype, []).append(i)
-        new = [[None] * len(quads) for _ in range(3)]
-        step = on_torch(fused_adamw_composite)
-        for members in buckets.values():
-            outs = step(*([quads[i][k] for i in members] for k in range(4)), bc1, bc2,
-                        **self._hyper, state_dtype=dtypes.to_dtype(self.state_dtype),
+        step = on_torch(adamw_step)
+        new = [[], [], []]
+        for p, g, m, v in quads:
+            outs = step(p, g, m, v, bc1, bc2, **self._hyper,
+                        state_dtype=dtypes.to_dtype(self.state_dtype),
                         v_dtype=dtypes.to_dtype(self.v_dtype))
             for k in range(3):
-                for i, t in zip(members, outs[k]):
-                    new[k][i] = t
+                new[k].append(outs[k])
         return tree_unflatten(params, new[0]), {"m": tree_unflatten(state["m"], new[1]),
                                                 "v": tree_unflatten(state["v"], new[2]),
                                                 "step": nxt}

@@ -472,10 +472,7 @@ def _t_unbind(a, dim=0):
 
 
 def _t_narrow(a, dim, start, length):
-    start = int(start) + (int(a.shape[dim]) if int(start) < 0 else 0)
-    idx = [slice(None)] * a.ndim
-    idx[dim] = slice(start, start + int(length))
-    return ops.getitem(a, tuple(idx))
+    return ops.narrow(a, dim, start, length)
 
 
 def _t_select(a, dim, index):
@@ -702,11 +699,19 @@ for _tf, _fn in {
     F.mse_loss: (lambda input, target, size_average=None, reduce=None, reduction="mean",
                  weight=None: cnn.mse_loss(input, target, reduction=reduction)),
     F.pad: _t_pad,
-    # the routers of ops/nn.py record their composites
+    # the routers of ops/nn.py record their composites; the fused norm and
+    # the GEMM epilogue record their decompositions (``.meta``: add then
+    # rms_norm, linear then the activation), the ops the reference's layers
+    # trace, which the epilogue pass fuses again wherever no block is planned
     tnn.rms_norm: (lambda a, weight=None, eps=1e-5: cnn.rms_norm(a, weight, eps=eps)),
     tnn.rms_norm_residual: (lambda residual, a, weight=None, eps=1e-5:
-                            cnn.rms_norm_residual(residual, a, weight, eps=eps)),
-    tnn.linear_act: (lambda a, w, bias=None, act="relu": cnn.linear_act(a, w, bias, act=act)),
+                            cnn.rms_norm_residual.meta(residual, a, weight, eps=eps)),
+    tnn.linear_act: (lambda a, w, bias=None, act="relu":
+                     cnn.linear_act.meta(a, w, bias, act=act)),
+    tnn.silu: _simple(ops.silu),
+    tnn.mlp_subblock: (lambda residual, x, w_norm, w_gate, w_up, w_down, act="silu", eps=1e-5:
+                       cnn.mlp_subblock(residual, x, w_norm, w_gate, w_up, w_down, act=act,
+                                        eps=eps)),
     tnn.scaled_dot_product_attention: (lambda q, k, v, is_causal=False, scale=None:
                                        cnn.scaled_dot_product_attention(
                                            q, k, v, is_causal=is_causal, scale=scale)),

@@ -155,8 +155,11 @@ def compile_autograd_step(tm, args: tuple, kwargs: dict,
     needs_grad = [p.name in trc.grad_names for p in proxies]
     trc.grad_names = None
     trc.args = proxies
-    return _finalize_step(step, trc, full_out, needs_grad, tm._jfn.executors, device,
-                          "Tracing (torch-autograd bridge)", t0)
+    # the module's compile options and executors: the planner before the
+    # split reads them, and the decision log lands in its stats
+    with tm._jfn.compiling():
+        return _finalize_step(step, trc, full_out, needs_grad, tm._jfn.executors, device,
+                              "Tracing (torch-autograd bridge)", t0)
 
 
 class ThunderFunction(torch.autograd.Function):
@@ -292,8 +295,10 @@ def call_function_with_torch_autograd(jf, args: tuple, kwargs: dict):
     key = _key(flat, treedef, device, (_alias_key(overlap),))
     step = jf._autograd_cache.get(key)
     if step is None:
-        step = compile_function_autograd_step(jf._torch_fn, args, kwargs, jf.executors, device,
-                                              overlap_indices=overlap, name=jf.fn_name)
+        with jf.compiling():
+            step = compile_function_autograd_step(jf._torch_fn, args, kwargs, jf.executors,
+                                                  device, overlap_indices=overlap,
+                                                  name=jf.fn_name)
         jf._autograd_cache[key] = step
     user_out, _ = _apply(step, (), [flat[i] for i in step.tensor_arg_positions])
     return user_out
