@@ -188,7 +188,8 @@ times each beside its bound. Then:
     unguarded one. (b) the same on the slab path (the bench's
     ``AdamW(slab_persistent=True)``) at 2 layers. (d) llama3-8b at full
     width, 8 layers, planned rung, bf16: ``kernel:cuda.decode_layer``
-    injected on decode step 5 is contained by one rebind (the claim
+    injected on decode step 2 (the traced step's capture: a replay runs no
+    router) is contained by one rebind (the claim
     quarantined, decode_layer launches frozen, ``attn_subblock`` and
     ``mlp_subblock`` launching), the replayed step's logits equal a fresh
     sub-block step's on its inputs and match the plain sub-block chain row
@@ -377,6 +378,41 @@ leaf), each on the design its rule names.
     (HORIZONTAL_ROUNDS rounds of unset, off, off, unset), each launching
     phase 19's kernels: both step ms printed. Its kernel rows are phase 9's.
 
+Phases 18, 19 and 21 (a) run each program twice: with the whole-program
+replay (``whole_program_jit``, the default: each cached entry's first call
+runs per call, its second is captured in a CUDA graph, later calls replay
+it; ``executors/cudagraphex.py``) and with ``whole_program_jit=False``.
+The replay's output (logits, losses) must equal the per-call program's bit
+for bit, every replayed step launches exactly its trace's claims (a
+capture's launches are counted once per replay), and both are timed
+(device ms, host ms a call, torch calls; the step's device profile).
+
+The serving engine runs traced steps (``serving/runner.py``: ``jit`` of the
+decode and prefill programs, the page pools donated and written in place),
+so phases 4, 5, 10, 11, 15 and 16 drive it too; phase 15's
+``decode_layer`` fault is aimed at the decode step's capture (its second
+call: a replay runs no router).
+
+22. serving on jit — the traced engine at phase 5's cell (llama3-8b, 32
+    layers, bf16, 8 slots, the seed of phase 5's weights, 8 requests of
+    17..1000 prompt tokens, 32 new, 2 sampled, a 2048-token context of
+    16-token pages) at each rung (``block_fusion=False``, ``True`` and
+    unset), each with the replay and with ``whole_program_jit=False``:
+    every chunk shape and the decode step compiled and captured first
+    (``warm_engine``), then the requests: every decode
+    step launches its rung's kernels on their designs (per-op
+    ``linear_act`` 32, ``paged_decode_attention`` 32, ``rms_norm_residual``
+    64, ``rms_norm`` 1; planned ``decode_layer`` 32, ``rms_norm`` 1), with
+    and without the replay the same tokens and launches, each request's
+    first-token logits (its replay step) within GENERATE_LOGITS_TOL of
+    ``llama.generate``'s first step row by row, and the unset verdict the
+    rung measured faster (decode step ms, median) where the two differ by
+    more than PLANNED_JIT_GAP. Printed: decode tok/s, the median step's
+    host ms (until its launches are issued) and ms to a device sync, mean
+    TTFT, SERVE_JIT_PROFILE traced decode steps' device busy ms, idle
+    share and ms by kernel family, the graphs' captures, replays and
+    copied bytes. Its kernel rows: phase 3's decode and prefill rows.
+
 No phase can fall back to a plain version on the card: a CUDA call whose
 inputs a kernel does not take raises in the kernel's wrapper, with the
 reason ``cudaex.refusal`` gives, and fails its phase; a quarantined kernel
@@ -503,11 +539,13 @@ HEALTH_SUMSQ_RTOL = 1e-6
 HEALTH_NORM_RTOL = 1e-6
 HEALTH_LIBRARY_NOTE = "no one PyTorch call counts the non-finite values of the update's outputs"
 # (d) llama3-8b serving at the planned rung, depth cut to 8 layers, the
-# injected decode_layer fault on the engine's 5th decode step; the replayed
-# step's logits against the plain sub-block chain on the same inputs, row by
-# row, DECODE_TOL of each row's largest value (bf16 rounds at other points in
+# injected decode_layer fault on the engine's 2nd decode step: the traced
+# step's capture, the last call whose routers run on the card (its first
+# ran per call; later ones replay the graph); the replayed step's logits
+# against the plain sub-block chain on the same inputs, row by row,
+# DECODE_TOL of each row's largest value (bf16 rounds at other points in
 # every layer's two sub-blocks)
-QUARANTINE_LAYERS, FAULT_DECODE_STEP = 8, 5
+QUARANTINE_LAYERS, FAULT_DECODE_STEP = 8, 2
 # phase 16: the serving fleet on llama3-8b at full width and depth. (a) 8
 # requests share a 1024-token system prompt (a multiple of the 512-token
 # chunk, so a warm request's tail chunk has the shape of a cold one's), each
@@ -602,6 +640,18 @@ PLANNED_PATHS = ("jit-train-planned", "module-train-planned")
 # horizontal_fusion=False, steps in turn on one state: HORIZONTAL_ROUNDS
 # rounds of (unset, off, off, unset)
 HORIZONTAL_ROUNDS = 3
+
+# phase 22: the traced engine at phase 5's cell, each rung with and without
+# the whole-program replay; SERVE_JIT_PROFILE decode steps traced for the
+# device's busy and idle share; the unset verdict held to the rung measured
+# faster (decode step ms, median) where the two differ by more than
+# PLANNED_JIT_GAP; the replay step's logits against generate's first step
+# within GENERATE_LOGITS_TOL (phase 16 (d)'s bound on the same two bf16
+# paths)
+SERVE_JIT_RUNGS = (("per-op", False), ("planned", True), ("unset", None))
+SERVE_JIT_PATHS = ("serve-jit", "serve-jit-planned", "serve-jit-unset")
+SERVE_JIT_LENGTHS = [17, 64, 150, 301, 480, 640, 800, 1000]
+SERVE_JIT_NEW, SERVE_JIT_PROFILE = 32, 4
 
 D, F_DIM, S_DECODE, M_PREFILL = 4096, 14336, 8, 512
 KV, G, HD, PS = 8, 4, 128, 16
@@ -1626,6 +1676,45 @@ def check_serving_planned_kernels(torch, cudaex, tnn, tllama):
 # phase 4: tiny-gqa float32 on the card vs the CPU
 # ---------------------------------------------------------------------------
 
+def whole_program_stats(jf) -> dict:
+    """A jit function's CUDA-graph counters (``CompileStats``)."""
+    import thunder_tpu_torch as ptt
+
+    st = ptt.compile_stats(jf)
+    return {"entry": st.last_whole_program, "captures": st.whole_program_captures,
+            "recaptures": st.whole_program_recaptures, "replays": st.whole_program_replays,
+            "copied_bytes": st.whole_program_copied_bytes}
+
+
+def warm_engine(torch, eng) -> float:
+    """Compile and capture an engine's traced steps before a measured run:
+    each prefill chunk shape of its ladder and the decode step, each called
+    twice (a cached entry's first call runs per call, its second is
+    captured), reading and writing only the scratch page 0, which no
+    request reads. Returns the seconds it took."""
+    t0 = time.perf_counter()
+    g, S, dev = eng.geom, eng.max_slots, eng.device
+    npg = g.pages_per_request
+
+    def zeros(*shape, dtype=torch.int64):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    # each call's step inputs made anew, as the engine makes them
+    for C in eng.chunker.buckets:
+        for _ in range(2):
+            eng.runner.prefill(eng.params, zeros(1, C), zeros(1, npg, dtype=torch.int32),
+                               torch.full((1,), C, dtype=torch.int32, device=dev),
+                               zeros(C // g.page_size), eng.cache.pools)
+    for _ in range(2):
+        eng.runner.decode(eng.params, zeros(S, 1), zeros(S, npg, dtype=torch.int32),
+                          torch.ones(S, dtype=torch.int32, device=dev), zeros(S),
+                          eng.cache.pools, zeros(S, dtype=torch.float32), zeros(S),
+                          torch.ones(S, device=dev), zeros(S, 2))
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
 def counting(eng, cudaex, attr: str, counts: list) -> None:
     """Wrap ``eng.runner.<attr>`` so each call appends the kernel launches it
     made to ``counts``."""
@@ -1676,11 +1765,16 @@ def card_vs_cpu(np, torch, tllama, ServingEngine, cudaex=None, block_fusion: boo
 def subblock_step(np, torch, tllama, tnn, cudaex):
     """One float32 tiny-gqa decode step at the sub-block rung (the
     reference's ``nn.decode_layer`` decomposition: ``attn_subblock``, then
-    ``mlp_subblock``, per layer) on the card, against the same composition
-    on the CPU and against the CPU's ``decode_layer_plain``: logits and
-    pools (but the scratch page) within SUBBLOCK_STEP_TOL. Ragged lengths, a
-    page-boundary crossing, a replay slot and an idle slot."""
+    ``mlp_subblock``, per layer; the traced runner's planner takes it while
+    ``cuda.decode_layer`` is routed off) on the card, against the same
+    rung on the CPU and against the CPU's planned rung (``decode_layer_plain``):
+    logits and pools (but the scratch page) within SUBBLOCK_STEP_TOL.
+    Ragged lengths, a page-boundary crossing, a replay slot and an idle
+    slot."""
+    import contextlib
+
     from thunder_tpu_torch.optim import tree_map
+    from thunder_tpu_torch.runtime import quarantine
     from thunder_tpu_torch.serving import PageGeometry
     from thunder_tpu_torch.serving.runner import PagedLlamaRunner
 
@@ -1699,23 +1793,25 @@ def subblock_step(np, torch, tllama, tnn, cudaex):
     geom = PageGeometry(n_layers=L, kv_heads=cfg.kv_heads, head_dim=cfg.head_dim, page_size=ps,
                         num_pages=P, pages_per_request=npg)
 
-    def step(device, layer_fn):
-        run = PagedLlamaRunner(cfg, geom, block_fusion=True)
-        run.decode_layer = layer_fn
+    def step(device, subblocks: bool):
+        run = PagedLlamaRunner(cfg, geom, block_fusion=True, device=torch.device(device))
         ps_ = tree_map(lambda x: x.to(device), params)
         pl_ = [{k: v.clone().to(device) for k, v in kv.items()} for kv in pools]
-        _, logits = run.decode(ps_, *(x.to(device) for x in inputs), pl_,
-                               *(x.to(device) for x in sampling))
+        rung = (quarantine.suppress(["cuda.decode_layer"]) if subblocks
+                else contextlib.nullcontext())
+        with rung:
+            _, logits = run.decode(ps_, *(x.to(device) for x in inputs), pl_,
+                                   *(x.to(device) for x in sampling))
         return logits.cpu(), [{k: v.cpu() for k, v in kv.items()} for kv in pl_]
 
     cudaex.reset_launch_counts()
-    card = step("cuda", tnn.decode_layer_subblocks)
+    card = step("cuda", True)
     counts = {k: v for k, v in cudaex.launch_counts().items() if v}
     expect = {"attn_subblock": L, "mlp_subblock": L, "rms_norm": 1}
     require(counts == expect, f"sub-block decode step launched {counts}, expected {expect}")
     errs = {}
-    for name, ref in (("cpu subblocks", step("cpu", tnn.decode_layer_subblocks)),
-                      ("cpu decode_layer_plain", step("cpu", tnn.decode_layer))):
+    for name, ref in (("cpu subblocks", step("cpu", True)),
+                      ("cpu decode_layer_plain", step("cpu", False))):
         # the pools on every page but the scratch page 0, where the replay and
         # idle slots' duplicate writes land in either order on the card
         err = max([float((card[0] - ref[0]).abs().max())] +
@@ -1737,7 +1833,9 @@ def full_width(np, torch, tllama, ServingEngine, SamplingParams, cudaex, params,
                         block_fusion=block_fusion)
     L = cfg.n_layers
 
-    # warm-up request (cuBLAS handles, allocator), not part of the measured run
+    # warm-up (cuBLAS handles, allocator; the traced steps compiled and
+    # captured), not part of the measured run
+    warm_s = warm_engine(torch, eng)
     eng.submit(np.arange(1, 40, dtype=np.int32), 2)
     eng.drain()
     eng.completed.clear()
@@ -1813,7 +1911,10 @@ def full_width(np, torch, tllama, ServingEngine, SamplingParams, cudaex, params,
         "decode_step_ms_mean": sum(step_ms) / len(step_ms),
         "ttft_ms_mean": 1e3 * sum(r.ttft_s for r in reqs) / len(reqs),
         "prefill_chunks": sum(r.prefill_chunks for r in reqs),
-        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9, "warmup_s": warm_s,
+        "decode_step_ms_median": float(np.median(step_ms)),
+        "decode_graph": whole_program_stats(eng.runner.decode_jit),
+        "prefill_graph": whole_program_stats(eng.runner.prefill_jit),
         "launches_per_decode_step": expect, "launches": counts,
         "designs_per_decode_step": expect_designs, "designs": cudaex.design_counts(),
     }
@@ -1826,6 +1927,194 @@ def full_width(np, torch, tllama, ServingEngine, SamplingParams, cudaex, params,
     del eng
     gc.collect()
     torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 22: the traced engine (serving on jit) at phase 5's cell
+# ---------------------------------------------------------------------------
+
+def serve_jit_expect(cudaex, cfg, L: int, planned: bool):
+    """The launches and designs of one decode step of the traced engine at
+    a rung (8 slots)."""
+    dt, Dm = cfg.dtype, cfg.dim
+    rn = cudaex.rms_norm_design(dt, Dm)
+    if planned:
+        dd = cudaex.decode_design(dt, FLEET_SLOTS, Dm, cfg.n_heads, cfg.kv_heads, cfg.head_dim)
+        return {"decode_layer": L, "rms_norm": 1}, {"decode_layer": {dd: L}, "rms_norm": {rn: 1}}
+    return ({"linear_act": L, "paged_decode_attention": L, "rms_norm_residual": 2 * L,
+             "rms_norm": 1},
+            {"linear_act": {cudaex.linear_act_design(dt, FLEET_SLOTS): L},
+             "paged_decode_attention": {"split": L},
+             "rms_norm_residual": {cudaex.rms_norm_residual_design(dt, Dm): 2 * L},
+             "rms_norm": {rn: 1}})
+
+
+def serve_jit_run(np, torch, tllama, ServingEngine, SamplingParams, cudaex, pretrain, params,
+                  block_fusion, replay: bool) -> dict:
+    """One engine at ``block_fusion`` with ``whole_program_jit=replay``: its
+    steps warmed (``warm_engine``: every prefill chunk shape and the decode
+    step compiled, and with the replay captured), then the cell's 8
+    requests (32 new tokens, 2 sampled), every
+    decode step's launches and designs held to its rung's, its host ms
+    (until the step's launches are issued), its wall ms (to a device sync)
+    and the first-token logits of each request's replay step; then
+    SERVE_JIT_PROFILE decode steps traced (busy ms, idle share)."""
+    import thunder_tpu_torch as ptt
+
+    cfg = tllama.CONFIGS["llama3-8b"]
+    L = cfg.n_layers
+    eng = ServingEngine(params, cfg, max_slots=FLEET_SLOTS, page_size=PS,
+                        max_context=FLEET_CONTEXT, block_fusion=block_fusion,
+                        whole_program_jit=replay)
+    rng = np.random.RandomState(1)
+    prompts = [rng.randint(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in SERVE_JIT_LENGTHS]
+    warm_s = warm_engine(torch, eng)
+    steps, first = [], {}
+    decode = eng.runner.decode
+
+    def recorded(*args):
+        rows = [(i, r.request_id) for i, r in enumerate(eng.slots)
+                if r is not None and r.state == "decode" and r._replay]
+        before, designs = cudaex.launch_counts(), cudaex.design_counts()
+        t = time.perf_counter()
+        toks, logits = decode(*args)
+        host = (time.perf_counter() - t) * 1e3
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+        after = cudaex.launch_counts()
+        steps.append({"launches": {k: after[k] - before[k] for k in after if after[k] != before[k]},
+                      "designs": design_delta(designs, cudaex.design_counts()),
+                      "host_ms": host, "ms": wall,
+                      "rows": sum(r is not None and r.state == "decode" for r in eng.slots)})
+        for i, rid in rows:
+            first[rid] = logits[i].float().cpu()
+        return toks, logits
+
+    eng.runner.decode = recorded
+    sampled = SamplingParams(temperature=0.8, top_k=50, top_p=0.9, seed=1234)
+    torch.cuda.synchronize()
+    cudaex.reset_launch_counts()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, SERVE_JIT_NEW, sampling=sampled if i in (2, 5) else None)
+            for i, p in enumerate(prompts)]
+    while any(r.state != "decode" or r._replay for r in reqs):
+        eng.step()                       # every prompt resident, every first token sampled
+    eng.runner.decode = decode           # the profile window runs unrecorded
+    prof = pretrain.profile_steps(eng.step, SERVE_JIT_PROFILE)
+    eng.runner.decode = recorded
+    eng.drain()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = {k: n for k, n in cudaex.launch_counts().items() if n}
+    eng.assert_quiescent()
+    for r in reqs:
+        out = r.output()
+        require(r.done and len(out) == SERVE_JIT_NEW and 0 <= out.min()
+                and out.max() < cfg.vocab_size, f"request {r.request_id}: {r.state}, {len(out)}")
+    planned = "decode_layer" in ptt.last_execution_trace(eng.runner.decode_jit).python()
+    want, want_d = serve_jit_expect(cudaex, cfg, L, planned)
+    for i, st in enumerate(steps):
+        require(st["launches"] == want and st["designs"] == want_d,
+                f"serve-jit {block_fusion} replay={replay}: decode step {i} launched "
+                f"{st['launches']} by design {st['designs']}, expected {want} by {want_d}")
+    stats = ptt.compile_stats(eng.runner.decode_jit)
+    require(stats.last_whole_program == ("graph" if replay else
+                                         "per-call (whole_program_jit=False)"),
+            f"serve-jit: the decode step ran {stats.last_whole_program}")
+    require(not replay or stats.whole_program_replays >= len(steps),
+            f"serve-jit: {stats.whole_program_replays} replays for {len(steps)} steps")
+    decode_only = [st for st in steps if st["rows"] == FLEET_SLOTS]
+    decode_tokens = sum(st["rows"] for st in steps)
+    out = {"block_fusion": block_fusion, "replay": replay, "rung": "planned" if planned
+           else "per-op", "tokens": [r.output().tolist() for r in reqs],
+           "first_logits": [first[r.request_id] for r in reqs],
+           "decode_steps": len(steps), "decode_tokens": decode_tokens,
+           "decode_tok_per_s": decode_tokens / (sum(st["ms"] for st in steps) / 1e3),
+           "decode_step_ms_median": float(np.median([st["ms"] for st in decode_only])),
+           "decode_step_host_ms_median": float(np.median([st["host_ms"]
+                                                          for st in decode_only])),
+           "ttft_ms_mean": 1e3 * sum(r.ttft_s for r in reqs) / len(reqs),
+           "wall_s": wall_s, "warmup_s": warm_s, "launches": counts,
+           "launches_per_decode_step": want, "designs_per_decode_step": want_d,
+           "decode_profile_step_ms": prof["profile_step_ms"],
+           "decode_device_busy_ms": prof["device_busy_ms_per_step"],
+           "decode_device_idle_share": prof["device_idle_share"],
+           "decode_ms_by_family": prof["ms_per_step_by_family"],
+           "captures": stats.whole_program_captures,
+           "recaptures": stats.whole_program_recaptures,
+           "replays": stats.whole_program_replays,
+           "copied_bytes": stats.whole_program_copied_bytes,
+           "decode_compile_stages_ms": dict(stats.last_pass_times),
+           "decisions": decision_summary(ptt, eng.runner.decode_jit)}
+    eng.cache.consume_pools()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_jit_full_width(np, torch, tllama, ServingEngine, SamplingParams, cudaex,
+                         pretrain) -> dict:
+    """Phase 22: the traced engine at phase 5's cell, each rung (per-op,
+    planned, unset) with the whole-program replay and without: identical
+    tokens with and without it, every replay step's first-token logits
+    within GENERATE_LOGITS_TOL of ``llama.generate``'s first step for the
+    same prompt, and the unset verdict held to the rung measured faster."""
+    from thunder_tpu_torch.testing import row_rel_err
+
+    t_phase = time.perf_counter()
+    cfg = tllama.CONFIGS["llama3-8b"]
+    params = tllama.init_params(cfg, seed=0, device="cuda")
+    rng = np.random.RandomState(1)
+    prompts = [rng.randint(0, cfg.vocab_size, size=n) for n in SERVE_JIT_LENGTHS]
+    ref = []
+    with torch.no_grad():
+        for p in prompts:
+            cache = tllama.init_kv_cache(cfg, 1, len(p), device="cuda")
+            logits, _ = tllama.forward_step(params, torch.from_numpy(p)[None].cuda(), cache, 0,
+                                            cfg, last_idx=len(p) - 1)
+            ref.append(logits[0, 0].float().cpu())
+            del cache, logits
+    ref = torch.stack(ref)
+    out = {"model": cfg.name, "layers": cfg.n_layers, "dtype": "bfloat16",
+           "max_slots": FLEET_SLOTS, "page_size": PS, "max_context": FLEET_CONTEXT,
+           "prompt_lengths": SERVE_JIT_LENGTHS, "new_tokens": SERVE_JIT_NEW,
+           "sampled_requests": 2}
+    for name, bf in SERVE_JIT_RUNGS:
+        runs = {}
+        for replay in (True, False):
+            r = serve_jit_run(np, torch, tllama, ServingEngine, SamplingParams, cudaex, pretrain,
+                              params, bf, replay)
+            err = row_rel_err(torch.stack(r.pop("first_logits")), ref)
+            require(err <= GENERATE_LOGITS_TOL,
+                    f"serve-jit {name} replay={replay}: first-step logits vs generate's: {err}")
+            r["first_logits_row_rel_err_vs_generate"] = err
+            runs["replay" if replay else "per_call"] = r
+            log(f"phase 22 {name}, whole_program_jit={replay}: "
+                f"{json.dumps({k: v for k, v in r.items() if k != 'tokens'})}")
+        require(runs["replay"]["tokens"] == runs["per_call"]["tokens"],
+                f"serve-jit {name}: tokens differ with and without the replay")
+        require(runs["replay"]["launches"] == runs["per_call"]["launches"],
+                f"serve-jit {name}: launches differ with and without the replay: "
+                f"{runs['replay']['launches']} against {runs['per_call']['launches']}")
+        for r in runs.values():
+            r.pop("tokens")
+        out[name] = runs
+    fast = {n: out[n]["replay"]["decode_step_ms_median"] for n in ("per-op", "planned")}
+    gap = abs(fast["per-op"] - fast["planned"]) / min(fast.values())
+    faster = min(fast, key=fast.get)
+    unset = out["unset"]["replay"]["rung"]
+    require(gap <= PLANNED_JIT_GAP or unset == faster,
+            f"serve-jit: the unset verdict took the {unset} rung; the {faster} rung's decode "
+            f"step was faster by {gap:.1%} ({fast})")
+    out["verdict"] = {"unset_rung": unset, "decode_step_ms_median": fast, "gap": gap,
+                      "faster": faster}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
     return out
 
 
@@ -2388,7 +2677,7 @@ def serve_quarantine(np, torch, tllama, ServingEngine, cudaex, tnn) -> dict:
     quarantined, whose router raises on the card (quarantine_stages)."""
     from thunder_tpu_torch.runtime import FaultPlan, FaultSpec, faults, quarantine
     from thunder_tpu_torch.serving.runner import PagedLlamaRunner
-    from thunder_tpu_torch.testing import row_rel_err
+    from thunder_tpu_torch.testing import decode_step, row_rel_err
 
     cfg = tllama.CONFIGS["llama3-8b"]
     L = QUARANTINE_LAYERS
@@ -2438,11 +2727,13 @@ def serve_quarantine(np, torch, tllama, ServingEngine, cudaex, tnn) -> dict:
     # on its own inputs and the pools it started from
     tokens, bt, lengths, write_pos, sampling = replay["inputs"]
 
-    def rerun(layer_fn):
-        run = PagedLlamaRunner(cfg, eng.geom, block_fusion=True)
-        run.decode_layer = layer_fn
-        pools = [{k: v.clone() for k, v in kv.items()} for kv in replay["pools"]]
-        return run.decode(eng.params, tokens, bt, lengths, write_pos, pools, *sampling)
+    def pools():
+        return [{k: v.clone() for k, v in kv.items()} for kv in replay["pools"]]
+
+    def rerun():   # a fresh traced step at the sub-block rung
+        run = PagedLlamaRunner(cfg, eng.geom, block_fusion=True, device=eng.device)
+        with quarantine.suppress(["cuda.decode_layer"]):
+            return run.decode(eng.params, tokens, bt, lengths, write_pos, pools(), *sampling)
 
     def plain_subblocks(h, attn_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages, bt_,
                         lengths_, write_pos_, mlp_norm, w_gate, w_up, w_down, act="silu",
@@ -2454,8 +2745,10 @@ def serve_quarantine(np, torch, tllama, ServingEngine, cudaex, tnn) -> dict:
         return tnn.mlp_subblock_plain(h, out, mlp_norm, w_gate, w_up, w_down, act, eps)
 
     quarantine.reset()   # the fresh sub-block step routes its own kernels
-    fresh = rerun(tnn.decode_layer_subblocks)
-    plain = rerun(plain_subblocks)
+    fresh = rerun()
+    with torch.no_grad():
+        plain = decode_step(cfg, eng.params, tokens, bt, lengths, write_pos, pools(), *sampling,
+                            plain_subblocks)
     torch.cuda.synchronize()
     require(torch.equal(fresh[1], replay["logits"]) and torch.equal(fresh[0], replay["tokens"]),
             "the replayed step differs from a fresh sub-block step on its inputs")
@@ -2596,6 +2889,7 @@ def fleet_prefix(np, torch, ServingEngine, cudaex, params, cfg, kw, sizes, block
     solo = np.concatenate([sysp, rng.randint(1, V, size=sizes["tails"][-1]).astype(np.int32)])
     ps = kw["page_size"]
     ref = ServingEngine(params, cfg, block_fusion=block_fusion, **kw)
+    warm_engine(torch, ref)
     snap = {}
     finish = ref._finish
 
@@ -2610,6 +2904,7 @@ def fleet_prefix(np, torch, ServingEngine, cudaex, params, cfg, kw, sizes, block
     ref.drain()
     ref.assert_quiescent()
     eng = ServingEngine(params, cfg, block_fusion=block_fusion, prefix_cache=True, **kw)
+    warm_engine(torch, eng)
     calls: list = []
     if check_launches:
         fleet_calls(eng, cudaex, calls)
@@ -2693,7 +2988,7 @@ def fleet_best_of(np, torch, ServingEngine, SamplingParams, cudaex, params, cfg,
     p = rng.randint(1, cfg.vocab_size, size=sizes["best_of_prompt"]).astype(np.int32)
     N, new = sizes["best_of"], sizes["new"]
     sp = SamplingParams(temperature=BEST_OF_TEMPERATURE, seed=BEST_OF_SEED)
-    eng = ServingEngine(params, cfg, **kw)
+    eng = ServingEngine(params, cfg, block_fusion=False, **kw)
     copies = []
     copy_page = eng.cache.copy_page
 
@@ -2711,7 +3006,7 @@ def fleet_best_of(np, torch, ServingEngine, SamplingParams, cudaex, params, cfg,
     eng.drain()
     counts = cudaex.launch_counts()
     eng.assert_quiescent()
-    indep = ServingEngine(params, cfg, **kw)
+    indep = ServingEngine(params, cfg, block_fusion=False, **kw)
     reqs = [indep.submit(p, new, sampling=sp.fork(i) if i else sp) for i in range(N)]
     indep.drain()
     indep.assert_quiescent()
@@ -2859,7 +3154,7 @@ def fleet_generate(np, torch, ServingEngine, cudaex, tllama, params, cfg, sizes,
                                    last_idx=T - 1)
     del cache
     eng = ServingEngine(params, cfg, device=dev, max_slots=B, page_size=sizes["page_size"],
-                        max_context=max_len)
+                        max_context=max_len, block_fusion=False)
     replay = {}
     decode = eng.runner.decode
 
@@ -2912,7 +3207,7 @@ def fleet_full_width(np, torch, tllama, ServingEngine, SamplingParams, cudaex) -
     sizes = FLEET_SIZES
     out = {"model": cfg.name, "layers": cfg.n_layers, "dtype": "bfloat16"}
     # warm-up request (cuBLAS handles, allocator), not part of the measured runs
-    warm = ServingEngine(params, cfg, **kw)
+    warm = ServingEngine(params, cfg, block_fusion=False, **kw)
     warm.submit(np.arange(1, 40, dtype=np.int32), 2)
     warm.drain()
     warm.cache.consume_pools()
@@ -3548,11 +3843,16 @@ def host_ms(torch, fn, iters: int = JIT_TIMED) -> float:
     return total * 1e3 / iters
 
 
-def jit_run(torch, cudaex, ptt, jf, args, eager_fn, what: str) -> dict:
+def jit_run(torch, cudaex, ptt, jf, args, eager_fn, what: str, jf_off=None) -> dict:
     """Compile ``jf`` for ``args``, then one cached call with the launch counts
     reset just before it and read just after: they must equal the execution
     trace's claims. Returns the compile stages, the cached call's output and
-    launches, the eager call's, and their times."""
+    launches, the eager call's, and their times. The timed calls capture
+    the entry's graph (``whole_program_jit``, the default): one more call,
+    a replay, must give the first call's output bit for bit. ``jf_off``, the
+    same function with ``whole_program_jit=False``, must too, and is timed
+    against it in turn (DEFAULT_RUNG_ROUNDS rounds of replay, per call, per
+    call, replay; device ms medians), with its host ms and torch calls."""
     from thunder_tpu_torch.testing import jit_launches
 
     t0 = time.perf_counter()
@@ -3569,6 +3869,8 @@ def jit_run(torch, cudaex, ptt, jf, args, eager_fn, what: str) -> dict:
     torch.cuda.synchronize()
     eager_launches = {k: n for k, n in cudaex.launch_counts().items() if n}
     bound = jf.bind(*args)
+    with torch.no_grad():
+        jf(*args)           # the entry's second call: its graph's capture
     t0 = time.perf_counter()
     for _ in range(10):
         jf.compile(*args)   # the guard key alone: a hit
@@ -3585,6 +3887,33 @@ def jit_run(torch, cudaex, ptt, jf, args, eager_fn, what: str) -> dict:
             "guard_us": guard_us,
             "torch_calls_jit": jit_ops, "torch_calls_eager": eager_ops,
         }
+        rep = jf(*args)
+    stats = ptt.compile_stats(jf)
+    require(stats.last_whole_program == "graph" and stats.whole_program_replays > 0,
+            f"{what}: the entry ran {stats.last_whole_program}, "
+            f"{stats.whole_program_replays} replays")
+    require(torch.equal(rep, out), f"{what}: a replay's output differs from the first call's")
+    timing["replays"] = stats.whole_program_replays
+    if jf_off is not None:
+        with torch.no_grad():
+            off = jf_off(*args)
+            require(torch.equal(off, out), f"{what}: the per-call program's output differs "
+                                           f"from the replay's")
+            # in turn, as default_rung times the rungs: one window of
+            # JIT_TIMED calls can catch a stall of its own
+            on_ms, off_ms = [], []
+            for _ in range(DEFAULT_RUNG_ROUNDS):
+                on_ms.append(device_ms(torch, lambda: jf(*args)))
+                off_ms.extend([device_ms(torch, lambda: jf_off(*args)),
+                               device_ms(torch, lambda: jf_off(*args))])
+                on_ms.append(device_ms(torch, lambda: jf(*args)))
+            timing["jit_ms_replay_rounds"] = statistics.median(on_ms)
+            timing["jit_ms_per_call"] = statistics.median(off_ms)
+            timing["host_ms_per_call"] = host_ms(torch, lambda: jf_off(*args))
+            _, timing["torch_calls_per_call"] = torch_calls(torch, lambda: jf_off(*args))
+        timing["replay_vs_per_call_pct"] = (
+            (timing["jit_ms_replay_rounds"] - timing["jit_ms_per_call"])
+            / timing["jit_ms_per_call"] * 100)
     return {"out": out, "eager": eager, "launches": launches, "eager_launches": eager_launches,
             "compile_ms": compile_ms, "compile_stages_ms": stages, "timing": timing,
             "trace_bsyms": len(ptt.last_execution_trace(jf).bound_symbols)}
@@ -3639,9 +3968,13 @@ def jit_full_width(np, torch, tllama, cudaex) -> dict:
 
     # (a) the prefill's forward at the per-op rung, held to the eager per-op
     # calls; (a, default) below runs the default compile
-    fwd = ptt.jit(lambda p, t: tllama.forward(p, t, cfg), block_fusion=False)
+    def forward(p, t):
+        return tllama.forward(p, t, cfg)
+
+    fwd = ptt.jit(forward, block_fusion=False)
     a = jit_run(torch, cudaex, ptt, fwd, (params, tokens),
-                lambda: tllama.forward(params, tokens, cfg), "jit(forward)")
+                lambda: tllama.forward(params, tokens, cfg), "jit(forward)",
+                ptt.jit(forward, block_fusion=False, whole_program_jit=False))
     want = {"rms_norm": 1, "sdpa_fwd": L, "rms_norm_residual": 2 * L, "linear_act": L}
     require(a["launches"] == want and a["eager_launches"] == want,
             f"jit(forward) launched {a['launches']}, eager {a['eager_launches']}, want {want}")
@@ -3661,10 +3994,10 @@ def jit_full_width(np, torch, tllama, cudaex) -> dict:
     # eager planned forward (the same kernels in the same order), and timed
     # against (a) in turn
     planned = {"rms_norm": L + 1, "sdpa_fwd": L, "mlp_subblock": L}
-    fwd_d = ptt.jit(lambda p, t: tllama.forward(p, t, cfg))
+    fwd_d = ptt.jit(forward)
     ad = jit_run(torch, cudaex, ptt, fwd_d, (params, tokens),
                  lambda: tllama.forward(params, tokens, cfg, block_fusion=True),
-                 "jit(forward) default")
+                 "jit(forward) default", ptt.jit(forward, whole_program_jit=False))
     require(ad["launches"] == planned and ad["eager_launches"] == planned,
             f"jit(forward) default launched {ad['launches']}, eager planned "
             f"{ad['eager_launches']}, want {planned}")
@@ -3682,9 +4015,13 @@ def jit_full_width(np, torch, tllama, cudaex) -> dict:
     torch.cuda.empty_cache()
 
     # (b) the evaluation loss
-    lossf = ptt.jit(lambda p, t, y: tllama.loss_fn(p, t, y, cfg), block_fusion=False)
+    def loss_of(p, t, y):
+        return tllama.loss_fn(p, t, y, cfg)
+
+    lossf = ptt.jit(loss_of, block_fusion=False)
     b = jit_run(torch, cudaex, ptt, lossf, (params, tokens, targets),
-                lambda: tllama.loss_fn(params, tokens, targets, cfg), "jit(loss_fn)")
+                lambda: tllama.loss_fn(params, tokens, targets, cfg), "jit(loss_fn)",
+                ptt.jit(loss_of, block_fusion=False, whole_program_jit=False))
     want_b = dict(want, ce_fwd=1)
     require(b["launches"] == want_b and b["eager_launches"] == want_b,
             f"jit(loss_fn) launched {b['launches']}, eager {b['eager_launches']}, want {want_b}")
@@ -3696,10 +4033,10 @@ def jit_full_width(np, torch, tllama, cudaex) -> dict:
     require(loss == eager_loss, f"jit(loss_fn): {loss} against the eager {eager_loss}")
 
     # (b, default) the default compile of the loss, as (a, default)
-    lossf_d = ptt.jit(lambda p, t, y: tllama.loss_fn(p, t, y, cfg))
+    lossf_d = ptt.jit(loss_of)
     bd = jit_run(torch, cudaex, ptt, lossf_d, (params, tokens, targets),
                  lambda: tllama.loss_fn(params, tokens, targets, cfg, block_fusion=True),
-                 "jit(loss_fn) default")
+                 "jit(loss_fn) default", ptt.jit(loss_of, whole_program_jit=False))
     want_bd = dict(planned, ce_fwd=1)
     require(bd["launches"] == want_bd and bd["eager_launches"] == want_bd,
             f"jit(loss_fn) default launched {bd['launches']}, eager planned "
@@ -3734,7 +4071,8 @@ def jit_full_width(np, torch, tllama, cudaex) -> dict:
         return plain_llama_layer(x, *w, n_heads=H, n_kv=KVh)
 
     lay = ptt.jit(plain, block_fusion=False)
-    c = jit_run(torch, cudaex, ptt, lay, (x, *layer), lambda: plain(x, *layer), "jit(layer)")
+    c = jit_run(torch, cudaex, ptt, lay, (x, *layer), lambda: plain(x, *layer), "jit(layer)",
+                ptt.jit(plain, block_fusion=False, whole_program_jit=False))
     want_c = {"rms_norm": 1, "sdpa_fwd": 1, "rms_norm_residual": 1, "linear_act": 1}
     require(c["launches"] == want_c and not c["eager_launches"],
             f"jit(layer) launched {c['launches']} (want {want_c}); eager {c['eager_launches']}")
@@ -3787,9 +4125,28 @@ def decision_summary(ptt, jf) -> list:
     return list(groups.values())
 
 
+def replay_pairs(pairs) -> dict:
+    """Each compiled step with the whole-program replay against the same
+    step per call: step ms (median of steps 2-5), device busy ms a step and
+    the idle share, and the replay's device ms against the per-call's."""
+    out = {}
+    for name, on, off in pairs:
+        out[name] = {
+            "step_ms_median_replay_per_call": [on["step_ms_median"], off["step_ms_median"]],
+            "device_busy_ms_replay_per_call": [on["device_busy_ms_per_step"],
+                                               off["device_busy_ms_per_step"]],
+            "idle_share_replay_per_call": [on["device_idle_share"], off["device_idle_share"]],
+            "host_ms_cached_step_replay_per_call": [on["host_ms_cached_step"],
+                                                    off["host_ms_cached_step"]],
+            "device_busy_replay_vs_per_call_pct": (on["device_busy_ms_per_step"]
+                                                   / off["device_busy_ms_per_step"] - 1) * 100,
+            "losses_equal": on["losses"] == off["losses"]}
+    return out
+
+
 def jit_train_run(np, torch, tllama, cudaex, pretrain, remat: bool, eager: dict,
                   block_fusion: bool | None = None, loss_rtol: float = JIT_TRAIN_LOSS_RTOL,
-                  then=None) -> dict:
+                  then=None, whole_program_jit: bool = True) -> dict:
     """Phase 19 (a) or, with ``remat``, (b), and with ``block_fusion=True``
     phase 21 (a): ``pretrain.jit_train_step`` from phase 7's weights, batch
     and AdamW(lr=1e-4), TRAIN_STEPS steps. Every step launches exactly the
@@ -3799,13 +4156,16 @@ def jit_train_run(np, torch, tllama, cudaex, pretrain, remat: bool, eager: dict,
     weights and batch), and the donated parameters and moments come back
     as the same storage. The compile's planner verdicts are reported
     (``decision_summary``). ``then(jf, holder, tok, tgt)``, where given,
-    runs on the trained state before it is freed; its dict is ``then``."""
+    runs on the trained state before it is freed; its dict is ``then``.
+    ``whole_program_jit`` is the compile's replay option (the default, on:
+    step 1 runs per call, step 2 is captured, the rest replay)."""
     import thunder_tpu_torch as ptt
     from thunder_tpu_torch.optim import AdamW, tree_leaves
     from thunder_tpu_torch.testing import claimed_kernels
 
     what = (f"jit train step{' (remat)' if remat else ''}"
-            f"{' (planned)' if block_fusion else ''}")
+            f"{' (planned)' if block_fusion else ''}"
+            f"{'' if whole_program_jit else ' (per call)'}")
     t_phase = time.perf_counter()
     cfg = tllama.CONFIGS["llama3-8b-bench"]
     params = tllama.init_params(cfg, seed=0, device="cuda", n_layers=TRAIN_LAYERS)
@@ -3814,7 +4174,8 @@ def jit_train_run(np, torch, tllama, cudaex, pretrain, remat: bool, eager: dict,
     tok, tgt = (torch.from_numpy(a).cuda()
                 for a in pretrain.synthetic_batch(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, 0))
     options = {} if block_fusion is None else {"block_fusion": block_fusion}
-    jf = pretrain.jit_train_step(cfg, opt, remat=remat, **options)
+    jf = pretrain.jit_train_step(cfg, opt, remat=remat, whole_program_jit=whole_program_jit,
+                                 **options)
     t0 = time.perf_counter()
     jf.compile(params, state, tok, tgt)
     compile_s = time.perf_counter() - t0
@@ -3870,6 +4231,11 @@ def jit_train_run(np, torch, tllama, cudaex, pretrain, remat: bool, eager: dict,
     out["torch_calls_per_step"] = torch_calls(torch, step)[1]
     out.update(pretrain.profile_steps(step, JIT_TRAIN_PROFILE))
     out["designs"] = cudaex.design_counts()
+    stats = ptt.compile_stats(jf)
+    out["whole_program"] = {"entry": stats.last_whole_program,
+                            "captures": stats.whole_program_captures,
+                            "replays": stats.whole_program_replays,
+                            "copied_bytes": stats.whole_program_copied_bytes}
     if then is not None:
         out["then"] = then(jf, holder, tok, tgt)
     del params, state, cur, p, s, holder
@@ -4529,11 +4895,22 @@ def main() -> int:
     jt = jit_full_width(np, torch, tllama, cudaex)
     log(f"phase 18 (jit, llama3-8b full width): {json.dumps(jt)} ({card})")
 
-    # phase 19: the compiled train step, plain and checkpointed
+    # phase 19: the compiled train step, plain and checkpointed, each with
+    # the whole-program replay (the default) and per call
     jta = jit_train_run(np, torch, tllama, cudaex, pretrain, False, tw)
     log(f"phase 19 (a) jit train step: {json.dumps(jta)} ({card})")
+    jta_off = jit_train_run(np, torch, tllama, cudaex, pretrain, False, tw,
+                            whole_program_jit=False)
+    log(f"phase 19 (a) per call: {json.dumps(jta_off)} ({card})")
     jtb = jit_train_run(np, torch, tllama, cudaex, pretrain, True, tw)
     log(f"phase 19 (b) jit train step, remat: {json.dumps(jtb)} ({card})")
+    jtb_off = jit_train_run(np, torch, tllama, cudaex, pretrain, True, tw,
+                            whole_program_jit=False)
+    log(f"phase 19 (b) per call: {json.dumps(jtb_off)} ({card})")
+    for what, on, off in (("19 (a)", jta, jta_off), ("19 (b)", jtb, jtb_off)):
+        require(on["losses"] == off["losses"],
+                f"phase {what}: the replayed steps' losses {on['losses']} differ from the "
+                f"per-call steps' {off['losses']}")
     require(jtb["peak_memory_gb"] < jta["peak_memory_gb"],
             f"phase 19: remat's peak {jtb['peak_memory_gb']:.2f} GB is not below "
             f"{jta['peak_memory_gb']:.2f} GB")
@@ -4552,6 +4929,7 @@ def main() -> int:
         "device_ms_by_family_eager": je["ms_per_step_by_family"],
         "device_busy_ms_jit_eager": [jta["device_busy_ms_per_step"],
                                      je["device_busy_ms_per_step"]],
+        "replay_vs_per_call": replay_pairs((("a", jta, jta_off), ("b", jtb, jtb_off))),
     }) + f" ({card})")
 
     # phase 20: jit(nn.Module) and the torch-autograd bridge
@@ -4588,6 +4966,12 @@ def main() -> int:
                         loss_rtol=PLANNED_JIT_LOSS_RTOL,
                         then=planned_quarantine(torch, cudaex))
     log(f"phase 21 (a) planned jit train step: {json.dumps(jpa)} ({card})")
+    jpa_off = jit_train_run(np, torch, tllama, cudaex, pretrain, False, tp, block_fusion=True,
+                            loss_rtol=PLANNED_JIT_LOSS_RTOL, whole_program_jit=False)
+    log(f"phase 21 (a) per call: {json.dumps(jpa_off)} ({card})")
+    require(jpa["losses"] == jpa_off["losses"],
+            f"phase 21 (a): the replayed steps' losses {jpa['losses']} differ from the "
+            f"per-call steps' {jpa_off['losses']}")
     jpe = jit_train_eager_profile(torch, pretrain, block_fusion=True)
     pv = planner_verdict(jta, jpa)
     log(f"phase 21 (b) the unset compile (phase 19): {json.dumps(jta['decisions'])}; "
@@ -4616,8 +5000,20 @@ def main() -> int:
         "device_ms_by_family_eager_planned": jpe["ms_per_step_by_family"],
         "loss_rel_diff_max": jpa["loss_rel_diff_max"], "verdict": pv,
         "horizontal_step_ms_unset_off": hab["step_ms_median_unset_off"],
+        "replay_vs_per_call": replay_pairs((("a", jpa, jpa_off),)),
         "phase_s": time.perf_counter() - t21,
     }) + f" ({card})")
+
+    # phase 22: serving on jit, each rung with the whole-program replay and per call
+    sj = serve_jit_full_width(np, torch, tllama, ServingEngine, SamplingParams, cudaex,
+                              pretrain)
+    log("phase 22: " + json.dumps({
+        "verdict": sj["verdict"], "phase_s": sj["phase_s"],
+        **{f"{name} {mode}": {k: sj[name][mode][k] for k in (
+            "rung", "decode_tok_per_s", "decode_step_ms_median", "decode_step_host_ms_median",
+            "ttft_ms_mean", "decode_device_busy_ms", "decode_device_idle_share",
+            "first_logits_row_rel_err_vs_generate", "launches_per_decode_step")}
+           for name, _ in SERVE_JIT_RUNGS for mode in ("replay", "per_call")}}) + f" ({card})")
 
     # one row per kernel and main path: the path's own shape and its own
     # launch count (rms_norm and rms_norm_residual run on several paths;
@@ -4679,10 +5075,14 @@ def main() -> int:
                                                                          jt["loss_default"]))),
                                  (DEFAULT_PATHS[2], {k: module_rows.get(k) or planned[k]
                                                      for k in MODULE_EVAL_PLANNED},
-                                  mt["eval"]["default"])):
+                                  mt["eval"]["default"]),
+                                 *((p, {k: serve_planned.get(k) or rows[k]
+                                        for k in sj[n]["replay"]["launches"]},
+                                    sj[n]["replay"])
+                                   for p, (n, _) in zip(SERVE_JIT_PATHS, SERVE_JIT_RUNGS))):
         for name, rs in path_rows.items():
             if path in (*FLEET_PATHS, *ZOO_PATHS, *JIT_PATHS, *JIT_TRAIN_PATHS, *MODULE_PATHS,
-                        *PLANNED_PATHS, *DEFAULT_PATHS):
+                        *PLANNED_PATHS, *DEFAULT_PATHS, *SERVE_JIT_PATHS):
                 require(run["launches"].get(name, 0) > 0,
                         f"{path}: {name} never launched on the main path")
             r = dict(rs[0], path=path, launches=run["launches"][name])

@@ -23,7 +23,7 @@ import types
 import pytest
 import torch
 
-from test_torch_port_serving_planned import ENGINE_LAYERS, _prompts
+from test_torch_port_serving_planned import ENGINE_LAYERS, _prompts, bound_layer_kernel
 from thunder_tpu_torch.executors import cudaex
 from thunder_tpu_torch.models import llama as tllama
 from thunder_tpu_torch.ops import nn as tnn
@@ -133,6 +133,6 @@ def test_engine_takes_the_subblock_rung():
             tokens.append([r.output().tolist() for r in reqs])
         assert tokens[0] == tokens[1]
         assert quarantine.is_quarantined(f"cuda.{BROKEN}")
-        assert eng.decode_rebinds == 1 and eng.runner.decode_layer is tnn.decode_layer_subblocks
+        assert eng.decode_rebinds == 1 and bound_layer_kernel(eng) == "attn_subblock"
     finally:
         quarantine.reset()

@@ -11,7 +11,8 @@ package's (``thunder_tpu/core/cost_model.py``), on the CPU.
   the port has no VMEM model (the kernel's own refusal takes its place),
   so the reference's ``vmem_bytes_per_step``/``vmem_feasible`` have no
   counterpart and its verdict is compared where the reference's VMEM gate
-  passes; the port's sub-block dict adds ``backward``.
+  passes; the port's sub-block dict adds ``backward``. (The decode half is
+  held in ``test_torch_port_serving_jit.py``.)
 - With the port's own constants (NVIDIA H100 80GB HBM3, 700.00 W): they
   reproduce the card times they were fitted to (PERF.md §6 rows 7, 8, 11)
   within 0.1%; at phase 7's cell the verdict taken before autodiff is the
@@ -76,9 +77,10 @@ def _same_fields(got: dict, want: dict, extra_got=(), extra_want=()):
 def test_subblock_cost_matches_reference(reference_constants, shape, dtype_bytes):
     got = tcm.subblock_cost(*shape, dtype_bytes)
     want = jcm.subblock_cost(*shape, dtype_bytes)
-    # the reference's decode term comes with the decode stages (A.7.5)
+    # the decode term is held at the card's constants
+    # (tests/test_torch_port_serving_jit.py): its launches are priced in a graph
     assert want["decode"] is False
-    _same_fields(got, want, extra_got={"backward"}, extra_want=VMEM_ONLY | {"decode"})
+    _same_fields(got, want, extra_got={"backward"}, extra_want=VMEM_ONLY)
     assert got["backward"] is False
     if want["vmem_feasible"]:
         assert tcm.subblock_profitable(got) == jcm.subblock_profitable(want)
@@ -164,7 +166,12 @@ def test_card_verdicts():
 def test_no_tpu_constant_is_left():
     """No constant of the module equals one of the reference's TPU figures,
     and the module names the card and power limit its constants come from."""
-    names = [n for n in dir(tcm) if n.isupper() and isinstance(getattr(tcm, n), (int, float))]
+    # the decode half's launch counts are counts of the port's own traced
+    # kernels (test_torch_port_serving_jit.py counts them in a trace), not
+    # figures; the MLP half's 5 equals the reference's COLLECTIVE_LAUNCH_US
+    counts = {"DECODE_UNFUSED_LAUNCHES_ATTN", "DECODE_UNFUSED_LAUNCHES_MLP"}
+    names = [n for n in dir(tcm) if n.isupper() and isinstance(getattr(tcm, n), (int, float))
+             and n not in counts]
     tpu = {getattr(jcm, n) for n in dir(jcm) if n.isupper()
            and isinstance(getattr(jcm, n), (int, float)) and not isinstance(getattr(jcm, n), bool)}
     for n in names:

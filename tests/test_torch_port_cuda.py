@@ -78,6 +78,7 @@ bit-identical to the ungated kernel when healthy and to the state before it
 when not, and within 4 ULP of its plain twin.
 """
 
+import dataclasses
 import math
 
 import numpy as np
@@ -276,7 +277,7 @@ def test_cuda_engine_tokens_match_cpu(cuda_device):
     cudaex.reset_launch_counts()
     for device in ("cuda", "cpu"):
         eng = ServingEngine(params, cfg, device=device, max_slots=3, page_size=8,
-                            num_pages=9, max_context=64, prefill_chunk=16)
+                            num_pages=9, max_context=64, prefill_chunk=16, block_fusion=False)
         reqs = [eng.submit(p, 8) for p in prompts]
         eng.drain()
         eng.assert_quiescent()
@@ -1868,3 +1869,226 @@ def test_cuda_one_failed_source_stops_only_its_kernels(cuda_device, monkeypatch,
         assert row_rel_err(out.cpu(), ref) <= 2e-2
     finally:
         quarantine.reset()
+
+
+# ---------------------------------------------------------------------------
+# the whole-program replay (executors/cudagraphex.py) and serving on jit
+# ---------------------------------------------------------------------------
+
+def _replay_pair(make, calls):
+    """``calls`` calls of a fresh ``jit`` function per setting of
+    ``whole_program_jit`` (``make(flag)`` builds the function, ``calls``
+    takes it and returns a list of per-call results on the CPU), each call
+    counted: ``{flag: (results, launches per call, claims, stats)}``."""
+    import thunder_tpu_torch as ptt
+    from thunder_tpu_torch.testing import claimed_kernels
+
+    out = {}
+    for flag in (True, False):
+        jf = make(flag)
+        launches = []
+
+        def counted(*args):
+            torch.cuda.synchronize()
+            cudaex.reset_launch_counts()
+            res = jf(*args)
+            torch.cuda.synchronize()
+            launches.append({k: n for k, n in cudaex.launch_counts().items() if n})
+            return res
+
+        results = calls(counted)
+        out[flag] = (results, launches, claimed_kernels(ptt.last_execution_trace(jf)),
+                     ptt.compile_stats(jf))
+    return out
+
+
+def _equal_trees(a, b) -> bool:
+    from thunder_tpu_torch.optim import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+
+@pytest.mark.cuda
+def test_cuda_replay_forward_is_the_per_call_run(cuda_device):
+    """jit(llama.forward), tiny-gqa bf16, 4 calls on other tokens each: with
+    the replay (a warm-up call, a capture, two replays) the logits equal the
+    per-call program's bit for bit, every call launches the trace's claims,
+    and a later replay leaves an earlier call's logits as they were."""
+    import thunder_tpu_torch as ptt
+    from thunder_tpu_torch.models import llama as tllama
+    from thunder_tpu_torch.optim import tree_map
+
+    cfg = dataclasses.replace(tllama.CONFIGS["tiny-gqa"], dtype=torch.bfloat16)
+    params = tree_map(lambda t: t.cuda(), tllama.init_params(cfg, seed=0, device="cpu"))
+    gen = torch.Generator().manual_seed(9)
+    batches = [torch.randint(0, cfg.vocab_size, (2, 48), generator=gen) for _ in range(4)]
+
+    def calls(fn):
+        outs = [fn(params, b.cuda()) for b in batches]
+        first = outs[0].clone()
+        return [o.cpu() for o in outs], torch.equal(first, outs[0])
+
+    runs = _replay_pair(lambda flag: ptt.jit(lambda p, t: tllama.forward(p, t, cfg),
+                                             whole_program_jit=flag), calls)
+    (got, kept), launches, claims, stats = runs[True]
+    (want, _), want_launches, _, off = runs[False]
+    assert all(torch.equal(a, b) for a, b in zip(got, want)) and kept
+    assert launches == want_launches == [claims] * 4
+    assert stats.last_whole_program == "graph" and off.last_whole_program.startswith("per-call")
+    assert (stats.whole_program_captures, stats.whole_program_replays) == (1, 3)
+    assert stats.whole_program_copied_bytes > 0     # the tokens, copied in each replay
+
+
+@pytest.mark.cuda
+def test_cuda_replay_train_step_is_the_per_call_run(cuda_device):
+    """3 steps of pretrain.jit_train_step (tiny-gqa float32, the params and
+    moments donated) with and without the replay: losses and parameters bit
+    for bit; the donated state is written in place (its storage stays the
+    caller's); then the same step on a copy of the state (new addresses)
+    captures again, and its loss equals the per-call step's."""
+    import thunder_tpu_torch as ptt
+    from thunder_tpu_torch.benchmarks import pretrain
+    from thunder_tpu_torch.models import llama as tllama
+    from thunder_tpu_torch.optim import AdamW, tree_leaves, tree_map
+
+    cfg = tllama.CONFIGS["tiny-gqa"]
+    opt = AdamW(lr=1e-3)
+    tok, tgt = (torch.from_numpy(a).cuda()
+                for a in pretrain.synthetic_batch(cfg.vocab_size, 2, 64, 0))
+    results = {}
+    for flag in (True, False):
+        p = tree_map(torch.Tensor.cuda, tllama.init_params(cfg, seed=0, device="cpu"))
+        s = opt.init(p)
+        ptrs = [t.data_ptr() for t in tree_leaves((p, s["m"], s["v"]))]
+        step = pretrain.jit_train_step(cfg, opt, whole_program_jit=flag)
+        losses = []
+        for _ in range(3):
+            loss, p, s = step(p, s, tok, tgt)
+            losses.append(loss.clone())
+        assert [t.data_ptr() for t in tree_leaves((p, s["m"], s["v"]))] == ptrs
+        p2, s2 = tree_map(torch.clone, (p, s))
+        loss2, _, _ = step(p2, s2, tok, tgt)
+        results[flag] = (losses, tree_map(torch.clone, p), loss2, ptt.compile_stats(step))
+    on, off = results[True], results[False]
+    assert all(torch.equal(a, b) for a, b in zip(on[0], off[0]))
+    assert _equal_trees(on[1], off[1])
+    assert torch.equal(on[2], off[2])
+    assert on[3].whole_program_captures == 2 and on[3].whole_program_recaptures == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_fusion", [False, True], ids=["per-op", "planned"])
+def test_cuda_replay_serving_decode_is_the_per_call_run(cuda_device, block_fusion):
+    """The traced engine, tiny-gqa float32 on the card, with and without the
+    replay: identical tokens, every decode step's logits bit for bit, each
+    step's launches the bound program's claims (a replay counts what it
+    runs); with the replay, later steps replay one graph."""
+    from thunder_tpu_torch.models import llama as tllama
+    from thunder_tpu_torch.serving import ServingEngine
+    from thunder_tpu_torch.testing import claimed_kernels
+
+    cfg = tllama.CONFIGS["tiny-gqa"]
+    params = tllama.init_params(cfg, seed=0, device="cpu", n_layers=2)
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(1, cfg.vocab_size, size=n).astype(np.int32) for n in (1, 7, 16, 33)]
+    out = {}
+    for flag in (True, False):
+        eng = ServingEngine(params, cfg, device="cuda", max_slots=3, page_size=8,
+                            max_context=64, prefill_chunk=16, block_fusion=block_fusion,
+                            whole_program_jit=flag)
+        steps = []
+        decode = eng.runner.decode
+
+        def recorded(*args):
+            torch.cuda.synchronize()
+            cudaex.reset_launch_counts()
+            toks, logits = decode(*args)
+            torch.cuda.synchronize()
+            steps.append((logits.clone(), {k: n for k, n in cudaex.launch_counts().items()
+                                           if n}))
+            return toks, logits
+
+        eng.runner.decode = recorded
+        reqs = [eng.submit(p, 6) for p in prompts]
+        eng.drain()
+        eng.assert_quiescent()
+        claims = claimed_kernels(eng.runner._decode_bound.entry.traces[-1])
+        assert all(c == claims for _, c in steps), (steps[0][1], claims)
+        out[flag] = ([r.output().tolist() for r in reqs], [s[0] for s in steps],
+                     eng.runner.decode_jit._stats.whole_program_replays)
+    assert out[True][0] == out[False][0]
+    assert len(out[True][1]) == len(out[False][1])
+    assert all(torch.equal(a, b) for a, b in zip(out[True][1], out[False][1]))
+    assert out[True][2] == len(out[True][1]) - 1 and out[False][2] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_quarantine_between_replays_reroutes(cuda_device):
+    """A planned engine replaying its decode graph: quarantining
+    ``cuda.decode_layer`` between steps re-binds the engine to a new compile
+    whose steps launch the two sub-block kernels, and the tokens equal an
+    engine that ran the sub-block rung throughout."""
+    from thunder_tpu_torch.models import llama as tllama
+    from thunder_tpu_torch.runtime import quarantine
+    from thunder_tpu_torch.serving import ServingEngine
+
+    cfg = tllama.CONFIGS["tiny-gqa"]
+    params = tllama.init_params(cfg, seed=0, device="cpu", n_layers=2)
+    rng = np.random.RandomState(3)
+    prompts = [rng.randint(1, cfg.vocab_size, size=n).astype(np.int32) for n in (5, 19)]
+    kw = dict(device="cuda", max_slots=2, page_size=8, max_context=64, prefill_chunk=16,
+              block_fusion=True)
+    quarantine.reset()
+    try:
+        eng = ServingEngine(params, cfg, **kw)
+        reqs = [eng.submit(p, 10) for p in prompts]
+        for _ in range(8):
+            eng.step()
+        assert eng.runner.decode_jit._stats.whole_program_replays > 0
+        quarantine.get_quarantine().add("cuda.decode_layer", reason="test")
+        cudaex.reset_launch_counts()
+        eng.drain()
+        counts = cudaex.launch_counts()
+        assert counts["decode_layer"] == 0 and counts["attn_subblock"] > 0, counts
+        assert eng.decode_rebinds == 1
+        ref = ServingEngine(params, cfg, **kw)
+        ref_reqs = [ref.submit(p, 10) for p in prompts]
+        ref.drain()
+        assert [r.output().tolist() for r in reqs] == [r.output().tolist() for r in ref_reqs]
+    finally:
+        quarantine.reset()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["paged_decode_attention", "attn_subblock", "decode_layer"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_decode_claims_match_routers(cuda_device, kernel, dtype):
+    """paged_decode_attention, attn_subblock and decode_layer through their
+    jit claims (a function calling the router, traced: the pools it writes
+    are returned) equal the routers' eager calls bit for bit, outputs and
+    written pools, and each launches its kernel once."""
+    import thunder_tpu_torch as ptt
+
+    args, mlp = _decode_args(cuda_device, dtype, "8-slot-hd128", seed=11)
+    if kernel == "paged_decode_attention":
+        S, D, H, KV, hd = DECODE_SHAPES["8-slot-hd128"][:5]
+        gen = torch.Generator(device=cuda_device).manual_seed(12)
+        q = torch.randn(S, H, 1, hd, generator=gen, device=cuda_device).to(dtype)
+        inputs = (q, args[8], args[9], args[10], args[11])
+
+        def fn(q, kp, vp, bt, ln):
+            return tnn.paged_decode_attention(q, kp, vp, bt, ln), kp, vp
+    else:
+        inputs = args + (mlp if kernel == "decode_layer" else ())
+        router = getattr(tnn, kernel)
+
+        def fn(*a):
+            return router(*a), a[8], a[9]
+    eager_in = [t.clone() for t in inputs]
+    want = fn(*eager_in)
+    jf = ptt.jit(fn, donate_argnums=(1, 2) if kernel == "paged_decode_attention" else (8, 9))
+    out, launches = _jit_launches(jf, *[t.clone() for t in inputs])
+    assert launches == {kernel: 1}
+    for a, b in zip(out, want):
+        assert torch.equal(a, b)

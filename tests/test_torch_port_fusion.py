@@ -316,7 +316,8 @@ def test_planner_cost_rejects_tiny_shapes_by_default():
 def test_planner_records_registered_kinds_only_with_counter_and_marker():
     assert "vmem-infeasible" not in BLOCK_DECISION_KINDS
     assert set(BLOCK_DECISION_KINDS) == {"planned", "interior-escapes", "cost-rejected",
-                                         "unclaimed", "rebuild-mismatch"}
+                                         "unclaimed", "rebuild-mismatch", "chained",
+                                         "chain-blocked"}
     observe.enable(clear=True)
     try:
         jf = ptt.jit(_chain, device="cpu", block_fusion=True)

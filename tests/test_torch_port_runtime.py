@@ -27,7 +27,8 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_port_serving_planned import ENGINE_LAYERS, _prompts, shim  # noqa: F401
+from test_torch_port_serving_planned import (  # noqa: F401
+    ENGINE_LAYERS, _prompts, bound_layer_kernel, shim)
 
 import thunder_tpu as tt
 from thunder_tpu import observe as jobserve
@@ -538,22 +539,25 @@ _PER_OP = {"cuda.rms_norm", "cuda.paged_decode_attention", "cuda.rms_norm_residu
 
 
 @pytest.mark.parametrize("claims,expect,layer_fn", [
-    ((), {"cuda.decode_layer", "cuda.rms_norm"}, tnn.decode_layer),
+    ((), {"cuda.decode_layer", "cuda.rms_norm"}, "decode_layer"),
     (("cuda.decode_layer",), {"cuda.attn_subblock", "cuda.mlp_subblock", "cuda.rms_norm"},
-     tnn.decode_layer_subblocks),
-    (("cuda.decode_layer", "cuda.attn_subblock"), _PER_OP, None),
-    (("cuda.decode_layer", "cuda.mlp_subblock"), _PER_OP, None),
+     "attn_subblock"),
+    (("cuda.decode_layer", "cuda.attn_subblock"),
+     {"cuda.rms_norm", "cuda.paged_decode_attention", "cuda.mlp_subblock"}, None),
+    (("cuda.decode_layer", "cuda.mlp_subblock"),
+     {"cuda.attn_subblock", "cuda.rms_norm_residual", "cuda.linear_act"}, "attn_subblock"),
     (("cuda.decode_layer", "cuda.attn_subblock", "cuda.mlp_subblock", "cuda.rms_norm_residual"),
      _PER_OP - {"cuda.rms_norm_residual"}, None),
 ], ids=["planned", "sub-blocks", "per-op (attn_subblock)", "per-op (mlp_subblock)",
         "per-op, a CPU leaf"])
 def test_decode_layer_rungs(claims, expect, layer_fn):
-    """A planned engine binds each decode step to the quarantine's rung —
-    ``decode_layer``, the two sub-block kernels, or the per-op rung's
-    kernels while a sub-block is quarantined too — routes those claims on
-    every decode step, and gives the tokens of the unquarantined engine
-    (float32). A quarantined leaf on the CPU runs its plain version
-    unguarded (on the card it raises: test_quarantined_leaf_raises_on_the_card)."""
+    """A planned engine binds each decode step to the quarantine's rung (its
+    traced step's planner plans ``decode_layer``, the two sub-block kernels,
+    or, while a sub-block is quarantined too, the other sub-block beside the
+    per-op rung's kernels in its place), routes those claims on every decode
+    step, and gives the tokens of the unquarantined engine (float32). A quarantined leaf on the CPU
+    runs its plain version unguarded (on the card it raises:
+    test_quarantined_leaf_raises_on_the_card)."""
     cfg = tllama.CONFIGS["tiny-gqa"]
     params = tllama.init_params(cfg, seed=0, device="cpu", n_layers=ENGINE_LAYERS)
     prompts = _prompts(5, (5, 19, 33))
@@ -581,7 +585,7 @@ def test_decode_layer_rungs(claims, expect, layer_fn):
     got, routed, eng = serve()
     assert got == want
     assert routed and all(r == expect for r in routed), routed[:2]
-    assert eng.runner.decode_layer is layer_fn
+    assert bound_layer_kernel(eng) == layer_fn
 
 
 # ---------------------------------------------------------------------------
@@ -653,7 +657,7 @@ def test_engine_decode_layer_fault_tokens_match_reference(shim):
     want = [r.output().tolist() for r in jreqs]
     assert tokens["none"] == tokens["first call"] == tokens["step 3"] == want
     assert teng.decode_rebinds == 1 and quarantine.is_quarantined("cuda.decode_layer")
-    assert teng.runner.decode_layer is tnn.decode_layer_subblocks
+    assert bound_layer_kernel(teng) == "attn_subblock"
     assert snap["counters"]["serving.decode_rebinds"] == 1
     assert snap["gauges"]["serving.decode_layer_fusions"] == 0
     assert snap["gauges"]["serving.quarantine_epoch"] == quarantine.epoch()

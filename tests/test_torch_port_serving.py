@@ -63,7 +63,7 @@ def _engines(model, **kw):
     jcfg, tcfg, jparams, tparams = model
     kw = {"max_slots": 3, "page_size": 16, "max_context": 64, "prefill_chunk": 32, **kw}
     return (JServingEngine(jparams, jcfg, block_fusion=False, n_layers=N_LAYERS, **kw),
-            ServingEngine(tparams, tcfg, device="cpu", **kw))
+            ServingEngine(tparams, tcfg, device="cpu", block_fusion=False, **kw))
 
 
 def _run_both(model, prompts, max_new, *, samplings=None, eos_id=None, **kw):
@@ -195,7 +195,7 @@ def test_prefill_writes_match_reference(model):
     tpools = [{k: torch.from_numpy(v.copy()) for k, v in kv.items()} for kv in pools]
     t = torch.from_numpy
     PagedLlamaRunner(tcfg, tgeom).prefill(
-        tparams, t(tokens).long(), t(bt), t(lengths), t(pages).long(), tpools)
+        tparams, t(tokens).long(), t(bt), t(lengths), t(pages * ps).long(), tpools)
     for jkv, tkv in zip(jpools, tpools):
         for k in ("k", "v"):
             np.testing.assert_allclose(tkv[k].numpy(), np.asarray(jkv[k]), atol=1e-5)

@@ -54,6 +54,7 @@ from thunder_tpu.serving.runner import PagedLlamaRunner as JRunner
 from thunder_tpu_torch.executors import cudaex
 from thunder_tpu_torch.models import llama as tllama
 from thunder_tpu_torch.ops import nn as tnn
+from thunder_tpu_torch.runtime import faults
 from thunder_tpu_torch.serving import PageGeometry, SamplingParams, ServingEngine
 from thunder_tpu_torch.serving.runner import PagedLlamaRunner
 
@@ -391,6 +392,20 @@ def _claims(trc):
     return counts
 
 
+def bound_layer_kernel(eng):
+    """The kernel each layer of the engine's bound decode program runs:
+    ``"decode_layer"``, ``"attn_subblock"`` (the sub-block rung, with
+    ``mlp_subblock``), or None (the per-op rung)."""
+    from thunder_tpu_torch.executors.cudaex_claims import kernel_of
+
+    entry = eng.runner._decode_bound.entry
+    kernels = [kernel_of(b.sym) for b in entry.traces[-1].bound_symbols]
+    for name in ("decode_layer", "attn_subblock"):
+        if kernels.count(name) == ENGINE_LAYERS:
+            return name
+    return None
+
+
 EXPECTED_PREFILL = {"pallas_rms_norm": CLAIM_LAYERS, "pallas_mlp_subblock": CLAIM_LAYERS - 1}
 EXPECTED_DECODE = {"pallas_decode_layer": CLAIM_LAYERS, "pallas_rms_norm": 1}
 
@@ -446,37 +461,28 @@ def test_reference_planned_steps_claim_the_ported_kernels(claim_runs):
     assert claim_runs["claims"] == (EXPECTED_PREFILL, EXPECTED_DECODE)
 
 
-def test_planned_steps_match_reference(claim_runs, monkeypatch):
-    """One planned chunk, then one planned decode step, of the port's runner
-    (the pools written in place) against the reference's: logits and tokens,
-    and the pools on every page but the scratch page. Each routed function
-    is called as often as the reference claims its kernel (on a card, each
-    call is one launch), and no other kernel-backed function is."""
-    calls = {}
+def test_planned_steps_match_reference(claim_runs):
+    """One planned chunk, then one planned decode step, of the port's traced
+    runner (on the CPU its claims run their routers, the pools written in
+    place) against the reference's: logits and tokens, and the pools on
+    every page but the scratch page. Each routed function is called as
+    often as the reference claims its kernel (on a card, each call is one
+    launch), and no other kernel-backed function is."""
+    def calls():
+        return {f"pallas_{k.removeprefix('cuda.')}": n for k, n in faults.claim_calls().items()}
 
-    def counting(attr):
-        fn = getattr(tnn, attr)
-
-        def wrapped(*a, **k):
-            if attr != "paged_decode_attention" or a[0].shape[2] == 1:
-                calls[f"pallas_{attr}"] = calls.get(f"pallas_{attr}", 0) + 1
-            return fn(*a, **k)
-
-        monkeypatch.setattr(tnn, attr, wrapped)
-
-    for attr in ("rms_norm", "rms_norm_residual", "linear_act", "paged_decode_attention",
-                 "mlp_subblock", "decode_layer", "attn_subblock"):
-        counting(attr)
-    run = PagedLlamaRunner(claim_runs["tcfg"], claim_runs["geom"], block_fusion=True)
-    run.decode_layer = tnn.decode_layer       # the class binds the function before patching
+    run = PagedLlamaRunner(claim_runs["tcfg"], claim_runs["geom"], block_fusion=True,
+                           device=torch.device("cpu"))
     pools = [{k: torch.from_numpy(v.copy()) for k, v in kv.items()}
              for kv in claim_runs["pools"]]
-    run.prefill(claim_runs["tparams"], *claim_runs["prefill"], pools)
-    assert calls == EXPECTED_PREFILL
-    calls.clear()
+    faults.reset_claim_calls()
+    run.prefill(claim_runs["tparams"], *claim_runs["prefill"][:3],
+                claim_runs["prefill"][3] * claim_runs["geom"].page_size, pools)
+    assert calls() == EXPECTED_PREFILL
+    faults.reset_claim_calls()
     tok, logits = run.decode(claim_runs["tparams"], *claim_runs["decode"][:4], pools,
                              *claim_runs["decode"][4:])
-    assert calls == EXPECTED_DECODE
+    assert calls() == EXPECTED_DECODE
     jtok, jlogits, jpools = claim_runs["ref"]
     np.testing.assert_allclose(logits.numpy(), jlogits, atol=2e-5, rtol=2e-5)
     np.testing.assert_array_equal(tok.numpy(), jtok)

@@ -93,7 +93,7 @@ def _engine(model, pkg, **kw):
         kw["retry_policy"] = PKG[pkg]["retry"].RetryPolicy(**kw["retry_policy"])
     if pkg == "ref":
         return JServingEngine(jparams, jcfg, block_fusion=False, n_layers=N_LAYERS, **kw)
-    return ServingEngine(tparams, tcfg, device="cpu", **kw)
+    return ServingEngine(tparams, tcfg, device="cpu", block_fusion=False, **kw)
 
 
 # fast supervised retries: chaos runs should not sleep through real backoff

@@ -9,7 +9,8 @@ reference's headline train bench, the runtime-safety layer, the
 single-card serving fleet and the model zoo:
 
 - :mod:`thunder_tpu_torch.serving` — ``ServingEngine`` (continuous batching
-  over a paged KV cache), on ``cuda`` unless ``device="cpu"`` is passed;
+  over a paged KV cache; its decode and prefill steps are :func:`jit`
+  programs), on ``cuda`` unless ``device="cpu"`` is passed;
 - :mod:`thunder_tpu_torch.benchmarks.pretrain` — the single-device train
   step (``loss_fn``, its gradients, :class:`thunder_tpu_torch.optim.AdamW`),
   per-op or, with ``block_fusion=True``, planned;
@@ -72,7 +73,9 @@ single-card serving fleet and the model zoo:
   (:func:`forward_and_backward_from_trace` splits the trace into a forward
   and a backward program; ``loss.backward()`` runs the second), and
   :func:`rematerialize_forward_and_backward` is the reference's min-cut
-  over such a pair.
+  over such a pair. On the card each cached entry replays one CUDA graph
+  (``whole_program_jit``, :mod:`thunder_tpu_torch.executors.cudagraphex`),
+  the reference's whole-program compile.
 """
 
 from thunder_tpu_torch.devices import resolve_device  # noqa: F401
@@ -115,7 +118,11 @@ from thunder_tpu_torch.runtime.faults import KernelExecutionError  # noqa: E402
 class CompileStats:
     """Cache counters, the last compile's traces, its stage times, and its
     decision log (``last_decisions``: every claim, rejection and fusion
-    verdict with its cost numbers, :mod:`thunder_tpu_torch.observe.decisions`)."""
+    verdict with its cost numbers, :mod:`thunder_tpu_torch.observe.decisions`).
+    The whole-program replay's counters: ``last_whole_program`` (how the
+    last compiled entry runs: ``"graph"``, or ``"per-call (<why>)"``), its
+    graphs' captures, recaptures and replays, and the bytes copied into
+    their input buffers (:mod:`thunder_tpu_torch.executors.cudagraphex`)."""
 
     def __init__(self):
         self.cache_hits = 0
@@ -124,9 +131,20 @@ class CompileStats:
         self.last_prologue_traces: list[TraceCtx] = []
         self.last_pass_times: dict[str, float] = {}
         self.last_decisions: list[dict] = []
+        self.last_whole_program: str | None = None
+        self.whole_program_captures = 0
+        self.whole_program_recaptures = 0
+        self.whole_program_replays = 0
+        self.whole_program_copied_bytes = 0
 
     def summary(self) -> str:
         lines = [f"cache: {self.cache_misses} miss(es), {self.cache_hits} hit(s)"]
+        if self.last_whole_program is not None:
+            lines.append(f"whole program: {self.last_whole_program}; "
+                         f"{self.whole_program_captures} capture(s) "
+                         f"({self.whole_program_recaptures} again), "
+                         f"{self.whole_program_replays} replay(s), "
+                         f"{self.whole_program_copied_bytes} bytes copied in")
         for name, ms in self.last_pass_times.items():
             lines.append(f"  {name}: {ms:.2f} ms")
         if self.last_decisions:
@@ -139,9 +157,11 @@ class CompileStats:
 
 
 class CacheEntry:
-    # writes_donated: the program writes donated inputs in place
+    # writes_donated: the program writes donated inputs in place;
+    # graph: the entry's CUDA graph (cudagraphex.WholeProgram), or None for
+    # the generated program per call; whole_program: "graph" or "per-call (<why>)"
     __slots__ = ("computation_fn", "tensor_indices", "traces", "prologue_trace", "prologue_fn",
-                 "writes_donated")
+                 "writes_donated", "graph", "whole_program")
 
     def __init__(self, computation_fn, tensor_indices, traces, prologue_trace, prologue_fn,
                  writes_donated: bool = False):
@@ -151,6 +171,8 @@ class CacheEntry:
         self.prologue_trace = prologue_trace
         self.prologue_fn = prologue_fn
         self.writes_donated = writes_donated
+        self.graph = None
+        self.whole_program = "per-call"
 
 
 def _is_tensorlike(x) -> bool:
@@ -185,7 +207,8 @@ def execution_pipeline(trc: TraceCtx, executors, device, pass_times: dict,
     writes of donated inputs, ``del`` insertion, and codegen. Each stage's
     ms add into ``pass_times``. Returns the traces stage by stage (the
     traced program, DCE, CSE, the execution trace, with ``del``s), the
-    generated callable, and whether it writes donated inputs in place."""
+    generated callable, and the names of the donated inputs it writes in
+    place."""
     from thunder_tpu_torch.executors.passes import (
         del_last_used, donate_in_place, transform_for_execution)
 
@@ -198,17 +221,17 @@ def execution_pipeline(trc: TraceCtx, executors, device, pass_times: dict,
         traces.append(trc)
     with _stage(pass_times, "transform_for_execution"), _devices.using_device(device):
         exec_trc = transform_for_execution(trc, executors)
-        exec_trc, writes_donated = donate_in_place(exec_trc, set(donated_names))
+        exec_trc, written = donate_in_place(exec_trc, set(donated_names))
     traces.append(exec_trc)
     with _stage(pass_times, "del_last_used"):
         exec_trc = del_last_used(exec_trc)
     traces.append(exec_trc)
     with _stage(pass_times, "codegen"):
         fn = exec_trc.python_callable()
-    return traces, fn, writes_donated
+    return traces, fn, written
 
 
-def run_contained(fn: _Callable, inps, note: str | None = None):
+def run_contained(fn: _Callable, inps, note: str | None = None, contained: bool = True):
     """Run a generated program under ``torch.no_grad()`` (a trace carries
     its own backward, so torch's autograd records nothing). A claimed kernel
     that fails with a degradable error is quarantined, and the call raises
@@ -216,13 +239,15 @@ def run_contained(fn: _Callable, inps, note: str | None = None):
     quarantined claim's router raises it, as the port runs no decomposition
     there. A fatal error (a sticky CUDA error leaves the context unusable; a
     claim already quarantined) quarantines nothing and propagates. ``note``
-    is added to any error that escapes."""
+    is added to any error that escapes. ``contained=False`` leaves the
+    degradable error to the caller, which quarantines and runs again on the
+    rung below (the serving engine: its programs have one)."""
     try:
         try:
             with _torch.no_grad():
                 return fn(*inps)
         except KernelExecutionError as err:
-            if _retry.classify(err) != _retry.DEGRADABLE:
+            if not contained or _retry.classify(err) != _retry.DEGRADABLE:
                 raise
             _quarantine.get_quarantine().add(err.claim_id, reason=repr(err.__cause__ or err),
                                              phase=err.phase)
@@ -260,6 +285,7 @@ class ThunderTPUFunction:
         if transforms:
             raise NotImplementedError("jit(transforms=...) is not ported yet (ROADMAP A.7.6)")
         self.fn = fn
+        self._graph_pool = None   # the GraphPool every CUDA graph of this function shares
         self.executors = resolve_executors(executors)
         self.compile_options = dict(compile_options)
         self._compile_ctx = None   # the last compile's CompileContext (the options report)
@@ -313,29 +339,31 @@ class ThunderTPUFunction:
         entry, flat = self._entry_for(args, kwargs)
         return self._run_contained(entry, [flat[i] for i in entry.tensor_indices])
 
-    def _run_contained(self, entry, inps):
-        """Run an entry's program (:func:`run_contained`). Where the program
-        writes donated inputs in place, an error says that their values are
-        undefined."""
+    def _run_contained(self, entry, inps, contained: bool = True):
+        """Run an entry's program, or its CUDA graph (:func:`run_contained`).
+        Where the program writes donated inputs in place, an error says that
+        their values are undefined."""
         note = None
         if entry.writes_donated:
             note = (f"{self.fn_name} writes its donated inputs (donate_argnums="
                     f"{self.donate_argnums}) in place: after a failure their values are "
                     f"undefined; restore them from a checkpoint, or jit without donation "
                     f"to keep them")
-        return run_contained(entry.computation_fn, inps, note=note)
+        return run_contained(entry.graph or entry.computation_fn, inps, note=note,
+                             contained=contained)
 
-    def bind(self, *args, **kwargs):
+    def bind(self, *args, contained: bool = True, **kwargs):
         """Compile for these inputs and return a callable bound to that one
         cache entry, which skips the guard key: the serving fast path. The
         caller owns revalidation: calling it with another tree structure,
-        shapes, dtypes or devices than the binding inputs is undefined."""
+        shapes, dtypes or devices than the binding inputs is undefined.
+        ``contained=False``: see :func:`run_contained`."""
         entry, _ = self._entry_for(args, kwargs)
         tensor_indices = entry.tensor_indices
 
         def bound(*a, **k):
             fl, _ = self._flatten(a, k)
-            return self._run_contained(entry, [fl[i] for i in tensor_indices])
+            return self._run_contained(entry, [fl[i] for i in tensor_indices], contained)
 
         bound.entry = entry
         return bound
@@ -418,16 +446,63 @@ class ThunderTPUFunction:
         with _stage(pass_times, "prologue"):
             prologue = self._build_prologue(flat)
         donated_names = {p.name for i, p in zip(tensor_indices, trc.args) if i in donated}
-        traces, computation_fn, writes_donated = execution_pipeline(
+        traces, computation_fn, written = execution_pipeline(
             trc, self.executors, self._default_device(), pass_times, donated_names)
         with _stage(pass_times, "codegen"):
             prologue_fn = prologue.python_callable()
         prologue_fn(*flat)   # the guards hold on the inputs they were built from
         entry = CacheEntry(computation_fn, tensor_indices, traces, prologue, prologue_fn,
-                           writes_donated)
+                           bool(written))
+        self._finalize_entry(entry, flat, traces[-1],
+                             frozenset(j for j, p in enumerate(trc.args) if p.name in written))
         self._stats.last_traces = traces
         self._stats.last_prologue_traces = [prologue]
         return entry
+
+    def _finalize_entry(self, entry: CacheEntry, flat, exec_trc: TraceCtx,
+                        written: frozenset[int]) -> None:
+        """Whole-program replay, the counterpart of the reference's
+        ``_finalize_entry`` (``thunder_tpu/__init__.py:813``), which compiles
+        the execution trace as one XLA program: here the entry's calls
+        replay one CUDA graph
+        (:class:`~thunder_tpu_torch.executors.cudagraphex.WholeProgram`).
+        Per call instead, as the reference keeps its per-region path: with
+        ``whole_program_jit=False``, for inputs off the card (the option does
+        nothing there), and for a trace holding a host-sync op (``item``),
+        which needs a concrete value between launches. The verdict goes to
+        the decision log and ``CompileStats.last_whole_program``."""
+        from thunder_tpu_torch.core.compile_data import get_compile_option
+        from thunder_tpu_torch.core.prims import OpTags
+        from thunder_tpu_torch.observe import decisions as _decisions
+
+        on = get_compile_option(
+            "whole_program_jit",
+            "run each cached entry on the card as one CUDA graph, captured at its second "
+            "call and replayed after (the reference's whole-program compile); False runs "
+            "the generated program per call", True)
+        tensors = [flat[i] for i in entry.tensor_indices]
+        why = None
+        if not on:
+            why = "whole_program_jit=False"
+        elif not tensors or any(t.device.type != "cuda" for t in tensors):
+            why = "inputs off the card"
+        else:
+            sync = next((b.sym.name for b in exec_trc.bound_symbols
+                         if OpTags.DEVICE_SYNC_OP in b.sym.tags), None)
+            if sync is not None:
+                why = sync
+        if why is None:
+            from thunder_tpu_torch.executors.cudagraphex import GraphPool, WholeProgram
+
+            if self._graph_pool is None:
+                self._graph_pool = GraphPool()
+            entry.graph = WholeProgram(entry, written, self._stats, self._graph_pool)
+            entry.whole_program = "graph"
+        else:
+            entry.whole_program = f"per-call ({why})"
+        self._stats.last_whole_program = entry.whole_program
+        _decisions.record("whole_program", self.fn_name, None,
+                          "graph" if why is None else "per-call", why or "")
 
     # -- introspection ------------------------------------------------------
     @property

@@ -19,7 +19,8 @@ kernels.
 ``ops/`` taken out from behind its guard and the quarantine check
 (``ops.nn.routed``), in GUARD_AB_PAIRS pairs of turns (guarded first, then
 unguarded first): what the runtime-safety layer costs the host-bound decode
-step. Beside the step times it reports the routed calls a step makes and
+step. It runs the engine's steps per call (``whole_program_jit=False``): a
+replayed CUDA graph runs no router. Beside the step times it reports the routed calls a step makes and
 the host time one routed call adds (a no-op router behind ``routed``
 against the bare no-op, over GUARD_AB_CALLS calls).
 
@@ -65,13 +66,13 @@ def family(name: str) -> str:
 
 
 @contextmanager
-def unguarded(runner):
-    """Every routed function of ``ops.nn`` and ``ops.optim``, and the
-    runner's bound decode layer, replaced by the router it wraps (no fault
-    hook, call count or quarantine check), for the scope."""
+def unguarded():
+    """Every routed function of ``ops.nn`` and ``ops.optim`` replaced by the
+    router it wraps (no fault hook, call count or quarantine check), for
+    the scope."""
     from thunder_tpu_torch.ops import nn, optim
 
-    saved = [(mod, name, fn) for mod in (nn, optim, runner) for name, fn in vars(mod).items()
+    saved = [(mod, name, fn) for mod in (nn, optim) for name, fn in vars(mod).items()
              if callable(fn) and hasattr(fn, "claim_id") and hasattr(fn, "__wrapped__")]
     try:
         for mod, name, fn in saved:
@@ -132,8 +133,9 @@ def main() -> None:
     cudaex.build()
     cfg = llama.CONFIGS["llama3-8b"]
     params = llama.init_params(cfg, seed=0, device="cuda")
+    # a replayed step runs no router: the guard A/B times steps run per call
     eng = ServingEngine(params, cfg, max_slots=8, page_size=16, max_context=2048,
-                        block_fusion=args.block_fusion)
+                        block_fusion=args.block_fusion, whole_program_jit=not args.guard_ab)
     rng = np.random.RandomState(1)
     for n in (17, 64, 150, 301, 480, 640, 800, 1000):
         eng.submit(rng.randint(0, cfg.vocab_size, size=n).astype(np.int32),
@@ -154,7 +156,7 @@ def main() -> None:
                 if kind == "guarded":
                     guard_ab[kind].append(timed_steps(eng, args.steps))
                 else:
-                    with unguarded(eng.runner) as n:
+                    with unguarded() as n:
                         guard_ab[kind].append(timed_steps(eng, args.steps))
                     guard_ab["routers"] = n
         guard_ab["median_ms"] = {k: float(np.median(guard_ab[k])) for k in ("guarded", "unguarded")}

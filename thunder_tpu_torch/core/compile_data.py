@@ -3,7 +3,9 @@
 The counterpart of ``thunder_tpu/core/compile_data.py``.
 ``thunder_tpu_torch.jit(fn, **compile_options)`` accepts free-form options
 (``block_fusion``, ``horizontal_fusion``, ``fused_optimizer``,
-``epilogue_fusion``); a pass reads one with
+``epilogue_fusion``, and ``whole_program_jit``: the reference's name and
+default, True, for one CUDA graph per cached entry, captured once and
+replayed, ``executors/cudagraphex.py``); a pass reads one with
 :func:`get_compile_option`, and every read registers the option with its
 description, so ``thunder_tpu_torch.last_compile_options`` reports which
 options a compile read and which passed options nothing read.

@@ -22,11 +22,26 @@ kernel and per-op chain times of PERF.md §6 (``chip_smoke.py`` phase 3 and
 so the model returns those times at the shapes they were taken at
 (``tests/test_torch_port_cost_model.py`` holds it there). The reference's
 VMEM budget has no counterpart: the planner asks the kernel itself
-(``cudaex.refusal``). The decode half (``attn_subblock_cost``,
-``decode_layer_cost``) comes with the serving planner (ROADMAP A.7.5), the
-collective half (``bsym_us``, the ring model, ``comm_bucket_cost``) with
-distributed (A.2), and the claim gate's half (``bsym_cost``,
-``region_cost``, ``claim_worthwhile``) with the region executor (A.7.4).
+(``cudaex.refusal``). The decode half (the serving decode step's planner):
+
+- :func:`attn_subblock_cost`: one ``attn_subblock`` kernel against the
+  per-op rung's attention half of a layer (``DECODE_UNFUSED_LAUNCHES_ATTN``
+  launches);
+- :func:`subblock_cost` with ``decode=True``: the MLP sub-block inside a
+  decode step (``DECODE_UNFUSED_LAUNCHES_MLP`` launches);
+- :func:`decode_layer_cost`: chaining the two into one ``decode_layer``.
+
+At one token a slot the decode step is bound by bytes (the weights and the
+touched pages), so these price the bytes at a fitted rate, and each launch
+as a launch inside a replayed CUDA graph (``DECODE_GRAPH_LAUNCH_US``: the
+serving programs replay one graph a step, so no launch pays a host call).
+The reference also charges its per-op rung a gathered contiguous cache
+(its decomposition of ``nn.paged_decode_attention``); the port's per-op
+rung reads the pages through the ``paged_decode_attention`` kernel, so no
+gathered bytes are counted. The collective half (``bsym_us``, the ring
+model, ``comm_bucket_cost``) comes with distributed (A.2), and the claim
+gate's half (``bsym_cost``, ``region_cost``, ``claim_worthwhile``) with the
+region executor (A.7.4).
 
 The estimates rank alternatives; they do not predict a step's time.
 """
@@ -67,6 +82,32 @@ SUBBLOCK_FUSED_EFFICIENCY = 0.7058
 SUBBLOCK_CHAIN_EFFICIENCY = 0.7546
 SUBBLOCK_BWD_FUSED_EFFICIENCY = 0.6500
 SUBBLOCK_BWD_CHAIN_EFFICIENCY = 0.6458
+
+# the decode half, fitted to PERF.md §6 row 10 (8 slots, D 4096, 32/8 heads
+# of 128, 16-token pages over a 2048-token window, F 14336, bf16; H100 80GB
+# HBM3, 700.00 W): attn_subblock 0.0929 ms against its per-op chain's
+# 0.1423, decode_layer 0.2522 against 0.3142; the model returns those four
+# times at that shape
+# a launch inside a replayed CUDA graph costs the card what a kernel that
+# moves next to nothing takes (rows 4-5 at 8 rows: 0.0030, 0.0031 ms)
+DECODE_GRAPH_LAUNCH_US = 3.0
+# the per-op rung's launches for one layer's attention half and MLP half as
+# the traced decode program runs them (tests/test_torch_port_serving_jit.py
+# counts them): the attention half's norm, q/k/v products, two ropes of
+# seven elementwise ops each, two row scatters, paged attention and the
+# out-projection; the MLP's norm (its residual add folded), linear_act, up,
+# product, down
+DECODE_UNFUSED_LAUNCHES_ATTN = 22
+DECODE_UNFUSED_LAUNCHES_MLP = 5
+# the fitted rates of the byte traffic: the kernel and the per-op chain of
+# each half (the chains were timed as back-to-back eager calls, so their
+# rates also carry those calls' host gaps): attention 151.1 MB, the MLP
+# 352.5 MB at row 10's shape
+DECODE_ATTN_FUSED_EFFICIENCY = 0.5094
+DECODE_ATTN_CHAIN_EFFICIENCY = 0.6043
+DECODE_MLP_FUSED_EFFICIENCY = 0.6776
+DECODE_MLP_CHAIN_EFFICIENCY = 0.6907
+
 
 def tensor_bytes(p) -> int:
     """Bytes of one tensor proxy (0 for anything else)."""
@@ -115,7 +156,7 @@ def fused_adamw_profitable(n_tensors: int, total_bytes: int) -> bool:
 # -- the MLP sub-block kernel -----------------------------------------------------
 
 def subblock_cost(n_tokens: int, d_model: int, d_ff: int, dtype_bytes: int,
-                  backward: bool = False) -> dict:
+                  backward: bool = False, decode: bool = False) -> dict:
     """Score one MLP sub-block chain (residual add, RMS norm, gate and up
     GEMMs, activation, product, down GEMM, residual add) for the planner:
     the bytes its interior values would cost between per-op kernels, and
@@ -123,9 +164,13 @@ def subblock_cost(n_tokens: int, d_model: int, d_ff: int, dtype_bytes: int,
 
     Forward (the reference's formula): the chain pays its products at the
     per-op rate and its boundary plus interior bytes; the kernel pays its
-    products at its own rate, the boundary bytes and one launch. (The
-    reference's ``decode=`` term, which charges a decode step's per-op
-    launches, comes with the decode stages, ROADMAP A.7.5.)
+    products at its own rate, the boundary bytes and one launch.
+
+    ``decode=True`` (the reference's term: the chain's residual add absorbs a
+    planned attention sub-block's output, so it is one layer of a T == 1
+    decode step): the bytes at the decode rates fitted to row 10 and every
+    launch at ``DECODE_GRAPH_LAUNCH_US``, ``DECODE_UNFUSED_LAUNCHES_MLP`` of
+    them on the chain's side.
 
     ``backward=True`` (the verdict taken before autodiff, where planning
     commits the VJP rule's ``mlp_subblock_bwd`` as well) adds both
@@ -148,12 +193,20 @@ def subblock_cost(n_tokens: int, d_model: int, d_ff: int, dtype_bytes: int,
     flop_us = flops / PEAK_FLOPS * 1e6
     bw_us_per_byte = 1.0 / (HBM_GBPS * 1e3)
     launch = SUBBLOCK_LAUNCH_OVERHEAD_US
-    unfused = (flop_us / SUBBLOCK_CHAIN_EFFICIENCY
-               + (boundary_bytes + interior_bytes) * bw_us_per_byte)
-    fused = (flop_us / SUBBLOCK_FUSED_EFFICIENCY
-             + boundary_bytes * bw_us_per_byte + launch)
+    if decode:
+        launch = DECODE_GRAPH_LAUNCH_US
+        unfused = (flop_us / SUBBLOCK_CHAIN_EFFICIENCY
+                   + (boundary_bytes + interior_bytes) * bw_us_per_byte
+                   / DECODE_MLP_CHAIN_EFFICIENCY + DECODE_UNFUSED_LAUNCHES_MLP * launch)
+        fused = (flop_us / SUBBLOCK_FUSED_EFFICIENCY
+                 + boundary_bytes * bw_us_per_byte / DECODE_MLP_FUSED_EFFICIENCY + launch)
+    else:
+        unfused = (flop_us / SUBBLOCK_CHAIN_EFFICIENCY
+                   + (boundary_bytes + interior_bytes) * bw_us_per_byte)
+        fused = (flop_us / SUBBLOCK_FUSED_EFFICIENCY
+                 + boundary_bytes * bw_us_per_byte + launch)
     cost = {"n_tokens": n_tokens, "d_model": d_model, "d_ff": d_ff,
-            "flops": flops, "backward": bool(backward),
+            "flops": flops, "backward": bool(backward), "decode": bool(decode),
             "saved_boundary_bytes": interior_bytes,
             "flop_us": round(flop_us, 3),
             "boundary_us": round(boundary_bytes * bw_us_per_byte, 3)}
@@ -184,6 +237,62 @@ def subblock_profitable(cost: dict) -> bool:
     takes the chain's shapes at all is the kernel's refusal, which the
     planner asks first.)"""
     return cost["est_saved_us"] > 0.0
+
+
+# -- the serving decode step's sub-blocks --------------------------------------------
+
+def attn_subblock_cost(n_slots: int, d_model: int, n_heads: int, kv_heads: int, head_dim: int,
+                       page_size: int, pages_per_request: int, dtype_bytes: int) -> dict:
+    """Score one serving attention sub-block chain (T == 1 decode), the
+    reference's ``attn_subblock_cost`` (cost_model.py:531) on the card: the
+    products as the reference counts them, the bytes both pay (the weights,
+    the slot rows, and the K/V pages of the whole block-table window), and
+    the interiors the per-op chain writes and reads once each (the normed
+    rows, q/k/v before and after rope, the attention output, the
+    out-projection's input), each side at its fitted rate, plus its launches
+    (see the module docstring)."""
+    L = pages_per_request * page_size
+    qkv_w = (n_heads + 2 * kv_heads) * head_dim
+    flops = (2 * n_slots * d_model * qkv_w
+             + 2 * n_slots * n_heads * head_dim * L * 2
+             + 2 * n_slots * n_heads * head_dim * d_model)
+    interior_bytes = 2 * n_slots * (2 * d_model + 2 * qkv_w + n_heads * head_dim) * dtype_bytes
+    boundary_bytes = ((qkv_w * d_model + d_model * n_heads * head_dim) * dtype_bytes
+                      + 2 * n_slots * d_model * dtype_bytes
+                      + 2 * n_slots * kv_heads * L * head_dim * dtype_bytes)
+    flop_us = flops / PEAK_FLOPS * 1e6
+    bw_us_per_byte = 1.0 / (HBM_GBPS * 1e3)
+    launch = DECODE_GRAPH_LAUNCH_US
+    unfused = (flop_us / SUBBLOCK_CHAIN_EFFICIENCY
+               + (boundary_bytes + interior_bytes) * bw_us_per_byte
+               / DECODE_ATTN_CHAIN_EFFICIENCY + DECODE_UNFUSED_LAUNCHES_ATTN * launch)
+    fused = (flop_us / SUBBLOCK_FUSED_EFFICIENCY
+             + boundary_bytes * bw_us_per_byte / DECODE_ATTN_FUSED_EFFICIENCY + launch)
+    return {"n_slots": n_slots, "d_model": d_model, "n_heads": n_heads, "kv_heads": kv_heads,
+            "head_dim": head_dim, "context_window": L, "flops": flops,
+            "saved_boundary_bytes": interior_bytes, "flop_us": round(flop_us, 3),
+            "boundary_us": round(boundary_bytes * bw_us_per_byte, 3),
+            "est_unfused_us": round(unfused, 3), "est_fused_us": round(fused, 3),
+            "est_saved_us": round(unfused - fused, 3)}
+
+
+def decode_layer_cost(attn_cost: dict, mlp_cost: dict, n_slots: int, d_model: int,
+                      page_size: int, dtype_bytes: int) -> dict:
+    """Score chaining a planned attention sub-block with its MLP sub-block
+    into one ``decode_layer`` launch (the reference's ``decode_layer_cost``,
+    cost_model.py:581): on top of the parts' savings, one launch fewer and
+    the residual rows between the two never round-trip the card's memory.
+    ``est_unfused_us`` is the two per-op halves', ``est_fused_us`` the one
+    launch's."""
+    h2_roundtrip = 2 * n_slots * d_model * dtype_bytes
+    saved = DECODE_GRAPH_LAUNCH_US + h2_roundtrip / (HBM_GBPS * 1e3)
+    unfused = attn_cost["est_unfused_us"] + mlp_cost["est_unfused_us"]
+    est_saved = attn_cost["est_saved_us"] + mlp_cost["est_saved_us"] + saved
+    return {"n_slots": n_slots, "d_model": d_model, "d_ff": mlp_cost["d_ff"],
+            "context_window": attn_cost["context_window"],
+            "saved_boundary_bytes": h2_roundtrip, "saved_launches": 1,
+            "est_unfused_us": round(unfused, 3), "est_fused_us": round(unfused - est_saved, 3),
+            "est_saved_us": round(est_saved, 3)}
 
 
 # -- horizontal GEMM merging -----------------------------------------------------

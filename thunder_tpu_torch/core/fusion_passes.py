@@ -18,9 +18,15 @@ The counterpart of ``thunder_tpu/core/fusion_passes.py``:
   reference's VMEM gate: a chain the kernel would not take is recorded
   ``unclaimed`` with the refusal's text. A chain whose claim the quarantine
   routes off is not planned, so a recompile takes the per-op rung: the port
-  runs no decomposition on the card in a kernel's place. The decode stages
-  (``_attn_block_pass``, ``_decode_chain_pass``) come with the serving
-  planner (ROADMAP A.7.5);
+  runs no decomposition on the card in a kernel's place. On a serving
+  decode trace two more stages run around it: ``_attn_block_pass`` (:1112)
+  makes each T == 1 attention chain (``nn.rms_norm`` -> q/k/v projections
+  -> rope -> the K/V page writes -> ``nn.paged_decode_attention`` -> the
+  out-projection) one ``nn.attn_subblock``, and ``_decode_chain_pass``
+  (:1309) chains it with its layer's planned ``nn.mlp_subblock`` into one
+  ``nn.decode_layer``, under the decode half of the cost model
+  (``attn_subblock_cost``, ``subblock_cost(decode=True)``,
+  ``decode_layer_cost``);
 - **horizontal fusion** (``horizontal_fusion_pass`` :191): sibling GEMMs
   (``dot_general`` prims, or single-product ``nn.linear``) over one shared
   operand merge into one GEMM over the concatenated other operands, then
@@ -60,11 +66,16 @@ BLOCK_MARKER = "block fusion"
 
 # Every verdict the block planner can record, with its meaning (the
 # reference's names; its "vmem-infeasible" has no counterpart: the kernel's
-# refusal is recorded as "unclaimed"; "dist-annotated" comes with the
-# distributed proxies (ROADMAP A.2), the decode stages' "chained",
-# "chain-blocked" and "mesh-rung-capped" with them (A.7.5)).
+# refusal is recorded as "unclaimed"; "dist-annotated" and
+# "mesh-rung-capped" come with the distributed proxies and the serving mesh
+# (ROADMAP A.2, A.3)).
 BLOCK_DECISION_KINDS = {
-    "planned": "chain rewritten into one claimed nn.mlp_subblock kernel",
+    "planned": "chain rewritten into one claimed nn.mlp_subblock kernel (or, on a decode "
+               "trace, nn.attn_subblock)",
+    "chained": "a planned nn.attn_subblock and its layer's nn.mlp_subblock fused into one "
+               "nn.decode_layer launch",
+    "chain-blocked": "no adjoining nn.mlp_subblock over the same residual stream, different "
+                     "eps, or an updated pool read before the MLP",
     "interior-escapes": "an interior value of the chain is consumed outside "
                         "it (or is a trace output); fusing would hide a "
                         "value someone still reads",
@@ -269,9 +280,9 @@ def _claim_refusal(executors, op_id: str, args, kwargs, *,
                    kernel: bool = False) -> str | None:
     """Why no executor would claim the fused composite (None where one
     would). Each executor's checker is asked. With
-    ``kernel`` (the block planner) a claim the quarantine routes off does
-    not count, and a kernel's refusal of the arguments is the answer: the
-    claim pass would raise it."""
+    ``kernel`` (the block planner) a claim the quarantine routes off is the
+    answer (no executor below it takes the kernel's place), and so is a
+    kernel's refusal of the arguments: the claim pass would raise it."""
     reasons = []
     for ex in executors:
         impl = ex.implmap.get(op_id)
@@ -281,9 +292,8 @@ def _claim_refusal(executors, op_id: str, args, kwargs, *,
             if impl.checker is not None and not impl.checker(*args, **kwargs):
                 continue
             if kernel and _quarantine.is_routed_off(impl.symbol.id):
-                reasons.append(f"{impl.symbol.id} is quarantined: "
-                               f"{_quarantine.quarantine_reason(impl.symbol.id)}")
-                continue
+                return (f"{impl.symbol.id} is quarantined: "
+                        f"{_quarantine.quarantine_reason(impl.symbol.id)}")
             if kernel and impl.refusal is not None:
                 refused = impl.refusal(*args, **kwargs)
                 if refused is not None:
@@ -563,6 +573,7 @@ def optimizer_fusion_pass(trc: TraceCtx, executors) -> TraceCtx:
 # ---------------------------------------------------------------------------
 
 _ADD_IDS = (PrimIDs.ADD, "ops.add")
+_SUB_IDS = (PrimIDs.SUB, "ops.sub")
 _MUL_IDS = (PrimIDs.MUL, "ops.mul")
 
 
@@ -588,23 +599,29 @@ def _plain_linear(b: BoundSymbol):
 
 
 def mlp_block_verdict(n_tokens: int, d_model: int, d_ff: int, dtype_bytes: int, *,
-                      backward: bool, checkpointed: bool = False) -> dict:
+                      backward: bool, checkpointed: bool = False, decode: bool = False) -> dict:
     """The planner's cost verdict on one MLP sub-block chain of ``n_tokens``
     rows: ``cost_model.subblock_cost`` (with both backwards where
-    ``backward``, the verdict taken before autodiff) and ``planned``. A
-    chain inside a checkpointed region is never planned: the pass sees no
-    chain there. The block pass and the eager entry points
-    (``benchmarks.pretrain.run``, ``benchmarks.bench.run``) read this one
-    verdict."""
-    cost = cost_model.subblock_cost(n_tokens, d_model, d_ff, dtype_bytes, backward=backward)
+    ``backward``, the verdict taken before autodiff; as part of a decode
+    step where ``decode``) and ``planned``. A chain inside a checkpointed
+    region is never planned: the pass sees no chain there. The block pass
+    and the eager entry points (``benchmarks.pretrain.run``,
+    ``benchmarks.bench.run``) read this one verdict."""
+    cost = cost_model.subblock_cost(n_tokens, d_model, d_ff, dtype_bytes, backward=backward,
+                                    decode=decode)
     cost["planned"] = not checkpointed and cost_model.subblock_profitable(cost)
     return cost
 
 
 def block_fusion_pass(trc: TraceCtx, executors, backward: bool = False) -> TraceCtx:
-    """The block planner, its MLP stage: each chain ``add(residual, x) ->
-    nn.rms_norm -> {nn.linear -> act, nn.linear} -> mul -> nn.linear ->
-    add`` becomes one ``nn.mlp_subblock``. It runs at two points: before
+    """The block planner, three staged walks: (1) :func:`_attn_block_pass`,
+    the T == 1 decode attention chains into ``nn.attn_subblock``; (2) the
+    MLP stage: each chain ``add(residual, x) -> nn.rms_norm -> {nn.linear ->
+    act, nn.linear} -> mul -> nn.linear -> add`` becomes one
+    ``nn.mlp_subblock`` (scored as part of a decode step,
+    ``subblock_cost(decode=True)``, where its residual add absorbs a planned
+    attention sub-block's output); (3) :func:`_decode_chain_pass`, the pair
+    into one ``nn.decode_layer``. The MLP stage runs at two points: before
     autodiff on the differentiated function's trace
     (:func:`plan_blocks_for_autodiff`, ``backward=True``: the VJP rule then
     commits ``nn.mlp_subblock_bwd``, whose claim the chain also needs), and
@@ -620,7 +637,16 @@ def block_fusion_pass(trc: TraceCtx, executors, backward: bool = False) -> Trace
         None)
     if enabled is False or not executors:
         return trc
-    return _mlp_block_pass(trc, executors, enabled, backward)
+    tp_shards = get_compile_option(
+        "decode_tp_shards",
+        "tensor-parallel shard count of the serving mesh this program is compiled over "
+        "(>1 caps block fusion at the attention/MLP sub-block rung)", None)
+    if tp_shards is not None and int(tp_shards) > 1:
+        raise NotImplementedError("decode_tp_shards > 1: tensor-parallel serving meshes are not "
+                                  "ported yet (ROADMAP A.3)")
+    trc = _attn_block_pass(trc, executors, enabled)
+    trc = _mlp_block_pass(trc, executors, enabled, backward)
+    return _decode_chain_pass(trc, executors, enabled)
 
 
 def _mlp_block_pass(trc: TraceCtx, executors, enabled, backward: bool) -> TraceCtx:
@@ -755,8 +781,12 @@ def _mlp_block_pass(trc: TraceCtx, executors, enabled, backward: bool) -> TraceC
         n_tokens = 1
         for d in h.shape[:-1]:
             n_tokens *= int(d)
+        # a decode layer: the residual add absorbs a planned attention
+        # sub-block's output, and the chain's per-op launches are charged
+        decode = any(bsyms[producer[p.name]].sym.id == "nn.attn_subblock"
+                     for p in (residual, xx) if p.name in producer)
         cost = dict(mlp_block_verdict(n_tokens, int(w_gate.shape[1]), int(w_gate.shape[0]),
-                                      h.dtype.bytes, backward=backward),
+                                      h.dtype.bytes, backward=backward, decode=decode),
                     chain=h.name, act=act, ops=len(chain))
         # -- the verdicts ---------------------------------------------------
         # every interior value is read only inside the chain and is no
@@ -812,6 +842,420 @@ def _mlp_block_pass(trc: TraceCtx, executors, enabled, backward: bool) -> TraceC
         return trc
     return _rebuild_trace(trc, replacements, dropped,
                           f"Block fusion planner ({n_planned} sub-block kernels)")
+
+
+# ---------------------------------------------------------------------------
+# serving decode-layer planning: the attention sub-block walk (stage 1) and
+# the attn + mlp -> nn.decode_layer chaining stage (stage 3)
+# ---------------------------------------------------------------------------
+
+_PAGED_ID = "nn.paged_decode_attention"
+
+
+def _single_out(b: BoundSymbol):
+    outs = b.flat_proxy_outs()
+    return outs[0] if len(outs) == 1 else None
+
+
+def _dataflow(trc: TraceCtx):
+    """(producer index, consumer indices, trace-output names) maps."""
+    producer: dict[str, int] = {}
+    consumers: dict[str, list[int]] = {}
+    for i, b in enumerate(trc.bound_symbols):
+        for p in b.flat_proxy_args():
+            consumers.setdefault(p.name, []).append(i)
+        for o in b.flat_proxy_outs():
+            producer.setdefault(o.name, i)
+    out_names = {o.name for o in tree_flatten(trc.output)[0] if isinstance(o, Proxy)}
+    return producer, consumers, out_names
+
+
+def _producer_bsym(bsyms, producer, p):
+    i = producer.get(getattr(p, "name", None))
+    return (i, bsyms[i]) if i is not None else (None, None)
+
+
+def _match_rope(bsyms, producer, val):
+    """Match the GPT-NeoX half rotation ``models.llama._apply_rope`` emits,
+    ending at ``val``: ``cat([x1*cos - x2*sin, x2*cos + x1*sin], -1)`` with
+    ``x1``/``x2`` the lower/upper half slices of one base tensor, matched
+    exactly, operand roles and all (another rotation stays unfused).
+    Returns ``(base, cos, sin, matched indices)`` or None."""
+    ci, cb = _producer_bsym(bsyms, producer, val)
+    if cb is None or cb.sym.id is not PrimIDs.CAT or not cb.args:
+        return None
+    parts = cb.args[0]
+    if not isinstance(parts, (list, tuple)) or len(parts) != 2:
+        return None
+    dim = cb.args[1] if len(cb.args) > 1 else cb.kwargs.get("dim", -1)
+    if dim not in (-1, val.ndim - 1):
+        return None
+    si, sb = _producer_bsym(bsyms, producer, parts[0])
+    ai, ab = _producer_bsym(bsyms, producer, parts[1])
+    if sb is None or ab is None or sb.sym.id not in _SUB_IDS or ab.sym.id not in _ADD_IDS:
+        return None
+    if len(sb.args) != 2 or len(ab.args) != 2:
+        return None
+    muls = []
+    for operand in (*sb.args, *ab.args):
+        mi, mb = _producer_bsym(bsyms, producer, operand)
+        if mb is None or mb.sym.id not in _MUL_IDS or len(mb.args) != 2 \
+                or not all(isinstance(a, TensorProxy) for a in mb.args):
+            return None
+        muls.append((mi, mb))
+    (i1, m1), (i2, m2), (i3, m3), (i4, m4) = muls
+    x1, cos = m1.args       # x1*cos - x2*sin
+    x2, sin = m2.args
+    x2b, cosb = m3.args     # x2*cos + x1*sin
+    x1b, sinb = m4.args
+    if x1.name != x1b.name or x2.name != x2b.name or cos.name != cosb.name \
+            or sin.name != sinb.name or x1.name == x2.name:
+        return None
+    j1, sl1 = _producer_bsym(bsyms, producer, x1)
+    j2, sl2 = _producer_bsym(bsyms, producer, x2)
+    if sl1 is None or sl2 is None or sl1.sym.id is not PrimIDs.SLICE \
+            or sl2.sym.id is not PrimIDs.SLICE:
+        return None
+    base = sl1.args[0]
+    if not isinstance(base, TensorProxy) or getattr(sl2.args[0], "name", None) != base.name:
+        return None
+    hd2 = int(x1.shape[-1])
+    try:
+        if int(sl1.args[1][-1]) != 0 or int(sl2.args[1][-1]) != hd2:
+            return None
+    except (TypeError, IndexError, ValueError):
+        return None
+    return base, cos, sin, {ci, si, ai, i1, i2, i3, i4, j1, j2}
+
+
+def _match_head_proj(bsyms, producer, base):
+    """``base = transpose(reshape(nn.linear(x, w)), (0, 2, 1, 3))``, the
+    runner's head split. Returns ``(x, w, indices)`` or None."""
+    ti, tb = _producer_bsym(bsyms, producer, base)
+    if tb is None or tb.sym.id is not PrimIDs.TRANSPOSE:
+        return None
+    perm = tb.args[1] if len(tb.args) > 1 else tb.kwargs.get("permutation")
+    if tuple(perm or ()) != (0, 2, 1, 3):
+        return None
+    ri, rb = _producer_bsym(bsyms, producer, tb.args[0])
+    if rb is None or rb.sym.id is not PrimIDs.RESHAPE:
+        return None
+    li, lb = _producer_bsym(bsyms, producer, rb.args[0])
+    if lb is None:
+        return None
+    facts = _plain_linear(lb)
+    if facts is None:
+        return None
+    return facts[0], facts[1], {ti, ri, li}
+
+
+def _match_pool_write(bsyms, producer, pool_out):
+    """Match the paged K/V append ``composites.decode_row_write`` emits::
+
+        pool_out = reshape(scatter(reshape(pool_in),
+                                   broadcast(reshape(write_pos)),
+                                   transpose(squeeze(rows), (1, 0, 2)), 1))
+
+    Returns ``(pool_in, write_pos, rows, indices)`` or None. The index
+    build (reshape, broadcast of ``write_pos``) may be shared by every
+    layer's writes: it is resolved but left out of the matched set."""
+    r2i, r2b = _producer_bsym(bsyms, producer, pool_out)
+    if r2b is None or r2b.sym.id is not PrimIDs.RESHAPE:
+        return None
+    sci, scb = _producer_bsym(bsyms, producer, r2b.args[0])
+    if scb is None or scb.sym.id is not PrimIDs.SCATTER or len(scb.args) < 4:
+        return None
+    flat, idx, src = scb.args[0], scb.args[1], scb.args[2]
+    if int(scb.args[3]) != 1:
+        return None
+    r1i, r1b = _producer_bsym(bsyms, producer, flat)
+    if r1b is None or r1b.sym.id is not PrimIDs.RESHAPE \
+            or not isinstance(r1b.args[0], TensorProxy):
+        return None
+    pool_in = r1b.args[0]
+    _, bib = _producer_bsym(bsyms, producer, idx)
+    if bib is None or bib.sym.id is not PrimIDs.BROADCAST_IN_DIM:
+        return None
+    _, r3b = _producer_bsym(bsyms, producer, bib.args[0])
+    if r3b is None or r3b.sym.id is not PrimIDs.RESHAPE \
+            or not isinstance(r3b.args[0], TensorProxy) or r3b.args[0].ndim != 1:
+        return None
+    write_pos = r3b.args[0]
+    tri, trb = _producer_bsym(bsyms, producer, src)
+    if trb is None or trb.sym.id is not PrimIDs.TRANSPOSE:
+        return None
+    perm = trb.args[1] if len(trb.args) > 1 else trb.kwargs.get("permutation")
+    if tuple(perm or ()) != (1, 0, 2):
+        return None
+    sqi, sqb = _producer_bsym(bsyms, producer, trb.args[0])
+    if sqb is None or sqb.sym.id is not PrimIDs.SQUEEZE \
+            or not isinstance(sqb.args[0], TensorProxy):
+        return None
+    return pool_in, write_pos, sqb.args[0], {r2i, sci, r1i, tri, sqi}
+
+
+def _attn_block_pass(trc: TraceCtx, executors, enabled) -> TraceCtx:
+    """The attention sub-block walk (stage 1 of :func:`block_fusion_pass`;
+    the reference's ``_attn_block_pass``, fusion_passes.py:1112): anchor
+    every T == 1 ``nn.paged_decode_attention``, match backwards through the
+    rope, the head-split projections and the K/V page writes to the
+    ``nn.rms_norm`` head, and forwards through the out-projection; a legal,
+    claimable, cost-approved chain becomes ONE ``nn.attn_subblock`` (its
+    outputs: the pre-residual projection and the two updated pools)."""
+    bsyms = trc.bound_symbols
+    ids = {b.sym.id for b in bsyms}
+    if _PAGED_ID not in ids or "nn.rms_norm" not in ids:
+        return trc
+    producer, consumers, out_names = _dataflow(trc)
+    replacements: dict[int, list[BoundSymbol]] = {}
+    dropped: set[int] = set()
+    used: set[int] = set()
+    n_planned = 0
+    for pi, pb in enumerate(bsyms):
+        if pb.sym.id != _PAGED_ID or pi in used or len(pb.args) < 5:
+            continue
+        q_arg, kp_u, vp_u, bt, ln = pb.args[:5]
+        if not all(isinstance(t, TensorProxy) for t in (q_arg, kp_u, vp_u, bt, ln)):
+            continue
+        if q_arg.ndim != 4 or int(q_arg.shape[2]) != 1:
+            continue                      # decode only; prefill stays unfused
+        scale = pb.kwargs.get("scale", pb.args[5] if len(pb.args) > 5 else None)
+        rope_q = _match_rope(bsyms, producer, q_arg)
+        if rope_q is None:
+            continue
+        q0, cos, sin, rq_idx = rope_q
+        pq = _match_head_proj(bsyms, producer, q0)
+        if pq is None:
+            continue
+        x_in, wq, pq_idx = pq
+        kw_ = _match_pool_write(bsyms, producer, kp_u)
+        vw_ = _match_pool_write(bsyms, producer, vp_u)
+        if kw_ is None or vw_ is None:
+            continue
+        k_pool, wp_k, k_rows, kw_idx = kw_
+        v_pool, wp_v, v_rows, vw_idx = vw_
+        if wp_k.name != wp_v.name or k_pool.name == v_pool.name:
+            continue
+        rope_k = _match_rope(bsyms, producer, k_rows)
+        if rope_k is None:
+            continue
+        k0, cos_k, sin_k, rk_idx = rope_k
+        if cos_k.name != cos.name or sin_k.name != sin.name:
+            continue
+        pk = _match_head_proj(bsyms, producer, k0)
+        pv = _match_head_proj(bsyms, producer, v_rows)
+        if pk is None or pv is None:
+            continue
+        xk, wk, pk_idx = pk
+        xv, wv, pv_idx = pv
+        if xk.name != x_in.name or xv.name != x_in.name:
+            continue
+        ri, rb = _producer_bsym(bsyms, producer, x_in)
+        if rb is None or rb.sym.id != "nn.rms_norm":
+            continue
+        h = rb.args[0] if rb.args else None
+        w_norm = rb.args[1] if len(rb.args) > 1 else rb.kwargs.get("weight")
+        if not (isinstance(h, TensorProxy) and isinstance(w_norm, TensorProxy)):
+            continue
+        dim = rb.kwargs.get("dim", rb.args[3] if len(rb.args) > 3 else -1)
+        if dim not in (-1, h.ndim - 1):
+            continue
+        eps = rb.kwargs.get("eps", rb.args[2] if len(rb.args) > 2 else 1e-5)
+        # forward: attn -> transpose(0, 2, 1, 3) -> reshape -> linear(., wo)
+        aout = _single_out(pb)
+        if aout is None:
+            continue
+        acons = set(consumers.get(aout.name, ()))
+        if len(acons) != 1:
+            continue
+        t2i = next(iter(acons))
+        t2b = bsyms[t2i]
+        if t2b.sym.id is not PrimIDs.TRANSPOSE:
+            continue
+        perm = t2b.args[1] if len(t2b.args) > 1 else t2b.kwargs.get("permutation")
+        if tuple(perm or ()) != (0, 2, 1, 3):
+            continue
+        t2o = _single_out(t2b)
+        r4cons = set(consumers.get(t2o.name, ())) if t2o is not None else set()
+        if len(r4cons) != 1:
+            continue
+        r4i = next(iter(r4cons))
+        r4b = bsyms[r4i]
+        if r4b.sym.id is not PrimIDs.RESHAPE:
+            continue
+        r4o = _single_out(r4b)
+        lcons = set(consumers.get(r4o.name, ())) if r4o is not None else set()
+        if len(lcons) != 1:
+            continue
+        li = next(iter(lcons))
+        lfacts = _plain_linear(bsyms[li])
+        if lfacts is None or lfacts[0].name != r4o.name:
+            continue
+        wo = lfacts[1]
+        proj = _single_out(bsyms[li])
+        if proj is None:
+            continue
+        chain = ({pi, ri, t2i, r4i, li} | rq_idx | pq_idx | kw_idx | vw_idx | rk_idx | pk_idx
+                 | pv_idx)
+        if chain & used:
+            continue
+        KV, P, ps, hd = (int(d) for d in kp_u.shape)
+        if wq.shape[0] % hd or wk.shape[0] % hd:
+            continue
+        H = int(wq.shape[0]) // hd
+        cost = dict(cost_model.attn_subblock_cost(int(h.shape[0]), int(h.shape[-1]), H, KV, hd,
+                                                  ps, int(bt.shape[1]), h.dtype.bytes),
+                    chain=h.name, ops=len(chain))
+        # exclusivity: the composite's outputs (the projection and the two
+        # updated pools) are the only values allowed to escape the chain
+        comp_outs = {proj.name, kp_u.name, vp_u.name}
+        escaped = next((o.name for bi in sorted(chain) for o in bsyms[bi].flat_proxy_outs()
+                        if o.name not in comp_outs
+                        and (o.name in out_names or set(consumers.get(o.name, ())) - chain)),
+                       None)
+        if escaped is not None:
+            _record_block("interior-escapes", f"{escaped} is consumed outside the chain", cost,
+                          op="nn.attn_subblock")
+            continue
+        if enabled is not True and not cost_model.subblock_profitable(cost):
+            _record_block("cost-rejected",
+                          "the per-op chain's estimate, its launches inside a replayed graph "
+                          "counted, beats the kernel's (need est_saved_us > 0)", cost,
+                          op="nn.attn_subblock")
+            continue
+        comp_args = (h, w_norm, wq, wk, wv, wo, cos, sin, k_pool, v_pool, bt, ln, wp_k)
+        comp_kwargs = {"eps": eps}
+        if scale is not None:
+            comp_kwargs["scale"] = scale
+        refused = _claim_refusal(executors, "nn.attn_subblock", comp_args, comp_kwargs,
+                                 kernel=True)
+        if refused is not None:
+            _record_block("unclaimed", refused, cost, op="nn.attn_subblock")
+            continue
+        from thunder_tpu_torch.ops import composites
+
+        repl = _build_composite(trc, composites.attn_subblock, comp_args, comp_kwargs,
+                                [proj, kp_u, vp_u])
+        if not repl:
+            _record_block("rebuild-mismatch", "composite retrace changed output metadata", cost,
+                          op="nn.attn_subblock")
+            continue
+        repl[-1].header = (f"{BLOCK_MARKER}: {len(chain)}-op attention sub-block (qkv, rope, "
+                           f"page writes, paged attention, out-projection) planned as one "
+                           f"kernel")
+        _record_block("planned",
+                      "forced by block_fusion=True" if enabled is True
+                      else "cost model: interior bytes and launches beat the kernel's "
+                           "overheads", cost, op="nn.attn_subblock")
+        _observe.inc("fusion.block_fusions")
+        last = max(chain)
+        replacements[last] = repl
+        dropped.update(chain - {last})
+        used |= chain
+        n_planned += 1
+    if not replacements:
+        return trc
+    return _rebuild_trace(trc, replacements, dropped,
+                          f"Attention sub-block planner ({n_planned} chains)")
+
+
+def _decode_chain_pass(trc: TraceCtx, executors, enabled) -> TraceCtx:
+    """The chaining stage (stage 3 of :func:`block_fusion_pass`; the
+    reference's ``_decode_chain_pass``, fusion_passes.py:1309): a planned
+    ``nn.attn_subblock`` whose projection feeds its layer's
+    ``nn.mlp_subblock`` as the attention-out summand, over the same residual
+    stream, becomes one ``nn.decode_layer``, one launch per layer per
+    decoded token. Chaining changes no value the decomposition computes (it
+    is the two sub-blocks); besides claimability, the kernel's own refusal
+    (``cudaex.refusal``, where the reference checks combined VMEM) decides.
+    The cost (``decode_layer_cost``) is recorded."""
+    bsyms = trc.bound_symbols
+    if not any(b.sym.id == "nn.attn_subblock" for b in bsyms):
+        return trc
+    producer, consumers, out_names = _dataflow(trc)
+    replacements: dict[int, list[BoundSymbol]] = {}
+    dropped: set[int] = set()
+    n_chained = 0
+    for ai, ab in enumerate(bsyms):
+        if ab.sym.id != "nn.attn_subblock" or len(ab.args) != 13:
+            continue
+        outs = ab.flat_proxy_outs()
+        if len(outs) != 3:
+            continue
+        proj, kp, vp = outs
+        h = ab.args[0]
+        base_cost = {"chain": getattr(h, "name", "?")}
+        mb, mi = None, None
+        pcons = set(consumers.get(proj.name, ()))
+        if proj.name not in out_names and len(pcons) == 1:
+            ci = next(iter(pcons))
+            cand = bsyms[ci]
+            if cand.sym.id == "nn.mlp_subblock" and len(cand.args) >= 6:
+                residual, xx = cand.args[0], cand.args[1]
+                if getattr(residual, "name", None) == h.name \
+                        and getattr(xx, "name", None) == proj.name:
+                    mb, mi = cand, ci
+        if mb is None:
+            _record_block("chain-blocked", "no adjoining nn.mlp_subblock consumes the attention "
+                          "output over the same residual stream", base_cost,
+                          op="nn.decode_layer")
+            continue
+        eps_a = ab.kwargs.get("eps", 1e-5)
+        if eps_a != mb.kwargs.get("eps", 1e-5):
+            _record_block("chain-blocked", "the two sub-blocks normalize with different eps",
+                          base_cost, op="nn.decode_layer")
+            continue
+        # the fused composite lands at the MLP's position: the pools it
+        # produces must not be consumed before that
+        if any(j < mi for o in (kp, vp) for j in consumers.get(o.name, ())):
+            _record_block("chain-blocked", "an updated page pool is consumed before the "
+                          "layer's MLP sub-block", base_cost, op="nn.decode_layer")
+            continue
+        act = mb.kwargs.get("act", "silu")
+        scale = ab.kwargs.get("scale")
+        KV, P, ps, hd = (int(d) for d in ab.args[8].shape)
+        S, D = int(h.shape[0]), int(h.shape[-1])
+        H = int(ab.args[2].shape[0]) // hd
+        F = int(mb.args[3].shape[0])
+        acost = cost_model.attn_subblock_cost(S, D, H, KV, hd, ps, int(ab.args[10].shape[1]),
+                                              h.dtype.bytes)
+        mcost = cost_model.subblock_cost(S, D, F, h.dtype.bytes, decode=True)
+        cost = dict(cost_model.decode_layer_cost(acost, mcost, S, D, ps, h.dtype.bytes),
+                    chain=h.name)
+        comp_args = tuple(ab.args) + tuple(mb.args[2:6])
+        comp_kwargs = {"act": act, "eps": eps_a}
+        if scale is not None:
+            comp_kwargs["scale"] = scale
+        m_out = _single_out(mb)
+        if m_out is None:
+            continue
+        refused = _claim_refusal(executors, "nn.decode_layer", comp_args, comp_kwargs,
+                                 kernel=True)
+        if refused is not None:
+            _record_block("unclaimed", f"{refused}; keeping the two-launch form", cost,
+                          op="nn.decode_layer")
+            continue
+        from thunder_tpu_torch.ops import composites
+
+        repl = _build_composite(trc, composites.decode_layer, comp_args, comp_kwargs,
+                                [m_out, kp, vp])
+        if not repl:
+            _record_block("rebuild-mismatch", "composite retrace changed output metadata", cost,
+                          op="nn.decode_layer")
+            continue
+        repl[-1].header = (f"{BLOCK_MARKER}: attention + MLP sub-blocks chained into one "
+                           f"decode-layer launch")
+        _record_block("chained",
+                      "forced by block_fusion=True" if enabled is True
+                      else "one launch per layer: chaining saves a launch and keeps the "
+                           "residual stream on chip", cost, op="nn.decode_layer")
+        _observe.inc("fusion.decode_layer_chains")
+        replacements[mi] = repl
+        dropped.add(ai)
+        n_chained += 1
+    if not replacements:
+        return trc
+    return _rebuild_trace(trc, replacements, dropped, f"Decode-layer chaining ({n_chained} layers)")
 
 
 def plan_blocks_for_autodiff(trc: TraceCtx) -> TraceCtx:

@@ -36,7 +36,7 @@ class PrimIDs(Enum):
     BROADCAST_IN_DIM = auto(); CAT = auto(); FLIP = auto(); RESHAPE = auto(); SLICE = auto()
     SQUEEZE = auto(); TRANSPOSE = auto(); PAD = auto()
     TAKE = auto(); TAKE_ALONG_AXIS = auto(); INDEX_PUT = auto(); DYNAMIC_UPDATE_SLICE = auto()
-    SCATTER_ADD = auto(); INDEX_ADD = auto(); DYNAMIC_SLICE = auto()
+    SCATTER_ADD = auto(); INDEX_ADD = auto(); DYNAMIC_SLICE = auto(); SCATTER = auto()
     ABS = auto(); ACOS = auto(); ASIN = auto(); ATAN = auto(); BITWISE_NOT = auto()
     CEIL = auto(); COS = auto(); COSH = auto(); ERF = auto(); ERFC = auto(); EXP = auto()
     EXP2 = auto(); EXPM1 = auto(); FLOOR = auto(); ISFINITE = auto(); ISINF = auto()
@@ -308,6 +308,11 @@ dynamic_slice = make_prim(
 # torch ``scatter_add`` semantics: a per-element index tensor along ``dim``
 scatter_add = make_prim(
     PrimIDs.SCATTER_ADD, "scatter_add",
+    lambda a, indices, value, dim: TensorProxy(shape=a.shape, dtype=a.dtype, device=a.device))
+# torch ``scatter`` semantics (replace, not accumulate; the reference's
+# ``prims.scatter``, prims.py:485): a per-element index tensor along ``dim``
+scatter = make_prim(
+    PrimIDs.SCATTER, "scatter",
     lambda a, indices, value, dim: TensorProxy(shape=a.shape, dtype=a.dtype, device=a.device))
 
 

@@ -117,9 +117,10 @@ class Symbol:
 
 class BoundSymbol:
     # _consumed_cache/_produced_cache memoize core.utils.consumed_vars /
-    # produced_vars; safe because every rewrite builds a new BoundSymbol
+    # produced_vars, and _proxy_args/_proxy_outs flat_proxy_args/_outs;
+    # safe because every rewrite builds a new BoundSymbol
     __slots__ = ("sym", "args", "kwargs", "output", "subsymbols", "header",
-                 "_consumed_cache", "_produced_cache")
+                 "_consumed_cache", "_produced_cache", "_proxy_args", "_proxy_outs")
 
     def __init__(self, sym: Symbol, args: Sequence, kwargs: dict, output: Any, subsymbols: list):
         self.sym = sym
@@ -130,19 +131,25 @@ class BoundSymbol:
         self.header: str | None = None
         self._consumed_cache: frozenset | None = None
         self._produced_cache: frozenset | None = None
+        self._proxy_args: list | None = None
+        self._proxy_outs: list | None = None
 
     # -- dataflow ----------------------------------------------------------
     def flat_args(self) -> list:
         return tree_flatten((self.args, self.kwargs))[0]
 
     def flat_proxy_args(self) -> list[Proxy]:
-        return [a for a in self.flat_args() if isinstance(a, Proxy)]
+        if self._proxy_args is None:
+            self._proxy_args = [a for a in self.flat_args() if isinstance(a, Proxy)]
+        return self._proxy_args
 
     def flat_outs(self) -> list:
         return tree_flatten(self.output)[0]
 
     def flat_proxy_outs(self) -> list[Proxy]:
-        return [o for o in self.flat_outs() if isinstance(o, Proxy)]
+        if self._proxy_outs is None:
+            self._proxy_outs = [o for o in self.flat_outs() if isinstance(o, Proxy)]
+        return self._proxy_outs
 
     @property
     def rhs(self):

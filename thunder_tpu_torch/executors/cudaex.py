@@ -77,6 +77,7 @@ launch never falls back to another design.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -194,6 +195,55 @@ def design_counts() -> dict[str, dict[str, int]]:
     """Launches by design of the kernels that have several:
     ``{"sdpa_fwd": {"wgmma": 4}, ...}``."""
     return {name: dict(k.designs) for name, k in KERNELS.items() if k.designs}
+
+
+def count_snapshot() -> dict[str, tuple[int, dict[str, int]]]:
+    """Every kernel's launch count and launches by design, to take a
+    difference of later (:func:`count_delta`)."""
+    return {name: (k.launches, dict(k.designs)) for name, k in KERNELS.items()}
+
+
+def count_delta(before: dict) -> dict[str, tuple[int, dict[str, int]]]:
+    """The launches (and launches by design) counted since ``before``, a
+    :func:`count_snapshot`; kernels with none left out."""
+    out = {}
+    for name, k in KERNELS.items():
+        n0, d0 = before.get(name, (0, {}))
+        designs = {d: c - d0.get(d, 0) for d, c in k.designs.items() if c != d0.get(d, 0)}
+        if k.launches != n0 or designs:
+            out[name] = (k.launches - n0, designs)
+    return out
+
+
+def add_counts(delta: dict, sign: int = 1) -> None:
+    """Add ``sign`` times a :func:`count_delta` to the counters. A CUDA
+    graph counts its captured launches so: once taken off after the
+    capture (the host counted them while the card ran nothing), and once
+    added on every replay (the card runs them then)."""
+    for name, (n, designs) in delta.items():
+        k = KERNELS[name]
+        k.launches += sign * n
+        for d, c in designs.items():
+            k.designs[d] = k.designs.get(d, 0) + sign * c
+
+
+# the host buffers a capture's launches read from while its graph lives
+# (set by :func:`keep_host_buffers`); None outside a capture
+_capture_keep: list | None = None
+
+
+@contextlib.contextmanager
+def keep_host_buffers(keep: list):
+    """While a CUDA graph is captured, every host buffer a launch copies
+    from (``fused_adamw``'s pointer table) is appended to ``keep``: a
+    replay reads the same host address again, so the buffer must live as
+    long as the graph."""
+    global _capture_keep
+    prev, _capture_keep = _capture_keep, keep
+    try:
+        yield keep
+    finally:
+        _capture_keep = prev
 
 
 # sdpa_fwd's designs, by the code the C entry takes (csrc/sdpa_fwd.cu)
@@ -898,6 +948,8 @@ def _adamw_launch(name, rows, n_chunks, dev, bc, extra, p_dtype, g_dtype, m_dtyp
     workspace's and the accumulator's (the health passes)."""
     host = torch.tensor(rows or [(0,) * 6], dtype=torch.int64).pin_memory()
     table = host.to(dev, non_blocking=True)
+    if _capture_keep is not None:
+        _capture_keep.append(host)   # a replay copies from it again
     lr, beta1, beta2 = hyper["lr"], hyper["beta1"], hyper["beta2"]
     _launch(name, table.data_ptr(), len(rows), n_chunks, bc.data_ptr(), *extra, float(lr),
             float(beta1), float(beta2), float(1.0 - beta1), float(1.0 - beta2),

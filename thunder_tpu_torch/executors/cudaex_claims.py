@@ -39,6 +39,17 @@ an XLA fusion region; it comes with the port's region executor (ROADMAP
 A.7.4). Until then every claim here is taken wherever its checker passes.
 The sub-block and optimizer claims have no gate, as in the reference:
 their passes already asked the cost model.
+
+The serving decode (PR 19) adds ``nn.paged_decode_attention`` at T == 1
+(the ``paged_decode_attention`` kernel; a prefill chunk keeps the
+decomposition, pallasex.py:2120), and the block planner's decode units
+``nn.attn_subblock`` and ``nn.decode_layer`` (the ``attn_subblock`` and
+``decode_layer`` kernels, pallasex.py:2130-2150), which write this step's
+K/V rows into the page pools: the donated pools in place
+(``passes.writes_in_place``), copies of any other. Under the ``interpret``
+compile option (the serving runner sets it on the CPU) the checkers take
+CPU tensors too, and the claims run their routers' plain versions there,
+as the reference's Pallas claims run in interpret mode.
 """
 
 from __future__ import annotations
@@ -46,8 +57,10 @@ from __future__ import annotations
 import torch
 
 from thunder_tpu_torch.core import dtypes
+from thunder_tpu_torch.core.compile_data import get_compile_option
 from thunder_tpu_torch.core.proxies import TensorProxy
 from thunder_tpu_torch.executors import OperatorExecutor, cudaex, register_executor
+from thunder_tpu_torch.executors.passes import writes_in_place
 from thunder_tpu_torch.ops import get_op
 from thunder_tpu_torch.ops import nn as tnn
 from thunder_tpu_torch.ops import optim as optim_ops
@@ -59,7 +72,15 @@ _ACTS = ("relu", "silu", "gelu", "gelu_tanh")
 
 
 def _on_card(*ts) -> bool:
-    return all(t.device.type == "cuda" for t in ts if isinstance(t, TensorProxy))
+    """Every tensor on the card, or, under the ``interpret`` compile option,
+    on the card or the CPU."""
+    devs = {"cuda", "cpu"} if get_compile_option(
+        "interpret",
+        "claim the kernel composites of CPU tensors as of CUDA ones and run each through its "
+        "router, whose CPU path is the kernel's plain version (the reference's Pallas "
+        "interpret mode): the kernel guard's fault hooks and claim counts and the "
+        "quarantine's rungs then act on the CPU as on the card", False) else {"cuda"}
+    return all(t.device.type in devs for t in ts if isinstance(t, TensorProxy))
 
 
 def _meta(x, dtype=None):
@@ -144,6 +165,28 @@ def _mlp_subblock_bwd_checker(g, residual, x, w_norm, w_gate, w_up, w_down, act=
     return _mlp_subblock_checker(residual, x, w_norm, w_gate, w_up, w_down, act, eps)
 
 
+def _paged_checker(q, k_pages, v_pages, block_tables, lengths, scale=None):
+    # the T == 1 decode step; a prefill chunk keeps the decomposition
+    return q.ndim == 4 and q.shape[2] == 1 and _on_card(q, k_pages, v_pages, block_tables,
+                                                         lengths)
+
+
+def _attn_subblock_checker(h, w_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages, block_tables,
+                           lengths, write_pos, eps=1e-5, scale=None):
+    return (h.ndim == 3 and h.shape[1] == 1 and w_norm is not None
+            and _on_card(h, w_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages, block_tables,
+                         lengths, write_pos))
+
+
+def _decode_layer_checker(h, attn_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages,
+                          block_tables, lengths, write_pos, mlp_norm, w_gate, w_up, w_down,
+                          act="silu", eps=1e-5, scale=None):
+    return (act in _ACTS and _attn_subblock_checker(h, attn_norm, wq, wk, wv, wo, cos, sin,
+                                                    k_pages, v_pages, block_tables, lengths,
+                                                    write_pos)
+            and _on_card(mlp_norm, w_gate, w_up, w_down))
+
+
 def _ce_checker(logits, target, ignore_index=-100):
     return logits.ndim == 2 and _on_card(logits, target)
 
@@ -191,6 +234,26 @@ def _mlp_subblock_bwd_refusal(g, residual, x, w_norm, w_gate, w_up, w_down, act=
     return cudaex.refusal("mlp_subblock_bwd", *(_meta(t) for t in (g, residual, x, w_norm,
                                                                    w_gate, w_up, w_down)),
                           act, eps)
+
+
+def _paged_refusal(q, k_pages, v_pages, block_tables, lengths, scale=None):
+    return cudaex.refusal("paged_decode_attention", *(_meta(t) for t in (q, k_pages, v_pages,
+                                                                         block_tables, lengths)))
+
+
+def _attn_subblock_refusal(h, w_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages, block_tables,
+                           lengths, write_pos, eps=1e-5, scale=None):
+    return cudaex.refusal("attn_subblock", *(_meta(t) for t in (
+        h, w_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages, block_tables, lengths,
+        write_pos)))
+
+
+def _decode_layer_refusal(h, attn_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages,
+                          block_tables, lengths, write_pos, mlp_norm, w_gate, w_up, w_down,
+                          act="silu", eps=1e-5, scale=None):
+    return cudaex.refusal("decode_layer", *(_meta(t) for t in (
+        h, attn_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages, block_tables, lengths,
+        write_pos, mlp_norm, w_gate, w_up, w_down)), act=act)
 
 
 def _fused_adamw_refusal(params, grads, ms, vs, bc1, bc2, *, state_dtype=None, v_dtype=None,
@@ -243,6 +306,50 @@ def cuda_mlp_subblock_bwd(g, residual, x, w_norm, w_gate, w_up, w_down, act="sil
                                 act=act, eps=eps)
 
 
+def cuda_paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, scale=None):
+    return tnn.paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, scale)
+
+
+def _pools(k_pages, v_pages, donated):
+    """The pools a decode claim writes: the donated ones themselves, dense
+    copies of the others (an input that was not donated is never written)."""
+    marks = donated or ((False,), (False,))
+    return tuple(t if flags[0] else t.clone(memory_format=torch.contiguous_format)
+                 for t, flags in zip((k_pages, v_pages), marks))
+
+
+def cuda_attn_subblock(h, w_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages, block_tables,
+                       lengths, write_pos, eps=1e-5, scale=None, donated=None):
+    """The ``attn_subblock`` router into the pools ``passes.donate_in_place``
+    marks (the donated pools themselves, else copies); returns ``(out, kp,
+    vp)``, the composite's outputs."""
+    kp, vp = _pools(k_pages, v_pages, donated)
+    out = tnn.attn_subblock(h, w_norm, wq, wk, wv, wo, cos, sin, kp, vp, block_tables, lengths,
+                            write_pos, eps=eps, scale=scale)
+    return out, kp, vp
+
+
+def cuda_decode_layer(h, attn_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages, block_tables,
+                      lengths, write_pos, mlp_norm, w_gate, w_up, w_down, act="silu", eps=1e-5,
+                      scale=None, donated=None):
+    """The ``decode_layer`` router, into the pools as :func:`cuda_attn_subblock`'s."""
+    kp, vp = _pools(k_pages, v_pages, donated)
+    out = tnn.decode_layer(h, attn_norm, wq, wk, wv, wo, cos, sin, kp, vp, block_tables,
+                           lengths, write_pos, mlp_norm, w_gate, w_up, w_down, act=act, eps=eps,
+                           scale=scale)
+    return out, kp, vp
+
+
+def _pool_targets(*args, **kwargs):
+    """The groups a decode claim may write in place: each pool, in its own
+    dtype."""
+    return [[(args[8], args[8].dtype)], [(args[9], args[9].dtype)]]
+
+
+writes_in_place(cuda_attn_subblock, _pool_targets)
+writes_in_place(cuda_decode_layer, _pool_targets)
+
+
 def cuda_ce_fwd(logits, target, ignore_index=-100):
     return tnn.ce_fwd(logits, target, ignore_index)
 
@@ -288,6 +395,13 @@ mlp_subblock_op = _register("mlp_subblock", "nn.mlp_subblock", cuda_mlp_subblock
 mlp_subblock_bwd_op = _register("mlp_subblock_bwd", "nn.mlp_subblock_bwd",
                                 cuda_mlp_subblock_bwd, _mlp_subblock_bwd_checker,
                                 _mlp_subblock_bwd_refusal)
+paged_decode_attention_op = _register("paged_decode_attention", "nn.paged_decode_attention",
+                                      cuda_paged_decode_attention, _paged_checker,
+                                      _paged_refusal)
+attn_subblock_op = _register("attn_subblock", "nn.attn_subblock", cuda_attn_subblock,
+                             _attn_subblock_checker, _attn_subblock_refusal)
+decode_layer_op = _register("decode_layer", "nn.decode_layer", cuda_decode_layer,
+                            _decode_layer_checker, _decode_layer_refusal)
 
 
 def kernel_of(sym) -> str | None:

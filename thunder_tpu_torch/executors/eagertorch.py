@@ -196,6 +196,13 @@ def _index_put(a, indices, values, accumulate):
 
 @impl(PrimIDs.INDEX_ADD)
 def _index_add(a, indices, value, dim):
+    if a.is_cuda:
+        # index_add's CUDA kernel adds duplicate rows with atomics, in the
+        # order they land; index_put's accumulation sorts them first, so a
+        # program (and its CUDA graph's replay) gives the same bits each run
+        out = a.movedim(dim, 0).index_put((indices.long(),), value.movedim(dim, 0),
+                                          accumulate=True)
+        return out.movedim(0, dim)
     return torch.index_add(a, dim, indices.long(), value)
 
 
@@ -204,9 +211,43 @@ def _scatter_add(a, indices, value, dim):
     return torch.scatter_add(a, dim, indices.long(), value)
 
 
+@impl(PrimIDs.SCATTER)
+def _scatter(a, indices, value, dim, donated=False):
+    """Replace semantics; ``donated`` (``passes.donate_in_place``) writes
+    ``a`` itself, a donated input nothing reads after this write. Duplicate
+    indices leave one of their values, any one."""
+    if donated:
+        return a.scatter_(dim, indices.long(), value)
+    return torch.scatter(a, dim, indices.long(), value)
+
+
+def _update_index(a, starts, sizes):
+    """The index of the region ``[start, start + size)`` per dim: slices
+    where every start is a Python int; else index tensors built on the
+    device from the 0-d tensor starts (clamped into range, as the
+    reference's ``dynamic_update_slice`` clamps them), so no start is read
+    on the host (a captured program may not read the device)."""
+    if all(isinstance(s, int) for s in starts):
+        return tuple(slice(s, s + n) for s, n in zip(starts, sizes))
+    dynamic = [d for d, s in enumerate(starts) if not isinstance(s, int)]
+    if len(dynamic) == 1:   # one index tensor among slices keeps its place
+        d = dynamic[0]
+        s = starts[d].clamp(0, a.shape[d] - sizes[d])
+        return tuple(torch.arange(n, device=a.device) + s if i == d else slice(s_, s_ + n)
+                     for i, (s_, n) in enumerate(zip(starts, sizes)))
+    idx = []
+    for d, (s, n) in enumerate(zip(starts, sizes)):
+        hi = a.shape[d] - n
+        s = s.clamp(0, hi) if isinstance(s, torch.Tensor) else min(max(int(s), 0), hi)
+        shape = [1] * a.ndim
+        shape[d] = n
+        idx.append((torch.arange(n, device=a.device) + s).reshape(shape))
+    return tuple(idx)
+
+
 @impl(PrimIDs.DYNAMIC_SLICE)
 def _dynamic_slice(a, start_indices, slice_sizes):
-    return a[tuple(slice(s, s + n) for s, n in zip(start_indices, slice_sizes))]
+    return a[_update_index(a, start_indices, slice_sizes)]
 
 
 @impl(PrimIDs.OPT_BARRIER)
@@ -217,9 +258,10 @@ def _opt_barrier(*args):
 
 
 @impl(PrimIDs.DYNAMIC_UPDATE_SLICE)
-def _dynamic_update_slice(a, update, start_indices):
-    out = a.clone()
-    out[tuple(slice(s, s + n) for s, n in zip(start_indices, update.shape))] = update
+def _dynamic_update_slice(a, update, start_indices, donated=False):
+    """``donated``: as :func:`_scatter`'s."""
+    out = a if donated else a.clone()
+    out[_update_index(a, start_indices, update.shape)] = update
     return out
 
 

@@ -143,58 +143,107 @@ def writes_in_place(fn, targets) -> None:
     _in_place_writers[fn] = targets
 
 
-def _aliases(bsyms, donated: set[str]) -> dict[str, set[str]]:
-    """Each name that may share storage with donated inputs, mapped to
-    them: the donated inputs themselves, and the outputs of the prims the
-    torch executor runs as a view or as the input itself (reshape, permute,
-    a same-dtype convert, ...) of such a name."""
+# the torch executor's prims that write their first argument in place when
+# it is marked ``donated=True`` (eagertorch ``_scatter``,
+# ``_dynamic_update_slice``): the serving programs' pool writes
+_PRIM_WRITERS = (PrimIDs.SCATTER, PrimIDs.DYNAMIC_UPDATE_SLICE)
+
+
+def _writer_targets(b: BoundSymbol):
+    """The groups of ``(input, dtype it is stored in)`` that bound symbol
+    ``b`` may write in place, and whether it is one of the torch executor's
+    prims; None for a symbol that writes nothing."""
+    if b.sym.executor is not None and b.sym.python_impl in _in_place_writers:
+        return _in_place_writers[b.sym.python_impl](*b.args, **b.kwargs), False
+    if (b.sym.executor is None and b.sym.id in _PRIM_WRITERS and b.args
+            and isinstance(b.args[0], TensorProxy)):
+        return [[(b.args[0], b.args[0].dtype)]], True
+    return None
+
+
+def _versions(bsyms, donated: set[str], enabled: set) -> dict:
+    """Label every name that may share storage with a donated input:
+    ``name -> (root, version, plain)``. A view the torch executor makes
+    (``eagertorch.MAY_ALIAS``: reshape, permute, a same-dtype convert, ...)
+    keeps its input's label, ``plain`` only through reshapes; an in-place
+    prim write in ``enabled`` (its position) makes the next version of its
+    target's root."""
     from thunder_tpu_torch.executors.eagertorch import MAY_ALIAS
 
-    roots = {n: {n} for n in donated}
-    for b in bsyms:
-        if b.sym.executor is None and b.sym.id in MAY_ALIAS:
-            src = set().union(*(roots.get(p.name, ()) for p in b.flat_proxy_args()))
-            for o in b.flat_proxy_outs() if src else ():
-                roots.setdefault(o.name, set()).update(src)
-    return roots
+    label = {n: (n, 0, True) for n in donated}
+    for i, b in enumerate(bsyms):
+        if b.sym.executor is not None:
+            continue
+        if b.sym.id in MAY_ALIAS:
+            src = next((label[p.name] for p in b.flat_proxy_args() if p.name in label), None)
+            if src is not None:
+                plain = src[2] and b.sym.id is PrimIDs.RESHAPE
+                for o in b.flat_proxy_outs():
+                    label[o.name] = (src[0], src[1], plain)
+        elif i in enabled and b.args[0].name in label:
+            r, v, _ = label[b.args[0].name]
+            for o in b.flat_proxy_outs():
+                label[o.name] = (r, v + 1, True)
+    return label
 
 
 def donate_in_place(trc: TraceCtx, donated: set[str]) -> tuple[TraceCtx, bool]:
-    """Let each claimed writer (:func:`writes_in_place`) write the donated
-    inputs it updates (``jit(donate_argnums=)``): a tensor is written in
-    place only where it is a donated input of the trace, already in the
-    dtype it is stored in, passed to the writer once, and where neither it
-    nor a view of it is read by a bound symbol after the writer or
-    returned. The writer's ``donated`` argument says which; every other
-    target is copied first. Returns the trace and whether anything is
-    written in place."""
+    """Let each writer write the donated inputs it updates in place
+    (``jit(donate_argnums=)``): the claimed writers (:func:`writes_in_place`)
+    and the torch executor's ``scatter`` and ``dynamic_update_slice``. A
+    target is written in place only where it is a donated input (for a
+    prim, or a reshape of one, or the output of an earlier in-place write of
+    one: the storage's next version), in the dtype it is stored in, passed
+    to the writer once, and where no bound symbol after the writer reads
+    that version, nor returns it. A claimed writer's ``donated`` argument
+    says which of its targets (every other is copied first); a prim written
+    in place gets ``donated=True``. Returns the trace and the names of the
+    donated inputs written in place."""
     bsyms = list(trc.bound_symbols)
-    writers = [(i, _in_place_writers[b.sym.python_impl]) for i, b in enumerate(bsyms)
-               if b.sym.executor is not None and b.sym.python_impl in _in_place_writers]
+    writers = {i: w for i, b in enumerate(bsyms) if (w := _writer_targets(b)) is not None}
     if not writers:
-        return trc, False
-    roots = _aliases(bsyms, donated)
-    last_read: dict[str, int] = {}
-    for i, b in enumerate(bsyms):
-        for v in consumed_vars(b):
-            for r in roots.get(v.proxy.name, ()):
-                last_read[r] = i
-    returned = set().union(*(roots.get(o.name, ()) for o in tree_flatten(trc.output)[0]
-                             if isinstance(o, Proxy)))
-    writes = False
-    for i, targets in writers:
+        return trc, frozenset()
+    out_names = [o.name for o in tree_flatten(trc.output)[0] if isinstance(o, Proxy)]
+    enabled = {i for i, (_, prim) in writers.items() if prim}
+    while True:
+        label = _versions(bsyms, donated, enabled)
+        last_read: dict[tuple, int] = {}
+        for i, b in enumerate(bsyms):
+            for v in consumed_vars(b):
+                lab = label.get(v.proxy.name)
+                if lab is not None:
+                    last_read[lab[:2]] = i
+        returned = {label[n][:2] for n in out_names if n in label}
+
+        def in_place(i, t, dt, prim):
+            lab = label.get(t.name)
+            if lab is None or t.dtype != dt or not (lab[2] if prim else t.name in donated):
+                return False
+            passed = [label[p.name][0] for p in bsyms[i].flat_proxy_args() if p.name in label]
+            return (last_read.get(lab[:2], -1) <= i and lab[:2] not in returned
+                    and passed.count(lab[0]) == 1)
+
+        marks = {i: tuple(tuple(in_place(i, t, dt, prim) for t, dt in group) for group in groups)
+                 for i, (groups, prim) in writers.items()}
+        still = {i for i in enabled if marks[i][0][0]}
+        if still == enabled:
+            break
+        enabled = still
+    written = set()
+    for i, (groups, prim) in writers.items():
         b = bsyms[i]
-        passed = [r for p in b.flat_proxy_args() for r in roots.get(p.name, ())]
-        marks = tuple(tuple(t.name in donated and last_read[t.name] <= i
-                            and t.name not in returned and passed.count(t.name) == 1
-                            and t.dtype == dt for t, dt in group)
-                      for group in targets(*b.args, **b.kwargs))
-        writes = writes or any(any(m) for m in marks)
-        bsyms[i] = b.from_bsym(kwargs={**b.kwargs, "donated": marks})
+        if prim:
+            if i in enabled:
+                bsyms[i] = b.from_bsym(kwargs={**b.kwargs, "donated": True})
+                written.add(label[b.args[0].name][0])
+        else:
+            written.update(t.name for group, flags in zip(groups, marks[i])
+                           for (t, _), flag in zip(group, flags) if flag)
+            bsyms[i] = b.from_bsym(kwargs={**b.kwargs, "donated": marks[i]})
     new = from_trace(trc)
     new.bound_symbols = bsyms
     new.provenance = trc.provenance
-    return new, writes
+    return new, frozenset(written)
 
 
 def del_last_used(trc: TraceCtx) -> TraceCtx:

@@ -157,10 +157,13 @@ def _rope_tables(cfg: LlamaConfig, pos: torch.Tensor, dtype: torch.dtype):
 
 def _rope_cos_sin(cfg: LlamaConfig, T: int, dtype: torch.dtype, pos_offset=None,
                   device=None):
-    """Tables for the contiguous positions ``pos_offset + arange(T)``."""
+    """Tables for the contiguous positions ``pos_offset + arange(T)``;
+    ``pos_offset`` an int or a 0-d tensor (a traced prefill's chunk start,
+    which stays on the device)."""
     pos = torch.arange(T, device=device).to(torch.float32)
     if pos_offset is not None:
-        pos = pos + float(pos_offset)
+        pos = pos + (pos_offset.to(torch.float32) if hasattr(pos_offset, "shape")
+                     else float(pos_offset))
     return _rope_tables(cfg, pos, dtype)
 
 

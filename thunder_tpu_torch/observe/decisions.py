@@ -7,11 +7,12 @@ its decisions into ``CompileStats.last_decisions`` (a sink
 process-wide registry; while the registry is on, each decision is also an
 event. A record::
 
-    {"kind": "claim" | "fusion" | "block",
-     "op": <symbol name or pattern>,
+    {"kind": "claim" | "fusion" | "block" | "whole_program",
+     "op": <symbol name or pattern, or the jit function's name>,
      "executor": <name> | None,
      "decision": "claimed" | "rejected" | "decomposed" | "fallback"
-                 | "merged" | "rewritten" | "bucketed" | a block kind,
+                 | "merged" | "rewritten" | "bucketed" | a block kind
+                 | "graph" | "per-call",
      "reason": <short string>,
      "cost": {<cost-model inputs and estimates>} | None}
 """

@@ -8,7 +8,10 @@ Symbol with the reference's stable id and its decomposition into ops:
 (:101), :func:`mlp_subblock` (:115), :func:`mlp_subblock_bwd` (:148),
 :func:`dropout` (:241), :func:`mse_loss` (:251),
 :func:`cross_entropy` (:263), :func:`sdpa_fwd` (:297), :func:`ce_fwd`
-(:321), :func:`sdpa_bwd` (:336) and :func:`scaled_dot_product_attention`
+(:321), :func:`sdpa_bwd` (:336), the serving decode's
+:func:`paged_decode_attention` (:367), :func:`decode_row_write` (:447, a
+helper emitting ``prims.scatter``), :func:`attn_subblock` (:469) and
+:func:`decode_layer` (:530), and :func:`scaled_dot_product_attention`
 (:590), with the reference's VJP rules of attention (``_sdpa_vjp``, :642),
 the RMS norm (``_rms_norm_vjp``, :658), the MLP sub-block
 (``_mlp_subblock_vjp``, :697) and cross-entropy (``_cross_entropy_vjp``,
@@ -348,6 +351,142 @@ def sdpa_bwd(g, q, k, v, out, lse, is_causal: bool = False, scale: float | None 
     dk = ops.matmul(ds.mT, qf)
     return (ops.convert_element_type(dq, q.dtype), ops.convert_element_type(dk, k.dtype),
             ops.convert_element_type(dv, v.dtype))
+
+
+@opsymbol(id="nn.paged_decode_attention")
+def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths,
+                           scale: float | None = None):
+    """Ragged attention over the paged KV cache, the reference's
+    decomposition (ops/nn.py:367): gather each request's pages through its
+    block table, mask ragged causally (row ``r`` of ``T`` attends keys ``j
+    <= lengths - T + r``), softmax in float32; grouped-query heads fold into
+    q's rows. q (B, H, T, hd); pools (KV, P, ps, hd). The ``cuda`` executor
+    claims the T == 1 decode case (the ``paged_decode_attention`` kernel);
+    a prefill chunk keeps this decomposition, as the reference's does."""
+    _tensor_like(q, "paged_decode_attention")
+    check(q.ndim == 4 and k_pages.ndim == 4 and v_pages.ndim == 4,
+          lambda: f"paged_decode_attention: q must be (B, H, T, hd) and pages (kv_heads, P, "
+                  f"page, hd); got q {tuple(q.shape)}, k_pages {tuple(k_pages.shape)}")
+    B, H, T, hd = q.shape
+    KV, P, ps, hd2 = k_pages.shape
+    check(hd2 == hd and tuple(v_pages.shape) == tuple(k_pages.shape),
+          lambda: f"paged_decode_attention: page pools {tuple(k_pages.shape)} / "
+                  f"{tuple(v_pages.shape)} do not match head_dim {hd}")
+    check(H % KV == 0,
+          lambda: f"paged_decode_attention: n_heads {H} not divisible by kv_heads {KV}")
+    check(block_tables.ndim == 2 and block_tables.shape[0] == B
+          and lengths.ndim == 1 and lengths.shape[0] == B,
+          lambda: f"paged_decode_attention: block_tables {tuple(block_tables.shape)} / lengths "
+                  f"{tuple(lengths.shape)} do not match batch {B}")
+    n_rep = H // KV
+    npg = block_tables.shape[1]
+    L = npg * ps
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    idx = ops.reshape(block_tables, (B * npg,))
+    k = ops.transpose(ops.reshape(prims.take(k_pages, idx, 1), (KV, B, L, hd)), (1, 0, 2, 3))
+    v = ops.transpose(ops.reshape(prims.take(v_pages, idx, 1), (KV, B, L, hd)), (1, 0, 2, 3))
+    qg = ops.reshape(q, (B, KV, n_rep * T, hd))
+    qf = ops.convert_element_type(qg, dtypes.float32)
+    kf = ops.convert_element_type(k, dtypes.float32)
+    vf = ops.convert_element_type(v, dtypes.float32)
+    scores = ops.mul(ops.matmul(qf, kf.mT), scale)          # (B, KV, n_rep*T, L)
+    scores = ops.reshape(scores, (B, H, T, L))
+    col = ops.arange(L, device=q.device)
+    row_pos = ops.add(ops.unsqueeze(ops.sub(lengths, T), 1),
+                      ops.unsqueeze(ops.arange(T, device=q.device), 0))   # (B, T)
+    valid = ops.le(ops.unsqueeze(ops.unsqueeze(col, 0), 0), ops.unsqueeze(row_pos, 2))
+    neg = ops.full((), float("-inf"), dtype=dtypes.float32, device=q.device)
+    scores = ops.where(ops.expand_to(ops.unsqueeze(valid, 1), scores.shape), scores, neg)
+    probs = ops.softmax(scores, -1)
+    attn = ops.matmul(ops.reshape(probs, (B, KV, n_rep * T, L)), vf)
+    return ops.convert_element_type(ops.reshape(attn, (B, H, T, hd)), q.dtype)
+
+
+def decode_row_write(pool_flat, rows, flat_positions):
+    """Every decode slot's K/V row into a flattened page pool in ONE
+    replace-semantics ``prims.scatter`` (the reference's helper,
+    ops/nn.py:447): the serving runner's K/V append and the
+    ``nn.attn_subblock`` decomposition emit the same ops, which the block
+    planner's chain matcher reads. ``pool_flat`` (KV, P*ps, hd); ``rows``
+    (S, KV, 1, hd); ``flat_positions`` (S,) of ``page*ps + offset``. Idle and
+    replay slots all target position 0 (the reserved scratch page);
+    duplicate indices there are benign (any write wins, nobody reads)."""
+    S = rows.shape[0]
+    src = ops.transpose(ops.squeeze(rows, 2), (1, 0, 2))       # (KV, S, hd)
+    idx = ops.expand_to(ops.reshape(flat_positions, (1, S, 1)), src.shape)
+    return prims.scatter(pool_flat, idx, src, 1)
+
+
+def _apply_rope(x, cos, sin):
+    """GPT-NeoX half rotation (``models.llama._apply_rope``) in ops."""
+    hd = x.shape[-1]
+    x1 = ops.getitem(x, (Ellipsis, slice(0, hd // 2)))
+    x2 = ops.getitem(x, (Ellipsis, slice(hd // 2, hd)))
+    return ops.cat([ops.sub(ops.mul(x1, cos), ops.mul(x2, sin)),
+                    ops.add(ops.mul(x2, cos), ops.mul(x1, sin))], -1)
+
+
+_DECODE_T1 = ("decode-only composite (T == 1): every slot contributes one new row; the "
+              "chunked-prefill path keeps the unfused ops")
+
+
+@opsymbol(id="nn.attn_subblock")
+def attn_subblock(h, w_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages, block_tables,
+                  lengths, write_pos, *, eps: float = 1e-5, scale: float | None = None):
+    """The serving attention sub-block of one T == 1 decode step as one
+    composite, the block planner's attention unit (reference ops/nn.py:469)::
+
+        x     = rms_norm(h, w_norm)
+        q,k,v = rope(split_heads(x @ wq/wk/wv.T))     # v un-roped
+        kp,vp = the pools with this step's k/v rows scattered at write_pos
+        attn  = paged_decode_attention(q, kp, vp, block_tables, lengths)
+        out   = merge_heads(attn) @ wo.T              # residual add outside
+
+    Returns ``(out, kp, vp)``. The decomposition is the op sequence the
+    serving runner emits for one layer; the ``cuda`` executor claims it as
+    the ``attn_subblock`` kernel, writing the donated pools in place."""
+    _tensor_like(h, "attn_subblock")
+    B, T = h.shape[0], h.shape[1]
+    check(T == 1, lambda: f"attn_subblock: {_DECODE_T1}; got T={T}")
+    KV, P, ps, hd = k_pages.shape
+    check(tuple(v_pages.shape) == tuple(k_pages.shape),
+          lambda: f"attn_subblock: page pools {tuple(k_pages.shape)} / {tuple(v_pages.shape)} "
+                  f"differ")
+    H = wq.shape[0] // hd
+    check(wq.shape[0] == H * hd and wk.shape[0] == KV * hd
+          and tuple(wv.shape) == tuple(wk.shape) and wo.shape[1] == H * hd,
+          lambda: f"attn_subblock: projection shapes wq {tuple(wq.shape)} / wk "
+                  f"{tuple(wk.shape)} / wo {tuple(wo.shape)} do not agree with head_dim {hd}")
+    x = rms_norm(h, w_norm, eps=eps)
+
+    def heads(w, n):
+        return ops.transpose(ops.reshape(ops.linear(x, w), (B, T, n, hd)), (0, 2, 1, 3))
+
+    q = _apply_rope(heads(wq, H), cos, sin)
+    k = _apply_rope(heads(wk, KV), cos, sin)
+    v = heads(wv, KV)
+    flat, paged = (KV, P * ps, hd), (KV, P, ps, hd)
+    kp = ops.reshape(decode_row_write(ops.reshape(k_pages, flat), k, write_pos), paged)
+    vp = ops.reshape(decode_row_write(ops.reshape(v_pages, flat), v, write_pos), paged)
+    attn = paged_decode_attention(q, kp, vp, block_tables, lengths, scale=scale)
+    attn = ops.reshape(ops.transpose(attn, (0, 2, 1, 3)), (B, T, H * hd))
+    return ops.linear(attn, wo), kp, vp
+
+
+@opsymbol(id="nn.decode_layer")
+def decode_layer(h, attn_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages, block_tables,
+                 lengths, write_pos, mlp_norm, w_gate, w_up, w_down, *, act: str = "silu",
+                 eps: float = 1e-5, scale: float | None = None):
+    """One whole transformer decode layer (T == 1) as one composite, the
+    block planner's chaining unit (reference ops/nn.py:530): the attention
+    sub-block, then the MLP sub-block on ``h + out``. Returns ``(out, kp,
+    vp)``. The decomposition is the two sub-block composites, the rung
+    below; the ``cuda`` executor claims it as the ``decode_layer`` kernel,
+    one launch per layer per decoded token."""
+    proj, kp, vp = attn_subblock(h, attn_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages,
+                                 block_tables, lengths, write_pos, eps=eps, scale=scale)
+    out = mlp_subblock(h, proj, mlp_norm, w_gate, w_up, w_down, act=act, eps=eps)
+    return out, kp, vp
 
 
 @opsymbol(id="nn.scaled_dot_product_attention")

@@ -57,7 +57,9 @@ products keep the model dtype's operands and sum into float32 logits.
 
 Serving decode (no autograd): ``decode_layer`` and ``attn_subblock`` run the
 whole T == 1 layer, or its attention half, as one kernel launch and then
-store the step's k/v rows into the pools in place. Their plain versions
+store the step's k/v rows into the pools in place; under ``jit`` they, and
+``decode_row_write``, record their composites, whose outputs include the
+updated pools, and the front end rebinds the pools' traced tensors to them. Their plain versions
 follow the TPU kernel (pallasex ``_decode_call``), not the reference's
 decomposition: the residual stream stays float32 inside the layer, and the
 row at ``lengths - 1`` is attended from the freshly computed k/v rows, never
@@ -471,6 +473,7 @@ def linear_act(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = Non
     return linear_act_plain(a, w, bias, act)
 
 
+@traceable
 def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths,
                            scale: float | None = None) -> torch.Tensor:
     """Ragged attention over the paged KV cache.
@@ -786,6 +789,7 @@ def mlp_subblock(residual: torch.Tensor, x: torch.Tensor, w_norm: torch.Tensor,
     return _mlp_subblock(residual, x, w_norm, w_gate, w_up, w_down, act, eps)
 
 
+@traceable
 def decode_row_write(pool: torch.Tensor, rows: torch.Tensor,
                      flat_positions: torch.Tensor) -> None:
     """Write every decode slot's K/V row into a page pool, in place.

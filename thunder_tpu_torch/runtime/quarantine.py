@@ -8,11 +8,13 @@ and the serving runner read the set as explicit state (:func:`is_routed_off`)
 and take the next kernel rung down:
 
 - ``cuda.decode_layer`` → ``ops.nn.decode_layer_subblocks`` (the
-  ``attn_subblock`` and ``mlp_subblock`` kernels);
+  ``attn_subblock`` and ``mlp_subblock`` kernels), and the serving
+  runner's next compile plans those two in its place;
 - ``cuda.attn_subblock`` / ``cuda.mlp_subblock`` → the per-op rung's
   kernels (``rms_norm``/``rms_norm_residual``, ``linear_act``,
-  ``paged_decode_attention``), bound by ``serving.runner`` and
-  ``models.llama`` (the planned train step);
+  ``paged_decode_attention``) in that sub-block's place: the block
+  planner plans no quarantined claim (the serving runner's traced steps),
+  and ``models.llama`` takes the per-op rung (the planned train step);
 - any other kernel has no kernel rung below it: on the card its router
   raises a fatal ``KernelExecutionError`` (the port runs no plain version
   there); on the CPU it runs its plain version, as it always does there.
@@ -28,8 +30,9 @@ what a previous process recorded, so a restarted process skips the
 known-bad kernel. ``THUNDER_TPU_TORCH_QUARANTINE_DIR`` configures it from
 the environment.
 
-Every mutation bumps a process-wide *epoch*; the serving engine re-binds its
-decode layer when the epoch moves.
+Every mutation bumps a process-wide *epoch*, which is part of ``jit``'s
+guard key; the serving engine re-binds its decode step when the epoch
+moves.
 """
 
 from __future__ import annotations

@@ -5,9 +5,10 @@
 - :mod:`~thunder_tpu_torch.serving.prefix_cache` — the cross-request
   token trie over full prompt pages;
 - :mod:`~thunder_tpu_torch.serving.sampling` — greedy/top-k/top-p sampling
-  with a counter-hash Gumbel draw, and best-of-N stream forks;
-- :mod:`~thunder_tpu_torch.serving.runner` — the eager prefill and decode
-  steps;
+  with a counter-hash Gumbel draw (eager, and traced into the decode step),
+  and best-of-N stream forks;
+- :mod:`~thunder_tpu_torch.serving.runner` — the prefill and decode steps,
+  compiled by ``thunder_tpu_torch.jit`` with the page pools donated;
 - :mod:`~thunder_tpu_torch.serving.scheduler` — admission, decode-first
   continuous batching with chunked prefill, preemption, deadlines, best-of-N,
   the prefix cache, fault domains and the kernel quarantine;

@@ -15,6 +15,14 @@ The hash is uint32 arithmetic. torch's ``uint32`` lacks most operations, so
 it runs in int64 with every product reduced modulo 2**32; the products are
 split into 16-bit halves so that no int64 intermediate overflows. The
 uniforms equal the reference's bit for bit.
+
+:func:`sample_tokens` runs eagerly on tensors; under ``jit`` it records
+:func:`traced_sample_tokens`, the reference's traced epilogue
+(``thunder_tpu/serving/sampling.py:180``) in the port's ops: the same
+bisections and Gumbel-max draw, the hash in int64 modulo 2**32 (the port's
+dtypes have no uint32; its right shifts are floor divisions by powers of
+two, exact on these non-negative values), so the serving decode program
+samples in the same program as its logits.
 """
 
 from __future__ import annotations
@@ -22,6 +30,10 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+
+from thunder_tpu_torch import ops
+from thunder_tpu_torch.core import dtypes
+from thunder_tpu_torch.ops.nn import traceable
 
 # masked-out vocabulary entries: finite, but below any real logit by enough
 # that Gumbel noise can never resurrect one
@@ -141,6 +153,7 @@ def _topp_threshold(probs: torch.Tensor, p_col: torch.Tensor) -> torch.Tensor:
     return lo
 
 
+@traceable
 def sample_tokens(logits: torch.Tensor, temps: torch.Tensor, top_ks: torch.Tensor,
                   top_ps: torch.Tensor, rng: torch.Tensor) -> torch.Tensor:
     """``(S, V)`` logits -> ``(S,)`` int64 token ids.
@@ -170,3 +183,96 @@ def sample_tokens(logits: torch.Tensor, temps: torch.Tensor, top_ks: torch.Tenso
 
     sampled = torch.argmax(scaled + _gumbel(rng, V), -1)
     return torch.where(temps > 0.0, sampled, greedy)
+
+
+# ---------------------------------------------------------------------------
+# the traced epilogue, in the port's ops
+# ---------------------------------------------------------------------------
+
+def _mul32_t(a, c: int):
+    """:func:`_mul32` in ops: ``(a * c) mod 2**32`` for int64 ``a`` in [0,
+    2**32)."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return ops.bitwise_and(ops.add(ops.mul(a, lo),
+                                   ops.mul(ops.bitwise_and(ops.mul(a, hi), 0xFFFF), 1 << 16)),
+                           _M32)
+
+
+def _shr_t(a, k: int):
+    return ops.floor_divide(a, 1 << k)
+
+
+def _gumbel_t(rng, V: int):
+    """:func:`_gumbel` in ops (the reference's ``_gumbel``, sampling.py:111)."""
+    S = rng.shape[0]
+    rng = ops.convert_element_type(rng, dtypes.int64)
+    seed = ops.getitem(rng, (slice(None), 0))
+    ctr = ops.getitem(rng, (slice(None), 1))
+    v = ops.arange(V, dtype=dtypes.int64, device=rng.device)
+    h = ops.bitwise_xor(_mul32_t(seed, 0x9E3779B1), _mul32_t(ctr, 0x85EBCA77))
+    h = ops.bitwise_xor(ops.reshape(h, (S, 1)), ops.reshape(_mul32_t(v, 0xC2B2AE3D), (1, V)))
+    h = ops.bitwise_xor(h, _shr_t(h, 16))
+    h = _mul32_t(h, 0x85EBCA6B)
+    h = ops.bitwise_xor(h, _shr_t(h, 13))
+    h = _mul32_t(h, 0xC2B2AE35)
+    h = ops.bitwise_xor(h, _shr_t(h, 16))
+    u = ops.add(ops.mul(ops.convert_element_type(_shr_t(h, 8), dtypes.float32),
+                        1.0 / (1 << 24)), 1e-9)
+    return ops.neg(ops.log(ops.neg(ops.log(u))))
+
+
+def _topk_threshold_t(l32, k_col):
+    lo = ops.sub(ops.amin(l32, -1, keepdim=True), 1.0)
+    hi = ops.add(ops.amax(l32, -1, keepdim=True), 1.0)
+    for _ in range(_TOPK_ITERS):
+        mid = ops.mul(ops.add(lo, hi), 0.5)
+        cnt = ops.sum(ops.convert_element_type(ops.ge(l32, mid), dtypes.float32), -1,
+                      keepdim=True)
+        keep = ops.ge(cnt, k_col)
+        lo = ops.where(keep, mid, lo)
+        hi = ops.where(keep, hi, mid)
+    return lo
+
+
+def _topp_threshold_t(probs, p_col):
+    zero = ops.zeros_like(p_col)
+    lo = zero
+    hi = ops.add(zero, 1.0 + 1e-6)
+    for _ in range(_TOPP_ITERS):
+        mid = ops.mul(ops.add(lo, hi), 0.5)
+        mass = ops.sum(ops.where(ops.ge(probs, mid), probs, zero), -1, keepdim=True)
+        keep = ops.ge(mass, p_col)
+        lo = ops.where(keep, mid, lo)
+        hi = ops.where(keep, hi, mid)
+    return lo
+
+
+def traced_sample_tokens(logits, temps, top_ks, top_ps, rng):
+    """:func:`sample_tokens` in the port's ops, which ``jit`` records for it
+    (the reference's ``sample_tokens``): ``(S, V)`` logits -> ``(S,)`` int64
+    token ids; rows with ``temps == 0`` take the greedy argmax."""
+    S, V = logits.shape
+    l32 = ops.convert_element_type(logits, dtypes.float32)
+    greedy = ops.argmax(l32, -1)
+    k_col = ops.convert_element_type(ops.reshape(top_ks, (S, 1)), dtypes.float32)
+    need_k = ops.logical_and(ops.ge(k_col, 1.0), ops.lt(k_col, float(V)))
+    k_mask = ops.ge(l32, _topk_threshold_t(l32, k_col))
+    masked = ops.where(ops.logical_and(need_k, ops.logical_not(k_mask)), _MASKED, l32)
+    t_col = ops.clamp(ops.reshape(temps, (S, 1)), min=1e-3)
+    scaled = ops.true_divide(masked, t_col)
+    p_col = ops.reshape(top_ps, (S, 1))
+    need_p = ops.lt(p_col, 1.0)
+    probs = ops.softmax(scaled, -1, dtype=dtypes.float32)
+    p_mask = ops.ge(probs, _topp_threshold_t(probs, p_col))
+    scaled = ops.where(ops.logical_and(need_p, ops.logical_not(p_mask)), _MASKED, scaled)
+    sampled = ops.argmax(ops.add(scaled, _gumbel_t(rng, V)), -1)
+    return ops.where(ops.gt(temps, 0.0), sampled, greedy)
+
+
+def _register_traced() -> None:
+    from thunder_tpu_torch.torch import register_torch_op
+
+    register_torch_op(sample_tokens, traced_sample_tokens)
+
+
+_register_traced()

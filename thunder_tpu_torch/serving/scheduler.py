@@ -53,8 +53,12 @@
   ``scheduler.py:1063-1089``): a routed kernel that fails in a decode step
   or a prefill chunk (``runtime.faults.KernelExecutionError``, degradable)
   is quarantined, which moves the quarantine epoch; the engine re-binds the
-  decode layer to the next kernel rung down (``runner.bind_decode``) and
-  replays the step. It emits ``serving.decode_rebinds``, the
+  decode step (``runner.bind_decode``: a new compile, whose planner takes
+  the next kernel rung down) and replays the step. The steps are traced
+  programs (``runner.py``), so a ``kernel:cuda.<name>`` fault fires while
+  a step runs per call: at its compile's first call and its capture on the
+  card, at every call on the CPU; a replayed graph runs no router. It
+  emits ``serving.decode_rebinds``, the
   ``serving_decode_rebind`` event, ``serving.quarantine_epoch`` and
   ``serving.decode_layer_fusions``. A fatal error propagates
   (``runtime.retry.classify``): a sticky CUDA error, and a quarantined
@@ -65,9 +69,11 @@
   also records the ``schedule`` and ``decode_dispatch`` spans.
 
 Left out of this port so far, each kept in the reference: tensor-parallel
-meshes (``mesh=``, ROADMAP A.2 then A.3), the launch census gauges
-(``serving.decode_pallas_launches``, ``launch_budget_per_layer``: A.4), and
-the fleet above one engine (``router.py``, ``health.py``: A.3).
+meshes (``mesh=``, ROADMAP A.2 then A.3), the launch census
+(``launch_budget_per_layer``, the decode-launch-growth finding: A.4), and
+the fleet above one engine (``router.py``, ``health.py``: A.3). The
+``serving.decode_pallas_launches`` and ``serving.decode_layer_fusions``
+gauges are read from the bound decode program's claims.
 """
 
 from __future__ import annotations
@@ -184,12 +190,14 @@ class ServingEngine:
     which runs every kernel's plain version. ``params`` are moved there;
     the engine runs every layer they hold.
     ``max_slots`` is the decode batch width; ``num_pages`` sizes the shared
-    pool (default: full residency for every slot). ``block_fusion`` picks
-    the runner's rung: False (the default) the per-op rung, True the planned
-    rung, one ``decode_layer`` launch per layer per decode step and one
-    ``mlp_subblock`` per layer per prefill chunk. The port has no cost model
-    to choose between them. ``prefix_cache=True`` turns on the cross-request
-    prefix cache; ``retry_policy`` is the dispatches' retry policy. The
+    pool (default: full residency for every slot). ``block_fusion`` is the
+    traced steps' planner option (``runner.PagedLlamaRunner``): None (the
+    default, as in the reference) lets the decode cost model pick the rung,
+    True forces the planned rung (one ``decode_layer`` launch per layer per
+    decode step, one ``mlp_subblock`` per layer per prefill chunk), False
+    the per-op rung. ``whole_program_jit`` is the steps' replay option (one
+    CUDA graph per compiled step on the card). ``prefix_cache=True`` turns
+    on the cross-request prefix cache; ``retry_policy`` is the dispatches' retry policy. The
     engine's metrics carry the label ``engine=e<n>``, ``n`` counting the
     process's engines.
     """
@@ -197,12 +205,12 @@ class ServingEngine:
     def __init__(self, params, cfg, *, device=None, max_slots: int = 8,
                  page_size: int = 16, num_pages: int | None = None,
                  max_context: int | None = None, prefill_chunk: int | None = None,
-                 max_queue: int | None = None, block_fusion: bool = False,
-                 prefix_cache: bool = False, retry_policy=None):
+                 max_queue: int | None = None, block_fusion: bool | None = None,
+                 prefix_cache: bool = False, retry_policy=None, whole_program_jit: bool = True):
         self.engine_id = f"e{next(_ENGINE_IDS)}"
         self.obs = _observe.labeled(engine=self.engine_id)
         self.decode_rebinds = 0        # quarantine-forced re-binds of the decode layer
-        self._bound_epoch = None       # the quarantine epoch the decode layer is bound at
+        self._bound_epoch = None       # the quarantine epoch the decode step is bound at
         self.device = resolve_device(device)
         self.params = to_device(params, self.device)
         self.cfg = cfg
@@ -236,7 +244,8 @@ class ServingEngine:
                                            device=self.device)
         self.cache = PagedKVCache(self.geom, cfg.dtype, self.device)
         self.prefix = PrefixCache(self.cache) if prefix_cache else None
-        self.runner = PagedLlamaRunner(cfg, self.geom, block_fusion=block_fusion)
+        self.runner = PagedLlamaRunner(cfg, self.geom, block_fusion=block_fusion,
+                                       device=self.device, whole_program_jit=whole_program_jit)
         self.max_slots = int(max_slots)
         self.max_queue = max_queue
         self.slots: list[Request | None] = [None] * self.max_slots
@@ -723,11 +732,12 @@ class ServingEngine:
         chunk = np.zeros((1, C), np.int64)
         chunk[0, :real] = wp[pos0:pos0 + real]
         first_page = pos0 // g.page_size
-        page_ids = np.asarray(req.pages[first_page:first_page + C // g.page_size], np.int64)
+        page_writes = np.asarray(req.pages[first_page:first_page + C // g.page_size],
+                                 np.int64) * g.page_size
         bt = np.zeros((1, g.pages_per_request), np.int32)
         bt[0, :len(req.pages)] = req.pages
         args = (self._tensor(chunk), self._tensor(bt),
-                self._tensor(np.asarray([pos0 + C], np.int32)), self._tensor(page_ids))
+                self._tensor(np.asarray([pos0 + C], np.int32)), self._tensor(page_writes))
 
         def dispatch():
             # the hook fires before any launch, so a retry re-runs the chunk
@@ -854,11 +864,12 @@ class ServingEngine:
                     self._tensor(self._np_topp), self._tensor(self._np_rng))
 
         def run():
+            step = (self.params, *args, self.cache.pools, *sampling)
             # a quarantine moved the epoch (here or anywhere in the process):
-            # re-bind the decode layer to the rung it now routes to
+            # re-bind the decode step, whose new compile takes the rung left
             if self._bound_epoch != _quarantine.epoch():
-                self._bind_decode()
-            return self.runner.decode(self.params, *args, self.cache.pools, *sampling)
+                self._bind_decode(step)
+            return self.runner.decode(*step)
 
         def dispatch():
             # the hooks fire before any launch, so a retried transient re-runs
@@ -894,7 +905,7 @@ class ServingEngine:
             self._on_token(r, int(toks[i]))
         return True
 
-    def _bind_decode(self) -> None:
+    def _bind_decode(self, step: tuple) -> None:
         ep = _quarantine.epoch()
         if self._bound_epoch is not None:
             # the epoch MOVED under a live binding: a kernel was quarantined
@@ -906,9 +917,11 @@ class ServingEngine:
             self.obs.event("serving_decode_rebind", old_epoch=self._bound_epoch, epoch=ep,
                            quarantined=sorted(_quarantine.get_quarantine().ids()))
         self.obs.set_gauge("serving.quarantine_epoch", ep)
-        fusions = self.runner.bind_decode()
+        fusions = self.runner.bind_decode(*step)
+        launches = self.runner.decode_fusion_shape()[0]
+        self.obs.set_gauge("serving.decode_pallas_launches", launches)
         self.obs.set_gauge("serving.decode_layer_fusions", fusions)
-        self.obs.event("serving_decode_bind", decode_layer_fusions=fusions)
+        self.obs.event("serving_decode_bind", launches=launches, decode_layer_fusions=fusions)
         self._bound_epoch = ep
 
     def _contained(self, dispatch):

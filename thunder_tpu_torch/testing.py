@@ -248,3 +248,32 @@ def jit_launches(jf, *args):
     torch.cuda.synchronize()
     launches = {k: n for k, n in cudaex.launch_counts().items() if n}
     return out, launches, claimed_kernels(ptt.last_execution_trace(jf))
+
+
+def decode_step(cfg, params, tokens, block_tables, lengths, write_pos, pools, temps, top_ks,
+                top_ps, rng, layer_fn):
+    """One serving decode step run eagerly, op by op, with each layer one
+    call of ``layer_fn`` (``ops.nn.decode_layer``'s signature and contract:
+    it returns the layer's output and stores the step's K/V rows into the
+    pools in place), then ``rms_norm(norm_f)``, the lm_head and the sampler:
+    ``(tokens (S,), logits (S, V))``. The traced runner's planned decode step
+    with the layer swapped for a chain of plain functions, to hold a traced
+    step against."""
+    import torch.nn.functional as F
+
+    from thunder_tpu_torch.models.llama import _rope_tables
+    from thunder_tpu_torch.ops import nn as tnn
+    from thunder_tpu_torch.serving.sampling import sample_tokens
+
+    S = tokens.shape[0]
+    h = F.embedding(tokens, params["tok_embedding"])
+    cos, sin = _rope_tables(cfg, lengths - 1, h.dtype)
+    cos, sin = cos.reshape(S, 1, 1, -1), sin.reshape(S, 1, 1, -1)
+    for layer, kv in zip(params["layers"], pools):
+        h = layer_fn(h, layer["attn_norm"], layer["wq"], layer["wk"], layer["wv"], layer["wo"],
+                     cos, sin, kv["k"], kv["v"], block_tables, lengths, write_pos,
+                     layer["mlp_norm"], layer["w_gate"], layer["w_up"], layer["w_down"],
+                     act="silu", eps=cfg.norm_eps)
+    x = tnn.rms_norm(h, params["norm_f"], eps=cfg.norm_eps)
+    logits = F.linear(x, params["lm_head"]).squeeze(1)
+    return sample_tokens(logits, temps, top_ks, top_ps, rng), logits

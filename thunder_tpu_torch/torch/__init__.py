@@ -115,7 +115,24 @@ def _has_wrapper(args, kwargs) -> bool:
     return False
 
 
+# routers that write some of their positional tensor arguments in place:
+# router -> (fn, positions); ``fn`` takes the unwrapped arguments and
+# returns ``(result, new values of those arguments)``, and the dispatch
+# rebinds each argument's wrapper to its new value (functionalization)
+_in_place_routers: dict[Any, tuple[Callable, tuple[int, ...]]] = {}
+
+
 def _dispatch(func, args, kwargs):
+    in_place = _in_place_routers.get(func)
+    if in_place is not None:
+        fn, positions = in_place
+        check(all(i < len(args) and isinstance(args[i], TorchProxy) for i in positions),
+              lambda: f"{getattr(func, '__name__', func)} writes its arguments at positions "
+                      f"{positions} in place: pass them positionally, as traced tensors")
+        out, new = fn(*_unwrap(args), **_unwrap(kwargs or {}))
+        for i, p in zip(positions, new):
+            object.__setattr__(args[i], "_p", p)
+        return _wrap(out)
     mapped = _torch_to_thunder_function_map.get(func)
     if mapped is None:
         name = getattr(func, "__name__", None) or str(func)
@@ -721,8 +738,43 @@ for _tf, _fn in {
                  cnn.ce_fwd(logits, target, ignore_index)),
     tnn.cross_entropy: (lambda logits, target, ignore_index=-100:
                         cnn.cross_entropy(logits, target, ignore_index=ignore_index)),
+    tnn.paged_decode_attention: (lambda q, k_pages, v_pages, block_tables, lengths, scale=None:
+                                 cnn.paged_decode_attention(q, k_pages, v_pages, block_tables,
+                                                            lengths, scale=scale)),
 }.items():
     _torch_to_thunder_function_map[_tf] = _fn
+
+
+def _t_decode_row_write(pool, rows, flat_positions):
+    KV, P, ps, hd = pool.shape
+    flat = cnn.decode_row_write(ops.reshape(pool, (KV, P * ps, hd)), rows, flat_positions)
+    return None, (ops.reshape(flat, tuple(pool.shape)),)
+
+
+def _t_attn_subblock(h, w_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages, block_tables,
+                     lengths, write_pos, eps=1e-5, scale=None):
+    out, kp, vp = cnn.attn_subblock(h, w_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages,
+                                    block_tables, lengths, write_pos, eps=eps, scale=scale)
+    return out, (kp, vp)
+
+
+def _t_decode_layer(h, attn_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages, block_tables,
+                    lengths, write_pos, mlp_norm, w_gate, w_up, w_down, act="silu", eps=1e-5,
+                    scale=None):
+    out, kp, vp = cnn.decode_layer(h, attn_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pages,
+                                   block_tables, lengths, write_pos, mlp_norm, w_gate, w_up,
+                                   w_down, act=act, eps=eps, scale=scale)
+    return out, (kp, vp)
+
+
+# the serving decode's routers write the page pools in place: under a trace
+# their composites return the updated pools, and the pools' wrappers are
+# rebound to them
+_in_place_routers.update({
+    tnn.decode_row_write: (_t_decode_row_write, (0,)),
+    tnn.attn_subblock: (_t_attn_subblock, (8, 9)),
+    tnn.decode_layer: (_t_decode_layer, (8, 9)),
+})
 
 # tensor methods, reached through TorchProxy attributes and through the
 # method descriptors when a real tensor meets a proxy
@@ -741,6 +793,7 @@ _TENSOR_METHODS: dict[str, Callable] = {
     "double": (lambda a: ops.convert_element_type(a, dtypes.float64)),
     "half": (lambda a: ops.convert_element_type(a, dtypes.float16)),
     "bfloat16": (lambda a: ops.convert_element_type(a, dtypes.bfloat16)),
+    "item": ops.item,
     "long": (lambda a: ops.convert_element_type(a, dtypes.int64)),
     "int": (lambda a: ops.convert_element_type(a, dtypes.int32)),
     "bool": (lambda a: ops.convert_element_type(a, dtypes.bool8)),
