@@ -123,18 +123,30 @@ same values, within 4 ULP of its plain version, the pad tail still zero;
 times it beside its plain version and its bound; and holds the MLP sub-block
 pair at llama2-7b-bench's F = 11008 as at llama3-8b-bench's. Then:
 
-12. bench, card vs CPU — three float32 tiny-gqa steps of the bench's step
-    (4 layers, B=2, T=64, remat, slab state with bf16 m) on the card and on
-    the CPU from the same weights: the same losses, parameters and slabs;
+The bench's, the resume's and the guard's steps are the compiled step,
+``jit(train_step, donate_argnums=(0, 1))``: one CUDA graph an entry (the
+first call per call, the second captured), ``fused_adamw_slab`` and the
+health passes through their ``jit`` claims, the chunked loss and its VJP
+as the torch executor's composites:
+
+12. bench, card vs CPU — three float32 tiny-gqa steps of the bench's
+    compiled step (4 layers, B=2, T=64, remat, slab state with bf16 m) on
+    the card (one graph) and on the CPU from the same weights: the same
+    losses, parameters and slabs;
 13. bench, full width — llama2-7b-bench (D=4096, 32 heads, F=11008, vocab
-    32000, bf16) at 8 layers, B=8, T=2048, a warm-up step and 3 timed steps
+    32000, bf16) at 8 layers, B=8, T=2048, a warm-up step and 4 timed steps
     through the bench entry point, (a) ``--remat --slab-state``: every step
     launches rms_norm 25, rms_norm_residual 8, sdpa_fwd 16, sdpa_bwd 8 (the
     attention all wgmma) and fused_adamw_slab 1 times; (b) ``--slab-state
     --block-fusion``, the reference's default step at this shape: rms_norm 9,
     mlp_subblock 8, mlp_subblock_bwd 8, sdpa_fwd 8, sdpa_bwd 8,
-    fused_adamw_slab 1; losses finite and falling; step time, tokens/s, the
-    share of the bf16 peak, peak memory and the fused loss's logits route.
+    fused_adamw_slab 1; each entry one graph; losses finite and falling,
+    each within JIT_TRAIN_LOSS_RTOL of the bench's eager baseline arm from
+    the same weights; (a)'s guarded arm (``NumericsGuardTransform``) adds
+    fused_adamw_slab_health 1 a step, losses within the same bound; step
+    time, tokens/s, the share of the bf16 peak, peak memory of each arm,
+    ``baseline_step_ms``, ``vs_baseline``, ``sentinel_overhead_pct`` and the
+    fused loss's logits route.
 
 Training from a token file, checkpoints and gradient clipping
 (``pretrain --data``, ``checkpoint``, ``optim.clip_grad_norm``):
@@ -176,16 +188,23 @@ square overflows v' planted, non-zero counts equal to the twin's) and
 times each beside its bound. Then:
 
 15. guard and quarantine — (a) llama3-8b-bench at 4 layers, per-op rung,
-    B=8, T=2048: three guarded steps (``pretrain.run(guard=...)``) give
-    params, moments and ``step`` bit-identical to three unguarded steps
-    from the same weights, each launching the health pass once; a fourth
-    step with ``numerics:grads`` poison leaves all of it bit-identical, with
-    nonfinite_steps == skipped_steps == 1; the health word's grad norm
-    within 1e-6 of the float64 norm of the grads; NaNs planted in the last
-    grad element and, on a bucket of odd sizes, in a scalar tail and the
-    last chunk, each counted once and each stopping the gated update; the
-    health pass timed against its bound and the guarded step against the
-    unguarded one. (b) the same on the slab path (the bench's
+    B=8, T=2048: five steps compiled with ``NumericsGuardTransform``
+    (``pretrain.run(guard=...)``, one graph) give params, moments and
+    ``step`` bit-identical to five unguarded compiled steps from the same
+    weights, each launching the health pass and the gated update once; a
+    sixth step through the guarded compiled step with ``numerics:grads``
+    poison leaves all of it bit-identical, with nonfinite_steps ==
+    skipped_steps == 1; the eager guard (``pretrain.train_step(...,
+    guard=NumericsGuard())``: ``AdamW.health`` and ``update(health=)``
+    outside a trace) takes a step bit-identical to an unguarded eager step
+    from the same state, launching the health pass once, and a poisoned
+    eager step leaves the state bit-identical; the traced health word's grad norm within 1e-6 of
+    the float64 norm of the same program's grads; NaNs planted in the last
+    grad element (through the compiled gated update) and, on a bucket of
+    odd sizes, in a scalar tail and the last chunk, each counted once and
+    each stopping the gated update; the health pass timed against its bound
+    and the guarded step against the unguarded one, both peak memories.
+    (b) the same on the slab path (the bench's
     ``AdamW(slab_persistent=True)``) at 2 layers. (d) llama3-8b at full
     width, 8 layers, planned rung, bf16: ``kernel:cuda.decode_layer``
     injected on decode step 2 (the traced step's capture: a replay runs no
@@ -503,8 +522,10 @@ ATTN_SHAPE = (8, 32, 2048, 128)
 CE_SHAPE = (16384, 32000)
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 8, 2048, 5
 # the headline train bench (phase 13): llama2-7b-bench at 8 layers, B=8,
-# T=2048, a warm-up step and 3 timed steps; its MLP width
-BENCH_LAYERS, BENCH_STEPS, BENCH_F = 8, 3, 11008
+# T=2048, a warm-up step and 4 timed steps (the compiled arms' first timed
+# step captures the graph: their step time is the mean of the 3 replays); its
+# MLP width
+BENCH_LAYERS, BENCH_STEPS, BENCH_F = 8, 4, 11008
 # phase 12's slabs, card vs CPU: the training test's m 1e-6 and v 1e-9
 #   absolute, and for the bf16 m slab two bf16 rounding steps of the larger
 #   of the two values besides (2**-6 of it). The gradients differ by f32
@@ -526,15 +547,16 @@ RESUME_LAYERS, RESUME_TOKENS, RESUME_DATA_SEED = 2, 1 << 22, 3
 CLIP_NORM_RTOL = 1e-5
 CLIP_RTOL = 2.0 ** -6
 # phase 15: the numerics guard and the kernel quarantine. (a) llama3-8b-bench
-# per-op at 4 layers (phase 7's cell), (b) the slab path at 2 layers: three
-# guarded steps (a warm-up and two timed) against three unguarded ones, bit
-# for bit; the health pass against its plain twin: the non-finite counts
+# per-op at 4 layers (phase 7's cell), (b) the slab path at 2 layers: five
+# guarded compiled steps (a warm-up and four timed: the first captures the
+# graph, the step time is the mean of the 3 replays) against five unguarded
+# ones, bit for bit; the health pass against its plain twin: the non-finite counts
 # exactly, the sum of g*g 1e-6 relative (float32 chunk sums folded in
 # float64, against float32 sums per tensor in another order: 3.4e-8 on the
 # card; one chunk of the ~277 k dropped from the sum moves it ~3.6e-6); the
 # word's grad norm against a float64 norm of the grads, 1e-6 relative (PR
 # 10's clip_grad_norm check stood at 4.1e-8 on such grads)
-GUARD_LAYERS, GUARD_SLAB_LAYERS, GUARD_STEPS = 4, 2, 3
+GUARD_LAYERS, GUARD_SLAB_LAYERS, GUARD_STEPS = 4, 2, 5
 HEALTH_SUMSQ_RTOL = 1e-6
 HEALTH_NORM_RTOL = 1e-6
 HEALTH_LIBRARY_NOTE = "no one PyTorch call counts the non-finite values of the update's outputs"
@@ -597,6 +619,12 @@ JIT_PATHS = ("jit-forward", "jit-loss", "jit-layer")
 JIT_TRAIN_LOSS_RTOL = 1e-2
 JIT_TRAIN_PROFILE = 2
 JIT_TRAIN_PATHS = ("jit-train", "jit-train-remat")
+# phases 12-15 on the compiled step (the bench's three arms, the resume, the
+# guard on jit, and phase 15's eager guarded step beside it): each row's
+# kernel must have launched in its path's run
+BENCH_JIT_PATHS = ("bench-jit-remat", "bench-jit-remat-guarded", "bench-eager-remat",
+                   "bench-jit-planned", "bench-eager-planned", "resume-jit", "guard-jit",
+                   "guard-jit-slab", "guard-eager", "guard-eager-slab")
 
 # phase 20: jit(nn.Module) through the torch-autograd bridge at phase 7's
 # cell (testing.PlainLlama from the same weights and batch, 5 steps of
@@ -2137,7 +2165,8 @@ def train_card_vs_cpu(np, torch, tllama, pretrain, block_fusion: bool = False):
     cfg = tllama.CONFIGS["tiny-gqa"]
     cpu = tllama.init_params(cfg, seed=0, device="cpu")
     card = tree_map(lambda t: t.cuda(), cpu)
-    kw = dict(batch=2, seq=64, steps=3, lr=TRAIN_LR, seed=0, block_fusion=block_fusion)
+    kw = dict(batch=2, seq=64, steps=3, lr=TRAIN_LR, seed=0, block_fusion=block_fusion,
+              eager=True)
     a = pretrain.run("tiny-gqa", device="cuda", params=card, **kw)
     b = pretrain.run("tiny-gqa", device="cpu", params=cpu, **kw)
     if not np.allclose(a["losses"], b["losses"], rtol=TRAIN_LOSS_RTOL, atol=0):
@@ -2163,7 +2192,7 @@ def train_full_width(torch, cudaex, pretrain, block_fusion: bool = False):
     cudaex.reset_launch_counts()
     out = pretrain.run("llama3-8b-bench", layers=TRAIN_LAYERS, batch=TRAIN_BATCH,
                        seq=TRAIN_SEQ, steps=TRAIN_STEPS, lr=1e-4, seed=0, device="cuda",
-                       block_fusion=block_fusion)
+                       block_fusion=block_fusion, eager=True)
     counts = cudaex.launch_counts()
     expect = train_launches(TRAIN_LAYERS, block_fusion)
     for i, st in enumerate(out["per_step"]):
@@ -2202,12 +2231,12 @@ def bench_launches(L: int, remat: bool, block_fusion: bool) -> dict:
 
 
 def bench_card_vs_cpu(np, torch, tllama, bench):
-    """Three float32 tiny-gqa steps of the bench's step (4 layers, B=2,
-    T=64, fused loss, remat, slab state with bf16 m) on the card and on the
-    CPU from the same weights: losses and parameters to phase 6's
-    tolerances, the slabs to the training test's (the bf16 m slab within two
-    bf16 rounding steps besides), every step's launches the reference's
-    claims."""
+    """Three float32 tiny-gqa steps of the bench's compiled step (4 layers,
+    B=2, T=64, fused loss, remat, slab state with bf16 m) on the card (one
+    CUDA graph) and on the CPU from the same weights: losses and parameters
+    to phase 6's tolerances, the slabs to the training test's (the bf16 m
+    slab within two bf16 rounding steps besides), every step's launches the
+    trace's claims."""
     from thunder_tpu_torch.optim import tree_leaves, tree_map
     from thunder_tpu_torch.testing import ulp_distance
 
@@ -2217,8 +2246,13 @@ def bench_card_vs_cpu(np, torch, tllama, bench):
     kw = dict(layers=cfg.n_layers, batch=2, seq=64, steps=3, remat=True, slab_state=True)
     opt = bench.make_opt("bf16", slab_state=True)
     st_card, st_cpu = opt.init(card), opt.init(cpu)
-    a = bench.run("tiny-gqa", device="cuda", params=card, state=st_card, sentinel=False, **kw)
-    b = bench.run("tiny-gqa", device="cpu", params=cpu, state=st_cpu, sentinel=False, **kw)
+    a = bench.run("tiny-gqa", device="cuda", params=card, state=st_card, sentinel=False,
+                  baseline=False, **kw)
+    b = bench.run("tiny-gqa", device="cpu", params=cpu, state=st_cpu, sentinel=False,
+                  baseline=False, **kw)
+    require(a["compiled"] and a["whole_program"] == "graph" and a["whole_program_captures"] == 1,
+            f"bench card run: compiled {a['compiled']}, entry {a['whole_program']}, "
+            f"{a['whole_program_captures']} capture(s)")
     require(bool(np.allclose(a["losses"], b["losses"], rtol=TRAIN_LOSS_RTOL, atol=0)),
             f"bench card losses {a['losses']} != CPU losses {b['losses']}")
     perr = max(float((x.detach().cpu() - y.detach()).abs().max())
@@ -2241,40 +2275,72 @@ def bench_card_vs_cpu(np, torch, tllama, bench):
                 f"tiny-gqa bench step {i} launched {st['launches']}, expected {expect}")
     return {"layers": cfg.n_layers, "losses_card": a["losses"], "losses_cpu": b["losses"],
             "max_param_diff": perr, "max_slab_diff": slab_err, "launches_per_step": expect,
-            "logits_route": a["logits_route"]}
+            "logits_route": a["logits_route"], "whole_program": a["whole_program"]}
 
 
 def bench_full_width(torch, cudaex, bench, remat: bool, block_fusion: bool):
     """llama2-7b-bench at BENCH_LAYERS layers, B=8, T=2048 through the
-    bench entry point with slab state: a warm-up step and BENCH_STEPS timed
-    steps, every one launching the reference's claims, every sdpa_fwd on
-    the wgmma design, the losses finite and falling."""
+    bench entry point with slab state: the compiled step (one CUDA graph),
+    a warm-up step and BENCH_STEPS timed steps, every one launching the
+    trace's claims (``fused_adamw_slab`` through its jit claim once), every
+    sdpa_fwd on the wgmma design, the losses finite and falling and each
+    within JIT_TRAIN_LOSS_RTOL of the eager baseline arm's from the same
+    weights; with ``remat`` also the guarded arm (``NumericsGuardTransform``:
+    the slab health pass once a step, one graph). ``launches`` are the
+    compiled arm's, ``sentinel_launches`` and ``baseline_launches`` the
+    other arms'."""
     cudaex.reset_launch_counts()
     out = bench.run("llama2-7b-bench", layers=BENCH_LAYERS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                     steps=BENCH_STEPS, slab_state=True, remat=remat, block_fusion=block_fusion,
                     device="cuda", sentinel=remat)
-    counts = cudaex.launch_counts()
+    all_arms = cudaex.launch_counts()
     expect = bench_launches(BENCH_LAYERS, remat, block_fusion)
     for i, st in enumerate(out["per_step"]):
         require(st["launches"] == expect, f"bench step {i} launched {st['launches']}, expected "
                                           f"{expect}")
+    require(out["whole_program"] == "graph" and out["whole_program_captures"] == 1,
+            f"bench step entry: {out['whole_program']}, "
+            f"{out['whole_program_captures']} capture(s)")
     losses = out["losses"]
     require(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
             f"bench losses not finite and falling: {losses}")
-    require(all(counts[k] for k in expect), f"a kernel of the bench path never launched: {counts}")
-    designs = cudaex.design_counts()
-    require_attention_wgmma("the bench path", designs, counts)
-    require_residual_vector("the bench path", designs, counts)
-    out.update(launches=counts, launches_per_step=expect, designs=designs)
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, out["baseline_losses"])]
+    require(max(rel) <= JIT_TRAIN_LOSS_RTOL,
+            f"bench losses {losses} against the eager baseline's {out['baseline_losses']}")
+    counts = out["launches"]
+    require(all(counts.get(k) for k in expect),
+            f"a kernel of the bench path never launched: {counts}")
+    if remat:
+        guarded = dict(expect, fused_adamw_slab_health=1)
+        for i, st in enumerate(out["sentinel_per_step"]):
+            require(st["launches"] == guarded, f"guarded bench step {i} launched "
+                                               f"{st['launches']}, expected {guarded}")
+        require(out["sentinel_whole_program"] == "graph"
+                and out["sentinel_whole_program_captures"] == 1,
+                f"guarded bench step entry: {out['sentinel_whole_program']}, "
+                f"{out['sentinel_whole_program_captures']} capture(s)")
+        rel_g = [abs(a - b) / abs(b) for a, b in zip(out["sentinel_losses"], losses)]
+        require(max(rel_g) <= JIT_TRAIN_LOSS_RTOL and out["sentinel_counts"]["skipped_steps"] == 0,
+                f"guarded bench losses {out['sentinel_losses']} against {losses}")
+    designs = cudaex.design_counts()   # over the three arms
+    require_attention_wgmma("the bench path", designs, all_arms)
+    require_residual_vector("the bench path", designs, all_arms)
+    out.update(launches_per_step=expect, designs=designs, baseline_loss_rel_diff_max=max(rel))
     gc.collect()
     torch.cuda.empty_cache()
     return out
 
 
 def log_train(what: str, t: dict) -> None:
+    extra = ""
+    if t.get("compiled"):
+        extra = f"compiled ({t['whole_program']}, {t['compile_s']:.2f} s), "
+    if "baseline_step_ms" in t:
+        extra += (f"eager baseline {t['baseline_step_ms']:.1f} ms (vs_baseline "
+                  f"{t['vs_baseline']:.4f}, peak {t['baseline_peak_memory_gb']:.2f} GB), ")
     log(f"{what}: step {t['step_ms']:.1f} ms, {t['tokens_per_s']:.0f} tokens/s, "
         f"{100 * t['share_of_989_tflops']:.1f}% of 989 TFLOP/s, peak "
-        f"{t['peak_memory_gb']:.2f} GB, AdamW {t['optimizer_ms']:.3f} ms, losses "
+        f"{t['peak_memory_gb']:.2f} GB, {extra}losses "
         f"{[round(x, 4) for x in t['losses']]}, launches per step "
         f"{json.dumps(t['launches_per_step'])}, launches by design over the run "
         f"{json.dumps(t['designs'])} ({t['card']})")
@@ -2285,8 +2351,9 @@ def log_train(what: str, t: dict) -> None:
 # ---------------------------------------------------------------------------
 
 def train_resume(np, torch, cudaex, pretrain, tllama) -> dict:
-    """llama3-8b-bench at RESUME_LAYERS layers through ``pretrain.run`` from
-    a token file the phase writes: (a) 4 steps straight through; (b) 2
+    """llama3-8b-bench at RESUME_LAYERS layers through ``pretrain.run`` (the
+    compiled step, one CUDA graph a run) from a token file the phase
+    writes: (a) 4 steps straight through; (b) 2
     steps, an asynchronous checkpoint of the parameters and AdamW state, a
     drop of every tensor, a load, and 2 more steps from ``start_step=2``.
     (b)'s losses, parameters and moments must equal (a)'s bit for bit; the
@@ -2330,6 +2397,9 @@ def train_resume(np, torch, cudaex, pretrain, tllama) -> dict:
 
         def checked(run, what):
             require(run["stream_path"] == "native", f"{what}: the stream took {run['stream_path']}")
+            require(run["whole_program"] == "graph" and run["whole_program_captures"] == 1,
+                    f"{what}: entry {run['whole_program']}, "
+                    f"{run['whole_program_captures']} capture(s)")
             expect = train_launches(RESUME_LAYERS, False)
             for i, st in enumerate(run["per_step"]):
                 require(st["launches"] == expect, f"{what} step {i} launched {st['launches']}")
@@ -2437,19 +2507,22 @@ def same_tensors(torch, a, b) -> bool:
     return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
 
 
-def planted_health(torch, opt, params, grads, state, loss, where, what):
-    """Plant a NaN in ``grads`` at ``where`` (a tensor and a flat index),
-    build the health word and take the gated update: the word must count
+def planted_health(torch, gated, params, grads, state, loss, where, what):
+    """Plant a NaN in ``grads`` at ``where`` (a tensor and a flat index) and
+    run ``gated`` (the compiled health pass and gated update,
+    ``gated_update_step``) on the donated state: the word must count
     exactly one non-finite grad, and params, moments and step must not
     move. The grad is restored."""
+    from thunder_tpu_torch.benchmarks.pretrain import _assign
     from thunder_tpu_torch.optim import tree_leaves
 
     t, i = where
     before = [x.clone() for x in tree_leaves(params) + tree_leaves(state)]
     keep = t.view(-1)[i].clone()
     t.view(-1)[i] = float("nan")
-    word = opt.health(params, grads, state, loss)
-    opt.update(params, grads, state, health=word)
+    new_p, new_s, word = gated(params, state, grads, loss)
+    _assign(params, new_p)
+    _assign(state, new_s)
     torch.cuda.synchronize()
     t.view(-1)[i] = keep
     h = word.tolist()
@@ -2457,6 +2530,66 @@ def planted_health(torch, opt, params, grads, state, loss, where, what):
     require(same_tensors(torch, before, tree_leaves(params) + tree_leaves(state)),
             f"{what}: the gated update moved the state")
     return h
+
+
+def gated_update_step(ptt, opt):
+    """``AdamW.health`` then ``AdamW.update(health=)`` compiled, the params
+    and state donated: each bucket's health pass and gated update through
+    their jit claims. Returns ``(params, state, word)``."""
+    def gated(params, state, grads, loss):
+        word = opt.health(params, grads, state, loss)
+        return (*opt.update(params, grads, state, health=word), word)
+
+    return ptt.jit(gated, donate_argnums=(0, 1))
+
+
+def grads_and_word_step(ptt, opt, cfg, loss_fn):
+    """The compiled loss, its gradients and the health word of the update
+    they would take, from one program (the guard's health composites)."""
+    def fn(params, state, tokens, targets):
+        value, grads = ptt.value_and_grad(lambda p: loss_fn(p, tokens, targets, cfg))(params)
+        return grads, opt.health(params, grads, state, value)
+
+    return ptt.jit(fn)
+
+
+def eager_guard_steps(torch, cudaex, pretrain, NumericsGuard, opt, cfg, plain, guarded,
+                      tokens, targets, expect, update, state_of) -> dict:
+    """The eager guard on two bit-identical copies of the state: an
+    unguarded eager step (``pretrain.train_step``) on ``plain``, a guarded
+    one (``train_step(guard=NumericsGuard())``: ``AdamW.health``, then the
+    gated ``AdamW.update(health=)``) on ``guarded``. The guarded step must
+    launch ``expect`` (the eager per-op step's kernels) with ``update`` and
+    its health pass once each, and leave the two copies bit-identical; a
+    second guarded step with ``numerics:grads`` poison must be skipped and
+    leave them so. Returns the launches and the sentinel's counts."""
+    from thunder_tpu_torch.runtime import FaultPlan, FaultSpec, faults
+
+    (pa, sa), (pb, sb) = plain, guarded
+    guard = NumericsGuard()
+    pretrain.train_step(pa, opt, sa, tokens, targets, cfg)
+    cudaex.reset_launch_counts()
+    loss = float(pretrain.train_step(pb, opt, sb, tokens, targets, cfg, guard=guard))
+    launches = {k: n for k, n in cudaex.launch_counts().items() if n}
+    expect = dict(expect)
+    expect[update] = expect.pop("fused_adamw")
+    expect[f"{update}_health"] = 1
+    require(launches == expect, f"eager guarded step launched {launches}, expected {expect}")
+    require(same_tensors(torch, state_of(pa, sa), state_of(pb, sb)),
+            "the eager guarded step is not bit-identical to the unguarded eager step")
+    with faults.active(FaultPlan([FaultSpec("numerics:grads",
+                                            at_steps={guard.sentinel.steps + 1})])):
+        poisoned = float(pretrain.train_step(pb, opt, sb, tokens, targets, cfg, guard=guard))
+    sent = guard.sentinel
+    require(sent.steps == 2 and sent.nonfinite_steps == sent.skipped_steps == 1,
+            f"eager poisoned step: steps {sent.steps}, nonfinite {sent.nonfinite_steps}, "
+            f"skipped {sent.skipped_steps}")
+    require(same_tensors(torch, state_of(pa, sa), state_of(pb, sb)),
+            "the eager poisoned step moved the state")
+    return {"loss": loss, "poisoned_step_loss": poisoned, "launches": launches,
+            "launches_per_step": expect, "poisoned_health_word": list(guard.last_health),
+            "sentinel": {"steps": sent.steps, "nonfinite": sent.nonfinite_steps,
+                         "skipped": sent.skipped_steps}}
 
 
 def planted_tails(torch, cudaex, toptim_ops, slab: bool) -> dict:
@@ -2503,19 +2636,29 @@ def planted_tails(torch, cudaex, toptim_ops, slab: bool) -> dict:
 def guarded_train(np, torch, cudaex, pretrain, bench, tllama, toptim_ops, slab: bool) -> dict:
     """(a) llama3-8b-bench at GUARD_LAYERS layers, per-op rung, AdamW(lr=1e-4)
     with f32 moments, or (b), with ``slab``, at GUARD_SLAB_LAYERS layers
-    with the bench's slab-persistent AdamW (bf16 m, f32 v): GUARD_STEPS
-    guarded steps bit-identical to as many unguarded ones from the same
-    weights (params, moments, step), every guarded step launching the
-    rung's kernels and the health pass once; a fourth, ``numerics:grads``-
-    poisoned step leaves the state bit-identical with nonfinite_steps ==
-    skipped_steps == 1; the health word's grad norm against a float64
-    norm; NaNs planted in the last grad element (the last chunk) and, on
-    an odd bucket, in a scalar tail, each caught and each stopping the
-    update; the health pass timed beside its bound, the guarded step
-    beside the unguarded one."""
+    with the bench's slab-persistent AdamW (bf16 m, f32 v), through the
+    compiled step (``pretrain.run``, one CUDA graph): GUARD_STEPS steps
+    compiled with ``NumericsGuardTransform`` bit-identical to as many
+    unguarded compiled steps from the same weights (params, moments, step),
+    every guarded step launching the trace's claims, the health pass and
+    the gated update once each; a ``numerics:grads``-poisoned step through
+    the guarded compiled step leaves the state bit-identical with
+    nonfinite_steps == skipped_steps == 1; the eager guard
+    (``train_step(guard=NumericsGuard())``) on that state: a step
+    bit-identical to an unguarded eager step from the same state, its
+    health pass launched once, then a poisoned eager step that leaves the
+    state as it was; the health word's grad norm
+    (the traced health pass of one program that returns the grads too)
+    against a float64 norm of those grads; NaNs planted in the last grad
+    element (through the compiled gated update) and, on an odd bucket, in a
+    scalar tail and the last chunk, each caught and each stopping the
+    update; the health pass timed beside its bound, the guarded step beside
+    the unguarded one, both peak memories."""
+    import thunder_tpu_torch as ptt
+    from thunder_tpu_torch.benchmarks.pretrain import _assign
     from thunder_tpu_torch.optim import AdamW, tree_leaves, tree_map
     from thunder_tpu_torch.runtime import FaultPlan, FaultSpec, faults
-    from thunder_tpu_torch.transforms import NumericsGuard
+    from thunder_tpu_torch.transforms import NumericsGuard, NumericsGuardTransform
 
     cfg = tllama.CONFIGS["llama3-8b-bench"]
     layers = GUARD_SLAB_LAYERS if slab else GUARD_LAYERS
@@ -2524,21 +2667,27 @@ def guarded_train(np, torch, cudaex, pretrain, bench, tllama, toptim_ops, slab: 
     pb = tree_map(lambda t: t.clone(), pa)
     sa, sb = opt.init(pa), opt.init(pb)
     kw = dict(layers=layers, batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=GUARD_STEPS - 1,
-              lr=opt.lr, seed=0, device="cuda", opt=opt)
+              lr=opt.lr, seed=0, device="cuda", opt=opt, block_fusion=False)
     plain = pretrain.run("llama3-8b-bench", params=pa, state=sa, **kw)
-    guard = NumericsGuard()
+    guard = NumericsGuardTransform()
     cudaex.reset_launch_counts()
     guarded = pretrain.run("llama3-8b-bench", params=pb, state=sb, guard=guard, **kw)
-    counts = cudaex.launch_counts()
-    expect = train_launches(layers, False)
+    counts = {k: n for k, n in cudaex.launch_counts().items() if n}
+    expect = jit_train_launches(layers, False)
+    update = "fused_adamw_slab" if slab else "fused_adamw"
     if slab:
-        expect["fused_adamw_slab"] = expect.pop("fused_adamw")
-    expect["fused_adamw_slab_health" if slab else "fused_adamw_health"] = 1
+        expect[update] = expect.pop("fused_adamw")
+    expect[f"{update}_health"] = 1
     for i, st in enumerate(guarded["per_step"]):
         require(st["launches"] == expect, f"guarded step {i} launched {st['launches']}, "
                                           f"expected {expect}")
+    for run in (plain, guarded):
+        require(run["whole_program"] == "graph" and run["whole_program_captures"] == 1,
+                f"guarded train entry: {run['whole_program']}, "
+                f"{run['whole_program_captures']} capture(s)")
     require(guarded["losses"] == plain["losses"],
             f"guarded losses {guarded['losses']} != unguarded {plain['losses']}")
+    require(guard.gated_buckets == 1, f"{guard.gated_buckets} gated buckets")
 
     def state_of(p, st):
         return tree_leaves(p) + tree_leaves(st)
@@ -2549,25 +2698,38 @@ def guarded_train(np, torch, cudaex, pretrain, bench, tllama, toptim_ops, slab: 
 
     tok, tgt = (torch.from_numpy(a).cuda() for a in
                 pretrain.synthetic_batch(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, 0))
+    step = pretrain.jit_train_step(cfg, opt, transforms=[guard], block_fusion=False)
     with faults.active(FaultPlan([FaultSpec("numerics:grads",
                                             at_steps={guard.sentinel.steps + 1})])):
-        poisoned = float(pretrain.train_step(pb, opt, sb, tok, tgt, cfg, guard=guard))
+        poisoned, new_p, new_s = step(pb, sb, tok, tgt)
+    poisoned = float(poisoned)
+    _assign(pb, new_p)
+    _assign(sb, new_s)
     sent = guard.sentinel
     require(sent.nonfinite_steps == sent.skipped_steps == 1,
             f"poisoned step: nonfinite {sent.nonfinite_steps}, skipped {sent.skipped_steps}")
     require(same_tensors(torch, state_of(pa, sa), state_of(pb, sb)),
             "the poisoned step moved the state")
-    poisoned_word = list(guard.last_health)
+    v = sent.last_verdict
+    poisoned_word = [v.nonfinite_grads, v.nonfinite_loss, v.nonfinite_state, v.grad_norm, v.loss]
+    del step, new_p, new_s
+    gc.collect()
+    torch.cuda.empty_cache()
+    eager = eager_guard_steps(torch, cudaex, pretrain, NumericsGuard, opt, cfg, (pa, sa),
+                              (pb, sb), tok, tgt, train_launches(layers, False), update,
+                              state_of)
 
-    loss, grads = pretrain.loss_and_grads(pb, tok, tgt, cfg)
-    word = opt.health(pb, grads, sb, loss).tolist()
+    grads, word = grads_and_word_step(ptt, opt, cfg, tllama.loss_fn)(pb, sb, tok, tgt)
+    word = word.tolist()
     norm64 = math.sqrt(sum(float(g.double().square().sum()) for g in tree_leaves(grads)))
     norm_rel = abs(word[3] - norm64) / norm64
     require(word[:3] == [0.0, 0.0, 0.0] and norm_rel <= HEALTH_NORM_RTOL,
             f"health word {word} against the float64 grad norm {norm64}")
     last = tree_leaves(grads)[-1]
+    loss = torch.tensor(word[4], device="cuda")
+    gated = gated_update_step(ptt, opt)
     planted = {"last grad element": planted_health(
-        torch, opt, pb, grads, sb, loss, (last, last.numel() - 1),
+        torch, gated, pb, grads, sb, loss, (last, last.numel() - 1),
         "planted NaN, last grad element")}
     planted.update(planted_tails(torch, cudaex, toptim_ops, slab))
 
@@ -2586,13 +2748,16 @@ def guarded_train(np, torch, cudaex, pretrain, bench, tllama, toptim_ops, slab: 
            "sentinel": {"steps": sent.steps, "nonfinite": sent.nonfinite_steps,
                         "skipped": sent.skipped_steps},
            "health_word": word, "grad_norm_float64": norm64, "grad_norm_rel_err": norm_rel,
-           "planted": planted, "health_pass_ms": health_ms, "health_bound_ms": health_bound,
+           "planted": planted, "eager_guard": eager,
+           "health_pass_ms": health_ms, "health_bound_ms": health_bound,
            "step_ms_unguarded": plain["step_ms"], "step_ms_guarded": guarded["step_ms"],
            "guard_overhead_pct": (guarded["step_ms"] - plain["step_ms"]) / plain["step_ms"] * 100,
-           "optimizer_ms_unguarded": plain["optimizer_ms"],
-           "optimizer_ms_guarded": guarded["optimizer_ms"],
+           "peak_memory_gb_unguarded": plain["peak_memory_gb"],
+           "peak_memory_gb_guarded": guarded["peak_memory_gb"],
+           "whole_program_copied_bytes_guarded": guarded["whole_program_copied_bytes"],
+           "compile_s": [plain["compile_s"], guarded["compile_s"]],
            "launches": counts, "launches_per_step": expect, "card": guarded["card"]}
-    del pa, pb, sa, sb, grads, args
+    del pa, pb, sa, sb, grads, args, gated
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -4251,7 +4416,7 @@ def jit_train_eager_profile(torch, pretrain, block_fusion: bool = False) -> dict
     same run."""
     r = pretrain.run("llama3-8b-bench", layers=TRAIN_LAYERS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                      steps=1, lr=1e-4, seed=0, device="cuda", profile=JIT_TRAIN_PROFILE,
-                     block_fusion=block_fusion)
+                     block_fusion=block_fusion, eager=True)
     gc.collect()
     torch.cuda.empty_cache()
     return {k: r[k] for k in ("profile_step_ms", "device_busy_ms_per_step", "device_idle_share",
@@ -4818,9 +4983,13 @@ def main() -> int:
     log_train("bench full width (slab state, planned)", bb)
     for run in (ba, bb):
         require_wgmma("phase 13", run["designs"])
+    log(f"bench sentinel peak memory (remat, slab state): {ba['sentinel_peak_memory_gb']:.2f} "
+        f"GB guarded against {ba['peak_memory_gb']:.2f} GB ({card})")
     log("bench, remat vs planned: " + json.dumps({
         k: [ba[k], bb[k]] for k in ("step_ms", "tokens_per_s", "share_of_989_tflops",
-                                    "peak_memory_gb", "optimizer_ms", "logits_route")}))
+                                    "peak_memory_gb", "baseline_step_ms", "vs_baseline",
+                                    "baseline_peak_memory_gb", "compile_s", "logits_route")})
+        + f" ({card})")
 
     rs = train_resume(np, torch, cudaex, pretrain, tllama)
     log(f"train from a token file, checkpoint and resume: {json.dumps(rs)}")
@@ -4836,9 +5005,10 @@ def main() -> int:
     log(f"quarantine card vs CPU (e, tiny-gqa, float32): {json.dumps(qc)} ({card})")
     for what, g in (("(a) per-op", ga), ("(b) slab", gb)):
         log(f"phase 15 {what}: health pass {g['health_pass_ms']:.4f} ms against its "
-            f"{g['health_bound_ms']:.4f} ms bound; guarded step {g['step_ms_guarded']:.2f} ms "
-            f"against {g['step_ms_unguarded']:.2f} ms unguarded "
-            f"({g['guard_overhead_pct']:+.3f}%) ({card})")
+            f"{g['health_bound_ms']:.4f} ms bound; guarded compiled step "
+            f"{g['step_ms_guarded']:.2f} ms against {g['step_ms_unguarded']:.2f} ms unguarded "
+            f"({g['guard_overhead_pct']:+.3f}%), peak {g['peak_memory_gb_guarded']:.2f} GB "
+            f"against {g['peak_memory_gb_unguarded']:.2f} GB ({card})")
 
     # phase 16: the serving fleet
     log("generate's prefill kernels vs plain versions (bf16, full width):")
@@ -5034,20 +5204,38 @@ def main() -> int:
                   for name in ba["launches_per_step"]}
     bench_planned = {name: slab_rows.get(name) or train_rows.get(name)
                      or bench_planned_rows[name] for name in bb["launches_per_step"]}
+    bench_guarded = dict(bench_rows, fused_adamw_slab_health=slab_rows["fused_adamw_slab_health"])
+    # the bench's other arms, as runs of their own: their launches
+    bench_arms = {"guarded": {"launches": ba["sentinel_launches"]},
+                  "eager-remat": {"launches": ba["baseline_launches"]},
+                  "eager-planned": {"launches": bb["baseline_launches"]}}
     for path, path_rows, run in (("serve", rows, fw), ("train", train_rows, tw),
                                  ("train-planned", planned, tp),
-                                 ("train-bench", bench_rows, ba),
-                                 ("train-bench-planned", bench_planned, bb),
+                                 ("bench-jit-remat", bench_rows, ba),
+                                 ("bench-jit-remat-guarded", bench_guarded,
+                                  bench_arms["guarded"]),
+                                 ("bench-eager-remat", bench_rows, bench_arms["eager-remat"]),
+                                 ("bench-jit-planned", bench_planned, bb),
+                                 ("bench-eager-planned", bench_planned,
+                                  bench_arms["eager-planned"]),
                                  ("serve-planned", serve_planned, fp),
                                  ("serve-subblock", {"attn_subblock": sp_rows["attn_subblock"]},
                                   sb),
-                                 ("train-resume", {name: train_rows[name]
-                                                   for name in rs["launches_per_step"]}, rs),
-                                 ("train-guarded", {name: train_rows[name]
-                                                    for name in ga["launches_per_step"]}, ga),
-                                 ("train-guarded-slab", {
+                                 ("resume-jit", {name: train_rows[name]
+                                                 for name in rs["launches_per_step"]}, rs),
+                                 ("guard-jit", {name: train_rows[name]
+                                                for name in ga["launches_per_step"]}, ga),
+                                 ("guard-jit-slab", {
                                      name: slab_rows.get(name) or train_rows[name]
                                      for name in gb["launches_per_step"]}, gb),
+                                 ("guard-eager", {
+                                     name: train_rows[name]
+                                     for name in ga["eager_guard"]["launches_per_step"]},
+                                  ga["eager_guard"]),
+                                 ("guard-eager-slab", {
+                                     name: slab_rows.get(name) or train_rows[name]
+                                     for name in gb["eager_guard"]["launches_per_step"]},
+                                  gb["eager_guard"]),
                                  ("serve-quarantine", {
                                      name: sp_rows.get(name) or rows[name]
                                      for name, n in sq["launches"].items() if n}, sq),
@@ -5082,7 +5270,7 @@ def main() -> int:
                                    for p, (n, _) in zip(SERVE_JIT_PATHS, SERVE_JIT_RUNGS))):
         for name, rs in path_rows.items():
             if path in (*FLEET_PATHS, *ZOO_PATHS, *JIT_PATHS, *JIT_TRAIN_PATHS, *MODULE_PATHS,
-                        *PLANNED_PATHS, *DEFAULT_PATHS, *SERVE_JIT_PATHS):
+                        *PLANNED_PATHS, *DEFAULT_PATHS, *SERVE_JIT_PATHS, *BENCH_JIT_PATHS):
                 require(run["launches"].get(name, 0) > 0,
                         f"{path}: {name} never launched on the main path")
             r = dict(rs[0], path=path, launches=run["launches"][name])

@@ -432,12 +432,16 @@ def test_port_routes_the_reference_claims(bench_runs, monkeypatch, remat, block_
 
 
 def test_bench_entry_runs_on_the_cpu():
+    """The bench's compiled step (``jit(train_step, donate_argnums=(0, 1))``)
+    and its two other arms: the guarded step and the eager baseline."""
     out = bench.run("tiny-gqa", layers=2, batch=2, seq=32, steps=3, remat=True,
                     slab_state=True, device="cpu")
     assert out["remat"] and out["slab_persistent"] and out["loss"] == "fused"
     assert out["opt_state"] == ["bfloat16", "float32"] and out["logits_route"] == "f32"
     assert out["losses"][-1] < out["losses"][0]
     assert all(s["launches"] == {} for s in out["per_step"])
+    assert out["compiled"] and out["whole_program"] == "per-call (inputs off the card)"
+    assert out["sentinel_losses"] == out["losses"] and out["vs_baseline"] > 0
 
 
 def test_bench_config_matches_reference():

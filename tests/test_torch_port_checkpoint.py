@@ -386,6 +386,7 @@ def test_pretrain_from_a_token_file_matches_reference(reference_run, token_file,
     opt = AdamW(lr=LR)
     out = _run(params, opt, opt.init(params), token_file, steps=3, audit=True)
     assert out["stream_path"] == "native" and out["data"] == token_file
+    assert out["compiled"]   # jit(train_step, donate_argnums=(0, 1)), as the reference
     assert [s["batch"] for s in out["per_step"]] == [1, 2, 3]
     np.testing.assert_allclose(out["losses"], reference_run["losses"], rtol=1e-5)
     for a, b in zip(jax.tree_util.tree_leaves(reference_run["params"]), tree_leaves(params)):

@@ -2092,3 +2092,120 @@ def test_cuda_decode_claims_match_routers(cuda_device, kernel, dtype):
     assert launches == {kernel: 1}
     for a, b in zip(out, want):
         assert torch.equal(a, b)
+
+
+def _adamw_bucket(dev, slab: bool, seed: int = 21):
+    """A bf16 bucket of odd sizes (7, 13, 4099), f32 moments, per-step or
+    in slabs, with grads: ``(opt, params, grads, state)``."""
+    from thunder_tpu_torch.optim import AdamW
+
+    gen = torch.Generator().manual_seed(seed)
+    params = {"a": torch.randn(7, generator=gen).bfloat16(),
+              "b": [torch.randn(13, generator=gen).bfloat16(),
+                    torch.randn(4099, generator=gen).bfloat16()]}
+    params = {"a": params["a"].to(dev), "b": [t.to(dev) for t in params["b"]]}
+    grads = {"a": torch.randn(7, generator=gen).bfloat16().to(dev),
+             "b": [torch.randn(13, generator=gen).bfloat16().to(dev),
+                   torch.randn(4099, generator=gen).bfloat16().to(dev)]}
+    opt = AdamW(lr=1e-2, slab_persistent=slab)
+    state = opt.init(params)
+    # a first eager step, so that the moments are not zero
+    opt.update(params, grads, state)
+    return opt, params, grads, state
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slab", [False, True], ids=["per-step", "slab"])
+@pytest.mark.parametrize("plant", [None, "nan"], ids=["healthy", "nan-grad"])
+def test_cuda_jit_slab_health_and_gated_claims_match_eager(cuda_device, slab, plant):
+    """The slab update, the health pass and the gated update through their
+    ``jit`` claims (``AdamW.health`` and ``AdamW.update(health=)`` traced,
+    the params and state donated) against the eager kernels on copies of
+    the same values, bit for bit: the health word, the params, the moments
+    (or slabs) and the counter; one launch of each kernel. A NaN planted in
+    a grad leaves both unchanged. Then the ungated traced slab update
+    against the eager one."""
+    import thunder_tpu_torch as ptt
+    from thunder_tpu_torch.optim import tree_leaves, tree_map
+
+    opt, params, grads, state = _adamw_bucket(cuda_device, slab)
+    if plant:
+        grads["b"][1][17] = float("nan")
+    loss = torch.tensor(2.5, device=cuda_device)
+    ep, es = tree_map(torch.clone, (params, state))
+    eword = opt.health(ep, grads, es, loss)
+    opt.update(ep, grads, es, health=eword)
+
+    def step(p, s, g, value):
+        word = opt.health(p, g, s, value)
+        return (*opt.update(p, g, s, health=word), word)
+
+    jf = ptt.jit(step, donate_argnums=(0, 1))
+    (p, s, word), launches = _jit_launches(jf, params, state, grads, loss)
+    update = "fused_adamw_slab" if slab else "fused_adamw"
+    assert launches == {update: 1, f"{update}_health": 1}
+    assert torch.allclose(word, eword, rtol=0, atol=0, equal_nan=True)   # a NaN norm planted
+    assert _equal_trees((p, s), (ep, es))
+    if not slab:
+        return
+    opt2, p2, g2, s2 = _adamw_bucket(cuda_device, True, seed=22)
+    ep2, es2 = tree_map(torch.clone, (p2, s2))
+    opt2.update(ep2, g2, es2)
+    (got_p, got_s), launches = _jit_launches(
+        ptt.jit(lambda p, s, g: opt2.update(p, g, s), donate_argnums=(0, 1)), p2, s2, g2)
+    assert launches == {"fused_adamw_slab": 1}
+    assert _equal_trees((got_p, got_s), (ep2, es2))
+    assert all(a is b for a, b in zip(tree_leaves((got_p, got_s["m"], got_s["v"])),
+                                      tree_leaves((p2, s2["m"], s2["v"]))))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slab", [False, True], ids=["per-step", "slab"])
+def test_cuda_guarded_compiled_step_runs_as_a_graph(cuda_device, slab):
+    """The tiny-gqa float32 step compiled with ``NumericsGuardTransform``
+    (4 steps, the third ``numerics:grads``-poisoned): the entry replays one
+    CUDA graph captured once, copying 8 bytes of poison (and the 4-byte
+    counter) a replay; every step launches the trace's claims, the health pass and the
+    gated update once each; the losses equal the unguarded compiled step's
+    bit for bit, the poisoned step leaves the state bit-identical."""
+    import thunder_tpu_torch as ptt
+    from thunder_tpu_torch.benchmarks import pretrain
+    from thunder_tpu_torch.models import llama as tllama
+    from thunder_tpu_torch.optim import AdamW, tree_leaves, tree_map
+    from thunder_tpu_torch.runtime import faults
+    from thunder_tpu_torch.transforms import NumericsGuardTransform
+
+    cfg = tllama.CONFIGS["tiny-gqa"]
+    opt = AdamW(lr=1e-3, slab_persistent=slab)
+    tok, tgt = (torch.from_numpy(a).cuda()
+                for a in pretrain.synthetic_batch(cfg.vocab_size, 2, 64, 0))
+    guard = NumericsGuardTransform()
+    runs = {}
+    for name, transforms in (("guarded", [guard]), ("plain", [])):
+        p = tree_map(torch.Tensor.cuda, tllama.init_params(cfg, seed=0, device="cpu"))
+        s = opt.init(p)
+        step = pretrain.jit_train_step(cfg, opt, transforms=transforms, block_fusion=False)
+        losses, same = [], None
+        for i in range(4):
+            poison = name == "guarded" and i == 2
+            before = [t.clone() for t in tree_leaves((p, s))] if poison else None
+            plan = faults.FaultPlan([faults.FaultSpec("numerics:grads", at_steps={3})])
+            with faults.active(plan if poison else None):
+                (loss, p, s), launches = _jit_launches(step, p, s, tok, tgt)
+            if poison:
+                same = all(torch.equal(a, b) for a, b in zip(before, tree_leaves((p, s))))
+            else:
+                losses.append(loss.clone())
+        runs[name] = (losses, launches, ptt.compile_stats(step), same)
+    losses, launches, stats, same = runs["guarded"]
+    update = "fused_adamw_slab" if slab else "fused_adamw"
+    assert launches[update] == launches[f"{update}_health"] == 1
+    assert stats.last_whole_program == "graph" and same
+    assert guard.sentinel.skipped_steps == 1
+    # one entry (a plan of numerics:grads is no part of the key) and one
+    # capture (the slabs' layout version comes back as the input it is):
+    # each replay copies in the two poison scalars and the step counter
+    assert stats.cache_misses == 1 and stats.whole_program_captures == 1
+    assert stats.whole_program_copied_bytes == stats.whole_program_replays * 12
+    plain = runs["plain"][0]
+    assert all(torch.equal(a, b) for a, b in zip(losses[:2], plain[:2]))

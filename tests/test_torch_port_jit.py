@@ -357,8 +357,15 @@ def test_compile_fault_site_and_observe_counters():
 
 
 def test_transforms_and_modules_are_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
-        ptt.jit(f_scaled, transforms=[object()])
+    """``jit(transforms=)`` is ported (ROADMAP A.7.6): a transform with the
+    base class's hooks leaves the program as it was. ``jit(module,
+    seq_buckets=)`` is not (A.7.7)."""
+    from thunder_tpu_torch.core.transform_common import Transform
+
+    x = np.random.RandomState(0).randn(3, 4).astype(np.float32)
+    plain = ptt.jit(f_scaled, device="cpu")
+    hooked = ptt.jit(f_scaled, device="cpu", transforms=[Transform()])
+    assert torch.equal(hooked(x, 2.0), plain(x, 2.0))
     with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
         ptt.jit(torch.nn.Linear(2, 2), seq_buckets=(8,))
 

@@ -268,21 +268,38 @@ def test_donation_leaves_a_viewed_input_unwritten(view, use):
 
 
 def test_health_and_slab_updates_are_refused_under_jit():
+    """Both are ported (ROADMAP A.7.5, A.7.6): under ``jit``,
+    ``update(health=)`` takes each bucket's gated update (a healthy word
+    the eager update's step, an unhealthy one no step at all, the counter
+    included), and a slab-persistent ``AdamW`` one ``optim.fused_adamw_slab``
+    a bucket, the eager slab step's values."""
     cfg = tllama.CONFIGS["tiny-gqa"]
-    params = tllama.init_params(cfg, seed=0, device="cpu", n_layers=1)
     tok, tgt = (torch.from_numpy(a) for a in pretrain.synthetic_batch(cfg.vocab_size, 1, 8, 0))
     opt = AdamW()
-    word = torch.zeros(5)
 
     def guarded(p, s, a, b, w):
         loss, grads = ptt.value_and_grad(lambda q: tllama.loss_fn(q, a, b, cfg))(p)
         return opt.update(p, grads, s, health=w)
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A.7.6"):
-        ptt.jit(guarded, device="cpu")(params, opt.init(params), tok, tgt, word)
+    for word, moves in ((torch.zeros(5), True), (torch.tensor([1.0, 0, 0, 0, 0]), False)):
+        params = tllama.init_params(cfg, seed=0, device="cpu", n_layers=1)
+        state = opt.init(params)
+        p, s = ptt.jit(guarded, device="cpu")(params, state, tok, tgt, word)
+        eager_p = tllama.init_params(cfg, seed=0, device="cpu", n_layers=1)
+        eager_s = opt.init(eager_p)
+        if moves:
+            pretrain.train_step(eager_p, opt, eager_s, tok, tgt, cfg)
+        for a, b in zip(tree_leaves((p, s)), tree_leaves((eager_p, eager_s))):
+            assert torch.allclose(a, b, rtol=0, atol=1e-6) if moves else torch.equal(a, b)
     slab = AdamW(slab_persistent=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.7.5"):
-        pretrain.jit_train_step(cfg, slab)(params, slab.init(params), tok, tgt)
+    params = tllama.init_params(cfg, seed=0, device="cpu", n_layers=1)
+    eager_p = tllama.init_params(cfg, seed=0, device="cpu", n_layers=1)
+    eager_s = slab.init(eager_p)
+    _, p, s = pretrain.jit_train_step(cfg, slab, device="cpu")(params, slab.init(params),
+                                                                 tok, tgt)
+    pretrain.train_step(eager_p, slab, eager_s, tok, tgt, cfg)
+    for a, b in zip(tree_leaves((p, s)), tree_leaves((eager_p, eager_s))):
+        assert torch.allclose(a, b, rtol=0, atol=1e-6)
 
 
 def test_a_failure_after_donation_says_the_state_is_undefined(runs):

@@ -170,6 +170,31 @@ def test_claimed_kernel_ids_are_the_routed_claims():
         ["cuda.a", "cuda.b"]
 
 
+def test_claimed_kernel_ids_read_an_execution_trace(monkeypatch):
+    """A compiled step's candidates are its execution trace's ``cuda``
+    claims (the reference: its trace's Pallas claims), here the tiny-gqa
+    step's under ``interpret`` on the CPU, against the reference's."""
+    import thunder_tpu_torch as ptt
+
+    monkeypatch.setenv("THUNDER_TPU_PALLAS_INTERPRET", "1")
+    jcfg, tcfg = jllama.CONFIGS["tiny-gqa"], tllama.CONFIGS["tiny-gqa"]
+    jparams = jllama.init_params(jcfg, seed=0, scale_layers=1)
+    jopt = joptim.AdamW(lr=LR)
+    tok, tgt = pretrain.synthetic_batch(jcfg.vocab_size, 2, 16, seed=0)
+    jstep = tt.jit(_reference_step(jcfg, jopt), block_fusion=False)
+    jstep(jparams, jopt.init(jparams), tok.astype(np.int32), tgt.astype(np.int32))
+    tparams = tllama.params_from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
+    topt = AdamW(lr=LR)
+    tstep = pretrain.jit_train_step(tcfg, topt, device="cpu", block_fusion=False,
+                                    interpret=True)
+    tstep(tparams, topt.init(tparams), torch.from_numpy(tok), torch.from_numpy(tgt))
+    want = jsentinel.claimed_kernel_ids(tt.last_execution_trace(jstep))
+    got = sentinel.claimed_kernel_ids(ptt.last_execution_trace(tstep))
+    assert got == [c.replace("pallas.", "cuda.") for c in want]
+    assert got == ["cuda.ce_fwd", "cuda.fused_adamw", "cuda.rms_norm", "cuda.rms_norm_residual",
+                   "cuda.sdpa_bwd", "cuda.sdpa_fwd"]
+
+
 def test_replay_bundle_holds_the_verdict_and_inputs(tmp_path):
     """The bundle's meta and inputs (16-bit tensors as float32). Its
     ``replay_bundle`` event names the anomaly ``anomaly=``: the reference's

@@ -446,7 +446,9 @@ def test_port_imports_no_jax():
     benchmark — and the model zoo's — mixtral, gpt, nanogpt, seq2seq,
     resnet, the zoo benchmark and the float32 attention probe — and the
     trace compiler's planner — compile_data, cost_model, fusion_passes,
-    decisions — named below so that none can drop out of the walk
+    decisions — and the train step on ``jit`` — transform_common, utils,
+    the claims, the torch executor, the graph replay, the composites, the
+    transforms package — named below so that none can drop out of the walk
     unnoticed): neither jax nor
     thunder_tpu (or any thunder_tpu.* module) is loaded."""
     repo = Path(__file__).resolve().parents[1]
@@ -467,7 +469,9 @@ def test_port_imports_no_jax():
         "        'models.nanogpt', 'models.seq2seq', 'models.resnet', 'benchmarks.zoo',\n"
         "        'benchmarks.f32_attention', 'core.transforms', 'torch.autograd_bridge',\n"
         "        'core.compile_data', 'core.cost_model', 'core.fusion_passes',\n"
-        "        'observe.decisions')]\n"
+        "        'observe.decisions', 'core.transform_common', 'core.utils',\n"
+        "        'executors.cudaex_claims', 'executors.eagertorch', 'executors.cudagraphex',\n"
+        "        'ops.composites', 'transforms')]\n"
         "missing = [m for m in need if m not in sys.modules]\n"
         "n = sum(m.startswith('thunder_tpu_torch') for m in sys.modules)\n"
         "print(n, bad, missing)\n"

@@ -13,10 +13,12 @@ single-card serving fleet and the model zoo:
   programs), on ``cuda`` unless ``device="cpu"`` is passed;
 - :mod:`thunder_tpu_torch.benchmarks.pretrain` — the single-device train
   step (``loss_fn``, its gradients, :class:`thunder_tpu_torch.optim.AdamW`),
-  per-op or, with ``block_fusion=True``, planned;
-- :mod:`thunder_tpu_torch.benchmarks.bench` — the headline bench's step
-  (``fused_loss_fn``, ``remat``, ``AdamW(slab_persistent=True)``) at
-  ``llama2-7b-bench`` width;
+  compiled by ``jit(train_step, donate_argnums=(0, 1))`` as the
+  reference's, per-op or, with ``block_fusion=True``, planned (the eager
+  ``train_step`` stays, the bench's baseline arm);
+- :mod:`thunder_tpu_torch.benchmarks.bench` — the headline bench's compiled
+  step (``fused_loss_fn``, ``remat``, ``AdamW(slab_persistent=True)``) at
+  ``llama2-7b-bench`` width, its guarded arm and its eager baseline arm;
 - :mod:`thunder_tpu_torch.data` — the token file's ``ShardedTokenStream``
   and ``TokenDataset`` (a C++ loader built at first use, with a bit-exact
   Python twin), ``write_token_file``, ``LengthBucketer`` and
@@ -47,8 +49,10 @@ single-card serving fleet and the model zoo:
 - :mod:`thunder_tpu_torch.runtime` — fault injection (``FaultPlan``), retry
   policies and ``RestartBudget``, the kernel quarantine the routers of
   ``ops/`` read, and the numerics sentinel;
-- :mod:`thunder_tpu_torch.transforms.numerics_guard` — ``NumericsGuard``,
-  the guarded train step (``pretrain.run(guard=...)``);
+- :mod:`thunder_tpu_torch.transforms.numerics_guard` —
+  ``NumericsGuardTransform``, the guard of a compiled train step
+  (``jit(step, transforms=[...])``, ``pretrain.run(guard=...)``), and
+  ``NumericsGuard``, the eager step's;
 - the trace compiler: :func:`jit` traces a PyTorch function or an
   ``nn.Module`` into printable, executable traces (:func:`last_traces`),
   runs DCE, CSE and the block, horizontal, epilogue and optimizer passes
@@ -57,10 +61,11 @@ single-card serving fleet and the model zoo:
   decision log), and hands ``rms_norm``, ``rms_norm_residual``,
   ``linear_act``, the MLP sub-block forward and backward, attention forward
   and backward, cross-entropy and the multi-tensor AdamW of CUDA tensors to
-  the kernels
-  (:mod:`thunder_tpu_torch.executors.cudaex_claims`); every other prim runs
-  as one torch call. :func:`value_and_grad` and :func:`grad` differentiate
-  inside a traced function (trace-level autograd,
+  the kernels (and, in a guarded step, each optimizer bucket's health pass
+  and gated update; :mod:`thunder_tpu_torch.executors.cudaex_claims`);
+  every other prim runs as one torch call. ``jit(transforms=)`` applies the
+  reference's :class:`Transform` hooks. :func:`value_and_grad` and
+  :func:`grad` differentiate inside a traced function (trace-level autograd,
   :mod:`thunder_tpu_torch.core.transforms`), :func:`activation_checkpoint`
   (``core.rematerialization.checkpoint``; the reference's
   ``thunder_tpu.checkpoint``, renamed because :mod:`thunder_tpu_torch.checkpoint`
@@ -106,12 +111,14 @@ from thunder_tpu_torch.core.pytree import tree_unflatten as _tree_unflatten  # n
 from thunder_tpu_torch.core.rematerialization import (  # noqa: E402, F401
     checkpoint as activation_checkpoint, rematerialize_forward_and_backward)
 from thunder_tpu_torch.core.trace import TraceCtx, tracectx as _tracectx  # noqa: E402
-from thunder_tpu_torch.core.transform_common import cse, dce  # noqa: E402
+from thunder_tpu_torch.core.trace import copy_trace as _copy_trace  # noqa: E402
+from thunder_tpu_torch.core.transform_common import Transform, cse, dce  # noqa: E402, F401
 from thunder_tpu_torch.core.transforms import forward_and_backward_from_trace  # noqa: E402, F401
 from thunder_tpu_torch.observe import registry as _observe  # noqa: E402
 from thunder_tpu_torch.runtime import faults as _faults  # noqa: E402
 from thunder_tpu_torch.runtime import quarantine as _quarantine  # noqa: E402
 from thunder_tpu_torch.runtime import retry as _retry  # noqa: E402
+from thunder_tpu_torch.runtime import sentinel as _sentinel  # noqa: E402
 from thunder_tpu_torch.runtime.faults import KernelExecutionError  # noqa: E402
 
 
@@ -131,6 +138,7 @@ class CompileStats:
         self.last_prologue_traces: list[TraceCtx] = []
         self.last_pass_times: dict[str, float] = {}
         self.last_decisions: list[dict] = []
+        self.last_entry: CacheEntry | None = None
         self.last_whole_program: str | None = None
         self.whole_program_captures = 0
         self.whole_program_recaptures = 0
@@ -157,11 +165,13 @@ class CompileStats:
 
 
 class CacheEntry:
-    # writes_donated: the program writes donated inputs in place;
-    # graph: the entry's CUDA graph (cudagraphex.WholeProgram), or None for
-    # the generated program per call; whole_program: "graph" or "per-call (<why>)"
+    # writes_donated: the program writes donated inputs in place (written:
+    # their positions among the tensor inputs); graph: the entry's CUDA
+    # graph (cudagraphex.WholeProgram), or None for the generated program per
+    # call; whole_program: "graph" or "per-call (<why>)"; run_fn: what a call
+    # runs, the graph or the program inside the transforms' wrappers
     __slots__ = ("computation_fn", "tensor_indices", "traces", "prologue_trace", "prologue_fn",
-                 "writes_donated", "graph", "whole_program")
+                 "writes_donated", "written", "graph", "whole_program", "run_fn")
 
     def __init__(self, computation_fn, tensor_indices, traces, prologue_trace, prologue_fn,
                  writes_donated: bool = False):
@@ -171,8 +181,19 @@ class CacheEntry:
         self.prologue_trace = prologue_trace
         self.prologue_fn = prologue_fn
         self.writes_donated = writes_donated
+        self.written: frozenset[int] = frozenset()
         self.graph = None
         self.whole_program = "per-call"
+        self.run_fn = _program_of(self)
+
+
+def _program_of(entry: CacheEntry) -> _Callable:
+    """A call of the entry's graph, or of its program where it has none (read
+    at each call)."""
+    def program(*inps):
+        return (entry.graph or entry.computation_fn)(*inps)
+
+    return program
 
 
 def _is_tensorlike(x) -> bool:
@@ -201,14 +222,15 @@ def _stage(pass_times: dict, name: str):
 
 
 def execution_pipeline(trc: TraceCtx, executors, device, pass_times: dict,
-                       donated_names=frozenset()) -> tuple[list[TraceCtx], _Callable, bool]:
+                       donated_names=frozenset(), transforms: _Sequence = ()
+                       ) -> tuple[list[TraceCtx], _Callable, bool]:
     """The pipeline every generated program goes through: DCE, CSE, the
-    epilogue and claim passes (``transform_for_execution``), the in-place
-    writes of donated inputs, ``del`` insertion, and codegen. Each stage's
-    ms add into ``pass_times``. Returns the traces stage by stage (the
-    traced program, DCE, CSE, the execution trace, with ``del``s), the
-    generated callable, and the names of the donated inputs it writes in
-    place."""
+    epilogue and claim passes (``transform_for_execution``), the
+    ``transforms``' post-optimization hooks, the in-place writes of donated
+    inputs, ``del`` insertion, and codegen. Each stage's ms add into
+    ``pass_times``. Returns the traces stage by stage (the traced program,
+    DCE, CSE, the execution trace, with ``del``s), the generated callable,
+    and the names of the donated inputs it writes in place."""
     from thunder_tpu_torch.executors.passes import (
         del_last_used, donate_in_place, transform_for_execution)
 
@@ -221,6 +243,8 @@ def execution_pipeline(trc: TraceCtx, executors, device, pass_times: dict,
         traces.append(trc)
     with _stage(pass_times, "transform_for_execution"), _devices.using_device(device):
         exec_trc = transform_for_execution(trc, executors)
+        for tr in transforms:
+            exec_trc = tr.transform_trace_post_optimization(exec_trc)
         exec_trc, written = donate_in_place(exec_trc, set(donated_names))
     traces.append(exec_trc)
     with _stage(pass_times, "del_last_used"):
@@ -264,9 +288,10 @@ class ThunderTPUFunction:
 
     A call flattens its arguments, looks the entry up by the guard key
     (the tree structure, each leaf's shape, dtype and device or its constant
-    value, the default device, the quarantine epoch and the active fault
-    plan), compiles on a miss and runs the entry's generated program under
-    ``torch.no_grad()``: a trace carries its own backward
+    value, the default device, the quarantine epoch and the suppressed
+    claims, the active fault plan where it ``affects_compile()``, and the
+    transforms), compiles on a miss and runs the entry's generated program
+    under ``torch.no_grad()``: a trace carries its own backward
     (:func:`value_and_grad`), so torch's autograd records nothing (a call
     that torch's autograd must record goes through the torch-autograd
     bridge instead, :mod:`thunder_tpu_torch.torch.autograd_bridge`). numpy
@@ -275,15 +300,23 @@ class ThunderTPUFunction:
     ``donate_argnums`` are donated: the program may write them in place
     (the claimed ``fused_adamw`` updates donated parameters and moments
     where nothing later reads their old values), and after a call their
-    old values are gone."""
+    old values are gone.
+
+    ``transforms`` (each a
+    :class:`~thunder_tpu_torch.core.transform_common.Transform`)
+    rewrite each compile's traces at the reference's points and may wrap
+    each entry's calls (``wrap_run_fn``; the first transform's wrapper
+    outermost) and append runtime inputs to its signature, which their
+    wrappers feed. A ``SilentNumericsFault`` raised through a guard's
+    wrapper is bisected to the claimed kernels that cause it
+    (:meth:`_bisect_and_rerun`)."""
 
     def __init__(self, fn: _Callable, *, executors=None, transforms: _Sequence = (),
                  device=None, fn_name: str | None = None,
                  donate_argnums: int | _Sequence[int] = (), **compile_options):
         from thunder_tpu_torch.executors import resolve_executors
 
-        if transforms:
-            raise NotImplementedError("jit(transforms=...) is not ported yet (ROADMAP A.7.6)")
+        self.transforms = list(transforms)
         self.fn = fn
         self._graph_pool = None   # the GraphPool every CUDA graph of this function shares
         self.executors = resolve_executors(executors)
@@ -315,8 +348,10 @@ class ThunderTPUFunction:
         guard key (the alias pattern of a call through the torch front end)."""
         flat, treedef = self._flatten(args, kwargs)
         plan = _faults.active_plan()
-        key = (treedef, _quarantine.epoch(), id(plan) if plan is not None else None,
-               self._default_device(), tuple(_leaf_key(x) for x in flat), extra)
+        key = (treedef, _quarantine.epoch(), _quarantine.suppression_key(),
+               id(plan) if plan is not None and plan.affects_compile() else None,
+               self._default_device(),
+               tuple(_leaf_key(x) for x in flat), tuple(id(t) for t in self.transforms), extra)
         entry = self._cache.get(key)
         if entry is None:
             self._stats.cache_misses += 1
@@ -337,20 +372,98 @@ class ThunderTPUFunction:
 
     def __call__(self, *args, **kwargs):
         entry, flat = self._entry_for(args, kwargs)
-        return self._run_contained(entry, [flat[i] for i in entry.tensor_indices])
+        return self._run_contained(entry, [flat[i] for i in entry.tensor_indices],
+                                   call=(args, kwargs))
 
-    def _run_contained(self, entry, inps, contained: bool = True):
-        """Run an entry's program, or its CUDA graph (:func:`run_contained`).
-        Where the program writes donated inputs in place, an error says that
-        their values are undefined."""
+    def _run_contained(self, entry, inps, contained: bool = True, call=None):
+        """Run an entry's program, or its CUDA graph, inside the transforms'
+        wrappers (:func:`run_contained`). Where the program writes donated
+        inputs in place, an error says that their values are undefined. A
+        ``SilentNumericsFault`` from a guard's wrapper is bisected with the
+        call's own ``(args, kwargs)``, ``call``."""
         note = None
         if entry.writes_donated:
             note = (f"{self.fn_name} writes its donated inputs (donate_argnums="
                     f"{self.donate_argnums}) in place: after a failure their values are "
                     f"undefined; restore them from a checkpoint, or jit without donation "
                     f"to keep them")
-        return run_contained(entry.graph or entry.computation_fn, inps, note=note,
-                             contained=contained)
+        if not self.transforms:
+            return run_contained(entry.run_fn, inps, note=note, contained=contained)
+        _sentinel.note_consumed([inps[i] for i in entry.written])
+        try:
+            return run_contained(entry.run_fn, inps, note=note, contained=contained)
+        except _sentinel.SilentNumericsFault as err:
+            if call is None:
+                raise
+            return self._bisect_and_rerun(err, *call)
+
+    def _bisect_and_rerun(self, err, args, kwargs):
+        """Silent-fault containment (the reference's ``_bisect_and_rerun``,
+        ``thunder_tpu/__init__.py:481``): the numerics guard saw repeated
+        non-finite steps. Each probe recompiles with a candidate group of
+        the entry's claimed kernels suppressed (``quarantine.suppress``) and
+        re-runs the same inputs under ``sentinel.probing()``; the offenders
+        join the persisted quarantine and the step runs again. A call whose
+        donated inputs were written in place cannot be re-run: that, a
+        corruption no suppression removes, and a probe on the card (whose
+        suppressed claim has no plain version to run) raise
+        ``PersistentNonFinite``."""
+        guard = getattr(err, "transform", None)
+        if guard is None:   # raised outside a guard's wrapper: nothing to bisect
+            raise err
+        if not _sentinel.inputs_alive((args, kwargs)):
+            raise _sentinel.PersistentNonFinite(
+                f"persistent non-finite output of {self.fn_name}: the step's inputs were "
+                f"donated (donate_argnums) and written in place, so in-process bisection "
+                f"cannot replay them; recover from a checkpoint, or jit without donation "
+                f"to enable bisection") from err
+        sent = guard.sentinel
+        seen: set[str] = set()
+        while True:
+            entry = getattr(err, "entry", None) or self._stats.last_entry
+            exec_trc = entry.traces[-1] if entry is not None and entry.traces else None
+            candidates = [] if exec_trc is None else \
+                [c for c in _sentinel.claimed_kernel_ids(exec_trc) if c not in seen]
+            if candidates:
+                _observe.inc("runtime.bisections")
+                _observe.event("bisection_started", fn=self.fn_name, candidates=len(candidates))
+
+            def probe(disabled):
+                with _quarantine.suppress(disabled):
+                    self._cache.clear()
+                    with sent.probing():
+                        self(*args, **kwargs)
+                return sent.last_verdict is not None and sent.last_verdict.healthy
+
+            try:
+                offenders = _sentinel.attribute_offenders(candidates, probe)
+            except KernelExecutionError as e:
+                if e.phase != _faults.QUARANTINED:
+                    raise
+                _observe.event("bisection_unattributed", fn=self.fn_name)
+                raise _sentinel.PersistentNonFinite(
+                    f"persistent non-finite output of {self.fn_name} cannot be bisected on "
+                    f"the card ({e.claim_id} has no plain version to run there); "
+                    f"candidates: {candidates}") from err
+            finally:
+                self._cache.clear()
+            if not offenders:
+                _observe.event("bisection_unattributed", fn=self.fn_name)
+                raise _sentinel.PersistentNonFinite(
+                    f"persistent non-finite output of {self.fn_name} could not be attributed "
+                    f"to a claimed kernel ({len(candidates)} candidates probed)") from err
+            for offender in offenders:
+                seen.add(offender)
+                _quarantine.get_quarantine().add(
+                    offender, phase="numerics",
+                    reason=f"silent numerics fault attributed by bisection ({err})")
+                _observe.inc("runtime.fallbacks")
+                _observe.event("bisection_attributed", fn=self.fn_name, claim=offender)
+            sent.reset_episode()   # containment done: the re-run starts clean
+            try:
+                return self(*args, **kwargs)
+            except _sentinel.SilentNumericsFault as e2:
+                err = e2   # a second corrupt kernel: bisect the rest
 
     def bind(self, *args, contained: bool = True, **kwargs):
         """Compile for these inputs and return a callable bound to that one
@@ -363,7 +476,8 @@ class ThunderTPUFunction:
 
         def bound(*a, **k):
             fl, _ = self._flatten(a, k)
-            return self._run_contained(entry, [fl[i] for i in tensor_indices], contained)
+            return self._run_contained(entry, [fl[i] for i in tensor_indices], contained,
+                                       call=(a, k))
 
         bound.entry = entry
         return bound
@@ -386,6 +500,10 @@ class ThunderTPUFunction:
             _prims.python_return(result)
         trc.args = [proxies[i] for i in tensor_indices]
         trc.output = result
+        # the input structure with a proxy for every tensor leaf, for the
+        # transforms (the numerics guard pairs state inputs with outputs)
+        trc.input_proxies = list(proxies)
+        trc.input_treedef = treedef
         trc.set_provenance("Tracing (torch function dispatch)")
         return trc, tensor_indices
 
@@ -443,20 +561,35 @@ class ThunderTPUFunction:
     def _compile_instrumented(self, flat, treedef, pass_times, donated) -> CacheEntry:
         with _stage(pass_times, "trace"):
             trc, tensor_indices = self._trace(flat, treedef)
+        traced = trc
         with _stage(pass_times, "prologue"):
             prologue = self._build_prologue(flat)
+            if self.transforms:
+                trc = _copy_trace(traced)   # the transforms rewrite a copy
+            for tr in self.transforms:
+                _, trc, _ = tr.transform_traces_pre_prologue(prologue, trc, None)
         donated_names = {p.name for i, p in zip(tensor_indices, trc.args) if i in donated}
         traces, computation_fn, written = execution_pipeline(
-            trc, self.executors, self._default_device(), pass_times, donated_names)
+            trc, self.executors, self._default_device(), pass_times, donated_names,
+            self.transforms)
+        traces[0] = traced   # the program as traced, before the transforms (the reference's)
         with _stage(pass_times, "codegen"):
             prologue_fn = prologue.python_callable()
         prologue_fn(*flat)   # the guards hold on the inputs they were built from
         entry = CacheEntry(computation_fn, tensor_indices, traces, prologue, prologue_fn,
                            bool(written))
-        self._finalize_entry(entry, flat, traces[-1],
-                             frozenset(j for j, p in enumerate(trc.args) if p.name in written))
+        entry.written = frozenset(j for j, p in enumerate(trc.args) if p.name in written)
+        self._finalize_entry(entry, flat, traces[-1], entry.written)
+        # the transforms' runtime wrappers, reversed so the first transform's
+        # is outermost: wrappers append their extra inputs outermost first,
+        # the order the transforms appended them to the trace's signature
+        for tr in reversed(self.transforms):
+            hook = getattr(tr, "wrap_run_fn", None)
+            if hook is not None:
+                entry.run_fn = hook(self, entry, entry.run_fn)
         self._stats.last_traces = traces
         self._stats.last_prologue_traces = [prologue]
+        self._stats.last_entry = entry
         return entry
 
     def _finalize_entry(self, entry: CacheEntry, flat, exec_trc: TraceCtx,

@@ -22,29 +22,40 @@ them, random weights from ``--seed``.
 
     python3 -m thunder_tpu_torch.benchmarks.bench --layers 8 --remat --slab-state
 
-Timing, launch counts and the profile are ``pretrain.run``'s: it prints one
-JSON line with the step time, tokens/s, the share of the H100's 989 TFLOP/s
-dense bf16 peak by model FLOPs (``flops_per_token``, not counting the
-recompute), peak device memory, the optimizer's device time, launches
-per step and the card line; this entry adds the fused loss's
-logits route (``ops.nn.flce_logits_route``). ``--profile N`` traces N more
-steps.
+The timed step is the reference's (``bench.py:220``): ``jit(train_step,
+donate_argnums=(0, 1))`` (``pretrain.jit_train_step``), each step one CUDA
+graph replay on the card. Timing, launch counts and the profile are
+``pretrain.run``'s: it prints one JSON line with the step time, tokens/s,
+the share of the H100's 989 TFLOP/s dense bf16 peak by model FLOPs
+(``flops_per_token``, not counting the recompute), peak device memory,
+launches per step, the compile's seconds and the card line; this entry
+adds the fused loss's logits route (``ops.nn.flce_logits_route``).
+``--profile N`` traces N more steps (and adds the optimizer's device ms).
 
-``sentinel_overhead_pct`` is the counterpart of ``bench.py:268-287``: the
-same step under the numerics guard (``transforms.numerics_guard``: the
-optimizer's health pass, the gated update and one health-word fetch per
-step), its escalation disarmed as the reference disarms it, from fresh
-weights of the same seed, timed against the unguarded step:
-``(guarded_ms - step_ms) / step_ms * 100``.
+Two more arms, each built from fresh weights of the same seed after the
+last arm's function, weights and graph pool are dropped, so the peak
+memory is one arm's:
 
-Not ported: the pure ``jax.jit`` baseline arm and ``vs_baseline``,
-``--breakdown``, ``--smoke`` and ``BENCH_FP8`` (FP8 waits for the port's FP8
-layer).
+- ``sentinel_overhead_pct`` (``bench.py:268-287``): the same step compiled
+  with ``transforms=[NumericsGuardTransform(policy=disarmed)]`` (each
+  bucket's health pass, the gated update and one health-word fetch per
+  step; the escalation disarmed as the reference disarms it), timed
+  against the unguarded step: ``(guarded_ms - step_ms) / step_ms * 100``.
+- ``vs_baseline`` (``bench.py:289-385, :476``): an independent
+  implementation of the same step timed beside the compiled one,
+  ``baseline_ms / step_ms``. The reference's is a hand-written
+  ``jax.jit`` step; the port's is its eager ``pretrain.train_step`` (torch's
+  autograd, the same kernels through their routers, ``AdamW.update`` in
+  place), so the bench's JSON shows the compiler's cost on every run.
+
+Not ported: ``--breakdown``, ``--smoke`` and ``BENCH_FP8`` (FP8 waits for the
+port's FP8 layer).
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 
 import torch
@@ -54,7 +65,7 @@ from thunder_tpu_torch.devices import resolve_device
 from thunder_tpu_torch.models import llama
 from thunder_tpu_torch.ops import nn as tnn
 from thunder_tpu_torch.optim import AdamW
-from thunder_tpu_torch.transforms.numerics_guard import NumericsGuard, disarmed_policy
+from thunder_tpu_torch.transforms.numerics_guard import NumericsGuardTransform, disarmed_policy
 
 LR = 1e-4
 # (state_dtype, v_dtype) of each BENCH_OPT_STATE choice (bench.py:127-135)
@@ -74,26 +85,51 @@ def run(model: str = "llama2-7b-bench", layers: int = 2, batch: int = 8, seq: in
         steps: int = 10, loss: str = "fused", opt_state: str = "bf16",
         slab_state: bool = False, remat: bool = False, block_fusion: bool | None = None,
         device=None, seed: int = 0, profile: int = 0, params: dict | None = None,
-        state: dict | None = None, sentinel: bool = True) -> dict:
-    """One warm-up step and ``steps`` timed steps of the bench's train step
-    through :func:`pretrain.run`; its report plus the bench's own choices.
-    ``params`` and ``state`` (from ``make_opt(opt_state, slab_state).init``)
-    are built from ``seed`` unless given; the steps update them in place.
-    ``sentinel`` then times the same steps under the numerics guard, from
-    weights built anew from ``seed``, and adds ``sentinel_step_ms`` and
-    ``sentinel_overhead_pct``."""
+        state: dict | None = None, sentinel: bool = True, baseline: bool = True) -> dict:
+    """One warm-up step and ``steps`` timed steps of the bench's compiled
+    train step through :func:`pretrain.run`; its report plus the bench's own
+    choices. ``params`` and ``state`` (from ``make_opt(opt_state,
+    slab_state).init``) are built from ``seed`` unless given; the steps
+    leave them holding the new values. ``sentinel`` then times the same
+    steps compiled with the numerics guard, and adds ``sentinel_step_ms``,
+    ``sentinel_overhead_pct``, ``sentinel_peak_memory_gb`` and the
+    sentinel's counts; ``baseline`` times the eager step, and adds
+    ``baseline_step_ms``, ``baseline_losses``, ``baseline_peak_memory_gb``
+    and ``vs_baseline``. Each arm starts from weights built anew from
+    ``seed``."""
     kw = dict(lr=LR, seed=seed, device=device, block_fusion=block_fusion, loss=loss,
               remat=remat)
-    out = pretrain.run(model, layers, batch, seq, steps, profile=profile, params=params,
-                       opt=make_opt(opt_state, slab_state), state=state, **kw)
+
+    def arm(**extra):
+        r = pretrain.run(model, layers, batch, seq, steps, opt=make_opt(opt_state, slab_state),
+                         **kw, **extra)
+        gc.collect()   # the arm's jit function, its graph pool and its weights
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+        return r
+
+    out = arm(profile=profile, params=params, state=state)
     out["opt_state_kind"] = opt_state
     if sentinel:
-        guarded = pretrain.run(model, layers, batch, seq, steps,
-                               opt=make_opt(opt_state, slab_state),
-                               guard=NumericsGuard(policy=disarmed_policy()), **kw)
+        guarded = arm(guard=NumericsGuardTransform(policy=disarmed_policy()))
         out["sentinel_step_ms"] = guarded["step_ms"]
         out["sentinel_overhead_pct"] = (guarded["step_ms"] - out["step_ms"]) / out["step_ms"] * 100
         out["sentinel_counts"] = guarded["sentinel"]
+        out["sentinel_losses"] = guarded["losses"]
+        out["sentinel_whole_program"] = guarded.get("whole_program")
+        out["sentinel_whole_program_captures"] = guarded.get("whole_program_captures")
+        out["sentinel_per_step"] = guarded["per_step"]
+        out["sentinel_launches"] = guarded["launches"]
+        if "peak_memory_gb" in guarded:
+            out["sentinel_peak_memory_gb"] = guarded["peak_memory_gb"]
+    if baseline:
+        base = arm(eager=True)
+        out["baseline_step_ms"] = base["step_ms"]
+        out["baseline_losses"] = base["losses"]
+        out["baseline_launches"] = base["launches"]
+        out["vs_baseline"] = base["step_ms"] / out["step_ms"]
+        if "peak_memory_gb" in base:
+            out["baseline_peak_memory_gb"] = base["peak_memory_gb"]
     if loss == "fused":
         probe = torch.empty(0, dtype=llama.CONFIGS[model].dtype, device=resolve_device(device))
         out["logits_route"] = tnn.flce_logits_route(probe)

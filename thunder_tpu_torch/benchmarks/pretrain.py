@@ -21,33 +21,41 @@ clipped to ``vocab_size - 1``, as the reference clips them, and reach the
 card from pinned host memory by an asynchronous copy. ``--audit`` prints
 each timed step's loss to stderr, as the reference's does.
 
-Two rungs of the reference's step: its per-op rung
-(``tt.jit(train_step, block_fusion=False)``) and its planned rung
+The step is the reference's compiled one (``pretrain.py:84-92``):
+``jit(train_step, donate_argnums=(0, 1))``, built by :func:`jit_train_step`,
+so the update writes the donated parameters and moments in place and, on
+the card, each step replays one CUDA graph (the first call runs per call,
+the second captures). Two rungs: the per-op rung
+(``tt.jit(train_step, block_fusion=False)``) and the planned rung
 (``--block-fusion``): one ``mlp_subblock`` kernel per layer, forward and
 backward. The reference's ``tt.jit(train_step)`` leaves ``block_fusion``
 unset and its cost model decides; so does the default here
 (``core.fusion_passes.mlp_block_verdict``, the compiled planner's own
 verdict: the port's cost model with the card's constants, forward and
-backward counted). At llama3-8b-bench's train shape (B=8, T=2048) it picks
-the per-op rung, which the card measured faster (PERF.md §5);
-``--no-block-fusion`` forces the per-op rung. The compiled step
-(:func:`jit_train_step`) asks the same model inside ``jit``.
+backward counted), passed to ``jit`` as its ``block_fusion`` option. At
+llama3-8b-bench's train shape (B=8, T=2048) it picks the per-op rung,
+which the card measured faster (PERF.md §5); ``--no-block-fusion`` forces
+the per-op rung. ``run(eager=True)`` runs the eager :func:`train_step`
+instead (torch's autograd and the in-place ``AdamW.update``), the bench's
+baseline arm.
 
-Prints one JSON line: step time, tokens/s, peak device memory, the share of
-the H100's 989 TFLOP/s dense bf16 peak reached (NVIDIA data sheet, SXM
-part), the optimizer's device time per step, the kernels' launches per
-step, and the card's name and power limit as nvidia-smi reports them.
-``--profile N`` traces N more steps with torch.profiler and adds the device
-time per kernel family, the device's idle share and the longest kernels.
-Needs a CUDA card; ``--device cpu`` runs the plain versions, for a small
-config.
+Prints one JSON line: step time (the mean of the timed steps that replay
+the graph: the one that captures it, the first on the card, is marked
+``capture`` in ``per_step`` and left out), tokens/s, peak device memory, the share
+of the H100's 989 TFLOP/s dense bf16 peak reached (NVIDIA data sheet, SXM
+part), the kernels' launches per step, the compile's seconds and how the
+entry runs, and the card's name and power limit as nvidia-smi reports
+them. ``--profile N`` traces N more steps with torch.profiler and adds the
+device time per kernel family (the optimizer's, ``optimizer_ms``, is its
+update and health families), the device's idle share and the longest
+kernels. Needs a CUDA card; ``--device cpu`` runs the plain versions, for
+a small config.
 
-``--guard`` runs every step under the numerics guard
-(``transforms.numerics_guard.NumericsGuard``, the counterpart of the
-reference's ``NumericsGuardTransform``): the optimizer's health pass builds
-the step's health word on the device, the update is gated on it, and the
-word is fetched once per step for the sentinel; the report adds the
-sentinel's counts and the last grad norm.
+``--guard`` compiles the step with the reference's numerics guard
+(``transforms.numerics_guard.NumericsGuardTransform``): each optimizer
+bucket's health pass builds the step's health word on the device, the
+update is gated on it, and the word is fetched once per step for the
+sentinel; the report adds the sentinel's counts and the last health word.
 """
 
 from __future__ import annotations
@@ -67,7 +75,7 @@ from thunder_tpu_torch.devices import resolve_device
 from thunder_tpu_torch.executors import cudaex
 from thunder_tpu_torch.models import llama
 from thunder_tpu_torch.optim import AdamW, tree_leaves, tree_map
-from thunder_tpu_torch.transforms.numerics_guard import NumericsGuard
+from thunder_tpu_torch.transforms.numerics_guard import NumericsGuard, NumericsGuardTransform
 
 H100_BF16_FLOPS = 989e12
 PROFILE_TOP = 25   # the longest kernels a profile lists
@@ -96,6 +104,10 @@ FAMILIES = (
 )
 
 
+# the kernel families of the optimizer's device time
+OPTIMIZER_FAMILIES = ("fused_adamw", "fused_adamw_slab", "fused_adamw health pass")
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi reports them."""
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -121,61 +133,78 @@ def loss_and_grads(params: dict, tokens: torch.Tensor, targets: torch.Tensor,
     ``tt.value_and_grad(llama.loss_fn)``; ``block_fusion`` picks the rung,
     ``loss`` the loss function (``LOSSES``: ``naive`` is ``loss_fn``,
     ``fused`` the chunked-vocab ``fused_loss_fn``), ``remat`` checkpoints
-    every layer."""
+    every layer. The parameters require grad only for the call: a compiled
+    step given them afterwards takes them as plain inputs, not through the
+    torch-autograd bridge."""
     leaves = tree_leaves(params)
+    was = [p.requires_grad for p in leaves]
     for p in leaves:
         p.requires_grad_(True)
-    value = LOSSES[loss](params, tokens, targets, cfg, block_fusion=block_fusion, remat=remat)
-    grads = iter(torch.autograd.grad(value, leaves))
+    try:
+        value = LOSSES[loss](params, tokens, targets, cfg, block_fusion=block_fusion,
+                             remat=remat)
+        grads = iter(torch.autograd.grad(value, leaves))
+    finally:
+        for p, w in zip(leaves, was):
+            p.requires_grad_(w)
     return value.detach(), tree_map(lambda _: next(grads), params)
 
 
 def train_step(params: dict, opt: AdamW, opt_state: dict, tokens: torch.Tensor,
-               targets: torch.Tensor, cfg: llama.LlamaConfig,
-               opt_events: tuple | None = None, block_fusion: bool = False,
+               targets: torch.Tensor, cfg: llama.LlamaConfig, *, block_fusion: bool = False,
                loss: str = "naive", remat: bool = False,
                guard: NumericsGuard | None = None) -> torch.Tensor:
-    """One step: the loss and its gradients, then AdamW in place. Returns
-    the loss (a device tensor: reading it is the caller's sync).
-    ``opt_events``, a pair of CUDA events, are recorded around the
-    optimizer's update; ``block_fusion``, ``loss`` and ``remat`` are
-    :func:`loss_and_grads`'s. With ``guard`` the step runs under the
+    """One eager step: the loss and its gradients by torch's autograd, then
+    AdamW in place. Returns the loss (a device tensor: reading it is the
+    caller's sync). ``block_fusion``, ``loss`` and ``remat`` are
+    :func:`loss_and_grads`'s. With ``guard`` the step runs under the eager
     numerics guard: the update is gated on the step's health word, which
     the guard fetches (one host sync) and hands to its sentinel."""
     if guard is not None:
         return guard.step(params, opt, opt_state,
                           lambda: loss_and_grads(params, tokens, targets, cfg, block_fusion,
                                                  loss, remat),
-                          opt_events=opt_events, inputs=(tokens, targets))
+                          inputs=(tokens, targets))
     value, grads = loss_and_grads(params, tokens, targets, cfg, block_fusion, loss, remat)
-    if opt_events:
-        opt_events[0].record()
     opt.update(params, grads, opt_state)
-    if opt_events:
-        opt_events[1].record()
     return value
 
 
 def jit_train_step(cfg: llama.LlamaConfig, opt: AdamW, *, remat: bool = False,
-                   **compile_options):
+                   loss: str = "naive", transforms=(), **compile_options):
     """The reference's compiled train step (``thunder_tpu/benchmarks/
-    pretrain.py:84-90``): ``train_step(params, opt_state, tokens, targets)
-    -> (loss, params, opt_state)`` is ``value_and_grad(loss_fn)`` followed
-    by ``opt.update``, compiled by ``jit`` with the parameters and the
-    optimizer state donated, so the claimed ``fused_adamw`` writes them in
-    place. ``remat`` checkpoints every layer (trace-level regions).
-    ``compile_options`` go to ``jit``; ``block_fusion`` is left unset, as
-    the reference leaves it, so the planner's cost model decides (True
-    plans every MLP sub-block). ``run`` stays on the eager
-    :func:`train_step` (ROADMAP A.7.5)."""
+    pretrain.py:84-90``, ``bench.py:220``): ``train_step(params, opt_state,
+    tokens, targets) -> (loss, params, opt_state)`` is
+    ``value_and_grad(loss_fn)`` followed by ``opt.update``, compiled by
+    ``jit`` with the parameters and the optimizer state donated, so the
+    claimed update (``fused_adamw``, or ``fused_adamw_slab`` for a
+    slab-persistent ``opt``) writes them in place. ``loss`` picks the loss
+    (``LOSSES``: ``naive`` or the chunked ``fused``), ``remat`` checkpoints
+    every layer (trace-level regions), ``transforms`` go to ``jit`` (the
+    bench's guarded arm passes a ``NumericsGuardTransform``), and so do
+    ``compile_options``; ``block_fusion`` left unset lets the planner's cost
+    model decide, as the reference does (True plans every MLP
+    sub-block)."""
     import thunder_tpu_torch as ptt
 
-    def train_step(params, opt_state, tokens, targets):
-        loss, grads = ptt.value_and_grad(
-            lambda p: llama.loss_fn(p, tokens, targets, cfg, remat=remat))(params)
-        return loss, *opt.update(params, grads, opt_state)
+    loss_fn = LOSSES[loss]
 
-    return ptt.jit(train_step, donate_argnums=(0, 1), **compile_options)
+    def train_step(params, opt_state, tokens, targets):
+        value, grads = ptt.value_and_grad(
+            lambda p: loss_fn(p, tokens, targets, cfg, remat=remat))(params)
+        return value, *opt.update(params, grads, opt_state)
+
+    return ptt.jit(train_step, donate_argnums=(0, 1), transforms=transforms, **compile_options)
+
+
+def _assign(tree, new) -> None:
+    """Rebind ``tree``'s leaves (dicts and lists, in place) to ``new``'s: a
+    leaf the compiled step wrote in place is already the same tensor."""
+    for k in (sorted(tree) if isinstance(tree, dict) else range(len(tree))):
+        if isinstance(tree[k], (dict, list)):
+            _assign(tree[k], new[k])
+        else:
+            tree[k] = new[k]
 
 
 def _family(name: str) -> str:
@@ -191,21 +220,26 @@ def run(model: str = "tiny", layers: int | None = None, batch: int = 4, seq: int
         params: dict | None = None, block_fusion: bool | None = None, loss: str = "naive",
         remat: bool = False, opt: AdamW | None = None, state: dict | None = None,
         data: str | None = None, data_seed: int = 0, start_step: int = 0,
-        audit: bool = False, guard: NumericsGuard | bool | None = None) -> dict:
+        audit: bool = False, guard: NumericsGuardTransform | bool | None = None,
+        eager: bool = False) -> dict:
     """Build the model (or take ``params``), take one warm-up step and
-    ``steps`` timed steps, and report. The batches are one synthetic batch
-    or, with ``data`` (a token file), the stream's batches ``start_step``,
-    ``start_step + 1``, ... (seeded by ``data_seed``); ``audit`` prints each
-    timed step's loss. Each step's batch index, loss, host-clock time
-    (the batch's fetch and copy included: ``batch_ms``) and kernel launches
-    are in ``per_step``. ``opt`` defaults to ``AdamW(lr=lr)`` and
-    ``state``, the optimizer state the steps update in place, to
-    ``opt.init(params)``; ``loss`` and ``remat`` are
+    ``steps`` timed steps of the compiled step (:func:`jit_train_step`), and
+    report. The batches are one synthetic batch or, with ``data`` (a token
+    file), the stream's batches ``start_step``, ``start_step + 1``, ...
+    (seeded by ``data_seed``); ``audit`` prints each timed step's loss.
+    Each step's batch index, loss, host-clock time (the batch's fetch and
+    copy included: ``batch_ms``) and kernel launches are in ``per_step``.
+    ``launches`` counts the kernels of the whole run, warm-up included.
+    ``opt`` defaults to ``AdamW(lr=lr)`` and ``state``, the optimizer state,
+    to ``opt.init(params)``; the steps leave ``params`` and ``state`` (their
+    dicts and lists) holding the new values. ``loss`` and ``remat`` are
     :func:`loss_and_grads`'s. ``block_fusion`` None asks the cost model
     (``fusion_passes.mlp_block_verdict`` at this step's shapes, the verdict
-    the compiled step's planner takes; reported as ``block_fusion_verdict``).
-    ``guard`` (a :class:`NumericsGuard`, or True for one with the default
-    policy) runs every step under the numerics guard."""
+    the compiled step's planner takes; reported as ``block_fusion_verdict``)
+    and the rung goes to ``jit`` as its ``block_fusion`` option. ``guard``
+    (a :class:`NumericsGuardTransform`, or True for one with the default
+    policy) compiles the step with the numerics guard. ``eager`` runs the
+    eager :func:`train_step` instead (no guard)."""
     dev = resolve_device(device)
     cfg = llama.CONFIGS[model]
     verdict = None
@@ -223,48 +257,69 @@ def run(model: str = "tiny", layers: int | None = None, batch: int = 4, seq: int
     n_layers = len(params["layers"])
     opt = opt if opt is not None else AdamW(lr=lr)
     state = state if state is not None else opt.init(params)
-    guard = NumericsGuard() if guard is True else (guard or None)
+    guard = NumericsGuardTransform() if guard is True else (guard or None)
+    if guard is not None and not isinstance(guard, NumericsGuardTransform):
+        raise TypeError(f"run(guard=) takes a NumericsGuardTransform or True, not "
+                        f"{type(guard).__name__} (the eager NumericsGuard guards train_step)")
+    if eager and guard is not None:
+        raise ValueError("run(eager=True) takes no guard")
     batch_for, stream = _batches(cfg, batch, seq, seed, dev, data, data_seed)
     next_batch = [start_step]
     batch_ms: list[float] = []
+    jstep = None if eager else jit_train_step(
+        cfg, opt, remat=remat, loss=loss, transforms=[guard] if guard is not None else (),
+        device=dev, block_fusion=block_fusion)
 
-    def step(opt_events=None):
+    def step():
         t = time.perf_counter()
         tokens, targets = batch_for(next_batch[0])
         next_batch[0] += 1
         batch_ms.append((time.perf_counter() - t) * 1e3)
-        return train_step(params, opt, state, tokens, targets, cfg, opt_events, block_fusion,
-                          loss, remat, guard)
+        if jstep is None:
+            return train_step(params, opt, state, tokens, targets, cfg,
+                              block_fusion=block_fusion, loss=loss, remat=remat)
+        value, new_params, new_state = jstep(params, state, tokens, targets)
+        _assign(params, new_params)
+        _assign(state, new_state)
+        return value
 
     def sync():
         if on_card:
             torch.cuda.synchronize()
 
+    def captures() -> int:
+        if jstep is None:
+            return 0
+        import thunder_tpu_torch as ptt
+
+        return ptt.compile_stats(jstep).whole_program_captures
+
+    first = cudaex.launch_counts()
     t0 = time.perf_counter()
-    losses = [float(step())]   # warm-up
+    losses = [float(step())]   # warm-up (the compile, and the first call per call)
     warmup_s = time.perf_counter() - t0
     if on_card:
         torch.cuda.reset_peak_memory_stats()
-    per_step, opt_ms = [], []
+    per_step = []
     for _ in range(steps):
-        before = cudaex.launch_counts()
-        # the optimizer's device time, from events around it
-        ev = tuple(torch.cuda.Event(enable_timing=True) for _ in range(2)) if on_card else None
+        before, captured = cudaex.launch_counts(), captures()
         t = time.perf_counter()
-        value = step(opt_events=ev)
+        value = step()
         sync()
         ms = (time.perf_counter() - t) * 1e3
         after = cudaex.launch_counts()
-        if on_card:
-            opt_ms.append(ev[0].elapsed_time(ev[1]))
+        captured = captures() != captured
         losses.append(float(value))
         if audit:
             print(f"step {next_batch[0] - 1} loss {losses[-1]:.6f}", file=sys.stderr)
         per_step.append({"batch": next_batch[0] - 1, "loss": losses[-1], "ms": ms,
-                         "batch_ms": batch_ms[-1],
+                         "batch_ms": batch_ms[-1], "capture": captured,
                          "launches": {k: after[k] - before[k] for k in after
                                       if after[k] != before[k]}})
-    step_ms = sum(s["ms"] for s in per_step) / max(len(per_step), 1)
+    last = cudaex.launch_counts()
+    # a step that captured the CUDA graph is left out of the mean
+    timed = [s for s in per_step if not s["capture"]] or per_step
+    step_ms = sum(s["ms"] for s in timed) / max(len(timed), 1)
     tokens_per_step = batch * seq
     fpt = llama.flops_per_token(cfg, seq, n_layers)
     result = {
@@ -279,24 +334,38 @@ def run(model: str = "tiny", layers: int | None = None, batch: int = 4, seq: int
         "losses": losses, "per_step": per_step,
         "data": data, "data_seed": data_seed if data else None, "start_step": start_step,
         "stream_path": stream.stream_path() if stream else None,
-        "guard": guard is not None,
+        "guard": guard is not None, "compiled": jstep is not None,
+        "launches": {k: last[k] - first[k] for k in last if last[k] != first[k]},
     }
+    if jstep is not None:
+        import thunder_tpu_torch as ptt
+
+        stats = ptt.compile_stats(jstep)
+        result.update(compile_s=sum(stats.last_pass_times.values()) / 1e3,
+                      whole_program=stats.last_whole_program,
+                      whole_program_captures=stats.whole_program_captures,
+                      whole_program_copied_bytes=stats.whole_program_copied_bytes)
     if guard is not None:
         sent = guard.sentinel
+        v = sent.last_verdict
         result["sentinel"] = {"steps": sent.steps, "healthy_steps": sent.healthy_steps,
                               "nonfinite_steps": sent.nonfinite_steps,
                               "skipped_steps": sent.skipped_steps,
-                              "last_health_word": guard.last_health}
+                              "gated_buckets": guard.gated_buckets,
+                              "last_health_word": None if v is None else [
+                                  v.nonfinite_grads, v.nonfinite_loss, v.nonfinite_state,
+                                  v.grad_norm, v.loss]}
     if on_card:
         result.update({
             "card": card_line(),
             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
             "model_tflops_per_s": tokens_per_step * fpt / (step_ms / 1e3) / 1e12,
             "share_of_989_tflops": tokens_per_step * fpt / (step_ms / 1e3) / H100_BF16_FLOPS,
-            "optimizer_ms": sum(opt_ms) / len(opt_ms),
         })
     if profile and on_card:
         result.update(profile_steps(step, profile))
+        fam = result["ms_per_step_by_family"]
+        result["optimizer_ms"] = sum(fam.get(k, 0.0) for k in OPTIMIZER_FAMILIES)
     return result
 
 
@@ -384,7 +453,7 @@ def main() -> None:
     ap.add_argument("--audit", action="store_true",
                     help="print each step's loss to stderr")
     ap.add_argument("--guard", action="store_true",
-                    help="run every step under the numerics guard (health word, gated update)")
+                    help="compile the step with the numerics guard (health word, gated update)")
     args = ap.parse_args()
     print(json.dumps(run(args.model, args.layers, args.batch, args.seq, args.steps, args.lr,
                          args.seed, args.device, args.profile,

@@ -121,7 +121,7 @@ def tensor_bytes(p) -> int:
 
 # -- the multi-tensor optimizer -----------------------------------------------
 
-def fused_adamw_cost(n_tensors: int, total_bytes: int) -> dict:
+def fused_adamw_cost(n_tensors: int, total_bytes: int, slab_persistent: bool = False) -> dict:
     """The bytes model of one optimizer dtype bucket: estimated us of the
     per-parameter chains against one multi-tensor launch. ``total_bytes`` is
     what the update moves (g, p, m, v read; p, m, v written, each in its
@@ -131,17 +131,23 @@ def fused_adamw_cost(n_tensors: int, total_bytes: int) -> dict:
     per-step bucket, computed as it computes it; the port's kernel packs no
     slab around the launch (``fused_adamw_into`` updates the tensors where
     they lie), so on the card the risk does not arise, and the verdict does
-    not read it. (The slab-persistent layout, whose risk the reference
-    counts apart, comes with the slab update on ``jit``, ROADMAP A.7.5.)"""
+    not read it. ``slab_persistent`` (a bucket of
+    ``AdamW(slab_persistent=True)``, whose m and v live in slabs between
+    steps) zeroes that risk, as the reference does, and surfaces the p/g
+    part apart (``pg_pack_bytes_if_unabsorbed``, 5/12 of it)."""
     launch = ADAMW_LAUNCH_OVERHEAD_US
     stream_us = total_bytes / (HBM_GBPS * 1e3)
     unfused = stream_us / ADAMW_CHAIN_EFFICIENCY + n_tensors * launch
     fused = stream_us / ADAMW_FUSED_EFFICIENCY + launch
-    return {"tensors": n_tensors, "total_bytes": total_bytes,
-            "saved_launches": max(n_tensors - 1, 0), "slab_persistent": False,
-            "pack_bytes_if_unabsorbed": 2 * total_bytes, "stream_us": round(stream_us, 3),
+    cost = {"tensors": n_tensors, "total_bytes": total_bytes,
+            "saved_launches": max(n_tensors - 1, 0), "slab_persistent": bool(slab_persistent),
+            "pack_bytes_if_unabsorbed": 0 if slab_persistent else 2 * total_bytes,
+            "stream_us": round(stream_us, 3),
             "est_unfused_us": round(unfused, 3), "est_fused_us": round(fused, 3),
             "est_saved_us": round(unfused - fused, 3)}
+    if slab_persistent:
+        cost["pg_pack_bytes_if_unabsorbed"] = (2 * total_bytes) * 5 // 12
+    return cost
 
 
 def fused_adamw_profitable(n_tensors: int, total_bytes: int) -> bool:

@@ -467,6 +467,14 @@ def epilogue_fusion_pass(trc: TraceCtx, executors) -> TraceCtx:
 # optimizer fusion: the dtype-bucketed multi-tensor AdamW
 # ---------------------------------------------------------------------------
 
+def adamw_bucket_key(b: BoundSymbol) -> tuple:
+    """The bucket of an ``optim.adamw_step``: its four tensors' dtypes, the
+    shared bias corrections and the hyperparameters."""
+    p, g, m, v, bc1, bc2 = b.args
+    return (p.dtype.name, g.dtype.name, m.dtype.name, v.dtype.name, bc1.name, bc2.name,
+            tuple(sorted((k, str(val)) for k, val in b.kwargs.items())))
+
+
 def optimizer_fusion_pass(trc: TraceCtx, executors) -> TraceCtx:
     """Bucket the per-parameter ``optim.adamw_step`` chains of the traced
     ``AdamW.update`` by dtype into ``optim.fused_adamw`` calls, one kernel
@@ -493,14 +501,9 @@ def optimizer_fusion_pass(trc: TraceCtx, executors) -> TraceCtx:
     for i, b in enumerate(bsyms):
         if b.sym.id != "optim.adamw_step" or len(b.args) != 6:
             continue
-        p, g, m, v, bc1, bc2 = b.args
-        if not all(isinstance(t, TensorProxy) for t in (p, g, m, v, bc1, bc2)):
+        if not all(isinstance(t, TensorProxy) for t in b.args) or len(b.flat_proxy_outs()) != 3:
             continue
-        if len(b.flat_proxy_outs()) != 3:
-            continue
-        key = (p.dtype.name, g.dtype.name, m.dtype.name, v.dtype.name, bc1.name, bc2.name,
-               tuple(sorted((k, str(val)) for k, val in b.kwargs.items())))
-        buckets.setdefault(key, []).append((i, b))
+        buckets.setdefault(adamw_bucket_key(b), []).append((i, b))
 
     replacements: dict[int, list[BoundSymbol]] = {}   # last member's index -> bsyms
     dropped: set[int] = set()
@@ -605,8 +608,9 @@ def mlp_block_verdict(n_tokens: int, d_model: int, d_ff: int, dtype_bytes: int, 
     ``backward``, the verdict taken before autodiff; as part of a decode
     step where ``decode``) and ``planned``. A chain inside a checkpointed
     region is never planned: the pass sees no chain there. The block pass
-    and the eager entry points (``benchmarks.pretrain.run``,
-    ``benchmarks.bench.run``) read this one verdict."""
+    and the entry points (``benchmarks.pretrain.run``,
+    ``benchmarks.bench.run``, which pass it to ``jit`` as ``block_fusion``)
+    read this one verdict."""
     cost = cost_model.subblock_cost(n_tokens, d_model, d_ff, dtype_bytes, backward=backward,
                                     decode=decode)
     cost["planned"] = not checkpointed and cost_model.subblock_profitable(cost)

@@ -142,3 +142,16 @@ def from_trace(trc: TraceCtx) -> TraceCtx:
     new._counters = dict(trc._counters)
     new.output = trc.output
     return new
+
+
+def copy_trace(trc: TraceCtx) -> TraceCtx:
+    """A copy of ``trc`` that a pass may rewrite in place (its signature,
+    bound symbols and name table are lists and sets of its own), with the
+    attributes the tracer set on ``trc`` (``input_proxies``, ...)."""
+    new = from_trace(trc)
+    vars(new).update({k: v for k, v in vars(trc).items() if k not in vars(new)})
+    new.provenance = trc.provenance
+    new.grad_names = None if trc.grad_names is None else set(trc.grad_names)
+    new.bound_symbols = list(trc.bound_symbols)
+    new._scopes = [new.bound_symbols]
+    return new

@@ -1,7 +1,7 @@
 """Trace dataflow analysis: producers/consumers, free variables.
 
 The counterpart of ``thunder_tpu/core/utils.py`` (``produced_vars``,
-``consumed_vars``, ``free_vars``): analyses recurse into
+``consumed_vars``, ``producers``, ``consumers``, ``free_vars``): analyses recurse into
 subsymbols (a composite consumes/produces everything its decomposition
 does) and are memoized per BoundSymbol, which is dataflow-immutable after
 construction.
@@ -49,6 +49,24 @@ def consumed_vars(bsym: BoundSymbol) -> frozenset[Variable]:
     result = frozenset(consumed)
     bsym._consumed_cache = result
     return result
+
+
+def producers(bsyms) -> dict[Variable, BoundSymbol]:
+    """Each variable's first producer among ``bsyms``."""
+    m: dict[Variable, BoundSymbol] = {}
+    for bsym in bsyms:
+        for v in produced_vars(bsym):
+            m.setdefault(v, bsym)
+    return m
+
+
+def consumers(bsyms) -> dict[Variable, list[BoundSymbol]]:
+    """Each variable's consumers among ``bsyms``, in order."""
+    m: dict[Variable, list[BoundSymbol]] = {}
+    for bsym in bsyms:
+        for v in consumed_vars(bsym):
+            m.setdefault(v, []).append(bsym)
+    return m
 
 
 def free_vars(bsyms) -> list[Variable]:

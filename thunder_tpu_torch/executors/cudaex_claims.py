@@ -9,11 +9,18 @@ the composite reduces them), each under the claim id ``cuda.<kernel>`` of
 the kernel it launches, the id the routers of :mod:`thunder_tpu_torch.ops.nn`
 already use. A training trace adds ``nn.sdpa_bwd`` (the attention VJP's
 backward, ``sdpa_bwd``) and ``optim.fused_adamw`` (the traced AdamW's
-dtype bucket, ``fused_adamw``; pallasex.py:2066-2084), and a planned one
+dtype bucket, ``fused_adamw``; pallasex.py:2066-2084) or
+``optim.fused_adamw_slab`` (a slab-persistent bucket, ``fused_adamw_slab``;
+pallasex.py:2088-2093), and a guarded one (``transforms.numerics_guard``) the
+health passes ``optim.fused_adamw_health`` and
+``optim.fused_adamw_slab_health`` (the kernels of the same names) and the
+gated updates ``optim.fused_adamw_gated`` and ``optim.fused_adamw_slab_gated``
+(claim ids ``cuda.fused_adamw`` and ``cuda.fused_adamw_slab``: the update
+kernels, given the health word), and a planned one
 ``nn.mlp_subblock`` and ``nn.mlp_subblock_bwd`` (the block planner's unit
 and its VJP rule's backward, the ``mlp_subblock`` and ``mlp_subblock_bwd``
-kernels; pallasex.py:2097-2105). The fused_adamw kernel updates
-the parameters and moments in place: the claim writes the donated inputs
+kernels; pallasex.py:2097-2105). The update kernels write
+the parameters and moments (or slabs) in place: the claim writes the donated inputs
 themselves where the claim pass marks them (``passes.donate_in_place``,
 ``jit(donate_argnums=)``) and dense copies of the others, and returns what it
 wrote. Each claimed symbol calls its kernel's router, so a launch runs behind
@@ -140,6 +147,25 @@ def _fused_adamw_checker(params, grads, ms, vs, bc1, bc2, **hyper):
     return _on_card(*params, *grads, *ms, *vs, bc1, bc2)
 
 
+def _gated_checker(params, grads, ms, vs, bc1, bc2, health, **hyper):
+    return _fused_adamw_checker(params, grads, ms, vs, bc1, bc2, **hyper) and _on_card(health)
+
+
+def _slab_checker(params, grads, m_slab, v_slab, bc1, bc2, **hyper):
+    params, grads = tuple(params), tuple(grads)
+    if not params or len(grads) != len(params):
+        return False
+    for group in (params, grads, (m_slab,), (v_slab,)):
+        d0 = group[0].dtype
+        if any(t.dtype != d0 for t in group) or not d0.is_float or d0.bytes > 4:
+            return False
+    return _on_card(*params, *grads, m_slab, v_slab, bc1, bc2)
+
+
+def _slab_gated_checker(params, grads, m_slab, v_slab, bc1, bc2, health, **hyper):
+    return _slab_checker(params, grads, m_slab, v_slab, bc1, bc2, **hyper) and _on_card(health)
+
+
 def _mlp_subblock_checker(residual, x, w_norm, w_gate, w_up, w_down, act="silu", eps=1e-5):
     if act not in _ACTS or w_norm is None or getattr(w_norm, "ndim", 0) != 1:
         return False
@@ -258,13 +284,51 @@ def _decode_layer_refusal(h, attn_norm, wq, wk, wv, wo, cos, sin, k_pages, v_pag
 
 def _fused_adamw_refusal(params, grads, ms, vs, bc1, bc2, *, state_dtype=None, v_dtype=None,
                          **hyper):
+    return _moments_refusal(ms, vs, state_dtype, v_dtype) or cudaex.refusal(
+        "fused_adamw", *([_meta(t) for t in group] for group in (params, grads, ms, vs)),
+        _bc_meta())
+
+
+def _bc_meta():
+    return torch.empty((2,), dtype=torch.float32, device="meta")
+
+
+def _acc_meta():
+    return torch.empty((3,), dtype=torch.float64, device="meta")
+
+
+def _moments_refusal(ms, vs, state_dtype, v_dtype):
     if not optim_ops.moments_stored(ms, vs, state_dtype, v_dtype):
         return (f"fused_adamw: the kernel updates the moments in place in their own dtypes "
                 f"({ms[0].dtype}, {vs[0].dtype}), not the optimizer's ({state_dtype}, "
                 f"{v_dtype})")
-    bc = torch.empty((2,), dtype=torch.float32, device="meta")
-    return cudaex.refusal("fused_adamw", *([_meta(t) for t in group]
-                                            for group in (params, grads, ms, vs)), bc)
+    return None
+
+
+def _gated_refusal(params, grads, ms, vs, bc1, bc2, health, *, state_dtype=None, v_dtype=None,
+                   **hyper):
+    return _moments_refusal(ms, vs, state_dtype, v_dtype) or cudaex.refusal(
+        "fused_adamw", *([_meta(t) for t in group] for group in (params, grads, ms, vs)),
+        _bc_meta(), health=_meta(health))
+
+
+def _health_refusal(params, grads, ms, vs, bc1, bc2, *, state_dtype=None, v_dtype=None,
+                    **hyper):
+    return _moments_refusal(ms, vs, state_dtype, v_dtype) or cudaex.refusal(
+        "fused_adamw_health", *([_meta(t) for t in group] for group in (params, grads, ms, vs)),
+        _bc_meta(), _acc_meta())
+
+
+def _slab_refusal(params, grads, m_slab, v_slab, bc1, bc2, health=None, *, sizes, **hyper):
+    return cudaex.refusal("fused_adamw_slab", [_meta(p) for p in params],
+                          [_meta(g) for g in grads], _meta(m_slab), _meta(v_slab), _bc_meta(),
+                          sizes=sizes, health=_meta(health))
+
+
+def _slab_health_refusal(params, grads, m_slab, v_slab, bc1, bc2, *, sizes, **hyper):
+    return cudaex.refusal("fused_adamw_slab_health", [_meta(p) for p in params],
+                          [_meta(g) for g in grads], _meta(m_slab), _meta(v_slab), _bc_meta(),
+                          _acc_meta(), sizes=sizes)
 
 
 # -- the claimed callables: the routers of ops/nn.py --------------------------
@@ -390,6 +454,22 @@ sdpa_bwd_op = _register("sdpa_bwd", "nn.sdpa_bwd", cuda_sdpa_bwd, _sdpa_bwd_chec
                         _sdpa_bwd_refusal)
 fused_adamw_op = _register("fused_adamw", "optim.fused_adamw", optim_ops.fused_adamw_into,
                            _fused_adamw_checker, _fused_adamw_refusal)
+fused_adamw_gated_op = _register("fused_adamw_gated", "optim.fused_adamw_gated",
+                                optim_ops.fused_adamw_gated_into, _gated_checker,
+                                _gated_refusal, claim="fused_adamw")
+fused_adamw_health_op = _register("fused_adamw_health", "optim.fused_adamw_health",
+                                 optim_ops.fused_adamw_health_into, _fused_adamw_checker,
+                                 _health_refusal)
+fused_adamw_slab_op = _register("fused_adamw_slab", "optim.fused_adamw_slab",
+                               optim_ops.fused_adamw_slab_into, _slab_checker, _slab_refusal)
+fused_adamw_slab_gated_op = _register("fused_adamw_slab_gated", "optim.fused_adamw_slab_gated",
+                                     optim_ops.fused_adamw_slab_gated_into,
+                                     _slab_gated_checker, _slab_refusal,
+                                     claim="fused_adamw_slab")
+fused_adamw_slab_health_op = _register("fused_adamw_slab_health",
+                                      "optim.fused_adamw_slab_health",
+                                      optim_ops.fused_adamw_slab_health_into, _slab_checker,
+                                      _slab_health_refusal)
 mlp_subblock_op = _register("mlp_subblock", "nn.mlp_subblock", cuda_mlp_subblock,
                             _mlp_subblock_checker, _mlp_subblock_refusal)
 mlp_subblock_bwd_op = _register("mlp_subblock_bwd", "nn.mlp_subblock_bwd",

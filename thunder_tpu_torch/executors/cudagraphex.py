@@ -30,8 +30,11 @@ would leave the caller's tensor unwritten); so is an input read where it
 lies, which from then on is copied (``recaptures``).
 
 Outputs: each tensor output is cloned out of the graph's memory, so a later
-replay never overwrites a tensor the caller holds; an output that is a
-donated input written in place is returned as that input.
+replay never overwrites a tensor the caller holds; an output that is an
+input the graph reads where it lies (a donated input written in place, or
+an input the program returns as it came: the optimizer state's layout
+version) is returned as that input, as the program per call returns it,
+so the next call passes the same tensor and nothing is captured again.
 
 A capture records the launches with the arguments their wrappers computed
 on the host: every such value is a trace constant (``eps``, ``scale``,
@@ -98,7 +101,7 @@ class WholeProgram:
         self.static: list[torch.Tensor] = []      # the graph's inputs
         self.outs: list = []                      # the graph's flat outputs
         self.out_tree = None
-        self.out_alias: dict[int, int] = {}       # output -> donated input it is
+        self.out_alias: dict[int, int] = {}       # output -> input read in place it is
         self.counts: dict = {}                    # the captured launches
         self.keep: list = []                      # host buffers the graph reads
         self.side: torch.cuda.Stream | None = None   # the warm-up's and captures' stream
@@ -184,7 +187,7 @@ class WholeProgram:
         self.out_alias = {}
         for j, o in enumerate(self.outs):
             if isinstance(o, torch.Tensor):
-                for i in self.donated:
+                for i in self.by_ref:
                     if o.data_ptr() == self.static[i].data_ptr():
                         self.out_alias[j] = i
                         break

@@ -8,14 +8,19 @@ anything. ``dot_general`` is ``torch.matmul`` (``a @ w.T`` for the
 bias) or ``torch.einsum`` for any other layout: a plain product outside any
 kernel of the port. The prologue's guard prims raise :class:`GuardFailure`.
 
-Six composites run as one implementation each rather than through their
-decomposition: ``nn.one_hot`` (built in its int32 output dtype, with no
-int64 intermediate), and, for tensors off the card, the plain versions of
-the kernels' composites ``nn.sdpa_bwd``, ``nn.mlp_subblock``,
-``nn.mlp_subblock_bwd``, ``optim.adamw_step`` and ``optim.fused_adamw``,
-the last through the card's claim's own callable
-(``ops.optim.fused_adamw_into``), which on the CPU runs the plain version
-into the donated inputs the claim pass marks.
+These composites run as one implementation each rather than through
+their decomposition: ``nn.one_hot`` (built in its int32 output dtype, with
+no int64 intermediate); the chunked loss ``nn.fused_linear_cross_entropy``
+and its backward ``nn.fused_linear_cross_entropy_bwd`` on any device (the
+port's chunked loops, ``ops.nn.flce_forward``/``flce_backward``: float32
+logits from the model dtype's operands, one chunk live at a time); and,
+for tensors off the card, the plain versions of the kernels' composites
+``nn.sdpa_bwd``, ``nn.mlp_subblock``, ``nn.mlp_subblock_bwd``,
+``optim.adamw_step`` and the optimizer's buckets ``optim.fused_adamw``,
+``optim.fused_adamw_slab``, their gated forms and their health passes,
+each bucket through the card's claim's own callable
+(``ops.optim.fused_adamw_into`` and its siblings), which on the CPU runs
+the plain version into the donated inputs the claim pass marks.
 """
 
 from __future__ import annotations
@@ -463,6 +468,22 @@ def _fused_adamw_checker(params, grads, ms, vs, bc1, bc2, *, state_dtype=None, v
     return _off_card(params, grads, ms, vs) and moments_stored(ms, vs, state_dtype, v_dtype)
 
 
+def _gated_checker(params, grads, ms, vs, bc1, bc2, health, **kw) -> bool:
+    return _fused_adamw_checker(params, grads, ms, vs, bc1, bc2, **kw)
+
+
+def _flce(h, w, target, *, chunk=None, ignore_index=-100):
+    from thunder_tpu_torch.ops.nn import flce_forward
+
+    return flce_forward(h, w, target, chunk, ignore_index)
+
+
+def _flce_bwd(gl, glse, h, w, target, lse, *, chunk=None, ignore_index=-100):
+    from thunder_tpu_torch.ops.nn import flce_backward
+
+    return flce_backward(gl, glse, h, w, target, lse, chunk, ignore_index)
+
+
 def _register_composites() -> None:
     from thunder_tpu_torch import ops
     from thunder_tpu_torch.ops import optim
@@ -472,8 +493,21 @@ def _register_composites() -> None:
             ("sdpa_bwd", "nn.sdpa_bwd", _sdpa_bwd, _off_card),
             ("mlp_subblock", "nn.mlp_subblock", _mlp_subblock, _off_card),
             ("mlp_subblock_bwd", "nn.mlp_subblock_bwd", _mlp_subblock_bwd, _off_card),
+            ("fused_linear_cross_entropy", "nn.fused_linear_cross_entropy", _flce, None),
+            ("fused_linear_cross_entropy_bwd", "nn.fused_linear_cross_entropy_bwd", _flce_bwd,
+             None),
             ("adamw_step", "optim.adamw_step", _adamw_step, _off_card),
-            ("fused_adamw", "optim.fused_adamw", optim.fused_adamw_into, _fused_adamw_checker)):
+            ("fused_adamw", "optim.fused_adamw", optim.fused_adamw_into, _fused_adamw_checker),
+            ("fused_adamw_gated", "optim.fused_adamw_gated", optim.fused_adamw_gated_into,
+             _gated_checker),
+            ("fused_adamw_health", "optim.fused_adamw_health", optim.fused_adamw_health_into,
+             _fused_adamw_checker),
+            ("fused_adamw_slab", "optim.fused_adamw_slab", optim.fused_adamw_slab_into,
+             _off_card),
+            ("fused_adamw_slab_gated", "optim.fused_adamw_slab_gated",
+             optim.fused_adamw_slab_gated_into, _off_card),
+            ("fused_adamw_slab_health", "optim.fused_adamw_slab_health",
+             optim.fused_adamw_slab_health_into, _off_card)):
         sym = ex.register_operator(name, meta=ops.get_op(op_id).meta, fn=fn)
         ex.register_implementation(op_id, sym, checker=checker)
 

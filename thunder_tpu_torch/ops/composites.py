@@ -20,8 +20,12 @@ the sub-block into ``nn.mlp_subblock`` and ``nn.mlp_subblock_bwd``,
 cross-entropy into ``nn.ce_fwd`` and the one-hot pullback, and the norm
 stays one ``nn.rms_norm`` with a plain pullback. Each rule declines
 (``NotImplemented``) what the reference's declines, and that call is
-differentiated through its decomposition. The reference's rules of the fp8
-linear and the chunked loss wait for their items (ROADMAP A.5, A.7.5).
+differentiated through its decomposition. The chunked loss
+:func:`fused_linear_cross_entropy` (:1049) differentiates, by the
+reference's ``_flce_vjp`` (:1111), into itself and one
+:func:`fused_linear_cross_entropy_bwd`, whose decomposition is that rule's
+pullback; the torch executor runs both whole (the port's chunked loops).
+The reference's rule of the fp8 linear waits for its item (ROADMAP A.5).
 
 They live beside the eager routers of :mod:`thunder_tpu_torch.ops.nn`, which
 carry the same names: under ``jit`` a router called on traced tensors
@@ -522,6 +526,101 @@ def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p: float = 0.0
 # the flash-style VJP rules: attention saves (q, k, v, out, lse) and
 # recomputes its probabilities in the backward; the norm saves (a, weight)
 # and recomputes its row statistics
+def _default_ce_chunk(V: int) -> int:
+    """The reference's vocab chunk (ops/nn.py:1040): forward and backward
+    must agree, since the backward recomputes each chunk against the
+    forward's lse."""
+    return 16384 if V <= 65536 else 8192
+
+
+def _chunk_logits(h, wc):
+    # the model dtype's operands, float32 accumulation and result
+    return prims.dot_general(h, wc, contract_dims=((1,), (1,)),
+                             preferred_element_type=dtypes.float32)
+
+
+@opsymbol(id="nn.fused_linear_cross_entropy")
+def fused_linear_cross_entropy(h, w, target, *, chunk: int | None = None,
+                               ignore_index: int = -100):
+    """``(mean nll, lse)`` of ``h @ w.T`` one vocab chunk at a time (the
+    reference's decomposition, ops/nn.py:1049): h (N, D), w (V, D), target
+    (N,) integer; the (N, V) logits never exist."""
+    N = h.shape[0]
+    V = w.shape[0]
+    chunk = chunk if chunk is not None else _default_ce_chunk(V)
+    tgt = ops.convert_element_type(target, dtypes.int32)
+    m = ops.full((N,), float("-inf"), dtype=dtypes.float32, device=h.device)
+    s = ops.full((N,), 0.0, dtype=dtypes.float32, device=h.device)
+    picked = ops.full((N,), 0.0, dtype=dtypes.float32, device=h.device)
+    for c0 in range(0, V, chunk):
+        cw = min(chunk, V - c0)
+        lg = _chunk_logits(h, ops.narrow(w, 0, c0, cw))
+        m_new = ops.maximum(m, ops.amax(lg, -1))
+        alpha = ops.exp(ops.sub(m, m_new))
+        e = ops.exp(ops.sub(lg, ops.unsqueeze(m_new, 1)))
+        s = ops.add(ops.mul(s, alpha), ops.sum(e, -1))
+        m = m_new
+        idx = ops.sub(tgt, c0)
+        valid = ops.logical_and(ops.ge(idx, 0), ops.lt(idx, cw))
+        safe = ops.clamp(idx, 0, cw - 1)
+        pc = ops.squeeze(prims.take_along_axis(lg, ops.unsqueeze(safe, 1), 1), (1,))
+        picked = ops.add(picked, ops.where(valid, pc, ops.zeros_like(pc)))
+    lse = ops.add(m, ops.log(s))
+    nll = ops.sub(lse, picked)
+    ok = ops.ne(tgt, ignore_index)
+    nll = ops.where(ok, nll, ops.zeros_like(nll))
+    count = ops.maximum(ops.sum(ops.convert_element_type(ok, dtypes.float32)), 1.0)
+    return ops.true_divide(ops.sum(nll), count), lse
+
+
+@opsymbol(id="nn.fused_linear_cross_entropy_bwd")
+def fused_linear_cross_entropy_bwd(gl, glse, h, w, target, lse, *, chunk: int | None = None,
+                                   ignore_index: int = -100):
+    """``(dh, dw)`` of :func:`fused_linear_cross_entropy` for the cotangents
+    ``gl`` of the loss and ``glse`` of the lse (either may be None), each
+    chunk's logits recomputed against the forward's ``lse``: the reference's
+    pullback (``_flce_vjp``, ops/nn.py:1111), op for op."""
+    N, D = h.shape
+    V = w.shape[0]
+    chunk = chunk if chunk is not None else _default_ce_chunk(V)
+    tgt = ops.convert_element_type(target, dtypes.int32)
+    hf = ops.convert_element_type(h, dtypes.float32)
+    okf = ops.convert_element_type(ops.ne(tgt, ignore_index), dtypes.float32)
+    count = ops.maximum(ops.sum(okf), 1.0)
+    # the nll term's row scale d(mean nll)/d(logit row); ignored rows 0
+    if gl is not None:
+        srow = ops.mul(okf, ops.true_divide(ops.convert_element_type(gl, dtypes.float32), count))
+    else:
+        srow = ops.full((N,), 0.0, dtype=dtypes.float32, device=h.device)
+    # the lse's cotangent adds to the softmax coefficient only: the one-hot
+    # term belongs to the nll alone
+    coef = srow if glse is None else ops.add(srow, ops.convert_element_type(glse,
+                                                                            dtypes.float32))
+    dh = ops.full((N, D), 0.0, dtype=dtypes.float32, device=h.device)
+    dw_chunks = []
+    for c0 in range(0, V, chunk):
+        cw = min(chunk, V - c0)
+        wc = ops.narrow(w, 0, c0, cw)
+        p = ops.exp(ops.sub(_chunk_logits(h, wc), ops.unsqueeze(lse, 1)))
+        # d(logits) rounded to the model dtype before both products
+        psc = ops.convert_element_type(ops.mul(p, ops.unsqueeze(coef, 1)), w.dtype)
+        dh = ops.add(dh, prims.dot_general(psc, wc, contract_dims=((1,), (0,)),
+                                           preferred_element_type=dtypes.float32))
+        dw_c = prims.dot_general(psc, h, contract_dims=((0,), (0,)),
+                                 preferred_element_type=dtypes.float32)
+        idx = ops.sub(tgt, c0)
+        valid = ops.logical_and(ops.ge(idx, 0), ops.lt(idx, cw))
+        safe = ops.clamp(idx, 0, cw - 1)
+        vrow = ops.mul(srow, ops.convert_element_type(valid, dtypes.float32))
+        dh = ops.sub(dh, ops.mul(ops.convert_element_type(prims.take(wc, safe, 0),
+                                                          dtypes.float32),
+                                 ops.unsqueeze(vrow, 1)))
+        dw_c = prims.index_add(dw_c, safe, ops.mul(hf, ops.unsqueeze(ops.neg(vrow), 1)), 0)
+        dw_chunks.append(dw_c)
+    return (ops.convert_element_type(dh, h.dtype),
+            ops.convert_element_type(ops.cat(dw_chunks, 0), w.dtype))
+
+
 # ---------------------------------------------------------------------------
 
 from thunder_tpu_torch.core.proxies import TensorProxy  # noqa: E402
@@ -622,3 +721,24 @@ def _cross_entropy_vjp(logits, target, weight=None, ignore_index: int = -100,
         return [(logits, ops.convert_element_type(dlogits, logits.dtype))]
 
     return loss, pullback
+
+
+@register_vjp("nn.fused_linear_cross_entropy")
+def _flce_vjp(h, w, target, *, chunk: int | None = None, ignore_index: int = -100):
+    """The chunked loss stays one composite in the forward, saving ``(h, w,
+    target, lse)``, and its pullback is one
+    ``nn.fused_linear_cross_entropy_bwd`` with the forward's chunk (the
+    reference's ``_flce_vjp``)."""
+    if chunk is None:
+        chunk = _default_ce_chunk(w.shape[0])   # the forward's, for the shared lse
+    loss, lse = fused_linear_cross_entropy(h, w, target, chunk=chunk, ignore_index=ignore_index)
+
+    def pullback(g):
+        gl, glse = (g[0], g[1]) if isinstance(g, (tuple, list)) else (g, None)
+        if gl is None and glse is None:
+            return []
+        dh, dw = fused_linear_cross_entropy_bwd(gl, glse, h, w, target, lse, chunk=chunk,
+                                                ignore_index=ignore_index)
+        return [(h, dh), (w, dw)]
+
+    return (loss, lse), pullback

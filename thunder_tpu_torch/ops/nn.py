@@ -52,8 +52,10 @@ counterpart of ``_mlp_subblock_vjp`` (:696): it saves its six inputs and its
 backward is the ``mlp_subblock_bwd`` kernel.
 
 ``fused_linear_cross_entropy`` (:1049, with its VJP :1111) has no kernel in
-the reference either: it is an autograd Function over vocab chunks whose
-products keep the model dtype's operands and sum into float32 logits.
+the reference either: its chunked loops (:func:`flce_forward`,
+:func:`flce_backward`) keep the model dtype's operands and sum into float32
+logits, an autograd Function eagerly and, under ``jit``, the torch
+executor's implementations of its composite and of its backward's.
 
 Serving decode (no autograd): ``decode_layer`` and ``attn_subblock`` run the
 whole T == 1 layer, or its attention half, as one kernel launch and then
@@ -650,74 +652,92 @@ def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.bmm(a.float(), b.float())
 
 
-class _FusedLinearCrossEntropy(torch.autograd.Function):
+def flce_forward(h, w, target, chunk: int, ignore_index: int = -100):
     """``(mean nll, lse)`` of ``h @ w.T`` one vocab chunk at a time; the
-    ``(N, V)`` logits never exist. The counterpart of the reference's op and
-    its VJP (ops/nn.py:1049, :1111), op for op."""
+    ``(N, V)`` logits never exist. The forward of the reference's op
+    (ops/nn.py:1049), op for op."""
+    N, V = h.shape[0], w.shape[0]
+    chunk = chunk if chunk is not None else _default_ce_chunk(V)
+    tgt = target.long()
+    m = torch.full((N,), float("-inf"), dtype=torch.float32, device=h.device)
+    s = torch.zeros(N, dtype=torch.float32, device=h.device)
+    picked = torch.zeros(N, dtype=torch.float32, device=h.device)
+    for c0 in range(0, V, chunk):
+        cw = min(chunk, V - c0)
+        lg = _mm_f32(h, w[c0:c0 + cw].t())
+        m_new = torch.maximum(m, lg.amax(-1))
+        alpha = torch.exp(m - m_new)
+        s = s * alpha + torch.exp(lg - m_new.unsqueeze(1)).sum(-1)
+        m = m_new
+        idx = tgt - c0
+        valid = (idx >= 0) & (idx < cw)
+        pc = lg.gather(1, idx.clamp(0, cw - 1).unsqueeze(1)).squeeze(1)
+        picked = picked + torch.where(valid, pc, torch.zeros_like(pc))
+        del lg
+    lse = m + torch.log(s)
+    ok = tgt != ignore_index
+    nll = torch.where(ok, lse - picked, torch.zeros_like(lse))
+    count = torch.clamp(ok.float().sum(), min=1.0)
+    return nll.sum() / count, lse
+
+
+def flce_backward(gl, glse, h, w, target, lse, chunk: int, ignore_index: int = -100):
+    """``(dh, dw)`` of :func:`flce_forward` for the cotangents ``gl`` of the
+    loss and ``glse`` of the lse (either may be None), each chunk recomputed
+    against the forward's ``lse``: the reference's VJP (ops/nn.py:1111)."""
+    N, D = h.shape
+    V = w.shape[0]
+    chunk = chunk if chunk is not None else _default_ce_chunk(V)
+    tgt = target.long()
+    okf = (tgt != ignore_index).float()
+    count = torch.clamp(okf.sum(), min=1.0)
+    # the nll term's row scale d(mean nll)/d(logit row); ignored rows 0. The
+    # lse output's gradient adds to the softmax coefficient only: the one-hot
+    # term belongs to the nll alone
+    srow = okf * (gl.float() / count) if gl is not None else torch.zeros_like(okf)
+    coef = srow if glse is None else srow + glse.float()
+    hf = h.float()
+    dh = torch.zeros((N, D), dtype=torch.float32, device=h.device)
+    dw = torch.empty((V, D), dtype=torch.float32, device=h.device)
+    for c0 in range(0, V, chunk):
+        cw = min(chunk, V - c0)
+        wc = w[c0:c0 + cw]
+        p = torch.exp(_mm_f32(h, wc.t()) - lse.unsqueeze(1))
+        # d(logits) rounded to the model dtype before both products
+        psc = (p * coef.unsqueeze(1)).to(w.dtype)
+        del p
+        dh += _mm_f32(psc, wc)
+        dw_c = _mm_f32(psc.t(), h)
+        idx = tgt - c0
+        valid = (idx >= 0) & (idx < cw)
+        safe = idx.clamp(0, cw - 1)
+        vrow = srow * valid.float()
+        dh -= wc[safe].float() * vrow.unsqueeze(1)
+        dw_c.index_add_(0, safe, hf * (-vrow).unsqueeze(1))
+        dw[c0:c0 + cw] = dw_c
+        del psc, dw_c
+    return dh.to(h.dtype), dw.to(w.dtype)
+
+
+class _FusedLinearCrossEntropy(torch.autograd.Function):
+    """:func:`flce_forward` and :func:`flce_backward` for torch's autograd
+    (the eager train step)."""
 
     @staticmethod
     def forward(ctx, h, w, target, chunk, ignore_index):
-        N, V = h.shape[0], w.shape[0]
-        tgt = target.long()
-        m = torch.full((N,), float("-inf"), dtype=torch.float32, device=h.device)
-        s = torch.zeros(N, dtype=torch.float32, device=h.device)
-        picked = torch.zeros(N, dtype=torch.float32, device=h.device)
-        for c0 in range(0, V, chunk):
-            cw = min(chunk, V - c0)
-            lg = _mm_f32(h, w[c0:c0 + cw].t())
-            m_new = torch.maximum(m, lg.amax(-1))
-            alpha = torch.exp(m - m_new)
-            s = s * alpha + torch.exp(lg - m_new.unsqueeze(1)).sum(-1)
-            m = m_new
-            idx = tgt - c0
-            valid = (idx >= 0) & (idx < cw)
-            pc = lg.gather(1, idx.clamp(0, cw - 1).unsqueeze(1)).squeeze(1)
-            picked = picked + torch.where(valid, pc, torch.zeros_like(pc))
-            del lg
-        lse = m + torch.log(s)
-        ok = tgt != ignore_index
-        nll = torch.where(ok, lse - picked, torch.zeros_like(lse))
-        count = torch.clamp(ok.float().sum(), min=1.0)
+        loss, lse = flce_forward(h, w, target, chunk, ignore_index)
         ctx.save_for_backward(h, w, target, lse)
         ctx.chunk, ctx.ignore_index = chunk, ignore_index
-        return nll.sum() / count, lse
+        return loss, lse
 
     @staticmethod
     def backward(ctx, gl, glse):
         h, w, target, lse = ctx.saved_tensors
-        N, D = h.shape
-        V, chunk = w.shape[0], ctx.chunk
-        tgt = target.long()
-        okf = (tgt != ctx.ignore_index).float()
-        count = torch.clamp(okf.sum(), min=1.0)
-        # the nll term's row scale d(mean nll)/d(logit row); ignored rows 0.
-        # The lse output's gradient adds to the softmax coefficient only: the
-        # one-hot term belongs to the nll alone
-        srow = okf * (gl.float() / count) if gl is not None else torch.zeros_like(okf)
-        coef = srow if glse is None else srow + glse.float()
-        hf = h.float()
-        dh = torch.zeros((N, D), dtype=torch.float32, device=h.device)
-        dw = torch.empty((V, D), dtype=torch.float32, device=h.device)
-        for c0 in range(0, V, chunk):
-            cw = min(chunk, V - c0)
-            wc = w[c0:c0 + cw]
-            p = torch.exp(_mm_f32(h, wc.t()) - lse.unsqueeze(1))
-            # d(logits) rounded to the model dtype before both products
-            psc = (p * coef.unsqueeze(1)).to(w.dtype)
-            del p
-            dh += _mm_f32(psc, wc)
-            dw_c = _mm_f32(psc.t(), h)
-            idx = tgt - c0
-            valid = (idx >= 0) & (idx < cw)
-            safe = idx.clamp(0, cw - 1)
-            vrow = srow * valid.float()
-            dh -= wc[safe].float() * vrow.unsqueeze(1)
-            dw_c.index_add_(0, safe, hf * (-vrow).unsqueeze(1))
-            dw[c0:c0 + cw] = dw_c
-            del psc, dw_c
-        return dh.to(h.dtype), dw.to(w.dtype), None, None, None
+        dh, dw = flce_backward(gl, glse, h, w, target, lse, ctx.chunk, ctx.ignore_index)
+        return dh, dw, None, None, None
 
 
+@traceable
 def fused_linear_cross_entropy(h: torch.Tensor, w: torch.Tensor, target: torch.Tensor, *,
                                chunk: int | None = None, ignore_index: int = -100):
     """Mean softmax cross-entropy of ``h @ w.T`` over the rows whose target
@@ -726,7 +746,8 @@ def fused_linear_cross_entropy(h: torch.Tensor, w: torch.Tensor, target: torch.T
     recomputes each chunk). ``h`` (N, D), ``w`` (V, D), ``target`` (N,)
     integer. Products take the operands in the model dtype and sum into
     float32 logits (:func:`flce_logits_route`). Differentiable in ``h`` and
-    ``w``; returns ``(loss, lse)``."""
+    ``w``; returns ``(loss, lse)``. Under ``jit`` it records the composite
+    ``nn.fused_linear_cross_entropy``, which has the reference's VJP rule."""
     if h.ndim != 2 or w.ndim != 2 or h.shape[1] != w.shape[1] or target.shape != h.shape[:1]:
         raise ValueError(f"fused_linear_cross_entropy: h {tuple(h.shape)}, w {tuple(w.shape)}, "
                          f"target {tuple(target.shape)}: want (N, D), (V, D), (N,)")

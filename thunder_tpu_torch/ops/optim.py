@@ -20,6 +20,15 @@ fusion pass builds from them and the ``cuda`` executor claims for the
 ``fused_adamw`` kernel; the torch executor runs both as the plain version. Their moments are stored
 in the configured ``state_dtype``/``v_dtype``, as the reference stores them;
 :func:`fused_adamw_into` is what both executors' claims of the bucket run.
+A slab-persistent ``AdamW`` records :data:`fused_adamw_slab_composite`
+(``optim.fused_adamw_slab``, :106) a bucket, and the numerics guard on
+``jit`` each bucket's health pass (``optim.fused_adamw_health``,
+``optim.fused_adamw_slab_health``: the port's, float64 ``(non-finite
+grads, sum of g*g, non-finite p'/m'/v')``) and gated update
+(``optim.fused_adamw_gated``, ``optim.fused_adamw_slab_gated``, whose
+decomposition is the reference guard's ``where(healthy, new, old)``); each
+is claimed by the kernel of the same name, the gated ones by the update
+kernels given the health word, through the ``*_into`` callables here.
 """
 
 from __future__ import annotations
@@ -256,24 +265,80 @@ def fused_adamw_composite(params, grads, ms, vs, bc1, bc2, *, lr: float = 1e-3,
     return tuple(tuple(t[i] for t in triples) for i in range(3))
 
 
+def _written(groups, donated):
+    """Each group's tensors as a claimed writer writes them: the donated
+    inputs the claim pass marks (``donated``, one tuple of flags a group,
+    from ``passes.donate_in_place``) themselves, dense copies of the
+    others, so an input that was not donated is never written."""
+    marks = donated or tuple((False,) * len(g) for g in groups)
+    return [[t if flag else torch.empty_like(t, memory_format=torch.contiguous_format).copy_(t)
+             for t, flag in zip(group, flags)] for group, flags in zip(groups, marks)]
+
+
 def fused_adamw_into(params, grads, ms, vs, bc1, bc2, *, lr, beta1, beta2, eps,
-                     weight_decay, state_dtype=None, v_dtype=None, donated=None):
+                     weight_decay, state_dtype=None, v_dtype=None, donated=None, health=None):
     """A claimed ``optim.fused_adamw``, on either executor: one
     :func:`fused_adamw` (the kernel on the card, the plain version on the
-    CPU) into the donated inputs the claim pass marks (``donated``, one
-    tuple of flags per group of :func:`_fused_adamw_targets`, from
-    ``passes.donate_in_place``) and dense
-    copies of the others, so an input that was not donated is never
-    written. Returns the updated ``(params, ms, vs)``. The moments must
-    already be in their stored dtypes (``state_dtype``/``v_dtype``): both
-    executors' checkers see to it."""
-    marks = donated or ((False,) * len(params),) * 3
-    ps, ms, vs = ([t if flag else torch.empty_like(t, memory_format=torch.contiguous_format)
-                   .copy_(t) for t, flag in zip(group, flags)]
-                  for group, flags in zip((params, ms, vs), marks))
+    CPU) into the donated inputs the claim pass marks and dense copies of
+    the others (:func:`_written`). Returns the updated ``(params, ms, vs)``.
+    The moments must already be in their stored dtypes
+    (``state_dtype``/``v_dtype``): both executors' checkers see to it.
+    ``health`` gates the update (:func:`fused_adamw_gated_into`)."""
+    ps, ms, vs = _written((params, ms, vs), donated)
     fused_adamw(ps, grads, ms, vs, torch.stack([bc1, bc2]), lr=lr, beta1=beta1, beta2=beta2,
-                eps=eps, weight_decay=weight_decay)
+                eps=eps, weight_decay=weight_decay, health=health)
     return tuple(ps), tuple(ms), tuple(vs)
+
+
+def fused_adamw_gated_into(params, grads, ms, vs, bc1, bc2, health, *, donated=None, **kw):
+    """A claimed ``optim.fused_adamw_gated``: :func:`fused_adamw_into` gated
+    on the health word ``health``, so an unhealthy step leaves every output
+    equal to its input."""
+    return fused_adamw_into(params, grads, ms, vs, bc1, bc2, donated=donated, health=health,
+                            **kw)
+
+
+def fused_adamw_health_into(params, grads, ms, vs, bc1, bc2, *, lr, beta1, beta2, eps,
+                            weight_decay, state_dtype=None, v_dtype=None):
+    """A claimed ``optim.fused_adamw_health``: a fresh float64 accumulator
+    of shape (3,) through one :func:`fused_adamw_health` (the kernel on the
+    card, the plain version on the CPU)."""
+    acc = torch.zeros(3, dtype=torch.float64, device=params[0].device)
+    fused_adamw_health(params, grads, ms, vs, torch.stack([bc1, bc2]), acc, lr=lr,
+                       beta1=beta1, beta2=beta2, eps=eps, weight_decay=weight_decay)
+    return acc
+
+
+def fused_adamw_slab_into(params, grads, m_slab, v_slab, bc1, bc2, *, sizes, lr, beta1, beta2,
+                          eps, weight_decay, donated=None, health=None):
+    """A claimed ``optim.fused_adamw_slab``, on either executor: one
+    :func:`fused_adamw_slab` into the donated params and slabs themselves,
+    copies of the others (:func:`_written`); ``health`` gates it. Returns
+    ``(params, m_slab, v_slab)``."""
+    ps, (m,), (v,) = _written((params, (m_slab,), (v_slab,)), donated)
+    fused_adamw_slab(ps, grads, m, v, torch.stack([bc1, bc2]), sizes=sizes, lr=lr,
+                     beta1=beta1, beta2=beta2, eps=eps, weight_decay=weight_decay,
+                     health=health)
+    return tuple(ps), m, v
+
+
+def fused_adamw_slab_gated_into(params, grads, m_slab, v_slab, bc1, bc2, health, *,
+                                donated=None, **kw):
+    """A claimed ``optim.fused_adamw_slab_gated``: :func:`fused_adamw_slab_into`
+    gated on the health word."""
+    return fused_adamw_slab_into(params, grads, m_slab, v_slab, bc1, bc2, donated=donated,
+                                 health=health, **kw)
+
+
+def fused_adamw_slab_health_into(params, grads, m_slab, v_slab, bc1, bc2, *, sizes, lr, beta1,
+                                 beta2, eps, weight_decay):
+    """A claimed ``optim.fused_adamw_slab_health``: the slab bucket's health
+    pass into a fresh float64 accumulator."""
+    acc = torch.zeros(3, dtype=torch.float64, device=params[0].device)
+    fused_adamw_slab_health(params, grads, m_slab, v_slab, torch.stack([bc1, bc2]), acc,
+                            sizes=sizes, lr=lr, beta1=beta1, beta2=beta2, eps=eps,
+                            weight_decay=weight_decay)
+    return acc
 
 
 def _fused_adamw_targets(params, grads, ms, vs, *args, state_dtype=None, v_dtype=None,
@@ -286,10 +351,172 @@ def _fused_adamw_targets(params, grads, ms, vs, *args, state_dtype=None, v_dtype
               for group, dt in ((ms, state_dtype), (vs, v_dtype)))]
 
 
-writes_in_place(fused_adamw_into, _fused_adamw_targets)
+def _slab_targets(params, grads, m_slab, v_slab, *args, **kwargs):
+    """The groups :func:`fused_adamw_slab_into` may write in place: the
+    params and each slab, in their own dtypes."""
+    return [[(p, p.dtype) for p in params], [(m_slab, m_slab.dtype)], [(v_slab, v_slab.dtype)]]
+
+
+for _fn, _targets in ((fused_adamw_into, _fused_adamw_targets),
+                      (fused_adamw_gated_into, _fused_adamw_targets),
+                      (fused_adamw_slab_into, _slab_targets),
+                      (fused_adamw_slab_gated_into, _slab_targets)):
+    writes_in_place(_fn, _targets)
 
 
 def moments_stored(ms, vs, state_dtype=None, v_dtype=None) -> bool:
     """Are the moments in the dtypes the optimizer stores them in?"""
     return all(want is None or group[0].dtype == dtypes.to_dtype(want)
                for group, want in ((ms, state_dtype), (vs, v_dtype)))
+
+
+# ---------------------------------------------------------------------------
+# the slab update, the health passes and the gated updates on the trace
+# (thunder_tpu/ops/optim.py:106; the gated forms and the health passes are
+# the port's own: transforms/numerics_guard.py)
+# ---------------------------------------------------------------------------
+
+@opsymbol(name="fused_adamw_slab", id="optim.fused_adamw_slab")
+def fused_adamw_slab_composite(params, grads, m_slab, v_slab, bc1, bc2, *, sizes,
+                               lr: float = 1e-3, beta1: float = 0.9, beta2: float = 0.999,
+                               eps: float = 1e-8, weight_decay: float = 0.0):
+    """Multi-tensor AdamW over one dtype bucket whose m and v live in the
+    ``(rows, 128)`` slabs between steps (``AdamW(slab_persistent=True)``):
+    ``(params, grads, m_slab, v_slab, bc1, bc2) -> (new_params, new_m_slab,
+    new_v_slab)``. The reference's decomposition: each parameter's run of
+    the flattened slabs takes ``adamw_step`` and is packed back; the zero pad
+    tail stays zero."""
+    params, grads = tuple(params), tuple(grads)
+    sizes = tuple(int(s) for s in sizes)
+    check(len(params) > 0, "fused_adamw_slab: empty bucket")
+    check(len(params) == len(grads) == len(sizes),
+          lambda: f"fused_adamw_slab: mismatched bucket lengths "
+                  f"{(len(params), len(grads), len(sizes))}")
+    total = sum(sizes)
+    rows_pad, _ = slab_geometry(total)
+    check(tuple(m_slab.shape) == (rows_pad, SLAB_LANE)
+          and tuple(v_slab.shape) == (rows_pad, SLAB_LANE),
+          lambda: f"fused_adamw_slab: slab shape {tuple(m_slab.shape)}/{tuple(v_slab.shape)} "
+                  f"does not match the bucket geometry ({rows_pad}, {SLAB_LANE}) for {total} "
+                  f"elements")
+    m_flat = ops.reshape(m_slab, (rows_pad * SLAB_LANE,))
+    v_flat = ops.reshape(v_slab, (rows_pad * SLAB_LANE,))
+    new_ps, new_ms, new_vs = [], [], []
+    off = 0
+    for p, g, n in zip(params, grads, sizes):
+        m_i = ops.reshape(ops.narrow(m_flat, 0, off, n), tuple(p.shape))
+        v_i = ops.reshape(ops.narrow(v_flat, 0, off, n), tuple(p.shape))
+        p_new, m_new, v_new = adamw_step(p, g, m_i, v_i, bc1, bc2, lr=lr, beta1=beta1,
+                                         beta2=beta2, eps=eps, weight_decay=weight_decay,
+                                         state_dtype=m_slab.dtype, v_dtype=v_slab.dtype)
+        new_ps.append(p_new)
+        new_ms.append(ops.reshape(m_new, (n,)))
+        new_vs.append(ops.reshape(v_new, (n,)))
+        off += n
+    pad = rows_pad * SLAB_LANE - total
+    if pad:
+        new_ms.append(ops.full((pad,), 0.0, dtype=m_slab.dtype, device=m_slab.device))
+        new_vs.append(ops.full((pad,), 0.0, dtype=v_slab.dtype, device=v_slab.device))
+    m_out = ops.reshape(ops.cat(new_ms, 0), (rows_pad, SLAB_LANE))
+    v_out = ops.reshape(ops.cat(new_vs, 0), (rows_pad, SLAB_LANE))
+    return tuple(new_ps), m_out, v_out
+
+
+def _count_nonfinite(t):
+    """The count of ``t``'s non-finite elements, float64 (exact)."""
+    return ops.sum(ops.convert_element_type(ops.logical_not(ops.isfinite(t)), dtypes.float64))
+
+
+def _tally_terms(g, new):
+    """One parameter's health terms, float64 (3,): its non-finite grads, the
+    float32 sum of g*g, the non-finite elements of ``new`` (p', m', v' as
+    stored)."""
+    gf = ops.convert_element_type(g, dtypes.float32)
+    nf_state = _count_nonfinite(new[0])
+    for t in new[1:]:
+        nf_state = ops.add(nf_state, _count_nonfinite(t))
+    ss = ops.convert_element_type(ops.sum(ops.mul(gf, gf)), dtypes.float64)
+    return ops.stack([_count_nonfinite(gf), ss, nf_state], 0)
+
+
+def _sum_terms(terms, device):
+    acc = ops.full((3,), 0.0, dtype=dtypes.float64, device=device)
+    for t in terms:
+        acc = ops.add(acc, t)
+    return acc
+
+
+@opsymbol(name="fused_adamw_health", id="optim.fused_adamw_health")
+def fused_adamw_health_composite(params, grads, ms, vs, bc1, bc2, *, lr: float = 1e-3,
+                                 beta1: float = 0.9, beta2: float = 0.999, eps: float = 1e-8,
+                                 weight_decay: float = 0.0, state_dtype=None, v_dtype=None):
+    """The health pass of ``optim.fused_adamw`` over its bucket: float64
+    ``(non-finite grads, sum of g*g, non-finite p'/m'/v' as stored)``, the
+    update computed and nothing stored."""
+    terms = [_tally_terms(g, adamw_step(p, g, m, v, bc1, bc2, lr=lr, beta1=beta1, beta2=beta2,
+                                        eps=eps, weight_decay=weight_decay,
+                                        state_dtype=state_dtype, v_dtype=v_dtype))
+             for p, g, m, v in zip(params, grads, ms, vs, strict=True)]
+    return _sum_terms(terms, params[0].device)
+
+
+@opsymbol(name="fused_adamw_slab_health", id="optim.fused_adamw_slab_health")
+def fused_adamw_slab_health_composite(params, grads, m_slab, v_slab, bc1, bc2, *, sizes,
+                                      lr: float = 1e-3, beta1: float = 0.9,
+                                      beta2: float = 0.999, eps: float = 1e-8,
+                                      weight_decay: float = 0.0):
+    """The health pass of ``optim.fused_adamw_slab`` over its bucket, as
+    ``optim.fused_adamw_health`` is of ``optim.fused_adamw``."""
+    m_flat = ops.reshape(m_slab, (int(m_slab.shape[0]) * SLAB_LANE,))
+    v_flat = ops.reshape(v_slab, (int(v_slab.shape[0]) * SLAB_LANE,))
+    terms, off = [], 0
+    for p, g, n in zip(params, grads, sizes, strict=True):
+        n = int(n)
+        m_i = ops.reshape(ops.narrow(m_flat, 0, off, n), tuple(p.shape))
+        v_i = ops.reshape(ops.narrow(v_flat, 0, off, n), tuple(p.shape))
+        terms.append(_tally_terms(g, adamw_step(
+            p, g, m_i, v_i, bc1, bc2, lr=lr, beta1=beta1, beta2=beta2, eps=eps,
+            weight_decay=weight_decay, state_dtype=m_slab.dtype, v_dtype=v_slab.dtype)))
+        off += n
+    return _sum_terms(terms, params[0].device)
+
+
+def healthy_of(health):
+    """The verdict of a traced health word, a 0-d bool: its non-finite total
+    (grads + loss + state, in that order) is 0 (:func:`healthy`)."""
+    total = ops.add(ops.add(ops.getitem(health, 0), ops.getitem(health, 1)),
+                    ops.getitem(health, 2))
+    return ops.eq(total, 0.0)
+
+
+def _select(ok, new, old):
+    return tuple(ops.where(ok, n, o) for n, o in zip(new, old))
+
+
+@opsymbol(name="fused_adamw_gated", id="optim.fused_adamw_gated")
+def fused_adamw_gated_composite(params, grads, ms, vs, bc1, bc2, health, *, lr: float = 1e-3,
+                                beta1: float = 0.9, beta2: float = 0.999, eps: float = 1e-8,
+                                weight_decay: float = 0.0, state_dtype=None, v_dtype=None):
+    """``optim.fused_adamw`` gated on a health word: the reference guard's
+    select, ``where(healthy, new, old)`` for every output, so an unhealthy
+    step returns its inputs bit for bit. Claimed, the update kernel reads
+    the word and stores nothing unless it is healthy."""
+    new = fused_adamw_composite(params, grads, ms, vs, bc1, bc2, lr=lr, beta1=beta1,
+                                beta2=beta2, eps=eps, weight_decay=weight_decay,
+                                state_dtype=state_dtype, v_dtype=v_dtype)
+    ok = healthy_of(health)
+    return tuple(_select(ok, n, o) for n, o in zip(new, (params, ms, vs)))
+
+
+@opsymbol(name="fused_adamw_slab_gated", id="optim.fused_adamw_slab_gated")
+def fused_adamw_slab_gated_composite(params, grads, m_slab, v_slab, bc1, bc2, health, *, sizes,
+                                     lr: float = 1e-3, beta1: float = 0.9,
+                                     beta2: float = 0.999, eps: float = 1e-8,
+                                     weight_decay: float = 0.0):
+    """``optim.fused_adamw_slab`` gated on a health word, as
+    ``optim.fused_adamw_gated`` gates ``optim.fused_adamw``."""
+    ps, m, v = fused_adamw_slab_composite(params, grads, m_slab, v_slab, bc1, bc2, sizes=sizes,
+                                          lr=lr, beta1=beta1, beta2=beta2, eps=eps,
+                                          weight_decay=weight_decay)
+    ok = healthy_of(health)
+    return _select(ok, ps, params), ops.where(ok, m, m_slab), ops.where(ok, v, v_slab)

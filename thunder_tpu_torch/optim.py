@@ -127,6 +127,10 @@ class AdamW:
     grads, state, loss)`` gives the numerics guard's health word of that
     step without taking it, and ``update(..., health=word)`` takes the step
     only where the word is healthy (the counter advances by the verdict).
+    Under ``jit`` each records its composites instead (``update``: one
+    ``optim.adamw_step`` a parameter, or a bucket's slab or gated update;
+    ``health``: a bucket's health pass), the moments in the configured
+    dtypes.
 
     ``slab_persistent=True`` keeps m and v in one ``(rows, 128)`` slab per
     parameter dtype bucket between steps (the reference's layout,
@@ -296,6 +300,10 @@ class AdamW:
         it would be stored, the global grad norm, the loss), from every
         bucket's health pass before any update runs. Writes nothing but the
         word; no host sync."""
+        from thunder_tpu_torch.core.trace import get_tracectx
+
+        if get_tracectx() is not None:
+            return self._health_traced(params, grads, state, loss)
         buckets = self._buckets(params, grads, state)
         bc = self._bias_corrections(state, commit=False)
         acc = torch.zeros(3, dtype=torch.float64, device=bc.device)
@@ -310,36 +318,107 @@ class AdamW:
 
     def _update_traced(self, params, grads, state, health):
         """The traced update, as the reference's ``AdamW.update`` traces it
-        (``thunder_tpu/optim.py:277-305``): one ``optim.adamw_step`` a
-        parameter, new trees out. The optimizer fusion pass buckets the
-        steps by dtype into ``optim.fused_adamw`` calls, one kernel launch a
-        bucket (``core/fusion_passes.optimizer_fusion_pass``); a bucket of
-        one keeps its step."""
+        (``thunder_tpu/optim.py:277-380``): one ``optim.adamw_step`` a
+        parameter, new trees out, which the optimizer fusion pass buckets by
+        dtype into ``optim.fused_adamw`` calls, one kernel launch a bucket
+        (``core/fusion_passes.optimizer_fusion_pass``; a bucket of one keeps
+        its step); with ``slab_persistent``, one ``optim.fused_adamw_slab`` a
+        bucket of the slab layout. ``health``, a traced health word, takes
+        each bucket's gated form instead (``optim.fused_adamw_gated``, one a
+        dtype bucket, or ``optim.fused_adamw_slab_gated``) and advances the
+        counter by the verdict."""
         from thunder_tpu_torch.core import dtypes
-        from thunder_tpu_torch.ops.optim import adamw_step
         from thunder_tpu_torch.torch import on_torch
 
-        if health is not None:
-            raise NotImplementedError("AdamW.update(health=) under jit: the numerics guard on "
-                                      "jit (jit(transforms=)) is not ported yet (ROADMAP A.7.6)")
-        if self.slab_persistent:
-            raise NotImplementedError("AdamW(slab_persistent=True) under jit: the slab update "
-                                      "comes with the bench on jit (ROADMAP A.7.5)")
         nxt = state["step"] + 1.0
         bc1, bc2 = self._corrections(nxt)
+        hyper = self._hyper
+        stored = dict(state_dtype=dtypes.to_dtype(self.state_dtype),
+                      v_dtype=dtypes.to_dtype(self.v_dtype))
+        step = nxt
+        if health is not None:
+            step = state["step"] + on_torch(optim_ops.healthy_of)(health).float()
+        if self.slab_persistent:
+            new_leaves = list(tree_leaves(params))
+            new_m, new_v = {}, {}
+            for (_, (ps, gs, m, v), kw), (key, members) in zip(
+                    self._buckets(params, grads, state), self._slab_layout(params)):
+                self._record_slab_bucket(key, ps, gs, kw["sizes"])
+                if health is None:
+                    out = on_torch(optim_ops.fused_adamw_slab_composite)(
+                        ps, gs, m, v, bc1, bc2, **kw, **hyper)
+                else:
+                    out = on_torch(optim_ops.fused_adamw_slab_gated_composite)(
+                        ps, gs, m, v, bc1, bc2, health, **kw, **hyper)
+                for (i, _, _), pn in zip(members, out[0]):
+                    new_leaves[i] = pn
+                new_m[key], new_v[key] = out[1], out[2]
+            return tree_unflatten(params, new_leaves), {
+                "m": new_m, "v": new_v, "step": step, "layout_version": state["layout_version"]}
         quads = list(zip(tree_leaves(params), tree_leaves(grads), tree_leaves(state["m"]),
                          tree_leaves(state["v"]), strict=True))
-        step = on_torch(adamw_step)
-        new = [[], [], []]
-        for p, g, m, v in quads:
-            outs = step(p, g, m, v, bc1, bc2, **self._hyper,
-                        state_dtype=dtypes.to_dtype(self.state_dtype),
-                        v_dtype=dtypes.to_dtype(self.v_dtype))
-            for k in range(3):
-                new[k].append(outs[k])
+        new = [[None] * len(quads) for _ in range(3)]
+        if health is None:
+            adamw_step = on_torch(optim_ops.adamw_step)
+            for i, (p, g, m, v) in enumerate(quads):
+                outs = adamw_step(p, g, m, v, bc1, bc2, **hyper, **stored)
+                for k in range(3):
+                    new[k][i] = outs[k]
+        else:
+            by_dtype: dict = {}
+            for i, quad in enumerate(quads):
+                by_dtype.setdefault(quad[0].dtype, []).append(i)
+            gated = on_torch(optim_ops.fused_adamw_gated_composite)
+            for idx in by_dtype.values():
+                outs = gated(*([quads[i][j] for i in idx] for j in range(4)), bc1, bc2, health,
+                             **hyper, **stored)
+                for k in range(3):
+                    for i, t in zip(idx, outs[k]):
+                        new[k][i] = t
         return tree_unflatten(params, new[0]), {"m": tree_unflatten(state["m"], new[1]),
                                                 "v": tree_unflatten(state["v"], new[2]),
-                                                "step": nxt}
+                                                "step": step}
+
+    def _record_slab_bucket(self, key, ps, gs, sizes) -> None:
+        """The reference's decision record of a slab bucket
+        (``thunder_tpu/optim.py:340-356``): bucketed, with its bytes model."""
+        from thunder_tpu_torch.core import cost_model
+        from thunder_tpu_torch.observe import decisions as _decisions
+        from thunder_tpu_torch.observe import registry as _observe
+
+        itemsize = (torch.empty(0, dtype=self.state_dtype).element_size()
+                    + torch.empty(0, dtype=self.v_dtype).element_size())
+        total = sum(g.numel() * g.element_size() + 2 * (p.numel() * p.element_size() + n * itemsize)
+                    for p, g, n in zip(ps, gs, sizes))
+        cost = dict(cost_model.fused_adamw_cost(len(ps), total, slab_persistent=True),
+                    dtypes=(key,))
+        _decisions.record("fusion", "optim.fused_adamw_slab", None, "bucketed",
+                          "slab-persistent state: m/v stay packed between steps "
+                          "(pack_bytes_if_unabsorbed = 0 by construction)", cost=cost)
+        _observe.inc("fusion.optimizer_buckets")
+
+    def _health_traced(self, params, grads, state, loss):
+        """The traced health word: one ``optim.fused_adamw_health`` (or
+        ``optim.fused_adamw_slab_health``) a bucket, the loss's count and
+        value beside, as :meth:`health` builds it eagerly."""
+        from thunder_tpu_torch.core import dtypes
+        from thunder_tpu_torch.torch import on_torch
+
+        bc1, bc2 = self._corrections(state["step"] + 1.0)
+        stored = dict(state_dtype=dtypes.to_dtype(self.state_dtype),
+                      v_dtype=dtypes.to_dtype(self.v_dtype))
+        acc = None
+        for kind, args, kw in self._buckets(params, grads, state):
+            if kind == "slab":
+                a = on_torch(optim_ops.fused_adamw_slab_health_composite)(
+                    *args, bc1, bc2, **kw, **self._hyper)
+            else:
+                a = on_torch(optim_ops.fused_adamw_health_composite)(
+                    *args, bc1, bc2, **self._hyper, **stored)
+            acc = a if acc is None else acc + a
+        lossf = loss.float().reshape(())
+        return torch.stack([acc[0].float(), (~torch.isfinite(lossf)).float(), acc[2].float(),
+                            torch.sqrt(acc[1]).float(), lossf])
 
     @torch.no_grad()
     def update(self, params, grads, state, health: torch.Tensor | None = None):

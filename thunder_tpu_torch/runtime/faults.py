@@ -177,6 +177,10 @@ class FaultSpec:
         return True
 
 
+# the numerics guard's poison inputs, fed by its wrapper at every call
+GUARD_INPUT_DOMAINS = ("numerics:grads", "numerics:loss")
+
+
 class FaultPlan:
     """A set of :class:`FaultSpec` entries consulted by every hook point."""
 
@@ -187,6 +191,16 @@ class FaultPlan:
     def add(self, spec: FaultSpec) -> "FaultPlan":
         self.specs.append(spec)
         return self
+
+    def affects_compile(self) -> bool:
+        """Whether ``jit``'s cache key must hold this plan (the reference's
+        ``affects_compile``): a spec may fire inside a compiled entry's
+        kernel routers, which act at its first calls only (a CUDA graph
+        replays what they launched), or at compile time. Only a plan of the
+        numerics guard's input domains (``numerics:grads``,
+        ``numerics:loss``), which the guard's wrapper reads at every call,
+        affects none."""
+        return any(spec.domain not in GUARD_INPUT_DOMAINS for spec in self.specs)
 
     def maybe_fail(self, domain: str, *, step: int | None = None,
                    site: str | None = None) -> None:

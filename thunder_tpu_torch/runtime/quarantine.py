@@ -217,6 +217,13 @@ def suppress(claim_ids, reason: str = "bisection probe"):
         _suppressed.reset(tok)
 
 
+def suppression_key() -> frozenset:
+    """The context's suppressed claims: part of ``jit``'s cache key, so an
+    entry compiled under one bisection probe serves only calls made under
+    the same suppression."""
+    return frozenset(_suppressed.get())
+
+
 def is_routed_off(claim_id: str) -> bool:
     """True when the routers must not send ``claim_id`` to its kernel: it is
     quarantined, or suppressed in this context. The routers' per-call

@@ -41,11 +41,15 @@ Chaos-test the whole ladder with the ``numerics:*`` fault domains of
 
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import os
 import time
+import weakref
 from contextlib import contextmanager
+
+import torch
 
 from thunder_tpu_torch.observe import registry as _observe
 
@@ -195,8 +199,8 @@ class NumericsSentinel:
         self._fold_suppress = 0  # healthy losses to re-judge but NOT re-fold
         # (set via notify_rewind: the rewind's replayed steps were already
         # folded once; folding them again would deflate the EWMA variance)
-        self._replay_source = None  # (fn_name, inputs, decisions) set per
-        # call by the guard so bundles can include the exact step inputs
+        self._replay_source = None  # (fn_name, entry, inputs, decisions) set
+        # per call by the guard so bundles can include the exact step inputs
 
     @property
     def policy(self) -> NumericsPolicy:
@@ -322,9 +326,9 @@ class NumericsSentinel:
         if pol.replay_dir is None:
             return None
         try:
-            fn_name, inps, decisions = self._replay_source or ("fn", None, None)
+            fn_name, entry, inps, decisions = self._replay_source or ("fn", None, None, None)
             return dump_replay_bundle(
-                pol.replay_dir, kind=kind, verdict=verdict, fn_name=fn_name,
+                pol.replay_dir, kind=kind, verdict=verdict, fn_name=fn_name, entry=entry,
                 inputs=inps if pol.dump_inputs else None, decisions=decisions)
         except Exception:
             return None  # diagnostics must never take the step down
@@ -350,13 +354,42 @@ _DEFAULT_POLICY = NumericsPolicy()
 # bisection: attribute persistent non-finite output to one claimed kernel
 # ---------------------------------------------------------------------------
 
-def claimed_kernel_ids(calls: dict) -> list[str]:
-    """Claim ids of the kernels a step routed — the bisection candidate set:
-    the claims with a non-zero count in ``calls``, the kernel guard's
-    per-claim call counts over the step (``runtime.faults.claim_calls()``).
-    A claim the quarantine sent to its fallback was not entered, so it is
-    not a candidate."""
-    return sorted(c for c, n in calls.items() if n)
+def claimed_kernel_ids(exec_trc) -> list[str]:
+    """Claim ids of the kernels in an execution trace — the bisection
+    candidate set of a compiled step: the ``cuda`` executor's symbols
+    (``cuda.<kernel>``). The eager guard passes instead the kernel guard's
+    per-claim call counts over its step (``runtime.faults.claim_calls()``, a
+    dict): then the claims with a non-zero count, since a claim the
+    quarantine sent to its fallback was not entered."""
+    if isinstance(exec_trc, dict):
+        return sorted(c for c, n in exec_trc.items() if n)
+    return sorted({str(b.sym.id) for b in exec_trc.bound_symbols
+                   if b.sym.executor is not None and str(b.sym.id).startswith("cuda.")})
+
+
+# the donated inputs the last compiled call wrote in place, by id, held
+# weakly: a bisection cannot re-run a call whose inputs it consumed
+_consumed: dict[int, weakref.ref] = {}
+
+
+def note_consumed(tensors) -> None:
+    """Record the donated inputs a compiled call writes in place
+    (replacing the last call's record); ``jit`` calls it for functions with
+    transforms."""
+    _consumed.clear()
+    _consumed.update((id(t), weakref.ref(t)) for t in tensors)
+
+
+def inputs_alive(tree) -> bool:
+    """False when a tensor leaf of ``tree`` is a donated input the last
+    compiled call wrote in place (the reference: a donated, deleted
+    array): bisection probes cannot re-run such inputs."""
+    if not _consumed:
+        return True
+    from thunder_tpu_torch.core.pytree import tree_leaves
+
+    return not any(isinstance(t, torch.Tensor) and id(t) in _consumed
+                   and _consumed[id(t)]() is t for t in tree_leaves(tree))
 
 
 def _memoized_probe(probe):
@@ -435,11 +468,12 @@ def _host_array(x):
 
 
 def dump_replay_bundle(directory: str, *, kind: str, verdict: Verdict,
-                       fn_name: str = "fn", inputs=None, decisions=None) -> str:
+                       fn_name: str = "fn", entry=None, inputs=None, decisions=None) -> str:
     """Write an offline-repro bundle for an anomaly: ``meta.json`` (verdict,
-    the kernels the step routed, time) plus ``inputs.npz`` (the exact step
-    inputs, when provided: tensors as numpy, 16-bit floats as float32).
-    Returns the bundle directory."""
+    the decision log, time; with a compiled step's cache ``entry``, the hash
+    of its execution trace, written beside as ``execution_trace.py``) plus
+    ``inputs.npz`` (the exact step inputs, when provided: tensors as numpy,
+    16-bit floats as float32). Returns the bundle directory."""
     import numpy as np
 
     bundle = os.path.join(
@@ -448,6 +482,11 @@ def dump_replay_bundle(directory: str, *, kind: str, verdict: Verdict,
     os.makedirs(bundle, exist_ok=True)
     meta: dict = {"kind": kind, "fn": fn_name, "time": time.time(),
                   "verdict": verdict.to_dict()}
+    if entry is not None and getattr(entry, "traces", None):
+        src = str(entry.traces[-1])
+        meta["trace_hash"] = hashlib.sha1(src.encode()).hexdigest()
+        with open(os.path.join(bundle, "execution_trace.py"), "w") as f:
+            f.write(src)
     if decisions is not None:
         meta["decisions"] = decisions
     with open(os.path.join(bundle, "meta.json"), "w") as f:

@@ -738,6 +738,10 @@ for _tf, _fn in {
                  cnn.ce_fwd(logits, target, ignore_index)),
     tnn.cross_entropy: (lambda logits, target, ignore_index=-100:
                         cnn.cross_entropy(logits, target, ignore_index=ignore_index)),
+    tnn.fused_linear_cross_entropy: (lambda h, w, target, *, chunk=None, ignore_index=-100:
+                                     cnn.fused_linear_cross_entropy(
+                                         h, w, target, chunk=chunk,
+                                         ignore_index=ignore_index)),
     tnn.paged_decode_attention: (lambda q, k_pages, v_pages, block_tables, lengths, scale=None:
                                  cnn.paged_decode_attention(q, k_pages, v_pages, block_tables,
                                                             lengths, scale=scale)),
@@ -1336,7 +1340,14 @@ class ThunderModule:
     ``.grad``. Any other call runs the grad-free program of the module's
     functional form. Either cache is keyed by the training flag, the
     state's shapes, dtypes and devices, the inputs and their alias pattern.
-    ``torch_autograd=False`` takes the grad-free program always."""
+    ``torch_autograd=False`` takes the grad-free program always.
+
+    Transforms may shadow parameters and buffers through
+    ``_overrides_parameters``/``_overrides_buffers`` (name -> tensor): the
+    grad-free program reads an override in place of the live tensor, a
+    written buffer that is overridden updates its override, and
+    ``named_parameters``/``state_dict`` report the overrides. A module with
+    overridden parameters never takes the bridge."""
 
     def __init__(self, module: torch.nn.Module, **jit_kwargs):
         check(jit_kwargs.get("seq_buckets") is None,
@@ -1345,6 +1356,8 @@ class ThunderModule:
         jit_kwargs.pop("seq_buckets", None)
         self._torch_module = module
         self._tied = _tied_names(module)
+        self._overrides_parameters: dict = {}
+        self._overrides_buffers: dict = {}
         self._training = module.training
         self._grad_sync = True
         self._torch_autograd = jit_kwargs.pop("torch_autograd", True)
@@ -1375,7 +1388,10 @@ class ThunderModule:
             buffers = dict(self._torch_module.named_buffers())
             with torch.no_grad():
                 for name, val in mutated.items():
-                    buffers[name].copy_(val)
+                    if name in self._overrides_buffers:
+                        self._overrides_buffers[name] = val
+                    else:
+                        buffers[name].copy_(val)
 
     def __call__(self, *args, **kwargs):
         from thunder_tpu_torch.torch.autograd_bridge import call_with_torch_autograd
@@ -1385,15 +1401,23 @@ class ThunderModule:
         flat, treedef = self._jfn._flatten(args, kwargs)   # numpy leaves onto the device
         args, kwargs = tree_unflatten(treedef, flat)
         params, buffers = self._state()
-        if self._torch_autograd and torch.is_grad_enabled() and (
-                any(t.requires_grad for _, t in params)
-                or any(isinstance(t, torch.Tensor) and t.requires_grad for t in flat)):
+        if self._torch_autograd and torch.is_grad_enabled() and not self._overrides_parameters \
+                and (any(t.requires_grad for _, t in params)
+                     or any(isinstance(t, torch.Tensor) and t.requires_grad for t in flat)):
+            check(not self._jfn.transforms,
+                  "jit(module, transforms=...) through the torch-autograd bridge is not "
+                  "ported: call it under torch.no_grad(), or pass torch_autograd=False",
+                  NotImplementedError)
             return call_with_torch_autograd(self, args, kwargs)
+        p, b = dict(params), dict(buffers)
+        p.update(self._overrides_parameters)
+        b.update(self._overrides_buffers)
         overlap = _alias_pattern(flat)[1]
         with _auditing(overlap):
-            entry, jflat = self._jfn._entry_for((dict(params), dict(buffers), self._training,
-                                                 args, kwargs), {}, _alias_key(overlap))
-        out, mutated = self._jfn._run_contained(entry, [jflat[i] for i in entry.tensor_indices])
+            state_args = (p, b, self._training, args, kwargs)
+            entry, jflat = self._jfn._entry_for(state_args, {}, _alias_key(overlap))
+        out, mutated = self._jfn._run_contained(entry, [jflat[i] for i in entry.tensor_indices],
+                                                call=(state_args, {}))
         self._write_back(mutated)
         return out
 
@@ -1410,8 +1434,10 @@ class ThunderModule:
         return self._training
 
     def named_parameters(self):
-        """The live module's parameters (tied duplicates once)."""
-        return self._torch_module.named_parameters()
+        """The live module's parameters (tied duplicates once), each
+        override in place of its parameter."""
+        for k, v in self._torch_module.named_parameters():
+            yield k, self._overrides_parameters.get(k, v)
 
     def parameters_dict(self) -> dict:
         return dict(self.named_parameters())
@@ -1424,9 +1450,11 @@ class ThunderModule:
                 live[k].copy_(v)
 
     def state_dict(self) -> dict:
-        """Copies of the parameters (tied duplicates once) and buffers."""
+        """Copies of the parameters (tied duplicates once) and buffers, the
+        overrides in place of what they shadow."""
         params, buffers = self._state()
-        return {k: v.detach().clone() for k, v in params + buffers}
+        over = {**self._overrides_parameters, **self._overrides_buffers}
+        return {k: over.get(k, v).detach().clone() for k, v in params + buffers}
 
     def load_state_dict(self, sd: dict, strict: bool = True) -> None:
         params, buffers = self._state()
@@ -1483,6 +1511,11 @@ class ThunderTorchFunction(ThunderTPUFunction):
             if any(isinstance(t, torch.Tensor) and t.requires_grad for t in flat):
                 from thunder_tpu_torch.torch.autograd_bridge import (
                     call_function_with_torch_autograd)
+
+                check(not self.transforms,
+                      "jit(fn, transforms=...) through the torch-autograd bridge is not ported: "
+                      "call it under torch.no_grad(), or pass torch_autograd=False",
+                      NotImplementedError)
 
                 return call_function_with_torch_autograd(self, *tree_unflatten(treedef, flat))
         return super().__call__(*args, **kwargs)

@@ -1,6 +1,12 @@
 """thunder_tpu_torch.transforms: the port's counterparts of
-``thunder_tpu/transforms/``. So far the numerics guard
-(:class:`~thunder_tpu_torch.transforms.numerics_guard.NumericsGuard`), which
-wraps the train step where the reference rewrites a trace."""
+``thunder_tpu/transforms/``. So far the numerics guard: the reference's
+:class:`~thunder_tpu_torch.transforms.numerics_guard.NumericsGuardTransform`
+(``jit(step, transforms=[...])``) with :func:`observe_grads`, and
+:class:`~thunder_tpu_torch.transforms.numerics_guard.NumericsGuard`, its
+counterpart for the eager train step."""
 
-from thunder_tpu_torch.transforms.numerics_guard import NumericsGuard  # noqa: F401
+from thunder_tpu_torch.transforms.numerics_guard import (  # noqa: F401
+    NumericsGuard,
+    NumericsGuardTransform,
+    observe_grads,
+)
