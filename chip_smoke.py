@@ -21,12 +21,13 @@ final line):
 4. card vs CPU — a float32 tiny-gqa engine on the card and on the CPU, same
    weights, mixed prompt lengths, a pool small enough to preempt: identical
    greedy tokens;
-5. full width — llama3-8b at full width and depth (32 layers, bf16, random
-   weights from a seed) serves 8 requests (prompts 17..1000 tokens, 32 new
-   tokens each, 2 of them sampled); the launch counts show every decode step
-   went through all four kernels, linear_act's 32 launches each on its
-   weight-streaming design, paged_decode_attention's 32 on its split design
-   and rms_norm's on its vector design.
+5. full width — llama3-8b at full width, SERVE_LAYERS of its 32 layers
+   (the script's time; phase 22 serves the same cell at all 32), bf16,
+   random weights from a seed, serves 8 requests (prompts 17..1000 tokens,
+   32 new tokens each, 2 of them sampled); the launch counts show every
+   decode step went through all four kernels, linear_act's one launch a
+   layer each on its weight-streaming design, paged_decode_attention's on
+   its split design and rms_norm's on its vector design.
 
 ``sdpa_fwd``, ``sdpa_bwd``, ``rms_norm``, ``linear_act``, ``decode_layer``
 and ``attn_subblock`` have more than one design, chosen by the wrapper from
@@ -107,10 +108,10 @@ holds ``mlp_subblock`` at the 512-row prefill chunk and at 8 rows. Then:
     layer, the reference's ``nn.decode_layer`` decomposition) whose logits
     and pools equal the CPU's, the same composition and ``decode_layer_plain``;
 11. planned serving, full width — phase 5 at the planned rung: every decode
-    step launches decode_layer 32 (each on its stream design) and rms_norm 1,
-    every prefill chunk
-    rms_norm 32 and mlp_subblock 31; decode tok/s, TTFT and peak memory
-    beside phase 5's.
+    step launches decode_layer one a layer (each on its stream design) and
+    rms_norm 1, every prefill chunk rms_norm one a layer and mlp_subblock
+    one a layer but the last; decode tok/s, TTFT and peak memory beside
+    phase 5's.
 
 The headline train bench (``benchmarks/bench.py``, the port of the
 repo-root ``bench.py``'s step: fused chunked-vocab loss, bf16 first moments,
@@ -226,8 +227,9 @@ times each beside its bound. Then:
 The serving fleet (``serving/prefix_cache.py``, best-of-N forks,
 ``serving/supervisor.py``, ``models/llama.generate``/``generate_fused``):
 
-16. fleet — llama3-8b at full width and depth (32 layers, bf16, the seed of
-    phase 5's weights, 8 slots, 16-token pages). (a) At each rung, 8
+16. fleet — llama3-8b at full width, FLEET_LAYERS of its 32 layers (the
+    script's time), bf16, the seed of phase 5's weights, 8
+    slots, 16-token pages. (a) At each rung, 8
     requests of one 1024-token system prompt and their own 17..200-token
     tails, 16 greedy tokens, cold then warm (fresh tails) on one
     ``prefix_cache=True`` engine, beside a ``prefix_cache=False`` engine
@@ -293,8 +295,8 @@ leaf), each on the design its rule names.
     and the step ms, tokens/s (images/s) and peak memory are printed.
 
 18. jit — the trace compiler's grad-free slice (``thunder_tpu_torch.jit``)
-    at llama3-8b full width and depth (32 layers, bf16, the phase-5
-    weights' seed, B=1, T=2048): (a) ``jit(llama.forward)``, (b)
+    at llama3-8b full width, SERVE_LAYERS of its 32 layers (the script's
+    time), bf16, the phase-5 weights' seed, B=1, T=2048: (a) ``jit(llama.forward)``, (b)
     ``jit(llama.loss_fn)`` as an evaluation loss, (c) ``jit`` of one Llama
     layer written in plain PyTorch (``F.rms_norm``, ``F.linear``,
     ``F.silu``, ``F.scaled_dot_product_attention(is_causal=True)``, the
@@ -424,13 +426,39 @@ call: a replay runs no router).
     64, ``rms_norm`` 1; planned ``decode_layer`` 32, ``rms_norm`` 1), with
     and without the replay the same tokens and launches, each request's
     first-token logits (its replay step) within GENERATE_LOGITS_TOL of
-    ``llama.generate``'s first step row by row, and the unset verdict the
-    rung measured faster (decode step ms, median) where the two differ by
-    more than PLANNED_JIT_GAP. Printed: decode tok/s, the median step's
-    host ms (until its launches are issued) and ms to a device sync, mean
-    TTFT, SERVE_JIT_PROFILE traced decode steps' device busy ms, idle
-    share and ms by kernel family, the graphs' captures, replays and
-    copied bytes. Its kernel rows: phase 3's decode and prefill rows.
+    ``llama.generate``'s first step row by row. Then ROADMAP C.6's
+    readings (``serve_jit_readings``): on the three replaying engines
+    (per-op, planned, unset), SERVE_JIT_ROUNDS rounds of (per-op, planned,
+    unset, unset, planned, per-op) runs of the cell, each run's median
+    decode step ms; the unset rung's median may exceed the faster rung's
+    by more than PLANNED_JIT_GAP only within the readings' spread
+    (``serve_jit_verdict``; the unset verdict may plan one sub-block of a
+    layer alone, whose launches are held to its trace's claims). Printed: decode
+    tok/s, the median step's host ms (until its launches are issued) and
+    ms to a device sync, mean TTFT, SERVE_JIT_PROFILE traced decode steps'
+    device busy ms, idle share and ms by kernel family, the graphs'
+    captures, replays and copied bytes, every reading. Its kernel rows:
+    phase 3's decode and prefill rows.
+
+23. the region executor (``executors/regionex.py``) — every compiled
+    program of phases 12-22 runs its elementwise regions as generated
+    kernels, each step launching one ``region`` a region of its trace.
+    First the card's memory (``memory_report``: allocated, live tensors,
+    graph pools). (a) every distinct region (source and input shapes) of
+    phase 19 (a)'s program and of phase 22's per-op decode and prefill
+    programs, on
+    random inputs at its program's shapes, against its plain chain (the
+    members' torch calls): bit for bit where it holds no transcendental
+    op, within REGION_ULP of the output dtype where it does; the largest
+    timed against its chain and its bound by bytes (the ``region`` row).
+    (b) phase 19 (a)'s step and phase 15 (a)'s guarded step, regions on
+    and off, on one state, REGION_AB_ROUNDS rounds of (on, off, off, on)
+    turns of REGION_AB_STEPS replayed steps: step ms, the guard's
+    overhead each way, elementwise device ms, and the torch calls, claims
+    and regions a step runs (``trace_calls``). (c),
+    (d) phase 13 (a) and (b)'s compiled bench step the same way, with
+    ``vs_baseline`` against phase 13's eager arm. Printed beside them: the
+    regions' nvcc seconds in the script.
 
 No phase can fall back to a plain version on the card: a CUDA call whose
 inputs a kernel does not take raises in the kernel's wrapper, with the
@@ -445,6 +473,7 @@ card.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
@@ -452,6 +481,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 # published H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -568,7 +598,7 @@ HEALTH_LIBRARY_NOTE = "no one PyTorch call counts the non-finite values of the u
 # DECODE_TOL of each row's largest value (bf16 rounds at other points in
 # every layer's two sub-blocks)
 QUARANTINE_LAYERS, FAULT_DECODE_STEP = 8, 2
-# phase 16: the serving fleet on llama3-8b at full width and depth. (a) 8
+# phase 16: the serving fleet on llama3-8b at full width, FLEET_LAYERS deep. (a) 8
 # requests share a 1024-token system prompt (a multiple of the 512-token
 # chunk, so a warm request's tail chunk has the shape of a cold one's), each
 # with its own tail of 17..200 tokens and 16 greedy tokens, cold then warm
@@ -585,6 +615,14 @@ QUARANTINE_LAYERS, FAULT_DECODE_STEP = 8, 2
 #   against one contiguous prefill; phase 15 measured 0.0132 between two
 #   bf16 paths over 8 layers)
 FLEET_SLOTS, FLEET_CONTEXT = 8, 2048
+FLEET_LAYERS = 4   # phase 16 (a)-(d)'s depth (of 32: cut for the script's time)
+SERVE_LAYERS = 16  # phases 5, 11 and 18's depth (of 32; phase 22 serves all 32)
+
+
+def serve_config(tllama):
+    """Phases 5, 11 and 18's model: llama3-8b at full width, SERVE_LAYERS
+    deep."""
+    return dataclasses.replace(tllama.CONFIGS["llama3-8b"], n_layers=SERVE_LAYERS)
 FLEET_SIZES = {"seed": 16, "system": 1024, "tails": (17, 40, 64, 90, 120, 150, 180, 200),
                "new": 16, "best_of": 4, "best_of_prompt": 700,
                "restart_prompts": (64, 300, 700, 1000), "gen_batch": 8, "gen_prompt": 1000,
@@ -679,7 +717,22 @@ HORIZONTAL_ROUNDS = 3
 SERVE_JIT_RUNGS = (("per-op", False), ("planned", True), ("unset", None))
 SERVE_JIT_PATHS = ("serve-jit", "serve-jit-planned", "serve-jit-unset")
 SERVE_JIT_LENGTHS = [17, 64, 150, 301, 480, 640, 800, 1000]
-SERVE_JIT_NEW, SERVE_JIT_PROFILE = 32, 4
+SERVE_JIT_NEW, SERVE_JIT_PROFILE = 32, 2
+# the unset verdict's readings (ROADMAP C.6): rounds of (per-op, planned,
+# unset, unset, planned, per-op) replayed cell runs (2 * SERVE_JIT_ROUNDS
+# readings a rung); the unset rung's median may exceed the faster rung's by
+# more than PLANNED_JIT_GAP only within the readings' own spread
+SERVE_JIT_ROUNDS = 3
+
+# phase 23: the region executor. Every distinct region of phase 19 (a)'s
+# and phase 22's per-op programs against its plain chain (bit for bit, or
+# within REGION_ULP of the output dtype where it holds a transcendental op);
+# phases 19 (a) (with phase 15 (a)'s guarded step beside it) and 13 (a),
+# (b) timed with the regions on and off in REGION_AB_ROUNDS rounds of (on,
+# off, off, on), REGION_AB_STEPS replayed steps a turn
+REGION_ULP = 1
+REGION_AB_ROUNDS, REGION_AB_STEPS = 1, 3
+HELD_REGIONS: dict = {}   # path -> the region callables of its programs, for phase 23
 
 D, F_DIM, S_DECODE, M_PREFILL = 4096, 14336, 8, 512
 KV, G, HD, PS = 8, 4, 128, 16
@@ -688,8 +741,12 @@ REPLAY = 1   # the decode slot that replays its last prompt token
 EPS = 1e-5
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """A line of the run's log, after the seconds since the script started."""
+    print(f"[{time.perf_counter() - _T0:7.1f} s] {msg}", flush=True)
 
 
 def card_line() -> str:
@@ -753,8 +810,9 @@ def timed_row(torch, cudaex, name, shape_tag, err, kernel_fn, plain_fn, lib_fn, 
             lib_ms = time_ms(torch, lib_fn, iters)
         except (RuntimeError, TypeError) as e:   # a library call that refuses these inputs
             lib_note = f"{type(e).__name__}: {str(e)[:160]}"
-    row = {"name": name, "route": "cuda", "source": cudaex.KERNELS[name].source,
-           "replaces": cudaex.KERNELS[name].replaces, "shape": shape_tag,
+    k = {**cudaex.KERNELS, **cudaex.GENERATED}[name]
+    row = {"name": name, "route": "cuda", "source": k.source, "replaces": k.replaces,
+           "shape": shape_tag,
            "max_abs_err": err, "ms": time_ms(torch, kernel_fn, iters),
            "plain_ms": time_ms(torch, plain_fn, plain_iters, warmup=1), "bound_ms": b_ms,
            "bound_by": b_by, "library_ms": lib_ms}
@@ -775,6 +833,33 @@ def design_delta(before: dict, after: dict) -> dict:
         if d:
             out[name] = d
     return out
+
+
+def with_region(expect: dict, n: int) -> dict:
+    """``expect`` (a step's hand-written kernels) with ``n`` region
+    launches: the launches of a compiled program with ``n`` regions."""
+    return dict(expect, region=n) if n else dict(expect)
+
+
+def without_regions(counts: dict) -> dict:
+    """Launches (or launches by design) of the hand-written kernels alone:
+    the regions' are held to their programs' regions apart, and a region's
+    design (``contiguous`` or ``strided``) follows from its inputs'
+    strides."""
+    return {k: v for k, v in counts.items() if k != "region"}
+
+
+def program_regions(entry) -> int:
+    """The regions one call of a cached ``jit`` entry launches (0 without
+    an entry)."""
+    from thunder_tpu_torch.testing import claimed_kernels
+
+    return 0 if entry is None else claimed_kernels(entry.traces[-1]).get("region", 0)
+
+
+def decode_regions(eng) -> int:
+    """The regions one decode step of ``eng``'s bound program launches."""
+    return program_regions(getattr(eng.runner._decode_bound, "entry", None))
 
 
 def ran(cudaex, name, fn):
@@ -1744,15 +1829,21 @@ def warm_engine(torch, eng) -> float:
 
 
 def counting(eng, cudaex, attr: str, counts: list) -> None:
-    """Wrap ``eng.runner.<attr>`` so each call appends the kernel launches it
-    made to ``counts``."""
+    """Wrap ``eng.runner.<attr>`` (``decode`` or ``prefill``) so each call
+    appends the hand-written kernels' launches it made to ``counts``, its
+    region launches held to the regions of the program it ran."""
     fn = getattr(eng.runner, attr)
 
     def counted(*args, **kwargs):
         before = cudaex.launch_counts()
         out = fn(*args, **kwargs)
         after = cudaex.launch_counts()
-        counts.append({k: after[k] - before[k] for k in after if after[k] != before[k]})
+        launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        regions = (decode_regions(eng) if attr == "decode" else program_regions(
+            eng.runner.prefill_jit.bind(*args, contained=False).entry))
+        require(launches.get("region", 0) == regions,
+                f"{attr}: launched {launches}, its program holds {regions} regions")
+        counts.append(without_regions(launches))
         return out
 
     setattr(eng.runner, attr, counted)
@@ -1830,12 +1921,13 @@ def subblock_step(np, torch, tllama, tnn, cudaex):
         with rung:
             _, logits = run.decode(ps_, *(x.to(device) for x in inputs), pl_,
                                    *(x.to(device) for x in sampling))
-        return logits.cpu(), [{k: v.cpu() for k, v in kv.items()} for kv in pl_]
+        return (logits.cpu(), [{k: v.cpu() for k, v in kv.items()} for kv in pl_],
+                program_regions(run._decode_bound.entry))
 
     cudaex.reset_launch_counts()
     card = step("cuda", True)
     counts = {k: v for k, v in cudaex.launch_counts().items() if v}
-    expect = {"attn_subblock": L, "mlp_subblock": L, "rms_norm": 1}
+    expect = with_region({"attn_subblock": L, "mlp_subblock": L, "rms_norm": 1}, card[2])
     require(counts == expect, f"sub-block decode step launched {counts}, expected {expect}")
     errs = {}
     for name, ref in (("cpu subblocks", step("cpu", True)),
@@ -1856,7 +1948,9 @@ def subblock_step(np, torch, tllama, tnn, cudaex):
 
 def full_width(np, torch, tllama, ServingEngine, SamplingParams, cudaex, params,
                block_fusion: bool = False):
-    cfg = tllama.CONFIGS["llama3-8b"]
+    # depth cut to SERVE_LAYERS (the script's time; phase 22 serves this
+    # cell at all 32 layers): widths as published
+    cfg = serve_config(tllama)
     eng = ServingEngine(params, cfg, max_slots=8, page_size=16, max_context=2048,
                         block_fusion=block_fusion)
     L = cfg.n_layers
@@ -1908,9 +2002,9 @@ def full_width(np, torch, tllama, ServingEngine, SamplingParams, cudaex, params,
         if out.min() < 0 or out.max() >= cfg.vocab_size:
             raise AssertionError(f"request {r.request_id} produced out-of-vocab tokens")
     eng.assert_quiescent()
-    expect = ({"decode_layer": L, "rms_norm": 1} if block_fusion else
-              {"paged_decode_attention": L, "linear_act": L, "rms_norm_residual": 2 * L,
-               "rms_norm": 1})
+    expect = with_region({"decode_layer": L, "rms_norm": 1} if block_fusion else
+                         {"paged_decode_attention": L, "linear_act": L,
+                          "rms_norm_residual": 2 * L, "rms_norm": 1}, decode_regions(eng))
     # rms_norm(norm_f) and the per-op rung's rms_norm_residual on bf16 rows
     # of 4096 read each row once (vector); every bf16 launch of the decode
     # kernels takes its Hopper design
@@ -1922,7 +2016,7 @@ def full_width(np, torch, tllama, ServingEngine, SamplingParams, cudaex, params,
         expect_designs["paged_decode_attention"] = {"split": L}
         expect_designs["rms_norm_residual"] = {"vector": 2 * L}
     for i, (c, d) in enumerate(zip(step_counts, step_designs)):
-        if c != expect or d != expect_designs:
+        if c != expect or without_regions(d) != expect_designs:
             raise AssertionError(f"decode step {i} launched {c} by design {d}, expected "
                                  f"{expect} by design {expect_designs}")
     if any(counts[k] == 0 for k in expect):
@@ -1979,7 +2073,7 @@ def serve_jit_expect(cudaex, cfg, L: int, planned: bool):
 
 
 def serve_jit_run(np, torch, tllama, ServingEngine, SamplingParams, cudaex, pretrain, params,
-                  block_fusion, replay: bool) -> dict:
+                  block_fusion, replay: bool, keep: bool = False) -> dict:
     """One engine at ``block_fusion`` with ``whole_program_jit=replay``: its
     steps warmed (``warm_engine``: every prefill chunk shape and the decode
     step compiled, and with the replay captured), then the cell's 8
@@ -1989,6 +2083,7 @@ def serve_jit_run(np, torch, tllama, ServingEngine, SamplingParams, cudaex, pret
     and the first-token logits of each request's replay step; then
     SERVE_JIT_PROFILE decode steps traced (busy ms, idle share)."""
     import thunder_tpu_torch as ptt
+    from thunder_tpu_torch.testing import claimed_kernels
 
     cfg = tllama.CONFIGS["llama3-8b"]
     L = cfg.n_layers
@@ -2041,12 +2136,29 @@ def serve_jit_run(np, torch, tllama, ServingEngine, SamplingParams, cudaex, pret
         out = r.output()
         require(r.done and len(out) == SERVE_JIT_NEW and 0 <= out.min()
                 and out.max() < cfg.vocab_size, f"request {r.request_id}: {r.state}, {len(out)}")
-    planned = "decode_layer" in ptt.last_execution_trace(eng.runner.decode_jit).python()
+    trc = eng.runner._decode_bound.entry.traces[-1]
+    claims = claimed_kernels(trc)
+    planned = "decode_layer" in claims
+    # the unset verdict may plan one half of a layer alone (the sub-block
+    # rung's attn_subblock or mlp_subblock beside the other half per op):
+    # its launches are held to its trace's claims, its designs unheld
+    rung = ("planned" if planned else "sub-block"
+            if {"attn_subblock", "mlp_subblock"} & set(claims) else "per-op")
     want, want_d = serve_jit_expect(cudaex, cfg, L, planned)
+    if rung == "sub-block":
+        want, want_d = without_regions(claims), None
+    want = with_region(want, claims.get("region", 0))
     for i, st in enumerate(steps):
-        require(st["launches"] == want and st["designs"] == want_d,
+        require(st["launches"] == want
+                and (want_d is None or without_regions(st["designs"]) == want_d),
                 f"serve-jit {block_fusion} replay={replay}: decode step {i} launched "
                 f"{st['launches']} by design {st['designs']}, expected {want} by {want_d}")
+    if replay and not planned and block_fusion is False:
+        from thunder_tpu_torch.testing import regions_of
+
+        HELD_REGIONS["serve-jit"] = [r for jf in (eng.runner.decode_jit, eng.runner.prefill_jit)
+                                     for entry in jf._cache.values()
+                                     for r in regions_of(entry.traces[-1])]
     stats = ptt.compile_stats(eng.runner.decode_jit)
     require(stats.last_whole_program == ("graph" if replay else
                                          "per-call (whole_program_jit=False)"),
@@ -2055,8 +2167,8 @@ def serve_jit_run(np, torch, tllama, ServingEngine, SamplingParams, cudaex, pret
             f"serve-jit: {stats.whole_program_replays} replays for {len(steps)} steps")
     decode_only = [st for st in steps if st["rows"] == FLEET_SLOTS]
     decode_tokens = sum(st["rows"] for st in steps)
-    out = {"block_fusion": block_fusion, "replay": replay, "rung": "planned" if planned
-           else "per-op", "tokens": [r.output().tolist() for r in reqs],
+    out = {"block_fusion": block_fusion, "replay": replay, "rung": rung,
+           "tokens": [r.output().tolist() for r in reqs],
            "first_logits": [first[r.request_id] for r in reqs],
            "decode_steps": len(steps), "decode_tokens": decode_tokens,
            "decode_tok_per_s": decode_tokens / (sum(st["ms"] for st in steps) / 1e3),
@@ -2076,6 +2188,10 @@ def serve_jit_run(np, torch, tllama, ServingEngine, SamplingParams, cudaex, pret
            "copied_bytes": stats.whole_program_copied_bytes,
            "decode_compile_stages_ms": dict(stats.last_pass_times),
            "decisions": decision_summary(ptt, eng.runner.decode_jit)}
+    if keep:   # the replaying engines take C.6's readings after, unrecorded
+        eng.runner.decode = decode
+        out["engine"] = eng
+        return out
     eng.cache.consume_pools()
     del eng
     gc.collect()
@@ -2110,11 +2226,14 @@ def serve_jit_full_width(np, torch, tllama, ServingEngine, SamplingParams, cudae
            "max_slots": FLEET_SLOTS, "page_size": PS, "max_context": FLEET_CONTEXT,
            "prompt_lengths": SERVE_JIT_LENGTHS, "new_tokens": SERVE_JIT_NEW,
            "sampled_requests": 2}
+    engines = {}
     for name, bf in SERVE_JIT_RUNGS:
         runs = {}
         for replay in (True, False):
             r = serve_jit_run(np, torch, tllama, ServingEngine, SamplingParams, cudaex, pretrain,
-                              params, bf, replay)
+                              params, bf, replay, keep=replay)
+            if replay:
+                engines[name] = r.pop("engine")
             err = row_rel_err(torch.stack(r.pop("first_logits")), ref)
             require(err <= GENERATE_LOGITS_TOL,
                     f"serve-jit {name} replay={replay}: first-step logits vs generate's: {err}")
@@ -2130,20 +2249,81 @@ def serve_jit_full_width(np, torch, tllama, ServingEngine, SamplingParams, cudae
         for r in runs.values():
             r.pop("tokens")
         out[name] = runs
-    fast = {n: out[n]["replay"]["decode_step_ms_median"] for n in ("per-op", "planned")}
-    gap = abs(fast["per-op"] - fast["planned"]) / min(fast.values())
-    faster = min(fast, key=fast.get)
-    unset = out["unset"]["replay"]["rung"]
-    require(gap <= PLANNED_JIT_GAP or unset == faster,
-            f"serve-jit: the unset verdict took the {unset} rung; the {faster} rung's decode "
-            f"step was faster by {gap:.1%} ({fast})")
-    out["verdict"] = {"unset_rung": unset, "decode_step_ms_median": fast, "gap": gap,
-                      "faster": faster}
+    out["readings"] = serve_jit_readings(np, torch, tllama, engines)
+    out["verdict"] = serve_jit_verdict(out["readings"], out["unset"]["replay"]["rung"])
     del params
     gc.collect()
     torch.cuda.empty_cache()
     out["phase_s"] = time.perf_counter() - t_phase
     return out
+
+
+def decode_reading(np, torch, eng, cfg) -> float:
+    """One replayed run of phase 22's cell on a warmed engine (greedy): the
+    median ms, to a device sync, of its decode steps with every slot
+    decoding."""
+    rng = np.random.RandomState(1)
+    prompts = [rng.randint(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in SERVE_JIT_LENGTHS]
+    decode, ms = eng.runner.decode, []
+
+    def timed(*args):
+        rows = sum(r is not None and r.state == "decode" for r in eng.slots)
+        t = time.perf_counter()
+        out = decode(*args)
+        torch.cuda.synchronize()
+        if rows == FLEET_SLOTS:
+            ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    eng.runner.decode = timed
+    for p in prompts:
+        eng.submit(p, SERVE_JIT_NEW)
+    eng.drain()
+    eng.runner.decode = decode
+    eng.completed.clear()
+    return float(np.median(ms))
+
+
+def serve_jit_readings(np, torch, tllama, engines: dict) -> dict:
+    """ROADMAP C.6's readings at phase 22's cell on ``engines``, phase 22's
+    replaying engines (per-op, planned, unset), each warmed:
+    SERVE_JIT_ROUNDS rounds of (per-op, planned, unset, unset, planned,
+    per-op) runs of the cell, each run's median decode step ms
+    (``decode_reading``). Returns every reading by rung, and each engine's
+    regions a decode step; the engines are freed."""
+    cfg = tllama.CONFIGS["llama3-8b"]
+    readings = {r: [] for r in engines}
+    for _ in range(SERVE_JIT_ROUNDS):
+        for rung in ("per-op", "planned", "unset", "unset", "planned", "per-op"):
+            readings[rung].append(decode_reading(np, torch, engines[rung], cfg))
+    readings["regions a step"] = {r: decode_regions(e) for r, e in engines.items()}
+    for eng in engines.values():
+        eng.cache.consume_pools()
+    engines.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return readings
+
+
+def serve_jit_verdict(readings: dict, unset: str) -> dict:
+    """The unset verdict's rung (``unset``: per-op, planned, or the sub-block
+    rung's halves) held to the readings: its median replayed decode step ms
+    may exceed the faster of the per-op and planned rungs' medians by more
+    than PLANNED_JIT_GAP only where that difference is within the
+    readings' own spread (the largest rung's max - min)."""
+    rungs = ("per-op", "planned", "unset")
+    med = {r: float(statistics.median(readings[r])) for r in rungs}
+    spread = max(max(readings[r]) - min(readings[r]) for r in rungs)
+    faster = min(("per-op", "planned"), key=med.get)
+    diff = med["unset"] - med[faster]
+    gap = diff / med[faster]
+    held = gap > PLANNED_JIT_GAP and diff > spread
+    require(not held,
+            f"serve-jit: the unset verdict's {unset} rung took {med['unset']:.3f} ms a decode "
+            f"step, {gap:.1%} over the {faster} rung's (medians {med}, spread {spread:.3f} ms)")
+    return {"unset_rung": unset, "decode_step_ms_median": med, "gap_over_faster": gap,
+            "spread_ms": spread, "faster": faster, "held": held}
 
 
 # ---------------------------------------------------------------------------
@@ -2269,7 +2449,8 @@ def bench_card_vs_cpu(np, torch, tllama, bench):
             require(bool((diff <= rtol * torch.maximum(got.abs(), want.abs()) + atol).all()),
                     f"bench {which} slab {key}: card and CPU differ by {float(diff.max())}")
     require(float(st_card["step"]) == float(st_cpu["step"]) == 4.0, "bench step counts differ")
-    expect = bench_launches(cfg.n_layers, remat=True, block_fusion=False)
+    expect = with_region(bench_launches(cfg.n_layers, remat=True, block_fusion=False),
+                         a["regions"])
     for i, st in enumerate(a["per_step"]):
         require(st["launches"] == expect,
                 f"tiny-gqa bench step {i} launched {st['launches']}, expected {expect}")
@@ -2294,7 +2475,8 @@ def bench_full_width(torch, cudaex, bench, remat: bool, block_fusion: bool):
                     steps=BENCH_STEPS, slab_state=True, remat=remat, block_fusion=block_fusion,
                     device="cuda", sentinel=remat)
     all_arms = cudaex.launch_counts()
-    expect = bench_launches(BENCH_LAYERS, remat, block_fusion)
+    kernels = bench_launches(BENCH_LAYERS, remat, block_fusion)
+    expect = with_region(kernels, out["regions"])
     for i, st in enumerate(out["per_step"]):
         require(st["launches"] == expect, f"bench step {i} launched {st['launches']}, expected "
                                           f"{expect}")
@@ -2311,7 +2493,8 @@ def bench_full_width(torch, cudaex, bench, remat: bool, block_fusion: bool):
     require(all(counts.get(k) for k in expect),
             f"a kernel of the bench path never launched: {counts}")
     if remat:
-        guarded = dict(expect, fused_adamw_slab_health=1)
+        guarded = with_region(dict(kernels, fused_adamw_slab_health=1),
+                              out["sentinel_regions"])
         for i, st in enumerate(out["sentinel_per_step"]):
             require(st["launches"] == guarded, f"guarded bench step {i} launched "
                                                f"{st['launches']}, expected {guarded}")
@@ -2400,7 +2583,7 @@ def train_resume(np, torch, cudaex, pretrain, tllama) -> dict:
             require(run["whole_program"] == "graph" and run["whole_program_captures"] == 1,
                     f"{what}: entry {run['whole_program']}, "
                     f"{run['whole_program_captures']} capture(s)")
-            expect = train_launches(RESUME_LAYERS, False)
+            expect = with_region(train_launches(RESUME_LAYERS, False), run["regions"])
             for i, st in enumerate(run["per_step"]):
                 require(st["launches"] == expect, f"{what} step {i} launched {st['launches']}")
             return run
@@ -2678,6 +2861,7 @@ def guarded_train(np, torch, cudaex, pretrain, bench, tllama, toptim_ops, slab: 
     if slab:
         expect[update] = expect.pop("fused_adamw")
     expect[f"{update}_health"] = 1
+    expect = with_region(expect, guarded["regions"])
     for i, st in enumerate(guarded["per_step"]):
         require(st["launches"] == expect, f"guarded step {i} launched {st['launches']}, "
                                           f"expected {expect}")
@@ -2782,7 +2966,8 @@ def record_decode(eng, cudaex, torch, log_steps: list) -> None:
         out = decode(params, tokens, bt, lengths, write_pos, pools, *sampling)
         after = cudaex.launch_counts()
         entry.update(raised=False, logits=out[1].detach().clone(), tokens=out[0].clone(),
-                     launches={k: after[k] - before[k] for k in after if after[k] != before[k]})
+                     launches={k: after[k] - before[k] for k in after if after[k] != before[k]},
+                     regions=decode_regions(eng))
         return out
 
     eng.runner.decode = recorded
@@ -2874,14 +3059,17 @@ def serve_quarantine(np, torch, tllama, ServingEngine, cudaex, tnn) -> dict:
     chain = {"rms_norm": 1, "paged_decode_attention": L, "rms_norm_residual": 2 * L,
              "linear_act": L}
     first = {"decode_layer": L, "rms_norm": 1}
-    require(all(st["launches"] == first for st in steps[:i]),
-            f"decode steps before the fault launched {[st['launches'] for st in steps[:i]]}")
+    ran = [st for st in steps if not st["raised"]]
+    require(all(st["launches"].get("region", 0) == st["regions"] for st in ran),
+            "a decode step's region launches differ from its program's regions")
+    kern = [without_regions(st["launches"]) if not st["raised"] else None for st in steps]
+    require(all(k == first for k in kern[:i]),
+            f"decode steps before the fault launched {kern[:i]}")
     require(i == FAULT_DECODE_STEP - 1, f"the fault hit decode call {i + 1}")
     replay = steps[i + 1]
-    require(replay["replay"] and replay["launches"] == sub,
+    require(replay["replay"] and kern[i + 1] == sub,
             f"the replayed step launched {replay['launches']}, expected {sub}")
-    rest = steps[i + 2:]
-    kinds = [st["launches"] for st in rest]
+    kinds = kern[i + 2:]
     require(all(k in (sub, chain) for k in kinds), f"later steps launched {kinds[:4]}")
     require(sub in kinds and chain in kinds and kinds.index(sub) < kinds.index(chain),
             "the rungs did not follow the quarantine")
@@ -2987,9 +3175,12 @@ def fleet_calls(eng, cudaex, calls: list) -> None:
             before, designs = cudaex.launch_counts(), cudaex.design_counts()
             out = _fn(*args)
             after = cudaex.launch_counts()
+            # the regions of the program the call ran
+            regions = (decode_regions(eng) if _kind == "decode" else program_regions(
+                eng.runner.prefill_jit.bind(*args, contained=False).entry))
             calls.append((_kind, args[1].shape[1] if _kind == "prefill" else None,
                           {k: after[k] - before[k] for k in after if after[k] != before[k]},
-                          design_delta(designs, cudaex.design_counts())))
+                          design_delta(designs, cudaex.design_counts()), regions))
             return out
 
         setattr(eng.runner, attr, wrapped)
@@ -3023,9 +3214,10 @@ def require_fleet_calls(what, cudaex, cfg, L, block_fusion, calls) -> dict:
     launches per decode step."""
     require(any(c[0] == "decode" for c in calls) and any(c[0] == "prefill" for c in calls),
             f"{what}: no decode step or no prefill chunk ran")
-    for i, (kind, C, counts, designs) in enumerate(calls):
+    for i, (kind, C, counts, designs, regions) in enumerate(calls):
         want, want_d = fleet_expect(cudaex, cfg, L, block_fusion, kind, C)
-        require(counts == want and designs == want_d,
+        want = with_region(want, regions)
+        require(counts == want and without_regions(designs) == want_d,
                 f"{what}: {kind} call {i} (rows {C}) launched {counts} by design {designs}, "
                 f"expected {want} by design {want_d}")
     return fleet_expect(cudaex, cfg, L, block_fusion, "decode")[0]
@@ -3362,11 +3554,13 @@ def fleet_generate(np, torch, ServingEngine, cudaex, tllama, params, cfg, sizes,
 
 
 def fleet_full_width(np, torch, tllama, ServingEngine, SamplingParams, cudaex) -> dict:
-    """Phase 16 (a)-(d) at llama3-8b full width and depth, bf16."""
+    """Phase 16 (a)-(d) at llama3-8b full width, FLEET_LAYERS of its 32
+    layers, bf16."""
     from thunder_tpu_torch.runtime import quarantine
 
     quarantine.reset()
-    cfg = tllama.CONFIGS["llama3-8b"]
+    # depth cut to FLEET_LAYERS (the script's time limit): widths as published
+    cfg = dataclasses.replace(tllama.CONFIGS["llama3-8b"], n_layers=FLEET_LAYERS)
     params = tllama.init_params(cfg, seed=0, device="cuda")
     kw = dict(max_slots=FLEET_SLOTS, page_size=PS, max_context=FLEET_CONTEXT)
     sizes = FLEET_SIZES
@@ -4124,7 +4318,7 @@ def jit_full_width(np, torch, tllama, cudaex) -> dict:
     from thunder_tpu_torch.testing import plain_llama_layer, row_rel_err
 
     t0 = time.perf_counter()
-    cfg = tllama.CONFIGS["llama3-8b"]
+    cfg = serve_config(tllama)   # SERVE_LAYERS of 32 (the script's time)
     params = tllama.init_params(cfg, seed=0, device="cuda")
     rng = np.random.default_rng(18)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (JIT_B, JIT_T))).cuda()
@@ -4141,7 +4335,8 @@ def jit_full_width(np, torch, tllama, cudaex) -> dict:
                 lambda: tllama.forward(params, tokens, cfg), "jit(forward)",
                 ptt.jit(forward, block_fusion=False, whole_program_jit=False))
     want = {"rms_norm": 1, "sdpa_fwd": L, "rms_norm_residual": 2 * L, "linear_act": L}
-    require(a["launches"] == want and a["eager_launches"] == want,
+    # the regions' launches are held to the trace's regions by jit_run
+    require(without_regions(a["launches"]) == want and a["eager_launches"] == want,
             f"jit(forward) launched {a['launches']}, eager {a['eager_launches']}, want {want}")
     logits, eager = a.pop("out"), a.pop("eager")
     require(tuple(logits.shape) == (JIT_B, JIT_T, cfg.vocab_size)
@@ -4163,7 +4358,7 @@ def jit_full_width(np, torch, tllama, cudaex) -> dict:
     ad = jit_run(torch, cudaex, ptt, fwd_d, (params, tokens),
                  lambda: tllama.forward(params, tokens, cfg, block_fusion=True),
                  "jit(forward) default", ptt.jit(forward, whole_program_jit=False))
-    require(ad["launches"] == planned and ad["eager_launches"] == planned,
+    require(without_regions(ad["launches"]) == planned and ad["eager_launches"] == planned,
             f"jit(forward) default launched {ad['launches']}, eager planned "
             f"{ad['eager_launches']}, want {planned}")
     ad["decisions"] = decision_summary(ptt, fwd_d)
@@ -4188,7 +4383,7 @@ def jit_full_width(np, torch, tllama, cudaex) -> dict:
                 lambda: tllama.loss_fn(params, tokens, targets, cfg), "jit(loss_fn)",
                 ptt.jit(loss_of, block_fusion=False, whole_program_jit=False))
     want_b = dict(want, ce_fwd=1)
-    require(b["launches"] == want_b and b["eager_launches"] == want_b,
+    require(without_regions(b["launches"]) == want_b and b["eager_launches"] == want_b,
             f"jit(loss_fn) launched {b['launches']}, eager {b['eager_launches']}, want {want_b}")
     loss, eager_loss = float(b.pop("out")), float(b.pop("eager"))
     require(math.isfinite(loss) and abs(loss - math.log(cfg.vocab_size)) < 2.0,
@@ -4203,7 +4398,7 @@ def jit_full_width(np, torch, tllama, cudaex) -> dict:
                  lambda: tllama.loss_fn(params, tokens, targets, cfg, block_fusion=True),
                  "jit(loss_fn) default", ptt.jit(loss_of, whole_program_jit=False))
     want_bd = dict(planned, ce_fwd=1)
-    require(bd["launches"] == want_bd and bd["eager_launches"] == want_bd,
+    require(without_regions(bd["launches"]) == want_bd and bd["eager_launches"] == want_bd,
             f"jit(loss_fn) default launched {bd['launches']}, eager planned "
             f"{bd['eager_launches']}, want {want_bd}")
     bd["loss"], bd["eager_loss"] = float(bd.pop("out")), float(bd.pop("eager"))
@@ -4239,7 +4434,7 @@ def jit_full_width(np, torch, tllama, cudaex) -> dict:
     c = jit_run(torch, cudaex, ptt, lay, (x, *layer), lambda: plain(x, *layer), "jit(layer)",
                 ptt.jit(plain, block_fusion=False, whole_program_jit=False))
     want_c = {"rms_norm": 1, "sdpa_fwd": 1, "rms_norm_residual": 1, "linear_act": 1}
-    require(c["launches"] == want_c and not c["eager_launches"],
+    require(without_regions(c["launches"]) == want_c and not c["eager_launches"],
             f"jit(layer) launched {c['launches']} (want {want_c}); eager {c['eager_launches']}")
     src = ptt.last_execution_trace(lay).python()
     require("epilogue fusion: residual add absorbed into rms_norm" in src
@@ -4311,7 +4506,8 @@ def replay_pairs(pairs) -> dict:
 
 def jit_train_run(np, torch, tllama, cudaex, pretrain, remat: bool, eager: dict,
                   block_fusion: bool | None = None, loss_rtol: float = JIT_TRAIN_LOSS_RTOL,
-                  then=None, whole_program_jit: bool = True) -> dict:
+                  then=None, whole_program_jit: bool = True, keep_regions: str | None = None
+                  ) -> dict:
     """Phase 19 (a) or, with ``remat``, (b), and with ``block_fusion=True``
     phase 21 (a): ``pretrain.jit_train_step`` from phase 7's weights, batch
     and AdamW(lr=1e-4), TRAIN_STEPS steps. Every step launches exactly the
@@ -4323,10 +4519,12 @@ def jit_train_run(np, torch, tllama, cudaex, pretrain, remat: bool, eager: dict,
     (``decision_summary``). ``then(jf, holder, tok, tgt)``, where given,
     runs on the trained state before it is freed; its dict is ``then``.
     ``whole_program_jit`` is the compile's replay option (the default, on:
-    step 1 runs per call, step 2 is captured, the rest replay)."""
+    step 1 runs per call, step 2 is captured, the rest replay). Every step
+    launches one ``region`` a region of its trace; ``keep_regions`` keeps
+    them in HELD_REGIONS under that name for phase 23."""
     import thunder_tpu_torch as ptt
     from thunder_tpu_torch.optim import AdamW, tree_leaves
-    from thunder_tpu_torch.testing import claimed_kernels
+    from thunder_tpu_torch.testing import claimed_kernels, regions_of
 
     what = (f"jit train step{' (remat)' if remat else ''}"
             f"{' (planned)' if block_fusion else ''}"
@@ -4350,7 +4548,11 @@ def jit_train_run(np, torch, tllama, cudaex, pretrain, remat: bool, eager: dict,
               else jit_train_launches(TRAIN_LAYERS, remat))
     decisions = decision_summary(ptt, jf)
     claims = claimed_kernels(trc)
-    require(claims == expect, f"{what}: the trace claims {claims}, want {expect}")
+    require(without_regions(claims) == expect, f"{what}: the trace claims {claims}, "
+                                               f"want {expect}")
+    expect = with_region(expect, claims.get("region", 0))
+    if keep_regions:
+        HELD_REGIONS[keep_regions] = regions_of(trc)
     ptrs = [t.data_ptr() for t in tree_leaves((params, state["m"], state["v"]))]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -4524,10 +4726,10 @@ def module_train_run(np, torch, tllama, cudaex, pretrain, eager: dict) -> dict:
         module.zero_grad(set_to_none=True)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t) * 1e3
-        require(fwd == MODULE_FWD == claimed_kernels(step.fwd_trace),
+        require(fwd == claimed_kernels(step.fwd_trace) and without_regions(fwd) == MODULE_FWD,
                 f"module-train: step {i}'s forward launched {fwd}, its trace claims "
                 f"{claimed_kernels(step.fwd_trace)}, want {MODULE_FWD}")
-        require(bwd == MODULE_BWD == claimed_kernels(step.bwd_trace),
+        require(bwd == claimed_kernels(step.bwd_trace) and without_regions(bwd) == MODULE_BWD,
                 f"module-train: step {i}'s backward launched {bwd}, its trace claims "
                 f"{claimed_kernels(step.bwd_trace)}, want {MODULE_BWD}")
         require(upd == {"fused_adamw": 1}, f"module-train: step {i}'s update launched {upd}")
@@ -4591,7 +4793,8 @@ def module_train_run(np, torch, tllama, cudaex, pretrain, eager: dict) -> dict:
         ev = float(ev)
         eval_ms = device_ms(torch, lambda: tm(tok, tgt))
     grad_loss = float(tm(tok, tgt).detach())
-    require(launches == MODULE_EVAL == claimed_kernels(ptt.last_execution_trace(tm)),
+    require(launches == claimed_kernels(ptt.last_execution_trace(tm))
+            and without_regions(launches) == MODULE_EVAL,
             f"module-eval: launched {launches}, its trace claims "
             f"{claimed_kernels(ptt.last_execution_trace(tm))}, want {MODULE_EVAL}")
     eval_rel = abs(ev - grad_loss) / abs(grad_loss)
@@ -4610,7 +4813,8 @@ def module_train_run(np, torch, tllama, cudaex, pretrain, eager: dict) -> dict:
         evd, launches_d = counted(torch, cudaex, lambda: tmd(tok, tgt))
         evd = float(evd)
         rungs = default_rung(torch, "module-eval", lambda: tmd(tok, tgt), lambda: tm(tok, tgt))
-    require(launches_d == MODULE_EVAL_PLANNED == claimed_kernels(ptt.last_execution_trace(tmd)),
+    require(launches_d == claimed_kernels(ptt.last_execution_trace(tmd))
+            and without_regions(launches_d) == MODULE_EVAL_PLANNED,
             f"module-eval default: launched {launches_d}, its trace claims "
             f"{claimed_kernels(ptt.last_execution_trace(tmd))}, want {MODULE_EVAL_PLANNED}")
     rel_d = abs(evd - ev) / abs(ev)
@@ -4661,9 +4865,9 @@ def fn_bridge_run(torch, cudaex, tllama) -> dict:
     _, bwd = counted(torch, cudaex, out.float().square().mean().backward)
     step = next(iter(jf._autograd_cache.values()))
     want_f = {"rms_norm": 1, "sdpa_fwd": 1, "rms_norm_residual": 1}
-    require(fwd == want_f == claimed_kernels(step.fwd_trace),
+    require(fwd == claimed_kernels(step.fwd_trace) and without_regions(fwd) == want_f,
             f"fn-bridge: forward launched {fwd}, want {want_f}")
-    require(bwd == {"sdpa_bwd": 1} == claimed_kernels(step.bwd_trace),
+    require(bwd == claimed_kernels(step.bwd_trace) and without_regions(bwd) == {"sdpa_bwd": 1},
             f"fn-bridge: backward launched {bwd}")
     got = [t.grad for t in leaves]
     for t in leaves:
@@ -4716,14 +4920,17 @@ def planned_quarantine(torch, cudaex):
                 torch.cuda.synchronize()
                 now = cudaex.launch_counts()
                 delta = {k: now[k] - before[k] for k in now if now[k] != before[k]}
-                require(delta == expect, f"quarantined planned step {i} launched {delta}, "
-                                         f"want phase 19's {expect}")
+                regions = claimed_kernels(ptt.last_execution_trace(jf)).get("region", 0)
+                require(delta == with_region(expect, regions),
+                        f"quarantined planned step {i} launched {delta}, want phase 19's "
+                        f"{expect} and {regions} regions")
                 holder[0] = (p, s)
                 losses.append(float(loss))
             require(ptt.cache_misses(jf) == misses + 1,
                     f"quarantined planned step: {ptt.cache_misses(jf)} misses, want {misses + 1}")
             claims = claimed_kernels(ptt.last_execution_trace(jf))
-            require(claims == expect, f"quarantined planned step claims {claims}")
+            require(without_regions(claims) == expect,
+                    f"quarantined planned step claims {claims}")
             unclaimed = [d for d in ptt.compile_stats(jf).last_decisions
                          if d["kind"] == "block" and d["decision"] == "unclaimed"]
             require(len(unclaimed) == TRAIN_LAYERS and "quarantined" in unclaimed[0]["reason"],
@@ -4773,15 +4980,16 @@ def module_planned_run(np, torch, tllama, cudaex, pretrain, phase20: dict) -> di
         module.zero_grad(set_to_none=True)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t) * 1e3
-        require(fwd == want_fwd == claimed_kernels(step.fwd_trace),
+        require(fwd == claimed_kernels(step.fwd_trace) and without_regions(fwd) == want_fwd,
                 f"module-train-planned: step {i}'s forward launched {fwd}, its trace claims "
                 f"{claimed_kernels(step.fwd_trace)}, want {want_fwd}")
-        require(bwd == want_bwd == claimed_kernels(step.bwd_trace),
+        require(bwd == claimed_kernels(step.bwd_trace) and without_regions(bwd) == want_bwd,
                 f"module-train-planned: step {i}'s backward launched {bwd}, its trace claims "
                 f"{claimed_kernels(step.bwd_trace)}, want {want_bwd}")
         require(upd == {"fused_adamw": 1}, f"module-train-planned: step {i}'s update "
                                            f"launched {upd}")
-        require(dict(fwd, **bwd, **upd) == train_launches(L, True),
+        require(dict(without_regions(fwd), **without_regions(bwd), **upd)
+                == train_launches(L, True),
                 f"module-train-planned: step {i} launched {dict(fwd, **bwd, **upd)}, want (a)'s")
         for part in (fwd, bwd, upd):
             for k, n in part.items():
@@ -4845,11 +5053,13 @@ def horizontal_ab(np, torch, tllama, cudaex, pretrain) -> dict:
     expect = jit_train_launches(TRAIN_LAYERS, False)
     jfs = {"unset": pretrain.jit_train_step(cfg, opt),
            "off": pretrain.jit_train_step(cfg, opt, horizontal_fusion=False)}
-    merged = {}
+    merged, want = {}, {}
     for k, jf in jfs.items():
         jf.compile(params, state, tok, tgt)
         claims = claimed_kernels(ptt.last_execution_trace(jf))
-        require(claims == expect, f"phase 21 (e) {k}: the trace claims {claims}, want {expect}")
+        require(without_regions(claims) == expect,
+                f"phase 21 (e) {k}: the trace claims {claims}, want {expect}")
+        want[k] = with_region(expect, claims.get("region", 0))
         merged[k] = sum(1 for d in ptt.compile_stats(jf).last_decisions
                         if d["kind"] == "fusion" and d["op"] == "horizontal_merge"
                         and d["decision"] == "merged")
@@ -4866,7 +5076,8 @@ def horizontal_ab(np, torch, tllama, cudaex, pretrain) -> dict:
         ms = (time.perf_counter() - t) * 1e3
         now = cudaex.launch_counts()
         delta = {n: now[n] - before[n] for n in now if now[n] != before[n]}
-        require(delta == expect, f"phase 21 (e) {k}: step {i} launched {delta}, want {expect}")
+        require(delta == want[k], f"phase 21 (e) {k}: step {i} launched {delta}, "
+                                  f"want {want[k]}")
         cur = (p, st)
         losses.append(float(loss))
         if i >= 2:   # the first step of each compiled program is a warm-up
@@ -4882,6 +5093,246 @@ def horizontal_ab(np, torch, tllama, cudaex, pretrain) -> dict:
             "step_ms": times, "losses": losses}
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the region executor's generated kernels
+# ---------------------------------------------------------------------------
+
+def memory_report(torch) -> dict:
+    """Where the card's memory is, after a collection: the allocator's
+    allocated and reserved GB, the GB of the live CUDA tensors Python
+    reaches (each storage once), the allocated GB of its private pools (the
+    CUDA graphs') apart from its default pool, and the CUDA graphs alive."""
+    gc.collect()
+    torch.cuda.synchronize()
+    storages, live, graphs = set(), 0, 0
+    with warnings.catch_warnings():   # isinstance reads deprecated module attributes
+        warnings.simplefilter("ignore")
+        for o in gc.get_objects():
+            if isinstance(o, torch.Tensor) and o.is_cuda:
+                st = o.untyped_storage()
+                if st.data_ptr() not in storages:
+                    storages.add(st.data_ptr())
+                    live += st.nbytes()
+            elif isinstance(o, torch.cuda.CUDAGraph):
+                graphs += 1
+    private = sum(seg["allocated_size"] for seg in torch.cuda.memory._snapshot()["segments"]
+                  if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0))
+    return {"allocated_gb": torch.cuda.memory_allocated() / 1e9,
+            "reserved_gb": torch.cuda.memory_reserved() / 1e9,
+            "live_tensors_gb": live / 1e9, "private_pools_allocated_gb": private / 1e9,
+            "graphs_alive": graphs}
+
+
+def hold_regions(torch, held: dict) -> dict:
+    """Every distinct region (its source and its inputs' shapes) of the
+    programs in ``held`` (path -> region callables) launched once on random
+    inputs at its program's shapes and held against its plain chain on the
+    same inputs: bit for bit where it holds no transcendental op, within
+    REGION_ULP of the output dtype where it does. Returns the counts by
+    path and the largest region (by the bytes it moves), with its path."""
+    from thunder_tpu_torch.testing import hold_region, region_inputs
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    seen, counts, largest = set(), {}, (0, None, None)
+    for path, regions in held.items():
+        c = counts.setdefault(path, {"regions": len(regions), "distinct": 0, "bit_identical": 0,
+                                     "transcendental": 0, "max_ulp": 0})
+        for r in regions:
+            key = (r.spec.entry, tuple(tuple(p.shape) for p in r.inputs))
+            if key in seen:
+                continue
+            seen.add(key)
+            vals = region_inputs(r, gen, "cuda")
+            h = hold_region(r, vals)
+            torch.cuda.synchronize()
+            require(h["ok"] and h["ulp"] <= REGION_ULP,
+                    f"{path} {r.name}: {h} against its plain chain\n{r.spec.source}")
+            c["distinct"] += 1
+            c["bit_identical"] += h["bit_identical"]
+            c["transcendental"] += h["transcendental"]
+            c["max_ulp"] = max(c["max_ulp"], h["ulp"])
+            nbytes = (sum(t.numel() * t.element_size() for t in vals)
+                      + sum(math.prod(o.shape) * o.dtype.bytes for o in r.outputs))
+            if nbytes > largest[0]:
+                largest = (nbytes, path, r)
+            del vals
+    log(f"  regions held against their plain chains: {json.dumps(counts)}")
+    return {"counts": counts, "largest": largest}
+
+
+def time_region(torch, cudaex, largest: tuple) -> dict:
+    """The region row of the kernels line: the largest region of phase 23
+    (a) (``largest``: its bytes moved, path and callable) on random inputs,
+    its kernel timed against its plain chain (the per-op chain) and its
+    bound by bytes."""
+    from thunder_tpu_torch.testing import region_inputs
+
+    nbytes, path, r = largest
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    vals = region_inputs(r, gen, "cuda")
+    got, want = r(*vals), r.plain(*vals)
+    err = max(float((g.to(t) - w.to(t)).abs().max())
+              for g, w in zip(got, want) for t in [torch.promote_types(g.dtype, torch.float32)])
+    del got, want
+    row = timed_row(torch, cudaex, "region", f"{path} {list(r.shape)}", err,
+                    lambda: r(*vals), lambda: r.plain(*vals), None, nbytes,
+                    len(r.members) * math.prod(r.shape), F32_FLOPS)
+    row["per_op_chain_ms"] = row["plain_ms"]
+    row["ops"] = [b.sym.name for b in r.members]
+    row["gb_moved"] = nbytes / 1e9
+    del vals
+    torch.cuda.empty_cache()
+    return row
+
+
+def trace_calls(trc) -> dict:
+    """What one call of an execution trace runs, counted from its bound
+    symbols: the torch executor's calls (``torch``; views among them,
+    ``torch_views``, launch nothing), the ``cuda`` claims' and the regions'
+    launches (a replayed graph runs the same kernels without the host
+    calls)."""
+    from thunder_tpu_torch.executors.eagertorch import MAY_ALIAS
+
+    out = {"torch": 0, "torch_views": 0, "cuda": 0, "region": 0}
+    for b in trc.bound_symbols:
+        ex = b.sym.executor
+        if b.sym.name in ("python_del", "python_return", "comment"):
+            continue
+        if ex is None or ex.name == "torch":
+            out["torch"] += 1
+            out["torch_views"] += ex is None and b.sym.id in MAY_ALIAS
+        else:
+            out[ex.name] = out.get(ex.name, 0) + 1
+    return out
+
+
+def region_ab_train(np, torch, tllama, pretrain) -> dict:
+    """Phase 19 (a)'s step (llama3-8b-bench, TRAIN_LAYERS layers, B=8,
+    T=2048, per-op, AdamW) compiled with the regions on and off, then phase
+    15 (a)'s guarded step each way, one pair at a time (four graphs' pools
+    would not fit the card beside the state), on one set of donated
+    weights and state: each warmed (the capture), then REGION_AB_ROUNDS
+    rounds of (on, off, off, on) turns of REGION_AB_STEPS replayed steps
+    (host clock to a sync, medians); one profile of each unguarded program
+    (device ms by kernel family) and what it runs a step
+    (``trace_calls``). The guard's overhead each way: the guarded pair's
+    median over the unguarded pair's."""
+    import thunder_tpu_torch as ptt
+    from thunder_tpu_torch.optim import AdamW
+    from thunder_tpu_torch.transforms.numerics_guard import (NumericsGuardTransform,
+                                                             disarmed_policy)
+
+    cfg = tllama.CONFIGS["llama3-8b-bench"]
+    params = tllama.init_params(cfg, seed=0, device="cuda", n_layers=TRAIN_LAYERS)
+    opt = AdamW(lr=1e-4)
+    holder = [(params, opt.init(params))]
+    tok, tgt = (torch.from_numpy(a).cuda()
+                for a in pretrain.synthetic_batch(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, 0))
+
+    def stepper(jf):
+        def step():
+            loss, p, st = jf(*holder[0], tok, tgt)
+            holder[0] = (p, st)
+            return loss
+        return step
+
+    def turn(jf) -> list:
+        ms, step = [], stepper(jf)
+        for _ in range(REGION_AB_STEPS):
+            t = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        return ms
+
+    out = {}
+    for kind in ("plain", "guarded"):
+        transforms = ([NumericsGuardTransform(policy=disarmed_policy())]
+                      if kind == "guarded" else [])
+        arms = {on: pretrain.jit_train_step(cfg, opt, block_fusion=False, transforms=transforms,
+                                            region_disable_fusion=not on)
+                for on in (True, False)}
+        for jf in arms.values():
+            for _ in range(2):
+                stepper(jf)()            # per call, then the capture
+        torch.cuda.synchronize()
+        times = {True: [], False: []}
+        for _ in range(REGION_AB_ROUNDS):
+            for on in (True, False, False, True):
+                times[on].extend(turn(arms[on]))
+        for on, ms in times.items():
+            out[f"{kind} regions {'on' if on else 'off'} step_ms"] = ms
+            out[f"{kind} regions {'on' if on else 'off'} step_ms_median"] = float(np.median(ms))
+        if kind == "plain":
+            for on in (True, False):
+                prof = pretrain.profile_steps(stepper(arms[on]), JIT_TRAIN_PROFILE)
+                tag = "on" if on else "off"
+                out[f"regions {tag} ms_by_family"] = prof["ms_per_step_by_family"]
+                out[f"regions {tag} elementwise_ms"] = (
+                    prof["ms_per_step_by_family"].get("other elementwise/copy", 0.0)
+                    + prof["ms_per_step_by_family"].get("region", 0.0))
+                out[f"regions {tag} device_busy_ms"] = prof["device_busy_ms_per_step"]
+                out[f"regions {tag} calls_per_step"] = trace_calls(
+                    ptt.last_execution_trace(arms[on]))
+        arms.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+    for tag in ("on", "off"):
+        g = out[f"guarded regions {tag} step_ms_median"]
+        p = out[f"plain regions {tag} step_ms_median"]
+        out[f"guard_overhead_pct regions {tag}"] = (g - p) / p * 100
+    del holder, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def region_ab_bench(np, torch, tllama, pretrain, bench, remat: bool, block_fusion: bool,
+                    eager_ms: float) -> dict:
+    """Phase 13's compiled bench step ((a) ``remat``, (b) ``block_fusion``;
+    llama2-7b-bench, BENCH_LAYERS layers, fused loss, slab state) with the
+    regions on and off on one set of weights and state, REGION_AB_ROUNDS
+    rounds of (on, off, off, on) turns of REGION_AB_STEPS replayed steps;
+    ``vs_baseline`` of each against ``eager_ms``, phase 13's eager arm."""
+    cfg = tllama.CONFIGS["llama2-7b-bench"]
+    opt = bench.make_opt("bf16", slab_state=True)
+    params = tllama.init_params(cfg, seed=0, device="cuda", n_layers=BENCH_LAYERS)
+    holder = [(params, opt.init(params))]
+    tok, tgt = (torch.from_numpy(a).cuda()
+                for a in pretrain.synthetic_batch(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, 0))
+    arms = {on: pretrain.jit_train_step(cfg, opt, remat=remat, loss="fused",
+                                        block_fusion=block_fusion, region_disable_fusion=not on)
+            for on in (True, False)}
+
+    def step(jf):
+        loss, p, st = jf(*holder[0], tok, tgt)
+        holder[0] = (p, st)
+
+    for jf in arms.values():
+        for _ in range(2):
+            step(jf)
+    torch.cuda.synchronize()
+    times = {True: [], False: []}
+    for _ in range(REGION_AB_ROUNDS):
+        for on in (True, False, False, True):
+            for _ in range(REGION_AB_STEPS):
+                t = time.perf_counter()
+                step(arms[on])
+                torch.cuda.synchronize()
+                times[on].append((time.perf_counter() - t) * 1e3)
+    out = {"remat": remat, "block_fusion": block_fusion, "eager_ms": eager_ms}
+    for on in (True, False):
+        tag = "on" if on else "off"
+        med = float(np.median(times[on]))
+        out[f"regions {tag} step_ms"] = times[on]
+        out[f"regions {tag} step_ms_median"] = med
+        out[f"regions {tag} vs_baseline"] = eager_ms / med
+    del arms, holder, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -4895,7 +5346,7 @@ def main() -> int:
     try:
         from thunder_tpu_torch import optim as toptim
         from thunder_tpu_torch.benchmarks import bench, pretrain, zoo
-        from thunder_tpu_torch.executors import cudaex
+        from thunder_tpu_torch.executors import cudaex, regionex
         from thunder_tpu_torch.models import llama as tllama
         from thunder_tpu_torch.models import mixtral as tmix
         from thunder_tpu_torch.ops import nn as tnn
@@ -4909,7 +5360,7 @@ def main() -> int:
     t_start = time.perf_counter()
 
     card = card_line()
-    log(card)
+    print(card, flush=True)
     t0 = time.perf_counter()
     compile_s = cudaex.build()
     log(f"build: {time.perf_counter() - t0:.1f} s ({', '.join(f'{k} {v:.1f} s' for k, v in compile_s.items())})")
@@ -4932,7 +5383,7 @@ def main() -> int:
 
     def serve(block_fusion):
         t0 = time.perf_counter()
-        params = tllama.init_params(tllama.CONFIGS["llama3-8b"], seed=0, device="cuda")
+        params = tllama.init_params(serve_config(tllama), seed=0, device="cuda")
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         out = full_width(np, torch, tllama, ServingEngine, SamplingParams, cudaex, params,
@@ -5016,7 +5467,8 @@ def main() -> int:
     t16 = time.perf_counter()
     fl = fleet_full_width(np, torch, tllama, ServingEngine, SamplingParams, cudaex)
     fl["phase_s"] = time.perf_counter() - t16
-    log(f"serving fleet, llama3-8b full width (a)-(d): {json.dumps(fl)} ({card})")
+    log(f"serving fleet, llama3-8b full width, {FLEET_LAYERS} layers (a)-(d): "
+        f"{json.dumps(fl)} ({card})")
     t16 = time.perf_counter()
     fc = fleet_card_vs_cpu(np, torch, tllama, ServingEngine, SamplingParams, cudaex)
     fc["phase_s"] = time.perf_counter() - t16
@@ -5067,7 +5519,7 @@ def main() -> int:
 
     # phase 19: the compiled train step, plain and checkpointed, each with
     # the whole-program replay (the default) and per call
-    jta = jit_train_run(np, torch, tllama, cudaex, pretrain, False, tw)
+    jta = jit_train_run(np, torch, tllama, cudaex, pretrain, False, tw, keep_regions="jit-train")
     log(f"phase 19 (a) jit train step: {json.dumps(jta)} ({card})")
     jta_off = jit_train_run(np, torch, tllama, cudaex, pretrain, False, tw,
                             whole_program_jit=False)
@@ -5178,12 +5630,50 @@ def main() -> int:
     sj = serve_jit_full_width(np, torch, tllama, ServingEngine, SamplingParams, cudaex,
                               pretrain)
     log("phase 22: " + json.dumps({
-        "verdict": sj["verdict"], "phase_s": sj["phase_s"],
+        "verdict": sj["verdict"], "readings": sj["readings"], "phase_s": sj["phase_s"],
         **{f"{name} {mode}": {k: sj[name][mode][k] for k in (
             "rung", "decode_tok_per_s", "decode_step_ms_median", "decode_step_host_ms_median",
             "ttft_ms_mean", "decode_device_busy_ms", "decode_device_idle_share",
             "first_logits_row_rel_err_vs_generate", "launches_per_decode_step")}
            for name, _ in SERVE_JIT_RUNGS for mode in ("replay", "per_call")}}) + f" ({card})")
+
+    # phase 23: the region executor's generated kernels
+    t23 = time.perf_counter()
+    log(f"phase 23: the card's memory after phase 22: {json.dumps(memory_report(torch))}")
+    hr = hold_regions(torch, HELD_REGIONS)
+    region_row = time_region(torch, cudaex, hr["largest"])
+    log(f"phase 23 (a) every distinct region of phases 19 (a) and 22 (per-op) against its "
+        f"plain chain: {json.dumps(hr['counts'])}; the largest timed: "
+        f"{json.dumps(region_row)} ({card})")
+    rab = region_ab_train(np, torch, tllama, pretrain)
+    log(f"phase 23 (b) phase 19 (a) / 15 (a), regions on and off: {json.dumps(rab)} ({card})")
+    rba = region_ab_bench(np, torch, tllama, pretrain, bench, True, False,
+                          ba["baseline_step_ms"])
+    log(f"phase 23 (c) phase 13 (a), regions on and off: {json.dumps(rba)} ({card})")
+    rbb = region_ab_bench(np, torch, tllama, pretrain, bench, False, True,
+                          bb["baseline_step_ms"])
+    log(f"phase 23 (d) phase 13 (b), regions on and off: {json.dumps(rbb)} ({card})")
+    log("phase 23: " + json.dumps({
+        "regions_held": sum(c["distinct"] for c in hr["counts"].values()),
+        "regions_bit_identical": sum(c["bit_identical"] for c in hr["counts"].values()),
+        "region_max_ulp": max(c["max_ulp"] for c in hr["counts"].values()),
+        "phase_19a_step_ms_on_off": [rab["plain regions on step_ms_median"],
+                                     rab["plain regions off step_ms_median"]],
+        "phase_19a_elementwise_ms_on_off": [rab["regions on elementwise_ms"],
+                                            rab["regions off elementwise_ms"]],
+        "phase_19a_calls_per_step_on_off": [rab["regions on calls_per_step"],
+                                            rab["regions off calls_per_step"]],
+        "phase_19a_regions_a_step": jta["launches_per_step"].get("region", 0),
+        "phase_15a_guard_overhead_pct_on_off": [rab["guard_overhead_pct regions on"],
+                                                rab["guard_overhead_pct regions off"]],
+        "phase_13a_vs_baseline_on_off": [rba["regions on vs_baseline"],
+                                         rba["regions off vs_baseline"]],
+        "phase_13b_vs_baseline_on_off": [rbb["regions on vs_baseline"],
+                                         rbb["regions off vs_baseline"]],
+        "phase_22_decode_ms_median": sj["verdict"]["decode_step_ms_median"],
+        "region_nvcc_s": regionex.nvcc_seconds(),
+        "phase_s": time.perf_counter() - t23,
+    }) + f" ({card})")
 
     # one row per kernel and main path: the path's own shape and its own
     # launch count (rms_norm and rms_norm_residual run on several paths;
@@ -5193,6 +5683,10 @@ def main() -> int:
     keys = ("name", "path", "shape", "design", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
+    # every compiled path launches regions: one row, phase 23's largest
+    # region of phase 19 (a), under each path's own launches
+    for table in (rows, train_rows, jit_rows, module_rows, sp_rows):
+        table["region"] = [region_row]
     planned = {name: train_rows.get(name) or planned_rows[name]
                for name in tp["launches_per_step"]}
     # the serving planned path: rms_norm at the decode shape (the same kernel
@@ -5264,10 +5758,15 @@ def main() -> int:
                                  (DEFAULT_PATHS[2], {k: module_rows.get(k) or planned[k]
                                                      for k in MODULE_EVAL_PLANNED},
                                   mt["eval"]["default"]),
-                                 *((p, {k: serve_planned.get(k) or rows[k]
+                                 *((p, {k: serve_planned.get(k) or sp_rows.get(k) or rows[k]
                                         for k in sj[n]["replay"]["launches"]},
                                     sj[n]["replay"])
                                    for p, (n, _) in zip(SERVE_JIT_PATHS, SERVE_JIT_RUNGS))):
+        path_rows = dict(path_rows)
+        if run["launches"].get("region", 0):
+            path_rows["region"] = [region_row]
+        else:   # an eager path: no region
+            path_rows.pop("region", None)
         for name, rs in path_rows.items():
             if path in (*FLEET_PATHS, *ZOO_PATHS, *JIT_PATHS, *JIT_TRAIN_PATHS, *MODULE_PATHS,
                         *PLANNED_PATHS, *DEFAULT_PATHS, *SERVE_JIT_PATHS, *BENCH_JIT_PATHS):
@@ -5287,8 +5786,9 @@ def main() -> int:
         require(ran_names == names, f"{p}: launched {ran_names}, its rows {names}")
     log("C.1 inputs: " + json.dumps(c1))
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    log(card)
-    log(json.dumps({"kernels": kernels}))
+    # the card and the kernels line as the checker reads them: unprefixed
+    print(card, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}),

@@ -2209,3 +2209,127 @@ def test_cuda_guarded_compiled_step_runs_as_a_graph(cuda_device, slab):
     assert stats.whole_program_copied_bytes == stats.whole_program_replays * 12
     plain = runs["plain"][0]
     assert all(torch.equal(a, b) for a, b in zip(losses[:2], plain[:2]))
+
+
+# ---------------------------------------------------------------------------
+# the region executor's generated kernels (executors/regionex.py)
+# ---------------------------------------------------------------------------
+
+def _region_programs(device, dtype):
+    """The regions of tiny-gqa's compiled train step (2 layers, plain and
+    remat) and of the traced engine's per-op decode step, at ``dtype``, with
+    their inputs on the card: ``{"train": [...], "train-remat": [...],
+    "decode": [...]}``."""
+    import dataclasses
+
+    import thunder_tpu_torch as ptt
+    from thunder_tpu_torch.benchmarks import pretrain
+    from thunder_tpu_torch.models import llama as tllama
+    from thunder_tpu_torch.optim import AdamW, tree_map
+    from thunder_tpu_torch.serving import ServingEngine
+    from thunder_tpu_torch.testing import regions_of
+
+    cfg = dataclasses.replace(tllama.CONFIGS["tiny-gqa"], dtype=dtype)
+    params = tllama.init_params(cfg, seed=0, device="cpu", n_layers=2)
+    opt = AdamW(lr=1e-3)
+    tok, tgt = (torch.from_numpy(a).to(device)
+                for a in pretrain.synthetic_batch(cfg.vocab_size, 2, 64, 0))
+    out = {}
+    for name, remat in (("train", False), ("train-remat", True)):
+        p = tree_map(lambda t: t.to(device), params)
+        step = pretrain.jit_train_step(cfg, opt, remat=remat)
+        step.compile(p, opt.init(p), tok, tgt)
+        out[name] = regions_of(ptt.last_execution_trace(step))
+    eng = ServingEngine(params, cfg, device=device.type, max_slots=3, page_size=8,
+                        max_context=64, prefill_chunk=16, block_fusion=False)
+    eng.submit(np.arange(1, 10, dtype=np.int32), 2)
+    eng.drain()
+    out["decode"] = regions_of(eng.runner._decode_bound.entry.traces[-1])
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16],
+                         ids=["f32", "bf16", "f16"])
+def test_cuda_regions_match_their_plain_chains(cuda_device, dtype):
+    """Every region of the train step and of the decode step, on random
+    inputs (dense, then every input strided), against its plain chain on
+    the same inputs: arithmetic-only regions bit for bit, regions with a
+    transcendental op within 1 ulp of the output dtype; each launch counts
+    one ``region``."""
+    from thunder_tpu_torch.testing import hold_region, region_inputs
+
+    progs = _region_programs(cuda_device, dtype)
+    assert all(progs.values()), {k: len(v) for k, v in progs.items()}
+    gen = torch.Generator().manual_seed(0)
+    for name, regions in progs.items():
+        for r in regions:
+            for strided in (False, True):
+                vals = region_inputs(r, gen, cuda_device, strided=strided)
+                cudaex.reset_launch_counts()
+                held = hold_region(r, vals)
+                torch.cuda.synchronize()
+                assert held["ok"], (name, r.name, strided, held, r.spec.source)
+                assert cudaex.launch_counts()["region"] == 1
+
+
+@pytest.mark.cuda
+def test_cuda_region_that_fails_to_build_raises(cuda_device, monkeypatch, tmp_path):
+    """Two regions of one program, one with a planted compile error: the
+    program's one nvcc fails, each region is built alone, the good one
+    launches, the bad one raises ``KernelBuildError`` naming it at its first
+    launch (its log in ``cudaex.build_failures()``), and nothing runs in
+    its place."""
+    import dataclasses
+
+    from thunder_tpu_torch.executors import regionex
+    from thunder_tpu_torch.runtime.faults import KernelBuildError
+    from thunder_tpu_torch.testing import region_inputs
+
+    monkeypatch.setattr(regionex, "_bound", {})
+    monkeypatch.setattr(regionex, "_failures", {})
+    monkeypatch.setattr(cudaex, "BUILD_DIR", tmp_path / "build")
+    good, bad = _region_programs(cuda_device, torch.float32)["train"][:2]
+    # an entry of its own: the engine's run above may have bound the original
+    entry = bad.spec.entry + "_planted"
+    planted = (bad.spec.source.replace(bad.spec.entry, entry)
+               + "\nstatic_assert(false, \"planted region failure\");\n")
+    spec = dataclasses.replace(bad.spec, source=planted, entry=entry)
+    monkeypatch.setattr(bad, "spec", spec)
+    monkeypatch.setattr(bad, "program", [good, bad])
+    monkeypatch.setattr(good, "program", [good, bad])
+    gen = torch.Generator().manual_seed(1)
+    with pytest.raises(KernelBuildError, match="planted region failure") as ei:
+        bad(*region_inputs(bad, gen, cuda_device))
+    assert ei.value.kernel == "region"
+    assert f"region:{spec.entry}" in cudaex.build_failures()
+    out = good(*region_inputs(good, gen, cuda_device))
+    torch.cuda.synchronize()
+    assert all(o.is_cuda for o in out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("replay", [False, True], ids=["per-call", "replay"])
+def test_cuda_region_launches_equal_the_trace_regions(cuda_device, replay):
+    """tiny-gqa's compiled train step (float32, 2 layers): each call
+    launches one ``region`` kernel per region of its execution trace, the
+    trace's claims and the launches equal (a replay counts what it runs)."""
+    import thunder_tpu_torch as ptt
+    from thunder_tpu_torch.benchmarks import pretrain
+    from thunder_tpu_torch.models import llama as tllama
+    from thunder_tpu_torch.optim import AdamW, tree_map
+    from thunder_tpu_torch.testing import claimed_kernels, jit_launches, regions_of
+
+    cfg = tllama.CONFIGS["tiny-gqa"]
+    opt = AdamW(lr=1e-3)
+    p = tree_map(torch.Tensor.cuda, tllama.init_params(cfg, seed=0, device="cpu", n_layers=2))
+    s = opt.init(p)
+    tok, tgt = (torch.from_numpy(a).cuda() for a in pretrain.synthetic_batch(cfg.vocab_size, 2,
+                                                                              64, 0))
+    step = pretrain.jit_train_step(cfg, opt, whole_program_jit=replay)
+    for _ in range(3):
+        (loss, p, s), launches, claims = jit_launches(step, p, s, tok, tgt)
+        n = len(regions_of(ptt.last_execution_trace(step)))
+        assert n > 0 and launches["region"] == claims["region"] == n
+        assert launches == claims
+    assert claimed_kernels(ptt.last_execution_trace(step))["region"] == n

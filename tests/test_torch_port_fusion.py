@@ -55,7 +55,7 @@ from thunder_tpu_torch.core.pytree import tree_map
 from thunder_tpu_torch.models import llama as tllama
 from thunder_tpu_torch.optim import AdamW, tree_leaves
 from thunder_tpu_torch.runtime import quarantine as tquarantine
-from thunder_tpu_torch.testing import PlainLlama, claimed_kernels
+from thunder_tpu_torch.testing import PlainLlama, claimed_kernels, with_regions
 
 LAYERS, B, T, LR, STEPS = 4, 2, 16, 1e-3, 2
 EPS = 1e-5
@@ -251,7 +251,7 @@ def test_claims_match_reference_for_cuda_inputs(planned, block_fusion, monkeypat
     step.compile(*tree_map(_on_cuda, (params, topt.init(params), *planned["batch"])))
     trc = ptt.last_execution_trace(step)
     assert _port_claims(trc) == want
-    assert claimed_kernels(trc) == want
+    assert claimed_kernels(trc) == with_regions(trc, want)
     kinds = [d["decision"] for d in _block_decisions(step)]
     assert kinds == (["planned"] * L if block_fusion else ["cost-rejected"] * L)
 
@@ -348,9 +348,10 @@ def test_quarantined_sub_block_recompiles_to_the_per_op_rung(planned):
     tquarantine.get_quarantine().add("cuda.mlp_subblock", reason="test", phase="runtime")
     step.compile(*fake)
     assert ptt.cache_misses(step) == 2
-    claims = claimed_kernels(ptt.last_execution_trace(step))
-    assert claims == {"rms_norm": 1, "sdpa_fwd": L, "rms_norm_residual": 2 * L,
-                      "sdpa_bwd": L, "ce_fwd": 1, "fused_adamw": 1}
+    trc = ptt.last_execution_trace(step)
+    assert claimed_kernels(trc) == with_regions(trc, {
+        "rms_norm": 1, "sdpa_fwd": L, "rms_norm_residual": 2 * L, "sdpa_bwd": L, "ce_fwd": 1,
+        "fused_adamw": 1})
     unclaimed = [d for d in _block_decisions(step) if d["decision"] == "unclaimed"]
     assert len(unclaimed) == L and "quarantined" in unclaimed[0]["reason"]
 

@@ -21,7 +21,7 @@ import torch
 import thunder_tpu as tt
 from thunder_tpu.executors import pallasex as px
 from thunder_tpu.ops import nn as jnn
-from thunder_tpu_torch.executors import cudaex
+from thunder_tpu_torch.executors import cudaex, regionex
 from thunder_tpu_torch.ops import nn as tnn
 from thunder_tpu_torch.testing import rms_residual_fault
 
@@ -307,9 +307,16 @@ def test_kernel_table_names_the_pallas_functions():
     repo = Path(cudaex.__file__).resolve().parents[2]
     src = (repo / "thunder_tpu/executors/pallasex.py").read_text().splitlines()
     guard = (repo / "thunder_tpu/transforms/numerics_guard.py").read_text().splitlines()
-    for k in cudaex.KERNELS.values():
+    xla = (repo / "thunder_tpu/executors/xla.py").read_text().splitlines()
+    for k in (*cudaex.KERNELS.values(), *cudaex.GENERATED.values()):
         path, line = k.replaces.split(":")
         note = " ".join((repo / k.source).read_text().split())
+        if k.name == "region":
+            # generated per region: it stands for the reference's XLA regions
+            assert path == "thunder_tpu/executors/xla.py" and k is regionex.KERNEL
+            assert xla[int(line) - 1].startswith("class XLAFusionExecutor("), k.replaces
+            assert f"xla.py XLAFusionExecutor, :{line}" in note.replace("// ", "")
+            continue
         if k.name in ("fused_adamw_health", "fused_adamw_slab_health"):
             assert path == "thunder_tpu/transforms/numerics_guard.py"
             assert guard[int(line) - 1].strip().startswith("def count_nonfinite("), k.replaces
@@ -320,7 +327,18 @@ def test_kernel_table_names_the_pallas_functions():
         assert f"pallasex.py pallas_{k.name} (:{line})" in note.replace("// ", "")
 
 
-@pytest.mark.parametrize("name", sorted(cudaex.KERNELS))
+def _cpu_region():
+    """A region of ``x * y + 1`` over (2, 1, 16) float32, traced for the CPU."""
+    import thunder_tpu_torch as ptt
+    from thunder_tpu_torch.testing import regions_of
+
+    jf = ptt.jit(lambda x, y: x * y + 1.0, device="cpu")
+    jf(torch.zeros(2, 1, 16), torch.zeros(2, 1, 16))
+    (region,) = regions_of(ptt.last_execution_trace(jf))
+    return region
+
+
+@pytest.mark.parametrize("name", sorted({**cudaex.KERNELS, **cudaex.GENERATED}))
 def test_wrappers_refuse_cpu_tensors(name):
     """A wrapper launches its kernel or raises: it never computes on the CPU."""
     x = torch.zeros(2, 1, 16)
@@ -357,6 +375,7 @@ def test_wrappers_refuse_cpu_tensors(name):
                                                             w.t().contiguous()),
         "decode_layer": lambda: cudaex.decode_layer(*decode, x[0, 0], w, w, w.t().contiguous()),
         "attn_subblock": lambda: cudaex.attn_subblock(*decode),
+        "region": lambda: regionex.launch(_cpu_region(), (x, x)),
     }
     before = cudaex.launch_counts()[name]
     with pytest.raises(ValueError, match="CUDA tensors"):

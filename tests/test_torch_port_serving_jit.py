@@ -170,34 +170,46 @@ def _card_runner(block_fusion):
 
 
 def _kernels(trc) -> dict:
+    """The trace's ``cuda`` claims (its regions: ``_regions``)."""
     out: dict = {}
     for b in trc.bound_symbols:
         k = kernel_of(b.sym)
-        if k is not None:
+        if k is not None and k != "region":
             out[k] = out.get(k, 0) + 1
     return out
+
+
+def _regions(trc) -> int:
+    return sum(kernel_of(b.sym) == "region" for b in trc.bound_symbols)
 
 
 @pytest.mark.parametrize("block_fusion", RUNGS, ids=RUNG_IDS)
 def test_decode_claims_on_the_card(block_fusion):
     """Per-op: rows 4, 5, 6 and 9 (``rms_norm`` for layer 0's norm,
     ``rms_norm_residual`` for every later norm, the gate's ``linear_act``,
-    ``paged_decode_attention``), each row scatter donated; planned, and
-    unset at serving shape (the decode cost model plans): row 10, one
-    ``decode_layer`` a layer writing both donated pools in place, and
-    ``rms_norm``. Every entry on the card runs as one graph."""
+    ``paged_decode_attention``), each row scatter donated; planned: row 10,
+    one ``decode_layer`` a layer writing both donated pools in place, and
+    ``rms_norm``; unset at serving shape (the decode cost model, refit with
+    the regions on, plans the attention sub-block and keeps the MLP per
+    op): one ``attn_subblock`` a layer writing both pools in place, the
+    MLP's ``rms_norm_residual`` and ``linear_act``. Every entry on the card
+    runs as one graph."""
     run, decode, _ = _card_runner(block_fusion)
     entry = run.decode_jit.compile(*decode)
     L = CARD_LAYERS
     trc = entry.traces[-2]
+    assert _regions(trc) > 0   # the rope's and the sampler's elementwise ops
     if block_fusion is False:
         assert _kernels(trc) == {"rms_norm": 1, "rms_norm_residual": 2 * L, "linear_act": L,
                                  "paged_decode_attention": L}
         writes = [b for b in trc.bound_symbols if b.sym.name == "scatter"]
         assert len(writes) == 2 * L and all(b.kwargs.get("donated") is True for b in writes)
     else:
-        assert _kernels(trc) == {"decode_layer": L, "rms_norm": 1}
-        layers = [b for b in trc.bound_symbols if kernel_of(b.sym) == "decode_layer"]
+        kernel = "decode_layer" if block_fusion else "attn_subblock"
+        want = ({"decode_layer": L, "rms_norm": 1} if block_fusion else
+                {"attn_subblock": L, "rms_norm_residual": L + 1, "linear_act": L})
+        assert _kernels(trc) == want
+        layers = [b for b in trc.bound_symbols if kernel_of(b.sym) == kernel]
         assert all(b.kwargs["donated"] == ((True,), (True,)) for b in layers)
         assert not any(b.sym.name == "scatter" for b in trc.bound_symbols)
     assert entry.writes_donated and entry.whole_program == "graph"
@@ -275,18 +287,20 @@ def test_decode_stage_verdicts_match_reference(model, shim, block_fusion):
 
 
 def test_decode_stage_verdicts_unset_chain_at_serving_shape():
-    """At the serving shape the unset verdicts plan every attention and MLP
-    sub-block (scored ``decode=True``) and chain each pair, as the
-    reference's planner does."""
+    """At the serving shape the unset verdicts plan every attention
+    sub-block and no MLP sub-block (scored ``decode=True``), so no pair
+    chains: the decode constants refit with the regions on (PERF.md §6) price the per-op MLP below its kernel; the reference's planner,
+    with its TPU constants, chains each pair."""
     run, decode, _ = _card_runner(None)
     run.decode_jit.compile(*decode)
     decisions = ptt.compile_stats(run.decode_jit).last_decisions
     L = CARD_LAYERS
     assert _block_verdicts(decisions) == ([("nn.attn_subblock", "planned")] * L
-                                          + [("nn.mlp_subblock", "planned")] * L
-                                          + [("nn.decode_layer", "chained")] * L)
+                                          + [("nn.mlp_subblock", "cost-rejected")] * L
+                                          + [("nn.decode_layer", "chain-blocked")] * L)
     mlp = [d["cost"] for d in decisions if d["op"] == "nn.mlp_subblock"]
     assert all(c["decode"] for c in mlp)
+    assert all(c["est_unfused_us"] < c["est_fused_us"] for c in mlp)
 
 
 # ---------------------------------------------------------------------------
@@ -300,9 +314,13 @@ def _close(got, want, rel=1e-3):
 def test_decode_costs_recomputed_from_the_constants():
     """PERF.md §6 row 10 (H100 80GB HBM3, 700.00 W; 8 slots, D 4096, 32/8
     heads of 128, a 2048-token window of 16-token pages, F 14336, bf16):
-    attn_subblock 0.0929 ms against its chain's 0.1423, decode_layer 0.2522
-    against 0.3142. Recomputed here from the constants, and the functions
-    return the same numbers."""
+    attn_subblock 0.0929 ms and decode_layer 0.2522, the model's fused
+    estimates; the chains refit with the regions on: a layer of
+    the per-op rung in the replayed step takes decode_layer's 0.2522 less
+    (9.8188 - 9.1067) / 32 ms, phase 22's median replayed steps of the two
+    rungs, both chain rates scaled by one factor; the attention chain runs
+    12 launches (``DECODE_UNFUSED_LAUNCHES_ATTN``). Recomputed here from the
+    constants, and the functions return the same numbers."""
     S, D, H, KV, hd, ps, npg, b, F = 8, 4096, 32, 8, 128, 16, 128, 2, 14336
     bw = 1.0 / (tcm.HBM_GBPS * 1e3)
     g = tcm.DECODE_GRAPH_LAUNCH_US
@@ -323,8 +341,8 @@ def test_decode_costs_recomputed_from_the_constants():
     m_chain = (flop_m / tcm.SUBBLOCK_CHAIN_EFFICIENCY + (bnd_m + int_m) * bw
                / tcm.DECODE_MLP_CHAIN_EFFICIENCY + tcm.DECODE_UNFUSED_LAUNCHES_MLP * g)
     l_fused = a_fused + m_fused - g - 2 * S * D * b * bw
-    for got, want in ((a_fused, 92.9), (a_chain, 142.3), (l_fused, 252.2),
-                      (a_chain + m_chain, 314.2)):
+    per_op_layer = 252.2 - (9.8188 - 9.1067) / 32 * 1e3
+    for got, want in ((a_fused, 92.9), (l_fused, 252.2), (a_chain + m_chain, per_op_layer)):
         _close(got, want)
     a = tcm.attn_subblock_cost(S, D, H, KV, hd, ps, npg, b)
     m = tcm.subblock_cost(S, D, F, b, decode=True)
@@ -335,8 +353,10 @@ def test_decode_costs_recomputed_from_the_constants():
     _close(m["est_unfused_us"], m_chain)
     _close(lay["est_fused_us"], l_fused)
     _close(lay["est_unfused_us"], a_chain + m_chain)
-    assert tcm.subblock_profitable(a) and tcm.subblock_profitable(m)
-    assert lay["saved_launches"] == 1 and lay["est_saved_us"] > a["est_saved_us"]
+    # the regions' per-op MLP beats its kernel at this shape; the attention
+    # sub-block still beats its chain
+    assert tcm.subblock_profitable(a) and not tcm.subblock_profitable(m)
+    assert lay["saved_launches"] == 1 and lay["est_fused_us"] > lay["est_unfused_us"]
 
 
 def test_per_op_launch_counts_are_the_traced_steps():
@@ -419,3 +439,40 @@ def test_capture_stats_in_the_summary():
     stats.last_whole_program = "graph"
     stats.whole_program_captures, stats.whole_program_replays = 1, 4
     assert "whole program: graph; 1 capture(s)" in stats.summary()
+
+
+def test_replay_rows_write_a_scratch_row_no_slot_reads():
+    """ROADMAP C.5: a first-token replay row's K/V goes to the scratch
+    page's last row, the idle slots' to its row 0, which the idle slots
+    read (length 1 on the scratch page): no decode step's one scatter
+    writes a row that a slot reads from two slots with different K/V, so
+    the step gives the same logits run after run (on the card the scatter
+    keeps any one of the values written to a row)."""
+    from thunder_tpu_torch.serving import scheduler
+
+    cfg = tllama.CONFIGS["tiny-gqa"]
+    params = tllama.init_params(cfg, seed=0, device="cpu", n_layers=2)
+    rng = np.random.RandomState(0)
+    eng = ServingEngine(params, cfg, device="cpu", max_slots=3, page_size=8, max_context=64,
+                        prefill_chunk=16)
+    decode, seen = eng.runner.decode, []
+
+    def recorded(params, tokens, bt, lengths, write_pos, *rest):
+        roles = ["idle" if r is None or r.state != scheduler.DECODE else
+                 ("replay" if r._replay else "decode") for r in eng.slots]
+        seen.append((roles, write_pos.tolist(), lengths.tolist(), bt[:, 0].tolist()))
+        return decode(params, tokens, bt, lengths, write_pos, *rest)
+
+    eng.runner.decode = recorded
+    for n in (1, 7, 16, 33):
+        eng.submit(rng.randint(1, cfg.vocab_size, size=n).astype(np.int32), 6)
+    eng.drain()
+    both = False
+    for roles, wp, lengths, first_page in seen:
+        for role, w, n, page in zip(roles, wp, lengths, first_page):
+            if role == "replay":
+                assert w == 8 - 1
+            elif role == "idle":
+                assert (w, n, page) == (0, 1, 0)
+        both |= "replay" in roles and "idle" in roles
+    assert both   # the case that raced: a replay row beside idle slots

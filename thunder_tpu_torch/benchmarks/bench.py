@@ -120,6 +120,7 @@ def run(model: str = "llama2-7b-bench", layers: int = 2, batch: int = 8, seq: in
         out["sentinel_whole_program_captures"] = guarded.get("whole_program_captures")
         out["sentinel_per_step"] = guarded["per_step"]
         out["sentinel_launches"] = guarded["launches"]
+        out["sentinel_regions"] = guarded.get("regions")
         if "peak_memory_gb" in guarded:
             out["sentinel_peak_memory_gb"] = guarded["peak_memory_gb"]
     if baseline:

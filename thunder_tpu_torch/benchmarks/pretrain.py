@@ -75,6 +75,7 @@ from thunder_tpu_torch.devices import resolve_device
 from thunder_tpu_torch.executors import cudaex
 from thunder_tpu_torch.models import llama
 from thunder_tpu_torch.optim import AdamW, tree_leaves, tree_map
+from thunder_tpu_torch.testing import claimed_kernels
 from thunder_tpu_torch.transforms.numerics_guard import NumericsGuard, NumericsGuardTransform
 
 H100_BF16_FLOPS = 989e12
@@ -85,6 +86,7 @@ PROFILE_TOP = 25   # the longest kernels a profile lists
 # sgemm without TF32, ahead of the rest), then cuDNN's convolutions, the
 # gathers and scatters (the MoE's routing among them) and the reductions
 FAMILIES = (
+    ("region", ("tt_region_kernel",)),   # the region executor's generated kernels
     ("fused_adamw health pass", ("fused_adamw_health_kernel", "adamw_health_fold")),
     ("mlp_subblock_bwd", ("mlp_bwd_",)),
     ("fused_adamw_slab", ("fused_adamw_slab_kernel",)),
@@ -239,7 +241,8 @@ def run(model: str = "tiny", layers: int | None = None, batch: int = 4, seq: int
     and the rung goes to ``jit`` as its ``block_fusion`` option. ``guard``
     (a :class:`NumericsGuardTransform`, or True for one with the default
     policy) compiles the step with the numerics guard. ``eager`` runs the
-    eager :func:`train_step` instead (no guard)."""
+    eager :func:`train_step` instead (no guard). A compiled run reports the
+    regions its step launches (``regions``)."""
     dev = resolve_device(device)
     cfg = llama.CONFIGS[model]
     verdict = None
@@ -341,7 +344,8 @@ def run(model: str = "tiny", layers: int | None = None, batch: int = 4, seq: int
         import thunder_tpu_torch as ptt
 
         stats = ptt.compile_stats(jstep)
-        result.update(compile_s=sum(stats.last_pass_times.values()) / 1e3,
+        result.update(regions=claimed_kernels(ptt.last_execution_trace(jstep)).get("region", 0),
+                      compile_s=sum(stats.last_pass_times.values()) / 1e3,
                       whole_program=stats.last_whole_program,
                       whole_program_captures=stats.whole_program_captures,
                       whole_program_copied_bytes=stats.whole_program_copied_bytes)

@@ -85,28 +85,34 @@ SUBBLOCK_BWD_CHAIN_EFFICIENCY = 0.6458
 
 # the decode half, fitted to PERF.md §6 row 10 (8 slots, D 4096, 32/8 heads
 # of 128, 16-token pages over a 2048-token window, F 14336, bf16; H100 80GB
-# HBM3, 700.00 W): attn_subblock 0.0929 ms against its per-op chain's
-# 0.1423, decode_layer 0.2522 against 0.3142; the model returns those four
-# times at that shape
+# HBM3, 700.00 W): attn_subblock 0.0929 ms, decode_layer 0.2522, the model
+# returns them at that shape; the chains refit with the region executor on
+# (chip_smoke.py phase 22's interleaved replayed steps at
+# llama3-8b's cell: per-op 9.1067 ms, planned 9.8188, medians): a per-op
+# layer takes decode_layer's 0.2522 less their difference over 32 layers,
+# 0.2299 ms, both chain rates scaled by one factor (1.3119) from row 10's
+# eager-timed chains (0.1423 and 0.3142 at 22 + 5 launches)
 # a launch inside a replayed CUDA graph costs the card what a kernel that
 # moves next to nothing takes (rows 4-5 at 8 rows: 0.0030, 0.0031 ms)
 DECODE_GRAPH_LAUNCH_US = 3.0
 # the per-op rung's launches for one layer's attention half and MLP half as
-# the traced decode program runs them (tests/test_torch_port_serving_jit.py
-# counts them): the attention half's norm, q/k/v products, two ropes of
-# seven elementwise ops each, two row scatters, paged attention and the
-# out-projection; the MLP's norm (its residual add folded), linear_act, up,
-# product, down
-DECODE_UNFUSED_LAUNCHES_ATTN = 22
+# the traced decode program runs them, a region of the region executor
+# counted as one launch (tests/test_torch_port_serving_jit.py counts them):
+# the attention half's norm, q/k/v products, two ropes of two launches
+# each (one region of the elementwise ops that were seven launches before
+# the regions, and the rotation's cat), two row scatters, paged attention
+# and the out-projection; the MLP's norm (its residual add folded),
+# linear_act, up, product, down
+DECODE_UNFUSED_LAUNCHES_ATTN = 12
 DECODE_UNFUSED_LAUNCHES_MLP = 5
 # the fitted rates of the byte traffic: the kernel and the per-op chain of
-# each half (the chains were timed as back-to-back eager calls, so their
-# rates also carry those calls' host gaps): attention 151.1 MB, the MLP
-# 352.5 MB at row 10's shape
+# each half (refit above, from 0.6043 and 0.6907: row 10's chains
+# were timed as back-to-back eager calls, so their rates carried those
+# calls' host gaps): attention 151.1 MB, the MLP 352.5 MB at row 10's shape
 DECODE_ATTN_FUSED_EFFICIENCY = 0.5094
-DECODE_ATTN_CHAIN_EFFICIENCY = 0.6043
+DECODE_ATTN_CHAIN_EFFICIENCY = 0.7928
 DECODE_MLP_FUSED_EFFICIENCY = 0.6776
-DECODE_MLP_CHAIN_EFFICIENCY = 0.6907
+DECODE_MLP_CHAIN_EFFICIENCY = 0.9061
 
 
 def tensor_bytes(p) -> int:

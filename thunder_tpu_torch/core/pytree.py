@@ -52,49 +52,51 @@ def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(type(x), "_fields")
 
 
-def tree_flatten(tree, is_leaf: Callable[[Any], bool] | None = None):
-    """``(leaves, treedef)``."""
-    leaves: list = []
-
-    def walk(x):
-        if is_leaf is not None and is_leaf(x):
-            leaves.append(x)
-            return _LEAF
-        if x is None:
-            return _NONE
-        t = type(x)
-        if t is tuple or t is list:
-            return TreeDef(t.__name__, None, tuple(walk(i) for i in x))
-        if t is dict:
-            keys = tuple(sorted(x))
-            return TreeDef("dict", keys, tuple(walk(x[k]) for k in keys))
-        if _is_namedtuple(x):
-            return TreeDef("namedtuple", t, tuple(walk(i) for i in x))
+def _walk(x, leaves: list, is_leaf) -> TreeDef:
+    if is_leaf is not None and is_leaf(x):
         leaves.append(x)
         return _LEAF
+    if x is None:
+        return _NONE
+    t = type(x)
+    if t is tuple or t is list:
+        return TreeDef(t.__name__, None, tuple(_walk(i, leaves, is_leaf) for i in x))
+    if t is dict:
+        keys = tuple(sorted(x))
+        return TreeDef("dict", keys, tuple(_walk(x[k], leaves, is_leaf) for k in keys))
+    if _is_namedtuple(x):
+        return TreeDef("namedtuple", t, tuple(_walk(i, leaves, is_leaf) for i in x))
+    leaves.append(x)
+    return _LEAF
 
-    return leaves, walk(tree)
+
+def tree_flatten(tree, is_leaf: Callable[[Any], bool] | None = None):
+    """``(leaves, treedef)``. The walk is a module-level function, not a
+    closure that calls itself: such a closure is a reference cycle holding
+    the leaves, which then outlive the call until the cyclic collector runs
+    (card memory held by tensors nothing reads)."""
+    leaves: list = []
+    return leaves, _walk(tree, leaves, is_leaf)
+
+
+def _build(td: TreeDef, it):
+    k = td.kind
+    if k == "leaf":
+        return next(it)
+    if k == "none":
+        return None
+    kids = [_build(c, it) for c in td.children]
+    if k == "tuple":
+        return tuple(kids)
+    if k == "list":
+        return kids
+    if k == "dict":
+        return dict(zip(td.meta, kids))
+    return td.meta(*kids)
 
 
 def tree_unflatten(treedef: TreeDef, leaves):
-    it = iter(leaves)
-
-    def build(td):
-        k = td.kind
-        if k == "leaf":
-            return next(it)
-        if k == "none":
-            return None
-        kids = [build(c) for c in td.children]
-        if k == "tuple":
-            return tuple(kids)
-        if k == "list":
-            return kids
-        if k == "dict":
-            return dict(zip(td.meta, kids))
-        return td.meta(*kids)
-
-    return build(treedef)
+    return _build(treedef, iter(leaves))
 
 
 def tree_leaves(tree, is_leaf=None) -> list:

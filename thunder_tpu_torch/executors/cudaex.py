@@ -51,6 +51,11 @@ guard attributes to the kernel's claim, as it does a launch that returns a
 CUDA error (``runtime.faults.KernelLaunchError``): the quarantine then
 takes the kernel rung below it, where there is one.
 
+:data:`GENERATED` holds the kernels another executor generates at run
+time (:func:`register_generated`): :func:`build` does not build them, but
+their launches count with the hand-written kernels' and their sources that
+fail are listed by :func:`build_failures`.
+
 Wrappers: outputs are allocated with ``torch.empty``; the kernel runs on
 ``torch.cuda.current_stream()`` and does not synchronise. Every wrapper adds
 one to its kernel's ``launches`` count where it launches, and nowhere else.
@@ -112,8 +117,9 @@ ACTIVATIONS = {"relu": 0, "silu": 1, "gelu": 2, "gelu_tanh": 3}
 
 @dataclass
 class Kernel:
-    """One hand-written kernel: where it lives, what it replaces, its C
-    entry point, and the count of its launches."""
+    """One kernel (hand-written, or standing for the kernels an executor
+    generates): where it lives, what it replaces, its C entry point, and
+    the count of its launches."""
 
     name: str
     source: str            # repo-relative path of the .cu file
@@ -177,37 +183,57 @@ KERNELS = {k.name: k for k in (
            (_P,) * 18 + (_I,) * 10 + (_F, _F, _I, _I, _I, _P)),
 )}
 
+# kernels generated at run time by other executors (name -> Kernel), each
+# with the function that lists its sources that failed to build
+GENERATED: dict[str, Kernel] = {}
+_generated_failures: list = []
+
+
+def register_generated(kernel: Kernel, failures) -> Kernel:
+    """Count ``kernel``'s launches with the hand-written kernels' (its
+    executor calls :func:`count_launch`); ``failures()`` returns its
+    sources that did not build, each with its log, for
+    :func:`build_failures`."""
+    GENERATED[kernel.name] = kernel
+    _generated_failures.append(failures)
+    return kernel
+
+
+def _counted() -> dict[str, Kernel]:
+    return {**KERNELS, **GENERATED}
+
+
 _build_lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
     """Set every kernel's launch and design counts to 0."""
-    for k in KERNELS.values():
+    for k in _counted().values():
         k.launches = 0
         k.designs.clear()
 
 
 def launch_counts() -> dict[str, int]:
-    return {name: k.launches for name, k in KERNELS.items()}
+    return {name: k.launches for name, k in _counted().items()}
 
 
 def design_counts() -> dict[str, dict[str, int]]:
     """Launches by design of the kernels that have several:
     ``{"sdpa_fwd": {"wgmma": 4}, ...}``."""
-    return {name: dict(k.designs) for name, k in KERNELS.items() if k.designs}
+    return {name: dict(k.designs) for name, k in _counted().items() if k.designs}
 
 
 def count_snapshot() -> dict[str, tuple[int, dict[str, int]]]:
     """Every kernel's launch count and launches by design, to take a
     difference of later (:func:`count_delta`)."""
-    return {name: (k.launches, dict(k.designs)) for name, k in KERNELS.items()}
+    return {name: (k.launches, dict(k.designs)) for name, k in _counted().items()}
 
 
 def count_delta(before: dict) -> dict[str, tuple[int, dict[str, int]]]:
     """The launches (and launches by design) counted since ``before``, a
     :func:`count_snapshot`; kernels with none left out."""
     out = {}
-    for name, k in KERNELS.items():
+    for name, k in _counted().items():
         n0, d0 = before.get(name, (0, {}))
         designs = {d: c - d0.get(d, 0) for d, c in k.designs.items() if c != d0.get(d, 0)}
         if k.launches != n0 or designs:
@@ -215,13 +241,23 @@ def count_delta(before: dict) -> dict[str, tuple[int, dict[str, int]]]:
     return out
 
 
+def count_launch(name: str, design: str | None = None) -> None:
+    """Count one launch of kernel ``name`` (under ``design`` too, where
+    given)."""
+    k = _counted()[name]
+    k.launches += 1
+    if design is not None:
+        k.designs[design] = k.designs.get(design, 0) + 1
+
+
 def add_counts(delta: dict, sign: int = 1) -> None:
     """Add ``sign`` times a :func:`count_delta` to the counters. A CUDA
     graph counts its captured launches so: once taken off after the
     capture (the host counted them while the card ran nothing), and once
     added on every replay (the card runs them then)."""
+    counted = _counted()
     for name, (n, designs) in delta.items():
-        k = KERNELS[name]
+        k = counted[name]
         k.launches += sign * n
         for d, c in designs.items():
             k.designs[d] = k.designs.get(d, 0) + sign * c
@@ -453,8 +489,12 @@ def build() -> dict[str, float]:
 
 def build_failures() -> dict[str, str]:
     """The kernels whose source did not build (or whose entry point did not
-    bind), each with its log; empty when every kernel is bound."""
-    return {name: k.build_error for name, k in KERNELS.items() if k.build_error is not None}
+    bind), each with its log, and the generated kernels' sources that did
+    not (:func:`register_generated`); empty when every kernel is bound."""
+    out = {name: k.build_error for name, k in KERNELS.items() if k.build_error is not None}
+    for failures in _generated_failures:
+        out.update(failures())
+    return out
 
 
 def _launch(name: str, *args, design: str | None = None) -> None:
@@ -467,9 +507,7 @@ def _launch(name: str, *args, design: str | None = None) -> None:
     rc = k.fn(*args)
     if rc != 0:
         raise KernelLaunchError(f"{k.name}: kernel launch failed with CUDA error {rc}")
-    k.launches += 1
-    if design is not None:
-        k.designs[design] = k.designs.get(design, 0) + 1
+    count_launch(name, design)
 
 
 # ---------------------------------------------------------------------------

@@ -485,8 +485,12 @@ decode_layer_op = _register("decode_layer", "nn.decode_layer", cuda_decode_layer
 
 
 def kernel_of(sym) -> str | None:
-    """The ``cudaex`` kernel a claimed symbol launches (None for a symbol of
-    another executor)."""
-    if sym.executor is not ex:
+    """The ``cudaex`` kernel a claimed symbol launches: its claim's, or,
+    for a symbol of another executor whose callable names the kernel it
+    launches (``kernel``: a generated kernel registered with
+    ``cudaex.register_generated``), that one; None for any other symbol."""
+    if sym.executor is ex:
+        return sym.id.removeprefix("cuda.")
+    if sym.executor is None:
         return None
-    return sym.id.removeprefix("cuda.")
+    return getattr(sym.python_impl, "kernel", None)

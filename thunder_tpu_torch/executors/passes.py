@@ -1,24 +1,29 @@
 """Trace -> executable-trace passes: the fusion passes, executor claiming,
-``del`` insertion, and the in-place writes of donated inputs.
+the fusion executors' regions, ``del`` insertion, and the in-place writes
+of donated inputs.
 
 The counterpart of ``thunder_tpu/executors/passes.py`` (``claim_bsym``
 :48, ``transform_for_execution`` :150, ``del_last_used`` :252). The fusion
 passes of ``core/fusion_passes.py`` run first, in the reference's order
 (block, horizontal, epilogue, optimizer), then each bound symbol is offered
-to the executors in priority order; an executor substitutes its own symbol,
-whose runtime callable the generated program calls; an unclaimed composite
-is decomposed and its subsymbols offered again; an unclaimed prim runs on
-the always-on torch executor. Every verdict goes to the decision log
-(``observe/decisions.py``) while one is collected.
+to the operator executors in priority order; an executor substitutes its
+own symbol, whose runtime callable the generated program calls; an
+unclaimed composite is decomposed and its subsymbols offered again; an
+unclaimed prim runs on the always-on torch executor. Then every
+``FusionExecutor`` of the stack runs its fusion pass (the ``region``
+executor groups unclaimed elementwise prims into regions, each one
+generated kernel on the card), and DCE, as the reference does
+(``thunder_tpu/executors/passes.py:206``). Every verdict goes to the
+decision log (``observe/decisions.py``) while one is collected.
 
 Nothing falls back on the card: a claim the quarantine routes off is
 still claimed, and its router raises a fatal ``KernelExecutionError`` when
 it runs on the card; a claim whose kernel refuses the arguments
 (``cudaex.refusal``) raises that reason here, at compile time, instead of
-decomposing. The reference's region annotations and fusion executors, and
-with them its claims' cost-model gate (``ImplInfo.profitable``, which
-weighs a claim against leaving the op in a fusion region), are not ported
-yet (ROADMAP A.7.4).
+decomposing. The reference's region annotations and its claims'
+cost-model gate (``ImplInfo.profitable``, which weighs a claim against
+leaving the op in a fusion region) are not ported: the gate waits for
+reductions in regions (ROADMAP A.7.4).
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from thunder_tpu_torch.core.symbol import BoundSymbol
 from thunder_tpu_torch.core.trace import TraceCtx, from_trace
 from thunder_tpu_torch.core.transform_common import dce
 from thunder_tpu_torch.core.utils import consumed_vars
+from thunder_tpu_torch.executors import FusionExecutor
 from thunder_tpu_torch.observe import decisions as _decisions
 from thunder_tpu_torch.observe import registry as _observe
 from thunder_tpu_torch.runtime import quarantine as _quarantine
@@ -43,6 +49,8 @@ def claim_bsym(bsym: BoundSymbol, executors) -> list[BoundSymbol]:
         return [bsym]
     log = _decisions.active()   # one flag read a bound symbol while no log is kept
     for ex in executors:
+        if isinstance(ex, FusionExecutor):
+            continue   # fusion executors run as whole-trace passes afterwards
         impl = ex.get_impl(bsym)
         if impl is None or impl.symbol is None:
             continue
@@ -93,9 +101,10 @@ def claim_bsym(bsym: BoundSymbol, executors) -> list[BoundSymbol]:
 
 def transform_for_execution(trc: TraceCtx, executors) -> TraceCtx:
     """The fusion passes (block, horizontal, epilogue, optimizer), the claim
-    pass, then DCE. A trace whose inputs lie on the card needs the ``cuda``
-    executor in its stack: without it every composite would decompose there
-    in place of its kernel."""
+    pass, each fusion executor's pass in stack order, then DCE. A trace
+    whose inputs lie on the card needs the ``cuda`` executor in its stack:
+    without it every composite would decompose there in place of its
+    kernel."""
     from thunder_tpu_torch.core.fusion_passes import (
         block_fusion_pass, epilogue_fusion_pass, horizontal_fusion_pass, optimizer_fusion_pass)
 
@@ -125,6 +134,10 @@ def transform_for_execution(trc: TraceCtx, executors) -> TraceCtx:
             ex_bsyms.extend(claim_bsym(bsym, executors))
         new = from_trace(trc)
         new.bound_symbols = ex_bsyms
+    for ex in executors:
+        if isinstance(ex, FusionExecutor):
+            with _observe.span(f"fusion_pass:{ex.name}"):
+                new = ex.fusion_pass(new)
     new = dce(new)
     new.set_provenance("Transform for execution")
     return new

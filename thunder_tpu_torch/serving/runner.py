@@ -50,8 +50,9 @@ def _write_rows(pool, rows, flat_positions):
     ``rows`` (S, KV, 1, hd) at ``flat_positions`` (S,) of ``page * ps +
     offset``, in ONE replace-semantics scatter (``tnn.decode_row_write``,
     whose composite the ``nn.attn_subblock`` decomposition shares, so the
-    planner's chain matcher sees the sequence this emits). Idle and replay
-    slots all target the scratch position 0. Returns the pool."""
+    planner's chain matcher sees the sequence this emits). Idle slots
+    target the scratch page's row 0, replay slots its last row. Returns the
+    pool."""
     tnn.decode_row_write(pool, rows, flat_positions)
     return pool
 
@@ -122,10 +123,10 @@ class PagedLlamaRunner:
 
         tokens (S, 1) int64; block_tables (S, npg) int32; lengths (S,) int32
         context length INCLUDING this token; write_pos (S,) int64 flat pool
-        position of this token's K/V row (the scratch position 0 for replay
-        and idle rows). Sampling inputs: temps (S,) float32, top_ks (S,)
-        int64, top_ps (S,) float32, rng (S, 2) int64 ``[seed, counter]``
-        rows. Returns ``(tokens (S,), logits (S, V), pools)``."""
+        position of this token's K/V row (on the scratch page 0: row 0 for
+        idle rows, the last row for replay rows). Sampling inputs: temps
+        (S,) float32, top_ks (S,) int64, top_ps (S,) float32, rng (S, 2)
+        int64 ``[seed, counter]`` rows. Returns ``(tokens (S,), logits (S, V), pools)``."""
         cfg = self.cfg
         S = tokens.shape[0]
         h = F.embedding(tokens, params["tok_embedding"])              # (S,1,D)

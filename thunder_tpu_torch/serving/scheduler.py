@@ -845,9 +845,14 @@ class ServingEngine:
             if r._replay:
                 # the fed token's K/V row exists at length - 1 (prefill wrote
                 # it, or the fork copied it): the recomputed row goes to the
-                # scratch page, so shared pages are never written
+                # scratch page, so shared pages are never written. Its last
+                # row, which no slot reads: the idle slots read row 0, which
+                # they all write with one K/V row (token 0 at position 0),
+                # and the step's one scatter keeps any one of the values
+                # written to a row, so a replay row written there would make
+                # the idle rows' logits differ from run to run
                 lengths[i] = r.length
-                write_pos[i] = 0
+                write_pos[i] = g.page_size - 1
             else:
                 lengths[i] = r.length + 1
                 write_pos[i] = (r.pages[r.length // g.page_size] * g.page_size

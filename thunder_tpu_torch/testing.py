@@ -223,7 +223,8 @@ class PlainLlama(torch.nn.Module):
 
 
 def claimed_kernels(trc) -> dict[str, int]:
-    """Launches per kernel that an execution trace's ``cuda`` claims make."""
+    """Launches per kernel that an execution trace's ``cuda`` claims and
+    its regions on the card (``region``, one launch each) make."""
     from thunder_tpu_torch.executors.cudaex_claims import kernel_of
 
     out: dict[str, int] = {}
@@ -232,6 +233,87 @@ def claimed_kernels(trc) -> dict[str, int]:
         if k is not None:
             out[k] = out.get(k, 0) + 1
     return out
+
+
+def regions_of(trc) -> list:
+    """The region callables (``regionex.Region``) of an execution trace, in
+    program order."""
+    return [b.sym.python_impl for b in trc.bound_symbols
+            if b.sym.executor is not None and b.sym.executor.name == "region"]
+
+
+def with_regions(trc, claims: dict) -> dict:
+    """``claims`` (the ``cuda`` claims a test expects of an execution trace)
+    with the trace's regions on the card, one ``region`` launch each: what
+    :func:`claimed_kernels` returns for it."""
+    n = sum(1 for r in regions_of(trc) if r.outputs[0].device.type == "cuda")
+    return dict(claims, region=n) if n else dict(claims)
+
+
+def expanded(trc) -> list:
+    """An execution trace's bound symbols, each region replaced by its
+    members (the prims it runs, in order)."""
+    out = []
+    for b in trc.bound_symbols:
+        if b.sym.executor is not None and b.sym.executor.name == "region":
+            out.extend(b.subsymbols)
+        else:
+            out.append(b)
+    return out
+
+
+def expanded_names(trc) -> list[str]:
+    return [b.sym.name for b in expanded(trc)]
+
+
+def region_inputs(region, gen: torch.Generator, device, strided: bool = False) -> list:
+    """Random inputs for ``region`` on ``device``, made by ``gen`` on its
+    own device: normal floats, integers in [-128, 128) (the loss's ignore
+    index -100 among them), random bools; ``strided`` hands each input of
+    rank 1 or more as every other element of a tensor twice as wide."""
+    out = []
+    for p in region.inputs:
+        shape = tuple(p.shape)
+        wide = shape[:-1] + (2 * shape[-1],) if strided and shape else shape
+        dt = p.dtype.torch
+        kw = {"generator": gen, "device": gen.device}
+        if dt.is_floating_point:
+            t = torch.randn(wide, dtype=torch.float32, **kw).to(dt)
+        elif dt == torch.bool:
+            t = torch.randint(0, 2, wide, **kw).bool()
+        else:
+            t = torch.randint(-128, 128, wide, **kw).to(dt)
+        t = t.to(device)
+        out.append(t[..., ::2] if strided and shape else t)
+    return out
+
+
+def hold_region(region, vals) -> dict:
+    """``region``'s kernel against its plain chain on the same inputs:
+    ``ulp``, the largest distance of a float output in units of its dtype's
+    last place (NaN where both are NaN counts 0), and ``bit_identical``
+    (every output equal bit for bit, NaNs at the same places). A region
+    holding a transcendental op (``regionex.TRANSCENDENTAL``) is held within
+    1 ulp, any other bit for bit (``ok``)."""
+    got = region(*vals)
+    want = region.plain(*vals)
+    ulp, same = 0, True
+    for g, w in zip(got, want):
+        if g.dtype.is_floating_point:
+            nan = torch.isnan(g) & torch.isnan(w)
+            g, w = torch.where(nan, 0, g), torch.where(nan, 0, w)
+            if g.dtype == torch.float64:
+                d = 0 if torch.equal(g, w) else 2
+            else:
+                d = ulp_distance(g, w) if g.numel() else 0
+            ulp = max(ulp, d)
+            same = same and d == 0
+        else:
+            same = same and torch.equal(g, w)
+            ulp = max(ulp, 0 if torch.equal(g, w) else 1 << 30)
+    ok = same or (region.spec.transcendental and ulp <= 1)
+    return {"ops": len(region.members), "transcendental": region.spec.transcendental,
+            "ulp": ulp, "bit_identical": same, "ok": ok}
 
 
 def jit_launches(jf, *args):
