@@ -47,6 +47,15 @@ the merge. Phases 5 and 11 require every decode step's bf16 launches of
 ``paged_decode_attention`` to take ``split`` and of ``decode_layer`` to take
 ``stream`` (the swap-AB ``mma.sync`` weight stream).
 
+Phase 3 also reads what the claims' cost-model gate is fitted from:
+``rms_norm`` and ``rms_norm_residual`` (bf16, D = 4096, GATE_ROWS rows)
+against the region their decomposition forms when the gate turns the
+claim down, each region held against its plain chain first
+(``gate_rows``); the fitted ``MIN_CLAIM_BYTES`` is printed beside the
+tree's, and the run fails where they differ. At its end the run fails
+where the gate turned a claim down on any path by raising, or at all
+while the constant is 0 (``passes.gate_rejections``).
+
 Phase 3 also runs ROADMAP C.1's inputs on the card (float16, a strided
 input, a mixed weight dtype, head dims 8 and 192 through the attention
 autograd function, ``linear_act`` at K = 518 on both paths,
@@ -433,11 +442,19 @@ call: a replay runs no router).
     decode step ms; the unset rung's median may exceed the faster rung's
     by more than PLANNED_JIT_GAP only within the readings' spread
     (``serve_jit_verdict``; the unset verdict may plan one sub-block of a
-    layer alone, whose launches are held to its trace's claims). Printed: decode
+    layer alone, whose launches are held to its trace's claims). The
+    claims' gate at this cell (``gate_decode_programs``): the per-op
+    decode step (2 of its layers: every layer has the same shapes)
+    compiled with the gate on (the default) and off
+    (``fusion_cost_model=False``, every legal claim taken) is the same
+    program while ``MIN_CLAIM_BYTES`` is 0, so no timed reading can tell
+    them apart. Printed: decode
     tok/s, the median step's host ms (until its launches are issued) and
     ms to a device sync, mean TTFT, SERVE_JIT_PROFILE traced decode steps'
     device busy ms, idle share and ms by kernel family, the graphs'
-    captures, replays and copied bytes, every reading. Its kernel rows:
+    captures, replays and copied bytes, every reading, and each decode
+    program's torch calls, regions (those with row reductions apart) and
+    the reductions left as torch calls. Its kernel rows:
     phase 3's decode and prefill rows.
 
 23. the region executor (``executors/regionex.py``) — every compiled
@@ -449,8 +466,13 @@ call: a replay runs no router).
     programs, on
     random inputs at its program's shapes, against its plain chain (the
     members' torch calls): bit for bit where it holds no transcendental
-    op, within REGION_ULP of the output dtype where it does; the largest
-    timed against its chain and its bound by bytes (the ``region`` row).
+    op, within REGION_ULP of the output dtype where it does; a region with
+    row reductions (the norms' backward row sums at (16384, 4096), the
+    loss's mean, the sampler's bisection at (8, 128256)) within the sums'
+    stated bound (``testing.hold_region``), launched twice bit for bit,
+    and timed against its chain and its bound by bytes; the largest
+    timed against its chain and its bound by bytes (the ``region`` row,
+    with its design and the largest reduce region beside it).
     (b) phase 19 (a)'s step and phase 15 (a)'s guarded step, regions on
     and off, on one state, REGION_AB_ROUNDS rounds of (on, off, off, on)
     turns of REGION_AB_STEPS replayed steps: step ms, the guard's
@@ -733,6 +755,14 @@ SERVE_JIT_ROUNDS = 3
 REGION_ULP = 1
 REGION_AB_ROUNDS, REGION_AB_STEPS = 1, 3
 HELD_REGIONS: dict = {}   # path -> the region callables of its programs, for phase 23
+# what a step ran before regions took reductions (PERF.md §6, runs r21j,
+# r21k, r21m), printed beside phases 19 (a) and 22's
+ELEMENTWISE_ONLY_TRAIN_CALLS = {"torch": 382, "torch_views": 202, "cuda": 19, "region": 67}
+ELEMENTWISE_ONLY_DECODE_REGIONS = {"per-op": 150, "planned": 86, "unset": 86}
+
+# phase 3's readings of the claims' gate: rms_norm and rms_norm_residual
+# against their decompositions' regions at these rows of D (bf16)
+GATE_ROWS = (1, 8, 64, 512, 2048, 16384)
 
 D, F_DIM, S_DECODE, M_PREFILL = 4096, 14336, 8, 512
 KV, G, HD, PS = 8, 4, 128, 16
@@ -996,6 +1026,95 @@ def norm_rows(torch, cudaex, tnn, gen, shape):
         f"{json.dumps(row['planted_faults'])}")
     rows.append(row)
     return rows
+
+
+def decomposed_region(ptt, fn, args):
+    """The program ``jit(fn)`` compiles for ``args`` on the card with the
+    claims' cost-model gate turning every memory-bound claim down
+    (``cost_model.MIN_CLAIM_BYTES`` raised past any size for the compile):
+    the gated claim decomposes, and its prims form one region with row
+    reductions. Returns that region and its inputs among ``args``."""
+    from thunder_tpu_torch.core import cost_model
+    from thunder_tpu_torch.executors import passes
+    from thunder_tpu_torch.testing import claimed_kernels, regions_of
+
+    saved, counted = cost_model.MIN_CLAIM_BYTES, dict(passes.GATE_REJECTIONS)
+    cost_model.MIN_CLAIM_BYTES = float("inf")
+    try:
+        jf = ptt.jit(fn, whole_program_jit=False)
+        jf.compile(*args)
+    finally:
+        # this compile's turned-down claim is meant: the paths' count stays
+        cost_model.MIN_CLAIM_BYTES = saved
+        passes.GATE_REJECTIONS.clear()
+        passes.GATE_REJECTIONS.update(counted)
+    trc = ptt.last_execution_trace(jf)
+    claims = claimed_kernels(trc)
+    require(claims == {"region": 1}, f"the turned-down claim's program runs {claims}, not one "
+                                     f"region")
+    (region,) = regions_of(trc)
+    require(region.spec.rows is not None, f"{region.name} holds no row reduction")
+    env = {a.name: v for a, v in zip(trc.args, args)}
+    return region, [env[n] for n in region.input_names]
+
+
+def gate_rows(torch, cudaex, tnn, ptt, regionex) -> dict:
+    """The readings the claims' gate is fitted from: rms_norm and
+    rms_norm_residual (bf16, D = 4096, GATE_ROWS rows) each timed against
+    the region its decomposition forms when the gate turns the claim down
+    (``decomposed_region``; held against its plain chain first, and two
+    launches bit for bit), at the claim's boundary bytes
+    (``cost_model.bsym_cost``: inputs read and outputs written once).
+    ``kernel_no_slower_from_bytes``: the smallest boundary at which the
+    kernel is no slower, there and at every larger reading of both ops
+    (None where the region is faster at the largest). ``fit``, the
+    constant (``MIN_CLAIM_BYTES``): that boundary, or 0 where the kernel
+    is no slower at every reading (the constant sits below the smallest)."""
+    from thunder_tpu_torch.testing import hold_region
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(22)
+    cases = []
+    for n in GATE_ROWS:
+        x, r = (torch.randn(n, D, generator=gen, device=dev).to(bf16) for _ in range(2))
+        w = (torch.rand(D, generator=gen, device=dev) + 0.5).to(bf16)
+        cases.append(("rms_norm", n, 2 * n * D * 2 + D * 2,
+                      lambda x=x, w=w: cudaex.rms_norm(x, w, EPS),
+                      decomposed_region(ptt, lambda x, w: tnn.rms_norm(x, w, EPS), (x, w))))
+        cases.append(("rms_norm_residual", n, 4 * n * D * 2 + D * 2,
+                      lambda r=r, x=x, w=w: cudaex.rms_norm_residual(r, x, w, EPS),
+                      decomposed_region(ptt, lambda r, x, w: tnn.rms_norm_residual(r, x, w, EPS),
+                                        (r, x, w))))
+    t0 = time.perf_counter()
+    regionex.build_regions([c[4][0].spec for c in cases])
+    out = {"rows": list(GATE_ROWS), "d": D, "dtype": "bfloat16", "readings": [],
+           "region_nvcc_s": time.perf_counter() - t0}
+    for name, n, nbytes, kernel_fn, (region, vals) in cases:
+        held = hold_region(region, vals)
+        require(held["ok"], f"{name} {n} rows: its decomposition's region against its plain "
+                            f"chain: {held}")
+        again = region(*vals)
+        require(all(torch.equal(a, b) for a, b in zip(region(*vals), again)),
+                f"{name} {n} rows: two launches of its decomposition's region differ")
+        iters = 30 if n <= 2048 else 10
+        k_ms, r_ms = time_ms(torch, kernel_fn, iters), time_ms(torch, lambda: region(*vals),
+                                                               iters)
+        out["readings"].append({"op": name, "rows": n, "boundary_bytes": nbytes,
+                                "kernel_ms": k_ms, "region_ms": r_ms,
+                                "region_ops": len(region.members),
+                                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3})
+        log(f"  gate {name:18s} {n:6d} rows  {nbytes:10d} B  kernel {k_ms:.4f} ms  its "
+            f"decomposition's region {r_ms:.4f} ms ({len(region.members)} ops)")
+    # from the largest boundary down, while the kernel is no slower
+    rs = sorted(out["readings"], key=lambda r: -r["boundary_bytes"])
+    tail = 0
+    while tail < len(rs) and rs[tail]["kernel_ms"] <= rs[tail]["region_ms"]:
+        tail += 1
+    out["kernel_no_slower_from_bytes"] = rs[tail - 1]["boundary_bytes"] if tail else None
+    # where it is no slower at every size, the constant sits below the
+    # smallest: no claim is turned down
+    out["fit"] = 0 if tail == len(rs) else out["kernel_no_slower_from_bytes"]
+    return out
 
 
 def residual_close(torch, gh, gy, wh, wy) -> bool:
@@ -2083,7 +2202,7 @@ def serve_jit_run(np, torch, tllama, ServingEngine, SamplingParams, cudaex, pret
     and the first-token logits of each request's replay step; then
     SERVE_JIT_PROFILE decode steps traced (busy ms, idle share)."""
     import thunder_tpu_torch as ptt
-    from thunder_tpu_torch.testing import claimed_kernels
+    from thunder_tpu_torch.testing import claimed_kernels, regions_of
 
     cfg = tllama.CONFIGS["llama3-8b"]
     L = cfg.n_layers
@@ -2154,8 +2273,6 @@ def serve_jit_run(np, torch, tllama, ServingEngine, SamplingParams, cudaex, pret
                 f"serve-jit {block_fusion} replay={replay}: decode step {i} launched "
                 f"{st['launches']} by design {st['designs']}, expected {want} by {want_d}")
     if replay and not planned and block_fusion is False:
-        from thunder_tpu_torch.testing import regions_of
-
         HELD_REGIONS["serve-jit"] = [r for jf in (eng.runner.decode_jit, eng.runner.prefill_jit)
                                      for entry in jf._cache.values()
                                      for r in regions_of(entry.traces[-1])]
@@ -2187,7 +2304,10 @@ def serve_jit_run(np, torch, tllama, ServingEngine, SamplingParams, cudaex, pret
            "replays": stats.whole_program_replays,
            "copied_bytes": stats.whole_program_copied_bytes,
            "decode_compile_stages_ms": dict(stats.last_pass_times),
-           "decisions": decision_summary(ptt, eng.runner.decode_jit)}
+           "decisions": decision_summary(ptt, eng.runner.decode_jit),
+           "decode_calls_per_step": trace_calls(trc),
+           "decode_reductions_as_torch_calls": reductions_left(trc),
+           "decode_reduce_regions": sum(r.spec.rows is not None for r in regions_of(trc))}
     if keep:   # the replaying engines take C.6's readings after, unrecorded
         eng.runner.decode = decode
         out["engine"] = eng
@@ -2249,6 +2369,8 @@ def serve_jit_full_width(np, torch, tllama, ServingEngine, SamplingParams, cudae
         for r in runs.values():
             r.pop("tokens")
         out[name] = runs
+    out["gate"] = gate_decode_programs(torch, engines["per-op"])
+    log(f"phase 22 the claims' gate at the per-op decode step: {json.dumps(out['gate'])}")
     out["readings"] = serve_jit_readings(np, torch, tllama, engines)
     out["verdict"] = serve_jit_verdict(out["readings"], out["unset"]["replay"]["rung"])
     del params
@@ -2294,8 +2416,9 @@ def serve_jit_readings(np, torch, tllama, engines: dict) -> dict:
     regions a decode step; the engines are freed."""
     cfg = tllama.CONFIGS["llama3-8b"]
     readings = {r: [] for r in engines}
+    order = [r for r in ("per-op", "planned", "unset") if r in engines]
     for _ in range(SERVE_JIT_ROUNDS):
-        for rung in ("per-op", "planned", "unset", "unset", "planned", "per-op"):
+        for rung in order + order[::-1]:
             readings[rung].append(decode_reading(np, torch, engines[rung], cfg))
     readings["regions a step"] = {r: decode_regions(e) for r, e in engines.items()}
     for eng in engines.values():
@@ -2304,6 +2427,43 @@ def serve_jit_readings(np, torch, tllama, engines: dict) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return readings
+
+
+def gate_decode_programs(torch, eng) -> dict:
+    """The claims' gate at phase 22's decode step: the per-op engine's
+    decode step at full width, 2 of its layers (every layer has the same
+    shapes), compiled on the card with the gate on (the default) and off
+    (``fusion_cost_model=False``: every legal claim taken), per call. While
+    ``MIN_CLAIM_BYTES`` is 0 the gate turns no claim down, so the two
+    programs must be one: the same claims, regions and program text.
+    Returns their claims and regions and whether the texts are equal."""
+    import thunder_tpu_torch as ptt
+    from thunder_tpu_torch.core import cost_model
+    from thunder_tpu_torch.testing import claimed_kernels
+
+    g, S, dev = eng.geom, eng.max_slots, eng.device
+    npg = g.pages_per_request
+
+    def zeros(*shape, dtype=torch.int64):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    params = dict(eng.params, layers=eng.params["layers"][:2])
+    args = (params, zeros(S, 1), zeros(S, npg, dtype=torch.int32),
+            torch.ones(S, dtype=torch.int32, device=dev), zeros(S), eng.cache.pools[:2],
+            zeros(S, dtype=torch.float32), zeros(S), torch.ones(S, device=dev), zeros(S, 2))
+    traces = {}
+    for name, opts in (("on", {}), ("off", {"fusion_cost_model": False})):
+        jf = ptt.jit(eng.runner._decode_fn, device=dev, fn_name="serving_decode",
+                     whole_program_jit=False, block_fusion=False, **opts)
+        jf.compile(*args)
+        traces[name] = ptt.last_execution_trace(jf)
+    claims = {k: claimed_kernels(t) for k, t in traces.items()}
+    same = traces["on"].python() == traces["off"].python()
+    require(cost_model.MIN_CLAIM_BYTES > 0 or (same and claims["on"] == claims["off"]),
+            f"serve-jit: with MIN_CLAIM_BYTES 0 the gate changed the decode program: "
+            f"{claims}")
+    return {"layers": 2, "claims_gate_on": claims["on"], "claims_gate_off": claims["off"],
+            "programs_equal": same, "min_claim_bytes": cost_model.MIN_CLAIM_BYTES}
 
 
 def serve_jit_verdict(readings: dict, unset: str) -> dict:
@@ -4586,7 +4746,8 @@ def jit_train_run(np, torch, tllama, cudaex, pretrain, remat: bool, eager: dict,
            "launches_per_step": expect, "trace_bsyms": len(trc.bound_symbols),
            "eager_losses": eager["losses"], "loss_rel_diff_max": max(rel),
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-           "decisions": decisions}
+           "decisions": decisions, "calls_per_step": trace_calls(trc),
+           "reductions_as_torch_calls": reductions_left(trc)}
     holder = [cur]
 
     def step():
@@ -5127,16 +5288,27 @@ def hold_regions(torch, held: dict) -> dict:
     """Every distinct region (its source and its inputs' shapes) of the
     programs in ``held`` (path -> region callables) launched once on random
     inputs at its program's shapes and held against its plain chain on the
-    same inputs: bit for bit where it holds no transcendental op, within
-    REGION_ULP of the output dtype where it does. Returns the counts by
-    path and the largest region (by the bytes it moves), with its path."""
+    same inputs: an elementwise region bit for bit where it holds no
+    transcendental op, within REGION_ULP of the output dtype where it does;
+    a region with row reductions within the sums' bound (``hold_region``:
+    extremes, indices and every integer or bool output bit for bit, no
+    element left unheld; each float sum within d u sum|x| of the exact sum,
+    d the roundings of the kernel's order (``regionex.sum_depth``: 32 at
+    the sampler's (8, 128256), 25 at (16384, 4096)); what follows a sum
+    within the chain's own move at either end of that bound plus 1 ulp),
+    then again on integer-valued inputs, where a sum of integer summands
+    has the bound 0 and must be exact, and launched twice more, bit for
+    bit the same, then timed (its kernel, its plain chain, its bound by
+    bytes). Returns the counts by path, the largest region (by the bytes it
+    moves) with its path, and the rows of the regions with reductions."""
     from thunder_tpu_torch.testing import hold_region, region_inputs
 
     gen = torch.Generator(device="cuda").manual_seed(23)
-    seen, counts, largest = set(), {}, (0, None, None)
+    seen, counts, largest, reduce_rows = set(), {}, (0, None, None), []
     for path, regions in held.items():
         c = counts.setdefault(path, {"regions": len(regions), "distinct": 0, "bit_identical": 0,
-                                     "transcendental": 0, "max_ulp": 0})
+                                     "transcendental": 0, "max_ulp": 0, "with_reductions": 0,
+                                     "max_sum_slack": 0.0, "exact_sums_held": 0})
         for r in regions:
             key = (r.spec.entry, tuple(tuple(p.shape) for p in r.inputs))
             if key in seen:
@@ -5145,19 +5317,52 @@ def hold_regions(torch, held: dict) -> dict:
             vals = region_inputs(r, gen, "cuda")
             h = hold_region(r, vals)
             torch.cuda.synchronize()
-            require(h["ok"] and h["ulp"] <= REGION_ULP,
+            reduces = r.spec.rows is not None
+            require(h["ok"] and (reduces or h["ulp"] <= REGION_ULP),
                     f"{path} {r.name}: {h} against its plain chain\n{r.spec.source}")
             c["distinct"] += 1
             c["bit_identical"] += h["bit_identical"]
             c["transcendental"] += h["transcendental"]
-            c["max_ulp"] = max(c["max_ulp"], h["ulp"])
             nbytes = (sum(t.numel() * t.element_size() for t in vals)
                       + sum(math.prod(o.shape) * o.dtype.bytes for o in r.outputs))
+            if reduces:
+                # integer inputs: every sum of them, their sums and products exact
+                hi = hold_region(r, region_inputs(r, gen, "cuda", integer=True))
+                require(hi["ok"], f"{path} {r.name}: on integer inputs {hi} against its plain "
+                                  f"chain\n{r.spec.source}")
+                c["with_reductions"] += 1
+                c["max_sum_slack"] = max(c["max_sum_slack"], h["sum_slack"], hi["sum_slack"])
+                c["exact_sums_held"] += hi["exact_sums"]
+                first, second = r(*vals), r(*vals)
+                require(all(torch.equal(a, b) for a, b in zip(first, second)),
+                        f"{path} {r.name}: two launches on the same inputs differ")
+                del first, second
+                big = nbytes > 1e9
+                k_ms = time_ms(torch, lambda: r(*vals), 5 if big else 20)
+                chain_ms = time_ms(torch, lambda: r.plain(*vals), 2 if big else 5, warmup=1)
+                S, rd = r.spec.rows
+                reduce_rows.append({
+                    "path": path, "region": r.name, "rows_shape": list(S), "reduced_dims": rd,
+                    "ops": len(r.members),
+                    "reductions": sum(b.sym.name in ("sum", "amax", "amin", "argmax", "argmin")
+                                      for b in r.members),
+                    "ms": k_ms, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "chain_ms": chain_ms,
+                    "gb_moved": nbytes / 1e9, "sum_slack": h["sum_slack"],
+                    "sum_depth": h["depth"], "sums": h["sums"],
+                    "exact_sums_on_integers": hi["exact_sums"],
+                    "bit_identical_to_chain": h["bit_identical"]})
+                log(f"  reduce region {path} {r.name} {list(S)} reducing {rd}: "
+                    f"{len(r.members)} ops, kernel {k_ms:.4f} ms, bound "
+                    f"{reduce_rows[-1]['bound_ms']:.4f} ms, chain {chain_ms:.4f} ms, sum slack "
+                    f"{h['sum_slack']:.3g} (depth {h['depth']}), {hi['exact_sums']} of "
+                    f"{h['sums']} sums exact on integers")
+            else:
+                c["max_ulp"] = max(c["max_ulp"], h["ulp"])
             if nbytes > largest[0]:
                 largest = (nbytes, path, r)
             del vals
     log(f"  regions held against their plain chains: {json.dumps(counts)}")
-    return {"counts": counts, "largest": largest}
+    return {"counts": counts, "largest": largest, "reduce_rows": reduce_rows}
 
 
 def time_region(torch, cudaex, largest: tuple) -> dict:
@@ -5170,7 +5375,8 @@ def time_region(torch, cudaex, largest: tuple) -> dict:
     nbytes, path, r = largest
     gen = torch.Generator(device="cuda").manual_seed(23)
     vals = region_inputs(r, gen, "cuda")
-    got, want = r(*vals), r.plain(*vals)
+    got, design = ran(cudaex, "region", lambda: r(*vals))
+    want = r.plain(*vals)
     err = max(float((g.to(t) - w.to(t)).abs().max())
               for g, w in zip(got, want) for t in [torch.promote_types(g.dtype, torch.float32)])
     del got, want
@@ -5178,6 +5384,7 @@ def time_region(torch, cudaex, largest: tuple) -> dict:
                     lambda: r(*vals), lambda: r.plain(*vals), None, nbytes,
                     len(r.members) * math.prod(r.shape), F32_FLOPS)
     row["per_op_chain_ms"] = row["plain_ms"]
+    row["design"] = design
     row["ops"] = [b.sym.name for b in r.members]
     row["gb_moved"] = nbytes / 1e9
     del vals
@@ -5203,6 +5410,17 @@ def trace_calls(trc) -> dict:
             out["torch_views"] += ex is None and b.sym.id in MAY_ALIAS
         else:
             out[ex.name] = out.get(ex.name, 0) + 1
+    return out
+
+
+def reductions_left(trc) -> dict:
+    """The reductions an execution trace runs as torch calls, by prim (a
+    region's reductions are not counted)."""
+    out: dict[str, int] = {}
+    for b in trc.bound_symbols:
+        if b.sym.executor is None and b.sym.name in ("sum", "prod", "amax", "amin", "argmax",
+                                                     "argmin", "cumsum"):
+            out[b.sym.name] = out.get(b.sym.name, 0) + 1
     return out
 
 
@@ -5344,6 +5562,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     try:
+        import thunder_tpu_torch as ptt
         from thunder_tpu_torch import optim as toptim
         from thunder_tpu_torch.benchmarks import bench, pretrain, zoo
         from thunder_tpu_torch.executors import cudaex, regionex
@@ -5369,6 +5588,16 @@ def main() -> int:
 
     log("kernels vs plain versions (bf16, full width):")
     rows = check_kernels(torch, cudaex, tnn)
+    log("the claims' gate: rms_norm and rms_norm_residual against their decompositions' "
+        "regions (bf16, D = 4096):")
+    gate = gate_rows(torch, cudaex, tnn, ptt, regionex)
+    from thunder_tpu_torch.core import cost_model
+    gate["min_claim_bytes_in_the_tree"] = cost_model.MIN_CLAIM_BYTES
+    log(f"phase 3 gate readings: {json.dumps(gate)}; MIN_CLAIM_BYTES {cost_model.MIN_CLAIM_BYTES}"
+        f" in the tree, {gate['fit']} fitted from this run ({card})")
+    require(gate["fit"] == cost_model.MIN_CLAIM_BYTES,
+            f"phase 3: this run fits MIN_CLAIM_BYTES = {gate['fit']}, the tree has "
+            f"{cost_model.MIN_CLAIM_BYTES}: refit the constant")
     c1 = check_c1_inputs(torch, cudaex, tnn)
     train_rows = check_train_kernels(torch, cudaex, tnn, toptim_ops, tllama)
     log("the headline train bench's kernels vs plain versions (full width):")
@@ -5552,6 +5781,11 @@ def main() -> int:
         "device_busy_ms_jit_eager": [jta["device_busy_ms_per_step"],
                                      je["device_busy_ms_per_step"]],
         "replay_vs_per_call": replay_pairs((("a", jta, jta_off), ("b", jtb, jtb_off))),
+        "calls_per_step_a": jta["calls_per_step"],
+        "calls_per_step_a_elementwise_only_regions": ELEMENTWISE_ONLY_TRAIN_CALLS,
+        "reductions_as_torch_calls_a": jta["reductions_as_torch_calls"],
+        "elementwise_ms_a": (jta["ms_per_step_by_family"].get("other elementwise/copy", 0.0)
+                             + jta["ms_per_step_by_family"].get("region", 0.0)),
     }) + f" ({card})")
 
     # phase 20: jit(nn.Module) and the torch-autograd bridge
@@ -5630,12 +5864,17 @@ def main() -> int:
     sj = serve_jit_full_width(np, torch, tllama, ServingEngine, SamplingParams, cudaex,
                               pretrain)
     log("phase 22: " + json.dumps({
-        "verdict": sj["verdict"], "readings": sj["readings"], "phase_s": sj["phase_s"],
+        "verdict": sj["verdict"], "gate": sj["gate"],
+        "readings": sj["readings"], "phase_s": sj["phase_s"],
         **{f"{name} {mode}": {k: sj[name][mode][k] for k in (
             "rung", "decode_tok_per_s", "decode_step_ms_median", "decode_step_host_ms_median",
             "ttft_ms_mean", "decode_device_busy_ms", "decode_device_idle_share",
-            "first_logits_row_rel_err_vs_generate", "launches_per_decode_step")}
-           for name, _ in SERVE_JIT_RUNGS for mode in ("replay", "per_call")}}) + f" ({card})")
+            "first_logits_row_rel_err_vs_generate", "launches_per_decode_step",
+            "decode_calls_per_step", "decode_reductions_as_torch_calls",
+            "decode_reduce_regions")}
+           for name, mode in [(n, m) for n, _ in SERVE_JIT_RUNGS for m in ("replay", "per_call")]},
+        "regions_a_decode_step_elementwise_only": ELEMENTWISE_ONLY_DECODE_REGIONS})
+        + f" ({card})")
 
     # phase 23: the region executor's generated kernels
     t23 = time.perf_counter()
@@ -5645,6 +5884,9 @@ def main() -> int:
     log(f"phase 23 (a) every distinct region of phases 19 (a) and 22 (per-op) against its "
         f"plain chain: {json.dumps(hr['counts'])}; the largest timed: "
         f"{json.dumps(region_row)} ({card})")
+    log(f"phase 23 (a) the regions with row reductions: {json.dumps(hr['reduce_rows'])} ({card})")
+    require(any(r["reduced_dims"] for r in hr["reduce_rows"]),
+            "phase 23: no region with a row reduction was held")
     rab = region_ab_train(np, torch, tllama, pretrain)
     log(f"phase 23 (b) phase 19 (a) / 15 (a), regions on and off: {json.dumps(rab)} ({card})")
     rba = region_ab_bench(np, torch, tllama, pretrain, bench, True, False,
@@ -5672,6 +5914,9 @@ def main() -> int:
                                          rbb["regions off vs_baseline"]],
         "phase_22_decode_ms_median": sj["verdict"]["decode_step_ms_median"],
         "region_nvcc_s": regionex.nvcc_seconds(),
+        "region_nvcc_runs": regionex.nvcc_runs(),
+        "regions_with_reductions_held": len(hr["reduce_rows"]),
+        "region_designs": cudaex.design_counts().get("region", {}),
         "phase_s": time.perf_counter() - t23,
     }) + f" ({card})")
 
@@ -5681,10 +5926,15 @@ def main() -> int:
     # path carry the train path's timings; generate's rows are its
     # prefill's shapes, and its launches the card's)
     keys = ("name", "path", "shape", "design", "route", "source", "replaces", "launches",
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "designs",
+            "reduce")
     kernels = []
     # every compiled path launches regions: one row, phase 23's largest
     # region of phase 19 (a), under each path's own launches
+    region_row["designs"] = cudaex.design_counts().get("region", {})
+    big_reduce = max(hr["reduce_rows"], key=lambda r: r["gb_moved"])
+    region_row["reduce"] = {k: big_reduce[k] for k in ("path", "rows_shape", "ops", "ms",
+                                                       "bound_ms", "chain_ms")}
     for table in (rows, train_rows, jit_rows, module_rows, sp_rows):
         table["region"] = [region_row]
     planned = {name: train_rows.get(name) or planned_rows[name]
@@ -5785,6 +6035,14 @@ def main() -> int:
         ran_names = sorted(k for k, n in zoo_runs[p]["launches"].items() if n)
         require(ran_names == names, f"{p}: launched {ran_names}, its rows {names}")
     log("C.1 inputs: " + json.dumps(c1))
+    # no path lost a claim to the gate by an error, nor, while the constant
+    # is 0, at all (phase 3's turned-down compiles are not counted)
+    from thunder_tpu_torch.executors import passes
+    rejected = {f"{op} ({why})": n for (op, why), n in passes.gate_rejections().items()}
+    log(f"claims the cost-model gate turned down on every path: {json.dumps(rejected)}")
+    require(not any(why == "raised" for _, why in passes.gate_rejections())
+            and (cost_model.MIN_CLAIM_BYTES > 0 or not rejected),
+            f"the cost-model gate turned claims down: {rejected}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     # the card and the kernels line as the checker reads them: unprefixed
     print(card, flush=True)

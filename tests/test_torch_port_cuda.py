@@ -2333,3 +2333,227 @@ def test_cuda_region_launches_equal_the_trace_regions(cuda_device, replay):
         assert n > 0 and launches["region"] == claims["region"] == n
         assert launches == claims
     assert claimed_kernels(ptt.last_execution_trace(step))["region"] == n
+
+
+# ---------------------------------------------------------------------------
+# regions with row reductions (executors/regionex.py reduce_source)
+#
+# Bounds: amax, amin, argmax and argmin bit for bit (ties go to the lowest
+# index, a NaN is the extreme, as torch documents); integer sums exactly,
+# and float sums of integer values (every partial sum exact) too; each
+# other float sum within g sum|x_i| of the exact sum (float64), g = d u /
+# (1 - d u), u = 2**-24 and d the roundings a summand goes through in the
+# kernel's order (``regionex.sum_depth``: its thread's columns, two shuffle
+# trees of 5 levels, the cluster's partials; 32 at (8, 128256), 25 at
+# (512, 4096)), plus one ulp of a 16-bit result (it rounds once); an output
+# computed from a sum within the plain chain's own move when each sum is
+# set to either end of that bound, plus 1 ulp of its dtype where the region
+# holds a transcendental op, and every integer or bool output equal, none
+# left unheld (``testing.hold_region``). Two launches on the same inputs
+# bit for bit.
+# ---------------------------------------------------------------------------
+
+def _reduce_region(fn, *args):
+    """``jit(fn)`` run on ``args`` (on the card): its output, the eager
+    ``fn``'s on the same inputs, and its one region with row reductions."""
+    import thunder_tpu_torch as ptt
+    from thunder_tpu_torch.testing import regions_of
+
+    jf = ptt.jit(fn)
+    got = jf(*args)
+    rs = [r for r in regions_of(ptt.last_execution_trace(jf)) if r.spec.rows is not None]
+    assert len(rs) == 1, [r.spec.rows for r in regions_of(ptt.last_execution_trace(jf))]
+    return got, fn(*args), rs[0]
+
+
+def _ties(gen, shape, device, dtype):
+    """Small integers as ``dtype`` (every row full of equal values), with a
+    NaN planted in every fourth row of a float dtype."""
+    x = torch.randint(-3, 4, shape, generator=gen).to(dtype)
+    if dtype.is_floating_point:
+        x.view(-1, shape[-1])[::4, shape[-1] // 3] = float("nan")
+    return x.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64, torch.int64,
+                                   torch.int32], ids=["f32", "bf16", "f64", "i64", "i32"])
+@pytest.mark.parametrize("shape", [(8, 96), (3, 70001), (2, 5, 33)],
+                         ids=["short", "long-row", "rank3"])
+def test_cuda_region_extremes_bit_for_bit(cuda_device, dtype, shape):
+    """amax, amin, argmax and argmin over the last dim in one region, on
+    rows full of ties (and NaNs in floats): bit for bit against torch's,
+    the lowest index among equal extremes; a row longer than 65,536; two
+    launches the same; the launch on the ``reduce`` design."""
+    gen = torch.Generator().manual_seed(7)
+    x = _ties(gen, shape, cuda_device, dtype)
+
+    def fn(x):
+        y = x * 1
+        return torch.amax(y, -1), torch.amin(y, -1), torch.argmax(y, -1), torch.argmin(y, -1)
+
+    got, want, region = _reduce_region(fn, x)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g.nan_to_num(0.5), w.nan_to_num(0.5)), (g, w)
+    before = cudaex.design_counts().get("region", {}).get("reduce", 0)
+    again = region(x)
+    assert cudaex.design_counts()["region"]["reduce"] == before + 1
+    assert all(torch.equal(a.nan_to_num(0.5), b.nan_to_num(0.5))
+               for a, b in zip(again, region(x)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("values", ["normal", "integer"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16],
+                         ids=["f32", "bf16", "f16"])
+@pytest.mark.parametrize("shape", [(8, 128256), (512, 4096), (4, 3, 77)],
+                         ids=["sampler-rows", "norm-rows", "two-dims"])
+def test_cuda_region_sums_within_their_bound(cuda_device, dtype, shape, values):
+    """A float sum over the trailing dims (the last two for rank 3), a mean
+    and a softmax-style chain from it, in one region: the sum within the
+    stated bound of the exact sum in the kernel's order, and exactly the
+    exact sum on integer values; every output within the stated bound of
+    the plain chain (``hold_region``); two launches bit for bit."""
+    from thunder_tpu_torch.testing import hold_region, region_sum_depth, sum_bound
+
+    gen = torch.Generator().manual_seed(11)
+    if values == "integer":
+        x = torch.randint(-4, 5, shape, generator=gen).to(dtype).to(cuda_device)
+    else:
+        x = torch.randn(shape, generator=gen).to(dtype).to(cuda_device)
+    dims = (-2, -1) if len(shape) == 3 else (-1,)
+
+    def fn(x):
+        s = torch.sum(x * 2, dims, keepdim=True)
+        return s, torch.exp(x - s / x[0].numel()) / s
+
+    got, want, region = _reduce_region(fn, x)
+    x2 = (x * 2).float()
+    exact = torch.sum(x2.double(), dims, keepdim=True)
+    depth = region_sum_depth(region, [x])
+    assert depth == (32 if shape == (8, 128256) else 25 if shape == (512, 4096) else 10)
+    if values == "integer":
+        assert torch.equal(got[0], exact.to(dtype))
+    bound = sum_bound(x2, dims, depth).reshape(exact.shape) + sum_bound(
+        x2.double(), dims).reshape(exact.shape)
+    err = (got[0].double() - exact).abs()
+    one = torch.finfo(dtype).eps * exact.abs() if dtype != torch.float32 else 0
+    assert bool((err <= bound + one).all()), float((err - bound - one).max())
+    held = hold_region(region, [x])
+    assert held["ok"], held
+    a, b = region(x), region(x)
+    assert all(torch.equal(p.nan_to_num(0.5), q.nan_to_num(0.5)) for p, q in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_cuda_region_norms_and_sampler_rows_within_bounds(cuda_device):
+    """The reductions of a traced rms_norm with the claims' gate turning it
+    down (bf16, 8 and 16384 rows of 4096) and of the sampler's top-k/top-p
+    bisection (float32, 8 rows of 128,256): each program's regions with
+    reductions held within the stated bounds on random and on
+    integer-valued inputs, two launches bit for bit."""
+    import thunder_tpu_torch as ptt
+    from thunder_tpu_torch.core import cost_model
+    from thunder_tpu_torch.serving.sampling import sample_tokens
+    from thunder_tpu_torch.testing import hold_region, region_inputs, regions_of
+
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    saved = cost_model.MIN_CLAIM_BYTES
+    cost_model.MIN_CLAIM_BYTES = float("inf")
+    try:
+        progs = []
+        for n in (8, 16384):
+            x = torch.randn(n, 4096, device=cuda_device).to(torch.bfloat16)
+            w = torch.rand(4096, device=cuda_device).to(torch.bfloat16)
+            jf = ptt.jit(lambda x, w: tnn.rms_norm(x, w, 1e-5))
+            jf.compile(x, w)
+            progs.append(ptt.last_execution_trace(jf))
+    finally:
+        cost_model.MIN_CLAIM_BYTES = saved
+    S, V = 8, 128256
+    args = (torch.randn(S, V, device=cuda_device), torch.full((S,), 0.8, device=cuda_device),
+            torch.full((S,), 50, dtype=torch.int32, device=cuda_device),
+            torch.full((S,), 0.9, device=cuda_device),
+            torch.randint(0, 1 << 30, (S, 2), dtype=torch.int32, device=cuda_device))
+    jf = ptt.jit(sample_tokens)
+    tokens = jf(*args)
+    progs.append(ptt.last_execution_trace(jf))
+    assert tokens.shape == (S,) and bool(((tokens >= 0) & (tokens < V)).all())
+    held = 0
+    for trc in progs:
+        for r in regions_of(trc):
+            if r.spec.rows is None:
+                continue
+            vals = region_inputs(r, gen, cuda_device)
+            h = hold_region(r, vals)
+            assert h["ok"], (r.name, h)
+            hi = hold_region(r, region_inputs(r, gen, cuda_device, integer=True))
+            assert hi["ok"], (r.name, hi)
+            a, b = r(*vals), r(*vals)
+            assert all(torch.equal(p, q) for p, q in zip(a, b))
+            held += 1
+    assert held >= 3
+
+
+@pytest.mark.cuda
+def test_cuda_region_reduction_with_64_bit_indices(cuda_device):
+    """A row space past 2**31 elements (32,768 rows of 65,540 int8 values):
+    the launch takes 64-bit indices, and its integer sums equal torch's."""
+    x = torch.randint(-100, 100, (32768, 65540), dtype=torch.int8, device=cuda_device)
+    got, want, region = _reduce_region(lambda x: torch.sum(x + 1, -1), x)
+    assert torch.equal(got, want) and got.dtype == torch.int64
+    del x
+
+
+@pytest.mark.cuda
+def test_cuda_region_reduction_strided_and_broadcast(cuda_device):
+    """A row reduction over a strided input and a broadcast weight (the
+    norm's statistics over every other column, times a (D,) weight) within
+    its bound (``hold_region``), for dense and strided inputs."""
+    from thunder_tpu_torch.testing import hold_region, region_inputs
+
+    x = torch.randn(64, 2 * 1000, device=cuda_device)[:, ::2]
+    w = torch.rand(1000, device=cuda_device)
+    got, want, region = _reduce_region(
+        lambda x, w: x * w * torch.rsqrt(torch.mean(x * x, -1, keepdim=True) + 1e-5), x, w)
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    for strided in (False, True):
+        h = hold_region(region, region_inputs(region, gen, cuda_device, strided=strided))
+        assert h["ok"], (strided, h)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_region_cluster_launch_replays_in_a_graph(cuda_device):
+    """The sampler's region (8 rows of 128,256: its rows split across
+    clusters) inside a ``jit`` entry's CUDA graph: the captured and the
+    replayed calls give the per-call call's tokens bit for bit, and each
+    replay counts the region's launches."""
+    import thunder_tpu_torch as ptt
+    from thunder_tpu_torch.executors import regionex
+    from thunder_tpu_torch.serving.sampling import sample_tokens
+    from thunder_tpu_torch.testing import regions_of
+
+    S, V = 8, 128256
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    args = (torch.randn(S, V, device=cuda_device, generator=gen),
+            torch.full((S,), 0.8, device=cuda_device),
+            torch.full((S,), 50, dtype=torch.int32, device=cuda_device),
+            torch.full((S,), 0.9, device=cuda_device),
+            torch.randint(0, 1 << 30, (S, 2), dtype=torch.int32, device=cuda_device,
+                          generator=gen))
+    per_call = ptt.jit(sample_tokens, whole_program_jit=False)(*args)
+    jf = ptt.jit(sample_tokens)
+    regions = None
+    for _ in range(3):          # per call, the capture, a replay
+        cudaex.reset_launch_counts()
+        got = jf(*args)
+        torch.cuda.synchronize()
+        regions = regions_of(ptt.last_execution_trace(jf))
+        assert torch.equal(got, per_call)
+        assert cudaex.launch_counts()["region"] == len(regions)
+    assert ptt.compile_stats(jf).whole_program_replays >= 1
+    (big,) = [r for r in regions if r.spec.rows]
+    assert regionex.row_launch(S, V, torch.cuda.get_device_properties(0).multi_processor_count
+                               )[0] > 1
+    assert big.spec.rows == ((S, V), 1)

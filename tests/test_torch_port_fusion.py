@@ -50,6 +50,7 @@ from thunder_tpu.runtime import quarantine as jquarantine
 import thunder_tpu_torch as ptt
 from thunder_tpu_torch import observe
 from thunder_tpu_torch.benchmarks import pretrain
+from thunder_tpu_torch.core import cost_model as tcm
 from thunder_tpu_torch.core.fusion_passes import BLOCK_DECISION_KINDS
 from thunder_tpu_torch.core.pytree import tree_map
 from thunder_tpu_torch.models import llama as tllama
@@ -370,9 +371,10 @@ def test_chain_the_kernel_refuses_is_unclaimed():
 @pytest.mark.parametrize("rows", [4, 2048], ids=["decode-rows", "prefill-rows"])
 def test_memory_bound_claims_have_no_cost_gate(rows):
     """Every legal claim is taken on the card, however few bytes it moves:
-    the reference's claim gate weighs a claim against an XLA fusion region,
-    which the port does not have yet, so its ``fusion_cost_model`` option
-    is read by nothing and reported so."""
+    the reference's claim gate (``fusion_cost_model``, read by the gated
+    claims) weighs a claim against the region its decomposition forms, and
+    with the card's constant (``MIN_CLAIM_BYTES`` 0: the norm kernels beat
+    their regions at every size read, PERF.md §6) it turns no claim down."""
     def f(x, w):
         return F.rms_norm(x, (x.shape[-1],), w, EPS)
 
@@ -384,7 +386,8 @@ def test_memory_bound_claims_have_no_cost_gate(rows):
     assert not [d for d in ptt.compile_stats(jf).last_decisions
                 if d["kind"] == "claim" and d["decision"] == "rejected"]
     opts = ptt.last_compile_options(jf)
-    assert "passed but never queried" in opts and "fusion_cost_model" in opts
+    assert "passed but never queried" not in opts and "fusion_cost_model [set]" in opts
+    assert tcm.MIN_CLAIM_BYTES == 0
 
 
 # ---------------------------------------------------------------------------

@@ -14,9 +14,11 @@ CPU.
   fusible): the port's partitioner forms no cycle, keeps every group's
   inputs produced before it, and loses no bound symbol.
 
-The reference fuses a reduction into an XLA region; the port's region
-executor takes no reduction, so where a reduction sits in a chain the two
-count regions differently, and the cases say which.
+The reference fuses any reduction into an XLA region; the port's region
+executor takes reductions of trailing dims only, each region one row space
+(``test_torch_port_region_reductions.py`` holds its groups against the
+reference's under that predicate), so where a reduction sits in a chain
+the two may count regions differently, and the cases say which.
 """
 
 import numpy as np
@@ -68,8 +70,8 @@ def _regions(src: str, name: str) -> int:
 
 def test_one_region_across_an_unfusible_sync_op():
     """Both chains (and, in the reference, the sum feeding ``item``) join
-    one region in both packages; ``item`` stays out (the port's region
-    takes no reduction: its ``sum`` stays out too)."""
+    one region in both packages; ``item`` stays out (in the port the
+    ``sum`` of an input, alone in its row space, stays out too)."""
     jout, jtr, tout, ttr = _both(_chains, torch.ones(4, 4), torch.ones(2))
     assert _regions(jtr[-1].python(), "xla") == 1
     src = ttr[-1].python()

@@ -39,16 +39,33 @@ The reference also charges its per-op rung a gathered contiguous cache
 (its decomposition of ``nn.paged_decode_attention``); the port's per-op
 rung reads the pages through the ``paged_decode_attention`` kernel, so no
 gathered bytes are counted. The collective half (``bsym_us``, the ring
-model, ``comm_bucket_cost``) comes with distributed (A.2), and the claim
-gate's half (``bsym_cost``, ``region_cost``, ``claim_worthwhile``) with the
-region executor (A.7.4).
+model, ``comm_bucket_cost``) comes with distributed (A.2).
+
+The claim gate's half (the reference's :49 and :167-216), which the
+``cuda`` executor's memory-bound claims ask before they take an op from
+the region executor (``ImplInfo.profitable``, ``passes.claim_bsym``):
+
+- :func:`bsym_cost`: the flops and bytes of one bound symbol, with the
+  reference's counts (2 M N K a ``dot_general``; an output element a flop
+  for anything else; a composite's flops its decomposition's, its bytes its
+  own boundary's);
+- :func:`region_cost`: the flops and boundary bytes of a region;
+- :func:`arithmetic_intensity`, :func:`is_memory_bound`: against the
+  card's ridge, ``PEAK_FLOPS / (HBM_GBPS * 1e9)``;
+- :func:`claim_worthwhile`: a compute-bound claim always, a memory-bound
+  one where it moves at least :data:`MIN_CLAIM_BYTES`, the constant fitted
+  on the card where the kernel stops losing to the region its
+  decomposition forms (PERF.md §6).
 
 The estimates rank alternatives; they do not predict a step's time.
 """
 
 from __future__ import annotations
 
+from thunder_tpu_torch.core.prims import OpTags, PrimIDs
 from thunder_tpu_torch.core.proxies import TensorProxy
+from thunder_tpu_torch.core.symbol import BoundSymbol
+from thunder_tpu_torch.core.utils import consumed_vars, produced_vars
 
 # -- the card (NVIDIA H100 80GB HBM3, 700.00 W) -------------------------------
 # dense bf16 tensor-core peak (NVIDIA's data sheet, SXM part), the rate of
@@ -321,3 +338,109 @@ def horizontal_merge_profitable(m_tokens: int, out_features) -> bool:
     if len(outs) < 2:
         return False
     return m_tokens * (len(outs) - 1) > sum(outs)
+
+
+# -- the claim gate --------------------------------------------------------------
+
+# the roofline's ridge: flops a byte at which the card's peak and its memory
+# rate take the same time (989e12 / 3.35e12, 295 flops a byte)
+RIDGE_FLOPS_PER_BYTE = PEAK_FLOPS / (HBM_GBPS * 1e9)
+
+# the smallest boundary a memory-bound claim must move to be taken: below
+# it the kernel is no faster than the region its decomposition forms.
+# Fitted from chip_smoke.py phase 3's readings of rms_norm and
+# rms_norm_residual against their decompositions' regions (D = 4096, bf16,
+# 1 to 16384 rows, 24,576 to 536,879,104 bytes; PERF.md §6, "The cost
+# model's constants"; H100 80GB HBM3, 700.00 W): the kernel was faster at
+# every size read (1.7-2.0x), so the constant sits below the smallest and
+# the gate turns down no claim. Not carried over from the reference's TPU
+# figure
+MIN_CLAIM_BYTES = 0
+
+_ZERO_COST_IDS = frozenset(getattr(PrimIDs, n) for n in (
+    "PYTHON_RETURN", "COMMENT", "PYTHON_DEL", "PYTHON_PRINT", "SINK", "UNPACK_TRIVIAL",
+    "CHECK_TENSOR_SHAPE_AND_METADATA", "CHECK_NUMBER_TYPE_AND_VALUE", "CHECK_STRING_VALUE",
+    "CHECK_LITERAL_LIKE", "CHECK_NUMBER_TYPE") if hasattr(PrimIDs, n))
+
+
+def _io_bytes(bsym: BoundSymbol) -> int:
+    return (sum(tensor_bytes(p) for p in bsym.flat_proxy_args())
+            + sum(tensor_bytes(p) for p in bsym.flat_proxy_outs()))
+
+
+def _elements(p) -> int:
+    n = 1
+    for s in p.shape:
+        n *= int(s)
+    return n
+
+
+def _matmul_flops(bsym: BoundSymbol) -> int:
+    """2 (batch M N) K for a ``dot_general``, the reference's count; any
+    other product its output elements times 2 x 128 (the reference's
+    fallback)."""
+    out_elems = sum(_elements(p) for p in bsym.flat_proxy_outs() if isinstance(p, TensorProxy))
+    if bsym.sym.id is PrimIDs.DOT_GENERAL:
+        a = bsym.args[0]
+        contract = bsym.kwargs.get("contract_dims")
+        if contract is None and len(bsym.args) > 2:
+            contract = bsym.args[2]
+        k = 1
+        if contract and isinstance(a, TensorProxy):
+            for d in contract[0]:
+                k *= int(a.shape[d])
+        return 2 * out_elems * max(k, 1)
+    return 2 * out_elems * 128
+
+
+def bsym_cost(bsym: BoundSymbol) -> tuple[int, int]:
+    """(flops, bytes) of one bound symbol, as the reference counts them
+    (cost_model.py:167): a product's 2 M N K; a composite's flops its
+    decomposition's sum, its bytes its own inputs and outputs (the
+    decomposition is taken to fuse); anything else an output element a
+    flop, its inputs and outputs its bytes."""
+    if bsym.sym.id in _ZERO_COST_IDS:
+        return 0, 0
+    if OpTags.MATMUL_OP in bsym.sym.tags:
+        return _matmul_flops(bsym), _io_bytes(bsym)
+    if bsym.subsymbols:
+        return sum(bsym_cost(s)[0] for s in bsym.subsymbols), _io_bytes(bsym)
+    out_elems = sum(_elements(p) for p in bsym.flat_proxy_outs() if isinstance(p, TensorProxy))
+    return out_elems, _io_bytes(bsym)
+
+
+def region_cost(bsyms) -> tuple[int, int]:
+    """(flops, boundary bytes) of a region (the reference's :183): its
+    members' flops; each input read once, every member's output counted as
+    written (an upper bound: which of them outlive the region is the
+    program's liveness)."""
+    flops = sum(bsym_cost(b)[0] for b in bsyms)
+    produced, counted, in_bytes = set(), set(), 0
+    for b in bsyms:
+        for v in consumed_vars(b):
+            if v not in produced and v not in counted:
+                counted.add(v)
+                in_bytes += tensor_bytes(v.proxy)
+        produced |= produced_vars(b)
+    out_bytes = sum(tensor_bytes(p) for b in bsyms for p in b.flat_proxy_outs())
+    return flops, in_bytes + out_bytes
+
+
+def arithmetic_intensity(flops: int, nbytes: int) -> float:
+    return flops / nbytes if nbytes else float("inf")
+
+
+def is_memory_bound(flops: int, nbytes: int) -> bool:
+    """Below the card's ridge (:data:`RIDGE_FLOPS_PER_BYTE`)."""
+    return arithmetic_intensity(flops, nbytes) < RIDGE_FLOPS_PER_BYTE
+
+
+def claim_worthwhile(bsym: BoundSymbol) -> bool:
+    """Take a kernel's claim of ``bsym`` rather than leave its
+    decomposition to the region executor? A compute-bound op always; a
+    memory-bound one where it moves at least :data:`MIN_CLAIM_BYTES` (the
+    reference's :209, with the card's ridge and constant)."""
+    flops, nbytes = bsym_cost(bsym)
+    if not is_memory_bound(flops, nbytes):
+        return True
+    return nbytes >= MIN_CLAIM_BYTES

@@ -276,13 +276,18 @@ def horizontal_fusion_pass(trc: TraceCtx) -> TraceCtx:
 # claim probes and composite rebuilds
 # ---------------------------------------------------------------------------
 
-def _claim_refusal(executors, op_id: str, args, kwargs, *,
-                   kernel: bool = False) -> str | None:
+def _claim_refusal(executors, op_id: str, args, kwargs, *, kernel: bool = False,
+                   outs=None) -> str | None:
     """Why no executor would claim the fused composite (None where one
-    would). Each executor's checker is asked. With
-    ``kernel`` (the block planner) a claim the quarantine routes off is the
-    answer (no executor below it takes the kernel's place), and so is a
-    kernel's refusal of the arguments: the claim pass would raise it."""
+    would). Each executor's checker is asked, and, given the composite's
+    outputs ``outs``, its cost-model gate (``ImplInfo.profitable``, with a
+    throwaway bound symbol of the real argument and output proxies, as the
+    reference's ``_some_executor_claims`` asks it, counted as the claim
+    pass counts it), so no composite is built that the claim pass then
+    turns down. With ``kernel`` (the block
+    planner) a claim the quarantine routes off is the answer (no executor
+    below it takes the kernel's place), and so is a kernel's refusal of the
+    arguments: the claim pass would raise it."""
     reasons = []
     for ex in executors:
         impl = ex.implmap.get(op_id)
@@ -291,6 +296,13 @@ def _claim_refusal(executors, op_id: str, args, kwargs, *,
         try:
             if impl.checker is not None and not impl.checker(*args, **kwargs):
                 continue
+            if impl.profitable is not None and outs is not None:
+                from thunder_tpu_torch.executors.passes import profitable
+
+                probe = impl.symbol.bind(*args, output=tuple(outs), **kwargs)
+                if not profitable(impl, probe):
+                    reasons.append(f"{impl.symbol.id}: the cost model turns the claim down")
+                    continue
             if kernel and _quarantine.is_routed_off(impl.symbol.id):
                 return (f"{impl.symbol.id} is quarantined: "
                         f"{_quarantine.quarantine_reason(impl.symbol.id)}")
@@ -305,9 +317,10 @@ def _claim_refusal(executors, op_id: str, args, kwargs, *,
     return "; ".join(reasons) or "no executor claims the fused composite (checker refused)"
 
 
-def _some_executor_claims(executors, op_id: str, args, kwargs) -> bool:
-    """Would an executor in the stack claim the fused composite?"""
-    return _claim_refusal(executors, op_id, args, kwargs) is None
+def _some_executor_claims(executors, op_id: str, args, kwargs, outs=None) -> bool:
+    """Would an executor in the stack claim the fused composite (its checker
+    and, given ``outs``, its cost-model gate)?"""
+    return _claim_refusal(executors, op_id, args, kwargs, outs=outs) is None
 
 
 def _build_composite(trc: TraceCtx, op, args, kwargs, old_outs) -> list[BoundSymbol] | None:
@@ -370,10 +383,10 @@ def _rms_residual_pattern(executors):
         cost = {"pattern": "add+rms_norm",
                 "bytes_saved_roundtrip": cost_model.tensor_bytes(h) * 2}
         if not _some_executor_claims(executors, "nn.rms_norm_residual", (res, x, weight),
-                                     {"eps": eps}):
+                                     {"eps": eps}, (h, normed)):
             _decisions.record("fusion", "nn.rms_norm_residual", None, "rejected",
                               "no executor claims the fused composite "
-                              "(checker refused)", cost=cost)
+                              "(checker or cost-model gate)", cost=cost)
             return None
         repl = _build_composite(trc, composites.rms_norm_residual, (res, x, weight),
                                 {"eps": eps}, [h, normed])
@@ -429,10 +442,11 @@ def _linear_act_pattern(executors):
         act = env["act"]
         cost = {"pattern": f"linear+{act}",
                 "bytes_saved_roundtrip": cost_model.tensor_bytes(out) * 2}
-        if not _some_executor_claims(executors, "nn.linear_act", (a, w, bias), {"act": act}):
+        if not _some_executor_claims(executors, "nn.linear_act", (a, w, bias), {"act": act},
+                                     (out,)):
             _decisions.record("fusion", "nn.linear_act", None, "rejected",
                               "no executor claims the fused composite "
-                              "(checker refused)", cost=cost)
+                              "(checker or cost-model gate)", cost=cost)
             return None
         repl = _build_composite(trc, composites.linear_act, (a, w, bias), {"act": act}, [out])
         if repl:

@@ -26,17 +26,21 @@ from thunder_tpu_torch.core.symbol import BoundSymbol, Symbol
 
 class ImplInfo:
     """How an executor implements one symbol id: ``checker`` says whether it
-    claims the bound symbol's arguments; ``refusal``, where given, says why
-    its kernel would not take arguments the checker claims (None where it
-    takes them), and the claim pass raises that reason."""
+    claims the bound symbol's arguments (can it); ``profitable``, where
+    given, says whether it should (the cost-model gate: a legal claim may
+    lose to leaving the op to the region executor), asked with the bound
+    symbol; ``refusal``, where given, says why its kernel would not take
+    arguments the checker claims (None where it takes them), and the claim
+    pass raises that reason."""
 
-    __slots__ = ("symbol", "checker", "refusal")
+    __slots__ = ("symbol", "checker", "refusal", "profitable")
 
     def __init__(self, symbol: Symbol | None = None, checker: Callable | None = None,
-                 refusal: Callable | None = None):
+                 refusal: Callable | None = None, profitable: Callable | None = None):
         self.symbol = symbol
         self.checker = checker
         self.refusal = refusal
+        self.profitable = profitable
 
 
 class Executor:
@@ -82,9 +86,11 @@ class OperatorExecutor(Executor):
 
     def register_implementation(self, id_or_sym, op: Symbol | None = None, *,
                                 checker: Callable | None = None,
-                                refusal: Callable | None = None) -> None:
+                                refusal: Callable | None = None,
+                                profitable: Callable | None = None) -> None:
         sym_id = id_or_sym.id if isinstance(id_or_sym, Symbol) else id_or_sym
-        self.implmap[sym_id] = ImplInfo(symbol=op, checker=checker, refusal=refusal)
+        self.implmap[sym_id] = ImplInfo(symbol=op, checker=checker, refusal=refusal,
+                                        profitable=profitable)
 
 
 class FusionExecutor(Executor):

@@ -39,13 +39,19 @@ checker takes but the kernel does not (``cudaex.refusal``, evaluated on
 meta tensors of the proxies' shapes and dtypes) raises at compile time:
 nothing decomposes on the card in place of a kernel.
 
-The reference's cost-model gate of the memory-bound claims
-(``_pallas_claim_profitable``, pallasex.py:2031-2048, behind its
-``fusion_cost_model`` option) weighs a claim against leaving the op inside
-an XLA fusion region; it comes with the port's region executor (ROADMAP
-A.7.4). Until then every claim here is taken wherever its checker passes.
-The sub-block and optimizer claims have no gate, as in the reference:
-their passes already asked the cost model.
+The memory-bound claims the reference gates (``nn.ce_fwd``,
+``nn.rms_norm``, ``nn.rms_norm_residual``, ``nn.linear_act``,
+``nn.paged_decode_attention``; pallasex.py:2071-2134) ask
+:func:`_cuda_claim_profitable` (the reference's
+``_pallas_claim_profitable``, :2031-2048): under the ``interpret`` option
+always yes (the CPU's claims run plain versions, whose cost says nothing
+of the card), with ``fusion_cost_model=False`` always yes, else
+``core/cost_model.claim_worthwhile``: a memory-bound claim moving fewer
+than ``MIN_CLAIM_BYTES`` (fitted on the card) is turned down, and its
+decomposition goes to the region executor's regions, reductions included.
+The sub-block, decode-layer, attention and optimizer claims have no gate,
+as in the reference: their passes already asked the cost model, or their
+kernels are bound by operations.
 
 The serving decode (PR 19) adds ``nn.paged_decode_attention`` at T == 1
 (the ``paged_decode_attention`` kernel; a prefill chunk keeps the
@@ -81,13 +87,36 @@ _ACTS = ("relu", "silu", "gelu", "gelu_tanh")
 def _on_card(*ts) -> bool:
     """Every tensor on the card, or, under the ``interpret`` compile option,
     on the card or the CPU."""
-    devs = {"cuda", "cpu"} if get_compile_option(
+    devs = {"cuda", "cpu"} if _interpret() else {"cuda"}
+    return all(t.device.type in devs for t in ts if isinstance(t, TensorProxy))
+
+
+def _interpret() -> bool:
+    return get_compile_option(
         "interpret",
         "claim the kernel composites of CPU tensors as of CUDA ones and run each through its "
         "router, whose CPU path is the kernel's plain version (the reference's Pallas "
         "interpret mode): the kernel guard's fault hooks and claim counts and the "
-        "quarantine's rungs then act on the CPU as on the card", False) else {"cuda"}
-    return all(t.device.type in devs for t in ts if isinstance(t, TensorProxy))
+        "quarantine's rungs then act on the CPU as on the card", False)
+
+
+def _cuda_claim_profitable(bsym) -> bool:
+    """The cost-model gate of a memory-bound claim (``ImplInfo.profitable``):
+    under ``interpret`` (the CPU: the cost of a plain version says nothing
+    of the card) always claim, as the reference does in interpret mode;
+    otherwise, unless ``fusion_cost_model`` is off, claim where
+    ``cost_model.claim_worthwhile`` says the kernel beats the region its
+    decomposition forms."""
+    if _interpret():
+        return True
+    if not get_compile_option(
+            "fusion_cost_model",
+            "gate memory-bound cuda claims on the roofline cost model (claims moving under "
+            "cost_model.MIN_CLAIM_BYTES stay inside region fusions)", True):
+        return True
+    from thunder_tpu_torch.core.cost_model import claim_worthwhile
+
+    return claim_worthwhile(bsym)
 
 
 def _meta(x, dtype=None):
@@ -432,22 +461,30 @@ def cuda_cross_entropy(logits, target, weight=None, ignore_index=-100, reduction
     return total.to(logits.dtype)
 
 
-def _register(name, op_id, fn, checker, refusal, claim=None):
+def _register(name, op_id, fn, checker, refusal, claim=None, profitable=None):
     sym = ex.register_operator(name, meta=get_op(op_id).meta, fn=fn,
                                id=f"cuda.{claim}" if claim else None)
-    ex.register_implementation(op_id, sym, checker=checker, refusal=refusal)
+    ex.register_implementation(op_id, sym, checker=checker, refusal=refusal,
+                               profitable=profitable)
     return sym
 
 
-rms_norm_op = _register("rms_norm", "nn.rms_norm", cuda_rms_norm, _rms_checker, _rms_refusal)
+# the memory-bound claims the reference gates (pallasex.py:2071-2134)
+GATED = ("nn.ce_fwd", "nn.rms_norm", "nn.rms_norm_residual", "nn.linear_act",
+         "nn.paged_decode_attention")
+
+rms_norm_op = _register("rms_norm", "nn.rms_norm", cuda_rms_norm, _rms_checker, _rms_refusal,
+                        profitable=_cuda_claim_profitable)
 rms_norm_residual_op = _register("rms_norm_residual", "nn.rms_norm_residual",
-                                 cuda_rms_norm_residual, _rms_res_checker, _rms_res_refusal)
+                                 cuda_rms_norm_residual, _rms_res_checker, _rms_res_refusal,
+                                 profitable=_cuda_claim_profitable)
 linear_act_op = _register("linear_act", "nn.linear_act", cuda_linear_act, _linear_act_checker,
-                          _linear_act_refusal)
+                          _linear_act_refusal, profitable=_cuda_claim_profitable)
 sdpa_fwd_op = _register("sdpa_fwd", "nn.sdpa_fwd", cuda_sdpa_fwd, _sdpa_checker, _sdpa_refusal)
 sdpa_op = _register("sdpa", "nn.scaled_dot_product_attention", cuda_sdpa, _sdpa_full_checker,
                     _sdpa_refusal, claim="sdpa_fwd")
-ce_fwd_op = _register("ce_fwd", "nn.ce_fwd", cuda_ce_fwd, _ce_checker, _ce_refusal)
+ce_fwd_op = _register("ce_fwd", "nn.ce_fwd", cuda_ce_fwd, _ce_checker, _ce_refusal,
+                      profitable=_cuda_claim_profitable)
 cross_entropy_op = _register("cross_entropy", "nn.cross_entropy", cuda_cross_entropy,
                              _cross_entropy_checker, _ce_refusal, claim="ce_fwd")
 sdpa_bwd_op = _register("sdpa_bwd", "nn.sdpa_bwd", cuda_sdpa_bwd, _sdpa_bwd_checker,
@@ -477,7 +514,7 @@ mlp_subblock_bwd_op = _register("mlp_subblock_bwd", "nn.mlp_subblock_bwd",
                                 _mlp_subblock_bwd_refusal)
 paged_decode_attention_op = _register("paged_decode_attention", "nn.paged_decode_attention",
                                       cuda_paged_decode_attention, _paged_checker,
-                                      _paged_refusal)
+                                      _paged_refusal, profitable=_cuda_claim_profitable)
 attn_subblock_op = _register("attn_subblock", "nn.attn_subblock", cuda_attn_subblock,
                              _attn_subblock_checker, _attn_subblock_refusal)
 decode_layer_op = _register("decode_layer", "nn.decode_layer", cuda_decode_layer,

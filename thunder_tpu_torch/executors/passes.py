@@ -20,13 +20,20 @@ Nothing falls back on the card: a claim the quarantine routes off is
 still claimed, and its router raises a fatal ``KernelExecutionError`` when
 it runs on the card; a claim whose kernel refuses the arguments
 (``cudaex.refusal``) raises that reason here, at compile time, instead of
-decomposing. The reference's region annotations and its claims'
-cost-model gate (``ImplInfo.profitable``, which weighs a claim against
-leaving the op in a fusion region) are not ported: the gate waits for
-reductions in regions (ROADMAP A.7.4).
+decomposing. A legal claim whose ``ImplInfo.profitable`` says no (the
+cost-model gate, ``core/cost_model.claim_worthwhile``: a memory-bound
+claim that moves too few bytes to beat the region its decomposition forms)
+is turned down after its checker passed, as the reference's
+``claim_bsym`` does (:82-104, after its quarantine and checker, before its
+fuel); a gate that raises turns the claim down too (fails closed). Each
+claim turned down is counted (:func:`gate_rejections`), a decision log or
+not. The composite then decomposes, and its prims go to the regions. The
+reference's region annotations are not ported.
 """
 
 from __future__ import annotations
+
+from collections import Counter
 
 from thunder_tpu_torch.core.baseutils import check
 from thunder_tpu_torch.core.prims import PrimIDs
@@ -58,6 +65,20 @@ def claim_bsym(bsym: BoundSymbol, executors) -> list[BoundSymbol]:
             if log:
                 _decisions.record("claim", bsym.sym.name, ex.name, "rejected",
                                   "checker refused (device, shape or dtype)")
+            continue
+        if impl.profitable is not None and not profitable(impl, bsym):
+            if log:
+                from thunder_tpu_torch.core import cost_model
+
+                # the numbers of a gate that raised must not raise again here
+                try:
+                    flops, nbytes = cost_model.bsym_cost(bsym)
+                    cost = {"flops": flops, "bytes": nbytes,
+                            "min_claim_bytes": cost_model.MIN_CLAIM_BYTES}
+                except Exception:
+                    cost = None
+                _decisions.record("claim", bsym.sym.name, ex.name, "rejected",
+                                  "cost model: claim loses to region fusion", cost=cost)
             continue
         reason = impl.refusal(*bsym.args, **bsym.kwargs) if impl.refusal is not None else None
         check(reason is None,
@@ -97,6 +118,32 @@ def claim_bsym(bsym: BoundSymbol, executors) -> list[BoundSymbol]:
     for sub in bsym.subsymbols:
         out.extend(claim_bsym(sub, executors))
     return out
+
+
+# every claim the gate turned down in this process, whether or not a
+# decision log was kept: (op name, "cost model" or "raised") -> count
+GATE_REJECTIONS: Counter = Counter()
+
+
+def gate_rejections() -> dict:
+    """The claims the cost-model gate turned down in this process, by op
+    name and why (``"cost model"``: it said no; ``"raised"``: it raised and
+    failed closed)."""
+    return dict(GATE_REJECTIONS)
+
+
+def profitable(impl, bsym: BoundSymbol) -> bool:
+    """The claim's cost-model gate; one that raises says no (fails closed:
+    a broken cost model must not take every claim). Every no is counted in
+    :data:`GATE_REJECTIONS`, so a run can hold the claims its path lost."""
+    try:
+        ok = bool(impl.profitable(bsym))
+        why = "cost model"
+    except Exception:
+        ok, why = False, "raised"
+    if not ok:
+        GATE_REJECTIONS[(bsym.sym.name, why)] += 1
+    return ok
 
 
 def transform_for_execution(trc: TraceCtx, executors) -> TraceCtx:

@@ -1,55 +1,82 @@
-"""The region executor: elementwise regions of a program as generated kernels.
+"""The region executor: regions of a program as generated kernels.
 
 The counterpart of ``thunder_tpu/executors/xla.py`` (``XLAFusionExecutor``
-:77), which hands each fused region to ``jax.jit`` and lets XLA fuse it.
-Here the ``region`` fusion executor groups the unclaimed elementwise prims
-of an execution trace (every prim tagged ``ELEMENTWISE_OP``, plus
-``broadcast_in_dim`` and ``convert_element_type``; never a reduction, a
-view of another kind, a host-sync op or anything another executor claimed)
-with the reference's dataflow partitioner
+:77), which hands each fused region to ``jax.jit`` and lets XLA fuse it,
+reductions included (its ``can_fuse`` :84-99 takes any prim with an eager
+implementation). Here the ``region`` fusion executor groups the unclaimed
+prims of an execution trace that it can generate (every prim tagged
+``ELEMENTWISE_OP``, ``broadcast_in_dim``, ``convert_element_type``,
+``sum``/``amax``/``amin``/``argmax``/``argmin`` over the trailing dims of
+their input, and the ``reshape``/``squeeze`` views that only add or drop 1s,
+as ``keepdim`` does; never a reduction over a leading or middle dim, a
+``prod`` or ``cumsum``, a view of another kind, a host-sync op or anything
+another executor claimed) with the reference's dataflow partitioner
 (:mod:`~thunder_tpu_torch.executors.data_dependent_partition`), splits each
-group by its members' output shape (one iteration space a region), and
+group into row spaces and output shapes (:func:`split_row_spaces`), and
 binds each part of at least ``region_min_region_size`` members as one
 symbol ``region.fusion<i>``, its members kept as subsymbols.
+
+A region is one row space ``(S, r)``: S its iteration shape, r how many of
+S's trailing dims its reductions reduce. Its members are the elementwise,
+broadcast and convert members of shape S, the reductions of S over its last
+r dims, the per-row members of the kept shape (S without its last r dims,
+with or without 1s) that read a reduction's result or that only the row
+space reads, and the broadcasts of per-row values back to S. A region of
+one output shape without reductions is the r = 0 case.
 
 A region's callable (:class:`Region`) runs its plain version for tensors on
 the CPU: the members' torch implementations in order (the reference's
 ``run_bsyms``). For tensors on the card it launches one kernel generated
-from its members as CUDA C++ for ``sm_90a`` (:func:`region_source`),
-compiled by ``nvcc`` and bound with ``ctypes`` as the hand-written kernels
-of :mod:`~thunder_tpu_torch.executors.cudaex` are, or raises. It replaces no
+from its members as CUDA C++ for ``sm_90a`` (:func:`region_source`, or
+:func:`reduce_source` for a region with reductions), compiled by ``nvcc``
+and bound with ``ctypes`` as the hand-written kernels of
+:mod:`~thunder_tpu_torch.executors.cudaex` are, or raises. It replaces no
 Pallas kernel: it stands for the XLA fusions the reference's regions
 become. It is bound by bytes (each input read once, each output written
-once); the design is one pass over the region's iteration space, every
-intermediate kept in registers.
+once). An elementwise region is one pass over its iteration space, every
+intermediate kept in registers. A region with reductions is one CTA a row
+of S (grid-striding over the rows): a pass over the row for each reduction
+level (a reduction whose input depends on an earlier reduction's result is
+a level deeper), then the per-row members of that level, broadcast to the
+CTA, and a last pass for the outputs of S that follow the last level; each
+pass recomputes from the inputs the members of S it needs, so nothing of
+shape S but the region's outputs is written. The block reductions combine
+in a fixed order (``csrc/region.cuh``), so two launches on the same inputs
+agree bit for bit.
 
-Numerics: the region equals its plain chain. Each op computes as torch's
-CUDA kernel does: 16-bit values in float32 (opmath), each member's result
-rounded to the dtype the trace gives it (``__float2bfloat16_rn`` /
-``__float2half_rn``); no FMA contraction (``--fmad=false``); constants as
-exact hex literals, converted as torch converts a Python scalar (to the
-compute type); the device math functions torch calls (``expf``, ``logf``,
-``rsqrtf``, ``sinf``, ``cosf``; no fast math); ``t / c`` as torch computes
-it, ``t * (1 / c)``, and ``c / t`` as ``reciprocal(t) * c``. Bool and
-integer members keep their dtypes.
+Numerics: the region equals its plain chain, but for the order of a sum's
+terms. Each op computes as torch's CUDA kernel does: 16-bit values in
+float32 (opmath), each member's result rounded to the dtype the trace gives
+it (``__float2bfloat16_rn`` / ``__float2half_rn``); no FMA contraction
+(``--fmad=false``); constants as exact hex literals, converted as torch
+converts a Python scalar (to the compute type); the device math functions
+torch calls (``expf``, ``logf``, ``rsqrtf``, ``sinf``, ``cosf``; no fast
+math); ``t / c`` as torch computes it, ``t * (1 / c)``, and ``c / t`` as
+``reciprocal(t) * c``; integer ``floor_divide`` by a constant rounded toward
+minus infinity. Bool and integer members keep their dtypes. A ``sum``
+accumulates as torch's does (float32 for the 16-bit floats and float32,
+rounded once to its dtype; float64; int64 for bools and integers), in
+another order than torch's kernel; ``amax``/``amin`` propagate NaN;
+``argmax``/``argmin`` take the lowest index among equal extremes, a NaN
+counting as the extreme.
 
 Source and build: a region's source depends only on its ops, constants,
 dtypes and rank; sizes and each input's strides (its torch strides,
 composed with a member's broadcast: stride 0 on a broadcast dim) are
 launch arguments, so one source serves every shape. The first launch of
 any region of a program compiles every region of that program not built
-yet in one ``nvcc`` call, into ``thunder_tpu_torch/_build/`` under a hash
-of the source; a library already there is loaded without ``nvcc``
-(:func:`build_regions`, :func:`nvcc_seconds`). A region whose source does
-not build raises ``KernelBuildError`` naming it at its first launch (its
-log in ``cudaex.build_failures()``, where :data:`KERNEL` is registered);
-nothing runs the plain chain on the card in its place.
+yet, by one ``nvcc`` into one library in ``thunder_tpu_torch/_build/``
+under a hash of its source; a library already there is loaded without
+``nvcc`` (:func:`build_regions`, :func:`nvcc_seconds`). A region whose source does not build raises
+``KernelBuildError`` naming it at its first launch (its log in
+``cudaex.build_failures()``, where :data:`KERNEL` is registered); nothing
+runs the plain chain on the card in its place.
 
 Launches: each one counts under the ``region`` entry of
-``cudaex.launch_counts()`` (design ``contiguous`` or ``strided``), on
-``torch.cuda.current_stream()``; its arguments follow from shapes and
-strides, so a CUDA graph captures it (``cudagraphex``). 64-bit indices
-where the iteration space or an offset passes 2^31 - 1.
+``cudaex.launch_counts()`` (design ``contiguous``, ``strided`` or
+``reduce``), on ``torch.cuda.current_stream()``; its arguments follow from
+shapes and strides, so a CUDA graph captures it (``cudagraphex``). 64-bit
+indices where the iteration space or an offset passes 2^31 - 1.
 
 The reference's ``xla_absorb_claimed`` is not ported: a hand-written
 kernel cannot run inside a generated one (ROADMAP C).
@@ -62,6 +89,7 @@ import functools
 import hashlib
 import math
 import os
+import re
 import subprocess
 import threading
 import time
@@ -94,6 +122,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "
               "-shared", "-Xcompiler", "-fPIC")
 THREADS = 256
 BLOCKS_PER_SM = 8
+# a region with row reductions: at most this many threads a CTA, and rows
+# that do not fill the card split across clusters of up to MAX_CLUSTER CTAs
+# (the portable cluster size), each taking at least CLUSTER_MIN_PART of its row
+ROW_THREADS = 1024
+MAX_CLUSTER = 8
+CLUSTER_MIN_PART = 2048
 # kernel parameters past this many bytes (pointers, sizes, strides) split
 # nothing: such a group stays unfused
 MAX_PARAM_BYTES = 4000
@@ -234,8 +268,61 @@ def _dtype_of(x):
     return x.dtype if isinstance(x, TensorProxy) else type(x)
 
 
+_REDUCTIONS = (PrimIDs.SUM, PrimIDs.AMAX, PrimIDs.AMIN, PrimIDs.ARGMAX, PrimIDs.ARGMIN)
+# the dtypes amax, amin, argmax and argmin take in a region (each shuffled
+# as itself between a warp's lanes)
+_EXTREME_DTYPES = ("float32", "bfloat16", "float16", "float64", "int32", "int64")
+# the longest row a region reduces: one CTA reads the whole row
+MAX_ROW = 1 << 20
+
+
+def _reduced_dims(b: BoundSymbol) -> tuple | None:
+    """The dims the reduction ``b`` reduces (sorted), None for any other
+    member."""
+    if b.sym.id not in _REDUCTIONS or not b.args or not isinstance(b.args[0], TensorProxy):
+        return None
+    nd = b.args[0].ndim
+    if b.sym.id in (PrimIDs.ARGMAX, PrimIDs.ARGMIN):
+        dim = b.args[1] if len(b.args) > 1 else None
+        if dim is None:
+            return tuple(range(nd))
+        return (dim % nd,) if nd else None
+    return tuple(sorted(d % nd for d in b.args[1])) if nd else None
+
+
+def trailing_r(b: BoundSymbol) -> int | None:
+    """How many trailing dims the reduction ``b`` reduces, where it reduces
+    trailing dims only (1 or more, over more than one element and at most
+    :data:`MAX_ROW`); None for any other member or reduction."""
+    dims = _reduced_dims(b)
+    if not dims:
+        return None
+    a = b.args[0]
+    r = len(dims)
+    if dims != tuple(range(a.ndim - r, a.ndim)):
+        return None
+    n = math.prod(a.shape[a.ndim - r:])
+    return r if 1 < n <= MAX_ROW else None
+
+
+def is_unit_view(b: BoundSymbol) -> bool:
+    """Is ``b`` a ``reshape`` or ``squeeze`` that only adds or drops dims of
+    size 1 (``keepdim``'s view of a reduction's result)?"""
+    if b.sym.id not in (PrimIDs.RESHAPE, PrimIDs.SQUEEZE) or not b.args:
+        return False
+    a, outs = b.args[0], b.flat_proxy_outs()
+    if not isinstance(a, TensorProxy) or len(outs) != 1:
+        return False
+    return _non_unit(a.shape) == _non_unit(outs[0].shape)
+
+
+def _non_unit(shape) -> list:
+    return [s for s in shape if s != 1]
+
+
 def _supported(b: BoundSymbol) -> bool:
-    """Can :func:`region_source` generate the member ``b`` exactly?"""
+    """Can :func:`region_source` or :func:`reduce_source` generate the
+    member ``b`` exactly?"""
     pid, args = b.sym.id, b.args
     outs = b.flat_proxy_outs()
     if len(outs) != 1 or not isinstance(outs[0], TensorProxy) or b.kwargs:
@@ -248,6 +335,14 @@ def _supported(b: BoundSymbol) -> bool:
         return False
     if pid in (PrimIDs.BROADCAST_IN_DIM, PrimIDs.CONVERT_ELEMENT_TYPE):
         return True
+    if pid in _REDUCTIONS:
+        if trailing_r(b) is None:
+            return False
+        if pid is PrimIDs.SUM:
+            return True
+        return tensors[0].dtype.name in _EXTREME_DTYPES
+    if pid in (PrimIDs.RESHAPE, PrimIDs.SQUEEZE):
+        return is_unit_view(b)
     operands = args
     if not all(isinstance(a, TensorProxy) or _is_number(a) for a in operands):
         return False
@@ -276,6 +371,12 @@ def _supported(b: BoundSymbol) -> bool:
                 and all(_dtype_of(a) in (float, out.dtype) for a in operands))
     if pid is PrimIDs.WHERE:
         return isinstance(operands[0], TensorProxy) and operands[0].dtype.is_bool
+    if pid is PrimIDs.FLOOR_DIV:
+        # integers by a nonzero integer constant (torch's floor_divide)
+        c = operands[1]
+        return (out.dtype.is_exact and not out.dtype.is_bool
+                and isinstance(operands[0], TensorProxy) and operands[0].dtype == out.dtype
+                and isinstance(c, int) and not isinstance(c, bool) and c != 0)
     return False
 
 
@@ -349,6 +450,8 @@ def _member_expr(b: BoundSymbol, val) -> str:
     if pid is PrimIDs.WHERE:
         p, a, c = args
         return _round(f"(({val(p, None)}) ? ({val(a, dt)}) : ({val(c, dt)}))", dt)
+    if pid is PrimIDs.FLOOR_DIV:
+        return f"ttr::floor_div<{ct}>(({val(args[0], dt)}), {_literal(args[1], dt)})"
     raise AssertionError(f"region: no code for {b.sym.name}")
 
 
@@ -361,12 +464,19 @@ class RegionSpec:
     input (a member's broadcast reads its input through its own strides),
     ``source`` the generated CUDA C++, ``entry`` its C entry point (named by
     a hash of the source), ``transcendental`` whether a member's device
-    function may differ from the chain's in the last place."""
+    function may differ from the chain's in the last place. A region with
+    row reductions (:func:`reduce_source`) has ``rows`` set: ``(S, r)``,
+    its row space (the members' iteration shape and how many of its trailing
+    dims they reduce); its ``loads`` are then ``(input index, "S" or "K",
+    iteration shape, broadcast dims or None)``: a read at each element of
+    ``S`` or once a row."""
 
     loads: list
     source: str
     entry: str
     transcendental: bool
+    rows: tuple | None = None
+    param_bytes: int = 0
 
 
 def region_source(members: list[BoundSymbol], inputs: list[Proxy],
@@ -456,12 +566,306 @@ def region_source(members: list[BoundSymbol], inputs: list[Proxy],
     return RegionSpec(loads, src, entry, any(b.sym.id in TRANSCENDENTAL for b in members))
 
 
+def row_roles(members: list[BoundSymbol]) -> tuple[tuple, int, dict] | None:
+    """The row space ``(S, r)`` of a region's members and each member's
+    role (``"S"``: of shape S; ``"red"``: a reduction of S over its last r
+    dims; ``"K"``: a per-row value, of the kept shape with or without its
+    1s); None for a region without reductions."""
+    reds = [b for b in members if b.sym.id in _REDUCTIONS]
+    if not reds:
+        return None
+    S = tuple(reds[0].args[0].shape)
+    r = trailing_r(reds[0])
+    roles = {}
+    for b in members:
+        if b.sym.id in _REDUCTIONS:
+            roles[id(b)] = "red"
+        else:
+            roles[id(b)] = "S" if tuple(b.flat_proxy_outs()[0].shape) == S else "K"
+    return S, r, roles
+
+
+_VAR = re.compile(r"\b[vlk]\d+\b")
+
+
+def _acc_type(dt: dtypes.dtype) -> str:
+    """The accumulator of a sum of ``dt`` (torch's: float32 for the 16-bit
+    floats and float32, float64 for float64, int64 for bools and integers)."""
+    if dt.is_exact:
+        return "long long"
+    return "double" if dt.name == "float64" else "float"
+
+
+def reduce_source(members: list[BoundSymbol], inputs: list[Proxy],
+                  outputs: list[TensorProxy]) -> RegionSpec:
+    """Generate the kernel of a region with row reductions: one CTA a row
+    of its row space ``(S, r)`` (:func:`row_roles`), a pass over the row
+    for each reduction level (a reduction reads members of S computed from
+    per-row values of earlier levels), the per-row members after each
+    level, and a last pass for the outputs of S that follow the last level.
+    Each pass recomputes the members of S it needs from the inputs; nothing
+    of shape S but the outputs is written."""
+    S, r, roles = row_roles(members)
+    K = S[:len(S) - r]
+    in_index = {p.name: i for i, p in enumerate(inputs)}
+    loads: list[tuple] = []
+    load_of: dict[tuple, int] = {}
+    var: dict[str, str] = {}           # proxy name -> variable holding it
+    depth: dict[str, int] = {}         # proxy name -> reduction level it needs
+    s_lines: list[tuple[int, str]] = []   # the per-element body, (level, line)
+    k_lines: list[tuple[int, str]] = []   # the per-row statements, (level, line)
+    reds: list[tuple] = []             # (level, member index, member, operand)
+
+    def load(p: TensorProxy, mode: str, shape, bdims) -> str:
+        key = (in_index[p.name], mode, tuple(shape), None if bdims is None else tuple(bdims))
+        if key not in load_of:
+            load_of[key] = len(loads)
+            loads.append(key)
+            k = load_of[key]
+            # a read of S: the row's base offset (computed once a row) plus
+            # the column's; a per-row read: its offset from the row
+            at = f"(a.dense[{k}] ? i : rb{k} + offc@(a, {k}, col))" if mode == "S" \
+                else f"off@(a, {k}, row)"
+            ref = f"(({_CTYPES[p.dtype.name][0]}*)a.p[{key[0]}])[{at}]"
+            (s_lines if mode == "S" else k_lines).append(
+                (0, f"const {_ct(p.dtype)} l{k} = {_load(ref, p.dtype)};"))
+        return f"l{load_of[key]}"
+
+    def valf(mode: str):
+        def val(a, dt) -> str:
+            if _is_number(a):
+                return _literal(a, dt)
+            if a.name in var:
+                src = var[a.name]
+            else:
+                src = load(a, mode, S if mode == "S" else a.shape, None)
+            if dt is None:
+                return src
+            return _convert(src, a.dtype, dt) if a.dtype != dt else src
+        return val
+
+    for j, b in enumerate(members):
+        out = b.flat_proxy_outs()[0]
+        role = roles[id(b)]
+        level = max((depth.get(p.name, 0) for p in b.flat_proxy_args()), default=0)
+        if role == "red":
+            x = b.args[0]
+            xv = var[x.name] if x.name in var else load(x, "S", S, None)
+            reds.append((level + 1, j, b, xv))
+            depth[out.name] = level + 1
+            var[out.name] = f"k{j}"
+            continue
+        depth[out.name] = level
+        pid = b.sym.id
+        a0 = b.args[0]
+        if pid is PrimIDs.BROADCAST_IN_DIM and a0.name not in var:
+            expr = load(a0, role, S if role == "S" else out.shape, b.args[2])
+        elif pid in (PrimIDs.RESHAPE, PrimIDs.SQUEEZE):
+            # a unit view: the same value a row
+            expr = var[a0.name] if a0.name in var else load(a0, "K", a0.shape, None)
+        else:
+            expr = _member_expr(b, valf(role))
+        name = f"v{j}" if role == "S" else f"k{j}"
+        (s_lines if role == "S" else k_lines).append(
+            (level, f"const {_ct(out.dtype)} {name} = {expr};"))
+        var[out.name] = name
+    levels = max(lv for lv, *_ in reds)
+    ni = len(inputs)
+    s_out, k_out = {}, []
+    for k, o in enumerate(outputs):
+        store = f"(({_CTYPES[o.dtype.name][0]}*)a.p[{ni + k}])"
+        if tuple(o.shape) == S and var[o.name].startswith("v"):
+            at = max(depth[o.name] + 1, 1)
+            s_out.setdefault(at, []).append(f"      {store}[i] = {_store(var[o.name], o.dtype)};")
+        else:
+            k_out.append(f"      {store}[row] = {_store(var[o.name], o.dtype)};")
+    passes = max([levels, *s_out])
+    nl, rr = max(len(loads), 1), max([len(sh) for _, _, sh, _ in loads] + [1])
+    body = ["  for (I row = static_cast<I>(blockIdx.x) / C; row < rows;",
+            "       row += static_cast<I>(gridDim.x) / C) {"]
+    body += [f"    const I rb{k} = offr@(a, {k}, row);"
+             for k, (_, mode, _, _) in enumerate(loads) if mode == "S"]
+    body += [f"    {line}" for lv, line in k_lines if lv == 0]
+    for p in range(1, passes + 1):
+        here = [rd for rd in reds if rd[0] == p]
+        for _, j, b, _ in here:
+            x = b.args[0]
+            if b.sym.id is PrimIDs.SUM:
+                body.append(f"    {_acc_type(x.dtype)} acc{j} = 0;")
+            elif b.sym.id in (PrimIDs.AMAX, PrimIDs.AMIN):
+                body.append(f"    {_ct(x.dtype)} acc{j} = ttr::"
+                            f"{'lowest' if b.sym.id is PrimIDs.AMAX else 'highest'}"
+                            f"<{_ct(x.dtype)}>();")
+            else:
+                body.append(f"    {_ct(x.dtype)} av{j} = 0; long long ai{j} = -1;")
+        # unrolled, so that a thread has several loads of its row in flight
+        body += ["#pragma unroll 4",
+                 "    for (I col = c0 + static_cast<I>(threadIdx.x); col < c1; col += blockDim.x) {",
+                 "      const I i = row * R + col;"]
+        # the members of S this pass reads: what its reductions and stores need
+        need = set()
+        for _, j, b, xv in here:
+            need.add(xv)
+        for line in s_out.get(p, []):
+            need.update(_VAR.findall(line.split("=", 1)[1]))
+        keep = []
+        for lv, line in reversed([(lv, line) for lv, line in s_lines if lv <= p - 1]):
+            name, expr = line.split(" = ", 1)
+            if name.rsplit(" ", 1)[1] in need:
+                keep.append(line)
+                need.update(_VAR.findall(expr))
+        body += [f"      {line}" for line in reversed(keep)]
+        for _, j, b, xv in here:
+            x = b.args[0]
+            if b.sym.id is PrimIDs.SUM:
+                body.append(f"      acc{j} += static_cast<{_acc_type(x.dtype)}>({xv});")
+            elif b.sym.id in (PrimIDs.AMAX, PrimIDs.AMIN):
+                op = "MaxNan" if b.sym.id is PrimIDs.AMAX else "MinNan"
+                body.append(f"      acc{j} = ttr::{op}()(acc{j}, {xv});")
+            else:
+                mx = "true" if b.sym.id is PrimIDs.ARGMAX else "false"
+                body.append(f"      ttr::arg_step<{mx}>(av{j}, ai{j}, {xv}, "
+                            f"static_cast<long long>(col));")
+        body += s_out.get(p, [])
+        body.append("    }")
+        for _, j, b, _ in here:
+            x, out = b.args[0], b.flat_proxy_outs()[0]
+            if b.sym.id is PrimIDs.ARGMAX or b.sym.id is PrimIDs.ARGMIN:
+                mx = "true" if b.sym.id is PrimIDs.ARGMAX else "false"
+                ct = _ct(x.dtype)
+                body += [f"    ttr::block_arg<{mx}>(av{j}, ai{j}, smem);",
+                         f"    const long long k{j} = C > 1 ? ttr::cluster_arg<{mx}>(av{j}, "
+                         f"ai{j}, ({ct}*)cslot, (long long*)(cslot + 8)) : ai{j};"]
+                continue
+            if b.sym.id is PrimIDs.SUM:
+                at, op, ident = _acc_type(x.dtype), "ttr::Sum()", f"({_acc_type(x.dtype)})0"
+            else:
+                mx = b.sym.id is PrimIDs.AMAX
+                at, op = _ct(x.dtype), f"ttr::{'MaxNan' if mx else 'MinNan'}()"
+                ident = f"ttr::{'lowest' if mx else 'highest'}<{at}>()"
+            body += [f"    {at} t{j} = ttr::block_reduce<{at}>(acc{j}, {op}, {ident}, smem);",
+                     f"    if (C > 1) t{j} = ttr::cluster_reduce<{at}>(t{j}, {op}, ({at}*)cslot);"]
+            total = f"t{j}" if b.sym.id is not PrimIDs.SUM else _round(f"t{j}", out.dtype)
+            body.append(f"    const {_ct(out.dtype)} k{j} = {total};")
+        body += [f"    {line}" for lv, line in k_lines if lv == p]
+    if k_out:
+        body += ["    if (threadIdx.x == 0 && rank == 0) {", *k_out, "    }"]
+    body.append("  }")
+    # a read of S: its row dims are the leading rr - r of its padded shape
+    cols = ([f"  return col * static_cast<I>(a.stride[k][{rr - 1}]);"] if r == 1 else
+            ["  I o = 0;",
+             f"  for (int d = {rr - 1}; d >= {rr - r}; --d) {{",
+             "    const I sz = static_cast<I>(a.size[k][d]);",
+             "    o += (col % sz) * static_cast<I>(a.stride[k][d]);",
+             "    col /= sz;",
+             "  }",
+             "  return o;"])
+    summary = ", ".join(b.sym.name for b in members)
+    src = "\n".join([
+        f"// region: {summary} -> {', '.join(o.dtype.name for o in outputs)}, "
+        f"rows of rank {len(K)} reducing {r}",
+        "namespace {",
+        "struct Args@ {",
+        f"  void* p[{ni + len(outputs)}];",
+        f"  long long size[{nl}][{rr}];",
+        f"  long long stride[{nl}][{rr}];",
+        f"  int dense[{nl}];",
+        "  long long rows;",
+        "  long long R;",
+        "  int cluster;",
+        "};",
+        "template <typename I>",
+        "__device__ __forceinline__ I off@(const Args@& a, int k, I i) {",
+        "  if (a.dense[k]) return i;",
+        "  I o = 0;",
+        f"  for (int d = {rr - 1}; d >= 0; --d) {{",
+        "    const I sz = static_cast<I>(a.size[k][d]);",
+        "    o += (i % sz) * static_cast<I>(a.stride[k][d]);",
+        "    i /= sz;",
+        "  }",
+        "  return o;",
+        "}",
+        "template <typename I>",
+        "__device__ __forceinline__ I offr@(const Args@& a, int k, I row) {",
+        "  if (a.dense[k]) return row * static_cast<I>(a.R);",
+        "  I o = 0;",
+        f"  for (int d = {rr - r - 1}; d >= 0; --d) {{",
+        "    const I sz = static_cast<I>(a.size[k][d]);",
+        "    o += (row % sz) * static_cast<I>(a.stride[k][d]);",
+        "    row /= sz;",
+        "  }",
+        "  return o;",
+        "}",
+        "template <typename I>",
+        "__device__ __forceinline__ I offc@(const Args@& a, int k, I col) {",
+        *cols,
+        "}",
+        "template <typename I>",
+        f"__global__ void __launch_bounds__({ROW_THREADS}) tt_region_kernel@(const Args@ a) {{",
+        "  __shared__ __align__(16) unsigned char smem[32 * 16];",
+        "  __shared__ __align__(16) unsigned char cslot[16];",
+        "  const I rows = static_cast<I>(a.rows);",
+        "  const I R = static_cast<I>(a.R);",
+        "  const int C = a.cluster;",
+        "  const unsigned rank = C > 1 ? cooperative_groups::this_cluster().block_rank() : 0u;",
+        "  const I chunk = (R + C - 1) / C;",
+        "  const I c0 = static_cast<I>(rank) * chunk;",
+        "  const I c1 = c0 + chunk < R ? c0 + chunk : R;",
+        *body,
+        "}",
+        "}  // namespace",
+        'extern "C" int @entry(void* const* ptrs, const long long* meta, int idx64, int blocks,',
+        "                      void* stream) {",
+        "  Args@ a;",
+        f"  for (int k = 0; k < {ni + len(outputs)}; ++k) a.p[k] = ptrs[k];",
+        "  a.rows = meta[0];",
+        "  a.R = meta[1];",
+        "  const int threads = static_cast<int>(meta[2]);",
+        "  a.cluster = static_cast<int>(meta[3]);",
+        f"  for (int k = 0; k < {len(loads)}; ++k) {{",
+        f"    a.dense[k] = static_cast<int>(meta[4 + k * {2 * rr + 1}]);",
+        f"    for (int d = 0; d < {rr}; ++d) {{",
+        f"      a.size[k][d] = meta[5 + k * {2 * rr + 1} + d];",
+        f"      a.stride[k][d] = meta[5 + k * {2 * rr + 1} + {rr} + d];",
+        "    }",
+        "  }",
+        "  auto s = static_cast<cudaStream_t>(stream);",
+        "  if (a.cluster > 1) {",
+        "    cudaLaunchConfig_t cfg = {};",
+        "    cfg.gridDim = dim3(blocks);",
+        "    cfg.blockDim = dim3(threads);",
+        "    cfg.stream = s;",
+        "    cudaLaunchAttribute attr[1];",
+        "    attr[0].id = cudaLaunchAttributeClusterDimension;",
+        "    attr[0].val.clusterDim.x = a.cluster;",
+        "    attr[0].val.clusterDim.y = 1;",
+        "    attr[0].val.clusterDim.z = 1;",
+        "    cfg.attrs = attr;",
+        "    cfg.numAttrs = 1;",
+        "    const cudaError_t e = idx64 ? cudaLaunchKernelEx(&cfg, tt_region_kernel@<long long>, a)",
+        "                                : cudaLaunchKernelEx(&cfg, tt_region_kernel@<int>, a);",
+        "    return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());",
+        "  }",
+        "  if (idx64) tt_region_kernel@<long long><<<blocks, threads, 0, s>>>(a);",
+        "  else tt_region_kernel@<int><<<blocks, threads, 0, s>>>(a);",
+        "  return static_cast<int>(cudaGetLastError());",
+        "}",
+    ])
+    digest = hashlib.sha256(src.encode()).hexdigest()[:16]
+    entry = f"tt_region_{digest}"
+    src = src.replace("@entry", entry).replace("@", f"_{digest}")
+    param_bytes = 8 * (ni + len(outputs)) + nl * (16 * rr + 4) + 24
+    return RegionSpec(loads, src, entry, any(b.sym.id in TRANSCENDENTAL for b in members),
+                      rows=(S, r), param_bytes=param_bytes)
+
+
 # -- build ----------------------------------------------------------------------
 
 _lock = threading.Lock()
 _bound: dict[str, object] = {}        # entry -> ctypes function
 _failures: dict[str, str] = {}        # entry -> nvcc log
 _nvcc_s = 0.0
+_nvcc_runs = 0
 
 
 # every region's generated kernel counts its launches under one entry,
@@ -478,6 +882,11 @@ def nvcc_seconds() -> float:
     return _nvcc_s
 
 
+def nvcc_runs() -> int:
+    """The ``nvcc`` processes this process started for regions."""
+    return _nvcc_runs
+
+
 def build_failures() -> dict[str, str]:
     """The generated region kernels that did not build, each with its log."""
     return dict(_failures)
@@ -485,11 +894,14 @@ def build_failures() -> dict[str, str]:
 
 def _library(src: str) -> Path:
     """The library of ``src``, named by a hash of it and the flags."""
-    key = hashlib.sha256((" ".join(NVCC_FLAGS) + src).encode()).hexdigest()[:16]
+    key = hashlib.sha256((" ".join(NVCC_FLAGS) + HEADER.read_text() + src).encode()
+                         ).hexdigest()[:16]
     return cudaex.BUILD_DIR / f"regions-{key}.so"
 
 
 def _run_nvcc(nvcc: str, src: str) -> tuple[Path, subprocess.Popen]:
+    global _nvcc_runs
+    _nvcc_runs += 1
     lib = _library(src)
     cu = lib.with_suffix(f".{os.getpid()}.cu")
     cu.write_text(src)
@@ -582,8 +994,12 @@ class Region:
         self.input_names = [p.name for p in inputs]
         self.output_names = [p.name for p in outputs]
         self.outputs = outputs
-        self.shape = tuple(outputs[0].shape)
-        self.spec = region_source(members, inputs, outputs)
+        if any(b.sym.id in _REDUCTIONS for b in members):
+            self.spec = reduce_source(members, inputs, outputs)
+            self.shape = self.spec.rows[0]
+        else:
+            self.spec = region_source(members, inputs, outputs)
+            self.shape = tuple(outputs[0].shape)
         self.program = program
         # the names the plain chain lets go after each member: its last read
         # of a value, or the value's making where nothing reads it and it is
@@ -679,6 +1095,8 @@ def launch(region: Region, vals) -> tuple:
         raise KernelBuildError(f"{region.name}: its generated source did not build, so this "
                                f"region cannot launch:\n{_failures.get(spec.entry)}",
                                kernel="region")
+    if spec.rows is not None:
+        return _launch_rows(region, fn, vals, dev)
     shape = region.shape
     n = math.prod(shape)
     outs = [torch.empty(shape, dtype=o.dtype.torch, device=dev) for o in region.outputs]
@@ -701,11 +1119,91 @@ def launch(region: Region, vals) -> tuple:
     return tuple(outs)
 
 
+def _view_strides(t: torch.Tensor, shape: tuple) -> list[int]:
+    """``t``'s strides over ``shape``, which has ``t``'s dims of size above 1
+    in the same order (a view that adds or drops 1s): 0 on every dim of
+    size 1."""
+    own = [st for st, n in zip(t.stride(), t.shape) if n != 1]
+    out, k = [], 0
+    for n in shape:
+        if n == 1:
+            out.append(0)
+        else:
+            out.append(own[k])
+            k += 1
+    return out
+
+
+def row_launch(rows: int, R: int, sms: int) -> tuple[int, int, int]:
+    """``(cluster, threads, blocks)`` of a launch over ``rows`` rows of
+    ``R``: where the rows fill the card, one CTA a row of up to
+    :data:`THREADS` threads, 8 CTAs an SM grid-striding over the rows;
+    where they do not, each row split across a cluster of up to
+    :data:`MAX_CLUSTER` CTAs (a part of at least :data:`CLUSTER_MIN_PART`
+    elements each) of up to :data:`ROW_THREADS` threads."""
+    def fit(n, cap):
+        return min(cap, max(32, -(-n // 32) * 32))
+
+    if rows >= sms:
+        return 1, fit(R, THREADS), min(rows, sms * BLOCKS_PER_SM)
+    c = max(1, min(MAX_CLUSTER, sms // rows, R // CLUSTER_MIN_PART))
+    return c, fit(-(-R // c), ROW_THREADS), rows * c
+
+
+def sum_depth(rows: int, R: int, sms: int) -> int:
+    """The most roundings one summand goes through in a region's float sum
+    of a row of ``R`` (the order of the kernel :func:`row_launch` gives
+    ``rows`` rows on ``sms`` SMs): its thread's running sum over its
+    columns, the two shuffle trees of ``ttr::block_reduce`` (5 levels each)
+    and the cluster's partials in rank order. Such a sum is within
+    ``d u / (1 - d u) sum|x_i|`` of the exact sum (d this depth, u the
+    accumulator's unit roundoff)."""
+    cluster, threads, _ = row_launch(rows, R, sms)
+    return -(-(-(-R // cluster)) // threads) - 1 + 10 + cluster - 1
+
+
+def _launch_rows(region: Region, fn, vals, dev) -> tuple:
+    """One launch of a region with row reductions: one CTA a row of its row
+    space, grid-striding over the rows."""
+    spec = region.spec
+    S, r = spec.rows
+    rows, R = math.prod(S[:len(S) - r]), math.prod(S[len(S) - r:])
+    outs = [torch.empty(tuple(o.shape), dtype=o.dtype.torch, device=dev)
+            for o in region.outputs]
+    if rows == 0:
+        return tuple(outs)
+    rr = max([len(sh) for _, _, sh, _ in spec.loads] + [1])
+    cluster, threads, blocks = row_launch(rows, R, _sm_count(dev.index))
+    meta = [rows, R, threads, cluster]
+    reach = rows * R
+    for i, mode, shape, bdims in spec.loads:
+        t = vals[i]
+        if bdims is not None:
+            st = _strides(t, shape, bdims)
+        elif mode == "S":
+            st = _strides(t, shape, None)
+        else:
+            st = _view_strides(t, shape)
+        reach = max(reach, sum(abs(x) * (e - 1) for x, e in zip(st, shape)) + 1)
+        pad = rr - len(shape)
+        meta += [int(st == _contiguous_strides(shape)), *([1] * pad), *shape,
+                 *([0] * pad), *st]
+    ptrs = [v.data_ptr() if isinstance(v, torch.Tensor) else 0 for v in vals]
+    ptrs += [o.data_ptr() for o in outs]
+    rc = fn((ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_longlong * len(meta))(*meta),
+            int(reach > 2 ** 31 - 1), blocks, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise KernelLaunchError(f"{region.name}: kernel launch failed with CUDA error {rc}")
+    cudaex.count_launch("region", "reduce")
+    return tuple(outs)
+
+
 # -- the executor ---------------------------------------------------------------
 
 class RegionExecutor(FusionExecutor):
-    """Dataflow regions of unclaimed elementwise prims, each one generated
-    kernel on the card (the counterpart of ``XLAFusionExecutor``)."""
+    """Dataflow regions of unclaimed elementwise prims and row reductions,
+    each one generated kernel on the card (the counterpart of
+    ``XLAFusionExecutor``)."""
 
     def __init__(self, name: str = "region", min_region_size: int = 2):
         super().__init__(name)
@@ -717,8 +1215,9 @@ class RegionExecutor(FusionExecutor):
             return False
         if OpTags.DEVICE_SYNC_OP in sym.tags:
             return False
-        if (OpTags.ELEMENTWISE_OP not in sym.tags
-                and sym.id not in (PrimIDs.BROADCAST_IN_DIM, PrimIDs.CONVERT_ELEMENT_TYPE)):
+        if (OpTags.ELEMENTWISE_OP not in sym.tags and sym.id not in _REDUCTIONS
+                and sym.id not in (PrimIDs.BROADCAST_IN_DIM, PrimIDs.CONVERT_ELEMENT_TYPE,
+                                   PrimIDs.RESHAPE, PrimIDs.SQUEEZE)):
             return False
         from thunder_tpu_torch.executors.eagertorch import get_eager_impl
 
@@ -771,7 +1270,8 @@ class RegionExecutor(FusionExecutor):
 
     def _units(self, trc: TraceCtx, partitioner: str, fuel_ok: dict) -> list[list[BoundSymbol]]:
         """The program's bound symbols partitioned (``partitioner``), each
-        group split by output shape. The same program text partitions the
+        group split into row spaces and output shapes
+        (:func:`split_row_spaces`). The same program text partitions the
         same way, so a program compiled again (another engine's, a new
         guard key's) takes the last partition of its text (without fuel:
         fuel is spent a bound symbol)."""
@@ -798,7 +1298,7 @@ class RegionExecutor(FusionExecutor):
                 groups.append(current)
         units: list[list[BoundSymbol]] = []
         for g in groups:
-            units.extend(_split_by_shape(g) if len(g) > 1 else [g])
+            units.extend(split_row_spaces(g) if len(g) > 1 else [g])
         if key is not None:
             at = {id(b): i for i, b in enumerate(bsyms)}
             while len(_PARTITIONS) >= PARTITION_CACHE:
@@ -824,6 +1324,8 @@ class RegionExecutor(FusionExecutor):
             return None
         name = f"region.fusion{idx}"
         fn = Region(name, list(members), inputs, outputs, program)
+        if fn.spec.param_bytes > MAX_PARAM_BYTES:
+            return None
         program.append(fn)
         sym = Symbol(f"fusion{idx}", None, id=name, is_prim=True, executor=self, python_impl=fn)
         bsym = sym.bind(*inputs, output=tuple(outputs), subsymbols=list(members))
@@ -834,7 +1336,8 @@ class RegionExecutor(FusionExecutor):
             _decisions.record("fusion", name, self.name, "fused",
                               f"{len(members)} ops into one generated kernel",
                               cost={"ops": len(members), "boundary_bytes": nbytes,
-                                    "shape": list(outputs[0].shape)})
+                                    "shape": list(fn.shape),
+                                    "reduced_dims": fn.spec.rows[1] if fn.spec.rows else 0})
         notes = [b.header for b in members if b.header]
         if notes:
             bsym.header = "\n".join(notes)
@@ -845,29 +1348,137 @@ def _out_shape(b: BoundSymbol) -> tuple:
     return tuple(b.flat_proxy_outs()[0].shape)
 
 
-def _split_by_shape(group: list[BoundSymbol]) -> list[list[BoundSymbol]]:
-    """One part a members' output shape, in an order that keeps every
-    part's inputs produced before it (data crosses parts only into a
-    ``broadcast_in_dim``, from a smaller shape to a larger one, so the parts
-    form no cycle). A group whose parts would (none is known) stays as its
-    members, each alone."""
-    parts: dict[tuple, list[BoundSymbol]] = {}
-    for b in group:
-        parts.setdefault(_out_shape(b), []).append(b)
-    if len(parts) == 1:
-        return [group]
-    keys = list(parts)
-    made = {k: set().union(*(produced_vars(b) for b in parts[k])) for k in keys}
-    deps = {k: {j for j in keys if j != k and any(consumed_vars(b) & made[j] for b in parts[k])}
-            for k in keys}
+def _kept(shape, S: tuple, r: int) -> bool:
+    """Is ``shape`` a per-row shape of the row space ``(S, r)``: the kept
+    dims ``S[:-r]``, with or without 1s?"""
+    return _non_unit(shape) == _non_unit(S[:len(S) - r])
+
+
+def _reads_own_row(b: BoundSymbol, S: tuple, r: int) -> bool:
+    """Does the ``broadcast_in_dim`` ``b`` of a per-row value of ``(S, r)``
+    give each element (of S, or of its own per-row shape) its own row's
+    value?"""
+    src, shape, bdims = b.args[0].shape, tuple(b.args[1]), tuple(b.args[2])
+    kept = [(i, n) for i, n in enumerate(src) if n != 1]
+    if shape == S:
+        want = [d for d in range(len(S) - r) if S[d] != 1]
+    else:
+        want = [d for d, n in enumerate(shape) if n != 1]
+    return [bdims[i] for i, _ in kept] == want and all(shape[bdims[i]] == n for i, n in kept)
+
+
+def _order(units: list[list[BoundSymbol]]) -> list[list[BoundSymbol]] | None:
+    """``units`` in an order that makes every unit's inputs before it; None
+    where their dependencies form a cycle."""
+    made = [set().union(*(produced_vars(b) for b in u)) for u in units]
+    deps = [{j for j in range(len(units)) if j != k and any(consumed_vars(b) & made[j]
+                                                               for b in units[k])}
+            for k in range(len(units))]
     order, done = [], set()
-    while len(order) < len(keys):
-        ready = [k for k in keys if k not in done and deps[k] <= done]
+    while len(order) < len(units):
+        ready = [k for k in range(len(units)) if k not in done and deps[k] <= done]
         if not ready:
-            return [[b] for b in group]
+            return None
         order.append(ready[0])
         done.add(ready[0])
-    return [parts[k] for k in order]
+    return [units[k] for k in order]
+
+
+def _plan(group: list[BoundSymbol], rows: bool, kept: bool) -> list[list[BoundSymbol]] | None:
+    """One partition of a group into regions' units. Without ``rows``, one
+    unit a members' output shape, every reduction and unit view alone. With
+    ``rows``, a row space ``(S, r)`` for each shape S that a member reduces
+    over its r trailing dims: its unit takes the members of shape S and
+    those reductions; with ``kept`` also the per-row members of its kept
+    shape that read a reduction's result (in program order) or that only
+    its row space reads (in reverse order), and the unit views between
+    them. None where the units' dependencies form a cycle."""
+    key: dict[int, tuple] = {}
+    space: dict[tuple, int] = {}
+    if rows:
+        for b in group:
+            if b.sym.id in _REDUCTIONS:
+                space.setdefault(tuple(b.args[0].shape), trailing_r(b))
+    for b in group:
+        if b.sym.id in _REDUCTIONS:
+            S = tuple(b.args[0].shape)
+            key[id(b)] = ("row", S) if space.get(S) == trailing_r(b) else ("one", id(b))
+        elif is_unit_view(b):
+            key[id(b)] = ("one", id(b))
+        elif _out_shape(b) in space:
+            key[id(b)] = ("row", _out_shape(b))
+        else:
+            key[id(b)] = ("shape", _out_shape(b))
+    produced = {p.name: b for b in group for p in b.flat_proxy_outs()}
+    per_row: dict[str, tuple] = {}      # a per-row value -> the S of its row space
+
+    def kept_ok(b, S) -> bool:
+        """May ``b`` join row space S as a per-row member: each operand it
+        reads there per row, and a broadcast its own row's value."""
+        if b.sym.id is PrimIDs.BROADCAST_IN_DIM and b.args[0].name in per_row:
+            return _reads_own_row(b, S, space[S])
+        return True
+
+    for b in group:
+        if b.sym.id in _REDUCTIONS and key[id(b)][0] == "row":
+            per_row[b.flat_proxy_outs()[0].name] = tuple(b.args[0].shape)
+        elif kept and key[id(b)][0] != "row" and b.sym.id not in _REDUCTIONS:
+            spaces = {per_row[p.name] for p in b.flat_proxy_args() if p.name in per_row}
+            S = next(iter(spaces)) if len(spaces) == 1 else None
+            if S is not None and _kept(_out_shape(b), S, space[S]) and kept_ok(b, S):
+                key[id(b)] = ("row", S)
+                per_row[b.flat_proxy_outs()[0].name] = S
+    if kept:
+        readers: dict[str, list] = {}
+        for b in group:
+            for p in b.flat_proxy_args():
+                readers.setdefault(p.name, []).append(b)
+        for b in reversed(group):
+            if key[id(b)][0] == "row" or b.sym.id in _REDUCTIONS:
+                continue
+            out = b.flat_proxy_outs()[0]
+            users = readers.get(out.name, [])
+            if not users or users[0].sym.id in _REDUCTIONS:
+                continue
+            S = key[id(users[0])][1]
+            if (key[id(users[0])][0] != "row" or any(key[id(u)] != ("row", S) for u in users)
+                    or not _kept(out.shape, S, space[S]) or not kept_ok(b, S)):
+                continue
+            # a broadcast of it to S must give each element its own row's value
+            if all(u.sym.id is not PrimIDs.BROADCAST_IN_DIM or _reads_own_row(u, S, space[S])
+                   for u in users if _out_shape(u) == S):
+                key[id(b)] = ("row", S)
+                per_row[out.name] = S
+    # a broadcast of S that reads a per-row value of its own row space must
+    # give each element its row's value; else it stays out
+    for b in group:
+        k = key[id(b)]
+        if (k[0] == "row" and b.sym.id is PrimIDs.BROADCAST_IN_DIM and _out_shape(b) == k[1]
+                and tuple(b.args[0].shape) != k[1] and b.args[0].name in produced
+                and key[id(produced[b.args[0].name])] == k
+                and not _reads_own_row(b, k[1], space[k[1]])):
+            key[id(b)] = ("one", id(b))
+    units: dict[tuple, list] = {}
+    for b in group:
+        units.setdefault(key[id(b)], []).append(b)
+    return _order(list(units.values()))
+
+
+def split_row_spaces(group: list[BoundSymbol]) -> list[list[BoundSymbol]]:
+    """A partitioner group as regions' units, in an order that keeps every
+    unit's inputs produced before it: each row space (its members of shape
+    S, its reductions of S's trailing dims, its per-row members; see
+    :func:`_plan`) one unit, every other member in one unit a output shape
+    (the elementwise regions), unit views and any other reduction alone.
+    Where a row space's per-row members would close a cycle through another
+    unit they stay out; where its reductions would, they stay out too; a
+    group that still forms a cycle (none is known) stays as its members,
+    each alone."""
+    for rows, kept in ((True, True), (True, False), (False, False)):
+        units = _plan(group, rows, kept)
+        if units is not None:
+            return units
+    return [[b] for b in group]
 
 
 ex = RegionExecutor()

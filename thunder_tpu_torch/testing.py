@@ -6,6 +6,8 @@ tests and ``chip_smoke.py``."""
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -266,18 +268,24 @@ def expanded_names(trc) -> list[str]:
     return [b.sym.name for b in expanded(trc)]
 
 
-def region_inputs(region, gen: torch.Generator, device, strided: bool = False) -> list:
+def region_inputs(region, gen: torch.Generator, device, strided: bool = False,
+                  integer: bool = False) -> list:
     """Random inputs for ``region`` on ``device``, made by ``gen`` on its
     own device: normal floats, integers in [-128, 128) (the loss's ignore
     index -100 among them), random bools; ``strided`` hands each input of
-    rank 1 or more as every other element of a tensor twice as wide."""
+    rank 1 or more as every other element of a tensor twice as wide;
+    ``integer`` makes the floats integers in [-4, 4], so that a sum of
+    them, or of their sums and products, is exact in any order
+    (:func:`sum_bound` 0)."""
     out = []
     for p in region.inputs:
         shape = tuple(p.shape)
         wide = shape[:-1] + (2 * shape[-1],) if strided and shape else shape
         dt = p.dtype.torch
         kw = {"generator": gen, "device": gen.device}
-        if dt.is_floating_point:
+        if dt.is_floating_point and integer:
+            t = torch.randint(-4, 5, wide, **kw).to(dt)
+        elif dt.is_floating_point:
             t = torch.randn(wide, dtype=torch.float32, **kw).to(dt)
         elif dt == torch.bool:
             t = torch.randint(0, 2, wide, **kw).bool()
@@ -288,13 +296,107 @@ def region_inputs(region, gen: torch.Generator, device, strided: bool = False) -
     return out
 
 
-def hold_region(region, vals) -> dict:
+SUM_UNIT = {torch.float64: 2.0 ** -53}   # the accumulator's unit roundoff (else 2**-24)
+H100_SMS = 132                           # the SMs a region's launch geometry assumes off the card
+
+
+def sum_bound(x: torch.Tensor, dims, depth: int | None = None) -> torch.Tensor:
+    """How far a float sum of ``x`` over ``dims`` may be from the exact
+    sum, in float64: ``d u / (1 - d u) sum|x_i|``, where every summand goes
+    through at most ``d`` roundings: ``depth`` (a region kernel's order,
+    ``regionex.sum_depth``), or n - 1 for any order of the n summands; u
+    the accumulator's unit roundoff (float32's for the 16-bit floats and
+    float32). 0 for integer values whose magnitudes add to less than
+    ``1 / u`` (every partial sum exact, in any order)."""
+    n = 1
+    for d in dims:
+        n *= x.shape[d]
+    u = SUM_UNIT.get(x.dtype, 2.0 ** -24)
+    du = (n - 1 if depth is None else depth) * u
+    xd = x.double()
+    total = torch.sum(xd.abs(), tuple(dims))
+    whole = torch.all(xd == torch.round(xd), dim=tuple(dims)) & (total < 1 / u)
+    return torch.where(whole, 0.0, du / (1 - du) * total)
+
+
+def region_sum_depth(region, vals, sms: int | None = None) -> int:
+    """:func:`regionex.sum_depth` of ``region``'s launch on ``vals``: on
+    the SMs of their card, or ``sms`` (:data:`H100_SMS` off the card)."""
+    from thunder_tpu_torch.executors.regionex import sum_depth
+
+    S, r = region.spec.rows
+    dev = next((v.device for v in vals if isinstance(v, torch.Tensor)), None)
+    if sms is None:
+        sms = (torch.cuda.get_device_properties(dev).multi_processor_count
+               if dev is not None and dev.type == "cuda" else H100_SMS)
+    return sum_depth(math.prod(S[:len(S) - r]), math.prod(S[len(S) - r:]), sms)
+
+
+def moved_chain(region, vals, sign: int, which: int, depth: int) -> tuple:
+    """``region``'s plain chain with its ``which``-th float sum (of its
+    members, in order) set to the exact sum (in float64) moved by ``sign``
+    times its :func:`sum_bound` at ``depth`` (the kernel's order) and that
+    float64 sum's own bound, then rounded to its dtype; every other member
+    as torch computes it: with ``sign`` +1 and -1 the chain at either end
+    of what the kernel's sum may be. Returns the outputs and whether that
+    sum has a bound above 0."""
+    from thunder_tpu_torch.core.prims import PrimIDs
+    from thunder_tpu_torch.core.symbol import run_bsyms
+
+    env = dict(zip(region.input_names, vals))
+    k, moved = 0, False
+    for b in region.members:
+        x = b.args[0]
+        if b.sym.id is PrimIDs.SUM and x.dtype.is_float:
+            if k == which:
+                t, dims = env[x.name], tuple(b.args[1])
+                exact = torch.sum(t.double(), dims)
+                bound = sum_bound(t, dims, depth) + sum_bound(t.double(), dims)
+                moved = bool((bound > 0).any())
+                s = exact + sign * bound
+                out = b.flat_proxy_outs()[0]
+                env[out.name] = s.reshape(tuple(out.shape)).to(out.dtype.torch)
+                k += 1
+                continue
+            k += 1
+        run_bsyms([b], env)
+    return tuple(env[n] for n in region.output_names), moved
+
+
+def _ulp_of(w: torch.Tensor) -> torch.Tensor:
+    """One unit in the last place of each float of ``w``, in float64."""
+    f = torch.finfo(w.dtype)
+    mag = w.double().abs().clamp(min=f.tiny)
+    return torch.exp2(torch.floor(torch.log2(mag))) * f.eps
+
+
+def hold_region(region, vals, sms: int | None = None) -> dict:
     """``region``'s kernel against its plain chain on the same inputs:
     ``ulp``, the largest distance of a float output in units of its dtype's
     last place (NaN where both are NaN counts 0), and ``bit_identical``
     (every output equal bit for bit, NaNs at the same places). A region
-    holding a transcendental op (``regionex.TRANSCENDENTAL``) is held within
-    1 ulp, any other bit for bit (``ok``)."""
+    without reductions holding a transcendental op (``regionex.TRANSCENDENTAL``)
+    is held within 1 ulp, any other bit for bit (``ok``).
+
+    A region with row reductions: ``amax``, ``amin``, ``argmax`` and
+    ``argmin`` bit for bit; each float ``sum`` may be off the exact sum by
+    its :func:`sum_bound` in the kernel's order (``regionex.sum_depth`` of
+    the launch on ``sms`` SMs, :func:`region_sum_depth`), so every output
+    is held to what that moves it by in the plain chain
+    (:func:`moved_chain`, each sum set to either end of its bound alone,
+    the others as torch computes them): a float within the sum over the
+    region's sums of the larger of its two distances from the chain's value
+    (the sums' errors are independent; moved together, two sums' moves can
+    cancel where their errors do not, as in a norm's backward), plus 1 ulp
+    of its dtype where the region holds a transcendental op (as an
+    elementwise region is held); an integer or bool equal to the chain's. Where a moved
+    chain changes an integer or bool output, that value turns on a
+    comparison the kernel's order may decide (a sampler's bisection):
+    ``unstable`` counts those elements, and ``ok`` holds them to 0 too, so
+    a check on inputs that sit that close to a decision fails rather than
+    passing unheld. ``sum_slack`` is the largest error over the allowance
+    (at most 1 where ``ok``); ``exact_sums`` counts the float sums whose
+    bound is 0 (integer summands: the kernel's sum must be exact)."""
     got = region(*vals)
     want = region.plain(*vals)
     ulp, same = 0, True
@@ -311,9 +413,46 @@ def hold_region(region, vals) -> dict:
         else:
             same = same and torch.equal(g, w)
             ulp = max(ulp, 0 if torch.equal(g, w) else 1 << 30)
-    ok = same or (region.spec.transcendental and ulp <= 1)
-    return {"ops": len(region.members), "transcendental": region.spec.transcendental,
-            "ulp": ulp, "bit_identical": same, "ok": ok}
+    out = {"ops": len(region.members), "transcendental": region.spec.transcendental,
+           "ulp": ulp, "bit_identical": same}
+    if region.spec.rows is None:
+        return dict(out, ok=same or (region.spec.transcendental and ulp <= 1))
+    depth = region_sum_depth(region, vals, sms)
+    n_sums = sum(1 for b in region.members if b.sym.name == "sum" and b.args[0].dtype.is_float)
+    moves, exact = [], 0
+    for j in range(n_sums):
+        for sign in (1, -1):
+            chain, moved = moved_chain(region, vals, sign, j, depth)
+            moves.append(chain)
+        exact += not moved
+    slack, ok, unstable = 0.0, True, 0
+    for k, (g, w) in enumerate(zip(got, want)):
+        if not g.numel():
+            continue
+        if g.dtype.is_floating_point:
+            both = torch.isnan(g) & torch.isnan(w)
+            allow = _ulp_of(torch.where(both, 0, w))
+            if not region.spec.transcendental:
+                allow = torch.zeros_like(allow)
+            wd = torch.where(both, 0, w).double()
+            for j in range(0, len(moves), 2):
+                a, b = (torch.where(both, 0, m[k]).double() for m in moves[j:j + 2])
+                allow = allow + torch.maximum((a - wd).abs(), (b - wd).abs()).nan_to_num(0.0)
+            gd = torch.where(both, 0, g).double()
+            err = torch.where(gd == wd, 0.0, (gd - wd).abs())
+            bad = torch.isnan(err) | (err > allow)
+            ok = ok and not bool(bad.any())
+            slack = max(slack, float((err / allow.clamp(min=1e-300)).nan_to_num(2.0).max()))
+        else:
+            loose = torch.zeros_like(w, dtype=torch.bool)
+            for m in moves:
+                loose |= m[k] != w
+            unstable += int(loose.sum())
+            hit = bool(torch.equal(g, w))
+            ok = ok and hit
+            slack = max(slack, 0.0 if hit else 2.0)
+    return dict(out, ok=ok and unstable == 0, sum_slack=slack, depth=depth, sums=n_sums,
+                exact_sums=exact, unstable=unstable)
 
 
 def jit_launches(jf, *args):
