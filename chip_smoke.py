@@ -467,10 +467,15 @@ call: a replay runs no router).
     random inputs at its program's shapes, against its plain chain (the
     members' torch calls): bit for bit where it holds no transcendental
     op, within REGION_ULP of the output dtype where it does; a region with
-    row reductions (the norms' backward row sums at (16384, 4096), the
-    loss's mean, the sampler's bisection at (8, 128256)) within the sums'
-    stated bound (``testing.hold_region``), launched twice bit for bit,
-    and timed against its chain and its bound by bytes; the largest
+    reductions (the norms' backward row sums at (16384, 4096) with their
+    weights' column sums, the loss's mean, the sampler's bisection at (8,
+    128256), the GQA group sums of the column design) within the sums' and
+    products' stated bounds (``testing.hold_region``), launched twice bit
+    for bit, and timed against its chain and its bound by bytes, with the
+    design its launch took (``smem``, ``reduce``, ``smem_partials``,
+    ``column``; held to the one ``regionex.row_plan`` gives) and, where it
+    stages its row, the same kernel launched not to stage it, reading its
+    row again each pass (``reread_ms``); the largest
     timed against its chain and its bound by bytes (the ``region`` row,
     with its design and the largest reduce region beside it).
     (b) phase 19 (a)'s step and phase 15 (a)'s guarded step, regions on
@@ -480,7 +485,11 @@ call: a replay runs no router).
     and regions a step runs (``trace_calls``). (c),
     (d) phase 13 (a) and (b)'s compiled bench step the same way, with
     ``vs_baseline`` against phase 13's eager arm. Printed beside them: the
-    regions' nvcc seconds in the script.
+    regions' nvcc seconds in the script. Phase 19 (a) fails where a
+    ``sum``, ``prod``, ``amax`` or ``amin`` is left a torch call or a
+    region writes a value that only a reduction reads. Each path's region
+    launches by design, read beside its own launch counts, go into its
+    ``region`` row (left out where the path's run has none).
 
 No phase can fall back to a plain version on the card: a CUDA call whose
 inputs a kernel does not take raises in the kernel's wrapper, with the
@@ -852,6 +861,12 @@ def timed_row(torch, cudaex, name, shape_tag, err, kernel_fn, plain_fn, lib_fn, 
         f"plain {row['plain_ms']:.4f} ms  bound {b_ms:.4f} ms ({b_by})  library "
         f"{lib_ms if lib_ms is None else round(lib_ms, 4)}{' ' + lib_note if lib_note else ''}")
     return row
+
+
+def region_designs(cudaex) -> dict:
+    """The region launches by design since the counts were last set to 0:
+    a run's own, read beside its launch counts (its ``region_designs``)."""
+    return {d: n for d, n in cudaex.design_counts().get("region", {}).items() if n}
 
 
 def design_delta(before: dict, after: dict) -> dict:
@@ -2046,6 +2061,7 @@ def subblock_step(np, torch, tllama, tnn, cudaex):
     cudaex.reset_launch_counts()
     card = step("cuda", True)
     counts = {k: v for k, v in cudaex.launch_counts().items() if v}
+    rdesigns = region_designs(cudaex)
     expect = with_region({"attn_subblock": L, "mlp_subblock": L, "rms_norm": 1}, card[2])
     require(counts == expect, f"sub-block decode step launched {counts}, expected {expect}")
     errs = {}
@@ -2058,7 +2074,7 @@ def subblock_step(np, torch, tllama, tnn, cudaex):
                    for a, b in zip(card[1], ref[1]) for k in ("k", "v")])
         require(err <= SUBBLOCK_STEP_TOL, f"sub-block step on the card vs {name}: {err}")
         errs[name] = err
-    return {"layers": L, "max_abs_err": errs, "launches": counts}
+    return {"layers": L, "max_abs_err": errs, "launches": counts, "region_designs": rdesigns}
 
 
 # ---------------------------------------------------------------------------
@@ -2113,6 +2129,7 @@ def full_width(np, torch, tllama, ServingEngine, SamplingParams, cudaex, params,
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     counts = cudaex.launch_counts()
+    rdesigns = region_designs(cudaex)
 
     for r in reqs:
         out = r.output()
@@ -2156,7 +2173,7 @@ def full_width(np, torch, tllama, ServingEngine, SamplingParams, cudaex, params,
         "decode_step_ms_median": float(np.median(step_ms)),
         "decode_graph": whole_program_stats(eng.runner.decode_jit),
         "prefill_graph": whole_program_stats(eng.runner.prefill_jit),
-        "launches_per_decode_step": expect, "launches": counts,
+        "launches_per_decode_step": expect, "launches": counts, "region_designs": rdesigns,
         "designs_per_decode_step": expect_designs, "designs": cudaex.design_counts(),
     }
     if block_fusion:
@@ -2250,6 +2267,7 @@ def serve_jit_run(np, torch, tllama, ServingEngine, SamplingParams, cudaex, pret
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     counts = {k: n for k, n in cudaex.launch_counts().items() if n}
+    rdesigns = region_designs(cudaex)
     eng.assert_quiescent()
     for r in reqs:
         out = r.output()
@@ -2293,7 +2311,7 @@ def serve_jit_run(np, torch, tllama, ServingEngine, SamplingParams, cudaex, pret
            "decode_step_host_ms_median": float(np.median([st["host_ms"]
                                                           for st in decode_only])),
            "ttft_ms_mean": 1e3 * sum(r.ttft_s for r in reqs) / len(reqs),
-           "wall_s": wall_s, "warmup_s": warm_s, "launches": counts,
+           "wall_s": wall_s, "warmup_s": warm_s, "launches": counts, "region_designs": rdesigns,
            "launches_per_decode_step": want, "designs_per_decode_step": want_d,
            "decode_profile_step_ms": prof["profile_step_ms"],
            "decode_device_busy_ms": prof["device_busy_ms_per_step"],
@@ -2794,7 +2812,8 @@ def train_resume(np, torch, cudaex, pretrain, tllama) -> dict:
                 "resumed parameters or moments differ from the straight run's")
         del want
         batch_ms = [st["batch_ms"] for r in (a, b1, b2) for st in r["per_step"]]
-        out.update(launches=counts, losses=a["losses"], losses_resumed=losses_b,
+        out.update(launches=counts, region_designs=designs.get("region", {}),
+                   losses=a["losses"], losses_resumed=losses_b,
                    bit_identical=True,
                    stream_path=a["stream_path"], step_ms=a["step_ms"],
                    launches_per_step=train_launches(RESUME_LAYERS, False), designs=designs,
@@ -3016,6 +3035,7 @@ def guarded_train(np, torch, cudaex, pretrain, bench, tllama, toptim_ops, slab: 
     cudaex.reset_launch_counts()
     guarded = pretrain.run("llama3-8b-bench", params=pb, state=sb, guard=guard, **kw)
     counts = {k: n for k, n in cudaex.launch_counts().items() if n}
+    rdesigns = region_designs(cudaex)
     expect = jit_train_launches(layers, False)
     update = "fused_adamw_slab" if slab else "fused_adamw"
     if slab:
@@ -3100,7 +3120,8 @@ def guarded_train(np, torch, cudaex, pretrain, bench, tllama, toptim_ops, slab: 
            "peak_memory_gb_guarded": guarded["peak_memory_gb"],
            "whole_program_copied_bytes_guarded": guarded["whole_program_copied_bytes"],
            "compile_s": [plain["compile_s"], guarded["compile_s"]],
-           "launches": counts, "launches_per_step": expect, "card": guarded["card"]}
+           "launches": counts, "region_designs": rdesigns, "launches_per_step": expect,
+           "card": guarded["card"]}
     del pa, pb, sa, sb, grads, args, gated
     gc.collect()
     torch.cuda.empty_cache()
@@ -3207,6 +3228,7 @@ def serve_quarantine(np, torch, tllama, ServingEngine, cudaex, tnn) -> dict:
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     counts = cudaex.launch_counts()
+    rdesigns = region_designs(cudaex)
     for reqs in stages:
         for r in reqs:
             require(r.done and len(r.output()) == 12, f"request {r.request_id} state {r.state}")
@@ -3274,7 +3296,8 @@ def serve_quarantine(np, torch, tllama, ServingEngine, cudaex, tnn) -> dict:
                "before the fault": {"decode_layer": L, "rms_norm": 1}, "sub-block rung": sub,
                "per-op kernel rung": chain},
            "leaf_quarantined": "rms_norm_residual: fatal KernelExecutionError on the card",
-           "replay_vs_plain_row_rel_err": plain_err, "launches": counts, "wall_s": wall_s}
+           "replay_vs_plain_row_rel_err": plain_err, "launches": counts,
+           "region_designs": rdesigns, "wall_s": wall_s}
     del eng, params, steps, replay, fresh, plain
     gc.collect()
     torch.cuda.empty_cache()
@@ -3435,6 +3458,7 @@ def fleet_prefix(np, torch, ServingEngine, cudaex, params, cfg, kw, sizes, block
         torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     counts = cudaex.launch_counts()
+    rdesigns = region_designs(cudaex)
     eng.assert_quiescent()
     for r in cold + warm:
         require(r.done and len(r.output()) == new, f"request {r.request_id} state {r.state}")
@@ -3475,7 +3499,7 @@ def fleet_prefix(np, torch, ServingEngine, cudaex, params, cfg, kw, sizes, block
            "ttft_ms_cold_mean": 1e3 * sum(r.ttft_s for r in cold) / len(cold),
            "ttft_ms_warm_mean": 1e3 * sum(r.ttft_s for r in warm) / len(warm),
            "tokens": [r.output().tolist() for r in cold + warm], "wall_s": wall_s,
-           "launches": counts}
+           "launches": counts, "region_designs": rdesigns}
     if check_launches:
         out["launches_per_decode_step"] = require_fleet_calls(
             "phase 16 (a)", cudaex, cfg, len(params["layers"]), block_fusion, calls)
@@ -3522,6 +3546,7 @@ def fleet_best_of(np, torch, ServingEngine, SamplingParams, cudaex, params, cfg,
     prim = eng.submit(p, new, sampling=sp, best_of=N)
     eng.drain()
     counts = cudaex.launch_counts()
+    rdesigns = region_designs(cudaex)
     eng.assert_quiescent()
     indep = ServingEngine(params, cfg, block_fusion=False, **kw)
     reqs = [indep.submit(p, new, sampling=sp.fork(i) if i else sp) for i in range(N)]
@@ -3540,7 +3565,7 @@ def fleet_best_of(np, torch, ServingEngine, SamplingParams, cudaex, params, cfg,
            "peak_pages_independent": indep.cache.peak_pages_used,
            "pages_allocated_best_of": eng.cache.pages_allocated,
            "pages_allocated_independent": indep.cache.pages_allocated,
-           "tokens": got, "launches": counts}
+           "tokens": got, "launches": counts, "region_designs": rdesigns}
     if check_launches:
         out["launches_per_decode_step"] = require_fleet_calls(
             "phase 16 (b)", cudaex, cfg, len(params["layers"]), False, calls)
@@ -3585,6 +3610,7 @@ def fleet_restart(np, torch, ServingEngine, cudaex, params, cfg, kw, sizes, bloc
                                             max_fires=1)])):
         sup.drain()
     counts = cudaex.launch_counts()
+    rdesigns = region_designs(cudaex)
     eng.assert_quiescent()
     require(sup.restarts == 1, f"{sup.restarts} restarts")
     require(all(r.done and len(r.output()) == new for r in reqs), "a request did not complete")
@@ -3599,7 +3625,7 @@ def fleet_restart(np, torch, ServingEngine, cudaex, params, cfg, kw, sizes, bloc
            "tokens": [r.output().tolist() for r in reqs],
            "tokens_equal_fault_free": [r.output().tolist() == w.output().tolist()
                                        for r, w in zip(reqs, want)],
-           "launches": counts}
+           "launches": counts, "region_designs": rdesigns}
     if check_launches:
         out["launches_per_decode_step"] = require_fleet_calls(
             "phase 16 (c)", cudaex, cfg, len(params["layers"]), block_fusion, calls)
@@ -4379,6 +4405,7 @@ def jit_run(torch, cudaex, ptt, jf, args, eager_fn, what: str, jf_off=None) -> d
     compile_ms = (time.perf_counter() - t0) * 1e3
     stages = dict(ptt.compile_stats(jf).last_pass_times)
     out, launches, claims = jit_launches(jf, *args)
+    rdesigns = region_designs(cudaex)
     require(launches == claims, f"{what}: the jit launched {launches}, its trace claims {claims}")
     require(ptt.cache_hits(jf) == 1 and ptt.cache_misses(jf) == 1,
             f"{what}: hits {ptt.cache_hits(jf)}, misses {ptt.cache_misses(jf)}")
@@ -4433,7 +4460,8 @@ def jit_run(torch, cudaex, ptt, jf, args, eager_fn, what: str, jf_off=None) -> d
         timing["replay_vs_per_call_pct"] = (
             (timing["jit_ms_replay_rounds"] - timing["jit_ms_per_call"])
             / timing["jit_ms_per_call"] * 100)
-    return {"out": out, "eager": eager, "launches": launches, "eager_launches": eager_launches,
+    return {"out": out, "eager": eager, "launches": launches, "region_designs": rdesigns,
+            "eager_launches": eager_launches,
             "compile_ms": compile_ms, "compile_stages_ms": stages, "timing": timing,
             "trace_bsyms": len(ptt.last_execution_trace(jf).bound_symbols)}
 
@@ -4713,6 +4741,12 @@ def jit_train_run(np, torch, tllama, cudaex, pretrain, remat: bool, eager: dict,
     expect = with_region(expect, claims.get("region", 0))
     if keep_regions:
         HELD_REGIONS[keep_regions] = regions_of(trc)
+    if keep_regions:
+        # every sum, prod, amax and amin in a region, and no region writes a
+        # value that only a reduction reads (the norm backward's product)
+        require(not reductions_left(trc) and not reduction_only_outputs(trc),
+                f"{what}: reductions left as torch calls {reductions_left(trc)}, region "
+                f"outputs only a reduction reads {reduction_only_outputs(trc)}")
     ptrs = [t.data_ptr() for t in tree_leaves((params, state["m"], state["v"]))]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -4734,6 +4768,7 @@ def jit_train_run(np, torch, tllama, cudaex, pretrain, remat: bool, eager: dict,
         per_step.append({"loss": losses[-1], "ms": ms, "launches": delta})
         cur = (p, s)
     counts = {k: n for k, n in cudaex.launch_counts().items() if n}
+    rdesigns = region_designs(cudaex)
     require(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
             f"{what}: losses not finite and falling: {losses}")
     rel = [abs(a - b) / abs(b) for a, b in zip(losses, eager["losses"])]
@@ -4747,7 +4782,9 @@ def jit_train_run(np, torch, tllama, cudaex, pretrain, remat: bool, eager: dict,
            "eager_losses": eager["losses"], "loss_rel_diff_max": max(rel),
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
            "decisions": decisions, "calls_per_step": trace_calls(trc),
-           "reductions_as_torch_calls": reductions_left(trc)}
+           "reductions_as_torch_calls": reductions_left(trc),
+           "region_outputs_only_reductions_read": reduction_only_outputs(trc),
+           "region_designs": rdesigns}
     holder = [cur]
 
     def step():
@@ -4799,13 +4836,17 @@ MODULE_EVAL_PLANNED = {"rms_norm": TRAIN_LAYERS + 1, "sdpa_fwd": TRAIN_LAYERS,
                        "mlp_subblock": TRAIN_LAYERS, "ce_fwd": 1}
 
 
-def counted(torch, cudaex, fn):
+def counted(torch, cudaex, fn, designs: dict | None = None):
     """``fn()`` with the launch counts set to 0 just before it and read just
-    after: its output and its launches."""
+    after: its output and its launches. Its region launches by design are
+    added into ``designs`` where given."""
     torch.cuda.synchronize()
     cudaex.reset_launch_counts()
     out = fn()
     torch.cuda.synchronize()
+    if designs is not None:
+        for d, n in region_designs(cudaex).items():
+            designs[d] = designs.get(d, 0) + n
     return out, {k: n for k, n in cudaex.launch_counts().items() if n}
 
 
@@ -4864,16 +4905,17 @@ def module_train_run(np, torch, tllama, cudaex, pretrain, eager: dict) -> dict:
     state = opt.init(params)
     losses, per_step, grad_err = [], [], {}
     counts: dict[str, int] = {}
+    rdesigns: dict[str, int] = {}
     step = None
     for i in range(TRAIN_STEPS):
         if i == 1:   # the eager gradients are gone: the peak is the bridge's own
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
-        loss, fwd = counted(torch, cudaex, lambda: tm(tok, tgt))
+        loss, fwd = counted(torch, cudaex, lambda: tm(tok, tgt), rdesigns)
         fwd_ms = (time.perf_counter() - t) * 1e3
         step = step or next(iter(tm._autograd_cache.values()))
-        _, bwd = counted(torch, cudaex, loss.backward)
+        _, bwd = counted(torch, cudaex, loss.backward, rdesigns)
         if i == 0:
             for k, p in module.named_parameters():
                 grad_err[k] = row_rel_err(p.grad, eager_grads[k])
@@ -4883,7 +4925,7 @@ def module_train_run(np, torch, tllama, cudaex, pretrain, eager: dict) -> dict:
                     f"module-train: {worst}'s first .grad is {grad_err[worst]} of a row's largest "
                     f"value off eager autograd's (bound {MODULE_GRAD_TOL})")
         _, upd = counted(torch, cudaex, lambda: opt.update(
-            params, {k: p.grad for k, p in params.items()}, state))
+            params, {k: p.grad for k, p in params.items()}, state), rdesigns)
         module.zero_grad(set_to_none=True)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t) * 1e3
@@ -4914,7 +4956,8 @@ def module_train_run(np, torch, tllama, cudaex, pretrain, eager: dict) -> dict:
            "eager_losses": eager["losses"], "loss_rel_diff_max": max(rel),
            "first_loss_rel_diff": first_rel, "module_eager_first_loss": eager_loss,
            "grad_row_rel_err": grad_err, "grad_row_rel_err_max": max(grad_err.values()),
-           "launches": counts, "launches_per_step": dict(MODULE_FWD, **MODULE_BWD,
+           "launches": counts, "region_designs": rdesigns,
+           "launches_per_step": dict(MODULE_FWD, **MODULE_BWD,
                                                          fused_adamw=1),
            "peak_memory_gb_steps_2_to_5": peak, "compile_s": step.compile_s,
            "compile_stages_ms": step.pass_times,
@@ -4950,7 +4993,8 @@ def module_train_run(np, torch, tllama, cudaex, pretrain, eager: dict) -> dict:
     # bridge's forward on them
     with torch.no_grad():
         tm(tok, tgt)   # compile
-        ev, launches = counted(torch, cudaex, lambda: tm(tok, tgt))
+        ev_designs: dict[str, int] = {}
+        ev, launches = counted(torch, cudaex, lambda: tm(tok, tgt), ev_designs)
         ev = float(ev)
         eval_ms = device_ms(torch, lambda: tm(tok, tgt))
     grad_loss = float(tm(tok, tgt).detach())
@@ -4962,6 +5006,7 @@ def module_train_run(np, torch, tllama, cudaex, pretrain, eager: dict) -> dict:
     require(math.isfinite(ev) and eval_rel <= JIT_TRAIN_LOSS_RTOL,
             f"module-eval: loss {ev} against the bridge's {grad_loss} on the same weights")
     evr = {"loss": ev, "bridge_loss": grad_loss, "loss_rel_diff": eval_rel, "launches": launches,
+           "region_designs": ev_designs,
            "device_ms": eval_ms, "compile_ms": ptt.compile_stats(tm).last_pass_times}
 
     # (b, default) the default compile's grad-free call: the cost model's
@@ -4971,7 +5016,8 @@ def module_train_run(np, torch, tllama, cudaex, pretrain, eager: dict) -> dict:
     tmd = ptt.jit(module)
     with torch.no_grad():
         tmd(tok, tgt)   # compile
-        evd, launches_d = counted(torch, cudaex, lambda: tmd(tok, tgt))
+        evd_designs: dict[str, int] = {}
+        evd, launches_d = counted(torch, cudaex, lambda: tmd(tok, tgt), evd_designs)
         evd = float(evd)
         rungs = default_rung(torch, "module-eval", lambda: tmd(tok, tgt), lambda: tm(tok, tgt))
     require(launches_d == claimed_kernels(ptt.last_execution_trace(tmd))
@@ -4982,6 +5028,7 @@ def module_train_run(np, torch, tllama, cudaex, pretrain, eager: dict) -> dict:
     require(math.isfinite(evd) and rel_d <= PLANNED_JIT_LOSS_RTOL,
             f"module-eval default: loss {evd} against the per-op call's {ev}")
     evr["default"] = {"loss": evd, "loss_rel_diff_per_op": rel_d, "launches": launches_d,
+                      "region_designs": evd_designs,
                       "rungs": rungs, "decisions": decision_summary(ptt, tmd)}
     del module, params, state, tm, tmd, step
     gc.collect()
@@ -5022,8 +5069,9 @@ def fn_bridge_run(torch, cudaex, tllama) -> dict:
     jf(*leaves).float().square().mean().backward()   # compile and warm
     for t in leaves:
         t.grad = None
-    out, fwd = counted(torch, cudaex, lambda: jf(*leaves))
-    _, bwd = counted(torch, cudaex, out.float().square().mean().backward)
+    rdesigns: dict[str, int] = {}
+    out, fwd = counted(torch, cudaex, lambda: jf(*leaves), rdesigns)
+    _, bwd = counted(torch, cudaex, out.float().square().mean().backward, rdesigns)
     step = next(iter(jf._autograd_cache.values()))
     want_f = {"rms_norm": 1, "sdpa_fwd": 1, "rms_norm_residual": 1}
     require(fwd == claimed_kernels(step.fwd_trace) and without_regions(fwd) == want_f,
@@ -5044,11 +5092,12 @@ def fn_bridge_run(torch, cudaex, tllama) -> dict:
     require(worst <= MODULE_GRAD_TOL,
             f"fn-bridge: gradients {errs} of a row's largest value off eager bf16 and float32 "
             f"autograd's (bound {MODULE_GRAD_TOL})")
-    launches = dict(fwd, **bwd)
+    launches = {k: fwd.get(k, 0) + bwd.get(k, 0) for k in {**fwd, **bwd}}
     del x, layer, leaves, got, eager, f32, out, jf
     gc.collect()
     torch.cuda.empty_cache()
-    return {"launches": launches, "grad_row_rel_err": errs, "compile_s": step.compile_s,
+    return {"launches": launches, "region_designs": rdesigns, "grad_row_rel_err": errs,
+            "compile_s": step.compile_s,
             "phase_s": time.perf_counter() - t0}
 
 
@@ -5130,14 +5179,14 @@ def module_planned_run(np, torch, tllama, cudaex, pretrain, phase20: dict) -> di
     state = opt.init(params)
     want_fwd = {"rms_norm": L + 1, "sdpa_fwd": L, "mlp_subblock": L, "ce_fwd": 1}
     want_bwd = {"sdpa_bwd": L, "mlp_subblock_bwd": L}
-    losses, per_step, counts, step = [], [], {}, None
+    losses, per_step, counts, step, rdesigns = [], [], {}, None, {}
     for i in range(PLANNED_MODULE_STEPS):
         t = time.perf_counter()
-        loss, fwd = counted(torch, cudaex, lambda: tm(tok, tgt))
+        loss, fwd = counted(torch, cudaex, lambda: tm(tok, tgt), rdesigns)
         step = step or next(iter(tm._autograd_cache.values()))
-        _, bwd = counted(torch, cudaex, loss.backward)
+        _, bwd = counted(torch, cudaex, loss.backward, rdesigns)
         _, upd = counted(torch, cudaex, lambda: opt.update(
-            params, {k: p.grad for k, p in params.items()}, state))
+            params, {k: p.grad for k, p in params.items()}, state), rdesigns)
         module.zero_grad(set_to_none=True)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t) * 1e3
@@ -5164,6 +5213,7 @@ def module_planned_run(np, torch, tllama, cudaex, pretrain, phase20: dict) -> di
             f"{phase20['losses'][0]}")
     out = {"losses": losses, "per_step": per_step, "first_loss_rel_diff": first_rel,
            "phase20_first_loss": phase20["losses"][0], "launches": counts,
+           "region_designs": rdesigns,
            "launches_per_step": train_launches(L, True), "compile_s": step.compile_s,
            "decisions": decision_summary(ptt, tm)}
     del module, params, state, tm, step
@@ -5284,7 +5334,7 @@ def memory_report(torch) -> dict:
             "graphs_alive": graphs}
 
 
-def hold_regions(torch, held: dict) -> dict:
+def hold_regions(torch, cudaex, held: dict) -> dict:
     """Every distinct region (its source and its inputs' shapes) of the
     programs in ``held`` (path -> region callables) launched once on random
     inputs at its program's shapes and held against its plain chain on the
@@ -5299,8 +5349,13 @@ def hold_regions(torch, held: dict) -> dict:
     then again on integer-valued inputs, where a sum of integer summands
     has the bound 0 and must be exact, and launched twice more, bit for
     bit the same, then timed (its kernel, its plain chain, its bound by
-    bytes). Returns the counts by path, the largest region (by the bytes it
-    moves) with its path, and the rows of the regions with reductions."""
+    bytes; a region that stages its row also launched with ``stage=False``:
+    the ``reduce`` design's reread), its launch's design held to its plan.
+    Regions of the column design and the row spaces' column sums are held
+    alike, each sum at its own order's depth (``regionex.sum_depths``).
+    Returns the counts by path, the largest region (by the bytes it moves)
+    with its path, and the rows of the regions with reductions."""
+    from thunder_tpu_torch.executors import regionex
     from thunder_tpu_torch.testing import hold_region, region_inputs
 
     gen = torch.Generator(device="cuda").manual_seed(23)
@@ -5317,7 +5372,7 @@ def hold_regions(torch, held: dict) -> dict:
             vals = region_inputs(r, gen, "cuda")
             h = hold_region(r, vals)
             torch.cuda.synchronize()
-            reduces = r.spec.rows is not None
+            reduces = r.spec.design != "elementwise"
             require(h["ok"] and (reduces or h["ulp"] <= REGION_ULP),
                     f"{path} {r.name}: {h} against its plain chain\n{r.spec.source}")
             c["distinct"] += 1
@@ -5338,21 +5393,38 @@ def hold_regions(torch, held: dict) -> dict:
                         f"{path} {r.name}: two launches on the same inputs differ")
                 del first, second
                 big = nbytes > 1e9
+                _, design = ran(cudaex, "region", lambda: r(*vals))
                 k_ms = time_ms(torch, lambda: r(*vals), 5 if big else 20)
                 chain_ms = time_ms(torch, lambda: r.plain(*vals), 2 if big else 5, warmup=1)
-                S, rd = r.spec.rows
+                want = "column"
+                if r.spec.rows is not None:
+                    rows, R = regionex.space_sizes(r.spec)
+                    want = regionex.row_plan(r.spec, rows, R, torch.cuda.get_device_properties(
+                        0).multi_processor_count)["design"]
+                require(design == want, f"{path} {r.name}: launched as {design}, planned {want}")
+                # a staged row against the same kernel reading its row again
+                # each pass (design reduce)
+                reread_ms = None
+                if r.spec.staged:
+                    reread_ms = time_ms(torch, lambda: regionex.launch(r, vals, stage=False),
+                                        5 if big else 20)
+                S, rd = r.spec.rows or r.spec.cols
                 reduce_rows.append({
-                    "path": path, "region": r.name, "rows_shape": list(S), "reduced_dims": rd,
-                    "ops": len(r.members),
-                    "reductions": sum(b.sym.name in ("sum", "amax", "amin", "argmax", "argmin")
-                                      for b in r.members),
+                    "path": path, "region": r.name, "rows_shape": list(S),
+                    "reduced_dims": rd if r.spec.rows else list(rd),
+                    "design": design, "column_sums": len(r.spec.col_sums),
+                    "staged_inputs": len(r.spec.staged), "ops": len(r.members),
+                    "reductions": sum(b.sym.name in ("sum", "prod", "amax", "amin", "argmax",
+                                                     "argmin") for b in r.members),
                     "ms": k_ms, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "chain_ms": chain_ms,
+                    "reread_ms": reread_ms,
                     "gb_moved": nbytes / 1e9, "sum_slack": h["sum_slack"],
                     "sum_depth": h["depth"], "sums": h["sums"],
                     "exact_sums_on_integers": hi["exact_sums"],
                     "bit_identical_to_chain": h["bit_identical"]})
-                log(f"  reduce region {path} {r.name} {list(S)} reducing {rd}: "
-                    f"{len(r.members)} ops, kernel {k_ms:.4f} ms, bound "
+                log(f"  reduce region {path} {r.name} {list(S)} reducing {rd} ({design}): "
+                    f"{len(r.members)} ops, kernel {k_ms:.4f} ms (rereading its row "
+                    f"{reread_ms} ms), bound "
                     f"{reduce_rows[-1]['bound_ms']:.4f} ms, chain {chain_ms:.4f} ms, sum slack "
                     f"{h['sum_slack']:.3g} (depth {h['depth']}), {hi['exact_sums']} of "
                     f"{h['sums']} sums exact on integers")
@@ -5422,6 +5494,20 @@ def reductions_left(trc) -> dict:
                                                      "argmin", "cumsum"):
             out[b.sym.name] = out.get(b.sym.name, 0) + 1
     return out
+
+
+def reduction_only_outputs(trc) -> list:
+    """The regions' outputs of an execution trace that only reductions
+    read (a value written so that a reduction reads it back)."""
+    from thunder_tpu_torch.testing import expanded, regions_of
+
+    folds = ("sum", "prod", "amax", "amin", "argmax", "argmin")
+    readers: dict = {}
+    for b in expanded(trc):
+        for p in b.flat_proxy_args():
+            readers.setdefault(p.name, []).append(b.sym.name)
+    return [n for r in regions_of(trc) for n in r.output_names
+            if readers.get(n) and all(u in folds for u in readers[n])]
 
 
 def region_ab_train(np, torch, tllama, pretrain) -> dict:
@@ -5879,7 +5965,7 @@ def main() -> int:
     # phase 23: the region executor's generated kernels
     t23 = time.perf_counter()
     log(f"phase 23: the card's memory after phase 22: {json.dumps(memory_report(torch))}")
-    hr = hold_regions(torch, HELD_REGIONS)
+    hr = hold_regions(torch, cudaex, HELD_REGIONS)
     region_row = time_region(torch, cudaex, hr["largest"])
     log(f"phase 23 (a) every distinct region of phases 19 (a) and 22 (per-op) against its "
         f"plain chain: {json.dumps(hr['counts'])}; the largest timed: "
@@ -5916,7 +6002,7 @@ def main() -> int:
         "region_nvcc_s": regionex.nvcc_seconds(),
         "region_nvcc_runs": regionex.nvcc_runs(),
         "regions_with_reductions_held": len(hr["reduce_rows"]),
-        "region_designs": cudaex.design_counts().get("region", {}),
+        "region_designs_whole_script": cudaex.design_counts().get("region", {}),
         "phase_s": time.perf_counter() - t23,
     }) + f" ({card})")
 
@@ -5931,7 +6017,6 @@ def main() -> int:
     kernels = []
     # every compiled path launches regions: one row, phase 23's largest
     # region of phase 19 (a), under each path's own launches
-    region_row["designs"] = cudaex.design_counts().get("region", {})
     big_reduce = max(hr["reduce_rows"], key=lambda r: r["gb_moved"])
     region_row["reduce"] = {k: big_reduce[k] for k in ("path", "rows_shape", "ops", "ms",
                                                        "bound_ms", "chain_ms")}
@@ -5950,7 +6035,8 @@ def main() -> int:
                      or bench_planned_rows[name] for name in bb["launches_per_step"]}
     bench_guarded = dict(bench_rows, fused_adamw_slab_health=slab_rows["fused_adamw_slab_health"])
     # the bench's other arms, as runs of their own: their launches
-    bench_arms = {"guarded": {"launches": ba["sentinel_launches"]},
+    bench_arms = {"guarded": {"launches": ba["sentinel_launches"],
+                              "region_designs": ba["sentinel_region_designs"]},
                   "eager-remat": {"launches": ba["baseline_launches"]},
                   "eager-planned": {"launches": bb["baseline_launches"]}}
     for path, path_rows, run in (("serve", rows, fw), ("train", train_rows, tw),
@@ -6014,7 +6100,15 @@ def main() -> int:
                                    for p, (n, _) in zip(SERVE_JIT_PATHS, SERVE_JIT_RUNGS))):
         path_rows = dict(path_rows)
         if run["launches"].get("region", 0):
-            path_rows["region"] = [region_row]
+            # the region row under this path's own launches and, where the
+            # run read them beside its launches, its launches by design
+            row = dict(region_row)
+            if "region_designs" in run:
+                row["designs"] = run["region_designs"]
+                require(sum(row["designs"].values()) == run["launches"]["region"],
+                        f"{path}: region launches {run['launches']['region']}, by design "
+                        f"{row['designs']}")
+            path_rows["region"] = [row]
         else:   # an eager path: no region
             path_rows.pop("region", None)
         for name, rs in path_rows.items():

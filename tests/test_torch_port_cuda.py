@@ -2557,3 +2557,243 @@ def test_cuda_region_cluster_launch_replays_in_a_graph(cuda_device):
     assert regionex.row_launch(S, V, torch.cuda.get_device_properties(0).multi_processor_count
                                )[0] > 1
     assert big.spec.rows == ((S, V), 1)
+
+
+# ---------------------------------------------------------------------------
+# reductions over any dims (executors/regionex.py column_source, the row
+# design's column sums and its shared-memory rows)
+#
+# Bounds as above, each sum in its own kernel order
+# (``regionex.sum_depths``): a column-design sum its thread's share of the
+# reduced elements, the tree down the tile's thread rows and the cluster's
+# partials; a row space's column sum its CTA's rows, then the finishing
+# pass's trees over the partials; a float ``prod`` within (n - 1) u /
+# (1 - (n - 1) u) of the exact product's magnitude in any order
+# (``testing.prod_bound``), integer products exactly; amax and amin bit for
+# bit. Two launches on the same inputs bit for bit.
+# ---------------------------------------------------------------------------
+
+def _one_region(fn, *args):
+    """``jit(fn)`` run on ``args`` (on the card): its output and its one
+    region with reductions."""
+    import thunder_tpu_torch as ptt
+    from thunder_tpu_torch.testing import regions_of
+
+    jf = ptt.jit(fn)
+    got = jf(*args)
+    rs = [r for r in regions_of(ptt.last_execution_trace(jf)) if r.spec.design != "elementwise"]
+    assert len(rs) == 1, [r.spec.design for r in regions_of(ptt.last_execution_trace(jf))]
+    return got, rs[0]
+
+
+def _design_count(design: str) -> int:
+    return cudaex.design_counts().get("region", {}).get(design, 0)
+
+
+_COLUMN_CASES = {
+    # name: (shape, dims) -- a leading dim, the GQA group sum's middle dim,
+    # every kept dim of a norm's rows, dims around a kept one, a long leading
+    # extent that fills too few tiles (split across a cluster)
+    "leading": ((512, 4096), (0,)),
+    "gqa-middle": ((2, 8, 4, 512, 128), (2,)),
+    "all-leading": ((8, 64, 1024), (0, 1)),
+    "outer-and-last": ((16, 8, 64), (0, 2)),
+    "long-few-tiles": ((65536, 64), (0,)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("values", ["normal", "integer"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int32],
+                         ids=["f32", "bf16", "i32"])
+@pytest.mark.parametrize("case", list(_COLUMN_CASES))
+def test_cuda_region_column_reductions_within_their_bound(cuda_device, case, dtype, values):
+    """``sum``, ``amax`` and ``amin`` over leading, middle and all-but-last
+    dims in one region of the column design: the sum within its bound of
+    the exact sum in the kernel's order (exact on integer values), the
+    extremes bit for bit against torch's, every output held
+    (``hold_region``), two launches bit for bit, each launch counted under
+    ``column``."""
+    from thunder_tpu_torch.testing import hold_region, region_inputs
+
+    shape, dims = _COLUMN_CASES[case]
+    gen = torch.Generator().manual_seed(13)
+    if dtype == torch.int32 or values == "integer":
+        x = torch.randint(-4, 5, shape, generator=gen).to(dtype).to(cuda_device)
+    else:
+        x = torch.randn(shape, generator=gen).to(dtype).to(cuda_device)
+
+    def fn(x):
+        y = x * 2
+        return torch.sum(y, dims), torch.amax(y, dims), torch.amin(y, dims)
+
+    got, region = _one_region(fn, x)
+    assert region.spec.design == "column" and region.spec.cols[1] == dims
+    want = fn(x)
+    for g, w in zip(got[1:], want[1:]):
+        assert torch.equal(g, w)
+    if dtype == torch.int32 or values == "integer":
+        assert torch.equal(got[0], torch.sum((x * 2).double(), dims).to(got[0].dtype))
+    for vals in ([x], region_inputs(region, torch.Generator(device=cuda_device).manual_seed(2),
+                                    cuda_device, strided=True)):
+        held = hold_region(region, vals)
+        assert held["ok"], held
+    before = _design_count("column")
+    a, b = region(x), region(x)
+    assert _design_count("column") == before + 2
+    assert all(torch.equal(p, q) for p, q in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int64],
+                         ids=["f32", "bf16", "i64"])
+@pytest.mark.parametrize("dims", [(-1,), (0,), (1,), (0, 1, 2)],
+                         ids=["trailing", "leading", "middle", "all"])
+def test_cuda_region_prods_within_their_bound(cuda_device, dims, dtype):
+    """``prod`` over trailing (the row design), leading, middle and all
+    dims: float products within their relative bound of the exact product,
+    integer products (int64, wrapping as torch's) equal to torch's; two
+    launches bit for bit."""
+    from thunder_tpu_torch.testing import hold_region
+
+    gen = torch.Generator().manual_seed(17)
+    shape = (6, 5, 7)
+    if dtype == torch.int64:
+        x = torch.randint(-3, 4, shape, generator=gen).to(cuda_device)
+    else:
+        x = (1 + 0.25 * torch.randn(shape, generator=gen)).to(dtype).to(cuda_device)
+
+    def fn(x):
+        return torch.prod(x * 1, dims[0]) if len(dims) == 1 else torch.prod(x * 1)
+
+    got, region = _one_region(fn, x)
+    if dtype == torch.int64:
+        assert torch.equal(got, fn(x))
+    held = hold_region(region, [x])
+    assert held["ok"], held
+    a, b = region(x), region(x)
+    assert all(torch.equal(p, q) for p, q in zip(a, b))
+
+
+def _norm_backward(x, g, w):
+    """An rms_norm's backward as the traced train step computes it: the
+    input gradient from the row sums, the weight gradient as the column
+    sum over every row."""
+    xf, gf = x.float(), g.float()
+    rstd = torch.rsqrt(torch.mean(xf * xf, -1, keepdim=True) + 1e-5)
+    xh = xf * rstd
+    gx = gf * w.float()
+    dx = rstd * (gx - xh * torch.mean(gx * xh, -1, keepdim=True))
+    return dx.to(x.dtype), torch.sum(gf * xh, (0, 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(4, 2048, 4096), (1, 8, 4096), (2, 3, 100)],
+                         ids=["train-rows", "decode-rows", "odd"])
+def test_cuda_region_norm_backward_with_its_column_sum(cuda_device, shape, dtype):
+    """A norm backward's row space with the weight gradient's column sum
+    in it (design ``smem_partials`` or ``reduce_partials``: the rows staged
+    in shared memory or read again each pass, as ``regionex.row_plan``
+    picks, the column sum as partials of row groups and a tree): held
+    within the stated bounds (the column sum at
+    ``regionex.partials_depth``) on random and integer-valued inputs, two
+    launches bit for bit, the product of the column sum not written."""
+    from thunder_tpu_torch.executors import regionex
+    from thunder_tpu_torch.testing import hold_region, region_inputs
+
+    gen = torch.Generator(device=cuda_device).manual_seed(19)
+    x, g = (torch.randn(shape, device=cuda_device, generator=gen).to(dtype) for _ in range(2))
+    w = (torch.rand(shape[-1], device=cuda_device, generator=gen) + 0.5).to(dtype)
+    got, region = _one_region(_norm_backward, x, g, w)
+    S, r = region.spec.rows
+    assert len(region.spec.col_sums) == 1 and len(region.outputs) == 2
+    assert [tuple(o.shape) for o in region.outputs if tuple(o.shape) == S] == [S]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows, R = regionex.space_sizes(region.spec)
+    design = regionex.row_plan(region.spec, rows, R, sms)["design"]
+    assert design in ("smem_partials", "reduce_partials")
+    before = _design_count(design)
+    for integer in (False, True):
+        held = hold_region(region, region_inputs(region, gen, cuda_device, integer=integer))
+        assert held["ok"], (integer, held)
+    assert _design_count(design) == before + 2
+    depths = regionex.sum_depths(region, sms)
+    assert depths == [regionex.sum_depth(rows, R, sms)] * 2 + [
+        regionex.partials_depth(rows, regionex.row_plan(region.spec, rows, R, sms))]
+    vals = region_inputs(region, gen, cuda_device)
+    a, b = region(*vals), region(*vals)
+    assert all(torch.equal(p, q) for p, q in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["sampler-rows", "norm-rows"])
+def test_cuda_region_smem_and_reduce_designs_agree(cuda_device, case):
+    """A softmax's region (three passes over its row) at the sampler's
+    shape (8 rows of 128,256 float32, each row split across a cluster:
+    64 KB of it a CTA) and the norm's (16,384 rows of 4096 bf16): the
+    launch stages the row in shared memory (``smem``), held within its
+    bound; launched not to stage (``stage=False``) it reads the row again
+    each pass (``reduce``) and gives the same bits (the same order)."""
+    from thunder_tpu_torch.executors import regionex
+    from thunder_tpu_torch.testing import hold_region
+
+    shape, dtype = ((8, 128256), torch.float32) if case == "sampler-rows" else (
+        (16384, 4096), torch.bfloat16)
+    gen = torch.Generator(device=cuda_device).manual_seed(23)
+    x = torch.randn(shape, device=cuda_device, generator=gen).to(dtype)
+    _, region = _one_region(lambda x: torch.softmax(x.float(), -1), x)
+    assert region.spec.staged
+    before = _design_count("smem")
+    held = hold_region(region, [x])
+    assert held["ok"] and _design_count("smem") == before + 1, held
+    staged = region(x)
+    before = _design_count("reduce")
+    reread = regionex.launch(region, [x], stage=False)
+    assert _design_count("reduce") == before + 1
+    assert all(torch.equal(p, q) for p, q in zip(staged, reread))
+
+
+@pytest.mark.cuda
+def test_cuda_region_partials_replay_in_a_graph(cuda_device):
+    """The norm backward's region (its column sum's partials in scratch the
+    launch allocates) and a GQA group sum (the column design) inside a
+    ``jit`` entry's CUDA graph: the captured and the replayed calls give
+    the per-call call's outputs bit for bit, each replay counting the
+    regions' launches."""
+    import thunder_tpu_torch as ptt
+    from thunder_tpu_torch.testing import regions_of
+
+    gen = torch.Generator(device=cuda_device).manual_seed(29)
+    x, g = (torch.randn(2, 256, 1024, device=cuda_device, generator=gen).to(torch.bfloat16)
+            for _ in range(2))
+    w = torch.rand(1024, device=cuda_device, generator=gen).to(torch.bfloat16)
+    dk = torch.randn(2, 8, 256, 64, device=cuda_device, generator=gen)
+
+    def fn(x, g, w, dk):
+        dx, dw = _norm_backward(x, g, w)
+        return dx, dw, torch.sum(dk.reshape(2, 2, 4, 256, 64) * 2.0, 2)
+
+    per_call = ptt.jit(fn, whole_program_jit=False)(x, g, w, dk)
+    jf = ptt.jit(fn)
+    for _ in range(3):          # per call, the capture, a replay
+        cudaex.reset_launch_counts()
+        got = jf(x, g, w, dk)
+        torch.cuda.synchronize()
+        regions = regions_of(ptt.last_execution_trace(jf))
+        assert all(torch.equal(a, b) for a, b in zip(got, per_call))
+        assert cudaex.launch_counts()["region"] == len(regions)
+    assert ptt.compile_stats(jf).whole_program_replays >= 1
+    assert {r.spec.design for r in regions} >= {"row", "column"}
+
+
+@pytest.mark.cuda
+def test_cuda_region_column_sum_with_64_bit_indices(cuda_device):
+    """A column space past 2**31 elements (65,540 rows of 32,768 int8
+    values, summed over the rows): the launch takes 64-bit indices, and its
+    integer sums equal torch's."""
+    x = torch.randint(-100, 100, (65540, 32768), dtype=torch.int8, device=cuda_device)
+    got, region = _one_region(lambda x: torch.sum(x + 1, 0), x)
+    assert region.spec.design == "column"
+    assert torch.equal(got, torch.sum(x + 1, 0)) and got.dtype == torch.int64
+    del x

@@ -61,15 +61,15 @@ def _program(a, b):
     x = torch.exp(a * b)
     m = x.amax(-1, keepdim=True)
     s = torch.sum(x - m, -1, keepdim=True)
-    c = x.sum(0)                     # a leading dim: no region takes it
+    c = x.sum(0)                     # a leading dim: the column design
     y = (x - m) / s
     return y * 2.0, c + 1.0, torch.argmax(y, -1)
 
 
 def test_same_groups_as_the_reference_with_trailing_reductions():
     """Both packages trace the program to the same prims; under the region
-    executor's predicate (trailing reductions and unit views in, the
-    leading ``sum`` out) the two partitioners give the same groups, and one
+    executor's predicate (reductions over any dims and unit views in, the
+    leading ``sum`` too) the two partitioners give the same groups, and one
     group holds the row reductions."""
     a = torch.linspace(-1, 1, 12).reshape(3, 4)
     jf = jtorch.jit(_program)
@@ -87,23 +87,37 @@ def test_same_groups_as_the_reference_with_trailing_reductions():
     fused = {b.sym.name for b, f in zip(tb, ok) if f}
     assert {"amax", "sum", "argmax", "reshape"} <= fused
     sums = [b for b in tb if b.sym.name == "sum"]
-    assert [regionex.ex.can_fuse(b) for b in sums] == [True, False]   # (-1,) in, (0,) out
+    assert [regionex.ex.can_fuse(b) for b in sums] == [True, True]    # (-1,) and (0,) in
     assert any({"amax", "sum", "argmax"} <= set(g) for g in got)
 
 
 def _check_row_space(r):
-    """Every member of a region plays its part of one row space."""
-    if r.spec.rows is None:
+    """Every member of a region plays its part of one space: a row space
+    ``(S, r)`` (its reductions of S's last r dims, and the column sums over
+    its kept dims) or a column space ``(S, D)``."""
+    if r.spec.design == "elementwise":
         assert len({tuple(b.flat_proxy_outs()[0].shape) for b in r.members}) == 1
-        assert not any(b.sym.name in REDUCTIONS for b in r.members)
+        assert not any(b.sym.name in REDUCTIONS + ("prod",) for b in r.members)
+        return
+    if r.spec.design == "column":
+        S, D = r.spec.cols
+        assert D != tuple(range(len(S) - len(D), len(S))), D     # not trailing dims
+        kept = [n for d, n in enumerate(S) if d not in D and n != 1]
+        for b in r.members:
+            out = tuple(b.flat_proxy_outs()[0].shape)
+            if b.sym.name in REDUCTIONS + ("prod",):
+                assert tuple(b.args[0].shape) == S and regionex._reduced_dims(b) == D, b
+            else:
+                assert out == S or [n for n in out if n != 1] == kept, (b, S, D)
         return
     S, rd = r.spec.rows
     kept = [n for n in S[:len(S) - rd] if n != 1]
     for b in r.members:
         out = tuple(b.flat_proxy_outs()[0].shape)
-        if b.sym.name in REDUCTIONS:
+        if b.sym.name in REDUCTIONS + ("prod",):
             a = b.args[0]
-            assert tuple(a.shape) == S and regionex.trailing_r(b) == rd, b
+            assert tuple(a.shape) == S and (regionex.trailing_r(b) == rd
+                                            or regionex.is_column_sum(b, S, rd)), b
         else:
             assert out == S or [n for n in out if n != 1] == kept, (b, S, rd)
 
@@ -120,21 +134,27 @@ def train_trace():
 
 
 def test_train_step_regions_follow_the_row_space_rule(train_trace):
-    """Every region of the step is one row space; the reductions left as
-    torch calls are the leading and middle ones only (the norm weights'
-    column sums over (0, 1), the GQA group sums over dim 2); the norms' row
-    sums, forward and backward (5 norms: 10), and the loss's reductions
-    (its row max and sum, the mean over the rows) sit in regions."""
+    """Every region of the step is one space; no reduction is left a torch
+    call: the norms' row sums, forward and backward (5 norms: 10), and the
+    loss's reductions (its row max and sum, the mean over the rows) sit in
+    row spaces, the norm weights' column sums over (0, 1) (5) in their
+    norm backward's row space, the GQA group sums over dim 2 (2 layers, dK
+    and dV: 4) in column regions."""
     regions = regions_of(train_trace)
     for r in regions:
         _check_row_space(r)
-    left = [b for b in train_trace.bound_symbols if b.sym.name in REDUCTIONS]
-    assert left and all(regionex.trailing_r(b) is None for b in left), left
-    assert {tuple(b.args[1]) for b in left} == {(0, 1), (2,)}
+    left = [b for b in train_trace.bound_symbols if b.sym.name in REDUCTIONS + ("prod",)]
+    assert not left, left
+    cols = [b for r in regions if r.spec.rows for b in r.members
+            if regionex.is_column_sum(b, *r.spec.rows)]
+    assert len(cols) == 5 and {tuple(b.args[1]) for b in cols} == {(0, 1)}
+    groups = [r for r in regions if r.spec.cols]
+    assert len(groups) == 4 and {r.spec.cols[1] for r in groups} == {(2,)}
     inside = collections.Counter(b.sym.name for r in regions for b in r.members
                                  if b.sym.name in REDUCTIONS)
-    norm_rows = sum(1 for r in regions for b in r.members
-                    if b.sym.name == "sum" and r.spec.rows[0][-1] == 64)
+    norm_rows = sum(1 for r in regions if r.spec.rows for b in r.members
+                    if b.sym.name == "sum" and r.spec.rows[0][-1] == 64
+                    and regionex.trailing_r(b))
     assert norm_rows >= 10 and inside["amax"] >= 1, inside
     full = [r for r in regions if r.spec.rows and len(r.spec.rows[0]) == r.spec.rows[1]]
     assert full, "the loss's mean over the rows is in no region"
@@ -248,17 +268,24 @@ def test_extremes_and_indices_in_one_pass():
 
 
 def test_long_rows_and_leading_reductions_stay_out():
-    """A row past ``MAX_ROW`` elements, a reduction over a leading or
-    middle dim and one over a dim of one element run as torch calls."""
-    for fn, shape in ((lambda x: (x * 2).sum(0), (4, 8)), (lambda x: (x * 2).sum(1), (2, 3, 4)),
-                      (lambda x: (x * 2).sum(-1), (4, 1))):
+    """A row past ``MAX_ROW`` elements (trailing or leading) and a
+    reduction over a dim of one element run as torch calls; a reduction
+    over a leading or a middle dim now joins a region of the column
+    design."""
+    for fn, shape in ((lambda x: (x * 2).sum(0), (4, 8)), (lambda x: (x * 2).sum(1), (2, 3, 4))):
         jf = ptt.jit(fn, device="cpu")
         jf(torch.randn(shape))
         names = [b.sym.name for b in ptt.last_execution_trace(jf).bound_symbols]
-        assert "sum" in names, names
+        assert "sum" not in names, names
+        (r,) = regions_of(ptt.last_execution_trace(jf))
+        assert r.spec.design == "column" and r.spec.cols[1] == ((0,) if len(shape) == 2 else (1,))
     jf = ptt.jit(lambda x: (x * 2).sum(-1), device="cpu")
-    jf.compile(torch.empty(2, regionex.MAX_ROW + 1))
+    jf(torch.randn(4, 1))
     assert "sum" in [b.sym.name for b in ptt.last_execution_trace(jf).bound_symbols]
+    for shape, dim in (((2, regionex.MAX_ROW + 1), -1), ((regionex.MAX_ROW + 1, 2), 0)):
+        jf = ptt.jit(lambda x: (x * 2).sum(dim), device="cpu")
+        jf.compile(torch.empty(shape))
+        assert "sum" in [b.sym.name for b in ptt.last_execution_trace(jf).bound_symbols]
 
 
 # -- the regions' nvcc ----------------------------------------------------------

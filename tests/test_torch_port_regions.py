@@ -108,11 +108,12 @@ def runs(request):
 
 def test_regions_form_of_unclaimed_elementwise_prims(runs):
     """The step's execution trace holds regions, each of at least two
-    unclaimed elementwise, broadcast or convert prims, reductions of
-    trailing dims, or views that add or drop 1s: an elementwise region of
-    one output shape, a region with reductions of one row space (its
-    members of shape S, its reductions of S's last r dims, its per-row
-    members of the kept shape); with regions off it holds none."""
+    unclaimed elementwise, broadcast or convert prims, reductions, or views
+    that add or drop 1s: an elementwise region of one output shape, a
+    region with reductions of one space (its members of shape S, its
+    reductions of S over the space's dims D, a row space's column sums
+    over its kept dims, its per-row members of the kept shape); with
+    regions off it holds none."""
     regions = regions_of(runs["on"]["trc"])
     assert len(regions) > 10 and runs["grad_regions"] > 10
     assert any(r.spec.rows for r in regions)
@@ -121,16 +122,21 @@ def test_regions_form_of_unclaimed_elementwise_prims(runs):
         for b in r.members:
             assert b.sym.executor is None
             assert (prims.OpTags.ELEMENTWISE_OP in b.sym.tags or b.sym.name in FUSIBLE
-                    or regionex.trailing_r(b) or regionex.is_unit_view(b)), b
-        if r.spec.rows is None:
+                    or regionex._reduced_dims(b) or regionex.is_unit_view(b)), b
+        if r.spec.design == "elementwise":
             assert len({tuple(b.flat_proxy_outs()[0].shape) for b in r.members}) == 1
             continue
-        S, rd = r.spec.rows
-        kept = [n for n in S[:len(S) - rd] if n != 1]
+        S, D = r.spec.cols if r.spec.cols else (r.spec.rows[0], tuple(
+            range(len(r.spec.rows[0]) - r.spec.rows[1], len(r.spec.rows[0]))))
+        kept = [n for d, n in enumerate(S) if d not in D and n != 1]
         for b in r.members:
             out = tuple(b.flat_proxy_outs()[0].shape)
-            if regionex.trailing_r(b):
-                assert tuple(b.args[0].shape) == S and regionex.trailing_r(b) == rd
+            if regionex._reduced_dims(b):
+                # a reduction of S over the space's dims, or a row space's
+                # column sum over its kept dims
+                assert tuple(b.args[0].shape) == S and (
+                    regionex._reduced_dims(b) == D
+                    or r.spec.rows and regionex.is_column_sum(b, *r.spec.rows)), b
             else:
                 assert out == S or [n for n in out if n != 1] == kept, (b, S)
     assert regions_of(runs["off"]["trc"]) == []

@@ -231,7 +231,8 @@ def run(model: str = "tiny", layers: int | None = None, batch: int = 4, seq: int
     (seeded by ``data_seed``); ``audit`` prints each timed step's loss.
     Each step's batch index, loss, host-clock time (the batch's fetch and
     copy included: ``batch_ms``) and kernel launches are in ``per_step``.
-    ``launches`` counts the kernels of the whole run, warm-up included.
+    ``launches`` counts the kernels of the whole run, warm-up included, and
+    ``region_designs`` its region launches by design.
     ``opt`` defaults to ``AdamW(lr=lr)`` and ``state``, the optimizer state,
     to ``opt.init(params)``; the steps leave ``params`` and ``state`` (their
     dicts and lists) holding the new values. ``loss`` and ``remat`` are
@@ -297,7 +298,7 @@ def run(model: str = "tiny", layers: int | None = None, batch: int = 4, seq: int
 
         return ptt.compile_stats(jstep).whole_program_captures
 
-    first = cudaex.launch_counts()
+    first, snap = cudaex.launch_counts(), cudaex.count_snapshot()
     t0 = time.perf_counter()
     losses = [float(step())]   # warm-up (the compile, and the first call per call)
     warmup_s = time.perf_counter() - t0
@@ -319,7 +320,8 @@ def run(model: str = "tiny", layers: int | None = None, batch: int = 4, seq: int
                          "batch_ms": batch_ms[-1], "capture": captured,
                          "launches": {k: after[k] - before[k] for k in after
                                       if after[k] != before[k]}})
-    last = cudaex.launch_counts()
+    last, region_designs = cudaex.launch_counts(), cudaex.count_delta(snap).get("region",
+                                                                                (0, {}))[1]
     # a step that captured the CUDA graph is left out of the mean
     timed = [s for s in per_step if not s["capture"]] or per_step
     step_ms = sum(s["ms"] for s in timed) / max(len(timed), 1)
@@ -339,6 +341,7 @@ def run(model: str = "tiny", layers: int | None = None, batch: int = 4, seq: int
         "stream_path": stream.stream_path() if stream else None,
         "guard": guard is not None, "compiled": jstep is not None,
         "launches": {k: last[k] - first[k] for k in last if last[k] != first[k]},
+        "region_designs": region_designs,
     }
     if jstep is not None:
         import thunder_tpu_torch as ptt

@@ -10,8 +10,8 @@
 // an elementwise region is one thread an element in a grid-stride loop; a
 // region with row reductions (its members reduce the trailing dims of one
 // row space) is one CTA a row, grid-striding over rows, one pass over the
-// row a reduction level (each pass recomputes what it needs from the
-// inputs) and a last pass for what follows the last reduction. Each member
+// row a reduction level (each pass computes what it needs from the inputs)
+// and a last pass for what follows the last reduction. Each member
 // is computed in the compute type torch's CUDA kernel uses (float32 for the
 // 16-bit types) and rounded to its dtype after each member, as the op-by-op
 // chain rounds. The block reductions below combine in a fixed order (each
@@ -22,6 +22,21 @@
 // cluster of up to 8 CTAs: each CTA reduces its part of the row, then every
 // CTA combines the cluster's partials from distributed shared memory in rank
 // order (cluster_reduce / cluster_arg below), so the order stays fixed.
+//
+// Where a row's inputs that two passes read fit in shared memory, the CTA
+// stages them there once a row (stage_row: 16-byte copies where the row is
+// contiguous and aligned) and every pass reads them from there: the row is
+// read from global memory once (design ``smem``). A sum over the kept dims
+// of a row space (a norm weight's column sum) accumulates each CTA's rows
+// column by column in shared memory, writes one partial a CTA, and
+// finish_columns sums the partials as a fixed tree.
+//
+// A reduction over other dims than the trailing ones (design ``column``):
+// a CTA owns a tile of kept elements, its threads along the kept index (so
+// the loads coalesce where the innermost dim is kept), each column of
+// threads a strided share of the reduced elements in order; tile_reduce
+// combines them as a fixed tree, tile_cluster_reduce a cluster's CTAs in
+// rank order where the reduced extent is split across a cluster.
 #pragma once
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -46,11 +61,32 @@ __device__ __forceinline__ T floor_div(T a, T b) {
   return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
 }
 
+// a read of a region's input through the read-only data cache: a kernel
+// never writes its inputs (its outputs are fresh tensors), so the compiler
+// may move such a read above an earlier store and keep several in flight
+template <typename T>
+__device__ __forceinline__ T ld(const T* p) { return __ldg(p); }
+template <> __device__ __forceinline__ bool ld<bool>(const bool* p) {
+  return __ldg(reinterpret_cast<const unsigned char*>(p)) != 0;
+}
+template <> __device__ __forceinline__ long ld<long>(const long* p) {
+  return static_cast<long>(__ldg(reinterpret_cast<const long long*>(p)));
+}
+
 // -- reductions -------------------------------------------------------------
 
 struct Sum {
   template <typename T>
   __device__ __forceinline__ T operator()(T a, T b) const { return a + b; }
+};
+// integers multiply as int64 does on the card (wrapping), floats as floats
+struct Prod {
+  template <typename T>
+  __device__ __forceinline__ T operator()(T a, T b) const { return a * b; }
+  __device__ __forceinline__ long long operator()(long long a, long long b) const {
+    return static_cast<long long>(static_cast<unsigned long long>(a) *
+                                  static_cast<unsigned long long>(b));
+  }
 };
 // torch's amax / amin: a NaN anywhere makes the result NaN
 struct MaxNan {
@@ -198,6 +234,111 @@ __device__ __forceinline__ long long cluster_arg(T av, long long ai, T* sv, long
     arg_step<MAX>(bv, bi, *cl.map_shared_rank(sv, k), *cl.map_shared_rank(si, k));
   cl.sync();
   return bi;
+}
+
+// -- shared-memory rows -------------------------------------------------------
+
+// n elements of a contiguous row part from src to dst by the CTA's threads:
+// 16-byte copies where ``vec`` (src and dst 16-byte aligned), then the tail
+template <typename T, typename I>
+__device__ __forceinline__ void stage_row(T* dst, const T* src, I n, bool vec) {
+  I e = 0;
+  if (vec) {
+    constexpr int V = 16 / sizeof(T) > 0 ? 16 / sizeof(T) : 1;
+    const I nv = n / V;
+    const uint4* s = reinterpret_cast<const uint4*>(src);
+    uint4* d = reinterpret_cast<uint4*>(dst);
+    for (I v = threadIdx.x; v < nv; v += blockDim.x) d[v] = __ldg(s + v);
+    e = nv * V;
+  }
+  for (I k = e + threadIdx.x; k < n; k += blockDim.x) dst[k] = ld(src + k);
+}
+
+__host__ __device__ __forceinline__ size_t align16(size_t n) { return (n + 15) / 16 * 16; }
+
+// an accumulator's value as the output's storage type: rounded once
+template <typename O, typename A>
+__device__ __forceinline__ O store_as(A v) { return static_cast<O>(v); }
+template <> __device__ __forceinline__ __nv_bfloat16 store_as<__nv_bfloat16, float>(float v) {
+  return __float2bfloat16_rn(v);
+}
+template <> __device__ __forceinline__ __half store_as<__half, float>(float v) {
+  return __float2half_rn(v);
+}
+
+// -- column tiles -------------------------------------------------------------
+
+// a (blockDim.x, blockDim.y) tile's values combined down each column of
+// threads as a fixed tree (blockDim.y a power of two); every thread gets its
+// column's total. ``sm`` holds blockDim.x * blockDim.y values of T
+template <typename T, typename Op>
+__device__ __forceinline__ T tile_reduce(T v, Op op, T* sm) {
+  const int x = threadIdx.x, y = threadIdx.y, tx = blockDim.x;
+  sm[y * tx + x] = v;
+  __syncthreads();
+  for (int s = blockDim.y / 2; s > 0; s >>= 1) {
+    if (y < s) sm[y * tx + x] = op(sm[y * tx + x], sm[(y + s) * tx + x]);
+    __syncthreads();
+  }
+  const T r = sm[x];
+  __syncthreads();
+  return r;
+}
+
+// the cluster's tile totals (column x's in sm[x] of every CTA) combined in
+// rank order
+template <typename T, typename Op>
+__device__ __forceinline__ T tile_cluster_reduce(Op op, T* sm) {
+  cooperative_groups::cluster_group cl = cooperative_groups::this_cluster();
+  cl.sync();
+  T r = *cl.map_shared_rank(sm + threadIdx.x, 0);
+  for (unsigned k = 1; k < cl.num_blocks(); ++k)
+    r = op(r, *cl.map_shared_rank(sm + threadIdx.x, k));
+  cl.sync();
+  return r;
+}
+
+// the sum of part[p0 * R], ..., part[(p1 - 1) * R] as a fixed tree (a binary
+// counter: each term merges with the equal-sized subtrees before it, then the
+// subtrees left fold from the newest)
+template <typename A>
+__device__ __forceinline__ A tree_sum(const A* part, long long p0, long long p1, long long R) {
+  A st[48];
+  int lv[48];
+  int top = 0;
+  for (long long p = p0; p < p1; ++p) {
+    A v = part[p * R];
+    int l = 0;
+    while (top > 0 && lv[top - 1] == l) {
+      v = st[--top] + v;
+      ++l;
+    }
+    st[top] = v;
+    lv[top++] = l;
+  }
+  if (top == 0) return A(0);
+  A r = st[top - 1];
+  for (int k = top - 2; k >= 0; --k) r = st[k] + r;
+  return r;
+}
+
+// the column sums' partials, P rows of R, summed column by column: a CTA of
+// (FINISH_X, FINISH_Y) threads a tile of FINISH_X columns, each of its
+// FINISH_Y lanes a tree over its block of ceil(P / FINISH_Y) partials, the
+// lanes then a tree (tile_reduce); rounded once to the output's type
+constexpr int FINISH_X = 8;
+constexpr int FINISH_Y = 32;
+template <typename A, typename O>
+__global__ void __launch_bounds__(FINISH_X * FINISH_Y) finish_columns(const A* part, long long P,
+                                                                     long long R, O* out) {
+  __shared__ A sm[FINISH_X * FINISH_Y];
+  const long long c = static_cast<long long>(blockIdx.x) * FINISH_X + threadIdx.x;
+  const long long q = (P + FINISH_Y - 1) / FINISH_Y;
+  const long long p0 = threadIdx.y * q < P ? threadIdx.y * q : P;
+  const long long p1 = p0 + q < P ? p0 + q : P;
+  const A v = c < R ? tree_sum(part + (c < R ? c : 0), p0, p1, R) : A(0);
+  const A t = tile_reduce(v, Sum(), sm);
+  if (threadIdx.y == 0 && c < R) out[c] = store_as<O>(t);
 }
 
 }  // namespace ttr

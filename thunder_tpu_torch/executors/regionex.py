@@ -6,23 +6,27 @@ reductions included (its ``can_fuse`` :84-99 takes any prim with an eager
 implementation). Here the ``region`` fusion executor groups the unclaimed
 prims of an execution trace that it can generate (every prim tagged
 ``ELEMENTWISE_OP``, ``broadcast_in_dim``, ``convert_element_type``,
-``sum``/``amax``/``amin``/``argmax``/``argmin`` over the trailing dims of
-their input, and the ``reshape``/``squeeze`` views that only add or drop 1s,
-as ``keepdim`` does; never a reduction over a leading or middle dim, a
-``prod`` or ``cumsum``, a view of another kind, a host-sync op or anything
+``sum``/``prod``/``amax``/``amin`` over any dims of their input that hold
+more than one element, ``argmax``/``argmin`` over its last dim, and the
+``reshape``/``squeeze`` views that only add or drop 1s, as ``keepdim``
+does; never ``cumsum``, a view of another kind, a host-sync op or anything
 another executor claimed) with the reference's dataflow partitioner
 (:mod:`~thunder_tpu_torch.executors.data_dependent_partition`), splits each
-group into row spaces and output shapes (:func:`split_row_spaces`), and
-binds each part of at least ``region_min_region_size`` members as one
-symbol ``region.fusion<i>``, its members kept as subsymbols.
+group into spaces and output shapes (:func:`split_row_spaces`), and binds
+each part of at least ``region_min_region_size`` members as one symbol
+``region.fusion<i>``, its members kept as subsymbols.
 
-A region is one row space ``(S, r)``: S its iteration shape, r how many of
-S's trailing dims its reductions reduce. Its members are the elementwise,
-broadcast and convert members of shape S, the reductions of S over its last
-r dims, the per-row members of the kept shape (S without its last r dims,
-with or without 1s) that read a reduction's result or that only the row
-space reads, and the broadcasts of per-row values back to S. A region of
-one output shape without reductions is the r = 0 case.
+A region is one space ``(S, D)``: S its iteration shape, D the dims its
+reductions reduce. Where D is S's last r dims it is a row space ``(S,
+r)``: its members are the elementwise, broadcast and convert members of
+shape S, the reductions of S over its last r dims, the sums of S over
+every kept dim (a norm weight's column sum, :func:`is_column_sum`), the
+per-row members of the kept shape (S without its last r dims, with or
+without 1s) that read a reduction's result or that only the row space
+reads, and the broadcasts of per-row values back to S. Other dims make a
+column space: its members of shape S read only the inputs, its reductions
+reduce D, its per-kept members follow them. A region of one output shape
+without reductions is the elementwise case.
 
 A region's callable (:class:`Region`) runs its plain version for tensors on
 the CPU: the members' torch implementations in order (the reference's
@@ -34,15 +38,22 @@ and bound with ``ctypes`` as the hand-written kernels of
 Pallas kernel: it stands for the XLA fusions the reference's regions
 become. It is bound by bytes (each input read once, each output written
 once). An elementwise region is one pass over its iteration space, every
-intermediate kept in registers. A region with reductions is one CTA a row
-of S (grid-striding over the rows): a pass over the row for each reduction
+intermediate kept in registers. A row space is one CTA a row of S
+(grid-striding over the rows): a pass over the row for each reduction
 level (a reduction whose input depends on an earlier reduction's result is
 a level deeper), then the per-row members of that level, broadcast to the
 CTA, and a last pass for the outputs of S that follow the last level; each
-pass recomputes from the inputs the members of S it needs, so nothing of
-shape S but the region's outputs is written. The block reductions combine
-in a fixed order (``csrc/region.cuh``), so two launches on the same inputs
-agree bit for bit.
+pass computes the members of S it needs from the inputs, so nothing of
+shape S but the region's outputs is written. The inputs of S that two
+passes read are staged in shared memory once a row where they fit (16-byte
+copies where the row is contiguous and aligned): the row is read from
+device memory once. Its column sums accumulate each CTA's rows in shared
+memory, one partial a CTA, summed as a fixed tree by a second kernel. A
+column space is one CTA a tile of kept elements, a thread each, its thread
+rows each a strided share of the reduced elements in order, the reduced
+extent split across a cluster where the tiles do not fill the card. Every
+combination runs in a fixed order (``csrc/region.cuh``), so two launches on
+the same inputs agree bit for bit.
 
 Numerics: the region equals its plain chain, but for the order of a sum's
 terms. Each op computes as torch's CUDA kernel does: 16-bit values in
@@ -56,7 +67,8 @@ math); ``t / c`` as torch computes it, ``t * (1 / c)``, and ``c / t`` as
 minus infinity. Bool and integer members keep their dtypes. A ``sum``
 accumulates as torch's does (float32 for the 16-bit floats and float32,
 rounded once to its dtype; float64; int64 for bools and integers), in
-another order than torch's kernel; ``amax``/``amin`` propagate NaN;
+another order than torch's kernel; a ``prod`` likewise (int64 products
+wrap as torch's do); ``amax``/``amin`` propagate NaN;
 ``argmax``/``argmin`` take the lowest index among equal extremes, a NaN
 counting as the extreme.
 
@@ -73,9 +85,11 @@ under a hash of its source; a library already there is loaded without
 runs the plain chain on the card in its place.
 
 Launches: each one counts under the ``region`` entry of
-``cudaex.launch_counts()`` (design ``contiguous``, ``strided`` or
-``reduce``), on ``torch.cuda.current_stream()``; its arguments follow from
-shapes and strides, so a CUDA graph captures it (``cudagraphex``). 64-bit
+``cudaex.launch_counts()`` (design ``contiguous``, ``strided``, ``smem``,
+``reduce``, ``smem_partials``, ``reduce_partials`` or ``column``), on
+``torch.cuda.current_stream()``; its arguments follow from shapes and
+strides and its scratch (the column sums' partials) comes from
+``torch.empty``, so a CUDA graph captures it (``cudagraphex``). 64-bit
 indices where the iteration space or an offset passes 2^31 - 1.
 
 The reference's ``xla_absorb_claimed`` is not ported: a hand-written
@@ -93,7 +107,7 @@ import re
 import subprocess
 import threading
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from pathlib import Path
 
 import numpy as np
@@ -268,12 +282,33 @@ def _dtype_of(x):
     return x.dtype if isinstance(x, TensorProxy) else type(x)
 
 
-_REDUCTIONS = (PrimIDs.SUM, PrimIDs.AMAX, PrimIDs.AMIN, PrimIDs.ARGMAX, PrimIDs.ARGMIN)
+_REDUCTIONS = (PrimIDs.SUM, PrimIDs.PROD, PrimIDs.AMAX, PrimIDs.AMIN, PrimIDs.ARGMAX,
+               PrimIDs.ARGMIN)
+_ARG = (PrimIDs.ARGMAX, PrimIDs.ARGMIN)
 # the dtypes amax, amin, argmax and argmin take in a region (each shuffled
 # as itself between a warp's lanes)
 _EXTREME_DTYPES = ("float32", "bfloat16", "float16", "float64", "int32", "int64")
-# the longest row a region reduces: one CTA reads the whole row
+# the most elements a region reduces into one value: one CTA (or cluster)
+# reads them all
 MAX_ROW = 1 << 20
+# dynamic shared memory a CTA of a region with row reductions may take (set
+# at bind time; the H100 allows 227 KB a CTA, 228 KB an SM)
+SMEM_BUDGET = 200 * 1024
+SMEM_PER_SM = 228 * 1024
+# a column sum joins a row space where its accumulators (one a column of
+# the row) take at most this many bytes of a CTA's shared memory
+COLUMN_SUM_BYTES = 64 * 1024
+# a reduction over other dims than the trailing ones (the column design):
+# CTAs of COLUMN_THREADS threads, the reduced extent split across a cluster
+# where the kept tiles do not fill the card, at least CLUSTER_MIN_ROWS
+# reduced elements a thread row of a CTA
+COLUMN_THREADS = 256
+CLUSTER_MIN_ROWS = 16
+COLUMN_ALONE = 32
+COLUMN_UNROLL = 4
+# the column sums' finishing pass: CTAs of FINISH_X columns by FINISH_Y
+# lanes (csrc/region.cuh finish_columns)
+FINISH_X, FINISH_Y = 8, 32
 
 
 def _reduced_dims(b: BoundSymbol) -> tuple | None:
@@ -282,7 +317,7 @@ def _reduced_dims(b: BoundSymbol) -> tuple | None:
     if b.sym.id not in _REDUCTIONS or not b.args or not isinstance(b.args[0], TensorProxy):
         return None
     nd = b.args[0].ndim
-    if b.sym.id in (PrimIDs.ARGMAX, PrimIDs.ARGMIN):
+    if b.sym.id in _ARG:
         dim = b.args[1] if len(b.args) > 1 else None
         if dim is None:
             return tuple(range(nd))
@@ -303,6 +338,12 @@ def trailing_r(b: BoundSymbol) -> int | None:
         return None
     n = math.prod(a.shape[a.ndim - r:])
     return r if 1 < n <= MAX_ROW else None
+
+
+def reduced_extent(b: BoundSymbol) -> int:
+    """How many elements the reduction ``b`` reduces into each value."""
+    a = b.args[0]
+    return math.prod(a.shape[d] for d in _reduced_dims(b))
 
 
 def is_unit_view(b: BoundSymbol) -> bool:
@@ -336,9 +377,14 @@ def _supported(b: BoundSymbol) -> bool:
     if pid in (PrimIDs.BROADCAST_IN_DIM, PrimIDs.CONVERT_ELEMENT_TYPE):
         return True
     if pid in _REDUCTIONS:
-        if trailing_r(b) is None:
+        # argmax/argmin over one trailing dim; the others over any dims
+        # that hold more than one element
+        if pid in _ARG:
+            if trailing_r(b) is None:
+                return False
+        elif not _reduced_dims(b) or not 1 < reduced_extent(b) <= MAX_ROW:
             return False
-        if pid is PrimIDs.SUM:
+        if pid in (PrimIDs.SUM, PrimIDs.PROD):
             return True
         return tensors[0].dtype.name in _EXTREME_DTYPES
     if pid in (PrimIDs.RESHAPE, PrimIDs.SQUEEZE):
@@ -464,12 +510,18 @@ class RegionSpec:
     input (a member's broadcast reads its input through its own strides),
     ``source`` the generated CUDA C++, ``entry`` its C entry point (named by
     a hash of the source), ``transcendental`` whether a member's device
-    function may differ from the chain's in the last place. A region with
-    row reductions (:func:`reduce_source`) has ``rows`` set: ``(S, r)``,
-    its row space (the members' iteration shape and how many of its trailing
+    function may differ from the chain's in the last place, ``design``
+    ``"elementwise"``, ``"row"`` or ``"column"``. A region with row
+    reductions (:func:`reduce_source`) has ``rows`` set: ``(S, r)``, its
+    row space (the members' iteration shape and how many of its trailing
     dims they reduce); its ``loads`` are then ``(input index, "S" or "K",
     iteration shape, broadcast dims or None)``: a read at each element of
-    ``S`` or once a row."""
+    ``S`` or once a row; ``staged`` the loads two passes read, each with
+    its element's bytes (kept in shared memory where they fit);
+    ``col_sums`` its column sums, each as (output index, accumulator
+    C type). A region of the column design (:func:`column_source`) has
+    ``cols`` set: ``(S, D)``, its space and the dims its reductions
+    reduce; ``s_outs`` its outputs of shape S."""
 
     loads: list
     source: str
@@ -477,6 +529,11 @@ class RegionSpec:
     transcendental: bool
     rows: tuple | None = None
     param_bytes: int = 0
+    design: str = "elementwise"
+    staged: list = field(default_factory=list)
+    col_sums: list = field(default_factory=list)
+    cols: tuple | None = None
+    s_outs: list = field(default_factory=list)
 
 
 def region_source(members: list[BoundSymbol], inputs: list[Proxy],
@@ -566,20 +623,55 @@ def region_source(members: list[BoundSymbol], inputs: list[Proxy],
     return RegionSpec(loads, src, entry, any(b.sym.id in TRANSCENDENTAL for b in members))
 
 
-def row_roles(members: list[BoundSymbol]) -> tuple[tuple, int, dict] | None:
-    """The row space ``(S, r)`` of a region's members and each member's
-    role (``"S"``: of shape S; ``"red"``: a reduction of S over its last r
-    dims; ``"K"``: a per-row value, of the kept shape with or without its
-    1s); None for a region without reductions."""
+def reduction_space(members: list[BoundSymbol]) -> tuple | None:
+    """The space a region's reductions reduce: ``("row", S, r)`` where one
+    of them reduces the last r dims of S (the row design,
+    :func:`reduce_source`), ``("column", S, D)`` where they reduce the dims
+    D of S, not trailing ones (the column design, :func:`column_source`);
+    None for a region without reductions."""
     reds = [b for b in members if b.sym.id in _REDUCTIONS]
     if not reds:
         return None
-    S = tuple(reds[0].args[0].shape)
-    r = trailing_r(reds[0])
+    for b in reds:
+        r = trailing_r(b)
+        if r:
+            return "row", tuple(b.args[0].shape), r
+    return "column", tuple(reds[0].args[0].shape), _reduced_dims(reds[0])
+
+
+_ACC_BYTES = {"float": 4, "double": 8, "long long": 8}
+_ACC_TORCH = {"float": torch.float32, "double": torch.float64, "long long": torch.int64}
+
+
+def is_column_sum(b: BoundSymbol, S: tuple, r: int) -> bool:
+    """Is ``b`` a ``sum`` of the row space ``(S, r)`` over its kept dims
+    (each of them that holds more than one element), whose accumulators
+    (one a column of the row) fit in :data:`COLUMN_SUM_BYTES`: a norm
+    weight's column sum, which joins the row space (:func:`reduce_source`)?"""
+    if b.sym.id is not PrimIDs.SUM or tuple(b.args[0].shape) != S:
+        return False
+    dims = set(_reduced_dims(b) or ())
+    kept = set(range(len(S) - r))
+    if not dims or not dims <= kept or not {d for d in kept if S[d] != 1} <= dims:
+        return False
+    return math.prod(S[len(S) - r:]) * _ACC_BYTES[_acc_type(b.args[0].dtype)] <= COLUMN_SUM_BYTES
+
+
+def row_roles(members: list[BoundSymbol]) -> tuple[tuple, int, dict] | None:
+    """The row space ``(S, r)`` of a region's members and each member's
+    role (``"S"``: of shape S; ``"red"``: a reduction of S over its last r
+    dims; ``"col"``: a sum of S over its kept dims, :func:`is_column_sum`;
+    ``"K"``: a per-row value, of the kept shape with or without its 1s);
+    None for a region without row reductions."""
+    space = reduction_space(members)
+    if space is None or space[0] != "row":
+        return None
+    _, S, r = space
     roles = {}
     for b in members:
         if b.sym.id in _REDUCTIONS:
-            roles[id(b)] = "red"
+            row = tuple(b.args[0].shape) == S and trailing_r(b) == r
+            roles[id(b)] = "red" if row else "col"
         else:
             roles[id(b)] = "S" if tuple(b.flat_proxy_outs()[0].shape) == S else "K"
     return S, r, roles
@@ -589,11 +681,92 @@ _VAR = re.compile(r"\b[vlk]\d+\b")
 
 
 def _acc_type(dt: dtypes.dtype) -> str:
-    """The accumulator of a sum of ``dt`` (torch's: float32 for the 16-bit
-    floats and float32, float64 for float64, int64 for bools and integers)."""
+    """The accumulator of a sum or product of ``dt`` (torch's: float32 for
+    the 16-bit floats and float32, float64 for float64, int64 for bools and
+    integers)."""
     if dt.is_exact:
         return "long long"
     return "double" if dt.name == "float64" else "float"
+
+
+def _reduction_parts(b: BoundSymbol) -> tuple[str, str, str]:
+    """``(accumulator type, combining op, identity)`` of the reduction
+    ``b`` (``sum``, ``prod``, ``amax``, ``amin``)."""
+    x = b.args[0]
+    if b.sym.id is PrimIDs.SUM:
+        at = _acc_type(x.dtype)
+        return at, "ttr::Sum()", f"({at})0"
+    if b.sym.id is PrimIDs.PROD:
+        at = _acc_type(x.dtype)
+        return at, "ttr::Prod()", f"({at})1"
+    mx = b.sym.id is PrimIDs.AMAX
+    at = _ct(x.dtype)
+    return at, f"ttr::{'MaxNan' if mx else 'MinNan'}()", f"ttr::{'lowest' if mx else 'highest'}<{at}>()"
+
+
+def _total(b: BoundSymbol, t: str) -> str:
+    """A reduction's total ``t`` (its accumulator) as its result: a sum or
+    product rounded once to its dtype."""
+    if b.sym.id in (PrimIDs.SUM, PrimIDs.PROD):
+        return _round(t, b.flat_proxy_outs()[0].dtype)
+    return t
+
+
+def _named(src: str) -> tuple[str, str]:
+    """``src`` with its ``@`` names made unique by a hash of it, and its
+    entry point."""
+    digest = hashlib.sha256(src.encode()).hexdigest()[:16]
+    entry = f"tt_region_{digest}"
+    return src.replace("@entry", entry).replace("@", f"_{digest}"), entry
+
+
+def _launcher(kernel: str, grid: str, block: str, smem: str) -> list[str]:
+    """The lines of an entry point that launch ``kernel`` with ``{I}`` its
+    index type (``long long`` where ``idx64``) on ``grid`` CTAs of
+    ``block`` threads with ``smem`` bytes of dynamic shared memory, in
+    clusters of ``a.cluster`` CTAs where it is above 1; ``rc`` holds the
+    CUDA error."""
+    k64, k32 = kernel.format(I="long long"), kernel.format(I="int")
+    return [
+        "  if (a.cluster > 1) {",
+        "    cudaLaunchConfig_t cfg = {};",
+        f"    cfg.gridDim = dim3({grid});",
+        f"    cfg.blockDim = {block};",
+        f"    cfg.dynamicSmemBytes = {smem};",
+        "    cfg.stream = s;",
+        "    cudaLaunchAttribute attr[1];",
+        "    attr[0].id = cudaLaunchAttributeClusterDimension;",
+        "    attr[0].val.clusterDim.x = a.cluster;",
+        "    attr[0].val.clusterDim.y = 1;",
+        "    attr[0].val.clusterDim.z = 1;",
+        "    cfg.attrs = attr;",
+        "    cfg.numAttrs = 1;",
+        f"    rc = idx64 ? cudaLaunchKernelEx(&cfg, {k64}, a)",
+        f"               : cudaLaunchKernelEx(&cfg, {k32}, a);",
+        "  } else {",
+        f"    if (idx64) {k64}<<<{grid}, {block}, {smem}, s>>>(a);",
+        f"    else {k32}<<<{grid}, {block}, {smem}, s>>>(a);",
+        "    rc = cudaSuccess;",
+        "  }",
+        "  if (rc == cudaSuccess) rc = cudaGetLastError();",
+    ]
+
+
+def _off_fn(name: str, lo: str, hi: str, var: str, dense: str | None = None) -> list[str]:
+    """A device function ``name(a, k, var)``: the element offset of
+    descriptor k at index ``var`` decomposed over its dims ``lo`` to
+    ``hi`` - 1 (innermost last)."""
+    return ["template <typename I>",
+            f"__device__ __forceinline__ I {name}(const Args@& a, int k, I {var}) {{",
+            *([f"  if (a.dense[k]) return {dense};"] if dense else []),
+            "  I o = 0;",
+            f"  for (int d = {hi} - 1; d >= {lo}; --d) {{",
+            "    const I sz = static_cast<I>(a.size[k][d]);",
+            f"    o += ({var} % sz) * static_cast<I>(a.stride[k][d]);",
+            f"    {var} /= sz;",
+            "  }",
+            "  return o;",
+            "}"]
 
 
 def reduce_source(members: list[BoundSymbol], inputs: list[Proxy],
@@ -603,18 +776,24 @@ def reduce_source(members: list[BoundSymbol], inputs: list[Proxy],
     for each reduction level (a reduction reads members of S computed from
     per-row values of earlier levels), the per-row members after each
     level, and a last pass for the outputs of S that follow the last level.
-    Each pass recomputes the members of S it needs from the inputs; nothing
-    of shape S but the outputs is written."""
+    Each pass computes the members of S it needs from the inputs; nothing
+    of shape S but the outputs is written. The inputs of S that two passes
+    read are staged in shared memory once a row where they fit (a launch
+    argument: design ``smem``), else each pass reads them again (design
+    ``reduce``). A column sum (:func:`is_column_sum`) accumulates the
+    CTA's rows in shared memory, one partial a CTA, which a second kernel
+    sums as a tree (``ttr::finish_columns``)."""
     S, r, roles = row_roles(members)
-    K = S[:len(S) - r]
     in_index = {p.name: i for i, p in enumerate(inputs)}
     loads: list[tuple] = []
     load_of: dict[tuple, int] = {}
+    load_dt: dict[int, dtypes.dtype] = {}
     var: dict[str, str] = {}           # proxy name -> variable holding it
     depth: dict[str, int] = {}         # proxy name -> reduction level it needs
     s_lines: list[tuple[int, str]] = []   # the per-element body, (level, line)
     k_lines: list[tuple[int, str]] = []   # the per-row statements, (level, line)
     reds: list[tuple] = []             # (level, member index, member, operand)
+    cols: list[tuple] = []             # the column sums, likewise
 
     def load(p: TensorProxy, mode: str, shape, bdims) -> str:
         key = (in_index[p.name], mode, tuple(shape), None if bdims is None else tuple(bdims))
@@ -622,13 +801,13 @@ def reduce_source(members: list[BoundSymbol], inputs: list[Proxy],
             load_of[key] = len(loads)
             loads.append(key)
             k = load_of[key]
-            # a read of S: the row's base offset (computed once a row) plus
-            # the column's; a per-row read: its offset from the row
-            at = f"(a.dense[{k}] ? i : rb{k} + offc@(a, {k}, col))" if mode == "S" \
-                else f"off@(a, {k}, row)"
-            ref = f"(({_CTYPES[p.dtype.name][0]}*)a.p[{key[0]}])[{at}]"
-            (s_lines if mode == "S" else k_lines).append(
-                (0, f"const {_ct(p.dtype)} l{k} = {_load(ref, p.dtype)};"))
+            load_dt[k] = p.dtype
+            if mode == "S":
+                # the read is filled in once the passes that read it are known
+                s_lines.append((0, f"const {_ct(p.dtype)} l{k} = @L{k}@;"))
+            else:
+                ref = f"ttr::ld(({_CTYPES[p.dtype.name][0]}*)a.p[{key[0]}] + off@(a, {k}, row))"
+                k_lines.append((0, f"const {_ct(p.dtype)} l{k} = {_load(ref, p.dtype)};"))
         return f"l{load_of[key]}"
 
     def valf(mode: str):
@@ -648,12 +827,13 @@ def reduce_source(members: list[BoundSymbol], inputs: list[Proxy],
         out = b.flat_proxy_outs()[0]
         role = roles[id(b)]
         level = max((depth.get(p.name, 0) for p in b.flat_proxy_args()), default=0)
-        if role == "red":
+        if role in ("red", "col"):
             x = b.args[0]
             xv = var[x.name] if x.name in var else load(x, "S", S, None)
-            reds.append((level + 1, j, b, xv))
-            depth[out.name] = level + 1
-            var[out.name] = f"k{j}"
+            (reds if role == "red" else cols).append((level + 1, j, b, xv))
+            if role == "red":
+                depth[out.name] = level + 1
+                var[out.name] = f"k{j}"
             continue
         depth[out.name] = level
         pid = b.sym.id
@@ -669,43 +849,26 @@ def reduce_source(members: list[BoundSymbol], inputs: list[Proxy],
         (s_lines if role == "S" else k_lines).append(
             (level, f"const {_ct(out.dtype)} {name} = {expr};"))
         var[out.name] = name
-    levels = max(lv for lv, *_ in reds)
-    ni = len(inputs)
-    s_out, k_out = {}, []
+    col_of = {b.flat_proxy_outs()[0].name: j for _, j, b, _ in cols}
+    levels = max(lv for lv, *_ in reds + cols)
+    ni, no = len(inputs), len(outputs)
+    s_out, k_out, finish = {}, [], []
     for k, o in enumerate(outputs):
         store = f"(({_CTYPES[o.dtype.name][0]}*)a.p[{ni + k}])"
-        if tuple(o.shape) == S and var[o.name].startswith("v"):
+        if o.name in col_of:
+            finish.append((k, o, col_of[o.name]))     # written by the finishing pass
+        elif tuple(o.shape) == S and var[o.name].startswith("v"):
             at = max(depth[o.name] + 1, 1)
             s_out.setdefault(at, []).append(f"      {store}[i] = {_store(var[o.name], o.dtype)};")
         else:
             k_out.append(f"      {store}[row] = {_store(var[o.name], o.dtype)};")
     passes = max([levels, *s_out])
-    nl, rr = max(len(loads), 1), max([len(sh) for _, _, sh, _ in loads] + [1])
-    body = ["  for (I row = static_cast<I>(blockIdx.x) / C; row < rows;",
-            "       row += static_cast<I>(gridDim.x) / C) {"]
-    body += [f"    const I rb{k} = offr@(a, {k}, row);"
-             for k, (_, mode, _, _) in enumerate(loads) if mode == "S"]
-    body += [f"    {line}" for lv, line in k_lines if lv == 0]
+    # the members of S each pass reads: what its reductions and stores need
+    plan, read_in = [], {}
     for p in range(1, passes + 1):
         here = [rd for rd in reds if rd[0] == p]
-        for _, j, b, _ in here:
-            x = b.args[0]
-            if b.sym.id is PrimIDs.SUM:
-                body.append(f"    {_acc_type(x.dtype)} acc{j} = 0;")
-            elif b.sym.id in (PrimIDs.AMAX, PrimIDs.AMIN):
-                body.append(f"    {_ct(x.dtype)} acc{j} = ttr::"
-                            f"{'lowest' if b.sym.id is PrimIDs.AMAX else 'highest'}"
-                            f"<{_ct(x.dtype)}>();")
-            else:
-                body.append(f"    {_ct(x.dtype)} av{j} = 0; long long ai{j} = -1;")
-        # unrolled, so that a thread has several loads of its row in flight
-        body += ["#pragma unroll 4",
-                 "    for (I col = c0 + static_cast<I>(threadIdx.x); col < c1; col += blockDim.x) {",
-                 "      const I i = row * R + col;"]
-        # the members of S this pass reads: what its reductions and stores need
-        need = set()
-        for _, j, b, xv in here:
-            need.add(xv)
+        here_cols = [c for c in cols if c[0] == p]
+        need = {xv for *_, xv in here + here_cols}
         for line in s_out.get(p, []):
             need.update(_VAR.findall(line.split("=", 1)[1]))
         keep = []
@@ -714,149 +877,443 @@ def reduce_source(members: list[BoundSymbol], inputs: list[Proxy],
             if name.rsplit(" ", 1)[1] in need:
                 keep.append(line)
                 need.update(_VAR.findall(expr))
-        body += [f"      {line}" for line in reversed(keep)]
+        keep.reverse()
+        for line in keep:
+            m = re.match(r"const \S+ l(\d+) = @L", line)
+            if m:
+                read_in.setdefault(int(m.group(1)), set()).add(p)
+        plan.append((p, here, here_cols, keep))
+    # the inputs of S that two passes or more read: staged where they fit
+    staged = sorted(k for k, ps in read_in.items() if len(ps) > 1)
+
+    def read(k: int) -> str:
+        # a dense load's row offset and column stride give its index too
+        i, dt = loads[k][0], load_dt[k]
+        at = f"rb{k} + offc@(a, {k}, col)" if r == 1 else f"a.dense[{k}] ? i : rb{k} + offc@(a, {k}, col)"
+        ref = f"ttr::ld(({_CTYPES[dt.name][0]}*)a.p[{i}] + ({at}))"
+        if k in staged:
+            ref = f"(STAGED ? st{k}[col - c0] : {ref})"
+        return _load(ref, dt)
+
+    body = ["  size_t at = 0;"]
+    for k in staged:
+        st = _CTYPES[load_dt[k].name][0]
+        body += [f"  {st}* st{k} = reinterpret_cast<{st}*>(dyn@ + at);",
+                 f"  if (STAGED) at += ttr::align16(static_cast<size_t>(chunk) * sizeof({st}));"]
+    for _, j, b, _ in cols:
+        acc = _acc_type(b.args[0].dtype)
+        body += [f"  {acc}* cs{j} = reinterpret_cast<{acc}*>(dyn@ + at);",
+                 f"  at += ttr::align16(static_cast<size_t>(chunk) * sizeof({acc}));"]
+    def stage(k: int, rb: str, indent: str) -> list[str]:
+        i, st = loads[k][0], _CTYPES[load_dt[k].name][0]
+        return [f"{indent}if (a.rowc[{k}])",
+                f"{indent}  ttr::stage_row<{st}, I>(st{k}, (({st}*)a.p[{i}]) + {rb} + c0, c1 - c0,"
+                f" a.vec[{k}] != 0);",
+                f"{indent}else",
+                f"{indent}  for (I e = c0 + static_cast<I>(threadIdx.x); e < c1; e += blockDim.x)",
+                f"{indent}    st{k}[e - c0] = ttr::ld(({st}*)a.p[{i}] + {rb} + offc@(a, {k}, e));"]
+
+    if staged:
+        # an input the same for every row (a norm's weight): staged once
+        body.append("  if (STAGED) {")
+        for k in staged:
+            body += [f"    if (a.inv[{k}]) {{", *stage(k, "0", "      "), "    }"]
+        body += ["    __syncthreads();", "  }"]
+    # the rows in groups (a column sum's partial a group: its order does not
+    # depend on how many CTAs run), each CTA (cluster) a group at a time
+    body += ["  const I G = static_cast<I>(a.groups);",
+             "  for (I g = static_cast<I>(blockIdx.x) / C; g < G; g += static_cast<I>(gridDim.x) / C) {"]
+    if cols:
+        body += ["  for (I e = c0 + static_cast<I>(threadIdx.x); e < c1; e += blockDim.x) {",
+                 *(f"    cs{j}[e - c0] = 0;" for _, j, _, _ in cols), "  }"]
+    body += ["  for (I row = g; row < rows; row += G) {"]
+    body += [f"    const I rb{k} = offr@(a, {k}, row);"
+             for k, (_, mode, _, _) in enumerate(loads) if mode == "S"]
+    if staged:
+        body.append("    if (STAGED) {")
+        for k in staged:
+            body += [f"      if (!a.inv[{k}]) {{", *stage(k, f"rb{k}", "        "), "      }"]
+        body += ["      __syncthreads();", "    }"]
+    body += [f"    {line}" for lv, line in k_lines if lv == 0]
+    for p, here, here_cols, keep in plan:
+        for _, j, b, _ in here:
+            x = b.args[0]
+            if b.sym.id in _ARG:
+                body.append(f"    {_ct(x.dtype)} av{j} = 0; long long ai{j} = -1;")
+            else:
+                at, _, ident = _reduction_parts(b)
+                body.append(f"    {at} acc{j} = {ident};")
+        # unrolled, so that a thread has several loads of its row in flight
+        body += ["#pragma unroll 4",
+                 "    for (I col = c0 + static_cast<I>(threadIdx.x); col < c1; col += blockDim.x) {",
+                 "      const I i = row * R + col;"]
+        for line in keep:
+            m = re.match(r"(const \S+ l(\d+) = )@L\d+@;", line)
+            body.append(f"      {m.group(1)}{read(int(m.group(2)))};" if m else f"      {line}")
         for _, j, b, xv in here:
             x = b.args[0]
-            if b.sym.id is PrimIDs.SUM:
-                body.append(f"      acc{j} += static_cast<{_acc_type(x.dtype)}>({xv});")
-            elif b.sym.id in (PrimIDs.AMAX, PrimIDs.AMIN):
-                op = "MaxNan" if b.sym.id is PrimIDs.AMAX else "MinNan"
-                body.append(f"      acc{j} = ttr::{op}()(acc{j}, {xv});")
-            else:
+            if b.sym.id in _ARG:
                 mx = "true" if b.sym.id is PrimIDs.ARGMAX else "false"
                 body.append(f"      ttr::arg_step<{mx}>(av{j}, ai{j}, {xv}, "
                             f"static_cast<long long>(col));")
+            else:
+                at, op, _ = _reduction_parts(b)
+                body.append(f"      acc{j} = {op}(acc{j}, static_cast<{at}>({xv}));")
+        for _, j, b, xv in here_cols:
+            body.append(f"      cs{j}[col - c0] += static_cast<{_acc_type(b.args[0].dtype)}>({xv});")
         body += s_out.get(p, [])
         body.append("    }")
         for _, j, b, _ in here:
-            x, out = b.args[0], b.flat_proxy_outs()[0]
-            if b.sym.id is PrimIDs.ARGMAX or b.sym.id is PrimIDs.ARGMIN:
+            x = b.args[0]
+            if b.sym.id in _ARG:
                 mx = "true" if b.sym.id is PrimIDs.ARGMAX else "false"
                 ct = _ct(x.dtype)
                 body += [f"    ttr::block_arg<{mx}>(av{j}, ai{j}, smem);",
                          f"    const long long k{j} = C > 1 ? ttr::cluster_arg<{mx}>(av{j}, "
                          f"ai{j}, ({ct}*)cslot, (long long*)(cslot + 8)) : ai{j};"]
                 continue
-            if b.sym.id is PrimIDs.SUM:
-                at, op, ident = _acc_type(x.dtype), "ttr::Sum()", f"({_acc_type(x.dtype)})0"
-            else:
-                mx = b.sym.id is PrimIDs.AMAX
-                at, op = _ct(x.dtype), f"ttr::{'MaxNan' if mx else 'MinNan'}()"
-                ident = f"ttr::{'lowest' if mx else 'highest'}<{at}>()"
+            at, op, ident = _reduction_parts(b)
+            out = b.flat_proxy_outs()[0]
             body += [f"    {at} t{j} = ttr::block_reduce<{at}>(acc{j}, {op}, {ident}, smem);",
-                     f"    if (C > 1) t{j} = ttr::cluster_reduce<{at}>(t{j}, {op}, ({at}*)cslot);"]
-            total = f"t{j}" if b.sym.id is not PrimIDs.SUM else _round(f"t{j}", out.dtype)
-            body.append(f"    const {_ct(out.dtype)} k{j} = {total};")
+                     f"    if (C > 1) t{j} = ttr::cluster_reduce<{at}>(t{j}, {op}, ({at}*)cslot);",
+                     f"    const {_ct(out.dtype)} k{j} = {_total(b, f't{j}')};"]
         body += [f"    {line}" for lv, line in k_lines if lv == p]
     if k_out:
         body += ["    if (threadIdx.x == 0 && rank == 0) {", *k_out, "    }"]
+    if staged:
+        body.append("    if (STAGED) __syncthreads();")
     body.append("  }")
+    for q, (_, j, b, _) in enumerate(cols):
+        acc = _acc_type(b.args[0].dtype)
+        body += ["  for (I e = c0 + static_cast<I>(threadIdx.x); e < c1; e += blockDim.x)",
+                 f"    (({acc}*)a.p[{ni + no + q}])[g * R + e] = cs{j}[e - c0];"]
+    body.append("  }")
+    nl = max(len(loads), 1)
+    rr = max([len(sh) for _, _, sh, _ in loads] + [1])
     # a read of S: its row dims are the leading rr - r of its padded shape
-    cols = ([f"  return col * static_cast<I>(a.stride[k][{rr - 1}]);"] if r == 1 else
-            ["  I o = 0;",
-             f"  for (int d = {rr - 1}; d >= {rr - r}; --d) {{",
-             "    const I sz = static_cast<I>(a.size[k][d]);",
-             "    o += (col % sz) * static_cast<I>(a.stride[k][d]);",
-             "    col /= sz;",
-             "  }",
-             "  return o;"])
+    variants = [f"{t}, {b}" for t in ("int", "long long")
+                for b in (("true", "false") if staged else ("false",))]
+    offc_fn = (["template <typename I>",
+                "__device__ __forceinline__ I offc@(const Args@& a, int k, I col) {",
+                f"  return col * static_cast<I>(a.stride[k][{rr - 1}]);", "}"] if r == 1
+               else _off_fn("offc@", str(rr - r), str(rr), "col"))
+    col_ptr = {j: ni + no + q for q, (_, j, _, _) in enumerate(cols)}
+    finishing = []
+    for k, o, j in finish:
+        acc = _acc_type(members[j].args[0].dtype)
+        st = _CTYPES[o.dtype.name][0]
+        finishing += [
+            "  if (rc == cudaSuccess) {",
+            f"    ttr::finish_columns<{acc}, {st}><<<static_cast<unsigned>((a.R + ttr::FINISH_X - 1)"
+            " / ttr::FINISH_X), dim3(ttr::FINISH_X, ttr::FINISH_Y), 0, s>>>(",
+            f"        (const {acc}*)ptrs[{col_ptr[j]}], parts, a.R, ({st}*)ptrs[{ni + k}]);",
+            "    rc = cudaGetLastError();",
+            "  }"]
     summary = ", ".join(b.sym.name for b in members)
     src = "\n".join([
         f"// region: {summary} -> {', '.join(o.dtype.name for o in outputs)}, "
-        f"rows of rank {len(K)} reducing {r}",
+        f"rows of rank {len(S) - r} reducing {r}",
         "namespace {",
         "struct Args@ {",
-        f"  void* p[{ni + len(outputs)}];",
+        f"  void* p[{ni + no + len(cols)}];",
         f"  long long size[{nl}][{rr}];",
         f"  long long stride[{nl}][{rr}];",
         f"  int dense[{nl}];",
+        f"  int rowc[{nl}];",
+        f"  int vec[{nl}];",
+        f"  int inv[{nl}];",
         "  long long rows;",
         "  long long R;",
+        "  long long groups;",
         "  int cluster;",
         "};",
-        "template <typename I>",
-        "__device__ __forceinline__ I off@(const Args@& a, int k, I i) {",
-        "  if (a.dense[k]) return i;",
-        "  I o = 0;",
-        f"  for (int d = {rr - 1}; d >= 0; --d) {{",
-        "    const I sz = static_cast<I>(a.size[k][d]);",
-        "    o += (i % sz) * static_cast<I>(a.stride[k][d]);",
-        "    i /= sz;",
-        "  }",
-        "  return o;",
-        "}",
-        "template <typename I>",
-        "__device__ __forceinline__ I offr@(const Args@& a, int k, I row) {",
-        "  if (a.dense[k]) return row * static_cast<I>(a.R);",
-        "  I o = 0;",
-        f"  for (int d = {rr - r - 1}; d >= 0; --d) {{",
-        "    const I sz = static_cast<I>(a.size[k][d]);",
-        "    o += (row % sz) * static_cast<I>(a.stride[k][d]);",
-        "    row /= sz;",
-        "  }",
-        "  return o;",
-        "}",
-        "template <typename I>",
-        "__device__ __forceinline__ I offc@(const Args@& a, int k, I col) {",
-        *cols,
-        "}",
-        "template <typename I>",
+        *_off_fn("off@", "0", str(rr), "i", dense="i"),
+        *_off_fn("offr@", "0", str(rr - r), "row", dense="row * static_cast<I>(a.R)"),
+        *offc_fn,
+        # STAGED: the inputs two passes read are kept in shared memory
+        "template <typename I, bool STAGED>",
         f"__global__ void __launch_bounds__({ROW_THREADS}) tt_region_kernel@(const Args@ a) {{",
         "  __shared__ __align__(16) unsigned char smem[32 * 16];",
         "  __shared__ __align__(16) unsigned char cslot[16];",
+        "  extern __shared__ __align__(16) unsigned char dyn@[];",
         "  const I rows = static_cast<I>(a.rows);",
         "  const I R = static_cast<I>(a.R);",
         "  const int C = a.cluster;",
         "  const unsigned rank = C > 1 ? cooperative_groups::this_cluster().block_rank() : 0u;",
-        "  const I chunk = (R + C - 1) / C;",
-        "  const I c0 = static_cast<I>(rank) * chunk;",
+        "  const I chunk = C > 1 ? ((R + C - 1) / C + 15) / 16 * 16 : R;",
+        "  const I c0 = static_cast<I>(rank) * chunk < R ? static_cast<I>(rank) * chunk : R;",
         "  const I c1 = c0 + chunk < R ? c0 + chunk : R;",
+        *body,
+        "}",
+        "}  // namespace",
+        'extern "C" int @entry_setup() {',
+        "  cudaError_t e = cudaSuccess;",
+        *(f"  if (e == cudaSuccess) e = cudaFuncSetAttribute(tt_region_kernel@<{t}>, "
+          f"cudaFuncAttributeMaxDynamicSharedMemorySize, {SMEM_BUDGET});"
+          for t in variants),
+        "  return static_cast<int>(e);",
+        "}",
+        'extern "C" int @entry(void* const* ptrs, const long long* meta, int idx64, int blocks,',
+        "                      void* stream) {",
+        "  Args@ a;",
+        f"  for (int k = 0; k < {ni + no + len(cols)}; ++k) a.p[k] = ptrs[k];",
+        "  a.rows = meta[0];",
+        "  a.R = meta[1];",
+        "  const int threads = static_cast<int>(meta[2]);",
+        "  a.cluster = static_cast<int>(meta[3]);",
+        "  const bool staged = meta[4] != 0;",
+        "  const size_t smem_bytes = static_cast<size_t>(meta[5]);",
+        "  a.groups = meta[6];",
+        "  const long long parts = a.groups;",
+        "  (void)parts;",
+        f"  for (int k = 0; k < {len(loads)}; ++k) {{",
+        f"    const long long* m = meta + 7 + k * {2 * rr + 4};",
+        "    a.dense[k] = static_cast<int>(m[0]);",
+        "    a.rowc[k] = static_cast<int>(m[1]);",
+        "    a.vec[k] = static_cast<int>(m[2]);",
+        "    a.inv[k] = static_cast<int>(m[3]);",
+        f"    for (int d = 0; d < {rr}; ++d) {{",
+        "      a.size[k][d] = m[4 + d];",
+        f"      a.stride[k][d] = m[4 + {rr} + d];",
+        "    }",
+        "  }",
+        "  auto s = static_cast<cudaStream_t>(stream);",
+        "  cudaError_t rc;",
+        *(["  if (staged) {",
+           *_launcher("tt_region_kernel@<{I}, true>", "blocks", "dim3(threads)", "smem_bytes"),
+           "  } else {"] if staged else ["  (void)staged;", "  {"]),
+        *_launcher("tt_region_kernel@<{I}, false>", "blocks", "dim3(threads)", "smem_bytes"),
+        "  }",
+        *finishing,
+        "  return static_cast<int>(rc);",
+        "}",
+    ])
+    src, entry = _named(src)
+    param_bytes = 8 * (ni + no + len(cols)) + nl * (16 * rr + 16) + 40
+    return RegionSpec(loads, src, entry, any(b.sym.id in TRANSCENDENTAL for b in members),
+                      rows=(S, r), param_bytes=param_bytes, design="row",
+                      staged=[(k, load_dt[k].bytes) for k in staged],
+                      col_sums=[(k, _acc_type(members[j].args[0].dtype)) for k, _, j in finish])
+
+
+def column_source(members: list[BoundSymbol], inputs: list[Proxy],
+                  outputs: list[TensorProxy]) -> RegionSpec:
+    """Generate the kernel of a region whose reductions reduce the dims D
+    of its space S, not trailing ones (the column design): a CTA a tile of
+    kept elements, one a thread column, its thread rows each a strided
+    share of the reduced elements in order; the members of S in that loop,
+    then the reductions' totals combined down the thread rows as a fixed
+    tree (``ttr::tile_reduce``) and across a cluster's CTAs in rank order
+    where the reduced extent is split, then the per-kept members. The
+    members of S read only the inputs (no reduction's result)."""
+    _, S, D = reduction_space(members)
+    nr = len(D)
+    in_index = {p.name: i for i, p in enumerate(inputs)}
+    loads: list[tuple] = []
+    load_of: dict[tuple, int] = {}
+    var: dict[str, str] = {}
+    depth: dict[str, int] = {}
+    s_lines: list[str] = []
+    k_lines: list[tuple[int, str]] = []
+    reds: list[tuple] = []
+
+    def load(p: TensorProxy, mode: str, shape, bdims) -> str:
+        key = (in_index[p.name], mode, tuple(shape), None if bdims is None else tuple(bdims))
+        if key not in load_of:
+            load_of[key] = len(loads)
+            loads.append(key)
+            k = load_of[key]
+            at = f"kb{k} + offj@(a, {k}, j)" if mode == "S" else f"off@(a, {k}, kq)"
+            line = (f"const {_ct(p.dtype)} l{k} = "
+                    f"{_load(f'ttr::ld(({_CTYPES[p.dtype.name][0]}*)a.p[{key[0]}] + {at})', p.dtype)};")
+            if mode == "S":
+                s_lines.append(line)
+            else:
+                k_lines.append((0, line))
+        return f"l{load_of[key]}"
+
+    def valf(mode: str):
+        def val(a, dt) -> str:
+            if _is_number(a):
+                return _literal(a, dt)
+            src = var[a.name] if a.name in var else load(
+                a, mode, S if mode == "S" else a.shape, None)
+            if dt is None:
+                return src
+            return _convert(src, a.dtype, dt) if a.dtype != dt else src
+        return val
+
+    for j, b in enumerate(members):
+        out = b.flat_proxy_outs()[0]
+        level = max((depth.get(p.name, 0) for p in b.flat_proxy_args()), default=0)
+        if b.sym.id in _REDUCTIONS:
+            x = b.args[0]
+            reds.append((j, b, var[x.name] if x.name in var else load(x, "S", S, None)))
+            depth[out.name] = 1
+            var[out.name] = f"k{j}"
+            continue
+        depth[out.name] = level
+        role = "S" if tuple(out.shape) == S else "K"
+        pid, a0 = b.sym.id, b.args[0]
+        if pid is PrimIDs.BROADCAST_IN_DIM and a0.name not in var:
+            expr = load(a0, role, S if role == "S" else out.shape, b.args[2])
+        elif pid in (PrimIDs.RESHAPE, PrimIDs.SQUEEZE):
+            expr = var[a0.name] if a0.name in var else load(a0, "K", a0.shape, None)
+        else:
+            expr = _member_expr(b, valf(role))
+        name = f"v{j}" if role == "S" else f"k{j}"
+        line = f"const {_ct(out.dtype)} {name} = {expr};"
+        if role == "S":
+            s_lines.append(line)
+        else:
+            k_lines.append((level, line))
+        var[out.name] = name
+    ni, no = len(inputs), len(outputs)
+    descs = [(mode, sh) for _, mode, sh, _ in loads]
+    s_stores, k_stores, s_outs = [], [], []
+    for k, o in enumerate(outputs):
+        store = f"(({_CTYPES[o.dtype.name][0]}*)a.p[{ni + k}])"
+        if tuple(o.shape) == S:
+            d = len(descs)
+            descs.append(("S", S))
+            s_outs.append(k)
+            s_stores.append(f"        {store}[kb{d} + offj@(a, {d}, j)] = "
+                            f"{_store(var[o.name], o.dtype)};")
+        else:
+            k_stores.append(f"      {store}[kk] = {_store(var[o.name], o.dtype)};")
+    nd = len(descs)
+    rr = max([len(sh) for _, sh in descs] + [len(S)])
+    nred = len(reds)
+    kb = [f"const I kb{d} = offk@(a, {d}, kq);" for d, (mode, _) in enumerate(descs)
+          if mode == "S"]
+    accs = [f"{_reduction_parts(b)[0]} acc{j} = {_reduction_parts(b)[2]};" for j, b, _ in reds]
+    adds = [f"  acc{j} = {op}(acc{j}, static_cast<{at}>({xv}));"
+            for j, b, xv in reds for at, op, _ in [_reduction_parts(b)]]
+    totals = [f"const {_ct(b.flat_proxy_outs()[0].dtype)} k{j} = {_total(b, f't{j}')};"
+              for j, b, _ in reds]
+    # a lone thread row and no cluster (a few terms each): COLUMN_UNROLL
+    # neighbouring kept elements a thread at a time, each summing its terms
+    # in order, so that their reads are in flight together and share cache
+    # lines; no tree, no barrier
+    # the innermost kept dim's extent (the same in every descriptor of S):
+    # within it, a thread's neighbouring elements step by its stride
+    s_descs = [d for d, (mode, _) in enumerate(descs) if mode == "S"]
+    inner = f"a.size[{s_descs[0]}][{rr - nr - 1}]" if s_descs and rr > nr else "1"
+    body = ["  if (blockDim.y == 1 && C == 1) {",
+            f"    const I step = static_cast<I>(gridDim.x) * blockDim.x * {COLUMN_UNROLL};",
+            f"    for (I base = static_cast<I>(blockIdx.x) * blockDim.x * {COLUMN_UNROLL}; "
+            "base < nK; base += step) {",
+            f"      const I kq0 = base + static_cast<I>(threadIdx.x) * {COLUMN_UNROLL};",
+            f"      const I in0 = static_cast<I>({inner});",
+            f"      const bool run = kq0 % in0 + {COLUMN_UNROLL} <= in0;",
+            *(f"      const I kb{d}_0 = offk@(a, {d}, kq0 < nK ? kq0 : 0);" for d in s_descs),
+            "#pragma unroll",
+            f"      for (int u = 0; u < {COLUMN_UNROLL}; ++u) {{",
+            "        const I kq = kq0 + u;",
+            "        if (kq < nK) {",
+            "          const I kk = kq;",
+            *(f"          const I kb{d} = run ? kb{d}_0 + static_cast<I>(u) * "
+              f"static_cast<I>(a.stride[{d}][{rr - nr - 1}]) : offk@(a, {d}, kq);"
+              for d in s_descs),
+            *(f"          {line}" for lv, line in k_lines if lv == 0),
+            *(f"          {line}" for line in accs),
+            "#pragma unroll 4",
+            "          for (I j = 0; j < nR; ++j) {",
+            *(f"            {line}" for line in s_lines),
+            *(f"          {line}" for line in adds),
+            *(f"    {line}" for line in s_stores),
+            "          }",
+            *(f"          {_reduction_parts(b)[0]} t{j} = acc{j};" for j, b, _ in reds),
+            *(f"          {line}" for line in totals),
+            *(f"          {line}" for lv, line in k_lines if lv > 0),
+            *(f"    {line}" for line in k_stores),
+            "        }",
+            "      }",
+            "    }",
+            "    return;",
+            "  }"]
+    body += ["  for (I tile = static_cast<I>(blockIdx.x) / C; tile < tiles;",
+             "       tile += static_cast<I>(gridDim.x) / C) {",
+             "    const I kk = tile * static_cast<I>(blockDim.x) + static_cast<I>(threadIdx.x);",
+             "    const bool live = kk < nK;",
+             "    const I kq = live ? kk : 0;",
+             *(f"    {line}" for line in kb),
+             *(f"    {line}" for lv, line in k_lines if lv == 0),
+             *(f"    {line}" for line in accs),
+             "    if (live) {",
+             "#pragma unroll 4",
+             "      for (I j = j0 + static_cast<I>(threadIdx.y); j < j1; j += blockDim.y) {",
+             *(f"        {line}" for line in s_lines),
+             *(f"      {line}" for line in adds),
+             *s_stores, "      }", "    }"]
+    for q, (j, b, _) in enumerate(reds):
+        at, op, _ = _reduction_parts(b)
+        body += [f"    {at} t{j} = ttr::tile_reduce<{at}>(acc{j}, {op}, "
+                 f"reinterpret_cast<{at}*>(red[{q}]));",
+                 f"    if (C > 1) t{j} = ttr::tile_cluster_reduce<{at}>({op}, "
+                 f"reinterpret_cast<{at}*>(red[{q}]));"]
+    body += [*(f"    {line}" for line in totals),
+             "    if (live && threadIdx.y == 0 && rank == 0) {",
+             *(f"      {line}" for lv, line in k_lines if lv > 0), *k_stores, "    }", "  }"]
+    summary = ", ".join(b.sym.name for b in members)
+    src = "\n".join([
+        f"// region: {summary} -> {', '.join(o.dtype.name for o in outputs)}, "
+        f"columns of rank {len(S)} reducing dims {', '.join(map(str, D))}",
+        "namespace {",
+        "struct Args@ {",
+        f"  void* p[{ni + no}];",
+        f"  long long size[{nd}][{rr}];",
+        f"  long long stride[{nd}][{rr}];",
+        "  long long nK;",
+        "  long long nR;",
+        "  int cluster;",
+        "};",
+        # a per-kept read: over its own (padded) shape; a read or write of S:
+        # its kept dims lead its padded dims, its reduced dims close them
+        *_off_fn("off@", "0", str(rr), "i"),
+        *_off_fn("offk@", "0", str(rr - nr), "i"),
+        # one reduced dim: j is its index (j < nR)
+        *(["template <typename I>",
+           "__device__ __forceinline__ I offj@(const Args@& a, int k, I j) {",
+           f"  return j * static_cast<I>(a.stride[k][{rr - 1}]);", "}"] if nr == 1
+          else _off_fn("offj@", str(rr - nr), str(rr), "j")),
+        "template <typename I>",
+        f"__global__ void __launch_bounds__({COLUMN_THREADS}) tt_region_kernel@(const Args@ a) {{",
+        f"  __shared__ __align__(16) unsigned char red[{nred}][{COLUMN_THREADS} * 8];",
+        "  const I nK = static_cast<I>(a.nK);",
+        "  const I nR = static_cast<I>(a.nR);",
+        "  const int C = a.cluster;",
+        "  const unsigned rank = C > 1 ? cooperative_groups::this_cluster().block_rank() : 0u;",
+        "  const I chunk = (nR + C - 1) / C;",
+        "  const I j0 = static_cast<I>(rank) * chunk < nR ? static_cast<I>(rank) * chunk : nR;",
+        "  const I j1 = j0 + chunk < nR ? j0 + chunk : nR;",
+        "  const I tiles = (nK + static_cast<I>(blockDim.x) - 1) / static_cast<I>(blockDim.x);",
         *body,
         "}",
         "}  // namespace",
         'extern "C" int @entry(void* const* ptrs, const long long* meta, int idx64, int blocks,',
         "                      void* stream) {",
         "  Args@ a;",
-        f"  for (int k = 0; k < {ni + len(outputs)}; ++k) a.p[k] = ptrs[k];",
-        "  a.rows = meta[0];",
-        "  a.R = meta[1];",
-        "  const int threads = static_cast<int>(meta[2]);",
-        "  a.cluster = static_cast<int>(meta[3]);",
-        f"  for (int k = 0; k < {len(loads)}; ++k) {{",
-        f"    a.dense[k] = static_cast<int>(meta[4 + k * {2 * rr + 1}]);",
+        f"  for (int k = 0; k < {ni + no}; ++k) a.p[k] = ptrs[k];",
+        "  a.nK = meta[0];",
+        "  a.nR = meta[1];",
+        "  const dim3 threads(static_cast<unsigned>(meta[2]), static_cast<unsigned>(meta[3]));",
+        "  a.cluster = static_cast<int>(meta[4]);",
+        f"  for (int k = 0; k < {nd}; ++k)",
         f"    for (int d = 0; d < {rr}; ++d) {{",
-        f"      a.size[k][d] = meta[5 + k * {2 * rr + 1} + d];",
-        f"      a.stride[k][d] = meta[5 + k * {2 * rr + 1} + {rr} + d];",
+        f"      a.size[k][d] = meta[5 + k * {2 * rr} + d];",
+        f"      a.stride[k][d] = meta[5 + k * {2 * rr} + {rr} + d];",
         "    }",
-        "  }",
         "  auto s = static_cast<cudaStream_t>(stream);",
-        "  if (a.cluster > 1) {",
-        "    cudaLaunchConfig_t cfg = {};",
-        "    cfg.gridDim = dim3(blocks);",
-        "    cfg.blockDim = dim3(threads);",
-        "    cfg.stream = s;",
-        "    cudaLaunchAttribute attr[1];",
-        "    attr[0].id = cudaLaunchAttributeClusterDimension;",
-        "    attr[0].val.clusterDim.x = a.cluster;",
-        "    attr[0].val.clusterDim.y = 1;",
-        "    attr[0].val.clusterDim.z = 1;",
-        "    cfg.attrs = attr;",
-        "    cfg.numAttrs = 1;",
-        "    const cudaError_t e = idx64 ? cudaLaunchKernelEx(&cfg, tt_region_kernel@<long long>, a)",
-        "                                : cudaLaunchKernelEx(&cfg, tt_region_kernel@<int>, a);",
-        "    return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());",
-        "  }",
-        "  if (idx64) tt_region_kernel@<long long><<<blocks, threads, 0, s>>>(a);",
-        "  else tt_region_kernel@<int><<<blocks, threads, 0, s>>>(a);",
-        "  return static_cast<int>(cudaGetLastError());",
+        "  cudaError_t rc;",
+        *_launcher("tt_region_kernel@<{I}>", "blocks", "threads", "0"),
+        "  return static_cast<int>(rc);",
         "}",
     ])
-    digest = hashlib.sha256(src.encode()).hexdigest()[:16]
-    entry = f"tt_region_{digest}"
-    src = src.replace("@entry", entry).replace("@", f"_{digest}")
-    param_bytes = 8 * (ni + len(outputs)) + nl * (16 * rr + 4) + 24
+    src, entry = _named(src)
+    param_bytes = 8 * (ni + no) + nd * 16 * rr + 24
     return RegionSpec(loads, src, entry, any(b.sym.id in TRANSCENDENTAL for b in members),
-                      rows=(S, r), param_bytes=param_bytes)
+                      param_bytes=param_bytes, design="column", cols=(S, D), s_outs=s_outs)
 
 
 # -- build ----------------------------------------------------------------------
@@ -921,6 +1378,14 @@ def _bind(lib: Path, specs) -> None:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                        ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        if s.rows is not None:
+            # the row design's dynamic shared memory, up to SMEM_BUDGET a CTA
+            setup = getattr(handle, f"{s.entry}_setup")
+            setup.restype = ctypes.c_int
+            rc = setup()
+            if rc != 0:
+                raise KernelLaunchError(f"{s.entry}: cudaFuncSetAttribute failed with CUDA "
+                                        f"error {rc}")
         _bound[s.entry] = fn
 
 
@@ -994,9 +1459,11 @@ class Region:
         self.input_names = [p.name for p in inputs]
         self.output_names = [p.name for p in outputs]
         self.outputs = outputs
-        if any(b.sym.id in _REDUCTIONS for b in members):
-            self.spec = reduce_source(members, inputs, outputs)
-            self.shape = self.spec.rows[0]
+        space = reduction_space(members)
+        if space is not None:
+            gen = reduce_source if space[0] == "row" else column_source
+            self.spec = gen(members, inputs, outputs)
+            self.shape = space[1]
         else:
             self.spec = region_source(members, inputs, outputs)
             self.shape = tuple(outputs[0].shape)
@@ -1077,17 +1544,28 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def launch(region: Region, vals) -> tuple:
+def launch(region: Region, vals, stage: bool = True) -> tuple:
     """One launch of ``region``'s generated kernel on the card (building
     the program's regions first where they are not); raises for tensors off
-    the card, for a region whose source did not build, and for a launch
-    that returns a CUDA error."""
+    the card or of another shape or dtype than the region's inputs, for a
+    region whose source did not build, and for a launch that returns a
+    CUDA error. ``stage`` False launches a region with row reductions
+    without staging its rows in shared memory (design ``reduce``: each
+    pass reads its row again; the same order, so the same bits), to
+    measure what the staging saves."""
     spec = region.spec
     tensors = [v for v in vals if isinstance(v, torch.Tensor)]
     dev = tensors[0].device
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError(f"{region.name}: the kernel takes CUDA tensors on one card, got "
                          f"{sorted({str(t.device) for t in tensors})}")
+    for p, v in zip(region.inputs, vals):
+        if isinstance(p, TensorProxy) and (
+                not isinstance(v, torch.Tensor) or tuple(v.shape) != tuple(p.shape)
+                or v.dtype != p.dtype.torch):
+            raise ValueError(f"{region.name}: input {p.name} must be a {p.dtype.name} tensor of "
+                             f"shape {tuple(p.shape)}, got "
+                             f"{tuple(v.shape) if isinstance(v, torch.Tensor) else type(v)}")
     if spec.entry not in _bound and spec.entry not in _failures:
         build_regions([r.spec for r in region.program] or [spec])
     fn = _bound.get(spec.entry)
@@ -1096,7 +1574,9 @@ def launch(region: Region, vals) -> tuple:
                                f"region cannot launch:\n{_failures.get(spec.entry)}",
                                kernel="region")
     if spec.rows is not None:
-        return _launch_rows(region, fn, vals, dev)
+        return _launch_rows(region, fn, vals, dev, stage)
+    if spec.cols is not None:
+        return _launch_cols(region, fn, vals, dev)
     shape = region.shape
     n = math.prod(shape)
     outs = [torch.empty(shape, dtype=o.dtype.torch, device=dev) for o in region.outputs]
@@ -1134,10 +1614,11 @@ def _view_strides(t: torch.Tensor, shape: tuple) -> list[int]:
     return out
 
 
-def row_launch(rows: int, R: int, sms: int) -> tuple[int, int, int]:
+def row_launch(rows: int, R: int, sms: int, smem: int = 0) -> tuple[int, int, int]:
     """``(cluster, threads, blocks)`` of a launch over ``rows`` rows of
     ``R``: where the rows fill the card, one CTA a row of up to
-    :data:`THREADS` threads, 8 CTAs an SM grid-striding over the rows;
+    :data:`THREADS` threads, up to 8 CTAs an SM (fewer where each takes
+    ``smem`` bytes of dynamic shared memory) grid-striding over the rows;
     where they do not, each row split across a cluster of up to
     :data:`MAX_CLUSTER` CTAs (a part of at least :data:`CLUSTER_MIN_PART`
     elements each) of up to :data:`ROW_THREADS` threads."""
@@ -1145,9 +1626,66 @@ def row_launch(rows: int, R: int, sms: int) -> tuple[int, int, int]:
         return min(cap, max(32, -(-n // 32) * 32))
 
     if rows >= sms:
-        return 1, fit(R, THREADS), min(rows, sms * BLOCKS_PER_SM)
+        threads = fit(R, THREADS)
+        per_sm = min(BLOCKS_PER_SM, 2048 // threads, SMEM_PER_SM // (smem + 1024 + 528))
+        return 1, threads, min(rows, sms * max(per_sm, 1))
     c = max(1, min(MAX_CLUSTER, sms // rows, R // CLUSTER_MIN_PART))
     return c, fit(-(-R // c), ROW_THREADS), rows * c
+
+
+def row_part(R: int, cluster: int) -> int:
+    """The columns of a row each CTA of a cluster takes (a multiple of 16
+    where the row is split)."""
+    return R if cluster == 1 else -(-(-(-R // cluster)) // 16) * 16
+
+
+def row_plan(spec: RegionSpec, rows: int, R: int, sms: int, stage: bool = True) -> dict:
+    """The launch of a region with row reductions over ``rows`` rows of
+    ``R`` on ``sms`` SMs: :func:`row_launch`'s ``cluster``, ``threads`` and
+    ``blocks``; ``staged`` whether the inputs two passes read are staged:
+    where ``stage`` and they fit in shared memory beside the column sums'
+    accumulators (:data:`SMEM_BUDGET`; design ``smem``, else ``reduce``);
+    ``smem`` the dynamic shared memory a CTA takes; ``parts`` the column
+    sums' partials (one a cluster of CTAs); ``design`` its launch
+    counter's design. The rows go in ``parts``
+    groups (row g, g + parts, ...; a CTA, or a cluster, a group at a
+    time), each group a partial of every column sum: as many as the CTAs
+    without column sums; with them, as many as the CTAs of a launch
+    without shared memory, so that a column sum's order does not depend on
+    what else the region stages."""
+    cluster, threads, _ = row_launch(rows, R, sms)
+    part = row_part(R, cluster)
+
+    def a16(n):
+        return -(-n // 16) * 16
+
+    rowbytes = sum(a16(part * b) for _, b in spec.staged)
+    cols = sum(a16(part * _ACC_BYTES[acc]) for _, acc in spec.col_sums)
+    staged = stage and bool(spec.staged) and rowbytes + cols <= SMEM_BUDGET
+    smem = cols + (rowbytes if staged else 0)
+    cluster, threads, blocks = row_launch(rows, R, sms, smem)
+    design = ("smem" if staged else "reduce") + ("_partials" if spec.col_sums else "")
+    parts = (row_launch(rows, R, sms)[2] if spec.col_sums else blocks) // cluster
+    return dict(cluster=cluster, threads=threads, blocks=blocks, staged=staged, smem=smem,
+                parts=parts, design=design)
+
+
+def tree_depth(n: int) -> int:
+    """The most roundings one term goes through in ``ttr::tree_sum`` of
+    ``n`` terms (a binary counter of subtrees, folded from the newest)."""
+    stack: list[tuple[int, int]] = []      # (level, deepest term's roundings)
+    for _ in range(n):
+        lvl, d = 0, 0
+        while stack and stack[-1][0] == lvl:
+            d = max(d, stack.pop()[1]) + 1
+            lvl += 1
+        stack.append((lvl, d))
+    if not stack:
+        return 0
+    d = stack[-1][1]
+    for _, dk in reversed(stack[:-1]):
+        d = max(d, dk) + 1
+    return d
 
 
 def sum_depth(rows: int, R: int, sms: int) -> int:
@@ -1159,42 +1697,162 @@ def sum_depth(rows: int, R: int, sms: int) -> int:
     ``d u / (1 - d u) sum|x_i|`` of the exact sum (d this depth, u the
     accumulator's unit roundoff)."""
     cluster, threads, _ = row_launch(rows, R, sms)
-    return -(-(-(-R // cluster)) // threads) - 1 + 10 + cluster - 1
+    return -(-row_part(R, cluster) // threads) - 1 + 10 + cluster - 1
 
 
-def _launch_rows(region: Region, fn, vals, dev) -> tuple:
+def partials_depth(rows: int, plan: dict) -> int:
+    """The most roundings one summand goes through in a column sum of a
+    row space of ``rows`` rows launched as ``plan`` (:func:`row_plan`):
+    its group's running sum over its rows, then
+    ``ttr::finish_columns``: a lane's tree over its block of partials and
+    the tree over the :data:`FINISH_Y` lanes."""
+    parts = plan["parts"]
+    return (-(-rows // parts) - 1 + tree_depth(-(-parts // FINISH_Y))
+            + FINISH_Y.bit_length() - 1)
+
+
+def column_launch(nK: int, nR: int, sms: int) -> tuple[int, int, int, int]:
+    """``(cluster, tx, ty, blocks)`` of a column-design launch over ``nK``
+    kept elements, each reducing ``nR``: CTAs of :data:`COLUMN_THREADS`
+    threads, ``tx`` kept elements by ``ty`` thread rows (``ty`` a power of
+    two up to 8 and up to ``nR``; 1 where ``nR`` is at most
+    :data:`COLUMN_ALONE`: a thread sums its element's few terms alone, with
+    no tree and no barrier a tile), up to 8 CTAs an SM grid-striding over
+    the tiles; where the tiles do not fill the card, the reduced extent
+    split across a cluster of up to :data:`MAX_CLUSTER` CTAs, at least
+    :data:`CLUSTER_MIN_ROWS` reduced elements a thread row each."""
+    ty = 1
+    while ty < 8 and 2 * ty <= nR and nR > COLUMN_ALONE:
+        ty *= 2
+    tx = COLUMN_THREADS // ty
+    tiles = -(-nK // tx)
+    if tiles >= sms:
+        if ty == 1:     # COLUMN_UNROLL tiles a thread at a time
+            tiles = -(-tiles // COLUMN_UNROLL)
+        return 1, tx, ty, min(tiles, sms * BLOCKS_PER_SM)
+    c = max(1, min(MAX_CLUSTER, sms // tiles, nR // (ty * CLUSTER_MIN_ROWS)))
+    return c, tx, ty, tiles * c
+
+
+def column_depth(nK: int, nR: int, sms: int) -> int:
+    """The most roundings one summand goes through in a column-design sum
+    (:func:`column_launch`): its thread's running sum over its share of
+    the reduced elements, the tree down the tile's ``ty`` thread rows, the
+    cluster's partials in rank order."""
+    cluster, _, ty, _ = column_launch(nK, nR, sms)
+    return -(-(-(-nR // cluster)) // ty) - 1 + ty.bit_length() - 1 + cluster - 1
+
+
+def space_sizes(spec: RegionSpec) -> tuple[int, int]:
+    """``(kept, reduced)``: the rows and the row length of a row-design
+    region, the kept and reduced elements of a column-design one."""
+    if spec.rows is not None:
+        S, r = spec.rows
+        return math.prod(S[:len(S) - r]), math.prod(S[len(S) - r:])
+    S, D = spec.cols
+    return math.prod(n for d, n in enumerate(S) if d not in D), math.prod(S[d] for d in D)
+
+
+def sum_depths(region: Region, sms: int) -> list[int]:
+    """The depth (:func:`sum_depth`, :func:`partials_depth`,
+    :func:`column_depth`) of each ``sum`` of a float input among
+    ``region``'s members, in order, launched on ``sms`` SMs."""
+    spec = region.spec
+    nK, nR = space_sizes(spec)
+    sums = [b for b in region.members if b.sym.id is PrimIDs.SUM and b.args[0].dtype.is_float]
+    if spec.cols is not None:
+        return [column_depth(nK, nR, sms)] * len(sums)
+    S, r = spec.rows
+    plan = row_plan(spec, nK, nR, sms)
+    return [sum_depth(nK, nR, sms) if tuple(b.args[0].shape) == S and trailing_r(b) == r
+            else partials_depth(nK, plan) for b in sums]
+
+
+def _load_strides(t: torch.Tensor, mode: str, shape: tuple, bdims) -> list[int]:
+    if bdims is not None:
+        return _strides(t, shape, bdims)
+    if mode == "S":
+        return _strides(t, shape, None)
+    return _view_strides(t, shape)
+
+
+def _launch_rows(region: Region, fn, vals, dev, stage: bool) -> tuple:
     """One launch of a region with row reductions: one CTA a row of its row
-    space, grid-striding over the rows."""
+    space, grid-striding over the rows (:func:`row_plan`), then the column
+    sums' finishing pass."""
     spec = region.spec
     S, r = spec.rows
-    rows, R = math.prod(S[:len(S) - r]), math.prod(S[len(S) - r:])
+    rows, R = space_sizes(spec)
     outs = [torch.empty(tuple(o.shape), dtype=o.dtype.torch, device=dev)
             for o in region.outputs]
     if rows == 0:
+        for k, _ in spec.col_sums:
+            outs[k].zero_()
         return tuple(outs)
     rr = max([len(sh) for _, _, sh, _ in spec.loads] + [1])
-    cluster, threads, blocks = row_launch(rows, R, _sm_count(dev.index))
-    meta = [rows, R, threads, cluster]
-    reach = rows * R
+    plan = row_plan(spec, rows, R, _sm_count(dev.index), stage)
+    cluster = plan["cluster"]
+    meta = [rows, R, plan["threads"], cluster, int(plan["staged"]), plan["smem"], plan["parts"]]
+    reach = max(rows * R, plan["parts"] * R)
     for i, mode, shape, bdims in spec.loads:
         t = vals[i]
-        if bdims is not None:
-            st = _strides(t, shape, bdims)
-        elif mode == "S":
-            st = _strides(t, shape, None)
-        else:
-            st = _view_strides(t, shape)
+        st = _load_strides(t, mode, shape, bdims)
         reach = max(reach, sum(abs(x) * (e - 1) for x, e in zip(st, shape)) + 1)
         pad = rr - len(shape)
-        meta += [int(st == _contiguous_strides(shape)), *([1] * pad), *shape,
-                 *([0] * pad), *st]
+        dense = st == _contiguous_strides(shape)
+        # the row's columns contiguous from the row's first: 16-byte copies
+        # where the row and every part of it start 16-byte aligned
+        trail = shape[len(shape) - r:]
+        rowc = mode == "S" and st[len(shape) - r:] == _contiguous_strides(trail)
+        el = t.element_size()
+        vec = rowc and t.data_ptr() % 16 == 0 and all(
+            (x * el) % 16 == 0 for x in st[:len(shape) - r])
+        # the same for every row: no stride on a kept dim
+        inv = mode == "S" and not any(st[:len(shape) - r])
+        meta += [int(dense), int(rowc), int(vec), int(inv), *([1] * pad), *shape, *([0] * pad),
+                 *st]
+    parts = [torch.empty((plan["parts"], R), dtype=_ACC_TORCH[acc], device=dev)
+             for _, acc in spec.col_sums]
+    ptrs = [v.data_ptr() if isinstance(v, torch.Tensor) else 0 for v in vals]
+    ptrs += [o.data_ptr() for o in outs] + [p.data_ptr() for p in parts]
+    rc = fn((ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_longlong * len(meta))(*meta),
+            int(reach > 2 ** 31 - 1), plan["blocks"], torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise KernelLaunchError(f"{region.name}: kernel launch failed with CUDA error {rc}")
+    cudaex.count_launch("region", plan["design"])
+    return tuple(outs)
+
+
+def _launch_cols(region: Region, fn, vals, dev) -> tuple:
+    """One launch of a region of the column design (:func:`column_launch`)."""
+    spec = region.spec
+    S, D = spec.cols
+    nK, nR = space_sizes(spec)
+    outs = [torch.empty(tuple(o.shape), dtype=o.dtype.torch, device=dev)
+            for o in region.outputs]
+    if nK == 0:
+        return tuple(outs)
+    perm = [d for d in range(len(S)) if d not in D] + list(D)
+    descs = [(_load_strides(vals[i], mode, shape, bdims), mode, shape)
+             for i, mode, shape, bdims in spec.loads]
+    descs += [(_contiguous_strides(S), "S", S) for _ in spec.s_outs]
+    rr = max([len(sh) for _, _, sh in descs] + [len(S)])
+    cluster, tx, ty, blocks = column_launch(nK, nR, _sm_count(dev.index))
+    meta = [nK, nR, tx, ty, cluster]
+    reach = nK * nR
+    for st, mode, shape in descs:
+        reach = max(reach, sum(abs(x) * (e - 1) for x, e in zip(st, shape)) + 1)
+        if mode == "S":
+            shape, st = [shape[d] for d in perm], [st[d] for d in perm]
+        pad = rr - len(shape)
+        meta += [*([1] * pad), *shape, *([0] * pad), *st]
     ptrs = [v.data_ptr() if isinstance(v, torch.Tensor) else 0 for v in vals]
     ptrs += [o.data_ptr() for o in outs]
     rc = fn((ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_longlong * len(meta))(*meta),
             int(reach > 2 ** 31 - 1), blocks, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise KernelLaunchError(f"{region.name}: kernel launch failed with CUDA error {rc}")
-    cudaex.count_launch("region", "reduce")
+    cudaex.count_launch("region", "column")
     return tuple(outs)
 
 
@@ -1337,7 +1995,10 @@ class RegionExecutor(FusionExecutor):
                               f"{len(members)} ops into one generated kernel",
                               cost={"ops": len(members), "boundary_bytes": nbytes,
                                     "shape": list(fn.shape),
-                                    "reduced_dims": fn.spec.rows[1] if fn.spec.rows else 0})
+                                    "design": fn.spec.design,
+                                    "reduced_dims": (fn.spec.rows[1] if fn.spec.rows else
+                                                     len(fn.spec.cols[1]) if fn.spec.cols
+                                                     else 0)})
         notes = [b.header for b in members if b.header]
         if notes:
             bsym.header = "\n".join(notes)
@@ -1348,20 +2009,20 @@ def _out_shape(b: BoundSymbol) -> tuple:
     return tuple(b.flat_proxy_outs()[0].shape)
 
 
-def _kept(shape, S: tuple, r: int) -> bool:
-    """Is ``shape`` a per-row shape of the row space ``(S, r)``: the kept
-    dims ``S[:-r]``, with or without 1s?"""
-    return _non_unit(shape) == _non_unit(S[:len(S) - r])
+def _kept(shape, S: tuple, D: tuple) -> bool:
+    """Is ``shape`` a per-row shape of the space ``(S, D)``: S without its
+    reduced dims D, with or without 1s?"""
+    return _non_unit(shape) == _non_unit([n for d, n in enumerate(S) if d not in D])
 
 
-def _reads_own_row(b: BoundSymbol, S: tuple, r: int) -> bool:
-    """Does the ``broadcast_in_dim`` ``b`` of a per-row value of ``(S, r)``
+def _reads_own_row(b: BoundSymbol, S: tuple, D: tuple) -> bool:
+    """Does the ``broadcast_in_dim`` ``b`` of a per-row value of ``(S, D)``
     give each element (of S, or of its own per-row shape) its own row's
     value?"""
     src, shape, bdims = b.args[0].shape, tuple(b.args[1]), tuple(b.args[2])
     kept = [(i, n) for i, n in enumerate(src) if n != 1]
     if shape == S:
-        want = [d for d in range(len(S) - r) if S[d] != 1]
+        want = [d for d in range(len(S)) if d not in D and S[d] != 1]
     else:
         want = [d for d, n in enumerate(shape) if n != 1]
     return [bdims[i] for i, _ in kept] == want and all(shape[bdims[i]] == n for i, n in kept)
@@ -1384,25 +2045,56 @@ def _order(units: list[list[BoundSymbol]]) -> list[list[BoundSymbol]] | None:
     return [units[k] for k in order]
 
 
+def _spaces(group: list[BoundSymbol]) -> dict[tuple, tuple]:
+    """Each shape S a reduction of the group reduces: ``("row", D)`` where
+    one reduces its trailing dims D (the first such), else ``("column", D)``
+    with the dims D of its first reduction."""
+    space: dict[tuple, tuple] = {}
+    for b in group:
+        if b.sym.id in _REDUCTIONS and trailing_r(b):
+            S = tuple(b.args[0].shape)
+            space.setdefault(S, ("row", tuple(range(len(S) - trailing_r(b), len(S)))))
+    for b in group:
+        if b.sym.id in _REDUCTIONS and not trailing_r(b):
+            space.setdefault(tuple(b.args[0].shape), ("column", _reduced_dims(b)))
+    return space
+
+
+def _joins(b: BoundSymbol, space: dict) -> str | None:
+    """How the reduction ``b`` joins its input shape's space: ``"red"``
+    (a row reduction, or a column-design reduction over the space's dims),
+    ``"col"`` (a column sum of a row space, :func:`is_column_sum`), None
+    where it stays alone."""
+    S = tuple(b.args[0].shape)
+    design, D = space.get(S, (None, None))
+    if design == "row":
+        if trailing_r(b) == len(D):
+            return "red"
+        return "col" if is_column_sum(b, S, len(D)) else None
+    if design == "column" and b.sym.id not in _ARG and _reduced_dims(b) == D:
+        return "red"
+    return None
+
+
 def _plan(group: list[BoundSymbol], rows: bool, kept: bool) -> list[list[BoundSymbol]] | None:
     """One partition of a group into regions' units. Without ``rows``, one
     unit a members' output shape, every reduction and unit view alone. With
-    ``rows``, a row space ``(S, r)`` for each shape S that a member reduces
-    over its r trailing dims: its unit takes the members of shape S and
-    those reductions; with ``kept`` also the per-row members of its kept
-    shape that read a reduction's result (in program order) or that only
-    its row space reads (in reverse order), and the unit views between
-    them. None where the units' dependencies form a cycle."""
+    ``rows``, a space for each shape S that a member reduces
+    (:func:`_spaces`): its unit takes the members of shape S and the
+    reductions that join it (:func:`_joins`); with ``kept`` also the
+    per-row members of its kept shape that read a reduction's result (in
+    program order) or that only its space reads (in reverse order), and
+    the unit views between them. A member that reads a column sum's result
+    leaves its row space (a second kernel writes that result), and so does
+    a member of S or a reduction that reads a column-design reduction's
+    result (that design makes one pass). None where the units'
+    dependencies form a cycle."""
     key: dict[int, tuple] = {}
-    space: dict[tuple, int] = {}
-    if rows:
-        for b in group:
-            if b.sym.id in _REDUCTIONS:
-                space.setdefault(tuple(b.args[0].shape), trailing_r(b))
+    space = _spaces(group) if rows else {}
+    joins = {id(b): _joins(b, space) for b in group if b.sym.id in _REDUCTIONS}
     for b in group:
         if b.sym.id in _REDUCTIONS:
-            S = tuple(b.args[0].shape)
-            key[id(b)] = ("row", S) if space.get(S) == trailing_r(b) else ("one", id(b))
+            key[id(b)] = ("row", tuple(b.args[0].shape)) if joins[id(b)] else ("one", id(b))
         elif is_unit_view(b):
             key[id(b)] = ("one", id(b))
         elif _out_shape(b) in space:
@@ -1410,22 +2102,22 @@ def _plan(group: list[BoundSymbol], rows: bool, kept: bool) -> list[list[BoundSy
         else:
             key[id(b)] = ("shape", _out_shape(b))
     produced = {p.name: b for b in group for p in b.flat_proxy_outs()}
-    per_row: dict[str, tuple] = {}      # a per-row value -> the S of its row space
+    per_row: dict[str, tuple] = {}      # a per-row value -> the S of its space
 
     def kept_ok(b, S) -> bool:
-        """May ``b`` join row space S as a per-row member: each operand it
+        """May ``b`` join space S as a per-row member: each operand it
         reads there per row, and a broadcast its own row's value."""
         if b.sym.id is PrimIDs.BROADCAST_IN_DIM and b.args[0].name in per_row:
-            return _reads_own_row(b, S, space[S])
+            return _reads_own_row(b, S, space[S][1])
         return True
 
     for b in group:
-        if b.sym.id in _REDUCTIONS and key[id(b)][0] == "row":
+        if b.sym.id in _REDUCTIONS and joins[id(b)] == "red":
             per_row[b.flat_proxy_outs()[0].name] = tuple(b.args[0].shape)
         elif kept and key[id(b)][0] != "row" and b.sym.id not in _REDUCTIONS:
             spaces = {per_row[p.name] for p in b.flat_proxy_args() if p.name in per_row}
             S = next(iter(spaces)) if len(spaces) == 1 else None
-            if S is not None and _kept(_out_shape(b), S, space[S]) and kept_ok(b, S):
+            if S is not None and _kept(_out_shape(b), S, space[S][1]) and kept_ok(b, S):
                 key[id(b)] = ("row", S)
                 per_row[b.flat_proxy_outs()[0].name] = S
     if kept:
@@ -1442,38 +2134,85 @@ def _plan(group: list[BoundSymbol], rows: bool, kept: bool) -> list[list[BoundSy
                 continue
             S = key[id(users[0])][1]
             if (key[id(users[0])][0] != "row" or any(key[id(u)] != ("row", S) for u in users)
-                    or not _kept(out.shape, S, space[S]) or not kept_ok(b, S)):
+                    or not _kept(out.shape, S, space[S][1]) or not kept_ok(b, S)):
                 continue
             # a broadcast of it to S must give each element its own row's value
-            if all(u.sym.id is not PrimIDs.BROADCAST_IN_DIM or _reads_own_row(u, S, space[S])
-                   for u in users if _out_shape(u) == S):
+            if all(u.sym.id is not PrimIDs.BROADCAST_IN_DIM
+                   or _reads_own_row(u, S, space[S][1]) for u in users if _out_shape(u) == S):
                 key[id(b)] = ("row", S)
                 per_row[out.name] = S
-    # a broadcast of S that reads a per-row value of its own row space must
-    # give each element its row's value; else it stays out
+    # a broadcast of S that reads a per-row value of its own space must give
+    # each element its row's value; else it stays out
     for b in group:
         k = key[id(b)]
         if (k[0] == "row" and b.sym.id is PrimIDs.BROADCAST_IN_DIM and _out_shape(b) == k[1]
                 and tuple(b.args[0].shape) != k[1] and b.args[0].name in produced
                 and key[id(produced[b.args[0].name])] == k
-                and not _reads_own_row(b, k[1], space[k[1]])):
+                and not _reads_own_row(b, k[1], space[k[1]][1])):
             key[id(b)] = ("one", id(b))
+    for S, (design, _) in space.items():
+        _eject(group, key, joins, ("row", S), design)
+    # an elementwise unit must not both feed a space's unit and read its
+    # results (a norm weight converted for the backward, its gradient after
+    # the column sum): each splits by the spaces' units before it
+    stage: dict[int, int] = {}
+    for b in group:
+        s = 0
+        for p in b.flat_proxy_args():
+            q = produced.get(p.name)
+            if q is not None:
+                s = max(s, stage[id(q)] + (key[id(q)][0] == "row" and key[id(q)] != key[id(b)]))
+        stage[id(b)] = s
+        if key[id(b)][0] == "shape":
+            key[id(b)] = (*key[id(b)], s)
     units: dict[tuple, list] = {}
     for b in group:
         units.setdefault(key[id(b)], []).append(b)
     return _order(list(units.values()))
 
 
+def _eject(group, key: dict, joins: dict, unit: tuple, design: str) -> None:
+    """Take out of ``unit`` (a space's key) the members its kernel cannot
+    compute: in a row space, whatever reads a column sum's result; in a
+    column space, a member of S or a reduction that reads a reduction's
+    result. So does a member that reads a value some member outside the
+    unit made from such a result (else the units would form a cycle)."""
+    S = unit[1]
+    inside: set[str] = set()     # results the unit's per-kept members may read
+    outside: set[str] = set()    # values made outside the unit from them
+    for b in group:
+        names = {p.name for p in b.flat_proxy_args()}
+        outs = {p.name for p in b.flat_proxy_outs()}
+        if key[id(b)] != unit:
+            if names & (inside | outside):
+                outside |= outs
+            continue
+        if b.sym.id in _REDUCTIONS and (design == "column" or joins[id(b)] == "col"):
+            # a reduction's result: a column sum's is read by nothing in its unit
+            if not names & (inside | outside):
+                (outside if joins[id(b)] == "col" else inside).update(outs)
+                continue
+        elif not names & (inside | outside):
+            continue
+        elif (design == "column" and not names & outside and _out_shape(b) != S
+              and b.sym.id not in _REDUCTIONS):
+            inside |= outs          # a per-kept member after the reductions
+            continue
+        key[id(b)] = (("one", id(b)) if b.sym.id in _REDUCTIONS or is_unit_view(b)
+                      else ("shape", _out_shape(b)))
+        outside |= outs
+
+
 def split_row_spaces(group: list[BoundSymbol]) -> list[list[BoundSymbol]]:
     """A partitioner group as regions' units, in an order that keeps every
-    unit's inputs produced before it: each row space (its members of shape
-    S, its reductions of S's trailing dims, its per-row members; see
-    :func:`_plan`) one unit, every other member in one unit a output shape
-    (the elementwise regions), unit views and any other reduction alone.
-    Where a row space's per-row members would close a cycle through another
-    unit they stay out; where its reductions would, they stay out too; a
-    group that still forms a cycle (none is known) stays as its members,
-    each alone."""
+    unit's inputs produced before it: each space (its members of shape S,
+    its reductions, its per-row members; see :func:`_plan`) one unit,
+    every other member in one unit a output shape and stage (the
+    elementwise regions), unit views and any other reduction alone. Where
+    a space's per-row members would close a cycle through another unit
+    they stay out; where its reductions would, they stay out too; a group
+    that still forms a cycle (none is known) stays as its members, each
+    alone."""
     for rows, kept in ((True, True), (True, False), (False, False)):
         units = _plan(group, rows, kept)
         if units is not None:

@@ -319,39 +319,84 @@ def sum_bound(x: torch.Tensor, dims, depth: int | None = None) -> torch.Tensor:
     return torch.where(whole, 0.0, du / (1 - du) * total)
 
 
-def region_sum_depth(region, vals, sms: int | None = None) -> int:
-    """:func:`regionex.sum_depth` of ``region``'s launch on ``vals``: on
-    the SMs of their card, or ``sms`` (:data:`H100_SMS` off the card)."""
-    from thunder_tpu_torch.executors.regionex import sum_depth
+def prod_bound(x: torch.Tensor, dims) -> torch.Tensor:
+    """How far a float product of ``x`` over ``dims`` may be from the exact
+    product, in float64, in any order of its n factors: ``g |prod x_i|``
+    with g = (n - 1) u / (1 - (n - 1) u), u the accumulator's unit
+    roundoff (float32's for the 16-bit floats and float32); 0 for integer
+    values whose product stays below ``1 / u`` in magnitude (every partial
+    product exact)."""
+    n = 1
+    for d in dims:
+        n *= x.shape[d]
+    u = SUM_UNIT.get(x.dtype, 2.0 ** -24)
+    g = (n - 1) * u / (1 - (n - 1) * u)
+    xd = x.double()
+    dims = tuple(d % x.ndim for d in dims)
+    kept = [d for d in range(x.ndim) if d not in dims]
+    mag = torch.prod(xd.abs().permute(kept + list(dims)).flatten(len(kept)), -1)
+    whole = torch.all(xd == torch.round(xd), dim=dims) & (mag < 1 / u)
+    return torch.where(whole, 0.0, g * mag)
 
-    S, r = region.spec.rows
+
+def region_sum_depths(region, vals, sms: int | None = None) -> list[int]:
+    """:func:`regionex.sum_depths` of ``region``'s launch on ``vals``: the
+    depth of each float ``sum`` among its members, on the SMs of their
+    card, or ``sms`` (:data:`H100_SMS` off the card)."""
+    from thunder_tpu_torch.executors.regionex import sum_depths
+
     dev = next((v.device for v in vals if isinstance(v, torch.Tensor)), None)
     if sms is None:
         sms = (torch.cuda.get_device_properties(dev).multi_processor_count
                if dev is not None and dev.type == "cuda" else H100_SMS)
-    return sum_depth(math.prod(S[:len(S) - r]), math.prod(S[len(S) - r:]), sms)
+    return sum_depths(region, sms)
 
 
-def moved_chain(region, vals, sign: int, which: int, depth: int) -> tuple:
-    """``region``'s plain chain with its ``which``-th float sum (of its
-    members, in order) set to the exact sum (in float64) moved by ``sign``
-    times its :func:`sum_bound` at ``depth`` (the kernel's order) and that
-    float64 sum's own bound, then rounded to its dtype; every other member
-    as torch computes it: with ``sign`` +1 and -1 the chain at either end
-    of what the kernel's sum may be. Returns the outputs and whether that
-    sum has a bound above 0."""
+def region_sum_depth(region, vals, sms: int | None = None) -> int:
+    """The deepest of :func:`region_sum_depths` (0 without a float sum)."""
+    return max(region_sum_depths(region, vals, sms), default=0)
+
+
+def _float_folds(region) -> list:
+    """``region``'s ``sum`` and ``prod`` members of a float input, in order."""
+    from thunder_tpu_torch.core.prims import PrimIDs
+
+    return [b for b in region.members
+            if b.sym.id in (PrimIDs.SUM, PrimIDs.PROD) and b.args[0].dtype.is_float]
+
+
+def moved_chain(region, vals, sign: int, which: int, depths: list) -> tuple:
+    """``region``'s plain chain with its ``which``-th float sum or product
+    (of its members, in order) set to the exact value (in float64) moved
+    by ``sign`` times its bound, then rounded to its dtype: a sum's
+    :func:`sum_bound` at its depth in the kernel's order (``depths``, one
+    a float sum, in order) and that float64 sum's own bound, a product's
+    :func:`prod_bound` (any order) and the float64 product's own; every
+    other member as torch computes it: with ``sign`` +1 and -1 the chain at
+    either end of what the kernel's value may be. Returns the outputs and
+    whether that value has a bound above 0."""
     from thunder_tpu_torch.core.prims import PrimIDs
     from thunder_tpu_torch.core.symbol import run_bsyms
 
     env = dict(zip(region.input_names, vals))
+    folds = _float_folds(region)
+    sums = [b for b in folds if b.sym.id is PrimIDs.SUM]
     k, moved = 0, False
     for b in region.members:
         x = b.args[0]
-        if b.sym.id is PrimIDs.SUM and x.dtype.is_float:
+        if any(b is f for f in folds):
             if k == which:
                 t, dims = env[x.name], tuple(b.args[1])
-                exact = torch.sum(t.double(), dims)
-                bound = sum_bound(t, dims, depth) + sum_bound(t.double(), dims)
+                if b.sym.id is PrimIDs.PROD:
+                    dims = tuple(d % t.ndim for d in dims)
+                    kept = [d for d in range(t.ndim) if d not in dims]
+                    exact = torch.prod(t.double().permute(kept + list(dims)).flatten(len(kept)),
+                                       -1)
+                    bound = prod_bound(t, dims) + prod_bound(t.double(), dims)
+                else:
+                    d = depths[next(i for i, f in enumerate(sums) if f is b)]
+                    exact = torch.sum(t.double(), dims)
+                    bound = sum_bound(t, dims, d) + sum_bound(t.double(), dims)
                 moved = bool((bound > 0).any())
                 s = exact + sign * bound
                 out = b.flat_proxy_outs()[0]
@@ -378,14 +423,17 @@ def hold_region(region, vals, sms: int | None = None) -> dict:
     without reductions holding a transcendental op (``regionex.TRANSCENDENTAL``)
     is held within 1 ulp, any other bit for bit (``ok``).
 
-    A region with row reductions: ``amax``, ``amin``, ``argmax`` and
-    ``argmin`` bit for bit; each float ``sum`` may be off the exact sum by
-    its :func:`sum_bound` in the kernel's order (``regionex.sum_depth`` of
-    the launch on ``sms`` SMs, :func:`region_sum_depth`), so every output
-    is held to what that moves it by in the plain chain
-    (:func:`moved_chain`, each sum set to either end of its bound alone,
-    the others as torch computes them): a float within the sum over the
-    region's sums of the larger of its two distances from the chain's value
+    A region with reductions (the row or the column design): ``amax``,
+    ``amin``, ``argmax`` and ``argmin`` bit for bit; each float ``sum`` may
+    be off the exact sum by its :func:`sum_bound` in the kernel's order
+    (``regionex.sum_depths`` of the launch on ``sms`` SMs,
+    :func:`region_sum_depths`: a row sum, a column sum's partials and
+    their tree, a column-design sum each their own), each float ``prod``
+    off the exact product by its :func:`prod_bound`, so every output is
+    held to what that moves it by in the plain chain (:func:`moved_chain`,
+    each sum or product set to either end of its bound alone, the others
+    as torch computes them): a float within the sum over the region's sums
+    and products of the larger of its two distances from the chain's value
     (the sums' errors are independent; moved together, two sums' moves can
     cancel where their errors do not, as in a norm's backward), plus 1 ulp
     of its dtype where the region holds a transcendental op (as an
@@ -395,8 +443,9 @@ def hold_region(region, vals, sms: int | None = None) -> dict:
     ``unstable`` counts those elements, and ``ok`` holds them to 0 too, so
     a check on inputs that sit that close to a decision fails rather than
     passing unheld. ``sum_slack`` is the largest error over the allowance
-    (at most 1 where ``ok``); ``exact_sums`` counts the float sums whose
-    bound is 0 (integer summands: the kernel's sum must be exact)."""
+    (at most 1 where ``ok``); ``sums`` counts the float sums and products,
+    ``exact_sums`` those whose bound is 0 (integer terms: the kernel's
+    value must be exact); ``depth`` is the deepest sum's depth."""
     got = region(*vals)
     want = region.plain(*vals)
     ulp, same = 0, True
@@ -415,14 +464,15 @@ def hold_region(region, vals, sms: int | None = None) -> dict:
             ulp = max(ulp, 0 if torch.equal(g, w) else 1 << 30)
     out = {"ops": len(region.members), "transcendental": region.spec.transcendental,
            "ulp": ulp, "bit_identical": same}
-    if region.spec.rows is None:
+    if region.spec.design == "elementwise":
         return dict(out, ok=same or (region.spec.transcendental and ulp <= 1))
-    depth = region_sum_depth(region, vals, sms)
-    n_sums = sum(1 for b in region.members if b.sym.name == "sum" and b.args[0].dtype.is_float)
+    depths = region_sum_depths(region, vals, sms)
+    depth = max(depths, default=0)
+    n_sums = len(_float_folds(region))
     moves, exact = [], 0
     for j in range(n_sums):
         for sign in (1, -1):
-            chain, moved = moved_chain(region, vals, sign, j, depth)
+            chain, moved = moved_chain(region, vals, sign, j, depths)
             moves.append(chain)
         exact += not moved
     slack, ok, unstable = 0.0, True, 0
